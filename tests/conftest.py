@@ -31,3 +31,6 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running e2e test")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (rtpose_tpu_torch kernels); "
+        "skips without one")
