@@ -6,21 +6,31 @@ Hopper card.
 
 Builds the hand-written CUDA kernels from rtpose_tpu_torch/csrc, holds
 each against its plain PyTorch version on the card, decodes rendered
-scenes on the card and on the CPU, then drives the serving path (VGG19,
-6 stages, 368 px, flip TTA, bf16, seeded random weights) through
-``load_pipeline`` / ``run`` / ``run_batch`` and checks that both kernels
-were launched by it.  Prints timings beside the card's name and power
-limit, a JSON line of per-kernel results, and as the last line
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
-code is not 0.  Needs one CUDA card of compute capability 9.0; imports
-nothing of JAX or of the JAX package (rtpose_tpu).
+scenes on the card and on the CPU, then drives the two paths of the port
+through the entry points a user calls:
+
+- serving (VGG19, 6 stages, 368 px, flip TTA, bf16, seeded random
+  weights) through ``load_pipeline`` / ``run`` / ``run_batch``;
+- training (the same model, batch 72, bf16, freeze phase on, seeded He
+  weights) through ``Trainer.run_epoch`` on rendered scenes: the loss
+  falls, the frozen convs stay and then move, a NaN batch is skipped, and
+  a trainer restored from a checkpoint takes the next step bit-equal;
+
+and checks that each path launched its kernels.  Also holds one fp32
+train step on the card against the CPU.  Prints timings beside the card's
+name and power limit, a JSON line of per-kernel results, and as the last
+line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+exit code is not 0.  Needs one CUDA card of compute capability 9.0;
+imports nothing of JAX or of the JAX package (rtpose_tpu).
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -31,6 +41,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SSUM_TOL = 1e-5        # PAF sample sums, kernel vs plain (same fp32 ops)
 SCORE_TOL = 1e-5       # refine scores and people scores
 FWD_REL_TOL = 2e-4     # fp32 forward card vs CPU, relative to max |CPU|
+GT_TOL = 1e-6          # ground-truth maps, K4 vs plain
+STEP_LOSS_RTOL = 1e-4  # fp32 train step card vs CPU: the loss
+STEP_UPD_TOL = 1e-2    # ... and each tensor's update, L2 error over L2
+                       # norm: cuDNN and oneDNN sum the gradients in
+                       # other orders, which grows through the backward
+                       # pass (3.3e-4 seen in the stage-4 to 6 convs)
+TRAIN_BATCH = 72       # experiments/vgg19_368x368_sgd.yaml
+SERVING_KERNELS = ("paf_sample_scores", "bicubic_refine")
+SLOTS = 32             # person slots per image (MAX_PEOPLE_PER_IMAGE)
 
 
 def log(*args) -> None:
@@ -142,6 +161,46 @@ def scenes(n_frames: int, h: int, w: int, grid, seed0: int):
     return np.stack(heats), np.stack(pafs)
 
 
+def train_batch(n: int, size: int, seed: int):
+    """A training batch of rendered scenes: uint8 RGB images of people
+    drawn as part disks and limb strokes on noise, their (n, SLOTS, 18, 3)
+    keypoints, and full content windows.  Image i holds i % 9 persons
+    (so 0 to 8, and some images none); images with 8 leave slot 1
+    all-invisible in the middle of the padding."""
+    from rtpose_tpu_torch.skeleton import LIMBS, NUM_PARTS
+    rng = np.random.RandomState(seed)
+    images = rng.randint(40, 120, (n, size, size, 3)).astype(np.uint8)
+    kps = np.zeros((n, SLOTS, NUM_PARTS, 3), np.float32)
+    colours = [(37 * p % 255, 91 * p % 255, 255 - 13 * p % 255)
+               for p in range(NUM_PARTS)]
+
+    def paint(img, x, y, r, colour):
+        xi, yi = int(round(x)), int(round(y))
+        img[max(yi - r, 0):max(yi + r + 1, 0),
+            max(xi - r, 0):max(xi + r + 1, 0)] = colour
+
+    for b in range(n):
+        count = b % 9
+        for p in range(count):
+            slot = p + 1 if count == 8 and p >= 1 else p
+            s = rng.uniform(0.3, 0.7) * size
+            person = _person(rng.uniform(0.3, 0.7) * size,
+                             rng.uniform(0.3, 0.7) * size, s, rng, 0.01)
+            vis = rng.rand(NUM_PARTS) < 0.85
+            kps[b, slot, :, :2] = person
+            kps[b, slot, :, 2] = 2.0 * vis
+            for a, c in LIMBS:
+                if vis[a] and vis[c]:
+                    for t in np.linspace(0.0, 1.0, 24):
+                        paint(images[b], *(person[a] + t * (person[c]
+                                                            - person[a])),
+                              1, (230, 230, 230))
+            for part in np.nonzero(vis)[0]:
+                paint(images[b], *person[part], 4, colours[part])
+    window = np.tile(np.array([0, 0, size, size], np.int32), (n, 1))
+    return {"image": images, "keypoints": kps, "valid_xywh": window}
+
+
 def people_equal(a, b, what: str) -> None:
     for f in ("coords", "valid", "truncated"):
         check(np.array_equal(getattr(a, f), getattr(b, f)),
@@ -246,6 +305,53 @@ def main() -> int:
             results["bicubic_refine"] = dict(max_abs_err=err, ms=ms,
                                              plain_ms=plain_ms)
 
+        # the blurred refine (nms gaussian_filt=True) on the same peaks
+        my_k, mx_k, sc_k = kernels.bicubic_refine(hb, py, px,
+                                                  gaussian_filt=True)
+        my_p, mx_p, sc_p = kernels.bicubic_refine_plain(hb, py, px,
+                                                        gaussian_filt=True)
+        torch.cuda.synchronize()
+        check(torch.equal(my_k, my_p) and torch.equal(mx_k, mx_p),
+              f"refine gaussian_filt K={K}: coordinates differ")
+        err = float((sc_k - sc_p).abs().max())
+        check(err <= SCORE_TOL, f"refine gaussian_filt K={K}: score max err "
+              f"{err}")
+        ms, plain_ms = paired_ms(
+            lambda: kernels.bicubic_refine(hb, py, px, gaussian_filt=True),
+            lambda: kernels.bicubic_refine_plain(hb, py, px,
+                                                 gaussian_filt=True), 20)
+        log(f"bicubic_refine gaussian_filt K={K} B=8: coordinates equal, "
+            f"score max err {err:.3g}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms [{smi}]")
+        if K == 32:
+            results["bicubic_refine"].update(gaussian_filt_max_abs_err=err,
+                                             gaussian_filt_ms=ms,
+                                             gaussian_filt_plain_ms=plain_ms)
+
+    # 4b. ground-truth synthesis kernel (K4) vs plain at the training
+    # shape: 72 images, 32 person slots, 46x46 grid
+    from rtpose_tpu_torch.data.gt import limb_scalars, person_bound
+    kps = torch.from_numpy(train_batch(TRAIN_BATCH, 368, seed=1)
+                           ["keypoints"]).to(dev)
+    limbs, n_pers = limb_scalars(kps, 8), person_bound(kps)
+    gt_args = dict(grid_y=46, grid_x=46, stride=8, sigma=7.0)
+    heat_k, paf_k = kernels.gt_maps(kps, limbs, n_pers, **gt_args)
+    heat_p, paf_p = kernels.gt_maps_plain(kps, limbs, n_pers, **gt_args)
+    torch.cuda.synchronize()
+    err = max(float((heat_k - heat_p).abs().max()),
+              float((paf_k - paf_p).abs().max()))
+    check(heat_k.shape == (TRAIN_BATCH, 46, 46, 19)
+          and paf_k.shape == (TRAIN_BATCH, 46, 46, 38), "gt_maps shapes")
+    check(err <= GT_TOL, f"gt_maps: max err {err} vs plain")
+    ms, plain_ms = paired_ms(
+        lambda: kernels.gt_maps(kps, limbs, n_pers, **gt_args),
+        lambda: kernels.gt_maps_plain(kps, limbs, n_pers, **gt_args), 20)
+    results["gt_maps"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    log(f"gt_maps B={TRAIN_BATCH} N={SLOTS} 46x46 ({int(n_pers.sum())} "
+        f"person slots visited, persons per image {n_pers.min().item()}-"
+        f"{n_pers.max().item()}): max err {err:.3g}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms [{smi}]")
+
     # 5. decode on the card vs the same maps decoded on the CPU
     h32, p32 = torch.from_numpy(heat32), torch.from_numpy(paf32)
     got = people_to_host(decode_poses_batch(h32.to(dev), p32.to(dev)))
@@ -298,8 +404,10 @@ def main() -> int:
           "non-finite maps")
     check(len(people8) == 8 and [m["padded_shape"] for m in metas8[-2:]]
           == [(368, 496, 3)] * 2, "run_batch results")
-    for name, n in counts.items():
-        check(n > 0, f"{name} was not launched by the serving path")
+    for name in SERVING_KERNELS:
+        check(counts[name] > 0, f"{name} was not launched by the serving "
+              f"path")
+    check(counts["gt_maps"] == 0, "the serving path launched gt_maps")
     log(f"serving: run -> maps {heat1.shape}/{paf1.shape} finite, "
         f"{len(people1)} people; run_batch(8 mixed) -> "
         f"{[len(p) for p in people8]} people; launches {counts}")
@@ -372,15 +480,133 @@ def main() -> int:
     log(f"e2e run_batch 8 frames 480x640 -> 368x496, flip TTA, bf16: "
         f"{e2e_ms:.1f} ms/batch = {8e3 / e2e_ms:.1f} frames/s [{smi}]")
 
+    # 8. training main path: the flagship VGG19 (6 stages, 368 px, bf16,
+    # batch 72, freeze phase on) from seeded He weights with the
+    # from-scratch recipe's clip (experiments/vgg19_368x368_scratch.yaml),
+    # on one fixed batch of rendered scenes, through Trainer.run_epoch;
+    # uint8 images with their content windows.  lr 0.02, not the recipe's
+    # 0.1: on one fixed batch 0.1 spikes (0.22 -> 5.1 at step 6 on an H100)
+    # and 0.02 falls step after step
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.train.checkpoint import CheckpointManager
+    from rtpose_tpu_torch.train.trainer import Trainer
+    del pipe
+    cfg = Config()
+    cfg.model.init_scheme = "scratch"
+    cfg.train.lr, cfg.train.clip_grad_norm = 0.02, 1.0
+    check((cfg.model.name, cfg.model.num_stages, cfg.dataset.image_size,
+           cfg.model.dtype, cfg.train.batch_size) ==
+          ("vgg19", 6, 368, "bfloat16", TRAIN_BATCH)
+          and cfg.train.freeze_base_epochs > 0, "flagship config")
+    batch = train_batch(TRAIN_BATCH, 368, seed=2)
+    trainer = Trainer(cfg, device=dev)
+    w0 = trainer.params["model0.0.weight"].detach().clone()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses = [trainer.run_epoch([batch])["loss"] for _ in range(8)]
+    frozen_kept = torch.equal(trainer.params["model0.0.weight"], w0)
+    trainer.epoch = cfg.train.freeze_base_epochs
+    trainer.maybe_release_backbone()
+    losses += [trainer.run_epoch([batch])["loss"] for _ in range(2)]
+    released_moved = not torch.equal(trainer.params["model0.0.weight"], w0)
+
+    def snapshot(tr):
+        return ([p.detach().clone() for p in tr.params.values()]
+                + [st["momentum_buffer"].clone()
+                   for st in tr.optimizer.state.values()])
+
+    before = snapshot(trainer)
+    nan_logs = trainer.run_epoch([{
+        "image": np.full((TRAIN_BATCH, 368, 368, 3), np.nan, np.float32),
+        "keypoints": batch["keypoints"]}])
+    nan_kept = all(torch.equal(a, b)
+                   for a, b in zip(before, snapshot(trainer)))
+    del before
+    ckpt_dir = os.path.join(ROOT, "checkpoints", "chip_smoke")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = CheckpointManager(ckpt_dir, keep=1)
+    ckpt.save(trainer.state_dict(), step=trainer.step,
+              meta={"epoch": trainer.epoch})
+    fresh = Trainer(cfg, device=dev)
+    fresh.restore(ckpt.restore_latest(dev))
+    shutil.rmtree(ckpt_dir)
+    step_args = (batch["image"], batch["keypoints"], None,
+                 batch["valid_xywh"])
+    resumed = (trainer.train_step(*step_args)["loss"],
+               fresh.train_step(*step_args)["loss"])
+    torch.cuda.synchronize()
+    train_counts = kernels.launch_counts()
+    del fresh
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"training loss did not fall: {losses}")
+    check(frozen_kept, "model0.0.weight moved during the freeze")
+    check(released_moved, "model0.0.weight did not move after the release")
+    check(nan_logs["skipped_nonfinite"] == 1.0 and nan_kept,
+          "the NaN batch changed parameters or momentum")
+    check(resumed[0] == resumed[1], f"restored trainer's next loss "
+          f"{resumed[1]!r} != {resumed[0]!r}")
+    check(train_counts["gt_maps"] > 0, "train_step did not launch gt_maps")
+    log(f"training bf16 6 stages 368x368 batch {TRAIN_BATCH}: losses "
+        f"{[round(x, 6) for x in losses]} (8 frozen, 2 released); "
+        f"model0.0 kept in the freeze, moved after; NaN batch skipped, "
+        f"params and momentum bit-identical; restored trainer's next loss "
+        f"bit-equal ({resumed[0]!r}); launches {train_counts}")
+
+    # 9. train step timing at the flagship batch (freeze released)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, _ = timed(lambda: trainer.train_step(*step_args), iters=5)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"train step bf16 6 stages 368x368 batch {TRAIN_BATCH} (GT on the "
+        f"card, one host readback): {step_ms:.1f} ms/step = "
+        f"{TRAIN_BATCH * 1e3 / step_ms:.1f} img/s; peak memory "
+        f"{peak_gib:.2f} GiB; gt_maps {results['gt_maps']['ms']:.4f} ms of "
+        f"it [{smi}]")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 10. one fp32 train step (TF32 off) on the card vs the CPU, batch 2
+    # at 368 px, from the same seeded weights
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.model.dtype = "float32"
+    small = train_batch(2, 368, seed=3)
+    args32 = (small["image"], small["keypoints"], None, small["valid_xywh"])
+    sides = {}
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        tr = Trainer(cfg32, device=device)
+        p0 = {k: v.detach().cpu().clone() for k, v in tr.params.items()}
+        loss = tr.train_step(*args32)["loss"]
+        sides[name] = (loss, {k: v.detach().cpu() - p0[k]
+                              for k, v in tr.params.items()})
+        del tr
+    (l_cpu, d_cpu), (l_card, d_card) = sides["cpu"], sides["card"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    upd, worst = 0.0, None
+    for k, d in d_cpu.items():
+        norm = float(d.norm())
+        err = float((d_card[k] - d).norm())
+        check(norm > 0 or err == 0, f"fp32 step: {k} moved on one side")
+        if norm and err / norm > upd:
+            upd, worst = err / norm, k
+    check(rel <= STEP_LOSS_RTOL, f"fp32 train step loss rel err {rel}")
+    check(upd <= STEP_UPD_TOL, f"fp32 train step update rel err {upd}")
+    log(f"fp32 train step card vs CPU, 6 stages 368x368 batch 2: loss "
+        f"{l_card!r} vs {l_cpu!r} (rel {rel:.3g}, bound {STEP_LOSS_RTOL}); "
+        f"updates: L2 error over L2 norm at most {upd:.3g} per tensor "
+        f"(at {worst}; bound {STEP_UPD_TOL})")
+
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
         "paf_sample_scores": ("rtpose_tpu_torch/csrc/paf_sample.cu",
                               "rtpose_tpu/ops/pallas_kernels.py:214",
                               "rtpose_tpu/ops/pallas_kernels.py:172"),
         "bicubic_refine": ("rtpose_tpu_torch/csrc/bicubic_refine.cu",
                            "rtpose_tpu/ops/pallas_kernels.py:258", None),
+        "gt_maps": ("rtpose_tpu_torch/csrc/gt_maps.cu",
+                    "rtpose_tpu/ops/pallas_gt.py:130", None),
     }
+    launches = {**{k: counts[k] for k in SERVING_KERNELS},
+                "gt_maps": train_counts["gt_maps"]}
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=counts[name], **results[name],
+                 launches=launches[name], **results[name],
                  **({"also_replaces": also} if also else {}))
             for name, (src, rep, also) in sources.items()]
     print(json.dumps({"kernels": rows}), flush=True)

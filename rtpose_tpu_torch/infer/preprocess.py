@@ -11,8 +11,8 @@ from typing import Tuple
 
 import torch
 
-_VGG_MEAN = (0.485, 0.456, 0.406)
-_VGG_STD = (0.229, 0.224, 0.225)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)   # RGB, as the training loader's
+IMAGENET_STD = (0.229, 0.224, 0.225)
 _SSD_MEAN = (104.0, 117.0, 123.0)
 
 
@@ -38,8 +38,8 @@ def normalize_device(images_u8: torch.Tensor, mode: str) -> torch.Tensor:
         return x / 256.0 - 0.5
     if mode == "vgg":
         rgb = x.flip(-1) / 255.0
-        return ((rgb - torch.tensor(_VGG_MEAN, device=dev))
-                / torch.tensor(_VGG_STD, device=dev))
+        return ((rgb - torch.tensor(IMAGENET_MEAN, device=dev))
+                / torch.tensor(IMAGENET_STD, device=dev))
     if mode == "inception":
         return x.flip(-1) / 128.0 - 1.0
     if mode == "ssd":

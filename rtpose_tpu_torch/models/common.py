@@ -19,6 +19,7 @@ from typing import List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..skeleton import NUM_HEATMAPS, NUM_PAF_CHANNELS
 
@@ -69,6 +70,26 @@ def conv_init(module: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
 
 
+@torch.no_grad()
+def he_reinit(module: nn.Module, generator: torch.Generator) -> None:
+    """Re-draw every hidden conv weight He-normal (std sqrt(2 / fan_in)),
+    in module order (port of rtpose_tpu/models/common.py:65-112).
+
+    The reference's N(0, 0.01) init pairs with the ImageNet-pretrained
+    trunk; from scratch, activations decay through the 10-conv trunk and
+    the network cannot train (``cfg.model.init_scheme = "scratch"``).  The
+    output head of every stage branch keeps its reference init, so the
+    first predictions sit near the background and the loss starts small;
+    biases are left as they are.
+    """
+    heads = {id(m[-1]) for m in module.modules()
+             if isinstance(m, (CPMStage1, CPMStageT))}
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d) and id(m) not in heads:
+            fan_in = m.weight[0].numel()
+            m.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=generator)
+
+
 def _branch(layers: List[nn.Module]) -> List[nn.Module]:
     """Interleave ReLUs after every conv but the last (the reference's
     nn.Sequential indices: convs at even positions)."""
@@ -109,16 +130,20 @@ class CPMStages(nn.Module):
     Submodules are ``model{t}_1`` (PAF) and ``model{t}_2`` (heatmaps), the
     reference's state_dict names; a backbone family passes its trunk,
     registered first as ``model0``, and runs it before :meth:`forward`.
+    `remat` recomputes each refinement branch in the backward pass
+    (``torch.utils.checkpoint``, the JAX package's ``nn.remat``), trading
+    step time for activation memory.
     """
 
     def __init__(self, feat_channels: int, num_stages: int = 6,
                  paf_channels: int = NUM_PAF_CHANNELS,
                  heat_channels: int = NUM_HEATMAPS,
-                 trunk: Optional[nn.Module] = None):
+                 trunk: Optional[nn.Module] = None, remat: bool = False):
         super().__init__()
         if trunk is not None:
             self.model0 = trunk
         self.num_stages = num_stages
+        self.remat = remat
         cat = paf_channels + heat_channels + feat_channels
         for t in range(1, num_stages + 1):
             mk, cin = (CPMStage1, feat_channels) if t == 1 else (CPMStageT,
@@ -133,8 +158,12 @@ class CPMStages(nn.Module):
         for t in range(1, self.num_stages + 1):
             if t > 1:
                 x = torch.cat([pafs[-1], heats[-1], features], dim=1)
-            pafs.append(getattr(self, f"model{t}_1")(x))
-            heats.append(getattr(self, f"model{t}_2")(x))
+            for branch, out in ((f"model{t}_1", pafs), (f"model{t}_2", heats)):
+                fn = getattr(self, branch)
+                if self.remat and t > 1 and torch.is_grad_enabled():
+                    out.append(checkpoint(fn, x, use_reentrant=False))
+                else:
+                    out.append(fn(x))
 
         def stack(maps):   # NCHW stages -> (S, B, h, w, C) fp32
             return torch.stack(maps).permute(0, 1, 3, 4, 2).float()

@@ -12,12 +12,13 @@ Module names and ``nn.Sequential`` indices are the reference's, so its
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
 
 from .common import CPMStages, Conv, ModelOutput, conv_init  # noqa: F401
+from .convert import torch_layout_map
 
 # (features, num_convs) per VGG block before each pool; then the CPM neck.
 _VGG_BLOCKS = ((64, 2), (128, 2), (256, 4), (512, 2))
@@ -44,8 +45,9 @@ class VGG19RTPose(CPMStages):
     """
 
     def __init__(self, num_stages: int = 6, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(128, num_stages, trunk=vgg19_trunk())
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
+        super().__init__(128, num_stages, trunk=vgg19_trunk(), remat=remat)
         self.dtype = dtype
         conv_init(self, generator if generator is not None
                   else torch.Generator().manual_seed(0))
@@ -53,3 +55,14 @@ class VGG19RTPose(CPMStages):
     def forward(self, images: torch.Tensor) -> ModelOutput:
         x = images.permute(0, 3, 1, 2).to(self.dtype)
         return super().forward(self.model0(x))
+
+    @staticmethod
+    def pretrained_conv_names() -> List[str]:
+        """Module names of the 10 ImageNet-pretrained VGG convs, frozen
+        during the first training phase (reference train_VGG19.py:305-320):
+        the JAX package's ``pretrained_conv_paths`` through the layout
+        map, ``model0.{0,2,5,7,10,12,14,16,19,21}``."""
+        vgg = {f"conv{b}_{c}" for b, (_, n) in enumerate(_VGG_BLOCKS, 1)
+               for c in range(1, n + 1)}
+        return [prefix for prefix, path in torch_layout_map(1)
+                if path[0] == "backbone" and path[1] in vgg]

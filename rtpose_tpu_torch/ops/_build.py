@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The ``.cu`` sources have plain C entry points; they are compiled by
-``nvcc`` into one shared library at first use and loaded with ``ctypes``.
+The ``.cu`` sources have plain C entry points; at first use ``nvcc``
+compiles them, one process per source and all at once, and links the
+objects into one shared library, loaded with ``ctypes``.
 The library lands in ``rtpose_tpu_torch/build/`` under a name that carries
 a hash of the sources and flags, so an edited source is never served by a
 stale library.  Nothing is built or imported when this module is imported.
@@ -22,17 +23,22 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# -fmad=false: no source may contract a product into an FMA, so each
+# kernel rounds exactly as its plain PyTorch version does
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "rtpose_paf_pair_channels": (_P, _P),
     "rtpose_paf_sample": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "rtpose_bicubic_refine": (_P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _P),
+    "rtpose_bicubic_refine": (_P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _P),
+    "rtpose_gt_maps": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _F, _F, _F, _F, _P),
 }
 
 
@@ -75,18 +81,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"librtpose_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> str:
+    log = ""
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        log += stderr + stdout
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{stderr}{stdout}")
+    return log
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
 def _compile(out: Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, out)      # atomic: a concurrent loader sees all or none
-    return proc.stderr + proc.stdout
+    tag = f"{out.stem}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    nvcc = _nvcc()
+    try:
+        log = _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)])
+                    for s, o in zip(srcs, objs)])
+        log += _run([_start([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                             *map(str, objs)])])
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    finally:
+        for p in (tmp, *objs):
+            p.unlink(missing_ok=True)
+    return log
 
 
 def load() -> BuiltLibrary:

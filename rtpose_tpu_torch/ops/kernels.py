@@ -1,12 +1,17 @@
-"""Wrappers of the hand-written CUDA decode kernels and their plain versions.
+"""Wrappers of the hand-written CUDA kernels and their plain versions.
 
-Two kernels carry the decode's hot work (sources in ``csrc/``):
+Two kernels carry the decode's hot work and one the training step's
+ground truth (sources in ``csrc/``):
 
 - :func:`paf_sample_scores` (``csrc/paf_sample.cu``) replaces the TPU
   kernels ``paf_sample_scores_fused`` and ``paf_sample_scores`` of
   ``rtpose_tpu/ops/pallas_kernels.py``;
 - :func:`bicubic_refine` (``csrc/bicubic_refine.cu``) replaces
-  ``bicubic_refine`` of the same file.
+  ``bicubic_refine`` of the same file, and with ``gaussian_filt`` also
+  serves the blurred refine that the JAX package runs as
+  ``_refine_onehot`` (``rtpose_tpu/ops/peaks.py``);
+- :func:`gt_maps` (``csrc/gt_maps.cu``) replaces ``gt_maps_pallas`` of
+  ``rtpose_tpu/ops/pallas_gt.py``.
 
 A wrapper given CPU tensors runs the plain PyTorch version beside it; given
 CUDA tensors it launches the kernel or raises.  There is no fallback from
@@ -23,12 +28,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..skeleton import GROUP_PAIRS_NET, NUM_GROUP_PAIRS
+from ..skeleton import GROUP_PAIRS_NET, NUM_GROUP_PAIRS, NUM_LIMBS, NUM_PARTS
 
 STEP_PAF = 10
 THRESH_VECTOR_SCORE = 0.05
 PATCH = 5          # 5x5 refine window, reference paf_to_pose.py:100
 WIN = PATCH // 2
+LN100 = 4.6052     # gaussian support cutoff (reference heatmap.py:30)
+LIMB_FIELDS = 9    # ax, ay, ux, uy, valid, mnx, mxx, mny, mxy
 
 PAIR_CHX = np.array([c[0] for c in GROUP_PAIRS_NET], dtype=np.int64)
 PAIR_CHY = np.array([c[1] for c in GROUP_PAIRS_NET], dtype=np.int64)
@@ -72,8 +79,41 @@ def interp_matrices(factor: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def blur_matrices(factor: int, sigma: float = 3.0,
+                  truncate: float = 4.0) -> np.ndarray:
+    """(3, PATCH*factor, PATCH*factor) separable Gaussian blur matrices
+    (copied from rtpose_tpu/ops/peaks.py:99-127).
+
+    B[p] acts on an upsampled patch of extent n = (p+3)*factor as
+    scipy.ndimage.gaussian_filter(..., sigma, mode='reflect') along one
+    axis; rows and columns >= n are zero, so the invalid region neither
+    leaks in nor out.
+    """
+    r = int(truncate * sigma + 0.5)
+    k = np.arange(-r, r + 1, dtype=np.float64)
+    w = np.exp(-0.5 * (k / sigma) ** 2)
+    w /= w.sum()
+    size = PATCH * factor
+    out = np.zeros((3, size, size), dtype=np.float32)
+    for p, e in enumerate((3, 4, 5)):
+        n = e * factor
+        idx = np.arange(n)[:, None] + k[None, :].astype(np.int64)
+        # scipy 'reflect' (a a b c | period-2n sawtooth): -1 -> 0, n -> n-1
+        idx = np.mod(idx, 2 * n)
+        idx = np.where(idx >= n, 2 * n - 1 - idx, idx)
+        for j in range(2 * r + 1):
+            np.add.at(out[p], (np.arange(n), idx[:, j]), w[j])
+    return out
+
+
+@functools.lru_cache(maxsize=None)
 def _interp_matrices_on(device: torch.device, factor: int) -> torch.Tensor:
     return torch.as_tensor(interp_matrices(factor), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_matrices_on(device: torch.device, factor: int) -> torch.Tensor:
+    return torch.as_tensor(blur_matrices(factor), device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -206,10 +246,12 @@ def window_origin(py: torch.Tensor, px: torch.Tensor, H: int, W: int):
 
 
 def bicubic_refine_plain(heat: torch.Tensor, py: torch.Tensor,
-                         px: torch.Tensor, *, factor: int = 8
+                         px: torch.Tensor, *, factor: int = 8,
+                         gaussian_filt: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`bicubic_refine`: the per-peak
-    ``_refine`` of rtpose_tpu/ops/peaks.py:154-201, batched."""
+    ``_refine`` of rtpose_tpu/ops/peaks.py:154-201, batched, and with
+    `gaussian_filt` the blur of ``_refine_onehot`` (:249-257)."""
     B, P, H, W = heat.shape
     K = py.shape[-1]
     dev = heat.device
@@ -237,6 +279,17 @@ def bicubic_refine_plain(heat: torch.Tensor, py: torch.Tensor,
     for c in range(1, PATCH):
         up = up + tmp[..., c:c + 1] * mx_mat[..., None, :, c]
     n = PATCH * factor
+    if gaussian_filt:
+        # up = By @ up @ Bx^T, summed term by term in the kernel's order
+        blur = _blur_matrices_on(dev, factor)               # (3, n, n)
+        by_mat = blur[ph - 3]                               # (B, P, K, n, n)
+        bx_mat = blur[pw - 3]
+        by_up = by_mat[..., 0:1] * up[..., 0:1, :]
+        for r in range(1, n):
+            by_up = by_up + by_mat[..., r:r + 1] * up[..., r:r + 1, :]
+        up = by_up[..., 0:1] * bx_mat[..., None, :, 0]
+        for c in range(1, n):
+            up = up + by_up[..., c:c + 1] * bx_mat[..., None, :, c]
     i = torch.arange(n, device=dev)
     valid = (i[:, None] < (ph * factor)[..., None, None]) & \
         (i[None, :] < (pw * factor)[..., None, None])
@@ -249,17 +302,19 @@ def bicubic_refine_plain(heat: torch.Tensor, py: torch.Tensor,
 
 
 def bicubic_refine(heat: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
-                   *, factor: int = 8
+                   *, factor: int = 8, gaussian_filt: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sub-pixel refine of every peak.
 
     heat: (B, P, H, W) fp32 maps; py, px: (B, P, K) int32 peak cells.
     Returns (my, mx, score): the row-major first argmax (int32) of each
     peak's x`factor` bicubic-upsampled clipped 5x5 window and the value
-    there (fp32), each (B, P, K).
+    there (fp32), each (B, P, K).  With `gaussian_filt` the upsampled
+    window is blurred (sigma 3, reflect) before the argmax.
     """
     if _route(heat) == "cpu":
-        return bicubic_refine_plain(heat, py, px, factor=factor)
+        return bicubic_refine_plain(heat, py, px, factor=factor,
+                                    gaussian_filt=gaussian_filt)
     B, P, H, W = heat.shape
     K = py.shape[-1]
     dev = heat.device
@@ -272,13 +327,14 @@ def bicubic_refine(heat: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
                          f"H, W >= 3 and peaks of shape (B, P, K), got "
                          f"{tuple(py.shape)} / {tuple(px.shape)}")
     mats = _interp_matrices_on(dev, factor)
+    blur = _blur_matrices_on(dev, factor)
     my = torch.empty((B, P, K), dtype=torch.int32, device=dev)
     mx = torch.empty((B, P, K), dtype=torch.int32, device=dev)
     score = torch.empty((B, P, K), dtype=torch.float32, device=dev)
     if B * P * K:
         _launch("rtpose_bicubic_refine", dev, _ptr(heat), _ptr(py), _ptr(px),
-                _ptr(mats), _ptr(my), _ptr(mx), _ptr(score), B * P * K, K, H,
-                W, factor)
+                _ptr(mats), _ptr(blur), _ptr(my), _ptr(mx), _ptr(score),
+                B * P * K, K, H, W, factor, int(gaussian_filt))
         bicubic_refine.launches += 1
     return my, mx, score
 
@@ -286,11 +342,115 @@ def bicubic_refine(heat: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
 bicubic_refine.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# ground-truth heatmaps and PAFs (K4)
+# ---------------------------------------------------------------------------
+
+def _gt_constants(stride: float, sigma: float):
+    """Cell-centre offset and 1/(2 sigma^2), rounded to fp32 as the JAX
+    kernel's Python scalars are."""
+    start = float(np.float32(stride / 2.0 - 0.5))
+    inv2s = float(np.float32(1.0 / (2.0 * sigma * sigma)))
+    return start, inv2s
+
+
+def gt_maps_plain(keypoints: torch.Tensor, limbs: torch.Tensor,
+                  n_persons: torch.Tensor, *, grid_y: int, grid_x: int,
+                  stride: float, sigma: float, limb_width: float = 1.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`gt_maps`: a loop over the N person
+    slots, each term computed and summed in the kernel's order."""
+    B, N = keypoints.shape[:2]
+    dev = keypoints.device
+    f32 = torch.float32
+    start, inv2s = _gt_constants(stride, sigma)
+    gx = torch.arange(grid_x, dtype=f32, device=dev)[None, None, None, :]
+    gy = torch.arange(grid_y, dtype=f32, device=dev)[None, None, :, None]
+    xx = gx * float(stride) + start
+    yy = gy * float(stride) + start
+    ln100 = float(np.float32(LN100))
+    lw = float(np.float32(limb_width))
+    heat = torch.zeros((B, NUM_PARTS, grid_y, grid_x), dtype=f32, device=dev)
+    sx = torch.zeros((B, NUM_LIMBS, grid_y, grid_x), dtype=f32, device=dev)
+    sy = torch.zeros_like(sx)
+    cnt = torch.zeros_like(sx)
+    for p in range(N):
+        active = (n_persons > p)[:, None, None, None]
+        kx, ky, kv = (keypoints[:, p, :, i, None, None] for i in range(3))
+        dx = xx - kx
+        dy = yy - ky
+        expo = (dx * dx + dy * dy) * inv2s
+        heat = heat + torch.where(active & (expo <= ln100) & (kv > 0.5),
+                                  torch.exp(-expo), 0.0)
+        ax, ay, ux, uy, lv, mnx, mxx, mny, mxy = (
+            limbs[:, p, :, i, None, None] for i in range(LIMB_FIELDS))
+        perp = ((gx - ax) * uy - (gy - ay) * ux).abs()
+        m = (active & (perp < lw) & (gx >= mnx) & (gx < mxx) & (gy >= mny)
+             & (gy < mxy) & (lv > 0.5))
+        sx = sx + torch.where(m, ux, 0.0)
+        sy = sy + torch.where(m, uy, 0.0)
+        cnt = cnt + m.to(f32)
+    bg = (1.0 - heat.amax(dim=1).clamp(min=0.0)).clamp(min=0.0)
+    heat = torch.cat([heat.clamp(max=1.0), bg[:, None]], dim=1)
+    div = cnt.clamp(min=1.0)
+    paf = torch.stack([sx / div, sy / div], dim=2).reshape(
+        B, 2 * NUM_LIMBS, grid_y, grid_x)
+    return heat.permute(0, 2, 3, 1).contiguous(), \
+        paf.permute(0, 2, 3, 1).contiguous()
+
+
+def gt_maps(keypoints: torch.Tensor, limbs: torch.Tensor,
+            n_persons: torch.Tensor, *, grid_y: int, grid_x: int,
+            stride: float, sigma: float, limb_width: float = 1.0
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ground-truth part heatmaps and PAFs of a batch.
+
+    keypoints: (B, N, 18, 3) fp32 [x, y, v] in input pixels.
+    limbs: (B, N, 19, 9) fp32 limb scalars [ax, ay, ux, uy, valid, mnx,
+        mxx, mny, mxy] in grid units (``data.gt.limb_scalars``).
+    n_persons: (B,) int32, the person slots to visit per image.
+    Returns heat (B, grid_y, grid_x, 19) and PAF (B, grid_y, grid_x, 38),
+    fp32: Gaussian parts clipped at 1 plus the background, and unit
+    vectors averaged over overlapping limbs (channels 2l, 2l+1).
+    """
+    if _route(keypoints) == "cpu":
+        return gt_maps_plain(keypoints, limbs, n_persons, grid_y=grid_y,
+                             grid_x=grid_x, stride=stride, sigma=sigma,
+                             limb_width=limb_width)
+    B, N = keypoints.shape[:2]
+    dev = keypoints.device
+    _check("keypoints", keypoints, torch.float32, 4, dev)
+    _check("limbs", limbs, torch.float32, 4, dev)
+    _check("n_persons", n_persons, torch.int32, 1, dev)
+    if tuple(keypoints.shape[2:]) != (NUM_PARTS, 3) \
+            or tuple(limbs.shape) != (B, N, NUM_LIMBS, LIMB_FIELDS) \
+            or tuple(n_persons.shape) != (B,):
+        raise ValueError(f"gt_maps: keypoints {tuple(keypoints.shape)}, "
+                         f"limbs {tuple(limbs.shape)}, n_persons "
+                         f"{tuple(n_persons.shape)} do not match (B,N,18,3), "
+                         f"(B,N,19,9), (B,)")
+    start, inv2s = _gt_constants(stride, sigma)
+    heat = torch.empty((B, grid_y, grid_x, NUM_LIMBS), dtype=torch.float32,
+                       device=dev)
+    paf = torch.empty((B, grid_y, grid_x, 2 * NUM_LIMBS),
+                      dtype=torch.float32, device=dev)
+    if B * grid_y * grid_x:
+        _launch("rtpose_gt_maps", dev, _ptr(keypoints), _ptr(limbs),
+                _ptr(n_persons), _ptr(heat), _ptr(paf), B, N, grid_y, grid_x,
+                float(stride), start, inv2s, float(limb_width))
+        gt_maps.launches += 1
+    return heat, paf
+
+
+gt_maps.launches = 0
+
+_COUNTED = (paf_sample_scores, bicubic_refine, gt_maps)
+
+
 def reset_launch_counts() -> None:
-    paf_sample_scores.launches = 0
-    bicubic_refine.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"paf_sample_scores": paf_sample_scores.launches,
-            "bicubic_refine": bicubic_refine.launches}
+    return {fn.__name__: fn.launches for fn in _COUNTED}

@@ -79,12 +79,14 @@ def peak_candidates(heat: torch.Tensor, *, thresh: float, max_peaks: int):
 
 
 def refine_peaks(heat: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
-                 *, factor: int = 8):
+                 *, factor: int = 8, gaussian_filt: bool = False):
     """Sub-pixel refine of integer peaks (B, P, K) on (B, P, H, W) maps
     through the refine kernel -> (xf, yf, score) in the upsampled frame
-    (the JAX package's peaks.py:297-315)."""
+    (the JAX package's peaks.py:297-315; with `gaussian_filt`, its
+    blurred ``_refine_onehot``, :249-257)."""
     H, W = heat.shape[-2:]
-    my, mx, score = bicubic_refine(heat, py, px, factor=factor)
+    my, mx, score = bicubic_refine(heat, py, px, factor=factor,
+                                   gaussian_filt=gaussian_filt)
     y_min, x_min, _, _ = window_origin(py, px, H, W)
     cy = (py - y_min + 0.5) * factor - 0.5
     cx = (px - x_min + 0.5) * factor - 0.5
@@ -96,15 +98,18 @@ def refine_peaks(heat: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
 def nms(heatmaps: torch.Tensor, *, factor: int = 8, thresh: float = 0.1,
         max_peaks: int = 32, refine: bool = True,
         gaussian_filt: bool = False) -> Peaks:
-    """Fixed-shape NMS over (B, H, W, C >= NUM_PARTS) heatmaps."""
-    if gaussian_filt:
-        raise NotImplementedError(
-            "gaussian_filt refine is not ported yet (ROADMAP.md, queue 1)")
+    """Fixed-shape NMS over (B, H, W, C >= NUM_PARTS) heatmaps.
+
+    `gaussian_filt` applies the reference's optional sigma=3 smoothing of
+    the upsampled refine window (paf_to_pose.py:121-122, default off
+    there too) before the argmax.
+    """
     heat = heatmaps[..., :NUM_PARTS].permute(0, 3, 1, 2).float().contiguous()
     scores0, py, px, valid, truncated = peak_candidates(
         heat, thresh=thresh, max_peaks=max_peaks)
     if refine:
-        xf, yf, score = refine_peaks(heat, py, px, factor=factor)
+        xf, yf, score = refine_peaks(heat, py, px, factor=factor,
+                                     gaussian_filt=gaussian_filt)
     else:
         xf = (px + 0.5) * factor - 0.5
         yf = (py + 0.5) * factor - 0.5

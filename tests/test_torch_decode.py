@@ -84,9 +84,47 @@ def test_nms_truncates_like_jax():
         np.testing.assert_array_equal(got.x[0].numpy(), np.asarray(want.x))
 
 
-def test_gaussian_filt_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        peaks.nms(torch.zeros((1, 8, 8, 19)), gaussian_filt=True)
+@pytest.mark.parametrize("seed,n_people", [(0, 1), (1, 3), (7, 4)])
+def test_nms_gaussian_filt_matches_jax(seed, n_people):
+    """The blurred refine (the reference's optional sigma=3 smoothing)
+    against the JAX package's ``_refine_onehot`` path: integer
+    coordinates equal, scores within 1e-5."""
+    _, heat, _ = synth_example(seed=seed, n_people=n_people)
+    want = jpeaks.nms(jnp.asarray(heat), gaussian_filt=True)
+    got = peaks.nms(torch.from_numpy(heat)[None], gaussian_filt=True)
+    plain = peaks.nms(torch.from_numpy(heat)[None])
+    assert int(got.valid.sum()) > 10
+    assert not torch.equal(got.score, plain.score)     # the blur acted
+    for f in ("x", "y", "valid", "truncated"):
+        np.testing.assert_array_equal(getattr(got, f)[0].numpy(),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    for f in ("xf", "yf", "score"):
+        np.testing.assert_allclose(getattr(got, f)[0].numpy(),
+                                   np.asarray(getattr(want, f)), atol=ATOL,
+                                   rtol=0, err_msg=f)
+
+
+@pytest.mark.parametrize("seed,H,W", [(0, 12, 12), (2, 7, 30)])
+def test_refine_gaussian_filt_matches_onehot(seed, H, W):
+    """Random maps and peaks at every border (clipped 3- and 4-wide
+    windows, whose blur reflects at the true window edge)."""
+    rng = np.random.RandomState(seed)
+    P, K = 18, 8
+    heat = rng.rand(P, H, W).astype(np.float32)
+    py = rng.randint(0, H, (P, K)).astype(np.int32)
+    px = rng.randint(0, W, (P, K)).astype(np.int32)
+    py[:, :4] = [0, H - 1, 1, H - 2]
+    px[:, :4] = [0, W - 1, W - 2, 1]
+    want = [np.asarray(a) for a in jpeaks._refine_onehot(
+        jnp.asarray(heat), jnp.asarray(py), jnp.asarray(px), 8,
+        gaussian_filt=True)]
+    got = [a[0].numpy() for a in peaks.refine_peaks(
+        torch.from_numpy(heat)[None], torch.from_numpy(py)[None],
+        torch.from_numpy(px)[None], gaussian_filt=True)]
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g.astype(np.int32), w.astype(np.int32))
+    np.testing.assert_allclose(got[2], want[2], atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("seed,n_people", [(0, 1), (1, 3), (3, 5), (4, 6)])

@@ -7,8 +7,9 @@ imports JAX, so run it there without the conftest:
     python -m pytest tests/test_torch_gpu.py -q --noconftest -p no:cacheprovider
 
 Tolerances: PAF sample counts and refine coordinates equal, sample sums
-and scores within 1e-5 (kernel and plain version round the same fp32
-operations in the same order, so they agree to the bit in practice).
+and scores within 1e-5, ground-truth maps within 1e-6 (kernel and plain
+version round the same fp32 operations in the same order, so they agree
+to the bit in practice).
 """
 
 import copy
@@ -18,16 +19,21 @@ import numpy as np
 import pytest
 import torch
 
+from rtpose_tpu_torch.config import Config
+from rtpose_tpu_torch.data.gt import ground_truth_maps_batch, limb_scalars, \
+    person_bound
 from rtpose_tpu_torch.infer.pipeline import PosePipeline
 from rtpose_tpu_torch.models import get_model
 from rtpose_tpu_torch.ops import kernels
 from rtpose_tpu_torch.ops.decode import decode_poses_batch, people_to_host
 from rtpose_tpu_torch.ops.grouping import candidate_geometry
 from rtpose_tpu_torch.ops.peaks import nms, peak_candidates
+from rtpose_tpu_torch.train.trainer import Trainer
 
 from util_synth import grid_people, render_maps, synth_example
 
 ATOL = 1e-5
+GT_ATOL = 1e-6
 
 
 @pytest.fixture
@@ -82,6 +88,67 @@ def test_refine_kernel_matches_plain(cuda, K, kind):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("K,kind", [(32, "synth"), (64, "grid")])
+def test_refine_gaussian_filt_kernel_matches_plain(cuda, K, kind):
+    heat, _ = _scenes(kind)
+    hb = heat[..., :18].permute(0, 3, 1, 2).contiguous().to(cuda)
+    _, py, px, _, _ = peak_candidates(hb, thresh=0.1, max_peaks=K)
+    my, mx, score = kernels.bicubic_refine(hb, py, px, gaussian_filt=True)
+    my_p, mx_p, score_p = kernels.bicubic_refine_plain(hb, py, px,
+                                                      gaussian_filt=True)
+    assert torch.equal(my, my_p) and torch.equal(mx, mx_p)
+    torch.testing.assert_close(score, score_p, rtol=0, atol=ATOL)
+
+
+def _keypoints(batch=8, slots=32, size=368, seed=0):
+    """Up to 8 visible persons per image, an image with none, and an
+    all-invisible row in the middle of the padding."""
+    rng = np.random.RandomState(seed)
+    kps = np.zeros((batch, slots, 18, 3), np.float32)
+    for b in range(batch):
+        for p in range(b % 9):
+            kps[b, p, :, :2] = rng.uniform(0, size - 1, (18, 2))
+            kps[b, p, :, 2] = rng.choice([0, 2], 18, p=[.3, .7])
+    kps[batch - 1, 1] = 0.0
+    return torch.from_numpy(kps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [(46, 46), (28, 40)])
+def test_gt_kernel_matches_plain(cuda, grid):
+    gy, gx = grid
+    kps = _keypoints(size=8 * max(gy, gx)).to(cuda)
+    limbs, n = limb_scalars(kps, 8), person_bound(kps)
+    before = kernels.gt_maps.launches
+    heat, paf = kernels.gt_maps(kps, limbs, n, grid_y=gy, grid_x=gx,
+                                stride=8, sigma=7.0)
+    assert kernels.gt_maps.launches == before + 1
+    heat_p, paf_p = kernels.gt_maps_plain(kps, limbs, n, grid_y=gy,
+                                          grid_x=gx, stride=8, sigma=7.0)
+    assert heat.shape == (8, gy, gx, 19) and paf.shape == (8, gy, gx, 38)
+    torch.testing.assert_close(heat, heat_p, rtol=0, atol=GT_ATOL)
+    torch.testing.assert_close(paf, paf_p, rtol=0, atol=GT_ATOL)
+    want = ground_truth_maps_batch(kps.cpu(), input_y=8 * gy,
+                                   input_x=8 * gx)
+    torch.testing.assert_close(heat.cpu(), want[0], rtol=0, atol=GT_ATOL)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_launches_gt_maps(cuda):
+    cfg = Config()
+    cfg.model.num_stages, cfg.dataset.image_size = 2, 64
+    cfg.train.lr = 0.05
+    trainer = Trainer(cfg, device=cuda)
+    rng = np.random.RandomState(0)
+    images = rng.rand(4, 64, 64, 3).astype(np.float32)
+    kps = _keypoints(batch=4, slots=4, size=64).numpy()
+    kernels.reset_launch_counts()
+    losses = [trainer.train_step(images, kps)["loss"] for _ in range(3)]
+    assert kernels.launch_counts()["gt_maps"] == 3
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+
+
+@pytest.mark.gpu
 def test_wrappers_raise_instead_of_falling_back(cuda):
     geo = torch.zeros((1, 19, 6, 4), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -91,6 +158,15 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     peaks = torch.zeros((1, 18, 2), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="int32"):
         kernels.bicubic_refine(heat, peaks, peaks)
+    kps = torch.zeros((1, 2, 18, 3), device=cuda)
+    limbs = torch.zeros((1, 2, 19, 9), device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        kernels.gt_maps(kps, limbs, torch.zeros(1, device=cuda), grid_y=4,
+                        grid_x=4, stride=8, sigma=7.0)
+    with pytest.raises(ValueError, match=r"\(B,N,19,9\)"):
+        kernels.gt_maps(kps, limbs[:, :1].contiguous(),
+                        torch.zeros(1, dtype=torch.int32, device=cuda),
+                        grid_y=4, grid_x=4, stride=8, sigma=7.0)
 
 
 @pytest.mark.gpu
@@ -132,7 +208,9 @@ def test_pipeline_on_card_runs_through_both_kernels(cuda):
     _, heat_g, paf_g, meta = pipe.run(frames[0])
     people, metas = pipe.run_batch(frames)
     torch.cuda.synchronize()
-    assert all(n > 0 for n in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert counts["paf_sample_scores"] > 0 and counts["bicubic_refine"] > 0
+    assert counts["gt_maps"] == 0
     assert heat_g.shape == heat_c.shape == (7, 10, 19)
     for got, want in ((heat_g, heat_c), (paf_g, paf_c)):
         assert np.isfinite(got).all()

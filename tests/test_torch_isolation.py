@@ -1,6 +1,7 @@
 """rtpose_tpu_torch stands alone: it imports no jax, flax, cv2 or anything
-of the JAX package, and its copies of the JAX package's tables and numpy
-helpers are equal to the originals."""
+of the JAX package, serves and takes a train step without them, and its
+copies of the JAX package's tables and numpy helpers are equal to the
+originals."""
 
 import json
 import os
@@ -17,7 +18,7 @@ from rtpose_tpu.ops import peaks as jpeaks
 from rtpose_tpu.ops import resize as jresize
 from rtpose_tpu_torch import skeleton
 from rtpose_tpu_torch.models.convert import torch_layout_map
-from rtpose_tpu_torch.ops.kernels import interp_matrices
+from rtpose_tpu_torch.ops.kernels import blur_matrices, interp_matrices
 from rtpose_tpu_torch.ops.resize import resize_matrix_linear
 
 from util_synth import synth_example
@@ -42,11 +43,20 @@ people = people_to_numpy(decode_poses(torch.from_numpy(maps["heat"]),
                          368, 368)
 pipe = load_pipeline(device="cpu", num_stages=1, input_size=56, seed=0)
 found, heat, paf, meta = pipe.run(np.zeros((60, 80, 3), np.uint8))
+from rtpose_tpu_torch.config import Config
+from rtpose_tpu_torch.train.trainer import Trainer
+cfg = Config()
+cfg.model.num_stages, cfg.model.dtype, cfg.dataset.image_size = 1, "float32", 32
+kps = np.zeros((2, 2, 18, 3), np.float32)
+kps[:, 0, :, :2], kps[:, 0, :, 2] = 16.0, 2.0
+logs = Trainer(cfg, device="cpu").train_step(
+    np.random.RandomState(0).rand(2, 32, 32, 3).astype(np.float32), kps)
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "flax", "cv2", "rtpose_tpu")
                 and sys.modules[k] is not None)
 print(json.dumps({"modules": mods, "people": len(people),
-                  "heat": list(heat.shape), "loaded": loaded}))
+                  "heat": list(heat.shape), "loaded": loaded,
+                  "train_loss": logs["loss"]}))
 """
 
 
@@ -62,6 +72,8 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "rtpose_tpu_torch.infer.pipeline" in res["modules"]
     assert "rtpose_tpu_torch.ops.kernels" in res["modules"]
+    assert "rtpose_tpu_torch.train.trainer" in res["modules"]
+    assert res["train_loss"] > 0 and np.isfinite(res["train_loss"])
     assert res["people"] == 3
     assert res["heat"] == [7, 10, 19]
     assert res["loaded"] == []
@@ -77,6 +89,7 @@ def test_skeleton_copy_equals_the_jax_package():
 def test_copied_numpy_helpers_equal_the_jax_package():
     np.testing.assert_array_equal(interp_matrices(8),
                                   jpeaks._interp_matrices(8))
+    np.testing.assert_array_equal(blur_matrices(8), jpeaks._blur_matrices(8))
     for src, dst in ((480, 368), (240, 368), (368, 368), (7, 3)):
         np.testing.assert_array_equal(resize_matrix_linear(src, dst),
                                       jresize.resize_matrix_linear(src, dst))
