@@ -5,7 +5,10 @@ Hopper card.
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from rtpose_tpu_torch/csrc, holds
-each against its plain PyTorch version on the card, decodes rendered
+each against its plain PyTorch version on the card, times each (device
+time per launch from the profiler, the wrapper's host time per call, the
+bound from the bytes and operations of this run's inputs), counts the
+device kernels of the two decode stages that hold them, decodes rendered
 scenes on the card and on the CPU, then drives the two paths of the port
 through the entry points a user calls:
 
@@ -27,6 +30,7 @@ imports nothing of JAX or of the JAX package (rtpose_tpu).
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import os
@@ -38,8 +42,8 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SSUM_TOL = 1e-5        # PAF sample sums, kernel vs plain (same fp32 ops)
-SCORE_TOL = 1e-5       # refine scores and people scores
+SCORE_TOL = 1e-5       # connection, refine and people scores, kernel
+                       # vs plain (the same fp32 ops: 0 expected)
 FWD_REL_TOL = 2e-4     # fp32 forward card vs CPU, relative to max |CPU|
 GT_TOL = 1e-6          # ground-truth maps, K4 vs plain
 STEP_LOSS_RTOL = 1e-4  # fp32 train step card vs CPU: the loss
@@ -48,7 +52,19 @@ STEP_UPD_TOL = 1e-2    # ... and each tensor's update, L2 error over L2
                        # other orders, which grows through the backward
                        # pass (3.3e-4 seen in the stage-4 to 6 convs)
 TRAIN_BATCH = 72       # experiments/vgg19_368x368_sgd.yaml
-SERVING_KERNELS = ("paf_sample_scores", "bicubic_refine")
+SERVING_KERNELS = ("connection_scores", "bicubic_refine")
+# the card's peaks, for the bounds: H100 SXM at 700 W (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# fp32 operations per scored candidate, counted from
+# csrc/connection_scores.cu: d and |d| 6, u and the step 4, ten samples
+# of 11 (two coordinates 6, the dot 3, compare and sum 2), criterion 6
+SCORE_FLOPS = 126
+# per grid cell and visited person, from csrc/gt_maps.cu: 18 parts of 9
+# (distance 5, scale, cutoff, exp, sum), 19 limbs of 14 (perpendicular
+# distance 6, box 5, three sums); per cell the clip, background and mean 75
+GT_FLOPS_CELL_PERSON = 428
+GT_FLOPS_CELL = 75
 SLOTS = 32             # person slots per image (MAX_PEOPLE_PER_IMAGE)
 
 
@@ -83,6 +99,122 @@ def paired_ms(kernel_fn, plain_fn, iters: int):
     k2 = cuda_ms(kernel_fn, iters)
     p2 = cuda_ms(plain_fn, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def device_events(fn, iters: int) -> dict:
+    """torch.profiler's device events over `iters` calls of fn (after a
+    warm-up call): {name: (count, self device time in us, summed)}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def device_ms(fn, kernel: str, iters: int = 200):
+    """Device time per launch of the CUDA kernel whose name holds
+    `kernel`, in ms: its own self device time over the launches the
+    profiler recorded in `iters` calls (it may miss one), or, where the
+    profiler shows no device time, the median of CUDA events around
+    single calls.  Returns (ms, source)."""
+    import torch
+    hits = [(n, us) for key, (n, us) in device_events(fn, iters).items()
+            if kernel in key]
+    count = sum(n for n, _ in hits)
+    if count and sum(us for _, us in hits) > 0:
+        check(count <= iters, f"profiler saw {count} launches of {kernel} "
+              f"in {iters} calls")
+        return sum(us for _, us in hits) / count / 1e3, "profiler"
+    times = []
+    for _ in range(50):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), "events"
+
+
+def host_ms(fn, calls: int = 1000) -> float:
+    """Host time per call of fn in ms: `calls` calls with no synchronise
+    between them, then one."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / calls
+
+
+def bound(n_bytes: float, n_flops: float):
+    """The least time the card could take for work that moves `n_bytes`
+    and does `n_flops` fp32 operations -> (ms, what bounds it)."""
+    t_mem, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
+    return max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else \
+        "operations"
+
+
+def scores_work(paf, K: int):
+    """(bytes, flops) of connection_scores: the PAF and the peaks read
+    once, the (B, 19, K, K) scores and flags written once."""
+    B = paf.shape[0]
+    cand = B * 19 * K * K
+    return (paf.numel() * 4 + B * 18 * K * 9 + cand * 5,
+            SCORE_FLOPS * cand)
+
+
+def refine_work(heat, py, px, valid, blur: bool, factor: int = 8):
+    """(bytes, flops) of bicubic_refine on this run's peaks: only the
+    slots that hold a peak are refined, each on its clipped window's
+    (ph * f, pw * f) region; every slot's indices are read and its three
+    outputs written."""
+    H, W = heat.shape[-2:]
+    y_min, x_min = (py - 2).clamp(min=0), (px - 2).clamp(min=0)
+    vh = (((py + 2).clamp(max=H - 1) - y_min + 1) * factor)[valid].double()
+    vw = (((px + 2).clamp(max=W - 1) - x_min + 1) * factor)[valid].double()
+    mac = vh * 25 + vh * vw * 5              # My * patch, then * Mx^T
+    mats = 3 * 5 * factor * 5 * 4
+    if blur:
+        mac = mac + vh * vh * vw + vh * vw * vw   # By * up, then * Bx^T
+        mats += 3 * (5 * factor) ** 2 * 4
+    slots = py.numel()
+    n_bytes = int(valid.sum()) * 25 * 4 + slots * (4 + 4 + 1 + 12) + mats
+    return n_bytes, float((2 * mac + vh * vw).sum())
+
+
+def gt_work(kps, limbs, n_pers, gy: int, gx: int):
+    """(bytes, flops) of gt_maps: keypoints and limb scalars read once,
+    (B, gy, gx, 19) + (B, gy, gx, 38) written once; the persons visited."""
+    B = kps.shape[0]
+    cells = gy * gx
+    n_bytes = (kps.numel() + limbs.numel() + n_pers.numel()) * 4 \
+        + B * cells * 57 * 4
+    return n_bytes, (GT_FLOPS_CELL_PERSON * int(n_pers.sum())
+                     + GT_FLOPS_CELL * B) * cells
+
+
+def device_work(fn, calls: int = 20):
+    """(kernels, copies and fills, kernel names) that one call of fn puts
+    on the device, as the profiler reads them over `calls` calls (so one
+    event the profiler misses does not change the count)."""
+    events = device_events(fn, calls)
+    kern = sorted(k for k in events if not k.startswith(("Memcpy", "Memset")))
+    other = sorted(k for k in events if k.startswith(("Memcpy", "Memset")))
+    count = lambda names: round(  # noqa: E731
+        sum(events[k][0] for k in names) / calls)
+    return count(kern), count(other), kern
 
 
 # Rendered scenes: a copy of tests/util_synth.py (which imports the JAX
@@ -201,13 +333,18 @@ def train_batch(n: int, size: int, seed: int):
     return {"image": images, "keypoints": kps, "valid_xywh": window}
 
 
-def people_equal(a, b, what: str) -> None:
+def people_equal(a, b, what: str) -> float:
+    """Check two People equal (scores within SCORE_TOL); -> the largest
+    score difference."""
     for f in ("coords", "valid", "truncated"):
         check(np.array_equal(getattr(a, f), getattr(b, f)),
               f"{what}: People.{f} differ")
+    worst = 0.0
     for f in ("score", "part_score"):
         err = float(np.abs(getattr(a, f) - getattr(b, f)).max(initial=0))
         check(err <= SCORE_TOL, f"{what}: People.{f} max err {err}")
+        worst = max(worst, err)
+    return worst
 
 
 def main() -> int:
@@ -226,7 +363,6 @@ def main() -> int:
     from rtpose_tpu_torch.ops import _build, kernels
     from rtpose_tpu_torch.ops.decode import decode_poses_batch, people_to_host
     from rtpose_tpu_torch.ops.grouping import (assemble_people,
-                                               candidate_geometry, criterion,
                                                greedy_connections,
                                                score_connections)
     from rtpose_tpu_torch.ops.peaks import nms, peak_candidates
@@ -253,80 +389,68 @@ def main() -> int:
 
     results = {}
 
-    # 3. PAF sampling kernel vs plain: K=32 at the serving shape (8 frames
-    # of 480x640 -> 46x62 maps) and K=64 (the retry) on crowded 92x92
-    # scenes of 36 people, more than 32 peaks per part
+    # 3. fused scoring kernel (geometry, PAF line integral, criterion) vs
+    # plain: K=32 at the serving shape (8 frames of 480x640 -> 46x62 maps)
+    # and K=64 (the retry) on crowded 92x92 scenes of 36 people, more than
+    # 32 peaks per part
     heat32, paf32 = scenes(8, 46, 62, grid=None, seed0=0)
     heat64, paf64 = scenes(8, 92, 92, grid=(6, 6), seed0=100)
+    inputs = {}
     for K, heat_np, paf_np in ((32, heat32, paf32), (64, heat64, paf64)):
         heat = torch.from_numpy(heat_np).to(dev)
         paf = torch.from_numpy(paf_np).to(dev)
         peaks = nms(heat, max_peaks=K)
-        geo, norm, ok = candidate_geometry(peaks)
-        cnt_k, ssum_k = kernels.paf_sample_scores(paf, geo)
-        cnt_p, ssum_p = kernels.paf_sample_scores_plain(paf, geo)
+        pk = (peaks.x, peaks.y, peaks.valid)
+        crit_k, valid_k = kernels.connection_scores(paf, *pk)
+        crit_p, valid_p = kernels.connection_scores_plain(paf, *pk)
         torch.cuda.synchronize()
-        h_up = paf.shape[1] * 8
-        _, valid_k = criterion(cnt_k, ssum_k, norm, ok, h_up=h_up)
-        _, valid_p = criterion(cnt_p, ssum_p, norm, ok, h_up=h_up)
-        err = float((ssum_k - ssum_p).abs().max())
-        check(torch.equal(cnt_k, cnt_p), f"paf K={K}: cnt differ")
-        check(torch.equal(valid_k, valid_p), f"paf K={K}: valid differ")
-        check(err <= SSUM_TOL, f"paf K={K}: ssum max err {err}")
+        err = float((crit_k - crit_p).abs().max())
+        check(torch.equal(valid_k, valid_p), f"scores K={K}: valid differ")
+        check(err <= SCORE_TOL, f"scores K={K}: crit2 max err {err}")
         ms, plain_ms = paired_ms(
-            lambda: kernels.paf_sample_scores(paf, geo),
-            lambda: kernels.paf_sample_scores_plain(paf, geo), 50)
-        log(f"paf_sample K={K} B=8 map {paf.shape[1]}x{paf.shape[2]}: "
-            f"cnt/valid equal, ssum max err {err:.3g}; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms ({int(valid_k.sum())} valid "
-            f"candidates) [{smi}]")
+            lambda: kernels.connection_scores(paf, *pk),
+            lambda: kernels.connection_scores_plain(paf, *pk), 50)
+        log(f"connection_scores K={K} B=8 map {paf.shape[1]}x{paf.shape[2]}"
+            f": valid equal ({int(valid_k.sum())} of {valid_k.numel()}), "
+            f"crit2 max err {err:.3g}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (back to back) [{smi}]")
         if K == 32:
-            results["paf_sample_scores"] = dict(max_abs_err=err, ms=ms,
+            results["connection_scores"] = dict(max_abs_err=err, ms=ms,
                                                 plain_ms=plain_ms)
+            # the kernel's path for a factor other than the served x8
+            c4, v4 = kernels.connection_scores(paf, *pk, factor=4)
+            c4_p, v4_p = kernels.connection_scores_plain(paf, *pk, factor=4)
+            check(torch.equal(v4, v4_p) and torch.equal(c4, c4_p),
+                  "scores at factor 4 differ from plain")
 
-        # 4. refine kernel vs plain on the same scenes
+        # 4. refine kernel vs plain on the same scenes, plain and blurred
         hb = heat[..., :18].permute(0, 3, 1, 2).contiguous()
         _, py, px, valid, _ = peak_candidates(hb, thresh=0.1, max_peaks=K)
-        my_k, mx_k, sc_k = kernels.bicubic_refine(hb, py, px)
-        my_p, mx_p, sc_p = kernels.bicubic_refine_plain(hb, py, px)
-        torch.cuda.synchronize()
-        check(torch.equal(my_k, my_p.to(torch.int32))
-              and torch.equal(mx_k, mx_p.to(torch.int32)),
-              f"refine K={K}: coordinates differ")
-        err = float((sc_k - sc_p).abs().max())
-        check(err <= SCORE_TOL, f"refine K={K}: score max err {err}")
-        ms, plain_ms = paired_ms(
-            lambda: kernels.bicubic_refine(hb, py, px),
-            lambda: kernels.bicubic_refine_plain(hb, py, px), 50)
-        log(f"bicubic_refine K={K} B=8 ({int(valid.sum())} valid of "
-            f"{valid.numel()} peaks): coordinates equal, score max err "
-            f"{err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{smi}]")
-        if K == 32:
-            results["bicubic_refine"] = dict(max_abs_err=err, ms=ms,
-                                             plain_ms=plain_ms)
-
-        # the blurred refine (nms gaussian_filt=True) on the same peaks
-        my_k, mx_k, sc_k = kernels.bicubic_refine(hb, py, px,
-                                                  gaussian_filt=True)
-        my_p, mx_p, sc_p = kernels.bicubic_refine_plain(hb, py, px,
-                                                        gaussian_filt=True)
-        torch.cuda.synchronize()
-        check(torch.equal(my_k, my_p) and torch.equal(mx_k, mx_p),
-              f"refine gaussian_filt K={K}: coordinates differ")
-        err = float((sc_k - sc_p).abs().max())
-        check(err <= SCORE_TOL, f"refine gaussian_filt K={K}: score max err "
-              f"{err}")
-        ms, plain_ms = paired_ms(
-            lambda: kernels.bicubic_refine(hb, py, px, gaussian_filt=True),
-            lambda: kernels.bicubic_refine_plain(hb, py, px,
-                                                 gaussian_filt=True), 20)
-        log(f"bicubic_refine gaussian_filt K={K} B=8: coordinates equal, "
-            f"score max err {err:.3g}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms [{smi}]")
-        if K == 32:
-            results["bicubic_refine"].update(gaussian_filt_max_abs_err=err,
-                                             gaussian_filt_ms=ms,
-                                             gaussian_filt_plain_ms=plain_ms)
+        rf = (hb, py, px, valid)
+        inputs[K] = dict(paf=paf, peaks=peaks, refine=rf)
+        for blur, tag in ((False, ""), (True, "gaussian_filt_")):
+            xf, yf, sc = kernels.bicubic_refine(*rf, gaussian_filt=blur)
+            xf_p, yf_p, sc_p = kernels.bicubic_refine_plain(
+                *rf, gaussian_filt=blur)
+            torch.cuda.synchronize()
+            check(torch.equal(xf, xf_p) and torch.equal(yf, yf_p),
+                  f"refine {tag}K={K}: coordinates differ")
+            err = float((sc - sc_p).abs().max())
+            check(err <= SCORE_TOL, f"refine {tag}K={K}: score max err {err}")
+            check(not any(t[~valid].any() for t in (xf, yf, sc)),
+                  f"refine {tag}K={K}: an empty slot is not zero")
+            ms, plain_ms = paired_ms(
+                lambda: kernels.bicubic_refine(*rf, gaussian_filt=blur),
+                lambda: kernels.bicubic_refine_plain(*rf, gaussian_filt=blur),
+                20 if blur else 50)
+            log(f"bicubic_refine {tag}K={K} B=8 ({int(valid.sum())} valid "
+                f"of {valid.numel()} slots): coordinates equal, empty slots "
+                f"zero, score max err {err:.3g}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms (back to back) [{smi}]")
+            if K == 32:
+                results.setdefault("bicubic_refine", {}).update({
+                    f"{tag}max_abs_err": err, f"{tag}ms": ms,
+                    f"{tag}plain_ms": plain_ms})
 
     # 4b. ground-truth synthesis kernel (K4) vs plain at the training
     # shape: 72 images, 32 person slots, 46x46 grid
@@ -350,15 +474,70 @@ def main() -> int:
     log(f"gt_maps B={TRAIN_BATCH} N={SLOTS} 46x46 ({int(n_pers.sum())} "
         f"person slots visited, persons per image {n_pers.min().item()}-"
         f"{n_pers.max().item()}): max err {err:.3g}; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms [{smi}]")
+        f"plain {plain_ms:.4f} ms (back to back) [{smi}]")
+
+    # 4c. each kernel's device time per launch (profiler), its wrapper's
+    # host time per call and its bound, at the main path's shapes; then
+    # the device work of the two decode stages that hold K1 and K3
+    from rtpose_tpu_torch.ops.peaks import refine_peaks
+    cases = []
+    for K in (32, 64):
+        i = inputs[K]
+        p = i["peaks"]
+        cases.append((f"connection_scores K={K}", "connection_scores_kernel",
+                      functools.partial(kernels.connection_scores, i["paf"],
+                                        p.x, p.y, p.valid),
+                      scores_work(i["paf"], K)))
+        for blur, kname in ((False, "refine_warp_kernel"),
+                            (True, "refine_blur_kernel")):
+            cases.append((f"bicubic_refine {'gaussian_filt ' * blur}K={K}",
+                          kname, functools.partial(kernels.bicubic_refine,
+                                                   *i["refine"],
+                                                   gaussian_filt=blur),
+                          refine_work(*i["refine"], blur)))
+    cases.append((f"gt_maps B={TRAIN_BATCH}", "gt_maps_kernel",
+                  functools.partial(kernels.gt_maps, kps, limbs, n_pers,
+                                    **gt_args),
+                  gt_work(kps, limbs, n_pers, 46, 46)))
+    timing = {}
+    for label, kname, fn, (n_bytes, n_flops) in cases:
+        d_ms, src = device_ms(fn, kname)
+        h_ms = host_ms(fn)
+        b_ms, b_by = bound(n_bytes, n_flops)
+        timing[label] = dict(device_ms=d_ms, host_ms=h_ms, bound_ms=b_ms,
+                             bound_by=b_by)
+        log(f"time {label}: device {d_ms:.5f} ms/launch ({src}), wrapper "
+            f"host {h_ms:.5f} ms/call; bound {b_ms:.5f} ms by {b_by} "
+            f"({n_bytes / 1e6:.3f} MB, {n_flops / 1e6:.2f} MFLOP), "
+            f"{100 * b_ms / d_ms:.1f}% of it [{smi}]")
+    for name, key, tag in (
+            ("connection_scores", "connection_scores K=32", ""),
+            ("bicubic_refine", "bicubic_refine K=32", ""),
+            ("bicubic_refine", "bicubic_refine gaussian_filt K=32",
+             "gaussian_filt_"),
+            ("gt_maps", f"gt_maps B={TRAIN_BATCH}", "")):
+        results[name].update({tag + k: v for k, v in timing[key].items()})
+    for K in (32, 64):
+        i = inputs[K]
+        for stage, fn in (
+                ("score_connections", functools.partial(
+                    score_connections, i["peaks"], i["paf"])),
+                ("refine_peaks", functools.partial(refine_peaks,
+                                                   *i["refine"]))):
+            n_kern, n_other, names = device_work(fn)
+            log(f"device work of {stage} K={K}: {n_kern} kernels, "
+                f"{n_other} copies/fills ({', '.join(names)})")
+            check(n_kern == 1 and n_other == 0,
+                  f"{stage} K={K} put {n_kern} kernels and {n_other} "
+                  f"copies on the card, not its one kernel")
 
     # 5. decode on the card vs the same maps decoded on the CPU
     h32, p32 = torch.from_numpy(heat32), torch.from_numpy(paf32)
     got = people_to_host(decode_poses_batch(h32.to(dev), p32.to(dev)))
     want = people_to_host(decode_poses_batch(h32, p32))
-    people_equal(got, want, "decode K=32")
+    err = people_equal(got, want, "decode K=32")
     log(f"decode_poses_batch: card == CPU on 8 rendered scenes "
-        f"({int(got.valid.sum())} people)")
+        f"({int(got.valid.sum())} people, score max err {err:.3g})")
 
     # 30 people: 570 connections overflow the default 160 but fit the
     # 608 of RETRY_CAPS (36 people, 684 connections, would not)
@@ -379,10 +558,10 @@ def main() -> int:
           "retried people differ from the CPU decode at RETRY_CAPS")
     got = people_to_host(decode_poses_batch(h30.to(dev), p30.to(dev),
                                             **RETRY_CAPS))
-    people_equal(got, want, "decode at RETRY_CAPS")
+    err = people_equal(got, want, "decode at RETRY_CAPS")
     log(f"crowded 5x6 grid scenes: truncated at the default caps, "
         f"retried at RETRY_CAPS -> {[len(p) for p in people]} people, "
-        f"card == CPU")
+        f"card == CPU (score max err {err:.3g})")
 
     # 6. serving main path: one frame, then 8 frames of mixed sizes
     rng = np.random.RandomState(0)
@@ -595,7 +774,7 @@ def main() -> int:
         f"(at {worst}; bound {STEP_UPD_TOL})")
 
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
-        "paf_sample_scores": ("rtpose_tpu_torch/csrc/paf_sample.cu",
+        "connection_scores": ("rtpose_tpu_torch/csrc/connection_scores.cu",
                               "rtpose_tpu/ops/pallas_kernels.py:214",
                               "rtpose_tpu/ops/pallas_kernels.py:172"),
         "bicubic_refine": ("rtpose_tpu_torch/csrc/bicubic_refine.cu",
@@ -605,8 +784,12 @@ def main() -> int:
     }
     launches = {**{k: counts[k] for k in SERVING_KERNELS},
                 "gt_maps": train_counts["gt_maps"]}
+    # library_ms: no single PyTorch call computes any of them (K1's
+    # truncated int(a + s * step + 0.5) // 8 cells are not grid_sample's;
+    # K3 is a gather, a bicubic upsample with cv2's border and an argmax;
+    # K4 a masked scatter-sum)
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=launches[name], **results[name],
+                 launches=launches[name], **results[name], library_ms=None,
                  **({"also_replaces": also} if also else {}))
             for name, (src, rep, also) in sources.items()]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -95,7 +95,7 @@ def make_infer_fn(model, *, input_size: int = 368,
     return infer
 
 
-def load_pipeline(*, device, torch_weights: Optional[str] = None,
+def load_pipeline(*, device="cuda", torch_weights: Optional[str] = None,
                   flax_params=None, seed: Optional[int] = None,
                   model_name: str = "vgg19", num_stages: int = 6,
                   input_size: int = 368, preprocess_mode: str = "vgg",
@@ -134,7 +134,7 @@ class PosePipeline:
     and meta['truncated'] reports the state after the retry.
     """
 
-    def __init__(self, model, *, device, input_size: int = 368,
+    def __init__(self, model, *, device="cuda", input_size: int = 368,
                  downsample: int = 8, preprocess_mode: str = "vgg",
                  flip: bool = True, thresh_heatmap: float = 0.1,
                  max_peaks: int = 32, max_people: int = 64,

@@ -33,10 +33,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "rtpose_paf_pair_channels": (_P, _P),
-    "rtpose_paf_sample": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "rtpose_bicubic_refine": (_P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _P),
+    "rtpose_pair_tables": (_P, _P, _P, _P),
+    "rtpose_connection_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _F, _I, _P),
+    "rtpose_refine_peaks": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _P),
     "rtpose_gt_maps": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _F, _F, _F, _F, _P),
 }

@@ -3,11 +3,14 @@
 Two kernels carry the decode's hot work and one the training step's
 ground truth (sources in ``csrc/``):
 
-- :func:`paf_sample_scores` (``csrc/paf_sample.cu``) replaces the TPU
-  kernels ``paf_sample_scores_fused`` and ``paf_sample_scores`` of
-  ``rtpose_tpu/ops/pallas_kernels.py``;
+- :func:`connection_scores` (``csrc/connection_scores.cu``) replaces the
+  TPU kernels ``paf_sample_scores_fused`` and ``paf_sample_scores`` of
+  ``rtpose_tpu/ops/pallas_kernels.py`` together with the candidate
+  geometry and the criterion around them: peaks in, scores and validity
+  of every candidate limb out;
 - :func:`bicubic_refine` (``csrc/bicubic_refine.cu``) replaces
-  ``bicubic_refine`` of the same file, and with ``gaussian_filt`` also
+  ``bicubic_refine`` of the same file with the patch gather, coordinate
+  epilogue and validity mask around it, and with ``gaussian_filt`` also
   serves the blurred refine that the JAX package runs as
   ``_refine_onehot`` (``rtpose_tpu/ops/peaks.py``);
 - :func:`gt_maps` (``csrc/gt_maps.cu``) replaces ``gt_maps_pallas`` of
@@ -28,7 +31,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..skeleton import GROUP_PAIRS_NET, NUM_GROUP_PAIRS, NUM_LIMBS, NUM_PARTS
+from ..skeleton import (GROUP_PAIRS, GROUP_PAIRS_NET, NUM_GROUP_PAIRS,
+                        NUM_LIMBS, NUM_PARTS)
 
 STEP_PAF = 10
 THRESH_VECTOR_SCORE = 0.05
@@ -36,7 +40,10 @@ PATCH = 5          # 5x5 refine window, reference paf_to_pose.py:100
 WIN = PATCH // 2
 LN100 = 4.6052     # gaussian support cutoff (reference heatmap.py:30)
 LIMB_FIELDS = 9    # ax, ay, ux, uy, valid, mnx, mxx, mny, mxy
+MAX_WARP_UPSAMPLE = 64   # the warp refine's rows: 2 per lane
 
+PAIR_A = np.array([p[0] for p in GROUP_PAIRS], dtype=np.int64)
+PAIR_B = np.array([p[1] for p in GROUP_PAIRS], dtype=np.int64)
 PAIR_CHX = np.array([c[0] for c in GROUP_PAIRS_NET], dtype=np.int64)
 PAIR_CHY = np.array([c[1] for c in GROUP_PAIRS_NET], dtype=np.int64)
 
@@ -120,14 +127,6 @@ def _blur_matrices_on(device: torch.device, factor: int) -> torch.Tensor:
 # launching
 # ---------------------------------------------------------------------------
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
            device: torch.device) -> None:
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous() \
@@ -138,26 +137,45 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
             f"(contiguous={t.is_contiguous()})")
 
 
+_lib = None   # the loaded kernel library, its tables checked
+
+
+def _library():
+    """The kernel library, built and checked at the first call only (no
+    lock is taken after it)."""
+    global _lib
+    if _lib is None:
+        from . import _build
+        lib = _build.load().lib
+        _check_pair_tables(lib)
+        _lib = lib
+    return _lib
+
+
 def _launch(fn_name: str, device: torch.device, *args) -> None:
-    from . import _build
-    lib = _build.load().lib
-    if fn_name == "rtpose_paf_sample":
-        _check_pair_table(lib)
-    with torch.cuda.device(device):
-        err = getattr(lib, fn_name)(*args, _stream(device))
+    """Call the library's entry `fn_name` with `args` (tensor pointers as
+    ints) and the current stream of `device`; raise on its CUDA error."""
+    fn = getattr(_library(), fn_name)
+    # the raw handle, as PyTorch's generated kernels take it: building a
+    # torch.cuda.Stream object per call costs microseconds of host time
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
 
 
-@functools.lru_cache(maxsize=None)
-def _check_pair_table(lib) -> None:
-    chx = (ctypes.c_int * NUM_GROUP_PAIRS)()
-    chy = (ctypes.c_int * NUM_GROUP_PAIRS)()
-    n = lib.rtpose_paf_pair_channels(chx, chy)
-    if n != NUM_GROUP_PAIRS or list(chx) != PAIR_CHX.tolist() \
-            or list(chy) != PAIR_CHY.tolist():
-        raise RuntimeError("csrc/paf_sample.cu pair->channel table differs "
-                           "from skeleton.GROUP_PAIRS_NET")
+def _check_pair_tables(lib) -> None:
+    tables = [(ctypes.c_int * NUM_GROUP_PAIRS)() for _ in range(4)]
+    n = lib.rtpose_pair_tables(*tables)
+    want = (PAIR_A, PAIR_B, PAIR_CHX, PAIR_CHY)
+    if n != NUM_GROUP_PAIRS or any(list(t) != w.tolist()
+                                   for t, w in zip(tables, want)):
+        raise RuntimeError("csrc/connection_scores.cu pair tables differ "
+                           "from skeleton.GROUP_PAIRS / GROUP_PAIRS_NET")
 
 
 def _route(t: torch.Tensor) -> str:
@@ -166,14 +184,83 @@ def _route(t: torch.Tensor) -> str:
     return t.device.type
 
 
+def _true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, correctly rounded on every device: CUDA computes a tensor
+    divided by a Python number as a product with its reciprocal, which
+    is an ulp off for some values; a 0-d tensor divisor is a division."""
+    return x / x.new_full((), d)
+
+
 # ---------------------------------------------------------------------------
-# PAF line-integral sampling (K1 + K2)
+# connection scoring: candidate geometry, PAF line integral, criterion
+# (K1 + K2 with the XLA work around them)
 # ---------------------------------------------------------------------------
+
+def candidate_geometry(peak_x: torch.Tensor, peak_y: torch.Tensor,
+                       peak_valid: torch.Tensor):
+    """Per-candidate sampling geometry of every (pair, ia, ib), from the
+    (B, 18, K) peak coordinates and validity.
+
+    Returns (geo, norm, ok): geo (B, 19, 6, K*K) fp32 rows [ax, ay,
+    step_x, step_y, ux, uy] in upsampled-frame coordinates, the limb
+    lengths (B, 19, K, K) and `ok`, both ends valid and apart.  Each value
+    is rounded as JAX rounds it (rtpose_tpu/ops/grouping.py:120-159).
+    """
+    B, _, K = peak_x.shape
+    dev = peak_x.device
+    pa = torch.as_tensor(PAIR_A, device=dev)
+    pb = torch.as_tensor(PAIR_B, device=dev)
+    ax = peak_x[:, pa].float()                   # (B, 19, K)
+    ay = peak_y[:, pa].float()
+    bx = peak_x[:, pb].float()
+    by = peak_y[:, pb].float()
+
+    dx = bx[:, :, None, :] - ax[:, :, :, None]   # (B, 19, Ka, Kb)
+    dy = by[:, :, None, :] - ay[:, :, :, None]
+    # torch's CPU sqrt is an ulp off the correctly rounded root for about
+    # 1 value in 200; the fp64 root of the exact fp32 sum rounds exactly
+    norm = torch.sqrt((dx * dx + dy * dy).double()).float()
+    nz = norm >= 1e-12
+    safe = norm.clamp(min=1e-12)
+    ux = torch.where(nz, dx / safe, 0.0)
+    uy = torch.where(nz, dy / safe, 0.0)
+    # int(ax + s * (dx / 10) + 0.5): the step first, the reference's
+    # exact expression (pafprocess.cpp:223-229)
+    step_x = _true_div(dx, STEP_PAF)
+    step_y = _true_div(dy, STEP_PAF)
+    C = K * K
+    geo = torch.stack([ax[..., None].expand_as(dx).reshape(B, -1, C),
+                       ay[..., None].expand_as(dy).reshape(B, -1, C),
+                       step_x.reshape(B, -1, C), step_y.reshape(B, -1, C),
+                       ux.reshape(B, -1, C), uy.reshape(B, -1, C)], dim=2)
+    ok = peak_valid[:, pa, :, None] & peak_valid[:, pb, None, :] & nz
+    return geo.contiguous(), norm, ok
+
+
+def criterion(cnt: torch.Tensor, ssum: torch.Tensor, norm: torch.Tensor,
+              ok: torch.Tensor, *, h_up: int, thresh_vector_cnt: int = 6
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sample counts and sums (B, 19, K*K) -> (criterion-2 scores, valid),
+    (B, 19, K, K): the mean sample score plus the reference's penalty on
+    limbs longer than half the map (pafprocess.cpp:84-92)."""
+    cnt = cnt.reshape(norm.shape)
+    mean = _true_div(ssum.reshape(norm.shape), STEP_PAF)
+    half = norm.new_full((), 0.5 * h_up)
+    crit2 = mean + (half / norm.clamp(min=1e-12) - 1.0).clamp(max=0.0)
+    valid = ok & (cnt > thresh_vector_cnt) & (crit2 > 0)
+    return crit2, valid
+
 
 def paf_sample_scores_plain(paf: torch.Tensor, geo: torch.Tensor, *,
                             factor: int = 8
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`paf_sample_scores` (a gather)."""
+    """10-sample PAF line integral of every candidate limb (a gather).
+
+    paf: (B, h, w, 38) fp32 low-res PAF.
+    geo: (B, 19, 6, C) rows of :func:`candidate_geometry`.
+    Returns (cnt int32, ssum fp32), each (B, 19, C): the number of samples
+    above THRESH_VECTOR_SCORE and their sequential fp32 sum.
+    """
     B, h, w, ch = paf.shape
     C = geo.shape[-1]
     ax, ay, step_x, step_y, ux, uy = geo.unbind(2)          # (B, 19, C)
@@ -198,42 +285,71 @@ def paf_sample_scores_plain(paf: torch.Tensor, geo: torch.Tensor, *,
     return cnt, ssum
 
 
-def paf_sample_scores(paf: torch.Tensor, geo: torch.Tensor, *,
-                      factor: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """10-sample PAF line integral of every candidate limb.
+def connection_scores_plain(paf: torch.Tensor, peak_x: torch.Tensor,
+                            peak_y: torch.Tensor, peak_valid: torch.Tensor,
+                            *, factor: int = 8, thresh_vector_cnt: int = 6
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`connection_scores`: the candidate
+    geometry, the PAF line integral and the criterion, one after the
+    other."""
+    geo, norm, ok = candidate_geometry(peak_x, peak_y, peak_valid)
+    cnt, ssum = paf_sample_scores_plain(paf, geo, factor=factor)
+    return criterion(cnt, ssum, norm, ok, h_up=paf.shape[1] * factor,
+                     thresh_vector_cnt=thresh_vector_cnt)
+
+
+def connection_scores(paf: torch.Tensor, peak_x: torch.Tensor,
+                      peak_y: torch.Tensor, peak_valid: torch.Tensor, *,
+                      factor: int = 8, thresh_vector_cnt: int = 6
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Criterion-2 score and validity of every candidate limb.
 
     paf: (B, h, w, 38) fp32 low-res PAF.
-    geo: (B, 19, 6, C) fp32 rows [ax, ay, step_x, step_y, ux, uy] per
-        candidate (C = K*K), in upsampled-frame coordinates.
-    Returns (cnt int32, ssum fp32), each (B, 19, C): the number of samples
-    above THRESH_VECTOR_SCORE and their sequential fp32 sum.
+    peak_x, peak_y: (B, 18, K) int32 peaks in the upsampled frame;
+    peak_valid: (B, 18, K) bool.
+    Returns (crit2 fp32, valid bool), each (B, 19, K, K) over (pair, ia,
+    ib): the mean of ten PAF samples along the limb from peak ia of the
+    pair's part A to peak ib of its part B, plus the penalty on limbs
+    longer than half the map, and whether the limb is a candidate (both
+    peaks valid and apart, more than `thresh_vector_cnt` samples above
+    THRESH_VECTOR_SCORE, crit2 > 0).
     """
     if _route(paf) == "cpu":
-        return paf_sample_scores_plain(paf, geo, factor=factor)
+        return connection_scores_plain(paf, peak_x, peak_y, peak_valid,
+                                       factor=factor,
+                                       thresh_vector_cnt=thresh_vector_cnt)
     B, h, w, ch = paf.shape
-    C = geo.shape[-1]
+    K = peak_x.shape[-1]
     dev = paf.device
     _check("paf", paf, torch.float32, 4, dev)
-    _check("geo", geo, torch.float32, 4, dev)
-    if ch != 38 or tuple(geo.shape[:3]) != (B, NUM_GROUP_PAIRS, 6):
-        raise ValueError(f"paf_sample_scores: paf {tuple(paf.shape)} / geo "
-                         f"{tuple(geo.shape)} do not match (B,h,w,38) / "
-                         f"(B,19,6,C)")
-    cnt = torch.empty((B, NUM_GROUP_PAIRS, C), dtype=torch.int32, device=dev)
-    ssum = torch.empty((B, NUM_GROUP_PAIRS, C), dtype=torch.float32,
-                       device=dev)
-    if B * C:
-        _launch("rtpose_paf_sample", dev, _ptr(paf), _ptr(geo), _ptr(cnt),
-                _ptr(ssum), B, h, w, C, factor)
-        paf_sample_scores.launches += 1
-    return cnt, ssum
+    _check("peak_x", peak_x, torch.int32, 3, dev)
+    _check("peak_y", peak_y, torch.int32, 3, dev)
+    _check("peak_valid", peak_valid, torch.bool, 3, dev)
+    if ch != 38 or tuple(peak_x.shape) != (B, NUM_PARTS, K) \
+            or peak_y.shape != peak_x.shape \
+            or peak_valid.shape != peak_x.shape:
+        raise ValueError(f"connection_scores: paf {tuple(paf.shape)}, peaks "
+                         f"{tuple(peak_x.shape)} / {tuple(peak_y.shape)} / "
+                         f"{tuple(peak_valid.shape)} do not match "
+                         f"(B,h,w,38) and (B,18,K)")
+    crit2 = torch.empty((B, NUM_GROUP_PAIRS, K, K), dtype=torch.float32,
+                        device=dev)
+    valid = torch.empty((B, NUM_GROUP_PAIRS, K, K), dtype=torch.bool,
+                        device=dev)
+    if B * K:
+        _launch("rtpose_connection_scores", dev, paf.data_ptr(),
+                peak_x.data_ptr(), peak_y.data_ptr(), peak_valid.data_ptr(),
+                crit2.data_ptr(), valid.data_ptr(), B, K, h, w, factor,
+                0.5 * h * factor, thresh_vector_cnt)
+        connection_scores.launches += 1
+    return crit2, valid
 
 
-paf_sample_scores.launches = 0
+connection_scores.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# bicubic sub-pixel refine (K3)
+# bicubic sub-pixel refine (K3 with the XLA work around it)
 # ---------------------------------------------------------------------------
 
 def window_origin(py: torch.Tensor, px: torch.Tensor, H: int, W: int):
@@ -246,12 +362,13 @@ def window_origin(py: torch.Tensor, px: torch.Tensor, H: int, W: int):
 
 
 def bicubic_refine_plain(heat: torch.Tensor, py: torch.Tensor,
-                         px: torch.Tensor, *, factor: int = 8,
-                         gaussian_filt: bool = False
+                         px: torch.Tensor, valid: torch.Tensor, *,
+                         factor: int = 8, gaussian_filt: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`bicubic_refine`: the per-peak
-    ``_refine`` of rtpose_tpu/ops/peaks.py:154-201, batched, and with
-    `gaussian_filt` the blur of ``_refine_onehot`` (:249-257)."""
+    ``_refine`` of rtpose_tpu/ops/peaks.py:154-201, batched, with
+    `gaussian_filt` the blur of ``_refine_onehot`` (:249-257), then the
+    coordinate epilogue and the validity mask, in the kernel's order."""
     B, P, H, W = heat.shape
     K = py.shape[-1]
     dev = heat.device
@@ -291,29 +408,38 @@ def bicubic_refine_plain(heat: torch.Tensor, py: torch.Tensor,
         for c in range(1, n):
             up = up + by_up[..., c:c + 1] * bx_mat[..., None, :, c]
     i = torch.arange(n, device=dev)
-    valid = (i[:, None] < (ph * factor)[..., None, None]) & \
+    region = (i[:, None] < (ph * factor)[..., None, None]) & \
         (i[None, :] < (pw * factor)[..., None, None])
-    masked = torch.where(valid, up, -torch.inf).reshape(B, P, K, n * n)
+    masked = torch.where(region, up, -torch.inf).reshape(B, P, K, n * n)
     score = masked.amax(dim=-1)
     # first (lowest row-major) index of the maximum, as numpy's argmax
     cells = torch.arange(n * n, dtype=torch.int32, device=dev)
     flat = torch.where(masked == score[..., None], cells, n * n).amin(dim=-1)
-    return flat // n, flat % n, score
+    my, mx = flat // n, flat % n
+    cy = (py - y_min + 0.5) * factor - 0.5
+    cx = (px - x_min + 0.5) * factor - 0.5
+    yf = (py + 0.5) * factor - 0.5 + (my - cy)
+    xf = (px + 0.5) * factor - 0.5 + (mx - cx)
+    return (torch.where(valid, xf, 0.0), torch.where(valid, yf, 0.0),
+            torch.where(valid, score, 0.0))
 
 
 def bicubic_refine(heat: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
-                   *, factor: int = 8, gaussian_filt: bool = False
+                   valid: torch.Tensor, *, factor: int = 8,
+                   gaussian_filt: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sub-pixel refine of every peak.
 
-    heat: (B, P, H, W) fp32 maps; py, px: (B, P, K) int32 peak cells.
-    Returns (my, mx, score): the row-major first argmax (int32) of each
-    peak's x`factor` bicubic-upsampled clipped 5x5 window and the value
-    there (fp32), each (B, P, K).  With `gaussian_filt` the upsampled
-    window is blurred (sigma 3, reflect) before the argmax.
+    heat: (B, P, H, W) fp32 maps; py, px: (B, P, K) int32 peak cells;
+    valid: (B, P, K) bool, the slots that hold a peak.
+    Returns (xf, yf, score), each (B, P, K) fp32: the refined peak in the
+    x`factor` upsampled frame, at the row-major first argmax of its
+    bicubic-upsampled clipped 5x5 window, and the value there; zeros where
+    `valid` is False.  With `gaussian_filt` the upsampled window is
+    blurred (sigma 3, reflect) before the argmax.
     """
     if _route(heat) == "cpu":
-        return bicubic_refine_plain(heat, py, px, factor=factor,
+        return bicubic_refine_plain(heat, py, px, valid, factor=factor,
                                     gaussian_filt=gaussian_filt)
     B, P, H, W = heat.shape
     K = py.shape[-1]
@@ -321,22 +447,27 @@ def bicubic_refine(heat: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
     _check("heat", heat, torch.float32, 4, dev)
     _check("py", py, torch.int32, 3, dev)
     _check("px", px, torch.int32, 3, dev)
+    _check("valid", valid, torch.bool, 3, dev)
     if H < 3 or W < 3 or tuple(py.shape) != (B, P, K) \
-            or tuple(px.shape) != (B, P, K):
+            or px.shape != py.shape or valid.shape != py.shape:
         raise ValueError(f"bicubic_refine: heat {tuple(heat.shape)} needs "
                          f"H, W >= 3 and peaks of shape (B, P, K), got "
-                         f"{tuple(py.shape)} / {tuple(px.shape)}")
+                         f"{tuple(py.shape)} / {tuple(px.shape)} / "
+                         f"{tuple(valid.shape)}")
+    if not gaussian_filt and PATCH * factor > MAX_WARP_UPSAMPLE:
+        raise ValueError(f"bicubic_refine: factor {factor} upsamples the "
+                         f"window past {MAX_WARP_UPSAMPLE} rows")
     mats = _interp_matrices_on(dev, factor)
-    blur = _blur_matrices_on(dev, factor)
-    my = torch.empty((B, P, K), dtype=torch.int32, device=dev)
-    mx = torch.empty((B, P, K), dtype=torch.int32, device=dev)
-    score = torch.empty((B, P, K), dtype=torch.float32, device=dev)
+    blur = _blur_matrices_on(dev, factor).data_ptr() if gaussian_filt else 0
+    xf, yf, score = torch.empty((3, B, P, K), dtype=torch.float32,
+                                device=dev).unbind(0)
     if B * P * K:
-        _launch("rtpose_bicubic_refine", dev, _ptr(heat), _ptr(py), _ptr(px),
-                _ptr(mats), _ptr(blur), _ptr(my), _ptr(mx), _ptr(score),
-                B * P * K, K, H, W, factor, int(gaussian_filt))
+        _launch("rtpose_refine_peaks", dev, heat.data_ptr(), py.data_ptr(),
+                px.data_ptr(), valid.data_ptr(), mats.data_ptr(), blur,
+                xf.data_ptr(), yf.data_ptr(), score.data_ptr(), B * P * K, K,
+                H, W, factor, int(gaussian_filt))
         bicubic_refine.launches += 1
-    return my, mx, score
+    return xf, yf, score
 
 
 bicubic_refine.launches = 0
@@ -435,16 +566,17 @@ def gt_maps(keypoints: torch.Tensor, limbs: torch.Tensor,
     paf = torch.empty((B, grid_y, grid_x, 2 * NUM_LIMBS),
                       dtype=torch.float32, device=dev)
     if B * grid_y * grid_x:
-        _launch("rtpose_gt_maps", dev, _ptr(keypoints), _ptr(limbs),
-                _ptr(n_persons), _ptr(heat), _ptr(paf), B, N, grid_y, grid_x,
-                float(stride), start, inv2s, float(limb_width))
+        _launch("rtpose_gt_maps", dev, keypoints.data_ptr(),
+                limbs.data_ptr(), n_persons.data_ptr(), heat.data_ptr(),
+                paf.data_ptr(), B, N, grid_y, grid_x, float(stride), start,
+                inv2s, float(limb_width))
         gt_maps.launches += 1
     return heat, paf
 
 
 gt_maps.launches = 0
 
-_COUNTED = (paf_sample_scores, bicubic_refine, gt_maps)
+_COUNTED = (connection_scores, bicubic_refine, gt_maps)
 
 
 def reset_launch_counts() -> None:

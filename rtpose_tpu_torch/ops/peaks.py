@@ -15,7 +15,7 @@ import dataclasses
 import torch
 
 from ..skeleton import NUM_PARTS
-from .kernels import bicubic_refine, window_origin
+from .kernels import bicubic_refine
 
 
 @dataclasses.dataclass
@@ -79,20 +79,15 @@ def peak_candidates(heat: torch.Tensor, *, thresh: float, max_peaks: int):
 
 
 def refine_peaks(heat: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
-                 *, factor: int = 8, gaussian_filt: bool = False):
+                 valid: torch.Tensor, *, factor: int = 8,
+                 gaussian_filt: bool = False):
     """Sub-pixel refine of integer peaks (B, P, K) on (B, P, H, W) maps
-    through the refine kernel -> (xf, yf, score) in the upsampled frame
-    (the JAX package's peaks.py:297-315; with `gaussian_filt`, its
-    blurred ``_refine_onehot``, :249-257)."""
-    H, W = heat.shape[-2:]
-    my, mx, score = bicubic_refine(heat, py, px, factor=factor,
-                                   gaussian_filt=gaussian_filt)
-    y_min, x_min, _, _ = window_origin(py, px, H, W)
-    cy = (py - y_min + 0.5) * factor - 0.5
-    cx = (px - x_min + 0.5) * factor - 0.5
-    yf = (py + 0.5) * factor - 0.5 + (my - cy)
-    xf = (px + 0.5) * factor - 0.5 + (mx - cx)
-    return xf, yf, score
+    -> (xf, yf, score) in the upsampled frame, zeros where `valid` is
+    False: the JAX package's ``_refine_pallas`` (peaks.py:297-315; with
+    `gaussian_filt`, its blurred ``_refine_onehot``, :249-257) and the
+    mask of its ``nms`` (:365-367), all in the refine kernel."""
+    return bicubic_refine(heat, py, px, valid, factor=factor,
+                          gaussian_filt=gaussian_filt)
 
 
 def nms(heatmaps: torch.Tensor, *, factor: int = 8, thresh: float = 0.1,
@@ -108,14 +103,11 @@ def nms(heatmaps: torch.Tensor, *, factor: int = 8, thresh: float = 0.1,
     scores0, py, px, valid, truncated = peak_candidates(
         heat, thresh=thresh, max_peaks=max_peaks)
     if refine:
-        xf, yf, score = refine_peaks(heat, py, px, factor=factor,
+        xf, yf, score = refine_peaks(heat, py, px, valid, factor=factor,
                                      gaussian_filt=gaussian_filt)
     else:
-        xf = (px + 0.5) * factor - 0.5
-        yf = (py + 0.5) * factor - 0.5
-        score = scores0
-    xf = torch.where(valid, xf, 0.0)
-    yf = torch.where(valid, yf, 0.0)
-    score = torch.where(valid, score, 0.0)
+        xf = torch.where(valid, (px + 0.5) * factor - 0.5, 0.0)
+        yf = torch.where(valid, (py + 0.5) * factor - 0.5, 0.0)
+        score = torch.where(valid, scores0, 0.0)
     return Peaks(x=xf.to(torch.int32), y=yf.to(torch.int32), xf=xf, yf=yf,
                  score=score, valid=valid, truncated=truncated)

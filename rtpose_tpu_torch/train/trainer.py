@@ -69,7 +69,8 @@ class Trainer:
     JAX trainer's parameters across through ``models.convert``).
     """
 
-    def __init__(self, cfg: Config, *, device: Union[str, torch.device],
+    def __init__(self, cfg: Config, *,
+                 device: Union[str, torch.device] = "cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  log_dir: Optional[str] = None):
         self.cfg = cfg

@@ -108,7 +108,8 @@ def test_nms_gaussian_filt_matches_jax(seed, n_people):
 @pytest.mark.parametrize("seed,H,W", [(0, 12, 12), (2, 7, 30)])
 def test_refine_gaussian_filt_matches_onehot(seed, H, W):
     """Random maps and peaks at every border (clipped 3- and 4-wide
-    windows, whose blur reflects at the true window edge)."""
+    windows, whose blur reflects at the true window edge); slots that
+    hold no peak come back as zeros, as ``nms`` masks them."""
     rng = np.random.RandomState(seed)
     P, K = 18, 8
     heat = rng.rand(P, H, W).astype(np.float32)
@@ -116,15 +117,19 @@ def test_refine_gaussian_filt_matches_onehot(seed, H, W):
     px = rng.randint(0, W, (P, K)).astype(np.int32)
     py[:, :4] = [0, H - 1, 1, H - 2]
     px[:, :4] = [0, W - 1, W - 2, 1]
-    want = [np.asarray(a) for a in jpeaks._refine_onehot(
+    valid = rng.rand(P, K) < 0.75
+    valid[:, :4] = True
+    want = [np.where(valid, np.asarray(a), 0) for a in jpeaks._refine_onehot(
         jnp.asarray(heat), jnp.asarray(py), jnp.asarray(px), 8,
         gaussian_filt=True)]
     got = [a[0].numpy() for a in peaks.refine_peaks(
         torch.from_numpy(heat)[None], torch.from_numpy(py)[None],
-        torch.from_numpy(px)[None], gaussian_filt=True)]
+        torch.from_numpy(px)[None], torch.from_numpy(valid)[None],
+        gaussian_filt=True)]
     for g, w in zip(got[:2], want[:2]):
         np.testing.assert_array_equal(g.astype(np.int32), w.astype(np.int32))
     np.testing.assert_allclose(got[2], want[2], atol=ATOL, rtol=0)
+    assert (~valid).any() and not any(g[~valid].any() for g in got)
 
 
 @pytest.mark.parametrize("seed,n_people", [(0, 1), (1, 3), (3, 5), (4, 6)])

@@ -6,10 +6,10 @@ imports JAX, so run it there without the conftest:
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest -p no:cacheprovider
 
-Tolerances: PAF sample counts and refine coordinates equal, sample sums
-and scores within 1e-5, ground-truth maps within 1e-6 (kernel and plain
-version round the same fp32 operations in the same order, so they agree
-to the bit in practice).
+Tolerances: candidate validity and refined coordinates equal, scores
+within 1e-5, ground-truth maps within 1e-6 (kernel and plain version
+round the same fp32 operations in the same order, so they agree to the
+bit in practice).
 """
 
 import copy
@@ -26,8 +26,8 @@ from rtpose_tpu_torch.infer.pipeline import PosePipeline
 from rtpose_tpu_torch.models import get_model
 from rtpose_tpu_torch.ops import kernels
 from rtpose_tpu_torch.ops.decode import decode_poses_batch, people_to_host
-from rtpose_tpu_torch.ops.grouping import candidate_geometry
-from rtpose_tpu_torch.ops.peaks import nms, peak_candidates
+from rtpose_tpu_torch.ops.grouping import score_connections
+from rtpose_tpu_torch.ops.peaks import nms, peak_candidates, refine_peaks
 from rtpose_tpu_torch.train.trainer import Trainer
 
 from util_synth import grid_people, render_maps, synth_example
@@ -45,7 +45,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _scenes(kind, n=4, h=46, w=46):
+def _scenes(kind, n=4, h=46, w=62):
     heats, pafs = [], []
     for seed in range(n):
         if kind == "grid":
@@ -60,44 +60,121 @@ def _scenes(kind, n=4, h=46, w=46):
     return torch.from_numpy(np.stack(heats)), torch.from_numpy(np.stack(pafs))
 
 
+def _refine_inputs(cuda, kind, K):
+    """(B, 18, H, W) maps, integer peaks and their validity, with empty
+    slots in the mix."""
+    heat, _ = _scenes(kind)
+    hb = heat[..., :18].permute(0, 3, 1, 2).contiguous().to(cuda)
+    _, py, px, valid, _ = peak_candidates(hb, thresh=0.1, max_peaks=K)
+    assert valid.any() and not valid.all()
+    return hb, py, px, valid
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,kind", [(32, "synth"), (64, "grid")])
 def test_paf_kernel_matches_plain(cuda, K, kind):
+    """The fused scoring kernel (geometry, line integral, criterion) vs
+    its plain version: at K=32 on 46x62 maps, at K=64 on 92x92."""
     heat, paf = (t.to(cuda) for t in _scenes(kind))
-    geo, _, _ = candidate_geometry(nms(heat, max_peaks=K))
-    before = kernels.paf_sample_scores.launches
-    cnt, ssum = kernels.paf_sample_scores(paf, geo)
-    assert kernels.paf_sample_scores.launches == before + 1
-    cnt_p, ssum_p = kernels.paf_sample_scores_plain(paf, geo)
-    assert torch.equal(cnt, cnt_p)
-    torch.testing.assert_close(ssum, ssum_p, rtol=0, atol=ATOL)
+    p = nms(heat, max_peaks=K)
+    before = kernels.connection_scores.launches
+    crit2, valid = kernels.connection_scores(paf, p.x, p.y, p.valid)
+    assert kernels.connection_scores.launches == before + 1
+    crit2_p, valid_p = kernels.connection_scores_plain(paf, p.x, p.y,
+                                                       p.valid)
+    assert crit2.shape == (4, 19, K, K) and int(valid.sum()) > 10
+    assert torch.equal(valid, valid_p)
+    torch.testing.assert_close(crit2, crit2_p, rtol=0, atol=ATOL)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,kind", [(32, "synth"), (64, "grid")])
 def test_refine_kernel_matches_plain(cuda, K, kind):
-    heat, _ = _scenes(kind)
-    hb = heat[..., :18].permute(0, 3, 1, 2).contiguous().to(cuda)
-    _, py, px, _, _ = peak_candidates(hb, thresh=0.1, max_peaks=K)
+    hb, py, px, valid = _refine_inputs(cuda, kind, K)
     before = kernels.bicubic_refine.launches
-    my, mx, score = kernels.bicubic_refine(hb, py, px)
+    xf, yf, score = kernels.bicubic_refine(hb, py, px, valid)
     assert kernels.bicubic_refine.launches == before + 1
-    my_p, mx_p, score_p = kernels.bicubic_refine_plain(hb, py, px)
-    assert torch.equal(my, my_p) and torch.equal(mx, mx_p)
+    xf_p, yf_p, score_p = kernels.bicubic_refine_plain(hb, py, px, valid)
+    assert torch.equal(xf, xf_p) and torch.equal(yf, yf_p)
     torch.testing.assert_close(score, score_p, rtol=0, atol=ATOL)
+    assert not (xf[~valid].any() or yf[~valid].any() or score[~valid].any())
+
+
+@pytest.mark.gpu
+def test_refine_kernel_ties_go_to_lowest_flat_index(cuda):
+    """All-zero windows, at the centre and clipped at the borders: every
+    upsampled cell ties, so the first row-major cell wins, the window's
+    top-left corner; an empty slot in the mix gives zeros."""
+    heat = torch.zeros((1, 18, 10, 12), device=cuda)
+    shape = (1, 18, 4)
+    py = torch.tensor([5, 0, 9, 0], dtype=torch.int32, device=cuda)
+    px = torch.tensor([5, 0, 11, 3], dtype=torch.int32, device=cuda)
+    valid = torch.tensor([True, True, True, False], device=cuda)
+    args = [t.expand(shape).contiguous() for t in (py, px, valid)]
+    xf, yf, score = kernels.bicubic_refine(heat, *args)
+    want = torch.tensor([[24.0, 24.0], [0.0, 0.0], [72.0, 56.0], [0.0, 0.0]],
+                        device=cuda)
+    assert torch.equal(torch.stack([xf, yf], -1)[0], want.expand(18, 4, 2))
+    assert float(score.abs().max()) == 0.0
+    for got, plain in zip((xf, yf, score),
+                          kernels.bicubic_refine_plain(heat, *args)):
+        assert torch.equal(got, plain)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,kind", [(32, "synth"), (64, "grid")])
 def test_refine_gaussian_filt_kernel_matches_plain(cuda, K, kind):
-    heat, _ = _scenes(kind)
-    hb = heat[..., :18].permute(0, 3, 1, 2).contiguous().to(cuda)
-    _, py, px, _, _ = peak_candidates(hb, thresh=0.1, max_peaks=K)
-    my, mx, score = kernels.bicubic_refine(hb, py, px, gaussian_filt=True)
-    my_p, mx_p, score_p = kernels.bicubic_refine_plain(hb, py, px,
-                                                      gaussian_filt=True)
-    assert torch.equal(my, my_p) and torch.equal(mx, mx_p)
+    hb, py, px, valid = _refine_inputs(cuda, kind, K)
+    xf, yf, score = kernels.bicubic_refine(hb, py, px, valid,
+                                           gaussian_filt=True)
+    xf_p, yf_p, score_p = kernels.bicubic_refine_plain(hb, py, px, valid,
+                                                       gaussian_filt=True)
+    assert torch.equal(xf, xf_p) and torch.equal(yf, yf_p)
     torch.testing.assert_close(score, score_p, rtol=0, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_kernels_take_another_factor(cuda):
+    """x4 (the hourglass family's stride): the scoring kernel's generic
+    path and a 20-row refine upsample, against the plain versions."""
+    heat, paf = (t.to(cuda) for t in _scenes("synth"))
+    p = nms(heat, factor=4)
+    got = kernels.connection_scores(paf, p.x, p.y, p.valid, factor=4)
+    want = kernels.connection_scores_plain(paf, p.x, p.y, p.valid, factor=4)
+    assert int(got[1].sum()) > 10
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    hb, py, px, valid = _refine_inputs(cuda, "synth", 32)
+    got = kernels.bicubic_refine(hb, py, px, valid, factor=4)
+    want = kernels.bicubic_refine_plain(hb, py, px, valid, factor=4)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_decode_stages_launch_one_kernel_each(cuda):
+    """The profiler sees exactly one device kernel, and no copy, in
+    score_connections and in refine_peaks at the default caps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    heat, paf = (t.to(cuda) for t in _scenes("synth"))
+    p = nms(heat)
+    hb, py, px, valid = _refine_inputs(cuda, "synth", 32)
+    stages = {"score_connections": lambda: score_connections(p, paf),
+              "refine_peaks": lambda: refine_peaks(hb, py, px, valid)}
+    calls = 10
+    for name, fn in stages.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        # the profiler may miss one event of a run
+        assert calls - 1 <= sum(e.count for e in events) <= calls, \
+            (name, [(e.key, e.count) for e in events])
 
 
 def _keypoints(batch=8, slots=32, size=368, seed=0):
@@ -150,14 +227,19 @@ def test_train_step_on_card_launches_gt_maps(cuda):
 
 @pytest.mark.gpu
 def test_wrappers_raise_instead_of_falling_back(cuda):
-    geo = torch.zeros((1, 19, 6, 4), device=cuda)
+    peaks = torch.zeros((1, 18, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        kernels.paf_sample_scores(
-            torch.zeros((1, 4, 4, 38), dtype=torch.float64, device=cuda), geo)
+        kernels.connection_scores(
+            torch.zeros((1, 4, 4, 38), dtype=torch.float64, device=cuda),
+            peaks, peaks, peaks.bool())
+    with pytest.raises(ValueError, match="bool"):
+        kernels.connection_scores(torch.zeros((1, 4, 4, 38), device=cuda),
+                                  peaks, peaks, peaks)
     heat = torch.zeros((1, 18, 8, 8), device=cuda)
-    peaks = torch.zeros((1, 18, 2), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="int32"):
-        kernels.bicubic_refine(heat, peaks, peaks)
+        kernels.bicubic_refine(heat, peaks.long(), peaks, peaks.bool())
+    with pytest.raises(ValueError, match="rows"):
+        kernels.bicubic_refine(heat, peaks, peaks, peaks.bool(), factor=16)
     kps = torch.zeros((1, 2, 18, 3), device=cuda)
     limbs = torch.zeros((1, 2, 19, 9), device=cuda)
     with pytest.raises(ValueError, match="int32"):
@@ -209,7 +291,7 @@ def test_pipeline_on_card_runs_through_both_kernels(cuda):
     people, metas = pipe.run_batch(frames)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    assert counts["paf_sample_scores"] > 0 and counts["bicubic_refine"] > 0
+    assert counts["connection_scores"] > 0 and counts["bicubic_refine"] > 0
     assert counts["gt_maps"] == 0
     assert heat_g.shape == heat_c.shape == (7, 10, 19)
     for got, want in ((heat_g, heat_c), (paf_g, paf_c)):

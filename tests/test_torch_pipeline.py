@@ -165,6 +165,20 @@ def test_cuda_device_is_never_replaced_by_cpu():
         pipeline.load_pipeline(device="cuda", num_stages=1)
 
 
+@pytest.mark.parametrize("entry", ["load_pipeline", "Trainer"])
+def test_entry_points_default_to_the_card(entry):
+    """Without `device`, serving and training run on the card: on a host
+    without CUDA they raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.train.trainer import Trainer
+    make = {"load_pipeline": lambda: pipeline.load_pipeline(num_stages=1),
+            "Trainer": lambda: Trainer(Config())}[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+
+
 # ---------------------------------------------------------------------------
 # the truncation retry
 # ---------------------------------------------------------------------------
