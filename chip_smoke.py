@@ -8,12 +8,15 @@ Builds the hand-written CUDA kernels from rtpose_tpu_torch/csrc, holds
 each against its plain PyTorch version on the card, times each (device
 time per launch from the profiler, the wrapper's host time per call, the
 bound from the bytes and operations of this run's inputs), counts the
-device kernels of the two decode stages that hold them, decodes rendered
-scenes on the card and on the CPU, then drives the two paths of the port
-through the entry points a user calls:
+device kernels of the two decode stages and of the ground-truth stage
+that hold them (one each, no copy), decodes rendered scenes on the card
+and on the CPU, plain and with ``gaussian_filt``, then drives the two
+paths of the port through the entry points a user calls:
 
 - serving (VGG19, 6 stages, 368 px, flip TTA, bf16, seeded random
-  weights) through ``load_pipeline`` / ``run`` / ``run_batch``;
+  weights) through ``load_pipeline`` / ``run`` / ``run_batch``, and once
+  more with ``gaussian_filt=True``, first decode and retry, which must
+  reach the blurred refine kernel;
 - training (the same model, batch 72, bf16, freeze phase on, seeded He
   weights) through ``Trainer.run_epoch`` on rendered scenes: the loss
   falls, the frozen convs stay and then move, a NaN batch is skipped, and
@@ -103,19 +106,28 @@ def paired_ms(kernel_fn, plain_fn, iters: int):
 
 def device_events(fn, iters: int) -> dict:
     """torch.profiler's device events over `iters` calls of fn (after a
-    warm-up call): {name: (count, self device time in us, summed)}."""
+    warm-up call): {name: (count, self device time in us, summed)}.  A
+    session now and then comes back with no device event at all (seen on
+    an H100, on a stage that launches a kernel every call); such a session
+    is taken again, twice at most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: (e.count, e.self_device_time_total)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    events = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = {e.key: (e.count, e.self_device_time_total)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA}
+        if events:
+            break
+    return events
 
 
 def device_ms(fn, kernel: str, iters: int = 200):
@@ -179,28 +191,36 @@ def refine_work(heat, py, px, valid, blur: bool, factor: int = 8):
     """(bytes, flops) of bicubic_refine on this run's peaks: only the
     slots that hold a peak are refined, each on its clipped window's
     (ph * f, pw * f) region; every slot's indices are read and its three
-    outputs written."""
+    outputs written.  The blur is a banded filter: its two products are
+    counted over the non-zero taps of the extent's blur matrix (at most 25
+    a row), not over its dense rows."""
+    import torch
+    from rtpose_tpu_torch.ops.kernels import blur_matrices
     H, W = heat.shape[-2:]
     y_min, x_min = (py - 2).clamp(min=0), (px - 2).clamp(min=0)
-    vh = (((py + 2).clamp(max=H - 1) - y_min + 1) * factor)[valid].double()
-    vw = (((px + 2).clamp(max=W - 1) - x_min + 1) * factor)[valid].double()
+    eh = ((py + 2).clamp(max=H - 1) - y_min + 1)[valid].long()   # 3, 4 or 5
+    ew = ((px + 2).clamp(max=W - 1) - x_min + 1)[valid].long()
+    vh, vw = (eh * factor).double(), (ew * factor).double()
     mac = vh * 25 + vh * vw * 5              # My * patch, then * Mx^T
     mats = 3 * 5 * factor * 5 * 4
     if blur:
-        mac = mac + vh * vh * vw + vh * vw * vw   # By * up, then * Bx^T
+        taps = torch.as_tensor((blur_matrices(factor) != 0).sum((1, 2)),
+                               dtype=torch.float64, device=eh.device)
+        # By * up: each row's taps for every column; then * Bx^T likewise
+        mac = mac + taps[eh - 3] * vw + vh * taps[ew - 3]
         mats += 3 * (5 * factor) ** 2 * 4
     slots = py.numel()
     n_bytes = int(valid.sum()) * 25 * 4 + slots * (4 + 4 + 1 + 12) + mats
     return n_bytes, float((2 * mac + vh * vw).sum())
 
 
-def gt_work(kps, limbs, n_pers, gy: int, gx: int):
-    """(bytes, flops) of gt_maps: keypoints and limb scalars read once,
-    (B, gy, gx, 19) + (B, gy, gx, 38) written once; the persons visited."""
+def gt_work(kps, n_pers, gy: int, gx: int):
+    """(bytes, flops) of the ground-truth synthesis: the keypoints read
+    once, (B, gy, gx, 19) + (B, gy, gx, 38) written once; the operations
+    of the persons that this batch's images visit (`n_pers`)."""
     B = kps.shape[0]
     cells = gy * gx
-    n_bytes = (kps.numel() + limbs.numel() + n_pers.numel()) * 4 \
-        + B * cells * 57 * 4
+    n_bytes = kps.numel() * 4 + B * cells * 57 * 4
     return n_bytes, (GT_FLOPS_CELL_PERSON * int(n_pers.sum())
                      + GT_FLOPS_CELL * B) * cells
 
@@ -333,6 +353,42 @@ def train_batch(n: int, size: int, seed: int):
     return {"image": images, "keypoints": kps, "valid_xywh": window}
 
 
+def edge_keypoints(gy: int, gx: int, slots: int = SLOTS, seed: int = 0):
+    """(4, slots, 18, 3) keypoints that press on K4's culling, for a
+    (gy, gx) grid at stride 8: image 0 persons on the grid's border cells
+    and corners; image 1 every slot full, half of the persons wholly
+    outside the grid, some far outside; image 2 empty; image 3 only the
+    last two slots: parts at the Gaussian's cutoff distance from a cell
+    centre, to either side of it by ulps, and limbs that cross the whole
+    grid or have no length."""
+    rng = np.random.RandomState(seed)
+    h, w = 8.0 * gy, 8.0 * gx
+    kps = np.zeros((4, slots, 18, 3), np.float32)
+    border = [(3.5, 3.5), (w - 4.5, 3.5), (3.5, h - 4.5), (w - 4.5, h - 4.5),
+              (0.0, 0.0), (w - 1, h - 1), (-0.5, h / 2), (w / 2, h - 0.5)]
+    for p, (x, y) in enumerate(border[:slots]):
+        kps[0, p, :, 0] = x + rng.uniform(-1, 1, 18) * (p % 2)
+        kps[0, p, :, 1] = y + rng.uniform(-1, 1, 18) * (p % 2)
+        kps[0, p, :, 2] = 2
+    for p in range(slots):
+        lo, hi = ((-0.2, 1.2), (-3.0, -1.1), (1.1, 3.0), (-1e4, 1e4))[p % 4]
+        kps[1, p, :, 0] = rng.uniform(lo, hi, 18) * w
+        kps[1, p, :, 1] = rng.uniform(lo, hi, 18) * h
+        kps[1, p, :, 2] = rng.choice([0, 2], 18, p=[.2, .8])
+    reach = np.float32(np.sqrt(np.float64(np.float32(4.6052)) * 2 * 49.0))
+    cx, cy = 8.0 * (gx // 2) + 3.5, 8.0 * (gy // 2) + 3.5
+    for part in range(18):
+        d = reach + np.float32((part - 9) * 2e-6 * reach)
+        ang = (0.0, np.pi / 2, np.pi, np.pi / 4)[part % 4]
+        kps[3, slots - 1, part] = (cx + d * np.cos(ang),
+                                   cy + d * np.sin(ang), 2)
+    kps[3, slots - 2, :, 0] = np.where(np.arange(18) % 2, -5.0, w + 5.0)
+    kps[3, slots - 2, :, 1] = np.linspace(-5.0, h + 5.0, 18)
+    kps[3, slots - 2, 8:11, :2] = (w / 2, h / 2)
+    kps[3, slots - 2, :, 2] = 2
+    return kps
+
+
 def people_equal(a, b, what: str) -> float:
     """Check two People equal (scores within SCORE_TOL); -> the largest
     score difference."""
@@ -357,9 +413,11 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: needs compute capability 9.0 "
                          f"(Hopper), found {cap}")
     sys.path.insert(0, ROOT)
-    from rtpose_tpu_torch.infer.pipeline import RETRY_CAPS, load_pipeline
+    from rtpose_tpu_torch.infer.pipeline import (RETRY_CAPS, PosePipeline,
+                                                 load_pipeline)
     from rtpose_tpu_torch.infer.preprocess import normalize_device
     from rtpose_tpu_torch.models import get_model
+    from rtpose_tpu_torch.models.common import ModelOutput
     from rtpose_tpu_torch.ops import _build, kernels
     from rtpose_tpu_torch.ops.decode import decode_poses_batch, people_to_host
     from rtpose_tpu_torch.ops.grouping import (assemble_people,
@@ -452,29 +510,57 @@ def main() -> int:
                     f"{tag}max_abs_err": err, f"{tag}ms": ms,
                     f"{tag}plain_ms": plain_ms})
 
-    # 4b. ground-truth synthesis kernel (K4) vs plain at the training
-    # shape: 72 images, 32 person slots, 46x46 grid
-    from rtpose_tpu_torch.data.gt import limb_scalars, person_bound
+    # 4b. ground-truth synthesis kernel (K4: keypoints in, maps out) vs
+    # its plain version (the torch limb scalars and person bound, then the
+    # dense person loop).  At the training shape, 72 images, 32 person
+    # slots, 46x46 grid; then persons on the edges, outside the grid and
+    # at the Gaussian's cutoff, an empty image and a full one (n = 32), on
+    # that grid and on 28x40 and 7x9, whose spans no vector divides
+    from rtpose_tpu_torch.data.gt import ground_truth_maps_batch
+    from rtpose_tpu_torch.ops.kernels import limb_scalars, person_bound
+
+    def gt_plain(k, gy, gx):
+        return kernels.gt_maps_plain(k, limb_scalars(k, 8), person_bound(k),
+                                     grid_y=gy, grid_x=gx, stride=8,
+                                     sigma=7.0)
+
     kps = torch.from_numpy(train_batch(TRAIN_BATCH, 368, seed=1)
                            ["keypoints"]).to(dev)
-    limbs, n_pers = limb_scalars(kps, 8), person_bound(kps)
+    n_pers = person_bound(kps)
     gt_args = dict(grid_y=46, grid_x=46, stride=8, sigma=7.0)
-    heat_k, paf_k = kernels.gt_maps(kps, limbs, n_pers, **gt_args)
-    heat_p, paf_p = kernels.gt_maps_plain(kps, limbs, n_pers, **gt_args)
+    heat_k, paf_k = kernels.gt_maps(kps, **gt_args)
+    heat_p, paf_p = gt_plain(kps, 46, 46)
     torch.cuda.synchronize()
     err = max(float((heat_k - heat_p).abs().max()),
               float((paf_k - paf_p).abs().max()))
     check(heat_k.shape == (TRAIN_BATCH, 46, 46, 19)
           and paf_k.shape == (TRAIN_BATCH, 46, 46, 38), "gt_maps shapes")
     check(err <= GT_TOL, f"gt_maps: max err {err} vs plain")
-    ms, plain_ms = paired_ms(
-        lambda: kernels.gt_maps(kps, limbs, n_pers, **gt_args),
-        lambda: kernels.gt_maps_plain(kps, limbs, n_pers, **gt_args), 20)
+    ms, plain_ms = paired_ms(lambda: kernels.gt_maps(kps, **gt_args),
+                             lambda: gt_plain(kps, 46, 46), 20)
     results["gt_maps"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
     log(f"gt_maps B={TRAIN_BATCH} N={SLOTS} 46x46 ({int(n_pers.sum())} "
         f"person slots visited, persons per image {n_pers.min().item()}-"
         f"{n_pers.max().item()}): max err {err:.3g}; kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms (back to back) [{smi}]")
+    for gy, gx in ((46, 46), (28, 40), (7, 9)):
+        edge = torch.from_numpy(edge_keypoints(gy, gx)).to(dev)
+        bound_n = person_bound(edge).tolist()
+        check(bound_n == [8, SLOTS, 0, SLOTS], f"edge batch bounds {bound_n}")
+        got = kernels.gt_maps(edge, grid_y=gy, grid_x=gx, stride=8,
+                              sigma=7.0)
+        want = gt_plain(edge, gy, gx)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        check(err == 0.0, f"gt_maps {gy}x{gx} edge batch: max err {err}")
+        check(float(got[0][2, ..., :18].abs().max()) == 0.0
+              and float(got[0][2, ..., 18].min()) == 1.0
+              and float(got[1][2].abs().max()) == 0.0,
+              f"gt_maps {gy}x{gx}: the empty image is not background")
+        log(f"gt_maps {gy}x{gx} edge batch (border, full with persons "
+            f"outside, empty, cutoff): max err {err:.3g}, "
+            f"{int((got[0][..., :18] > 0).sum())} heat and "
+            f"{int((got[1] != 0).sum())} PAF values set")
 
     # 4c. each kernel's device time per launch (profiler), its wrapper's
     # host time per call and its bound, at the main path's shapes; then
@@ -496,9 +582,8 @@ def main() -> int:
                                                    gaussian_filt=blur),
                           refine_work(*i["refine"], blur)))
     cases.append((f"gt_maps B={TRAIN_BATCH}", "gt_maps_kernel",
-                  functools.partial(kernels.gt_maps, kps, limbs, n_pers,
-                                    **gt_args),
-                  gt_work(kps, limbs, n_pers, 46, 46)))
+                  functools.partial(kernels.gt_maps, kps, **gt_args),
+                  gt_work(kps, n_pers, 46, 46)))
     timing = {}
     for label, kname, fn, (n_bytes, n_flops) in cases:
         d_ms, src = device_ms(fn, kname)
@@ -531,13 +616,29 @@ def main() -> int:
                   f"{stage} K={K} put {n_kern} kernels and {n_other} "
                   f"copies on the card, not its one kernel")
 
-    # 5. decode on the card vs the same maps decoded on the CPU
+    # the ground-truth stage as the trainer calls it: one kernel, no copy,
+    # and its host time per call (per train step)
+    gt_stage = functools.partial(ground_truth_maps_batch, kps)
+    n_kern, n_other, names = device_work(gt_stage)
+    gt_host_ms = host_ms(gt_stage)
+    log(f"device work of ground_truth_maps_batch B={TRAIN_BATCH}: {n_kern} "
+        f"kernels, {n_other} copies/fills ({', '.join(names)}); host "
+        f"{gt_host_ms:.5f} ms/call [{smi}]")
+    check(n_kern == 1 and n_other == 0,
+          f"ground_truth_maps_batch put {n_kern} kernels and {n_other} "
+          f"copies on the card, not its one kernel")
+
+    # 5. decode on the card vs the same maps decoded on the CPU, with the
+    # plain and the blurred refine
     h32, p32 = torch.from_numpy(heat32), torch.from_numpy(paf32)
-    got = people_to_host(decode_poses_batch(h32.to(dev), p32.to(dev)))
-    want = people_to_host(decode_poses_batch(h32, p32))
-    err = people_equal(got, want, "decode K=32")
-    log(f"decode_poses_batch: card == CPU on 8 rendered scenes "
-        f"({int(got.valid.sum())} people, score max err {err:.3g})")
+    for mode in ({}, {"gaussian_filt": True}):
+        got = people_to_host(decode_poses_batch(h32.to(dev), p32.to(dev),
+                                                **mode))
+        want = people_to_host(decode_poses_batch(h32, p32, **mode))
+        err = people_equal(got, want, f"decode K=32 {mode}")
+        log(f"decode_poses_batch {mode or ''}: card == CPU on 8 rendered "
+            f"scenes ({int(got.valid.sum())} people, score max err "
+            f"{err:.3g})")
 
     # 30 people: 570 connections overflow the default 160 but fit the
     # 608 of RETRY_CAPS (36 people, 684 connections, would not)
@@ -563,7 +664,55 @@ def main() -> int:
         f"retried at RETRY_CAPS -> {[len(p) for p in people]} people, "
         f"card == CPU (score max err {err:.3g})")
 
-    # 6. serving main path: one frame, then 8 frames of mixed sizes
+    # the same through the entry points of a pipeline built with
+    # gaussian_filt=True.  The seeded random weights find no people, so
+    # here a module that answers every frame with the rendered crowded
+    # maps stands in for the network (2 scenes): run and run_batch
+    # truncate at the default caps and retry by themselves, first decode
+    # and retry through the blurred kernel
+    class RenderedMaps(torch.nn.Module):
+        def __init__(self, heat, paf):
+            super().__init__()
+            self.register_buffer("heat", heat)
+            self.register_buffer("paf", paf)
+
+        def forward(self, x):
+            n = x.shape[0]
+            return ModelOutput(pafs=self.paf[None, :n],
+                               heatmaps=self.heat[None, :n])
+
+    crowd_pipe = PosePipeline(RenderedMaps(h30[:2], p30[:2]), device="cuda",
+                              input_size=736, flip=False, gaussian_filt=True)
+    blank = [np.zeros((736, 736, 3), np.uint8)] * 2
+    kernels.reset_launch_counts()
+    alone, _, _, meta = crowd_pipe.run(blank[0])
+    people, metas = crowd_pipe.run_batch(blank)
+    blurred = kernels.launch_counts()
+    hb, pb = h30[:2].to(dev), p30[:2].to(dev)
+    want = people_to_host(decode_poses_batch(h30[:2], p30[:2],
+                                             gaussian_filt=True,
+                                             **RETRY_CAPS))
+    got = people_to_host(decode_poses_batch(hb, pb, gaussian_filt=True,
+                                            **RETRY_CAPS))
+    err = people_equal(got, want, "blurred decode at RETRY_CAPS")
+    check(all(m.get("retried") and not m["truncated"]
+              for m in [meta] + metas)
+          and [len(p) for p in [alone] + people]
+          == [int(want.valid[i].sum()) for i in (0, 0, 1)],
+          "the blurred retry did not resolve the crowded scenes")
+    check(blurred["bicubic_refine_gaussian_filt"]
+          == blurred["bicubic_refine"] == 4,
+          f"run and run_batch, first decode and retry, should launch the "
+          f"blurred kernel 4 times and no other refine: {blurred}")
+    log(f"gaussian_filt pipeline on 2 crowded scenes, run and run_batch: "
+        f"first decode and retry through the blurred kernel -> "
+        f"{[len(p) for p in [alone] + people]} people, card == CPU (score "
+        f"max err {err:.3g})")
+    del crowd_pipe
+
+    # 6. serving main path: one frame, then 8 frames of mixed sizes, with
+    # their launches read before anything else runs; then, counted from 0
+    # again, the gaussian_filt pipeline on one frame and 2 frames
     rng = np.random.RandomState(0)
     frame = rng.randint(0, 256, (480, 640, 3), np.uint8)
     batch = ([rng.randint(0, 256, (480, 640, 3), np.uint8) for _ in range(4)]
@@ -587,9 +736,32 @@ def main() -> int:
         check(counts[name] > 0, f"{name} was not launched by the serving "
               f"path")
     check(counts["gt_maps"] == 0, "the serving path launched gt_maps")
+    check(counts["bicubic_refine_gaussian_filt"] == 0,
+          "the default serving path took the blurred refine")
     log(f"serving: run -> maps {heat1.shape}/{paf1.shape} finite, "
         f"{len(people1)} people; run_batch(8 mixed) -> "
         f"{[len(p) for p in people8]} people; launches {counts}")
+
+    blur_pipe = load_pipeline(device="cuda", model_name="vgg19", num_stages=6,
+                              input_size=368, flip=True, seed=0,
+                              gaussian_filt=True)
+    kernels.reset_launch_counts()
+    people1b, heat1b, _, _ = blur_pipe.run(frame)
+    people2b, _ = blur_pipe.run_batch(batch[:2])
+    torch.cuda.synchronize()
+    blur_counts = kernels.launch_counts()
+    check(blur_counts["bicubic_refine_gaussian_filt"]
+          == blur_counts["bicubic_refine"] >= 2
+          and blur_counts["connection_scores"] >= 2
+          and blur_counts["gt_maps"] == 0,
+          f"the gaussian_filt pipeline did not run through the blurred "
+          f"kernel alone: {blur_counts}")
+    check(heat1b.shape == heat1.shape and bool(np.isfinite(heat1b).all())
+          and len(people2b) == 2, "gaussian_filt pipeline results")
+    log(f"serving with gaussian_filt: run and run_batch(2) -> "
+        f"{len(people1b)}, {[len(p) for p in people2b]} people; launches "
+        f"{blur_counts}")
+    del blur_pipe
 
     # fp32 forward on the card (TF32 off) vs the CPU, same seeded weights
     # drawn at He scale (N(0, 0.01) shrinks the 6-stage output ~1e10-fold)
@@ -784,6 +956,9 @@ def main() -> int:
     }
     launches = {**{k: counts[k] for k in SERVING_KERNELS},
                 "gt_maps": train_counts["gt_maps"]}
+    results["bicubic_refine"]["gaussian_filt_launches"] = \
+        blur_counts["bicubic_refine_gaussian_filt"]
+    results["gt_maps"]["stage_host_ms"] = gt_host_ms
     # library_ms: no single PyTorch call computes any of them (K1's
     # truncated int(a + s * step + 0.5) // 8 cells are not grid_sample's;
     # K3 is a gather, a bicubic upsample with cv2's border and an argmax;

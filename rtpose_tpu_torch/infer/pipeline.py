@@ -62,14 +62,16 @@ def make_infer_fn(model, *, input_size: int = 368,
                   preprocess_mode: str = "vgg", thresh_heatmap: float = 0.1,
                   max_peaks: int = 32, max_people: int = 64,
                   downsample: int = 8, flip: bool = True,
-                  max_candidates: int = 256, max_total_conns: int = 160):
+                  max_candidates: int = 256, max_total_conns: int = 160,
+                  gaussian_filt: bool = False):
     """Build the uint8-frames -> people function.
 
     Returned fn: raw ``(B, H, W, 3)`` uint8 BGR frames on the model's
     device -> ``(People, heat (B, h, w, 19), paf (B, h, w, 38))``.  The
     frames are scaled so their short side is `input_size`, zero-padded to
     a multiple of `downsample` (the reference crop_with_factor's geometry)
-    and normalized, all on their device.
+    and normalized, all on their device.  `gaussian_filt` blurs each
+    peak's upsampled refine window (sigma 3) before the argmax.
     """
 
     @torch.inference_mode()
@@ -89,7 +91,8 @@ def make_infer_fn(model, *, input_size: int = 368,
         people = decode_poses_batch(
             heat, paf, factor=downsample, thresh_heatmap=thresh_heatmap,
             max_peaks=max_peaks, max_people=max_people,
-            max_candidates=max_candidates, max_total_conns=max_total_conns)
+            max_candidates=max_candidates, max_total_conns=max_total_conns,
+            gaussian_filt=gaussian_filt)
         return people, heat, paf
 
     return infer
@@ -132,6 +135,8 @@ class PosePipeline:
     cap is decoded again from its maps, still on the card, at
     `retry_caps` (default :data:`RETRY_CAPS`); meta['retried'] marks it
     and meta['truncated'] reports the state after the retry.
+    `gaussian_filt` (default off, as in the reference) selects the blurred
+    peak refine for the first decode and the retry alike.
     """
 
     def __init__(self, model, *, device="cuda", input_size: int = 368,
@@ -139,7 +144,8 @@ class PosePipeline:
                  flip: bool = True, thresh_heatmap: float = 0.1,
                  max_peaks: int = 32, max_people: int = 64,
                  max_candidates: int = 256, max_total_conns: int = 160,
-                 auto_retry: bool = True, retry_caps: Optional[Dict] = None):
+                 auto_retry: bool = True, retry_caps: Optional[Dict] = None,
+                 gaussian_filt: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.input_size = input_size
@@ -151,11 +157,12 @@ class PosePipeline:
             preprocess_mode=preprocess_mode, thresh_heatmap=thresh_heatmap,
             max_peaks=max_peaks, max_people=max_people,
             downsample=downsample, flip=flip, max_candidates=max_candidates,
-            max_total_conns=max_total_conns)
+            max_total_conns=max_total_conns, gaussian_filt=gaussian_filt)
         self.auto_retry = auto_retry
         self.retry_caps = {**RETRY_CAPS, **(retry_caps or {})}
         self._retry_kwargs = dict(factor=downsample,
                                   thresh_heatmap=thresh_heatmap,
+                                  gaussian_filt=gaussian_filt,
                                   **self.retry_caps)
 
     def __call__(self, image_bgr: np.ndarray) -> List[Dict[str, Any]]:

@@ -37,9 +37,9 @@ _SIGNATURES = {
     "rtpose_connection_scores": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _F, _I, _P),
     "rtpose_refine_peaks": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _P),
-    "rtpose_gt_maps": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _F, _F, _F, _F, _P),
+                            _I, _I, _I, _I, _I, _I, _I, _P),
+    "rtpose_limb_tables": (_P, _P),
+    "rtpose_gt_maps": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P),
 }
 
 

@@ -14,7 +14,8 @@ ground truth (sources in ``csrc/``):
   serves the blurred refine that the JAX package runs as
   ``_refine_onehot`` (``rtpose_tpu/ops/peaks.py``);
 - :func:`gt_maps` (``csrc/gt_maps.cu``) replaces ``gt_maps_pallas`` of
-  ``rtpose_tpu/ops/pallas_gt.py``.
+  ``rtpose_tpu/ops/pallas_gt.py`` with the precompute before its
+  ``pallas_call``: keypoints in, both maps out, one launch.
 
 A wrapper given CPU tensors runs the plain PyTorch version beside it; given
 CUDA tensors it launches the kernel or raises.  There is no fallback from
@@ -31,8 +32,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..skeleton import (GROUP_PAIRS, GROUP_PAIRS_NET, NUM_GROUP_PAIRS,
-                        NUM_LIMBS, NUM_PARTS)
+from ..skeleton import (GROUP_PAIRS, GROUP_PAIRS_NET, LIMBS,
+                        NUM_GROUP_PAIRS, NUM_LIMBS, NUM_PARTS)
 
 STEP_PAF = 10
 THRESH_VECTOR_SCORE = 0.05
@@ -40,12 +41,19 @@ PATCH = 5          # 5x5 refine window, reference paf_to_pose.py:100
 WIN = PATCH // 2
 LN100 = 4.6052     # gaussian support cutoff (reference heatmap.py:30)
 LIMB_FIELDS = 9    # ax, ay, ux, uy, valid, mnx, mxx, mny, mxy
+LIMB_WIDTH = 1.0   # PAF half width in grid units (reference paf.py:22)
 MAX_WARP_UPSAMPLE = 64   # the warp refine's rows: 2 per lane
+BLUR_SIGMA = 3.0         # the blurred refine (reference paf_to_pose.py:121)
+BLUR_TRUNCATE = 4.0      # scipy.ndimage.gaussian_filter's default
+BLUR_RADIUS = int(BLUR_TRUNCATE * BLUR_SIGMA + 0.5)   # taps each side: 12
+MAX_GT_GRID = 32766      # K4 packs cell indices as 16-bit integers
 
 PAIR_A = np.array([p[0] for p in GROUP_PAIRS], dtype=np.int64)
 PAIR_B = np.array([p[1] for p in GROUP_PAIRS], dtype=np.int64)
 PAIR_CHX = np.array([c[0] for c in GROUP_PAIRS_NET], dtype=np.int64)
 PAIR_CHY = np.array([c[1] for c in GROUP_PAIRS_NET], dtype=np.int64)
+LIMB_A = np.array([l[0] for l in LIMBS], dtype=np.int64)
+LIMB_B = np.array([l[1] for l in LIMBS], dtype=np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -86,15 +94,18 @@ def interp_matrices(factor: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def blur_matrices(factor: int, sigma: float = 3.0,
-                  truncate: float = 4.0) -> np.ndarray:
+def blur_matrices(factor: int, sigma: float = BLUR_SIGMA,
+                  truncate: float = BLUR_TRUNCATE) -> np.ndarray:
     """(3, PATCH*factor, PATCH*factor) separable Gaussian blur matrices
     (copied from rtpose_tpu/ops/peaks.py:99-127).
 
     B[p] acts on an upsampled patch of extent n = (p+3)*factor as
     scipy.ndimage.gaussian_filter(..., sigma, mode='reflect') along one
     axis; rows and columns >= n are zero, so the invalid region neither
-    leaks in nor out.
+    leaks in nor out.  The reflection folds back inside the band, so
+    B[p][i, j] is also zero wherever |i - j| exceeds the radius
+    int(truncate * sigma + 0.5): the blurred kernel sums over that band
+    only.
     """
     r = int(truncate * sigma + 0.5)
     k = np.arange(-r, r + 1, dtype=np.float64)
@@ -147,7 +158,7 @@ def _library():
     if _lib is None:
         from . import _build
         lib = _build.load().lib
-        _check_pair_tables(lib)
+        _check_tables(lib)
         _lib = lib
     return _lib
 
@@ -168,14 +179,19 @@ def _launch(fn_name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
 
 
-def _check_pair_tables(lib) -> None:
-    tables = [(ctypes.c_int * NUM_GROUP_PAIRS)() for _ in range(4)]
-    n = lib.rtpose_pair_tables(*tables)
-    want = (PAIR_A, PAIR_B, PAIR_CHX, PAIR_CHY)
-    if n != NUM_GROUP_PAIRS or any(list(t) != w.tolist()
-                                   for t, w in zip(tables, want)):
-        raise RuntimeError("csrc/connection_scores.cu pair tables differ "
-                           "from skeleton.GROUP_PAIRS / GROUP_PAIRS_NET")
+def _check_tables(lib) -> None:
+    """The skeleton tables compiled into the sources against skeleton.py."""
+    for entry, want, what in (
+            ("rtpose_pair_tables", (PAIR_A, PAIR_B, PAIR_CHX, PAIR_CHY),
+             "csrc/connection_scores.cu pair tables differ from "
+             "skeleton.GROUP_PAIRS / GROUP_PAIRS_NET"),
+            ("rtpose_limb_tables", (LIMB_A, LIMB_B),
+             "csrc/gt_maps.cu limb tables differ from skeleton.LIMBS")):
+        tables = [(ctypes.c_int * len(want[0]))() for _ in want]
+        n = getattr(lib, entry)(*tables)
+        if n != len(want[0]) or any(list(t) != w.tolist()
+                                    for t, w in zip(tables, want)):
+            raise RuntimeError(what)
 
 
 def _route(t: torch.Tensor) -> str:
@@ -184,7 +200,7 @@ def _route(t: torch.Tensor) -> str:
     return t.device.type
 
 
-def _true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d, correctly rounded on every device: CUDA computes a tensor
     divided by a Python number as a product with its reciprocal, which
     is an ulp off for some values; a 0-d tensor divisor is a division."""
@@ -226,8 +242,8 @@ def candidate_geometry(peak_x: torch.Tensor, peak_y: torch.Tensor,
     uy = torch.where(nz, dy / safe, 0.0)
     # int(ax + s * (dx / 10) + 0.5): the step first, the reference's
     # exact expression (pafprocess.cpp:223-229)
-    step_x = _true_div(dx, STEP_PAF)
-    step_y = _true_div(dy, STEP_PAF)
+    step_x = true_div(dx, STEP_PAF)
+    step_y = true_div(dy, STEP_PAF)
     C = K * K
     geo = torch.stack([ax[..., None].expand_as(dx).reshape(B, -1, C),
                        ay[..., None].expand_as(dy).reshape(B, -1, C),
@@ -244,7 +260,7 @@ def criterion(cnt: torch.Tensor, ssum: torch.Tensor, norm: torch.Tensor,
     (B, 19, K, K): the mean sample score plus the reference's penalty on
     limbs longer than half the map (pafprocess.cpp:84-92)."""
     cnt = cnt.reshape(norm.shape)
-    mean = _true_div(ssum.reshape(norm.shape), STEP_PAF)
+    mean = true_div(ssum.reshape(norm.shape), STEP_PAF)
     half = norm.new_full((), 0.5 * h_up)
     crit2 = mean + (half / norm.clamp(min=1e-12) - 1.0).clamp(max=0.0)
     valid = ok & (cnt > thresh_vector_cnt) & (crit2 > 0)
@@ -465,12 +481,14 @@ def bicubic_refine(heat: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
         _launch("rtpose_refine_peaks", dev, heat.data_ptr(), py.data_ptr(),
                 px.data_ptr(), valid.data_ptr(), mats.data_ptr(), blur,
                 xf.data_ptr(), yf.data_ptr(), score.data_ptr(), B * P * K, K,
-                H, W, factor, int(gaussian_filt))
+                H, W, factor, int(gaussian_filt), BLUR_RADIUS)
         bicubic_refine.launches += 1
+        bicubic_refine.gaussian_filt_launches += int(gaussian_filt)
     return xf, yf, score
 
 
 bicubic_refine.launches = 0
+bicubic_refine.gaussian_filt_launches = 0   # those of them in the blurred mode
 
 
 # ---------------------------------------------------------------------------
@@ -485,12 +503,61 @@ def _gt_constants(stride: float, sigma: float):
     return start, inv2s
 
 
+def person_bound(keypoints: torch.Tensor) -> torch.Tensor:
+    """(B, N, 18, 3) -> (B,) int32: 1 + index of the last person with a
+    visible part (0 for none), robust to invisible rows in the middle of
+    the padding (pallas_gt.py:141-145)."""
+    B, N = keypoints.shape[:2]
+    dev = keypoints.device
+    if N == 0:
+        return torch.zeros(B, dtype=torch.int32, device=dev)
+    any_v = (keypoints[..., 2] > 0.5).any(dim=-1)                 # (B, N)
+    slots = torch.arange(1, N + 1, device=dev)
+    return torch.where(any_v, slots, 0).amax(dim=-1).to(torch.int32)
+
+
+def limb_scalars(keypoints: torch.Tensor, stride: int,
+                 limb_width: float = LIMB_WIDTH) -> torch.Tensor:
+    """(B, N, 18, 3) keypoints -> (B, N, 19, 9) limb scalars [ax, ay, ux,
+    uy, valid, mnx, mxx, mny, mxy] in grid units (pallas_gt.py:152-171).
+
+    ``torch.round`` rounds half to even, as ``jnp.round`` does.
+    """
+    kp = keypoints
+    vis = kp[..., 2] > 0.5
+    a = torch.as_tensor(LIMB_A, device=kp.device)
+    b = torch.as_tensor(LIMB_B, device=kp.device)
+    ax = true_div(kp[:, :, a, 0], stride)                        # (B, N, 19)
+    ay = true_div(kp[:, :, a, 1], stride)
+    bx = true_div(kp[:, :, b, 0], stride)
+    by = true_div(kp[:, :, b, 1], stride)
+    both = vis[:, :, a] & vis[:, :, b]
+    vx = bx - ax
+    vy = by - ay
+    # the correctly rounded root of jnp.sqrt and CUDA's sqrtf: torch's CPU
+    # sqrt (MKL's vector library) is an ulp off for about 1 value in 200,
+    # and an ulp in (ux, uy) can move a cell across the limb-width test
+    norm = (vx * vx + vy * vy).double().sqrt().float()
+    lv = (both & (norm > 0)).to(torch.float32)
+    un = norm.clamp(min=1e-12)
+    ux = vx / un
+    uy = vy / un
+    mnx = torch.round(torch.minimum(ax, bx) - limb_width)
+    mxx = torch.round(torch.maximum(ax, bx) + limb_width)
+    mny = torch.round(torch.minimum(ay, by) - limb_width)
+    mxy = torch.round(torch.maximum(ay, by) + limb_width)
+    return torch.stack([ax, ay, ux, uy, lv, mnx, mxx, mny, mxy],
+                       dim=-1).contiguous()
+
+
 def gt_maps_plain(keypoints: torch.Tensor, limbs: torch.Tensor,
                   n_persons: torch.Tensor, *, grid_y: int, grid_x: int,
-                  stride: float, sigma: float, limb_width: float = 1.0
+                  stride: float, sigma: float,
+                  limb_width: float = LIMB_WIDTH
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`gt_maps`: a loop over the N person
-    slots, each term computed and summed in the kernel's order."""
+    """Plain PyTorch version of :func:`gt_maps` after :func:`limb_scalars`
+    and :func:`person_bound`: a loop over the N person slots, each term
+    computed and summed in the kernel's order."""
     B, N = keypoints.shape[:2]
     dev = keypoints.device
     f32 = torch.float32
@@ -530,44 +597,42 @@ def gt_maps_plain(keypoints: torch.Tensor, limbs: torch.Tensor,
         paf.permute(0, 2, 3, 1).contiguous()
 
 
-def gt_maps(keypoints: torch.Tensor, limbs: torch.Tensor,
-            n_persons: torch.Tensor, *, grid_y: int, grid_x: int,
-            stride: float, sigma: float, limb_width: float = 1.0
+def gt_maps(keypoints: torch.Tensor, *, grid_y: int, grid_x: int,
+            stride: float, sigma: float, limb_width: float = LIMB_WIDTH
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ground-truth part heatmaps and PAFs of a batch.
 
     keypoints: (B, N, 18, 3) fp32 [x, y, v] in input pixels.
-    limbs: (B, N, 19, 9) fp32 limb scalars [ax, ay, ux, uy, valid, mnx,
-        mxx, mny, mxy] in grid units (``data.gt.limb_scalars``).
-    n_persons: (B,) int32, the person slots to visit per image.
     Returns heat (B, grid_y, grid_x, 19) and PAF (B, grid_y, grid_x, 38),
     fp32: Gaussian parts clipped at 1 plus the background, and unit
-    vectors averaged over overlapping limbs (channels 2l, 2l+1).
+    vectors averaged over overlapping limbs (channels 2l, 2l+1), over the
+    image's persons up to the last one with a visible part.  On the card
+    the person bound and the limb scalars are computed inside the kernel;
+    the plain version takes them from :func:`person_bound` and
+    :func:`limb_scalars`.
     """
     if _route(keypoints) == "cpu":
-        return gt_maps_plain(keypoints, limbs, n_persons, grid_y=grid_y,
+        return gt_maps_plain(keypoints, limb_scalars(keypoints, stride,
+                                                     limb_width),
+                             person_bound(keypoints), grid_y=grid_y,
                              grid_x=grid_x, stride=stride, sigma=sigma,
                              limb_width=limb_width)
-    B, N = keypoints.shape[:2]
     dev = keypoints.device
     _check("keypoints", keypoints, torch.float32, 4, dev)
-    _check("limbs", limbs, torch.float32, 4, dev)
-    _check("n_persons", n_persons, torch.int32, 1, dev)
-    if tuple(keypoints.shape[2:]) != (NUM_PARTS, 3) \
-            or tuple(limbs.shape) != (B, N, NUM_LIMBS, LIMB_FIELDS) \
-            or tuple(n_persons.shape) != (B,):
-        raise ValueError(f"gt_maps: keypoints {tuple(keypoints.shape)}, "
-                         f"limbs {tuple(limbs.shape)}, n_persons "
-                         f"{tuple(n_persons.shape)} do not match (B,N,18,3), "
-                         f"(B,N,19,9), (B,)")
+    B, N = keypoints.shape[:2]
+    if tuple(keypoints.shape[2:]) != (NUM_PARTS, 3):
+        raise ValueError(f"gt_maps: keypoints {tuple(keypoints.shape)} do "
+                         f"not match (B,N,18,3)")
+    if max(grid_y, grid_x) > MAX_GT_GRID:
+        raise ValueError(f"gt_maps: a {grid_y}x{grid_x} grid is past "
+                         f"{MAX_GT_GRID} cells a side")
     start, inv2s = _gt_constants(stride, sigma)
     heat = torch.empty((B, grid_y, grid_x, NUM_LIMBS), dtype=torch.float32,
                        device=dev)
     paf = torch.empty((B, grid_y, grid_x, 2 * NUM_LIMBS),
                       dtype=torch.float32, device=dev)
     if B * grid_y * grid_x:
-        _launch("rtpose_gt_maps", dev, keypoints.data_ptr(),
-                limbs.data_ptr(), n_persons.data_ptr(), heat.data_ptr(),
+        _launch("rtpose_gt_maps", dev, keypoints.data_ptr(), heat.data_ptr(),
                 paf.data_ptr(), B, N, grid_y, grid_x, float(stride), start,
                 inv2s, float(limb_width))
         gt_maps.launches += 1
@@ -582,7 +647,12 @@ _COUNTED = (connection_scores, bicubic_refine, gt_maps)
 def reset_launch_counts() -> None:
     for fn in _COUNTED:
         fn.launches = 0
+    bicubic_refine.gaussian_filt_launches = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _COUNTED}
+    """Launches per kernel wrapper, and under ``bicubic_refine_gaussian_filt``
+    those of the refine that took the blurred kernel."""
+    return {**{fn.__name__: fn.launches for fn in _COUNTED},
+            "bicubic_refine_gaussian_filt":
+                bicubic_refine.gaussian_filt_launches}

@@ -20,13 +20,14 @@ import pytest
 import torch
 
 from rtpose_tpu_torch.config import Config
-from rtpose_tpu_torch.data.gt import ground_truth_maps_batch, limb_scalars, \
-    person_bound
+from rtpose_tpu_torch.data.gt import ground_truth_maps_batch
+from rtpose_tpu_torch.infer.pipeline import RETRY_CAPS
 from rtpose_tpu_torch.infer.pipeline import PosePipeline
 from rtpose_tpu_torch.models import get_model
 from rtpose_tpu_torch.ops import kernels
 from rtpose_tpu_torch.ops.decode import decode_poses_batch, people_to_host
 from rtpose_tpu_torch.ops.grouping import score_connections
+from rtpose_tpu_torch.ops.kernels import limb_scalars, person_bound
 from rtpose_tpu_torch.ops.peaks import nms, peak_candidates, refine_peaks
 from rtpose_tpu_torch.train.trainer import Trainer
 
@@ -121,16 +122,64 @@ def test_refine_kernel_ties_go_to_lowest_flat_index(cuda):
         assert torch.equal(got, plain)
 
 
+def _assert_refine_equals_plain(args, **kw):
+    valid = args[3]
+    got = kernels.bicubic_refine(*args, **kw)
+    want = kernels.bicubic_refine_plain(*args, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+    assert not any(t[~valid].any() for t in got)
+    return got
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,kind", [(32, "synth"), (64, "grid")])
-def test_refine_gaussian_filt_kernel_matches_plain(cuda, K, kind):
-    hb, py, px, valid = _refine_inputs(cuda, kind, K)
-    xf, yf, score = kernels.bicubic_refine(hb, py, px, valid,
-                                           gaussian_filt=True)
-    xf_p, yf_p, score_p = kernels.bicubic_refine_plain(hb, py, px, valid,
-                                                       gaussian_filt=True)
-    assert torch.equal(xf, xf_p) and torch.equal(yf, yf_p)
-    torch.testing.assert_close(score, score_p, rtol=0, atol=ATOL)
+@pytest.mark.parametrize("K,kind,factor", [(32, "synth", 8), (64, "grid", 8),
+                                           (32, "synth", 4), (32, "synth", 3)])
+def test_refine_gaussian_filt_kernel_matches_plain(cuda, K, kind, factor):
+    """The blurred refine: coordinates and scores equal to the plain
+    version's dense sums (error 0), empty slots zero; x8 at both caps, x4
+    (two lanes in three idle) and x3 (a 15-row upsample, half a tile wide
+    of its 10-column tiles)."""
+    args = _refine_inputs(cuda, kind, K)
+    before = kernels.bicubic_refine.launches
+    _assert_refine_equals_plain(args, factor=factor, gaussian_filt=True)
+    assert kernels.bicubic_refine.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_refine_gaussian_filt_ties_and_borders(cuda):
+    """All-zero windows blurred, at the centre and clipped at two borders:
+    every cell ties, so the window's top-left corner wins, whatever order
+    the lanes' tiles are scanned in; an empty slot gives zeros."""
+    heat = torch.zeros((1, 18, 10, 12), device=cuda)
+    shape = (1, 18, 4)
+    py = torch.tensor([5, 0, 9, 0], dtype=torch.int32, device=cuda)
+    px = torch.tensor([5, 0, 11, 3], dtype=torch.int32, device=cuda)
+    valid = torch.tensor([True, True, True, False], device=cuda)
+    args = [heat] + [t.expand(shape).contiguous() for t in (py, px, valid)]
+    xf, yf, score = _assert_refine_equals_plain(args, gaussian_filt=True)
+    want = torch.tensor([[24.0, 24.0], [0.0, 0.0], [72.0, 56.0], [0.0, 0.0]],
+                        device=cuda)
+    assert torch.equal(torch.stack([xf, yf], -1)[0], want.expand(18, 4, 2))
+    assert float(score.abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W", [(12, 12), (7, 30), (3, 3)])
+def test_refine_gaussian_filt_every_extent(cuda, H, W):
+    """Random maps with peaks on every border and corner, so windows of
+    extent 3, 4 and 5 on either axis meet, with more slots than one block
+    lists in a pass."""
+    rng = np.random.RandomState(H * W)
+    B, P, K = 3, 18, 40
+    heat = torch.from_numpy(rng.rand(B, P, H, W).astype(np.float32)).to(cuda)
+    py = rng.randint(0, H, (B, P, K)).astype(np.int32)
+    px = rng.randint(0, W, (B, P, K)).astype(np.int32)
+    py[..., :6] = [0, H - 1, 0, H - 1, 1, H - 2]
+    px[..., :6] = [0, 0, W - 1, W - 1, 1, W - 2]
+    valid = rng.rand(B, P, K) < 0.7
+    args = [heat] + [torch.from_numpy(a).to(cuda) for a in (py, px, valid)]
+    _assert_refine_equals_plain(args, gaussian_filt=True)
 
 
 @pytest.mark.gpu
@@ -150,21 +199,16 @@ def test_kernels_take_another_factor(cuda):
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=ATOL)
 
 
-@pytest.mark.gpu
-def test_decode_stages_launch_one_kernel_each(cuda):
-    """The profiler sees exactly one device kernel, and no copy, in
-    score_connections and in refine_peaks at the default caps."""
+def _device_events(fn, calls):
+    """The profiler's device events over `calls` calls of fn.  A session
+    that comes back with no device event at all (the profiler does that
+    now and then) is taken again, twice at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    heat, paf = (t.to(cuda) for t in _scenes("synth"))
-    p = nms(heat)
-    hb, py, px, valid = _refine_inputs(cuda, "synth", 32)
-    stages = {"score_connections": lambda: score_connections(p, paf),
-              "refine_peaks": lambda: refine_peaks(hb, py, px, valid)}
-    calls = 10
-    for name, fn in stages.items():
-        fn()
-        torch.cuda.synchronize()
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -172,6 +216,23 @@ def test_decode_stages_launch_one_kernel_each(cuda):
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    return events
+
+
+@pytest.mark.gpu
+def test_decode_stages_launch_one_kernel_each(cuda):
+    """The profiler sees exactly one device kernel, and no copy, in
+    score_connections and in refine_peaks at the default caps."""
+    heat, paf = (t.to(cuda) for t in _scenes("synth"))
+    p = nms(heat)
+    hb, py, px, valid = _refine_inputs(cuda, "synth", 32)
+    stages = {"score_connections": lambda: score_connections(p, paf),
+              "refine_peaks": lambda: refine_peaks(hb, py, px, valid)}
+    calls = 10
+    for name, fn in stages.items():
+        events = _device_events(fn, calls)
         # the profiler may miss one event of a run
         assert calls - 1 <= sum(e.count for e in events) <= calls, \
             (name, [(e.key, e.count) for e in events])
@@ -190,24 +251,99 @@ def _keypoints(batch=8, slots=32, size=368, seed=0):
     return torch.from_numpy(kps)
 
 
+def _edge_keypoints(gy: int, gx: int, slots: int = 32, seed: int = 0):
+    """(4, slots, 18, 3) keypoints that press on K4's culling (the smoke
+    script holds the kernel on the same batch), for a
+    (gy, gx) grid at stride 8: image 0 persons on the grid's border cells
+    and corners; image 1 every slot full, half of the persons wholly
+    outside the grid, some far outside; image 2 empty; image 3 only the
+    last two slots: parts at the Gaussian's cutoff distance from a cell
+    centre, to either side of it by ulps, and limbs that cross the whole
+    grid or have no length."""
+    rng = np.random.RandomState(seed)
+    h, w = 8.0 * gy, 8.0 * gx
+    kps = np.zeros((4, slots, 18, 3), np.float32)
+    border = [(3.5, 3.5), (w - 4.5, 3.5), (3.5, h - 4.5), (w - 4.5, h - 4.5),
+              (0.0, 0.0), (w - 1, h - 1), (-0.5, h / 2), (w / 2, h - 0.5)]
+    for p, (x, y) in enumerate(border[:slots]):
+        kps[0, p, :, 0] = x + rng.uniform(-1, 1, 18) * (p % 2)
+        kps[0, p, :, 1] = y + rng.uniform(-1, 1, 18) * (p % 2)
+        kps[0, p, :, 2] = 2
+    for p in range(slots):
+        lo, hi = ((-0.2, 1.2), (-3.0, -1.1), (1.1, 3.0), (-1e4, 1e4))[p % 4]
+        kps[1, p, :, 0] = rng.uniform(lo, hi, 18) * w
+        kps[1, p, :, 1] = rng.uniform(lo, hi, 18) * h
+        kps[1, p, :, 2] = rng.choice([0, 2], 18, p=[.2, .8])
+    reach = np.float32(np.sqrt(np.float64(np.float32(4.6052)) * 2 * 49.0))
+    cx, cy = 8.0 * (gx // 2) + 3.5, 8.0 * (gy // 2) + 3.5
+    for part in range(18):
+        d = reach + np.float32((part - 9) * 2e-6 * reach)
+        ang = (0.0, np.pi / 2, np.pi, np.pi / 4)[part % 4]
+        kps[3, slots - 1, part] = (cx + d * np.cos(ang),
+                                   cy + d * np.sin(ang), 2)
+    kps[3, slots - 2, :, 0] = np.where(np.arange(18) % 2, -5.0, w + 5.0)
+    kps[3, slots - 2, :, 1] = np.linspace(-5.0, h + 5.0, 18)
+    kps[3, slots - 2, 8:11, :2] = (w / 2, h / 2)
+    kps[3, slots - 2, :, 2] = 2
+    return kps
+
+
+def _assert_gt_equals_plain(kps, gy, gx):
+    before = kernels.gt_maps.launches
+    heat, paf = kernels.gt_maps(kps, grid_y=gy, grid_x=gx, stride=8,
+                                sigma=7.0)
+    assert kernels.gt_maps.launches == before + 1
+    heat_p, paf_p = kernels.gt_maps_plain(
+        kps, limb_scalars(kps, 8), person_bound(kps), grid_y=gy, grid_x=gx,
+        stride=8, sigma=7.0)
+    B = kps.shape[0]
+    assert heat.shape == (B, gy, gx, 19) and paf.shape == (B, gy, gx, 38)
+    torch.testing.assert_close(heat, heat_p, rtol=0, atol=0)
+    torch.testing.assert_close(paf, paf_p, rtol=0, atol=0)
+    return heat, paf
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("grid", [(46, 46), (28, 40)])
+@pytest.mark.parametrize("grid", [(46, 46), (28, 40), (7, 9)])
 def test_gt_kernel_matches_plain(cuda, grid):
     gy, gx = grid
     kps = _keypoints(size=8 * max(gy, gx)).to(cuda)
-    limbs, n = limb_scalars(kps, 8), person_bound(kps)
-    before = kernels.gt_maps.launches
-    heat, paf = kernels.gt_maps(kps, limbs, n, grid_y=gy, grid_x=gx,
-                                stride=8, sigma=7.0)
-    assert kernels.gt_maps.launches == before + 1
-    heat_p, paf_p = kernels.gt_maps_plain(kps, limbs, n, grid_y=gy,
-                                          grid_x=gx, stride=8, sigma=7.0)
-    assert heat.shape == (8, gy, gx, 19) and paf.shape == (8, gy, gx, 38)
-    torch.testing.assert_close(heat, heat_p, rtol=0, atol=GT_ATOL)
-    torch.testing.assert_close(paf, paf_p, rtol=0, atol=GT_ATOL)
+    heat, paf = _assert_gt_equals_plain(kps, gy, gx)
+    assert float(heat[..., :18].max()) > 0.5 and float(paf.abs().max()) > 0.5
     want = ground_truth_maps_batch(kps.cpu(), input_y=8 * gy,
                                    input_x=8 * gx)
     torch.testing.assert_close(heat.cpu(), want[0], rtol=0, atol=GT_ATOL)
+    torch.testing.assert_close(paf.cpu(), want[1], rtol=0, atol=GT_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [(46, 46), (28, 40), (7, 9)])
+@pytest.mark.parametrize("slots", [32, 5])
+def test_gt_kernel_culling_is_exact(cuda, grid, slots):
+    """An edge batch (persons on the grid's border, outside
+    it, at the Gaussian's cutoff, an empty image and a full one): what the
+    kernel skips are terms the plain version's dense loop does not add,
+    so the maps are equal to the bit.  5 slots give an odd count of
+    staged rows."""
+    gy, gx = grid
+    kps = torch.from_numpy(_edge_keypoints(gy, gx, slots)).to(cuda)
+    assert person_bound(kps).tolist() == [min(8, slots), slots, 0, slots]
+    heat, paf = _assert_gt_equals_plain(kps, gy, gx)
+    assert float(heat[2, ..., :18].abs().max()) == 0.0
+    assert float(heat[2, ..., 18].min()) == 1.0
+    assert float(paf[3].abs().max()) > 0.5
+
+
+@pytest.mark.gpu
+def test_ground_truth_maps_batch_is_one_kernel(cuda):
+    """The profiler sees one device kernel and no copy per call."""
+    kps = _keypoints().to(cuda)
+    fn = lambda: ground_truth_maps_batch(kps)       # noqa: E731
+    calls = 10
+    events = _device_events(fn, calls)
+    assert calls - 1 <= sum(e.count for e in events) <= calls, \
+        [(e.key, e.count) for e in events]
+    assert all("gt_maps_kernel" in e.key for e in events)
 
 
 @pytest.mark.gpu
@@ -241,14 +377,13 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="rows"):
         kernels.bicubic_refine(heat, peaks, peaks, peaks.bool(), factor=16)
     kps = torch.zeros((1, 2, 18, 3), device=cuda)
-    limbs = torch.zeros((1, 2, 19, 9), device=cuda)
-    with pytest.raises(ValueError, match="int32"):
-        kernels.gt_maps(kps, limbs, torch.zeros(1, device=cuda), grid_y=4,
-                        grid_x=4, stride=8, sigma=7.0)
-    with pytest.raises(ValueError, match=r"\(B,N,19,9\)"):
-        kernels.gt_maps(kps, limbs[:, :1].contiguous(),
-                        torch.zeros(1, dtype=torch.int32, device=cuda),
-                        grid_y=4, grid_x=4, stride=8, sigma=7.0)
+    gt_args = dict(grid_y=4, grid_x=4, stride=8, sigma=7.0)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.gt_maps(kps.double(), **gt_args)
+    with pytest.raises(ValueError, match=r"\(B,N,18,3\)"):
+        kernels.gt_maps(kps[:, :, :17].contiguous(), **gt_args)
+    with pytest.raises(ValueError, match="cells a side"):
+        kernels.gt_maps(kps, grid_y=4, grid_x=40000, stride=8, sigma=7.0)
 
 
 @pytest.mark.gpu
@@ -299,3 +434,50 @@ def test_pipeline_on_card_runs_through_both_kernels(cuda):
         scale = max(float(np.abs(want).max()), 1e-30)
         assert float(np.abs(got - want).max()) <= 1e-4 * scale
     assert len(people) == 2 and metas[0]["padded_shape"] == (56, 80, 3)
+
+
+@pytest.mark.gpu
+def test_pipeline_gaussian_filt_reaches_the_blurred_kernel(cuda):
+    """PosePipeline(gaussian_filt=True) on the card: the first decode and
+    the retry both launch the blurred kernel, and the people equal the
+    CPU pipeline's."""
+    tight = dict(max_peaks=16, max_candidates=64, max_total_conns=32,
+                 max_people=64)
+    raised = dict(max_peaks=16, max_candidates=512, max_total_conns=304,
+                  max_people=64)
+    rng = np.random.RandomState(0)
+    heat, paf = render_maps(grid_people(3, 4, 46, 46, rng), 46, 46)
+    paf = paf + rng.normal(0, 1e-4, paf.shape).astype(np.float32)
+    frames = [np.zeros((368, 368, 3), np.uint8)]
+    out = {}
+    for device in ("cpu", "cuda"):
+        pipe = PosePipeline(get_model("vgg19", num_stages=1), device=device,
+                            flip=False, retry_caps=raised,
+                            gaussian_filt=True, **tight)
+        h = torch.from_numpy(heat)[None].to(pipe.device)
+        p = torch.from_numpy(paf)[None].to(pipe.device)
+        pipe._infer = lambda frames, h=h, p=p: (decode_poses_batch(
+            h, p, gaussian_filt=True, **tight), h, p)
+        kernels.reset_launch_counts()
+        people, metas = pipe.run_batch(frames)
+        counts = kernels.launch_counts()
+        assert metas[0].get("retried") and not metas[0]["truncated"]
+        out[device] = people[0]
+        blurred = counts["bicubic_refine_gaussian_filt"]
+        assert blurred == (2 if device == "cuda" else 0)
+        assert counts["bicubic_refine"] == blurred
+    assert len(out["cuda"]) == len(out["cpu"]) == 12
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a["parts"].keys() == b["parts"].keys()
+        for part, (x, y, sc) in a["parts"].items():
+            assert (x, y) == b["parts"][part][:2]
+            assert abs(sc - b["parts"][part][2]) <= ATOL
+    full = PosePipeline(get_model("vgg19", num_stages=1), device="cuda",
+                        input_size=56, gaussian_filt=True)
+    assert full._retry_kwargs["gaussian_filt"] is True
+    assert full._retry_kwargs["max_peaks"] == RETRY_CAPS["max_peaks"]
+    kernels.reset_launch_counts()
+    full.run(np.random.RandomState(1).randint(0, 256, (60, 80, 3), np.uint8))
+    counts = kernels.launch_counts()
+    assert counts["bicubic_refine_gaussian_filt"] == \
+        counts["bicubic_refine"] >= 1

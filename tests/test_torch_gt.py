@@ -6,8 +6,13 @@ kernel it replaces, ``gt_maps_pallas`` in interpret mode (atol 1e-6, the
 bound tests/test_gt.py holds that kernel to), and against the host oracle
 ``gt.ground_truth_maps`` (atol 2e-6).  The cases are those of
 tests/test_gt.py:109-155: 0, 3 and 8 people, an all-invisible person in
-the middle of the padding, and a non-square 28x40 grid.  The CUDA kernel
-is held against the plain version on the card by tests/test_torch_gpu.py.
+the middle of the padding, and a non-square 28x40 grid; and a 7x9 grid, whose cell
+count no tile or vector divides, with persons outside it and an empty
+image.  The CUDA kernel takes the keypoints alone and computes the person
+bound and the limb scalars itself; its plain version is ``gt_maps_plain``
+on ``limb_scalars`` and ``person_bound``, which is what the wrapper runs
+on the CPU.  The kernel is held against the plain version on the card by
+tests/test_torch_gpu.py.
 """
 
 import numpy as np
@@ -77,6 +82,52 @@ def test_gt_nonsquare_grid():
     np.testing.assert_allclose(paf[0], paf_h, atol=HOST_ATOL, rtol=0)
 
 
+def test_gt_unaligned_grid_with_persons_outside_and_an_empty_image():
+    """A 7x9 grid (63 cells: no multiple of a warp, a tile or a 16-byte
+    vector), persons partly and wholly outside the grid, an image with no
+    person: against the Pallas kernel and the host oracle."""
+    rng = np.random.RandomState(11)
+    kps = np.zeros((3, 6, 18, 3), np.float32)
+    for p, (lo, hi) in enumerate([(-0.3, 1.3), (1.2, 2.5), (-2.0, -0.1),
+                                  (0.0, 1.0)]):
+        kps[0, p, :, 0] = rng.uniform(lo, hi, 18) * 72
+        kps[0, p, :, 1] = rng.uniform(lo, hi, 18) * 56
+        kps[0, p, :, 2] = rng.choice([0, 2], 18, p=[.2, .8])
+    kps[2, 5, :, :2] = rng.uniform(0, 55, (18, 2))   # the last slot only
+    kps[2, 5, :, 2] = 2
+    heat, paf = _port(kps, input_y=56, input_x=72)
+    assert heat.shape == (3, 7, 9, 19) and paf.shape == (3, 7, 9, 38)
+    assert heat[0, ..., :18].max() > 0.5 and np.abs(paf[0]).max() > 0.5
+    assert not heat[1, ..., :18].any() and not paf[1].any()
+    assert (heat[1, ..., 18] == 1.0).all()
+    heat_p, paf_p = gt_maps_pallas(kps, grid_y=7, grid_x=9, stride=8,
+                                   sigma=7.0, interpret=True)
+    np.testing.assert_allclose(heat, np.asarray(heat_p), atol=PALLAS_ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(paf, np.asarray(paf_p), atol=PALLAS_ATOL,
+                               rtol=0)
+    for b in range(3):
+        heat_h, paf_h = jgt.ground_truth_maps(kps[b], input_y=56, input_x=72)
+        np.testing.assert_allclose(heat[b], heat_h, atol=HOST_ATOL, rtol=0)
+        np.testing.assert_allclose(paf[b], paf_h, atol=HOST_ATOL, rtol=0)
+
+
+def test_gt_maps_takes_keypoints_alone():
+    """The wrapper on CPU tensors is the plain version on the torch
+    precompute, bit for bit, whatever limb width and stride."""
+    kps = torch.from_numpy(_keypoints(5, 4, slots=5))
+    for kw in (dict(grid_y=46, grid_x=46, stride=8, sigma=7.0),
+               dict(grid_y=23, grid_x=31, stride=12, sigma=5.0,
+                    limb_width=1.5)):
+        got = kernels.gt_maps(kps, **kw)
+        want = kernels.gt_maps_plain(
+            kps, gt.limb_scalars(kps, kw["stride"],
+                                 kw.get("limb_width", 1.0)),
+            gt.person_bound(kps), **kw)
+        assert float(got[1].abs().max()) > 0.5
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def test_limb_scalars_equal_the_pallas_precompute():
     """The (ax, ay, ux, uy, valid, box) rows are the expressions of
     pallas_gt.py:152-171, to the bit; the box rounds half to even."""
@@ -133,7 +184,5 @@ def test_plain_version_follows_the_kernel_at_the_cutoff():
 def test_gt_maps_wrapper_checks_its_inputs():
     kps = torch.zeros((1, 2, 18, 3))
     with pytest.raises(ValueError, match="unsupported device"):
-        kernels.gt_maps(kps.to("meta"), torch.zeros((1, 2, 19, 9),
-                                                    device="meta"),
-                        torch.zeros(1, dtype=torch.int32, device="meta"),
-                        grid_y=4, grid_x=4, stride=8, sigma=7.0)
+        kernels.gt_maps(kps.to("meta"), grid_y=4, grid_x=4, stride=8,
+                        sigma=7.0)

@@ -190,6 +190,54 @@ def test_refine_ties_go_to_lowest_flat_index():
     assert float(score.abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("factor", [4, 8])
+def test_blur_matrices_are_banded(factor):
+    """What the blurred kernel relies on when it sums over the band only:
+    every blur matrix is zero where |row - col| exceeds the radius (the
+    reflection folds back inside the band) and outside its extent, and
+    the radius is the JAX package's int(4 * 3 + 0.5)."""
+    mats = kernels.blur_matrices(factor)
+    n = kernels.PATCH * factor
+    assert mats.shape == (3, n, n) and kernels.BLUR_RADIUS == 12
+    np.testing.assert_array_equal(mats, jpeaks._blur_matrices(factor))
+    row, col = np.mgrid[0:n, 0:n]
+    assert not mats[:, np.abs(row - col) > kernels.BLUR_RADIUS].any()
+    for p, extent in enumerate((3, 4, 5)):
+        size = extent * factor
+        assert not mats[p, size:].any() and not mats[p, :, size:].any()
+        np.testing.assert_allclose(mats[p, :size].sum(axis=1), 1.0,
+                                   atol=1e-6)
+        reach = min(kernels.BLUR_RADIUS, size - 1)
+        assert mats[p, 0, reach] > 0 and mats[p, size - 1, size - 1 - reach] > 0
+
+
+@pytest.mark.parametrize("seed,H,W", [(0, 12, 12), (2, 7, 30)])
+def test_refine_gaussian_filt_matches_jax(seed, H, W):
+    """The blurred refine's plain version (dense sums) vs the JAX package's
+    blurred ``_refine_onehot`` masked as ``nms`` masks it, at every
+    border: integer coordinates equal, scores within 1e-5."""
+    rng = np.random.RandomState(seed)
+    P, K = 18, 8
+    heat = rng.rand(P, H, W).astype(np.float32)
+    py = rng.randint(0, H, (P, K)).astype(np.int32)
+    px = rng.randint(0, W, (P, K)).astype(np.int32)
+    py[:, :4] = [0, H - 1, 0, H - 1]
+    px[:, :4] = [0, 0, W - 1, W - 1]
+    valid = rng.rand(P, K) < 0.75
+    valid[:, :4] = True
+    want = [np.where(valid, np.asarray(a), 0) for a in jpeaks._refine_onehot(
+        jnp.asarray(heat), jnp.asarray(py), jnp.asarray(px), 8,
+        gaussian_filt=True)]
+    got = [a[0].numpy() for a in kernels.bicubic_refine(
+        torch.from_numpy(heat)[None], torch.from_numpy(py)[None],
+        torch.from_numpy(px)[None], torch.from_numpy(valid)[None],
+        gaussian_filt=True)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=ATOL)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g.astype(np.int32), w.astype(np.int32))
+
+
 def test_wrappers_reject_other_devices():
     peaks = torch.zeros((1, 18, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

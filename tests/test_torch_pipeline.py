@@ -142,6 +142,55 @@ def test_run_batch_matches_jax_pipeline(pipes):
     _assert_people_lists_equal(tpeople[2], single)
 
 
+@pytest.fixture(scope="module")
+def blur_pipes(pipes):
+    """The two pipelines again with `gaussian_filt`, on the same weights:
+    the JAX one built as `pipes` builds it, the port's through
+    ``load_pipeline``'s keyword pass-through."""
+    jpipe, _, params = pipes
+    jblur = jpipeline.PosePipeline(jpipe.model, params, input_size=56,
+                                   flip=True, device_resize=True,
+                                   gaussian_filt=True)
+    tblur = pipeline.load_pipeline(
+        device="cpu", num_stages=1, input_size=56, dtype=torch.float32,
+        flax_params=jax.tree_util.tree_map(np.asarray, params),
+        gaussian_filt=True)
+    return jblur, tblur
+
+
+def test_run_with_gaussian_filt_matches_jax_pipeline(pipes, blur_pipes,
+                                                     monkeypatch):
+    """`gaussian_filt` reaches the decode through ``run`` and
+    ``run_batch``: the people equal the JAX pipeline's in the same mode
+    (coordinates equal, scores within 1e-4 as above), and every decode of
+    the port was asked for the blurred refine."""
+    jblur, tblur = blur_pipes
+    asked = []
+    real = pipeline.decode_poses_batch
+
+    def spy(heat, paf, **kw):
+        asked.append(kw.get("gaussian_filt"))
+        return real(heat, paf, **kw)
+
+    monkeypatch.setattr(pipeline, "decode_poses_batch", spy)
+    frames = _frames()
+    jp, jheat, _, jmeta = jblur.run(frames[0])
+    tp, theat, _, tmeta = tblur.run(frames[0])
+    np.testing.assert_allclose(theat, jheat, **MAP_TOL)
+    assert tmeta["truncated"] == bool(jmeta["truncated"])
+    _assert_people_lists_equal(tp, jp)
+    jpeople, _ = jblur.run_batch(frames)
+    tpeople, _ = tblur.run_batch(frames)
+    for a, b in zip(tpeople, jpeople):
+        _assert_people_lists_equal(a, b)
+    assert asked and all(asked)
+    # the maps hold peaks, and the blur moves some of them: the mode is
+    # not a no-op on these frames
+    plain, _, _, _ = pipes[1].run(frames[0])
+    assert sum(len(p["parts"]) for p in tp) > 0
+    assert [p["parts"] for p in tp] != [p["parts"] for p in plain]
+
+
 def test_load_pipeline_weight_sources_agree(pipes, tmp_path):
     _, tpipe, params = pipes
     path = tmp_path / "pose_model.pth"
@@ -216,6 +265,36 @@ def test_run_retries_truncated_frame():
         decode.decode_poses(heat, paf, **RAISED), 368, 368)
     assert len(people) == len(direct) == 12
     assert [p["parts"] for p in people] == [p["parts"] for p in direct]
+
+
+def test_retry_decodes_with_gaussian_filt(monkeypatch):
+    """The retry keeps the pipeline's refine mode: with `gaussian_filt` the
+    truncated frame is decoded again blurred, and equals a direct blurred
+    decode at the raised caps; without, neither decode is blurred."""
+    heat, paf = _maps(3, 4, 0)
+    asked = []
+    real = pipeline.decode_poses_batch
+
+    def spy(h, p, **kw):
+        asked.append(kw.get("gaussian_filt"))
+        return real(h, p, **kw)
+
+    monkeypatch.setattr(pipeline, "decode_poses_batch", spy)
+    frame = np.zeros((368, 368, 3), np.uint8)
+    for blur in (True, False):
+        del asked[:]
+        pipe = _retry_pipeline([(heat, paf)], gaussian_filt=blur)
+        assert pipe._retry_kwargs["gaussian_filt"] is blur
+        people, _, _, meta = pipe.run(frame)
+        batch_people, _ = pipe.run_batch([frame])
+        assert meta.get("retried") is True and asked == [blur, blur]
+        direct = decode.people_to_numpy(
+            decode.decode_poses(heat, paf, gaussian_filt=blur, **RAISED),
+            368, 368)
+        assert len(people) == 12
+        assert [p["parts"] for p in people] == [p["parts"] for p in direct]
+        assert [p["parts"] for p in batch_people[0]] == \
+            [p["parts"] for p in direct]
 
 
 def test_run_without_auto_retry_keeps_signal():
