@@ -5,18 +5,25 @@ Hopper card.
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from rtpose_tpu_torch/csrc, holds
-each against its plain PyTorch version on the card, times each (device
-time per launch from the profiler, the wrapper's host time per call, the
-bound from the bytes and operations of this run's inputs), counts the
-device kernels of the two decode stages and of the ground-truth stage
-that hold them (one each, no copy), decodes rendered scenes on the card
-and on the CPU, plain and with ``gaussian_filt``, then drives the two
-paths of the port through the entry points a user calls:
+each against its plain PyTorch version on the card (the grouping kernel
+also on crafted candidate batches that reach every branch of the
+assembly), times each (device time per launch from the profiler, the
+wrapper's host time per call, the bound from the bytes and operations of
+this run's inputs), counts the device kernels of the two decode stages
+and of the ground-truth stage that hold them (one each, no copy), decodes
+rendered scenes on the card and on the CPU, plain and with
+``gaussian_filt``, runs the decode and ``run_batch_submit`` with
+synchronising calls made errors (no host read inside the decode), runs
+the self-test's checks, then drives the paths of the port through the
+entry points a user calls:
 
 - serving (VGG19, 6 stages, 368 px, flip TTA, bf16, seeded random
   weights) through ``load_pipeline`` / ``run`` / ``run_batch``, and once
   more with ``gaussian_filt=True``, first decode and retry, which must
   reach the blurred refine kernel;
+- multi-scale TTA (scales 0.5, 1, 1.5, 2) through ``run_multiscale`` /
+  ``run_multiscale_batch`` on the same pipeline, with the device memory
+  it takes per frame and pixel;
 - training (the same model, batch 72, bf16, freeze phase on, seeded He
   weights) through ``Trainer.run_epoch`` on rendered scenes: the loss
   falls, the frozen convs stay and then move, a NaN batch is skipped, and
@@ -55,7 +62,8 @@ STEP_UPD_TOL = 1e-2    # ... and each tensor's update, L2 error over L2
                        # other orders, which grows through the backward
                        # pass (3.3e-4 seen in the stage-4 to 6 convs)
 TRAIN_BATCH = 72       # experiments/vgg19_368x368_sgd.yaml
-SERVING_KERNELS = ("connection_scores", "bicubic_refine")
+SERVING_KERNELS = ("connection_scores", "bicubic_refine", "group_people")
+MS_SCALES = (0.5, 1.0, 1.5, 2.0)
 # the card's peaks, for the bounds: H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -225,6 +233,35 @@ def gt_work(kps, n_pers, gy: int, gx: int):
                      + GT_FLOPS_CELL * B) * cells
 
 
+def group_work(args, max_candidates: int, max_people: int,
+               max_total_conns: int):
+    """(bytes, flops, chain) of group_people on this run's candidates: each
+    pair's sorted candidates read up to its first invalid one (or C), the
+    candidate at C once where C < K*K (the overflow test), the peaks once,
+    the People written once; the operations of the assembly steps this
+    data takes (each compares Pp rows three ways and writes at most 20
+    columns), of the greedy steps (4 each) and of the epilogue.  `chain`
+    is the longest serial chain of one image: its longest pair scan plus
+    its assembly steps, the dependent steps that bound the kernel."""
+    import torch
+    from rtpose_tpu_torch.ops.kernels import greedy_plain
+    ss, si, x, y, ps, tr = args
+    B, P, KK = ss.shape
+    K = x.shape[-1]
+    C = min(max_candidates, KK)
+    M = min(max_total_conns, P * K)
+    n_valid = (ss[..., :C] > -torch.inf).sum(-1)               # (B, 19)
+    scanned = torch.where(n_valid < C, n_valid + 1, n_valid)
+    conns = greedy_plain(ss, si, K, max_candidates)
+    steps = conns[3].sum((1, 2)).clamp(max=M)                 # (B,)
+    chain = int((scanned.amax(-1) + steps).max())
+    n_bytes = (int(scanned.sum()) * 12 + (B * P * 4 if C < KK else 0)
+               + x.numel() * 12 + B + B * max_people * (18 * 12 + 5) + B)
+    n_flops = (int(steps.sum()) * (3 * max_people + 20)
+               + int(scanned.sum()) * 4 + B * max_people * 5)
+    return n_bytes, float(n_flops), chain
+
+
 def device_work(fn, calls: int = 20):
     """(kernels, copies and fills, kernel names) that one call of fn puts
     on the device, as the profiler reads them over `calls` calls (so one
@@ -237,60 +274,18 @@ def device_work(fn, calls: int = 20):
     return count(kern), count(other), kern
 
 
-# Rendered scenes: a copy of tests/util_synth.py (which imports the JAX
-# package's skeleton) on the port's skeleton tables.
-_TEMPLATE = {
-    0: (0.50, 0.10), 1: (0.50, 0.22), 2: (0.38, 0.24), 3: (0.34, 0.40),
-    4: (0.32, 0.55), 5: (0.62, 0.24), 6: (0.66, 0.40), 7: (0.68, 0.55),
-    8: (0.42, 0.52), 9: (0.42, 0.72), 10: (0.42, 0.92), 11: (0.58, 0.52),
-    12: (0.58, 0.72), 13: (0.58, 0.92), 14: (0.46, 0.07), 15: (0.54, 0.07),
-    16: (0.42, 0.09), 17: (0.58, 0.09),
-}
-
-
 def _person(cx, cy, s, rng, jitter):
+    from rtpose_tpu_torch.utils.synth import _TEMPLATE
     return np.array([(cx + (tx - 0.5) * s, cy + (ty - 0.5) * s)
                      + rng.normal(0, jitter * s, 2)
                      for tx, ty in _TEMPLATE.values()])
 
 
-def render_maps(people, h, w, sigma=1.5, limb_width=1.0):
-    """(h, w, 19) Gaussian part heatmaps and (h, w, 38) unit-vector PAFs."""
-    from rtpose_tpu_torch.skeleton import LIMBS, NUM_PARTS
-    heat = np.zeros((h, w, NUM_PARTS + 1), np.float32)
-    paf = np.zeros((h, w, 2 * len(LIMBS)), np.float32)
-    count = np.zeros((h, w, len(LIMBS)), np.int32)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    inside = lambda x, y: 0 <= x < w and 0 <= y < h   # noqa: E731
-    for person in people:
-        for part in range(NUM_PARTS):
-            px, py = person[part]
-            if inside(px, py):
-                d2 = (xx - px) ** 2 + (yy - py) ** 2
-                g = np.exp(-d2 / (2 * sigma * sigma)) * (d2 < (4 * sigma) ** 2)
-                heat[:, :, part] = np.maximum(heat[:, :, part], g)
-        for li, (a, b) in enumerate(LIMBS):
-            (ax, ay), (bx, by) = person[a], person[b]
-            norm = np.hypot(bx - ax, by - ay)
-            if not (inside(ax, ay) and inside(bx, by)) or norm < 1e-6:
-                continue
-            u = ((bx - ax) / norm, (by - ay) / norm)
-            along = (xx - ax) * u[0] + (yy - ay) * u[1]
-            perp = np.abs((xx - ax) * u[1] - (yy - ay) * u[0])
-            mask = (perp <= limb_width) & (along >= -1) & (along <= norm + 1)
-            prev = count[:, :, li]
-            for k in (0, 1):
-                paf[:, :, 2 * li + k] = np.where(
-                    mask, (paf[:, :, 2 * li + k] * prev + u[k]) / (prev + 1),
-                    paf[:, :, 2 * li + k])
-            count[:, :, li] = prev + mask
-    heat[:, :, NUM_PARTS] = np.maximum(1.0 - heat[:, :, :-1].max(axis=2), 0)
-    return heat, paf
-
-
 def scenes(n_frames: int, h: int, w: int, grid, seed0: int):
     """(B, h, w, 19) heatmaps and (B, h, w, 38) PAFs of random people, or
-    of a (rows, cols) grid of people, with PAF noise that breaks ties."""
+    of a (rows, cols) grid of people, with PAF noise that breaks ties
+    (rendered by the port's copy of tests/util_synth.py)."""
+    from rtpose_tpu_torch.utils.synth import render_maps
     heats, pafs = [], []
     for i in range(n_frames):
         rng = np.random.RandomState(seed0 + i)
@@ -413,17 +408,20 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: needs compute capability 9.0 "
                          f"(Hopper), found {cap}")
     sys.path.insert(0, ROOT)
-    from rtpose_tpu_torch.infer.pipeline import (RETRY_CAPS, PosePipeline,
+    from rtpose_tpu_torch import selftest
+    from rtpose_tpu_torch.infer.pipeline import (MS_BYTES_PER_PIXEL,
+                                                 RETRY_CAPS, PosePipeline,
                                                  load_pipeline)
     from rtpose_tpu_torch.infer.preprocess import normalize_device
     from rtpose_tpu_torch.models import get_model
     from rtpose_tpu_torch.models.common import ModelOutput
     from rtpose_tpu_torch.ops import _build, kernels
     from rtpose_tpu_torch.ops.decode import decode_poses_batch, people_to_host
-    from rtpose_tpu_torch.ops.grouping import (assemble_people,
-                                               greedy_connections,
-                                               score_connections)
+    from rtpose_tpu_torch.ops.grouping import (score_connections,
+                                               sorted_candidates)
     from rtpose_tpu_torch.ops.peaks import nms, peak_candidates
+    from rtpose_tpu_torch.utils.grouping_cases import (BRANCHES, branch_hits,
+                                                       candidate_batch)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -562,6 +560,86 @@ def main() -> int:
             f"{int((got[0][..., :18] > 0).sum())} heat and "
             f"{int((got[1] != 0).sum())} PAF values set")
 
+    # 4d. the grouping kernel (greedy matching and assembly, a block per
+    # image) vs its plain version (the two torch loops): every People field
+    # equal, error 0, on the rendered scenes at K=32, the crowded 5x6 grid
+    # scenes (30 people on 92x92 maps) at RETRY_CAPS and at the default
+    # caps (where they overflow), and on crafted candidate batches at both
+    # caps that reach every branch of the assembly but found >= 3 (which
+    # greedy 1-1 matching of 1-based ids cannot produce)
+    default_caps = dict(max_peaks=32, max_candidates=256, max_total_conns=160,
+                        max_people=64)
+    h30np, p30np = scenes(8, 92, 92, grid=(5, 6), seed0=200)
+
+    def from_maps(heat_np, paf_np, caps):
+        heat = torch.from_numpy(heat_np).to(dev)
+        peaks = nms(heat, max_peaks=caps["max_peaks"])
+        s, v = score_connections(peaks, torch.from_numpy(paf_np).to(dev))
+        return (*sorted_candidates(s, v), peaks.x, peaks.y, peaks.score,
+                peaks.truncated)
+
+    def crafted(K):
+        sc, va, *rest = (torch.from_numpy(a).to(dev)
+                         for a in candidate_batch(0, 8, K))
+        return (*sorted_candidates(sc, va), *rest)
+
+    group_cases = {
+        "K=32 rendered 46x62": (from_maps(heat32, paf32, default_caps),
+                                default_caps),
+        "RETRY_CAPS crowded 5x6": (from_maps(h30np, p30np, RETRY_CAPS),
+                                   RETRY_CAPS),
+        "default caps crowded 5x6": (from_maps(h30np, p30np, default_caps),
+                                     default_caps),
+        "crafted K=32": (crafted(32), default_caps),
+        "crafted K=64": (crafted(64), RETRY_CAPS)}
+    group_err = 0.0
+    for label, (args, caps) in group_cases.items():
+        gk = {k: v for k, v in caps.items() if k != "max_peaks"}
+        got = kernels.group_people(*args, **gk)
+        want = kernels.group_people_plain(*args, **gk)
+        torch.cuda.synchronize()
+        for f, g, w in zip(("coords", "part_score", "score", "valid",
+                            "truncated"), got, want):
+            err = float((g.double() - w.double()).abs().max())
+            check(torch.equal(g, w), f"group_people {label}: {f} differs "
+                  f"from plain (max err {err})")
+            group_err = max(group_err, err)
+        conns = kernels.greedy_plain(args[0], args[1], args[2].shape[-1],
+                                     gk["max_candidates"])
+        hits = branch_hits(*(c.cpu().numpy() for c in (conns[0], conns[1],
+                                                        conns[3])),
+                           max_people=gk["max_people"],
+                           max_total_conns=gk["max_total_conns"])
+        C = gk["max_candidates"]
+        hits["cand_overflow"] = int((args[0][..., C] > -torch.inf).any(-1)
+                                    .sum()) if C < args[0].shape[-1] else 0
+        hits["score_ties"] = int((args[0][..., 1:C] == args[0][..., :C - 1])
+                                 .logical_and(args[0][..., 1:C] > -torch.inf)
+                                 .sum())
+        if label.startswith("crafted"):
+            check(all(hits[b] > 0 for b in BRANCHES if b != "found3plus")
+                  and bool(got[4].any()) and not bool(got[4].all()),
+                  f"group_people {label}: a branch was not reached {hits}")
+        log(f"group_people {label}: every People field equal to plain "
+            f"({int(got[3].sum())} people, truncated "
+            f"{int(got[4].sum())} of {len(got[4])}); branches "
+            f"{dict(hits)}")
+    k32_args = group_cases["K=32 rendered 46x62"][0]
+    retry_args = group_cases["RETRY_CAPS crowded 5x6"][0]
+    gk32 = {k: v for k, v in default_caps.items() if k != "max_peaks"}
+    gk_retry = {k: v for k, v in RETRY_CAPS.items() if k != "max_peaks"}
+    for tag, args, gk in (("", k32_args, gk32),
+                          ("retry_", retry_args, gk_retry)):
+        ms, plain_ms = paired_ms(
+            lambda: kernels.group_people(*args, **gk),
+            lambda: kernels.group_people_plain(*args, **gk),
+            50 if tag == "" else 3)
+        results.setdefault("group_people", {}).update({
+            f"{tag}ms": ms, f"{tag}plain_ms": plain_ms})
+        log(f"group_people {tag or 'K=32 '}B=8: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (back to back) [{smi}]")
+    results["group_people"]["max_abs_err"] = group_err
+
     # 4c. each kernel's device time per launch (profiler), its wrapper's
     # host time per call and its bound, at the main path's shapes; then
     # the device work of the two decode stages that hold K1 and K3
@@ -584,6 +662,14 @@ def main() -> int:
     cases.append((f"gt_maps B={TRAIN_BATCH}", "gt_maps_kernel",
                   functools.partial(kernels.gt_maps, kps, **gt_args),
                   gt_work(kps, n_pers, 46, 46)))
+    chains = {}
+    for label, args, gk in (("group_people K=32", k32_args, gk32),
+                            ("group_people RETRY_CAPS", retry_args,
+                             gk_retry)):
+        n_bytes, n_flops, chains[label] = group_work(args, **gk)
+        cases.append((label, "group_people_kernel",
+                      functools.partial(kernels.group_people, *args, **gk),
+                      (n_bytes, n_flops)))
     timing = {}
     for label, kname, fn, (n_bytes, n_flops) in cases:
         d_ms, src = device_ms(fn, kname)
@@ -591,6 +677,12 @@ def main() -> int:
         b_ms, b_by = bound(n_bytes, n_flops)
         timing[label] = dict(device_ms=d_ms, host_ms=h_ms, bound_ms=b_ms,
                              bound_by=b_by)
+        if label in chains:
+            timing[label].update(chain_steps=chains[label],
+                                 ns_per_step=d_ms * 1e6 / chains[label])
+            log(f"  {label}: serial chain {chains[label]} steps (longest "
+                f"pair scan + assembly steps of one image), "
+                f"{d_ms * 1e6 / chains[label]:.1f} ns per step")
         log(f"time {label}: device {d_ms:.5f} ms/launch ({src}), wrapper "
             f"host {h_ms:.5f} ms/call; bound {b_ms:.5f} ms by {b_by} "
             f"({n_bytes / 1e6:.3f} MB, {n_flops / 1e6:.2f} MFLOP), "
@@ -600,7 +692,9 @@ def main() -> int:
             ("bicubic_refine", "bicubic_refine K=32", ""),
             ("bicubic_refine", "bicubic_refine gaussian_filt K=32",
              "gaussian_filt_"),
-            ("gt_maps", f"gt_maps B={TRAIN_BATCH}", "")):
+            ("gt_maps", f"gt_maps B={TRAIN_BATCH}", ""),
+            ("group_people", "group_people K=32", ""),
+            ("group_people", "group_people RETRY_CAPS", "retry_")):
         results[name].update({tag + k: v for k, v in timing[key].items()})
     for K in (32, 64):
         i = inputs[K]
@@ -644,8 +738,7 @@ def main() -> int:
     # 608 of RETRY_CAPS (36 people, 684 connections, would not)
     pipe = load_pipeline(device="cuda", model_name="vgg19", num_stages=6,
                          input_size=368, flip=True, seed=0)
-    h30, p30 = (torch.from_numpy(a) for a in scenes(8, 92, 92, grid=(5, 6),
-                                                     seed0=200))
+    h30, p30 = torch.from_numpy(h30np), torch.from_numpy(p30np)
     first = decode_poses_batch(h30.to(dev), p30.to(dev))
     check(bool(first.truncated.all()),
           "crowded scenes should overflow the default caps")
@@ -708,6 +801,21 @@ def main() -> int:
         f"first decode and retry through the blurred kernel -> "
         f"{[len(p) for p in [alone] + people]} people, card == CPU (score "
         f"max err {err:.3g})")
+    # multi-scale TTA through the same pipeline: its "model" answers every
+    # scale with the same 92x92 maps, whose bicubic resize to the 92x92
+    # base grid is exact, so the averaged maps are the rendered ones and
+    # the people those of their retry decode
+    ms_alone, _, _, ms_meta = crowd_pipe.run_multiscale(blank[0], (0.5, 1.0))
+    ms_people, ms_metas = crowd_pipe.run_multiscale_batch(blank, (0.5, 1.0))
+    check(all(m.get("retried") and not m["truncated"]
+              for m in [ms_meta] + ms_metas)
+          and [len(p) for p in [ms_alone] + ms_people]
+          == [int(want.valid[i].sum()) for i in (0, 0, 1)],
+          "multi-scale TTA on the crowded scenes did not retry to the "
+          "single-scale people")
+    log(f"multi-scale TTA (0.5, 1) on the 2 crowded scenes: retried -> "
+        f"{[len(p) for p in [ms_alone] + ms_people]} people, as the "
+        f"single-scale decode")
     del crowd_pipe
 
     # 6. serving main path: one frame, then 8 frames of mixed sizes, with
@@ -763,6 +871,90 @@ def main() -> int:
         f"{blur_counts}")
     del blur_pipe
 
+    # 6b. multi-scale TTA on the flagship, scales (0.5, 1, 1.5, 2): one
+    # frame and 8 frames, counted from 0; the people of the averaged maps
+    # on the card equal their decode on the CPU; the device memory a chunk
+    # takes per frame and pixel of its largest scaled input, and the
+    # chunk cap that the card's free memory gives
+    frames8 = [rng.randint(0, 256, (480, 640, 3), np.uint8)
+               for _ in range(8)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ms_people1, ms_heat1, _, ms_meta1 = pipe.run_multiscale(frame, MS_SCALES)
+    ms_people8, ms_metas8 = pipe.run_multiscale_batch(frames8, MS_SCALES)
+    torch.cuda.synchronize()
+    ms_counts = kernels.launch_counts()
+    check(ms_heat1.shape == heat1.shape and bool(np.isfinite(ms_heat1).all())
+          and len(ms_people8) == 8
+          and ms_metas8[0]["upsampled"] == ms_meta1["upsampled"]
+          == (368, 496), "multi-scale results")
+    check(all(ms_counts[k] > 0 for k in SERVING_KERNELS)
+          and ms_counts["gt_maps"] == 0,
+          f"multi-scale TTA did not run through the serving kernels: "
+          f"{ms_counts}")
+    _, _, max_px = pipe._scale_sizes(480, 640, MS_SCALES)
+    torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()
+    ticket = pipe.run_multiscale_batch_submit(frames8, MS_SCALES)
+    torch.cuda.synchronize()
+    ms_cost = (torch.cuda.max_memory_allocated() - base_bytes) / (8 * max_px)
+    got = people_to_host(ticket[1])
+    want = people_to_host(decode_poses_batch(ticket[2].cpu(),
+                                             ticket[3].cpu()))
+    err = people_equal(got, want, "multi-scale decode card vs CPU")
+    cap = pipe.ms_chunk_cap(max_px)
+    free, total = torch.cuda.mem_get_info()
+    log(f"multi-scale TTA {MS_SCALES}, flagship bf16, 480x640 frames (base "
+        f"grid 46x62, largest scaled input {max_px} px): run -> "
+        f"{len(ms_people1)} people; run_multiscale_batch(8) -> "
+        f"{[len(p) for p in ms_people8]} people; card == CPU on the averaged "
+        f"maps ({int(got.valid.sum())} people, score max err {err:.3g}); "
+        f"launches {ms_counts}; device memory {ms_cost:.1f} bytes per frame "
+        f"and pixel (MS_BYTES_PER_PIXEL {MS_BYTES_PER_PIXEL}), chunk cap "
+        f"{cap} frames at {free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB "
+        f"free [{smi}]")
+    check(ms_cost <= MS_BYTES_PER_PIXEL,
+          f"a multi-scale chunk took {ms_cost:.1f} bytes per frame and "
+          f"pixel, more than MS_BYTES_PER_PIXEL {MS_BYTES_PER_PIXEL}")
+    del ticket
+
+    # 6c. no host read inside the decode: decode_poses_batch at both caps
+    # and run_batch_submit of 8 frames, with every synchronising call an
+    # error (after one warm-up call, which copies each path's tables to
+    # the card once); then the ticket is collected
+    hd, pd = h32.to(dev), p32.to(dev)
+    h30d, p30d = h30.to(dev), p30.to(dev)
+    pipe.run_batch_collect(pipe.run_batch_submit(frames8))
+    decode_poses_batch(h30d, p30d, **RETRY_CAPS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        ticket = pipe.run_batch_submit(frames8)
+        submit_ms = (time.perf_counter() - t0) * 1e3
+        unsynced = (decode_poses_batch(hd, pd),
+                    decode_poses_batch(h30d, p30d, **RETRY_CAPS))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    people8s, _ = pipe.run_batch_collect(ticket)
+    collect_ms = (time.perf_counter() - t0) * 1e3
+    people_equal(people_to_host(unsynced[1]),
+                 people_to_host(decode_poses_batch(h30, p30, **RETRY_CAPS)),
+                 "the unsynchronised decode at RETRY_CAPS")
+    check(len(people8s) == 8, "run_batch_submit ticket")
+    log(f"no synchronising call in run_batch_submit (8 frames) and in "
+        f"decode_poses_batch at both caps; run_batch_submit returned after "
+        f"{submit_ms:.2f} ms, the collected people after {collect_ms:.2f} "
+        f"ms [{smi}]")
+
+    # 6d. the self-test's checks on the card (decode vs the host oracle,
+    # K4 vs the host GT oracle, the flip algebra) and its flagship
+    # single-frame latency
+    check(all([selftest.check_decode_parity(dev),
+               selftest.check_gt_equivalence(dev),
+               selftest.check_flip_algebra(dev)]), "the self-test failed")
+    selftest_ms = selftest.measure_fps(dev)
+
     # fp32 forward on the card (TF32 off) vs the CPU, same seeded weights
     # drawn at He scale (N(0, 0.01) shrinks the 6-stage output ~1e10-fold)
     ref = get_model("vgg19", num_stages=6, dtype=torch.float32).eval()
@@ -786,8 +978,6 @@ def main() -> int:
             f"{rel:.3g} of max |CPU| (bound {FWD_REL_TOL})")
 
     # 7. timings at batch 8 (368x496 padded frames, bf16, flip TTA)
-    frames8 = [rng.randint(0, 256, (480, 640, 3), np.uint8)
-               for _ in range(8)]
     h64, p64 = torch.from_numpy(heat64), torch.from_numpy(paf64)
     with torch.inference_mode():
         inp = normalize_device(torch.zeros((16, 368, 496, 3), device=dev),
@@ -805,31 +995,70 @@ def main() -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / iters, out
 
-    hd, pd = h32.to(dev), p32.to(dev)
     with torch.inference_mode():
         for caps_name, caps, (hh, pp) in (
-                ("default caps (K=32)", {}, (hd, pd)),
+                ("default caps (K=32)", default_caps, (hd, pd)),
                 ("RETRY_CAPS (K=64)", RETRY_CAPS,
                  (h64.to(dev), p64.to(dev)))):
+            gk = {k: v for k, v in caps.items() if k != "max_peaks"}
             dec_ms, _ = timed(lambda: decode_poses_batch(hh, pp, **caps))
-            k = caps.get("max_peaks", 32)
-            nms_ms, pk = timed(lambda: nms(hh, max_peaks=k))
+            nms_ms, pk = timed(lambda: nms(hh, max_peaks=caps["max_peaks"]))
             sc_ms, (s, v) = timed(lambda: score_connections(pk, pp))
-            gr_ms, conns = timed(lambda: greedy_connections(
-                s, v, max_conns=caps.get("max_candidates", 256)))
-            as_ms, _ = timed(lambda: assemble_people(
-                *conns[:4], pk, max_people=caps.get("max_people", 64),
-                max_total_conns=caps.get("max_total_conns", 160)))
-            share = (gr_ms + as_ms) / (nms_ms + sc_ms + gr_ms + as_ms)
+            so_ms, srt = timed(lambda: sorted_candidates(s, v))
+            gp_ms, _ = timed(lambda: kernels.group_people(
+                *srt, pk.x, pk.y, pk.score, pk.truncated, **gk))
             log(f"decode {caps_name}, batch 8 map {hh.shape[1]}x"
-                f"{hh.shape[2]}: {dec_ms:.2f} ms/batch = {dec_ms / 8:.3f} "
-                f"ms/frame; nms+refine {nms_ms:.2f}, scoring {sc_ms:.2f}, "
-                f"greedy loop {gr_ms:.2f}, assembly loop {as_ms:.2f} ms "
-                f"(torch loops {100 * share:.0f}% of the stages) [{smi}]")
+                f"{hh.shape[2]}: {dec_ms:.3f} ms/batch = {dec_ms / 8:.4f} "
+                f"ms/frame; nms+refine {nms_ms:.3f}, scoring {sc_ms:.3f}, "
+                f"sort {so_ms:.3f}, group_people {gp_ms:.3f} ms [{smi}]")
 
     e2e_ms, _ = timed(lambda: pipe.run_batch(frames8), iters=5)
     log(f"e2e run_batch 8 frames 480x640 -> 368x496, flip TTA, bf16: "
         f"{e2e_ms:.1f} ms/batch = {8e3 / e2e_ms:.1f} frames/s [{smi}]")
+    # the submit/collect overlap: host time until run_batch_submit returns
+    # and until the collected people, five times from an idle card
+    spans = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ticket = pipe.run_batch_submit(frames8)
+        t1 = time.perf_counter()
+        pipe.run_batch_collect(ticket)
+        spans.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+    log(f"run_batch_submit 8 frames: returns after "
+        f"{[round(a, 2) for a, _ in spans]} ms, people collected after "
+        f"{[round(b, 2) for _, b in spans]} ms (forward {fwd_ms:.2f} ms) "
+        f"[{smi}]")
+    # where run_batch's host time goes: torch.profiler over 3 batches, the
+    # device's busy time against the wall clock (both under the
+    # profiler's own overhead) and the host ops of most self time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pipe.run_batch(frames8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pipe.run_batch(frames8)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    averages = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in averages
+                  if e.device_type == DeviceType.CUDA) / 3e3
+    host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    log(f"run_batch 8 frames under the profiler: {wall_ms:.2f} ms/batch "
+        f"wall, device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.0f}"
+        f"%); host self time per batch, largest: "
+        + ", ".join(f"{e.key} {e.self_cpu_time_total / 3e3:.2f} ms "
+                    f"({e.count // 3})" for e in host[:10]) + f" [{smi}]")
+    ms1_ms, _ = timed(lambda: pipe.run_multiscale(frame, MS_SCALES), iters=3)
+    ms8_ms, _ = timed(lambda: pipe.run_multiscale_batch(frames8, MS_SCALES),
+                      iters=3)
+    log(f"multi-scale TTA {MS_SCALES}, flip, bf16, 480x640 frames: "
+        f"run_multiscale {ms1_ms:.2f} ms/frame; run_multiscale_batch(8) "
+        f"{ms8_ms:.2f} ms/batch = {ms8_ms / 8:.3f} ms/frame [{smi}]")
 
     # 8. training main path: the flagship VGG19 (6 stages, 368 px, bf16,
     # batch 72, freeze phase on) from seeded He weights with the
@@ -967,6 +1196,21 @@ def main() -> int:
                  launches=launches[name], **results[name], library_ms=None,
                  **({"also_replaces": also} if also else {}))
             for name, (src, rep, also) in sources.items()]
+    # the grouping kernel replaces no TPU kernel but the two lax.scans of
+    # the JAX decode: its row stands on a line of its own.  library_ms:
+    # no PyTorch call computes greedy 1-1 matching or the assembly
+    group_row = dict(
+        name="group_people", route="cuda",
+        source="rtpose_tpu_torch/csrc/group_people.cu",
+        replaces="rtpose_tpu/ops/grouping.py:228",
+        also_replaces="rtpose_tpu/ops/grouping.py:287",
+        replaces_kind="lax.scan (greedy_connections, assemble_people); "
+                      "no Pallas kernel",
+        launches=counts["group_people"],
+        multiscale_launches=ms_counts["group_people"],
+        **results["group_people"], library_ms=None,
+        selftest_latency_ms=selftest_ms)
+    print(json.dumps({"kernels_beyond_tpu": [group_row]}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

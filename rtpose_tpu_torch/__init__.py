@@ -4,16 +4,20 @@ The JAX package rebuilt on PyTorch for an NVIDIA Hopper card:
 
 - serving: the VGG19 6-stage CPM forward with flip TTA, the on-device
   decode (peak NMS + bicubic refine, PAF line-integral scoring, greedy
-  matching, person assembly) and the crowded-frame retry;
+  matching and person assembly in one kernel), the crowded-frame retry,
+  multi-scale TTA and the self-test (``python -m
+  rtpose_tpu_torch.selftest``);
 - training: the single-card train step (ground-truth synthesis on the
   device, stage-wise MSE, nesterov SGD with the two-phase freeze, the
   non-finite guard), the plateau schedule and checkpoints.
 
 Every kernel that the JAX package wrote in Pallas for the TPU is
-hand-written CUDA here (``csrc/``); each keeps a plain PyTorch version
-that CPU tensors take.  Layouts at the public functions follow the JAX
-package (NHWC maps, stage-stacked model outputs) so the two can be
-compared array for array.  Nothing here imports jax, flax or cv2.
+hand-written CUDA here (``csrc/``), and so is the decode's grouping,
+which the JAX package runs as two ``lax.scan``s; each keeps a plain
+PyTorch version that CPU tensors take.  Layouts at the public functions
+follow the JAX package (NHWC maps, stage-stacked model outputs) so the
+two can be compared array for array.  Nothing here imports jax, flax or
+cv2.
 """
 
 __version__ = "0.2.0"

@@ -1,5 +1,5 @@
 """The image->skeletons serving pipeline (port of
-rtpose_tpu/infer/pipeline.py:58-474).
+rtpose_tpu/infer/pipeline.py:58-708).
 
 One call covers: uint8 BGR frames shipped to the card -> bilinear
 scale + zero pad on the card (cv2 INTER_LINEAR parity, ops/resize.py) ->
@@ -10,13 +10,23 @@ arrays.  A frame whose decode overflowed a fixed-shape cap
 (``People.truncated``) is decoded again from the maps still on the card
 at :data:`RETRY_CAPS`; only the truncated frames are decoded again.
 
+On the card nothing is read back between the upload of the frames and
+the one readback of ``People``: :meth:`PosePipeline.run_batch_submit`
+enqueues a batch and returns while the card works on it.
+
+Multi-scale TTA (:meth:`PosePipeline.run_multiscale`, the batched
+:meth:`PosePipeline.run_multiscale_batch`) runs one forward per scale
+with flip fused, resizes every scale's maps bicubically to the base grid
+(cv2 INTER_CUBIC parity), averages them and decodes once.
+
 Resizing always runs on the card: the JAX package's host resize is
 ``cv2.resize``, which the port does not depend on.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import functools
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,7 +37,8 @@ from ..models import get_model
 from ..models.convert import load_torch_checkpoint, state_dict_from_flax
 from ..ops.decode import (decode_poses_batch, people_row, people_to_host,
                           people_to_numpy)
-from ..ops.resize import resize_bilinear
+from ..ops.kernels import true_div
+from ..ops.resize import resize_bicubic, resize_bilinear
 from ..skeleton import FLIP_HEAT, FLIP_PAF, NUM_LIMBS
 from .preprocess import normalize_device, scale_pad_geometry
 
@@ -43,18 +54,35 @@ _PAF_X_NEG[0::2] = -1.0
 RETRY_CAPS = dict(max_peaks=64, max_candidates=1024,
                   max_total_conns=608, max_people=128)
 
+MS_SCALES = (0.5, 1.0, 1.5, 2.0)
+# Device memory a stacked multi-scale chunk holds, in bytes per frame and
+# pixel of its largest scaled (padded) input, for a bf16 model with flip
+# TTA: the peak of the largest scale's batch-2B forward (its conv1
+# activations dominate).  Measured with chip_smoke.py (PERF.md §5); the
+# cost scales with the compute type's width and halves without flip.
+MS_BYTES_PER_PIXEL = 768
+MS_MEMORY_SHARE = 0.8      # of the card's available memory a chunk may use
+# On the CPU there is no device memory to ask: a stated budget
+MS_HOST_MEMORY_BUDGET = 8 * 2 ** 30
+
+
+@functools.lru_cache(maxsize=None)
+def _flip_tables_on(device: torch.device):
+    """Heat and PAF channel swaps and the PAF x-sign, copied to `device`
+    once."""
+    return (torch.as_tensor(_FLIP_HEAT_ARR, device=device),
+            torch.as_tensor(_FLIP_PAF_ARR, device=device),
+            torch.as_tensor(_PAF_X_NEG, device=device))
+
 
 def average_flip(heat: torch.Tensor, heat_flipped: torch.Tensor,
                  paf: torch.Tensor, paf_flipped: torch.Tensor):
     """Average normal and mirrored predictions, ``(..., H, W, C)`` maps:
     un-mirror W, swap left/right channels, negate PAF x-components
     (reference coco_eval.py:228-240)."""
-    dev = heat.device
-    hf = heat_flipped.flip(-2)[..., torch.as_tensor(_FLIP_HEAT_ARR,
-                                                     device=dev)]
-    pf = paf_flipped.flip(-2)[..., torch.as_tensor(_FLIP_PAF_ARR,
-                                                    device=dev)]
-    pf = pf * torch.as_tensor(_PAF_X_NEG, device=dev)
+    heat_idx, paf_idx, x_neg = _flip_tables_on(heat.device)
+    hf = heat_flipped.flip(-2)[..., heat_idx]
+    pf = paf_flipped.flip(-2)[..., paf_idx] * x_neg
     return (heat + hf) / 2.0, (paf + pf) / 2.0
 
 
@@ -63,15 +91,16 @@ def make_infer_fn(model, *, input_size: int = 368,
                   max_peaks: int = 32, max_people: int = 64,
                   downsample: int = 8, flip: bool = True,
                   max_candidates: int = 256, max_total_conns: int = 160,
-                  gaussian_filt: bool = False):
+                  gaussian_filt: bool = False, decode: bool = True):
     """Build the uint8-frames -> people function.
 
     Returned fn: raw ``(B, H, W, 3)`` uint8 BGR frames on the model's
-    device -> ``(People, heat (B, h, w, 19), paf (B, h, w, 38))``.  The
-    frames are scaled so their short side is `input_size`, zero-padded to
-    a multiple of `downsample` (the reference crop_with_factor's geometry)
-    and normalized, all on their device.  `gaussian_filt` blurs each
-    peak's upsampled refine window (sigma 3) before the argmax.
+    device -> ``(People, heat (B, h, w, 19), paf (B, h, w, 38))``, People
+    None without `decode`.  The frames are scaled so their short side is
+    `input_size`, zero-padded to a multiple of `downsample` (the reference
+    crop_with_factor's geometry) and normalized, all on their device.
+    `gaussian_filt` blurs each peak's upsampled refine window (sigma 3)
+    before the argmax.
     """
 
     @torch.inference_mode()
@@ -88,6 +117,8 @@ def make_infer_fn(model, *, input_size: int = 368,
         heat, paf = out.heatmap, out.paf
         if flip:
             heat, paf = average_flip(heat[:n], heat[n:], paf[:n], paf[n:])
+        if not decode:
+            return None, heat, paf
         people = decode_poses_batch(
             heat, paf, factor=downsample, thresh_heatmap=thresh_heatmap,
             max_peaks=max_peaks, max_people=max_people,
@@ -137,6 +168,8 @@ class PosePipeline:
     and meta['truncated'] reports the state after the retry.
     `gaussian_filt` (default off, as in the reference) selects the blurred
     peak refine for the first decode and the retry alike.
+    Multi-scale TTA (:meth:`run_multiscale`, :meth:`run_multiscale_batch`)
+    decodes with the same caps and retries the same way.
     """
 
     def __init__(self, model, *, device="cuda", input_size: int = 368,
@@ -152,12 +185,15 @@ class PosePipeline:
         self.downsample = downsample
         self.preprocess_mode = preprocess_mode
         self.flip = flip
+        self._decode_kwargs = dict(
+            thresh_heatmap=thresh_heatmap, max_peaks=max_peaks,
+            max_people=max_people, max_candidates=max_candidates,
+            max_total_conns=max_total_conns, gaussian_filt=gaussian_filt)
         self._infer = make_infer_fn(
             self.model, input_size=input_size,
-            preprocess_mode=preprocess_mode, thresh_heatmap=thresh_heatmap,
-            max_peaks=max_peaks, max_people=max_people,
-            downsample=downsample, flip=flip, max_candidates=max_candidates,
-            max_total_conns=max_total_conns, gaussian_filt=gaussian_filt)
+            preprocess_mode=preprocess_mode, downsample=downsample,
+            flip=flip, **self._decode_kwargs)
+        self._infer_maps: Dict[int, Any] = {}   # input size -> maps-only fn
         self.auto_retry = auto_retry
         self.retry_caps = {**RETRY_CAPS, **(retry_caps or {})}
         self._retry_kwargs = dict(factor=downsample,
@@ -195,17 +231,14 @@ class PosePipeline:
         frame; meta['scale'] maps them back to the original pixels.
         """
         im, meta = self._prep(image_bgr)
-        people_dev, heat, paf = self._infer(self._upload([im]))
-        h_up = heat.shape[1] * self.downsample
-        w_up = heat.shape[2] * self.downsample
-        people_host = people_to_host(people_dev)
-        if self.auto_retry and people_host.truncated[0]:
-            people_host = self._decode_retry(heat, paf)
-            meta["retried"] = True
-        meta["truncated"] = bool(people_host.truncated[0])
-        meta["upsampled"] = (h_up, w_up)
-        people = people_to_numpy(people_row(people_host, 0), w_up, h_up)
-        return people, heat[0].cpu().numpy(), paf[0].cpu().numpy(), meta
+        return self._run_one(self._submit_stacked([im], [meta]))
+
+    def _run_one(self, ticket):
+        """Collect a one-frame ticket -> (people, heat, paf, meta)."""
+        people, metas = self.run_batch_collect(ticket)
+        heat, paf = ticket[2], ticket[3]
+        return people[0], heat[0].cpu().numpy(), paf[0].cpu().numpy(), \
+            metas[0]
 
     def run_batch(self, images_bgr):
         """Batched serving: frames of one shape run as one batch, mixed
@@ -270,6 +303,108 @@ class PosePipeline:
             meta["truncated"] = bool(row.truncated)
             out.append(people_to_numpy(row, w_up, h_up))
         return out, metas
+
+    # -- multi-scale TTA ----------------------------------------------------
+
+    def _scale_sizes(self, h: int, w: int, scales: Sequence[float]):
+        """Base grid (h, w) of an (h, w) frame, each scale's input size
+        (short side) and the pixels of the largest padded scaled input."""
+        _, _, _, ph, pw = scale_pad_geometry(h, w, self.input_size,
+                                             self.downsample)
+        sizes = [max(self.downsample, int(round(self.input_size * s)))
+                 for s in scales]
+        max_px = max(g[3] * g[4] for g in (
+            scale_pad_geometry(h, w, size, self.downsample)
+            for size in sizes))
+        return (ph // self.downsample, pw // self.downsample), sizes, max_px
+
+    def _maps_fn(self, size: int):
+        fn = self._infer_maps.get(size)
+        if fn is None:
+            fn = self._infer_maps[size] = make_infer_fn(
+                self.model, input_size=size,
+                preprocess_mode=self.preprocess_mode,
+                downsample=self.downsample, flip=self.flip, decode=False)
+        return fn
+
+    def _submit_multiscale(self, ims, metas, base_hw, sizes):
+        """Upload once; per scale, resize on the card and run the forward
+        with flip fused; bicubic-resize every scale's maps to the base
+        grid, average, decode once.  Nothing is read back."""
+        with torch.inference_mode():
+            frames = self._upload(ims)
+            heat = paf = None
+            for size in sizes:
+                _, h, p = self._maps_fn(size)(frames)
+                h, p = resize_bicubic(h, base_hw), resize_bicubic(p, base_hw)
+                heat = h if heat is None else heat + h
+                paf = p if paf is None else paf + p
+            heat, paf = true_div(heat, len(sizes)), true_div(paf, len(sizes))
+            people = decode_poses_batch(heat, paf, factor=self.downsample,
+                                        **self._decode_kwargs)
+        return ("async", people, heat, paf, list(metas))
+
+    def run_multiscale(self, image_bgr: np.ndarray,
+                       scales: Sequence[float] = MS_SCALES):
+        """Multi-scale + flip TTA of one frame -> (people, heat, paf, meta)
+        with the averaged maps on the base grid (the single-scale frame's
+        maps), retried at :data:`RETRY_CAPS` when truncated."""
+        im, meta = self._prep(image_bgr)
+        base_hw, sizes, _ = self._scale_sizes(*im.shape[:2], scales)
+        return self._run_one(self._submit_multiscale([im], [meta], base_hw,
+                                                     sizes))
+
+    def ms_chunk_cap(self, max_px: int) -> int:
+        """Most frames per stacked multi-scale chunk whose largest scaled
+        input has `max_px` pixels: the memory the chunk may use over its
+        cost per frame (:data:`MS_BYTES_PER_PIXEL`, scaled by the compute
+        type's width and by flip).  On the card the memory is
+        :data:`MS_MEMORY_SHARE` of what is free now, the allocator's cached
+        blocks included; on the CPU it is :data:`MS_HOST_MEMORY_BUDGET`."""
+        param = next(self.model.parameters(), None)
+        width = 4 if param is None else param.element_size()
+        per_frame = (max_px * MS_BYTES_PER_PIXEL * (width / 2)
+                     * (1.0 if self.flip else 0.5))
+        if self.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.device)
+            budget = MS_MEMORY_SHARE * (
+                free + torch.cuda.memory_reserved(self.device)
+                - torch.cuda.memory_allocated(self.device))
+        else:
+            budget = MS_HOST_MEMORY_BUDGET
+        return max(1, int(budget // per_frame))
+
+    def run_multiscale_batch_submit(self, images_bgr,
+                                    scales: Sequence[float] = MS_SCALES):
+        """Enqueue a multi-scale TTA batch without waiting; collect with
+        :meth:`run_batch_collect`.  Frames of one shape run as stacked
+        chunks of at most :meth:`ms_chunk_cap` frames, mixed shapes as one
+        group per shape."""
+        if not images_bgr:
+            return ("multi", 0, [])
+        ims, metas = zip(*(self._prep(im) for im in images_bgr))
+        groups: Dict[tuple, list] = {}
+        for i, im in enumerate(ims):
+            groups.setdefault(im.shape, []).append(i)
+        sub = []
+        for shape, idxs in groups.items():
+            base_hw, sizes, max_px = self._scale_sizes(*shape[:2], scales)
+            cap = self.ms_chunk_cap(max_px)
+            for j in range(0, len(idxs), cap):
+                part = idxs[j:j + cap]
+                sub.append((part, self._submit_multiscale(
+                    [ims[i] for i in part], [metas[i] for i in part],
+                    base_hw, sizes)))
+        if len(sub) == 1:
+            return sub[0][1]
+        return ("multi", len(ims), sub)
+
+    def run_multiscale_batch(self, images_bgr,
+                             scales: Sequence[float] = MS_SCALES):
+        """Batched multi-scale TTA: submit, then collect -> (people lists,
+        metas)."""
+        return self.run_batch_collect(
+            self.run_multiscale_batch_submit(images_bgr, scales))
 
     def keypoints_pixels(self, people, meta):
         """Map normalised part coordinates back to original-image pixels:

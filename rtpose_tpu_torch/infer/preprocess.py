@@ -7,6 +7,7 @@ JAX package's numpy helpers, so the port imports nothing of that package.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -27,6 +28,14 @@ def scale_pad_geometry(h: int, w: int, dest_size: int, factor: int = 8
     return scale, rh, rw, rh + (-rh % factor), rw + (-rw % factor)
 
 
+@functools.lru_cache(maxsize=None)
+def _constants_on(device: torch.device, values: Tuple[float, ...]
+                  ) -> torch.Tensor:
+    """A constant vector on `device`, copied there once (a copy per call
+    would make the host wait for it)."""
+    return torch.tensor(values, device=device)
+
+
 def normalize_device(images_u8: torch.Tensor, mode: str) -> torch.Tensor:
     """uint8 (or raw-valued float) BGR ``(..., H, W, 3)`` frames -> fp32
     network input, on the frames' device.  Modes as the reference's
@@ -38,12 +47,12 @@ def normalize_device(images_u8: torch.Tensor, mode: str) -> torch.Tensor:
         return x / 256.0 - 0.5
     if mode == "vgg":
         rgb = x.flip(-1) / 255.0
-        return ((rgb - torch.tensor(IMAGENET_MEAN, device=dev))
-                / torch.tensor(IMAGENET_STD, device=dev))
+        return ((rgb - _constants_on(dev, IMAGENET_MEAN))
+                / _constants_on(dev, IMAGENET_STD))
     if mode == "inception":
         return x.flip(-1) / 128.0 - 1.0
     if mode == "ssd":
-        rgb = x.flip(-1) - torch.tensor(_SSD_MEAN, device=dev)
+        rgb = x.flip(-1) - _constants_on(dev, _SSD_MEAN)
         return rgb.flip(-1)
     if mode in (None, "none"):
         return x

@@ -40,6 +40,9 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _P),
     "rtpose_limb_tables": (_P, _P),
     "rtpose_gt_maps": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    "rtpose_group_tables": (_P, _P),
+    "rtpose_group_people": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -1,6 +1,7 @@
 """On-device pose decoding: heatmaps + PAFs -> people (port of
 rtpose_tpu/ops/decode.py).  The batch axis is written out where the JAX
-package vmaps."""
+package vmaps.  On the card the decode reads nothing back to the host:
+:func:`people_to_host` is its one readback."""
 
 from __future__ import annotations
 

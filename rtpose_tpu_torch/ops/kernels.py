@@ -1,7 +1,7 @@
 """Wrappers of the hand-written CUDA kernels and their plain versions.
 
-Two kernels carry the decode's hot work and one the training step's
-ground truth (sources in ``csrc/``):
+Three kernels carry the decode and one the training step's ground truth
+(sources in ``csrc/``):
 
 - :func:`connection_scores` (``csrc/connection_scores.cu``) replaces the
   TPU kernels ``paf_sample_scores_fused`` and ``paf_sample_scores`` of
@@ -13,6 +13,10 @@ ground truth (sources in ``csrc/``):
   epilogue and validity mask around it, and with ``gaussian_filt`` also
   serves the blurred refine that the JAX package runs as
   ``_refine_onehot`` (``rtpose_tpu/ops/peaks.py``);
+- :func:`group_people` (``csrc/group_people.cu``) replaces no Pallas
+  kernel but the two ``lax.scan``s of ``rtpose_tpu/ops/grouping.py``,
+  ``greedy_connections`` and ``assemble_people``, with the compaction
+  between them: sorted candidates in, People out, one block per image;
 - :func:`gt_maps` (``csrc/gt_maps.cu``) replaces ``gt_maps_pallas`` of
   ``rtpose_tpu/ops/pallas_gt.py`` with the precompute before its
   ``pallas_call``: keypoints in, both maps out, one launch.
@@ -33,7 +37,8 @@ import numpy as np
 import torch
 
 from ..skeleton import (GROUP_PAIRS, GROUP_PAIRS_NET, LIMBS,
-                        NUM_GROUP_PAIRS, NUM_LIMBS, NUM_PARTS)
+                        NUM_GROUP_PAIRS, NUM_LIMBS, NUM_PARTS,
+                        NUM_SEED_PAIRS)
 
 STEP_PAF = 10
 THRESH_VECTOR_SCORE = 0.05
@@ -134,6 +139,14 @@ def _blur_matrices_on(device: torch.device, factor: int) -> torch.Tensor:
     return torch.as_tensor(blur_matrices(factor), device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def pair_tables_on(device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """PAIR_A, PAIR_B, PAIR_CHX, PAIR_CHY as int64 tensors on `device`,
+    copied there once."""
+    return tuple(torch.as_tensor(t, device=device)
+                 for t in (PAIR_A, PAIR_B, PAIR_CHX, PAIR_CHY))
+
+
 # ---------------------------------------------------------------------------
 # launching
 # ---------------------------------------------------------------------------
@@ -186,7 +199,10 @@ def _check_tables(lib) -> None:
              "csrc/connection_scores.cu pair tables differ from "
              "skeleton.GROUP_PAIRS / GROUP_PAIRS_NET"),
             ("rtpose_limb_tables", (LIMB_A, LIMB_B),
-             "csrc/gt_maps.cu limb tables differ from skeleton.LIMBS")):
+             "csrc/gt_maps.cu limb tables differ from skeleton.LIMBS"),
+            ("rtpose_group_tables", (PAIR_A, PAIR_B),
+             "csrc/group_people.cu pair tables differ from "
+             "skeleton.GROUP_PAIRS")):
         tables = [(ctypes.c_int * len(want[0]))() for _ in want]
         n = getattr(lib, entry)(*tables)
         if n != len(want[0]) or any(list(t) != w.tolist()
@@ -224,8 +240,7 @@ def candidate_geometry(peak_x: torch.Tensor, peak_y: torch.Tensor,
     """
     B, _, K = peak_x.shape
     dev = peak_x.device
-    pa = torch.as_tensor(PAIR_A, device=dev)
-    pb = torch.as_tensor(PAIR_B, device=dev)
+    pa, pb = pair_tables_on(dev)[:2]
     ax = peak_x[:, pa].float()                   # (B, 19, K)
     ay = peak_y[:, pa].float()
     bx = peak_x[:, pb].float()
@@ -281,8 +296,7 @@ def paf_sample_scores_plain(paf: torch.Tensor, geo: torch.Tensor, *,
     C = geo.shape[-1]
     ax, ay, step_x, step_y, ux, uy = geo.unbind(2)          # (B, 19, C)
     dev = paf.device
-    chx = torch.as_tensor(PAIR_CHX, device=dev)[None, :, None]
-    chy = torch.as_tensor(PAIR_CHY, device=dev)[None, :, None]
+    chx, chy = (t[None, :, None] for t in pair_tables_on(dev)[2:])
     base = torch.arange(B, device=dev)[:, None, None] * (h * w * ch)
     flat = paf.reshape(-1)
     cnt = torch.zeros((B, NUM_GROUP_PAIRS, C), dtype=torch.int32, device=dev)
@@ -641,7 +655,311 @@ def gt_maps(keypoints: torch.Tensor, *, grid_y: int, grid_x: int,
 
 gt_maps.launches = 0
 
-_COUNTED = (connection_scores, bicubic_refine, gt_maps)
+
+# ---------------------------------------------------------------------------
+# greedy matching and person assembly (the two lax.scans of the JAX decode)
+# ---------------------------------------------------------------------------
+
+def greedy_plain(sorted_scores: torch.Tensor, sorted_idx: torch.Tensor,
+                 K: int, max_conns: int):
+    """Greedy 1-1 assignment per pair over the stably sorted candidates
+    (B, 19, K*K), invalid ones -inf: the scan of JAX
+    ``greedy_connections`` (grouping.py:248-284) as a torch loop over the
+    top-C steps, vectorised over images and pairs.
+
+    Returns (conn_ia, conn_ib, conn_score, conn_valid), each (B, 19, K) in
+    pair-major acceptance order, and `overflow` (B,): a pair had more
+    valid candidates than the C window.
+    """
+    B, P, KK = sorted_scores.shape
+    dev = sorted_scores.device
+    C = min(max_conns, KK)
+    if C < KK:   # valid candidates sort first: the one at C is valid
+        overflow = (sorted_scores[..., C] > -torch.inf).any(-1)
+    else:
+        overflow = torch.zeros((B,), dtype=torch.bool, device=dev)
+    top_scores = sorted_scores[..., :C]
+    top_idx = sorted_idx[..., :C]
+    top_ia = torch.div(top_idx, K, rounding_mode="floor")
+    top_ib = top_idx % K
+    top_valid = torch.isfinite(top_scores)
+
+    used_a = torch.zeros((B, P, K), dtype=torch.bool, device=dev)
+    used_b = torch.zeros((B, P, K), dtype=torch.bool, device=dev)
+    # valid candidates sort first, so no step past the longest valid run
+    # of any (image, pair) can accept: one read-back of that length bounds
+    # the loop, whose body never reads back
+    n_steps = int((top_scores > -torch.inf).sum(-1).max()) \
+        if top_scores.numel() else 0
+    accepted = []
+    for c in range(n_steps):
+        ia = top_ia[..., c:c + 1]
+        ib = top_ib[..., c:c + 1]
+        ua = used_a.gather(-1, ia)
+        ub = used_b.gather(-1, ib)
+        ok = top_valid[..., c:c + 1] & ~ua & ~ub
+        used_a.scatter_(-1, ia, ua | ok)
+        used_b.scatter_(-1, ib, ub | ok)
+        accepted.append(ok)
+    accepted.append(torch.zeros((B, P, C - n_steps), dtype=torch.bool,
+                                device=dev))
+    acc = torch.cat(accepted, dim=-1)                        # (B, 19, C)
+    # slot of an accepted candidate = number accepted before it; K = drop
+    slots = torch.where(acc, acc.long().cumsum(-1) - 1, K)
+
+    def place(values, fill, dtype):
+        out = torch.full((B, P, K + 1), fill, dtype=dtype, device=dev)
+        out.scatter_(-1, slots, torch.where(acc, values, fill).to(dtype))
+        return out[..., :K]
+
+    return (place(top_ia, 0, torch.int64), place(top_ib, 0, torch.int64),
+            place(top_scores, 0.0, torch.float32),
+            place(acc, False, torch.bool), overflow)
+
+
+def assemble_plain(conn_ia, conn_ib, conn_score, conn_valid,
+                   peak_x: torch.Tensor, peak_y: torch.Tensor,
+                   peak_score: torch.Tensor, peak_truncated: torch.Tensor, *,
+                   max_people: int = 64, min_part_cnt: int = 4,
+                   min_human_score: float = 0.3, max_total_conns: int = 160,
+                   extra_truncated=None):
+    """Sequential person assembly (reference pafprocess.cpp:127-191), the
+    scan of JAX ``assemble_people`` (grouping.py:343-430) as a torch loop.
+
+    Consumes connections in (pair, acceptance-slot) order, one step per
+    entry of the compacted list, for all images at once.  Each step is the
+    JAX scan body with its one-hot blends written as selects: the blends
+    add exact zeros, so the values are the same.  Returns the People
+    fields (coords, part_score, score, valid, truncated).
+    """
+    B, P, K = conn_ia.shape
+    Pp = max_people
+    dev = conn_ia.device
+    score_flat = peak_score.reshape(B, -1)         # (B, 18*K)
+    x_flat = peak_x.reshape(B, -1)
+    y_flat = peak_y.reshape(B, -1)
+
+    part_a, part_b = pair_tables_on(dev)[:2]
+    gid1 = part_a[:, None] * K + conn_ia           # (B, 19, K) 0-based ids
+    gid2 = part_b[:, None] * K + conn_ib
+    cid1 = (gid1 + 1).float()
+    cid2 = (gid2 + 1).float()
+    ps1 = score_flat.gather(1, gid1.reshape(B, -1))
+    ps2 = score_flat.gather(1, gid2.reshape(B, -1))
+
+    # compact the (19, K) connections into a length-M list, order kept
+    M = min(max_total_conns, P * K)
+    flat_valid = conn_valid.reshape(B, -1)
+    conn_overflow = flat_valid.sum(-1) > M
+    pos = flat_valid.long().cumsum(-1) - 1
+    pos = torch.where(flat_valid & (pos < M), pos, M)
+
+    def compact(x, fill):
+        x = x.reshape(B, -1)
+        out = torch.full((B, M + 1), fill, dtype=x.dtype, device=dev)
+        return out.scatter_(1, pos, x)[:, :M]
+
+    pair_of = torch.arange(P, device=dev).repeat_interleave(K).expand(B, -1)
+    c_pair = compact(pair_of, NUM_GROUP_PAIRS)
+    c_k1 = compact(cid1, 0.0)
+    c_k2 = compact(cid2, 0.0)
+    c_s12 = compact(ps1, 0.0) + compact(ps2, 0.0)   # s1p + s2p (new rows)
+    c_ps2 = compact(ps2, 0.0)
+    c_score = compact(conn_score, 0.0)
+    c_valid = compact(flat_valid, False)
+    pair_c = c_pair.clamp(max=NUM_GROUP_PAIRS - 1)
+    c_p1 = part_a[pair_c]                           # (B, M)
+    c_p2 = part_b[pair_c]
+    c_seed = c_pair < NUM_SEED_PAIRS
+    new_s18 = c_s12 + c_score                       # (s1p + s2p) + cscore
+    ext_s18 = c_ps2 + c_score                       # s2p + cscore
+
+    subset = torch.full((B, Pp, 20), -1.0, device=dev)
+    subset[..., 19] = 0.0                            # count 0 == dead row
+    next_slot = torch.zeros((B,), dtype=torch.int64, device=dev)
+    dropped = torch.zeros((B,), dtype=torch.bool, device=dev)
+    rows = torch.arange(Pp, device=dev)
+    cols = torch.arange(20, device=dev)
+    dead = torch.full((20,), -1.0, device=dev)
+    dead[19] = 0.0
+    body = cols < NUM_PARTS
+    # entries past an image's valid connections change nothing: loop only
+    # as far as the longest valid list of the batch (one read-back)
+    n_steps = int(flat_valid.sum(-1).clamp(max=M).max()) if B else 0
+    for m in range(n_steps):
+        p1 = c_p1[:, m]
+        p2 = c_p2[:, m]
+        k1 = c_k1[:, m, None]
+        k2 = c_k2[:, m, None]
+        cvalid = c_valid[:, m]
+        col1 = subset.gather(2, p1[:, None, None].expand(B, Pp, 1))[..., 0]
+        col2 = subset.gather(2, p2[:, None, None].expand(B, Pp, 1))[..., 0]
+        match = (subset[..., 19] > 0) & ((col1 == k1) | (col2 == k2))
+        found = match.sum(1)
+        # first / second matching row (0 when none, like jnp.argmax)
+        first = torch.where(match, rows, Pp).amin(1)
+        s1 = torch.where(first < Pp, first, 0)
+        second = torch.where(match & (rows != s1[:, None]), rows, Pp).amin(1)
+        s2 = torch.where(second < Pp, second, 0)
+        r1 = subset.gather(1, s1[:, None, None].expand(B, 1, 20))[:, 0]
+        r2 = subset.gather(1, s2[:, None, None].expand(B, 1, 20))[:, 0]
+        membership = ((r1[:, :NUM_PARTS] > 0)
+                      & (r2[:, :NUM_PARTS] > 0)).any(1)
+
+        can_new = next_slot < Pp
+        seed_miss = cvalid & (found == 0) & c_seed[:, m]
+        b_new = seed_miss & can_new
+        b_ext1 = cvalid & (found == 1)
+        b_ext2 = cvalid & (found == 2) & membership
+        b_merge = cvalid & (found == 2) & ~membership
+        r1_p2 = r1.gather(1, p2[:, None])
+        do_set = b_ext2 | (b_ext1 & (r1_p2[:, 0] != k2[:, 0]))
+
+        is_p1 = cols == p1[:, None]                   # (B, 20)
+        is_p2 = cols == p2[:, None]
+        new_row = torch.where(is_p1, k1, torch.where(is_p2, k2, -1.0))
+        new_row[:, 18] = new_s18[:, m]
+        new_row[:, 19] = 2.0
+        ext_row = torch.where(is_p2, k2, r1)
+        ext_row[:, 18] = r1[:, 18] + ext_s18[:, m]
+        ext_row[:, 19] = r1[:, 19] + 1.0
+        merged = torch.where(body, r1 + (r2 + 1.0), r1)
+        merged[:, 18] = r1[:, 18] + (r2[:, 18] + c_score[:, m])
+        merged[:, 19] = r1[:, 19] + r2[:, 19]
+
+        # new / extend / merge are exclusive (found == 0 vs >= 1): one
+        # row write covers all three, then the merge kills row s2
+        target = torch.where(b_new, next_slot.clamp(max=Pp - 1), s1)
+        value = torch.where(b_new[:, None], new_row,
+                            torch.where(do_set[:, None], ext_row, merged))
+        write = (b_new | do_set | b_merge)[:, None] & \
+            (rows == target[:, None])
+        subset = torch.where(write[..., None], value[:, None, :], subset)
+        kill = b_merge[:, None] & (rows == s2[:, None])
+        subset = torch.where(kill[..., None], dead, subset)
+
+        next_slot = next_slot + b_new.long()
+        dropped = dropped | (seed_miss & ~can_new)
+
+    count = subset[..., 19]
+    ssum = subset[..., 18]
+    per_part = ssum / count.clamp(min=1.0)
+    person_valid = ((count >= min_part_cnt) & (per_part >= min_human_score)
+                    & (count > 0))
+    cids = subset[..., :NUM_PARTS].to(torch.int32)  # 1-based or -1
+    has = cids > 0
+    flat_cid = (cids.long() - 1).clamp(0, NUM_PARTS * K - 1).reshape(B, -1)
+    xs = x_flat.gather(1, flat_cid).reshape(has.shape)
+    ys = y_flat.gather(1, flat_cid).reshape(has.shape)
+    coords = torch.stack([torch.where(has, xs, -1), torch.where(has, ys, -1)],
+                         dim=-1).to(torch.int32)
+    part_score = torch.where(
+        has, score_flat.gather(1, flat_cid).reshape(has.shape), 0.0)
+    truncated = peak_truncated | conn_overflow | dropped
+    if extra_truncated is not None:
+        truncated = truncated | extra_truncated
+    return coords, part_score, per_part, person_valid, truncated
+
+
+def group_people_plain(sorted_scores: torch.Tensor, sorted_idx: torch.Tensor,
+                       peak_x: torch.Tensor, peak_y: torch.Tensor,
+                       peak_score: torch.Tensor, peak_truncated: torch.Tensor,
+                       *, max_candidates: int = 256, max_people: int = 64,
+                       max_total_conns: int = 160, min_part_cnt: int = 4,
+                       min_human_score: float = 0.3):
+    """Plain PyTorch version of :func:`group_people`: the greedy loop, then
+    the assembly loop, each bounded by one read-back."""
+    *conns, cand_overflow = greedy_plain(sorted_scores, sorted_idx,
+                                         peak_x.shape[-1], max_candidates)
+    return assemble_plain(*conns, peak_x, peak_y, peak_score, peak_truncated,
+                          max_people=max_people, min_part_cnt=min_part_cnt,
+                          min_human_score=min_human_score,
+                          max_total_conns=max_total_conns,
+                          extra_truncated=cand_overflow)
+
+
+GROUP_MAX_K = 128        # csrc/group_people.cu MAX_K: two 64-bit used sets
+GROUP_MAX_PEOPLE = 256   # ... MAX_PEOPLE: subset rows in shared memory
+
+
+def group_people(sorted_scores: torch.Tensor, sorted_idx: torch.Tensor,
+                 peak_x: torch.Tensor, peak_y: torch.Tensor,
+                 peak_score: torch.Tensor, peak_truncated: torch.Tensor, *,
+                 max_candidates: int = 256, max_people: int = 64,
+                 max_total_conns: int = 160, min_part_cnt: int = 4,
+                 min_human_score: float = 0.3):
+    """Greedy 1-1 matching and person assembly, sorted candidates in,
+    People fields out.
+
+    sorted_scores: (B, 19, K*K) fp32 criterion scores of every pair's
+    candidates, invalid ones -inf, sorted descending and stably (ties to
+    the lower flat index ia*K + ib, ``lax.top_k``'s order);
+    sorted_idx: (B, 19, K*K) int64, their flat indices.
+    peak_x, peak_y: (B, 18, K) int32; peak_score: (B, 18, K) fp32;
+    peak_truncated: (B,) bool.
+    Returns (coords (B, Pp, 18, 2) int32, part_score (B, Pp, 18) fp32,
+    score (B, Pp) fp32, valid (B, Pp) bool, truncated (B,) bool) with Pp
+    = `max_people`: the greedy scan over each pair's top
+    C = min(max_candidates, K*K) candidates, the assembly over the first
+    M = min(max_total_conns, 19*K) accepted connections in (pair, slot)
+    order, and `truncated` where peaks, candidates, connections or people
+    overflowed a cap.  On the card this is one launch of
+    ``csrc/group_people.cu``, for K up to 128 and Pp up to 256.
+    """
+    if _route(sorted_scores) == "cpu":
+        return group_people_plain(
+            sorted_scores, sorted_idx, peak_x, peak_y, peak_score,
+            peak_truncated, max_candidates=max_candidates,
+            max_people=max_people, max_total_conns=max_total_conns,
+            min_part_cnt=min_part_cnt, min_human_score=min_human_score)
+    B, P, KK = sorted_scores.shape
+    K = peak_x.shape[-1]
+    dev = sorted_scores.device
+    _check("sorted_scores", sorted_scores, torch.float32, 3, dev)
+    _check("sorted_idx", sorted_idx, torch.int64, 3, dev)
+    _check("peak_x", peak_x, torch.int32, 3, dev)
+    _check("peak_y", peak_y, torch.int32, 3, dev)
+    _check("peak_score", peak_score, torch.float32, 3, dev)
+    _check("peak_truncated", peak_truncated, torch.bool, 1, dev)
+    if P != NUM_GROUP_PAIRS or KK != K * K \
+            or tuple(peak_x.shape) != (B, NUM_PARTS, K) \
+            or peak_y.shape != peak_x.shape \
+            or peak_score.shape != peak_x.shape \
+            or tuple(peak_truncated.shape) != (B,) \
+            or sorted_idx.shape != sorted_scores.shape:
+        raise ValueError(f"group_people: candidates "
+                         f"{tuple(sorted_scores.shape)} / "
+                         f"{tuple(sorted_idx.shape)}, peaks "
+                         f"{tuple(peak_x.shape)}, truncated "
+                         f"{tuple(peak_truncated.shape)} do not match "
+                         f"(B,19,K*K), (B,18,K) and (B,)")
+    if K > GROUP_MAX_K or not 1 <= max_people <= GROUP_MAX_PEOPLE:
+        raise ValueError(f"group_people: the kernel takes K <= {GROUP_MAX_K} "
+                         f"peaks per part and 1 to {GROUP_MAX_PEOPLE} people,"
+                         f" got K={K}, max_people={max_people}")
+    C = min(max_candidates, KK)
+    M = min(max_total_conns, NUM_GROUP_PAIRS * K)
+    coords = torch.empty((B, max_people, NUM_PARTS, 2), dtype=torch.int32,
+                         device=dev)
+    part_score = torch.empty((B, max_people, NUM_PARTS), dtype=torch.float32,
+                             device=dev)
+    score = torch.empty((B, max_people), dtype=torch.float32, device=dev)
+    valid = torch.empty((B, max_people), dtype=torch.bool, device=dev)
+    truncated = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B:
+        _launch("rtpose_group_people", dev, sorted_scores.data_ptr(),
+                sorted_idx.data_ptr(), peak_x.data_ptr(), peak_y.data_ptr(),
+                peak_score.data_ptr(), peak_truncated.data_ptr(),
+                coords.data_ptr(), part_score.data_ptr(), score.data_ptr(),
+                valid.data_ptr(), truncated.data_ptr(), B, K, C, M,
+                max_people, min_part_cnt, float(min_human_score))
+        group_people.launches += 1
+    return coords, part_score, score, valid, truncated
+
+
+group_people.launches = 0
+
+_COUNTED = (connection_scores, bicubic_refine, gt_maps, group_people)
 
 
 def reset_launch_counts() -> None:

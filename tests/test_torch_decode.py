@@ -4,7 +4,9 @@ the JAX package's, on rendered scenes (tests/util_synth.py).
 The JAX side runs its Pallas kernels in interpret mode (refine through
 ``nms(use_pallas=True)``, sampling ``'pallas_fused'``).  Held equal:
 ``Peaks.x/y/valid/truncated`` and ``People.coords/valid/truncated``;
-float fields within atol 1e-5.
+float fields within atol 1e-5.  Also the self-test's CPU run
+(``python -m rtpose_tpu_torch.selftest --device cpu``) and its exit code
+on a failure.
 """
 
 import numpy as np
@@ -182,3 +184,39 @@ def test_people_to_host_keeps_types():
     assert host.truncated.shape == (1,)
     np.testing.assert_array_equal(host.coords, dev.coords.numpy())
     np.testing.assert_array_equal(host.score, dev.score.numpy())
+
+
+def test_selftest_passes_on_the_cpu(capsys):
+    """``python -m rtpose_tpu_torch.selftest --device cpu``: the decode
+    against the host oracle, GT synthesis against its oracle and the flip
+    algebra, through the kernels' plain versions."""
+    from rtpose_tpu_torch import selftest
+    with pytest.raises(SystemExit) as done:
+        selftest.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert done.value.code == 0, out
+    for line in ("decode parity over 6 scenes: OK",
+                 "GT synthesis host/device equivalence: OK",
+                 "flip-TTA algebra: OK"):
+        assert line in out
+
+
+def test_selftest_exits_1_when_the_decode_differs(monkeypatch, capsys):
+    """A decode that moves one part by a pixel fails the parity check and
+    the run."""
+    from rtpose_tpu_torch import selftest
+    from rtpose_tpu_torch.ops import decode as tdecode
+    real = tdecode.people_to_numpy
+
+    def shifted(people, w_up, h_up):
+        out = real(people, w_up, h_up)
+        if out:
+            part, (x, y, s) = next(iter(out[0]["parts"].items()))
+            out[0]["parts"][part] = (x + 1.0 / w_up, y, s)
+        return out
+
+    monkeypatch.setattr(tdecode, "people_to_numpy", shifted)
+    with pytest.raises(SystemExit) as done:
+        selftest.main(["--device", "cpu"])
+    assert done.value.code == 1
+    assert "decode parity over 6 scenes: FAIL" in capsys.readouterr().out

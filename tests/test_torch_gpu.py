@@ -9,7 +9,8 @@ imports JAX, so run it there without the conftest:
 Tolerances: candidate validity and refined coordinates equal, scores
 within 1e-5, ground-truth maps within 1e-6 (kernel and plain version
 round the same fp32 operations in the same order, so they agree to the
-bit in practice).
+bit in practice); the grouping kernel's People equal its plain version's
+on every field.
 """
 
 import copy
@@ -26,10 +27,11 @@ from rtpose_tpu_torch.infer.pipeline import PosePipeline
 from rtpose_tpu_torch.models import get_model
 from rtpose_tpu_torch.ops import kernels
 from rtpose_tpu_torch.ops.decode import decode_poses_batch, people_to_host
-from rtpose_tpu_torch.ops.grouping import score_connections
+from rtpose_tpu_torch.ops.grouping import score_connections, sorted_candidates
 from rtpose_tpu_torch.ops.kernels import limb_scalars, person_bound
 from rtpose_tpu_torch.ops.peaks import nms, peak_candidates, refine_peaks
 from rtpose_tpu_torch.train.trainer import Trainer
+from rtpose_tpu_torch.utils.grouping_cases import candidate_batch
 
 from util_synth import grid_people, render_maps, synth_example
 
@@ -481,3 +483,120 @@ def test_pipeline_gaussian_filt_reaches_the_blurred_kernel(cuda):
     counts = kernels.launch_counts()
     assert counts["bicubic_refine_gaussian_filt"] == \
         counts["bicubic_refine"] >= 1
+
+
+GROUP_CAPS = {"default": dict(max_candidates=256, max_people=64,
+                              max_total_conns=160),
+              "retry": dict(max_candidates=1024, max_people=128,
+                            max_total_conns=608)}
+
+
+def _assert_group_equals_plain(args, caps):
+    before = kernels.group_people.launches
+    got = kernels.group_people(*args, **caps)
+    assert kernels.group_people.launches == before + 1
+    want = kernels.group_people_plain(*args, **caps)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("caps", ["default", "retry"])
+def test_group_kernel_matches_plain_on_crafted_candidates(cuda, caps):
+    """Candidate batches that reach every branch of the assembly (but
+    found >= 3, which greedy matching cannot produce), the windows
+    overflowing and exact score ties (tests/test_torch_grouping.py counts
+    them on the CPU): every People field equal."""
+    K = 32 if caps == "default" else 64
+    scores, valid, *peaks = (torch.from_numpy(a).to(cuda)
+                             for a in candidate_batch(0, 8, K))
+    got = _assert_group_equals_plain(
+        (*sorted_candidates(scores, valid), *peaks), GROUP_CAPS[caps])
+    assert got[4].any() and not got[4].all() and got[3].sum() > 20
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,caps", [("synth", "default"),
+                                       ("grid", "retry"),
+                                       ("grid", "default")])
+def test_group_kernel_matches_plain_on_scenes(cuda, kind, caps):
+    heat, paf = (t.to(cuda) for t in _scenes(kind))
+    p = nms(heat, max_peaks=32 if caps == "default" else 64)
+    got = _assert_group_equals_plain(
+        (*sorted_candidates(*score_connections(p, paf)), p.x, p.y, p.score,
+         p.truncated), GROUP_CAPS[caps])
+    assert int(got[3].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_decode_launches_each_kernel_once(cuda):
+    heat, paf = (t.to(cuda) for t in _scenes("synth"))
+    kernels.reset_launch_counts()
+    decode_poses_batch(heat, paf)
+    counts = kernels.launch_counts()
+    assert counts["group_people"] == counts["connection_scores"] == \
+        counts["bicubic_refine"] == 1
+
+
+@pytest.mark.gpu
+def test_decode_and_submit_do_not_synchronize(cuda):
+    """With every synchronising call an error, the decode at both caps and
+    ``run_batch_submit`` run (after a warm-up call that copies each path's
+    tables to the card once); the ticket then collects."""
+    heat, paf = (t.to(cuda) for t in _scenes("synth"))
+    gheat, gpaf = (t.to(cuda) for t in _scenes("grid"))
+    pipe = PosePipeline(get_model("vgg19", num_stages=1), device="cuda",
+                        input_size=56)
+    frames = [np.random.RandomState(i).randint(0, 256, (60, 80, 3),
+                                               np.uint8) for i in range(2)]
+    pipe.run_batch(frames)
+    decode_poses_batch(gheat, gpaf, **RETRY_CAPS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ticket = pipe.run_batch_submit(frames)
+        first = decode_poses_batch(heat, paf)
+        retry = decode_poses_batch(gheat, gpaf, **RETRY_CAPS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    people, metas = pipe.run_batch_collect(ticket)
+    assert len(people) == 2 and metas[0]["padded_shape"] == (56, 80, 3)
+    for got, (h, p, caps) in ((first, (heat, paf, {})),
+                              (retry, (gheat, gpaf, RETRY_CAPS))):
+        want = people_to_host(decode_poses_batch(h.cpu(), p.cpu(), **caps))
+        got = people_to_host(got)
+        assert want.valid.sum() > 0
+        for f in ("coords", "valid", "truncated"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+@pytest.mark.gpu
+def test_group_kernel_raises_beyond_its_limits(cuda):
+    def args(K, B=1):
+        ss = torch.full((B, 19, K * K), -torch.inf, device=cuda)
+        si = torch.zeros((B, 19, K * K), dtype=torch.int64, device=cuda)
+        pk = torch.zeros((B, 18, K), dtype=torch.int32, device=cuda)
+        return (ss, si, pk, pk, pk.float(),
+                torch.zeros(B, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError, match="K <= 128"):
+        kernels.group_people(*args(129))
+    with pytest.raises(ValueError, match="1 to 256 people"):
+        kernels.group_people(*args(8), max_people=257)
+    ss, si, *rest = args(8)
+    with pytest.raises(ValueError, match="int64"):
+        kernels.group_people(ss, si.int(), *rest)
+    with pytest.raises(ValueError, match="does not match|do not match"):
+        kernels.group_people(ss[:, :18].contiguous(), si[:, :18].contiguous(),
+                             *rest)
+    # at the limits it runs: K = 128, 256 people, nobody found
+    got = kernels.group_people(*args(128), max_people=256)
+    assert not got[3].any() and not got[4].any()
+
+
+@pytest.mark.gpu
+def test_selftest_passes_on_the_card(cuda, capsys):
+    from rtpose_tpu_torch import selftest
+    with pytest.raises(SystemExit) as done:
+        selftest.main(["--device", "cuda"])
+    assert done.value.code == 0, capsys.readouterr().out

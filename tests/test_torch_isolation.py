@@ -12,14 +12,20 @@ import sys
 import numpy as np
 import pytest
 
+import util_synth
 from rtpose_tpu import skeleton as jskeleton
+from rtpose_tpu.data import gt as jgt
 from rtpose_tpu.models import import_torch
+from rtpose_tpu.ops import grouping_ref as jgrouping_ref
 from rtpose_tpu.ops import peaks as jpeaks
 from rtpose_tpu.ops import resize as jresize
 from rtpose_tpu_torch import skeleton
+from rtpose_tpu_torch.data import gt as tgt
 from rtpose_tpu_torch.models.convert import torch_layout_map
+from rtpose_tpu_torch.ops import grouping_ref
 from rtpose_tpu_torch.ops.kernels import blur_matrices, interp_matrices
-from rtpose_tpu_torch.ops.resize import resize_matrix_linear
+from rtpose_tpu_torch.ops.resize import resize_matrix, resize_matrix_linear
+from rtpose_tpu_torch.utils import synth
 
 from util_synth import synth_example
 
@@ -90,9 +96,12 @@ def test_copied_numpy_helpers_equal_the_jax_package():
     np.testing.assert_array_equal(interp_matrices(8),
                                   jpeaks._interp_matrices(8))
     np.testing.assert_array_equal(blur_matrices(8), jpeaks._blur_matrices(8))
-    for src, dst in ((480, 368), (240, 368), (368, 368), (7, 3)):
+    for src, dst in ((480, 368), (240, 368), (368, 368), (7, 3), (23, 46),
+                     (5, 40)):
         np.testing.assert_array_equal(resize_matrix_linear(src, dst),
                                       jresize.resize_matrix_linear(src, dst))
+        np.testing.assert_array_equal(resize_matrix(src, dst),
+                                      jresize.resize_matrix(src, dst))
     assert torch_layout_map(6) == import_torch.torch_layout_map()
     assert torch_layout_map(2) == torch_layout_map(6)[:12 + 2 * (5 + 7)]
 
@@ -113,3 +122,51 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_scene_generator_copy_equals_the_original():
+    for seed, n in ((0, 1), (4, 5)):
+        for got, want in zip(synth.synth_example(seed=seed, n_people=n,
+                                                 h=46, w=62),
+                             util_synth.synth_example(seed=seed, n_people=n,
+                                                      h=46, w=62)):
+            np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        synth.grid_people(3, 4, 46, 46, np.random.RandomState(3)),
+        util_synth.grid_people(3, 4, 46, 46, np.random.RandomState(3)))
+
+
+def test_gt_host_oracle_copy_equals_the_original():
+    rng = np.random.RandomState(0)
+    kps = rng.uniform(-20, 380, (4, 18, 3))
+    kps[..., 2] = rng.choice([0, 1, 2], (4, 18))
+    for args in ({}, dict(input_y=224, input_x=320, sigma=5.0,
+                          limb_width=1.289)):
+        for got, want in zip(tgt.ground_truth_maps(kps, **args),
+                             jgt.ground_truth_maps(kps, **args)):
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed,n_people", [(0, 1), (3, 4), (5, 6)])
+def test_host_grouping_oracle_copy_equals_the_original(seed, n_people):
+    """The copy's grouping stage is the original's to the bit; its NMS
+    upsamples each patch by matrices instead of cv2: the same peaks, scores
+    within 1e-6."""
+    _, heat, paf = synth_example(seed=seed, n_people=n_people)
+    got, got_scores = grouping_ref.paf_to_people(heat, paf)
+    want, want_scores = jgrouping_ref.paf_to_people(heat, paf)
+    assert len(got) == len(want) == n_people
+    np.testing.assert_array_equal(got[..., :2], want[..., :2])
+    np.testing.assert_allclose(got[..., 2], want[..., 2], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got_scores, want_scores, atol=1e-6, rtol=0)
+    joints = jgrouping_ref.joint_list_from_peaks(
+        jgrouping_ref.nms(heat, 8, 0.1))
+    paf_up = jgrouping_ref.upsample_nearest(paf, 8)
+    shape = (heat.shape[0] * 8, heat.shape[1] * 8)
+    for mod in (grouping_ref, jgrouping_ref):
+        mod.reset_branch_stats()
+    a = grouping_ref.group_peaks(joints, shape, paf_up)
+    b = jgrouping_ref.group_peaks(joints, shape, paf_up)
+    for f in ("subset", "peak_x", "peak_y", "peak_score", "peak_part"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert grouping_ref.BRANCH_STATS == jgrouping_ref.BRANCH_STATS

@@ -7,7 +7,11 @@
   fp32 model bound of tests/test_vgg19_model.py (atol 2e-4, rtol 1e-3),
   people lists equal;
 - the truncation retry, fed precomputed maps as
-  tests/test_truncation_retry.py feeds the JAX pipeline.
+  tests/test_truncation_retry.py feeds the JAX pipeline;
+- ``resize_bicubic`` against cv2 INTER_CUBIC and the JAX function, and
+  multi-scale TTA against the JAX package's own functions composed the
+  same way (maps within the model bound, people lists equal), batched and
+  split into memory-capped chunks.
 """
 
 import numpy as np
@@ -27,7 +31,7 @@ from rtpose_tpu_torch.infer.preprocess import (normalize_device,
                                                scale_pad_geometry)
 from rtpose_tpu_torch.models.convert import state_dict_from_flax
 from rtpose_tpu_torch.ops import decode
-from rtpose_tpu_torch.ops.resize import resize_bilinear
+from rtpose_tpu_torch.ops.resize import resize_bicubic, resize_bilinear
 
 from util_synth import grid_people, render_maps
 
@@ -323,3 +327,98 @@ def test_run_batch_retries_only_truncated_rows(monkeypatch):
     direct = decode.people_to_numpy(
         decode.decode_poses(*maps[2], **RAISED), 368, 368)
     assert [p["parts"] for p in people[2]] == [p["parts"] for p in direct]
+
+
+# ---------------------------------------------------------------------------
+# bicubic map resize and multi-scale TTA
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("src,dst", [((23, 29), (46, 58)),
+                                     ((69, 46), (46, 31)),
+                                     ((10, 10), (17, 13))])
+def test_resize_bicubic_matches_cv2_and_jax(src, dst):
+    import cv2
+    maps = np.random.RandomState(0).rand(src[0], src[1], 7).astype(
+        np.float32)
+    got = resize_bicubic(torch.from_numpy(maps)[None], dst)[0].numpy()
+    np.testing.assert_allclose(got, cv2.resize(
+        maps, (dst[1], dst[0]), interpolation=cv2.INTER_CUBIC),
+        atol=2e-6, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(jresize.resize_bicubic(
+        jnp.asarray(maps), dst)), atol=1e-6, rtol=0)
+
+
+MS_TEST_SCALES = (1.0, 1.5)
+
+
+def _jax_multiscale(jmodel, params, frame, scales, input_size=56):
+    """The JAX package's multi-scale TTA composed from its own functions:
+    per scale ``make_infer_fn(device_resize_to=...)`` (resize on the
+    device, flip fused), ``resize_bicubic`` to the base grid, the mean,
+    one ``decode_poses``."""
+    from rtpose_tpu.ops import decode as jdecode
+    _, _, _, ph, pw = jpre.scale_pad_geometry(*frame.shape[:2], input_size,
+                                              8)
+    base = (ph // 8, pw // 8)
+    heats, pafs = [], []
+    for s in scales:
+        fn = jpipeline.make_infer_fn(
+            jmodel, flip=True, decode=False,
+            device_resize_to=max(8, int(round(input_size * s))))
+        _, heat, paf = fn(params, jnp.asarray(frame))
+        heats.append(jresize.resize_bicubic(heat, base))
+        pafs.append(jresize.resize_bicubic(paf, base))
+    heat, paf = sum(heats) / len(heats), sum(pafs) / len(pafs)
+    people = jdecode.people_to_numpy(jdecode.decode_poses(heat, paf),
+                                     base[1] * 8, base[0] * 8)
+    return people, np.asarray(heat), np.asarray(paf), base
+
+
+def test_run_multiscale_matches_jax_composition(pipes):
+    jpipe, tpipe, params = pipes
+    frame = _frames()[0]
+    jp, jheat, jpaf, base = _jax_multiscale(jpipe.model, params, frame,
+                                            MS_TEST_SCALES)
+    tp, theat, tpaf, meta = tpipe.run_multiscale(frame, MS_TEST_SCALES)
+    assert theat.shape == jheat.shape == base + (19,)
+    assert meta["upsampled"] == (base[0] * 8, base[1] * 8)
+    np.testing.assert_allclose(theat, jheat, **MAP_TOL)
+    np.testing.assert_allclose(tpaf, jpaf, **MAP_TOL)
+    assert sum(len(p["parts"]) for p in jp) > 0
+    _assert_people_lists_equal(tp, jp)
+    # the scales act: the single-scale maps differ
+    _, single, _, _ = tpipe.run(frame)
+    assert not np.allclose(single, theat, atol=1e-3)
+
+
+def test_run_multiscale_batch_matches_single_frames(pipes):
+    _, tpipe, _ = pipes
+    frames = _frames()          # two of one shape, one of another
+    people, metas = tpipe.run_multiscale_batch(frames, MS_TEST_SCALES)
+    assert len(people) == len(metas) == 3
+    for frame, got, meta in zip(frames, people, metas):
+        want, _, _, want_meta = tpipe.run_multiscale(frame, MS_TEST_SCALES)
+        for k in ("scale", "padded_shape", "upsampled", "truncated"):
+            assert meta[k] == want_meta[k], k
+        _assert_people_lists_equal(got, want)
+
+
+def test_multiscale_chunk_cap_splits_a_batch(pipes, monkeypatch):
+    """A same-shape batch whose frames do not fit the memory budget runs
+    as capped chunks (2, 2, 1) and gives the unsplit results in order."""
+    _, tpipe, _ = pipes
+    rng = np.random.RandomState(7)
+    frames = [rng.randint(0, 256, (48, 64, 3), np.uint8) for _ in range(5)]
+    want, want_metas = tpipe.run_multiscale_batch(frames, MS_TEST_SCALES)
+    _, _, max_px = tpipe._scale_sizes(48, 64, MS_TEST_SCALES)
+    per_frame = max_px * pipeline.MS_BYTES_PER_PIXEL * 2   # fp32, flip
+    monkeypatch.setattr(pipeline, "MS_HOST_MEMORY_BUDGET", 2 * per_frame)
+    assert tpipe.ms_chunk_cap(max_px) == 2
+    ticket = tpipe.run_multiscale_batch_submit(frames, MS_TEST_SCALES)
+    assert ticket[0] == "multi"
+    assert [len(idxs) for idxs, _ in ticket[2]] == [2, 2, 1]
+    people, metas = tpipe.run_batch_collect(ticket)
+    assert [m["upsampled"] for m in metas] == \
+        [m["upsampled"] for m in want_metas]
+    for got, ref in zip(people, want):
+        _assert_people_lists_equal(got, ref)
