@@ -7,9 +7,13 @@ Hopper card.
 Builds the hand-written CUDA kernels from rtpose_tpu_torch/csrc, holds
 each against its plain PyTorch version on the card (the grouping kernel
 also on crafted candidate batches that reach every branch of the
-assembly), times each (device time per launch from the profiler, the
-wrapper's host time per call, the bound from the bytes and operations of
-this run's inputs), counts the device kernels of the two decode stages
+assembly, on a batch that reads peak ids a merge moved, and at its limits
+of 128 peaks per part and 256 people), checks that the normalisation
+rounds on the card as on the CPU, times each kernel (device time per
+launch from the profiler, the wrapper's host time per call, the bound
+from the bytes and operations of this run's inputs; for the grouping
+kernel also its chain bound and each phase's cycles), counts the device
+kernels of the two decode stages
 and of the ground-truth stage that hold them (one each, no copy), decodes
 rendered scenes on the card and on the CPU, plain and with
 ``gaussian_filt``, runs the decode and ``run_batch_submit`` with
@@ -67,6 +71,10 @@ MS_SCALES = (0.5, 1.0, 1.5, 2.0)
 # the card's peaks, for the bounds: H100 SXM at 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+# the least time of one dependent shared-memory round trip, in SM cycles:
+# a load's latency (~30 cycles on Hopper) with nothing else on the chain;
+# a chain of dependent steps takes at least that many a step
+SMEM_ROUND_TRIP_CYCLES = 30
 # fp32 operations per scored candidate, counted from
 # csrc/connection_scores.cu: d and |d| 6, u and the step 4, ten samples
 # of 11 (two coordinates 6, the dot 3, compare and sum 2), criterion 6
@@ -239,8 +247,9 @@ def group_work(args, max_candidates: int, max_people: int,
     pair's sorted candidates read up to its first invalid one (or C), the
     candidate at C once where C < K*K (the overflow test), the peaks once,
     the People written once; the operations of the assembly steps this
-    data takes (each compares Pp rows three ways and writes at most 20
-    columns), of the greedy steps (4 each) and of the epilogue.  `chain`
+    data takes (each ORs two peak ids' row masks, ceil(Pp / 64) words, and
+    writes at most 20 columns), of the greedy steps (4 each) and of the
+    epilogue.  `chain`
     is the longest serial chain of one image: its longest pair scan plus
     its assembly steps, the dependent steps that bound the kernel."""
     import torch
@@ -257,9 +266,30 @@ def group_work(args, max_candidates: int, max_people: int,
     chain = int((scanned.amax(-1) + steps).max())
     n_bytes = (int(scanned.sum()) * 12 + (B * P * 4 if C < KK else 0)
                + x.numel() * 12 + B + B * max_people * (18 * 12 + 5) + B)
-    n_flops = (int(steps.sum()) * (3 * max_people + 20)
+    n_flops = (int(steps.sum()) * (2 * -(-max_people // 64) + 20)
                + int(scanned.sum()) * 4 + B * max_people * 5)
     return n_bytes, float(n_flops), chain
+
+
+def sm_clock_under_load(fn, seconds: float = 1.0) -> float:
+    """The SM clock in MHz that nvidia-smi reads (every 100 ms) while fn
+    runs back to back for about `seconds`: the median of its samples."""
+    import torch
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate()
+    samples = [float(v) for v in out.split() if v.strip()]
+    check(bool(samples), "nvidia-smi read no SM clock")
+    return float(np.median(samples))
 
 
 def device_work(fn, calls: int = 20):
@@ -421,7 +451,8 @@ def main() -> int:
                                                sorted_candidates)
     from rtpose_tpu_torch.ops.peaks import nms, peak_candidates
     from rtpose_tpu_torch.utils.grouping_cases import (BRANCHES, branch_hits,
-                                                       candidate_batch)
+                                                       candidate_batch,
+                                                       merge_chain_batch)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -564,11 +595,15 @@ def main() -> int:
     # image) vs its plain version (the two torch loops): every People field
     # equal, error 0, on the rendered scenes at K=32, the crowded 5x6 grid
     # scenes (30 people on 92x92 maps) at RETRY_CAPS and at the default
-    # caps (where they overflow), and on crafted candidate batches at both
-    # caps that reach every branch of the assembly but found >= 3 (which
-    # greedy 1-1 matching of 1-based ids cannot produce)
+    # caps (where they overflow), on crafted candidate batches at both caps
+    # that reach every branch of the assembly but found >= 3 (which greedy
+    # 1-1 matching of 1-based ids cannot produce), on a batch that reads
+    # peak ids a merge moved to another row, and at the kernel's limits
+    # (K = 128, 256 rows: dynamic shared memory above 48 KB)
     default_caps = dict(max_peaks=32, max_candidates=256, max_total_conns=160,
                         max_people=64)
+    limit_caps = dict(max_candidates=4096, max_people=256,
+                      max_total_conns=19 * 128)
     h30np, p30np = scenes(8, 92, 92, grid=(5, 6), seed0=200)
 
     def from_maps(heat_np, paf_np, caps):
@@ -578,9 +613,8 @@ def main() -> int:
         return (*sorted_candidates(s, v), peaks.x, peaks.y, peaks.score,
                 peaks.truncated)
 
-    def crafted(K):
-        sc, va, *rest = (torch.from_numpy(a).to(dev)
-                         for a in candidate_batch(0, 8, K))
+    def crafted(batch):
+        sc, va, *rest = (torch.from_numpy(a).to(dev) for a in batch)
         return (*sorted_candidates(sc, va), *rest)
 
     group_cases = {
@@ -590,8 +624,11 @@ def main() -> int:
                                    RETRY_CAPS),
         "default caps crowded 5x6": (from_maps(h30np, p30np, default_caps),
                                      default_caps),
-        "crafted K=32": (crafted(32), default_caps),
-        "crafted K=64": (crafted(64), RETRY_CAPS)}
+        "crafted K=32": (crafted(candidate_batch(0, 8, 32)), default_caps),
+        "crafted K=64": (crafted(candidate_batch(0, 8, 64)), RETRY_CAPS),
+        "merge chain K=4": (crafted(merge_chain_batch()), default_caps),
+        "limits K=128 Pp=256": (crafted(candidate_batch(2, 4, 128)),
+                                limit_caps)}
     group_err = 0.0
     for label, (args, caps) in group_cases.items():
         gk = {k: v for k, v in caps.items() if k != "max_peaks"}
@@ -610,7 +647,7 @@ def main() -> int:
                                                         conns[3])),
                            max_people=gk["max_people"],
                            max_total_conns=gk["max_total_conns"])
-        C = gk["max_candidates"]
+        C = min(gk["max_candidates"], args[0].shape[-1])
         hits["cand_overflow"] = int((args[0][..., C] > -torch.inf).any(-1)
                                     .sum()) if C < args[0].shape[-1] else 0
         hits["score_ties"] = int((args[0][..., 1:C] == args[0][..., :C - 1])
@@ -620,10 +657,20 @@ def main() -> int:
             check(all(hits[b] > 0 for b in BRANCHES if b != "found3plus")
                   and bool(got[4].any()) and not bool(got[4].all()),
                   f"group_people {label}: a branch was not reached {hits}")
+        if label.startswith("merge"):
+            check(hits["merge"] == 3 and hits["extend_set_already"] == 1,
+                  f"group_people {label}: not the merges it was built for "
+                  f"{hits}")
+        smem = kernels.group_smem_bytes(args[2].shape[-1], gk["max_people"],
+                                        gk["max_total_conns"])
+        if label.startswith("limits"):
+            check(smem > 48 * 1024 and int(got[3].sum()) > 100,
+                  f"group_people {label}: {smem} bytes of shared memory, "
+                  f"{int(got[3].sum())} people")
         log(f"group_people {label}: every People field equal to plain "
             f"({int(got[3].sum())} people, truncated "
-            f"{int(got[4].sum())} of {len(got[4])}); branches "
-            f"{dict(hits)}")
+            f"{int(got[4].sum())} of {len(got[4])}; {smem} bytes of shared "
+            f"memory a block); branches {dict(hits)}")
     k32_args = group_cases["K=32 rendered 46x62"][0]
     retry_args = group_cases["RETRY_CAPS crowded 5x6"][0]
     gk32 = {k: v for k, v in default_caps.items() if k != "max_peaks"}
@@ -639,6 +686,18 @@ def main() -> int:
         log(f"group_people {tag or 'K=32 '}B=8: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms (back to back) [{smi}]")
     results["group_people"]["max_abs_err"] = group_err
+
+    # 4e. the normalisation rounds on the card as on the CPU: every uint8
+    # value in every channel, each mode, bit for bit
+    every = torch.from_numpy(((np.arange(256)[:, None] + 85 * np.arange(3))
+                              % 256).astype(np.uint8)[None])
+    for mode in ("rtpose", "vgg", "inception", "ssd"):
+        check(torch.equal(normalize_device(every.to(dev), mode).cpu()
+                          .view(torch.int32),
+                          normalize_device(every, mode).view(torch.int32)),
+              f"normalize_device {mode}: the card rounds differently")
+    log("normalize_device: card == CPU bit for bit on every uint8 value, "
+        "all four modes")
 
     # 4c. each kernel's device time per launch (profiler), its wrapper's
     # host time per call and its bound, at the main path's shapes; then
@@ -670,6 +729,13 @@ def main() -> int:
         cases.append((label, "group_people_kernel",
                       functools.partial(kernels.group_people, *args, **gk),
                       (n_bytes, n_flops)))
+    # the grouping kernel is bound by its serial chain: its chain bound is
+    # the chain's steps at one dependent shared-memory round trip each, at
+    # the SM clock nvidia-smi reads while it runs
+    sm_mhz = sm_clock_under_load(functools.partial(
+        kernels.group_people, *retry_args, **gk_retry))
+    log(f"SM clock under the grouping kernel's load: {sm_mhz:.0f} MHz "
+        f"[{smi}]")
     timing = {}
     for label, kname, fn, (n_bytes, n_flops) in cases:
         d_ms, src = device_ms(fn, kname)
@@ -678,11 +744,34 @@ def main() -> int:
         timing[label] = dict(device_ms=d_ms, host_ms=h_ms, bound_ms=b_ms,
                              bound_by=b_by)
         if label in chains:
-            timing[label].update(chain_steps=chains[label],
-                                 ns_per_step=d_ms * 1e6 / chains[label])
+            chain_ms = chains[label] * SMEM_ROUND_TRIP_CYCLES / sm_mhz / 1e3
+            timing[label].update(
+                chain_steps=chains[label],
+                ns_per_step=d_ms * 1e6 / chains[label],
+                bytes_bound_ms=b_ms, chain_bound_ms=chain_ms,
+                sm_clock_mhz=sm_mhz,
+                chain_cycles_per_step=SMEM_ROUND_TRIP_CYCLES)
+            if chain_ms > b_ms:
+                b_ms, b_by = chain_ms, "chain"
+                timing[label].update(bound_ms=b_ms, bound_by=b_by)
+            # each block's SM cycles in its four phases, one launch
+            args, gk = ((k32_args, gk32) if label.endswith("K=32")
+                        else (retry_args, gk_retry))
+            phases = torch.zeros((args[0].shape[0], 4), dtype=torch.int64,
+                                 device=dev)
+            kernels.group_people(*args, **gk, phase_cycles=phases)
+            worst = phases.max(0).values.tolist()
+            timing[label]["phase_us"] = dict(zip(
+                ("greedy", "walk", "chain", "epilogue"),
+                (c / sm_mhz for c in worst)))
             log(f"  {label}: serial chain {chains[label]} steps (longest "
                 f"pair scan + assembly steps of one image), "
-                f"{d_ms * 1e6 / chains[label]:.1f} ns per step")
+                f"{d_ms * 1e6 / chains[label]:.1f} ns per step; chain bound "
+                f"{chain_ms * 1e3:.3f} us ({SMEM_ROUND_TRIP_CYCLES} cycles a "
+                f"step at {sm_mhz:.0f} MHz), bytes bound {n_bytes / 1e6:.3f} "
+                f"MB; the slowest block's cycles: greedy {worst[0]}, walk "
+                f"set-up {worst[1]}, assembly chain {worst[2]}, epilogue "
+                f"{worst[3]} (= {sum(worst) / sm_mhz:.2f} us)")
         log(f"time {label}: device {d_ms:.5f} ms/launch ({src}), wrapper "
             f"host {h_ms:.5f} ms/call; bound {b_ms:.5f} ms by {b_by} "
             f"({n_bytes / 1e6:.3f} MB, {n_flops / 1e6:.2f} MFLOP), "

@@ -91,22 +91,24 @@ def make_infer_fn(model, *, input_size: int = 368,
                   max_peaks: int = 32, max_people: int = 64,
                   downsample: int = 8, flip: bool = True,
                   max_candidates: int = 256, max_total_conns: int = 160,
-                  gaussian_filt: bool = False, decode: bool = True):
+                  gaussian_filt: bool = False, decode: bool = True,
+                  pad_factor: int = 0):
     """Build the uint8-frames -> people function.
 
     Returned fn: raw ``(B, H, W, 3)`` uint8 BGR frames on the model's
     device -> ``(People, heat (B, h, w, 19), paf (B, h, w, 38))``, People
     None without `decode`.  The frames are scaled so their short side is
-    `input_size`, zero-padded to a multiple of `downsample` (the reference
-    crop_with_factor's geometry) and normalized, all on their device.
-    `gaussian_filt` blurs each peak's upsampled refine window (sigma 3)
-    before the argmax.
+    `input_size`, zero-padded to a multiple of `pad_factor` (default
+    `downsample`: the reference crop_with_factor's geometry; hourglass
+    needs 64) and normalized, all on their device.  `gaussian_filt` blurs
+    each peak's upsampled refine window (sigma 3) before the argmax.
     """
 
     @torch.inference_mode()
     def infer(images_u8: torch.Tensor):
         h, w = images_u8.shape[1], images_u8.shape[2]
-        _, rh, rw, ph, pw = scale_pad_geometry(h, w, input_size, downsample)
+        _, rh, rw, ph, pw = scale_pad_geometry(h, w, input_size,
+                                               pad_factor or downsample)
         x = resize_bilinear(images_u8.float(), (rh, rw))
         # zero pad in raw pixel space (black), then normalize
         x = F.pad(x, (0, 0, 0, pw - rw, 0, ph - rh))
@@ -167,7 +169,9 @@ class PosePipeline:
     `retry_caps` (default :data:`RETRY_CAPS`); meta['retried'] marks it
     and meta['truncated'] reports the state after the retry.
     `gaussian_filt` (default off, as in the reference) selects the blurred
-    peak refine for the first decode and the retry alike.
+    peak refine for the first decode and the retry alike.  `pad_factor`
+    (default `downsample`) is the multiple every padded input must have
+    (hourglass: 64); the maps stay at stride `downsample`.
     Multi-scale TTA (:meth:`run_multiscale`, :meth:`run_multiscale_batch`)
     decodes with the same caps and retries the same way.
     """
@@ -178,11 +182,12 @@ class PosePipeline:
                  max_peaks: int = 32, max_people: int = 64,
                  max_candidates: int = 256, max_total_conns: int = 160,
                  auto_retry: bool = True, retry_caps: Optional[Dict] = None,
-                 gaussian_filt: bool = False):
+                 gaussian_filt: bool = False, pad_factor: int = 0):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.input_size = input_size
         self.downsample = downsample
+        self.pad_factor = pad_factor or downsample
         self.preprocess_mode = preprocess_mode
         self.flip = flip
         self._decode_kwargs = dict(
@@ -192,7 +197,7 @@ class PosePipeline:
         self._infer = make_infer_fn(
             self.model, input_size=input_size,
             preprocess_mode=preprocess_mode, downsample=downsample,
-            flip=flip, **self._decode_kwargs)
+            flip=flip, pad_factor=self.pad_factor, **self._decode_kwargs)
         self._infer_maps: Dict[int, Any] = {}   # input size -> maps-only fn
         self.auto_retry = auto_retry
         self.retry_caps = {**RETRY_CAPS, **(retry_caps or {})}
@@ -207,7 +212,7 @@ class PosePipeline:
     def _prep(self, image_bgr: np.ndarray):
         h, w = image_bgr.shape[:2]
         scale, rh, rw, ph, pw = scale_pad_geometry(
-            h, w, self.input_size, self.downsample)
+            h, w, self.input_size, self.pad_factor)
         meta = {"scale": scale, "real_shape": (rh, rw, 3),
                 "padded_shape": (ph, pw, 3)}
         return np.ascontiguousarray(image_bgr, np.uint8), meta
@@ -310,11 +315,11 @@ class PosePipeline:
         """Base grid (h, w) of an (h, w) frame, each scale's input size
         (short side) and the pixels of the largest padded scaled input."""
         _, _, _, ph, pw = scale_pad_geometry(h, w, self.input_size,
-                                             self.downsample)
-        sizes = [max(self.downsample, int(round(self.input_size * s)))
+                                             self.pad_factor)
+        sizes = [max(self.pad_factor, int(round(self.input_size * s)))
                  for s in scales]
         max_px = max(g[3] * g[4] for g in (
-            scale_pad_geometry(h, w, size, self.downsample)
+            scale_pad_geometry(h, w, size, self.pad_factor)
             for size in sizes))
         return (ph // self.downsample, pw // self.downsample), sizes, max_px
 
@@ -324,7 +329,8 @@ class PosePipeline:
             fn = self._infer_maps[size] = make_infer_fn(
                 self.model, input_size=size,
                 preprocess_mode=self.preprocess_mode,
-                downsample=self.downsample, flip=self.flip, decode=False)
+                downsample=self.downsample, flip=self.flip, decode=False,
+                pad_factor=self.pad_factor)
         return fn
 
     def _submit_multiscale(self, ims, metas, base_hw, sizes):

@@ -29,10 +29,9 @@ def scale_pad_geometry(h: int, w: int, dest_size: int, factor: int = 8
 
 
 @functools.lru_cache(maxsize=None)
-def _constants_on(device: torch.device, values: Tuple[float, ...]
-                  ) -> torch.Tensor:
-    """A constant vector on `device`, copied there once (a copy per call
-    would make the host wait for it)."""
+def _constants_on(device: torch.device, values) -> torch.Tensor:
+    """A constant on `device` (a vector, or 0-d from a float), copied there
+    once (a copy per call would make the host wait for it)."""
     return torch.tensor(values, device=device)
 
 
@@ -40,17 +39,20 @@ def normalize_device(images_u8: torch.Tensor, mode: str) -> torch.Tensor:
     """uint8 (or raw-valued float) BGR ``(..., H, W, 3)`` frames -> fp32
     network input, on the frames' device.  Modes as the reference's
     preprocessing.py: 'rtpose', 'vgg', 'inception', 'ssd', or
-    'none'/None for the raw values."""
+    'none'/None for the raw values.  Every divisor is a tensor on the
+    frames' device: CUDA turns a division by a Python number into a
+    product with its reciprocal, which rounds some values an ulp away from
+    the CPU's (and the JAX package's host numpy) division."""
     x = images_u8.float()
     dev = x.device
     if mode == "rtpose":
-        return x / 256.0 - 0.5
+        return x / _constants_on(dev, 256.0) - 0.5
     if mode == "vgg":
-        rgb = x.flip(-1) / 255.0
+        rgb = x.flip(-1) / _constants_on(dev, 255.0)
         return ((rgb - _constants_on(dev, IMAGENET_MEAN))
                 / _constants_on(dev, IMAGENET_STD))
     if mode == "inception":
-        return x.flip(-1) / 128.0 - 1.0
+        return x.flip(-1) / _constants_on(dev, 128.0) - 1.0
     if mode == "ssd":
         rgb = x.flip(-1) - _constants_on(dev, _SSD_MEAN)
         return rgb.flip(-1)

@@ -42,7 +42,8 @@ _SIGNATURES = {
     "rtpose_gt_maps": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "rtpose_group_tables": (_P, _P),
     "rtpose_group_people": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _F, _P),
+                            _I, _I, _I, _I, _I, _I, _F, _P, _P),
+    "rtpose_group_smem_bytes": (_I, _I, _I),
 }
 
 

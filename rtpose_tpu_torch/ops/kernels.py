@@ -879,7 +879,15 @@ def group_people_plain(sorted_scores: torch.Tensor, sorted_idx: torch.Tensor,
 
 
 GROUP_MAX_K = 128        # csrc/group_people.cu MAX_K: two 64-bit used sets
-GROUP_MAX_PEOPLE = 256   # ... MAX_PEOPLE: subset rows in shared memory
+GROUP_MAX_PEOPLE = 256   # ... MAX_PEOPLE: four 64-bit words of row mask
+
+
+def group_smem_bytes(K: int, max_people: int, max_total_conns: int) -> int:
+    """Dynamic shared memory a block of the grouping kernel takes for K
+    peaks per part, `max_people` rows and `max_total_conns` steps (the
+    kernel's own layout; above 48 KB it asks the card for more)."""
+    return _library().rtpose_group_smem_bytes(
+        K, max_people, min(max_total_conns, NUM_GROUP_PAIRS * K))
 
 
 def group_people(sorted_scores: torch.Tensor, sorted_idx: torch.Tensor,
@@ -887,7 +895,7 @@ def group_people(sorted_scores: torch.Tensor, sorted_idx: torch.Tensor,
                  peak_score: torch.Tensor, peak_truncated: torch.Tensor, *,
                  max_candidates: int = 256, max_people: int = 64,
                  max_total_conns: int = 160, min_part_cnt: int = 4,
-                 min_human_score: float = 0.3):
+                 min_human_score: float = 0.3, phase_cycles=None):
     """Greedy 1-1 matching and person assembly, sorted candidates in,
     People fields out.
 
@@ -904,9 +912,15 @@ def group_people(sorted_scores: torch.Tensor, sorted_idx: torch.Tensor,
     M = min(max_total_conns, 19*K) accepted connections in (pair, slot)
     order, and `truncated` where peaks, candidates, connections or people
     overflowed a cap.  On the card this is one launch of
-    ``csrc/group_people.cu``, for K up to 128 and Pp up to 256.
+    ``csrc/group_people.cu``, for K up to 128 and Pp up to 256; given
+    `phase_cycles`, a (B, 4) int64 tensor on the card, each block also
+    writes there the SM cycles of its greedy scan, the walk's set-up, the
+    assembly chain and the epilogue (for timing; the CPU path rejects it).
     """
     if _route(sorted_scores) == "cpu":
+        if phase_cycles is not None:
+            raise ValueError("group_people: phase_cycles times the kernel; "
+                             "the plain version has no phases")
         return group_people_plain(
             sorted_scores, sorted_idx, peak_x, peak_y, peak_score,
             peak_truncated, max_candidates=max_candidates,
@@ -937,6 +951,11 @@ def group_people(sorted_scores: torch.Tensor, sorted_idx: torch.Tensor,
         raise ValueError(f"group_people: the kernel takes K <= {GROUP_MAX_K} "
                          f"peaks per part and 1 to {GROUP_MAX_PEOPLE} people,"
                          f" got K={K}, max_people={max_people}")
+    if phase_cycles is not None:
+        _check("phase_cycles", phase_cycles, torch.int64, 2, dev)
+        if tuple(phase_cycles.shape) != (B, 4):
+            raise ValueError(f"group_people: phase_cycles "
+                             f"{tuple(phase_cycles.shape)}, not ({B}, 4)")
     C = min(max_candidates, KK)
     M = min(max_total_conns, NUM_GROUP_PAIRS * K)
     coords = torch.empty((B, max_people, NUM_PARTS, 2), dtype=torch.int32,
@@ -952,7 +971,8 @@ def group_people(sorted_scores: torch.Tensor, sorted_idx: torch.Tensor,
                 peak_score.data_ptr(), peak_truncated.data_ptr(),
                 coords.data_ptr(), part_score.data_ptr(), score.data_ptr(),
                 valid.data_ptr(), truncated.data_ptr(), B, K, C, M,
-                max_people, min_part_cnt, float(min_human_score))
+                max_people, min_part_cnt, float(min_human_score),
+                None if phase_cycles is None else phase_cycles.data_ptr())
         group_people.launches += 1
     return coords, part_score, score, valid, truncated
 

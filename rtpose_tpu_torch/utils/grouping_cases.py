@@ -55,6 +55,30 @@ def candidate_batch(seed: int, n_images: int, K: int):
     return scores, valid, peak_x, peak_y, peak_score, truncated
 
 
+def merge_chain_batch(K: int = 4):
+    """Two images whose assembly reads peak ids that a merge moved to
+    another row.  Both: row 0 {neck 0, rshoulder 0} (pair 0); row 1
+    {lshoulder 2, lelbow 2} (pair 4); row 2 {nose 1, reye 1, rear 1, leye
+    1, lear 1} (pairs 13-16); then pair 17 (rshoulder 0, rear 1) merges
+    row 2 into row 0.  Image 0's pair 18 (lshoulder 2, lear 1) then finds
+    row 1 and, through the moved lear, row 0, and merges again; image 1's
+    (lshoulder 3, lear 1) finds only row 0 through it, which holds that
+    lear already.  Same numpy tuple as :func:`candidate_batch`."""
+    links = {0: (0, 0), 4: (2, 2), 13: (1, 1), 14: (1, 1), 15: (1, 1),
+             16: (1, 1), 17: (0, 1)}
+    scores = np.zeros((2, NUM_GROUP_PAIRS, K, K), np.float32)
+    valid = np.zeros((2, NUM_GROUP_PAIRS, K, K), bool)
+    for b, last in enumerate(((2, 1), (3, 1))):
+        for pair, (ia, ib) in {**links, 18: last}.items():
+            scores[b, pair, ia, ib] = 0.5 + 0.01 * pair
+            valid[b, pair, ia, ib] = True
+    rng = np.random.RandomState(3)
+    peak_x = rng.randint(0, 400, (2, NUM_PARTS, K)).astype(np.int32)
+    peak_y = rng.randint(0, 400, (2, NUM_PARTS, K)).astype(np.int32)
+    peak_score = rng.uniform(0.1, 1.0, (2, NUM_PARTS, K)).astype(np.float32)
+    return scores, valid, peak_x, peak_y, peak_score, np.zeros(2, bool)
+
+
 def branch_hits(conn_ia, conn_ib, conn_valid, *, max_people: int,
                 max_total_conns: int, scores=None, valid=None,
                 max_candidates: int = 0) -> Counter:

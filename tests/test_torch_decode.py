@@ -17,8 +17,10 @@ import jax
 import jax.numpy as jnp
 
 from rtpose_tpu.ops import decode as jdecode
+from rtpose_tpu.ops import grouping as jgrouping
 from rtpose_tpu.ops import peaks as jpeaks
-from rtpose_tpu_torch.ops import decode, peaks
+from rtpose_tpu_torch.ops import decode, grouping, grouping_ref, kernels, peaks
+from rtpose_tpu_torch.skeleton import GROUP_PAIRS
 
 from util_synth import grid_people, render_maps, synth_example
 
@@ -173,6 +175,83 @@ def test_crowded_scene_truncates_then_matches_at_raised_caps():
     assert not bool(raised.truncated)
     assert int(raised.valid.sum()) == len(people)
     _assert_people_equal(raised, _jax_decode(heat, paf, "gather", **RAISED))
+
+
+def test_scoring_on_cell_boundaries_matches_eager_jax_and_oracle(
+        monkeypatch):
+    """Integer peaks whose PAF samples land exactly on x8 cell boundaries
+    (``ax + s * (dx / 10) + 0.5`` an exact multiple of 8 in fp32, so the
+    division's last bit picks the cell): the port's ``score_connections``
+    equals eager JAX ``score_connections`` (``jax.disable_jit()``) bit for
+    bit, validity and crit2, and the host oracle ``ops/grouping_ref.py``
+    through the people it assembles from them (it keeps no per-candidate
+    output): with its thresholds off, every row's peaks equal and scores
+    within 1e-6 (the oracle sums them in fp64).
+
+    Random integer peaks, K=32, a 46x62 N(0, 0.5^2) PAF, seed 1 (ROADMAP
+    §3, F1).  Not asserted, the jitted-JAX gap: under ``jax.jit`` XLA
+    divides by the literal 10 as a product with fl(0.1), so the jitted
+    decode samples other cells: 444 of 194,560 sample cells differ, and
+    27 of 19,456 crit2 values move by more than 1e-4 (ROADMAP §3, F1, on
+    the CPU)."""
+    K, H, W = 32, 46, 62
+    rng = np.random.RandomState(1)
+    paf = rng.normal(0, 0.5, (H, W, 38)).astype(np.float32)
+    x = rng.randint(0, W * 8, (18, K)).astype(np.int32)
+    y = rng.randint(0, H * 8, (18, K)).astype(np.int32)
+    pscore = rng.uniform(0.1, 1.0, (18, K)).astype(np.float32)
+    # the samples that sit on a cell boundary, in the fp32 of every side
+    pa = [a for a, _ in GROUP_PAIRS]
+    pb = [b for _, b in GROUP_PAIRS]
+    on_edge = 0
+    for c in (x, y):
+        a = c[pa].astype(np.float32)[:, :, None]
+        step = (c[pb].astype(np.float32)[:, None, :] - a) / np.float32(10)
+        for s in range(10):
+            at = a + np.float32(s) * step + np.float32(0.5)
+            on_edge += int((at % 8 == 0).sum())
+    assert on_edge > 1000
+
+    valid = np.ones((18, K), bool)
+    got_s, got_v = grouping.score_connections(
+        peaks.Peaks(x=torch.from_numpy(x)[None], y=torch.from_numpy(y)[None],
+                    xf=None, yf=None, score=torch.from_numpy(pscore)[None],
+                    valid=torch.from_numpy(valid)[None], truncated=None),
+        torch.from_numpy(paf)[None])
+    jp = jpeaks.Peaks(x=jnp.asarray(x), y=jnp.asarray(y),
+                      xf=jnp.zeros((18, K)), yf=jnp.zeros((18, K)),
+                      score=jnp.asarray(pscore), valid=jnp.asarray(valid),
+                      truncated=jnp.asarray(False))
+    with jax.disable_jit():
+        want_s, want_v = jax.device_get(jgrouping.score_connections(
+            jp, jnp.asarray(paf), sampling="onehot"))
+    np.testing.assert_array_equal(got_v[0].numpy(), want_v)
+    np.testing.assert_array_equal(got_s[0].numpy().view(np.uint32),
+                                  np.asarray(want_s).view(np.uint32))
+    assert 1000 < int(want_v.sum()) < 19 * K * K
+
+    monkeypatch.setattr(grouping_ref, "THRESH_PART_CNT", 0)
+    monkeypatch.setattr(grouping_ref, "THRESH_HUMAN_SCORE", -np.inf)
+    joints = np.array([(x[p, k], y[p, k], pscore[p, k], p * K + k, p)
+                       for p in range(18) for k in range(K)], np.float64)
+    res = grouping_ref.group_peaks(joints, (H * 8, W * 8),
+                                   grouping_ref.upsample_nearest(paf, 8))
+    coords, _, score, ok, truncated = (t[0].numpy() for t in
+                                       kernels.group_people_plain(
+        *grouping.sorted_candidates(got_s, got_v),
+        *(torch.from_numpy(a)[None] for a in (x, y, pscore)),
+        torch.zeros(1, dtype=torch.bool), max_candidates=K * K,
+        max_people=256, max_total_conns=19 * K, min_part_cnt=0,
+        min_human_score=-np.inf))
+    assert not truncated and res.num_humans == int(ok.sum()) > 50
+    want_xy = np.full((res.num_humans, 18, 2), -1)
+    for i, row in enumerate(res.subset):
+        for part in np.nonzero(row[:18] >= 0)[0]:
+            want_xy[i, part] = (res.peak_x[int(row[part])],
+                                res.peak_y[int(row[part])])
+    np.testing.assert_array_equal(coords[ok], want_xy)
+    np.testing.assert_allclose(score[ok], res.subset[:, 18]
+                               / res.subset[:, 19], rtol=0, atol=1e-6)
 
 
 def test_people_to_host_keeps_types():

@@ -24,6 +24,7 @@ from rtpose_tpu_torch.config import Config
 from rtpose_tpu_torch.data.gt import ground_truth_maps_batch
 from rtpose_tpu_torch.infer.pipeline import RETRY_CAPS
 from rtpose_tpu_torch.infer.pipeline import PosePipeline
+from rtpose_tpu_torch.infer.preprocess import normalize_device
 from rtpose_tpu_torch.models import get_model
 from rtpose_tpu_torch.ops import kernels
 from rtpose_tpu_torch.ops.decode import decode_poses_batch, people_to_host
@@ -31,7 +32,8 @@ from rtpose_tpu_torch.ops.grouping import score_connections, sorted_candidates
 from rtpose_tpu_torch.ops.kernels import limb_scalars, person_bound
 from rtpose_tpu_torch.ops.peaks import nms, peak_candidates, refine_peaks
 from rtpose_tpu_torch.train.trainer import Trainer
-from rtpose_tpu_torch.utils.grouping_cases import candidate_batch
+from rtpose_tpu_torch.utils.grouping_cases import (candidate_batch,
+                                                   merge_chain_batch)
 
 from util_synth import grid_people, render_maps, synth_example
 
@@ -592,6 +594,44 @@ def test_group_kernel_raises_beyond_its_limits(cuda):
     # at the limits it runs: K = 128, 256 people, nobody found
     got = kernels.group_people(*args(128), max_people=256)
     assert not got[3].any() and not got[4].any()
+
+
+@pytest.mark.gpu
+def test_group_kernel_at_its_limits_with_people(cuda):
+    """K = 128 peaks per part and 256 rows, which take the kernel's
+    dynamic shared memory above 48 KB: every People field equal."""
+    caps = dict(max_candidates=4096, max_people=256,
+                max_total_conns=19 * 128)
+    assert kernels.group_smem_bytes(128, 256, caps["max_total_conns"]) \
+        > 48 * 1024
+    scores, valid, *peaks = (torch.from_numpy(a).to(cuda)
+                             for a in candidate_batch(2, 4, 128))
+    got = _assert_group_equals_plain(
+        (*sorted_candidates(scores, valid), *peaks), caps)
+    assert got[3].sum() > 100 and got[4].any()
+
+
+@pytest.mark.gpu
+def test_group_kernel_reads_ids_a_merge_moved(cuda):
+    """Pair 18 finds a row through a peak id that the merge at pair 17
+    moved into it (``utils/grouping_cases.py`` ``merge_chain_batch``):
+    every People field equal."""
+    scores, valid, *peaks = (torch.from_numpy(a).to(cuda)
+                             for a in merge_chain_batch())
+    got = _assert_group_equals_plain(
+        (*sorted_candidates(scores, valid), *peaks), GROUP_CAPS["default"])
+    assert got[3].sum(1).tolist() == [1, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["rtpose", "vgg", "inception", "ssd"])
+def test_normalize_device_on_card_equals_cpu(cuda, mode):
+    """Every uint8 value in every channel, bit for bit."""
+    x = torch.from_numpy(((np.arange(256)[:, None] + 85 * np.arange(3))
+                          % 256).astype(np.uint8)[None])
+    got = normalize_device(x.to(cuda), mode).cpu()
+    want = normalize_device(x, mode)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.gpu

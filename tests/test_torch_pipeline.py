@@ -52,6 +52,19 @@ def test_normalize_device_matches_jax(mode):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("mode", ["rtpose", "vgg", "inception", "ssd"])
+def test_normalize_device_equals_host_numpy_on_every_value(mode):
+    """Every uint8 value in every channel: the port's normalisation equals
+    the JAX package's host numpy preprocessing (``vgg_preprocess`` and its
+    siblings, which divide exactly) bit for bit."""
+    x = ((np.arange(256)[:, None] + 85 * np.arange(3)) % 256).astype(
+        np.uint8)[None]                                   # (1, 256, 3)
+    want = jpre.preprocess(x, mode)
+    got = normalize_device(torch.from_numpy(x), mode).numpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
 def test_normalize_device_rejects_unknown_mode():
     with pytest.raises(ValueError, match="unknown"):
         normalize_device(torch.zeros((1, 2, 2, 3)), "caffe")
@@ -144,6 +157,41 @@ def test_run_batch_matches_jax_pipeline(pipes):
         _assert_people_lists_equal(a, b)
     single, _, _, _ = tpipe.run(frames[2])
     _assert_people_lists_equal(tpeople[2], single)
+
+
+def test_pad_factor_matches_jax_pipeline(pipes):
+    """`pad_factor` 64 (hourglass's multiple) apart from the stride 8: a
+    48x80 frame is scaled to 56x93 and padded to 64x128, maps 8x16, as in
+    the JAX pipeline with its device resize.  (Frame seed 4 would put a
+    PAF sample on a cell boundary, where the jitted JAX decode samples
+    another cell than its eager self and the port: ROADMAP §3, F1.)"""
+    jpipe, _, params = pipes
+    jpad = jpipeline.PosePipeline(jpipe.model, params, input_size=56,
+                                  flip=True, device_resize=True,
+                                  pad_factor=64)
+    tpad = pipeline.load_pipeline(
+        device="cpu", num_stages=1, input_size=56, dtype=torch.float32,
+        flax_params=jax.tree_util.tree_map(np.asarray, params),
+        pad_factor=64)
+    assert tpad.pad_factor == 64 and tpad.downsample == 8
+    frame = np.random.RandomState(5).randint(0, 256, (48, 80, 3), np.uint8)
+    jp, jheat, jpaf, jmeta = jpad.run(frame)
+    tp, theat, tpaf, tmeta = tpad.run(frame)
+    assert tmeta["padded_shape"] == tuple(jmeta["padded_shape"]) \
+        == (64, 128, 3)
+    assert theat.shape == jheat.shape == (8, 16, 19)
+    assert float(np.abs(jheat).max()) > 1e-2
+    np.testing.assert_allclose(theat, jheat, **MAP_TOL)
+    np.testing.assert_allclose(tpaf, jpaf, **MAP_TOL)
+    assert tuple(tmeta["upsampled"]) == tuple(jmeta["upsampled"]) \
+        == (64, 128)
+    _assert_people_lists_equal(tp, jp)
+    # the multi-scale geometry pads every scale to the same multiple
+    jims, jbase, _ = jpad._prep_scales(frame, (0.5, 1.0, 2.0))
+    base_hw, sizes, max_px = tpad._scale_sizes(48, 80, (0.5, 1.0, 2.0))
+    assert base_hw == tuple(jbase) == (8, 16) and sizes == [64, 64, 112]
+    assert max_px == max(im.shape[0] * im.shape[1] for im in jims) \
+        == 128 * 192
 
 
 @pytest.fixture(scope="module")
