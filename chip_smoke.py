@@ -28,6 +28,14 @@ entry points a user calls:
 - multi-scale TTA (scales 0.5, 1, 1.5, 2) through ``run_multiscale`` /
   ``run_multiscale_batch`` on the same pipeline, with the device memory
   it takes per frame and pixel;
+- the COCO eval path: the image reader against cv2's pixels of the
+  committed fixture JPEGs (``rtpose_tpu_torch/data/fixtures``); the
+  harness with an oracle stub for the network (each input answered with
+  the ground-truth maps of its frame's people) through ``run_eval`` and
+  ``run_eval_batched``, card against CPU; then the flagship through the
+  eval CLI's ``main()`` on 80 written JPEGs of COCO's commonest sizes,
+  batched, multi-scale and per image, with images/s, the pipeline and
+  evaluator split, read ms per image and sub-batches per bucket;
 - training (the same model, batch 72, bf16, freeze phase on, seeded He
   weights) through ``Trainer.run_epoch`` on rendered scenes: the loss
   falls, the frozen convs stay and then move, a NaN batch is skipped, and
@@ -52,6 +60,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -85,6 +94,16 @@ SCORE_FLOPS = 126
 GT_FLOPS_CELL_PERSON = 428
 GT_FLOPS_CELL = 75
 SLOTS = 32             # person slots per image (MAX_PEOPLE_PER_IMAGE)
+READ_TOL = 0           # the reader (Pillow) vs cv2's pixels: both decode
+                       # with libjpeg-turbo's defaults, so exactly equal
+RESULT_KP_TOL = 1e-4   # eval results card vs CPU: keypoints, px
+# the flagship eval's COCO set: (h, w) and images of each; 640x480,
+# 480x640 and 640x427 are COCO val2017's commonest sizes, and 640x478
+# frames share 640x480's bucket, so its chunks split into sub-batches
+EVAL_SHAPES = (((480, 640), 24), ((640, 480), 24), ((427, 640), 24),
+               ((478, 640), 8))
+EVAL_MS_SCALES = "0.5,1,1.5,2"
+EVAL_STAGES = 6
 
 
 def log(*args) -> None:
@@ -426,6 +445,214 @@ def people_equal(a, b, what: str) -> float:
         check(err <= SCORE_TOL, f"{what}: People.{f} max err {err}")
         worst = max(worst, err)
     return worst
+
+
+def eval_phase(dev, smi: str) -> dict:
+    """The COCO eval path on the card: the reader against cv2's pixels of
+    the committed fixtures; the oracle-stub eval (``utils/synth_coco.py``)
+    through ``run_eval`` and ``run_eval_batched`` card vs CPU; ``run``'s one
+    wait for the card; then the flagship through the CLI's ``main()``,
+    batched, multi-scale and per image, each counted from 0 -> {run label:
+    launch counts}."""
+    import contextlib
+    import io
+    from collections import defaultdict
+
+    import PIL
+    import torch
+    from rtpose_tpu_torch.data import imread_fixtures as fx
+    from rtpose_tpu_torch.data.imread import read_bgr
+    from rtpose_tpu_torch.demo import picture_demo
+    from rtpose_tpu_torch.evalx import __main__ as evalx_cli
+    from rtpose_tpu_torch.evalx.harness import run_eval, run_eval_batched
+    from rtpose_tpu_torch.infer.pipeline import PosePipeline
+    from rtpose_tpu_torch.infer.preprocess import scale_pad_geometry
+    from rtpose_tpu_torch.ops import kernels
+    from rtpose_tpu_torch.utils.synth_coco import (OracleMaps,
+                                                   compare_results,
+                                                   oracle_maps,
+                                                   spread_people,
+                                                   write_synth_coco)
+
+    # the reader (route a, Pillow) on the fixture JPEGs: 4:2:0 with odd
+    # sides, 4:4:4, grayscale, progressive, EXIF orientations 3, 6 and 8
+    pixels = np.load(fx.CV2_PIXELS)
+    worst, means = 0, []
+    for name in fx.FIXTURES:
+        got, want = read_bgr(fx.fixture_path(name)), pixels[name]
+        check(got.shape == want.shape and got.dtype == np.uint8,
+              f"reader: {name} read as {got.shape}, cv2 {want.shape}")
+        diff = np.abs(got.astype(np.int16) - want)
+        worst, means = max(worst, int(diff.max())), means + [diff.mean()]
+    check(worst <= READ_TOL, f"reader vs cv2's pixels: max diff {worst}")
+    log(f"reader (Pillow {PIL.__version__}) on {len(fx.FIXTURES)} fixture "
+        f"JPEGs ({', '.join(fx.FIXTURES)}) vs cv2's pixels: shapes equal, "
+        f"max diff {worst}, mean {float(np.mean(means))!r}")
+
+    work = os.path.join(ROOT, "rtpose_tpu_torch", "build", "chip_smoke_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        # oracle stub, card vs CPU: frames of short side 368 (scale 1);
+        # 368x490 and 368x496 share a bucket and their people
+        rng = np.random.RandomState(0)
+        scenes = {(368, 496): spread_people(rng, 2, 368, 496),
+                  (496, 368): spread_people(rng, 1, 496, 368),
+                  (368, 552): spread_people(rng, 3, 368, 552)}
+        scenes[(368, 490)] = scenes[(368, 496)]
+        shapes = list(scenes) * 6
+        img_dir, ann = write_synth_coco(
+            os.path.join(work, "oracle"),
+            [(h, w, scenes[(h, w)]) for h, w in shapes])
+        maps = oracle_maps(scenes, 368)
+        runs = {}
+        for side in ("cpu", "card"):
+            opipe = PosePipeline(OracleMaps(maps), device=(
+                dev if side == "card" else "cpu"), input_size=368,
+                flip=False)
+            for name, fn, kw in (("run_eval", run_eval, {}),
+                                 ("run_eval_batched", run_eval_batched,
+                                  dict(batch_size=8))):
+                path = os.path.join(work, f"{side}_{name}.json")
+                with contextlib.redirect_stdout(io.StringIO()):
+                    stats = fn(img_dir, ann, opipe, results_path=path, **kw)
+                with open(path) as f:
+                    runs[side, name] = (stats, json.load(f))
+        for name in ("run_eval", "run_eval_batched"):
+            (s_card, r_card), (s_cpu, r_cpu) = (runs["card", name],
+                                                runs["cpu", name])
+            kp_err, score_err = compare_results(r_card, r_cpu)
+            check(len(r_card) == 6 * 8 and kp_err <= RESULT_KP_TOL
+                  and score_err <= SCORE_TOL,
+                  f"oracle {name}: {len(r_card)} results, card vs CPU "
+                  f"keypoints {kp_err}, scores {score_err}")
+            check(s_cpu["AP"] > 0.9 and s_card["AP"] >= s_cpu["AP"],
+                  f"oracle {name}: AP card {s_card['AP']} CPU {s_cpu['AP']}")
+            log(f"oracle-stub eval {name} ({len(shapes)} frames of "
+                f"{len(scenes)} raw shapes, {len(r_card)} people): card == "
+                f"CPU (keypoints max diff {kp_err:.3g} px, scores "
+                f"{score_err:.3g}); AP card {s_card['AP']!r}, CPU "
+                f"{s_cpu['AP']!r}")
+
+        # run: one wait for the people and both maps
+        frame = np.zeros((368, 496, 3), np.uint8)
+        opipe.run(frame)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                opipe.run(frame)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        check(syncs == 1, f"run synchronised {syncs} times: "
+              f"{[str(w.message) for w in caught]}")
+        log("run: one synchronising call (people and both maps read back "
+            "together)")
+        del opipe
+
+        # the flagship through the CLI: seeded random weights, so no
+        # people, but every batch runs the forward and the decode kernels
+        frames = [shape for shape, n in EVAL_SHAPES for _ in range(n)]
+        order = [frames[i] for i in
+                 np.random.RandomState(1).permutation(len(frames))]
+        rng = np.random.RandomState(2)
+        img_dir, ann = write_synth_coco(
+            os.path.join(work, "flagship"),
+            [(h, w, spread_people(rng, 1 + i % 2, h, w))
+             for i, (h, w) in enumerate(order)])
+        names = sorted(os.listdir(img_dir))
+        for name in names:           # page the files in
+            read_bgr(os.path.join(img_dir, name))
+        t0 = time.perf_counter()
+        for name in names:
+            read_bgr(os.path.join(img_dir, name))
+        read_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+
+        subs = defaultdict(lambda: [0, 0])   # bucket -> chunks, sub-batches
+        build_s = []
+
+        def spied(orig):
+            def submit(self, frames, *args):
+                ticket = orig(self, frames, *args)
+                key = scale_pad_geometry(*frames[0].shape[:2],
+                                         self.input_size,
+                                         self.pad_factor)[3:5]
+                subs[key][0] += 1
+                subs[key][1] += (len(ticket[2]) if ticket[0] == "multi"
+                                 else 1)
+                return ticket
+            return submit
+
+        def timed_build(args):
+            t = time.perf_counter()
+            pipe = build(args)
+            torch.cuda.synchronize()
+            build_s.append(time.perf_counter() - t)
+            return pipe
+
+        build = picture_demo.build_pipeline
+        submits = (PosePipeline.run_batch_submit,
+                   PosePipeline.run_multiscale_batch_submit)
+        base = ["evalx", "--image-dir", img_dir, "--ann", ann,
+                "--preprocess", "vgg", "--input-size", "368", "--stages",
+                str(EVAL_STAGES), "--device", str(dev)]
+        counts, lines = {}, []
+        argv = sys.argv
+        try:
+            picture_demo.build_pipeline = timed_build
+            PosePipeline.run_batch_submit = spied(submits[0])
+            PosePipeline.run_multiscale_batch_submit = spied(submits[1])
+            for label, extra in (
+                    ("batch8", ["--batch", "8"]),
+                    ("batch8_multiscale",
+                     ["--batch", "8", "--multiscale", EVAL_MS_SCALES]),
+                    ("per_image", [])):
+                sys.argv = base + extra
+                subs.clear()
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    stats = evalx_cli.main()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts[label] = kernels.launch_counts()
+                text = out.getvalue()
+                check(f"mAP (OKS .50:.95) = {stats['AP']:.4f}" in text
+                      and math.isfinite(stats["AP"]),
+                      f"evalx {label}: no mAP line")
+                check(all(counts[label][k] > 0 for k in SERVING_KERNELS)
+                      and counts[label]["gt_maps"] == 0,
+                      f"evalx {label} did not run through the serving "
+                      f"kernels: {counts[label]}")
+                eval_s = wall - build_s[-1]
+                split = (f"pipeline_s {stats['pipeline_s']!r}, evaluator_s "
+                         f"{stats['evaluator_s']!r}, "
+                         if "pipeline_s" in stats else "")
+                lines.append(
+                    f"evalx {label}: {len(names)} images in {eval_s:.3f} s "
+                    f"after a {build_s[-1]:.3f} s build = "
+                    f"{len(names) / eval_s:.2f} images/s; {split}"
+                    f"mAP {stats['AP']!r}; chunks and sub-batches per "
+                    f"bucket {dict((k, tuple(v)) for k, v in subs.items())}"
+                    f"; launches {counts[label]}")
+        finally:
+            sys.argv = argv
+            picture_demo.build_pipeline = build
+            PosePipeline.run_batch_submit = submits[0]
+            PosePipeline.run_multiscale_batch_submit = submits[1]
+        for line in lines:
+            log(line)
+        log(f"eval: flagship VGG19 {EVAL_STAGES} stages 368 px flip bf16, "
+            f"seeded "
+            f"weights, {len(names)} JPEGs of "
+            f"{[f'{w}x{h}' for (h, w), _ in EVAL_SHAPES]}; read "
+            f"{read_ms:.3f} ms/image (Pillow, one thread) [{smi}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
 
 
 def main() -> int:
@@ -1066,6 +1293,9 @@ def main() -> int:
         log(f"fp32 forward card vs CPU, 6 stages 368x368: {name} max err "
             f"{rel:.3g} of max |CPU| (bound {FWD_REL_TOL})")
 
+    # 6e. the COCO eval path (reader, harness, CLI) on the card
+    eval_counts = eval_phase(dev, smi)
+
     # 7. timings at batch 8 (368x496 padded frames, bf16, flip TTA)
     h64, p64 = torch.from_numpy(heat64), torch.from_numpy(paf64)
     with torch.inference_mode():
@@ -1282,7 +1512,9 @@ def main() -> int:
     # K3 is a gather, a bicubic upsample with cv2's border and an argmax;
     # K4 a masked scatter-sum)
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=launches[name], **results[name], library_ms=None,
+                 launches=launches[name],
+                 eval_launches={k: c[name] for k, c in eval_counts.items()},
+                 **results[name], library_ms=None,
                  **({"also_replaces": also} if also else {}))
             for name, (src, rep, also) in sources.items()]
     # the grouping kernel replaces no TPU kernel but the two lax.scans of
@@ -1297,6 +1529,7 @@ def main() -> int:
                       "no Pallas kernel",
         launches=counts["group_people"],
         multiscale_launches=ms_counts["group_people"],
+        eval_launches={k: c["group_people"] for k, c in eval_counts.items()},
         **results["group_people"], library_ms=None,
         selftest_latency_ms=selftest_ms)
     print(json.dumps({"kernels_beyond_tpu": [group_row]}), flush=True)

@@ -7,6 +7,9 @@ The JAX package rebuilt on PyTorch for an NVIDIA Hopper card:
   matching and person assembly in one kernel), the crowded-frame retry,
   multi-scale TTA and the self-test (``python -m
   rtpose_tpu_torch.selftest``);
+- COCO evaluation: ``python -m rtpose_tpu_torch.evalx`` (the harness,
+  the native OKS evaluator, images read with Pillow as ``cv2.imread``
+  reads them);
 - training: the single-card train step (ground-truth synthesis on the
   device, stage-wise MSE, nesterov SGD with the two-phase freeze, the
   non-finite guard), the plateau schedule and checkpoints.

@@ -1,0 +1,80 @@
+"""Pipeline construction shared by the port's CLIs (port of
+rtpose_tpu/demo/picture_demo.py:12-71).
+
+``build_pipeline`` and ``add_common_args`` are what the eval CLI takes
+from the JAX package's picture demo; the demo's ``main`` (reading,
+drawing and writing a picture) waits for the front-ends, ROADMAP.md
+queue 1 item 4.
+"""
+
+from __future__ import annotations
+
+
+def build_pipeline(args):
+    """A :class:`..infer.pipeline.PosePipeline` from parsed CLI args.
+
+    ``--weight`` is a reference ``.pth``/``.ckpt`` file or a directory of
+    the port's training checkpoints (best step; a JAX package checkpoint
+    comes as a ``.pth`` through ``scripts/export_jax_checkpoint.py``).
+    ``--fp32`` builds the model in fp32 and turns TF32 off for cuDNN
+    convolutions and matmuls, process-wide: cuDNN convolves fp32 in TF32
+    by default.  ``--device-resize`` has no effect: the port always
+    resizes on the card."""
+    import os
+
+    import torch
+
+    from ..infer.pipeline import load_pipeline
+
+    if args.model != "vgg19":
+        raise SystemExit(
+            f"--model {args.model}: the port has the VGG19 family only; "
+            f"the other six come with ROADMAP.md queue 1 item 7")
+    if args.fp32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    is_ckpt_dir = bool(args.weight) and os.path.isdir(args.weight)
+    pipe = load_pipeline(
+        checkpoint_dir=args.weight if is_ckpt_dir else None,
+        torch_weights=None if is_ckpt_dir else args.weight,
+        device=getattr(args, "device", "cuda"),
+        model_name=args.model, num_stages=args.stages,
+        input_size=args.input_size, preprocess_mode=args.preprocess,
+        flip=args.flip,
+        dtype=torch.float32 if args.fp32 else torch.bfloat16,
+        downsample=getattr(args, "downsample", 0) or 8,
+        pad_factor=getattr(args, "pad_to", 0),
+        gaussian_filt=getattr(args, "gaussian_filt", False))
+    if args.weight:
+        print(f"loaded weights from {args.weight}")
+    return pipe
+
+
+FP32_HELP = ("fp32 model with TF32 off (cuDNN convolves fp32 in TF32 by "
+             "default, about three decimal digits); the default is bf16")
+
+
+def add_common_args(parser):
+    parser.add_argument("--model", default="vgg19",
+                        help="model family (the port has vgg19)")
+    parser.add_argument("--weight", default=None,
+                        help="reference .pth/.ckpt, or a directory of the "
+                             "port's training checkpoints (best step)")
+    parser.add_argument("--preprocess", default="rtpose",
+                        choices=["rtpose", "vgg", "inception", "ssd"])
+    parser.add_argument("--input-size", type=int, default=368)
+    parser.add_argument("--stages", type=int, default=6,
+                        help="refinement stages")
+    parser.add_argument("--flip", action="store_true",
+                        help="left/right flip TTA")
+    parser.add_argument("--gaussian-filt", action="store_true",
+                        help="sigma=3 smoothing of the NMS refine patch "
+                             "(reference bool_gaussian_filt, default off)")
+    parser.add_argument("--fp32", action="store_true", help=FP32_HELP)
+    parser.add_argument("--device-resize", action="store_true",
+                        help="accepted for the JAX CLI's sake; no effect: "
+                             "the port always resizes on the card")
+    parser.add_argument("--downsample", type=int, default=0,
+                        help="model output stride (0 = 8, VGG19's)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu for tests)")

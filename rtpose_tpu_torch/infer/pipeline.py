@@ -36,10 +36,11 @@ from ..device import resolve_device
 from ..models import get_model
 from ..models.convert import load_torch_checkpoint, state_dict_from_flax
 from ..ops.decode import (decode_poses_batch, people_row, people_to_host,
-                          people_to_numpy)
+                          people_to_numpy, read_back)
 from ..ops.kernels import true_div
 from ..ops.resize import resize_bicubic, resize_bilinear
 from ..skeleton import FLIP_HEAT, FLIP_PAF, NUM_LIMBS
+from ..train.checkpoint import best_model_state
 from .preprocess import normalize_device, scale_pad_geometry
 
 _FLIP_PAF_ARR = np.array(FLIP_PAF)
@@ -131,22 +132,32 @@ def make_infer_fn(model, *, input_size: int = 368,
     return infer
 
 
-def load_pipeline(*, device="cuda", torch_weights: Optional[str] = None,
+def load_pipeline(checkpoint_dir: Optional[str] = None, *, device="cuda",
+                  torch_weights: Optional[str] = None,
                   flax_params=None, seed: Optional[int] = None,
                   model_name: str = "vgg19", num_stages: int = 6,
                   input_size: int = 368, preprocess_mode: str = "vgg",
                   flip: bool = True, dtype: torch.dtype = torch.bfloat16,
                   **kwargs) -> "PosePipeline":
-    """Build a serving pipeline on `device` from one weight source: a
-    reference ``.pth``/``.ckpt`` (`torch_weights`), a flax parameter tree
-    as numpy (`flax_params`), or N(0, 0.01) weights drawn from `seed`
-    (seed 0 when no source is given).  `dtype` is the compute type."""
-    if sum(x is not None for x in (torch_weights, flax_params, seed)) > 1:
-        raise ValueError("pass one of torch_weights, flax_params or seed")
+    """Build a serving pipeline on `device` from one weight source: the
+    best step of a directory of the port's training checkpoints
+    (`checkpoint_dir`, ``train/checkpoint.py``), a reference
+    ``.pth``/``.ckpt`` (`torch_weights`; a JAX package checkpoint comes
+    through ``scripts/export_jax_checkpoint.py`` as one), a flax parameter
+    tree as numpy (`flax_params`), or N(0, 0.01) weights drawn from `seed`
+    (seed 0 when no source is given).  Every load is strict.  `dtype` is
+    the compute type."""
+    if sum(x is not None for x in (checkpoint_dir, torch_weights,
+                                   flax_params, seed)) > 1:
+        raise ValueError(
+            "pass one of checkpoint_dir, torch_weights, flax_params or "
+            "seed: silently preferring one would evaluate the wrong model")
     dev = resolve_device(device)
     model = get_model(model_name, num_stages=num_stages, dtype=dtype,
                       generator=torch.Generator().manual_seed(seed or 0))
-    if torch_weights is not None:
+    if checkpoint_dir is not None:
+        model.load_state_dict(best_model_state(checkpoint_dir), strict=True)
+    elif torch_weights is not None:
         model.load_state_dict(load_torch_checkpoint(torch_weights),
                               strict=True)
     elif flax_params is not None:
@@ -239,11 +250,13 @@ class PosePipeline:
         return self._run_one(self._submit_stacked([im], [meta]))
 
     def _run_one(self, ticket):
-        """Collect a one-frame ticket -> (people, heat, paf, meta)."""
-        people, metas = self.run_batch_collect(ticket)
-        heat, paf = ticket[2], ticket[3]
-        return people[0], heat[0].cpu().numpy(), paf[0].cpu().numpy(), \
-            metas[0]
+        """Collect a one-frame ticket -> (people, heat, paf, meta), with one
+        wait for the people and both maps."""
+        _, people_dev, heat, paf, _ = ticket
+        people_host, (heat_h, paf_h) = read_back(people_dev, heat[0],
+                                                 paf[0])
+        people, metas = self._collect(ticket, people_host)
+        return people[0], heat_h, paf_h, metas[0]
 
     def run_batch(self, images_bgr):
         """Batched serving: frames of one shape run as one batch, mixed
@@ -285,10 +298,14 @@ class PosePipeline:
                     people[i] = p[j]
                     metas[i] = m[j]
             return people, metas
-        _, people_dev, heat, paf, metas = submitted
+        return self._collect(submitted, people_to_host(submitted[1]))
+
+    def _collect(self, ticket, people_host):
+        """One sub-batch's people, read back as `people_host`, -> (people,
+        metas), its truncated frames decoded again at the retry caps."""
+        _, _, heat, paf, metas = ticket
         h_up = heat.shape[1] * self.downsample
         w_up = heat.shape[2] * self.downsample
-        people_host = people_to_host(people_dev)
         retry_host, retry_pos = None, {}
         if self.auto_retry and people_host.truncated.any():
             # one extra decode of the truncated frames only, from the maps

@@ -1,7 +1,8 @@
 """On-device pose decoding: heatmaps + PAFs -> people (port of
 rtpose_tpu/ops/decode.py).  The batch axis is written out where the JAX
 package vmaps.  On the card the decode reads nothing back to the host:
-:func:`people_to_host` is its one readback."""
+:func:`people_to_host` (or :func:`read_back`, with the maps) is its one
+readback."""
 
 from __future__ import annotations
 
@@ -48,14 +49,17 @@ def people_row(people: People, i: int) -> People:
     return People(*(getattr(people, f)[i] for f in _FIELDS))
 
 
-def people_to_host(people: People) -> People:
-    """Copy People to numpy with one device->host transfer: every field is
-    packed into one fp32 buffer (coordinates and flags are small integers,
-    exact in fp32)."""
-    parts = [getattr(people, f) for f in _FIELDS]
-    flat = torch.cat([p.reshape(-1).float() for p in parts]).cpu().numpy()
+def _pack(people: People) -> torch.Tensor:
+    """Every field of People in one fp32 buffer (coordinates and flags are
+    small integers, exact in fp32)."""
+    return torch.cat([getattr(people, f).reshape(-1).float()
+                      for f in _FIELDS])
+
+
+def _unpack(flat: np.ndarray, people: People) -> People:
     out, at = [], 0
-    for p in parts:
+    for f in _FIELDS:
+        p = getattr(people, f)
         n = p.numel()
         chunk = flat[at:at + n].reshape(tuple(p.shape))
         at += n
@@ -65,6 +69,31 @@ def people_to_host(people: People) -> People:
             chunk = chunk.astype(np.int32)
         out.append(chunk)
     return People(*out)
+
+
+def people_to_host(people: People) -> People:
+    """Copy People to numpy with one device->host transfer."""
+    return _unpack(_pack(people).cpu().numpy(), people)
+
+
+def read_back(people: People, *tensors: torch.Tensor):
+    """People and `tensors` to numpy with one wait -> (People, [arrays]).
+
+    On the card every copy is enqueued into pinned host memory and the
+    current stream is synchronised once (the JAX package's one
+    ``device_get`` of the people and the maps)."""
+    srcs = [_pack(people), *tensors]
+    dev = srcs[0].device
+    if dev.type == "cuda":
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in srcs]
+        for h, t in zip(host, srcs):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+    else:
+        host = srcs
+    arrays = [t.numpy() for t in host]
+    return _unpack(arrays[0], people), arrays[1:]
 
 
 def people_to_numpy(people: People, width_up: int,

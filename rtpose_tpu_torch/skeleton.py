@@ -1,9 +1,12 @@
-"""Skeleton tables of the 18-part rtpose body model that serving needs.
+"""Skeleton tables of the 18-part rtpose body model that serving and the
+COCO evaluation need.
 
-A copy of the serving subset of ``rtpose_tpu/skeleton.py`` (plain Python,
-no numpy), kept here so the port imports nothing of the JAX package;
+A copy of the serving and COCO-17 subset of ``rtpose_tpu/skeleton.py``,
+kept here so the port imports nothing of the JAX package;
 tests/test_torch_isolation.py checks every name against the original.
 """
+
+import numpy as np
 
 PART_NAMES = (
     "nose", "neck", "right_shoulder", "right_elbow", "right_wrist",
@@ -75,3 +78,23 @@ def _derive_flip_paf() -> tuple:
 
 
 FLIP_PAF = _derive_flip_paf()
+
+# ---------------------------------------------------------------------------
+# COCO-17 interchange.
+# COCO annotation keypoint order (val2017 "person_keypoints" category).
+# ---------------------------------------------------------------------------
+COCO_PART_NAMES = (
+    "nose", "left_eye", "right_eye", "left_ear", "right_ear",
+    "left_shoulder", "right_shoulder", "left_elbow", "right_elbow",
+    "left_wrist", "right_wrist", "left_hip", "right_hip",
+    "left_knee", "right_knee", "left_ankle", "right_ankle",
+)
+
+# COCO-17 slot -> our 18-part index (reference evaluate/coco_eval.py:52)
+ORDER_COCO = tuple(_IDX[n] for n in COCO_PART_NAMES)
+
+# Per-keypoint OKS sigmas in COCO-17 order (pycocotools defaults).
+COCO_SIGMAS = np.array([
+    .026, .025, .025, .035, .035, .079, .079, .072, .072,
+    .062, .062, .107, .107, .087, .087, .089, .089,
+], dtype=np.float64)

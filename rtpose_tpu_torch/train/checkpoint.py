@@ -101,3 +101,32 @@ class CheckpointManager:
         if step is None:
             return self.restore_latest(map_location)
         return self.restore(step, map_location)
+
+
+def best_model_state(directory: str) -> Dict[str, torch.Tensor]:
+    """The model weights (``state["model"]``) of the best step under
+    `directory`, or of the latest where no best is recorded, on the CPU.
+
+    A directory of the JAX package's orbax checkpoints is not read here:
+    export it to a reference-layout ``.pth`` with
+    ``scripts/export_jax_checkpoint.py`` and load that file instead."""
+    if not os.path.isdir(directory):
+        raise FileNotFoundError(f"no checkpoint directory {directory}")
+    mgr = CheckpointManager(directory)
+    step = mgr.best_step()
+    if step is None:
+        steps = mgr._steps()
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+        step = steps[-1]
+    path = mgr._path(step)
+    if not os.path.exists(path + ".pt"):
+        if os.path.isdir(path) or os.path.exists(path + ".npz"):
+            raise ValueError(
+                f"{path} is a JAX package (orbax) checkpoint, which the port "
+                f"does not read: export it to a .pth with "
+                f"scripts/export_jax_checkpoint.py and pass that file "
+                f"(torch_weights, --weight)")
+        raise FileNotFoundError(path + ".pt")
+    state, _meta = mgr.restore(step)
+    return state["model"]

@@ -15,7 +15,10 @@ the card's name and power limit; per caps (default K=32 on 8 rendered
 of its stages, each over 10 synchronised calls; and the grouping kernel's
 device ms per launch from the profiler (200 launches) on the inputs of
 ``chip_smoke.py`` phase 4c (K=32 rendered, ``RETRY_CAPS`` on 30-person
-crowded scenes).  Imports nothing of JAX.
+crowded scenes); and the host-clock ms of ``PosePipeline.run`` (the
+flagship, seeded weights, one 480x640 frame: upload, forward, decode and
+the readback of the people and both maps), each of 50 calls after a
+warm-up, as their median and mean.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 
 def main(argv=None) -> int:
@@ -101,6 +106,19 @@ def main(argv=None) -> int:
         out[f"group_people_{name}"] = dict(device_ms=ms, source=src,
                                            chain_steps=chain,
                                            ns_per_step=ms * 1e6 / chain)
+    # single-frame run, as the per-image eval calls it
+    from rtpose_tpu_torch.infer.pipeline import load_pipeline
+    pipe = load_pipeline(device=dev, seed=0)
+    frame = np.random.RandomState(0).randint(0, 256, (480, 640, 3),
+                                             np.uint8)
+    pipe.run(frame)
+    times = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        pipe.run(frame)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["run_ms"] = dict(median=float(np.median(times)),
+                         mean=float(np.mean(times)))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -14,6 +14,7 @@ on every field.
 """
 
 import copy
+import json
 import math
 
 import numpy as np
@@ -640,3 +641,80 @@ def test_selftest_passes_on_the_card(cuda, capsys):
     with pytest.raises(SystemExit) as done:
         selftest.main(["--device", "cuda"])
     assert done.value.code == 0, capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_reader_on_the_cards_machine_equals_cv2(cuda):
+    """The reader's route (Pillow) on the machine with the card: the
+    committed fixture JPEGs read as cv2 read them where they were made,
+    pixel for pixel, orientation and shape included."""
+    from rtpose_tpu_torch.data import imread_fixtures as fx
+    from rtpose_tpu_torch.data.imread import read_bgr
+    pixels = np.load(fx.CV2_PIXELS)
+    for name in fx.FIXTURES:
+        got = read_bgr(fx.fixture_path(name))
+        assert got.shape == pixels[name].shape, name
+        np.testing.assert_array_equal(got, pixels[name], err_msg=name)
+
+
+@pytest.mark.gpu
+def test_oracle_eval_on_card_equals_cpu(cuda, tmp_path):
+    """``run_eval`` and ``run_eval_batched`` (batch 8) with the oracle
+    stub on the card give the CPU's results (same counts, keypoints within
+    1e-4 px) and at least its AP."""
+    from rtpose_tpu_torch.evalx.harness import run_eval, run_eval_batched
+    from rtpose_tpu_torch.utils.synth_coco import (OracleMaps,
+                                                   compare_results,
+                                                   oracle_maps,
+                                                   spread_people,
+                                                   write_synth_coco)
+    rng = np.random.RandomState(0)
+    scenes = {(368, 496): spread_people(rng, 2, 368, 496),
+              (496, 368): spread_people(rng, 1, 496, 368)}
+    scenes[(368, 490)] = scenes[(368, 496)]
+    shapes = list(scenes) * 4
+    img_dir, ann = write_synth_coco(str(tmp_path),
+                                    [(h, w, scenes[(h, w)])
+                                     for h, w in shapes])
+    maps = oracle_maps(scenes, 368)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        pipe = PosePipeline(OracleMaps(maps), device=dev, input_size=368,
+                            flip=False)
+        for name, fn, kw in (("single", run_eval, {}),
+                             ("batched", run_eval_batched,
+                              dict(batch_size=8))):
+            path = str(tmp_path / f"{dev}_{name}.json")
+            stats = fn(img_dir, ann, pipe, results_path=path, **kw)
+            runs[dev, name] = (stats, json.load(open(path)))
+    for name in ("single", "batched"):
+        (s_card, r_card), (s_cpu, r_cpu) = runs["cuda", name], \
+            runs["cpu", name]
+        kp_err, score_err = compare_results(r_card, r_cpu)
+        assert len(r_card) == 20 and kp_err <= 1e-4 and score_err <= 1e-5
+        assert s_cpu["AP"] > 0.9 and s_card["AP"] >= s_cpu["AP"]
+
+
+@pytest.mark.gpu
+def test_run_reads_the_card_back_once(cuda):
+    """``run`` waits for the card once, for the people and both maps
+    together (the JAX package's one ``device_get``): one synchronising
+    call under ``set_sync_debug_mode("warn")``."""
+    import warnings
+    pipe = PosePipeline(get_model("vgg19", num_stages=1), device="cuda",
+                        input_size=56)
+    frame = np.random.RandomState(0).randint(0, 256, (60, 80, 3), np.uint8)
+    want = pipe.run(frame)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = pipe.run(frame)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in caught]
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert got[0] == want[0]

@@ -3,6 +3,9 @@ of the JAX package, serves and takes a train step without them, and its
 copies of the JAX package's tables and numpy helpers are equal to the
 originals."""
 
+import ast
+import importlib
+import inspect
 import json
 import os
 import shutil
@@ -57,12 +60,30 @@ kps = np.zeros((2, 2, 18, 3), np.float32)
 kps[:, 0, :, :2], kps[:, 0, :, 2] = 16.0, 2.0
 logs = Trainer(cfg, device="cpu").train_step(
     np.random.RandomState(0).rand(2, 32, 32, 3).astype(np.float32), kps)
+import tempfile
+from rtpose_tpu_torch.evalx.__main__ import main as evalx_main
+from rtpose_tpu_torch.evalx.harness import run_eval_batched
+from rtpose_tpu_torch.infer.pipeline import PosePipeline
+from rtpose_tpu_torch.utils.synth_coco import (OracleMaps, oracle_maps,
+                                               spread_people,
+                                               write_synth_coco)
+sys.argv = ["evalx", "--help"]
+try:
+    evalx_main()
+except SystemExit as e:
+    assert e.code == 0, e.code
+person = spread_people(np.random.RandomState(0), 1, 128, 160)
+with tempfile.TemporaryDirectory() as root:
+    img_dir, ann = write_synth_coco(root, [(128, 160, person)] * 2)
+    oracle = OracleMaps(oracle_maps({(128, 160): person}, 128))
+    stats = run_eval_batched(img_dir, ann, PosePipeline(
+        oracle, device="cpu", input_size=128, flip=False), batch_size=2)
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "flax", "cv2", "rtpose_tpu")
                 and sys.modules[k] is not None)
 print(json.dumps({"modules": mods, "people": len(people),
                   "heat": list(heat.shape), "loaded": loaded,
-                  "train_loss": logs["loss"]}))
+                  "train_loss": logs["loss"], "eval_ap": stats["AP"]}))
 """
 
 
@@ -79,6 +100,10 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
     assert "rtpose_tpu_torch.infer.pipeline" in res["modules"]
     assert "rtpose_tpu_torch.ops.kernels" in res["modules"]
     assert "rtpose_tpu_torch.train.trainer" in res["modules"]
+    for mod in ("evalx.__main__", "evalx.harness", "evalx.cocoeval",
+                "data.imread", "data.coco_json", "demo.picture_demo"):
+        assert f"rtpose_tpu_torch.{mod}" in res["modules"], mod
+    assert res["eval_ap"] == 1.0
     assert res["train_loss"] > 0 and np.isfinite(res["train_loss"])
     assert res["people"] == 3
     assert res["heat"] == [7, 10, 19]
@@ -87,9 +112,33 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
 
 def test_skeleton_copy_equals_the_jax_package():
     names = [n for n in dir(skeleton) if n.isupper()]
-    assert len(names) >= 14
+    assert len(names) >= 17
+    for name in ("COCO_PART_NAMES", "ORDER_COCO", "COCO_SIGMAS"):
+        assert name in names
     for name in names:
-        assert getattr(skeleton, name) == getattr(jskeleton, name), name
+        got, want = getattr(skeleton, name), getattr(jskeleton, name)
+        if isinstance(want, np.ndarray):
+            assert got.dtype == want.dtype, name
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        else:
+            assert got == want, name
+
+
+def _code(module) -> str:
+    """The module's code without its docstring, as an AST dump."""
+    tree = ast.parse(inspect.getsource(module))
+    if ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name", ["data.coco_json", "evalx.cocoeval"])
+def test_copied_modules_equal_the_jax_package(name):
+    """The port's copies of the JAX package's jax-free COCO modules have
+    the originals' code (only the docstrings differ)."""
+    port = importlib.import_module(f"rtpose_tpu_torch.{name}")
+    original = importlib.import_module(f"rtpose_tpu.{name}")
+    assert _code(port) == _code(original)
 
 
 def test_copied_numpy_helpers_equal_the_jax_package():
