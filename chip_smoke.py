@@ -40,6 +40,14 @@ entry points a user calls:
   weights) through ``Trainer.run_epoch`` on rendered scenes: the loss
   falls, the frozen convs stay and then move, a NaN batch is skipped, and
   a trainer restored from a checkpoint takes the next step bit-equal;
+- training from files: JPEGs of COCO's commonest sizes with crowd and
+  unlabelled regions through the train CLI's ``main()`` on the flagship
+  experiment for one epoch (finite losses, a checkpoint that restores,
+  one K4 launch a step), then the loader alone (same seed same batches,
+  1 worker process == in-process, K4 on a loader batch == plain), with
+  nproc, the loader's img/s at 1 and W worker processes, one process's
+  time by stage, and the train img/s it feeds with each step's data-wait
+  share;
 
 and checks that each path launched its kernels.  Also holds one fp32
 train step on the card against the CPU.  Prints timings beside the card's
@@ -104,6 +112,12 @@ EVAL_SHAPES = (((480, 640), 24), ((640, 480), 24), ((427, 640), 24),
                ((478, 640), 8))
 EVAL_MS_SCALES = "0.5,1,1.5,2"
 EVAL_STAGES = 6
+# training from files: COCO's commonest frame sizes (h, w); enough JPEGs
+# that 4 batches of 72 hold people, and ~72 for val; the loader-only and
+# loader-fed runs read the train set FED_ROUNDS times over
+TRAIN_SHAPES = ((480, 640), (640, 480), (427, 640))
+TRAIN_FILES, VAL_FILES = 336, 81
+FED_ROUNDS = 6
 
 
 def log(*args) -> None:
@@ -113,6 +127,30 @@ def log(*args) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def descendants() -> list:
+    """(pid, command line) of every process this one started, directly or
+    not, that is still running, from /proc."""
+    children = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+        except OSError:   # ended meanwhile
+            continue
+        ppid = int(stat[stat.rfind(")") + 2:].split()[1])
+        children.setdefault(ppid, []).append(int(pid))
+    found, todo = [], [os.getpid()]
+    while todo:
+        for pid in children.get(todo.pop(), []):
+            todo.append(pid)
+            try:
+                with open(f"/proc/{pid}/cmdline") as f:
+                    found.append((pid, f.read().replace("\0", " ")[:120]))
+            except OSError:
+                pass
+    return found
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -653,6 +691,233 @@ def eval_phase(dev, smi: str) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return counts
+
+
+def train_files_phase(dev, smi: str, step_ms: float) -> int:
+    """Training from files: JPEGs of COCO's commonest sizes with 0-8
+    people, crowd regions and unlabelled people
+    (``utils/synth_coco.py``), through the training CLI's ``main()`` on
+    the flagship experiment for one epoch, then the loader on its own:
+    same seed same batches, 1 worker == in-process, K4 on a loader batch
+    == plain, and the loader's img/s at 1 and W worker processes, alone
+    and feeding the trainer -> the CLI run's gt_maps launches."""
+    import contextlib
+    import io
+    import itertools
+
+    import PIL.Image
+    import torch
+    from rtpose_tpu_torch.data import transforms as T
+    from rtpose_tpu_torch.data.dataset import (CocoKeypoints,
+                                               ConcatKeypoints, Loader,
+                                               stop_worker_processes)
+    from rtpose_tpu_torch.ops import kernels
+    from rtpose_tpu_torch.train import __main__ as train_cli
+    from rtpose_tpu_torch.train.checkpoint import CheckpointManager
+    from rtpose_tpu_torch.train.trainer import Trainer
+    from rtpose_tpu_torch.utils.synth_coco import (training_frames,
+                                                   write_synth_coco)
+
+    nproc = len(os.sched_getaffinity(0))
+    workers = min(8, nproc)
+    work = os.path.join(ROOT, "rtpose_tpu_torch", "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+
+    def shares(logs):
+        """Each step's data-wait share, from ``run_epoch``'s logs."""
+        return [round(d / s, 3) for d, s in zip(logs["data_s"],
+                                                logs["step_s"])]
+
+    try:
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(3)
+        shapes = [TRAIN_SHAPES[i % 3] for i in range(TRAIN_FILES)]
+        train_dir, train_ann = write_synth_coco(
+            os.path.join(work, "train"), training_frames(rng, shapes))
+        val_dir, val_ann = write_synth_coco(
+            os.path.join(work, "val"),
+            training_frames(rng, shapes[:VAL_FILES]), seed=TRAIN_FILES)
+        ckpt_dir = os.path.join(work, "ckpt")
+        log(f"training from files: wrote {TRAIN_FILES} + {VAL_FILES} JPEGs "
+            f"of {[f'{w}x{h}' for h, w in TRAIN_SHAPES]} in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # the flagship through the CLI, one epoch
+        sets = [f'dataset.train_image_dir="{train_dir}"',
+                f'dataset.train_annotations=["{train_ann}"]',
+                f'dataset.val_image_dir="{val_dir}"',
+                f'dataset.val_annotations="{val_ann}"',
+                f'train.checkpoint_dir="{ckpt_dir}"',
+                f"train.data_workers={workers}"]
+        config = os.path.join(ROOT, "experiments", "vgg19_368x368_sgd.yaml")
+        argv = sys.argv
+        sys.argv = ["train", "--config", config, "--epochs", "1",
+                    "--device", str(dev), "--set", *sets]
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                trainer, history = train_cli.main()
+            torch.cuda.synchronize()
+        finally:
+            sys.argv = argv
+        cli_s = time.perf_counter() - t0
+        cli_counts = kernels.launch_counts()
+        cfg = trainer.cfg
+        check((cfg.model.name, cfg.model.num_stages, cfg.dataset.image_size,
+               cfg.model.dtype, cfg.train.batch_size) ==
+              ("vgg19", 6, 368, "bfloat16", TRAIN_BATCH), "flagship config")
+        (epoch_logs,) = history
+        steps = len(epoch_logs["train"]["step_s"])
+        val_steps = len(epoch_logs["val"]["step_s"])
+        check(steps == 4 and trainer.step == steps,
+              f"CLI epoch took {trainer.step} steps over {steps} batches")
+        check(cli_counts["gt_maps"] == steps + val_steps,
+              f"gt_maps launched {cli_counts['gt_maps']} times for "
+              f"{steps} train and {val_steps} val steps")
+        mgr = CheckpointManager(ckpt_dir)
+        state, meta = mgr.restore_latest(dev)
+        check(math.isfinite(meta["train_loss"])
+              and math.isfinite(meta["val_loss"]),
+              f"CLI losses: train {meta['train_loss']}, val "
+              f"{meta['val_loss']}")
+        fresh = Trainer(cfg, device=dev)
+        fresh.restore((state, meta))
+        restored = all(torch.equal(a, b) for a, b in zip(
+            fresh.model.state_dict().values(),
+            trainer.model.state_dict().values()))
+        check(restored and fresh.step == trainer.step,
+              "the CLI's checkpoint did not restore")
+        del fresh, state
+        log(f"train CLI, flagship (VGG19 6 stages 368 px bf16 batch "
+            f"{TRAIN_BATCH}) from JPEGs, 1 epoch, {workers} worker "
+            f"processes: {steps} steps + {val_steps} val in "
+            f"{cli_s:.2f} s (model build and worker start included); "
+            f"train loss {meta['train_loss']!r}, val loss "
+            f"{meta['val_loss']!r}; its checkpoint restores bit-equal; launches {cli_counts}; data-wait share "
+            f"per step {shares(epoch_logs['train'])}, wait s "
+            f"{[round(w, 3) for w in epoch_logs['train']['data_s']]} "
+            f"[{smi}]")
+
+        # the loader alone: same seed same batches; 1 worker == in-process
+        size = cfg.dataset.image_size
+        grid = size // cfg.model.downsample
+        train_ds = CocoKeypoints(train_dir, train_ann, input_size=size)
+        check(len(train_ds) >= 4 * TRAIN_BATCH, f"{len(train_ds)} images")
+
+        def first(loader, n):
+            out, t = [], [time.perf_counter()]
+            for batch in loader:
+                out.append(batch)
+                t.append(time.perf_counter())
+                if len(out) == n:
+                    break
+            return out, t
+
+        runs = [first(Loader(train_ds, TRAIN_BATCH, num_workers=workers,
+                             seed=5), 4)[0] for _ in range(2)]
+        same = all(torch.equal(a[k], b[k]) for a, b in zip(*runs)
+                   for k in a)
+        check(len(runs[0]) == 4 and same,
+              f"two {workers}-worker runs with one seed differ")
+        one, t_one = first(Loader(train_ds, TRAIN_BATCH, num_workers=1,
+                                  seed=5), 2)
+        zero, t_zero = first(Loader(train_ds, TRAIN_BATCH, num_workers=0,
+                                    seed=5), 1)
+        check(all(torch.equal(one[0][k], zero[0][k]) for k in one[0]),
+              "1 worker process != num_workers=0")
+        one_ips = TRAIN_BATCH / (t_one[2] - t_one[1])
+        zero_ips = TRAIN_BATCH / (t_zero[1] - t_zero[0])
+
+        # K4 on a loader batch vs its plain version (not counted: the
+        # CLI's counts are read above)
+        kps = runs[0][0]["keypoints"].to(dev)
+        heat, paf = kernels.gt_maps(kps, grid_y=grid, grid_x=grid,
+                                    stride=8, sigma=7.0)
+        heat_p, paf_p = kernels.gt_maps_plain(
+            kps, kernels.limb_scalars(kps, 8), kernels.person_bound(kps),
+            grid_y=grid, grid_x=grid, stride=8, sigma=7.0)
+        k4_err = max(float((heat - heat_p).abs().max()),
+                     float((paf - paf_p).abs().max()))
+        check(k4_err == 0.0, f"K4 on a loader batch: max err {k4_err}")
+        n_kp = int((kps[..., 2] > 0).sum())
+        del runs, one, zero, kps, heat, paf, heat_p, paf_p
+
+        # where one worker's time goes: get()'s stages on 24 images
+        spent, n_get = {}, 24
+        srng = np.random.default_rng(0)
+
+        def stage(name, fn, *a):
+            t = time.perf_counter()
+            out = fn(*a)
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+            return out
+
+        for i in range(n_get):
+            _, path, kp17, corners = stage("annotations", train_ds.raw_sample,
+                                           i)
+            image = stage("read+decode", lambda p: PIL.Image.open(p).convert(
+                "RGB"), path)
+            sample = T.Sample.new(image, np.concatenate([kp17, corners]))
+            for tr in train_ds.preprocess.transforms:
+                name = type(getattr(tr, "transform", tr)).__name__
+                sample = stage(name, tr, sample, srng)
+            arr = stage("to_tensor+mask", lambda s: T.mask_valid_area(
+                T.image_to_tensor(s.image), s.meta["valid_area"]), sample)
+            stage("keypoints+loss mask", train_ds.finalize_keypoints,
+                  sample.keypoints, len(kp17))
+        del arr
+        get_ms = {k: round(v * 1e3 / n_get, 2) for k, v in spent.items()}
+
+        # throughput: the loader alone at W workers, then feeding the
+        # trainer, over the train set read FED_ROUNDS times
+        many = ConcatKeypoints([train_ds] * FED_ROUNDS)
+        # whole rounds of the workers: after the first, each round takes
+        # one batch's time at W processes
+        n_batches = len(many) // TRAIN_BATCH // workers * workers
+        check(n_batches >= 2 * workers, f"{n_batches} batches: too few")
+        batches, t_w = first(Loader(many, TRAIN_BATCH, num_workers=workers,
+                                    seed=6, pin_memory=True), n_batches)
+        del batches
+        w_ips = (n_batches - workers) * TRAIN_BATCH / (t_w[-1]
+                                                       - t_w[workers])
+        w_all_ips = n_batches * TRAIN_BATCH / (t_w[-1] - t_w[0])
+        fed = Loader(many, TRAIN_BATCH, num_workers=workers, seed=7,
+                     pin_memory=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            fed_logs = trainer.run_epoch(itertools.islice(fed, n_batches))
+        torch.cuda.synchronize()
+        fed_s = time.perf_counter() - t0
+        steady_s = sum(fed_logs["step_s"][workers:])
+        fed_ips = (n_batches - workers) * TRAIN_BATCH / steady_s
+        wait_share = sum(fed_logs["data_s"][workers:]) / steady_s
+        del trainer
+        torch.cuda.empty_cache()
+        log(f"loader: nproc {nproc}; {TRAIN_BATCH}-image batches from "
+            f"{[f'{w}x{h}' for h, w in TRAIN_SHAPES]} JPEGs: in-process "
+            f"{zero_ips:.1f} img/s, 1 worker process {one_ips:.1f} img/s "
+            f"({1e3 / one_ips:.2f} ms/img), {workers} worker processes "
+            f"{w_ips:.1f} img/s after the first round ({w_all_ips:.1f} "
+            f"over all {n_batches} batches, worker start included); same "
+            f"seed same batches ({workers} workers, twice), 1 worker == "
+            f"in-process; K4 on a loader batch ({n_kp} visible keypoints) "
+            f"== plain, max err {k4_err}; one process's ms per image by "
+            f"stage: {get_ms} ({sum(get_ms.values()):.2f} in all) [{smi}]")
+        log(f"train fed by the loader ({workers} worker processes, pinned "
+            f"batches), flagship bf16 batch {TRAIN_BATCH}: {n_batches} steps "
+            f"in {fed_s:.2f} s; after the first round {fed_ips:.1f} img/s, "
+            f"data-wait share {wait_share:.3f}; in memory (phase 9) "
+            f"{TRAIN_BATCH * 1e3 / step_ms:.1f} img/s; data-wait share per "
+            f"step {shares(fed_logs)} [{smi}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        # the forkserver and the resource tracker outlive the loaders
+        stop_worker_processes()
+    return cli_counts["gt_maps"]
 
 
 def main() -> int:
@@ -1463,6 +1728,9 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
 
+    # 9b. training from files: the train CLI, the loader's processes
+    cli_gt_launches = train_files_phase(dev, smi, step_ms)
+
     # 10. one fp32 train step (TF32 off) on the card vs the CPU, batch 2
     # at 368 px, from the same seeded weights
     cfg32 = copy.deepcopy(cfg)
@@ -1507,6 +1775,7 @@ def main() -> int:
     results["bicubic_refine"]["gaussian_filt_launches"] = \
         blur_counts["bicubic_refine_gaussian_filt"]
     results["gt_maps"]["stage_host_ms"] = gt_host_ms
+    results["gt_maps"]["train_cli_launches"] = cli_gt_launches
     # library_ms: no single PyTorch call computes any of them (K1's
     # truncated int(a + s * step + 0.5) // 8 cells are not grid_sample's;
     # K3 is a gather, a bicubic upsample with cv2's border and an argmax;
@@ -1532,6 +1801,8 @@ def main() -> int:
         eval_launches={k: c["group_people"] for k, c in eval_counts.items()},
         **results["group_people"], library_ms=None,
         selftest_latency_ms=selftest_ms)
+    left = descendants()
+    check(not left, f"processes still running: {left}")
     print(json.dumps({"kernels_beyond_tpu": [group_row]}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

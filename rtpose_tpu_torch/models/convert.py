@@ -6,6 +6,8 @@
 - :func:`load_torch_checkpoint`: a reference ``pose_model.pth`` (raw
   state_dict) or a lightning checkpoint (``state_dict`` with ``model.``
   key prefix, reference evaluate/evaluation.py:12-18).
+- :func:`import_vgg19_imagenet`: torchvision's ImageNet ``vgg19`` weights
+  into the first 10 backbone convs (the training CLI's ``--vgg-weights``).
 
 The layout map is copied from rtpose_tpu/models/import_torch.py:19-54,
 whose package imports jax.
@@ -73,3 +75,32 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
         obj = obj["state_dict"]
     return {(k[len("model."):] if k.startswith("model.") else k): v
             for k, v in obj.items()}
+
+
+def import_vgg19_imagenet(vgg_state_dict: Mapping[str, torch.Tensor],
+                          model: torch.nn.Module) -> torch.nn.Module:
+    """Load the first 10 torchvision-vgg19 convs into `model`'s backbone,
+    in place (rtpose_tpu/models/import_torch.py:83-97; reference
+    rtpose_vgg.py:244-246): the first 20 tensors of the state dict in key
+    order, 10 x (weight, bias), into ``model0.{0,2,...,21}``.  Every shape
+    must equal the target's; a short or misshapen state dict raises
+    ValueError before anything is written."""
+    tensors = list(vgg_state_dict.values())
+    if len(tensors) < 20:
+        raise ValueError(f"a torchvision vgg19 state dict has at least 20 "
+                         f"tensors before its classifier, got {len(tensors)}")
+    params = dict(model.named_parameters())
+    pairs = []
+    for i, (prefix, _) in enumerate(torch_layout_map(1)[:10]):
+        for j, kind in enumerate(("weight", "bias")):
+            src, dst = tensors[2 * i + j], params[f"{prefix}.{kind}"]
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(
+                    f"vgg19 tensor {2 * i + j} ({prefix}.{kind}): shape "
+                    f"{tuple(src.shape)}, the model wants "
+                    f"{tuple(dst.shape)}")
+            pairs.append((dst, src))
+    with torch.no_grad():
+        for dst, src in pairs:
+            dst.copy_(torch.as_tensor(src))
+    return model

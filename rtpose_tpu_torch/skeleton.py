@@ -1,5 +1,5 @@
-"""Skeleton tables of the 18-part rtpose body model that serving and the
-COCO evaluation need.
+"""Skeleton tables of the 18-part rtpose body model that serving, the
+training loader and the COCO evaluation need.
 
 A copy of the serving and COCO-17 subset of ``rtpose_tpu/skeleton.py``,
 kept here so the port imports nothing of the JAX package;
@@ -92,6 +92,12 @@ COCO_PART_NAMES = (
 
 # COCO-17 slot -> our 18-part index (reference evaluate/coco_eval.py:52)
 ORDER_COCO = tuple(_IDX[n] for n in COCO_PART_NAMES)
+
+# (COCO-17 + synthesized neck at slot 17) -> our 18-part order
+# (reference lib/datasets/datasets.py:241-242)
+COCO_TO_OURS = tuple(
+    (tuple(COCO_PART_NAMES) + ("neck",)).index(n) for n in PART_NAMES
+)
 
 # Per-keypoint OKS sigmas in COCO-17 order (pycocotools defaults).
 COCO_SIGMAS = np.array([

@@ -119,13 +119,21 @@ class Trainer:
     # ---- the step --------------------------------------------------------
 
     def _to_device(self, images, keypoints, mask, window=None):
+        """The batch on the trainer's device.  A batch in page-locked
+        memory (the ``Loader``'s with ``pin_memory``) is copied
+        asynchronously: the step's one readback stays its only wait."""
         dev = self.device
-        images = torch.as_tensor(images).to(dev)
+
+        def move(x, dtype=None):
+            x = torch.as_tensor(x)
+            return x.to(dev, dtype, non_blocking=x.is_pinned())
+
+        images = move(images)
         if window is not None:
-            images = normalize_window(images, torch.as_tensor(window).to(dev))
-        keypoints = torch.as_tensor(keypoints).to(dev, torch.float32)
+            images = normalize_window(images, move(window))
+        keypoints = move(keypoints, torch.float32)
         if mask is not None:
-            mask = torch.as_tensor(mask).to(dev, torch.float32)
+            mask = move(mask, torch.float32)
         return images.float(), keypoints, mask
 
     def _loss(self, images, keypoints, mask):
@@ -248,32 +256,36 @@ class Trainer:
 
     def run_epoch(self, loader: Iterable[Batch], train: bool = True,
                   log_every: Optional[int] = None,
-                  ckpt: Optional[CheckpointManager] = None
-                  ) -> Dict[str, float]:
+                  ckpt: Optional[CheckpointManager] = None) -> Dict:
         """One epoch over batches of ``image``, ``keypoints`` and optional
         ``mask`` / ``valid_xywh`` (uint8 images with their content
         window); with `ckpt` and cfg.train.checkpoint_every_steps > 0, also
-        writes mid-epoch checkpoints."""
+        writes mid-epoch checkpoints.  Returns the per-image mean of each
+        log, and per step, ``data_s``, the seconds it waited for its batch
+        (from the end of the step before), and ``step_s``, those seconds
+        and the step's own."""
         log_every = log_every or self.cfg.train.print_freq
         every = self.cfg.train.checkpoint_every_steps
         meters: Dict[str, AverageMeter] = {}
-        t_data, t_step = AverageMeter(), AverageMeter()
-        tic = time.time()
+        data_s: List[float] = []
+        step_s: List[float] = []
+        tic = time.perf_counter()
         step_fn = self.train_step if train else self.eval_step
         for i, batch in enumerate(loader):
             n_img = len(batch["image"])
-            t_data.update(time.time() - tic)
+            data_s.append(time.perf_counter() - tic)
             logs = step_fn(batch["image"], batch["keypoints"],
                            batch.get("mask"), batch.get("valid_xywh"))
             for k, v in logs.items():
                 meters.setdefault(k, AverageMeter()).update(v, n=n_img)
-            t_step.update(time.time() - tic)
-            tic = time.time()
+            step_s.append(time.perf_counter() - tic)
+            tic = time.perf_counter()
             if i % log_every == 0:
                 phase = "train" if train else "val"
                 print(f"[{phase}] epoch {self.epoch} it {i} "
                       f"loss {logs['loss']:.5f} "
-                      f"data {t_data.avg:.3f}s step {t_step.avg:.3f}s")
+                      f"data {sum(data_s) / len(data_s):.3f}s "
+                      f"step {sum(step_s) / len(step_s):.3f}s")
                 if train:
                     self.metrics.log(self.step, logs, prefix="train/")
             if train and ckpt is not None and every and (i + 1) % every == 0:
@@ -281,11 +293,16 @@ class Trainer:
                           meta={"epoch": self.epoch, "mid_epoch": True,
                                 "best_val": self.best_val,
                                 "plateau": self.plateau.state_dict()})
-        return {k: m.avg for k, m in meters.items()}
+        return {**{k: m.avg for k, m in meters.items()},
+                "data_s": data_s, "step_s": step_s}
 
     def fit(self, train_loader: Iterable[Batch], val_loader: Iterable[Batch],
             *, epochs: Optional[int] = None,
-            checkpoint_dir: Optional[str] = None) -> None:
+            checkpoint_dir: Optional[str] = None) -> List[Dict]:
+        """Train `epochs` epochs (cfg.train.epochs by default), each with
+        a val epoch, the plateau schedule and a checkpoint.  Returns each
+        epoch's ``{"train": logs, "val": logs}`` (``run_epoch``'s)."""
+        history = []
         ckpt = CheckpointManager(
             checkpoint_dir or self.cfg.train.checkpoint_dir,
             keep=self.cfg.train.keep_checkpoints)
@@ -297,6 +314,7 @@ class Trainer:
             self.maybe_release_backbone()
             train_logs = self.run_epoch(train_loader, train=True, ckpt=ckpt)
             val_logs = self.run_epoch(val_loader, train=False)
+            history.append({"train": train_logs, "val": val_logs})
             if "loss" not in val_logs:
                 raise RuntimeError(
                     "validation epoch produced no batches: build the val "
@@ -315,3 +333,4 @@ class Trainer:
                             "train_loss": train_logs["loss"]})
             print(f"epoch {self.epoch}: train {train_logs['loss']:.5f} "
                   f"val {val_loss:.5f} lr {self.lr:.4f} best={is_best}")
+        return history

@@ -46,30 +46,75 @@ def spread_people(rng, n: int, h: int, w: int) -> np.ndarray:
 
 
 def coco_annotation(ann_id: int, image_id: int, person: np.ndarray) -> dict:
-    """One (18, 3) person as a COCO ``person_keypoints`` annotation."""
+    """One (18, 3) person as a COCO ``person_keypoints`` annotation: a part
+    with v = 0 is written as (0, 0, 0), the others with v = 2; the box
+    bounds the visible parts."""
     coco_kp = np.zeros((17, 3))
     for slot, part in enumerate(ORDER_COCO):
-        coco_kp[slot] = (person[part, 0], person[part, 1], 2)
-    xs, ys = coco_kp[:, 0], coco_kp[:, 1]
+        if person[part, 2] > 0:
+            coco_kp[slot] = (person[part, 0], person[part, 1], 2)
+    seen = coco_kp[coco_kp[:, 2] > 0]
+    xs, ys = seen[:, 0], seen[:, 1]
     w, h = float(xs.max() - xs.min()), float(ys.max() - ys.min())
     return {"id": ann_id, "image_id": image_id, "category_id": 1,
             "keypoints": [float(v) for v in coco_kp.reshape(-1)],
-            "num_keypoints": 17, "area": w * h, "iscrowd": 0,
+            "num_keypoints": len(seen), "area": w * h, "iscrowd": 0,
             "bbox": [float(xs.min()), float(ys.min()), w, h]}
 
 
-def write_synth_coco(root: str, frames: Iterable[Tuple[int, int, np.ndarray]],
-                     seed: int = 0) -> Tuple[str, str]:
-    """Write one JPEG per ``(h, w, people)`` of `frames` (a rendered scene
-    drawn from `seed` and the image id; people (n, 18, 3) in pixel
-    coordinates) under ``root/images`` and their annotations as
-    ``root/person_keypoints.json`` -> (image dir, annotation file)."""
+def region_annotation(ann_id: int, image_id: int, bbox, iscrowd: int
+                      ) -> dict:
+    """A person region without keypoints: a crowd (``iscrowd`` 1) or an
+    unlabelled person; the training loader masks its box out of the
+    loss."""
+    x, y, w, h = (float(v) for v in bbox)
+    return {"id": ann_id, "image_id": image_id, "category_id": 1,
+            "keypoints": [0.0] * 51, "num_keypoints": 0, "area": w * h,
+            "iscrowd": int(iscrowd), "bbox": [x, y, w, h]}
+
+
+def training_frames(rng, shapes: Sequence[Shape], max_people: int = 8):
+    """Frames for a training set, one per (h, w) of `shapes`: 0 to
+    `max_people` people of random size and place (some reaching over the
+    frame's edges), each part visible with probability 0.85; every third
+    frame also holds a crowd region and every fourth an unlabelled person
+    box -> ``(h, w, people (n, 18, 3), regions [(bbox, iscrowd)])``."""
+    frames = []
+    for i, (h, w) in enumerate(shapes):
+        people = np.zeros((rng.randint(max_people + 1), NUM_PARTS, 3))
+        for person in people:
+            s = rng.uniform(0.2, 0.7) * min(h, w)
+            cx, cy = rng.uniform(0.05 * w, 0.95 * w), rng.uniform(0.1 * h,
+                                                                  0.9 * h)
+            for part, (tx, ty) in _TEMPLATE.items():
+                person[part, :2] = (cx + (tx - 0.5) * s + rng.normal(0, 2),
+                                    cy + (ty - 0.5) * s + rng.normal(0, 2))
+            person[:, 2] = 2 * (rng.rand(NUM_PARTS) < 0.85)
+            person[ORDER_COCO[rng.randint(17)], 2] = 2     # one seen
+        regions = []
+        for every, crowd in ((3, 1), (4, 0)):
+            if i % every == every - 1:
+                bw, bh = rng.uniform(0.1, 0.4) * w, rng.uniform(0.1, 0.4) * h
+                regions.append(((rng.uniform(0, w - bw), rng.uniform(0, h - bh),
+                                 bw, bh), crowd))
+        frames.append((h, w, people, regions))
+    return frames
+
+
+def write_synth_coco(root: str, frames: Iterable[tuple], seed: int = 0
+                     ) -> Tuple[str, str]:
+    """Write one JPEG per ``(h, w, people)`` or ``(h, w, people, regions)``
+    of `frames` (a rendered scene drawn from `seed` and the image id;
+    people (n, 18, 3) in pixel coordinates; regions ``(bbox, iscrowd)``
+    annotated without keypoints) under ``root/images`` and their
+    annotations as ``root/person_keypoints.json`` -> (image dir,
+    annotation file)."""
     from PIL import Image
 
     img_dir = os.path.join(root, "images")
     os.makedirs(img_dir, exist_ok=True)
     images, annotations = [], []
-    for img_id, (h, w, people) in enumerate(frames, start=1):
+    for img_id, (h, w, people, *regions) in enumerate(frames, start=1):
         name = f"{img_id:012d}.jpg"
         Image.fromarray(render_scene(seed + img_id, h, w)).save(
             os.path.join(img_dir, name), quality=90)
@@ -77,6 +122,10 @@ def write_synth_coco(root: str, frames: Iterable[Tuple[int, int, np.ndarray]],
                        "width": w})
         annotations += [coco_annotation(img_id * 100 + i, img_id, p)
                         for i, p in enumerate(people)]
+        annotations += [region_annotation(img_id * 100 + 50 + i, img_id,
+                                          bbox, crowd)
+                        for i, (bbox, crowd) in
+                        enumerate(regions[0] if regions else [])]
     ann_file = os.path.join(root, "person_keypoints.json")
     with open(ann_file, "w") as f:
         json.dump({"images": images, "annotations": annotations,

@@ -367,6 +367,26 @@ def test_train_step_on_card_launches_gt_maps(cuda):
 
 
 @pytest.mark.gpu
+def test_gt_kernel_on_a_loader_batch_matches_plain(cuda, tmp_path):
+    """Keypoints from the training loader (augmented, neck added, illegal
+    joints removed, people over the crop's edges, 32-slot padding) through
+    K4 equal the plain version."""
+    from rtpose_tpu_torch.data.dataset import CocoKeypoints, Loader
+    from rtpose_tpu_torch.utils.synth_coco import (training_frames,
+                                                   write_synth_coco)
+    shapes = [(480, 640), (640, 480), (427, 640)] * 4
+    img_dir, ann = write_synth_coco(str(tmp_path), training_frames(
+        np.random.RandomState(0), shapes))
+    loader = Loader(CocoKeypoints(img_dir, ann), 8, num_workers=2, seed=0,
+                    pin_memory=True)
+    batch = next(iter(loader))
+    assert batch["keypoints"].is_pinned()
+    assert batch["keypoints"].shape == (8, 32, 18, 3)
+    assert int((batch["keypoints"][..., 2] > 0).sum()) > 0
+    _assert_gt_equals_plain(batch["keypoints"].to(cuda), 46, 46)
+
+
+@pytest.mark.gpu
 def test_wrappers_raise_instead_of_falling_back(cuda):
     peaks = torch.zeros((1, 18, 4), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):

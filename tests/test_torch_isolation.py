@@ -1,5 +1,6 @@
 """rtpose_tpu_torch stands alone: it imports no jax, flax, cv2 or anything
-of the JAX package, serves and takes a train step without them, and its
+of the JAX package, serves, takes a train step, draws a loader batch in a
+worker process and answers the training CLI's --help without them, and its
 copies of the JAX package's tables and numpy helpers are equal to the
 originals."""
 
@@ -78,12 +79,22 @@ with tempfile.TemporaryDirectory() as root:
     oracle = OracleMaps(oracle_maps({(128, 160): person}, 128))
     stats = run_eval_batched(img_dir, ann, PosePipeline(
         oracle, device="cpu", input_size=128, flip=False), batch_size=2)
+    from rtpose_tpu_torch.data.dataset import CocoKeypoints, Loader
+    batch = next(iter(Loader(CocoKeypoints(img_dir, ann, input_size=64), 2,
+                             num_workers=1)))
+from rtpose_tpu_torch.train.__main__ import main as train_main
+sys.argv = ["train", "--help"]
+try:
+    train_main()
+except SystemExit as e:
+    assert e.code == 0, e.code
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "flax", "cv2", "rtpose_tpu")
                 and sys.modules[k] is not None)
 print(json.dumps({"modules": mods, "people": len(people),
                   "heat": list(heat.shape), "loaded": loaded,
-                  "train_loss": logs["loss"], "eval_ap": stats["AP"]}))
+                  "train_loss": logs["loss"], "eval_ap": stats["AP"],
+                  "loader": {k: list(v.shape) for k, v in batch.items()}}))
 """
 
 
@@ -101,13 +112,17 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
     assert "rtpose_tpu_torch.ops.kernels" in res["modules"]
     assert "rtpose_tpu_torch.train.trainer" in res["modules"]
     for mod in ("evalx.__main__", "evalx.harness", "evalx.cocoeval",
-                "data.imread", "data.coco_json", "demo.picture_demo"):
+                "data.imread", "data.coco_json", "demo.picture_demo",
+                "data.dataset", "data.transforms", "train.__main__"):
         assert f"rtpose_tpu_torch.{mod}" in res["modules"], mod
     assert res["eval_ap"] == 1.0
     assert res["train_loss"] > 0 and np.isfinite(res["train_loss"])
     assert res["people"] == 3
     assert res["heat"] == [7, 10, 19]
     assert res["loaded"] == []
+    assert res["loader"] == {"image": [2, 64, 64, 3],
+                             "keypoints": [2, 32, 18, 3],
+                             "mask": [2, 8, 8, 1], "image_id": [2]}
 
 
 def test_skeleton_copy_equals_the_jax_package():
