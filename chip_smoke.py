@@ -48,6 +48,19 @@ entry points a user calls:
   nproc, the loader's img/s at 1 and W worker processes, one process's
   time by stage, and the train img/s it feeds with each step's data-wait
   share;
+- the model zoo, every other family at its published width (openpose_v2,
+  mobilenet, shufflenet_v2, atrous_resnet50, atrous_cpm(_shared) at
+  368 px; hourglass, 8 stacks, at 256 px, stride 4, pad 64): 8 rendered
+  frames through ``run_batch`` (flip, bf16, seeded weights; the decode on
+  the card equals the CPU's on the same maps), one fp32 forward card vs
+  CPU, one multi-scale chunk with its bytes per frame and pixel, and
+  3 train steps and a val step through ``Trainer`` (BatchNorm statistics
+  move in train mode and stay in eval mode, K4 equal to plain on the
+  batch, a checkpoint that restores bit-equal), with forward, run_batch,
+  decode and train times and peak memory; before it, K1 (K=32), K2
+  (K=64), K3 (plain and blurred), the grouping kernel and K4 on
+  hourglass's factor-4 / stride-4 shapes against their plain versions,
+  timed with their bounds, and a stride-4 pipeline's own retry;
 
 and checks that each path launched its kernels.  Also holds one fp32
 train step on the card against the CPU.  Prints timings beside the card's
@@ -920,6 +933,412 @@ def train_files_phase(dev, smi: str, step_ms: float) -> int:
     return cli_counts["gt_maps"]
 
 
+
+# the model zoo: every family but the flagship, at its published width
+# (openpose_v2 4 PAF + 2 heat stages, shufflenet_v2 width 1.0):
+# (family, stages, input px, output stride, pad_factor, train batch).
+# Train batches: hourglass 32 (experiments/hourglass_256x256.yaml),
+# shufflenet_v2 64 (its yaml), the others the flagship yaml's 72
+ZOO = (("openpose_v2", 6, 368, 8, 0, 72),
+       ("mobilenet", 6, 368, 8, 0, 72),
+       ("shufflenet_v2", 1, 368, 8, 0, 64),
+       ("atrous_resnet50", 1, 368, 8, 0, 72),
+       ("atrous_cpm", 5, 368, 8, 0, 72),
+       ("atrous_cpm_shared", 5, 368, 8, 0, 72),
+       ("hourglass", 8, 256, 4, 64, 32))
+# the families whose eval-mode forward keeps its scale at He init (the
+# residual ones, whose running statistics do not rescale their sums, keep
+# their own init for the fp32 card-vs-CPU forward)
+ZOO_HE = ("openpose_v2", "mobilenet", "shufflenet_v2", "atrous_cpm",
+          "atrous_cpm_shared")
+ZOO_KERNELS = ("connection_scores", "bicubic_refine", "group_people",
+               "gt_maps")
+
+
+def rendered_maps_model(heat, paf):
+    """A module that stands in for a network: it answers every batch with
+    the same rendered maps, stage-stacked."""
+    import torch
+
+    from rtpose_tpu_torch.models.common import ModelOutput
+
+    class RenderedMaps(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("heat", heat)
+            self.register_buffer("paf", paf)
+
+        def forward(self, x):
+            n = x.shape[0]
+            return ModelOutput(pafs=self.paf[None, :n],
+                               heatmaps=self.heat[None, :n])
+
+    return RenderedMaps()
+
+
+def hourglass_kernels(dev, smi: str) -> dict:
+    """The serving and training kernels on hourglass's shapes: 8 rendered
+    scenes on 64x64 maps (256 px frames at stride 4) and a crowded 5x6 grid
+    at RETRY_CAPS, K1 (K=32) and K2 (K=64) at factor 4, K3 plain and
+    blurred at factor 4, the grouping kernel on their candidates, and K4
+    at stride 4 on the 64x64 grid at the hourglass batch of 32; each held
+    equal to its plain version, timed in turns with its plain version
+    (CUDA events around back-to-back calls), with its device time per
+    launch (profiler), its wrapper's host time per call and its bound.
+    Then a pipeline at stride 4 and pad 64 whose "model"
+    answers with the crowded maps truncates and retries by itself, K2
+    included."""
+    import torch
+
+    from rtpose_tpu_torch.infer.pipeline import RETRY_CAPS, PosePipeline
+    from rtpose_tpu_torch.ops import kernels
+    from rtpose_tpu_torch.ops.decode import decode_poses_batch, people_to_host
+    from rtpose_tpu_torch.ops.grouping import (score_connections,
+                                               sorted_candidates)
+    from rtpose_tpu_torch.ops.peaks import nms, peak_candidates
+
+    out = {}
+    heat_np, paf_np = scenes(8, 64, 64, grid=None, seed0=300)
+    hc_np, pc_np = scenes(8, 64, 64, grid=(5, 6), seed0=400)
+    default_caps = dict(max_peaks=32, max_candidates=256, max_total_conns=160,
+                        max_people=64)
+    for K, caps, (hn, pn) in ((32, default_caps, (heat_np, paf_np)),
+                              (64, RETRY_CAPS, (hc_np, pc_np))):
+        heat = torch.from_numpy(hn).to(dev)
+        paf = torch.from_numpy(pn).to(dev)
+        peaks = nms(heat, factor=4, max_peaks=K)
+        pk = (peaks.x, peaks.y, peaks.valid)
+        got = kernels.connection_scores(paf, *pk, factor=4)
+        want = kernels.connection_scores_plain(paf, *pk, factor=4)
+        check(int(got[1].sum()) > 0 and torch.equal(got[0], want[0])
+              and torch.equal(got[1], want[1]),
+              f"connection_scores at factor 4, K={K}, differs from plain")
+        ms, plain_ms = paired_ms(
+            lambda: kernels.connection_scores(paf, *pk, factor=4),
+            lambda: kernels.connection_scores_plain(paf, *pk, factor=4), 50)
+        b_ms, b_by = bound(*scores_work(paf, K))
+        fn = functools.partial(kernels.connection_scores, paf, *pk, factor=4)
+        out[f"connection_scores_K{K}"] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            device_ms=device_ms(fn, "connection_scores_kernel")[0],
+            host_ms=host_ms(fn), bound_ms=b_ms, bound_by=b_by)
+        # the grouping kernel on these candidates
+        s, v = score_connections(peaks, paf, factor=4)
+        args = (*sorted_candidates(s, v), peaks.x, peaks.y, peaks.score,
+                peaks.truncated)
+        gk = {k: val for k, val in caps.items() if k != "max_peaks"}
+        g_got = kernels.group_people(*args, **gk)
+        g_want = kernels.group_people_plain(*args, **gk)
+        check(all(torch.equal(a, b) for a, b in zip(g_got, g_want)),
+              f"group_people on the factor-4 candidates (K={K}) differs "
+              f"from plain")
+        g_ms, g_plain = paired_ms(
+            lambda: kernels.group_people(*args, **gk),
+            lambda: kernels.group_people_plain(*args, **gk), 10)
+        fn = functools.partial(kernels.group_people, *args, **gk)
+        out[f"group_people_K{K}"] = dict(
+            max_abs_err=0.0, ms=g_ms, plain_ms=g_plain,
+            device_ms=device_ms(fn, "group_people_kernel")[0],
+            host_ms=host_ms(fn))
+        hb = heat[..., :18].permute(0, 3, 1, 2).contiguous()
+        _, py, px, valid, _ = peak_candidates(hb, thresh=0.1, max_peaks=K)
+        rf = (hb, py, px, valid)
+        for blur, tag in ((False, ""), (True, "gaussian_filt_")):
+            r_got = kernels.bicubic_refine(*rf, factor=4, gaussian_filt=blur)
+            r_want = kernels.bicubic_refine_plain(*rf, factor=4,
+                                                  gaussian_filt=blur)
+            check(all(torch.equal(a, b) for a, b in zip(r_got, r_want)),
+                  f"bicubic_refine {tag}at factor 4, K={K}, differs from "
+                  f"plain")
+            r_ms, r_plain = paired_ms(
+                lambda: kernels.bicubic_refine(*rf, factor=4,
+                                               gaussian_filt=blur),
+                lambda: kernels.bicubic_refine_plain(*rf, factor=4,
+                                                     gaussian_filt=blur),
+                20 if blur else 50)
+            b_ms, b_by = bound(*refine_work(*rf, blur, factor=4))
+            fn = functools.partial(kernels.bicubic_refine, *rf, factor=4,
+                                   gaussian_filt=blur)
+            kname = "refine_blur_kernel" if blur else "refine_warp_kernel"
+            out[f"bicubic_refine_{tag}K{K}"] = dict(
+                max_abs_err=0.0, ms=r_ms, plain_ms=r_plain,
+                device_ms=device_ms(fn, kname)[0], host_ms=host_ms(fn),
+                bound_ms=b_ms, bound_by=b_by, valid=int(valid.sum()))
+    # K4 at stride 4: the hourglass batch of 32 on the 64x64 grid
+    kps = torch.from_numpy(train_batch(32, 256, seed=5)["keypoints"]).to(dev)
+    gt_args = dict(grid_y=64, grid_x=64, stride=4, sigma=4.416,
+                   limb_width=1.289)
+    limbs = kernels.limb_scalars(kps, 4, 1.289)
+    n_pers = kernels.person_bound(kps)
+    k_heat, k_paf = kernels.gt_maps(kps, **gt_args)
+    p_heat, p_paf = kernels.gt_maps_plain(kps, limbs, n_pers, **gt_args)
+    check(torch.equal(k_heat, p_heat) and torch.equal(k_paf, p_paf),
+          "gt_maps at stride 4 on the 64x64 grid differs from plain")
+    ms, plain_ms = paired_ms(
+        lambda: kernels.gt_maps(kps, **gt_args),
+        lambda: kernels.gt_maps_plain(kps, limbs, n_pers, **gt_args), 20)
+    b_ms, b_by = bound(*gt_work(kps, n_pers, 64, 64))
+    fn = functools.partial(kernels.gt_maps, kps, **gt_args)
+    out["gt_maps_stride4"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        device_ms=device_ms(fn, "gt_maps_kernel")[0], host_ms=host_ms(fn),
+        bound_ms=b_ms, bound_by=b_by)
+    # the retry through a pipeline at stride 4 and pad 64
+    hc, pc = torch.from_numpy(hc_np[:2]), torch.from_numpy(pc_np[:2])
+    crowd = PosePipeline(rendered_maps_model(hc, pc), device=dev,
+                         input_size=256, downsample=4, pad_factor=64,
+                         flip=False)
+    blank = [np.zeros((256, 256, 3), np.uint8)] * 2
+    kernels.reset_launch_counts()
+    people, metas = crowd.run_batch(blank)
+    torch.cuda.synchronize()
+    retry_counts = kernels.launch_counts()
+    want = people_to_host(decode_poses_batch(hc, pc, factor=4, **RETRY_CAPS))
+    check(all(m.get("retried") and not m["truncated"] for m in metas)
+          and [len(p) for p in people] == [int(v.sum()) for v in want.valid],
+          f"the stride-4 pipeline did not retry the crowded scenes to the "
+          f"CPU decode at RETRY_CAPS: {[m.get('retried') for m in metas]}")
+    check(retry_counts["connection_scores"] == 2,
+          f"first decode and retry should each launch connection_scores "
+          f"(K=32, then K=64): {retry_counts}")
+    out["retry_launches"] = retry_counts
+    rows = {k: {kk: (round(vv, 5) if isinstance(vv, float) else vv)
+                for kk, vv in v.items()} for k, v in out.items()
+            if k != "retry_launches"}
+    log(f"hourglass shapes (64x64 maps, factor and stride 4): K1 K=32, K2 "
+        f"K=64, K3 plain and blurred, grouping and K4 (batch 32) equal to "
+        f"their plain versions (error 0); the stride-4 pipeline retried "
+        f"the crowded scenes -> {[len(p) for p in people]} people, "
+        f"launches {retry_counts}; {json.dumps(rows)} [{smi}]")
+    return out
+
+
+def zoo_phase(dev, smi: str):
+    """Every other family through the port's entry points (see ZOO):
+    serving through ``run_batch`` (8 rendered-scene frames, flip, bf16,
+    seeded weights; the decode on the card equals the CPU's on the same
+    maps; K1, K3 and the grouping kernel launched), one fp32 forward card
+    vs CPU, one multi-scale chunk with its bytes per frame and pixel
+    against the family's cap, and training through ``Trainer`` (3 steps
+    and a val step, bf16; BatchNorm statistics move in train mode and
+    stay in eval mode; K4 launched and equal to plain on the batch; a
+    checkpoint that restores bit-equal) -> (launches per kernel per
+    family, the per-family numbers, the hourglass kernel rows)."""
+    import torch
+
+    from rtpose_tpu_torch.config import Config
+    from rtpose_tpu_torch.infer.pipeline import (MS_BYTES_PER_PIXEL,
+                                                 MS_SCALES, load_pipeline)
+    from rtpose_tpu_torch.infer.preprocess import normalize_device
+    from rtpose_tpu_torch.models import get_model
+    from rtpose_tpu_torch.models.common import he_reinit
+    from rtpose_tpu_torch.ops import kernels
+    from rtpose_tpu_torch.ops.decode import decode_poses_batch, people_to_host
+    from rtpose_tpu_torch.train.checkpoint import CheckpointManager
+    from rtpose_tpu_torch.train.trainer import Trainer
+
+    hg_rows = hourglass_kernels(dev, smi)
+    launches = {k: {} for k in ZOO_KERNELS}
+    numbers = {}
+
+    def wall_ms(fn, iters):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    for name, stages, px, stride, pad, train_bs in ZOO:
+        t_family = time.perf_counter()
+        # -- serving -------------------------------------------------------
+        pipe = load_pipeline(device=dev, model_name=name, num_stages=stages,
+                             input_size=px, flip=True, seed=0,
+                             downsample=stride, pad_factor=pad)
+        rendered = train_batch(8, px, seed=40)["image"]
+        frames = [np.ascontiguousarray(im[..., ::-1]) for im in rendered]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        people, metas = pipe.run_batch(frames)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for k in SERVING_KERNELS:
+            check(counts[k] > 0, f"{name}: run_batch did not launch {k}")
+            launches[k][name] = counts[k]
+        check(counts["gt_maps"] == 0, f"{name}: serving launched gt_maps")
+        g = px // stride
+        check(len(people) == 8 and all(m["padded_shape"][:2] ==
+                                       (px + (-px % (pad or stride)),) * 2
+                                       for m in metas),
+              f"{name}: run_batch results")
+        ticket = pipe.run_batch_submit(frames)
+        got = people_to_host(ticket[1])
+        want = people_to_host(decode_poses_batch(
+            ticket[2].cpu(), ticket[3].cpu(), factor=stride))
+        check(tuple(ticket[2].shape) == (8, g, g, 19)
+              and bool(torch.isfinite(ticket[2]).all())
+              and bool(torch.isfinite(ticket[3]).all()),
+              f"{name}: maps {tuple(ticket[2].shape)} not finite or not "
+              f"at stride {stride}")
+        people_equal(got, want, f"{name}: decode card vs CPU")
+        x = normalize_device(torch.from_numpy(np.stack(frames)).to(dev),
+                             "vgg")
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: pipe.model(x), 5)
+            # where the forward's time goes: the host's enqueue against
+            # the device kernels it launches
+            fwd_host_ms = host_ms(lambda: pipe.model(x), 5)
+            events = device_events(lambda: pipe.model(x), 3)
+            heat8, paf8 = ticket[2], ticket[3]
+            dec_ms = wall_ms(lambda: people_to_host(decode_poses_batch(
+                heat8, paf8, factor=stride)), 10)
+        run_ms = wall_ms(lambda: pipe.run_batch(frames), 5)
+        # -- multi-scale: one chunk of the 8 frames --------------------------
+        _, _, max_px = pipe._scale_sizes(px, px, MS_SCALES)
+        cap = pipe.ms_chunk_cap(max_px)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        ms_ticket = pipe.run_multiscale_batch_submit(frames, MS_SCALES)
+        torch.cuda.synchronize()
+        ms_cost = ((torch.cuda.max_memory_allocated() - base_bytes)
+                   / (8 * max_px))
+        ms_people = people_to_host(ms_ticket[1])
+        ms_want = people_to_host(decode_poses_batch(
+            ms_ticket[2].cpu(), ms_ticket[3].cpu(), factor=stride))
+        people_equal(ms_people, ms_want, f"{name}: multi-scale decode")
+        check(ms_cost <= MS_BYTES_PER_PIXEL,
+              f"{name}: a multi-scale chunk took {ms_cost:.1f} bytes per "
+              f"frame and pixel, more than MS_BYTES_PER_PIXEL "
+              f"{MS_BYTES_PER_PIXEL}")
+        del ms_ticket, ticket, pipe, x
+        # -- one fp32 forward, card vs CPU -----------------------------------
+        ref = get_model(name, num_stages=stages).eval()
+        if name in ZOO_HE:
+            he_reinit(ref, torch.Generator().manual_seed(1))
+        card = copy.deepcopy(ref).to(dev)
+        x1 = normalize_device(torch.from_numpy(frames[0][None].copy()), "vgg")
+        with torch.inference_mode():
+            w_out, g_out = ref(x1), card(x1.to(dev))
+        fwd_rel = 0.0
+        for field in ("pafs", "heatmaps"):
+            w_, g_ = getattr(w_out, field), getattr(g_out, field).cpu()
+            scale = float(w_.abs().max())
+            check(scale > 0 and math.isfinite(scale),
+                  f"{name}: fp32 CPU forward {field} max {scale}")
+            fwd_rel = max(fwd_rel, float((g_ - w_).abs().max()) / scale)
+        check(fwd_rel <= FWD_REL_TOL,
+              f"{name}: fp32 forward card vs CPU rel err {fwd_rel}")
+        del ref, card, w_out, g_out
+        # -- training --------------------------------------------------------
+        cfg = Config()
+        cfg.model.name, cfg.model.num_stages = name, stages
+        cfg.model.downsample, cfg.dataset.image_size = stride, px
+        cfg.train.batch_size, cfg.train.freeze_base_epochs = train_bs, 0
+        cfg.train.lr = 2e-4 if name == "hourglass" else 1e-3
+        if name == "hourglass":         # experiments/hourglass_256x256.yaml
+            cfg.dataset.sigma, cfg.dataset.limb_width = 4.416, 1.289
+            cfg.dataset.rotate_degrees = 0.0
+            cfg.train.masked_loss = True
+        tb = train_batch(train_bs, px, seed=7)
+        mask = np.ones((train_bs, g, g, 1), np.float32)
+        mask[1::2, : g // 4] = 0.0          # a crowd band on half the batch
+        step_args = (tb["image"], tb["keypoints"], mask, tb["valid_xywh"])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, device=dev)
+
+        def bn_stats(tr):
+            return [b.detach().clone() for n, b in
+                    tr.model.named_buffers() if n.endswith("running_var")]
+
+        stats0 = bn_stats(trainer)
+        kernels.reset_launch_counts()
+        losses = [trainer.train_step(*step_args)["loss"]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [trainer.train_step(*step_args)["loss"] for _ in range(2)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 2
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats1 = bn_stats(trainer)
+        val = trainer.eval_step(*step_args)
+        stats2 = bn_stats(trainer)
+        torch.cuda.synchronize()
+        t_counts = kernels.launch_counts()
+        launches["gt_maps"][name] = t_counts["gt_maps"]
+        check(all(math.isfinite(v) for v in losses + [val["loss"]]),
+              f"{name}: training losses {losses}, val {val['loss']}")
+        check(t_counts["gt_maps"] == 4,
+              f"{name}: 3 train steps and a val step should launch gt_maps "
+              f"4 times: {t_counts}")
+        if stats0:
+            check(all(not torch.equal(a, b) for a, b in zip(stats0, stats1)),
+                  f"{name}: BatchNorm statistics did not move in train mode")
+            check(all(torch.equal(a, b) for a, b in zip(stats1, stats2)),
+                  f"{name}: BatchNorm statistics moved in eval mode")
+        kps = torch.from_numpy(tb["keypoints"]).to(dev)
+        gt_args = dict(grid_y=g, grid_x=g, stride=stride,
+                       sigma=cfg.dataset.sigma,
+                       limb_width=cfg.dataset.limb_width)
+        k_maps = kernels.gt_maps(kps, **gt_args)
+        p_maps = kernels.gt_maps_plain(
+            kps, kernels.limb_scalars(kps, stride, cfg.dataset.limb_width),
+            kernels.person_bound(kps), **gt_args)
+        check(all(torch.equal(a, b) for a, b in zip(k_maps, p_maps)),
+              f"{name}: gt_maps on the training batch differs from plain")
+        ckpt_dir = os.path.join(ROOT, "checkpoints", f"chip_smoke_{name}")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        ckpt = CheckpointManager(ckpt_dir, keep=1)
+        ckpt.save(trainer.state_dict(), step=trainer.step,
+                  meta={"epoch": 0})
+        fresh = Trainer(cfg, device=dev)
+        fresh.restore(ckpt.restore_latest(dev))
+        shutil.rmtree(ckpt_dir)
+        a_sd, b_sd = trainer.model.state_dict(), fresh.model.state_dict()
+        check(a_sd.keys() == b_sd.keys()
+              and all(torch.equal(a_sd[k], b_sd[k]) for k in a_sd),
+              f"{name}: the restored model differs")
+        next_losses = (trainer.train_step(*step_args)["loss"],
+                       fresh.train_step(*step_args)["loss"])
+        check(next_losses[0] == next_losses[1],
+              f"{name}: restored trainer's next loss {next_losses}")
+        del trainer, fresh, a_sd, b_sd, kps, k_maps, p_maps
+        torch.cuda.empty_cache()
+        numbers[name] = dict(
+            forward_ms_per_8=fwd_ms, forward_host_ms=fwd_host_ms,
+            forward_kernels=sum(n for n, _ in events.values()) / 3,
+            forward_device_ms=sum(us for _, us in events.values()) / 3e3,
+            run_batch_ms_per_8=run_ms,
+            decode_ms_per_8=dec_ms, train_ms_per_step=step_ms,
+            train_img_per_s=train_bs * 1e3 / step_ms, train_batch=train_bs,
+            peak_gib=peak_gib, ms_bytes_per_frame_pixel=ms_cost,
+            ms_chunk_cap=cap,
+            fp32_forward_rel_err=fwd_rel, losses=losses + [val["loss"]],
+            serving_launches={k: counts[k] for k in SERVING_KERNELS},
+            seconds=time.perf_counter() - t_family)
+        log(f"zoo {name} ({px} px, stride {stride}, bf16): forward "
+            f"{fwd_ms:.2f} ms per 8 frames (flip off; host enqueue "
+            f"{fwd_host_ms:.2f} ms, {numbers[name]['forward_kernels']:.0f} "
+            f"device kernels summing "
+            f"{numbers[name]['forward_device_ms']:.2f} ms); run_batch "
+            f"{run_ms:.2f} ms per 8 frames (flip); decode {dec_ms:.3f} ms "
+            f"per 8; card == CPU decode ({int(got.valid.sum())} people); "
+            f"fp32 forward card vs CPU rel err {fwd_rel:.3g}; multi-scale "
+            f"{ms_cost:.1f} bytes per frame and pixel (MS_BYTES_PER_PIXEL "
+            f"{MS_BYTES_PER_PIXEL}, chunk cap {cap}); train batch "
+            f"{train_bs}: {step_ms:.1f} ms/step = "
+            f"{train_bs * 1e3 / step_ms:.1f} img/s, peak {peak_gib:.2f} GiB, "
+            f"losses {[round(v, 5) for v in losses]} val "
+            f"{val['loss']:.5f}; launches serving "
+            f"{numbers[name]['serving_launches']} training gt_maps "
+            f"{t_counts['gt_maps']}; {numbers[name]['seconds']:.1f} s "
+            f"[{smi}]")
+    return launches, numbers, hg_rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1761,6 +2180,11 @@ def main() -> int:
         f"updates: L2 error over L2 norm at most {upd:.3g} per tensor "
         f"(at {worst}; bound {STEP_UPD_TOL})")
 
+    # 11. the model zoo: every other family served, multi-scale, fp32
+    # card vs CPU, trained; and the kernels on hourglass's factor-4 and
+    # stride-4 shapes
+    zoo_launches, zoo_numbers, hg_rows = zoo_phase(dev, smi)
+
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
         "connection_scores": ("rtpose_tpu_torch/csrc/connection_scores.cu",
                               "rtpose_tpu/ops/pallas_kernels.py:214",
@@ -1780,10 +2204,19 @@ def main() -> int:
     # truncated int(a + s * step + 0.5) // 8 cells are not grid_sample's;
     # K3 is a gather, a bicubic upsample with cv2's border and an argmax;
     # K4 a masked scatter-sum)
+    hourglass = {   # kernel -> its rows on hourglass's shapes
+        "connection_scores": {k: hg_rows[f"connection_scores_K{k}"]
+                              for k in (32, 64)},
+        "bicubic_refine": {"plain": hg_rows["bicubic_refine_K32"],
+                           "gaussian_filt": hg_rows[
+                               "bicubic_refine_gaussian_filt_K32"]},
+        "gt_maps": hg_rows["gt_maps_stride4"]}
     rows = [dict(name=name, route="cuda", source=src, replaces=rep,
                  launches=launches[name],
                  eval_launches={k: c[name] for k, c in eval_counts.items()},
+                 zoo_launches=zoo_launches[name],
                  **results[name], library_ms=None,
+                 hourglass_factor4=hourglass[name],
                  **({"also_replaces": also} if also else {}))
             for name, (src, rep, also) in sources.items()]
     # the grouping kernel replaces no TPU kernel but the two lax.scans of
@@ -1799,10 +2232,14 @@ def main() -> int:
         launches=counts["group_people"],
         multiscale_launches=ms_counts["group_people"],
         eval_launches={k: c["group_people"] for k, c in eval_counts.items()},
+        zoo_launches=zoo_launches["group_people"],
+        hourglass_factor4={k: hg_rows[f"group_people_K{k}"]
+                           for k in (32, 64)},
         **results["group_people"], library_ms=None,
         selftest_latency_ms=selftest_ms)
     left = descendants()
     check(not left, f"processes still running: {left}")
+    print(json.dumps({"zoo": zoo_numbers}), flush=True)
     print(json.dumps({"kernels_beyond_tpu": [group_row]}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

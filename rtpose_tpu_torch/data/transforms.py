@@ -219,14 +219,15 @@ class RandomRotate(Transform):
     transforms.py:403-480).  Not ported, so constructing it raises: the
     JAX package rotates with ``cv2.warpAffine`` (INTER_CUBIC,
     BORDER_CONSTANT), which the port may not import.  A cv2-free warp equal
-    to cv2's to the bit comes with the hourglass family (ROADMAP.md queue 1
-    item 7), the one shipped experiment that rotates."""
+    to cv2's to the bit is ROADMAP.md queue 1 item 10; the hourglass
+    experiment, the one shipped experiment that rotates, trains with
+    ``dataset.rotate_degrees=0`` until then."""
 
     def __init__(self, max_degrees: float = 40.0):
         raise NotImplementedError(
             "RandomRotate is not ported: it needs a cv2-free warpAffine "
             "(INTER_CUBIC, BORDER_CONSTANT) equal to cv2's to the bit, "
-            "ROADMAP.md queue 1 item 7 (hourglass)")
+            "ROADMAP.md queue 1 item 10")
 
 
 def adjust_hue(img: PIL.Image.Image, hue_factor: float) -> PIL.Image.Image:

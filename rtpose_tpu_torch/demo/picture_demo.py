@@ -19,17 +19,20 @@ def build_pipeline(args):
     ``--fp32`` builds the model in fp32 and turns TF32 off for cuDNN
     convolutions and matmuls, process-wide: cuDNN convolves fp32 in TF32
     by default.  ``--device-resize`` has no effect: the port always
-    resizes on the card."""
+    resizes on the card.  Any family of ``models.get_model``: hourglass
+    serves at stride 4 (rtpose_tpu/demo/picture_demo.py:26-32), the
+    others at stride 8; the pipeline pads each family's inputs to the
+    multiple it needs (hourglass 64)."""
     import os
 
     import torch
 
     from ..infer.pipeline import load_pipeline
+    from ..models import FAMILIES
 
-    if args.model != "vgg19":
-        raise SystemExit(
-            f"--model {args.model}: the port has the VGG19 family only; "
-            f"the other six come with ROADMAP.md queue 1 item 7")
+    if args.model not in FAMILIES:
+        raise SystemExit(f"--model {args.model}: unknown model family; "
+                         f"known: {', '.join(FAMILIES)}")
     if args.fp32:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -42,7 +45,8 @@ def build_pipeline(args):
         input_size=args.input_size, preprocess_mode=args.preprocess,
         flip=args.flip,
         dtype=torch.float32 if args.fp32 else torch.bfloat16,
-        downsample=getattr(args, "downsample", 0) or 8,
+        downsample=getattr(args, "downsample", 0) or (
+            4 if args.model == "hourglass" else 8),
         pad_factor=getattr(args, "pad_to", 0),
         gaussian_filt=getattr(args, "gaussian_filt", False))
     if args.weight:
@@ -56,7 +60,9 @@ FP32_HELP = ("fp32 model with TF32 off (cuDNN convolves fp32 in TF32 by "
 
 def add_common_args(parser):
     parser.add_argument("--model", default="vgg19",
-                        help="model family (the port has vgg19)")
+                        help="model family: vgg19, mobilenet, hourglass, "
+                             "shufflenet_v2, openpose_v2, atrous_resnet50, "
+                             "atrous_cpm, atrous_cpm_shared")
     parser.add_argument("--weight", default=None,
                         help="reference .pth/.ckpt, or a directory of the "
                              "port's training checkpoints (best step)")
@@ -64,7 +70,7 @@ def add_common_args(parser):
                         choices=["rtpose", "vgg", "inception", "ssd"])
     parser.add_argument("--input-size", type=int, default=368)
     parser.add_argument("--stages", type=int, default=6,
-                        help="refinement stages")
+                        help="refinement stages / stacks")
     parser.add_argument("--flip", action="store_true",
                         help="left/right flip TTA")
     parser.add_argument("--gaussian-filt", action="store_true",
@@ -75,6 +81,7 @@ def add_common_args(parser):
                         help="accepted for the JAX CLI's sake; no effect: "
                              "the port always resizes on the card")
     parser.add_argument("--downsample", type=int, default=0,
-                        help="model output stride (0 = 8, VGG19's)")
+                        help="model output stride (0 = by model family: "
+                             "4 for hourglass, 8 otherwise)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu for tests)")

@@ -28,13 +28,16 @@ def main():
                              "JAX package checkpoint: export it with "
                              "scripts/export_jax_checkpoint.py")
     parser.add_argument("--model", default="vgg19",
-                        help="model family (the port has vgg19)")
+                        help="model family: vgg19, mobilenet, hourglass, "
+                             "shufflenet_v2, openpose_v2, atrous_resnet50, "
+                             "atrous_cpm, atrous_cpm_shared")
     parser.add_argument("--preprocess", default="vgg")
     parser.add_argument("--input-size", type=int, default=368)
     parser.add_argument("--stages", type=int, default=6,
-                        help="refinement stages")
+                        help="refinement stages / stacks")
     parser.add_argument("--downsample", type=int, default=0,
-                        help="model output stride (0 = 8, VGG19's)")
+                        help="model output stride (0 = by model family: "
+                             "4 for hourglass, 8 otherwise)")
     parser.add_argument("--batch", type=int, default=0,
                         help=">0: batched bucketed eval "
                              "(harness.run_eval_batched)")

@@ -26,6 +26,7 @@ Resizing always runs on the card: the JAX package's host resize is
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -34,7 +35,9 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..models import get_model
-from ..models.convert import load_torch_checkpoint, state_dict_from_flax
+from ..models.common import cast_compute
+from ..models.convert import (load_strict, load_torch_checkpoint,
+                              state_dict_from_flax)
 from ..ops.decode import (decode_poses_batch, people_row, people_to_host,
                           people_to_numpy, read_back)
 from ..ops.kernels import true_div
@@ -57,10 +60,12 @@ RETRY_CAPS = dict(max_peaks=64, max_candidates=1024,
 
 MS_SCALES = (0.5, 1.0, 1.5, 2.0)
 # Device memory a stacked multi-scale chunk holds, in bytes per frame and
-# pixel of its largest scaled (padded) input, for a bf16 model with flip
+# pixel of its largest scaled (padded) input, for a bf16 VGG19 with flip
 # TTA: the peak of the largest scale's batch-2B forward (its conv1
 # activations dominate).  Measured with chip_smoke.py (PERF.md §5); the
-# cost scales with the compute type's width and halves without flip.
+# cost scales with the compute type's width and halves without flip.  It
+# bounds every family of the zoo too (chip_smoke.py's zoo phase measures
+# each: 207.6-640.0 on an H100, openpose_v2 the most).
 MS_BYTES_PER_PIXEL = 768
 MS_MEMORY_SHARE = 0.8      # of the card's available memory a chunk may use
 # On the CPU there is no device memory to ask: a stated budget
@@ -139,14 +144,17 @@ def load_pipeline(checkpoint_dir: Optional[str] = None, *, device="cuda",
                   input_size: int = 368, preprocess_mode: str = "vgg",
                   flip: bool = True, dtype: torch.dtype = torch.bfloat16,
                   **kwargs) -> "PosePipeline":
-    """Build a serving pipeline on `device` from one weight source: the
-    best step of a directory of the port's training checkpoints
-    (`checkpoint_dir`, ``train/checkpoint.py``), a reference
-    ``.pth``/``.ckpt`` (`torch_weights`; a JAX package checkpoint comes
-    through ``scripts/export_jax_checkpoint.py`` as one), a flax parameter
-    tree as numpy (`flax_params`), or N(0, 0.01) weights drawn from `seed`
-    (seed 0 when no source is given).  Every load is strict.  `dtype` is
-    the compute type."""
+    """Build a serving pipeline on `device` for the family `model_name`
+    (``models.get_model``; `num_stages` is hourglass's stack count) from
+    one weight source: the best step of a directory of the port's training
+    checkpoints (`checkpoint_dir`, ``train/checkpoint.py``), a reference
+    ``.pth``/``.ckpt`` or a port state_dict (`torch_weights`; a JAX
+    package checkpoint comes through ``scripts/export_jax_checkpoint.py``
+    as one), flax variables as numpy (`flax_params`), or the family's
+    initial weights drawn from `seed` (seed 0 when no source is given).
+    Every load is strict.  `dtype` is the compute type.  The maps'
+    stride is `downsample` (4 for hourglass), passed on to
+    :class:`PosePipeline`, which pads to the model's ``pad_multiple``."""
     if sum(x is not None for x in (checkpoint_dir, torch_weights,
                                    flax_params, seed)) > 1:
         raise ValueError(
@@ -156,15 +164,14 @@ def load_pipeline(checkpoint_dir: Optional[str] = None, *, device="cuda",
     model = get_model(model_name, num_stages=num_stages, dtype=dtype,
                       generator=torch.Generator().manual_seed(seed or 0))
     if checkpoint_dir is not None:
-        model.load_state_dict(best_model_state(checkpoint_dir), strict=True)
+        load_strict(model, best_model_state(checkpoint_dir))
     elif torch_weights is not None:
-        model.load_state_dict(load_torch_checkpoint(torch_weights),
-                              strict=True)
+        load_strict(model, load_torch_checkpoint(torch_weights))
     elif flax_params is not None:
-        model.load_state_dict(state_dict_from_flax(flax_params), strict=True)
-    # weights stored in the compute type: the same rounding flax applies
-    # to its fp32 parameters on every call, paid once
-    model = model.to(device=dev, dtype=dtype)
+        load_strict(model, state_dict_from_flax(flax_params,
+                                                model_name=model_name))
+    # weights but BatchNorm's stored in the compute type (cast_compute)
+    model = cast_compute(model.to(dev), dtype)
     if dev.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
     return PosePipeline(model, device=dev, input_size=input_size,
@@ -181,8 +188,10 @@ class PosePipeline:
     and meta['truncated'] reports the state after the retry.
     `gaussian_filt` (default off, as in the reference) selects the blurred
     peak refine for the first decode and the retry alike.  `pad_factor`
-    (default `downsample`) is the multiple every padded input must have
-    (hourglass: 64); the maps stay at stride `downsample`.
+    (default `downsample`) is the multiple every padded input must have,
+    raised to a multiple of the model's ``pad_multiple`` where it states
+    one (hourglass 64, atrous_resnet50 16); the maps stay at stride
+    `downsample`.
     Multi-scale TTA (:meth:`run_multiscale`, :meth:`run_multiscale_batch`)
     decodes with the same caps and retries the same way.
     """
@@ -198,7 +207,12 @@ class PosePipeline:
         self.model = model.to(self.device).eval()
         self.input_size = input_size
         self.downsample = downsample
-        self.pad_factor = pad_factor or downsample
+        # a family whose forward needs more than the stride states the
+        # multiple its padded input must have (hourglass 64: four 2x2
+        # pools at stride 4; atrous_resnet50 16: its stride-16 branch is
+        # upsampled 2x onto the stride-8 one)
+        self.pad_factor = math.lcm(pad_factor or downsample,
+                                   getattr(model, "pad_multiple", 1))
         self.preprocess_mode = preprocess_mode
         self.flip = flip
         self._decode_kwargs = dict(
@@ -384,8 +398,11 @@ class PosePipeline:
         type's width and by flip).  On the card the memory is
         :data:`MS_MEMORY_SHARE` of what is free now, the allocator's cached
         blocks included; on the CPU it is :data:`MS_HOST_MEMORY_BUDGET`."""
-        param = next(self.model.parameters(), None)
-        width = 4 if param is None else param.element_size()
+        dtype = getattr(self.model, "dtype", None)
+        if not isinstance(dtype, torch.dtype):
+            param = next(self.model.parameters(), None)
+            dtype = torch.float32 if param is None else param.dtype
+        width = torch.empty((), dtype=dtype).element_size()
         per_frame = (max_px * MS_BYTES_PER_PIXEL * (width / 2)
                      * (1.0 if self.flip else 0.5))
         if self.device.type == "cuda":

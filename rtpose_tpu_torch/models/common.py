@@ -43,31 +43,166 @@ class ModelOutput:
         return self.heatmaps[-1]
 
 
-class Conv(nn.Conv2d):
-    """``nn.Conv2d`` with 'SAME' padding whose weights follow the input's
-    dtype (flax's compute-dtype cast), state_dict-compatible with
-    ``nn.Conv2d``.  Initialised by :func:`conv_init`, not by PyTorch's
-    default (which would draw 50M numbers only to overwrite them)."""
+def same_pads(n: int, k: int, stride: int = 1, dilation: int = 1):
+    """flax/XLA 'SAME' padding of a side of `n` for a window of `k` taps,
+    as (before, after): ``total = max((ceil(n/s) - 1)*s + k_eff - n, 0)``,
+    ``total // 2`` before and the rest after.  With stride 2 it is
+    asymmetric (k=3 on an even side: 0 before, 1 after)."""
+    k_eff = (k - 1) * dilation + 1
+    total = max((-(-n // stride) - 1) * stride + k_eff - n, 0)
+    return total // 2, total - total // 2
 
-    def __init__(self, cin: int, cout: int, k: int):
-        super().__init__(cin, cout, k, padding=k // 2)
+
+def _pad_same(x: torch.Tensor, k: int, stride: int, dilation: int = 1,
+              value: float = 0.0):
+    """Pad an NCHW tensor for a 'SAME' window -> (x, the symmetric
+    padding left for the op to apply, or 0 once `x` is padded here)."""
+    (t, b), (l, r) = (same_pads(n, k, stride, dilation)
+                      for n in x.shape[-2:])
+    if t == b and l == r and value == 0.0:
+        return x, (t, l)
+    return F.pad(x, (l, r, t, b), value=value), 0
+
+
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` with flax's 'SAME' padding (asymmetric where flax's
+    is, for strided convolutions) whose weights follow the input's dtype
+    (flax's compute-dtype cast), state_dict-compatible with
+    ``nn.Conv2d``.  `init` names the flax initializer :func:`conv_init`
+    draws the weights from: ``"normal"`` N(0, 0.01) (the JAX package's
+    ``conv_init``), ``"lecun"`` flax's default truncated ``lecun_normal``,
+    ``"kaiming"`` flax's ``kaiming_uniform``; biases start at 0.
+    PyTorch's own initialisation is skipped (it would draw millions of
+    numbers only to overwrite them)."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 dilation: int = 1, groups: int = 1, bias: bool = True,
+                 init: str = "normal"):
+        super().__init__(cin, cout, k, stride=stride,
+                         padding=((k - 1) * dilation) // 2,
+                         dilation=dilation, groups=groups, bias=bias)
+        self.init = init
 
     def reset_parameters(self) -> None:
         pass
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        padding=self.padding)
+        k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
+        x, pad = _pad_same(x, k, s, d)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, s, pad, d,
+                        self.groups)
+
+
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` (momentum 0.99, epsilon 1e-5) over NCHW.
+
+    Train mode normalises with the batch's statistics and moves the
+    running ones by ``0.99 * old + 0.01 * batch``, with the *biased*
+    batch variance as flax keeps it (``nn.BatchNorm2d`` keeps the
+    unbiased one, and moves by 0.1); eval mode normalises with the
+    running statistics.  Statistics, scale and bias stay fp32 in a bf16
+    model and the reduction runs in fp32 (flax's
+    ``force_float32_reductions``); the output has the input's dtype.
+    Keys: ``weight`` (flax ``scale``), ``bias``, ``running_mean``,
+    ``running_var``."""
+
+    momentum = 0.99
+    eps = 1e-5
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        # momentum 1 leaves the batch's mean and unbiased variance in the
+        # scratch buffers; the running update is flax's, on the biased one
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            keep = self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+            self.running_var.mul_(keep).add_(
+                var, alpha=(1.0 - keep) * (n - 1) / n)
+        return y
+
+
+class PReLU(nn.Module):
+    """Per-channel PReLU with slopes initialised to 0.25 (the ``PReLU`` of
+    rtpose_tpu/models/openpose_v2.py); the slope is cast to the input's
+    dtype, as flax casts ``alpha``."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((channels,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.prelu(x, self.weight.to(x.dtype))
+
+
+def max_pool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """``nn.max_pool(..., padding="SAME")``: -inf padding, flax's split."""
+    x, pad = _pad_same(x, k, stride, value=float("-inf"))
+    return F.max_pool2d(x, k, stride, pad)
+
+
+def avg_pool_same(x: torch.Tensor, k: int, stride: int = 1) -> torch.Tensor:
+    """``nn.avg_pool(..., padding="SAME")``: zero padding counted in the
+    mean, as flax counts it."""
+    x, pad = _pad_same(x, k, stride)
+    return F.avg_pool2d(x, k, stride, pad, count_include_pad=True)
+
+
+def nchw_to_output(pafs: List[torch.Tensor],
+                   heats: List[torch.Tensor]) -> ModelOutput:
+    """Per-stage NCHW maps -> :class:`ModelOutput`, (S, B, h, w, C) fp32."""
+    def stack(maps):
+        return torch.stack([m.float() for m in maps]).permute(0, 1, 3, 4, 2)
+
+    return ModelOutput(pafs=stack(pafs), heatmaps=stack(heats))
 
 
 @torch.no_grad()
 def conv_init(module: nn.Module, generator: torch.Generator) -> None:
-    """N(0, 0.01) weights and zero biases for every conv of `module`, in
-    module order (reference rtpose_vgg.py:200-206)."""
+    """Draw every conv of `module`, in module order, from its flax
+    initializer (:class:`Conv` ``init``; N(0, 0.01) is reference
+    rtpose_vgg.py:200-206); biases start at 0."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if not isinstance(m, nn.Conv2d):
+            continue
+        kind = getattr(m, "init", "normal")
+        fan_in = m.weight[0].numel()
+        if kind == "normal":
             m.weight.normal_(0.0, 0.01, generator=generator)
+        elif kind == "lecun":
+            # flax's variance_scaling(1, fan_in, truncated_normal): a
+            # normal cut at +-2 std has 0.8796 of the uncut one's std
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+        elif kind == "kaiming":
+            bound = (6.0 / fan_in) ** 0.5
+            m.weight.uniform_(-bound, bound, generator=generator)
+        else:
+            raise ValueError(f"unknown conv init {kind!r}")
+        if m.bias is not None:
             m.bias.zero_()
+
+
+# per-family prediction-head module names (rtpose_tpu/models/common.py:
+# 87-97): CPM stages and the dense and dilated blocks name theirs "out",
+# hourglass "score_paf{i}" / "score_ht{i}", shufflenet "paf" / "heatmap"
+HEAD_NAMES = ("out", "paf", "heatmap")
+HEAD_PREFIXES = ("score_paf", "score_ht")
 
 
 @torch.no_grad()
@@ -78,16 +213,34 @@ def he_reinit(module: nn.Module, generator: torch.Generator) -> None:
     The reference's N(0, 0.01) init pairs with the ImageNet-pretrained
     trunk; from scratch, activations decay through the 10-conv trunk and
     the network cannot train (``cfg.model.init_scheme = "scratch"``).  The
-    output head of every stage branch keeps its reference init, so the
-    first predictions sit near the background and the loss starts small;
-    biases are left as they are.
+    output heads of every family keep their reference init (the last conv
+    of a VGG19 stage branch, and the modules :data:`HEAD_NAMES` and
+    :data:`HEAD_PREFIXES` name), so the first predictions sit near the
+    background and the loss starts small; biases and BatchNorm parameters
+    are left as they are.
     """
     heads = {id(m[-1]) for m in module.modules()
              if isinstance(m, (CPMStage1, CPMStageT))}
-    for m in module.modules():
-        if isinstance(m, nn.Conv2d) and id(m) not in heads:
-            fan_in = m.weight[0].numel()
-            m.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=generator)
+    for name, m in module.named_modules():
+        if not isinstance(m, nn.Conv2d) or id(m) in heads:
+            continue
+        if any(p in HEAD_NAMES or p.startswith(HEAD_PREFIXES)
+               for p in name.split(".")):
+            continue
+        fan_in = m.weight[0].numel()
+        m.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=generator)
+
+
+def cast_compute(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Store the weights of every module but :class:`BatchNorm` in the
+    compute type, in place: the rounding flax applies to its fp32
+    parameters on every call, paid once.  BatchNorm keeps its fp32
+    scale, bias and statistics, as flax does."""
+    for m in model.modules():
+        if not isinstance(m, BatchNorm):
+            for p in m.parameters(recurse=False):
+                p.data = p.data.to(dtype)
+    return model
 
 
 def _branch(layers: List[nn.Module]) -> List[nn.Module]:
@@ -165,7 +318,4 @@ class CPMStages(nn.Module):
                 else:
                     out.append(fn(x))
 
-        def stack(maps):   # NCHW stages -> (S, B, h, w, C) fp32
-            return torch.stack(maps).permute(0, 1, 3, 4, 2).float()
-
-        return ModelOutput(pafs=stack(pafs), heatmaps=stack(heats))
+        return nchw_to_output(pafs, heats)

@@ -1,8 +1,11 @@
 """Carry weights into the port (port of rtpose_tpu/models/import_torch.py).
 
-- :func:`state_dict_from_flax`: a flax VGG19RTPose parameter tree, as
-  numpy, to this package's state_dict (HWIO -> OIHW).  This is how the
-  JAX package's parameters cross over for parity checks.
+- :func:`state_dict_from_flax`: a flax model's variables (``params``
+  and, for the BatchNorm families, ``batch_stats``), as numpy, to this
+  package's state_dict of the same family (HWIO -> OIHW).  This is how
+  the JAX package's parameters cross over for parity checks.
+- :func:`load_strict`: a state_dict into a model, every key consumed and
+  every shape checked before anything is written.
 - :func:`load_torch_checkpoint`: a reference ``pose_model.pth`` (raw
   state_dict) or a lightning checkpoint (``state_dict`` with ``model.``
   key prefix, reference evaluate/evaluation.py:12-18).
@@ -49,10 +52,7 @@ def torch_layout_map(num_stages: int = 6
     return mapping
 
 
-def state_dict_from_flax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
-    """flax VGG19RTPose params (numpy leaves; with or without the
-    ``params`` root) -> this package's VGG19RTPose state_dict (fp32)."""
-    root = params["params"] if "params" in params else params
+def _vgg19_state_dict(root: Mapping) -> "OrderedDict[str, torch.Tensor]":
     num_stages = sum(1 for k in root["stages"] if k.endswith("_L1"))
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for prefix, path in torch_layout_map(num_stages):
@@ -65,6 +65,90 @@ def state_dict_from_flax(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
         out[f"{prefix}.bias"] = torch.from_numpy(
             np.asarray(leaf["bias"], np.float32).copy())
     return out
+
+
+# flax's auto-named submodules -> the port's attribute names
+_AUTO_NAMES = {"Conv_0": "conv", "BatchNorm_0": "bn", "PReLU_0": "prelu"}
+# flax leaf -> the port's parameter or buffer
+_LEAF_NAMES = {"kernel": "weight", "bias": "bias", "scale": "weight",
+               "alpha": "weight", "mean": "running_mean",
+               "var": "running_var"}
+# CPMStages (mobilenet's ``stages``): flax stage{t}_L{b}/<conv> -> the
+# reference layout model{t}_{b}.<Sequential index>
+_STAGE1_SEQ_OF = dict(zip(_STAGE1_NAMES, _STAGE1_SEQ))
+_STAGET_SEQ_OF = dict(zip(_STAGET_NAMES, _STAGET_SEQ))
+
+
+def _port_module(mods: List[str]) -> str:
+    mods = [_AUTO_NAMES.get(m, m) for m in mods]
+    if len(mods) == 3 and mods[0] == "stages" and mods[1].startswith(
+            "stage") and mods[1][-3:] in ("_L1", "_L2"):
+        t = int(mods[1][len("stage"):-3])
+        seq = (_STAGE1_SEQ_OF if t == 1 else _STAGET_SEQ_OF)[mods[2]]
+        mods = ["stages", f"model{t}_{mods[1][-1]}", str(seq)]
+    return ".".join(mods)
+
+
+def _leaves(tree: Mapping, path=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def state_dict_from_flax(variables: Mapping, model_name: str = "vgg19"
+                         ) -> "OrderedDict[str, torch.Tensor]":
+    """flax variables of family `model_name` (numpy leaves; ``params``
+    and ``batch_stats``, or a bare ``params`` tree) -> this package's
+    state_dict of that family, fp32.
+
+    VGG19 goes to the reference ``rtpose_model`` layout.  Every other
+    family's modules carry the flax names, so a flax path maps to the
+    same key: flax's auto-named ``Conv_0`` / ``BatchNorm_0`` /
+    ``PReLU_0`` are ``conv`` / ``bn`` / ``prelu``; conv kernels go HWIO
+    -> OIHW (a depthwise ``(kh, kw, 1, C)`` to ``(C, 1, kh, kw)``);
+    BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var`` become ``weight`` /
+    ``bias`` / ``running_mean`` / ``running_var``; a PReLU ``alpha`` its
+    ``weight``; mobilenet's CPM stages take the reference layout."""
+    if "params" in variables:
+        collections = [variables["params"], variables.get("batch_stats", {})]
+    else:
+        collections = [variables]
+    if model_name == "vgg19":
+        return _vgg19_state_dict(collections[0])
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for tree in collections:
+        for path, leaf in _leaves(tree):
+            arr = np.asarray(leaf, np.float32)
+            if path[-1] == "kernel":
+                arr = arr.transpose(3, 2, 0, 1)
+            key = f"{_port_module(list(path[:-1]))}.{_LEAF_NAMES[path[-1]]}"
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def load_strict(model: torch.nn.Module,
+                state_dict: Mapping[str, torch.Tensor]) -> torch.nn.Module:
+    """Load `state_dict` into `model`: every key of each must be in the
+    other and every shape equal, checked before anything is written
+    (``load_state_dict(strict=True)`` writes what fits before it raises).
+    Raises ``ValueError`` naming the keys that do not match."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(state_dict))
+    extra = sorted(set(state_dict) - set(own))
+    shapes = [f"{k}: {tuple(state_dict[k].shape)} vs {tuple(v.shape)}"
+              for k, v in own.items()
+              if k in state_dict and tuple(state_dict[k].shape)
+              != tuple(v.shape)]
+    if missing or extra or shapes:
+        raise ValueError(
+            f"state_dict does not fit {type(model).__name__}: missing "
+            f"{missing[:8]}{' ...' if len(missing) > 8 else ''}, "
+            f"unexpected {extra[:8]}{' ...' if len(extra) > 8 else ''}, "
+            f"shapes {shapes[:8]}")
+    model.load_state_dict(state_dict, strict=True)
+    return model
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:

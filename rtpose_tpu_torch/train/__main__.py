@@ -4,8 +4,12 @@ reference train/train_VGG19.py entry).
     python -m rtpose_tpu_torch.train --config experiments/vgg19_368x368_sgd.yaml \\
         --set dataset.train_image_dir=/data/coco/train2017 ...
 
-Trains on the card (``--device cuda``, the default); ``--device cpu`` for
-tests.  Batches come from :class:`~rtpose_tpu_torch.data.dataset.Loader`
+Trains any model family (``model.name``; e.g.
+``experiments/shufflenet_v2_368x368.yaml``, or
+``experiments/hourglass_256x256.yaml`` with ``--set
+dataset.rotate_degrees=0`` until ``RandomRotate`` is ported) on the card
+(``--device cuda``, the default); ``--device cpu`` for tests.  Batches
+come from :class:`~rtpose_tpu_torch.data.dataset.Loader`
 with ``train.data_workers`` worker processes.
 """
 
@@ -47,7 +51,12 @@ def main():
     if cfg.dataset.rotate_degrees:
         raise SystemExit(
             "dataset.rotate_degrees needs RandomRotate, which is not ported "
-            "yet (a cv2-free warpAffine, ROADMAP.md queue 1 item 7)")
+            "yet (its cv2-free warpAffine, ROADMAP.md queue 1 item 10); "
+            "train with --set dataset.rotate_degrees=0")
+    if args.vgg_weights and cfg.model.name != "vgg19":
+        raise SystemExit(
+            f"--vgg-weights initialises the VGG19 trunk; model.name is "
+            f"{cfg.model.name!r}")
     if not cfg.dataset.train_annotations:
         raise SystemExit("dataset.train_annotations is empty — need at "
                          "least one annotation file")

@@ -39,6 +39,7 @@ from ..device import resolve_device
 from ..infer.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from ..models import get_model
 from ..models.common import he_reinit
+from ..models.convert import load_strict
 from ..utils.meters import AverageMeter, MetricLogger
 from .checkpoint import CheckpointManager
 from .loss import stagewise_mse
@@ -65,8 +66,13 @@ class Trainer:
     """The JAX ``Trainer`` on one card: ``train_step``, ``eval_step``,
     ``run_epoch``, ``maybe_release_backbone`` and ``fit``.
 
-    `state_dict` replaces the seeded initial weights (the tests carry the
-    JAX trainer's parameters across through ``models.convert``).
+    Any family of ``models.get_model``.  BatchNorm runs in train mode in
+    :meth:`train_step` (the running statistics move, as the JAX trainer's
+    mutable ``batch_stats`` do) and in eval mode in :meth:`eval_step`; a
+    skipped non-finite step leaves them as they were.  `state_dict`
+    replaces the seeded initial weights (the tests carry the JAX
+    trainer's parameters and statistics across through
+    ``models.convert``).
     """
 
     def __init__(self, cfg: Config, *,
@@ -82,7 +88,7 @@ class Trainer:
         model = get_model(cfg.model.name, num_stages=cfg.model.num_stages,
                           dtype=dtype, generator=gen)
         if state_dict is not None:
-            model.load_state_dict(state_dict)
+            load_strict(model, state_dict)
         elif cfg.model.init_scheme == "scratch":
             he_reinit(model, gen)
         self.model = model.to(self.device)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Export a JAX package training checkpoint (orbax) to a reference-layout
-PyTorch ``.pth`` that the PyTorch port loads strictly.
+"""Export a JAX package training checkpoint (orbax) to a PyTorch ``.pth``
+that the PyTorch port loads strictly.
 
-    python scripts/export_jax_checkpoint.py CKPT_DIR pose_model.pth [--step N]
+    python scripts/export_jax_checkpoint.py CKPT_DIR pose_model.pth \
+        [--step N] [--model FAMILY]
 
 Runs where JAX and orbax are installed (it imports rtpose_tpu): restores
 the parameters of the best step (or `--step`) with
@@ -14,8 +15,12 @@ port runs, for example on the card:
     python -m rtpose_tpu_torch.evalx --weight pose_model.pth ...
 
 This is the bridge from a model trained with the JAX package to its
-evaluation with the port.  The reference layout has six stages, so the
-checkpoint must be a 6-stage VGG19.
+evaluation with the port.  The reference layout has six stages, so a
+VGG19 checkpoint must have six.  Any other family (``--model``, e.g.
+``hourglass``) is written in the port's own keys through
+``rtpose_tpu_torch.models.convert.state_dict_from_flax``: its parameters
+and its BatchNorm statistics (``batch_stats``); serve it with the same
+``--model`` (and ``--stages``).
 """
 
 from __future__ import annotations
@@ -25,9 +30,11 @@ import os
 import sys
 
 
-def export(checkpoint_dir: str, out_path: str, step=None) -> dict:
-    """Write the checkpoint's parameters to `out_path` as a torch
-    state_dict of fp32 tensors -> that state_dict."""
+def export(checkpoint_dir: str, out_path: str, step=None,
+           model: str = "vgg19") -> dict:
+    """Write the checkpoint's parameters (and BatchNorm statistics) of
+    family `model` to `out_path` as a torch state_dict of fp32 tensors ->
+    that state_dict."""
     import numpy as np
     import torch
 
@@ -36,14 +43,22 @@ def export(checkpoint_dir: str, out_path: str, step=None) -> dict:
 
     if not os.path.isdir(checkpoint_dir):
         raise FileNotFoundError(f"no checkpoint directory {checkpoint_dir}")
-    params, _model_state, _meta = CheckpointManager(
+    params, model_state, _meta = CheckpointManager(
         checkpoint_dir).restore_params(step)
-    stages = sorted(k for k in params["stages"] if k.endswith("_L1"))
-    if len(stages) != 6:
-        raise ValueError(f"{checkpoint_dir}: {len(stages)} stages; the "
-                         f"reference layout has 6")
-    state = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
-             for k, v in export_rtpose_state_dict(params).items()}
+    if model == "vgg19":
+        stages = sorted(k for k in params["stages"] if k.endswith("_L1"))
+        if len(stages) != 6:
+            raise ValueError(f"{checkpoint_dir}: {len(stages)} stages; the "
+                             f"reference layout has 6")
+        state = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                 for k, v in export_rtpose_state_dict(params).items()}
+    else:
+        import jax
+
+        from rtpose_tpu_torch.models.convert import state_dict_from_flax
+        variables = jax.tree_util.tree_map(
+            np.asarray, {"params": params, **(model_state or {})})
+        state = dict(state_dict_from_flax(variables, model_name=model))
     tmp = f"{out_path}.{os.getpid()}.tmp"
     torch.save(state, tmp)
     os.replace(tmp, out_path)
@@ -59,11 +74,14 @@ def main(argv=None) -> int:
     parser.add_argument("--step", type=int, default=None,
                         help="checkpoint step (default: the best, else the "
                              "latest)")
+    parser.add_argument("--model", default="vgg19",
+                        help="the checkpoint's model family (default vgg19, "
+                             "written in the reference layout)")
     args = parser.parse_args(argv)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     if root not in sys.path:
         sys.path.insert(0, root)
-    state = export(args.checkpoint_dir, args.out, args.step)
+    state = export(args.checkpoint_dir, args.out, args.step, args.model)
     print(f"wrote {len(state)} tensors to {args.out}")
     return 0
 

@@ -179,7 +179,7 @@ def test_transform_equals_jax(name, seed):
 
 
 def test_random_rotate_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         TT.RandomRotate(40.0)
     with pytest.raises(NotImplementedError, match="warpAffine"):
         TT.train_pipeline(64, rotate_degrees=40.0)

@@ -321,7 +321,7 @@ def test_evalx_cli_pad_to(cli_set, monkeypatch, capsys):
     (["--multiscale", "0.5,-1.0"], "positive"),
     (["--data-parallel"], "item 6"),
     (["--vis-dir", "vis"], "item 4"),
-    (["--model", "mobilenet_v2"], "item 7"),
+    (["--model", "mobilenet_v2"], "unknown model family"),
 ])
 def test_evalx_cli_rejects(cli_set, monkeypatch, capsys, extra, msg):
     with pytest.raises(SystemExit, match=msg):

@@ -738,3 +738,72 @@ def test_run_reads_the_card_back_once(cuda):
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[2], want[2])
     assert got[0] == want[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["hourglass", "shufflenet_v2"])
+def test_zoo_family_run_batch_on_card_equals_cpu(cuda, name):
+    """A zoo family's fp32 pipeline on the card vs the CPU on the same
+    seeded weights (hourglass at stride 4, pad 64): maps within 1e-4 of
+    their range, the decode of the card's maps equal to the CPU's decode
+    of the same maps, and the serving kernels launched."""
+    stride, pad = (4, 64) if name == "hourglass" else (8, 0)
+    kw = dict(model_name=name, num_stages=1, input_size=64,
+              dtype=torch.float32, seed=0, downsample=stride,
+              pad_factor=pad)
+    from rtpose_tpu_torch.infer.pipeline import load_pipeline
+    cpu = load_pipeline(device="cpu", **kw)
+    card = load_pipeline(device="cuda", **kw)
+    frames = [np.random.RandomState(i).randint(0, 256, (60, 80, 3), np.uint8)
+              for i in range(2)]
+    kernels.reset_launch_counts()
+    people, metas = card.run_batch(frames)
+    ticket = card.run_batch_submit(frames)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for k in ("connection_scores", "bicubic_refine", "group_people"):
+        assert counts[k] > 0, k
+    assert len(people) == 2
+    want_people = people_to_host(decode_poses_batch(
+        ticket[2].cpu(), ticket[3].cpu(), factor=stride))
+    got_people = people_to_host(ticket[1])
+    for f in ("coords", "valid", "truncated"):
+        np.testing.assert_array_equal(getattr(got_people, f),
+                                      getattr(want_people, f))
+    for frame in frames:
+        _, heat_c, paf_c, _ = cpu.run(frame)
+        _, heat_g, paf_g, _ = card.run(frame)
+        for got, want in ((heat_g, heat_c), (paf_g, paf_c)):
+            scale = max(float(np.abs(want).max()), 1e-30)
+            assert float(np.abs(got - want).max()) <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+def test_hourglass_kernels_at_factor_and_stride_4(cuda):
+    """Hourglass's shapes: 64x64 maps (256 px at stride 4), K1 at factor
+    4 at both caps, K3 plain and blurred at factor 4, K4 at stride 4 on a
+    64x64 grid, each equal to its plain version."""
+    scenes = [synth_example(seed=s, n_people=1 + s, h=64, w=64)[1:]
+              for s in range(4)]
+    heat = torch.from_numpy(np.stack([h for h, _ in scenes])).to(cuda)
+    paf = torch.from_numpy(np.stack([p for _, p in scenes])).to(cuda)
+    for K in (32, 64):
+        p = nms(heat, factor=4, max_peaks=K)
+        got = kernels.connection_scores(paf, p.x, p.y, p.valid, factor=4)
+        want = kernels.connection_scores_plain(paf, p.x, p.y, p.valid,
+                                               factor=4)
+        assert int(got[1].sum()) > 0
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    hb = heat[..., :18].permute(0, 3, 1, 2).contiguous()
+    _, py, px, valid, _ = peak_candidates(hb, thresh=0.1, max_peaks=32)
+    for blur in (False, True):
+        _assert_refine_equals_plain([hb, py, px, valid], factor=4,
+                                    gaussian_filt=blur)
+    kps = _keypoints(batch=32, size=256).to(cuda)
+    heat_k, paf_k = kernels.gt_maps(kps, grid_y=64, grid_x=64, stride=4,
+                                    sigma=4.416, limb_width=1.289)
+    heat_p, paf_p = kernels.gt_maps_plain(
+        kps, limb_scalars(kps, 4, 1.289), person_bound(kps), grid_y=64,
+        grid_x=64, stride=4, sigma=4.416, limb_width=1.289)
+    torch.testing.assert_close(heat_k, heat_p, rtol=0, atol=0)
+    torch.testing.assert_close(paf_k, paf_p, rtol=0, atol=0)

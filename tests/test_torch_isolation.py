@@ -1,7 +1,9 @@
 """rtpose_tpu_torch stands alone: it imports no jax, flax, cv2 or anything
-of the JAX package, serves, takes a train step, draws a loader batch in a
-worker process and answers the training CLI's --help without them, and its
-copies of the JAX package's tables and numpy helpers are equal to the
+of the JAX package, serves, takes a train step, builds and runs every
+model family, trains a BatchNorm family, draws a loader batch in a worker
+process and answers the training CLI's --help without them, and its
+copies of the JAX package's tables and numpy helpers (the skeleton,
+``WIDTH_CONFIGS``, the caffe layer order and prototxt) are equal to the
 originals."""
 
 import ast
@@ -61,6 +63,16 @@ kps = np.zeros((2, 2, 18, 3), np.float32)
 kps[:, 0, :, :2], kps[:, 0, :, 2] = 16.0, 2.0
 logs = Trainer(cfg, device="cpu").train_step(
     np.random.RandomState(0).rand(2, 32, 32, 3).astype(np.float32), kps)
+from rtpose_tpu_torch.models import FAMILIES, get_model
+zoo = {}
+for name in FAMILIES:
+    with torch.no_grad():
+        out = get_model(name, num_stages=1).eval()(torch.zeros(1, 64, 64, 3))
+    zoo[name] = list(out.pafs.shape)
+cfg.model.name, cfg.dataset.image_size = "shufflenet_v2", 64
+kps[:, 0, :, :2] = 32.0
+bn_logs = Trainer(cfg, device="cpu").train_step(
+    np.random.RandomState(1).rand(2, 64, 64, 3).astype(np.float32), kps)
 import tempfile
 from rtpose_tpu_torch.evalx.__main__ import main as evalx_main
 from rtpose_tpu_torch.evalx.harness import run_eval_batched
@@ -94,6 +106,7 @@ loaded = sorted(k for k in sys.modules
 print(json.dumps({"modules": mods, "people": len(people),
                   "heat": list(heat.shape), "loaded": loaded,
                   "train_loss": logs["loss"], "eval_ap": stats["AP"],
+                  "zoo": zoo, "bn_train_loss": bn_logs["loss"],
                   "loader": {k: list(v.shape) for k, v in batch.items()}}))
 """
 
@@ -113,10 +126,20 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
     assert "rtpose_tpu_torch.train.trainer" in res["modules"]
     for mod in ("evalx.__main__", "evalx.harness", "evalx.cocoeval",
                 "data.imread", "data.coco_json", "demo.picture_demo",
-                "data.dataset", "data.transforms", "train.__main__"):
+                "data.dataset", "data.transforms", "train.__main__",
+                "models.openpose_v2", "models.mobilenet_v2",
+                "models.shufflenet_v2", "models.atrous", "models.atrous_cpm",
+                "models.hourglass", "models.caffe_interop"):
         assert f"rtpose_tpu_torch.{mod}" in res["modules"], mod
     assert res["eval_ap"] == 1.0
     assert res["train_loss"] > 0 and np.isfinite(res["train_loss"])
+    assert res["bn_train_loss"] > 0 and np.isfinite(res["bn_train_loss"])
+    assert sorted(res["zoo"]) == sorted(
+        ["vgg19", "mobilenet", "hourglass", "shufflenet_v2", "openpose_v2",
+         "atrous_resnet50", "atrous_cpm", "atrous_cpm_shared"])
+    for name, shape in res["zoo"].items():
+        g = 16 if name == "hourglass" else 8
+        assert shape[1:] == [1, g, g, 38], name
     assert res["people"] == 3
     assert res["heat"] == [7, 10, 19]
     assert res["loaded"] == []
@@ -168,6 +191,35 @@ def test_copied_numpy_helpers_equal_the_jax_package():
                                       jresize.resize_matrix(src, dst))
     assert torch_layout_map(6) == import_torch.torch_layout_map()
     assert torch_layout_map(2) == torch_layout_map(6)[:12 + 2 * (5 + 7)]
+
+
+def test_width_configs_copy_equals_the_jax_package():
+    from rtpose_tpu.models import shufflenet_v2 as jshuffle
+    from rtpose_tpu_torch.models import shufflenet_v2
+    assert shufflenet_v2.WIDTH_CONFIGS == jshuffle.WIDTH_CONFIGS
+
+
+def test_caffe_layer_order_copy_equals_the_jax_package():
+    """The port's OpenPose caffe-pickle order is the JAX package's, its
+    flax paths read as the port's module names."""
+    from rtpose_tpu.models import caffe_interop as jcaffe
+    from rtpose_tpu_torch.models import caffe_interop
+    from rtpose_tpu_torch.models.convert import _port_module
+    want = [(kind, _port_module(list(path)))
+            for kind, path in jcaffe.openpose_module_order()]
+    assert caffe_interop.openpose_module_order() == want
+    assert want[:3] == [("conv", "backbone.conv1_1"),
+                        ("conv", "backbone.conv1_2"),
+                        ("conv", "backbone.conv2_1")]
+    assert ("prelu", "paf_stage0.m0_0.prelu") in want
+
+
+@pytest.mark.parametrize("width,hw", [(1.0, 368), (0.5, 64)])
+def test_prototxt_copy_equals_the_jax_package(width, hw):
+    from rtpose_tpu.models import caffe_interop as jcaffe
+    from rtpose_tpu_torch.models import caffe_interop
+    assert caffe_interop.shufflenet_prototxt(width, hw) == \
+        jcaffe.shufflenet_prototxt(width, hw)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -134,7 +134,24 @@ def test_seeded_init_is_deterministic_and_reference_scaled():
     assert float(a.model1_1[8].bias.detach().abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("name", ["mobilenet", "hourglass", "openpose_v2"])
+@pytest.mark.parametrize("name", ["mobilenet_v2", "resnext9000", "vgg16"])
 def test_unported_family_raises(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """A family the JAX package does not have is a KeyError, as there."""
+    with pytest.raises(KeyError, match="unknown model family"):
         get_model(name)
+
+
+@pytest.mark.parametrize("name,kwargs,stages", [
+    ("mobilenet", {"num_stages": 2}, 2),
+    ("hourglass", {"num_stages": 1}, 1),
+    ("openpose_v2", {"num_paf_stages": 1, "num_heat_stages": 1}, 1),
+])
+def test_ported_family_builds(name, kwargs, stages):
+    """The three families this test once found unported build and give
+    their stages' maps at their stride (hourglass 4, the others 8)."""
+    model = get_model(name, **kwargs).eval()
+    with torch.no_grad():
+        out = model(torch.zeros(1, 64, 64, 3))
+    g = 16 if name == "hourglass" else 8
+    assert out.pafs.shape == (stages, 1, g, g, 38)
+    assert out.heatmaps.shape == (stages, 1, g, g, 19)

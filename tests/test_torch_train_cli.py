@@ -125,7 +125,7 @@ def test_cli_refusals_exit_before_loading(tmp_path, monkeypatch, case):
              "rotate": ["dataset.rotate_degrees=40.0"]}[case]
     _argv(monkeypatch, *sets)
     reason = {"empty_annotations": "empty", "unknown_loader": "unknown",
-              "native_loader": "item 9", "rotate": "item 7"}[case]
+              "native_loader": "item 9", "rotate": "item 10"}[case]
     with pytest.raises(SystemExit, match=reason):
         main()
     assert not os.path.exists(tmp_path / "ckpt")
