@@ -61,6 +61,13 @@ entry points a user calls:
   (K=64), K3 (plain and blurred), the grouping kernel and K4 on
   hourglass's factor-4 / stride-4 shapes against their plain versions,
   timed with their bounds, and a stride-4 pipeline's own retry;
+- the front-ends, on the flagship through the entry points a user calls:
+  the HTTP service (``demo/serve_http.py``) answering rendered 480x640
+  JPEGs one at a time (p50/p99 latency) and from 8 clients at once
+  (requests/s, p50/p99, the mean micro-batch), and over rendered maps
+  card against CPU, a crowded frame retried through K2; the video demo
+  on a 64-frame Motion-JPEG AVI (frames/s; the output rereads); the
+  picture demo; the eval CLI's ``--vis-dir`` (one drawing a frame);
 
 and checks that each path launched its kernels.  Also holds one fp32
 train step on the card against the CPU.  Prints timings beside the card's
@@ -503,8 +510,8 @@ def eval_phase(dev, smi: str) -> dict:
     the committed fixtures; the oracle-stub eval (``utils/synth_coco.py``)
     through ``run_eval`` and ``run_eval_batched`` card vs CPU; ``run``'s one
     wait for the card; then the flagship through the CLI's ``main()``,
-    batched, multi-scale and per image, each counted from 0 -> {run label:
-    launch counts}."""
+    batched, multi-scale and per image (with ``--vis-dir``: one drawing a
+    frame), each counted from 0 -> {run label: launch counts}."""
     import contextlib
     import io
     from collections import defaultdict
@@ -654,11 +661,12 @@ def eval_phase(dev, smi: str) -> dict:
             picture_demo.build_pipeline = timed_build
             PosePipeline.run_batch_submit = spied(submits[0])
             PosePipeline.run_multiscale_batch_submit = spied(submits[1])
+            vis_dir = os.path.join(work, "vis")
             for label, extra in (
                     ("batch8", ["--batch", "8"]),
                     ("batch8_multiscale",
                      ["--batch", "8", "--multiscale", EVAL_MS_SCALES]),
-                    ("per_image", [])):
+                    ("per_image", ["--vis-dir", vis_dir])):
                 sys.argv = base + extra
                 subs.clear()
                 torch.cuda.synchronize()
@@ -678,6 +686,16 @@ def eval_phase(dev, smi: str) -> dict:
                       and counts[label]["gt_maps"] == 0,
                       f"evalx {label} did not run through the serving "
                       f"kernels: {counts[label]}")
+                if "--vis-dir" in extra:
+                    drawn = sorted(os.listdir(vis_dir))
+                    check(drawn == names and all(
+                        read_bgr(os.path.join(vis_dir, n)).shape
+                        == read_bgr(os.path.join(img_dir, n)).shape
+                        for n in names),
+                        f"evalx {label} --vis-dir wrote {len(drawn)} "
+                        f"drawings for {len(names)} frames")
+                    lines.append(f"evalx {label} --vis-dir: one drawing "
+                                 f"a frame ({len(drawn)})")
                 eval_s = wall - build_s[-1]
                 split = (f"pipeline_s {stats['pipeline_s']!r}, evaluator_s "
                          f"{stats['evaluator_s']!r}, "
@@ -1036,10 +1054,21 @@ def hourglass_kernels(dev, smi: str) -> dict:
             lambda: kernels.group_people(*args, **gk),
             lambda: kernels.group_people_plain(*args, **gk), 10)
         fn = functools.partial(kernels.group_people, *args, **gk)
+        g_dev = device_ms(fn, "group_people_kernel")[0]
+        # its bound, as at factor 8: the bytes it needs, and its serial
+        # chain at one shared-memory round trip a step at the SM clock
+        # read under its load
+        n_bytes, n_flops, chain = group_work(args, **gk)
+        b_ms, b_by = bound(n_bytes, n_flops)
+        sm_mhz = sm_clock_under_load(fn)
+        chain_ms = chain * SMEM_ROUND_TRIP_CYCLES / sm_mhz / 1e3
         out[f"group_people_K{K}"] = dict(
-            max_abs_err=0.0, ms=g_ms, plain_ms=g_plain,
-            device_ms=device_ms(fn, "group_people_kernel")[0],
-            host_ms=host_ms(fn))
+            max_abs_err=0.0, ms=g_ms, plain_ms=g_plain, device_ms=g_dev,
+            host_ms=host_ms(fn), chain_steps=chain,
+            ns_per_step=g_dev * 1e6 / chain, bytes_bound_ms=b_ms,
+            chain_bound_ms=chain_ms, sm_clock_mhz=sm_mhz,
+            bound_ms=max(b_ms, chain_ms),
+            bound_by="chain" if chain_ms > b_ms else b_by)
         hb = heat[..., :18].permute(0, 3, 1, 2).contiguous()
         _, py, px, valid, _ = peak_candidates(hb, thresh=0.1, max_peaks=K)
         rf = (hb, py, px, valid)
@@ -1337,6 +1366,332 @@ def zoo_phase(dev, smi: str):
             f"{t_counts['gt_maps']}; {numbers[name]['seconds']:.1f} s "
             f"[{smi}]")
     return launches, numbers, hg_rows
+
+
+HTTP_FRAMES = 32       # distinct rendered 480x640 JPEGs posted to the service
+HTTP_BURST = 128       # requests of the concurrency-8 run
+HTTP_CLIENTS = 8
+VIDEO_FRAMES = 64
+FRONTEND_SHAPES = ((480, 640), (640, 480), (427, 640))
+# the flagship as the front-ends' CLIs take it (bf16, seeded weights)
+FRONTEND_FLAGS = ["--stages", "6", "--input-size", "368", "--flip"]
+
+
+def percentile_ms(seconds, q: float) -> float:
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def frontends_phase(dev, smi: str):
+    """The front-ends through the entry points a user calls, on the
+    flagship (VGG19, 6 stages, 368 px, flip, bf16, seeded weights, built
+    by ``picture_demo.build_pipeline`` from the CLI's flags):
+
+    - the HTTP service (``demo.serve_http.serve`` in a thread) answering
+      rendered 480x640 JPEGs: 32 requests one at a time (p50/p99
+      latency), then 128 from 8 client threads, a 5 ms window and groups
+      of at most 16 (requests/s, p50/p99, the mean group ``run_batch``
+      received);
+    - the service over maps rendered per input shape (people on COCO's
+      three commonest frame sizes, and a crowded 30-person scene that
+      overflows the default caps and is decoded again at ``RETRY_CAPS``,
+      through K2), card against a CPU service on the same bytes: the same
+      JSON, one request at a time and as one mixed-shape group;
+    - the video demo's ``main()`` on a 64-frame 480x640 Motion-JPEG AVI
+      written by ``demo.video_io`` at --batch 8 (frames/s; the output
+      rereads as 64 frames of 480x640);
+    - the picture demo's ``main()`` on one JPEG, which writes a PNG.
+
+    -> ({"http": launch counts, "video": launch counts}, numbers)."""
+    import argparse
+    import contextlib
+    import http.client
+    import io
+    import threading
+
+    import torch
+    from PIL import Image
+    from rtpose_tpu_torch.data.imread import read_bgr
+    from rtpose_tpu_torch.data.imread_fixtures import render_scene
+    from rtpose_tpu_torch.demo import picture_demo, serve_http, video_demo
+    from rtpose_tpu_torch.demo.video_io import VideoWriter, open_video
+    from rtpose_tpu_torch.infer.pipeline import PosePipeline
+    from rtpose_tpu_torch.infer.preprocess import scale_pad_geometry
+    from rtpose_tpu_torch.ops import kernels
+    from rtpose_tpu_torch.utils.synth_coco import OracleMaps
+
+    flagship = FRONTEND_FLAGS + ["--device", str(dev)]
+
+    def jpeg(rgb) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(rgb).save(buf, "JPEG", quality=95)
+        return buf.getvalue()
+
+    class Server:
+        """``serve`` in a thread; ``post`` times one request from the
+        client's side, ``burst`` posts from `clients` threads at once."""
+
+        def __init__(self, pipe, **kwargs):
+            with contextlib.redirect_stdout(io.StringIO()):
+                self.server = serve_http.serve(pipe, host="127.0.0.1",
+                                               port=0, **kwargs)
+            self.port = self.server.server_address[1]
+            self.thread = threading.Thread(target=self.server.serve_forever,
+                                           daemon=True)
+            self.thread.start()
+
+        def post(self, body):
+            t = time.perf_counter()
+            conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                              timeout=300)
+            try:
+                conn.request("POST", "/pose", body=body)
+                resp = conn.getresponse()
+                status, payload = resp.status, json.loads(resp.read())
+            finally:
+                conn.close()
+            return status, payload, time.perf_counter() - t
+
+        def burst(self, bodies, clients: int):
+            out = [None] * len(bodies)
+            lock = threading.Lock()
+            todo = iter(range(len(bodies)))
+
+            def client():
+                while True:
+                    with lock:
+                        i = next(todo, None)
+                    if i is None:
+                        return
+                    out[i] = self.post(bodies[i])
+
+            threads = [threading.Thread(target=client)
+                       for _ in range(clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            check(not any(t.is_alive() for t in threads),
+                  "an HTTP client is still waiting for its answer")
+            return out
+
+        def close(self):
+            self.server.shutdown()
+            self.server.server_close()
+            self.thread.join(timeout=30)
+
+    def answered(results, what):
+        bad = [(s, p) for s, p, _ in results if s != 200]
+        check(not bad, f"{what}: {len(bad)} requests failed, e.g. "
+                       f"{bad[:2]}")
+
+    work = os.path.join(ROOT, "rtpose_tpu_torch", "build",
+                        "chip_smoke_frontends")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    argv = sys.argv
+    numbers = {"device": smi}
+    try:
+        # the flagship service
+        parser = argparse.ArgumentParser()
+        picture_demo.add_common_args(parser)
+        with contextlib.redirect_stdout(io.StringIO()):
+            pipe = picture_demo.build_pipeline(parser.parse_args(flagship))
+        bodies = [jpeg(render_scene(300 + i, 480, 640))
+                  for i in range(HTTP_FRAMES)]
+        groups = []             # (frames, seconds) of each run_batch
+        run_batch = pipe.run_batch
+
+        def timed_run_batch(frames):
+            t = time.perf_counter()
+            out = run_batch(frames)
+            groups.append((len(frames), time.perf_counter() - t))
+            return out
+
+        pipe.run_batch = timed_run_batch
+        srv = Server(pipe, max_batch=16, batch_window_ms=5.0)
+        try:
+            # warm-up: cuDNN's first call at each batch size the groups take
+            answered([srv.post(b) for b in bodies[:4]], "warm-up")
+            answered(srv.burst(bodies * 2, HTTP_CLIENTS), "warm-up burst")
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            groups.clear()
+            seq = [srv.post(b) for b in bodies]
+            t0 = time.perf_counter()
+            burst_groups = len(groups)
+            burst = srv.burst([bodies[i % HTTP_FRAMES]
+                               for i in range(HTTP_BURST)], HTTP_CLIENTS)
+            burst_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            flagship_counts = kernels.launch_counts()
+        finally:
+            srv.close()
+            del pipe.run_batch
+        answered(seq + burst, "flagship HTTP")
+        check(all(p["size"] == [480, 640] and not p["truncated"]
+                  for _, p, _ in seq + burst), "flagship HTTP answers")
+        burst_sizes = [n for n, _ in groups[burst_groups:]]
+        burst_busy = [t for _, t in groups[burst_groups:]]
+        numbers["http"] = {
+            "concurrency_1": {
+                "requests": len(seq),
+                "p50_ms": percentile_ms([t for *_, t in seq], 50),
+                "p99_ms": percentile_ms([t for *_, t in seq], 99),
+                "requests_per_s": len(seq) / sum(t for *_, t in seq)},
+            f"concurrency_{HTTP_CLIENTS}": {
+                "requests": len(burst), "batch_window_ms": 5.0,
+                "max_batch": 16,
+                "requests_per_s": len(burst) / burst_s,
+                "p50_ms": percentile_ms([t for *_, t in burst], 50),
+                "p99_ms": percentile_ms([t for *_, t in burst], 99),
+                "groups": len(burst_sizes),
+                "mean_group": float(np.mean(burst_sizes)),
+                "max_group": max(burst_sizes),
+                "run_batch_ms_mean": 1e3 * float(np.mean(burst_busy)),
+                # the dispatcher thread's share of the run in run_batch
+                "dispatcher_busy_share": sum(burst_busy) / burst_s}}
+        del pipe
+
+        # card against CPU on rendered maps: each input shape answered
+        # with its own maps; 368x368 frames with a crowded 5x6 grid that
+        # overflows the default caps (570 connections > 160)
+        maps, frames = {}, []
+        for i, (h, w) in enumerate(FRONTEND_SHAPES):
+            ph, pw = scale_pad_geometry(h, w, 368, 8)[3:5]
+            heat, paf = scenes(i + 2, ph // 8, pw // 8, None, 400 + i)
+            maps[(ph, pw)] = (heat[-1], paf[-1])
+            frames.append(jpeg(render_scene(400 + i, h, w)))
+        heat, paf = scenes(1, 92, 92, (5, 6), 500)
+        maps[(368, 368)] = (heat[0], paf[0])
+        frames.append(jpeg(render_scene(500, 368, 368)))
+        servers = {d: Server(PosePipeline(OracleMaps(maps), device=d,
+                                          input_size=368, flip=False),
+                             max_batch=8, batch_window_ms=50.0)
+                   for d in (dev, "cpu")}
+        try:
+            kernels.reset_launch_counts()
+            card = [servers[dev].post(b) for b in frames[:-1]]
+            torch.cuda.synchronize()
+            plain = kernels.launch_counts()
+            crowded = servers[dev].post(frames[-1])
+            torch.cuda.synchronize()
+            retry = {k: v - plain[k]
+                     for k, v in kernels.launch_counts().items()}
+            card.append(crowded)
+            group = servers[dev].burst(frames, len(frames))
+            torch.cuda.synchronize()
+            rendered_counts = kernels.launch_counts()
+            cpu = [servers["cpu"].post(b) for b in frames]
+        finally:
+            for s in servers.values():
+                s.close()
+        answered(card + group + cpu, "rendered HTTP")
+        check(all(retry[k] == 2 for k in SERVING_KERNELS),
+              f"the crowded request did not retry through the kernels "
+              f"(K2 at K=64): {retry}")
+        kp_err = score_err = 0.0
+        people = []
+        for (_, got, _), (_, again, _), (_, want, _) in zip(card, group,
+                                                          cpu):
+            for answer in (got, again):
+                check(answer["size"] == want["size"]
+                      and answer["truncated"] == want["truncated"]
+                      and len(answer["people"]) == len(want["people"]),
+                      f"HTTP card vs CPU: {answer['size']} "
+                      f"{len(answer['people'])} people, CPU "
+                      f"{len(want['people'])}")
+                for a, b in zip(answer["people"], want["people"]):
+                    check(a["parts"].keys() == b["parts"].keys(),
+                          "HTTP card vs CPU: part names differ")
+                    score_err = max(score_err, abs(a["score"] - b["score"]))
+                    for name, (x, y, sc) in a["parts"].items():
+                        bx, by, bs = b["parts"][name]
+                        kp_err = max(kp_err, abs(x - bx), abs(y - by))
+                        score_err = max(score_err, abs(sc - bs))
+            people.append(len(want["people"]))
+        check(kp_err <= RESULT_KP_TOL and score_err <= SCORE_TOL,
+              f"HTTP card vs CPU: keypoints {kp_err} px, scores "
+              f"{score_err}")
+        check(min(people) > 0 and people[-1] == 30 and not cpu[-1][1][
+            "truncated"], f"rendered HTTP people {people}")
+        numbers["http"]["card_vs_cpu"] = {
+            "frames": len(frames), "people": people,
+            "max_kp_err_px": kp_err, "max_score_err": score_err,
+            "crowded_retry_launches": retry}
+        http_counts = {k: flagship_counts[k] + rendered_counts[k]
+                       for k in flagship_counts}
+
+        # the video demo: a 64-frame Motion-JPEG AVI at --batch 8
+        video = os.path.join(work, "in.avi")
+        out = os.path.join(work, "out.avi")
+        writer = VideoWriter(video, 20.0, (640, 480))
+        for i in range(VIDEO_FRAMES):
+            writer.write(np.ascontiguousarray(
+                render_scene(600 + i, 480, 640)[..., ::-1]))
+        writer.release()
+        sys.argv = ["video_demo", "--video", video, "--output", out,
+                    "--batch", "8"] + flagship
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            n, video_s = video_demo.main()
+        torch.cuda.synchronize()
+        video_counts = kernels.launch_counts()
+        check(f"processed {VIDEO_FRAMES} frames" in text.getvalue(),
+              f"video demo: {text.getvalue()!r}")
+        cap = open_video(out)
+        reread = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            reread.append(frame.shape)
+        cap.release()
+        check(n == VIDEO_FRAMES and reread == [(480, 640, 3)] * VIDEO_FRAMES,
+              f"video output rereads as {len(reread)} frames of "
+              f"{set(reread)}")
+        numbers["video"] = {"frames": n, "seconds": video_s,
+                            "frames_per_s": n / video_s, "batch": 8}
+
+        # the picture demo
+        image, png = os.path.join(work, "in.jpg"), os.path.join(work,
+                                                               "out.png")
+        Image.fromarray(render_scene(700, 480, 640)).save(image, quality=95)
+        sys.argv = ["picture_demo", "--image", image, "--output",
+                    png] + flagship
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            picture_demo.main()
+        picture_s = time.perf_counter() - t0
+        check("found" in text.getvalue() and os.path.exists(png)
+              and read_bgr(png).shape == (480, 640, 3),
+              f"picture demo: {text.getvalue()!r}")
+        numbers["picture"] = {"seconds_with_build": picture_s}
+    finally:
+        sys.argv = argv
+        shutil.rmtree(work, ignore_errors=True)
+    for name, counts in (("HTTP", http_counts), ("video", video_counts)):
+        check(all(counts[k] > 0 for k in SERVING_KERNELS)
+              and counts["gt_maps"] == 0,
+              f"the {name} front-end did not run through the serving "
+              f"kernels: {counts}")
+    h1 = numbers["http"]["concurrency_1"]
+    h8 = numbers["http"][f"concurrency_{HTTP_CLIENTS}"]
+    log(f"HTTP: concurrency 1, {h1['requests']} requests: p50 "
+        f"{h1['p50_ms']:.2f} ms, p99 {h1['p99_ms']:.2f} ms; concurrency "
+        f"{HTTP_CLIENTS}, {h8['requests']} requests: {h8['requests_per_s']:.2f}"
+        f" requests/s, p50 {h8['p50_ms']:.2f} ms, p99 {h8['p99_ms']:.2f} ms, "
+        f"mean group {h8['mean_group']:.2f} (max {h8['max_group']}, "
+        f"{h8['groups']} groups, run_batch {h8['run_batch_ms_mean']:.2f} ms "
+        f"a group, dispatcher busy {h8['dispatcher_busy_share']:.3f}); "
+        f"launches {http_counts} [{smi}]")
+    log(f"HTTP card == CPU on rendered maps: people {people}, keypoints "
+        f"{kp_err} px, scores {score_err}; the crowded frame's retry "
+        f"launches {retry}")
+    log(f"video demo: {n} frames 480x640 at --batch 8 in {video_s:.3f} s = "
+        f"{n / video_s:.2f} frames/s; launches {video_counts} [{smi}]")
+    log(f"picture demo: wrote a PNG in {picture_s:.3f} s (build included)")
+    return {"http": http_counts, "video": video_counts}, numbers
 
 
 def main() -> int:
@@ -2185,6 +2540,11 @@ def main() -> int:
     # stride-4 shapes
     zoo_launches, zoo_numbers, hg_rows = zoo_phase(dev, smi)
 
+    # 12. the front-ends: the HTTP service (latency at concurrency 1,
+    # requests/s at 8, card == CPU on rendered maps with a crowded retry),
+    # the video and picture demos, each counted from 0
+    frontend_launches, frontend_numbers = frontends_phase(dev, smi)
+
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
         "connection_scores": ("rtpose_tpu_torch/csrc/connection_scores.cu",
                               "rtpose_tpu/ops/pallas_kernels.py:214",
@@ -2215,6 +2575,8 @@ def main() -> int:
                  launches=launches[name],
                  eval_launches={k: c[name] for k, c in eval_counts.items()},
                  zoo_launches=zoo_launches[name],
+                 http_launches=frontend_launches["http"][name],
+                 video_launches=frontend_launches["video"][name],
                  **results[name], library_ms=None,
                  hourglass_factor4=hourglass[name],
                  **({"also_replaces": also} if also else {}))
@@ -2233,6 +2595,8 @@ def main() -> int:
         multiscale_launches=ms_counts["group_people"],
         eval_launches={k: c["group_people"] for k, c in eval_counts.items()},
         zoo_launches=zoo_launches["group_people"],
+        http_launches=frontend_launches["http"]["group_people"],
+        video_launches=frontend_launches["video"]["group_people"],
         hourglass_factor4={k: hg_rows[f"group_people_K{k}"]
                            for k in (32, 64)},
         **results["group_people"], library_ms=None,
@@ -2240,6 +2604,7 @@ def main() -> int:
     left = descendants()
     check(not left, f"processes still running: {left}")
     print(json.dumps({"zoo": zoo_numbers}), flush=True)
+    print(json.dumps({"frontends": frontend_numbers}), flush=True)
     print(json.dumps({"kernels_beyond_tpu": [group_row]}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Read an image file as ``cv2.imread(path, cv2.IMREAD_COLOR)`` does,
-without cv2.
+"""Read an image file as ``cv2.imread(path, cv2.IMREAD_COLOR)`` does, and
+decode image bytes as ``cv2.imdecode`` does, without cv2.
 
 The JAX package's eval harness reads every frame with ``cv2.imread``
 (``rtpose_tpu/evalx/harness.py`` ``_imread_checked``); the port reads with
@@ -11,7 +11,9 @@ Pillow, the decoder of the JAX package's training data path
   the stored pixels unless told to, so :func:`read_bgr` transposes);
 - a grayscale image as three equal channels, an alpha channel dropped;
 - ``FileNotFoundError`` for a missing file, ``IOError`` for one that
-  cannot be decoded.
+  cannot be decoded; :func:`decode_bgr` returns None for bytes that are
+  not an image, as ``cv2.imdecode`` does (the HTTP service answers them
+  with 400).
 
 Pillow and cv2 both decode JPEG with libjpeg-turbo's default settings
 (the accurate integer IDCT, fancy chroma upsampling), so their pixels are
@@ -27,7 +29,9 @@ reader raises; there is no other route.
 
 from __future__ import annotations
 
+import io
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -42,16 +46,38 @@ def _pillow():
     return Image, ImageOps
 
 
+def _bgr(source) -> np.ndarray:
+    """Pillow's decode of `source` (a path or a binary file) as ``(H, W,
+    3)`` uint8 BGR, EXIF orientation applied; Pillow's errors for data it
+    cannot identify or decode pass through."""
+    Image, ImageOps = _pillow()
+    with Image.open(source) as im:
+        rgb = np.asarray(ImageOps.exif_transpose(im).convert("RGB"))
+    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+_UNDECODABLE = (OSError, SyntaxError, ValueError)
+
+
 def read_bgr(path: str) -> np.ndarray:
     """The image at `path` as ``(H, W, 3)`` uint8 BGR, EXIF orientation
     applied: ``cv2.imread(path, cv2.IMREAD_COLOR)``'s frame."""
-    Image, ImageOps = _pillow()
+    _pillow()
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     try:
-        with Image.open(path) as im:
-            rgb = np.asarray(ImageOps.exif_transpose(im).convert("RGB"))
-    except (OSError, SyntaxError, ValueError) as e:
-        # Pillow's errors for data it cannot identify or decode
+        return _bgr(path)
+    except _UNDECODABLE as e:
         raise IOError(f"could not decode image {path}") from e
-    return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def decode_bgr(data: bytes) -> Optional[np.ndarray]:
+    """Encoded image bytes as ``(H, W, 3)`` uint8 BGR, EXIF orientation
+    applied, or None where they are not an image:
+    ``cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)``'s
+    frame (cv2's ``imdecode`` applies the orientation as ``imread``
+    does)."""
+    try:
+        return _bgr(io.BytesIO(data))
+    except _UNDECODABLE:
+        return None

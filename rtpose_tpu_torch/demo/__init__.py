@@ -1,3 +1,3 @@
-"""Front-ends of the port.  So far only what the eval CLI needs:
-``picture_demo.build_pipeline`` and ``add_common_args``; the demos
-themselves wait for ROADMAP.md queue 1 item 4."""
+"""Front-ends of the port: the picture and video demos, the HTTP pose
+service with its micro-batcher, and the pipeline construction the CLIs
+share (``picture_demo.build_pipeline`` / ``add_common_args``)."""

@@ -1,13 +1,19 @@
-"""Pipeline construction shared by the port's CLIs (port of
-rtpose_tpu/demo/picture_demo.py:12-71).
+"""Single-image demo (port of rtpose_tpu/demo/picture_demo.py; reference
+demo/picture_demo.py), and the pipeline construction the port's CLIs
+share.
 
-``build_pipeline`` and ``add_common_args`` are what the eval CLI takes
-from the JAX package's picture demo; the demo's ``main`` (reading,
-drawing and writing a picture) waits for the front-ends, ROADMAP.md
-queue 1 item 4.
+    python -m rtpose_tpu_torch.demo.picture_demo --image ski.jpg \
+        --weight pose_model.pth --preprocess rtpose --output result.png
+
+Runs on the card (``--device cuda``, the default); ``--device cpu`` for
+tests.  The picture is read with ``data.imread.read_bgr``, drawn with
+``utils.draw.draw_people`` and written with ``data.imwrite.write_bgr``
+(cv2's pixels, without cv2).
 """
 
 from __future__ import annotations
+
+import argparse
 
 
 def build_pipeline(args):
@@ -85,3 +91,31 @@ def add_common_args(parser):
                              "4 for hourglass, 8 otherwise)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu for tests)")
+
+
+def main():
+    from ..data.imread import read_bgr
+    from ..data.imwrite import write_bgr
+    from ..utils.draw import draw_people
+    from ..utils.human import humans_from_people
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    add_common_args(parser)
+    parser.add_argument("--image", required=True)
+    parser.add_argument("--output", default="result.png")
+    args = parser.parse_args()
+
+    pipe = build_pipeline(args)
+    img = read_bgr(args.image)
+    people, heat, paf, meta = pipe.run(img)
+    humans = humans_from_people(people)
+    print(f"found {len(humans)} people")
+    for h in humans:
+        print(f"  score={h.score:.2f} parts={sorted(h.body_parts)}")
+    out = draw_people(img, people, meta)
+    write_bgr(args.output, out)
+    print(f"wrote {args.output}")
+
+
+if __name__ == "__main__":
+    main()

@@ -66,7 +66,8 @@ def main():
                              "(strictly better mAP, breaks results-JSON "
                              "parity)")
     parser.add_argument("--vis-dir", default=None,
-                        help="not ported yet (ROADMAP.md queue 1 item 4)")
+                        help="write each frame with its people drawn here, "
+                             "under its file_name")
     parser.add_argument("--results", default=None,
                         help="write results json here")
     parser.add_argument("--fp32", action="store_true", help=FP32_HELP)
@@ -78,10 +79,6 @@ def main():
         raise SystemExit("--data-parallel is not ported yet: data-parallel "
                          "serving over several cards is ROADMAP.md queue 1 "
                          "item 6")
-    if args.vis_dir:
-        raise SystemExit("--vis-dir is not ported yet: drawing and writing "
-                         "frames come with the front-ends, ROADMAP.md "
-                         "queue 1 item 4")
     scales = None
     if args.multiscale:
         try:
@@ -99,13 +96,15 @@ def main():
     if args.batch:
         from .harness import run_eval_batched
         stats = run_eval_batched(args.image_dir, args.ann, pipe,
-                                 batch_size=args.batch, limit=args.limit,
+                                 batch_size=args.batch,
+                                 vis_dir=args.vis_dir, limit=args.limit,
                                  score_mode=args.score_mode,
                                  results_path=args.results,
                                  scales=scales)
     else:
         from .harness import run_eval
-        stats = run_eval(args.image_dir, args.ann, pipe, limit=args.limit,
+        stats = run_eval(args.image_dir, args.ann, pipe,
+                         vis_dir=args.vis_dir, limit=args.limit,
                          score_mode=args.score_mode,
                          results_path=args.results, scales=scales)
     print(json.dumps(stats, indent=2))

@@ -5,11 +5,10 @@ The analogue of reference evaluate/coco_eval.py:245-283 (run_eval) with
 flip TTA fused into the forward on the card (see infer/pipeline.py) and
 the native OKS evaluator (evalx/cocoeval.py) instead of pycocotools.
 Frames are read by :func:`..data.imread.read_bgr`, which gives
-``cv2.imread``'s frame without cv2.
-
-``vis_dir`` (drawing each frame's people) is not ported: it needs the
-JAX package's ``utils/draw.py``, which draws with cv2, and an image
-writer; both come with the front-ends (ROADMAP queue 1 item 4).
+``cv2.imread``'s frame without cv2.  With ``vis_dir``, each frame's
+people are drawn (:func:`..utils.draw.draw_people`) and the drawing is
+written under the frame's ``file_name`` (:func:`..data.imwrite.write_bgr`),
+cv2's pixels without cv2.
 """
 
 from __future__ import annotations
@@ -23,8 +22,10 @@ import numpy as np
 
 from ..data.coco_json import CocoJson
 from ..data.imread import read_bgr
+from ..data.imwrite import write_bgr
 from ..infer.pipeline import PosePipeline
 from ..skeleton import NUM_PARTS, ORDER_COCO
+from ..utils.draw import draw_people
 from .cocoeval import evaluate_keypoints
 
 
@@ -67,13 +68,6 @@ def append_result(image_id: int, people: List[Dict[str, Any]],
         })
 
 
-def _no_vis(vis_dir: Optional[str]) -> None:
-    if vis_dir:
-        raise NotImplementedError(
-            "vis_dir is not ported: drawing and writing frames come with "
-            "the front-ends (ROADMAP.md queue 1 item 4)")
-
-
 def _image_ids(coco: CocoJson, img_ids, limit):
     if img_ids is None:
         img_ids = coco.img_ids(coco.cat_ids("person"))
@@ -94,9 +88,10 @@ def run_eval(image_dir: str, ann_file: str, pipeline: PosePipeline, *,
     routes each image through :meth:`PosePipeline.run_multiscale`.  None =
     single scale (flip TTA still applies per the pipeline's flip
     setting)."""
-    _no_vis(vis_dir)
     coco = CocoJson(ann_file)
     img_ids = _image_ids(coco, img_ids, limit)
+    if vis_dir:
+        os.makedirs(vis_dir, exist_ok=True)
 
     outputs: List[dict] = []
     n_retried = n_truncated = 0
@@ -115,6 +110,9 @@ def run_eval(image_dir: str, ann_file: str, pipeline: PosePipeline, *,
         upsample_keypoints = (h_up / scale, w_up / scale)
         append_result(img_id, people, upsample_keypoints, outputs,
                       score_mode=score_mode)
+        if vis_dir:
+            write_bgr(os.path.join(vis_dir, info["file_name"]),
+                      draw_people(img, people, meta))
         if i % 50 == 0 and i:
             print(f"processed {i}/{len(img_ids)} images")
 
@@ -160,9 +158,10 @@ def run_eval_batched(image_dir: str, ann_file: str, pipeline: PosePipeline,
     bucketed by the TUPLE of their per-scale padded shapes (the JAX
     harness's key).
     """
-    _no_vis(vis_dir)
     coco = CocoJson(ann_file)
     img_ids = _image_ids(coco, img_ids, limit)
+    if vis_dir:
+        os.makedirs(vis_dir, exist_ok=True)
 
     # group by the padded shape the pipeline will produce — the SAME
     # arithmetic the pipeline uses (shared helper)
@@ -197,16 +196,21 @@ def run_eval_batched(image_dir: str, ann_file: str, pipeline: PosePipeline,
     t_start = time.perf_counter()
     bucket_rows = []
 
-    def drain(chunk, ticket):
+    def drain(chunk, frames, ticket):
         nonlocal done, n_retried, n_truncated
         people_lists, metas = pipeline.run_batch_collect(ticket)
-        for img_id, people, meta in zip(chunk, people_lists, metas):
+        for img_id, img, people, meta in zip(chunk, frames, people_lists,
+                                             metas):
             n_retried += bool(meta.get("retried"))
             n_truncated += bool(meta["truncated"])
             h_up, w_up = meta["upsampled"]
             upk = (h_up / meta["scale"], w_up / meta["scale"])
             append_result(img_id, people, upk, outputs,
                           score_mode=score_mode)
+            if vis_dir:
+                write_bgr(os.path.join(
+                    vis_dir, coco.image_info(img_id)["file_name"]),
+                    draw_people(img, people, meta))
         done += len(chunk)
 
     import queue
@@ -280,7 +284,7 @@ def run_eval_batched(image_dir: str, ann_file: str, pipeline: PosePipeline,
                           else pipeline.run_batch_submit(frames))
                 if pending is not None:
                     drain(*pending)
-                pending = (chunk, ticket)
+                pending = (chunk, frames, ticket)
             if pending is not None:
                 drain(*pending)
         finally:

@@ -104,3 +104,15 @@ COCO_SIGMAS = np.array([
     .026, .025, .025, .035, .035, .079, .079, .072, .072,
     .062, .062, .107, .107, .087, .087, .089, .089,
 ], dtype=np.float64)
+
+# ---------------------------------------------------------------------------
+# Rendering (reference lib/utils/common.py:276-284): drop the two
+# shoulder-ear pairs when drawing.
+# ---------------------------------------------------------------------------
+RENDER_PAIRS = GROUP_PAIRS[:17]
+PART_COLORS = (
+    (255, 0, 0), (255, 85, 0), (255, 170, 0), (255, 255, 0), (170, 255, 0),
+    (85, 255, 0), (0, 255, 0), (0, 255, 85), (0, 255, 170), (0, 255, 255),
+    (0, 170, 255), (0, 85, 255), (0, 0, 255), (85, 0, 255), (170, 0, 255),
+    (255, 0, 255), (255, 0, 170), (255, 0, 85),
+)

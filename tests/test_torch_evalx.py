@@ -13,8 +13,11 @@
   found whole);
 - mirrors of the JAX harness's producer/consumer and partial-chunk
   tests;
+- ``vis_dir``: both harnesses write each frame's drawing under its
+  file_name with the JAX harness's pixels (drawing and JPEG writer equal
+  to cv2's, bound 0);
 - the CLI's ``main()`` (per image, ``--batch``, ``--multiscale``, its
-  rejects, ``--pad-to``, the flags that are not ported);
+  rejects, ``--pad-to``, ``--vis-dir``, the flag that is not ported);
 - ``load_pipeline(checkpoint_dir=...)`` from a port ``Trainer``
   checkpoint, and ``scripts/export_jax_checkpoint.py`` from a JAX
   ``Trainer`` orbax checkpoint: maps equal to the JAX
@@ -258,12 +261,30 @@ def test_run_eval_batched_consumer_error_unblocks_producer(synth_set, pipes):
 
 
 @pytest.mark.parametrize("fn", ["run_eval", "run_eval_batched"])
-def test_vis_dir_is_not_ported(synth_set, pipes, tmp_path, fn):
+def test_vis_dir_matches_jax_harness(synth_set, pipes, tmp_path, fn):
+    """Each frame's drawing is written under its file_name, and its pixels
+    are the JAX harness's (cv2 draws and writes there; the drawing and the
+    JPEG writer are equal to cv2's, bound 0)."""
+    import cv2
     img_dir, ann, _ = synth_set
-    with pytest.raises(NotImplementedError, match="item 4"):
-        getattr(harness, fn)(img_dir, ann, pipes["single"][1],
-                             vis_dir=str(tmp_path / "vis"))
-    assert not (tmp_path / "vis").exists()
+    jpipe, tpipe = pipes["single"]
+    kwargs = {"batch_size": 2} if fn == "run_eval_batched" else {}
+    vis = {side: tmp_path / side for side in ("port", "jax")}
+    getattr(harness, fn)(img_dir, ann, tpipe, vis_dir=str(vis["port"]),
+                         **kwargs)
+    getattr(jharness, fn)(img_dir, ann, jpipe, vis_dir=str(vis["jax"]),
+                          **kwargs)
+    names = sorted(os.listdir(img_dir))
+    assert sorted(os.listdir(vis["port"])) == names
+    assert sorted(os.listdir(vis["jax"])) == names
+    drawn = 0
+    for name in names:
+        got = cv2.imread(str(vis["port"] / name))
+        want = cv2.imread(str(vis["jax"] / name))
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        drawn += not np.array_equal(
+            got, cv2.imread(os.path.join(img_dir, name)))
+    assert drawn == len(names)       # every frame has people drawn
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +331,20 @@ def test_evalx_cli(cli_set, monkeypatch, capsys, extra):
     assert ("pipeline_s" in stats) == ("--batch" in extra)
 
 
+@pytest.mark.parametrize("extra", [[], ["--batch", "2"]],
+                         ids=["per_image", "batch"])
+def test_evalx_cli_vis_dir(cli_set, tmp_path, monkeypatch, capsys, extra):
+    """``--vis-dir`` writes one drawing per frame, of the frame's size."""
+    import cv2
+    img_dir, _ = cli_set
+    vis = tmp_path / "vis"
+    _run_cli(cli_set, ["--vis-dir", str(vis)] + extra, monkeypatch, capsys)
+    names = sorted(os.listdir(img_dir))
+    assert sorted(os.listdir(vis)) == names and len(names) == 2
+    for name in names:
+        assert cv2.imread(str(vis / name)).shape == (64, 48, 3)
+
+
 def test_evalx_cli_pad_to(cli_set, monkeypatch, capsys):
     stats, out = _run_cli(cli_set, ["--batch", "2", "--pad-to", "64"],
                           monkeypatch, capsys)
@@ -320,7 +355,6 @@ def test_evalx_cli_pad_to(cli_set, monkeypatch, capsys):
     (["--multiscale", "0.5,abc"], "comma-separated floats"),
     (["--multiscale", "0.5,-1.0"], "positive"),
     (["--data-parallel"], "item 6"),
-    (["--vis-dir", "vis"], "item 4"),
     (["--model", "mobilenet_v2"], "unknown model family"),
 ])
 def test_evalx_cli_rejects(cli_set, monkeypatch, capsys, extra, msg):

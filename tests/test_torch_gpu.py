@@ -807,3 +807,90 @@ def test_hourglass_kernels_at_factor_and_stride_4(cuda):
         grid_x=64, stride=4, sigma=4.416, limb_width=1.289)
     torch.testing.assert_close(heat_k, heat_p, rtol=0, atol=0)
     torch.testing.assert_close(paf_k, paf_p, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_http_on_card_equals_cpu(cuda):
+    """The HTTP service over an oracle-map pipeline on the card answers
+    the same JPEG bytes as the CPU service: people, part names, size and
+    truncation equal, pixel coordinates within 1e-4, scores within 1e-5;
+    the card's requests launch K1, K3 and the grouping kernel."""
+    import http.client
+    import io
+    import threading
+
+    from PIL import Image
+
+    from rtpose_tpu_torch.data.imread_fixtures import render_scene
+    from rtpose_tpu_torch.demo.serve_http import serve
+    from rtpose_tpu_torch.utils.synth_coco import (OracleMaps, oracle_maps,
+                                                   spread_people)
+    rng = np.random.RandomState(0)
+    scenes = {(368, 496): spread_people(rng, 2, 368, 496),
+              (496, 368): spread_people(rng, 1, 496, 368)}
+    maps = oracle_maps(scenes, 368)
+    bodies = []
+    for i, (h, w) in enumerate(scenes):
+        buf = io.BytesIO()
+        Image.fromarray(render_scene(i, h, w)).save(buf, "JPEG")
+        bodies.append(buf.getvalue())
+    answers = {}
+    for dev in ("cpu", "cuda"):
+        server = serve(PosePipeline(OracleMaps(maps), device=dev,
+                                    input_size=368, flip=False),
+                       host="127.0.0.1", port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        kernels.reset_launch_counts()
+        try:
+            answers[dev] = []
+            for body in bodies:
+                conn = http.client.HTTPConnection(
+                    "127.0.0.1", server.server_address[1], timeout=120)
+                conn.request("POST", "/pose", body=body)
+                resp = conn.getresponse()
+                answers[dev].append((resp.status, json.loads(resp.read())))
+                conn.close()
+        finally:
+            server.shutdown()
+            server.server_close()
+        counts = kernels.launch_counts()
+        for name in ("connection_scores", "bicubic_refine", "group_people"):
+            assert (counts[name] > 0) == (dev == "cuda"), (dev, counts)
+    for (sg, got), (sc, want) in zip(answers["cuda"], answers["cpu"]):
+        assert sg == sc == 200
+        assert got["size"] == want["size"]
+        assert got["truncated"] == want["truncated"]
+        assert len(got["people"]) == len(want["people"]) > 0
+        for a, b in zip(got["people"], want["people"]):
+            assert abs(a["score"] - b["score"]) <= ATOL
+            assert a["parts"].keys() == b["parts"].keys()
+            for name, (x, y, s) in a["parts"].items():
+                bx, by, bs = b["parts"][name]
+                assert abs(x - bx) <= 1e-4 and abs(y - by) <= 1e-4
+                assert abs(s - bs) <= ATOL
+
+
+@pytest.mark.gpu
+def test_drawing_on_the_cards_machine_equals_cv2(cuda):
+    """``utils.draw`` against the cv2 installed beside the card (another
+    version than the CPU tests'): the demos' thick circles and lines,
+    inside, on the edge and outside the frame, pixel for pixel."""
+    cv2 = pytest.importorskip("cv2")
+    from rtpose_tpu_torch.utils.draw import cv_circle, cv_line
+    rng = np.random.RandomState(0)
+    for trial in range(400):
+        h, w = rng.randint(1, 90, 2)
+        want = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        got = want.copy()
+        p1 = tuple(int(v) for v in rng.randint(-100, 200, 2))
+        p2 = tuple(int(v) for v in rng.randint(-100, 200, 2))
+        color = tuple(int(v) for v in rng.randint(0, 256, 3))
+        if trial % 2:
+            cv2.line(want, p1, p2, color, 3)
+            cv_line(got, p1, p2, color, 3)
+        else:
+            cv2.circle(want, p1, 3, color, thickness=3, lineType=8)
+            cv_circle(got, p1, 3, color, 3)
+        np.testing.assert_array_equal(got, want, err_msg=str(
+            (cv2.__version__, trial, (h, w), p1, p2)))

@@ -1,7 +1,8 @@
 """rtpose_tpu_torch stands alone: it imports no jax, flax, cv2 or anything
 of the JAX package, serves, takes a train step, builds and runs every
 model family, trains a BatchNorm family, draws a loader batch in a worker
-process and answers the training CLI's --help without them, and its
+process, answers the training CLI's --help, runs the picture and video
+demos and answers an HTTP request without them, and its
 copies of the JAX package's tables and numpy helpers (the skeleton,
 ``WIDTH_CONFIGS``, the caffe layer order and prototxt) are equal to the
 originals."""
@@ -100,6 +101,34 @@ try:
     train_main()
 except SystemExit as e:
     assert e.code == 0, e.code
+import http.client, io, threading
+from rtpose_tpu_torch.data.imwrite import write_bgr
+from rtpose_tpu_torch.demo import picture_demo, serve_http, video_demo
+from rtpose_tpu_torch.demo.video_io import VideoWriter, open_video
+frame = np.random.RandomState(2).randint(0, 256, (60, 80, 3), np.uint8)
+small = ["--device", "cpu", "--stages", "1", "--input-size", "56", "--fp32"]
+with tempfile.TemporaryDirectory() as root:
+    write_bgr(root + "/in.jpg", frame)
+    sys.argv = ["picture_demo", "--image", root + "/in.jpg", "--output",
+                root + "/out.png"] + small
+    picture_demo.main()
+    writer = VideoWriter(root + "/in.avi", 10.0, (80, 60))
+    for _ in range(3):
+        writer.write(frame)
+    writer.release()
+    sys.argv = ["video_demo", "--video", root + "/in.avi", "--output",
+                root + "/out.avi", "--batch", "2"] + small
+    video_frames, _ = video_demo.main()
+    video_out = open_video(root + "/out.avi").frame_count
+    server = serve_http.serve(pipe, host="127.0.0.1", port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                      timeout=120)
+    conn.request("POST", "/pose", body=open(root + "/in.jpg", "rb").read())
+    resp = conn.getresponse()
+    http_answer = [resp.status, json.loads(resp.read())["size"]]
+    server.shutdown()
+    server.server_close()
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "flax", "cv2", "rtpose_tpu")
                 and sys.modules[k] is not None)
@@ -107,7 +136,8 @@ print(json.dumps({"modules": mods, "people": len(people),
                   "heat": list(heat.shape), "loaded": loaded,
                   "train_loss": logs["loss"], "eval_ap": stats["AP"],
                   "zoo": zoo, "bn_train_loss": bn_logs["loss"],
-                  "loader": {k: list(v.shape) for k, v in batch.items()}}))
+                  "loader": {k: list(v.shape) for k, v in batch.items()},
+                  "video": [video_frames, video_out], "http": http_answer}))
 """
 
 
@@ -129,7 +159,10 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
                 "data.dataset", "data.transforms", "train.__main__",
                 "models.openpose_v2", "models.mobilenet_v2",
                 "models.shufflenet_v2", "models.atrous", "models.atrous_cpm",
-                "models.hourglass", "models.caffe_interop"):
+                "models.hourglass", "models.caffe_interop",
+                "demo.serve_http", "demo.video_demo", "demo.video_io",
+                "data.imwrite", "utils.draw", "utils.human",
+                "utils.profiling"):
         assert f"rtpose_tpu_torch.{mod}" in res["modules"], mod
     assert res["eval_ap"] == 1.0
     assert res["train_loss"] > 0 and np.isfinite(res["train_loss"])
@@ -146,6 +179,8 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
     assert res["loader"] == {"image": [2, 64, 64, 3],
                              "keypoints": [2, 32, 18, 3],
                              "mask": [2, 8, 8, 1], "image_id": [2]}
+    assert res["video"] == [3, 3]
+    assert res["http"] == [200, [60, 80]]
 
 
 def test_skeleton_copy_equals_the_jax_package():
@@ -170,10 +205,12 @@ def _code(module) -> str:
     return ast.dump(tree)
 
 
-@pytest.mark.parametrize("name", ["data.coco_json", "evalx.cocoeval"])
+@pytest.mark.parametrize("name", ["data.coco_json", "evalx.cocoeval",
+                                  "utils.human"])
 def test_copied_modules_equal_the_jax_package(name):
-    """The port's copies of the JAX package's jax-free COCO modules have
-    the originals' code (only the docstrings differ)."""
+    """The port's copies of the JAX package's jax-free modules (COCO, the
+    Human view of people) have the originals' code (only the docstrings
+    differ)."""
     port = importlib.import_module(f"rtpose_tpu_torch.{name}")
     original = importlib.import_module(f"rtpose_tpu.{name}")
     assert _code(port) == _code(original)
