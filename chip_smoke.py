@@ -68,6 +68,14 @@ entry points a user calls:
   card against CPU, a crowded frame retried through K2; the video demo
   on a 64-frame Motion-JPEG AVI (frames/s; the output rereads); the
   picture demo; the eval CLI's ``--vis-dir`` (one drawing a frame);
+- the native training loader (phase 9c): the C++ pool built from the
+  repository against Pillow's libjpeg, the train CLI with
+  ``train.data_loader=native`` on phase 9b's JPEGs (K4 once a step), K4
+  on a native uint8 batch == plain, the loader's img/s with 1 and nproc
+  threads, alone and feeding the trainer, beside phase 9b's PIL loader;
+  the hourglass experiment from JPEGs with rotation (phase 9d, K4 at
+  stride 4); the flagship served under each resize mode (host, "auto",
+  card; phase 7b), ms per frame;
 
 and checks that each path launched its kernels.  Also holds one fp32
 train step on the card against the CPU.  Prints timings beside the card's
@@ -944,12 +952,300 @@ def train_files_phase(dev, smi: str, step_ms: float) -> int:
             f"data-wait share {wait_share:.3f}; in memory (phase 9) "
             f"{TRAIN_BATCH * 1e3 / step_ms:.1f} img/s; data-wait share per "
             f"step {shares(fed_logs)} [{smi}]")
+        pil = dict(loader_1_ips=round(one_ips, 1),
+                   loader_w_ips=round(w_ips, 1), fed_ips=round(fed_ips, 1),
+                   fed_wait_share=round(wait_share, 3), workers=workers)
+        stop_worker_processes()
+        # 9c. the same JPEGs through the native loader
+        native = native_loader_phase(dev, smi, (train_dir, train_ann),
+                                     (val_dir, val_ann), step_ms, pil)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         # the forkserver and the resource tracker outlive the loaders
         stop_worker_processes()
-    return cli_counts["gt_maps"]
+    return cli_counts["gt_maps"], native
 
+
+
+def native_loader_phase(dev, smi: str, train, val, step_ms: float,
+                        pil: dict) -> dict:
+    """Training from the same JPEGs through ``train.data_loader=native``:
+    the C++ pool's build and its libjpeg (Pillow's), the train CLI's
+    ``main()`` for one epoch (K4 once a train and a val step), K4 on a
+    native uint8 batch == plain after ``normalize_window`` (card == CPU),
+    and the loader's img/s with 1 and nproc threads, alone and feeding
+    the trainer, beside phase 9b's PIL loader -> numbers."""
+    import contextlib
+    import io
+    import itertools
+
+    import torch
+    from rtpose_tpu_torch.data.dataset import CocoKeypoints, ConcatKeypoints
+    from rtpose_tpu_torch.data.native_loader import NativeLoader
+    from rtpose_tpu_torch.native import imgpipe
+    from rtpose_tpu_torch.ops import kernels
+    from rtpose_tpu_torch.train import __main__ as train_cli
+    from rtpose_tpu_torch.train.checkpoint import CheckpointManager
+    from rtpose_tpu_torch.train.trainer import normalize_window
+
+    nproc = len(os.sched_getaffinity(0))
+    (train_dir, train_ann), (val_dir, val_ann) = train, val
+    t0 = time.perf_counter()
+    lib = imgpipe.loaded_library()
+    build_s = time.perf_counter() - t0
+    libjpeg = imgpipe.pillow_libjpeg()
+    log(f"native loader: decoder route a, libjpeg-turbo from Pillow's wheel "
+        f"{libjpeg}; imgpipe built and loaded in {build_s:.2f} s -> "
+        f"{os.path.relpath(lib, ROOT)}")
+
+    # the flagship through the CLI with the native loader, one epoch
+    ckpt_dir = os.path.join(os.path.dirname(train_dir), "ckpt_native")
+    sets = [f'dataset.train_image_dir="{train_dir}"',
+            f'dataset.train_annotations=["{train_ann}"]',
+            f'dataset.val_image_dir="{val_dir}"',
+            f'dataset.val_annotations="{val_ann}"',
+            f'train.checkpoint_dir="{ckpt_dir}"',
+            f"train.data_workers={nproc}", 'train.data_loader="native"']
+    argv = sys.argv
+    sys.argv = ["train", "--config",
+                os.path.join(ROOT, "experiments", "vgg19_368x368_sgd.yaml"),
+                "--epochs", "1", "--device", str(dev), "--set", *sets]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer, history = train_cli.main()
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = argv
+    cli_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    (logs,) = history
+    steps, val_steps = len(logs["train"]["step_s"]), len(logs["val"]["step_s"])
+    check(steps == 4 and trainer.step == steps,
+          f"native CLI epoch took {trainer.step} steps")
+    check(counts["gt_maps"] == steps + val_steps,
+          f"native CLI: gt_maps launched {counts['gt_maps']} times for "
+          f"{steps} train and {val_steps} val steps")
+    _, meta = CheckpointManager(ckpt_dir).restore_latest(dev)
+    check(math.isfinite(meta["train_loss"]) and math.isfinite(
+        meta["val_loss"]), f"native CLI losses {meta}")
+    waits = [round(d / t, 3) for d, t in zip(logs["train"]["data_s"],
+                                             logs["train"]["step_s"])]
+    log(f"train CLI with train.data_loader=native, flagship (VGG19 6 stages "
+        f"368 px bf16 batch {TRAIN_BATCH}), {nproc} threads: {steps} steps "
+        f"+ {val_steps} val in {cli_s:.2f} s (model build included); train "
+        f"loss {meta['train_loss']!r}, val loss {meta['val_loss']!r}; "
+        f"launches {counts}; data-wait share per step {waits} [{smi}]")
+
+    # K4 on a native uint8 batch, and normalize_window card == CPU
+    size = trainer.cfg.dataset.image_size
+    grid = size // trainer.cfg.model.downsample
+    train_ds = CocoKeypoints(train_dir, train_ann, input_size=size)
+    batch = next(iter(NativeLoader(train_ds, TRAIN_BATCH, threads=nproc,
+                                   seed=5, uint8_output=True,
+                                   pin_memory=True)))
+    check(batch["image"].is_pinned() and batch["image"].dtype == torch.uint8,
+          "native batches are pinned uint8 canvases")
+    norm_card = normalize_window(batch["image"].to(dev),
+                                 batch["valid_xywh"].to(dev))
+    norm_cpu = normalize_window(batch["image"], batch["valid_xywh"])
+    norm_err = float((norm_card.cpu() - norm_cpu).abs().max())
+    kps = batch["keypoints"].to(dev)
+    heat, paf = kernels.gt_maps(kps, grid_y=grid, grid_x=grid, stride=8,
+                                sigma=7.0)
+    heat_p, paf_p = kernels.gt_maps_plain(
+        kps, kernels.limb_scalars(kps, 8), kernels.person_bound(kps),
+        grid_y=grid, grid_x=grid, stride=8, sigma=7.0)
+    k4_err = max(float((heat - heat_p).abs().max()),
+                 float((paf - paf_p).abs().max()))
+    check(k4_err == 0.0 and norm_err == 0.0,
+          f"native batch: K4 max err {k4_err}, normalize_window card vs "
+          f"CPU {norm_err}")
+    del batch, kps, heat, paf, heat_p, paf_p, norm_card, norm_cpu
+
+    # img/s: 1 and nproc threads alone, nproc feeding the trainer
+    many = ConcatKeypoints([train_ds] * FED_ROUNDS)
+    n_batches = len(many) // TRAIN_BATCH
+
+    def alone(threads, n):
+        loader = NativeLoader(many, TRAIN_BATCH, threads=threads, seed=6,
+                              uint8_output=True, pin_memory=True)
+        t, seen = [time.perf_counter()], 0
+        for _ in itertools.islice(loader, n):
+            t.append(time.perf_counter())
+            seen += 1
+        # steady: after the first batch (prefetch fills behind it)
+        return (seen - 1) * TRAIN_BATCH / (t[-1] - t[1])
+
+    one_ips = alone(1, 3)
+    all_ips = alone(nproc, n_batches)
+    fed = NativeLoader(many, TRAIN_BATCH, threads=nproc, seed=7,
+                       uint8_output=True, pin_memory=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        fed_logs = trainer.run_epoch(itertools.islice(fed, n_batches))
+    torch.cuda.synchronize()
+    fed_s = time.perf_counter() - t0
+    steady = sum(fed_logs["step_s"][1:])
+    fed_ips = (n_batches - 1) * TRAIN_BATCH / steady
+    wait_share = sum(fed_logs["data_s"][1:]) / steady
+    cpu = os.times()
+    del trainer
+    torch.cuda.empty_cache()
+    numbers = dict(nproc=nproc, loader_1_thread_ips=round(one_ips, 1),
+                   loader_nproc_ips=round(all_ips, 1),
+                   fed_ips=round(fed_ips, 1),
+                   fed_wait_share=round(wait_share, 3),
+                   in_memory_ips=round(TRAIN_BATCH * 1e3 / step_ms, 1),
+                   cli_gt_launches=counts["gt_maps"], k4_err=k4_err,
+                   library=os.path.relpath(lib, ROOT), libjpeg=str(libjpeg),
+                   pil=pil)
+    log(f"native loader: nproc {nproc}; {TRAIN_BATCH}-image uint8 batches "
+        f"from the same JPEGs: 1 thread {one_ips:.1f} img/s "
+        f"({1e3 / one_ips:.2f} ms/img), {nproc} threads {all_ips:.1f} "
+        f"img/s; feeding the trainer {fed_ips:.1f} img/s after the first "
+        f"step ({n_batches} steps in {fed_s:.2f} s), data-wait share "
+        f"{wait_share:.3f}; in memory {numbers['in_memory_ips']} img/s; the "
+        f"PIL loader in this call (phase 9b): 1 process {pil['loader_1_ips']}"
+        f" img/s, {pil['workers']} processes {pil['loader_w_ips']} img/s, "
+        f"fed {pil['fed_ips']} img/s at a data-wait share "
+        f"{pil['fed_wait_share']}; K4 on a native batch == plain, "
+        f"normalize_window card == CPU; process CPU s so far user "
+        f"{cpu.user:.1f} system {cpu.system:.1f} [{smi}]")
+    return numbers
+
+
+def rotated_hourglass_phase(dev, smi: str) -> dict:
+    """The hourglass experiment (8 stacks, 256 px, stride 4, rotation up
+    to 40 degrees) from JPEGs through the train CLI's ``main()`` with the
+    PIL loader: K4 at stride 4 once a train and a val step, finite
+    losses -> numbers."""
+    import contextlib
+    import io
+
+    import torch
+    from rtpose_tpu_torch.data.dataset import stop_worker_processes
+    from rtpose_tpu_torch.ops import kernels
+    from rtpose_tpu_torch.train import __main__ as train_cli
+    from rtpose_tpu_torch.train.checkpoint import CheckpointManager
+    from rtpose_tpu_torch.utils.synth_coco import (training_frames,
+                                                   write_synth_coco)
+
+    nproc = len(os.sched_getaffinity(0))
+    work = os.path.join(ROOT, "rtpose_tpu_torch", "build", "chip_smoke_hg")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        rng = np.random.RandomState(8)
+        shapes = [((240, 320), (320, 240))[i % 2] for i in range(96)]
+        train_dir, train_ann = write_synth_coco(
+            os.path.join(work, "train"), training_frames(rng, shapes))
+        val_dir, val_ann = write_synth_coco(
+            os.path.join(work, "val"), training_frames(rng, shapes[:32]),
+            seed=96)
+        sets = [f'dataset.train_image_dir="{train_dir}"',
+                f'dataset.train_annotations=["{train_ann}"]',
+                f'dataset.val_image_dir="{val_dir}"',
+                f'dataset.val_annotations="{val_ann}"',
+                f'train.checkpoint_dir="{os.path.join(work, "ckpt")}"',
+                f"train.data_workers={min(8, nproc)}"]
+        argv = sys.argv
+        sys.argv = ["train", "--config",
+                    os.path.join(ROOT, "experiments",
+                                 "hourglass_256x256.yaml"),
+                    "--epochs", "1", "--device", str(dev), "--set", *sets]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                trainer, (logs,) = train_cli.main()
+            torch.cuda.synchronize()
+        finally:
+            sys.argv = argv
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        cfg = trainer.cfg
+        check((cfg.model.name, cfg.model.num_stages, cfg.model.downsample,
+               cfg.dataset.image_size, cfg.dataset.rotate_degrees) ==
+              ("hourglass", 8, 4, 256, 40.0), "hourglass experiment config")
+        steps, val_steps = (len(logs["train"]["step_s"]),
+                            len(logs["val"]["step_s"]))
+        check(steps >= 2 and counts["gt_maps"] == steps + val_steps,
+              f"rotated hourglass: {steps} steps, gt_maps {counts}")
+        _, meta = CheckpointManager(os.path.join(work, "ckpt")
+                                    ).restore_latest(dev)
+        check(math.isfinite(meta["train_loss"])
+              and math.isfinite(meta["val_loss"]),
+              f"rotated hourglass losses {meta}")
+        del trainer
+        torch.cuda.empty_cache()
+        log(f"hourglass experiment from 96 + 32 JPEGs (240x320, 320x240), "
+            f"rotation up to 40 degrees, PIL loader with {min(8, nproc)} "
+            f"processes: {steps} steps + {val_steps} val at batch "
+            f"{cfg.train.batch_size} in {wall:.2f} s (build and worker start "
+            f"included); K4 at stride 4 (64x64 grid) launched "
+            f"{counts['gt_maps']} times; train loss {meta['train_loss']!r}, "
+            f"val loss {meta['val_loss']!r}; data-wait s per step "
+            f"{[round(d, 3) for d in logs['train']['data_s']]} [{smi}]")
+        return dict(steps=steps, val_steps=val_steps,
+                    gt_launches=counts["gt_maps"], wall_s=round(wall, 2))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        stop_worker_processes()
+
+
+def resize_modes_phase(dev, smi: str, model) -> dict:
+    """The flagship served under each resize mode on the same weights:
+    ``run_batch`` of 8 COCO-sized (480x640, shrinking) and 8 small
+    (240x320, growing) rendered frames, ms per frame, host resize alone,
+    and the people of the modes that take the same path equal -> numbers
+    per mode and frame size."""
+    import torch
+    from rtpose_tpu_torch.data.imread_fixtures import render_scene
+    from rtpose_tpu_torch.infer.pipeline import PosePipeline
+    from rtpose_tpu_torch.infer.preprocess import crop_with_factor
+    from rtpose_tpu_torch.ops import kernels
+
+    sets = {"480x640": [np.ascontiguousarray(render_scene(i, 480, 640)[
+                ..., ::-1]) for i in range(8)],
+            "240x320": [np.ascontiguousarray(render_scene(10 + i, 240, 320)[
+                ..., ::-1]) for i in range(8)]}
+    t0 = time.perf_counter()
+    for frame in sets["480x640"] * 2:
+        crop_with_factor(frame, 368)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 16
+    out, people = {}, {}
+    for mode in (False, "auto", True):
+        pipe = PosePipeline(model, device=dev, input_size=368, flip=True,
+                            device_resize=mode)
+        for label, frames in sets.items():
+            pipe.run_batch(frames)                     # warm-up
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                got, metas = pipe.run_batch(frames)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (3 * len(frames))
+            counts = kernels.launch_counts()
+            check(all(counts[k] == 3 for k in SERVING_KERNELS),
+                  f"resize mode {mode} {label}: launches {counts}")
+            out[f"{mode}/{label}"] = round(ms, 3)
+            people[mode, label] = [[sorted(person["parts"]) for person in p]
+                                   for p in got]
+    # "auto" takes the host path for shrinking frames, the card's for
+    # growing ones: the same people as that mode
+    check(people["auto", "480x640"] == people[False, "480x640"]
+          and people["auto", "240x320"] == people[True, "240x320"],
+          "auto did not follow the host path for 480x640 and the card's "
+          "for 240x320")
+    log(f"resize modes, flagship bf16 flip, run_batch of 8, ms per frame: "
+        f"{out}; host resize (crop_with_factor) of a 480x640 frame "
+        f"{host_ms:.2f} ms [{smi}]")
+    return dict(ms_per_frame=out, host_resize_ms=round(host_ms, 2))
 
 
 # the model zoo: every family but the flagship, at its published width
@@ -2092,7 +2388,7 @@ def main() -> int:
     # 30 people: 570 connections overflow the default 160 but fit the
     # 608 of RETRY_CAPS (36 people, 684 connections, would not)
     pipe = load_pipeline(device="cuda", model_name="vgg19", num_stages=6,
-                         input_size=368, flip=True, seed=0)
+                         input_size=368, flip=True, seed=0, device_resize=True)
     h30, p30 = torch.from_numpy(h30np), torch.from_numpy(p30np)
     first = decode_poses_batch(h30.to(dev), p30.to(dev))
     check(bool(first.truncated.all()),
@@ -2207,6 +2503,7 @@ def main() -> int:
 
     blur_pipe = load_pipeline(device="cuda", model_name="vgg19", num_stages=6,
                               input_size=368, flip=True, seed=0,
+                              device_resize=True,
                               gaussian_filt=True)
     kernels.reset_launch_counts()
     people1b, heat1b, _, _ = blur_pipe.run(frame)
@@ -2272,6 +2569,9 @@ def main() -> int:
           f"a multi-scale chunk took {ms_cost:.1f} bytes per frame and "
           f"pixel, more than MS_BYTES_PER_PIXEL {MS_BYTES_PER_PIXEL}")
     del ticket
+
+    # 7b. the resize modes: host, "auto" and card on the same weights
+    resize_numbers = resize_modes_phase(dev, smi, pipe.model)
 
     # 6c. no host read inside the decode: decode_poses_batch at both caps
     # and run_batch_submit of 8 frames, with every synchronising call an
@@ -2503,7 +2803,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9b. training from files: the train CLI, the loader's processes
-    cli_gt_launches = train_files_phase(dev, smi, step_ms)
+    cli_gt_launches, native_numbers = train_files_phase(dev, smi, step_ms)
+
+    # 9d. the hourglass experiment from files, rotated (K4 at stride 4)
+    rotated_numbers = rotated_hourglass_phase(dev, smi)
 
     # 10. one fp32 train step (TF32 off) on the card vs the CPU, batch 2
     # at 368 px, from the same seeded weights
@@ -2560,6 +2863,10 @@ def main() -> int:
         blur_counts["bicubic_refine_gaussian_filt"]
     results["gt_maps"]["stage_host_ms"] = gt_host_ms
     results["gt_maps"]["train_cli_launches"] = cli_gt_launches
+    results["gt_maps"]["native_cli_launches"] = \
+        native_numbers["cli_gt_launches"]
+    results["gt_maps"]["rotated_hourglass_launches"] = \
+        rotated_numbers["gt_launches"]
     # library_ms: no single PyTorch call computes any of them (K1's
     # truncated int(a + s * step + 0.5) // 8 cells are not grid_sample's;
     # K3 is a gather, a bicubic upsample with cv2's border and an argmax;
@@ -2605,6 +2912,9 @@ def main() -> int:
     check(not left, f"processes still running: {left}")
     print(json.dumps({"zoo": zoo_numbers}), flush=True)
     print(json.dumps({"frontends": frontend_numbers}), flush=True)
+    print(json.dumps({"native_loader": native_numbers,
+                      "rotated_hourglass": rotated_numbers,
+                      "resize_modes": resize_numbers}), flush=True)
     print(json.dumps({"kernels_beyond_tpu": [group_row]}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

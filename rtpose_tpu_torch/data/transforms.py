@@ -6,8 +6,8 @@ keypoints and meta, on the same images and rng).
 Functional equivalents of the reference pipeline (reference
 lib/datasets/transforms.py): Normalize, RescaleRelative/Absolute, Crop,
 CenterPad, HFlip (with part swap), RandomApply, Compose, MultiScale, plus
-photometric color jitter.  ``RandomRotate`` raises: the original rotates
-with cv2 (see its docstring).
+photometric color jitter, and ``RandomRotate``, whose warp is
+``cv2exact.warp_affine_cubic`` where the original calls cv2.
 
 Differences from the reference by design: explicit
 ``numpy.random.Generator`` state everywhere (the reference mixes
@@ -28,6 +28,7 @@ import numpy as np
 import PIL.Image
 
 from ..skeleton import COCO_PART_NAMES
+from .cv2exact import get_rotation_matrix_2d, warp_affine_cubic
 
 # ImageNet statistics (reference transforms.py:41-44)
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -215,19 +216,38 @@ class CenterPad(Transform):
 
 
 class RandomRotate(Transform):
-    """Rotate +-max_degrees with canvas expansion (reference
-    transforms.py:403-480).  Not ported, so constructing it raises: the
-    JAX package rotates with ``cv2.warpAffine`` (INTER_CUBIC,
-    BORDER_CONSTANT), which the port may not import.  A cv2-free warp equal
-    to cv2's to the bit is ROADMAP.md queue 1 item 10; the hourglass
-    experiment, the one shipped experiment that rotates, trains with
-    ``dataset.rotate_degrees=0`` until then."""
+    """Rotate +-max_degrees with canvas expansion
+    (reference transforms.py:403-480).  The JAX package warps with
+    ``cv2.warpAffine``; this copy warps with ``cv2exact``'s, which equals
+    it to the bit (INTER_CUBIC, BORDER_CONSTANT 128)."""
 
     def __init__(self, max_degrees: float = 40.0):
-        raise NotImplementedError(
-            "RandomRotate is not ported: it needs a cv2-free warpAffine "
-            "(INTER_CUBIC, BORDER_CONSTANT) equal to cv2's to the bit, "
-            "ROADMAP.md queue 1 item 10")
+        self.max_degrees = max_degrees
+
+    def __call__(self, sample, rng):
+        sample = _shallow(sample)
+        degree = (rng.random() - 0.5) * 2 * self.max_degrees
+        img = np.asarray(sample.image)
+        h, w = img.shape[:2]
+        cx, cy = w // 2, h // 2
+        M = get_rotation_matrix_2d((cx, cy), -degree, 1.0)
+        cos, sin = abs(M[0, 0]), abs(M[0, 1])
+        nw = int(h * sin + w * cos)
+        nh = int(h * cos + w * sin)
+        M[0, 2] += nw / 2 - cx
+        M[1, 2] += nh / 2 - cy
+        rot = warp_affine_cubic(img, M, (nw, nh),
+                                border_value=(128, 128, 128))
+        sample.image = PIL.Image.fromarray(rot)
+        kp = sample.keypoints.copy()
+        pts = np.concatenate([kp[:, :, :2],
+                              np.ones((*kp.shape[:2], 1))], axis=2)
+        kp[:, :, :2] = pts @ M.T
+        sample.keypoints = kp
+        meta = dict(sample.meta)
+        meta["valid_area"] = _rotate_box(meta["valid_area"], M)
+        sample.meta = meta
+        return sample
 
 
 def adjust_hue(img: PIL.Image.Image, hue_factor: float) -> PIL.Image.Image:
@@ -383,6 +403,19 @@ def _rescale(sample, fx, fy, resample, target=None) -> Sample:
     meta["valid_area"] = va
     sample.meta = meta
     return sample
+
+
+def _rotate_box(bbox, M):
+    corners = np.array([
+        [bbox[0], bbox[1], 1],
+        [bbox[0] + bbox[2], bbox[1], 1],
+        [bbox[0], bbox[1] + bbox[3], 1],
+        [bbox[0] + bbox[2], bbox[1] + bbox[3], 1],
+    ])
+    pts = corners @ M.T
+    x0, y0 = pts[:, 0].min(), pts[:, 1].min()
+    x1, y1 = pts[:, 0].max(), pts[:, 1].max()
+    return np.array([x0, y0, x1 - x0, y1 - y0])
 
 
 def image_to_tensor(image: PIL.Image.Image, train: bool = False

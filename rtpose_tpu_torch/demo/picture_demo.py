@@ -24,8 +24,10 @@ def build_pipeline(args):
     comes as a ``.pth`` through ``scripts/export_jax_checkpoint.py``).
     ``--fp32`` builds the model in fp32 and turns TF32 off for cuDNN
     convolutions and matmuls, process-wide: cuDNN convolves fp32 in TF32
-    by default.  ``--device-resize`` has no effect: the port always
-    resizes on the card.  Any family of ``models.get_model``: hourglass
+    by default.  ``--device-resize`` selects the pipeline's ``"auto"``
+    resize (the card scales frames that grow, the host frames that
+    shrink); without it the host resizes every frame, as the JAX CLIs do.
+    Any family of ``models.get_model``: hourglass
     serves at stride 4 (rtpose_tpu/demo/picture_demo.py:26-32), the
     others at stride 8; the pipeline pads each family's inputs to the
     multiple it needs (hourglass 64)."""
@@ -54,7 +56,9 @@ def build_pipeline(args):
         downsample=getattr(args, "downsample", 0) or (
             4 if args.model == "hourglass" else 8),
         pad_factor=getattr(args, "pad_to", 0),
-        gaussian_filt=getattr(args, "gaussian_filt", False))
+        gaussian_filt=getattr(args, "gaussian_filt", False),
+        device_resize=(
+            "auto" if getattr(args, "device_resize", False) else False))
     if args.weight:
         print(f"loaded weights from {args.weight}")
     return pipe
@@ -84,8 +88,9 @@ def add_common_args(parser):
                              "(reference bool_gaussian_filt, default off)")
     parser.add_argument("--fp32", action="store_true", help=FP32_HELP)
     parser.add_argument("--device-resize", action="store_true",
-                        help="accepted for the JAX CLI's sake; no effect: "
-                             "the port always resizes on the card")
+                        help="ship raw uint8 frames and scale+pad them on "
+                             "the card when they are smaller than "
+                             "--input-size (host resize otherwise)")
     parser.add_argument("--downsample", type=int, default=0,
                         help="model output stride (0 = by model family: "
                              "4 for hourglass, 8 otherwise)")

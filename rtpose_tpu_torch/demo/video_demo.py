@@ -9,8 +9,10 @@ the card before batch k is collected, drawn and written.
 
 Reads and writes Motion-JPEG AVI (``demo/video_io.py``); the JAX demo
 writes XVID through cv2.  Runs on the card (``--device cuda``, the
-default); ``--device cpu`` for tests.  ``--no-device-resize`` is
-accepted and changes nothing: the port always resizes on the card.
+default); ``--device cpu`` for tests.  Frames smaller than
+``--input-size`` are scaled on the card and larger ones on the host (the
+pipeline's ``"auto"``), as in the JAX demo; ``--no-device-resize`` scales
+every frame on the host.
 """
 
 from __future__ import annotations
@@ -47,8 +49,7 @@ def main():
     parser.add_argument("--batch", type=int, default=4)
     parser.add_argument("--no-device-resize", dest="device_resize",
                         action="store_false",
-                        help="accepted for the JAX CLI's sake; no effect: "
-                             "the port always resizes on the card")
+                        help="resize frames on host instead of on the card")
     parser.set_defaults(device_resize=True)
     args = parser.parse_args()
 

@@ -150,8 +150,9 @@ def run_eval_batched(image_dir: str, ann_file: str, pipeline: PosePipeline,
     pipeline on batches within each bucket, decode on the card in batch.
 
     Inside a bucket, :meth:`PosePipeline.run_batch_submit` runs one
-    sub-batch per raw frame shape (the frames are resized on the card), as
-    the JAX harness does over ``PosePipeline(..., device_resize=True)``.
+    sub-batch per shape it ships: the padded shape when frames are resized
+    on the host, each raw frame shape when they are resized on the card,
+    as the JAX harness does.
 
     `scales`: optional multi-scale TTA factors — batches then run
     :meth:`PosePipeline.run_multiscale_batch_submit` and images are

@@ -1,11 +1,15 @@
 """The image->skeletons serving pipeline (port of
 rtpose_tpu/infer/pipeline.py:58-708).
 
-One call covers: uint8 BGR frames shipped to the card -> bilinear
-scale + zero pad on the card (cv2 INTER_LINEAR parity, ops/resize.py) ->
-normalization -> the CNN forward, with flip TTA as a second half of the
-batch -> flip-swap averaging -> on-card decode (NMS + refine, PAF scoring,
-greedy matching, assembly).  The host reads back fixed-shape people
+One call covers: uint8 BGR frames scaled so their short side is
+``input_size`` and zero-padded, on the host (``device_resize=False``, the
+JAX package's default: ``infer/preprocess.py`` ``crop_with_factor``, equal
+to ``cv2.resize`` to the bit) or on the card (``device_resize=True``:
+bilinear with cv2 INTER_LINEAR parity, ops/resize.py; ``"auto"``: the
+host when the frame shrinks, the card when it grows, the JAX rule) ->
+shipped to the card -> normalization -> the CNN forward, with flip TTA
+as a second half of the batch -> flip-swap averaging -> on-card decode
+(NMS + refine, PAF scoring, greedy matching, assembly).  The host reads back fixed-shape people
 arrays.  A frame whose decode overflowed a fixed-shape cap
 (``People.truncated``) is decoded again from the maps still on the card
 at :data:`RETRY_CAPS`; only the truncated frames are decoded again.
@@ -15,19 +19,19 @@ the one readback of ``People``: :meth:`PosePipeline.run_batch_submit`
 enqueues a batch and returns while the card works on it.
 
 Multi-scale TTA (:meth:`PosePipeline.run_multiscale`, the batched
-:meth:`PosePipeline.run_multiscale_batch`) runs one forward per scale
-with flip fused, resizes every scale's maps bicubically to the base grid
-(cv2 INTER_CUBIC parity), averages them and decodes once.
-
-Resizing always runs on the card: the JAX package's host resize is
-``cv2.resize``, which the port does not depend on.
+:meth:`PosePipeline.run_multiscale_batch`) resizes the frame to every
+scale on the host, as the JAX package does whatever `device_resize`
+says, runs one forward per scale with flip fused, resizes every scale's
+maps bicubically to the base grid (cv2 INTER_CUBIC parity), averages
+them and decodes once.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, List, Optional, Sequence
+import warnings
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -44,7 +48,8 @@ from ..ops.kernels import true_div
 from ..ops.resize import resize_bicubic, resize_bilinear
 from ..skeleton import FLIP_HEAT, FLIP_PAF, NUM_LIMBS
 from ..train.checkpoint import best_model_state
-from .preprocess import normalize_device, scale_pad_geometry
+from .preprocess import (crop_with_factor, normalize_device,
+                         scale_pad_geometry)
 
 _FLIP_PAF_ARR = np.array(FLIP_PAF)
 _FLIP_HEAT_ARR = np.array(FLIP_HEAT)
@@ -98,26 +103,30 @@ def make_infer_fn(model, *, input_size: int = 368,
                   downsample: int = 8, flip: bool = True,
                   max_candidates: int = 256, max_total_conns: int = 160,
                   gaussian_filt: bool = False, decode: bool = True,
-                  pad_factor: int = 0):
+                  pad_factor: int = 0, device_resize: bool = True):
     """Build the uint8-frames -> people function.
 
-    Returned fn: raw ``(B, H, W, 3)`` uint8 BGR frames on the model's
-    device -> ``(People, heat (B, h, w, 19), paf (B, h, w, 38))``, People
-    None without `decode`.  The frames are scaled so their short side is
-    `input_size`, zero-padded to a multiple of `pad_factor` (default
-    `downsample`: the reference crop_with_factor's geometry; hourglass
-    needs 64) and normalized, all on their device.  `gaussian_filt` blurs
-    each peak's upsampled refine window (sigma 3) before the argmax.
+    Returned fn: ``(B, H, W, 3)`` uint8 BGR frames on the model's device
+    -> ``(People, heat (B, h, w, 19), paf (B, h, w, 38))``, People None
+    without `decode`.  With `device_resize` the frames are raw: they are
+    scaled so their short side is `input_size`, zero-padded to a multiple
+    of `pad_factor` (default `downsample`: the reference crop_with_factor's
+    geometry; hourglass needs 64) and normalized, all on their device;
+    without it they come resized and padded (``crop_with_factor``) and are
+    only normalized.  `gaussian_filt` blurs each peak's upsampled refine
+    window (sigma 3) before the argmax.
     """
 
     @torch.inference_mode()
     def infer(images_u8: torch.Tensor):
-        h, w = images_u8.shape[1], images_u8.shape[2]
-        _, rh, rw, ph, pw = scale_pad_geometry(h, w, input_size,
-                                               pad_factor or downsample)
-        x = resize_bilinear(images_u8.float(), (rh, rw))
-        # zero pad in raw pixel space (black), then normalize
-        x = F.pad(x, (0, 0, 0, pw - rw, 0, ph - rh))
+        x = images_u8.float()
+        if device_resize:
+            h, w = images_u8.shape[1], images_u8.shape[2]
+            _, rh, rw, ph, pw = scale_pad_geometry(h, w, input_size,
+                                                   pad_factor or downsample)
+            x = resize_bilinear(x, (rh, rw))
+            # zero pad in raw pixel space (black), then normalize
+            x = F.pad(x, (0, 0, 0, pw - rw, 0, ph - rh))
         image = normalize_device(x, preprocess_mode)
         n = image.shape[0]
         batch = torch.cat([image, image.flip(-2)]) if flip else image
@@ -194,6 +203,15 @@ class PosePipeline:
     `downsample`.
     Multi-scale TTA (:meth:`run_multiscale`, :meth:`run_multiscale_batch`)
     decodes with the same caps and retries the same way.
+
+    `device_resize` picks where a frame is scaled and padded, with the JAX
+    package's rule for each value: ``False`` (the default) on the host
+    (``crop_with_factor``, ``cv2.resize``'s pixels); ``True`` on the card
+    (bilinear, cv2 INTER_LINEAR parity in fp32: the raw frame is shipped);
+    ``"auto"`` on the host when the frame shrinks (its short side is at
+    least `input_size`, and `input_size` is a multiple of the pad factor),
+    else on the card.  A host-prepped frame in ``"auto"`` goes through the
+    card's resize as an identity, as in the JAX package.
     """
 
     def __init__(self, model, *, device="cuda", input_size: int = 368,
@@ -202,8 +220,13 @@ class PosePipeline:
                  max_peaks: int = 32, max_people: int = 64,
                  max_candidates: int = 256, max_total_conns: int = 160,
                  auto_retry: bool = True, retry_caps: Optional[Dict] = None,
-                 gaussian_filt: bool = False, pad_factor: int = 0):
+                 gaussian_filt: bool = False, pad_factor: int = 0,
+                 device_resize: Union[bool, str] = False):
+        if device_resize not in (False, True, "auto"):
+            raise ValueError(f"device_resize must be False, True or 'auto', "
+                             f"got {device_resize!r}")
         self.device = resolve_device(device)
+        self.device_resize = device_resize
         self.model = model.to(self.device).eval()
         self.input_size = input_size
         self.downsample = downsample
@@ -222,8 +245,13 @@ class PosePipeline:
         self._infer = make_infer_fn(
             self.model, input_size=input_size,
             preprocess_mode=preprocess_mode, downsample=downsample,
-            flip=flip, pad_factor=self.pad_factor, **self._decode_kwargs)
-        self._infer_maps: Dict[int, Any] = {}   # input size -> maps-only fn
+            flip=flip, pad_factor=self.pad_factor,
+            device_resize=bool(device_resize), **self._decode_kwargs)
+        # multi-scale: every scale comes resized from the host
+        self._infer_maps = make_infer_fn(
+            self.model, preprocess_mode=preprocess_mode,
+            downsample=downsample, flip=flip, decode=False,
+            device_resize=False)
         self.auto_retry = auto_retry
         self.retry_caps = {**RETRY_CAPS, **(retry_caps or {})}
         self._retry_kwargs = dict(factor=downsample,
@@ -235,12 +263,29 @@ class PosePipeline:
         return self.run(image_bgr)[0]
 
     def _prep(self, image_bgr: np.ndarray):
-        h, w = image_bgr.shape[:2]
-        scale, rh, rw, ph, pw = scale_pad_geometry(
-            h, w, self.input_size, self.pad_factor)
-        meta = {"scale": scale, "real_shape": (rh, rw, 3),
-                "padded_shape": (ph, pw, 3)}
-        return np.ascontiguousarray(image_bgr, np.uint8), meta
+        """(the frame to ship, meta) under `device_resize`'s rule
+        (rtpose_tpu/infer/pipeline.py:295-318)."""
+        if self.device_resize:
+            h, w = image_bgr.shape[:2]
+            if (self.device_resize == "auto"
+                    and min(h, w) >= self.input_size
+                    and self.input_size % self.pad_factor == 0):
+                # the host resize shrinks the frame: fewer bytes to ship
+                return self._prep_host(image_bgr)
+            scale, rh, rw, ph, pw = scale_pad_geometry(
+                h, w, self.input_size, self.pad_factor)
+            meta = {"scale": scale, "real_shape": (rh, rw, 3),
+                    "padded_shape": (ph, pw, 3)}
+            return np.ascontiguousarray(image_bgr, np.uint8), meta
+        return self._prep_host(image_bgr)
+
+    def _prep_host(self, image_bgr: np.ndarray):
+        im, scale, real_shape = crop_with_factor(
+            np.ascontiguousarray(image_bgr, np.uint8), self.input_size,
+            factor=self.pad_factor, is_ceil=True)
+        meta = {"scale": scale, "real_shape": real_shape,
+                "padded_shape": im.shape}
+        return im, meta
 
     def _upload(self, frames) -> torch.Tensor:
         batch = torch.from_numpy(np.stack(frames))
@@ -354,42 +399,48 @@ class PosePipeline:
             for size in sizes))
         return (ph // self.downsample, pw // self.downsample), sizes, max_px
 
-    def _maps_fn(self, size: int):
-        fn = self._infer_maps.get(size)
-        if fn is None:
-            fn = self._infer_maps[size] = make_infer_fn(
-                self.model, input_size=size,
-                preprocess_mode=self.preprocess_mode,
-                downsample=self.downsample, flip=self.flip, decode=False,
-                pad_factor=self.pad_factor)
-        return fn
+    def _prep_scales(self, image_bgr: np.ndarray, scales: Sequence[float]):
+        """The frame resized and padded on the host for every scale, the
+        base grid and meta (rtpose_tpu/infer/pipeline.py:476-495)."""
+        h, w = image_bgr.shape[:2]
+        scale, rh, rw, ph, pw = scale_pad_geometry(
+            h, w, self.input_size, self.pad_factor)
+        meta = {"scale": scale, "real_shape": (rh, rw, 3),
+                "padded_shape": (ph, pw, 3)}
+        base_hw, sizes, _ = self._scale_sizes(h, w, scales)
+        frame = np.ascontiguousarray(image_bgr, np.uint8)
+        ims = [crop_with_factor(frame, size, factor=self.pad_factor)[0]
+               for size in sizes]
+        return ims, base_hw, meta
 
-    def _submit_multiscale(self, ims, metas, base_hw, sizes):
-        """Upload once; per scale, resize on the card and run the forward
-        with flip fused; bicubic-resize every scale's maps to the base
-        grid, average, decode once.  Nothing is read back."""
+    def _submit_multiscale(self, preps):
+        """Upload each scale's frames; per scale the forward with flip
+        fused; bicubic-resize every scale's maps to the base grid,
+        average, decode once.  `preps` are :meth:`_prep_scales` results of
+        one per-scale shape.  Nothing is read back."""
+        base_hw = preps[0][1]
         with torch.inference_mode():
-            frames = self._upload(ims)
             heat = paf = None
-            for size in sizes:
-                _, h, p = self._maps_fn(size)(frames)
+            for k in range(len(preps[0][0])):
+                _, h, p = self._infer_maps(self._upload(
+                    [ims[k] for ims, _, _ in preps]))
                 h, p = resize_bicubic(h, base_hw), resize_bicubic(p, base_hw)
                 heat = h if heat is None else heat + h
                 paf = p if paf is None else paf + p
-            heat, paf = true_div(heat, len(sizes)), true_div(paf, len(sizes))
+            n = len(preps[0][0])
+            heat, paf = true_div(heat, n), true_div(paf, n)
             people = decode_poses_batch(heat, paf, factor=self.downsample,
                                         **self._decode_kwargs)
-        return ("async", people, heat, paf, list(metas))
+        return ("async", people, heat, paf,
+                [dict(meta) for _, _, meta in preps])
 
     def run_multiscale(self, image_bgr: np.ndarray,
                        scales: Sequence[float] = MS_SCALES):
         """Multi-scale + flip TTA of one frame -> (people, heat, paf, meta)
         with the averaged maps on the base grid (the single-scale frame's
         maps), retried at :data:`RETRY_CAPS` when truncated."""
-        im, meta = self._prep(image_bgr)
-        base_hw, sizes, _ = self._scale_sizes(*im.shape[:2], scales)
-        return self._run_one(self._submit_multiscale([im], [meta], base_hw,
-                                                     sizes))
+        return self._run_one(self._submit_multiscale(
+            [self._prep_scales(image_bgr, scales)]))
 
     def ms_chunk_cap(self, max_px: int) -> int:
         """Most frames per stacked multi-scale chunk whose largest scaled
@@ -412,32 +463,45 @@ class PosePipeline:
                 - torch.cuda.memory_allocated(self.device))
         else:
             budget = MS_HOST_MEMORY_BUDGET
-        return max(1, int(budget // per_frame))
+        cap = int(budget // per_frame)
+        if cap < 1:
+            # the JAX package's floor of one frame keeps its results; the
+            # chunk may not fit, so say which budget it exceeds
+            warnings.warn(
+                f"ms_chunk_cap: one frame's largest scaled input "
+                f"({max_px} px) needs {per_frame / 2**30:.2f} GiB for its "
+                f"multi-scale chunk, more than the {budget / 2**30:.2f} GiB "
+                f"budget (MS_MEMORY_SHARE of the card's free memory, or "
+                f"MS_HOST_MEMORY_BUDGET on the CPU); running it anyway",
+                RuntimeWarning, stacklevel=2)
+        return max(1, cap)
 
     def run_multiscale_batch_submit(self, images_bgr,
                                     scales: Sequence[float] = MS_SCALES):
         """Enqueue a multi-scale TTA batch without waiting; collect with
-        :meth:`run_batch_collect`.  Frames of one shape run as stacked
-        chunks of at most :meth:`ms_chunk_cap` frames, mixed shapes as one
-        group per shape."""
+        :meth:`run_batch_collect`.  Frames are grouped by the tuple of
+        their per-scale padded shapes (the JAX package's key) and each
+        group runs as stacked chunks of at most :meth:`ms_chunk_cap`
+        frames."""
         if not images_bgr:
             return ("multi", 0, [])
-        ims, metas = zip(*(self._prep(im) for im in images_bgr))
+        preps = [self._prep_scales(im, scales) for im in images_bgr]
         groups: Dict[tuple, list] = {}
-        for i, im in enumerate(ims):
-            groups.setdefault(im.shape, []).append(i)
+        for i, (ims, base_hw, _) in enumerate(preps):
+            key = (base_hw,) + tuple(im.shape for im in ims)
+            groups.setdefault(key, []).append(i)
         sub = []
-        for shape, idxs in groups.items():
-            base_hw, sizes, max_px = self._scale_sizes(*shape[:2], scales)
+        for idxs in groups.values():
+            max_px = max(im.shape[0] * im.shape[1]
+                         for im in preps[idxs[0]][0])
             cap = self.ms_chunk_cap(max_px)
             for j in range(0, len(idxs), cap):
                 part = idxs[j:j + cap]
                 sub.append((part, self._submit_multiscale(
-                    [ims[i] for i in part], [metas[i] for i in part],
-                    base_hw, sizes)))
+                    [preps[i] for i in part])))
         if len(sub) == 1:
             return sub[0][1]
-        return ("multi", len(ims), sub)
+        return ("multi", len(preps), sub)
 
     def run_multiscale_batch(self, images_bgr,
                              scales: Sequence[float] = MS_SCALES):

@@ -1,16 +1,23 @@
-"""Resize geometry and on-device pixel normalization (port of
-rtpose_tpu/infer/preprocess.py:29-49, 152-171).
+"""Resize geometry, the host resize and on-device pixel normalization
+(port of rtpose_tpu/infer/preprocess.py:29-66, 152-171).
 
-:func:`scale_pad_geometry` and the ImageNet constants are copies of the
-JAX package's numpy helpers, so the port imports nothing of that package.
+:func:`factor_closest`, :func:`scale_pad_geometry`,
+:func:`crop_with_factor` and the ImageNet constants are copies of the JAX
+package's numpy helpers, so the port imports nothing of that package;
+``crop_with_factor`` resizes with ``data/cv2exact.py`` ``resize_linear``,
+which equals the original's ``cv2.resize`` to the bit.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
+
+from ..data.cv2exact import resize_linear
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)   # RGB, as the training loader's
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -28,8 +35,30 @@ def scale_pad_geometry(h: int, w: int, dest_size: int, factor: int = 8
     return scale, rh, rw, rh + (-rh % factor), rw + (-rw % factor)
 
 
+def factor_closest(num: float, factor: int, is_ceil: bool = True) -> int:
+    fn = math.ceil if is_ceil else math.floor
+    return int(fn(float(num) / factor)) * factor
+
+
+def crop_with_factor(im: np.ndarray, dest_size: int, factor: int = 8,
+                     is_ceil: bool = True
+                     ) -> Tuple[np.ndarray, float, Tuple[int, int, int]]:
+    """Scale shortest side to dest_size and zero-pad to factor multiples.
+
+    Returns (padded image, scale, real (unpadded) shape).
+    """
+    im_scale = float(dest_size) / np.min(im.shape[0:2])
+    im = resize_linear(im, im_scale)
+    h, w, c = im.shape
+    new_h = factor_closest(h, factor, is_ceil)
+    new_w = factor_closest(w, factor, is_ceil)
+    im_padded = np.zeros((new_h, new_w, c), dtype=im.dtype)
+    im_padded[0:h, 0:w, :] = im
+    return im_padded, im_scale, im.shape
+
+
 @functools.lru_cache(maxsize=None)
-def _constants_on(device: torch.device, values) -> torch.Tensor:
+def constants_on(device: torch.device, values) -> torch.Tensor:
     """A constant on `device` (a vector, or 0-d from a float), copied there
     once (a copy per call would make the host wait for it)."""
     return torch.tensor(values, device=device)
@@ -46,15 +75,15 @@ def normalize_device(images_u8: torch.Tensor, mode: str) -> torch.Tensor:
     x = images_u8.float()
     dev = x.device
     if mode == "rtpose":
-        return x / _constants_on(dev, 256.0) - 0.5
+        return x / constants_on(dev, 256.0) - 0.5
     if mode == "vgg":
-        rgb = x.flip(-1) / _constants_on(dev, 255.0)
-        return ((rgb - _constants_on(dev, IMAGENET_MEAN))
-                / _constants_on(dev, IMAGENET_STD))
+        rgb = x.flip(-1) / constants_on(dev, 255.0)
+        return ((rgb - constants_on(dev, IMAGENET_MEAN))
+                / constants_on(dev, IMAGENET_STD))
     if mode == "inception":
-        return x.flip(-1) / _constants_on(dev, 128.0) - 1.0
+        return x.flip(-1) / constants_on(dev, 128.0) - 1.0
     if mode == "ssd":
-        rgb = x.flip(-1) - _constants_on(dev, _SSD_MEAN)
+        rgb = x.flip(-1) - constants_on(dev, _SSD_MEAN)
         return rgb.flip(-1)
     if mode in (None, "none"):
         return x

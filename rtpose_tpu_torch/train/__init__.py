@@ -1,2 +1,2 @@
-"""Training of the port: loss, LR schedule, checkpoints and the trainer
-(port of rtpose_tpu/train; the CLI and COCO loaders are not ported yet)."""
+"""Training of the port: loss, LR schedule, checkpoints, the trainer and
+the training CLI (port of rtpose_tpu/train)."""

@@ -6,11 +6,14 @@ reference train/train_VGG19.py entry).
 
 Trains any model family (``model.name``; e.g.
 ``experiments/shufflenet_v2_368x368.yaml``, or
-``experiments/hourglass_256x256.yaml`` with ``--set
-dataset.rotate_degrees=0`` until ``RandomRotate`` is ported) on the card
-(``--device cuda``, the default); ``--device cpu`` for tests.  Batches
-come from :class:`~rtpose_tpu_torch.data.dataset.Loader`
-with ``train.data_workers`` worker processes.
+``experiments/hourglass_256x256.yaml``, which rotates by up to 40
+degrees) on the card (``--device cuda``, the default); ``--device cpu``
+for tests.  Batches come from
+:class:`~rtpose_tpu_torch.data.dataset.Loader` with
+``train.data_workers`` worker processes (``train.data_loader=pil``, the
+default), or from :class:`~rtpose_tpu_torch.data.native_loader.NativeLoader`
+with ``train.data_workers`` C++ threads (``train.data_loader=native``:
+uint8 canvases, normalized on the card; no rotation).
 """
 
 from __future__ import annotations
@@ -43,16 +46,10 @@ def main():
         raise SystemExit(
             f"unknown train.data_loader={cfg.train.data_loader!r} "
             f"(expected 'pil' or 'native')")
-    if cfg.train.data_loader == "native":
+    if cfg.train.data_loader == "native" and cfg.dataset.rotate_degrees:
         raise SystemExit(
-            "train.data_loader=native is not ported yet: the C++ loader "
-            "waits for its JPEG decoder route, ROADMAP.md queue 1 item 9; "
-            "use the pil loader")
-    if cfg.dataset.rotate_degrees:
-        raise SystemExit(
-            "dataset.rotate_degrees needs RandomRotate, which is not ported "
-            "yet (its cv2-free warpAffine, ROADMAP.md queue 1 item 10); "
-            "train with --set dataset.rotate_degrees=0")
+            "train.data_loader=native does not support "
+            "dataset.rotate_degrees — use the pil loader")
     if args.vgg_weights and cfg.model.name != "vgg19":
         raise SystemExit(
             f"--vgg-weights initialises the VGG19 trunk; model.name is "
@@ -75,7 +72,7 @@ def main():
             preprocess=T.train_pipeline(
                 cfg.dataset.image_size,
                 (cfg.dataset.scale_min, cfg.dataset.scale_max),
-                cfg.dataset.hflip_prob),
+                cfg.dataset.hflip_prob, cfg.dataset.rotate_degrees),
             input_size=cfg.dataset.image_size,
             stride=cfg.model.downsample, sigma=cfg.dataset.sigma)
         for ann in cfg.dataset.train_annotations]
@@ -92,15 +89,41 @@ def main():
 
     trainer = Trainer(cfg, device=args.device)
     pin = trainer.device.type == "cuda"
-    train_loader = Loader(train_ds, cfg.train.batch_size,
-                          num_workers=cfg.train.data_workers,
-                          seed=cfg.train.seed, pin_memory=pin)
-    # deterministic: same crops/jitter every epoch so the plateau/best
-    # tracking follows the model, not per-epoch aug noise; no drop_last
-    # so val sets smaller than a batch still evaluate
-    val_loader = Loader(val_ds, cfg.train.batch_size, shuffle=False,
-                        num_workers=cfg.train.data_workers,
-                        deterministic=True, drop_last=False, pin_memory=pin)
+    if cfg.train.data_loader == "native":
+        # the C++ imgpipe pool and uint8 canvases; the trainer normalizes
+        # them inside their content windows on the card
+        from ..data.native_loader import NativeLoader
+        train_loader = NativeLoader(
+            train_ds, cfg.train.batch_size, shuffle=True,
+            threads=cfg.train.data_workers, seed=cfg.train.seed,
+            uint8_output=True, pin_memory=pin,
+            aug_kwargs=dict(
+                square_edge=cfg.dataset.image_size,
+                scale_range=(cfg.dataset.scale_min, cfg.dataset.scale_max),
+                hflip_prob=cfg.dataset.hflip_prob))
+        # val: photometrics/flip/scale sampling off; crop offsets for
+        # oversized images still sample, so deterministic=True pins them
+        # to the same values every epoch and drop_last=False keeps sets
+        # smaller than a batch evaluable
+        val_loader = NativeLoader(
+            val_ds, cfg.train.batch_size, shuffle=False,
+            threads=cfg.train.data_workers, uint8_output=True,
+            deterministic=True, drop_last=False, pin_memory=pin,
+            aug_kwargs=dict(
+                square_edge=cfg.dataset.image_size,
+                scale_range=1.0, hflip_prob=0.0, color_jitter=0.0,
+                jpeg_prob=0.0, grayscale_prob=0.0))
+    else:
+        train_loader = Loader(train_ds, cfg.train.batch_size,
+                              num_workers=cfg.train.data_workers,
+                              seed=cfg.train.seed, pin_memory=pin)
+        # deterministic: same crops/jitter every epoch so the plateau/best
+        # tracking follows the model, not per-epoch aug noise; no
+        # drop_last so val sets smaller than a batch still evaluate
+        val_loader = Loader(val_ds, cfg.train.batch_size, shuffle=False,
+                            num_workers=cfg.train.data_workers,
+                            deterministic=True, drop_last=False,
+                            pin_memory=pin)
 
     if args.vgg_weights:
         from ..models.convert import (import_vgg19_imagenet,

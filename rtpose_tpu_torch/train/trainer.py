@@ -36,7 +36,7 @@ import torch
 from ..config import Config
 from ..data.gt import ground_truth_maps_batch
 from ..device import resolve_device
-from ..infer.preprocess import IMAGENET_MEAN, IMAGENET_STD
+from ..infer.preprocess import IMAGENET_MEAN, IMAGENET_STD, constants_on
 from ..models import get_model
 from ..models.common import he_reinit
 from ..models.convert import load_strict
@@ -51,10 +51,14 @@ Batch = Mapping[str, Any]
 def normalize_window(u8: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) uint8 RGB canvas + (B, 4) int32 content window
     [x, y, w, h] -> the fp32 network input: (v/255 - mean)/std inside the
-    window and exactly 0 outside (trainer.py:115-132)."""
+    window and exactly 0 outside (trainer.py:115-132).  The divisors are
+    tensors on the batch's device, copied there once: CUDA turns a
+    division by a Python number into a product with its reciprocal, which
+    rounds some values an ulp away from the CPU's."""
     dev = u8.device
-    x = ((u8.float() / 255.0 - torch.tensor(IMAGENET_MEAN, device=dev))
-         / torch.tensor(IMAGENET_STD, device=dev))
+    x = ((u8.float() / constants_on(dev, 255.0)
+          - constants_on(dev, IMAGENET_MEAN))
+         / constants_on(dev, IMAGENET_STD))
     ys = torch.arange(x.shape[1], device=dev)[None, :, None]
     xs = torch.arange(x.shape[2], device=dev)[None, None, :]
     x0, y0, ww, wh = (window[:, i][:, None, None] for i in range(4))

@@ -140,6 +140,8 @@ def _transforms(T):
         "train_pipeline_all": T.train_pipeline(
             64, (0.3, 1.0), hflip_prob=0.9, jpeg_prob=0.9,
             grayscale_prob=0.5),
+        "RandomRotate": T.RandomRotate(40.0),
+        "train_pipeline_rotate": T.train_pipeline(64, rotate_degrees=40.0),
     }
 
 
@@ -178,11 +180,31 @@ def test_transform_equals_jax(name, seed):
     assert got_rng.random() == want_rng.random()
 
 
-def test_random_rotate_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TT.RandomRotate(40.0)
-    with pytest.raises(NotImplementedError, match="warpAffine"):
-        TT.train_pipeline(64, rotate_degrees=40.0)
+class _FixedDraw:
+    """An rng whose ``random()`` returns one value: RandomRotate then
+    turns by exactly ``(value - 0.5) * 2 * max_degrees``."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def random(self):
+        return self.value
+
+
+@pytest.mark.parametrize("max_degrees,draw", [
+    (40.0, 0.0), (40.0, 1.0), (40.0, 0.5), (90.0, 0.0), (90.0, 1.0),
+    (40.0, 0.123)])
+def test_random_rotate_equals_jax_at_the_extremes(max_degrees, draw):
+    """-40, +40, 0, -90 and +90 degrees and one in between: the port's
+    warp (cv2exact) gives the JAX transform's cv2 pixels, keypoints and
+    valid area exactly."""
+    got = TT.RandomRotate(max_degrees)(_sample(TT, 4), _FixedDraw(draw))
+    want = JT.RandomRotate(max_degrees)(_sample(JT, 4), _FixedDraw(draw))
+    np.testing.assert_array_equal(np.asarray(got.image),
+                                  np.asarray(want.image))
+    np.testing.assert_array_equal(got.keypoints, want.keypoints)
+    for k in want.meta:
+        np.testing.assert_array_equal(got.meta[k], want.meta[k])
 
 
 def _assert_samples_equal(got, want):

@@ -131,7 +131,7 @@ def pipes(synth_set):
                                        flip=False, device_resize=True,
                                        pad_factor=pad)
         tpipe = PosePipeline(OracleMaps(maps), device="cpu", input_size=SIZE,
-                             flip=False, pad_factor=pad)
+                             flip=False, pad_factor=pad, device_resize=True)
         out[name] = (jpipe, tpipe)
     return out
 

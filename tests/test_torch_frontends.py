@@ -409,7 +409,8 @@ def test_http_same_weights_equal_json():
         jnp.asarray, variables), input_size=56, flip=True,
         device_resize=True)
     tpipe = load_pipeline(device="cpu", num_stages=1, input_size=56,
-                          dtype=torch.float32, flax_params=variables)
+                          dtype=torch.float32, flax_params=variables,
+                          device_resize=True)
     rng = np.random.RandomState(3)
     frames = [_jpeg(rng.randint(0, 256, (48, 64, 3), np.uint8)),
               _jpeg(fx.render_scene(5, 56, 40))]

@@ -1,7 +1,8 @@
 """rtpose_tpu_torch stands alone: it imports no jax, flax, cv2 or anything
 of the JAX package, serves, takes a train step, builds and runs every
 model family, trains a BatchNorm family, draws a loader batch in a worker
-process, answers the training CLI's --help, runs the picture and video
+process and a native loader batch, rotates a sample, answers the
+training CLI's --help, runs the picture and video
 demos and answers an HTTP request without them, and its
 copies of the JAX package's tables and numpy helpers (the skeleton,
 ``WIDTH_CONFIGS``, the caffe layer order and prototxt) are equal to the
@@ -39,10 +40,10 @@ from util_synth import synth_example
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = r"""
-import importlib, json, pkgutil, sys
+import importlib, json, os, pkgutil, sys
 for name in ("jax", "jaxlib", "flax", "cv2", "rtpose_tpu"):
     sys.modules[name] = None          # any import of these now fails
-import numpy as np, torch
+import numpy as np, PIL.Image, torch
 import rtpose_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(rtpose_tpu_torch.__path__,
                                               "rtpose_tpu_torch.")]
@@ -129,6 +130,16 @@ with tempfile.TemporaryDirectory() as root:
     http_answer = [resp.status, json.loads(resp.read())["size"]]
     server.shutdown()
     server.server_close()
+from rtpose_tpu_torch.data.native_loader import NativeLoader
+from rtpose_tpu_torch.data import transforms as T
+with tempfile.TemporaryDirectory() as root:
+    img_dir, ann = write_synth_coco(root, [(96, 128, person)] * 2)
+    native = next(iter(NativeLoader(CocoKeypoints(img_dir, ann,
+                                                  input_size=64), 2,
+                                    threads=2, uint8_output=True)))
+    rotated = T.RandomRotate(40.0)(T.Sample.new(
+        PIL.Image.open(f"{img_dir}/" + sorted(os.listdir(img_dir))[0]),
+        np.zeros((0, 17, 3))), np.random.default_rng(0))
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "flax", "cv2", "rtpose_tpu")
                 and sys.modules[k] is not None)
@@ -137,7 +148,10 @@ print(json.dumps({"modules": mods, "people": len(people),
                   "train_loss": logs["loss"], "eval_ap": stats["AP"],
                   "zoo": zoo, "bn_train_loss": bn_logs["loss"],
                   "loader": {k: list(v.shape) for k, v in batch.items()},
-                  "video": [video_frames, video_out], "http": http_answer}))
+                  "video": [video_frames, video_out], "http": http_answer,
+                  "native": {k: [str(v.dtype), list(v.shape)]
+                             for k, v in native.items()},
+                  "rotated": list(np.asarray(rotated.image).shape)}))
 """
 
 
@@ -162,7 +176,8 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
                 "models.hourglass", "models.caffe_interop",
                 "demo.serve_http", "demo.video_demo", "demo.video_io",
                 "data.imwrite", "utils.draw", "utils.human",
-                "utils.profiling"):
+                "utils.profiling", "data.native_loader", "data.cv2exact",
+                "native.imgpipe"):
         assert f"rtpose_tpu_torch.{mod}" in res["modules"], mod
     assert res["eval_ap"] == 1.0
     assert res["train_loss"] > 0 and np.isfinite(res["train_loss"])
@@ -181,6 +196,14 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
                              "mask": [2, 8, 8, 1], "image_id": [2]}
     assert res["video"] == [3, 3]
     assert res["http"] == [200, [60, 80]]
+    assert res["native"] == {
+        "image": ["torch.uint8", [2, 64, 64, 3]],
+        "keypoints": ["torch.float32", [2, 32, 18, 3]],
+        "mask": ["torch.float32", [2, 8, 8, 1]],
+        "image_id": ["torch.int64", [2]],
+        "valid_xywh": ["torch.int32", [2, 4]]}
+    h, w = res["rotated"][:2]
+    assert res["rotated"][2] == 3 and h > 96 and w > 96
 
 
 def test_skeleton_copy_equals_the_jax_package():
@@ -228,6 +251,75 @@ def test_copied_numpy_helpers_equal_the_jax_package():
                                       jresize.resize_matrix(src, dst))
     assert torch_layout_map(6) == import_torch.torch_layout_map()
     assert torch_layout_map(2) == torch_layout_map(6)[:12 + 2 * (5 + 7)]
+
+
+class _PortCalls(ast.NodeTransformer):
+    """Rewrites the JAX package's cv2 calls as the port's cv2exact calls
+    (and drops ``import cv2``), so the rest of a function can be held
+    equal to its port node for node."""
+
+    def visit_Import(self, node):
+        return None if [a.name for a in node.names] == ["cv2"] else node
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        f = node.func
+        if not (isinstance(f, ast.Attribute) and isinstance(
+                f.value, ast.Name) and f.value.id == "cv2"):
+            return node
+        kw = {k.arg: k.value for k in node.keywords}
+        if f.attr == "resize":       # cv2.resize(im, None, fx=s, fy=s)
+            return ast.Call(ast.Name("resize_linear", ast.Load()),
+                            [node.args[0], kw["fx"]], [])
+        if f.attr == "getRotationMatrix2D":
+            return ast.Call(ast.Name("get_rotation_matrix_2d", ast.Load()),
+                            node.args, [])
+        if f.attr == "warpAffine":
+            return ast.Call(ast.Name("warp_affine_cubic", ast.Load()),
+                            node.args, [ast.keyword("border_value",
+                                                    kw["borderValue"])])
+        return node
+
+
+def _body(obj, port_calls=False) -> str:
+    """A function's or class's code without docstrings, as an AST dump."""
+    tree = ast.parse(inspect.getsource(obj))
+    for node in ast.walk(tree):
+        if (isinstance(node, (ast.FunctionDef, ast.ClassDef))
+                and ast.get_docstring(node) is not None):
+            node.body = node.body[1:]
+    if port_calls:
+        tree = _PortCalls().visit(tree)
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module,name", [
+    ("data.native_loader", "AugParams"), ("data.native_loader", "sample_aug"),
+    ("data.native_loader", "apply_geometry"),
+    ("data.transforms", "RandomRotate"), ("data.transforms", "_rotate_box"),
+    ("infer.preprocess", "crop_with_factor"),
+    ("infer.preprocess", "factor_closest")])
+def test_loader_and_geometry_copies_equal_the_jax_package(module, name):
+    """The native loader's sampling and geometry, the rotation and the
+    host resize's geometry are the JAX package's code, the cv2 calls
+    replaced by their cv2exact equals."""
+    port = getattr(importlib.import_module(f"rtpose_tpu_torch.{module}"),
+                   name)
+    original = getattr(importlib.import_module(f"rtpose_tpu.{module}"),
+                       name)
+    assert _body(port) == _body(original, port_calls=True)
+
+
+def test_native_pipeline_source_equals_the_jax_package():
+    """native/imgpipe.cpp is the JAX package's, line for line but the
+    include lines."""
+    def lines(path):
+        with open(path) as f:
+            return [ln for ln in f.read().splitlines()
+                    if not ln.startswith("#include")]
+    assert lines(os.path.join(ROOT, "rtpose_tpu_torch", "native",
+                              "imgpipe.cpp")) == \
+        lines(os.path.join(ROOT, "rtpose_tpu", "native", "imgpipe.cpp"))
 
 
 def test_width_configs_copy_equals_the_jax_package():

@@ -111,7 +111,8 @@ def pipes():
                                    device_resize=True)
     tpipe = pipeline.load_pipeline(
         device="cpu", num_stages=1, input_size=56, dtype=torch.float32,
-        flax_params=jax.tree_util.tree_map(np.asarray, params))
+        flax_params=jax.tree_util.tree_map(np.asarray, params),
+        device_resize=True)
     return jpipe, tpipe, params
 
 
@@ -172,7 +173,7 @@ def test_pad_factor_matches_jax_pipeline(pipes):
     tpad = pipeline.load_pipeline(
         device="cpu", num_stages=1, input_size=56, dtype=torch.float32,
         flax_params=jax.tree_util.tree_map(np.asarray, params),
-        pad_factor=64)
+        pad_factor=64, device_resize=True)
     assert tpad.pad_factor == 64 and tpad.downsample == 8
     frame = np.random.RandomState(5).randint(0, 256, (48, 80, 3), np.uint8)
     jp, jheat, jpaf, jmeta = jpad.run(frame)
@@ -206,7 +207,7 @@ def blur_pipes(pipes):
     tblur = pipeline.load_pipeline(
         device="cpu", num_stages=1, input_size=56, dtype=torch.float32,
         flax_params=jax.tree_util.tree_map(np.asarray, params),
-        gaussian_filt=True)
+        gaussian_filt=True, device_resize=True)
     return jblur, tblur
 
 
@@ -423,13 +424,18 @@ def _jax_multiscale(jmodel, params, frame, scales, input_size=56):
 
 
 def test_run_multiscale_matches_jax_composition(pipes):
+    """The port's multi-scale TTA against the JAX package's own
+    ``run_multiscale``: every scale resized on the host (the port's
+    ``crop_with_factor`` equals cv2's), the same maps within the model
+    bound and the same people."""
     jpipe, tpipe, params = pipes
     frame = _frames()[0]
-    jp, jheat, jpaf, base = _jax_multiscale(jpipe.model, params, frame,
-                                            MS_TEST_SCALES)
+    jp, jheat, jpaf, jmeta = jpipe.run_multiscale(frame, MS_TEST_SCALES)
+    base = tuple(jheat.shape[:2])
     tp, theat, tpaf, meta = tpipe.run_multiscale(frame, MS_TEST_SCALES)
     assert theat.shape == jheat.shape == base + (19,)
-    assert meta["upsampled"] == (base[0] * 8, base[1] * 8)
+    assert meta["upsampled"] == tuple(jmeta["upsampled"]) \
+        == (base[0] * 8, base[1] * 8)
     np.testing.assert_allclose(theat, jheat, **MAP_TOL)
     np.testing.assert_allclose(tpaf, jpaf, **MAP_TOL)
     assert sum(len(p["parts"]) for p in jp) > 0
@@ -437,6 +443,11 @@ def test_run_multiscale_matches_jax_composition(pipes):
     # the scales act: the single-scale maps differ
     _, single, _, _ = tpipe.run(frame)
     assert not np.allclose(single, theat, atol=1e-3)
+    # resizing each scale on the card instead, as the port did before it
+    # had the host resize, gives other maps
+    _, cheat, _, _ = _jax_multiscale(jpipe.model, params, frame,
+                                     MS_TEST_SCALES)
+    assert cheat.shape == theat.shape and not np.array_equal(cheat, theat)
 
 
 def test_run_multiscale_batch_matches_single_frames(pipes):

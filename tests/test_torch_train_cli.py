@@ -112,20 +112,75 @@ def test_cli_unions_all_annotation_files(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["empty_annotations", "unknown_loader",
-                                  "native_loader", "rotate"])
+                                  "native_with_rotate"])
 def test_cli_refusals_exit_before_loading(tmp_path, monkeypatch, case):
     """Each refusal is a SystemExit with its reason; the paths name
-    nothing that exists, so loading anything would raise another error."""
+    nothing that exists, so loading anything would raise another error.
+    The native loader refuses rotation with the JAX CLI's reason."""
     missing = str(tmp_path / "missing.json")
     sets = _small(str(tmp_path / "none"), [missing], missing,
                   tmp_path / "ckpt")
     sets += {"empty_annotations": ["dataset.train_annotations=[]"],
              "unknown_loader": ['train.data_loader="dali"'],
-             "native_loader": ['train.data_loader="native"'],
-             "rotate": ["dataset.rotate_degrees=40.0"]}[case]
+             "native_with_rotate": ['train.data_loader="native"',
+                                    "dataset.rotate_degrees=40.0"]}[case]
     _argv(monkeypatch, *sets)
     reason = {"empty_annotations": "empty", "unknown_loader": "unknown",
-              "native_loader": "item 9", "rotate": "item 10"}[case]
+              "native_with_rotate": "native does not support "
+                                    "dataset.rotate_degrees"}[case]
     with pytest.raises(SystemExit, match=reason):
         main()
     assert not os.path.exists(tmp_path / "ckpt")
+
+
+def test_cli_trains_with_the_native_loader(tmp_path, monkeypatch):
+    """train.data_loader=native: uint8 canvases with their content
+    windows from the C++ pool, for the train and the deterministic val
+    epoch; a checkpoint with finite losses."""
+    img_dir, ann = write_coco(str(tmp_path / "coco"))
+    captured = {}
+    fit = trainer_mod.Trainer.fit
+
+    def capture(self, train_loader, val_loader, **kw):
+        captured["loaders"] = (train_loader, val_loader)
+        return fit(self, train_loader, val_loader, **kw)
+
+    monkeypatch.setattr(trainer_mod.Trainer, "fit", capture)
+    _argv(monkeypatch, *_small(img_dir, [ann], ann, tmp_path / "ckpt",
+                               workers=2), 'train.data_loader="native"')
+    trainer, (logs,) = main()
+    from rtpose_tpu_torch.data.native_loader import NativeLoader
+    train_loader, val_loader = captured["loaders"]
+    assert isinstance(train_loader, NativeLoader)
+    assert train_loader.uint8_output and val_loader.deterministic
+    assert not train_loader.pin_memory
+    batch = next(iter(train_loader))
+    assert batch["image"].dtype == torch.uint8
+    assert batch["valid_xywh"].shape == (2, 4)
+    assert trainer.step == (len(SIZES) - 1) // 2
+    _, meta = CheckpointManager(str(tmp_path / "ckpt")).restore_latest()
+    assert math.isfinite(meta["train_loss"]) and math.isfinite(
+        meta["val_loss"])
+
+
+def test_cli_trains_with_rotation(tmp_path, monkeypatch):
+    """dataset.rotate_degrees reaches the PIL loader's train pipeline as
+    RandomRotate (the JAX CLI's wiring), and the epoch trains."""
+    from rtpose_tpu_torch.data import transforms as T
+    img_dir, ann = write_coco(str(tmp_path / "coco"))
+    captured = {}
+    fit = trainer_mod.Trainer.fit
+
+    def capture(self, train_loader, val_loader, **kw):
+        captured["train"] = train_loader
+        return fit(self, train_loader, val_loader, **kw)
+
+    monkeypatch.setattr(trainer_mod.Trainer, "fit", capture)
+    _argv(monkeypatch, *_small(img_dir, [ann], ann, tmp_path / "ckpt"),
+          "dataset.rotate_degrees=40.0")
+    trainer, (logs,) = main()
+    rotations = [t for t in captured["train"].dataset.preprocess.transforms
+                 if isinstance(t, T.RandomRotate)]
+    assert [r.max_degrees for r in rotations] == [40.0]
+    assert trainer.step == (len(SIZES) - 1) // 2
+    assert math.isfinite(logs["train"]["loss"])

@@ -93,7 +93,7 @@ def test_hourglass_pipeline_matches_jax_at_pad_factor_64():
     tpipe = pipeline.load_pipeline(
         device="cpu", model_name="hourglass", num_stages=1, input_size=64,
         dtype=torch.float32, flax_params=variables, downsample=4,
-        pad_factor=64)
+        pad_factor=64, device_resize=True)
     frame = np.random.RandomState(5).randint(0, 256, (60, 80, 3), np.uint8)
     jp, jheat, jpaf, jmeta = jpipe.run(frame)
     tp, theat, tpaf, tmeta = tpipe.run(frame)
