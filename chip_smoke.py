@@ -76,6 +76,15 @@ entry points a user calls:
   the hourglass experiment from JPEGs with rotation (phase 9d, K4 at
   stride 4); the flagship served under each resize mode (host, "auto",
   card; phase 7b), ms per frame;
+- the parallel paths (phase 13): the flagship's training step over a
+  world-1 NCCL process group against no mesh; two gloo ranks on this card
+  (each building the kernels cold, at once): DP2 against one process in
+  fp32, at the flagship batch in bf16 (K4 once a step a rank, equal to
+  plain), atrous_cpm's BatchNorm statistics under DP2, DP1 x TP2 against
+  one process with the gathered checkpoint served unsharded, and the
+  eval split by ``host_shard`` and merged on rank 0; sharded serving on
+  two replicas on this card (K1, K3 and G once a shard, the unsharded
+  pipeline's people); the eval CLI's ``--data-parallel``;
 
 and checks that each path launched its kernels.  Also holds one fp32
 train step on the card against the CPU.  Prints timings beside the card's
@@ -619,15 +628,8 @@ def eval_phase(dev, smi: str) -> dict:
 
         # the flagship through the CLI: seeded random weights, so no
         # people, but every batch runs the forward and the decode kernels
-        frames = [shape for shape, n in EVAL_SHAPES for _ in range(n)]
-        order = [frames[i] for i in
-                 np.random.RandomState(1).permutation(len(frames))]
-        rng = np.random.RandomState(2)
-        img_dir, ann = write_synth_coco(
-            os.path.join(work, "flagship"),
-            [(h, w, spread_people(rng, 1 + i % 2, h, w))
-             for i, (h, w) in enumerate(order)])
-        names = sorted(os.listdir(img_dir))
+        img_dir, ann, names = flagship_eval_set(os.path.join(work,
+                                                             "flagship"))
         for name in names:           # page the files in
             read_bgr(os.path.join(img_dir, name))
         t0 = time.perf_counter()
@@ -650,9 +652,9 @@ def eval_phase(dev, smi: str) -> dict:
                 return ticket
             return submit
 
-        def timed_build(args):
+        def timed_build(args, **kwargs):
             t = time.perf_counter()
-            pipe = build(args)
+            pipe = build(args, **kwargs)
             torch.cuda.synchronize()
             build_s.append(time.perf_counter() - t)
             return pipe
@@ -1990,6 +1992,555 @@ def frontends_phase(dev, smi: str):
     return {"http": http_counts, "video": video_counts}, numbers
 
 
+PAR_FP32_BATCH = 16    # DP2 in fp32 against one process: global batch
+PAR_TP_BATCH = 8       # DP1 x TP2 in fp32 against one process
+PAR_BN = ("atrous_cpm", 5, 368)   # a BatchNorm family at its published width
+PAR_BN_BATCH = 8
+PAR_STEPS = 3          # timed steps at the flagship batch (DP1 NCCL, DP2)
+PAR_RTOL = {"dp2_fp32": 1e-5, "tp2_fp32": 1e-5, "bn_dp2_fp32": 1e-5}
+PAR_PARAM_ATOL, PAR_PARAM_RTOL = 1e-5, 1e-3
+
+
+def _par_cfg(name="vgg19", stages=6, size=368, dtype="bfloat16"):
+    """The flagship's training config as phase 8 runs it (seeded He
+    weights, lr 0.02, the scratch recipe's clip), without the freeze so
+    that every convolution trains."""
+    from rtpose_tpu_torch.config import Config
+    cfg = Config()
+    cfg.model.name, cfg.model.num_stages = name, stages
+    cfg.model.dtype, cfg.dataset.image_size = dtype, size
+    cfg.model.init_scheme = "scratch"
+    cfg.train.lr, cfg.train.clip_grad_norm = 0.02, 1.0
+    cfg.train.freeze_base_epochs = 0
+    cfg.train.print_freq = 1000
+    return cfg
+
+
+def _step_args(b):
+    return b["image"], b["keypoints"], None, b["valid_xywh"]
+
+
+def _against_one_process(cfg, batches, dev, mesh, rank, label,
+                         keep_state=False):
+    """Train `batches` on this rank's rows over `mesh` and, on rank 0, the
+    same steps in one process on the whole batches -> numbers (rank 0:
+    losses, the worst relative loss error, the worst parameter / buffer
+    error beyond atol + rtol * |x|, with `keep_state` the gathered
+    state)."""
+    import torch
+    from rtpose_tpu_torch.parallel.distributed import rank_rows
+    from rtpose_tpu_torch.train.trainer import Trainer
+    tr = Trainer(cfg, device=dev, mesh=mesh)
+    logs, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        logs.append(tr.train_step(*_step_args(rank_rows(b, mesh))))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    state = tr.model_state_dict()
+    out = {"losses": [lg["loss"] for lg in logs], "ms_per_step": ms,
+           "sharded_convs": sum(k.endswith(".weight") for k in tr.sharded)}
+    del tr
+    if rank == 0:
+        ref = Trainer(cfg, device=dev)
+        want = [ref.train_step(*_step_args(b))["loss"] for b in batches]
+        ref_state = ref.model_state_dict()
+        out["single_losses"] = want
+        out["loss_rel_err"] = max(abs(a - b) / abs(b)
+                                  for a, b in zip(out["losses"], want))
+        excess = 0.0
+        max_err = 0.0
+        for k, w in ref_state.items():
+            d = (state[k].double() - w.double()).abs()
+            max_err = max(max_err, float(d.max()))
+            excess = max(excess, float((d - PAR_PARAM_ATOL - PAR_PARAM_RTOL
+                                        * w.double().abs()).max()))
+        out["param_max_abs_err"] = max_err
+        out["param_excess"] = excess      # > 0: outside the tolerance
+        out["running_stats_compared"] = sum(
+            k.endswith(("running_mean", "running_var")) for k in ref_state)
+        if keep_state:
+            out["state"] = state
+        del ref
+    torch.cuda.empty_cache()
+    log(f"[rank {rank}] {label}: losses {out['losses']}, ms a step "
+        f"{[round(x, 1) for x in ms]}")
+    return out
+
+
+def parallel_ranks(rank: int, world: int, spec: dict) -> dict:
+    """One of two ranks over gloo, both on card 0 (phase 13): a cold build
+    of the kernels, DP2 fp32 against one process, DP2 bf16 at the
+    flagship batch (timed, K4 per rank against its plain version), a
+    BatchNorm family under DP2, DP1 x TP2 against one process, and the
+    eval split by host_shard (oracle maps) -> this rank's numbers."""
+    from pathlib import Path
+
+    import torch
+    from rtpose_tpu_torch.evalx.harness import run_eval_sharded
+    from rtpose_tpu_torch.infer.pipeline import PosePipeline, load_pipeline
+    from rtpose_tpu_torch.models import get_model
+    from rtpose_tpu_torch.models.convert import load_strict
+    from rtpose_tpu_torch.ops import _build, kernels
+    from rtpose_tpu_torch.parallel.distributed import rank_rows
+    from rtpose_tpu_torch.parallel.mesh import make_mesh
+    from rtpose_tpu_torch.train.trainer import Trainer
+    from rtpose_tpu_torch.utils.synth_coco import OracleMaps, oracle_maps
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out = {"device": str(dev)}
+    # both ranks start cold on one new build directory, at once
+    _build.BUILD_DIR = Path(spec["cold_dir"])
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    built = _build.load()
+    out["build"] = {"seconds": built.seconds,
+                    "load_s": time.perf_counter() - t0,
+                    "library": os.path.relpath(str(built.path), ROOT)}
+    # a collective on card tensors: gloo takes them
+    probe = torch.full((4,), float(rank + 1), device=dev)
+    torch.distributed.all_reduce(probe)
+    out["gloo_cuda_all_reduce"] = probe.tolist()
+    mesh = make_mesh(world, 1)
+
+    out["dp2_fp32"] = _against_one_process(
+        _par_cfg(dtype="float32"),
+        [train_batch(PAR_FP32_BATCH, 368, seed=10 + i) for i in range(2)],
+        dev, mesh, rank, f"DP2 fp32 global batch {PAR_FP32_BATCH}")
+
+    # the flagship batch in bf16, 36 rows a rank, timed; K4 once a step
+    tr = Trainer(_par_cfg(), device=dev, mesh=mesh)
+    rows = rank_rows(train_batch(TRAIN_BATCH, 368, seed=2), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    ms, losses = [], []
+    for _ in range(PAR_STEPS):
+        t0 = time.perf_counter()
+        losses.append(tr.train_step(*_step_args(rows))["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = kernels.launch_counts()["gt_maps"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    kps = torch.as_tensor(rows["keypoints"]).to(dev)
+    grid = 368 // 8
+    heat, paf = kernels.gt_maps(kps, grid_y=grid, grid_x=grid, stride=8,
+                                sigma=7.0)
+    heat_p, paf_p = kernels.gt_maps_plain(
+        kps, kernels.limb_scalars(kps, 8), kernels.person_bound(kps),
+        grid_y=grid, grid_x=grid, stride=8, sigma=7.0)
+    out["dp2_bf16"] = {
+        "rows": len(rows["image"]), "losses": losses, "ms_per_step": ms,
+        "gt_maps_launches": launches, "peak_gib": peak,
+        "k4_max_abs_err": max(float((heat - heat_p).abs().max()),
+                              float((paf - paf_p).abs().max()))}
+    del tr, kps, heat, paf, heat_p, paf_p
+    torch.cuda.empty_cache()
+
+    name, stages, size = PAR_BN
+    bn = _against_one_process(
+        _par_cfg(name, stages, size, "float32"),
+        [train_batch(PAR_BN_BATCH, size, seed=30 + i) for i in range(2)],
+        dev, mesh, rank, f"{name} DP2 fp32 global batch {PAR_BN_BATCH}")
+    out["bn_dp2_fp32"] = bn
+
+    # DP1 x TP2: both ranks see every row; the convs param_spec shards
+    # are split over the two
+    tp = _against_one_process(
+        _par_cfg(dtype="float32"),
+        [train_batch(PAR_TP_BATCH, 368, seed=20 + i) for i in range(2)],
+        dev, make_mesh(1, 2), rank, f"DP1 x TP2 fp32 batch {PAR_TP_BATCH}",
+        keep_state=True)
+    if rank == 0:
+        # the gathered state dict serves unsharded
+        model = get_model("vgg19", num_stages=6, dtype=torch.float32)
+        load_strict(model, tp.pop("state"))
+        pipe = PosePipeline(model, device=dev, input_size=368)
+        _, heat, _, _ = pipe.run(np.zeros((480, 640, 3), np.uint8))
+        tp["unsharded_pipeline_heat_finite"] = bool(np.isfinite(heat).all())
+        del pipe, model
+        torch.cuda.empty_cache()
+    out["tp2_fp32"] = tp
+
+    ev = spec["eval"]
+    pipe = PosePipeline(OracleMaps(oracle_maps(ev["scenes"], 368)),
+                        device=dev, input_size=368, flip=False)
+    kernels.reset_launch_counts()
+    stats = run_eval_sharded(ev["img_dir"], ev["ann"], pipe,
+                             ev["results_dir"], batch_size=8)
+    torch.cuda.synchronize()
+    out["eval"] = {"stats": stats, "launches": kernels.launch_counts()}
+    # the flagship over phase 6e's JPEGs, as the eval CLI builds it
+    fl = spec["flagship_eval"]
+    pipe = load_pipeline(device=dev, seed=0, preprocess_mode="vgg")
+    kernels.reset_launch_counts()
+    stats = run_eval_sharded(fl["img_dir"], fl["ann"], pipe,
+                             fl["results_dir"], batch_size=4)
+    torch.cuda.synchronize()
+    out["flagship_eval"] = {"stats": stats,
+                            "launches": kernels.launch_counts()}
+    return out
+
+
+def flagship_eval_set(root: str):
+    """Phase 6e's 80 JPEGs of COCO's commonest sizes (1-2 people each) ->
+    (image dir, annotation file, file names)."""
+    from rtpose_tpu_torch.utils.synth_coco import (spread_people,
+                                                   write_synth_coco)
+    frames = [shape for shape, n in EVAL_SHAPES for _ in range(n)]
+    order = [frames[i] for i in
+             np.random.RandomState(1).permutation(len(frames))]
+    rng = np.random.RandomState(2)
+    img_dir, ann = write_synth_coco(
+        root, [(h, w, spread_people(rng, 1 + i % 2, h, w))
+               for i, (h, w) in enumerate(order)])
+    return img_dir, ann, sorted(os.listdir(img_dir))
+
+
+def people_lists_err(got, want):
+    """The largest part-coordinate difference (normalised x 368 px) of two
+    lists of people lists, paired per frame after sorting; None when the
+    frames' people or parts differ."""
+    worst = 0.0
+    for ps, pr in zip(got, want):
+        if len(ps) != len(pr):
+            return None
+        key = lambda p: sorted(p["parts"].items())  # noqa: E731
+        for a, b in zip(sorted(ps, key=key), sorted(pr, key=key)):
+            if set(a["parts"]) != set(b["parts"]):
+                return None
+            for part, (x, y, _) in a["parts"].items():
+                bx, by, _ = b["parts"][part]
+                worst = max(worst, 368 * abs(x - bx), 368 * abs(y - by))
+    return worst if len(got) == len(want) else None
+
+
+def parallel_phase(dev, smi: str):
+    """Phase 13: the parallel paths.  DP world 1 over NCCL against no mesh;
+    two gloo ranks on this card (``parallel_ranks``); sharded serving on
+    ``["cuda:0", "cuda:0"]`` against the unsharded pipeline; the eval
+    CLI's ``--data-parallel`` -> ({kernel: {run: launches}}, numbers)."""
+    import contextlib
+    import io
+
+    import torch
+    import torch.distributed as dist
+    from rtpose_tpu_torch.data.dataset import stop_worker_processes
+    from rtpose_tpu_torch.evalx import __main__ as evalx_cli
+    from rtpose_tpu_torch.evalx.harness import run_eval_batched
+    from rtpose_tpu_torch.infer.pipeline import PosePipeline, load_pipeline
+    from rtpose_tpu_torch.ops import kernels
+    from rtpose_tpu_torch.parallel.distributed import free_port, spawn
+    from rtpose_tpu_torch.parallel.mesh import make_mesh
+    from rtpose_tpu_torch.train.trainer import Trainer
+    from rtpose_tpu_torch.utils.synth_coco import (OracleMaps,
+                                                   compare_results,
+                                                   oracle_maps,
+                                                   spread_people,
+                                                   write_synth_coco)
+    t_phase = time.perf_counter()
+    numbers = {"card": smi}
+    launches = {k: {} for k in SERVING_KERNELS + ("gt_maps",)}
+
+    # 13a. DP over NCCL at world 1: the flagship at its batch, bf16,
+    # through Trainer(mesh=...) against the same steps without a mesh
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        batches = [train_batch(TRAIN_BATCH, 368, seed=40 + i)
+                   for i in range(PAR_STEPS)]
+        runs = {}
+        for label, mesh in (("no_mesh", None), ("nccl_world1", make_mesh())):
+            tr = Trainer(_par_cfg(), device=dev, mesh=mesh)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            ms, losses = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                losses.append(tr.train_step(*_step_args(b))["loss"])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs[label] = {"losses": losses, "ms_per_step": ms,
+                           "gt_maps_launches":
+                               kernels.launch_counts()["gt_maps"]}
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        runs["nccl_world1"]["losses"], runs["no_mesh"]["losses"]))
+    check(rel <= 1e-6, f"DP world 1 over NCCL: losses {runs} (rel {rel})")
+    check(runs["nccl_world1"]["gt_maps_launches"] == PAR_STEPS,
+          f"DP world 1: K4 launches {runs['nccl_world1']}")
+    numbers["dp1_nccl"] = dict(runs, loss_rel_err=rel)
+    launches["gt_maps"]["dp1_nccl"] = runs["nccl_world1"]["gt_maps_launches"]
+    log(f"DP world 1 over NCCL, flagship bf16 batch {TRAIN_BATCH}: losses "
+        f"{runs['nccl_world1']['losses']} vs no mesh "
+        f"{runs['no_mesh']['losses']} (rel {rel!r}); ms a step "
+        f"{[round(x, 2) for x in runs['nccl_world1']['ms_per_step']]} vs "
+        f"{[round(x, 2) for x in runs['no_mesh']['ms_per_step']]} [{smi}]")
+
+    work = os.path.join(ROOT, "rtpose_tpu_torch", "build",
+                        "chip_smoke_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        # 13b. two gloo ranks on this card
+        rng = np.random.RandomState(0)
+        scenes = {(368, 496): spread_people(rng, 2, 368, 496),
+                  (496, 368): spread_people(rng, 1, 496, 368)}
+        shapes = list(scenes) * 8
+        o_dir, o_ann = write_synth_coco(
+            os.path.join(work, "oracle"),
+            [(h, w, scenes[(h, w)]) for h, w in shapes])
+        img_dir, ann, names = flagship_eval_set(os.path.join(work, "evalx"))
+        spec = {"cold_dir": os.path.join(work, "cold_build"),
+                "eval": {"scenes": scenes, "img_dir": o_dir, "ann": o_ann,
+                         "results_dir": os.path.join(work, "results")},
+                "flagship_eval": {
+                    "img_dir": img_dir, "ann": ann,
+                    "results_dir": os.path.join(work, "flagship_results")}}
+        t0 = time.perf_counter()
+        ranks = spawn(parallel_ranks, 2, (spec,), backend="gloo",
+                      timeout=600)
+        ranks_s = time.perf_counter() - t0
+        r0, r1 = ranks
+        for r in ranks:
+            check(r["gloo_cuda_all_reduce"] == [3.0] * 4
+                  and r["device"] == "cuda:0",
+                  f"gloo all_reduce of card tensors: {r}")
+        builds = [r["build"] for r in ranks]
+        check(all(b["library"] == builds[0]["library"] for b in builds),
+              f"cold build: {builds}")
+        for key in ("dp2_fp32", "tp2_fp32", "bn_dp2_fp32"):
+            check(r0[key]["loss_rel_err"] <= PAR_RTOL[key]
+                  and r0[key]["param_excess"] <= 0
+                  and r1[key]["losses"] == r0[key]["losses"],
+                  f"{key}: {r0[key]}, rank 1 losses {r1[key]['losses']}")
+        check(r0["bn_dp2_fp32"]["running_stats_compared"] > 0,
+              f"{PAR_BN[0]}: no BatchNorm statistics compared")
+        check(r0["tp2_fp32"]["sharded_convs"] > 0
+              and r0["tp2_fp32"]["unsharded_pipeline_heat_finite"],
+              f"TP2: {r0['tp2_fp32']}")
+        for i, r in enumerate(ranks):
+            d = r["dp2_bf16"]
+            check(d["gt_maps_launches"] == PAR_STEPS
+                  and d["k4_max_abs_err"] == 0.0
+                  and d["rows"] == TRAIN_BATCH // 2
+                  and all(math.isfinite(x) for x in d["losses"]),
+                  f"DP2 bf16 rank {i}: {d}")
+            launches["gt_maps"][f"dp2_bf16_rank{i}"] = d["gt_maps_launches"]
+        check(r1["dp2_bf16"]["losses"] == r0["dp2_bf16"]["losses"],
+              "DP2 bf16: the ranks' logs differ")
+        # the eval split: rank 0's merge against one process
+        opipe = PosePipeline(OracleMaps(oracle_maps(scenes, 368)),
+                             device=dev, input_size=368, flip=False)
+        single_path = os.path.join(work, "single.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            want = run_eval_batched(o_dir, o_ann, opipe, batch_size=8,
+                                    results_path=single_path)
+        merged = []
+        for r in range(2):
+            with open(os.path.join(work, "results",
+                                   f"results.rank{r}.json")) as f:
+                merged.extend(json.load(f))
+        with open(single_path) as f:
+            single = json.load(f)
+        kp_err, score_err = compare_results(merged, single)
+        got = r0["eval"]["stats"]
+        check(r1["eval"]["stats"] is None and len(single) == 3 * 8
+              and kp_err == 0.0 and score_err == 0.0
+              and all(got[k] == want[k] for k in ("AP", "AP50", "AR",
+                                                  "frames_retried")),
+              f"eval over two ranks: {got} vs {want}, keypoints {kp_err}")
+        for k in SERVING_KERNELS:
+            for i, r in enumerate(ranks):
+                launches[k][f"eval_rank{i}"] = r["eval"]["launches"][k]
+                check(r["eval"]["launches"][k] > 0,
+                      f"eval rank {i}: {r['eval']['launches']}")
+        numbers["gloo_2_ranks_on_one_card"] = {
+            "note": "a correctness setup: two processes share one card",
+            "seconds": ranks_s, "ranks": ranks}
+        d0, d1 = r0["dp2_bf16"], r1["dp2_bf16"]
+        log(f"two gloo ranks on cuda:0 ({ranks_s:.1f} s): gloo all_reduce "
+            f"of card tensors ok; cold build on both ranks at once "
+            f"{[round(b['seconds'], 1) for b in builds]} s, one library "
+            f"{builds[0]['library']}, both loaded")
+        log(f"DP2 fp32 batch {PAR_FP32_BATCH} vs one process: loss rel "
+            f"{r0['dp2_fp32']['loss_rel_err']!r}, params max abs err "
+            f"{r0['dp2_fp32']['param_max_abs_err']!r}; DP1 x TP2 fp32 "
+            f"batch {PAR_TP_BATCH}: {r0['tp2_fp32']['sharded_convs']} "
+            f"sharded convs, loss rel {r0['tp2_fp32']['loss_rel_err']!r}, "
+            f"params {r0['tp2_fp32']['param_max_abs_err']!r}, the gathered "
+            f"state serves unsharded; {PAR_BN[0]} DP2 fp32 batch "
+            f"{PAR_BN_BATCH}: loss rel {r0['bn_dp2_fp32']['loss_rel_err']!r}"
+            f", params and running statistics max abs err "
+            f"{r0['bn_dp2_fp32']['param_max_abs_err']!r}; ms a step (rank "
+            f"0, gloo on one card) DP2 "
+            f"{[round(x, 1) for x in r0['dp2_fp32']['ms_per_step']]}, TP2 "
+            f"{[round(x, 1) for x in r0['tp2_fp32']['ms_per_step']]}, "
+            f"{PAR_BN[0]} "
+            f"{[round(x, 1) for x in r0['bn_dp2_fp32']['ms_per_step']]} "
+            f"[{smi}]")
+        log(f"DP2 bf16 batch {TRAIN_BATCH} ({d0['rows']} a rank, gloo, both "
+            f"ranks on one card: a correctness setup, not a rate): ms a "
+            f"step rank 0 {[round(x, 1) for x in d0['ms_per_step']]}, "
+            f"rank 1 {[round(x, 1) for x in d1['ms_per_step']]}; K4 "
+            f"{d0['gt_maps_launches']} + {d1['gt_maps_launches']} launches,"
+            f" == plain (err {d0['k4_max_abs_err']}); peak "
+            f"{d0['peak_gib']:.2f} / {d1['peak_gib']:.2f} GiB [{smi}]")
+        log(f"eval over two ranks (host_shard, oracle maps, 16 JPEGs): "
+            f"rank 0's merge == one process (AP {got['AP']!r}, "
+            f"{len(merged)} results)")
+
+        # 13c. sharded serving on two replicas on this card
+        pipe = load_pipeline(device=dev, seed=0)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        pipe_sh = load_pipeline(seed=0, mesh=make_mesh(devices=[dev, dev]))
+        torch.cuda.synchronize()
+        replicas_gib = (torch.cuda.memory_allocated(dev) - before) / 2 ** 30
+        frng = np.random.RandomState(7)
+        frames = [frng.randint(0, 256, (480, 640, 3), np.uint8)
+                  for _ in range(8)]
+        serve = {}
+        for label, fn, fs in (
+                ("batch8", "run_batch", frames),
+                ("ragged5", "run_batch", frames[:5]),
+                ("multiscale6", "run_multiscale_batch", frames[:6])):
+            args = (fs,) if fn == "run_batch" else (fs, MS_SCALES)
+            getattr(pipe_sh, fn)(*args)          # warm
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            got = getattr(pipe_sh, fn)(*args)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            want = getattr(pipe, fn)(*args)
+            # (a shard convolves 4 frames where the unsharded pipeline
+            # convolves 8: cuDNN may pick another algorithm, so the people
+            # are held to RESULT_KP_TOL px)
+            err = people_lists_err(got[0], want[0])
+            check(len(got[0]) == len(fs) and err is not None
+                  and err <= RESULT_KP_TOL,
+                  f"sharded {label}: people differ from unsharded ({err})")
+            check(all(counts[k] == 2 for k in SERVING_KERNELS),
+                  f"sharded {label}: launches {counts} (one a shard)")
+            for k in SERVING_KERNELS:
+                launches[k][f"sharded_{label}"] = counts[k]
+            serve[label] = {"people": sum(map(len, got[0])),
+                            "people_max_err_px": err, "launches": counts}
+
+        def timed_batch(p, n=5):
+            p.run_batch(frames)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                p.run_batch(frames)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        torch.cuda.reset_peak_memory_stats()
+        ms_sh = timed_batch(pipe_sh)
+        peak_sh = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms_one = timed_batch(pipe)
+        ms_sh2 = timed_batch(pipe_sh)
+        # people on maps with people: an oracle in place of the network
+        maps = oracle_maps(scenes, 368)
+        o_one = PosePipeline(OracleMaps(maps), device=dev, input_size=368,
+                             flip=False)
+        o_sh = PosePipeline(OracleMaps(maps), input_size=368, flip=False,
+                            mesh=make_mesh(devices=[dev, dev]))
+        o_frames = [np.zeros(s + (3,), np.uint8) for s in shapes[:8]]
+        kernels.reset_launch_counts()
+        o_got = o_sh.run_batch(o_frames)
+        o_counts = kernels.launch_counts()
+        o_want = o_one.run_batch(o_frames)
+        check(o_got[0] == o_want[0]
+              and [len(p) for p in o_got[0]] == [2, 1] * 4,
+              f"sharded oracle people {[len(p) for p in o_got[0]]}")
+        serve["oracle_mixed_shapes"] = {"people": sum(map(len, o_got[0])),
+                                        "launches": o_counts}
+        numbers["sharded_serving"] = dict(
+            serve, replicas_gib=replicas_gib, peak_gib=peak_sh,
+            ms_per_batch8={"sharded": [ms_sh, ms_sh2], "unsharded": ms_one})
+        log(f"sharded serving on [cuda:0, cuda:0], flagship bf16 480x640: "
+            f"people == unsharded for 8 frames, a ragged 5 and multi-scale "
+            f"on 6, K1/K3/G once a shard ({serve['batch8']['launches']}); "
+            f"oracle maps with people, two shapes: {serve['oracle_mixed_shapes']['people']}"
+            f" people == unsharded; run_batch(8) {ms_sh:.2f} / {ms_sh2:.2f}"
+            f" ms sharded, {ms_one:.2f} unsharded; the sharded pipeline's two "
+            f"replicas {replicas_gib:.3f} GiB, peak {peak_sh:.2f} GiB "
+            f"[{smi}]")
+        del pipe, pipe_sh, o_one, o_sh, opipe
+        torch.cuda.empty_cache()
+
+        # 13d. the eval CLI's --data-parallel over phase 6e's JPEGs, and
+        # the two ranks' split of them (13b) against the CLI's --batch 4
+        base = ["evalx", "--image-dir", img_dir, "--ann", ann,
+                "--preprocess", "vgg", "--input-size", "368", "--stages",
+                str(EVAL_STAGES), "--device", str(dev)]
+        cli, argv = {}, sys.argv
+        try:
+            for label, extra in (("data_parallel", ["--data-parallel"]),
+                                 ("batch4", ["--batch", "4"])):
+                path = os.path.join(work, f"{label}.json")
+                sys.argv = base + extra + ["--results", path]
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    stats = evalx_cli.main()
+                torch.cuda.synchronize()
+                with open(path) as f:
+                    cli[label] = {"seconds": time.perf_counter() - t0,
+                                  "AP": stats["AP"],
+                                  "launches": kernels.launch_counts(),
+                                  "results": json.load(f)}
+        finally:
+            sys.argv = argv
+        check(cli["data_parallel"]["results"] == cli["batch4"]["results"],
+              "--data-parallel results differ from --batch 4's")
+        merged = []
+        for r in range(2):
+            with open(os.path.join(work, "flagship_results",
+                                   f"results.rank{r}.json")) as f:
+                merged.extend(json.load(f))
+        fl = r0["flagship_eval"]["stats"]
+        check(r1["flagship_eval"]["stats"] is None
+              and sorted(merged, key=json.dumps)
+              == sorted(cli["batch4"]["results"], key=json.dumps)
+              and fl["AP"] == cli["batch4"]["AP"],
+              f"the flagship eval over two ranks: {fl} vs --batch 4's "
+              f"AP {cli['batch4']['AP']}")
+        for k in SERVING_KERNELS:
+            for i, r in enumerate(ranks):
+                launches[k][f"flagship_eval_rank{i}"] = \
+                    r["flagship_eval"]["launches"][k]
+        dp_counts = cli["data_parallel"]["launches"]
+        check(all(dp_counts[k] > 0 for k in SERVING_KERNELS),
+              f"--data-parallel launches {dp_counts}")
+        for k in SERVING_KERNELS:
+            launches[k]["evalx_data_parallel"] = dp_counts[k]
+        numbers["evalx_data_parallel"] = {
+            label: {k: v for k, v in c.items() if k != "results"}
+            for label, c in cli.items()}
+        log(f"eval CLI --data-parallel ({torch.cuda.device_count()} card, "
+            f"batch 4 a card) on {len(names)} JPEGs: results == --batch 4's "
+            f"({len(cli['batch4']['results'])} results), and so is rank "
+            f"0's merge of two ranks' host_shard halves; "
+            f"{cli['data_parallel']['seconds']:.2f} s vs "
+            f"{cli['batch4']['seconds']:.2f} s with the build; launches "
+            f"{dp_counts} [{smi}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        stop_worker_processes()
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 (parallel): {numbers['phase_s']:.1f} s")
+    return launches, numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2848,6 +3399,11 @@ def main() -> int:
     # the video and picture demos, each counted from 0
     frontend_launches, frontend_numbers = frontends_phase(dev, smi)
 
+    # 13. the parallel paths: DP over NCCL at world 1, two gloo ranks on
+    # this card (DP2, a BatchNorm family, DP1 x TP2, the eval split),
+    # sharded serving on two replicas, the eval CLI's --data-parallel
+    par_launches, par_numbers = parallel_phase(dev, smi)
+
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
         "connection_scores": ("rtpose_tpu_torch/csrc/connection_scores.cu",
                               "rtpose_tpu/ops/pallas_kernels.py:214",
@@ -2884,6 +3440,7 @@ def main() -> int:
                  zoo_launches=zoo_launches[name],
                  http_launches=frontend_launches["http"][name],
                  video_launches=frontend_launches["video"][name],
+                 parallel_launches=par_launches[name],
                  **results[name], library_ms=None,
                  hourglass_factor4=hourglass[name],
                  **({"also_replaces": also} if also else {}))
@@ -2904,6 +3461,7 @@ def main() -> int:
         zoo_launches=zoo_launches["group_people"],
         http_launches=frontend_launches["http"]["group_people"],
         video_launches=frontend_launches["video"]["group_people"],
+        parallel_launches=par_launches["group_people"],
         hourglass_factor4={k: hg_rows[f"group_people_K{k}"]
                            for k in (32, 64)},
         **results["group_people"], library_ms=None,
@@ -2912,6 +3470,7 @@ def main() -> int:
     check(not left, f"processes still running: {left}")
     print(json.dumps({"zoo": zoo_numbers}), flush=True)
     print(json.dumps({"frontends": frontend_numbers}), flush=True)
+    print(json.dumps({"parallel": par_numbers}), flush=True)
     print(json.dumps({"native_loader": native_numbers,
                       "rotated_hourglass": rotated_numbers,
                       "resize_modes": resize_numbers}), flush=True)

@@ -355,15 +355,18 @@ class _BatchStream(torch.utils.data.IterableDataset):
     """One epoch's batches as the JAX ``Loader``'s workers draw them
     (rtpose_tpu/data/dataset.py:317-349): worker ``w`` of ``streams``
     builds batches ``w, w + streams, ...`` in order with its own
-    ``Generator(Philox([seed, epoch, w]))`` and yields ``(bi, batch)``."""
+    ``Generator(Philox([seed, epoch, w]))`` and yields ``(bi, batch)``,
+    the batch cut to rank ``rank``'s rows of ``world``."""
 
     def __init__(self, dataset, batches: List[np.ndarray], seed: int,
-                 epoch: int, streams: int):
+                 epoch: int, streams: int, rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.batches = batches
         self.seed = seed
         self.epoch = epoch
         self.streams = streams
+        self.rank = rank
+        self.world = world
 
     def __iter__(self):
         info = torch.utils.data.get_worker_info()
@@ -373,6 +376,8 @@ class _BatchStream(torch.utils.data.IterableDataset):
         for bi in range(worker_id, len(self.batches), self.streams):
             samples = [self.dataset.get(int(i), rng)
                        for i in self.batches[bi]]
+            per = len(samples) // self.world
+            samples = samples[self.rank * per:(self.rank + 1) * per]
             yield bi, {k: torch.from_numpy(np.stack([s[k] for s in samples]))
                        for k in samples[0]}
 
@@ -388,6 +393,15 @@ class Loader:
     float32 (B, S, S, 3), ``keypoints`` float32 (B, 32, 18, 3), ``mask``
     float32 (B, S/stride, S/stride, 1), ``image_id`` int64.
 
+    With ``world > 1`` it yields rank ``rank``'s rows of each of those
+    batches, ``[rank*B/world, (rank+1)*B/world)``, element for element
+    (the data-parallel trainer's share of the global batch ``B``); a batch
+    ``world`` does not divide is refused before any worker starts.  The
+    generators run through every row in order, so each rank's workers draw
+    the whole global batch and keep their rows: world times a rank's share
+    of the augmentation work, as in the JAX package, whose processes each
+    load the global batch.
+
     Each epoch starts its own workers, and they stop at its end, when the
     caller leaves it, or on a worker's exception, which is raised here.
     ``prefetch`` batches are in flight in all, at least one a worker;
@@ -399,7 +413,8 @@ class Loader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, seed: int = 0, drop_last: bool = True,
                  prefetch: int = 4, deterministic: bool = False,
-                 pin_memory: bool = False, timeout: float = 300.0):
+                 pin_memory: bool = False, timeout: float = 300.0,
+                 rank: int = 0, world: int = 1):
         # deterministic=True: every __iter__ yields identical batches
         # (epoch is not folded into the rng), so a val loss is comparable
         # across epochs instead of moving with per-epoch crop/jitter noise
@@ -415,6 +430,10 @@ class Loader:
         self.deterministic = deterministic
         self.pin_memory = pin_memory
         self.timeout = timeout
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of a world of {world}")
+        self.rank = rank
+        self.world = world
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -435,11 +454,17 @@ class Loader:
             batches = [b for b in batches if len(b) == self.batch_size]
         if not batches:
             return
+        ragged = [len(b) for b in (batches[0], batches[-1])
+                  if len(b) % self.world]
+        if ragged:
+            raise ValueError(
+                f"a batch of {ragged[0]} does not split over {self.world} "
+                f"data-parallel ranks")
         # a worker past the last batch would draw nothing; each of the
         # others keeps its id, its generator and its batches
         workers = min(self.num_workers, len(batches))
         stream = _BatchStream(self.dataset, batches, self.seed, epoch,
-                              max(1, workers))
+                              max(1, workers), self.rank, self.world)
         kw = {}
         if workers:
             kw = dict(num_workers=workers, timeout=self.timeout,

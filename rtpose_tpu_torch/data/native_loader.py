@@ -132,13 +132,21 @@ class NativeLoader:
     card; ``keypoints`` float32 (B, 32, 18, 3); ``mask`` float32
     (B, S/stride, S/stride, 1); ``image_id`` int64.  With ``pin_memory``
     the tensors are page-locked, for an asynchronous copy to the card.
+
+    With ``world > 1`` it yields rank ``rank``'s rows of each batch,
+    ``[rank*B/world, (rank+1)*B/world)``, element for element: the
+    coordinator samples every row's augmentation (the generator runs
+    through the whole batch; that needs only each JPEG's header) and the
+    pool decodes only the rank's rows.  A batch ``world`` does not divide
+    is refused before the first is built.
     """
 
     def __init__(self, dataset, batch_size: int,
                  shuffle: bool = True, threads: int = 8, seed: int = 0,
                  drop_last: bool = True, prefetch: int = 4,
                  uint8_output: bool = False, deterministic: bool = False,
-                 aug_kwargs: Dict = None, pin_memory: bool = False):
+                 aug_kwargs: Dict = None, pin_memory: bool = False,
+                 rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -152,6 +160,10 @@ class NativeLoader:
         self.pin_memory = pin_memory
         self.aug_kwargs = dict(aug_kwargs or {})
         self.aug_kwargs.setdefault("square_edge", dataset.input_size)
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of a world of {world}")
+        self.rank = rank
+        self.world = world
         self.pipe = ImgPipe(threads)
         self.epoch = 0
 
@@ -163,7 +175,8 @@ class NativeLoader:
     def _make_batch(self, indices, rng) -> Dict[str, torch.Tensor]:
         edge = self.dataset.input_size
         grid = edge // self.dataset.stride
-        B = len(indices)
+        B = len(indices) // self.world
+        first = self.rank * B
         images = torch.zeros(
             (B, edge, edge, 3),
             dtype=torch.uint8 if self.uint8_output else torch.float32,
@@ -175,13 +188,16 @@ class NativeLoader:
         img_ids = np.zeros((B,), np.int64)
         finalize = []
         paths = []          # submit order, to name any failing file
-        for bi, index in enumerate(indices):
+        for row, index in enumerate(indices):
             img_id, path, kp17, corners = self.dataset.raw_sample(int(index))
-            paths.append(path)
             with open(path, "rb") as f:
                 blob = f.read()
             w, h = jpeg_size(blob)
             p = sample_aug(rng, w, h, **self.aug_kwargs)
+            bi = row - first
+            if not 0 <= bi < B:
+                continue        # another rank's row: sampled, not built
+            paths.append(path)
             n_people = len(kp17)
             all17 = np.concatenate([kp17, corners], axis=0) \
                 if (len(kp17) or len(corners)) else np.zeros((0, 17, 3))
@@ -227,6 +243,12 @@ class NativeLoader:
                    for i in range(0, len(order), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        ragged = [len(b) for b in batches[:1] + batches[-1:]
+                  if len(b) % self.world]
+        if ragged:
+            raise ValueError(
+                f"a batch of {ragged[0]} does not split over {self.world} "
+                f"data-parallel ranks")
 
         # one coordinator thread keeps `prefetch` batches staged; the C++
         # pool inside _make_batch does the pixel work with the GIL released

@@ -16,8 +16,9 @@ from __future__ import annotations
 import argparse
 
 
-def build_pipeline(args):
-    """A :class:`..infer.pipeline.PosePipeline` from parsed CLI args.
+def build_pipeline(args, mesh=None):
+    """A :class:`..infer.pipeline.PosePipeline` from parsed CLI args, on
+    a serving `mesh` when one is given (``parallel.mesh.make_mesh``).
 
     ``--weight`` is a reference ``.pth``/``.ckpt`` file or a directory of
     the port's training checkpoints (best step; a JAX package checkpoint
@@ -58,7 +59,8 @@ def build_pipeline(args):
         pad_factor=getattr(args, "pad_to", 0),
         gaussian_filt=getattr(args, "gaussian_filt", False),
         device_resize=(
-            "auto" if getattr(args, "device_resize", False) else False))
+            "auto" if getattr(args, "device_resize", False) else False),
+        mesh=mesh)
     if args.weight:
         print(f"loaded weights from {args.weight}")
     return pipe

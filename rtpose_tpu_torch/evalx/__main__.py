@@ -6,7 +6,10 @@ reference evaluate/evaluation.py).
         --weight ckpt.pth --preprocess vgg --flip --batch 8
 
 Runs on the card (``--device cuda``, the default); ``--device cpu`` for
-tests.  Prints the stats JSON, then ``mAP (OKS .50:.95) = ...``.
+tests.  ``--data-parallel`` splits each batch over every visible card.
+Prints the stats JSON, then ``mAP (OKS .50:.95) = ...``.  Several
+processes (one per host) split the image ids with
+``harness.run_eval_sharded``.
 """
 
 from __future__ import annotations
@@ -47,14 +50,18 @@ def main():
                              "zero border perturbs edge activations "
                              "slightly. 0 = exact stride-8 pads")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="not ported yet (ROADMAP.md queue 1 item 6)")
+                        help="shard eval batches over every visible card "
+                             "(a model replica each, PosePipeline mesh "
+                             "serving); implies --batch, 4 frames a card "
+                             "by default")
     parser.add_argument("--gaussian-filt", action="store_true",
                         help="sigma=3 NMS refine smoothing (reference "
                              "bool_gaussian_filt, default off)")
     parser.add_argument("--multiscale", default=None, metavar="S1,S2,...",
                         help="comma-separated TTA scale factors (e.g. "
                              "0.5,1.0,1.5,2.0): multi-scale eval; "
-                             "composes with --batch")
+                             "composes with --batch and --data-parallel "
+                             "(each stacked chunk splits over the cards)")
     parser.add_argument("--flip", action="store_true", default=True)
     parser.add_argument("--no-flip", dest="flip", action="store_false")
     parser.add_argument("--limit", type=int, default=None)
@@ -75,10 +82,6 @@ def main():
                         help="torch device (default cuda; cpu for tests)")
     args = parser.parse_args()
 
-    if args.data_parallel:
-        raise SystemExit("--data-parallel is not ported yet: data-parallel "
-                         "serving over several cards is ROADMAP.md queue 1 "
-                         "item 6")
     scales = None
     if args.multiscale:
         try:
@@ -90,8 +93,14 @@ def main():
         if not scales or any(s <= 0 for s in scales):
             raise SystemExit("--multiscale needs positive scale factors")
 
+    mesh = None
+    if args.data_parallel:
+        from ..parallel.mesh import local_devices, make_mesh
+        mesh = make_mesh(devices=local_devices(args.device))
+        args.batch = args.batch or 4 * mesh.num_data
+
     from ..demo.picture_demo import build_pipeline
-    pipe = build_pipeline(args)
+    pipe = build_pipeline(args, mesh=mesh)
 
     if args.batch:
         from .harness import run_eval_batched

@@ -9,6 +9,11 @@ Frames are read by :func:`..data.imread.read_bgr`, which gives
 people are drawn (:func:`..utils.draw.draw_people`) and the drawing is
 written under the frame's ``file_name`` (:func:`..data.imwrite.write_bgr`),
 cv2's pixels without cv2.
+
+Several processes split an evaluation as the JAX harness's multi-host
+recipe says (harness.py:163-168): :func:`run_eval_sharded` gives each its
+``host_shard`` of the image ids and a ``results.rank{i}.json``, and rank
+0 merges the files (``merge_result_files``) and scores them.
 """
 
 from __future__ import annotations
@@ -80,9 +85,11 @@ def run_eval(image_dir: str, ann_file: str, pipeline: PosePipeline, *,
              limit: Optional[int] = None,
              results_path: Optional[str] = None,
              score_mode: str = "parity",
-             scales: Optional[Sequence[float]] = None) -> Dict[str, float]:
+             scales: Optional[Sequence[float]] = None,
+             score: bool = True) -> Dict[str, float]:
     """Evaluate on COCO val images, one frame at a time; returns the stats
-    dict (stats['AP'] is the headline mAP).
+    dict (stats['AP'] is the headline mAP; without `score` only the
+    frame counts).
 
     ``scales``: multi-scale TTA factors (e.g. ``(0.5, 1.0, 1.5, 2.0)``) —
     routes each image through :meth:`PosePipeline.run_multiscale`.  None =
@@ -119,7 +126,7 @@ def run_eval(image_dir: str, ann_file: str, pipeline: PosePipeline, *,
     if results_path:
         with open(results_path, "w") as f:
             json.dump(outputs, f)
-    stats = eval_results(outputs, coco, img_ids)
+    stats = eval_results(outputs, coco, img_ids) if score else {}
     return _attach_truncation_stats(stats, n_retried, n_truncated)
 
 
@@ -144,8 +151,8 @@ def run_eval_batched(image_dir: str, ann_file: str, pipeline: PosePipeline,
                      results_path: Optional[str] = None,
                      score_mode: str = "parity",
                      pad_partial: bool = True,
-                     scales: Optional[Sequence[float]] = None
-                     ) -> Dict[str, float]:
+                     scales: Optional[Sequence[float]] = None,
+                     score: bool = True) -> Dict[str, float]:
     """Throughput-oriented eval: bucket images by padded shape, run the
     pipeline on batches within each bucket, decode on the card in batch.
 
@@ -300,7 +307,7 @@ def run_eval_batched(image_dir: str, ann_file: str, pipeline: PosePipeline,
         with open(results_path, "w") as f:
             json.dump(outputs, f)
     t_eval = time.perf_counter()
-    stats = eval_results(outputs, coco, img_ids)
+    stats = eval_results(outputs, coco, img_ids) if score else {}
     # pipeline vs evaluator-tail split: pipeline_s covers read + upload +
     # forward + decode + readback over all buckets, evaluator_s the
     # host-side OKS scoring
@@ -311,6 +318,50 @@ def run_eval_batched(image_dir: str, ann_file: str, pipeline: PosePipeline,
     stats["images_in_sub_batch_buckets"] = sum(
         n for _, n, _ in bucket_rows if n < batch_size)
     return _attach_truncation_stats(stats, n_retried, n_truncated)
+
+
+def run_eval_sharded(image_dir: str, ann_file: str, pipeline: PosePipeline,
+                     results_dir: str, *, batch_size: int = 0,
+                     img_ids: Optional[Sequence[int]] = None,
+                     limit: Optional[int] = None,
+                     **kwargs) -> Optional[Dict[str, float]]:
+    """This rank's share of an evaluation split over the processes of the
+    process group: its ``host_shard`` of the image ids through
+    :func:`run_eval_batched` (`batch_size` > 0) or :func:`run_eval`, the
+    results written to ``results_dir/results.rank{rank}.json``; once every
+    rank has written its file (an all-gather of the frame counts), rank 0
+    merges the files and scores the whole set.  Returns the stats on rank
+    0 (frame counts summed over the ranks) and None elsewhere; `kwargs` go
+    to the eval function."""
+    from ..parallel.distributed import (host_shard, merge_result_files,
+                                        rank_and_world)
+    rank, world = rank_and_world()
+    coco = CocoJson(ann_file)
+    all_ids = _image_ids(coco, img_ids, limit)
+    mine = host_shard(all_ids, rank, world)
+    os.makedirs(results_dir, exist_ok=True)
+    path = os.path.join(results_dir, f"results.rank{rank}.json")
+    if batch_size:
+        counts = run_eval_batched(image_dir, ann_file, pipeline,
+                                  batch_size=batch_size, img_ids=mine,
+                                  results_path=path, score=False, **kwargs)
+    else:
+        counts = run_eval(image_dir, ann_file, pipeline, img_ids=mine,
+                          results_path=path, score=False, **kwargs)
+    counts = [counts["frames_retried"], counts["frames_truncated"]]
+    if world > 1:
+        # every rank's counts, after every rank has written its file
+        import torch.distributed as dist
+        every = [None] * world
+        dist.all_gather_object(every, counts)
+        counts = [sum(c[i] for c in every) for i in range(2)]
+    if rank != 0:
+        return None
+    outputs = merge_result_files([
+        os.path.join(results_dir, f"results.rank{r}.json")
+        for r in range(world)])
+    return _attach_truncation_stats(eval_results(outputs, coco, all_ids),
+                                    *counts)
 
 
 def eval_results(outputs: List[dict], coco: CocoJson,

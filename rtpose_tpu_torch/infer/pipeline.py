@@ -24,10 +24,20 @@ scale on the host, as the JAX package does whatever `device_resize`
 says, runs one forward per scale with flip fused, resizes every scale's
 maps bicubically to the base grid (cv2 INTER_CUBIC parity), averages
 them and decodes once.
+
+Sharded serving (``PosePipeline(mesh=parallel.mesh.make_mesh(devices=
+...))``, rtpose_tpu/infer/pipeline.py:202-237): a model replica on each
+device of the mesh; a batch (or a multi-scale chunk) is padded to a
+multiple of the devices by repeating its last frame and split
+contiguously, and every shard's upload, forward and decode is enqueued
+before any is read back, so the shards overlap; the frames come back in
+order.  A device may repeat.  ``run`` and ``run_multiscale`` of one frame
+stay on the first device, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import math
 import warnings
@@ -163,13 +173,17 @@ def load_pipeline(checkpoint_dir: Optional[str] = None, *, device="cuda",
     initial weights drawn from `seed` (seed 0 when no source is given).
     Every load is strict.  `dtype` is the compute type.  The maps'
     stride is `downsample` (4 for hourglass), passed on to
-    :class:`PosePipeline`, which pads to the model's ``pad_multiple``."""
+    :class:`PosePipeline`, which pads to the model's ``pad_multiple``.
+    With a serving ``mesh`` (a keyword of :class:`PosePipeline`) the model
+    is built on its first device."""
     if sum(x is not None for x in (checkpoint_dir, torch_weights,
                                    flax_params, seed)) > 1:
         raise ValueError(
             "pass one of checkpoint_dir, torch_weights, flax_params or "
             "seed: silently preferring one would evaluate the wrong model")
-    dev = resolve_device(device)
+    mesh = kwargs.get("mesh")
+    dev = resolve_device(mesh.devices[0] if mesh is not None and mesh.devices
+                         else device)
     model = get_model(model_name, num_stages=num_stages, dtype=dtype,
                       generator=torch.Generator().manual_seed(seed or 0))
     if checkpoint_dir is not None:
@@ -212,6 +226,11 @@ class PosePipeline:
     least `input_size`, and `input_size` is a multiple of the pad factor),
     else on the card.  A host-prepped frame in ``"auto"`` goes through the
     card's resize as an identity, as in the JAX package.
+
+    `mesh` (``parallel.mesh.make_mesh(devices=[...])``): the model runs
+    on the mesh's first device, a replica of it on each other one, and
+    ``run_batch*`` / ``run_multiscale_batch*`` split each batch over them
+    (the module docstring); `device` is then not read.
     """
 
     def __init__(self, model, *, device="cuda", input_size: int = 368,
@@ -221,11 +240,17 @@ class PosePipeline:
                  max_candidates: int = 256, max_total_conns: int = 160,
                  auto_retry: bool = True, retry_caps: Optional[Dict] = None,
                  gaussian_filt: bool = False, pad_factor: int = 0,
-                 device_resize: Union[bool, str] = False):
+                 device_resize: Union[bool, str] = False, mesh=None):
         if device_resize not in (False, True, "auto"):
             raise ValueError(f"device_resize must be False, True or 'auto', "
                              f"got {device_resize!r}")
-        self.device = resolve_device(device)
+        if mesh is not None and not mesh.devices:
+            raise ValueError("a serving mesh lists its devices "
+                             "(parallel.mesh.make_mesh(devices=...)): a "
+                             "mesh over a process group is for training")
+        self.mesh = mesh
+        self.device = resolve_device(mesh.devices[0] if mesh is not None
+                                     else device)
         self.device_resize = device_resize
         self.model = model.to(self.device).eval()
         self.input_size = input_size
@@ -242,22 +267,54 @@ class PosePipeline:
             thresh_heatmap=thresh_heatmap, max_peaks=max_peaks,
             max_people=max_people, max_candidates=max_candidates,
             max_total_conns=max_total_conns, gaussian_filt=gaussian_filt)
-        self._infer = make_infer_fn(
-            self.model, input_size=input_size,
-            preprocess_mode=preprocess_mode, downsample=downsample,
-            flip=flip, pad_factor=self.pad_factor,
-            device_resize=bool(device_resize), **self._decode_kwargs)
-        # multi-scale: every scale comes resized from the host
-        self._infer_maps = make_infer_fn(
-            self.model, preprocess_mode=preprocess_mode,
-            downsample=downsample, flip=flip, decode=False,
-            device_resize=False)
+        self._infer, self._infer_maps = self._make_infer(self.model)
         self.auto_retry = auto_retry
         self.retry_caps = {**RETRY_CAPS, **(retry_caps or {})}
         self._retry_kwargs = dict(factor=downsample,
                                   thresh_heatmap=thresh_heatmap,
                                   gaussian_filt=gaussian_filt,
                                   **self.retry_caps)
+        # (device, infer, infer_maps) of the data shards after the first,
+        # which is this pipeline's own model: replicas of it
+        self._replicas = [
+            (dev, *self._make_infer(copy.deepcopy(self.model).to(dev)))
+            for dev in map(resolve_device,
+                           mesh.devices[1:] if mesh is not None else ())]
+
+    def _make_infer(self, model):
+        """(the frames -> people function, the multi-scale maps function,
+        whose every scale comes resized from the host) of `model`."""
+        return (make_infer_fn(
+                    model, input_size=self.input_size,
+                    preprocess_mode=self.preprocess_mode,
+                    downsample=self.downsample, flip=self.flip,
+                    pad_factor=self.pad_factor,
+                    device_resize=bool(self.device_resize),
+                    **self._decode_kwargs),
+                make_infer_fn(
+                    model, preprocess_mode=self.preprocess_mode,
+                    downsample=self.downsample, flip=self.flip,
+                    decode=False, device_resize=False))
+
+    @property
+    def n_data(self) -> int:
+        """Data shards a batch splits into (1 without a mesh)."""
+        return 1 + len(self._replicas)
+
+    def _shard(self, s: int):
+        """(device, infer, infer_maps) of data shard `s`."""
+        if s == 0:
+            return self.device, self._infer, self._infer_maps
+        return self._replicas[s - 1]
+
+    def _split(self, items: list):
+        """`items` padded to a multiple of :attr:`n_data` with its last one
+        -> [(indices of real items, the shard's items)] per shard."""
+        padded = items + items[-1:] * (-len(items) % self.n_data)
+        per = len(padded) // self.n_data
+        return [(list(range(s * per, min((s + 1) * per, len(items)))),
+                 padded[s * per:(s + 1) * per])
+                for s in range(self.n_data)]
 
     def __call__(self, image_bgr: np.ndarray) -> List[Dict[str, Any]]:
         return self.run(image_bgr)[0]
@@ -287,11 +344,12 @@ class PosePipeline:
                 "padded_shape": im.shape}
         return im, meta
 
-    def _upload(self, frames) -> torch.Tensor:
+    def _upload(self, frames, device=None) -> torch.Tensor:
+        device = device or self.device
         batch = torch.from_numpy(np.stack(frames))
-        if self.device.type == "cuda":
+        if device.type == "cuda":
             batch = batch.pin_memory()
-        return batch.to(self.device, non_blocking=True)
+        return batch.to(device, non_blocking=True)
 
     def _decode_retry(self, heat: torch.Tensor, paf: torch.Tensor):
         with torch.inference_mode():
@@ -306,7 +364,7 @@ class PosePipeline:
         frame; meta['scale'] maps them back to the original pixels.
         """
         im, meta = self._prep(image_bgr)
-        return self._run_one(self._submit_stacked([im], [meta]))
+        return self._run_one(self._submit_shard(0, [im], [meta]))
 
     def _run_one(self, ticket):
         """Collect a one-frame ticket -> (people, heat, paf, meta), with one
@@ -340,7 +398,17 @@ class PosePipeline:
         return self._submit_stacked(list(ims), list(metas))
 
     def _submit_stacked(self, ims, metas):
-        people_dev, heat, paf = self._infer(self._upload(ims))
+        if self.n_data > 1:
+            return ("multi", len(ims), [
+                (idxs, self._submit_shard(s, part, [metas[i] for i in idxs]))
+                for s, (idxs, part) in enumerate(self._split(list(ims)))])
+        return self._submit_shard(0, ims, metas)
+
+    def _submit_shard(self, shard: int, ims, metas):
+        """Enqueue frames on one shard's device; `metas` may be shorter
+        than `ims` (the pad frames at the end are computed, not read)."""
+        device, infer, _ = self._shard(shard)
+        people_dev, heat, paf = infer(self._upload(ims, device))
         # the maps ride in the ticket so a truncated frame can be decoded
         # again from them at collect time
         return ("async", people_dev, heat, paf, list(metas))
@@ -366,10 +434,11 @@ class PosePipeline:
         h_up = heat.shape[1] * self.downsample
         w_up = heat.shape[2] * self.downsample
         retry_host, retry_pos = None, {}
-        if self.auto_retry and people_host.truncated.any():
+        truncated = people_host.truncated[:len(metas)]
+        if self.auto_retry and truncated.any():
             # one extra decode of the truncated frames only, from the maps
             # still on the card (no second forward)
-            idxs = np.nonzero(people_host.truncated)[0]
+            idxs = np.nonzero(truncated)[0]
             sel = torch.as_tensor(idxs, device=heat.device)
             retry_host = self._decode_retry(heat[sel], paf[sel])
             retry_pos = {int(g): j for j, g in enumerate(idxs)}
@@ -413,17 +482,19 @@ class PosePipeline:
                for size in sizes]
         return ims, base_hw, meta
 
-    def _submit_multiscale(self, preps):
+    def _submit_multiscale(self, preps, shard: int = 0, n_real=None):
         """Upload each scale's frames; per scale the forward with flip
         fused; bicubic-resize every scale's maps to the base grid,
         average, decode once.  `preps` are :meth:`_prep_scales` results of
-        one per-scale shape.  Nothing is read back."""
+        one per-scale shape, the last ``len(preps) - n_real`` of them pad
+        frames.  Nothing is read back."""
         base_hw = preps[0][1]
+        device, _, infer_maps = self._shard(shard)
         with torch.inference_mode():
             heat = paf = None
             for k in range(len(preps[0][0])):
-                _, h, p = self._infer_maps(self._upload(
-                    [ims[k] for ims, _, _ in preps]))
+                _, h, p = infer_maps(self._upload(
+                    [ims[k] for ims, _, _ in preps], device))
                 h, p = resize_bicubic(h, base_hw), resize_bicubic(p, base_hw)
                 heat = h if heat is None else heat + h
                 paf = p if paf is None else paf + p
@@ -432,7 +503,15 @@ class PosePipeline:
             people = decode_poses_batch(heat, paf, factor=self.downsample,
                                         **self._decode_kwargs)
         return ("async", people, heat, paf,
-                [dict(meta) for _, _, meta in preps])
+                [dict(meta) for _, _, meta in preps[:n_real]])
+
+    def _submit_multiscale_chunk(self, preps):
+        """One stacked multi-scale chunk, split over the shards."""
+        if self.n_data == 1:
+            return self._submit_multiscale(preps)
+        return ("multi", len(preps), [
+            (idxs, self._submit_multiscale(part, s, len(idxs)))
+            for s, (idxs, part) in enumerate(self._split(list(preps)))])
 
     def run_multiscale(self, image_bgr: np.ndarray,
                        scales: Sequence[float] = MS_SCALES):
@@ -446,9 +525,11 @@ class PosePipeline:
         """Most frames per stacked multi-scale chunk whose largest scaled
         input has `max_px` pixels: the memory the chunk may use over its
         cost per frame (:data:`MS_BYTES_PER_PIXEL`, scaled by the compute
-        type's width and by flip).  On the card the memory is
-        :data:`MS_MEMORY_SHARE` of what is free now, the allocator's cached
-        blocks included; on the CPU it is :data:`MS_HOST_MEMORY_BUDGET`."""
+        type's width and by flip), times the data shards (a chunk splits
+        over them; rtpose_tpu/infer/pipeline.py:654-660).  On the card the
+        memory is :data:`MS_MEMORY_SHARE` of what is free now, the
+        allocator's cached blocks included; on the CPU it is
+        :data:`MS_HOST_MEMORY_BUDGET`."""
         dtype = getattr(self.model, "dtype", None)
         if not isinstance(dtype, torch.dtype):
             param = next(self.model.parameters(), None)
@@ -474,7 +555,7 @@ class PosePipeline:
                 f"budget (MS_MEMORY_SHARE of the card's free memory, or "
                 f"MS_HOST_MEMORY_BUDGET on the CPU); running it anyway",
                 RuntimeWarning, stacklevel=2)
-        return max(1, cap)
+        return max(1, cap) * self.n_data
 
     def run_multiscale_batch_submit(self, images_bgr,
                                     scales: Sequence[float] = MS_SCALES):
@@ -497,7 +578,7 @@ class PosePipeline:
             cap = self.ms_chunk_cap(max_px)
             for j in range(0, len(idxs), cap):
                 part = idxs[j:j + cap]
-                sub.append((part, self._submit_multiscale(
+                sub.append((part, self._submit_multiscale_chunk(
                     [preps[i] for i in part])))
         if len(sub) == 1:
             return sub[0][1]

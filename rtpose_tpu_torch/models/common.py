@@ -105,10 +105,18 @@ class BatchNorm(nn.Module):
     model and the reduction runs in fp32 (flax's
     ``force_float32_reductions``); the output has the input's dtype.
     Keys: ``weight`` (flax ``scale``), ``bias``, ``running_mean``,
-    ``running_var``."""
+    ``running_var``.
+
+    With a ``data_group`` (:func:`set_data_group`, the trainer's
+    data-parallel ranks) train mode normalises with the statistics of the
+    global batch, as flax's do when GSPMD shards the batch: each rank's
+    per-channel count, sum and sum of squares are summed over the group
+    (differentiably) and the variance is flax's ``E[x^2] - E[x]^2``,
+    clipped at 0."""
 
     momentum = 0.99
     eps = 1e-5
+    data_group = None
 
     def __init__(self, channels: int):
         super().__init__()
@@ -121,6 +129,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.data_group is not None:
+            return self._global_batch_norm(x)
         # momentum 1 leaves the batch's mean and unbiased variance in the
         # scratch buffers; the running update is flax's, on the biased one
         mean = torch.zeros_like(self.running_mean)
@@ -134,6 +144,33 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(keep).add_(
                 var, alpha=(1.0 - keep) * (n - 1) / n)
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel.sharding import all_reduce_sum
+        xf = x.float()
+        count = xf.new_full((1,), x.numel() // x.shape[1])
+        stats = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)),
+                                          (xf * xf).sum((0, 2, 3)), count]),
+                               self.data_group)
+        c = x.shape[1]
+        mean = stats[:c] / stats[-1]
+        var = torch.clamp(stats[c:2 * c] / stats[-1] - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        with torch.no_grad():
+            keep = self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+            self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+        return y.to(x.dtype)
+
+
+def set_data_group(model: nn.Module, group) -> None:
+    """Every :class:`BatchNorm` of `model` takes its train-mode statistics
+    over the ranks of `group` (None: this rank's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.data_group = group
 
 
 class PReLU(nn.Module):

@@ -14,6 +14,18 @@ for tests.  Batches come from
 default), or from :class:`~rtpose_tpu_torch.data.native_loader.NativeLoader`
 with ``train.data_workers`` C++ threads (``train.data_loader=native``:
 uint8 canvases, normalized on the card; no rotation).
+
+Under ``torchrun`` each process is one rank of the JAX package's mesh
+trainer (rtpose_tpu/train/__main__.py:105-119)::
+
+    torchrun --nproc-per-node 8 -m rtpose_tpu_torch.train \
+        --config experiments/vgg19_368x368_sgd.yaml --set ...
+
+It joins the process group (NCCL on the cards, gloo with ``--device
+cpu``), builds the ``cfg.parallel.num_data`` x ``cfg.parallel.num_model``
+mesh over the ranks, and draws its rows of each global batch
+(``train.batch_size``); ``--vgg-weights`` is loaded by every rank and
+rank 0's copy is broadcast.  Rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -60,7 +72,15 @@ def main():
 
     from ..data import transforms as T
     from ..data.dataset import CocoKeypoints, ConcatKeypoints, Loader
+    from ..parallel.distributed import init_from_env, rank_and_world
+    from ..parallel.mesh import make_mesh
     from .trainer import Trainer
+
+    device = init_from_env(args.device)
+    mesh = None
+    if rank_and_world()[1] > 1:
+        mesh = make_mesh(cfg.parallel.num_data, cfg.parallel.num_model)
+    rows = dict(rank=mesh.data_index, world=mesh.num_data) if mesh else {}
 
     # the reference trains on a ConcatDataset over ALL annotation files
     # (reference train/train_VGG19.py:50-60); one CocoKeypoints per file,
@@ -87,7 +107,21 @@ def main():
         input_size=cfg.dataset.image_size,
         stride=cfg.model.downsample, sigma=cfg.dataset.sigma)
 
-    trainer = Trainer(cfg, device=args.device)
+    init_fn = None
+    if args.vgg_weights:
+        from ..models.convert import (import_vgg19_imagenet,
+                                      load_torch_checkpoint)
+        vgg = load_torch_checkpoint(args.vgg_weights)
+
+        def init_fn(model):
+            import_vgg19_imagenet(vgg, model)
+            if rank_and_world()[0] == 0:
+                print("initialized backbone from ImageNet vgg19 weights")
+
+    # the weights are broadcast from rank 0 (Trainer: parallel.replicate)
+    trainer = Trainer(cfg, device=device, **{
+        k: v for k, v in (("mesh", mesh), ("init_fn", init_fn))
+        if v is not None})
     pin = trainer.device.type == "cuda"
     if cfg.train.data_loader == "native":
         # the C++ imgpipe pool and uint8 canvases; the trainer normalizes
@@ -100,7 +134,7 @@ def main():
             aug_kwargs=dict(
                 square_edge=cfg.dataset.image_size,
                 scale_range=(cfg.dataset.scale_min, cfg.dataset.scale_max),
-                hflip_prob=cfg.dataset.hflip_prob))
+                hflip_prob=cfg.dataset.hflip_prob), **rows)
         # val: photometrics/flip/scale sampling off; crop offsets for
         # oversized images still sample, so deterministic=True pins them
         # to the same values every epoch and drop_last=False keeps sets
@@ -112,25 +146,18 @@ def main():
             aug_kwargs=dict(
                 square_edge=cfg.dataset.image_size,
                 scale_range=1.0, hflip_prob=0.0, color_jitter=0.0,
-                jpeg_prob=0.0, grayscale_prob=0.0))
+                jpeg_prob=0.0, grayscale_prob=0.0), **rows)
     else:
         train_loader = Loader(train_ds, cfg.train.batch_size,
                               num_workers=cfg.train.data_workers,
-                              seed=cfg.train.seed, pin_memory=pin)
+                              seed=cfg.train.seed, pin_memory=pin, **rows)
         # deterministic: same crops/jitter every epoch so the plateau/best
         # tracking follows the model, not per-epoch aug noise; no
         # drop_last so val sets smaller than a batch still evaluate
         val_loader = Loader(val_ds, cfg.train.batch_size, shuffle=False,
                             num_workers=cfg.train.data_workers,
                             deterministic=True, drop_last=False,
-                            pin_memory=pin)
-
-    if args.vgg_weights:
-        from ..models.convert import (import_vgg19_imagenet,
-                                      load_torch_checkpoint)
-        import_vgg19_imagenet(load_torch_checkpoint(args.vgg_weights),
-                              trainer.model)
-        print("initialized backbone from ImageNet vgg19 weights")
+                            pin_memory=pin, **rows)
 
     history = trainer.fit(train_loader, val_loader, epochs=args.epochs)
     return trainer, history

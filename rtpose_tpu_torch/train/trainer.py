@@ -23,6 +23,32 @@ The step reads all its log scalars back to the host at once, before the
 update, and that one readback also decides the guard.  The device is
 explicit and the initial weights come from a ``torch.Generator`` seeded
 from ``cfg.train.seed``.
+
+With a ``mesh`` over a process group (``parallel/mesh.py``) the trainer
+is one rank of the JAX package's mesh trainer (trainer.py:185-252,300):
+
+- each rank of the ``data`` axis gets its rows of the global batch
+  (``cfg.train.batch_size``; the loaders' ``rank`` / ``world``, or
+  ``parallel.distributed.rank_rows``), and the gradients are all-reduced
+  as one flat bucket over the data group and divided by its size before
+  the freeze mask, the accumulation and the clip see them: the mean of
+  equal shards, the global batch's gradient (``torch.autograd.grad``
+  bypasses ``DistributedDataParallel``'s reducer);
+- the logs are global: the losses all-reduce as means, ``max_*`` /
+  ``min_*`` as the maximum / minimum, and the non-finite guard, the
+  plateau schedule and ``best_val`` read the global values, so every rank
+  takes the same decisions and keeps the same learning rate;
+- BatchNorm takes its statistics over the global batch
+  (``models.common.set_data_group``);
+- with ``num_model > 1`` the convs ``param_spec`` shards are
+  column-parallel over the model group (``parallel/sharding.py``); the
+  clip sums a sharded parameter's squares over the model group, a
+  replicated one's once; ``state_dict`` gathers the full model and
+  momentum (every rank calls it), so a checkpoint loads unsharded, and
+  ``load_state_dict`` cuts a full one to the rank's rows.  K4 runs on
+  every rank (the JAX trainer falls back to XLA's GT on a TP mesh,
+  trainer.py:74-78; the maps are the same);
+- rank 0 alone writes checkpoints and logs; every rank restores.
 """
 
 from __future__ import annotations
@@ -32,14 +58,19 @@ import time
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data.gt import ground_truth_maps_batch
 from ..device import resolve_device
 from ..infer.preprocess import IMAGENET_MEAN, IMAGENET_STD, constants_on
 from ..models import get_model
-from ..models.common import he_reinit
+from ..models.common import he_reinit, set_data_group
 from ..models.convert import load_strict
+from ..parallel.distributed import rank_and_world, sync_hosts
+from ..parallel.mesh import replicate
+from ..parallel.sharding import (full_state_dict, gather_rows, own_rows,
+                                 shard_module, shard_state_dict)
 from ..utils.meters import AverageMeter, MetricLogger
 from .checkpoint import CheckpointManager
 from .loss import stagewise_mse
@@ -82,10 +113,20 @@ class Trainer:
     def __init__(self, cfg: Config, *,
                  device: Union[str, torch.device] = "cuda",
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 log_dir: Optional[str] = None):
+                 log_dir: Optional[str] = None, mesh=None,
+                 init_fn=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.metrics = MetricLogger(log_dir, tensorboard=bool(log_dir))
+        if mesh is not None and mesh.size > 1 and not mesh.distributed:
+            raise ValueError("a training mesh of several positions needs "
+                             "one process per position: start the ranks "
+                             "(torchrun) and build the mesh over their "
+                             "process group")
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        self.is_writer = rank_and_world()[0] == 0
+        self.metrics = MetricLogger(log_dir if self.is_writer else None,
+                                    tensorboard=bool(log_dir)
+                                    and self.is_writer)
         dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" \
             else torch.float32
         gen = torch.Generator().manual_seed(cfg.train.seed)
@@ -95,7 +136,14 @@ class Trainer:
             load_strict(model, state_dict)
         elif cfg.model.init_scheme == "scratch":
             he_reinit(model, gen)
+        if init_fn is not None:
+            init_fn(model)        # on the full model, before any sharding
         self.model = model.to(self.device)
+        self.sharded: List[str] = []
+        if self.mesh is not None:
+            replicate(self.mesh, self.model)
+            set_data_group(self.model, self.mesh.data_group)
+            self.sharded = shard_module(self.model, self.mesh)
         self.params = dict(self.model.named_parameters())
         self.optimizer = torch.optim.SGD(
             self.params.values(), lr=cfg.train.lr,
@@ -157,14 +205,44 @@ class Trainer:
         return stagewise_mse(self.model(images), heat_gt, paf_gt,
                              heat_mask=m, paf_mask=m)
 
-    @staticmethod
-    def _readback(loss: torch.Tensor, logs: Dict[str, torch.Tensor]
-                  ) -> Dict[str, float]:
-        """ONE host readback for every log scalar (trainer.py:314-319)."""
+    def _readback(self, loss: torch.Tensor, logs: Dict[str, torch.Tensor],
+                  n_img: int) -> Dict[str, float]:
+        """ONE host readback for every log scalar (trainer.py:314-319);
+        with a mesh, of the global values (trainer.py:247)."""
         logs = dict(logs, loss=loss.detach())
         keys = sorted(logs)
-        vals = torch.stack([logs[k].float() for k in keys]).tolist()
+        vals = torch.stack([logs[k].float() for k in keys])
+        if self.mesh is None:
+            return dict(zip(keys, vals.tolist()))
+        *vals, total, most = self._global_logs(keys, vals, n_img).tolist()
+        if total != self.mesh.num_data * most:
+            raise ValueError(f"the data-parallel ranks got unequal rows "
+                             f"({total:g} in all, at most {most:g} a rank):"
+                             f" the mean of their gradients is the global "
+                             f"batch's only for equal shards")
         return dict(zip(keys, vals))
+
+    def _global_logs(self, keys: List[str], vals: torch.Tensor,
+                     n_img: int) -> torch.Tensor:
+        """Losses as means over the data group, ``max_*`` / ``min_*`` as
+        the maximum / minimum: one SUM and one MAX all-reduce, each with
+        the rank's row count -> the global values, the rows in all and
+        the most rows a rank had."""
+        group, dev = self.mesh.data_group, vals.device
+        is_max = torch.tensor([k.startswith("max_") for k in keys],
+                              device=dev)
+        is_min = torch.tensor([k.startswith("min_") for k in keys],
+                              device=dev)
+        is_mean = ~(is_max | is_min)
+        count = vals.new_full((1,), float(n_img))
+        sums = torch.cat([torch.where(is_mean, vals, 0.0), count])
+        peaks = torch.cat([torch.where(is_max, vals, torch.where(
+            is_min, -vals, float("-inf"))), count])
+        dist.all_reduce(sums, group=group)
+        dist.all_reduce(peaks, op=dist.ReduceOp.MAX, group=group)
+        means = sums[:-1] / sums.new_full((), float(self.mesh.num_data))
+        return torch.cat([torch.where(is_mean, means, torch.where(
+            is_max, peaks[:-1], -peaks[:-1])), sums[-1:], peaks[-1:]])
 
     def train_step(self, images, keypoints, mask=None, window=None
                    ) -> Dict[str, float]:
@@ -178,7 +256,7 @@ class Trainer:
         buffers = [b.detach().clone() for b in self.model.buffers()]
         loss, logs = self._loss(images, keypoints, mask)
         grads = torch.autograd.grad(loss, list(self.params.values()))
-        logs = self._readback(loss, logs)
+        logs = self._readback(loss, logs, len(images))
         self.step += 1
         finite = math.isfinite(logs["loss"])
         logs["skipped_nonfinite"] = 0.0 if finite else 1.0
@@ -187,8 +265,22 @@ class Trainer:
                 for b, saved in zip(self.model.buffers(), buffers):
                     b.copy_(saved)
             return logs
-        self._update(list(grads))
+        grads = list(grads)
+        if self.mesh is not None:
+            grads = self._all_reduce_mean(grads)
+        self._update(grads)
         return logs
+
+    @torch.no_grad()
+    def _all_reduce_mean(self, grads: List[torch.Tensor]
+                         ) -> List[torch.Tensor]:
+        """The mean of the data group's gradients, all-reduced as one flat
+        bucket."""
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.mesh.data_group)
+        flat /= flat.new_full((), float(self.mesh.num_data))
+        return [part.view_as(g) for part, g in
+                zip(flat.split([g.numel() for g in grads]), grads)]
 
     @torch.no_grad()
     def _update(self, grads: List[torch.Tensor]) -> None:
@@ -208,7 +300,7 @@ class Trainer:
             grads, self.accum, self.mini_step = self.accum, None, 0
         max_norm = self.cfg.train.clip_grad_norm
         if max_norm > 0:
-            norm = torch.sqrt(sum(g.square().sum() for g in grads))
+            norm = torch.sqrt(self._square_norm(grads))
             keep = norm < max_norm
             grads = [torch.where(keep, g, (g / norm) * max_norm)
                      for g in grads]
@@ -218,6 +310,19 @@ class Trainer:
         for p in self.params.values():
             p.grad = None
 
+    def _square_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global squared norm: a sharded parameter's squares summed
+        over the model group, a replicated one's counted once."""
+        if not self.sharded:
+            return sum(g.square().sum() for g in grads)
+        sharded = set(self.sharded)
+        parts = [g.square().sum() for g in grads]
+        local = sum(q for name, q in zip(self.params, parts)
+                    if name in sharded)
+        dist.all_reduce(local, group=self.mesh.model_group)
+        return sum(q for name, q in zip(self.params, parts)
+                   if name not in sharded) + local
+
     @torch.no_grad()
     def eval_step(self, images, keypoints, mask=None, window=None
                   ) -> Dict[str, float]:
@@ -225,7 +330,7 @@ class Trainer:
         images, keypoints, mask = self._to_device(images, keypoints, mask,
                                                   window)
         loss, logs = self._loss(images, keypoints, mask)
-        return self._readback(loss, logs)
+        return self._readback(loss, logs, len(images))
 
     # ---- phase control ----------------------------------------------------
 
@@ -237,20 +342,61 @@ class Trainer:
     # ---- state ------------------------------------------------------------
 
     def state_dict(self) -> Dict[str, Any]:
-        """Everything the next step depends on (the JAX TrainState)."""
-        return {"step": self.step, "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(), "lr": self.lr,
-                "frozen": sorted(self.frozen), "accum": self.accum,
+        """Everything the next step depends on (the JAX TrainState), for
+        the unsharded model: under tensor parallelism a collective that
+        gathers the sharded parameters, momenta and accumulators."""
+        optimizer = self.optimizer.state_dict()
+        accum = self.accum
+        if self.sharded:
+            rows = self._sharded_rows()
+            # (the packed state holds the optimizer's own per-parameter
+            # dicts: replace them, never write into them)
+            optimizer["state"] = {
+                i: ({**st, "momentum_buffer": gather_rows(
+                    st["momentum_buffer"], self.mesh)}
+                    if i in rows and "momentum_buffer" in st else st)
+                for i, st in optimizer["state"].items()}
+            if accum is not None:
+                accum = [gather_rows(a, self.mesh) if i in rows else a
+                         for i, a in enumerate(accum)]
+        return {"step": self.step, "model": self.model_state_dict(),
+                "optimizer": optimizer, "lr": self.lr,
+                "frozen": sorted(self.frozen), "accum": accum,
                 "mini_step": self.mini_step}
 
+    def model_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict, sharded parameters gathered (every rank
+        of the model group calls it)."""
+        if self.sharded:
+            return full_state_dict(self.model, self.sharded, self.mesh)
+        return self.model.state_dict()
+
+    def _sharded_rows(self):
+        """Indices (optimizer order) of the sharded parameters."""
+        sharded = set(self.sharded)
+        return {i for i, name in enumerate(self.params) if name in sharded}
+
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        model, optimizer, accum = (state["model"], state["optimizer"],
+                                   state["accum"])
+        if self.sharded:
+            rows = self._sharded_rows()
+            model = shard_state_dict(model, self.sharded, self.mesh)
+            optimizer = {**optimizer, "state": {
+                i: ({**st, "momentum_buffer": own_rows(
+                    st["momentum_buffer"], self.mesh)}
+                    if i in rows and "momentum_buffer" in st else st)
+                for i, st in optimizer["state"].items()}}
+            if accum is not None:
+                accum = [own_rows(a, self.mesh) if i in rows else a
+                         for i, a in enumerate(accum)]
+        self.model.load_state_dict(model)
+        self.optimizer.load_state_dict(optimizer)
         self.step = int(state["step"])
         self.lr = state["lr"]
         self.frozen = set(state["frozen"])
-        self.accum = None if state["accum"] is None else \
-            [a.to(self.device) for a in state["accum"]]
+        self.accum = None if accum is None else \
+            [a.to(self.device) for a in accum]
         self.mini_step = int(state["mini_step"])
 
     def restore(self, restored) -> None:
@@ -290,7 +436,7 @@ class Trainer:
                 meters.setdefault(k, AverageMeter()).update(v, n=n_img)
             step_s.append(time.perf_counter() - tic)
             tic = time.perf_counter()
-            if i % log_every == 0:
+            if i % log_every == 0 and self.is_writer:
                 phase = "train" if train else "val"
                 print(f"[{phase}] epoch {self.epoch} it {i} "
                       f"loss {logs['loss']:.5f} "
@@ -299,10 +445,10 @@ class Trainer:
                 if train:
                     self.metrics.log(self.step, logs, prefix="train/")
             if train and ckpt is not None and every and (i + 1) % every == 0:
-                ckpt.save(self.state_dict(), step=self.step,
-                          meta={"epoch": self.epoch, "mid_epoch": True,
-                                "best_val": self.best_val,
-                                "plateau": self.plateau.state_dict()})
+                self._save(ckpt, meta={"epoch": self.epoch,
+                                       "mid_epoch": True,
+                                       "best_val": self.best_val,
+                                       "plateau": self.plateau.state_dict()})
         return {**{k: m.avg for k, m in meters.items()},
                 "data_s": data_s, "step_s": step_s}
 
@@ -336,11 +482,22 @@ class Trainer:
             self.epoch += 1
             # the global optimizer step, the namespace of the mid-epoch
             # saves (trainer.py:373-377)
-            ckpt.save(self.state_dict(), step=self.step, is_best=is_best,
-                      meta={"epoch": self.epoch, "best_val": self.best_val,
-                            "plateau": self.plateau.state_dict(),
-                            "val_loss": val_loss,
-                            "train_loss": train_logs["loss"]})
-            print(f"epoch {self.epoch}: train {train_logs['loss']:.5f} "
-                  f"val {val_loss:.5f} lr {self.lr:.4f} best={is_best}")
+            self._save(ckpt, is_best=is_best,
+                       meta={"epoch": self.epoch, "best_val": self.best_val,
+                             "plateau": self.plateau.state_dict(),
+                             "val_loss": val_loss,
+                             "train_loss": train_logs["loss"]})
+            if self.is_writer:
+                print(f"epoch {self.epoch}: train {train_logs['loss']:.5f} "
+                      f"val {val_loss:.5f} lr {self.lr:.4f} "
+                      f"best={is_best}")
         return history
+
+    def _save(self, ckpt: CheckpointManager, **kwargs) -> None:
+        """Every rank gathers the state; rank 0 writes it; the others wait
+        for the file."""
+        state = self.state_dict()
+        if self.is_writer:
+            ckpt.save(state, step=self.step, **kwargs)
+        if self.mesh is not None:
+            sync_hosts("checkpoint")

@@ -354,7 +354,7 @@ def test_evalx_cli_pad_to(cli_set, monkeypatch, capsys):
 @pytest.mark.parametrize("extra,msg", [
     (["--multiscale", "0.5,abc"], "comma-separated floats"),
     (["--multiscale", "0.5,-1.0"], "positive"),
-    (["--data-parallel"], "item 6"),
+    (["--multiscale", "0"], "positive"),
     (["--model", "mobilenet_v2"], "unknown model family"),
 ])
 def test_evalx_cli_rejects(cli_set, monkeypatch, capsys, extra, msg):

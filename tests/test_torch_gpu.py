@@ -894,3 +894,76 @@ def test_drawing_on_the_cards_machine_equals_cv2(cuda):
             cv_circle(got, p1, 3, color, 3)
         np.testing.assert_array_equal(got, want, err_msg=str(
             (cv2.__version__, trial, (h, w), p1, p2)))
+
+
+# ---- the parallel paths (rtpose_tpu_torch/parallel) -------------------------
+
+def _multihost():
+    import os
+    import sys
+    scripts = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import torch_multihost_check
+    return torch_multihost_check
+
+
+@pytest.mark.gpu
+def test_dp_world1_nccl_equals_no_mesh(cuda):
+    """A world-1 NCCL process group on the card: ``Trainer(mesh=...)``
+    all-reduces (a no-op sum, a division by 1) and takes the unsharded
+    trainer's steps; K4 once a step."""
+    import torch.distributed as dist
+    from rtpose_tpu_torch.parallel.distributed import free_port
+    from rtpose_tpu_torch.parallel.mesh import make_mesh
+    mh = _multihost()
+    batches = mh.make_batches(2)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        kernels.reset_launch_counts()
+        dp = mh.train_run(mh.make_cfg(), batches, mesh=make_mesh(),
+                          device=cuda)
+        launches = kernels.launch_counts()["gt_maps"]
+    finally:
+        dist.destroy_process_group()
+    one = mh.train_run(mh.make_cfg(), batches, device=cuda)
+    assert [lg["loss"] for lg in dp["logs"]] == \
+        [lg["loss"] for lg in one["logs"]]
+    assert launches == len(batches)
+
+
+@pytest.mark.gpu
+def test_dp2_gloo_ranks_on_one_card_equal_one_process(cuda):
+    """Two gloo ranks, both on cuda:0, against one process on the card."""
+    from rtpose_tpu_torch.parallel.distributed import spawn
+    mh = _multihost()
+    batches = mh.make_batches(2)
+    ranks = spawn(mh.dp_worker, 2, (dict(cfg={}, batches=batches,
+                                         device="cuda:0"),))
+    one = mh.train_run(mh.make_cfg(), batches, device=cuda)
+    one["state"] = {k: v.cpu().numpy() for k, v in one["state"].items()}
+    loss, param = mh.max_diffs(ranks[0], one)
+    assert loss <= 1e-5 * max(lg["loss"] for lg in one["logs"])
+    assert param <= mh.PARAM_ATOL
+
+
+@pytest.mark.gpu
+def test_sharded_pipeline_launches_once_a_shard(cuda):
+    """PosePipeline on ["cuda:0", "cuda:0"]: a replica a shard, K1, K3 and
+    G once a shard, the unsharded pipeline's people."""
+    from rtpose_tpu_torch.infer.pipeline import load_pipeline
+    from rtpose_tpu_torch.parallel.mesh import make_mesh
+    kw = dict(num_stages=1, input_size=56, seed=0, dtype=torch.float32)
+    pipe = load_pipeline(device=cuda, **kw)
+    pipe_sh = load_pipeline(mesh=make_mesh(devices=[cuda, cuda]), **kw)
+    frames = [np.random.RandomState(i).randint(0, 256, (60, 80, 3),
+                                               np.uint8) for i in range(5)]
+    kernels.reset_launch_counts()
+    got = pipe_sh.run_batch(frames)
+    counts = kernels.launch_counts()
+    assert all(counts[k] == 2 for k in ("connection_scores",
+                                        "bicubic_refine", "group_people"))
+    want = pipe.run_batch(frames)
+    assert [len(p) for p in got[0]] == [len(p) for p in want[0]]

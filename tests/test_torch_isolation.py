@@ -140,6 +140,19 @@ with tempfile.TemporaryDirectory() as root:
     rotated = T.RandomRotate(40.0)(T.Sample.new(
         PIL.Image.open(f"{img_dir}/" + sorted(os.listdir(img_dir))[0]),
         np.zeros((0, 17, 3))), np.random.default_rng(0))
+import torch.distributed as dist
+from rtpose_tpu_torch.parallel.distributed import (free_port, host_shard,
+                                                   sync_hosts)
+from rtpose_tpu_torch.parallel.mesh import make_mesh
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                        rank=0, world_size=1)
+mesh = make_mesh()
+par_logs = Trainer(cfg, device="cpu", mesh=mesh).train_step(
+    np.random.RandomState(1).rand(2, 64, 64, 3).astype(np.float32), kps)
+sync_hosts()
+parallel = [mesh.num_data, mesh.num_model, par_logs["loss"],
+            host_shard(list(range(5)))]
+dist.destroy_process_group()
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "flax", "cv2", "rtpose_tpu")
                 and sys.modules[k] is not None)
@@ -151,7 +164,8 @@ print(json.dumps({"modules": mods, "people": len(people),
                   "video": [video_frames, video_out], "http": http_answer,
                   "native": {k: [str(v.dtype), list(v.shape)]
                              for k, v in native.items()},
-                  "rotated": list(np.asarray(rotated.image).shape)}))
+                  "rotated": list(np.asarray(rotated.image).shape),
+                  "parallel": parallel}))
 """
 
 
@@ -177,7 +191,8 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
                 "demo.serve_http", "demo.video_demo", "demo.video_io",
                 "data.imwrite", "utils.draw", "utils.human",
                 "utils.profiling", "data.native_loader", "data.cv2exact",
-                "native.imgpipe"):
+                "native.imgpipe", "parallel.distributed", "parallel.mesh",
+                "parallel.sharding"):
         assert f"rtpose_tpu_torch.{mod}" in res["modules"], mod
     assert res["eval_ap"] == 1.0
     assert res["train_loss"] > 0 and np.isfinite(res["train_loss"])
@@ -204,6 +219,31 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
         "valid_xywh": ["torch.int32", [2, 4]]}
     h, w = res["rotated"][:2]
     assert res["rotated"][2] == 3 and h > 96 and w > 96
+    # shufflenet_v2 through a world-1 gloo group: its BatchNorm takes the
+    # group's statistics (flax's E[x^2] - E[x]^2), the loss the same step's
+    n_data, n_model, loss, shard = res["parallel"]
+    assert (n_data, n_model, shard) == (1, 1, [0, 1, 2, 3, 4])
+    assert abs(loss - res["bn_train_loss"]) <= 1e-4 * res["bn_train_loss"]
+
+
+@pytest.mark.parametrize("n,pc", [(23, 4), (3, 4), (0, 2), (9, 3)])
+def test_work_split_copies_behave_as_the_originals(tmp_path, n, pc):
+    """``parallel.distributed`` ``host_shard`` and ``merge_result_files``
+    are copies (the JAX module imports jax): the same splits and merges."""
+    from rtpose_tpu.parallel import distributed as jdist
+    from rtpose_tpu_torch.parallel import distributed as tdist
+    items = list(range(n))
+    paths = []
+    for pi in range(pc):
+        assert tdist.host_shard(items, pi, pc) == \
+            jdist.host_shard(items, pi, pc)
+        p = tmp_path / f"results.rank{pi}.json"
+        p.write_text(json.dumps([{"image_id": i}
+                                 for i in tdist.host_shard(items, pi, pc)]))
+        paths.append(str(p))
+    merged = tdist.merge_result_files(paths)
+    assert merged == jdist.merge_result_files(paths)
+    assert [r["image_id"] for r in merged] == items
 
 
 def test_skeleton_copy_equals_the_jax_package():
