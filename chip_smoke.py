@@ -85,6 +85,17 @@ entry points a user calls:
   eval split by ``host_shard`` and merged on rank 0; sharded serving on
   two replicas on this card (K1, K3 and G once a shard, the unsharded
   pipeline's people); the eval CLI's ``--data-parallel``;
+- the workflow scripts (phase 14), each a process of its own through
+  its CLI: the decode soak on 300 scenes and on 100 crowded ones (no
+  count mismatch, every overflow fixed at ``RETRY_CAPS``), the training
+  schedule at full width with a crash and restore (the restored step is
+  the last checkpoint's; K4 once a step), the endurance run at full
+  width killed with SIGKILL and resumed from its newest checkpoint, the
+  val2017-profile rehearsal of 400 images through the eval CLI (every
+  image through the pipeline, ``scale_pad_geometry``'s bucket count),
+  the eval breakdown, the crowded bench's two arms, and hourglass's
+  train -> eval chain with its rescore; each kernel row carries
+  ``workflow_launches``, the launches the scripts report;
 
 and checks that each path launched its kernels.  Also holds one fp32
 train step on the card against the CPU.  Prints timings beside the card's
@@ -2541,6 +2552,252 @@ def parallel_phase(dev, smi: str):
     return launches, numbers
 
 
+# phase 14: the workflow scripts, each run as a subprocess through its CLI
+WF_DIR = os.path.join(ROOT, "rtpose_tpu_torch", "build", "phase14")
+WF_KERNELS = SERVING_KERNELS + ("gt_maps",)
+
+
+def _script(name: str) -> list:
+    return [sys.executable, os.path.join(ROOT, "scripts", name)]
+
+
+def _summary(out: str, what: str) -> dict:
+    """The last ``SUMMARY {...}`` line of a script's output."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("SUMMARY ")]
+    check(bool(lines), f"{what}: no SUMMARY line")
+    return json.loads(lines[-1][len("SUMMARY "):])
+
+
+def _run(args: list, what: str, timeout: float) -> dict:
+    """Run a workflow script to its end -> its SUMMARY; a non-zero exit
+    fails the smoke."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:], proc.stderr[-4000:])
+    check(proc.returncode == 0, f"{what}: exit code {proc.returncode}")
+    summary = _summary(proc.stdout, what)
+    log(f"{what}: {time.perf_counter() - t0:.1f} s")
+    return summary
+
+
+def _started(args: list, what: str) -> subprocess.Popen:
+    log(f"{what}: started")
+    return subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _finished(proc: subprocess.Popen, what: str, timeout: float) -> dict:
+    out, _ = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        log(out[-4000:])
+    check(proc.returncode == 0, f"{what}: exit code {proc.returncode}")
+    return _summary(out, what)
+
+
+def _live_steps(directory: str) -> list:
+    return sorted(int(n[len("step_"):-len(".meta.json")])
+                  for n in os.listdir(directory)
+                  if n.startswith("step_") and n.endswith(".meta.json"))
+
+
+def workflows_phase(dev, smi: str):
+    """Phase 14: the workflow scripts through their CLIs, each in a
+    process of its own -> ({kernel: launches summed over the scripts},
+    numbers).  The decode soak (300 scenes of 1-8 people, 100 crowded of
+    up to 20: no count mismatch, every overflow fixed at RETRY_CAPS, and
+    overflows in the crowded run); the training schedule at full width
+    with a restore (the restored step is the last checkpoint's, K4 once a
+    step); the endurance run at full width (a ~40 s launch, a second
+    SIGKILLed after its first window, a third that resumes from the
+    newest checkpoint written before the kill, live checkpoints <=
+    keep); the val2017-profile rehearsal of 400 images through the eval
+    CLI (every image through the pipeline, the buckets
+    ``scale_pad_geometry`` gives); the eval breakdown on that set; the
+    crowded bench's two arms; hourglass's train -> eval chain and its
+    rescore.  The soaks and the chain run beside the rest (the soaks
+    are host-bound)."""
+    started = []
+
+    def start(args, what):
+        started.append(_started(args, what))
+        return started[-1]
+
+    try:
+        return _workflows(smi, start)
+    finally:
+        # a failed check leaves no script running
+        for proc in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _workflows(smi: str, start):
+    """Phase 14's body; `start` launches a script in the background."""
+    import signal
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(WF_DIR, ignore_errors=True)
+    os.makedirs(WF_DIR)
+    numbers = {"card": smi}
+    summaries = {}
+
+    # 14a. the decode soaks and hourglass's train -> eval chain (2 stacks,
+    # 256 px), beside everything below
+    soaks = {"soak": start(_script("torch_soak_decode.py")
+                           + ["--scenes", "300"], "soak"),
+             "soak_crowded": start(
+                 _script("torch_soak_decode.py")
+                 + ["--scenes", "100", "--people-max", "20"],
+                 "soak (crowded)")}
+    chain_dir = os.path.join(WF_DIR, "hourglass_chain")
+    chain = start(_script("torch_train_to_eval.py")
+                  + ["--model", "hourglass", "--size", "256", "--stages",
+                     "2", "--batch", "8", "--steps", "8",
+                     "--train-images", "64", "--val-images", "16",
+                     "--eval-images", "16", "--workers", "4", "--out",
+                     chain_dir], "hourglass chain")
+
+    # 14b. the training schedule at full width: 3 epochs of 8 steps over
+    # a pool of 4 batches of 72, the crash and restore at epoch 2
+    synth_dir = os.path.join(WF_DIR, "train_synth")
+    ts = _run(_script("torch_train_synth.py")
+              + ["--epochs", "3", "--steps-per-epoch", "8",
+                 "--restore-at-epoch", "2", "--pool-batches", "4",
+                 "--out", synth_dir], "train_synth", 600)
+    summaries["train_synth"] = ts
+    restored = ts["restored"]
+    check(restored is not None and restored["restored_step"]
+          == restored["last_checkpoint_step"],
+          f"train_synth: restored {restored}")
+    check(ts["launches"]["gt_maps"] == ts["train_steps"] + ts["val_steps"],
+          f"train_synth: K4 {ts['launches']['gt_maps']} launches for "
+          f"{ts['train_steps']} + {ts['val_steps']} steps")
+    numbers["train_synth"] = {"epochs": ts["epochs"], "restored": restored,
+                              "render_s": ts["render_s"]}
+    log(f"train_synth: restored at step {restored['restored_step']} "
+        f"(last checkpoint {restored['last_checkpoint_step']}), losses "
+        f"{[round(r['train_loss'], 5) for r in ts['epochs']]} [{smi}]")
+
+    # 14c. the endurance run at full width: a ~40 s launch; a second one
+    # killed after its first window; a third that must resume from the
+    # newest checkpoint the second wrote
+    end_dir = os.path.join(WF_DIR, "endurance")
+    end_args = _script("torch_endurance.py") + [
+        "--images", "144", "--ckpt-every", "5", "--log-every", "5",
+        "--keep", "3", "--out", end_dir]
+    first = _run(end_args + ["--hours", str(40 / 3600)], "endurance 1",
+                 300)
+    check(first["resumed_from"] is None, f"endurance 1: {first}")
+    killed = start(end_args + ["--hours", "1"], "endurance 2")
+    window = None
+    for line in killed.stdout:
+        if line.startswith('{"t"'):
+            window = json.loads(line)
+            break
+    killed.send_signal(signal.SIGKILL)
+    killed.communicate(timeout=60)
+    check(window is not None, "endurance 2: no window line before its end")
+    check(window["step"] > first["global_step"],
+          f"endurance 2 did not resume: {window}")
+    live = _live_steps(os.path.join(end_dir, "ckpt"))
+    check(len(live) <= 3, f"endurance: live checkpoints {live} > keep 3")
+    third = _run(end_args + ["--hours", str(10 / 3600)], "endurance 3", 300)
+    check(third["resumed_from"] == live[-1],
+          f"endurance 3 resumed from {third['resumed_from']}, newest "
+          f"checkpoint before the kill {live[-1]}")
+    for summ in (first, third):
+        check(len(summ["live_ckpts"]) <= 3,
+              f"endurance: live checkpoints {summ['live_ckpts']}")
+        check(summ["launches"]["gt_maps"] == summ["steps_this_run"],
+              f"endurance: K4 {summ['launches']['gt_maps']} launches for "
+              f"{summ['steps_this_run']} steps")
+    summaries["endurance_1"], summaries["endurance_3"] = first, third
+    numbers["endurance"] = {"first": first, "killed_after": window,
+                            "live_before_resume": live, "third": third}
+    log(f"endurance: {first['steps_this_run']} steps at p50 "
+        f"{first['step_s_p50']} s; killed at step {window['step']}; "
+        f"resumed from {third['resumed_from']} [{smi}]")
+
+    # 14d. the rehearsal: 400 images of val2017's profile through the eval
+    # CLI, the flagship with seeded weights
+    cocoval = os.path.join(WF_DIR, "cocoval")
+    rh = _run(_script("torch_cocoval_rehearsal.py")
+              + ["--n", "400", "--eval", "--batch", "16", "--out", cocoval],
+              "rehearsal", 600)
+    check(rh["images"] == 400, f"rehearsal: {rh['images']} of 400 images "
+                               f"through the pipeline")
+    check(rh["n_buckets"] == rh["expected_buckets"],
+          f"rehearsal: {rh['n_buckets']} buckets, scale_pad_geometry "
+          f"gives {rh['expected_buckets']}")
+    numbers["rehearsal"] = rh
+    log(f"rehearsal: 400 images, {rh['n_buckets']} buckets, "
+        f"{rh['img_per_s']} img/s [{smi}]")
+
+    # 14e. the eval breakdown on that set, the schedule's checkpoint
+    bd = _run(_script("torch_eval_breakdown.py")
+              + ["--image-dir", os.path.join(cocoval, "images"),
+                 "--ann", os.path.join(cocoval, "annotations.json"),
+                 "--weight", synth_dir, "--stages", "6", "--batch", "16",
+                 "--batches", "4"], "eval breakdown", 300)
+    check(bd["batches"] == 4, f"eval breakdown: {bd['batches']} batches")
+    summaries["breakdown"] = bd
+    numbers["eval_breakdown"] = bd
+    log(f"eval breakdown: {bd['ms_per_image']} ms an image [{smi}]")
+
+    # 14f. the crowded bench's two arms on two densities (plumbing: the
+    # weights are barely trained; the soak carries the retry)
+    cb = _run(_script("torch_crowded_eval_bench.py")
+              + ["--ckpt", synth_dir, "--stages", "6", "--size", "184",
+                 "--n", "32", "--batch", "16", "--sets", "light,heavy",
+                 "--trials", "1", "--out", os.path.join(WF_DIR, "crowded")],
+              "crowded bench", 300)
+    check(len(cb["rows"]) == 4 and all(r["images"] == 32
+                                       for r in cb["rows"]),
+          f"crowded bench: {cb['rows']}")
+    summaries["crowded"] = cb
+    numbers["crowded"] = cb["rows"]
+
+    # 14g. hourglass's chain, then the rescore of its checkpoint
+    ch = _finished(chain, "hourglass chain", 600)
+    check(ch["model"] == "hourglass" and ch["steps"] == 8,
+          f"hourglass chain: {ch}")
+    check(ch["launches"]["gt_maps"] >= ch["steps"],
+          f"hourglass chain: K4 {ch['launches']['gt_maps']} launches")
+    rs = _run(_script("torch_hg_rescore.py")
+              + ["--ckpt", chain_dir, "--stages", "2", "--size", "256"],
+              "hourglass rescore", 300)
+    summaries["hourglass_chain"], summaries["hourglass_rescore"] = ch, rs
+    numbers["hourglass"] = {"chain": ch, "rescore": rs}
+
+    for name, proc in soaks.items():
+        summ = _finished(proc, name, 900)
+        check(summ["count_mismatch"] == 0 and summ["overflow_unfixed"] == 0,
+              f"{name}: {summ}")
+        summaries[name] = summ
+        numbers[name] = summ
+        log(f"{name}: {summ['scenes']} scenes, {summ['people']} people, "
+            f"{summ['overflows']} overflows (fixed "
+            f"{summ['overflow_fixed']}), part diffs "
+            f"{[(d['scene'], d['min_gap']) for d in summ['part_diffs']]}, "
+            f"{summ['seconds']:.1f} s [{smi}]")
+    check(summaries["soak_crowded"]["overflows"] >= 1,
+          "soak (crowded): no overflow, the raised caps went unused")
+
+    launches = {k: sum(summ.get("launches", {}).get(k, 0)
+                       for summ in summaries.values()) for k in WF_KERNELS}
+    for k, n in launches.items():
+        check(n > 0, f"workflows: {k} never launched")
+    numbers["launches"] = {name: summ.get("launches")
+                           for name, summ in summaries.items()}
+    shutil.rmtree(WF_DIR)     # ~3 GB of sets and checkpoints
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14 (workflows): {numbers['phase_s']:.1f} s")
+    return launches, numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3404,6 +3661,12 @@ def main() -> int:
     # sharded serving on two replicas, the eval CLI's --data-parallel
     par_launches, par_numbers = parallel_phase(dev, smi)
 
+    # 14. the workflow scripts through their CLIs: the decode soaks, the
+    # training schedule with a restore, the endurance run with a kill,
+    # the val2017-profile rehearsal, the eval breakdown, the crowded
+    # bench, hourglass's chain and rescore
+    wf_launches, wf_numbers = workflows_phase(dev, smi)
+
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
         "connection_scores": ("rtpose_tpu_torch/csrc/connection_scores.cu",
                               "rtpose_tpu/ops/pallas_kernels.py:214",
@@ -3441,6 +3704,7 @@ def main() -> int:
                  http_launches=frontend_launches["http"][name],
                  video_launches=frontend_launches["video"][name],
                  parallel_launches=par_launches[name],
+                 workflow_launches=wf_launches[name],
                  **results[name], library_ms=None,
                  hourglass_factor4=hourglass[name],
                  **({"also_replaces": also} if also else {}))
@@ -3462,6 +3726,7 @@ def main() -> int:
         http_launches=frontend_launches["http"]["group_people"],
         video_launches=frontend_launches["video"]["group_people"],
         parallel_launches=par_launches["group_people"],
+        workflow_launches=wf_launches["group_people"],
         hourglass_factor4={k: hg_rows[f"group_people_K{k}"]
                            for k in (32, 64)},
         **results["group_people"], library_ms=None,
@@ -3471,6 +3736,7 @@ def main() -> int:
     print(json.dumps({"zoo": zoo_numbers}), flush=True)
     print(json.dumps({"frontends": frontend_numbers}), flush=True)
     print(json.dumps({"parallel": par_numbers}), flush=True)
+    print(json.dumps({"workflows": wf_numbers}), flush=True)
     print(json.dumps({"native_loader": native_numbers,
                       "rotated_hourglass": rotated_numbers,
                       "resize_modes": resize_numbers}), flush=True)

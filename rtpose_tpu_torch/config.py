@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 @dataclass
 class ModelConfig:
-    name: str = "vgg19"            # model family (see rtpose_tpu.models.get_model)
+    name: str = "vgg19"            # model family (see rtpose_tpu_torch.models.get_model)
     num_keypoints: int = 18
     num_limbs: int = 19
     downsample: int = 8            # output stride (reference MODEL.DOWNSAMPLE)

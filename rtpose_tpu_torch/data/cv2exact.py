@@ -2,7 +2,9 @@
 
 - :func:`resize_linear` is ``cv2.resize(im, None, fx=s, fy=s)``
   (INTER_LINEAR) of a uint8 (H, W, C) frame: the host resize of the JAX
-  package's ``crop_with_factor`` (``infer/preprocess.py``).
+  package's ``crop_with_factor`` (``infer/preprocess.py``);
+  :func:`resize_linear_to` is ``cv2.resize(im, (w, h))``, a scale of
+  its own on each axis (``letterbox``, the scene renderer's background).
 - :func:`warp_affine_cubic` is ``cv2.warpAffine(img, M, (w, h),
   flags=INTER_CUBIC, borderMode=BORDER_CONSTANT, borderValue=(v,) * C)``
   of a uint8 (H, W, C) image, and :func:`get_rotation_matrix_2d` is
@@ -13,15 +15,16 @@ step of cv2 5.0 written out, so they give the same bits on any host;
 ``tests/test_torch_cv2exact.py`` holds them against cv2, difference 0.
 
 The resize is cv2's fixed-point path: source coordinates
-``(d + 0.5) / s - 0.5`` in fp32, 11-bit coefficients, an integer
-horizontal pass, then the vertical pass as cv2's SIMD body rounds it,
+``(d + 0.5) / s - 0.5`` in fp32 (``s`` per axis), 11-bit
+coefficients, an integer horizontal pass, then the vertical pass as
+cv2's SIMD body rounds it,
 ``(((b0 * (S0 >> 4)) >> 16) + ((b1 * (S1 >> 4)) >> 16) + 2) >> 2``.
 Columns clamp their coordinate at the edges (coefficient 1 on the edge
 pixel); rows do not: a row above the first or below the last samples the
-edge row twice with the unclamped coefficients.  A scale of exactly 1 is
-a copy; a scale of exactly 1/2 is cv2's INTER_AREA fast path: 2x2 means,
-``(sum + 2) >> 2`` inside, and the round-half-even mean of the pixels
-that exist on a last odd row or column.
+edge row twice with the unclamped coefficients.  An unchanged size is a
+copy; a scale of exactly 1/2 on both axes is cv2's INTER_AREA fast path:
+2x2 means, ``(sum + 2) >> 2`` inside, and the round-half-even mean of the
+pixels that exist on a last odd row or column.
 
 The warp is cv2's fp32 path: the inverted matrix in double, cast to fp32;
 per pixel ``sx = m0 * x + (m1 * y + m2)`` in fp32; Keys weights
@@ -84,21 +87,51 @@ def _resize_half(im: np.ndarray, dh: int, dw: int) -> np.ndarray:
 def resize_linear(im: np.ndarray, scale: float) -> np.ndarray:
     """``cv2.resize(im, None, fx=scale, fy=scale)`` of a uint8 (H, W, C)
     frame, to the bit."""
-    if im.dtype != np.uint8 or im.ndim != 3:
-        raise ValueError(f"resize_linear takes a uint8 (H, W, C) frame, "
-                         f"got {im.dtype} {im.shape}")
+    _check_frame(im)
     h, w = im.shape[:2]
     # cv2's dsize rounds half to even (cvRound), like np.rint
     dh, dw = int(np.rint(h * scale)), int(np.rint(w * scale))
     if dh < 1 or dw < 1:
         raise ValueError(f"scale {scale} leaves no pixel of a {h}x{w} frame")
+    return _resize(im, dh, dw, 1.0 / scale, 1.0 / scale)
+
+
+def resize_linear_to(im: np.ndarray, width: int, height: int
+                     ) -> np.ndarray:
+    """``cv2.resize(im, (width, height))`` of a uint8 (H, W, C) or (H, W)
+    frame, to the bit: each axis at its own inverse scale, cv2's
+    ``1 / (width / W)`` and ``1 / (height / H)`` in double.  As cv2, a
+    one-channel frame comes back (height, width)."""
+    gray = im.ndim == 2 or (im.ndim == 3 and im.shape[2] == 1)
+    frame = im.reshape(im.shape[:2] + (1,)) if gray else im
+    _check_frame(frame)
+    h, w = frame.shape[:2]
+    if width < 1 or height < 1:
+        raise ValueError(f"no pixel in a {width}x{height} destination")
+    out = _resize(frame, int(height), int(width), 1.0 / (width / w),
+                  1.0 / (height / h))
+    return out[..., 0] if gray else out
+
+
+def _check_frame(im: np.ndarray) -> None:
+    if im.dtype != np.uint8 or im.ndim != 3:
+        raise ValueError(f"resize_linear takes a uint8 (H, W, C) frame, "
+                         f"got {im.dtype} {im.shape}")
+
+
+def _resize(im: np.ndarray, dh: int, dw: int, inv_x: float, inv_y: float
+            ) -> np.ndarray:
+    """cv2's INTER_LINEAR resize of `im` to (dh, dw) at the inverse scales
+    `inv_x`, `inv_y` (source pixels per destination pixel)."""
+    h, w = im.shape[:2]
     if (dh, dw) == (h, w):
         return im.copy()
-    inv = 1.0 / scale
-    if (abs(inv - round(inv)) < sys.float_info.epsilon and round(inv) == 2):
+    # cv2 takes its INTER_AREA fast path when both inverse scales are 2
+    if all(abs(inv - round(inv)) < sys.float_info.epsilon
+           and round(inv) == 2 for inv in (inv_x, inv_y)):
         return _resize_half(im, dh, dw)
-    x0, x1, a0, a1 = _linear_taps(dw, w, inv, clamp=True)
-    y0, y1, b0, b1 = _linear_taps(dh, h, inv, clamp=False)
+    x0, x1, a0, a1 = _linear_taps(dw, w, inv_x, clamp=True)
+    y0, y1, b0, b1 = _linear_taps(dh, h, inv_y, clamp=False)
     c = im.shape[2]
     # rows as flat (W * C) vectors: each output column's channels gather
     # together, and every step below runs in place

@@ -12,6 +12,7 @@ the decoded pixels of :func:`write_bgr`'s files equal to those of
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -23,10 +24,13 @@ _FORMATS = {".png": ("PNG", {}), ".bmp": ("BMP", {}),
             ".jpg": ("JPEG", JPEG_OPTIONS), ".jpeg": ("JPEG", JPEG_OPTIONS)}
 
 
-def write_bgr(path: str, img: np.ndarray) -> None:
+def write_bgr(path: str, img: np.ndarray,
+              quality: Optional[int] = None) -> None:
     """Write `img`, ``(H, W, 3)`` uint8 BGR or ``(H, W)`` uint8 gray, to
-    `path` in the format of its extension.  Raises ValueError for an
-    extension without a writer or another array layout."""
+    `path` in the format of its extension; `quality` is a JPEG's
+    (``cv2.IMWRITE_JPEG_QUALITY``, default cv2's 95) and is refused for
+    another format.  Raises ValueError for an extension without a writer
+    or another array layout."""
     from PIL import Image
 
     ext = os.path.splitext(path)[1].lower()
@@ -39,4 +43,8 @@ def write_bgr(path: str, img: np.ndarray) -> None:
                          f"images, got {img.dtype} {img.shape}")
     pixels = img if img.ndim == 2 else img[..., ::-1]
     fmt, options = _FORMATS[ext]
+    if quality is not None:
+        if fmt != "JPEG":
+            raise ValueError(f"{path}: a quality is a JPEG's, not {fmt}'s")
+        options = {**options, "quality": int(quality)}
     Image.fromarray(np.ascontiguousarray(pixels)).save(path, fmt, **options)

@@ -314,6 +314,7 @@ def run_eval_batched(image_dir: str, ann_file: str, pipeline: PosePipeline,
     stats["pipeline_s"] = round(pipeline_s, 2)
     stats["evaluator_s"] = round(time.perf_counter() - t_eval, 2)
     stats["n_buckets"] = len(bucket_rows)
+    stats["images"] = done          # through the pipeline, pads excluded
     # tail fragmentation signal: images in buckets smaller than one batch
     stats["images_in_sub_batch_buckets"] = sum(
         n for _, n, _ in bucket_rows if n < batch_size)

@@ -1,11 +1,15 @@
-"""Resize geometry, the host resize and on-device pixel normalization
-(port of rtpose_tpu/infer/preprocess.py:29-66, 152-171).
+"""Resize geometry, the host resize, the host and on-device pixel
+normalizations and their inverses (port of rtpose_tpu/infer/preprocess.py).
 
 :func:`factor_closest`, :func:`scale_pad_geometry`,
-:func:`crop_with_factor` and the ImageNet constants are copies of the JAX
-package's numpy helpers, so the port imports nothing of that package;
-``crop_with_factor`` resizes with ``data/cv2exact.py`` ``resize_linear``,
-which equals the original's ``cv2.resize`` to the bit.
+:func:`crop_with_factor`, :func:`letterbox`, :func:`pad_to_bucket`, the
+four host normalizations, :func:`preprocess`, the four inverses,
+:func:`inverse_preprocess` and the ImageNet constants are copies of the
+JAX package's numpy helpers, so the port imports nothing of that
+package; ``crop_with_factor`` and ``letterbox`` resize with
+``data/cv2exact.py`` ``resize_linear`` / ``resize_linear_to``, which
+equal the original's ``cv2.resize`` to the bit.  Images are BGR uint8
+(cv2 convention) on input, like the reference.
 """
 
 from __future__ import annotations
@@ -17,11 +21,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..data.cv2exact import resize_linear
+from ..data.cv2exact import resize_linear, resize_linear_to
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)   # RGB, as the training loader's
 IMAGENET_STD = (0.229, 0.224, 0.225)
 _SSD_MEAN = (104.0, 117.0, 123.0)
+_VGG_MEAN = np.array(IMAGENET_MEAN, dtype=np.float32)
+_VGG_STD = np.array(IMAGENET_STD, dtype=np.float32)
 
 
 def scale_pad_geometry(h: int, w: int, dest_size: int, factor: int = 8
@@ -55,6 +61,127 @@ def crop_with_factor(im: np.ndarray, dest_size: int, factor: int = 8,
     im_padded = np.zeros((new_h, new_w, c), dtype=im.dtype)
     im_padded[0:h, 0:w, :] = im
     return im_padded, im_scale, im.shape
+
+
+def letterbox(im: np.ndarray, target: int
+              ) -> Tuple[np.ndarray, float, Tuple[int, int]]:
+    """Aspect-preserving resize into a target square with gray padding
+    (the reference's unused `resize` helper, im_transform.py:5-24).
+
+    Returns (square image, scale, (dx, dy) top-left offset of content).
+    """
+    h, w = im.shape[:2]
+    scale = target / max(h, w)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    resized = resize_linear_to(im, nw, nh)
+    out = np.full((target, target) + im.shape[2:], 128, dtype=im.dtype)
+    dy = (target - nh) // 2
+    dx = (target - nw) // 2
+    out[dy:dy + nh, dx:dx + nw] = resized
+    return out, scale, (dx, dy)
+
+
+def pad_to_bucket(im: np.ndarray, bucket_multiple: int = 64
+                  ) -> Tuple[np.ndarray, Tuple[int, int]]:
+    """Zero-pad H/W up to the next multiple of `bucket_multiple`.
+
+    Coarser than the model stride so a run sees a small set of shapes
+    across an eval instead of one shape per aspect ratio.
+    """
+    h, w = im.shape[:2]
+    bh = factor_closest(h, bucket_multiple)
+    bw = factor_closest(w, bucket_multiple)
+    out = np.zeros((bh, bw) + im.shape[2:], dtype=im.dtype)
+    out[:h, :w] = im
+    return out, (h, w)
+
+
+# --- host pixel normalization modes (HWC float32 out) ---------------------
+
+def rtpose_preprocess(image: np.ndarray) -> np.ndarray:
+    """x/256 - 0.5, stays BGR (for caffe-converted weights).
+
+    Reference lib/datasets/preprocessing.py:16-21 (minus the CHW transpose).
+    """
+    return image.astype(np.float32) / 256.0 - 0.5
+
+
+def vgg_preprocess(image: np.ndarray) -> np.ndarray:
+    """BGR->RGB, /255, ImageNet mean/std (for weights trained in-repo).
+
+    Reference lib/datasets/preprocessing.py:32-43.
+    """
+    rgb = image[:, :, ::-1].astype(np.float32) / 255.0
+    return (rgb - _VGG_MEAN) / _VGG_STD
+
+
+def inception_preprocess(image: np.ndarray) -> np.ndarray:
+    """BGR->RGB, x/128 - 1. Reference preprocessing.py:46-52."""
+    return image[:, :, ::-1].astype(np.float32) / 128.0 - 1.0
+
+
+def ssd_preprocess(image: np.ndarray) -> np.ndarray:
+    """Mean-subtract (104,117,123) channel-flip dance.
+
+    Reference preprocessing.py:77-86: BGR->RGB, subtract (104,117,123),
+    then flip back to BGR order.
+    """
+    rgb = image[:, :, ::-1].astype(np.float32)
+    rgb -= np.array([104.0, 117.0, 123.0], dtype=np.float32)
+    return rgb[:, :, ::-1]
+
+
+_MODES = {
+    "rtpose": rtpose_preprocess,
+    "vgg": vgg_preprocess,
+    "inception": inception_preprocess,
+    "ssd": ssd_preprocess,
+}
+
+
+def preprocess(image: np.ndarray, mode: str) -> np.ndarray:
+    """Dispatch by mode name (reference preprocessing.py:89-98)."""
+    if mode not in _MODES:
+        return image
+    return _MODES[mode](image)
+
+
+def inverse_vgg_preprocess(image_hwc: np.ndarray) -> np.ndarray:
+    rgb = image_hwc * _VGG_STD + _VGG_MEAN
+    return (rgb[:, :, ::-1] * 255.0)
+
+
+def inverse_rtpose_preprocess(image_hwc: np.ndarray) -> np.ndarray:
+    return ((image_hwc + 0.5) * 256.0).astype(np.uint8)
+
+
+def inverse_inception_preprocess(image_hwc: np.ndarray) -> np.ndarray:
+    """(x + 1) * 128, RGB->BGR, uint8 (reference preprocessing.py:67-75)."""
+    img = (image_hwc.astype(np.float32) + 1.0) * 128.0
+    return img[:, :, ::-1].astype(np.uint8)
+
+
+def inverse_ssd_preprocess(image_hwc: np.ndarray) -> np.ndarray:
+    """Exact inverse of ssd_preprocess (the reference has no ssd inverse;
+    added to complete the mode table)."""
+    rgb = image_hwc[:, :, ::-1].astype(np.float32)
+    rgb = rgb + np.array([104.0, 117.0, 123.0], dtype=np.float32)
+    return rgb[:, :, ::-1]
+
+
+_INVERSES = {
+    "rtpose": inverse_rtpose_preprocess,
+    "vgg": inverse_vgg_preprocess,
+    "inception": inverse_inception_preprocess,
+    "ssd": inverse_ssd_preprocess,
+}
+
+
+def inverse_preprocess(image_hwc: np.ndarray, mode: str) -> np.ndarray:
+    """Dispatch the inverse of :func:`preprocess` by mode name."""
+    if mode not in _INVERSES:
+        raise ValueError(f"unknown normalization mode {mode}")
+    return _INVERSES[mode](image_hwc)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,10 +1,12 @@
 """Model registry of the port (port of rtpose_tpu/models/__init__.py):
 ``get_model(name)`` builds any of the seven families behind one contract,
-NHWC images in, :class:`ModelOutput` out."""
+NHWC images in, :class:`ModelOutput` out; ``register(name)`` adds a
+family of one's own, which ``get_model`` then builds (before a built-in
+family of that name, as in the JAX package)."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -13,6 +15,18 @@ from .common import ModelOutput  # noqa: F401
 FAMILIES = ("vgg19", "mobilenet", "hourglass", "shufflenet_v2",
             "openpose_v2", "atrous_resnet50", "atrous_cpm",
             "atrous_cpm_shared")
+
+_REGISTRY: Dict[str, Callable] = {}
+
+
+def register(name: str):
+    """Decorator: ``get_model(name, ...)`` calls the decorated function
+    with ``num_stages``, ``dtype``, ``generator`` and the caller's other
+    keywords."""
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
 
 
 def get_model(name: str = "vgg19", *, num_stages: int = 6,
@@ -28,12 +42,12 @@ def get_model(name: str = "vgg19", *, num_stages: int = 6,
     (single-stage by construction) and openpose_v2 (staged by
     ``num_paf_stages`` / ``num_heat_stages``) accept and ignore it.  An
     unknown name is a ``KeyError``."""
-    builder = _builder(name)
-    if builder is None:
+    build = _REGISTRY.get(name) or _builder(name)
+    if build is None:
         raise KeyError(f"unknown model family '{name}'; "
-                       f"known: {sorted(FAMILIES)}")
-    return builder(num_stages=num_stages, dtype=dtype, generator=generator,
-                   **kwargs)
+                       f"known: {sorted(set(FAMILIES) | set(_REGISTRY))}")
+    return build(num_stages=num_stages, dtype=dtype, generator=generator,
+                 **kwargs)
 
 
 def _builder(name: str) -> Optional[Callable]:

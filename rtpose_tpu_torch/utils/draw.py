@@ -3,8 +3,10 @@ lib/utils/common.py:227-251 draw_humans), without cv2.
 
 The JAX package draws with ``cv2.circle(img, c, 3, color, thickness=3,
 lineType=8)`` at parts and ``cv2.line(img, a, b, color, 3)`` along the
-render pairs.  :func:`cv_circle` and :func:`cv_line` give OpenCV's pixels
-for those two calls (8-connected, thickness above 1): a thick line is a
+render pairs, and its scene renderer (scripts/hw_train_synth.py) fills
+``cv2.circle(img, c, 5, color, -1)``.  :func:`cv_circle` and
+:func:`cv_line` give OpenCV's pixels for those calls (8-connected,
+thickness above 1, or a filled circle): a thick line is a
 filled convex quad, its outline traced by OpenCV's fixed-point line walk,
 plus a filled midpoint circle at each end; a thick circle is the polygon
 OpenCV's ``ellipse2Poly`` gives, drawn as such thick lines.  Every step
@@ -232,13 +234,16 @@ def _thick_line(img, p0, p1, color, thickness: int, flags: int) -> None:
                          (p[1] + half) >> XY_SHIFT, radius, color)
 
 
-def _check(img: np.ndarray, thickness: int) -> None:
+def _check(img: np.ndarray, thickness: int, filled_ok: bool = False
+           ) -> None:
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"draws on (H, W, 3) uint8 images, got "
                          f"{img.dtype} {img.shape}")
-    if thickness < 2:
-        raise ValueError("only thick (thickness > 1) lines and circles, "
-                         "the ones the demos draw, are implemented")
+    if thickness < 2 and not (filled_ok and thickness < 0):
+        raise ValueError("only thick (thickness > 1) lines and circles "
+                         "and filled (thickness < 0) circles, the ones the "
+                         "demos and the scene renderer draw, are "
+                         "implemented")
 
 
 def cv_line(img: np.ndarray, pt1, pt2, color: Color,
@@ -270,8 +275,14 @@ def cv_circle(img: np.ndarray, center, radius: int, color: Color,
     """``cv2.circle(img, center, radius, color, thickness, lineType=8)``
     with thickness > 1, in place: OpenCV's ``EllipseEx`` over the
     polygon of ``ellipse2Poly`` (a vertex every 90, 30, 18 or 5 degrees
-    by radius), drawn as an open polyline of thick lines."""
-    _check(img, thickness)
+    by radius), drawn as an open polyline of thick lines.  A negative
+    thickness (``cv2.FILLED``) is OpenCV's ``Circle`` with ``fill``: the
+    midpoint circle that also caps a thick line, a span a row."""
+    _check(img, thickness, filled_ok=True)
+    if thickness < 0:
+        _fill_circle(img, int(center[0]), int(center[1]), abs(int(radius)),
+                     np.asarray(color, np.uint8))
+        return
     cx, cy = int(center[0]) << XY_SHIFT, int(center[1]) << XY_SHIFT
     axis = abs(int(radius)) << XY_SHIFT
     step = (axis + (XY_ONE >> 1)) >> XY_SHIFT

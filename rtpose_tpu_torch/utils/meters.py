@@ -1,6 +1,6 @@
-"""Metrics: running averages and JSONL logging (``AverageMeter`` and
-``MetricLogger`` copied from rtpose_tpu/utils/meters.py, which the port
-may not import).
+"""Metrics: running averages, step timing and JSONL logging
+(``AverageMeter``, ``StepTimer`` and ``MetricLogger`` copied from
+rtpose_tpu/utils/meters.py, which the port may not import).
 
 The reference's observability is stdout AverageMeter prints
 (train/train_VGG19.py:222-229,280-295) and tensorboardX scalars in the alt
@@ -33,6 +33,26 @@ class AverageMeter:
     @property
     def avg(self) -> float:
         return self.sum / max(self.count, 1)
+
+
+class StepTimer:
+    """Data-time / step-time split, like the reference's batch_time /
+    data_time meters."""
+
+    def __init__(self):
+        self.data = AverageMeter()
+        self.step = AverageMeter()
+        self._tic = time.time()
+
+    def data_loaded(self):
+        now = time.time()
+        self.data.update(now - self._tic)
+        self._tic = now
+
+    def step_done(self):
+        now = time.time()
+        self.step.update(now - self._tic)
+        self._tic = now
 
 
 class MetricLogger:

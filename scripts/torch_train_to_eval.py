@@ -5,23 +5,33 @@ Renders learnable skeleton scenes (grey limb strokes and part-coloured
 disks on a smooth textured background, drawn with Pillow's ImageDraw, so
 the scenes are not pixel-equal to the JAX script's cv2 ones), writes the
 training and val sets as JPEGs with COCO ``person_keypoints`` JSON and a
-held-out set as PNGs, trains VGG19 from them through ``CocoKeypoints``,
-the worker-process ``Loader`` and ``Trainer.fit`` (the reference's
-augmentation without the flip: a flipped synthetic scene swaps the part
-colours' sides, which no model can learn), then scores the trained
-checkpoint directory through the eval CLI's ``main()``.  Training
-normalises RGB by the ImageNet mean and std, so the eval serves with
-``--preprocess vgg``; the script checks on one held-out frame that the
-two give the same tensor.
+held-out set as PNGs, trains a family (``--model``, VGG19 by default)
+from them through ``CocoKeypoints``, the worker-process ``Loader`` and
+``Trainer.fit`` (the reference's augmentation without the flip: a
+flipped synthetic scene swaps the part colours' sides, which no model
+can learn), then serves the best checkpoint through ``load_pipeline``
+(``--thresh-heatmap``) and scores it with ``run_eval_batched``, ranked
+by person score, and once more from the same detections at the
+reference's fixed score.  Training normalises RGB by the ImageNet mean
+and std, so the eval serves with preprocess mode 'vgg'; the script
+checks on one held-out frame that the two give the same tensor.
+
+Each family trains with the JAX script's recipe: hourglass with the
+reference's train_SH one (stride 4, sigma 4.416, limb width 1.289,
+crowd-masked loss; ``--size`` divisible by 64), the others at the
+stride-8 defaults (``--size`` divisible by 8).
 
     python3 scripts/torch_train_to_eval.py --size 184 --stages 2 \\
         --steps 6000
+    python3 scripts/torch_train_to_eval.py --model hourglass --size 256 \\
+        --stages 8 --steps 1200
     python3 scripts/torch_train_to_eval.py --device cpu --size 64 \\
         --stages 1 --steps 4 --batch 4 --train-images 16 --eval-images 4
 
 Prints one ``SUMMARY`` JSON line (AP, steps, wall seconds, the loader's
 data-wait share) and writes it to ``<out>/summary.json``; ``--out``
-defaults to the git-ignored ``rtpose_tpu_torch/build/torch_train_eval``.
+defaults to the git-ignored ``rtpose_tpu_torch/build/torch_train_eval``
+(checkpoints under ``ckpt/``, the held-out set under ``heldout/``).
 """
 
 import argparse
@@ -119,10 +129,49 @@ def same_input(png: str, device: str) -> float:
     return float(np.abs(train - serve).max())
 
 
-def main():
+def apply_recipe(cfg, model: str, size: int) -> None:
+    """The family's training recipe into `cfg`, or SystemExit for a size
+    it cannot take (scripts/hw_train_to_eval.py:134-182)."""
+    from rtpose_tpu_torch.models import FAMILIES
+
+    cfg.model.name = model
+    if model == "hourglass":
+        # the reference's second trainer recipe (train_SH.py:76-77,267):
+        # output stride 4, sigma 4.416, limb width 1.289, crowd-masked loss
+        if size % 64:
+            raise SystemExit(
+                f"--model hourglass needs --size divisible by 64 "
+                f"(stride-4 stem x depth-4 exact pool/upsample halvings); "
+                f"got {size} — use e.g. 256 (train_SH.py's size)")
+        cfg.model.downsample = 4
+        cfg.dataset.sigma = 4.416
+        cfg.dataset.limb_width = 1.289
+        cfg.train.masked_loss = True
+    elif model in FAMILIES:
+        # shufflenet_v2 (train_ShuffleNetV2.py: stride 8, sigma 7, plain
+        # MSE), the atrous families, mobilenet and openpose_v2: the
+        # stride-8 defaults of Config; single-stage families ignore
+        # --stages
+        if size % 8:
+            raise SystemExit(
+                f"--model {model} needs --size divisible by 8 "
+                f"(stride-8 trunk); got {size}")
+    else:
+        raise SystemExit(f"--model {model}: unknown model family; known: "
+                         f"{', '.join(FAMILIES)}")
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--model", default="vgg19",
+                    help="vgg19 | hourglass | shufflenet_v2 | mobilenet | "
+                         "openpose_v2 | atrous_resnet50 | atrous_cpm | "
+                         "atrous_cpm_shared (hourglass trains with the "
+                         "train_SH recipe: stride 4, sigma 4.416, limb "
+                         "width 1.289, masked loss; the others with the "
+                         "stride-8 defaults)")
     ap.add_argument("--batch", type=int, default=48)
     ap.add_argument("--size", type=int, default=184)
     ap.add_argument("--stages", type=int, default=2)
@@ -137,6 +186,7 @@ def main():
     ap.add_argument("--lr-drop-at", type=float, default=0.5,
                     help="fraction of the epochs after which the lr is cut "
                          "10x (the JAX script's two-phase schedule)")
+    ap.add_argument("--thresh-heatmap", type=float, default=0.1)
     ap.add_argument("--workers", type=int, default=None,
                     help="loader worker processes (default: the cores)")
     ap.add_argument("--device", default="cuda")
@@ -144,7 +194,7 @@ def main():
         ROOT, "rtpose_tpu_torch", "build", "torch_train_eval"),
                     help="work directory: the written sets, checkpoints, "
                          "results and summary.json")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
 
@@ -152,9 +202,15 @@ def main():
 
     from rtpose_tpu_torch.config import Config
     from rtpose_tpu_torch.data import transforms as T
+    from rtpose_tpu_torch.data.coco_json import CocoJson
     from rtpose_tpu_torch.data.dataset import CocoKeypoints, Loader
-    from rtpose_tpu_torch.evalx.__main__ import main as evalx_main
+    from rtpose_tpu_torch.evalx.harness import eval_results, run_eval_batched
+    from rtpose_tpu_torch.infer.pipeline import load_pipeline
+    from rtpose_tpu_torch.ops import kernels
     from rtpose_tpu_torch.train.trainer import Trainer
+
+    cfg = Config()
+    apply_recipe(cfg, args.model, args.size)
 
     workers = (args.workers if args.workers is not None
                else len(os.sched_getaffinity(0)))
@@ -178,7 +234,6 @@ def main():
         raise SystemExit(f"training and serving normalise a frame "
                          f"differently: max diff {diff}")
 
-    cfg = Config()
     cfg.model.num_stages = args.stages
     cfg.model.dtype = "bfloat16"
     cfg.model.init_scheme = "scratch"      # no pretrained trunk
@@ -192,13 +247,15 @@ def main():
     cfg.train.keep_checkpoints = 1
     cfg.train.checkpoint_dir = os.path.join(args.out, "ckpt")
 
+    grid = dict(stride=cfg.model.downsample, sigma=cfg.dataset.sigma)
     train_ds = CocoKeypoints(
         train_dir, train_ann, input_size=args.size,
-        preprocess=T.train_pipeline(args.size, SCALE_RANGE, hflip_prob=0.0))
+        preprocess=T.train_pipeline(args.size, SCALE_RANGE, hflip_prob=0.0),
+        **grid)
     val_ds = CocoKeypoints(
         val_dir, val_ann, input_size=args.size,
         preprocess=T.Compose([T.RescaleRelative(1.0), T.Crop(args.size),
-                              T.CenterPad(args.size)]))
+                              T.CenterPad(args.size)]), **grid)
     pin = torch.device(args.device).type == "cuda"
     train_loader = Loader(train_ds, args.batch, num_workers=workers,
                           seed=0, pin_memory=pin)
@@ -212,6 +269,7 @@ def main():
     drop = max(1, round(epochs * args.lr_drop_at))
 
     trainer = Trainer(cfg, device=args.device)
+    kernels.reset_launch_counts()
     history = []
     t_train = time.time()
     for phase_epochs, lr in ((drop, args.lr), (epochs - drop, args.lr * 0.1)):
@@ -227,20 +285,29 @@ def main():
           f"in {train_s:.1f} s; data-wait share {wait_share:.3f}",
           flush=True)
 
-    stats = {}
-    for mode in ("person", "parity"):
-        sys.argv = ["evalx", "--image-dir", eval_dir, "--ann", eval_ann,
-                    "--weight", cfg.train.checkpoint_dir, "--preprocess",
-                    "vgg", "--input-size", str(args.size), "--stages",
-                    str(args.stages), "--batch", "16", "--score-mode", mode,
-                    "--device", args.device, "--results",
-                    os.path.join(args.out, f"results_{mode}.json")]
-        with contextlib.redirect_stdout(io.StringIO()):
-            stats[mode] = evalx_main()
+    # the best checkpoint served and scored, then the same detections at
+    # the reference's fixed score 1.0 (no second forward)
+    pipe = load_pipeline(cfg.train.checkpoint_dir, device=args.device,
+                         model_name=args.model, num_stages=args.stages,
+                         input_size=args.size, preprocess_mode="vgg",
+                         flip=True, thresh_heatmap=args.thresh_heatmap,
+                         downsample=cfg.model.downsample,
+                         pad_factor=64 if args.model == "hourglass" else 0)
+    results_path = os.path.join(args.out, "results_person.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = run_eval_batched(eval_dir, eval_ann, pipe, batch_size=16,
+                                 score_mode="person",
+                                 results_path=results_path)
+    with open(results_path) as f:
+        results = json.load(f)
+    coco = CocoJson(eval_ann)
+    parity = eval_results([{**r, "score": 1.0} for r in results], coco,
+                          coco.img_ids(coco.cat_ids("person")))
     with open(os.path.join(cfg.train.checkpoint_dir, "best.json")) as f:
         best = json.load(f)
     summary = {
-        "steps": trainer.step, "epochs": epochs, "batch": args.batch,
+        "model": args.model, "steps": trainer.step, "epochs": epochs,
+        "batch": args.batch,
         "size": args.size, "stages": args.stages,
         "train_images": args.train_images, "eval_images": args.eval_images,
         "loader_workers": workers, "data_wait_share": round(wait_share, 4),
@@ -248,14 +315,16 @@ def main():
         "write_s": round(write_s, 1), "train_s": round(train_s, 1),
         "wall_s": round(time.time() - t_start, 1),
         "normalisation_max_diff": diff,
-        "AP_parity_score": round(float(stats["parity"]["AP"]), 4),
-        **{k: round(float(v), 4) for k, v in stats["person"].items()
+        "AP_parity_score": round(float(parity["AP"]), 4),
+        **{k: round(float(v), 4) for k, v in stats.items()
            if isinstance(v, (int, float))}}
     if torch.cuda.is_available() and pin:
         summary["device"] = torch.cuda.get_device_name(0)
+        summary["launches"] = kernels.launch_counts()
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print("SUMMARY", json.dumps(summary), flush=True)
+    return summary
 
 
 if __name__ == "__main__":

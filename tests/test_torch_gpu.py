@@ -967,3 +967,52 @@ def test_sharded_pipeline_launches_once_a_shard(cuda):
                                         "bicubic_refine", "group_people"))
     want = pipe.run_batch(frames)
     assert [len(p) for p in got[0]] == [len(p) for p in want[0]]
+
+
+def _workflow_script(name):
+    """A workflow script of scripts/ as a module."""
+    import importlib
+    import os
+    import sys
+    scripts = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
+
+
+@pytest.mark.gpu
+def test_soak_on_card_matches_the_host_oracle(cuda, capsys):
+    """64 scenes of 1-8 people decoded on the card (K1, K3, G) against
+    the host oracle: no count mismatch, no overflow left unfixed."""
+    soak = _workflow_script("torch_soak_decode")
+    summary = soak.main(["--scenes", "64"])
+    assert summary["count_mismatch"] == 0
+    assert summary["overflow_unfixed"] == 0
+    for k in ("connection_scores", "bicubic_refine", "group_people"):
+        assert summary["launches"][k] >= 2, k
+
+
+@pytest.mark.gpu
+def test_train_synth_restore_on_card(cuda, tmp_path):
+    """The schedule restored at epoch 2 takes up the last checkpoint's
+    step, lr and trajectory (bf16 on the card: losses within 1e-2 of an
+    uninterrupted run's), with K4 once a step."""
+    synth = _workflow_script("torch_train_synth")
+
+    def run(out, restore_at):
+        return synth.main(["--size", "64", "--stages", "1", "--batch", "8",
+                           "--steps-per-epoch", "4", "--epochs", "3",
+                           "--pool-batches", "2", "--restore-at-epoch",
+                           str(restore_at), "--out", str(out)])
+
+    restored = run(tmp_path / "restored", 2)
+    straight = run(tmp_path / "straight", 99)
+    marker = restored["restored"]
+    assert marker["restored_step"] == marker["last_checkpoint_step"] == 8
+    assert restored["launches"]["gt_maps"] == 3 * 4 + 3 * 2
+    for a, b in zip(restored["epochs"], straight["epochs"]):
+        assert a["step"] == b["step"] and a["lr"] == b["lr"]
+        for k in ("train_loss", "val_loss"):
+            assert math.isfinite(a[k])
+            assert abs(a[k] - b[k]) <= 1e-2 * abs(b[k]), (k, a, b)

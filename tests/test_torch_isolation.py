@@ -3,7 +3,9 @@ of the JAX package, serves, takes a train step, builds and runs every
 model family, trains a BatchNorm family, draws a loader batch in a worker
 process and a native loader batch, rotates a sample, answers the
 training CLI's --help, runs the picture and video
-demos and answers an HTTP request without them, and its
+demos and answers an HTTP request without them, imports the workflow
+scripts (scripts/torch_*.py), renders a scene and soaks the decode without
+them, and its
 copies of the JAX package's tables and numpy helpers (the skeleton,
 ``WIDTH_CONFIGS``, the caffe layer order and prototxt) are equal to the
 originals."""
@@ -153,6 +155,17 @@ sync_hosts()
 parallel = [mesh.num_data, mesh.num_model, par_logs["loss"],
             host_shard(list(range(5)))]
 dist.destroy_process_group()
+sys.path.insert(0, "scripts")
+scripts = {}
+for name in ("torch_soak_decode", "torch_train_synth",
+             "torch_cocoval_rehearsal", "torch_crowded_eval_bench",
+             "torch_eval_breakdown", "torch_hg_rescore", "torch_endurance",
+             "torch_train_to_eval"):
+    scripts[name] = importlib.import_module(name)
+scene, scene_kps = scripts["torch_train_synth"].render_scene(
+    np.random.RandomState(0), 64, 2, height=50, width=70)
+soak = scripts["torch_soak_decode"].main(["--scenes", "3", "--device",
+                                          "cpu"])
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "flax", "cv2", "rtpose_tpu")
                 and sys.modules[k] is not None)
@@ -165,7 +178,8 @@ print(json.dumps({"modules": mods, "people": len(people),
                   "native": {k: [str(v.dtype), list(v.shape)]
                              for k, v in native.items()},
                   "rotated": list(np.asarray(rotated.image).shape),
-                  "parallel": parallel}))
+                  "parallel": parallel, "scripts": sorted(scripts),
+                  "scene": list(scene.shape), "soak": soak["count_mismatch"]}))
 """
 
 
@@ -224,6 +238,9 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
     n_data, n_model, loss, shard = res["parallel"]
     assert (n_data, n_model, shard) == (1, 1, [0, 1, 2, 3, 4])
     assert abs(loss - res["bn_train_loss"]) <= 1e-4 * res["bn_train_loss"]
+    # the workflow scripts import, render and soak without them too
+    assert len(res["scripts"]) == 8
+    assert res["scene"] == [50, 70, 3] and res["soak"] == 0
 
 
 @pytest.mark.parametrize("n,pc", [(23, 4), (3, 4), (0, 2), (9, 3)])
