@@ -96,6 +96,15 @@ entry points a user calls:
   the eval breakdown, the crowded bench's two arms, and hourglass's
   train -> eval chain with its rescore; each kernel row carries
   ``workflow_launches``, the launches the scripts report;
+- the webcam demo (phase 15): ``run_webcam`` on the flagship as its CLI
+  builds it, over ``demo/camera.py``'s V4L2 read path on scripted devices
+  (60 rendered 480x640 frames in YUYV, then 60 in Motion-JPEG) into the
+  browser view while a client reads the stream and sends quit (frames/s,
+  p50/p99 ms a frame, K1, K3 and G once a frame); a real ``/dev/video*``
+  where there is one, else ``open_camera``'s error naming it; the drawn
+  frames of 8 oracle-map frames on the card equal to the CPU's; the YUYV
+  conversion and the FPS text against the machine's cv2; each kernel row
+  carries ``webcam_launches``;
 
 and checks that each path launched its kernels.  Also holds one fp32
 train step on the card against the CPU.  Prints timings beside the card's
@@ -2798,6 +2807,320 @@ def _workflows(smi: str, start):
     return launches, numbers
 
 
+# phase 15: the webcam demo over scripted V4L2 devices
+WEBCAM_FRAMES = 60     # a format: 60 YUYV frames, then 60 Motion-JPEG ones
+WEBCAM_ORACLE_FRAMES = 8
+WEBCAM_TEXTS = ("0.0 FPS", "7.1 FPS", "29.9 FPS", "444.4 FPS",
+                "12345.6 FPS", "1000000000.0 FPS")
+
+
+def webcam_phase(dev, smi: str):
+    """Phase 15: the webcam demo (``demo/web_demo.py``) on the flagship as
+    its CLI builds it (VGG19, 6 stages, 368 px, no flip, bf16, seeded
+    weights):
+
+    - ``run_webcam`` over ``demo/camera.py``'s read path on scripted V4L2
+      devices (``demo/scripted_camera.py``): 60 rendered 480x640 frames
+      (people by scripts/torch_train_synth.py's ``render_scene``) from a
+      camera that offers YUYV, then 60 from one that offers only
+      Motion-JPEG, into the browser view (``demo/frame_view.py``) while a
+      client thread reads ``/stream`` and sends ``/quit`` once the cameras
+      are spent: frames, frames/s, p50/p99 ms a frame, the parts the
+      client received, and K1, K3 and G once a frame (K2 on a retry);
+    - a real ``/dev/video*`` where the machine has one (60 frames), else
+      ``open_camera(0)``'s error naming ``/dev/video0``;
+    - 8 frames over oracle maps, the drawn frames on the card equal to the
+      CPU's bit for bit (a scripted clock, so the FPS text agrees too);
+    - ``yuyv_to_bgr`` and ``put_text`` against this machine's cv2.
+
+    -> ({kernel: launches in the timed loop}, numbers)."""
+    import argparse
+    import contextlib
+    import glob
+    import http.client
+    import io
+    import threading
+
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from torch_train_synth import render_scene
+    from rtpose_tpu_torch.data.imwrite import encode_bgr
+    from rtpose_tpu_torch.demo import camera, picture_demo, web_demo
+    from rtpose_tpu_torch.demo.frame_view import FrameView
+    from rtpose_tpu_torch.demo.scripted_camera import (ScriptedDevice,
+                                                       ScriptedV4L2)
+    from rtpose_tpu_torch.infer.pipeline import PosePipeline
+    from rtpose_tpu_torch.ops import kernels
+    from rtpose_tpu_torch.utils.draw import put_text
+    from rtpose_tpu_torch.utils.synth_coco import (OracleMaps, oracle_maps,
+                                                   spread_people)
+
+    t_phase = time.perf_counter()
+    numbers = {"device": smi}
+
+    class Cameras:
+        """The scripted cameras one after the other, as one capture; the
+        seconds of each read (the copy out of the device's buffer and the
+        conversion to BGR)."""
+
+        def __init__(self, caps):
+            self.caps, self.seconds = list(caps), []
+
+        def read(self):
+            t = time.perf_counter()
+            while self.caps:
+                ok, frame = self.caps[0].read()
+                if ok:
+                    self.seconds.append(time.perf_counter() - t)
+                    return ok, frame
+                self.caps.pop(0).release()
+            return False, None
+
+        def release(self):
+            for cap in self.caps:
+                cap.release()
+
+    class Timed:
+        """`obj` with the seconds of each call of its method `name`."""
+
+        def __init__(self, obj, name):
+            self.obj, self.seconds = obj, []
+            setattr(self, name, self._timed(getattr(obj, name)))
+
+        def _timed(self, fn):
+            def call(*args):
+                t = time.perf_counter()
+                out = fn(*args)
+                self.seconds.append(time.perf_counter() - t)
+                return out
+            return call
+
+        def close(self):
+            self.obj.close()
+
+    class Recording:
+        """A view that keeps each frame and asks to quit after `limit`."""
+
+        def __init__(self, limit=None):
+            self.shown, self.limit, self.closed = [], limit, False
+
+        def show(self, frame):
+            self.shown.append(frame.copy())
+            return self.limit is not None and len(self.shown) >= self.limit
+
+        def close(self):
+            self.closed = True
+
+    def scripted_clock():
+        ticks = iter(100.0 + 0.0371 * np.arange(1, 1000) ** 1.1)
+        return lambda: float(next(ticks))
+
+    parser = argparse.ArgumentParser()
+    picture_demo.add_common_args(parser)
+    with contextlib.redirect_stdout(io.StringIO()):
+        pipe = web_demo.build_pipeline(parser.parse_args(
+            ["--device", str(dev)]))
+    check(pipe.input_size == 368 and not pipe.flip,
+          "webcam: the flagship as the CLI builds it")
+    frames = [render_scene(np.random.RandomState(1500 + i), 368, 3,
+                           height=480, width=640)[0]
+              for i in range(2 * WEBCAM_FRAMES)]
+    devices = {0: ScriptedDevice(frames[:WEBCAM_FRAMES], offers=("YUYV",)),
+               1: ScriptedDevice(frames[WEBCAM_FRAMES:], offers=("MJPG",))}
+    for f in frames[:4]:               # cuDNN's first call at this shape
+        pipe.run(f)
+    syscalls_before = camera.SYSCALLS
+    camera.SYSCALLS = ScriptedV4L2(devices)
+    try:
+        caps = [camera.open_camera(i) for i in (0, 1)]
+        check([c.fourcc for c in caps] == ["YUYV", "MJPG"]
+              and all((c.width, c.height) == (640, 480) for c in caps),
+              f"webcam: scripted cameras opened as "
+              f"{[(c.fourcc, c.width, c.height) for c in caps]}")
+        view = FrameView("127.0.0.1", 0)
+        port = view.server.server_address[1]
+        client = {"parts": 0, "quit": None, "error": None}
+
+        def read_stream():
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=60)
+                conn.request("GET", "/stream")
+                resp = conn.getresponse()
+                while True:
+                    if resp.readline() != b"--frame\r\n":
+                        break
+                    size = 0
+                    while True:
+                        line = resp.readline().strip()
+                        if not line:
+                            break
+                        if line.lower().startswith(b"content-length:"):
+                            size = int(line.split(b":")[1])
+                    if len(resp.read(size + 2)) != size + 2:
+                        break
+                    client["parts"] += 1
+                    if (client["quit"] is None and devices[1].served
+                            == WEBCAM_FRAMES):
+                        q = http.client.HTTPConnection("127.0.0.1", port,
+                                                       timeout=10)
+                        q.request("GET", "/quit")
+                        client["quit"] = q.getresponse().status
+                        q.close()
+                conn.close()
+            except OSError as e:       # the view closed under a request
+                client["error"] = repr(e)
+
+        reader = threading.Thread(target=read_stream, daemon=True)
+        reader.start()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        cams, timed_pipe = Cameras(caps), Timed(pipe, "run")
+        timed_view = Timed(view, "show")
+        n, times = web_demo.run_webcam(timed_pipe, cams, timed_view)
+        loop_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        reader.join(timeout=30)
+        check(not reader.is_alive(), "webcam: the stream client still reads")
+    finally:
+        camera.SYSCALLS = syscalls_before
+    check(n == 2 * WEBCAM_FRAMES and not any(d.open or d.streaming
+                                             for d in devices.values()),
+          f"webcam: {n} frames shown of {2 * WEBCAM_FRAMES}, devices left "
+          f"open {[d.open for d in devices.values()]}")
+    check(client["parts"] > 0, f"webcam: the stream client got no part "
+                               f"({client})")
+    encode_s = []
+    for _ in range(20):
+        t = time.perf_counter()
+        encode_bgr(frames[-1], ".jpg")
+        encode_s.append(time.perf_counter() - t)
+    served = counts["connection_scores"]
+    check(all(counts[k] == served >= n for k in SERVING_KERNELS)
+          and counts["gt_maps"] == 0,
+          f"webcam: K1, K3 and G not once a frame (+1 a retry): {counts}")
+    numbers["loop"] = {
+        "frames": n, "yuyv_frames": WEBCAM_FRAMES,
+        "mjpeg_frames": WEBCAM_FRAMES, "seconds": loop_s,
+        "frames_per_s": n / sum(times),
+        "p50_ms": percentile_ms(times, 50), "p99_ms": percentile_ms(times, 99),
+        "stream_parts_received": client["parts"],
+        "quit_status": client["quit"], "client_error": client["error"],
+        "ended_on": "quit" if view.quit_requested else "end of frames",
+        "retry_launches": served - n,
+        # p50 ms of each step of a frame: the capture's read and
+        # conversion, PosePipeline.run (host resize, upload, forward,
+        # decode, one readback), the view's show (a copy); the rest is
+        # draw_people and put_text
+        "p50_ms_read": percentile_ms(cams.seconds, 50),
+        "p50_ms_yuyv_read": percentile_ms(cams.seconds[:WEBCAM_FRAMES], 50),
+        "p50_ms_mjpeg_read": percentile_ms(cams.seconds[WEBCAM_FRAMES:], 50),
+        "p50_ms_run": percentile_ms(timed_pipe.seconds, 50),
+        "p99_ms_run": percentile_ms(timed_pipe.seconds, 99),
+        "p50_ms_show": percentile_ms(timed_view.seconds, 50),
+        # the view's JPEG encode of a frame (in the stream's thread)
+        "p50_ms_encode": percentile_ms(encode_s, 50)}
+
+    # a real camera, where the machine has one
+    videos = sorted(glob.glob("/dev/video*"))
+    numbers["dev_video"] = videos
+    if videos:
+        index = int(videos[0][len("/dev/video"):])
+        view = Recording(WEBCAM_FRAMES)
+        n_real, real_times = web_demo.run_webcam(
+            pipe, camera.open_camera(index), view)
+        check(n_real == WEBCAM_FRAMES, f"webcam: {videos[0]} gave {n_real} "
+                                       f"frames")
+        numbers["real_camera"] = {"device": videos[0], "frames": n_real,
+                                  "p50_ms": percentile_ms(real_times, 50)}
+    else:
+        try:
+            camera.open_camera(0).release()
+        except RuntimeError as e:
+            check("/dev/video0" in str(e), f"webcam: open_camera(0) raised "
+                                           f"{e!r}")
+            numbers["no_camera_error"] = str(e)
+        else:
+            check(False, "webcam: open_camera(0) opened without /dev/video0")
+    del pipe
+
+    # card == CPU on oracle maps: the drawn frames bit for bit
+    rng = np.random.RandomState(15)
+    maps = oracle_maps({(480, 640): spread_people(rng, 2, 480, 640)}, 368)
+    drawn = {}
+    for d in (dev, "cpu"):
+        camera.SYSCALLS = ScriptedV4L2({0: ScriptedDevice(
+            frames[:WEBCAM_ORACLE_FRAMES], offers=("YUYV",))})
+        try:
+            view = Recording()
+            web_demo.run_webcam(
+                PosePipeline(OracleMaps(maps), device=d, input_size=368,
+                             flip=False),
+                camera.open_camera(0), view, clock=scripted_clock())
+        finally:
+            camera.SYSCALLS = syscalls_before
+        drawn[str(d)] = view.shown
+    card, cpu = drawn[str(dev)], drawn["cpu"]
+    differ = [i for i, (a, b) in enumerate(zip(card, cpu))
+              if not np.array_equal(a, b)]
+    check(len(card) == len(cpu) == WEBCAM_ORACLE_FRAMES and not differ,
+          f"webcam: card frames differ from the CPU's at {differ}")
+    check(all(not np.array_equal(f, g) for f, g in
+              zip(card, frames[:WEBCAM_ORACLE_FRAMES])),
+          "webcam: a frame came back undrawn")
+    numbers["card_vs_cpu"] = {"frames": len(card), "differing_frames": 0}
+
+    # this machine's cv2, where it has one
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        rng = np.random.RandomState(7)
+        yuyv_diff = 0
+        for w in (2, 34, 640):
+            buf = rng.randint(0, 256, (48, w, 2)).astype(np.uint8)
+            want = cv2.cvtColor(buf, cv2.COLOR_YUV2BGR_YUYV)
+            got = camera.yuyv_to_bgr(buf.tobytes(), 48, w)
+            yuyv_diff += int((got != want).any(-1).sum())
+        text_diff = {}
+        for text in WEBCAM_TEXTS:
+            want = rng.randint(0, 256, (48, 320, 3)).astype(np.uint8)
+            got = want.copy()
+            cv2.putText(want, text, (10, 30), cv2.FONT_HERSHEY_SIMPLEX, 1.0,
+                        (0, 255, 0), 2)
+            put_text(got, text, (10, 30), (0, 255, 0), 2)
+            text_diff[text] = int((got != want).any(-1).sum())
+        numbers["cv2"] = {"version": cv2.__version__,
+                          "yuyv_differing_pixels": yuyv_diff,
+                          "text_differing_pixels": text_diff}
+        check(yuyv_diff == 0, f"webcam: yuyv_to_bgr differs from cv2 "
+                              f"{cv2.__version__} at {yuyv_diff} pixels")
+        # the glyph table is cv2 5's drawing of the font; cv2 4 draws
+        # the same font face as Hershey strokes, another picture
+        if int(cv2.__version__.split(".")[0]) >= 5:
+            check(not any(text_diff.values()),
+                  f"webcam: put_text differs from cv2 {cv2.__version__}: "
+                  f"{text_diff}")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    loop = numbers["loop"]
+    log(f"phase 15 (webcam): {n} frames 480x640 ({WEBCAM_FRAMES} YUYV, "
+        f"{WEBCAM_FRAMES} Motion-JPEG) through run_webcam at "
+        f"{loop['frames_per_s']:.2f} frames/s, p50 {loop['p50_ms']:.2f} ms, "
+        f"p99 {loop['p99_ms']:.2f} ms a frame (p50 read "
+        f"{loop['p50_ms_read']:.2f}, run {loop['p50_ms_run']:.2f}, show "
+        f"{loop['p50_ms_show']:.2f}; the view's encode "
+        f"{loop['p50_ms_encode']:.2f}); the stream client got "
+        f"{client['parts']} parts, ended on {loop['ended_on']}; launches "
+        f"{counts} [{smi}]")
+    log(f"webcam: /dev/video* {videos or 'absent'}; card == CPU on "
+        f"{len(card)} oracle frames; cv2 {numbers.get('cv2')}; phase "
+        f"{numbers['phase_s']:.1f} s")
+    return counts, numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3667,6 +3990,11 @@ def main() -> int:
     # bench, hourglass's chain and rescore
     wf_launches, wf_numbers = workflows_phase(dev, smi)
 
+    # 15. the webcam demo: scripted V4L2 cameras (YUYV, then Motion-JPEG)
+    # into the browser view, a real /dev/video* where there is one, card
+    # == CPU on oracle maps, the capture and the text against cv2
+    webcam_launches, webcam_numbers = webcam_phase(dev, smi)
+
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
         "connection_scores": ("rtpose_tpu_torch/csrc/connection_scores.cu",
                               "rtpose_tpu/ops/pallas_kernels.py:214",
@@ -3705,6 +4033,7 @@ def main() -> int:
                  video_launches=frontend_launches["video"][name],
                  parallel_launches=par_launches[name],
                  workflow_launches=wf_launches[name],
+                 webcam_launches=webcam_launches[name],
                  **results[name], library_ms=None,
                  hourglass_factor4=hourglass[name],
                  **({"also_replaces": also} if also else {}))
@@ -3727,6 +4056,7 @@ def main() -> int:
         video_launches=frontend_launches["video"]["group_people"],
         parallel_launches=par_launches["group_people"],
         workflow_launches=wf_launches["group_people"],
+        webcam_launches=webcam_launches["group_people"],
         hourglass_factor4={k: hg_rows[f"group_people_K{k}"]
                            for k in (32, 64)},
         **results["group_people"], library_ms=None,
@@ -3737,6 +4067,7 @@ def main() -> int:
     print(json.dumps({"frontends": frontend_numbers}), flush=True)
     print(json.dumps({"parallel": par_numbers}), flush=True)
     print(json.dumps({"workflows": wf_numbers}), flush=True)
+    print(json.dumps({"webcam": webcam_numbers}), flush=True)
     print(json.dumps({"native_loader": native_numbers,
                       "rotated_hourglass": rotated_numbers,
                       "resize_modes": resize_numbers}), flush=True)

@@ -1,10 +1,13 @@
 """Skeleton tables of the 18-part rtpose body model that serving, the
-training loader and the COCO evaluation need.
+training loader and the COCO evaluation need, and ``CocoPart``, the enum
+view of the part names.
 
 A copy of the serving and COCO-17 subset of ``rtpose_tpu/skeleton.py``,
 kept here so the port imports nothing of the JAX package;
 tests/test_torch_isolation.py checks every name against the original.
 """
+
+import enum
 
 import numpy as np
 
@@ -19,6 +22,12 @@ NUM_HEATMAPS = NUM_PARTS + 1         # +1 background channel
 BACKGROUND_CHANNEL = NUM_PARTS
 
 _IDX = {name: i for i, name in enumerate(PART_NAMES)}
+
+# enum view of the parts and the background channel (reference
+# lib/utils/common.py:5-24)
+CocoPart = enum.IntEnum(
+    "CocoPart", {**{n: i for i, n in enumerate(PART_NAMES)},
+                 "background": len(PART_NAMES)})
 
 
 def _mirror_name(name: str) -> str:

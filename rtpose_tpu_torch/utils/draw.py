@@ -13,11 +13,13 @@ OpenCV's ``ellipse2Poly`` gives, drawn as such thick lines.  Every step
 keeps OpenCV's 16.16 fixed point, its rounding (``cvRound``, half to
 even) and its clipping at the frame's edges, so
 tests/test_torch_frontends.py holds :func:`draw_people` equal to the JAX
-package's, pixel for pixel.
+package's, pixel for pixel.  :func:`put_text` is the webcam demo's FPS
+overlay, ``cv2.putText`` in cv2 5.0's pixels (tests/test_torch_webcam.py).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -339,3 +341,49 @@ def draw_people(image_bgr: np.ndarray, people: List[Dict[str, Any]],
             cv_line(img, centers[a], centers[b], PART_COLORS[pi % 18],
                     thickness)
     return img
+
+
+@functools.lru_cache(maxsize=1)
+def _glyphs():
+    from .text_glyphs import load_table
+    table = load_table()
+    return ({chr(c): i for i, c in enumerate(table["chars"])},
+            table["alpha"].astype(np.int64)[..., None],
+            tuple(int(v) for v in table["corner"]),
+            tuple(int(v) for v in table["advance"]))
+
+
+def put_text(img: np.ndarray, text: str, org, color: Color,
+             thickness: int = 2) -> None:
+    """``cv2.putText(img, text, org, cv2.FONT_HERSHEY_SIMPLEX, 1.0, color,
+    thickness)`` (``LINE_8``, the origin at the baseline's left end), in
+    place, in cv2 5.0's pixels, for the characters of the webcam demo's
+    FPS overlay: the digits, ".", " ", "F", "P" and "S" at thickness 2.
+    Each glyph is cv2's coverage mask from ``utils/text_glyphs.npz``,
+    blended at its whole-pixel place and clipped at the frame's edges,
+    as cv2 blends it.  Raises ValueError for another character or
+    thickness, or another image layout."""
+    index, alpha, (dy, dx), advance = _glyphs()
+    _check(img, 2)
+    if thickness != 2:
+        raise ValueError(f"put_text draws thickness 2 (the table's), not "
+                         f"{thickness}")
+    unknown = sorted(set(text) - set(index))
+    if unknown:
+        raise ValueError(f"put_text has no glyph for {unknown} (it draws "
+                         f"{''.join(sorted(index))!r})")
+    h, w = img.shape[:2]
+    gh, gw = alpha.shape[1:3]
+    col = np.asarray(color, np.int64)
+    x = int(org[0])
+    y0 = int(org[1]) + dy
+    ya, yb = max(y0, 0), min(y0 + gh, h)
+    for ch in text:
+        i = index[ch]
+        x0 = x + dx
+        xa, xb = max(x0, 0), min(x0 + gw, w)
+        if ya < yb and xa < xb:
+            a = alpha[i, ya - y0:yb - y0, xa - x0:xb - x0]
+            region = img[ya:yb, xa:xb]
+            region[:] = (col * a + region * (255 - a) + 127) // 255
+        x += advance[i]

@@ -896,6 +896,90 @@ def test_drawing_on_the_cards_machine_equals_cv2(cuda):
             (cv2.__version__, trial, (h, w), p1, p2)))
 
 
+@pytest.mark.gpu
+def test_webcam_on_card_equals_cpu(cuda, monkeypatch):
+    """The webcam loop over a scripted YUYV camera and an oracle-map
+    pipeline, with a scripted clock: the frames drawn on the card equal
+    the CPU's bit for bit, and the card's loop launches K1, K3 and the
+    grouping kernel once a frame."""
+    from rtpose_tpu_torch.data.imread_fixtures import render_scene
+    from rtpose_tpu_torch.demo import camera
+    from rtpose_tpu_torch.demo.scripted_camera import (ScriptedDevice,
+                                                       ScriptedV4L2)
+    from rtpose_tpu_torch.demo.web_demo import run_webcam
+    from rtpose_tpu_torch.utils.synth_coco import (OracleMaps, oracle_maps,
+                                                   spread_people)
+
+    class View:
+        def __init__(self):
+            self.shown = []
+
+        def show(self, frame):
+            self.shown.append(frame.copy())
+            return False
+
+        def close(self):
+            pass
+
+    rng = np.random.RandomState(0)
+    maps = oracle_maps({(240, 320): spread_people(rng, 2, 240, 320)}, 368)
+    frames = [render_scene(i, 240, 320) for i in range(5)]
+    shown = {}
+    for dev in ("cpu", "cuda"):
+        monkeypatch.setattr(camera, "SYSCALLS", ScriptedV4L2(
+            {0: ScriptedDevice(frames, offers=("YUYV",))}))
+        ticks = iter(10.0 + 0.03 * np.arange(10) ** 1.2)
+        view = View()
+        kernels.reset_launch_counts()
+        n, _ = run_webcam(PosePipeline(OracleMaps(maps), device=dev,
+                                       input_size=368, flip=False),
+                          camera.open_camera(0), view,
+                          clock=lambda: float(next(ticks)))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert n == 5
+        for name in ("connection_scores", "bicubic_refine", "group_people"):
+            assert counts[name] == (5 if dev == "cuda" else 0), (dev, counts)
+        shown[dev] = view.shown
+    for got, want in zip(shown["cuda"], shown["cpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_yuyv_on_the_cards_machine_equals_cv2(cuda):
+    """``camera.yuyv_to_bgr`` against the cv2 installed beside the card
+    (another version than the CPU tests'), bound 0."""
+    cv2 = pytest.importorskip("cv2")
+    from rtpose_tpu_torch.demo.camera import yuyv_to_bgr
+    rng = np.random.RandomState(0)
+    for w in (2, 6, 34, 170, 640):
+        buf = rng.randint(0, 256, (24, w, 2)).astype(np.uint8)
+        np.testing.assert_array_equal(
+            yuyv_to_bgr(buf.tobytes(), 24, w),
+            cv2.cvtColor(buf, cv2.COLOR_YUV2BGR_YUYV), err_msg=str(w))
+
+
+@pytest.mark.gpu
+def test_text_on_the_cards_machine_equals_cv2(cuda):
+    """``draw.put_text`` against the cv2 installed beside the card, bound
+    0, where that cv2 draws FONT_HERSHEY_SIMPLEX as cv2 5 does (the glyph
+    table is cv2 5's coverage masks); cv2 4 draws the font as one-bit
+    Hershey strokes, another picture (4.13: 1,289-4,262 pixels differ on
+    the FPS texts, chip_smoke.py phase 15)."""
+    cv2 = pytest.importorskip("cv2")
+    if int(cv2.__version__.split(".")[0]) < 5:
+        pytest.skip(f"cv2 {cv2.__version__} draws FONT_HERSHEY_SIMPLEX as "
+                    f"Hershey strokes, not cv2 5's glyphs")
+    from rtpose_tpu_torch.utils.draw import put_text
+    rng = np.random.RandomState(0)
+    for text in ("0.0 FPS", "29.9 FPS", "12345.6 FPS"):
+        want = rng.randint(0, 256, (40, 200, 3)).astype(np.uint8)
+        got = want.copy()
+        cv2.putText(want, text, (10, 30), cv2.FONT_HERSHEY_SIMPLEX, 1.0,
+                    (0, 255, 0), 2)
+        put_text(got, text, (10, 30), (0, 255, 0), 2)
+        np.testing.assert_array_equal(got, want, err_msg=text)
+
 # ---- the parallel paths (rtpose_tpu_torch/parallel) -------------------------
 
 def _multihost():

@@ -3,7 +3,8 @@ of the JAX package, serves, takes a train step, builds and runs every
 model family, trains a BatchNorm family, draws a loader batch in a worker
 process and a native loader batch, rotates a sample, answers the
 training CLI's --help, runs the picture and video
-demos and answers an HTTP request without them, imports the workflow
+demos and answers an HTTP request without them, runs the webcam loop over a
+scripted camera and serves its browser view, imports the workflow
 scripts (scripts/torch_*.py), renders a scene and soaks the decode without
 them, and its
 copies of the JAX package's tables and numpy helpers (the skeleton,
@@ -132,6 +133,19 @@ with tempfile.TemporaryDirectory() as root:
     http_answer = [resp.status, json.loads(resp.read())["size"]]
     server.shutdown()
     server.server_close()
+from rtpose_tpu_torch.demo import camera, web_demo
+from rtpose_tpu_torch.demo.frame_view import FrameView
+from rtpose_tpu_torch.demo.scripted_camera import (ScriptedDevice,
+                                                   ScriptedV4L2)
+camera.SYSCALLS = ScriptedV4L2({0: ScriptedDevice([frame] * 3)})
+view = FrameView("127.0.0.1", 0)
+conn = http.client.HTTPConnection("127.0.0.1", view.server.server_address[1],
+                                  timeout=60)
+conn.request("GET", "/")
+resp = conn.getresponse()
+page = [resp.status, b'<img src="/stream"' in resp.read()]
+conn.close()
+webcam = [web_demo.run_webcam(pipe, camera.open_camera(0), view)[0]] + page
 from rtpose_tpu_torch.data.native_loader import NativeLoader
 from rtpose_tpu_torch.data import transforms as T
 with tempfile.TemporaryDirectory() as root:
@@ -175,6 +189,7 @@ print(json.dumps({"modules": mods, "people": len(people),
                   "zoo": zoo, "bn_train_loss": bn_logs["loss"],
                   "loader": {k: list(v.shape) for k, v in batch.items()},
                   "video": [video_frames, video_out], "http": http_answer,
+                  "webcam": webcam,
                   "native": {k: [str(v.dtype), list(v.shape)]
                              for k, v in native.items()},
                   "rotated": list(np.asarray(rotated.image).shape),
@@ -206,7 +221,9 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
                 "data.imwrite", "utils.draw", "utils.human",
                 "utils.profiling", "data.native_loader", "data.cv2exact",
                 "native.imgpipe", "parallel.distributed", "parallel.mesh",
-                "parallel.sharding"):
+                "parallel.sharding", "demo.web_demo", "demo.camera",
+                "demo.frame_view", "demo.scripted_camera",
+                "utils.text_glyphs"):
         assert f"rtpose_tpu_torch.{mod}" in res["modules"], mod
     assert res["eval_ap"] == 1.0
     assert res["train_loss"] > 0 and np.isfinite(res["train_loss"])
@@ -225,6 +242,7 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
                              "mask": [2, 8, 8, 1], "image_id": [2]}
     assert res["video"] == [3, 3]
     assert res["http"] == [200, [60, 80]]
+    assert res["webcam"] == [3, 200, True]
     assert res["native"] == {
         "image": ["torch.uint8", [2, 64, 64, 3]],
         "keypoints": ["torch.float32", [2, 32, 18, 3]],
