@@ -105,6 +105,19 @@ entry points a user calls:
   frames of 8 oracle-map frames on the card equal to the CPU's; the YUYV
   conversion and the FPS text against the machine's cv2; each kernel row
   carries ``webcam_launches``;
+- the video files (phase 16): the route probe (NVDEC's caps, the OpenCV
+  wheel's libavcodec); libavcodec's planes of an I_PCM H.264 MP4
+  (``demo/scripted_video.py``) equal to the written ones, and
+  ``open_video``'s frames on the card their plain conversion at all four
+  rotation tags; the conversion kernel (``csrc/yuv420_to_bgr.cu``)
+  against its plain version at four turns, error 0, timed with its
+  bound; an ``mp4v`` MP4 and an XVID AVI of this machine's cv2 read with
+  cv2's frame count and frames; the flagship video demo on a 64-frame
+  480x640 H.264 MP4 (frames/s, read ms a frame split into demux, decode
+  and convert; K1, K3 and G once a batch, the conversion once a frame);
+  an open without libavcodec or without a card raises; each kernel row
+  carries ``video_file_launches``, and the conversion's row stands
+  beside the grouping kernel's;
 
 and checks that each path launched its kernels.  Also holds one fp32
 train step on the card against the CPU.  Prints timings beside the card's
@@ -3121,6 +3134,305 @@ def webcam_phase(dev, smi: str):
     return counts, numbers
 
 
+VIDEO_FILE_FRAMES = 64     # the H.264 MP4 the flagship video demo reads
+VIDEO_FILE_SHAPE = (480, 640)
+YUV_KERNEL_TOL = 0         # yuv420_to_bgr vs its plain version: integers
+
+
+def video_files_phase(dev, smi: str):
+    """Phase 16: the video reader on the files users hand the JAX demo.
+
+    - the route probe (``scripts/torch_probe_video.py``): NVDEC's caps for
+      H.264 and MPEG-4 at 640x480, and the OpenCV wheel's libavcodec;
+    - an I_PCM H.264 MP4 of 8 distinct 480x640 pictures (P-skip repeats,
+      an IDR every 4, ``demo/scripted_video.py``): libavcodec's planes
+      equal the written Y, U and V exactly, and ``open_video`` on the
+      card gives the plain conversion of them at every rotation;
+    - ``yuv420_to_bgr`` against its plain version at all four rotations
+      on a decoded frame's planes, error 0, timed with its bound;
+    - an ``mp4v`` MP4 and an XVID AVI written by this machine's cv2:
+      ``open_video`` gives cv2's frame count, and the largest pixel
+      difference from cv2's frames;
+    - the flagship video demo's ``main()`` (VGG19, 6 stages, 368 px,
+      flip, bf16) on a 64-frame 480x640 H.264 MP4 at --batch 8:
+      frames/s, read ms a frame split into demux, decode and convert, K1,
+      K3 and G once a batch and the conversion once a frame; the reader
+      alone on a 64-frame cv2 ``mp4v`` MP4 of the same scenes;
+    - an open without the library, and one without a card, raise.
+
+    -> ({kernel: launches in the demo run}, numbers, the conversion's
+    kernel row)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from torch_probe_video import probe
+    from rtpose_tpu_torch.data.imread_fixtures import render_scene
+    from rtpose_tpu_torch.demo import mp4, video_demo, video_io
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.native import avcodec
+    from rtpose_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    numbers = {"device": smi, "probe": probe()}
+    log(f"phase 16 (video files): route probe {json.dumps(numbers['probe'])}")
+    h, w = VIDEO_FILE_SHAPE
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "rtpose_tpu_torch",
+                                             "build"))
+    argv = sys.argv
+    try:
+        # libavcodec's planes of the I_PCM stream == the written ones
+        pics = sv.yuv_frames(6, h, w, seed=16)
+        seq = [pics[0], pics[1], None, pics[2], pics[3], None, pics[4],
+               pics[5]]
+        shown = []
+        for p in seq:
+            shown.append(shown[-1] if p is None else p)
+        ipcm = os.path.join(work, "ipcm.mp4")
+        sv.write_ipcm_mp4(ipcm, seq, key_every=4)
+        decoder = avcodec.Decoder("h264")
+        got = []
+        with open(ipcm, "rb") as f:
+            track = mp4.read_track(ipcm, f)
+            for data, key in track.packets(f):
+                got += [[p[:(h if i == 0 else h // 2),
+                           :(width if i == 0 else width // 2)].copy()
+                         for i, p in enumerate(planes)]
+                        for *planes, width in decoder.decode(data, key)]
+            got += [[p[:(h if i == 0 else h // 2),
+                       :(width if i == 0 else width // 2)].copy()
+                     for i, p in enumerate(planes)]
+                    for *planes, width in decoder.flush()]
+        decoder.close()
+        exact = len(got) == len(seq) and all(
+            all(np.array_equal(a, b) for a, b in zip(g, s))
+            for g, s in zip(got, shown))
+        check(exact, f"video files: libavcodec's planes of the I_PCM MP4 "
+                     f"differ from the written ones ({len(got)} pictures "
+                     f"of {len(seq)})")
+        numbers["ipcm_exact"] = {"pictures": len(got), "equal": exact}
+
+        # open_video on the card at every rotation == the plain conversion
+        rotated = {}
+        for rot in kernels.ROTATIONS:
+            path = os.path.join(work, f"ipcm{rot}.mp4")
+            sv.write_ipcm_mp4(path, seq, key_every=4, rotation=rot)
+            cap = video_io.open_video(path, device=dev)
+            frames = []
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                frames.append(frame)
+            cap.release()
+            want = [kernels.yuv420_to_bgr_plain(
+                *map(torch.from_numpy, s), width=w, rotation=rot).numpy()
+                for s in shown]
+            rotated[rot] = int(sum(not np.array_equal(a, b)
+                                   for a, b in zip(frames, want)))
+            check(len(frames) == len(seq) == cap.frame_count
+                  and cap.size == ((h, w) if rot % 180 else (w, h))
+                  and not rotated[rot],
+                  f"video files: rotation {rot}: {len(frames)} frames, size "
+                  f"{cap.size}, {rotated[rot]} differ from plain")
+        numbers["open_video_rotations_differing_frames"] = rotated
+
+        # the kernel against its plain version, four turns, and its time
+        planes = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                  for p in pics[0]]
+        errs = {}
+        for rot in kernels.ROTATIONS:
+            k = kernels.yuv420_to_bgr(*planes, width=w, rotation=rot)
+            p = kernels.yuv420_to_bgr_plain(*planes, width=w, rotation=rot)
+            torch.cuda.synchronize()
+            errs[rot] = int((k.int() - p.int()).abs().max())
+        check(all(e <= YUV_KERNEL_TOL for e in errs.values()),
+              f"yuv420_to_bgr vs plain: max abs err {errs}")
+        timing = {}
+        for rot in (0, 90):
+            def kernel():
+                return kernels.yuv420_to_bgr(*planes, width=w, rotation=rot)
+
+            def plain():
+                return kernels.yuv420_to_bgr_plain(*planes, width=w,
+                                                   rotation=rot)
+            ms, plain_ms = paired_ms(kernel, plain, 50)
+            dev_ms, source = device_ms(kernel, "yuv420_to_bgr")
+            timing[rot] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                               device_ms_source=source,
+                               host_ms=host_ms(kernel))
+        n_bytes = h * w * 3 // 2 + h * w * 3
+        bound_ms, bound_by = bound(n_bytes, 0)
+        row = dict(
+            name="yuv420_to_bgr", route="cuda",
+            source="rtpose_tpu_torch/csrc/yuv420_to_bgr.cu",
+            replaces="none: the yuv420p -> bgr24 conversion and turn inside "
+                     "cv2.VideoCapture (rtpose_tpu/demo/video_demo.py:19)",
+            replaces_kind="cv2/swscale; no Pallas kernel",
+            max_abs_err=max(errs.values()), max_abs_err_by_rotation=errs,
+            **timing[0], rotation_90=timing[90], bound_ms=bound_ms,
+            bound_by=bound_by, bytes=n_bytes, shape=[h, w],
+            library_ms=None)
+        log(f"yuv420_to_bgr 480x640: equal to plain at rotations {errs}; "
+            f"kernel {timing[0]['ms']:.4f} ms (90: {timing[90]['ms']:.4f}), "
+            f"device {timing[0]['device_ms']:.4f} ms "
+            f"({timing[0]['device_ms_source']}), host "
+            f"{timing[0]['host_ms']:.4f} ms a call, plain "
+            f"{timing[0]['plain_ms']:.4f} ms; bound {bound_ms:.5f} ms "
+            f"({n_bytes} bytes) [{smi}]")
+
+        # MPEG-4 Part 2 written by this machine's cv2 (the port has none)
+        scenes = [np.ascontiguousarray(render_scene(1600 + i, h, w)[..., ::-1])
+                  for i in range(VIDEO_FILE_FRAMES)]
+        try:
+            import cv2
+        except ImportError:
+            cv2 = None
+        mpeg4 = {}
+        if cv2 is not None:
+            for name, fourcc in (("mp4v.mp4", "mp4v"), ("xvid.avi", "XVID")):
+                path = os.path.join(work, name)
+                writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(
+                    *fourcc), 20.0, (w, h))
+                for frame in scenes[:16]:
+                    writer.write(frame)
+                writer.release()
+                want = []
+                cv = cv2.VideoCapture(path)
+                count = int(cv.get(cv2.CAP_PROP_FRAME_COUNT))
+                while True:
+                    ok, frame = cv.read()
+                    if not ok:
+                        break
+                    want.append(frame)
+                cv.release()
+                cap = video_io.open_video(path, device=dev)
+                frames = []
+                while True:
+                    ok, frame = cap.read()
+                    if not ok:
+                        break
+                    frames.append(frame)
+                cap.release()
+                diff = max(int(np.abs(a.astype(np.int16) - b).max())
+                           for a, b in zip(frames, want))
+                mpeg4[name] = {"frames": len(frames), "cv2_frames": len(want),
+                               "cv2_frame_count": count,
+                               "frame_count": cap.frame_count,
+                               "max_pixel_diff_vs_cv2": diff,
+                               "cv2": cv2.__version__}
+                check(len(frames) == len(want) == count == cap.frame_count
+                      == 16, f"video files: {name}: {mpeg4[name]}")
+        numbers["mpeg4"] = mpeg4 or "no cv2 on this machine"
+
+        # the flagship video demo on a 64-frame H.264 MP4
+        video = os.path.join(work, "in.mp4")
+        out = os.path.join(work, "out.avi")
+        sv.write_ipcm_mp4(video, [sv.bgr_to_yuv420(f) for f in scenes],
+                          fps_timescale=(12800, 640))
+        readers = []
+
+        def recording_open(path, device="cuda"):
+            readers.append(video_io.open_video(path, device=device))
+            return readers[-1]
+
+        sys.argv = (["video_demo", "--video", video, "--output", out,
+                     "--batch", "8"] + FRONTEND_FLAGS
+                    + ["--device", str(dev)])
+        video_demo.open_video = recording_open
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            n, video_s = video_demo.main()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        video_demo.open_video = video_io.open_video
+        check(f"processed {VIDEO_FILE_FRAMES} frames" in text.getvalue()
+              and n == VIDEO_FILE_FRAMES,
+              f"video files demo: {text.getvalue()!r}")
+        reread = video_io.open_video(out)
+        check(reread.frame_count == VIDEO_FILE_FRAMES
+              and reread.size == (w, h), f"video files demo output: "
+              f"{reread.frame_count} frames of {reread.size}")
+        reread.release()
+        batches = -(-VIDEO_FILE_FRAMES // 8)
+        check(all(counts[k] >= batches for k in SERVING_KERNELS)
+              and counts["yuv420_to_bgr"] == VIDEO_FILE_FRAMES
+              and counts["gt_maps"] == 0,
+              f"video files demo: K1, K3 and G not once a batch or the "
+              f"conversion not once a frame: {counts}")
+        split = {k: v * 1e3 / n for k, v in readers[0].seconds.items()}
+        numbers["demo"] = {
+            "frames": n, "seconds": video_s, "frames_per_s": n / video_s,
+            "batch": 8, "input": "I_PCM H.264 MP4 480x640",
+            "read_ms_a_frame": split,
+            "read_ms_a_frame_total": sum(split.values())}
+
+        # the reader alone on a compressed stream of the same scenes
+        if cv2 is not None:
+            path = os.path.join(work, "scenes.mp4")
+            writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
+                                     20.0, (w, h))
+            for frame in scenes:
+                writer.write(frame)
+            writer.release()
+            cap = video_io.open_video(path, device=dev)
+            t0 = time.perf_counter()
+            m = 0
+            while cap.read()[0]:
+                m += 1
+            read_s = time.perf_counter() - t0
+            cap.release()
+            numbers["mp4v_reader"] = {
+                "frames": m, "read_ms_a_frame": read_s * 1e3 / m,
+                "split_ms_a_frame": {k: v * 1e3 / m
+                                     for k, v in cap.seconds.items()}}
+
+        # no quiet fallback: no library, no card
+        before = (avcodec._libs, avcodec._library_dirs)
+        avcodec._libs, avcodec._library_dirs = None, lambda: []
+        try:
+            video_io.open_video(video, device=dev)
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        finally:
+            avcodec._libs, avcodec._library_dirs = before
+        check(raised is not None and "libavcodec" in raised,
+              f"video files: an open without libavcodec gave {raised!r}")
+        available = torch.cuda.is_available
+        torch.cuda.is_available = lambda: False
+        try:
+            video_io.open_video(video)
+            no_card = None
+        except RuntimeError as e:
+            no_card = str(e)
+        finally:
+            torch.cuda.is_available = available
+        check(no_card is not None and "no CUDA card" in no_card,
+              f"video files: an open without a card gave {no_card!r}")
+        numbers["no_library_error"], numbers["no_card_error"] = raised, no_card
+    finally:
+        sys.argv = argv
+        video_demo.open_video = video_io.open_video
+        shutil.rmtree(work, ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    demo = numbers["demo"]
+    log(f"phase 16 (video files): the flagship video demo on a "
+        f"{VIDEO_FILE_FRAMES}-frame 480x640 H.264 MP4 at --batch 8: "
+        f"{demo['frames_per_s']:.2f} frames/s; read "
+        f"{demo['read_ms_a_frame_total']:.3f} ms a frame "
+        f"({', '.join(f'{k} {v:.3f}' for k, v in demo['read_ms_a_frame'].items())}"
+        f"); launches {counts} [{smi}]")
+    log(f"video files: I_PCM planes exact ({numbers['ipcm_exact']}), "
+        f"rotations {rotated}; MPEG-4 {json.dumps(numbers['mpeg4'])}; "
+        f"mp4v reader {json.dumps(numbers.get('mp4v_reader'))}; phase "
+        f"{numbers['phase_s']:.1f} s")
+    return counts, numbers, row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3995,6 +4307,11 @@ def main() -> int:
     # == CPU on oracle maps, the capture and the text against cv2
     webcam_launches, webcam_numbers = webcam_phase(dev, smi)
 
+    # 16. the video files: the route probe, libavcodec's planes of an I_PCM
+    # H.264 MP4 exact, the conversion kernel == plain at four turns, cv2's
+    # MPEG-4 files, the flagship video demo on a 64-frame H.264 MP4
+    vf_launches, vf_numbers, yuv_row = video_files_phase(dev, smi)
+
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
         "connection_scores": ("rtpose_tpu_torch/csrc/connection_scores.cu",
                               "rtpose_tpu/ops/pallas_kernels.py:214",
@@ -4034,6 +4351,7 @@ def main() -> int:
                  parallel_launches=par_launches[name],
                  workflow_launches=wf_launches[name],
                  webcam_launches=webcam_launches[name],
+                 video_file_launches=vf_launches[name],
                  **results[name], library_ms=None,
                  hourglass_factor4=hourglass[name],
                  **({"also_replaces": also} if also else {}))
@@ -4057,6 +4375,7 @@ def main() -> int:
         parallel_launches=par_launches["group_people"],
         workflow_launches=wf_launches["group_people"],
         webcam_launches=webcam_launches["group_people"],
+        video_file_launches=vf_launches["group_people"],
         hourglass_factor4={k: hg_rows[f"group_people_K{k}"]
                            for k in (32, 64)},
         **results["group_people"], library_ms=None,
@@ -4068,10 +4387,16 @@ def main() -> int:
     print(json.dumps({"parallel": par_numbers}), flush=True)
     print(json.dumps({"workflows": wf_numbers}), flush=True)
     print(json.dumps({"webcam": webcam_numbers}), flush=True)
+    print(json.dumps({"video_files": vf_numbers}), flush=True)
     print(json.dumps({"native_loader": native_numbers,
                       "rotated_hourglass": rotated_numbers,
                       "resize_modes": resize_numbers}), flush=True)
-    print(json.dumps({"kernels_beyond_tpu": [group_row]}), flush=True)
+    # the colour conversion replaces cv2's, no TPU kernel: its row stands
+    # beside the grouping kernel's
+    yuv_row.update(launches=vf_launches["yuv420_to_bgr"],
+                   video_file_launches=vf_launches["yuv420_to_bgr"])
+    print(json.dumps({"kernels_beyond_tpu": [group_row, yuv_row]}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,15 +4,18 @@ video_demo.py).
 Frames are streamed and processed in batches: batch k+1 is submitted to
 the card before batch k is collected, drawn and written.
 
-    python -m rtpose_tpu_torch.demo.video_demo --video in.avi \\
+    python -m rtpose_tpu_torch.demo.video_demo --video in.mp4 \\
         --output out.avi --batch 8
 
-Reads and writes Motion-JPEG AVI (``demo/video_io.py``); the JAX demo
-writes XVID through cv2.  Runs on the card (``--device cuda``, the
-default); ``--device cpu`` for tests.  Frames smaller than
-``--input-size`` are scaled on the card and larger ones on the host (the
-pipeline's ``"auto"``), as in the JAX demo; ``--no-device-resize`` scales
-every frame on the host.
+Reads what the JAX demo reads through cv2 (``demo/video_io.py``):
+H.264 and MPEG-4 Part 2 (XVID, ``mp4v``) in MP4/MOV or AVI, turned by the
+file's rotation tag as cv2's ``CAP_PROP_ORIENTATION_AUTO`` turns them,
+and Motion-JPEG AVI.  Writes Motion-JPEG AVI; the JAX demo writes XVID
+through cv2.  Runs on the card (``--device cuda``, the default: the
+decoded frames are converted to BGR there); ``--device cpu`` for tests.
+Frames smaller than ``--input-size`` are scaled on the card and larger
+ones on the host (the pipeline's ``"auto"``), as in the JAX demo;
+``--no-device-resize`` scales every frame on the host.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ def main():
     args = parser.parse_args()
 
     pipe = build_pipeline(args)
-    cap = open_video(args.video)
+    cap = open_video(args.video, device=args.device)
 
     writer = None
     n = 0

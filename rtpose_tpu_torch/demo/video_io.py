@@ -1,43 +1,56 @@
-"""Motion-JPEG AVI files read and written in pure Python over Pillow, in
-place of ``cv2.VideoCapture`` / ``cv2.VideoWriter`` (the JAX package's
+"""Video files read and written in pure Python, in place of
+``cv2.VideoCapture`` / ``cv2.VideoWriter`` (the JAX package's
 rtpose_tpu/demo/video_demo.py:19-42, :78-80).
 
-The container is RIFF AVI: a ``hdrl`` list (the ``avih`` main header, one
-``strl`` with the ``vids`` / ``MJPG`` stream header and its
-BITMAPINFOHEADER), a ``movi`` list of ``00dc`` chunks, one baseline JPEG
-a frame, and an ``idx1`` index; the frame counts in both headers are
-written when the file is closed.  cv2 reads these files (its AVI reader
-needs ``idx1`` to open one), and :func:`open_video` reads cv2's own
-``MJPG`` AVI files, OpenDML ``AVIX`` extensions included, frame for
-frame.
+:func:`open_video` reads what the JAX demo's ``cv2.VideoCapture`` reads
+of its users' files, frame for frame as cv2 gives them:
 
-The JAX demo writes XVID; the port writes MJPG (another codec, the same
-feature).  Other containers and codecs (mp4, H.264, XVID, ...) need a
-decoder this package does not have: the machine of the card has no
-``ffmpeg`` either, so :func:`open_video` refuses them with an error that
-names the container (ROADMAP.md queue 1 item 4).
+- Motion-JPEG AVI (``MJPG``): each ``00dc`` chunk a JPEG, decoded on the
+  host by Pillow (cv2's own AVI writer's and FFmpeg's files, OpenDML
+  ``AVIX`` extensions included);
+- H.264 and MPEG-4 Part 2 (XVID, DivX, ``mp4v``: what the JAX demo and
+  cv2's wheels write) in AVI (``XVID``, ``DIVX``, ``DX50``, ``FMP4``,
+  ``MP4V``, ``H264``, ``AVC1``, ``X264`` chunks) or in MP4 / MOV
+  (``demo/mp4.py``), with the rotation of the track honoured as
+  ``CAP_PROP_ORIENTATION_AUTO`` does: decoded on the host by FFmpeg's
+  libavcodec from the OpenCV wheel (``native/avcodec.py``), the planes
+  converted to BGR and turned on the card (``ops.kernels.yuv420_to_bgr``,
+  cv2's arithmetic to the bit).  ``device="cpu"`` converts with the
+  kernel's plain version, for tests; without a card, and without the
+  library, opening such a file raises.
+
+Everything else is refused with an error that names the container or
+codec and ROADMAP.md queue 1 item 4: Matroska / WebM, MPEG-TS, HEVC, VP9,
+AV1, fragmented MP4, multi-entry edit lists.
+
+:class:`VideoWriter` writes Motion-JPEG AVI: a ``hdrl`` list (the
+``avih`` main header, one ``strl`` with the ``vids`` / ``MJPG`` stream
+header and its BITMAPINFOHEADER), a ``movi`` list of ``00dc`` chunks,
+one baseline JPEG a frame, and an ``idx1`` index; the frame counts in
+both headers are written when the file is closed.  cv2 reads these
+files (its AVI reader needs ``idx1`` to open one).  The JAX demo writes
+XVID; the port writes MJPG (another codec, the same feature).
 """
 
 from __future__ import annotations
 
 import io
 import struct
+import time
 from fractions import Fraction
 from typing import BinaryIO, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from ..data.imwrite import JPEG_OPTIONS
+from . import mp4
 
 AVIF_HASINDEX = 0x10
 AVIIF_KEYFRAME = 0x10
-
-
-def _not_mjpg_avi(path: str, what: str) -> ValueError:
-    return ValueError(
-        f"{path}: {what}; this reader takes Motion-JPEG AVI files only "
-        f"(other containers and codecs need ffmpeg, which the port does "
-        f"not use: ROADMAP.md queue 1 item 4)")
+# AVI stream handlers / compressions (upper case) -> the decoder
+AVI_CODECS = {b"MJPG": "mjpeg", b"XVID": "mpeg4", b"DIVX": "mpeg4",
+              b"DX50": "mpeg4", b"FMP4": "mpeg4", b"MP4V": "mpeg4",
+              b"H264": "h264", b"AVC1": "h264", b"X264": "h264"}
 
 
 def _chunks(f: BinaryIO, end: int) -> Iterator[Tuple[bytes, int, int]]:
@@ -51,35 +64,22 @@ def _chunks(f: BinaryIO, end: int) -> Iterator[Tuple[bytes, int, int]]:
         f.seek(start + size + (size & 1))
 
 
-class VideoReader:
-    """A Motion-JPEG AVI's frames, decoded one at a time as ``(H, W, 3)``
-    uint8 BGR: the part of ``cv2.VideoCapture`` the demo uses (``read``,
-    ``release``), with the stream's ``fps``, ``size`` (w, h) and
-    ``frame_count``."""
+class AviStream:
+    """The first video stream of a RIFF AVI file: its codec (a key of
+    :data:`AVI_CODECS`' values), fps, (w, h), the codec's extra data
+    (BITMAPINFOHEADER past its 40 bytes) and each frame chunk's (offset,
+    size) in file order, empty chunks (dropped frames) skipped."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, f: BinaryIO):
         self.path = path
-        self._f = open(path, "rb")
-        try:
-            self._frames, self.fps, self.size = self._parse()
-        except BaseException:
-            self._f.close()
-            raise
-        self._next = 0
-
-    def _parse(self):
-        f, path = self._f, self.path
+        self.codec: Optional[str] = None
+        self.fps: Optional[float] = None
+        self.size: Tuple[int, int] = (0, 0)
+        self.extradata = b""
+        self.frames: List[Tuple[int, int]] = []
         f.seek(0, io.SEEK_END)
         file_end = f.tell()
-        f.seek(0)
-        head = f.read(12)
-        if len(head) < 12 or head[:4] != b"RIFF" or head[8:12] != b"AVI ":
-            raise _not_mjpg_avi(path, f"not an AVI file (starts with "
-                                      f"{head[:12]!r})")
-        frames: List[Tuple[int, int]] = []
-        fps: Optional[float] = None
-        size = None
-        stream = None          # the MJPG stream's chunk id prefix, b"00"
+        stream = None          # the video stream's chunk id prefix, b"00"
         f.seek(0)
         for riff, start, riff_size in _chunks(f, file_end):
             if riff != b"RIFF":
@@ -92,21 +92,22 @@ class VideoReader:
                 f.seek(off)
                 kind = f.read(4)
                 if kind == b"hdrl":
-                    fps, size, stream = self._header(off + 4, off + n)
+                    stream = self._header(f, off + 4, off + n)
                 elif kind == b"movi":
                     if stream is None:
-                        raise _not_mjpg_avi(path, "no Motion-JPEG video "
-                                                  "stream")
-                    frames += self._movi(off + 4, off + n, stream)
+                        raise mp4.refusal(path, "an AVI with no video "
+                                                "stream")
+                    f.seek(off + 4)
+                    self.frames += [
+                        (o, size) for fourcc, o, size in _chunks(f, off + n)
+                        if fourcc[:2] == stream
+                        and fourcc[2:] in (b"dc", b"db") and size]
                 f.seek(off + n + (n & 1))
         if stream is None:
-            raise _not_mjpg_avi(path, "no Motion-JPEG video stream")
-        return frames, fps, size
+            raise mp4.refusal(path, "an AVI with no video stream")
 
-    def _header(self, start: int, end: int):
-        """fps, (w, h) and the chunk id prefix of the first video stream,
-        which must be Motion-JPEG."""
-        f = self._f
+    def _header(self, f: BinaryIO, start: int, end: int) -> bytes:
+        """Read the first video stream's header; its chunk id prefix."""
         f.seek(start)
         index = 0
         for fourcc, off, n in _chunks(f, end):
@@ -128,24 +129,36 @@ class VideoReader:
                 handler = strh[4:8]
                 compression = strf[16:20] if strf and len(strf) >= 20 \
                     else b""
-                if b"MJPG" not in (handler.upper(), compression.upper()):
-                    raise _not_mjpg_avi(self.path, f"video codec "
-                                        f"{handler!r}/{compression!r}")
+                codec = (AVI_CODECS.get(compression.upper())
+                         or AVI_CODECS.get(handler.upper()))
+                if codec is None:
+                    raise mp4.refusal(self.path, f"AVI video codec "
+                                                 f"{handler!r}/"
+                                                 f"{compression!r}")
                 scale, rate = struct.unpack("<II", strh[20:28])
                 w, h = struct.unpack("<ii", strf[4:12])
-                fps = rate / scale if scale else None
-                return fps, (w, abs(h)), b"%02d" % index
+                size = struct.unpack("<I", strf[:4])[0]
+                self.codec, self.size = codec, (w, abs(h))
+                self.fps = rate / scale if scale else None
+                self.extradata = strf[40:size] if size > 40 else b""
+                return b"%02d" % index
             index += 1
             f.seek(off + n + (n & 1))
-        raise _not_mjpg_avi(self.path, "no video stream")
+        raise mp4.refusal(self.path, "an AVI with no video stream")
 
-    def _movi(self, start: int, end: int, stream: bytes):
-        """(offset, size) of each frame chunk of `stream`, in file order;
-        empty chunks (dropped frames) skipped."""
-        self._f.seek(start)
-        return [(off, n) for fourcc, off, n in _chunks(self._f, end)
-                if fourcc[:2] == stream and fourcc[2:] in (b"dc", b"db")
-                and n]
+
+class VideoReader:
+    """A Motion-JPEG AVI's frames, decoded one at a time as ``(H, W, 3)``
+    uint8 BGR: the part of ``cv2.VideoCapture`` the demo uses (``read``,
+    ``release``), with the stream's ``fps``, ``size`` (w, h) and
+    ``frame_count``."""
+
+    def __init__(self, path: str, stream: AviStream):
+        self.path = path
+        self._f = open(path, "rb")
+        self._frames, self.fps, self.size = (stream.frames, stream.fps,
+                                             stream.size)
+        self._next = 0
 
     @property
     def frame_count(self) -> int:
@@ -170,12 +183,147 @@ class VideoReader:
         self._f.close()
 
 
-def open_video(path: str) -> VideoReader:
-    """Open a Motion-JPEG AVI for reading (``cv2.VideoCapture``'s place in
-    the JAX demo).  Raises FileNotFoundError for a missing file and
-    ValueError, naming the container and ROADMAP.md queue 1 item 4, for
-    a file that is not Motion-JPEG AVI."""
-    return VideoReader(path)
+class DecodedVideo:
+    """An H.264 or MPEG-4 Part 2 stream of an MP4/MOV or AVI file, read
+    as ``cv2.VideoCapture`` with ``CAP_PROP_ORIENTATION_AUTO`` reads it:
+    ``read()`` gives each frame in display order as ``(H, W, 3)`` uint8
+    BGR, turned by ``rotation``; ``fps``, ``size`` (w, h after the turn)
+    and ``frame_count`` are cv2's.
+
+    `avi` is the file's parsed AVI stream; without one the file is read
+    as MP4/MOV.  The packets are demuxed on the host, decoded there by
+    libavcodec, and each picture's planes are copied to `device` and
+    converted by ``ops.kernels.yuv420_to_bgr`` (the plain version for
+    ``"cpu"``).  The copy returns once the decoder's buffers have been
+    read, before the next picture reuses them.  ``seconds`` sums the time of each step:
+    ``demux`` (reading a packet and, for H.264, its Annex-B form),
+    ``decode`` (libavcodec) and ``convert`` (copy up, kernel, copy back)."""
+
+    def __init__(self, path: str, device="cuda",
+                 avi: Optional[AviStream] = None):
+        import torch
+
+        from ..native.avcodec import Decoder
+        self.path = path
+        self.device = torch.device(device)
+        self._f = open(path, "rb")
+        self._decoder = None
+        try:
+            self.seconds = {"demux": 0.0, "decode": 0.0, "convert": 0.0}
+            t0 = time.perf_counter()
+            if avi is not None:
+                self.codec, self.fps, self.size = avi.codec, avi.fps, avi.size
+                self.rotation = self.rotation_meta = 0
+                self.frame_count = len(avi.frames)
+                self._skip, self._left = 0, len(avi.frames)
+                self._packets = self._avi_packets(avi)
+            else:
+                track = mp4.read_track(path, self._f)
+                self.codec, self.fps, self.size = (track.codec, track.fps,
+                                                   track.size)
+                self.rotation, self.rotation_meta = (track.rotation,
+                                                     track.rotation_meta)
+                self.frame_count = track.frame_count
+                # pictures outside the edit list's span are dropped
+                self._skip, self._left = track.shown
+                self._packets = track.packets(self._f)
+            self.seconds["demux"] += time.perf_counter() - t0
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"{path}: no CUDA card: decoded frames are converted to "
+                    f"BGR on the card (device='cpu' converts on the host, "
+                    f"for tests)")
+            t0 = time.perf_counter()
+            self._decoder = Decoder(self.codec)
+            self.seconds["decode"] += time.perf_counter() - t0
+        except BaseException:
+            self.release()
+            raise
+        self._pictures = self._decode()
+
+    def _avi_packets(self, avi: AviStream) -> Iterator[Tuple[bytes, bool]]:
+        for i, (off, n) in enumerate(avi.frames):
+            self._f.seek(off)
+            data = self._f.read(n)
+            if i == 0:
+                data = avi.extradata + data
+            yield data, mp4.intra_picture(self.codec, data)
+
+    def _decode(self):
+        """The decoder's pictures in display order, as it completes them."""
+        while True:
+            t0 = time.perf_counter()
+            packet = next(self._packets, None)
+            t1 = time.perf_counter()
+            self.seconds["demux"] += t1 - t0
+            pictures = (self._decoder.flush() if packet is None else
+                        self._decoder.decode(*packet))
+            while True:
+                t0 = time.perf_counter()
+                picture = next(pictures, None)
+                self.seconds["decode"] += time.perf_counter() - t0
+                if picture is None:
+                    break
+                yield picture
+            if packet is None:
+                return
+
+    def read(self) -> Tuple[bool, Optional[np.ndarray]]:
+        """(True, next frame) or (False, None) after the last one."""
+        import torch
+
+        from ..ops.kernels import yuv420_to_bgr
+        if self._decoder is None or not self._left:
+            return False, None
+        while True:
+            picture = next(self._pictures, None)
+            if picture is None:
+                return False, None
+            if self._skip:
+                self._skip -= 1
+                continue
+            break
+        self._left -= 1
+        t0 = time.perf_counter()
+        *planes, width = picture
+        planes = [torch.from_numpy(p).to(self.device) for p in planes]
+        frame = yuv420_to_bgr(*planes, width=width,
+                              rotation=self.rotation).cpu().numpy()
+        self.seconds["convert"] += time.perf_counter() - t0
+        return True, frame
+
+    def release(self) -> None:
+        if self._decoder is not None:
+            self._decoder.close()
+            self._decoder = None
+        self._f.close()
+
+
+def open_video(path: str, device="cuda"):
+    """Open a video file for reading (``cv2.VideoCapture``'s place in the
+    JAX demo): a :class:`VideoReader` for Motion-JPEG AVI, a
+    :class:`DecodedVideo` for H.264 and MPEG-4 Part 2 in MP4/MOV or AVI,
+    which converts its frames on `device`.  Raises FileNotFoundError
+    for a missing file and ValueError, naming the container or codec and
+    ROADMAP.md queue 1 item 4, for anything else."""
+    with open(path, "rb") as f:
+        head = f.read(4096)
+        if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
+            stream = AviStream(path, f)
+            if stream.codec == "mjpeg":
+                return VideoReader(path, stream)
+            return DecodedVideo(path, device, stream)
+    if mp4.is_isobmff(head):
+        return DecodedVideo(path, device)
+    if head[:4] == b"\x1a\x45\xdf\xa3":
+        what = "a Matroska/WebM file"
+    elif len(head) >= 377 and head[0] == head[188] == 0x47:
+        what = "an MPEG-TS stream"
+    elif head[:4] == b"RIFF":
+        what = f"a RIFF {head[8:12]!r} file, not AVI"
+    else:
+        what = f"an unknown container (starts with {head[:12]!r})"
+    raise mp4.refusal(path, what)
 
 
 class VideoWriter:

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "rtpose_group_people": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _F, _P, _P),
     "rtpose_group_smem_bytes": (_I, _I, _I),
+    "rtpose_yuv420_to_bgr": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 

@@ -19,7 +19,11 @@ Three kernels carry the decode and one the training step's ground truth
   between them: sorted candidates in, People out, one block per image;
 - :func:`gt_maps` (``csrc/gt_maps.cu``) replaces ``gt_maps_pallas`` of
   ``rtpose_tpu/ops/pallas_gt.py`` with the precompute before its
-  ``pallas_call``: keypoints in, both maps out, one launch.
+  ``pallas_call``: keypoints in, both maps out, one launch;
+- :func:`yuv420_to_bgr` (``csrc/yuv420_to_bgr.cu``) replaces no TPU
+  kernel but the colour conversion inside ``cv2.VideoCapture`` (swscale's
+  yuv420p -> bgr24, then the stream's rotation): a decoded video frame's
+  planes in, BGR out, for the video reader.
 
 A wrapper given CPU tensors runs the plain PyTorch version beside it; given
 CUDA tensors it launches the kernel or raises.  There is no fallback from
@@ -979,7 +983,74 @@ def group_people(sorted_scores: torch.Tensor, sorted_idx: torch.Tensor,
 
 group_people.launches = 0
 
-_COUNTED = (connection_scores, bicubic_refine, gt_maps, group_people)
+# ---------------------------------------------------------------------------
+# video frames: 4:2:0 planes to BGR with a quarter turn (cv2's conversion)
+# ---------------------------------------------------------------------------
+
+ROTATIONS = (0, 90, 180, 270)
+# swscale's 16-bit coefficients (BT.601, limited range), as cv2's frames
+# show them: luma, U->B, U->G, V->G, V->R; see csrc/yuv420_to_bgr.cu
+YUV_COEFFS = (9539, 16525, -3209, -6660, 13075)
+
+
+def yuv420_to_bgr_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                        *, width: int, rotation: int = 0) -> torch.Tensor:
+    """The plain version of :func:`yuv420_to_bgr` (int32 arithmetic)."""
+    h = y.shape[0]
+    cy, cub, cug, cvg, cvr = YUV_COEFFS
+
+    def full(c):       # each chroma sample over its 2x2 block
+        c = c[:, :(width + 1) // 2].to(torch.int32)
+        return c.repeat_interleave(2, 0).repeat_interleave(2, 1)[:h, :width]
+
+    luma = ((8 * y[:, :width].to(torch.int32) - 128) * cy) >> 16
+    u8, v8 = 8 * (full(u) - 128), 8 * (full(v) - 128)
+    bgr = torch.stack([luma + ((u8 * cub) >> 16),
+                       luma + ((u8 * cug) >> 16) + ((v8 * cvg) >> 16),
+                       luma + ((v8 * cvr) >> 16)], dim=-1)
+    bgr = bgr.clamp(0, 255).to(torch.uint8)
+    turns = {0: 0, 90: -1, 180: 2, 270: 1}[rotation]   # rot90 turns left
+    return torch.rot90(bgr, turns, dims=(0, 1)).contiguous()
+
+
+def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
+                  width: int, rotation: int = 0) -> torch.Tensor:
+    """A 4:2:0 picture's planes to ``(H', W', 3)`` uint8 BGR, turned
+    clockwise by `rotation` (0/90/180/270; H' x W' is W x H at a quarter
+    turn), exactly as cv2's frames of it.
+
+    y: (H, pitch) uint8, the picture in its first `width` columns; u, v:
+    ((H + 1) // 2, chroma pitch) uint8, the chroma in their first
+    (width + 1) // 2 columns, one pitch for both.  All contiguous (the
+    pitch is the row stride) and on one device."""
+    if rotation not in ROTATIONS:
+        raise ValueError(f"rotation {rotation} is not one of {ROTATIONS}")
+    h = y.shape[0] if y.dim() == 2 else -1
+    if (y.dim() != 2 or u.shape != v.shape or u.dim() != 2
+            or u.shape[0] != (h + 1) // 2 or width > y.shape[1]
+            or (width + 1) // 2 > u.shape[1] or width <= 0 or h <= 0):
+        raise ValueError(f"yuv420_to_bgr: planes {tuple(y.shape)}, "
+                         f"{tuple(u.shape)}, {tuple(v.shape)} do not hold "
+                         f"a {h}x{width} 4:2:0 picture")
+    if _route(y) == "cpu":
+        return yuv420_to_bgr_plain(y, u, v, width=width, rotation=rotation)
+    dev = y.device
+    for name, t in (("y", y), ("u", u), ("v", v)):
+        _check(name, t, torch.uint8, 2, dev)
+    quarter = rotation in (90, 270)
+    out = torch.empty((width, h, 3) if quarter else (h, width, 3),
+                      dtype=torch.uint8, device=dev)
+    _launch("rtpose_yuv420_to_bgr", dev, y.data_ptr(), u.data_ptr(),
+            v.data_ptr(), y.shape[1], u.shape[1], h, width, rotation,
+            out.data_ptr())
+    yuv420_to_bgr.launches += 1
+    return out
+
+
+yuv420_to_bgr.launches = 0
+
+_COUNTED = (connection_scores, bicubic_refine, gt_maps, group_people,
+            yuv420_to_bgr)
 
 
 def reset_launch_counts() -> None:

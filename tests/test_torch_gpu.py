@@ -10,7 +10,8 @@ Tolerances: candidate validity and refined coordinates equal, scores
 within 1e-5, ground-truth maps within 1e-6 (kernel and plain version
 round the same fp32 operations in the same order, so they agree to the
 bit in practice); the grouping kernel's People equal its plain version's
-on every field.
+on every field; the video frames' conversion (integers) equal to its plain
+version and to cv2's.
 """
 
 import copy
@@ -1100,3 +1101,150 @@ def test_train_synth_restore_on_card(cuda, tmp_path):
         for k in ("train_loss", "val_loss"):
             assert math.isfinite(a[k])
             assert abs(a[k] - b[k]) <= 1e-2 * abs(b[k]), (k, a, b)
+
+
+def _planes(h, w, seed, pitch_pad=0):
+    """Random 4:2:0 planes on the card, rows `pitch_pad` bytes past the
+    picture (a decoder's linesize)."""
+    rng = np.random.RandomState(seed)
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    return [torch.from_numpy(rng.randint(0, 256, s).astype(np.uint8))
+            for s in ((h, w + pitch_pad), (ch, cw + pitch_pad),
+                      (ch, cw + pitch_pad))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", [0, 90, 180, 270])
+@pytest.mark.parametrize("hw,pad", [((480, 640), 0), ((480, 640), 64),
+                                    ((50, 70), 10), ((34, 18), 0),
+                                    ((7, 5), 3)])
+def test_yuv420_kernel_matches_plain(cuda, rotation, hw, pad):
+    h, w = hw
+    planes = _planes(h, w, seed=h + w + pad, pitch_pad=pad)
+    kernels.reset_launch_counts()
+    got = kernels.yuv420_to_bgr(*[p.to(cuda) for p in planes], width=w,
+                                rotation=rotation)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["yuv420_to_bgr"] == 1
+    want = kernels.yuv420_to_bgr_plain(*planes, width=w, rotation=rotation)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got.cpu(), want)
+
+
+def _ipcm_sequence(h, w):
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    pics = sv.yuv_frames(4, h, w, seed=16)
+    seq = [pics[0], pics[1], None, pics[2], None, pics[3]]
+    shown = []
+    for p in seq:
+        shown.append(shown[-1] if p is None else p)
+    return seq, shown
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", [0, 90, 180, 270])
+def test_h264_file_on_card_equals_the_written_pictures(cuda, tmp_path,
+                                                       rotation):
+    """An I_PCM H.264 MP4 at 480x640: libavcodec's planes are the written
+    ones exactly, and open_video's frames on the card are their plain
+    conversion, turned by the tag."""
+    from rtpose_tpu_torch.demo import mp4
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo.video_io import open_video
+    from rtpose_tpu_torch.native import avcodec
+    h, w = 480, 640
+    seq, shown = _ipcm_sequence(h, w)
+    path = str(tmp_path / "v.mp4")
+    sv.write_ipcm_mp4(path, seq, key_every=3, rotation=rotation)
+    decoder = avcodec.Decoder("h264")
+    got = []
+    with open(path, "rb") as f:
+        for data, key in mp4.read_track(path, f).packets(f):
+            got += [(y[:, :w].copy(), u[:, :w // 2].copy(),
+                     v[:, :w // 2].copy())
+                    for y, u, v, _ in decoder.decode(data, key)]
+    got += [(y[:, :w].copy(), u[:, :w // 2].copy(), v[:, :w // 2].copy())
+            for y, u, v, _ in decoder.flush()]
+    decoder.close()
+    assert len(got) == len(shown)
+    for g, s in zip(got, shown):
+        for a, b in zip(g, s):
+            np.testing.assert_array_equal(a, b)
+    kernels.reset_launch_counts()
+    cap = open_video(path, device=cuda)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    assert kernels.launch_counts()["yuv420_to_bgr"] == len(shown)
+    assert cap.size == ((h, w) if rotation % 180 else (w, h))
+    for frame, planes in zip(frames, shown):
+        want = kernels.yuv420_to_bgr_plain(*map(torch.from_numpy, planes),
+                                           width=w, rotation=rotation)
+        np.testing.assert_array_equal(frame, want.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,fourcc", [("v.mp4", "mp4v"),
+                                         ("v.avi", "XVID")])
+def test_mpeg4_files_of_the_cards_cv2(cuda, tmp_path, name, fourcc):
+    """MPEG-4 Part 2 written by the card machine's cv2 (the port has
+    none): open_video gives cv2's frame count and cv2's frames (the same
+    wheel's libavcodec decodes them; cv2 4.13's swscale converts as cv2
+    5.0's, which the conversion matches: no pixel differs on an H100's
+    machine)."""
+    cv2 = pytest.importorskip("cv2")
+    from rtpose_tpu_torch.data.imread_fixtures import render_scene
+    from rtpose_tpu_torch.demo.video_io import open_video
+    path = str(tmp_path / name)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), 20.0,
+                             (640, 480))
+    for i in range(12):
+        writer.write(np.ascontiguousarray(render_scene(i, 480, 640)))
+    writer.release()
+    cap = cv2.VideoCapture(path)
+    count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    want = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        want.append(frame)
+    ours = open_video(path, device=cuda)
+    got = []
+    while True:
+        ok, frame = ours.read()
+        if not ok:
+            break
+        got.append(frame)
+    ours.release()
+    assert len(got) == len(want) == count == ours.frame_count == 12
+    diff = max(int(np.abs(a.astype(np.int16) - b).max())
+               for a, b in zip(got, want))
+    print(f"{name}: largest pixel difference from cv2 {cv2.__version__}: "
+          f"{diff}")
+    assert diff == 0
+
+
+@pytest.mark.gpu
+def test_video_route_probe_and_no_quiet_fallback(cuda, tmp_path,
+                                                 monkeypatch):
+    """The probe names both routes; without libavcodec an H.264 open
+    raises instead of taking another decoder."""
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo.video_io import open_video
+    from rtpose_tpu_torch.native import avcodec
+    probe = _workflow_script("torch_probe_video").probe()
+    print(json.dumps(probe))
+    assert probe["libavcodec"]["h264"] == probe["libavcodec"]["mpeg4"] \
+        == "opens"
+    assert "library" in probe["nvdec"]
+    path = str(tmp_path / "v.mp4")
+    sv.write_ipcm_mp4(path, _ipcm_sequence(48, 64)[0])
+    monkeypatch.setattr(avcodec, "_libs", None)
+    monkeypatch.setattr(avcodec, "_library_dirs", lambda: [])
+    with pytest.raises(RuntimeError, match="no libavcodec found"):
+        open_video(path, device=cuda)

@@ -2,8 +2,8 @@
 of the JAX package, serves, takes a train step, builds and runs every
 model family, trains a BatchNorm family, draws a loader batch in a worker
 process and a native loader batch, rotates a sample, answers the
-training CLI's --help, runs the picture and video
-demos and answers an HTTP request without them, runs the webcam loop over a
+training CLI's --help, runs the picture and video demos, reads an H.264
+MP4 and answers an HTTP request without them, runs the webcam loop over a
 scripted camera and serves its browser view, imports the workflow
 scripts (scripts/torch_*.py), renders a scene and soaks the decode without
 them, and its
@@ -124,6 +124,17 @@ with tempfile.TemporaryDirectory() as root:
                 root + "/out.avi", "--batch", "2"] + small
     video_frames, _ = video_demo.main()
     video_out = open_video(root + "/out.avi").frame_count
+    from rtpose_tpu_torch.demo import scripted_video
+    scripted_video.write_ipcm_mp4(root + "/in.mp4", [scripted_video.bgr_to_yuv420(
+        frame)] * 2 + [None], rotation=90)
+    mp4_cap = open_video(root + "/in.mp4", device="cpu")
+    mp4_frames = []
+    while True:
+        ok, f = mp4_cap.read()
+        if not ok:
+            break
+        mp4_frames.append(list(f.shape))
+    mp4_cap.release()
     server = serve_http.serve(pipe, host="127.0.0.1", port=0)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
@@ -189,6 +200,7 @@ print(json.dumps({"modules": mods, "people": len(people),
                   "zoo": zoo, "bn_train_loss": bn_logs["loss"],
                   "loader": {k: list(v.shape) for k, v in batch.items()},
                   "video": [video_frames, video_out], "http": http_answer,
+                  "mp4": mp4_frames,
                   "webcam": webcam,
                   "native": {k: [str(v.dtype), list(v.shape)]
                              for k, v in native.items()},
@@ -223,7 +235,8 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
                 "native.imgpipe", "parallel.distributed", "parallel.mesh",
                 "parallel.sharding", "demo.web_demo", "demo.camera",
                 "demo.frame_view", "demo.scripted_camera",
-                "utils.text_glyphs"):
+                "utils.text_glyphs", "demo.mp4", "demo.scripted_video",
+                "native.avcodec"):
         assert f"rtpose_tpu_torch.{mod}" in res["modules"], mod
     assert res["eval_ap"] == 1.0
     assert res["train_loss"] > 0 and np.isfinite(res["train_loss"])
@@ -241,6 +254,7 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
                              "keypoints": [2, 32, 18, 3],
                              "mask": [2, 8, 8, 1], "image_id": [2]}
     assert res["video"] == [3, 3]
+    assert res["mp4"] == [[80, 60, 3]] * 3     # turned by its tag
     assert res["http"] == [200, [60, 80]]
     assert res["webcam"] == [3, 200, True]
     assert res["native"] == {

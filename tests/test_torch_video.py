@@ -8,14 +8,17 @@ package's video demo, on the CPU:
   decoder: the same count and size, other pixels);
 - ``open_video`` reads ``cv2.VideoWriter(..., 'MJPG')`` files of both of
   cv2's writers, frame for frame equal to ``cv2.VideoCapture``'s frames
-  (its Motion-JPEG backend), and refuses other containers and codecs
-  with an error naming them and ROADMAP.md queue 1 item 4;
+  (its Motion-JPEG backend), and refuses what it still does not read
+  (Matroska/WebM, MPEG-TS, HEVC, VP9, AV1, fragmented MP4, multi-entry
+  edit lists) with an error naming it and ROADMAP.md queue 1 item 4
+  (H.264 and MPEG-4 files: tests/test_torch_mp4.py);
 - the video demo's ``main()`` over an oracle-map pipeline finds, frame
   for frame, the people of the JAX video demo's ``main()`` over the same
   maps (part ids equal, pixel coordinates within 1e-4, scores within
   1e-5), and writes an AVI of as many frames of the input's size.
 """
 
+import struct
 import sys
 
 import cv2
@@ -135,20 +138,75 @@ def test_port_reads_cv2_mjpg_avi(tmp_path, api):
         np.testing.assert_array_equal(g, w)
 
 
-def test_open_video_refuses_other_containers(tmp_path):
-    path = str(tmp_path / "v.avi")
-    _write(path, _frames(2))
-    xvid = str(tmp_path / "xvid.avi")
-    open(xvid, "wb").write(open(path, "rb").read().replace(b"MJPG",
-                                                           b"XVID"))
-    with pytest.raises(ValueError, match="XVID.*item 4"):
-        open_video(xvid)
-    mp4 = str(tmp_path / "v.mp4")
-    open(mp4, "wb").write(b"\0\0\0\x18ftypmp42" + b"\0" * 64)
-    with pytest.raises(ValueError, match="not an AVI.*item 4"):
-        open_video(mp4)
-    with pytest.raises(FileNotFoundError):
-        open_video(str(tmp_path / "none.avi"))
+def _still_refused(tmp_path, kind):
+    """A file of `kind` that open_video refuses (or None: no file)."""
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    path = str(tmp_path / f"{kind}.bin")
+    if kind == "missing":
+        return path
+    if kind == "webm":
+        data = b"\x1a\x45\xdf\xa3\x9f\x42\x86\x81\x01" + b"\0" * 64
+    elif kind == "mpegts":
+        data = (b"\x47\x40\x00\x10" + b"\xff" * 184) * 4
+    elif kind == "wave":
+        data = b"RIFF\x24\0\0\0WAVEfmt " + b"\0" * 32
+    elif kind == "avi_wmv":
+        avi = str(tmp_path / "v.avi")
+        _write(avi, _frames(2))
+        data = open(avi, "rb").read().replace(b"MJPG", b"WMV3")
+    else:
+        pics = sv.yuv_frames(2, 48, 64)
+        sps, pps, units, keys = sv.encode_ipcm(pics)
+        data = sv.mux_mp4(sps, pps, units, keys, (64, 48))
+        if kind in ("hvc1", "vp09", "av01"):
+            data = data.replace(b"avc1", kind.encode()).replace(
+                b"avcC", {"hvc1": b"hvcC", "vp09": b"vpcC",
+                          "av01": b"av1C"}[kind])
+        elif kind == "fragmented":
+            data += sv.box(b"moof", sv.full_box(b"mfhd", 0, 0, b"\0" * 4))
+        elif kind == "mvex":
+            data = data.replace(b"mvhd", b"mvex")
+        elif kind == "elst2":
+            entry = struct.pack(">IiI", 40, 0, 1 << 16)
+            elst = sv.full_box(b"elst", 0, 0, struct.pack(">I", 2),
+                               entry, entry)
+            size = struct.unpack(">I", data[data.index(b"trak") - 4:][:4])[0]
+            at = data.index(b"tkhd") - 4
+            tkhd_end = at + struct.unpack(">I", data[at:at + 4])[0]
+            trak = data.index(b"trak") - 4
+            data = (data[:trak] + struct.pack(">I", size + 8 + len(elst))
+                    + data[trak + 4:tkhd_end] + sv.box(b"edts", elst)
+                    + data[tkhd_end:])
+            moov = data.index(b"moov") - 4
+            n = struct.unpack(">I", data[moov:moov + 4])[0]
+            data = (data[:moov] + struct.pack(">I", n + 8 + len(elst))
+                    + data[moov + 4:])
+        elif kind == "no_moov":
+            data = b"\0\0\0\x18ftypmp42" + b"\0" * 64
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+@pytest.mark.parametrize("kind,error", [
+    ("webm", "Matroska/WebM"), ("mpegts", "MPEG-TS"),
+    ("hvc1", "HEVC video"), ("vp09", "VP9 video"), ("av01", "AV1 video"),
+    ("fragmented", "fragmented MP4 .moof"),
+    ("mvex", "fragmented MP4 .mvex"), ("elst2", "edit list of 2 entries"),
+    ("no_moov", "no moov box"), ("wave", "not AVI"),
+    ("avi_wmv", "AVI video codec b'WMV3'"), ("missing", None)])
+def test_open_video_refuses_other_containers(tmp_path, kind, error):
+    """What the port still does not read (ROADMAP.md queue 1 item 4):
+    other containers, other codecs, fragmented MP4, multi-entry edit
+    lists; each error names it and item 4.  XVID AVI and MP4 are read
+    (tests/test_torch_mp4.py)."""
+    path = _still_refused(tmp_path, kind)
+    if error is None:
+        with pytest.raises(FileNotFoundError):
+            open_video(path)
+        return
+    with pytest.raises(ValueError, match=f"{error}.*item 4"):
+        open_video(path)
 
 
 def test_video_writer_checks_its_frames(tmp_path):
