@@ -115,6 +115,16 @@ entry points a user calls:
   cv2's frame count and frames; the flagship video demo on a 64-frame
   480x640 H.264 MP4 (frames/s, read ms a frame split into demux, decode
   and convert; K1, K3 and G once a batch, the conversion once a frame);
+  the probe's ``vp9`` decoder, ``mpeg4`` encoder, swscale and library
+  versions; the committed VP9 WebM, its superframe variant and this
+  machine's cv2's MPEG-4 (and, where it has libvpx, VP9) Matroska files
+  read equal to its cv2; I_PCM H.264 in Matroska (known and unknown
+  sizes) and B-frame H.264 MP4s (with and without the reorder hint) in
+  cv2's order with the known pixels; the XVID writer's packets against
+  cv2's on 16 rendered 480x640 frames, its ms a frame (swscale, encode)
+  beside the Motion-JPEG writer's; the flagship video demo on a 64-frame
+  480x640 MPEG-4 MKV writing XVID (frames/s, read and write ms a frame,
+  K1, K3 and G once a batch, the conversion once a frame);
   an open without libavcodec or without a card raises; each kernel row
   carries ``video_file_launches``, and the conversion's row stands
   beside the grouping kernel's;
@@ -3178,6 +3188,14 @@ def video_files_phase(dev, smi: str):
     t_phase = time.perf_counter()
     numbers = {"device": smi, "probe": probe()}
     log(f"phase 16 (video files): route probe {json.dumps(numbers['probe'])}")
+    found = numbers["probe"]["libavcodec"]
+    writer_probe = numbers["probe"]["writer"]
+    check(found.get("vp9") == "opens", f"video files: this machine's "
+          f"libavcodec gives no vp9 decoder: {found.get('vp9')}")
+    check(writer_probe.get("encoder") == "opens"
+          and all(writer_probe.get("options", {}).values()),
+          f"video files: the XVID writer's mpeg4 encoder, options or "
+          f"swscale are missing: {writer_probe}")
     h, w = VIDEO_FILE_SHAPE
     work = tempfile.mkdtemp(dir=os.path.join(ROOT, "rtpose_tpu_torch",
                                              "build"))
@@ -3326,6 +3344,142 @@ def video_files_phase(dev, smi: str):
                 check(len(frames) == len(want) == count == cap.frame_count
                       == 16, f"video files: {name}: {mpeg4[name]}")
         numbers["mpeg4"] = mpeg4 or "no cv2 on this machine"
+        check(cv2 is not None, "video files: no cv2 on this machine")
+
+        def read_all(cap):
+            frames = []
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    return frames
+                frames.append(frame)
+
+        def against_cv2(path):
+            """open_video on the card against this machine's cv2."""
+            cv = cv2.VideoCapture(path)
+            cv.set(cv2.CAP_PROP_ORIENTATION_AUTO, 1)
+            count, fps = (int(cv.get(cv2.CAP_PROP_FRAME_COUNT)),
+                          cv.get(cv2.CAP_PROP_FPS))
+            want = read_all(cv)
+            cv.release()
+            cap = video_io.open_video(path, device=dev)
+            got = read_all(cap)
+            cap.release()
+            diff = max((int(np.abs(a.astype(np.int16) - b).max())
+                        for a, b in zip(got, want)), default=-1)
+            out = {"frames": len(got), "cv2_frames": len(want),
+                   "frame_count": cap.frame_count, "cv2_frame_count": count,
+                   "fps": cap.fps, "cv2_fps": fps,
+                   "max_pixel_diff_vs_cv2": diff}
+            check(len(got) == len(want) == count == cap.frame_count
+                  and fps == cap.fps and diff == 0,
+                  f"video files: {os.path.basename(path)} against cv2 "
+                  f"{cv2.__version__}: {out}")
+            return out, got
+
+        # Matroska / WebM and VP9 against this machine's cv2
+        mkv_files = {}
+        t0 = time.perf_counter()
+        mkv_files["vp9_64x48.webm"], _ = against_cv2(sv.VP9_WEBM)
+        superframe = os.path.join(work, "superframe.webm")
+        sv.write_vp9_superframe(sv.VP9_WEBM, superframe)
+        mkv_files["superframe.webm"], _ = against_cv2(superframe)
+        for name, fourcc in (("xvid.mkv", "XVID"), ("vp9.webm", "VP90"),
+                             ("vp9.mp4", "VP90")):
+            path = os.path.join(work, name)
+            try:
+                sv.write_cv2_video(path, fourcc, 16, h, w)
+            except RuntimeError as e:      # the wheel may lack libvpx
+                check(fourcc == "VP90", f"video files: {e}")
+                mkv_files[name] = f"not written: {e}"
+                continue
+            mkv_files[name], _ = against_cv2(path)
+        # I_PCM H.264 in Matroska, known and unknown sizes: the planes
+        for name, kw in (("ipcm.mkv", {}),
+                         ("ipcm_live.mkv", dict(unknown_sizes=True))):
+            path = os.path.join(work, name)
+            sv.write_ipcm_mkv(path, seq, key_every=4, **kw)
+            mkv_files[name], frames = against_cv2(path)
+            want = [kernels.yuv420_to_bgr_plain(
+                *map(torch.from_numpy, p), width=w).numpy() for p in shown]
+            mkv_files[name]["differing_from_written"] = int(sum(
+                not np.array_equal(a, b) for a, b in zip(frames, want)))
+            check(not mkv_files[name]["differing_from_written"],
+                  f"video files: {name}: {mkv_files[name]}")
+        # B-frame H.264, with and without the reorder hint: cv2's order
+        anchors = sv.yuv_frames(5, h, w, seed=17)
+        for name, reorder, step in (("bframes.mp4", 1, 2),
+                                    ("bframes_nohint.mp4", None, 1),
+                                    ("bframes_nohint.mkv", None, 1)):
+            path = os.path.join(work, name)
+            bshown = sv.write_bframes(path, anchors, reorder=reorder,
+                                      poc_step=step,
+                                      container=name.rsplit(".", 1)[1])
+            mkv_files[name], frames = against_cv2(path)
+            want = [kernels.yuv420_to_bgr_plain(
+                *map(torch.from_numpy, p), width=w).numpy() for p in bshown]
+            mkv_files[name]["differing_from_known"] = int(sum(
+                not np.array_equal(a, b) for a, b in zip(frames, want)))
+            check(len(frames) == len(bshown) and not mkv_files[name][
+                "differing_from_known"], f"video files: {name}: "
+                                         f"{mkv_files[name]}")
+        mkv_files["seconds"] = time.perf_counter() - t0
+        numbers["matroska_vp9_bframes"] = mkv_files
+        log(f"video files: Matroska / VP9 / B-frames against cv2 "
+            f"{cv2.__version__}: {json.dumps(mkv_files)} [{smi}]")
+
+        # the XVID writer against this machine's cv2, and beside MJPG
+        writer_frames = scenes[:16]
+        cv2_path = os.path.join(work, "cv2_xvid.avi")
+        writer = cv2.VideoWriter(cv2_path, cv2.VideoWriter_fourcc(*"XVID"),
+                                 20.0, (w, h))
+        for frame in writer_frames:
+            writer.write(frame)
+        writer.release()
+        xvid = {"cv2": cv2.__version__}
+        for fourcc in ("XVID", "MJPG", "XVID"):   # the first XVID warms up
+            path = os.path.join(work, f"port_{fourcc}.avi")
+            writer = video_io.VideoWriter(path, 20.0, (w, h), fourcc=fourcc)
+            t0 = time.perf_counter()
+            for frame in writer_frames:
+                writer.write(frame)
+            writer.release()
+            total = time.perf_counter() - t0
+            xvid[fourcc] = {"ms_a_frame": total * 1e3 / len(writer_frames),
+                            **{f"{k}_ms_a_frame": v * 1e3 / len(writer_frames)
+                               for k, v in writer.seconds.items()}}
+
+        def packets(path):
+            with open(path, "rb") as f:
+                stream = video_io.AviStream(path, f)
+                out = []
+                for off, size in stream.frames:
+                    f.seek(off)
+                    out.append(f.read(size))
+            return out
+
+        ours = packets(os.path.join(work, "port_XVID.avi"))
+        theirs = packets(cv2_path)
+        differing = [i for i, (a, b) in enumerate(zip(ours, theirs))
+                     if a != b]
+        xvid["packets"] = {
+            "port": len(ours), "cv2": len(theirs),
+            "differing": len(differing) + abs(len(ours) - len(theirs)),
+            "differing_bytes": sum(
+                sum(x != y for x, y in zip(ours[i], theirs[i]))
+                + abs(len(ours[i]) - len(theirs[i])) for i in differing),
+            "equal": ours == theirs}
+        check(len(ours) == 16 and xvid["packets"]["equal"],
+              f"video files: the XVID writer's packets differ from cv2 "
+              f"{cv2.__version__}'s: {xvid['packets']}")
+        numbers["xvid_writer"] = xvid
+        log(f"video files: XVID writer on 16 frames 480x640: packets equal "
+            f"to cv2 {cv2.__version__}'s: {xvid['packets']['equal']}; "
+            f"{xvid['XVID']['ms_a_frame']:.3f} ms a frame (swscale "
+            f"{xvid['XVID']['convert_ms_a_frame']:.3f}, encode "
+            f"{xvid['XVID']['encode_ms_a_frame']:.3f}, write "
+            f"{xvid['XVID']['write_ms_a_frame']:.3f}); MJPG "
+            f"{xvid['MJPG']['ms_a_frame']:.3f} ms a frame [{smi}]")
 
         # the flagship video demo on a 64-frame H.264 MP4
         video = os.path.join(work, "in.mp4")
@@ -3364,11 +3518,58 @@ def video_files_phase(dev, smi: str):
               f"video files demo: K1, K3 and G not once a batch or the "
               f"conversion not once a frame: {counts}")
         split = {k: v * 1e3 / n for k, v in readers[0].seconds.items()}
-        numbers["demo"] = {
+        numbers["demo_mp4"] = {
             "frames": n, "seconds": video_s, "frames_per_s": n / video_s,
             "batch": 8, "input": "I_PCM H.264 MP4 480x640",
             "read_ms_a_frame": split,
-            "read_ms_a_frame_total": sum(split.values())}
+            "read_ms_a_frame_total": sum(split.values()),
+            "launches": counts}
+
+        # the flagship video demo on a 64-frame MPEG-4 MKV, writing XVID
+        video = os.path.join(work, "in.mkv")
+        sv.write_cv2_video(video, "XVID", VIDEO_FILE_FRAMES, h, w)
+        readers.clear()
+        writers = []
+
+        def recording_writer(*args, **kw):
+            writers.append(video_io.VideoWriter(*args, **kw))
+            return writers[-1]
+
+        sys.argv = (["video_demo", "--video", video, "--output", out,
+                     "--batch", "8"] + FRONTEND_FLAGS
+                    + ["--device", str(dev)])
+        video_demo.open_video = recording_open
+        video_demo.VideoWriter = recording_writer
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            n, video_s = video_demo.main()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        video_demo.open_video = video_io.open_video
+        video_demo.VideoWriter = video_io.VideoWriter
+        check(f"processed {VIDEO_FILE_FRAMES} frames" in text.getvalue()
+              and n == VIDEO_FILE_FRAMES and readers[0].codec == "mpeg4",
+              f"video files MKV demo: {text.getvalue()!r}")
+        check(all(counts[k] >= batches for k in SERVING_KERNELS)
+              and counts["yuv420_to_bgr"] == VIDEO_FILE_FRAMES
+              and counts["gt_maps"] == 0,
+              f"video files MKV demo: K1, K3 and G not once a batch or the "
+              f"conversion not once a frame: {counts}")
+        output, _ = against_cv2(out)
+        check(output["frames"] == VIDEO_FILE_FRAMES and writers[0].fourcc
+              == b"XVID", f"video files MKV demo output: {output}")
+        split = {k: v * 1e3 / n for k, v in readers[0].seconds.items()}
+        write = {k: v * 1e3 / n for k, v in writers[0].seconds.items()}
+        numbers["demo"] = {
+            "frames": n, "seconds": video_s, "frames_per_s": n / video_s,
+            "batch": 8, "input": f"MPEG-4 Part 2 MKV 480x640 (cv2 "
+                                 f"{cv2.__version__})",
+            "output": "XVID AVI", "output_against_cv2": output,
+            "read_ms_a_frame": split,
+            "read_ms_a_frame_total": sum(split.values()),
+            "write_ms_a_frame": write,
+            "write_ms_a_frame_total": sum(write.values())}
 
         # the reader alone on a compressed stream of the same scenes
         if cv2 is not None:
@@ -3417,15 +3618,20 @@ def video_files_phase(dev, smi: str):
     finally:
         sys.argv = argv
         video_demo.open_video = video_io.open_video
+        video_demo.VideoWriter = video_io.VideoWriter
         shutil.rmtree(work, ignore_errors=True)
     numbers["phase_s"] = time.perf_counter() - t_phase
-    demo = numbers["demo"]
-    log(f"phase 16 (video files): the flagship video demo on a "
-        f"{VIDEO_FILE_FRAMES}-frame 480x640 H.264 MP4 at --batch 8: "
-        f"{demo['frames_per_s']:.2f} frames/s; read "
-        f"{demo['read_ms_a_frame_total']:.3f} ms a frame "
-        f"({', '.join(f'{k} {v:.3f}' for k, v in demo['read_ms_a_frame'].items())}"
-        f"); launches {counts} [{smi}]")
+    for key, what in (("demo_mp4", "H.264 MP4"), ("demo", "MPEG-4 MKV")):
+        demo = numbers[key]
+        log(f"phase 16 (video files): the flagship video demo on a "
+            f"{VIDEO_FILE_FRAMES}-frame 480x640 {what} at --batch 8: "
+            f"{demo['frames_per_s']:.2f} frames/s; read "
+            f"{demo['read_ms_a_frame_total']:.3f} ms a frame "
+            f"({', '.join(f'{k} {v:.3f}' for k, v in demo['read_ms_a_frame'].items())}"
+            f"); write "
+            f"{demo.get('write_ms_a_frame_total', 'not measured')} ms a "
+            f"frame [{smi}]")
+    log(f"phase 16: launches in the MKV demo {counts} [{smi}]")
     log(f"video files: I_PCM planes exact ({numbers['ipcm_exact']}), "
         f"rotations {rotated}; MPEG-4 {json.dumps(numbers['mpeg4'])}; "
         f"mp4v reader {json.dumps(numbers.get('mp4v_reader'))}; phase "

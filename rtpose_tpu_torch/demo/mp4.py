@@ -4,8 +4,8 @@ video track's samples and what ``cv2.VideoCapture`` reports of it.
 Read boxes: ``ftyp``, ``moov/mvhd``, ``moov/trak/{tkhd, edts/elst,
 mdia/{mdhd, hdlr, minf/stbl}}``; of the sample table ``stsd`` (``avc1`` /
 ``avc3`` with ``avcC``; ``mp4v`` with ``esds`` and its
-DecoderSpecificInfo), ``stts``, ``ctts``, ``stsc``, ``stsz`` / ``stz2``,
-``stco`` / ``co64`` and ``stss``.
+DecoderSpecificInfo; ``vp09`` with ``vpcC``), ``stts``, ``ctts``,
+``stsc``, ``stsz`` / ``stz2``, ``stco`` / ``co64`` and ``stss``.
 
 - :attr:`Track.samples` are in decode order, ``(offset, size, dts, cts,
   key)``; ``key`` marks the sync samples of ``stss`` (every sample
@@ -15,10 +15,10 @@ DecoderSpecificInfo), ``stts``, ``ctts``, ``stsc``, ``stsz`` / ``stz2``,
   ``avcC`` SPS and PPS put ahead of each IDR picture that carries none
   (FFmpeg's ``h264_mp4toannexb``, which cv2's raw packets go through,
   start codes and all); MPEG-4 Part 2 as stored, the DecoderSpecificInfo
-  (VOS / VOL headers) ahead of the first sample.  Its key flag is
-  :func:`intra_picture`'s, the flag FFmpeg's parsers set and cv2
-  reports (``CAP_PROP_LRF_HAS_KEY_FRAME``): every intra-coded picture,
-  non-IDR I pictures of H.264 too.
+  (VOS / VOL headers) ahead of the first sample; VP9 frames as stored.
+  Its key flag is :func:`intra_picture`'s, the flag FFmpeg's parsers set
+  and cv2 reports (``CAP_PROP_LRF_HAS_KEY_FRAME``): every intra-coded
+  picture, non-IDR I pictures of H.264 too.
 - ``rotation`` is the clockwise turn cv2 reports as
   ``CAP_PROP_ORIENTATION_META`` and applies under
   ``CAP_PROP_ORIENTATION_AUTO`` (0/90/180/270), from the ``tkhd`` matrix
@@ -32,8 +32,8 @@ DecoderSpecificInfo), ``stts``, ``ctts``, ``stsc``, ``stsz`` / ``stz2``,
 
 Refused, with an error naming the box or codec and ROADMAP.md queue 1
 item 4: fragmented files (``moof`` / ``mvex``), edit lists of more than
-one entry, and every codec but H.264 and MPEG-4 Part 2 (HEVC, VP9, AV1,
-...).
+one entry, VP9 of a profile other than 0 (``vpcC``), and every codec but
+H.264, MPEG-4 Part 2 and VP9 (HEVC, AV1, ...).
 """
 
 from __future__ import annotations
@@ -45,8 +45,8 @@ from typing import BinaryIO, Dict, Iterator, List, NamedTuple, Optional, \
 
 CONTAINERS = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide",
               b"uuid", b"pdin", b"meta", b"moof", b"mfra", b"styp")
-OTHER_CODECS = {b"hvc1": "HEVC", b"hev1": "HEVC", b"vp09": "VP9",
-                b"vp08": "VP8", b"av01": "AV1", b"mp4a": "AAC audio",
+OTHER_CODECS = {b"hvc1": "HEVC", b"hev1": "HEVC", b"vp08": "VP8",
+                b"av01": "AV1", b"mp4a": "AAC audio",
                 b"jpeg": "Motion-JPEG", b"mjp2": "Motion JPEG 2000",
                 b"apch": "ProRes", b"apcn": "ProRes", b"dvh1": "Dolby Vision",
                 b"s263": "H.263"}
@@ -55,9 +55,10 @@ MPEG4_VISUAL = 0x20    # esds objectTypeIndication of MPEG-4 Part 2
 
 def refusal(path: str, what: str) -> ValueError:
     return ValueError(f"{path}: {what}; the video reader takes H.264 and "
-                      f"MPEG-4 Part 2 in MP4/MOV or AVI, and Motion-JPEG "
-                      f"AVI (other containers and codecs: ROADMAP.md "
-                      f"queue 1 item 4)")
+                      f"MPEG-4 Part 2 in MP4/MOV, AVI or Matroska, VP9 "
+                      f"(profile 0) in WebM, Matroska or MP4, and "
+                      f"Motion-JPEG AVI (other containers and codecs: "
+                      f"ROADMAP.md queue 1 item 4)")
 
 
 class Sample(NamedTuple):
@@ -191,7 +192,7 @@ def display_rotation(tkhd: List[List[int]], mvhd: List[List[int]]
 class Track:
     """The first video track of an MP4/MOV file."""
 
-    codec: str                     # "h264" or "mpeg4"
+    codec: str                     # "h264", "mpeg4" or "vp9"
     samples: List[Sample]
     timescale: int
     coded_size: Tuple[int, int]    # (w, h) of the sample entry
@@ -234,35 +235,39 @@ class Track:
             if len(data) != s.size:
                 raise ValueError(f"sample {i} runs past the end of the file")
             if self.codec == "h264":
-                data = self.annexb(data)
-            elif i == 0:
+                data = annexb(data, self.nal_length, self.sps, self.pps)
+            elif self.codec == "mpeg4" and i == 0:
                 data = self.decoder_info + data
             yield data, intra_picture(self.codec, data)
 
-    def annexb(self, sample: bytes) -> bytes:
-        """One H.264 sample as Annex-B, as h264_mp4toannexb writes it."""
-        out: List[bytes] = []
-        n, at = self.nal_length, 0
-        sets_seen = False
-        while at + n <= len(sample):
-            size = int.from_bytes(sample[at:at + n], "big")
-            unit = sample[at + n:at + n + size]
-            if size == 0 or len(unit) != size:
-                raise ValueError(f"an H.264 NAL unit of {size} bytes runs "
-                                 f"past its sample")
-            kind = unit[0] & 0x1F
-            if kind in (7, 8):
-                sets_seen = True
-            elif kind == 5 and not sets_seen and unit[1] & 0x80:
-                # an IDR picture's first slice, no parameter sets before it
-                for ps in (*self.sps, *self.pps):
-                    out.append(b"\x00\x00\x00\x01" + ps)
-                sets_seen = True
-            code = (b"\x00\x00\x00\x01" if not out or kind in (7, 8)
-                    else b"\x00\x00\x01")
-            out.append(code + unit)
-            at += n + size
-        return b"".join(out)
+
+def annexb(sample: bytes, nal_length: int, sps: List[bytes],
+           pps: List[bytes]) -> bytes:
+    """One H.264 sample of `nal_length`-byte length-prefixed NAL units as
+    Annex-B, as h264_mp4toannexb writes it: the parameter sets `sps` and
+    `pps` (``avcC``'s) go ahead of an IDR picture that carries none."""
+    out: List[bytes] = []
+    n, at = nal_length, 0
+    sets_seen = False
+    while at + n <= len(sample):
+        size = int.from_bytes(sample[at:at + n], "big")
+        unit = sample[at + n:at + n + size]
+        if size == 0 or len(unit) != size:
+            raise ValueError(f"an H.264 NAL unit of {size} bytes runs "
+                             f"past its sample")
+        kind = unit[0] & 0x1F
+        if kind in (7, 8):
+            sets_seen = True
+        elif kind == 5 and not sets_seen and unit[1] & 0x80:
+            # an IDR picture's first slice, no parameter sets before it
+            for ps in (*sps, *pps):
+                out.append(b"\x00\x00\x00\x01" + ps)
+            sets_seen = True
+        code = (b"\x00\x00\x00\x01" if not out or kind in (7, 8)
+                else b"\x00\x00\x01")
+        out.append(code + unit)
+        at += n + size
+    return b"".join(out)
 
 
 def _ue(bits: str, at: int) -> Tuple[int, int]:
@@ -275,8 +280,16 @@ def _ue(bits: str, at: int) -> Tuple[int, int]:
 
 
 def intra_picture(codec: str, packet: bytes) -> bool:
-    """Whether a packet (H.264 Annex-B, or MPEG-4 Part 2) holds an
-    intra-coded picture: an IDR slice or an I / SI slice first; an I-VOP."""
+    """Whether a packet (H.264 Annex-B, MPEG-4 Part 2 or VP9) holds an
+    intra-coded picture: an IDR slice or an I / SI slice first; an I-VOP;
+    a VP9 key frame (its uncompressed header's frame_type 0, not a
+    shown existing frame)."""
+    if codec == "vp9":
+        if not packet or packet[0] >> 6 != 2:
+            return False
+        bits = f"{packet[0]:08b}"
+        at = 5 if bits[2:4] == "11" else 4       # profile 3: a reserved bit
+        return bits[at] == "0" and bits[at + 1] == "0"
     if codec == "mpeg4":
         at = packet.find(b"\x00\x00\x01\xb6")
         return 0 <= at < len(packet) - 4 and packet[at + 4] >> 6 == 0
@@ -336,6 +349,16 @@ def _sample_table(path: str, data: bytes, s: int, e: int, track: Track
             raise refusal(path, f"mp4v with objectTypeIndication 0x{oti:02x}"
                                 f" (not MPEG-4 Part 2)")
         track.codec = "mpeg4"
+    elif kind == b"vp09":
+        if b"vpcC" not in config:
+            raise refusal(path, "the vp09 entry has no vpcC box")
+        _, at = _full(data, config[b"vpcC"][0])
+        profile, depth = data[at], data[at + 2] >> 4
+        if profile or depth != 8:
+            raise refusal(path, f"VP9 profile {profile} video of {depth} "
+                                f"bits (vpcC: only profile 0, 8-bit 4:2:0, "
+                                f"is read)")
+        track.codec = "vp9"
     else:
         name = OTHER_CODECS.get(kind, "codec")
         raise refusal(path, f"{name} video ({kind.decode('latin-1')!r} "

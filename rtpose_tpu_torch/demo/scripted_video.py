@@ -27,6 +27,7 @@ this writer makes the fixtures.
 
 from __future__ import annotations
 
+import os
 import re
 import struct
 from typing import List, Optional, Sequence, Tuple
@@ -34,11 +35,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 PROFILE_BASELINE = 66
+PROFILE_MAIN = 77
+LOG2_MAX_POC_LSB = 8        # Main-profile streams: pic_order_cnt_type 0
 LEVEL = 40                  # 4.0: 8192 macroblocks a frame, up to 2048x1024
 LOG2_MAX_FRAME_NUM = 4
 I_PCM = 25                  # mb_type of I_PCM in an I slice
 NAL_SLICE, NAL_IDR, NAL_SPS, NAL_PPS = 1, 5, 7, 8
-SLICE_P, SLICE_I = 5, 7     # slice_type + 5: every slice of the picture
+SLICE_P, SLICE_B, SLICE_I = 5, 6, 7   # slice_type + 5: every slice
 MATRICES = {                # tkhd matrix (a, b, c, d) per cv2 rotation
     0: (1, 0, 0, 1), 90: (0, 1, -1, 0), 180: (-1, 0, 0, -1),
     270: (0, -1, 1, 0)}
@@ -89,15 +92,25 @@ def _mbs(h: int, w: int) -> Tuple[int, int]:
     return (h + 15) // 16, (w + 15) // 16
 
 
-def sps(h: int, w: int) -> bytes:
+def sps(h: int, w: int, main: bool = False,
+        reorder: Optional[int] = 0) -> bytes:
+    """The SPS: Baseline, ``pic_order_cnt_type`` 2, one reference; or
+    `main`: Main profile, ``pic_order_cnt_type`` 0 (each slice carries its
+    ``pic_order_cnt_lsb``), two references, for B pictures.  `reorder` is
+    the VUI's ``max_num_reorder_frames``; None writes no VUI, as many
+    phone encoders do, and leaves the decoder to guess the delay."""
     if h % 2 or w % 2 or h <= 0 or w <= 0:
         raise ValueError(f"4:2:0 frames have an even size, got {h}x{w}")
     mbh, mbw = _mbs(h, w)
-    b = BitWriter().u(8, PROFILE_BASELINE).u(8, 0xC0).u(8, LEVEL)
+    b = BitWriter().u(8, PROFILE_MAIN if main else PROFILE_BASELINE)
+    b.u(8, 0x40 if main else 0xC0).u(8, LEVEL)
     b.ue(0)                                   # seq_parameter_set_id
     b.ue(LOG2_MAX_FRAME_NUM - 4)
-    b.ue(2)                                   # pic_order_cnt_type
-    b.ue(1)                                   # max_num_ref_frames
+    if main:
+        b.ue(0).ue(LOG2_MAX_POC_LSB - 4)      # pic_order_cnt_type 0
+    else:
+        b.ue(2)                               # pic_order_cnt_type
+    b.ue(2 if main else 1)                    # max_num_ref_frames
     b.u(1, 0)                                 # gaps_in_frame_num_allowed
     b.ue(mbw - 1).ue(mbh - 1)
     b.u(1, 1).u(1, 1)                         # frame_mbs_only, direct_8x8
@@ -105,12 +118,13 @@ def sps(h: int, w: int) -> bytes:
     b.u(1, int(bool(crop_x or crop_y)))
     if crop_x or crop_y:                      # in 2-sample units (4:2:0)
         b.ue(0).ue(crop_x).ue(0).ue(crop_y)
-    b.u(1, 1)                                 # vui_parameters_present
-    b.u(1, 0).u(1, 0).u(1, 0).u(1, 0)         # aspect, overscan, signal, loc
-    b.u(1, 0).u(1, 0).u(1, 0).u(1, 0)         # timing, nal/vcl hrd, pic_struct
-    b.u(1, 1)                                 # bitstream_restriction
-    b.u(1, 1).ue(0).ue(0).ue(16).ue(16)       # mv bounds, bytes, mv lengths
-    b.ue(0).ue(1)                             # reorder 0, dec buffering 1
+    b.u(1, int(reorder is not None))          # vui_parameters_present
+    if reorder is not None:
+        b.u(1, 0).u(1, 0).u(1, 0).u(1, 0)     # aspect, overscan, signal, loc
+        b.u(1, 0).u(1, 0).u(1, 0).u(1, 0)     # timing, nal/vcl hrd, pic_struct
+        b.u(1, 1)                             # bitstream_restriction
+        b.u(1, 1).ue(0).ue(0).ue(16).ue(16)   # mv bounds, bytes, mv lengths
+        b.ue(reorder).ue(reorder + 1)         # reorder, dec buffering
     return nal(NAL_SPS, 3, b.trailing().bytes())
 
 
@@ -123,14 +137,25 @@ def pps() -> bytes:
     return nal(NAL_PPS, 3, b.trailing().bytes())
 
 
-def _header(kind: str, frame_num: int, idr_id: int) -> BitWriter:
-    b = BitWriter().ue(0).ue(SLICE_P if kind == "P" else SLICE_I).ue(0)
+def _header(kind: str, frame_num: int, idr_id: int,
+            poc: Optional[int] = None) -> BitWriter:
+    """A slice header of `kind` ("IDR", "I", "P" or "B", the last a
+    non-reference picture); `poc` is its picture order count where the
+    SPS has ``pic_order_cnt_type`` 0."""
+    slice_type = {"P": SLICE_P, "B": SLICE_B}.get(kind, SLICE_I)
+    b = BitWriter().ue(0).ue(slice_type).ue(0)
     b.u(LOG2_MAX_FRAME_NUM, frame_num % (1 << LOG2_MAX_FRAME_NUM))
     if kind == "IDR":
         b.ue(idr_id)
-    if kind == "P":
+    if poc is not None:
+        b.u(LOG2_MAX_POC_LSB, poc % (1 << LOG2_MAX_POC_LSB))
+    if kind == "B":
+        b.u(1, 1)                             # direct_spatial_mv_pred
+    if kind in ("P", "B"):
         b.u(1, 0).u(1, 0)                     # no ref override, no reorder
-    if kind == "IDR":
+    if kind == "B":
+        b.u(1, 0)                             # no list 1 reorder
+    elif kind == "IDR":
         b.u(1, 0).u(1, 0)                     # dec_ref_pic_marking
     else:
         b.u(1, 0)                             # sliding window
@@ -155,13 +180,18 @@ def pcm_macroblocks(y: np.ndarray, u: np.ndarray, v: np.ndarray
 
 
 def ipcm_slice(kind: str, frame_num: int, idr_id: int,
-               planes: Optional[Tuple[np.ndarray, ...]], n_mb: int) -> bytes:
+               planes: Optional[Tuple[np.ndarray, ...]], n_mb: int,
+               poc: Optional[int] = None) -> bytes:
     """One slice NAL unit of a picture: `kind` "IDR" or "I" with `planes`
-    (y, u, v) as I_PCM macroblocks, or "P" skipping all `n_mb`."""
-    b = _header(kind, frame_num, idr_id)
-    if kind == "P":
+    (y, u, v) as I_PCM macroblocks, or "P" skipping all `n_mb`, or "B"
+    (a non-reference picture) skipping all `n_mb`: B_Skip with spatial
+    direct prediction from the two anchors around it, each sample their
+    rounded mean."""
+    b = _header(kind, frame_num, idr_id, poc)
+    if kind in ("P", "B"):
         b.ue(n_mb)                            # mb_skip_run: all of them
-        return nal(NAL_SLICE, 2, b.trailing().bytes())
+        return nal(NAL_SLICE, 2 if kind == "P" else 0,
+                   b.trailing().bytes())
     # the first macroblock's type follows the header bits; every later one
     # starts byte-aligned after the previous samples: ue(25) = 0000 1101 0
     # and seven alignment zeros, the bytes 0x0d 0x00
@@ -209,6 +239,39 @@ def encode_ipcm(frames: Sequence[Optional[Tuple[np.ndarray, ...]]],
     return sps(h, w), pps(), units, keys
 
 
+def encode_ipcm_bframes(anchors: Sequence[Tuple[np.ndarray, ...]],
+                        reorder: Optional[int] = 1, poc_step: int = 2
+                        ) -> Tuple[bytes, bytes, List[bytes], List[bool],
+                                   List[int], List[Tuple[np.ndarray, ...]]]:
+    """A Main-profile stream of I_PCM anchors with one B picture between
+    each two, as cameras and phones encode (IBP... in display order):
+    (sps, pps, access units in decode order, key flags, each unit's
+    display index, the frames in display order).  The anchors are
+    reference I pictures (the first an IDR); each B picture is wholly
+    B_Skip, so each of its samples is ``(a + b + 1) >> 1`` of the anchors
+    before and after it: known pixels.  Decode order is A0 A1 B A2 B ...;
+    the picture order count is `poc_step` times the display index (2, as
+    x264 and most encoders write it).  `reorder` goes to the SPS (None:
+    no VUI, the decoder guesses the delay)."""
+    h, w = anchors[0][0].shape
+    mbh, mbw = _mbs(h, w)
+    n_mb = mbh * mbw
+    units = [ipcm_slice("IDR", 0, 0, anchors[0], n_mb, poc=0)]
+    shown, order = [anchors[0]], [0]
+    for k in range(1, len(anchors)):
+        a, b = anchors[k - 1], anchors[k]
+        units.append(ipcm_slice("I", k, 0, b, n_mb,
+                                poc=poc_step * 2 * k))
+        units.append(ipcm_slice("B", k + 1, 0, None, n_mb,
+                                poc=poc_step * (2 * k - 1)))
+        order += [2 * k, 2 * k - 1]
+        shown += [tuple(((x.astype(np.uint16) + y + 1) >> 1).astype(np.uint8)
+                        for x, y in zip(a, b)), b]
+    keys = [True] + [False] * (len(units) - 1)
+    return (sps(h, w, main=True, reorder=reorder), pps(), units, keys,
+            order, shown)
+
+
 def annexb(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes]) -> bytes:
     """The stream as Annex-B: start codes, parameter sets first."""
     return b"".join(b"\x00\x00\x00\x01" + n for n in (sps_nal, pps_nal,
@@ -235,6 +298,24 @@ def _matrix(rotation: int) -> bytes:
                        0, 0, 1 << 30)
 
 
+def visual_entry(kind: bytes, size: Tuple[int, int], *config: bytes
+                 ) -> bytes:
+    """An ``stsd`` VisualSampleEntry of `kind` for (w, h) frames."""
+    w, h = size
+    return box(kind, b"\0" * 6, struct.pack(">H", 1), b"\0" * 16,
+               struct.pack(">HHIIIH", w, h, 0x480000, 0x480000, 0, 1),
+               b"\0" * 32, struct.pack(">Hh", 0x18, -1), *config)
+
+
+def vp09_entry(size: Tuple[int, int], profile: int = 0, depth: int = 8
+               ) -> bytes:
+    """A ``vp09`` sample entry with its ``vpcC`` (VP Codec ISO Media File
+    Format Binding 1.0: profile, level 3.1, bit depth, 4:2:0, BT.709)."""
+    return visual_entry(b"vp09", size, full_box(
+        b"vpcC", 1, 0, bytes([profile, 31, (depth << 4) | (1 << 1), 1, 1,
+                              1]), b"\0\0"))
+
+
 def avcc(sps_nal: bytes, pps_nal: bytes) -> bytes:
     return box(b"avcC", bytes([1, sps_nal[1], sps_nal[2], sps_nal[3], 0xFF,
                                0xE1]),
@@ -247,7 +328,9 @@ def mux_mp4(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes],
             timescale: int = 12800, delta: int = 512, rotation: int = 0,
             samples_per_chunk: int = 0, co64: bool = False,
             composition_shift: int = 0,
-            edit_start: Optional[int] = None) -> bytes:
+            composition_offsets: Optional[Sequence[int]] = None,
+            edit_start: Optional[int] = None,
+            entry: Optional[bytes] = None) -> bytes:
     """An MP4 of one H.264 track: samples of 4-byte-length-prefixed NAL
     units, `delta` / `timescale` seconds each.  `size` is (w, h) before
     rotation; `rotation` (0/90/180/270) is the clockwise turn cv2 applies
@@ -256,11 +339,16 @@ def mux_mp4(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes],
     `composition_shift` > 0 writes every sample's composition time that
     much late (``ctts``) and an edit list that starts the presentation
     there, as muxers do for streams with B-frames, or at `edit_start`
-    (media units) where given."""
+    (media units) where given; `composition_offsets` gives each sample's
+    own offset (B-frames: display time minus decode time, shifted to be
+    positive) with an edit list at `edit_start`.  `entry` replaces the
+    ``avc1`` sample entry (another codec's, e.g. :func:`vp09_entry`); the
+    `units` are then the samples as they are."""
     if rotation not in MATRICES:
         raise ValueError(f"rotation {rotation} is not one of 0/90/180/270")
     w, h = size
-    samples = [struct.pack(">I", len(u)) + u for u in units]
+    samples = (list(units) if entry is not None else
+               [struct.pack(">I", len(u)) + u for u in units])
     n = len(samples)
     per = samples_per_chunk or n
     chunks = [samples[i:i + per] for i in range(0, n, per)]
@@ -274,13 +362,15 @@ def mux_mp4(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes],
         at += sum(map(len, c))
     duration = n * delta
     movie_duration = duration * 1000 // timescale
-    entry = box(b"avc1", b"\0" * 6, struct.pack(">H", 1), b"\0" * 16,
-                struct.pack(">HHIIIH", w, h, 0x480000, 0x480000, 0, 1),
-                b"\0" * 32, struct.pack(">Hh", 0x18, -1),
-                avcc(sps_nal, pps_nal))
+    if entry is None:
+        entry = visual_entry(b"avc1", (w, h), avcc(sps_nal, pps_nal))
     stbl = [full_box(b"stsd", 0, 0, struct.pack(">I", 1), entry),
             full_box(b"stts", 0, 0, struct.pack(">III", 1, n, delta))]
-    if composition_shift:
+    if composition_offsets is not None:
+        stbl.append(full_box(b"ctts", 0, 0, struct.pack(
+            f">I{2 * n}I", n, *(v for off in composition_offsets
+                                for v in (1, off)))))
+    elif composition_shift:
         stbl.append(full_box(b"ctts", 0, 0, struct.pack(
             ">III", 1, n, composition_shift)))
     sync = [i + 1 for i, k in enumerate(keys) if k]
@@ -367,3 +457,223 @@ def write_ipcm_mp4(path: str, frames, *, fps_timescale: Tuple[int, int] = (
         f.write(mux_mp4(s, p, units, keys, (w, h), timescale=timescale,
                         delta=delta, **mux))
     return s, p, units
+
+
+# ---------------------------------------------------------------------------
+# Matroska (EBML) muxing
+# ---------------------------------------------------------------------------
+
+UNKNOWN_SIZE = b"\x01\xff\xff\xff\xff\xff\xff\xff"
+CLUSTER_BLOCKS = 8
+
+
+def ebml(eid: int, *payload: bytes, unknown: bool = False) -> bytes:
+    """An EBML element: its ID, its size (the shortest form; all ones
+    for `unknown`), its payload."""
+    data = b"".join(payload)
+    head = eid.to_bytes((eid.bit_length() + 7) // 8, "big")
+    if unknown:
+        return head + UNKNOWN_SIZE + data
+    n = 1
+    while len(data) >= (1 << (7 * n)) - 1:
+        n += 1
+    return head + ((1 << (7 * n)) | len(data)).to_bytes(n, "big") + data
+
+
+def ebml_uint(eid: int, value: int) -> bytes:
+    return ebml(eid, value.to_bytes(max(1, (value.bit_length() + 7) // 8),
+                                    "big"))
+
+
+def ebml_float(eid: int, value: float) -> bytes:
+    return ebml(eid, struct.pack(">d", value))
+
+
+def mux_mkv(codec_id: str, packets: Sequence[Tuple[bytes, bool]],
+            size: Tuple[int, int], *, fps: float = 20.0,
+            codec_private: bytes = b"", timecodes: Optional[Sequence[int]]
+            = None, unknown_sizes: bool = False, duration: bool = True,
+            default_duration: bool = True, block_groups: bool = False,
+            roll: Optional[float] = None,
+            yaw: float = 0.0,
+            doc_type: str = "matroska") -> bytes:
+    """A Matroska / WebM file of one video track: `packets` (bytes, key)
+    in decode order as blocks, ``Timecode`` units of 1 ms (`timecodes`
+    in ms, by default frame i at round(1000 i / fps)), 8 blocks a
+    Cluster.  `size` is (w, h); `codec_private` the track's
+    ``CodecPrivate``.  `unknown_sizes` writes the ``Segment`` and every
+    ``Cluster`` with an unknown size, as live muxers do; `duration` and
+    `default_duration` write ``Info/Duration`` and the track's
+    ``DefaultDuration``; `block_groups` writes ``BlockGroup`` / ``Block``
+    with a ``ReferenceBlock`` for each non-key block in place of
+    ``SimpleBlock``; `roll` a ``Projection`` with ``ProjectionPoseRoll``
+    (and `yaw`, ``ProjectionPoseYaw``).
+    A ``Tags`` element follows the Clusters."""
+    from . import mkv
+
+    n = len(packets)
+    if timecodes is None:
+        timecodes = [round(1000 * i / fps) for i in range(n)]
+    info = [ebml_uint(mkv.TIMECODE_SCALE, 1000000),
+            ebml(0x4D80, b"scripted_video"), ebml(0x5741, b"scripted_video")]
+    if duration:
+        info.append(ebml_float(mkv.DURATION, max(timecodes) + 1000 / fps))
+    w, h = size
+    video = [ebml_uint(mkv.PIXEL_WIDTH, w), ebml_uint(mkv.PIXEL_HEIGHT, h)]
+    if roll is not None:
+        video.append(ebml(mkv.PROJECTION, ebml_uint(mkv.PROJECTION_TYPE, 0),
+                          ebml_float(mkv.POSE_YAW, yaw),
+                          ebml_float(mkv.POSE_ROLL, roll)))
+    entry = [ebml_uint(mkv.TRACK_NUMBER, 1), ebml_uint(0x73C5, 1),
+             ebml_uint(mkv.TRACK_TYPE, mkv.TRACK_VIDEO),
+             ebml(mkv.CODEC_ID, codec_id.encode())]
+    if codec_private:
+        entry.append(ebml(mkv.CODEC_PRIVATE, codec_private))
+    if default_duration:
+        entry.append(ebml_uint(mkv.DEFAULT_DURATION, round(1e9 / fps)))
+    entry.append(ebml(mkv.VIDEO, *video))
+    body = [ebml(mkv.INFO, *info),
+            ebml(mkv.TRACKS, ebml(mkv.TRACK_ENTRY, *entry))]
+    for c in range(0, n, CLUSTER_BLOCKS):
+        base = timecodes[c]
+        blocks = [ebml_uint(mkv.TIMECODE, base)]
+        for i in range(c, min(c + CLUSTER_BLOCKS, n)):
+            data, key = packets[i]
+            head = b"\x81" + struct.pack(">h", timecodes[i] - base)
+            if block_groups:
+                group = [ebml(mkv.BLOCK, head, b"\x00", data)]
+                if not key:
+                    group.append(ebml(mkv.REFERENCE_BLOCK, struct.pack(
+                        ">h", round(-1000 / fps))))
+                blocks.append(ebml(mkv.BLOCK_GROUP, *group))
+            else:
+                blocks.append(ebml(mkv.SIMPLE_BLOCK, head,
+                                   b"\x80" if key else b"\x00", data))
+        body.append(ebml(mkv.CLUSTER, *blocks, unknown=unknown_sizes))
+    body.append(ebml(0x1254C367, ebml(0x7373, ebml(0x63C0), ebml(
+        0x67C8, ebml(0x45A3, b"ENCODER"), ebml(0x4487, b"scripted_video")))))
+    header = ebml(mkv.EBML, ebml_uint(0x4286, 1), ebml_uint(0x42F7, 1),
+                  ebml_uint(0x42F2, 4), ebml_uint(0x42F3, 8),
+                  ebml(mkv.DOC_TYPE, doc_type.encode()),
+                  ebml_uint(0x4287, 4), ebml_uint(0x4285, 2))
+    return header + ebml(mkv.SEGMENT, *body, unknown=unknown_sizes)
+
+
+def avcc_record(sps_nal: bytes, pps_nal: bytes) -> bytes:
+    """The ``avcC`` record (an MP4 box's payload; Matroska's
+    ``CodecPrivate`` of ``V_MPEG4/ISO/AVC``)."""
+    return avcc(sps_nal, pps_nal)[8:]
+
+
+def write_ipcm_mkv(path: str, frames, *, key_every: int = 0, **mux
+                   ) -> Tuple[bytes, bytes, List[bytes]]:
+    """Write `frames` (see :func:`encode_ipcm`) as I_PCM H.264 in
+    Matroska (``V_MPEG4/ISO/AVC``, 4-byte NAL lengths); returns (sps, pps,
+    access units)."""
+    s, p, units, keys = encode_ipcm(frames, key_every)
+    h, w = frames[0][0].shape
+    packets = [(struct.pack(">I", len(u)) + u, k) for u, k in zip(units,
+                                                                   keys)]
+    with open(path, "wb") as f:
+        f.write(mux_mkv("V_MPEG4/ISO/AVC", packets, (w, h),
+                        codec_private=avcc_record(s, p), **mux))
+    return s, p, units
+
+
+def write_bframes(path: str, anchors, *, reorder: Optional[int] = 1,
+                  container: str = "mp4", fps: float = 20.0,
+                  poc_step: int = 2) -> List[Tuple[np.ndarray, ...]]:
+    """Write :func:`encode_ipcm_bframes`' stream of `anchors` to `path` as
+    an MP4 (``ctts`` offsets and an edit list one frame in, as muxers write
+    B-frames) or a Matroska file (``container="mkv"``: blocks in decode
+    order carrying their display times); returns the frames in display
+    order."""
+    s, p, units, keys, order, shown = encode_ipcm_bframes(anchors, reorder,
+                                                          poc_step)
+    h, w = anchors[0][0].shape
+    if container == "mp4":
+        timescale, delta = 12800, round(12800 / fps)
+        data = mux_mp4(s, p, units, keys, (w, h), timescale=timescale,
+                       delta=delta, composition_offsets=[
+                           (d + 1 - i) * delta for i, d in enumerate(order)],
+                       edit_start=delta)
+    else:
+        packets = [(struct.pack(">I", len(u)) + u, k)
+                   for u, k in zip(units, keys)]
+        data = mux_mkv("V_MPEG4/ISO/AVC", packets, (w, h), fps=fps,
+                       codec_private=avcc_record(s, p),
+                       timecodes=[round(1000 * d / fps) for d in order])
+    with open(path, "wb") as f:
+        f.write(data)
+    return shown
+
+
+# ---------------------------------------------------------------------------
+# VP9 fixtures: cv2's WebM, and a superframe made of it
+# ---------------------------------------------------------------------------
+
+VP9_WEBM = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "vp9_64x48.webm")
+VP9_WEBM_FRAMES, VP9_WEBM_FPS = 16, 20.0
+
+
+def write_cv2_video(path: str, fourcc: str, n: int, h: int, w: int,
+                    fps: float = 20.0) -> None:
+    """`n` rendered scenes (``data.imread_fixtures.render_scene``) written
+    by the installed cv2's ``VideoWriter`` with `fourcc`.  Needs cv2 (the
+    port never imports it; tests and ``chip_smoke.py`` do)."""
+    import cv2
+
+    from ..data.imread_fixtures import render_scene
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), fps,
+                             (w, h))
+    if not writer.isOpened():
+        raise RuntimeError(f"cv2 {cv2.__version__} writes no {fourcc} "
+                           f"{os.path.splitext(path)[1]} file")
+    for i in range(n):
+        writer.write(np.ascontiguousarray(render_scene(i, h, w)))
+    writer.release()
+
+
+def superframe(frames: Sequence[bytes]) -> bytes:
+    """VP9 frames in one superframe: the frames, then the index (a marker
+    byte, each frame's size in 4 little-endian bytes, the marker again)."""
+    marker = 0xC0 | (3 << 3) | (len(frames) - 1)
+    index = bytes([marker]) + b"".join(struct.pack("<I", len(f))
+                                       for f in frames) + bytes([marker])
+    return b"".join(frames) + index
+
+
+def write_vp9_superframe(src: str, dst: str) -> int:
+    """Rewrite the VP9 WebM `src` (profile 0, a key frame first) to `dst`
+    with a superframe in its first block, as libvpx's alt-ref frames
+    come: the key frame hidden (its show_frame bit cleared) and the second
+    frame, shown, in one block; the other blocks as they were.  The key
+    frame still refreshes every reference, so the rest decodes as before;
+    the picture of the key frame is not shown.  Returns the blocks
+    written (the frames shown)."""
+    from . import mkv
+
+    with open(src, "rb") as f:
+        track = mkv.read_track(src, f)
+        data = []
+        for b in track.blocks:
+            f.seek(b.offset)
+            data.append(f.read(b.size))
+    key = data[0]
+    if key[0] & 0xF6 != 0x82:
+        raise ValueError(f"{src}: the first VP9 frame is not a shown "
+                         f"profile-0 key frame")
+    hidden = bytes([key[0] & ~0x02]) + key[1:]
+    packets = [(superframe([hidden, data[1]]), True)] + [
+        (d, b.key) for d, b in zip(data[2:], track.blocks[2:])]
+    with open(dst, "wb") as f:
+        f.write(mux_mkv("V_VP9", packets, track.coded_size, fps=track.fps,
+                        doc_type="webm"))
+    return len(packets)
+
+
+if __name__ == "__main__":
+    # remake the committed VP9 WebM (needs cv2 with libvpx)
+    write_cv2_video(VP9_WEBM, "VP90", VP9_WEBM_FRAMES, 48, 64, VP9_WEBM_FPS)
+    print(VP9_WEBM, os.path.getsize(VP9_WEBM))

@@ -8,11 +8,13 @@ the card before batch k is collected, drawn and written.
         --output out.avi --batch 8
 
 Reads what the JAX demo reads through cv2 (``demo/video_io.py``):
-H.264 and MPEG-4 Part 2 (XVID, ``mp4v``) in MP4/MOV or AVI, turned by the
-file's rotation tag as cv2's ``CAP_PROP_ORIENTATION_AUTO`` turns them,
-and Motion-JPEG AVI.  Writes Motion-JPEG AVI; the JAX demo writes XVID
-through cv2.  Runs on the card (``--device cuda``, the default: the
-decoded frames are converted to BGR there); ``--device cpu`` for tests.
+H.264 and MPEG-4 Part 2 (XVID, ``mp4v``) in MP4/MOV, AVI or Matroska,
+VP9 in WebM, Matroska or MP4, turned by the file's rotation tag as cv2's
+``CAP_PROP_ORIENTATION_AUTO`` turns them, and Motion-JPEG AVI.  Writes
+XVID AVI, as the JAX demo does through cv2, with cv2's encoder and
+settings (``native/avencode.py``: its packets are cv2's, byte for byte).
+Runs on the card (``--device cuda``, the default: the decoded frames are
+converted to BGR there); ``--device cpu`` for tests.
 Frames smaller than ``--input-size`` are scaled on the card and larger
 ones on the host (the pipeline's ``"auto"``), as in the JAX demo;
 ``--no-device-resize`` scales every frame on the host.
@@ -69,7 +71,8 @@ def main():
             out = draw_people(frame, people, meta)
             if writer is None:
                 writer = VideoWriter(args.output, args.fps,
-                                     (out.shape[1], out.shape[0]))
+                                     (out.shape[1], out.shape[0]),
+                                     fourcc="XVID")
             writer.write(out)
             n += 1
 

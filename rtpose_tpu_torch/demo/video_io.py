@@ -10,26 +10,32 @@ of its users' files, frame for frame as cv2 gives them:
   ``AVIX`` extensions included);
 - H.264 and MPEG-4 Part 2 (XVID, DivX, ``mp4v``: what the JAX demo and
   cv2's wheels write) in AVI (``XVID``, ``DIVX``, ``DX50``, ``FMP4``,
-  ``MP4V``, ``H264``, ``AVC1``, ``X264`` chunks) or in MP4 / MOV
-  (``demo/mp4.py``), with the rotation of the track honoured as
-  ``CAP_PROP_ORIENTATION_AUTO`` does: decoded on the host by FFmpeg's
-  libavcodec from the OpenCV wheel (``native/avcodec.py``), the planes
-  converted to BGR and turned on the card (``ops.kernels.yuv420_to_bgr``,
-  cv2's arithmetic to the bit).  ``device="cpu"`` converts with the
-  kernel's plain version, for tests; without a card, and without the
-  library, opening such a file raises.
+  ``MP4V``, ``H264``, ``AVC1``, ``X264`` chunks), in MP4 / MOV
+  (``demo/mp4.py``) or in Matroska (``demo/mkv.py``); VP9 (profile 0)
+  in WebM, Matroska or MP4 (``vp09``): browser ``MediaRecorder``, OBS
+  and most downloaded web video.  The rotation of the track is honoured
+  as ``CAP_PROP_ORIENTATION_AUTO`` does; H.264 B pictures come in cv2's
+  order.  The packets are decoded on the host by FFmpeg's libavcodec
+  from the OpenCV wheel (``native/avcodec.py``), the planes converted to
+  BGR and turned on the card (``ops.kernels.yuv420_to_bgr``, cv2's
+  arithmetic to the bit).  ``device="cpu"`` converts with the kernel's
+  plain version, for tests; without a card, and without the library,
+  opening such a file raises.
 
 Everything else is refused with an error that names the container or
-codec and ROADMAP.md queue 1 item 4: Matroska / WebM, MPEG-TS, HEVC, VP9,
-AV1, fragmented MP4, multi-entry edit lists.
+codec and ROADMAP.md queue 1 item 4: MPEG-TS, HEVC, AV1, VP9 of other
+profiles (10-bit), laced Matroska blocks, fragmented MP4, multi-entry
+edit lists.
 
-:class:`VideoWriter` writes Motion-JPEG AVI: a ``hdrl`` list (the
-``avih`` main header, one ``strl`` with the ``vids`` / ``MJPG`` stream
-header and its BITMAPINFOHEADER), a ``movi`` list of ``00dc`` chunks,
-one baseline JPEG a frame, and an ``idx1`` index; the frame counts in
-both headers are written when the file is closed.  cv2 reads these
-files (its AVI reader needs ``idx1`` to open one).  The JAX demo writes
-XVID; the port writes MJPG (another codec, the same feature).
+:class:`VideoWriter` writes AVI: a ``hdrl`` list (the ``avih`` main
+header, one ``strl`` with the ``vids`` stream header and its
+BITMAPINFOHEADER), a ``movi`` list of ``00dc`` chunks and an ``idx1``
+index whose key flags are the packets'; the frame counts in both headers
+are written when the file is closed.  cv2 reads these files (its AVI
+reader needs ``idx1`` to open one).  Its ``fourcc`` is ``"XVID"``, what
+the JAX demo writes: MPEG-4 Part 2 packets of cv2's own encoder and
+settings (``native/avencode.py``), byte for byte cv2's; or ``"MJPG"``,
+one baseline JPEG a frame.
 """
 
 from __future__ import annotations
@@ -43,8 +49,9 @@ from typing import BinaryIO, Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..data.imwrite import JPEG_OPTIONS
-from . import mp4
+from . import mkv, mp4
 
+WRITER_FOURCCS = ("XVID", "MJPG")
 AVIF_HASINDEX = 0x10
 AVIIF_KEYFRAME = 0x10
 # AVI stream handlers / compressions (upper case) -> the decoder
@@ -105,6 +112,26 @@ class AviStream:
                 f.seek(off + n + (n & 1))
         if stream is None:
             raise mp4.refusal(path, "an AVI with no video stream")
+
+    rotation = rotation_meta = 0
+
+    @property
+    def frame_count(self) -> int:
+        return len(self.frames)
+
+    @property
+    def shown(self) -> Tuple[int, int]:
+        return 0, len(self.frames)
+
+    def packets(self, f: BinaryIO) -> Iterator[Tuple[bytes, bool]]:
+        """(bytes for the decoder, key) of each frame chunk, the codec's
+        extra data ahead of the first."""
+        for i, (off, n) in enumerate(self.frames):
+            f.seek(off)
+            data = f.read(n)
+            if i == 0:
+                data = self.extradata + data
+            yield data, mp4.intra_picture(self.codec, data)
 
     def _header(self, f: BinaryIO, start: int, end: int) -> bytes:
         """Read the first video stream's header; its chunk id prefix."""
@@ -184,23 +211,26 @@ class VideoReader:
 
 
 class DecodedVideo:
-    """An H.264 or MPEG-4 Part 2 stream of an MP4/MOV or AVI file, read
-    as ``cv2.VideoCapture`` with ``CAP_PROP_ORIENTATION_AUTO`` reads it:
-    ``read()`` gives each frame in display order as ``(H, W, 3)`` uint8
-    BGR, turned by ``rotation``; ``fps``, ``size`` (w, h after the turn)
-    and ``frame_count`` are cv2's.
+    """An H.264, MPEG-4 Part 2 or VP9 stream of an MP4/MOV, AVI or
+    Matroska / WebM file, read as ``cv2.VideoCapture`` with
+    ``CAP_PROP_ORIENTATION_AUTO`` reads it: ``read()`` gives each frame
+    in display order as ``(H, W, 3)`` uint8 BGR, turned by ``rotation``;
+    ``fps``, ``size`` (w, h after the turn) and ``frame_count`` are
+    cv2's.
 
-    `avi` is the file's parsed AVI stream; without one the file is read
-    as MP4/MOV.  The packets are demuxed on the host, decoded there by
-    libavcodec, and each picture's planes are copied to `device` and
-    converted by ``ops.kernels.yuv420_to_bgr`` (the plain version for
-    ``"cpu"``).  The copy returns once the decoder's buffers have been
-    read, before the next picture reuses them.  ``seconds`` sums the time of each step:
-    ``demux`` (reading a packet and, for H.264, its Annex-B form),
+    `read_track(path, file)` parses the container into a track (an
+    :class:`AviStream`, ``mkv.MkvTrack`` or ``mp4.Track``: codec, fps,
+    size, rotation, frame count, the pictures shown and ``packets``);
+    without one the file is read as MP4/MOV.  The packets are demuxed on
+    the host, decoded there by libavcodec (an H.264 stream probed first,
+    as libavformat probes it for cv2), and each picture's planes are
+    copied to `device` and converted by ``ops.kernels.yuv420_to_bgr``
+    (the plain version for ``"cpu"``).  The copy returns once the
+    decoder's buffers have been read, before the next picture reuses
+    them.  ``seconds`` sums the time of each step: ``demux`` (reading a packet and, for H.264, its Annex-B form),
     ``decode`` (libavcodec) and ``convert`` (copy up, kernel, copy back)."""
 
-    def __init__(self, path: str, device="cuda",
-                 avi: Optional[AviStream] = None):
+    def __init__(self, path: str, device="cuda", read_track=None):
         import torch
 
         from ..native.avcodec import Decoder
@@ -211,22 +241,15 @@ class DecodedVideo:
         try:
             self.seconds = {"demux": 0.0, "decode": 0.0, "convert": 0.0}
             t0 = time.perf_counter()
-            if avi is not None:
-                self.codec, self.fps, self.size = avi.codec, avi.fps, avi.size
-                self.rotation = self.rotation_meta = 0
-                self.frame_count = len(avi.frames)
-                self._skip, self._left = 0, len(avi.frames)
-                self._packets = self._avi_packets(avi)
-            else:
-                track = mp4.read_track(path, self._f)
-                self.codec, self.fps, self.size = (track.codec, track.fps,
-                                                   track.size)
-                self.rotation, self.rotation_meta = (track.rotation,
-                                                     track.rotation_meta)
-                self.frame_count = track.frame_count
-                # pictures outside the edit list's span are dropped
-                self._skip, self._left = track.shown
-                self._packets = track.packets(self._f)
+            track = (read_track or mp4.read_track)(path, self._f)
+            self.codec, self.fps, self.size = (track.codec, track.fps,
+                                               track.size)
+            self.rotation, self.rotation_meta = (track.rotation,
+                                                 track.rotation_meta)
+            self.frame_count = track.frame_count
+            # pictures outside an MP4 edit list's span are dropped
+            self._skip, self._left = track.shown
+            self._packets = track.packets(self._f)
             self.seconds["demux"] += time.perf_counter() - t0
             if self.device.type == "cuda" and not torch.cuda.is_available():
                 raise RuntimeError(
@@ -235,19 +258,13 @@ class DecodedVideo:
                     f"for tests)")
             t0 = time.perf_counter()
             self._decoder = Decoder(self.codec)
+            if self.codec == "h264":     # as libavformat does for cv2
+                self._decoder.probe(track.packets(self._f))
             self.seconds["decode"] += time.perf_counter() - t0
         except BaseException:
             self.release()
             raise
         self._pictures = self._decode()
-
-    def _avi_packets(self, avi: AviStream) -> Iterator[Tuple[bytes, bool]]:
-        for i, (off, n) in enumerate(avi.frames):
-            self._f.seek(off)
-            data = self._f.read(n)
-            if i == 0:
-                data = avi.extradata + data
-            yield data, mp4.intra_picture(self.codec, data)
 
     def _decode(self):
         """The decoder's pictures in display order, as it completes them."""
@@ -312,12 +329,12 @@ def open_video(path: str, device="cuda"):
             stream = AviStream(path, f)
             if stream.codec == "mjpeg":
                 return VideoReader(path, stream)
-            return DecodedVideo(path, device, stream)
+            return DecodedVideo(path, device, lambda path, f: stream)
     if mp4.is_isobmff(head):
         return DecodedVideo(path, device)
-    if head[:4] == b"\x1a\x45\xdf\xa3":
-        what = "a Matroska/WebM file"
-    elif len(head) >= 377 and head[0] == head[188] == 0x47:
+    if mkv.is_matroska(head):
+        return DecodedVideo(path, device, mkv.read_track)
+    if len(head) >= 377 and head[0] == head[188] == 0x47:
         what = "an MPEG-TS stream"
     elif head[:4] == b"RIFF":
         what = f"a RIFF {head[8:12]!r} file, not AVI"
@@ -327,22 +344,39 @@ def open_video(path: str, device="cuda"):
 
 
 class VideoWriter:
-    """Write ``(H, W, 3)`` uint8 BGR frames of one size as a Motion-JPEG
-    AVI at `fps` (``cv2.VideoWriter(path, fourcc('M','J','P','G'), fps,
-    (w, h))``'s place): each frame a baseline JPEG at cv2's settings
-    (quality 95, 4:2:0, ``data.imwrite.JPEG_OPTIONS``);
-    :meth:`release` writes the index and the frame counts."""
+    """Write ``(H, W, 3)`` uint8 BGR frames of one size as an AVI at `fps`
+    (``cv2.VideoWriter(path, fourcc, fps, (w, h))``'s place), `fourcc`
+    one of:
 
-    def __init__(self, path: str, fps: float, frame_size: Tuple[int, int]):
+    - ``"XVID"`` (the JAX demo's): MPEG-4 Part 2 packets of
+      ``native.avencode.Encoder``, cv2's encoder and settings, byte for
+      byte; the first write raises if the wheel's libavcodec or
+      libswscale is missing;
+    - ``"MJPG"``: each frame a baseline JPEG at cv2's settings (quality
+      95, 4:2:0, ``data.imwrite.JPEG_OPTIONS``).
+
+    :meth:`release` writes the index and the frame counts.  ``seconds``
+    sums the time of ``convert`` (XVID: swscale), ``encode`` (the codec)
+    and ``write`` (the file)."""
+
+    def __init__(self, path: str, fps: float, frame_size: Tuple[int, int],
+                 fourcc: str = "MJPG"):
         self.path = path
         self.width, self.height = (int(v) for v in frame_size)
         if self.width <= 0 or self.height <= 0 or fps <= 0:
             raise ValueError(f"frame size {frame_size} and fps {fps} must "
                              f"be positive")
+        if fourcc not in WRITER_FOURCCS:
+            raise ValueError(f"the writer writes {' or '.join(WRITER_FOURCCS)}"
+                             f" AVI, not {fourcc!r}")
+        self.fourcc, self.fps = fourcc.encode(), fps
         rate = Fraction(fps).limit_denominator(1001)
         self._rate, self._scale = rate.numerator, rate.denominator
         self._index: List[Tuple[int, int]] = []    # (offset, size)
+        self._inter: set = set()                    # chunks that are not key
         self._max_chunk = 0
+        self._encoder = None
+        self.seconds = {"convert": 0.0, "encode": 0.0, "write": 0.0}
         self._f = open(path, "wb")
         self._write_headers()
         self._movi = self._f.tell() - 4            # the "movi" fourcc
@@ -354,10 +388,10 @@ class VideoWriter:
         max_bytes = int(bufsize * self._rate / self._scale)
         avih = struct.pack("<10I4I", us_per_frame, max_bytes, 0,
                            AVIF_HASINDEX, n, 0, 1, bufsize, w, h, 0, 0, 0, 0)
-        strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"MJPG", 0, 0, 0,
-                           0, self._scale, self._rate, 0, n, bufsize,
+        strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", self.fourcc, 0,
+                           0, 0, 0, self._scale, self._rate, 0, n, bufsize,
                            0xFFFFFFFF, 0, 0, 0, w, h)
-        strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"MJPG",
+        strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, self.fourcc,
                            w * h * 3, 0, 0, 0, 0)
         strl = (b"strl" + _chunk(b"strh", strh) + _chunk(b"strf", strf))
         hdrl = b"hdrl" + _chunk(b"avih", avih) + _chunk(b"LIST", strl)
@@ -369,31 +403,53 @@ class VideoWriter:
         self._f.write(b"LIST" + struct.pack("<I", 0) + b"movi")
 
     def write(self, frame: np.ndarray) -> None:
-        from PIL import Image
-
         if frame.dtype != np.uint8 or frame.shape != (self.height,
                                                       self.width, 3):
             raise ValueError(f"frames of this video are ({self.height}, "
                              f"{self.width}, 3) uint8, got {frame.dtype} "
                              f"{frame.shape}")
-        buf = io.BytesIO()
-        Image.fromarray(np.ascontiguousarray(frame[..., ::-1])).save(
-            buf, "JPEG", **JPEG_OPTIONS)
-        data = buf.getvalue()
-        self._index.append((self._f.tell() - self._movi, len(data)))
-        self._max_chunk = max(self._max_chunk, len(data))
-        self._f.write(_chunk(b"00dc", data))
+        if self.fourcc == b"XVID":
+            if self._encoder is None:
+                from ..native.avencode import Encoder
+                self._encoder = Encoder(self.width, self.height, self.fps)
+                self._encoder.seconds = self.seconds    # its two steps
+            packets = self._encoder.encode(frame)
+        else:
+            from PIL import Image
+            t0 = time.perf_counter()
+            buf = io.BytesIO()
+            Image.fromarray(np.ascontiguousarray(frame[..., ::-1])).save(
+                buf, "JPEG", **JPEG_OPTIONS)
+            packets = [(buf.getvalue(), True)]
+            self.seconds["encode"] += time.perf_counter() - t0
+        self._write_packets(packets)
+
+    def _write_packets(self, packets) -> None:
+        t0 = time.perf_counter()
+        for data, key in packets:
+            if not key:
+                self._inter.add(len(self._index))
+            self._index.append((self._f.tell() - self._movi, len(data)))
+            self._max_chunk = max(self._max_chunk, len(data))
+            self._f.write(_chunk(b"00dc", data))
+        self.seconds["write"] += time.perf_counter() - t0
 
     def release(self) -> None:
-        """Write the index, the sizes and the frame counts, and close."""
+        """Write the encoder's last packets, the index, the sizes and the
+        frame counts, and close."""
         if self._f.closed:
             return
         f = self._f
         try:
+            if self._encoder is not None:
+                self._write_packets(self._encoder.flush())
+                self._encoder.close()
+                self._encoder = None
             movi_end = f.tell()
             f.write(_chunk(b"idx1", b"".join(
-                struct.pack("<4sIII", b"00dc", AVIIF_KEYFRAME, off, n)
-                for off, n in self._index)))
+                struct.pack("<4sIII", b"00dc",
+                            0 if i in self._inter else AVIIF_KEYFRAME, off, n)
+                for i, (off, n) in enumerate(self._index))))
             end = f.tell()
             f.seek(4)
             f.write(struct.pack("<I", end - 8))

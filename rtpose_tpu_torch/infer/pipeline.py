@@ -40,6 +40,7 @@ from __future__ import annotations
 import copy
 import functools
 import math
+import sys
 import warnings
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -50,7 +51,8 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..models import get_model
 from ..models.common import cast_compute
-from ..models.convert import (load_strict, load_torch_checkpoint,
+from ..models.convert import (load_reference_convs, load_strict,
+                              load_torch_checkpoint,
                               state_dict_from_flax)
 from ..ops.decode import (decode_poses_batch, people_row, people_to_host,
                           people_to_numpy, read_back)
@@ -171,7 +173,10 @@ def load_pipeline(checkpoint_dir: Optional[str] = None, *, device="cuda",
     package checkpoint comes through ``scripts/export_jax_checkpoint.py``
     as one), flax variables as numpy (`flax_params`), or the family's
     initial weights drawn from `seed` (seed 0 when no source is given).
-    Every load is strict.  `dtype` is the compute type.  The maps'
+    A VGG19 `torch_weights` file gives its reference-layout convs and
+    its other keys are ignored, as the JAX package loads it
+    (``models.convert.load_reference_convs``); every other load is
+    strict.  `dtype` is the compute type.  The maps'
     stride is `downsample` (4 for hourglass), passed on to
     :class:`PosePipeline`, which pads to the model's ``pad_multiple``.
     With a serving ``mesh`` (a keyword of :class:`PosePipeline`) the model
@@ -189,7 +194,15 @@ def load_pipeline(checkpoint_dir: Optional[str] = None, *, device="cuda",
     if checkpoint_dir is not None:
         load_strict(model, best_model_state(checkpoint_dir))
     elif torch_weights is not None:
-        load_strict(model, load_torch_checkpoint(torch_weights))
+        state = load_torch_checkpoint(torch_weights)
+        if model_name == "vgg19":
+            # as the JAX package's import: the mapped convs, nothing else
+            ignored = load_reference_convs(model, state)
+            if ignored:
+                print(f"{torch_weights}: {ignored} keys outside the "
+                      f"model's convs ignored", file=sys.stderr)
+        else:
+            load_strict(model, state)
     elif flax_params is not None:
         load_strict(model, state_dict_from_flax(flax_params,
                                                 model_name=model_name))

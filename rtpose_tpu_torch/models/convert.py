@@ -8,7 +8,15 @@
   every shape checked before anything is written.
 - :func:`load_torch_checkpoint`: a reference ``pose_model.pth`` (raw
   state_dict) or a lightning checkpoint (``state_dict`` with ``model.``
-  key prefix, reference evaluate/evaluation.py:12-18).
+  key prefix, reference evaluate/evaluation.py:12-18), read as the JAX
+  package reads it (rtpose_tpu/models/import_torch.py:127): the user
+  names the file and it is unpickled whole, so a lightning checkpoint's
+  ``hyper_parameters`` (an ``argparse.Namespace``) load too.
+- :func:`load_reference_convs`: the reference-layout convs of such a
+  checkpoint into a VGG19 model, every other key ignored
+  (``import_rtpose_state_dict``, import_torch.py:57-80); a missing or
+  misshapen conv is a ``ValueError`` (the JAX import's ``KeyError`` /
+  ``ValueError``).
 - :func:`import_vgg19_imagenet`: torchvision's ImageNet ``vgg19`` weights
   into the first 10 backbone convs (the training CLI's ``--vgg-weights``).
 
@@ -153,12 +161,45 @@ def load_strict(model: torch.nn.Module,
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """Read a reference .pth/.ckpt into a flat CPU state_dict with any
-    lightning ``model.`` prefix stripped."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+    lightning ``model.`` prefix stripped.  The file is unpickled whole
+    (``weights_only=False``), as the JAX package reads it: only open files
+    you trust."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
     return {(k[len("model."):] if k.startswith("model.") else k): v
             for k, v in obj.items()}
+
+
+def load_reference_convs(model: torch.nn.Module,
+                         state_dict: Mapping[str, torch.Tensor]) -> int:
+    """Load the reference ``rtpose_model`` convs of `state_dict` (keys as
+    :func:`load_torch_checkpoint` gives them) into the VGG19 `model`,
+    every conv of its :func:`torch_layout_map`, checked before anything
+    is written; returns how many keys of `state_dict` lie outside the map
+    and were ignored (a lightning checkpoint's loss buffers, an EMA
+    copy, ...).  A missing or misshapen conv raises ``ValueError`` naming
+    it."""
+    own = model.state_dict()
+    keys = [f"{prefix}.{kind}" for prefix, _ in
+            torch_layout_map(model.num_stages) for kind in ("weight", "bias")]
+    missing = [k for k in keys if k not in state_dict]
+    if missing:
+        raise ValueError(f"the checkpoint lacks {len(missing)} conv tensors "
+                         f"of a {model.num_stages}-stage VGG19: "
+                         f"{missing[:8]}{' ...' if len(missing) > 8 else ''}")
+    pairs = []
+    for k in keys:
+        src = torch.as_tensor(state_dict[k])
+        if tuple(src.shape) != tuple(own[k].shape):
+            raise ValueError(f"checkpoint tensor {k}: shape "
+                             f"{tuple(src.shape)}, the model wants "
+                             f"{tuple(own[k].shape)}")
+        pairs.append((own[k], src))
+    with torch.no_grad():
+        for dst, src in pairs:
+            dst.copy_(src)
+    return len(set(state_dict) - set(keys))
 
 
 def import_vgg19_imagenet(vgg_state_dict: Mapping[str, torch.Tensor],

@@ -1,4 +1,4 @@
-"""H.264 and MPEG-4 Part 2 decoding on the host through FFmpeg's
+"""H.264, MPEG-4 Part 2 and VP9 decoding on the host through FFmpeg's
 ``libavcodec``, the one that the machine's OpenCV wheel bundles, loaded
 by path with ctypes (as ``native/imgpipe.py`` links Pillow's libjpeg).
 
@@ -19,7 +19,9 @@ of ``AVFrame`` its ``data``, ``linesize``, ``width``, ``height`` and
 as the demuxer gives them (H.264 as Annex-B with its parameter sets in
 the stream; MPEG-4 with its VOL headers ahead of the first frame), so no
 field of the codec context is set either.  Frames come out in display
-order.  Nothing is loaded at import; without the library the first
+order; an H.264 stream is first probed (:meth:`Decoder.probe`) as
+libavformat probes it for cv2, so that a stream whose SPS states no
+reorder delay gives its B pictures as cv2 does.  Nothing is loaded at import; without the library the first
 decoder raises, naming where it looked.
 """
 
@@ -35,7 +37,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-CODECS = ("h264", "mpeg4")
+CODECS = ("h264", "mpeg4", "vp9")
 AV_PIX_FMT_YUV420P = 0
 AV_PIX_FMT_YUVJ420P = 12
 AV_PKT_FLAG_KEY = 1
@@ -77,8 +79,8 @@ def find_library(name: str) -> str:
         if found:
             return found[0]
     raise RuntimeError(
-        f"no lib{name} found: the video reader decodes H.264 and MPEG-4 "
-        f"with the FFmpeg libraries bundled in the OpenCV wheel's "
+        f"no lib{name} found: the video reader and the XVID writer use "
+        f"the FFmpeg libraries bundled in the OpenCV wheel's "
         f"opencv*.libs directory (searched {dirs or 'no such directory'} "
         f"under sys.path)")
 
@@ -112,6 +114,7 @@ class _Libraries:
                 (self.avcodec, "avcodec_send_packet", I, [P, P]),
                 (self.avcodec, "avcodec_receive_frame", I, [P, P]),
                 (self.avcodec, "avcodec_free_context", None, [P]),
+                (self.avcodec, "avcodec_flush_buffers", None, [P]),
                 (self.avcodec, "av_packet_alloc", P, []),
                 (self.avcodec, "av_packet_free", None, [P]),
                 (self.avutil, "av_frame_alloc", P, []),
@@ -141,7 +144,7 @@ def libraries() -> _Libraries:
 
 
 class Decoder:
-    """One libavcodec decoder of `codec` ("h264" or "mpeg4").
+    """One libavcodec decoder of `codec` ("h264", "mpeg4" or "vp9").
 
     :meth:`decode` takes one packet (bytes) and yields the frames it
     completes; :meth:`flush` yields the frames still held at the end of
@@ -153,8 +156,9 @@ class Decoder:
 
     def __init__(self, codec: str):
         if codec not in CODECS:
-            raise ValueError(f"no decoder for {codec!r}: H.264 and MPEG-4 "
-                             f"Part 2 are read (ROADMAP.md queue 1 item 4)")
+            raise ValueError(f"no decoder for {codec!r}: H.264, MPEG-4 "
+                             f"Part 2 and VP9 are read (ROADMAP.md queue 1 "
+                             f"item 4)")
         self.codec = codec
         self._libs = libs = libraries()
         self._ctx = self._packet = self._frame = None
@@ -217,6 +221,27 @@ class Decoder:
             buf = (ctypes.c_uint8 * (rows * pitch)).from_address(f.data[i])
             planes.append(np.ctypeslib.as_array(buf).reshape(rows, pitch))
         return (*planes, f.width)
+
+    def probe(self, packets: Iterator[Tuple[bytes, bool]]) -> None:
+        """Decode the stream's first pictures and forget them, as
+        libavformat's ``avformat_find_stream_info`` does before cv2
+        decodes an H.264 stream.  libavcodec's H.264 decoder starts
+        with no reorder delay when the SPS states none (no VUI
+        ``max_num_reorder_frames``), raises it when a picture comes out of
+        order, dropping that picture, and keeps it through
+        ``avcodec_flush_buffers``; so after the probe the stream's first
+        B pictures come out as cv2 gives them.  Stops where libavformat
+        stops (``has_decode_delay_been_guessed``): at 7 pictures out, 18
+        when 3 are held back, 20 at 4 or more."""
+        sent = got = 0
+        for data, key in packets:
+            self._send(data, key)
+            sent += 1
+            got += sum(1 for _ in self._frames())
+            held = sent - got
+            if got >= (7 if held < 3 else 18 if held < 4 else 20):
+                break
+        self._libs.avcodec.avcodec_flush_buffers(self._ctx)
 
     def decode(self, data: bytes, key: bool = False):
         self._send(data, key)

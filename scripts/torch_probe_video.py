@@ -7,7 +7,11 @@
   the decoders, whether 640x480 fits).
 - The host: the FFmpeg ``libavcodec`` the OpenCV wheel bundles
   (``rtpose_tpu_torch/native/avcodec.py``, the route the reader takes):
-  its path and whether it opens H.264 and MPEG-4 decoders.
+  its path, whether it opens the H.264, MPEG-4 and VP9 decoders, and
+  the libavcodec, libavutil and libswscale versions; and what the XVID
+  writer needs (``rtpose_tpu_torch/native/avencode.py``): the ``mpeg4``
+  encoder, its options (``av_opt_find``), ``sws_getContext`` and an
+  encoder that opens.
 
     python3 scripts/torch_probe_video.py
 
@@ -88,8 +92,52 @@ def probe_host() -> dict:
     return out
 
 
+ENCODER_OPTIONS = ("time_base", "video_size", "pixel_format", "b", "g",
+                   "qmin", "bf", "codec_tag")
+
+
+def _version(v: int) -> str:
+    return f"{v >> 16}.{(v >> 8) & 0xFF}.{v & 0xFF}"
+
+
+def probe_writer() -> dict:
+    """The XVID writer's pieces in the wheel's libraries."""
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.native import avencode
+    try:
+        libs = avencode.encoder_libraries()
+    except (RuntimeError, OSError) as e:
+        return {"error": str(e)}
+    av, au, sws = libs.avcodec, libs.avutil, libs.swscale
+    for lib, name in ((av, "avcodec_version"), (au, "avutil_version"),
+                      (sws, "swscale_version")):
+        getattr(lib, name).restype = ctypes.c_uint
+    au.av_opt_find.restype = ctypes.c_void_p
+    au.av_opt_find.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                               ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+    out = {"versions": {"libavcodec": _version(av.avcodec_version()),
+                        "libavutil": _version(au.avutil_version()),
+                        "libswscale": _version(sws.swscale_version())},
+           "sws_getContext": hasattr(sws, "sws_getContext"),
+           "mpeg4_encoder": bool(av.avcodec_find_encoder_by_name(b"mpeg4"))}
+    if out["mpeg4_encoder"]:
+        ctx = ctypes.c_void_p(av.avcodec_alloc_context3(
+            av.avcodec_find_encoder_by_name(b"mpeg4")))
+        out["options"] = {name: bool(au.av_opt_find(ctx, name.encode(),
+                                                    None, 0, 0))
+                          for name in ENCODER_OPTIONS}
+        av.avcodec_free_context(ctypes.byref(ctx))
+        try:
+            avencode.Encoder(64, 48, 20.0).close()
+            out["encoder"] = "opens"
+        except RuntimeError as e:
+            out["encoder"] = str(e)
+    return out
+
+
 def probe() -> dict:
-    return {"nvdec": probe_nvdec(), "libavcodec": probe_host()}
+    return {"nvdec": probe_nvdec(), "libavcodec": probe_host(),
+            "writer": probe_writer()}
 
 
 if __name__ == "__main__":

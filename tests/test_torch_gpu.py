@@ -1248,3 +1248,88 @@ def test_video_route_probe_and_no_quiet_fallback(cuda, tmp_path,
     monkeypatch.setattr(avcodec, "_library_dirs", lambda: [])
     with pytest.raises(RuntimeError, match="no libavcodec found"):
         open_video(path, device=cuda)
+
+
+def _cv2_frames(cv2, path):
+    cap = cv2.VideoCapture(path)
+    cap.set(cv2.CAP_PROP_ORIENTATION_AUTO, 1)
+    count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    return frames, count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["committed.webm", "superframe.webm",
+                                  "xvid.mkv", "ipcm_live.mkv",
+                                  "bframes_nohint.mkv"])
+def test_matroska_files_on_the_card(cuda, tmp_path, name):
+    """Matroska / WebM on the card against the card machine's cv2: the
+    committed VP9 WebM (cv2 5.0's), its superframe variant, an MPEG-4 MKV
+    of that cv2, I_PCM H.264 with unknown sizes and B-frame H.264 without
+    the reorder hint: cv2's frames and count, the conversion once a
+    frame."""
+    cv2 = pytest.importorskip("cv2")
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo.video_io import open_video
+    path = str(tmp_path / name)
+    if name == "committed.webm":
+        path = sv.VP9_WEBM
+    elif name == "superframe.webm":
+        sv.write_vp9_superframe(sv.VP9_WEBM, path)
+    elif name == "xvid.mkv":
+        sv.write_cv2_video(path, "XVID", 12, 480, 640)
+    elif name == "ipcm_live.mkv":
+        sv.write_ipcm_mkv(path, _ipcm_sequence(480, 640)[0],
+                          unknown_sizes=True)
+    else:
+        sv.write_bframes(path, sv.yuv_frames(4, 480, 640, seed=2),
+                         reorder=None, poc_step=1, container="mkv")
+    want, count = _cv2_frames(cv2, path)
+    kernels.reset_launch_counts()
+    cap = open_video(path, device=cuda)
+    got = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        got.append(frame)
+    cap.release()
+    assert kernels.launch_counts()["yuv420_to_bgr"] == len(got)
+    assert len(got) == len(want) == count == cap.frame_count
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_xvid_writer_packets_equal_the_cards_cv2(cuda, tmp_path):
+    """The XVID writer's packets for 16 rendered 480x640 frames against
+    the card machine's cv2 ``VideoWriter(..., 'XVID')``."""
+    cv2 = pytest.importorskip("cv2")
+    from rtpose_tpu_torch.data.imread_fixtures import render_scene
+    from rtpose_tpu_torch.demo.video_io import AviStream, VideoWriter
+    frames = [np.ascontiguousarray(render_scene(i, 480, 640))
+              for i in range(16)]
+    paths = [str(tmp_path / "cv2.avi"), str(tmp_path / "port.avi")]
+    writer = cv2.VideoWriter(paths[0], cv2.VideoWriter_fourcc(*"XVID"),
+                             20.0, (640, 480))
+    ours = VideoWriter(paths[1], 20.0, (640, 480), fourcc="XVID")
+    for f in frames:
+        writer.write(f)
+        ours.write(f)
+    writer.release()
+    ours.release()
+    packets = []
+    for path in paths:
+        with open(path, "rb") as f:
+            stream = AviStream(path, f)
+            packets.append([])
+            for off, n in stream.frames:
+                f.seek(off)
+                packets[-1].append(f.read(n))
+    assert len(packets[1]) == 16 and packets[0] == packets[1]

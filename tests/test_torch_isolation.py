@@ -123,7 +123,7 @@ with tempfile.TemporaryDirectory() as root:
     sys.argv = ["video_demo", "--video", root + "/in.avi", "--output",
                 root + "/out.avi", "--batch", "2"] + small
     video_frames, _ = video_demo.main()
-    video_out = open_video(root + "/out.avi").frame_count
+    video_out = open_video(root + "/out.avi", device="cpu").frame_count
     from rtpose_tpu_torch.demo import scripted_video
     scripted_video.write_ipcm_mp4(root + "/in.mp4", [scripted_video.bgr_to_yuv420(
         frame)] * 2 + [None], rotation=90)

@@ -8,6 +8,8 @@ their scale through the trunk; the N(0, 0.01) init shrinks outputs to
 1e-3, the bound of tests/test_vgg19_model.py for the same comparison.
 """
 
+import argparse
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,8 @@ from rtpose_tpu.models import get_model as jax_get_model
 from rtpose_tpu.models.common import he_reinit
 from rtpose_tpu.models.import_torch import export_rtpose_state_dict
 from rtpose_tpu_torch.models import get_model
-from rtpose_tpu_torch.models.convert import (load_torch_checkpoint,
+from rtpose_tpu_torch.models.convert import (load_reference_convs,
+                                             load_torch_checkpoint,
                                              state_dict_from_flax,
                                              torch_layout_map)
 
@@ -155,3 +158,77 @@ def test_ported_family_builds(name, kwargs, stages):
     g = 16 if name == "hourglass" else 8
     assert out.pafs.shape == (stages, 1, g, g, 38)
     assert out.heatmaps.shape == (stages, 1, g, g, 19)
+
+
+def _lightning_checkpoint(path, state_dict):
+    """A lightning-shaped checkpoint as the reference's training writes
+    it: prefixed weights, a key outside the model, the epoch and an
+    ``argparse.Namespace`` of hyper-parameters (which a ``weights_only``
+    read refuses)."""
+    sd = {f"model.{k}": torch.from_numpy(np.array(v))
+          for k, v in state_dict.items()}
+    sd["loss.extra"] = torch.ones(3)
+    torch.save({"state_dict": sd, "epoch": 3,
+                "hyper_parameters": {"args": argparse.Namespace(
+                    lr=1e-4, batch_size=8, model="vgg19")}}, path)
+
+
+def test_lightning_checkpoint_loads_as_in_the_jax_package(flax6, tmp_path,
+                                                          capsys):
+    """``--weight`` (``load_pipeline(torch_weights=...)``) on a lightning
+    checkpoint with a Namespace and an extra key: the port's weights are
+    the JAX pipeline's, exactly, and the maps on a seeded 56x56 frame
+    agree within the fp32 bound.  Six stages: the JAX import maps all six
+    (rtpose_tpu/models/import_torch.py:43), so it cannot load fewer."""
+    from rtpose_tpu.infer import pipeline as jpipeline
+    from rtpose_tpu_torch.infer import pipeline as tpipeline
+
+    _, params = flax6
+    path = str(tmp_path / "epoch=3.ckpt")
+    _lightning_checkpoint(path, export_rtpose_state_dict(params))
+    jpipe = jpipeline.load_pipeline(torch_weights=path, num_stages=6,
+                                    input_size=56, flip=False,
+                                    dtype=jnp.float32)
+    tpipe = tpipeline.load_pipeline(torch_weights=path, num_stages=6,
+                                    input_size=56, flip=False,
+                                    dtype=torch.float32, device="cpu")
+    assert "1 keys outside the model's convs ignored" in \
+        capsys.readouterr().err
+    want = export_rtpose_state_dict(jpipe.params)
+    got = tpipe.model.state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    frame = np.random.RandomState(5).randint(0, 256, (56, 56, 3), np.uint8)
+    _, jheat, jpaf, _ = jpipe.run(frame)
+    _, theat, tpaf, _ = tpipe.run(frame)
+    assert float(np.abs(jheat).max()) > 1e-2
+    np.testing.assert_allclose(theat, jheat, atol=2e-4, rtol=1e-3)
+    np.testing.assert_allclose(tpaf, jpaf, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("fault", ["missing", "misshapen"])
+def test_lightning_checkpoint_without_a_conv_is_refused(flax2, tmp_path,
+                                                        fault):
+    """A mapped conv that is missing or of another shape raises
+    ValueError naming it (the JAX import raises KeyError for a missing
+    one), before any weight is written."""
+    from rtpose_tpu_torch.infer import pipeline as tpipeline
+
+    sd = {k: v.numpy() for k, v in state_dict_from_flax(flax2[1]).items()}
+    if fault == "missing":
+        del sd["model2_2.12.bias"]
+    else:
+        sd["model2_2.12.bias"] = np.zeros(20, np.float32)
+    path = str(tmp_path / "bad.ckpt")
+    _lightning_checkpoint(path, sd)
+    with pytest.raises(ValueError, match=r"model2_2\.12\.bias"):
+        tpipeline.load_pipeline(torch_weights=path, num_stages=2,
+                                device="cpu")
+    model = get_model("vgg19", num_stages=2,
+                      generator=torch.Generator().manual_seed(1))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with pytest.raises(ValueError, match=r"model2_2\.12\.bias"):
+        load_reference_convs(model, load_torch_checkpoint(path))
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k

@@ -184,3 +184,60 @@ def test_cli_trains_with_rotation(tmp_path, monkeypatch):
     assert [r.max_degrees for r in rotations] == [40.0]
     assert trainer.step == (len(SIZES) - 1) // 2
     assert math.isfinite(logs["train"]["loss"])
+
+
+def test_cli_vgg_weights_with_a_namespace_load_as_in_the_jax_cli(
+        tmp_path, monkeypatch):
+    """``--vgg-weights`` naming ``{"state_dict": ..., "meta":
+    argparse.Namespace(...)}`` (which a ``weights_only`` read refuses):
+    the CLI's backbone init gives the first 10 convs that the JAX CLI's
+    ``load_torch_checkpoint`` + ``import_vgg19_imagenet``
+    (rtpose_tpu/train/__main__.py:111-114) give, bit for bit."""
+    import argparse
+
+    import jax
+    from rtpose_tpu.models import import_torch
+    from rtpose_tpu.models.vgg19 import VGG19RTPose as JVGG19RTPose
+    from rtpose_tpu_torch.models import get_model
+    from rtpose_tpu_torch.models.convert import state_dict_from_flax
+
+    img_dir, ann = write_coco(str(tmp_path / "coco"))
+    rng = np.random.RandomState(3)
+    vgg, cin = {}, 3
+    for i, cout in enumerate((64, 64, 128, 128, 256, 256, 256, 256, 512,
+                              512)):
+        vgg[f"features.{i}.weight"] = torch.from_numpy(
+            rng.normal(0, 0.05, (cout, cin, 3, 3)).astype(np.float32))
+        vgg[f"features.{i}.bias"] = torch.from_numpy(
+            rng.normal(0, 0.05, cout).astype(np.float32))
+        cin = cout
+    path = str(tmp_path / "vgg19.pth")
+    torch.save({"state_dict": vgg, "meta": argparse.Namespace(
+        arch="vgg19", epoch=90)}, path)
+    captured = {}
+
+    class _CaptureTrainer:
+        def __init__(self, cfg, device, init_fn=None):
+            self.cfg, self.device = cfg, torch.device(device)
+            self.model = get_model("vgg19", num_stages=1)
+            init_fn(self.model)
+            captured["model"] = self.model
+
+        def fit(self, train_loader, val_loader, epochs=None):
+            pass
+
+    monkeypatch.setattr(trainer_mod, "Trainer", _CaptureTrainer)
+    _argv(monkeypatch, *_small(img_dir, [ann], ann, tmp_path / "ckpt"),
+          extra=("--vgg-weights", path))
+    main()
+    params = jax.tree_util.tree_map(np.asarray, JVGG19RTPose(
+        num_stages=1).init(jax.random.PRNGKey(0),
+                           np.zeros((1, 16, 16, 3), np.float32)))
+    want = state_dict_from_flax(import_torch.import_vgg19_imagenet(
+        import_torch.load_torch_checkpoint(path), params))
+    got = captured["model"].state_dict()
+    for seq in (0, 2, 5, 7, 10, 12, 14, 16, 19, 21):
+        for kind in ("weight", "bias"):
+            k = f"model0.{seq}.{kind}"
+            assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["model0.21.weight"], vgg["features.9.weight"])

@@ -9,13 +9,15 @@ package's video demo, on the CPU:
 - ``open_video`` reads ``cv2.VideoWriter(..., 'MJPG')`` files of both of
   cv2's writers, frame for frame equal to ``cv2.VideoCapture``'s frames
   (its Motion-JPEG backend), and refuses what it still does not read
-  (Matroska/WebM, MPEG-TS, HEVC, VP9, AV1, fragmented MP4, multi-entry
-  edit lists) with an error naming it and ROADMAP.md queue 1 item 4
-  (H.264 and MPEG-4 files: tests/test_torch_mp4.py);
+  (MPEG-TS, HEVC, AV1, 10-bit VP9, laced Matroska blocks, fragmented MP4,
+  multi-entry edit lists) with an error naming it and ROADMAP.md queue 1
+  item 4 (H.264 and MPEG-4 files: tests/test_torch_mp4.py; Matroska /
+  WebM and VP9: tests/test_torch_mkv.py);
 - the video demo's ``main()`` over an oracle-map pipeline finds, frame
   for frame, the people of the JAX video demo's ``main()`` over the same
   maps (part ids equal, pixel coordinates within 1e-4, scores within
-  1e-5), and writes an AVI of as many frames of the input's size.
+  1e-5), and writes an XVID AVI of as many frames of the input's size,
+  as the JAX demo does (the packets: tests/test_torch_xvid.py).
 """
 
 import struct
@@ -33,7 +35,8 @@ from rtpose_tpu_torch.data import imread_fixtures as fx
 from rtpose_tpu_torch.data.imread import decode_bgr
 from rtpose_tpu_torch.data.imwrite import JPEG_OPTIONS
 from rtpose_tpu_torch.demo import video_demo
-from rtpose_tpu_torch.demo.video_io import VideoWriter, open_video
+from rtpose_tpu_torch.demo.video_io import (AviStream, VideoWriter,
+                                             open_video)
 from rtpose_tpu_torch.infer.pipeline import PosePipeline
 from rtpose_tpu_torch.utils import draw as tdraw
 from rtpose_tpu_torch.utils.synth_coco import (OracleMaps, oracle_maps,
@@ -80,7 +83,7 @@ def _read_cv2(path, api=cv2.CAP_ANY):
 
 
 def _read_port(path):
-    cap = open_video(path)
+    cap = open_video(path, device="cpu")
     out = []
     while True:
         ok, frame = cap.read()
@@ -140,12 +143,31 @@ def test_port_reads_cv2_mjpg_avi(tmp_path, api):
 
 def _still_refused(tmp_path, kind):
     """A file of `kind` that open_video refuses (or None: no file)."""
+    from rtpose_tpu_torch.demo import mkv
     from rtpose_tpu_torch.demo import scripted_video as sv
     path = str(tmp_path / f"{kind}.bin")
     if kind == "missing":
         return path
-    if kind == "webm":
-        data = b"\x1a\x45\xdf\xa3\x9f\x42\x86\x81\x01" + b"\0" * 64
+    if kind in ("mkv_hevc", "mkv_av1", "mkv_laced", "webm_vp9_profile2",
+                "ebml_other"):
+        codec = {"mkv_hevc": "V_MPEGH/ISO/HEVC", "mkv_av1": "V_AV1"}.get(
+            kind, "V_VP9")
+        with open(sv.VP9_WEBM, "rb") as f:
+            track = mkv.read_track(sv.VP9_WEBM, f)
+            packets = [(d, k) for d, k in track.packets(f)][:3]
+        if kind == "mkv_laced":
+            packets[1] = (b"LACED" + packets[1][0], False)
+        if kind == "webm_vp9_profile2":        # profile bits 1, 0: 10-bit
+            packets[0] = (bytes([packets[0][0][0] | 0x10])
+                          + packets[0][0][1:], True)
+        data = sv.mux_mkv(codec, packets, (64, 48),
+                          doc_type="webm" if kind == "webm_vp9_profile2"
+                          else "matroska")
+        if kind == "mkv_laced":                # Xiph lacing in the flags
+            at = data.index(b"LACED") - 1
+            data = data[:at] + b"\x02" + data[at + 1:]
+        if kind == "ebml_other":
+            data = data.replace(b"matroska", b"mka-fake")
     elif kind == "mpegts":
         data = (b"\x47\x40\x00\x10" + b"\xff" * 184) * 4
     elif kind == "wave":
@@ -158,10 +180,13 @@ def _still_refused(tmp_path, kind):
         pics = sv.yuv_frames(2, 48, 64)
         sps, pps, units, keys = sv.encode_ipcm(pics)
         data = sv.mux_mp4(sps, pps, units, keys, (64, 48))
-        if kind in ("hvc1", "vp09", "av01"):
+        if kind in ("hvc1", "av01"):
             data = data.replace(b"avc1", kind.encode()).replace(
-                b"avcC", {"hvc1": b"hvcC", "vp09": b"vpcC",
-                          "av01": b"av1C"}[kind])
+                b"avcC", {"hvc1": b"hvcC", "av01": b"av1C"}[kind])
+        elif kind == "vp09_10bit":
+            data = sv.mux_mp4(sps, pps, [b"\x92\x49\x83\x42\x00"] * 2,
+                              keys, (64, 48), entry=sv.vp09_entry(
+                                  (64, 48), profile=2, depth=10))
         elif kind == "fragmented":
             data += sv.box(b"moof", sv.full_box(b"mfhd", 0, 0, b"\0" * 4))
         elif kind == "mvex":
@@ -189,17 +214,24 @@ def _still_refused(tmp_path, kind):
 
 
 @pytest.mark.parametrize("kind,error", [
-    ("webm", "Matroska/WebM"), ("mpegts", "MPEG-TS"),
-    ("hvc1", "HEVC video"), ("vp09", "VP9 video"), ("av01", "AV1 video"),
+    ("mkv_hevc", "HEVC video .'V_MPEGH/ISO/HEVC' CodecID"),
+    ("mkv_av1", "AV1 video .'V_AV1' CodecID"),
+    ("mkv_laced", "laced video block"),
+    ("webm_vp9_profile2", "VP9 profile 2 video"),
+    ("vp09_10bit", "VP9 profile 2 video of 10 bits"),
+    ("ebml_other", "DocType b'mka-fake'"), ("mpegts", "MPEG-TS"),
+    ("hvc1", "HEVC video"), ("av01", "AV1 video"),
     ("fragmented", "fragmented MP4 .moof"),
     ("mvex", "fragmented MP4 .mvex"), ("elst2", "edit list of 2 entries"),
     ("no_moov", "no moov box"), ("wave", "not AVI"),
     ("avi_wmv", "AVI video codec b'WMV3'"), ("missing", None)])
 def test_open_video_refuses_other_containers(tmp_path, kind, error):
     """What the port still does not read (ROADMAP.md queue 1 item 4):
-    other containers, other codecs, fragmented MP4, multi-entry edit
-    lists; each error names it and item 4.  XVID AVI and MP4 are read
-    (tests/test_torch_mp4.py)."""
+    other containers, other codecs (HEVC and AV1 in Matroska or MP4),
+    VP9 of another profile than 0 (10-bit), laced Matroska blocks,
+    fragmented MP4, multi-entry edit lists; each error names it and item
+    4.  XVID AVI and MP4 are read (tests/test_torch_mp4.py), Matroska /
+    WebM and VP9 too (tests/test_torch_mkv.py)."""
     path = _still_refused(tmp_path, kind)
     if error is None:
         with pytest.raises(FileNotFoundError):
@@ -287,3 +319,11 @@ def test_video_demo_people_equal_the_jax_video_demo(tmp_path, monkeypatch,
     written, cap = _read_port(out)
     assert len(written) == 7 and cap.size == (170, 128) and cap.fps == 20.0
     assert _read_cv2(out)[1][0] == 7
+    # both demos write XVID AVI (MPEG-4 Part 2) that cv2 reads
+    for path in (out, str(tmp_path / "jax.avi")):
+        with open(path, "rb") as f:
+            head = f.read(4096)
+            stream = AviStream(path, f)
+        assert head.count(b"XVID") == 2 and stream.codec == "mpeg4"
+        frames, (count, fps) = _read_cv2(path)
+        assert count == len(frames) == 7 and fps == 20.0
