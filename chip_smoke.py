@@ -3168,10 +3168,20 @@ def video_files_phase(dev, smi: str):
       frames/s, read ms a frame split into demux, decode and convert, K1,
       K3 and G once a batch and the conversion once a frame; the reader
       alone on a 64-frame cv2 ``mp4v`` MP4 of the same scenes;
+    - MPEG-TS (ROADMAP.md item 4b): this machine's cv2 MPEG-2, MPEG-1 and
+      MPEG-4 ``.ts`` and MPEG-2 ``.m2ts``; I_PCM H.264 TS of known pixels
+      in 188- and 192-byte packets with a frame over two PES and two
+      frames in one PES, and with B pictures; fragmented MP4 (a ``moof``
+      a sample, and a GOP) and MP4s with a leading empty edit and with two
+      media edits (item 4c): frames 0 pixels from cv2's, fps and count
+      cv2's;
+    - the flagship video demo on a 64-frame MPEG-4 MKV and on a 64-frame
+      MPEG-2 TS of cv2's, writing XVID, read ms a frame split into demux,
+      parse (TS), decode and convert;
     - an open without the library, and one without a card, raise.
 
-    -> ({kernel: launches in the demo run}, numbers, the conversion's
-    kernel row)."""
+    -> ({kernel: launches in the MPEG-2 TS demo run}, numbers, the
+    conversion's kernel row)."""
     import contextlib
     import io
     import tempfile
@@ -3192,6 +3202,15 @@ def video_files_phase(dev, smi: str):
     writer_probe = numbers["probe"]["writer"]
     check(found.get("vp9") == "opens", f"video files: this machine's "
           f"libavcodec gives no vp9 decoder: {found.get('vp9')}")
+    check(found.get("mpeg1video") == found.get("mpeg2video") == "opens"
+          and len(found.get("parsers", {})) == len(avcodec.PARSERS)
+          and all(v.endswith("initialises")
+                  for v in found["parsers"].values()),
+          f"video files: MPEG-1/2 decoders or parsers missing: {found}")
+    log(f"phase 16 (video files): decoders mpeg1video "
+        f"{found.get('mpeg1video')}, mpeg2video {found.get('mpeg2video')}; "
+        f"refused codecs hevc {found.get('hevc')}, av1 {found.get('av1')}; "
+        f"parsers {json.dumps(found.get('parsers'))} [{smi}]")
     check(writer_probe.get("encoder") == "opens"
           and all(writer_probe.get("options", {}).values()),
           f"video files: the XVID writer's mpeg4 encoder, options or "
@@ -3354,8 +3373,9 @@ def video_files_phase(dev, smi: str):
                     return frames
                 frames.append(frame)
 
-        def against_cv2(path):
-            """open_video on the card against this machine's cv2."""
+        def against_cv2(path, count_is_frames=True):
+            """open_video on the card against this machine's cv2 (the frame
+            count cv2's, and the frames' own where `count_is_frames`)."""
             cv = cv2.VideoCapture(path)
             cv.set(cv2.CAP_PROP_ORIENTATION_AUTO, 1)
             count, fps = (int(cv.get(cv2.CAP_PROP_FRAME_COUNT)),
@@ -3371,7 +3391,8 @@ def video_files_phase(dev, smi: str):
                    "frame_count": cap.frame_count, "cv2_frame_count": count,
                    "fps": cap.fps, "cv2_fps": fps,
                    "max_pixel_diff_vs_cv2": diff}
-            check(len(got) == len(want) == count == cap.frame_count
+            check(len(got) == len(want) and count == cap.frame_count
+                  and (count == len(got) or not count_is_frames)
                   and fps == cap.fps and diff == 0,
                   f"video files: {os.path.basename(path)} against cv2 "
                   f"{cv2.__version__}: {out}")
@@ -3427,6 +3448,65 @@ def video_files_phase(dev, smi: str):
         numbers["matroska_vp9_bframes"] = mkv_files
         log(f"video files: Matroska / VP9 / B-frames against cv2 "
             f"{cv2.__version__}: {json.dumps(mkv_files)} [{smi}]")
+
+        # MPEG-TS, fragmented MP4 and edit lists against this machine's cv2
+        t0 = time.perf_counter()
+        ts_files = {}
+        for name, fourcc in (("mpeg2.ts", "MPG2"), ("mpeg1.ts", "PIM1"),
+                             ("mpeg4.ts", "mp4v"), ("mpeg2.m2ts", "MPG2")):
+            path = os.path.join(work, name)
+            sv.write_cv2_video(path, fourcc, 16, h, w, fps=25.0)
+            # libavformat reports MPEG-1 at twice its rate, and so its count
+            ts_files[name], _ = against_cv2(path, fourcc != "PIM1")
+
+        def known(name, frames, pictures):
+            want = [kernels.yuv420_to_bgr_plain(
+                *map(torch.from_numpy, p), width=w).numpy()
+                for p in pictures]
+            ts_files[name]["differing_from_known"] = int(sum(
+                not np.array_equal(a, b) for a, b in zip(frames, want))) + \
+                abs(len(frames) - len(want))
+            check(not ts_files[name]["differing_from_known"],
+                  f"video files: {name}: {ts_files[name]}")
+
+        for name, kw in (("ipcm_split.ts", dict(split=(1, 5))),
+                         ("ipcm_joined.m2ts", dict(
+                             packet_size=192, pes_per_frame=2, split=(4,)))):
+            path = os.path.join(work, name)
+            sv.write_ipcm_ts(path, seq, key_every=4, **kw)
+            ts_files[name], frames = against_cv2(path, "joined" not in name)
+            known(name, frames, shown)
+        path = os.path.join(work, "bframes.ts")
+        bshown = sv.write_bframes_ts(path, anchors, reorder=None, poc_step=1)
+        # its last PES (a B picture) ends the tail's span a frame early
+        ts_files["bframes.ts"], frames = against_cv2(path, False)
+        known("bframes.ts", frames, bshown)
+        sps_nal, pps_nal, units, keys = sv.encode_ipcm(seq, key_every=4)
+        frame_ms = 40                          # 512 / 12800 s
+        for name, data, pictures, is_count in (
+                ("fragment_a_sample.mp4", sv.mux_fmp4(
+                    sps_nal, pps_nal, units, keys, (w, h)), shown, True),
+                ("fragment_a_gop.mp4", sv.mux_fmp4(
+                    sps_nal, pps_nal, units, keys, (w, h), fragment="gop",
+                    base="implicit", styp=True, sidx=True), shown, True),
+                ("edit_leading_empty.mp4", sv.mux_mp4(
+                    sps_nal, pps_nal, units, keys, (w, h), edits=[
+                        (200, -1, 1.0), (8 * frame_ms, 0, 1.0)]),
+                 shown, True),
+                ("edit_two_media.mp4", sv.mux_mp4(
+                    sps_nal, pps_nal, units, keys, (w, h), edits=[
+                        (3 * frame_ms, 0, 1.0),
+                        (3 * frame_ms, 5 * 512, 1.0)]),
+                 shown[:3] + shown[5:8], False)):
+            path = os.path.join(work, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            ts_files[name], frames = against_cv2(path, is_count)
+            known(name, frames, pictures)
+        ts_files["seconds"] = time.perf_counter() - t0
+        numbers["mpegts_fmp4_edits"] = ts_files
+        log(f"video files: MPEG-TS / fragmented MP4 / edit lists against "
+            f"cv2 {cv2.__version__}: {json.dumps(ts_files)} [{smi}]")
 
         # the XVID writer against this machine's cv2, and beside MJPG
         writer_frames = scenes[:16]
@@ -3525,51 +3605,65 @@ def video_files_phase(dev, smi: str):
             "read_ms_a_frame_total": sum(split.values()),
             "launches": counts}
 
-        # the flagship video demo on a 64-frame MPEG-4 MKV, writing XVID
-        video = os.path.join(work, "in.mkv")
-        sv.write_cv2_video(video, "XVID", VIDEO_FILE_FRAMES, h, w)
-        readers.clear()
         writers = []
 
         def recording_writer(*args, **kw):
             writers.append(video_io.VideoWriter(*args, **kw))
             return writers[-1]
 
-        sys.argv = (["video_demo", "--video", video, "--output", out,
-                     "--batch", "8"] + FRONTEND_FLAGS
-                    + ["--device", str(dev)])
-        video_demo.open_video = recording_open
-        video_demo.VideoWriter = recording_writer
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        with contextlib.redirect_stdout(io.StringIO()) as text:
-            n, video_s = video_demo.main()
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        video_demo.open_video = video_io.open_video
-        video_demo.VideoWriter = video_io.VideoWriter
-        check(f"processed {VIDEO_FILE_FRAMES} frames" in text.getvalue()
-              and n == VIDEO_FILE_FRAMES and readers[0].codec == "mpeg4",
-              f"video files MKV demo: {text.getvalue()!r}")
-        check(all(counts[k] >= batches for k in SERVING_KERNELS)
-              and counts["yuv420_to_bgr"] == VIDEO_FILE_FRAMES
-              and counts["gt_maps"] == 0,
-              f"video files MKV demo: K1, K3 and G not once a batch or the "
-              f"conversion not once a frame: {counts}")
-        output, _ = against_cv2(out)
-        check(output["frames"] == VIDEO_FILE_FRAMES and writers[0].fourcc
-              == b"XVID", f"video files MKV demo output: {output}")
-        split = {k: v * 1e3 / n for k, v in readers[0].seconds.items()}
-        write = {k: v * 1e3 / n for k, v in writers[0].seconds.items()}
-        numbers["demo"] = {
-            "frames": n, "seconds": video_s, "frames_per_s": n / video_s,
-            "batch": 8, "input": f"MPEG-4 Part 2 MKV 480x640 (cv2 "
-                                 f"{cv2.__version__})",
-            "output": "XVID AVI", "output_against_cv2": output,
-            "read_ms_a_frame": split,
-            "read_ms_a_frame_total": sum(split.values()),
-            "write_ms_a_frame": write,
-            "write_ms_a_frame_total": sum(write.values())}
+        def flagship_demo(video, codec, what):
+            """The flagship video demo on `video`, writing XVID: its
+            launches and numbers, its output against cv2."""
+            readers.clear()
+            writers.clear()
+            sys.argv = (["video_demo", "--video", video, "--output", out,
+                         "--batch", "8"] + FRONTEND_FLAGS
+                        + ["--device", str(dev)])
+            video_demo.open_video = recording_open
+            video_demo.VideoWriter = recording_writer
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                n, video_s = video_demo.main()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            video_demo.open_video = video_io.open_video
+            video_demo.VideoWriter = video_io.VideoWriter
+            check(f"processed {VIDEO_FILE_FRAMES} frames" in text.getvalue()
+                  and n == VIDEO_FILE_FRAMES and readers[0].codec == codec,
+                  f"video files {what} demo: {text.getvalue()!r}")
+            check(all(counts[k] >= batches for k in SERVING_KERNELS)
+                  and counts["yuv420_to_bgr"] == VIDEO_FILE_FRAMES
+                  and counts["gt_maps"] == 0,
+                  f"video files {what} demo: K1, K3 and G not once a batch "
+                  f"or the conversion not once a frame: {counts}")
+            output, _ = against_cv2(out)
+            check(output["frames"] == VIDEO_FILE_FRAMES and writers[0].fourcc
+                  == b"XVID", f"video files {what} demo output: {output}")
+            split = {k: v * 1e3 / n for k, v in readers[0].seconds.items()}
+            write = {k: v * 1e3 / n for k, v in writers[0].seconds.items()}
+            return counts, {
+                "frames": n, "seconds": video_s, "frames_per_s": n / video_s,
+                "batch": 8, "input": f"{what} 480x640 (cv2 "
+                                     f"{cv2.__version__})",
+                "output": "XVID AVI", "output_against_cv2": output,
+                "read_ms_a_frame": split,
+                "read_ms_a_frame_total": sum(split.values()),
+                "write_ms_a_frame": write,
+                "write_ms_a_frame_total": sum(write.values()),
+                "launches": counts}
+
+        # the flagship video demo on a 64-frame MPEG-4 MKV, then on a
+        # 64-frame MPEG-2 TS (the demux, libavcodec's parser, the decode),
+        # each writing XVID
+        video = os.path.join(work, "in.mkv")
+        sv.write_cv2_video(video, "XVID", VIDEO_FILE_FRAMES, h, w)
+        mkv_counts, numbers["demo"] = flagship_demo(video, "mpeg4",
+                                                    "MPEG-4 Part 2 MKV")
+        video = os.path.join(work, "in.ts")
+        sv.write_cv2_video(video, "MPG2", VIDEO_FILE_FRAMES, h, w, fps=25.0)
+        counts, numbers["demo_ts"] = flagship_demo(video, "mpeg2video",
+                                                   "MPEG-2 TS")
 
         # the reader alone on a compressed stream of the same scenes
         if cv2 is not None:
@@ -3621,7 +3715,8 @@ def video_files_phase(dev, smi: str):
         video_demo.VideoWriter = video_io.VideoWriter
         shutil.rmtree(work, ignore_errors=True)
     numbers["phase_s"] = time.perf_counter() - t_phase
-    for key, what in (("demo_mp4", "H.264 MP4"), ("demo", "MPEG-4 MKV")):
+    for key, what in (("demo_mp4", "H.264 MP4"), ("demo", "MPEG-4 MKV"),
+                      ("demo_ts", "MPEG-2 TS")):
         demo = numbers[key]
         log(f"phase 16 (video files): the flagship video demo on a "
             f"{VIDEO_FILE_FRAMES}-frame 480x640 {what} at --batch 8: "
@@ -3631,7 +3726,8 @@ def video_files_phase(dev, smi: str):
             f"); write "
             f"{demo.get('write_ms_a_frame_total', 'not measured')} ms a "
             f"frame [{smi}]")
-    log(f"phase 16: launches in the MKV demo {counts} [{smi}]")
+    log(f"phase 16: launches in the MKV demo {mkv_counts}, in the TS demo "
+        f"{counts} [{smi}]")
     log(f"video files: I_PCM planes exact ({numbers['ipcm_exact']}), "
         f"rotations {rotated}; MPEG-4 {json.dumps(numbers['mpeg4'])}; "
         f"mp4v reader {json.dumps(numbers.get('mp4v_reader'))}; phase "

@@ -171,6 +171,15 @@ def rfps(times: List[int], time_base: float) -> float:
     stream whose time base is unreliable): the standard rate whose frame
     grid the times fit best, within a variance of 0.01 frames squared,
     else the time base inverted."""
+    rate = rfps_std(times, time_base)
+    if rate:
+        num, den = av_reduce(rate, 12 * 1001, INT_MAX)
+        return num / den
+    return 1 / time_base
+
+
+def rfps_std(times: List[int], time_base: float) -> int:
+    """:func:`rfps`' standard rate, times 12 x 1001 (0: none fits)."""
     n_std = len(STD_FRAME_RATES)
     err = [[[0.0] * n_std, [0.0] * n_std] for _ in range(2)]
     last = None
@@ -205,10 +214,7 @@ def rfps(times: List[int], time_base: float) -> float:
                 e = err[j][1][i] / count - a * a
                 if e < best and best > 1e-9:
                     best, rate = e, std
-    if rate and rate / (12 * 1001) < 1.01 / time_base:
-        num, den = av_reduce(rate, 12 * 1001, INT_MAX)
-        return num / den
-    return 1 / time_base
+    return rate if rate and rate / (12 * 1001) < 1.01 / time_base else 0
 
 
 def projection_rotation(yaw: float, pitch: float, roll: float) -> int:

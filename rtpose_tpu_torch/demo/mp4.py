@@ -5,7 +5,10 @@ Read boxes: ``ftyp``, ``moov/mvhd``, ``moov/trak/{tkhd, edts/elst,
 mdia/{mdhd, hdlr, minf/stbl}}``; of the sample table ``stsd`` (``avc1`` /
 ``avc3`` with ``avcC``; ``mp4v`` with ``esds`` and its
 DecoderSpecificInfo; ``vp09`` with ``vpcC``), ``stts``, ``ctts``,
-``stsc``, ``stsz`` / ``stz2``, ``stco`` / ``co64`` and ``stss``.
+``stsc``, ``stsz`` / ``stz2``, ``stco`` / ``co64`` and ``stss``; of a
+fragmented file ``moov/mvex/trex`` and each ``moof/traf`` (``tfhd``,
+``tfdt``, ``trun``), its samples after the sample table's.  ``styp``,
+``sidx``, ``mfra`` and every other box are skipped by their size.
 
 - :attr:`Track.samples` are in decode order, ``(offset, size, dts, cts,
   key)``; ``key`` marks the sync samples of ``stss`` (every sample
@@ -23,17 +26,21 @@ DecoderSpecificInfo; ``vp09`` with ``vpcC``), ``stts``, ``ctts``,
   ``CAP_PROP_ORIENTATION_META`` and applies under
   ``CAP_PROP_ORIENTATION_AUTO`` (0/90/180/270), from the ``tkhd`` matrix
   times the ``mvhd`` one as FFmpeg composes them; ``fps`` (the samples
-  over the ``stts`` duration, FFmpeg's ``avg_frame_rate``), ``size``
-  (``(w, h)`` of the sample entry, swapped by a quarter turn) and
-  ``frame_count`` (the samples) are cv2's.
-- A single-entry edit list shows the media from its media time for its
-  duration: samples that would be shown before or after it are decoded
-  and dropped (:attr:`Track.shown`), as FFmpeg drops them.
+  over their duration, fragments' too, FFmpeg's ``avg_frame_rate``),
+  ``size`` (``(w, h)`` of the sample entry, swapped by a quarter turn)
+  and ``frame_count`` (the sample table's samples, ``nb_frames``; for a
+  file whose samples are all in fragments, ``floor(duration x fps +
+  0.5)``) are cv2's.
+- An edit list, of any number of entries, is followed as FFmpeg's
+  ``mov_fix_index`` follows it (:meth:`Track.schedule`): each edit
+  decodes from a key sample and shows its span; the pictures decoded
+  outside it are dropped, as FFmpeg drops them, and a picture two edits
+  show is shown twice.
 
 Refused, with an error naming the box or codec and ROADMAP.md queue 1
-item 4: fragmented files (``moof`` / ``mvex``), edit lists of more than
-one entry, VP9 of a profile other than 0 (``vpcC``), and every codec but
-H.264, MPEG-4 Part 2 and VP9 (HEVC, AV1, ...).
+item 4: an edit of a media rate other than 1 (cv2 plays it at rate 1),
+VP9 of a profile other than 0 (``vpcC``), and every codec but H.264,
+MPEG-4 Part 2 and VP9 (HEVC, AV1, ...).
 """
 
 from __future__ import annotations
@@ -55,9 +62,10 @@ MPEG4_VISUAL = 0x20    # esds objectTypeIndication of MPEG-4 Part 2
 
 def refusal(path: str, what: str) -> ValueError:
     return ValueError(f"{path}: {what}; the video reader takes H.264 and "
-                      f"MPEG-4 Part 2 in MP4/MOV, AVI or Matroska, VP9 "
-                      f"(profile 0) in WebM, Matroska or MP4, and "
-                      f"Motion-JPEG AVI (other containers and codecs: "
+                      f"MPEG-4 Part 2 in MP4/MOV (fragmented too), AVI or "
+                      f"Matroska, VP9 (profile 0) in WebM, Matroska or MP4, "
+                      f"MPEG-1/2, MPEG-4 Part 2 and H.264 in MPEG-TS / M2TS, "
+                      f"and Motion-JPEG AVI (other containers and codecs: "
                       f"ROADMAP.md queue 1 item 4)")
 
 
@@ -67,6 +75,7 @@ class Sample(NamedTuple):
     dts: int
     cts: int
     key: bool
+    duration: int
 
 
 def boxes(data: bytes, start: int = 0, end: Optional[int] = None
@@ -189,16 +198,23 @@ def display_rotation(tkhd: List[List[int]], mvhd: List[List[int]]
     return rot + 360 if rot < 0 else rot
 
 
+class Edit(NamedTuple):
+    duration: float         # media units (inf: to the end of the media)
+    media_time: int         # -1: an empty edit
+
+
 class Track:
     """The first video track of an MP4/MOV file."""
 
     codec: str                     # "h264", "mpeg4" or "vp9"
-    samples: List[Sample]
+    samples: List[Sample]          # the sample table's, then the fragments'
+    table_samples: int             # how many the moov's sample table holds
     timescale: int
     coded_size: Tuple[int, int]    # (w, h) of the sample entry
     rotation_meta: int             # cv2's CAP_PROP_ORIENTATION_META
     fps: float
-    edit: Tuple[int, float]        # shown media times [start, end)
+    edits: List[Edit]              # the elst's, in media units
+    has_ctts: bool = False         # the sample table has a ctts box
     nal_length: int = 0            # H.264: NAL length prefix bytes
     sps: List[bytes]
     pps: List[bytes]
@@ -217,26 +233,80 @@ class Track:
 
     @property
     def frame_count(self) -> int:
-        return len(self.samples)
+        """cv2's: the sample table's count (``nb_frames``); for a file
+        whose samples are all in fragments, ``floor(duration x fps +
+        0.5)`` over the fragments' span."""
+        if self.table_samples or not self.samples:
+            return self.table_samples
+        first = min(s.dts for s in self.samples)
+        end = max(s.dts + s.duration for s in self.samples)
+        micros = ((end - first) * 1000000 + self.timescale // 2) \
+            // self.timescale
+        return int(math.floor(micros / 1e6 * self.fps + 0.5))
+
+    def schedule(self) -> Tuple[List[int], List[bool]]:
+        """(the samples fed to the decoder, in order; whether each picture
+        the decoder gives, in its order, is shown), as FFmpeg's
+        ``mov_fix_index`` rebuilds the index for an edit list: a leading
+        empty edit only delays; each other edit decodes from the last key
+        sample whose decode and composition times are at or before its
+        media time (the first sample if none), through the first key
+        sample that ends at or past its end (with ``ctts``, the second),
+        and shows the pictures whose composition time lies in [media
+        time, media time + duration).  Pictures come out of the decoder
+        in composition order within each edit.  A sample two edits cover
+        is decoded and shown twice.  Fragments' samples follow, all shown
+        (FFmpeg applies edits to the sample table's index only)."""
+        table = self.samples[:self.table_samples]
+        order: List[int] = []
+        shown: List[bool] = []
+        edits = list(self.edits)
+        while edits and edits[0].media_time == -1:
+            edits.pop(0)
+        if not edits:
+            edits = [Edit(math.inf, min((s.cts for s in table), default=0))]
+        for edit in edits:
+            start, end = edit.media_time, edit.media_time + edit.duration
+            first = 0
+            for i, smp in enumerate(table):
+                if smp.dts > start:
+                    break
+                if smp.key and smp.cts <= start:
+                    first = i
+            picked: List[Tuple[int, int, bool]] = []
+            keys_after = 0
+            for i in range(first, len(table)):
+                smp = table[i]
+                picked.append((smp.cts, i, start <= smp.cts < end))
+                length = (table[i + 1].dts - smp.dts if i + 1 < len(table)
+                          else edit.duration)
+                if smp.cts + length >= end and smp.key:
+                    keys_after += 1
+                    if keys_after > int(self.has_ctts):
+                        break
+            order += [i for _, i, _ in picked]
+            shown += [show for _, _, show in sorted(picked)]
+        rest = range(self.table_samples, len(self.samples))
+        return order + list(rest), shown + [True] * len(rest)
 
     @property
-    def shown(self) -> Tuple[int, int]:
-        """(pictures dropped before the edit, pictures shown), in display
-        order."""
-        start, end = self.edit
-        return (sum(s.cts < start for s in self.samples),
-                sum(start <= s.cts < end for s in self.samples))
+    def shown(self) -> List[bool]:
+        """Whether each picture the decoder gives, in its order, is shown
+        (:meth:`schedule`)."""
+        return self.schedule()[1]
 
     def packets(self, f: BinaryIO) -> Iterator[Tuple[bytes, bool]]:
-        """(bytes for the decoder, key) of each sample in decode order."""
-        for i, s in enumerate(self.samples):
+        """(bytes for the decoder, key) of each sample :meth:`schedule`
+        feeds the decoder."""
+        for n, i in enumerate(self.schedule()[0]):
+            s = self.samples[i]
             f.seek(s.offset)
             data = f.read(s.size)
             if len(data) != s.size:
                 raise ValueError(f"sample {i} runs past the end of the file")
             if self.codec == "h264":
                 data = annexb(data, self.nal_length, self.sps, self.pps)
-            elif self.codec == "mpeg4" and i == 0:
+            elif self.codec == "mpeg4" and n == 0:
                 data = self.decoder_info + data
             yield data, intra_picture(self.codec, data)
 
@@ -280,10 +350,14 @@ def _ue(bits: str, at: int) -> Tuple[int, int]:
 
 
 def intra_picture(codec: str, packet: bytes) -> bool:
-    """Whether a packet (H.264 Annex-B, MPEG-4 Part 2 or VP9) holds an
-    intra-coded picture: an IDR slice or an I / SI slice first; an I-VOP;
-    a VP9 key frame (its uncompressed header's frame_type 0, not a
-    shown existing frame)."""
+    """Whether a packet (H.264 Annex-B, MPEG-1/2 video, MPEG-4 Part 2 or
+    VP9) holds an intra-coded picture: an IDR slice or an I / SI slice
+    first; an I picture (``picture_coding_type`` 1); an I-VOP; a VP9 key
+    frame (its uncompressed header's frame_type 0, not a shown existing
+    frame)."""
+    if codec in ("mpeg1video", "mpeg2video"):
+        at = packet.find(b"\x00\x00\x01\x00")
+        return 0 <= at < len(packet) - 5 and (packet[at + 5] >> 3) & 7 == 1
     if codec == "vp9":
         if not packet or packet[0] >> 6 != 2:
             return False
@@ -365,13 +439,14 @@ def _sample_table(path: str, data: bytes, s: int, e: int, track: Track
                             f"sample entry)")
 
     dts: List[int] = []
+    durations: List[int] = []
     t = 0
     for count, delta in _table(data, stbl[b"stts"][0], ">II"):
         for _ in range(count):
             dts.append(t)
+            durations.append(delta)
             t += delta
     n = len(dts)
-    track.fps = track.timescale * n / t if t and n else 0.0
 
     if b"stsz" in stbl:
         s0 = _full(data, stbl[b"stsz"][0])[1]
@@ -427,7 +502,141 @@ def _sample_table(path: str, data: bytes, s: int, e: int, track: Track
         for (k,) in _table(data, stbl[b"stss"][0], ">I"):
             if 1 <= k <= n:
                 keys[k - 1] = True
-    track.samples = [Sample(*v) for v in zip(offsets, sizes, dts, cts, keys)]
+    track.has_ctts = b"ctts" in stbl
+    track.samples = [Sample(*v) for v in zip(offsets, sizes, dts, cts, keys,
+                                              durations)]
+    track.table_samples = n
+
+
+def _edits(path: str, moov: bytes, s: int, timescale: int,
+           movie_timescale: int) -> List[Edit]:
+    """An ``elst``'s entries in media units (FFmpeg's
+    ``get_edit_list_entry``: the segment duration rescaled from the
+    movie's timescale, rounded; 0 or no movie timescale: to the end);
+    a media rate other than 1 is refused."""
+    v = moov[s]
+    out = []
+    for duration, media_time, rate, fraction in _table(
+            moov, s, ">Qqhh" if v else ">Iihh"):
+        if (rate, fraction) != (1, 0):
+            raise refusal(path, f"an edit of media rate "
+                                f"{rate + fraction / 65536:g} (elst box: "
+                                f"only rate 1 is read)")
+        length = ((duration * timescale + movie_timescale // 2)
+                  // movie_timescale if duration and movie_timescale
+                  else math.inf)
+        out.append(Edit(length, media_time))
+    return out
+
+
+# tfhd / trun flags (ISO 14496-12 8.8.7, 8.8.8) and sample flags
+TFHD_BASE_OFFSET, TFHD_DESCRIPTION, TFHD_DURATION = 0x01, 0x02, 0x08
+TFHD_SIZE, TFHD_FLAGS, TFHD_BASE_IS_MOOF = 0x10, 0x20, 0x020000
+TRUN_DATA_OFFSET, TRUN_FIRST_FLAGS = 0x01, 0x04
+TRUN_DURATION, TRUN_SIZE, TRUN_FLAGS, TRUN_CTS = 0x100, 0x200, 0x400, 0x800
+SAMPLE_NON_SYNC, SAMPLE_DEPENDS_YES = 0x10000, 0x1000000
+
+
+def _fragments(path: str, moofs: List[Tuple[int, bytes]], track_id: int,
+               defaults: Tuple[int, int, int], track: Track) -> None:
+    """Append the samples of each ``moof/traf`` of `track_id` to the
+    track, as FFmpeg's ``mov_read_tfhd`` / ``mov_read_tfdt`` /
+    ``mov_read_trun`` read them: the data base is ``tfhd``'s base data
+    offset, else the ``moof``'s start (default-base-is-moof, or the first
+    ``traf`` of a ``moof``), else where the previous ``traf``'s data
+    ended; the first sample's decode time is ``tfdt``'s, else the end of
+    the samples before; durations, sizes and flags come from the
+    ``trun``, else ``tfhd``, else ``trex`` (`defaults`); a sample is a
+    key unless its flags say non-sync or depends-on-others; ``trun``
+    version 1 composition offsets are signed."""
+    end_time = max((s.dts + s.duration for s in track.samples), default=0)
+    for at, moof in moofs:
+        implicit = at
+        for kind, s, e in boxes(moof, 8):
+            if kind != b"traf":
+                continue
+            traf = list(boxes(moof, s, e))
+            found = {k: (bs, be) for k, bs, be in traf if k == b"tfhd"}
+            if b"tfhd" not in found:
+                continue
+            flags = int.from_bytes(moof[found[b"tfhd"][0] + 1:
+                                        found[b"tfhd"][0] + 4], "big")
+            q = found[b"tfhd"][0] + 4
+            if struct.unpack_from(">I", moof, q)[0] != track_id:
+                continue
+            q += 4
+            base = implicit
+            if flags & TFHD_BASE_OFFSET:
+                base = struct.unpack_from(">Q", moof, q)[0]
+                q += 8
+            elif flags & TFHD_BASE_IS_MOOF:
+                base = at
+            q += 4 if flags & TFHD_DESCRIPTION else 0
+            duration, size, sample_flags = defaults
+            for bit, field in ((TFHD_DURATION, 0), (TFHD_SIZE, 1),
+                               (TFHD_FLAGS, 2)):
+                if flags & bit:
+                    value = struct.unpack_from(">I", moof, q)[0]
+                    q += 4
+                    if field == 0:
+                        duration = value
+                    elif field == 1:
+                        size = value
+                    else:
+                        sample_flags = value
+            dts = end_time
+            for k, bs, be in traf:
+                if k == b"tfdt":
+                    dts = (struct.unpack_from(">Q", moof, bs + 4)[0]
+                           if moof[bs] else
+                           struct.unpack_from(">I", moof, bs + 4)[0])
+                elif k == b"trun":
+                    dts, implicit = _trun(moof, bs, base, dts,
+                                          (duration, size, sample_flags),
+                                          track)
+                    end_time = max(end_time, dts)
+                    if implicit < 0:
+                        raise refusal(path, "a trun box whose data lies "
+                                            "before the file")
+
+
+def _trun(moof: bytes, s: int, base: int, dts: int,
+          defaults: Tuple[int, int, int], track: Track) -> Tuple[int, int]:
+    """Append a ``trun``'s samples; (the decode time after them, the
+    file offset where their data ends)."""
+    version = moof[s]
+    flags = int.from_bytes(moof[s + 1:s + 4], "big")
+    count = struct.unpack_from(">I", moof, s + 4)[0]
+    q = s + 8
+    offset = base
+    if flags & TRUN_DATA_OFFSET:
+        offset += struct.unpack_from(">i", moof, q)[0]
+        q += 4
+    duration, size, sample_flags = defaults
+    first_flags = sample_flags
+    if flags & TRUN_FIRST_FLAGS:
+        first_flags = struct.unpack_from(">I", moof, q)[0]
+        q += 4
+    for i in range(count):
+        d, n, fl, cts = duration, size, first_flags if i == 0 \
+            else sample_flags, 0
+        if flags & TRUN_DURATION:
+            d = struct.unpack_from(">I", moof, q)[0]
+            q += 4
+        if flags & TRUN_SIZE:
+            n = struct.unpack_from(">I", moof, q)[0]
+            q += 4
+        if flags & TRUN_FLAGS:
+            fl = struct.unpack_from(">I", moof, q)[0]
+            q += 4
+        if flags & TRUN_CTS:
+            cts = struct.unpack_from(">i" if version else ">I", moof, q)[0]
+            q += 4
+        key = not fl & (SAMPLE_NON_SYNC | SAMPLE_DEPENDS_YES)
+        track.samples.append(Sample(offset, n, dts, dts + cts, key, d))
+        offset += n
+        dts += d
+    return dts, offset
 
 
 def read_track(path: str, f: BinaryIO) -> Track:
@@ -436,6 +645,7 @@ def read_track(path: str, f: BinaryIO) -> Track:
     file_end = f.tell()
     f.seek(0)
     moov = None
+    moofs: List[Tuple[int, bytes]] = []      # (file offset, the box)
     at = 0
     while at + 8 <= file_end:
         f.seek(at)
@@ -445,8 +655,9 @@ def read_track(path: str, f: BinaryIO) -> Track:
             size = struct.unpack_from(">Q", head, 8)[0]
         elif size == 0:
             size = file_end - at
-        if kind in (b"moof", b"mfra", b"styp"):
-            raise refusal(path, f"a fragmented MP4 ({kind.decode()} box)")
+        if kind == b"moof":
+            f.seek(at)
+            moofs.append((at, f.read(size)))
         if kind == b"moov":
             f.seek(at)
             moov = f.read(size)
@@ -456,8 +667,6 @@ def read_track(path: str, f: BinaryIO) -> Track:
     if moov is None:
         raise refusal(path, "an MP4 with no moov box")
     top = _children(moov, 8, len(moov))
-    if b"mvex" in top:
-        raise refusal(path, "a fragmented MP4 (mvex box)")
     mvhd = [[1 << 16, 0, 0], [0, 1 << 16, 0], [0, 0, 1 << 30]]
     movie_timescale = 0
     if b"mvhd" in top:
@@ -480,26 +689,28 @@ def read_track(path: str, f: BinaryIO) -> Track:
         v, ts = _full(moov, trak[b"tkhd"][0])
         tkhd = _matrix(moov, ts + (32 if v else 20) + 16)
         track.rotation_meta = display_rotation(tkhd, mvhd)
-        track.edit = (0, math.inf)
+        track_id = struct.unpack_from(">I", moov, ts + (16 if v else 8))[0]
+        track.edits = []
         if b"edts" in trak:
             edts = _children(moov, *trak[b"edts"])
             if b"elst" in edts:
-                v = moov[edts[b"elst"][0]]
-                entries = _table(moov, edts[b"elst"][0],
-                                 ">Qqhh" if v else ">Iihh")
-                if len(entries) > 1:
-                    raise refusal(path, f"an edit list of {len(entries)} "
-                                        f"entries (elst box)")
-                if entries and entries[0][1] >= 0:
-                    duration, start = entries[0][:2]
-                    track.edit = (start, start + duration * track.timescale
-                                  / movie_timescale
-                                  if duration and movie_timescale
-                                  else math.inf)
+                track.edits = _edits(path, moov, edts[b"elst"][0],
+                                     track.timescale, movie_timescale)
         minf = _children(moov, *mdia[b"minf"])
         if b"stbl" not in minf:
             raise refusal(path, "the video track has no stbl box")
         _sample_table(path, moov, *minf[b"stbl"], track)
+        if moofs:
+            defaults = (0, 0, 0)
+            if b"mvex" in top:
+                for kind_, ms, me in boxes(moov, *top[b"mvex"]):
+                    if kind_ == b"trex" and struct.unpack_from(
+                            ">I", moov, ms + 4)[0] == track_id:
+                        defaults = struct.unpack_from(">III", moov, ms + 12)
+            _fragments(path, moofs, track_id, defaults, track)
+        n = len(track.samples)
+        total = sum(smp.duration for smp in track.samples)
+        track.fps = track.timescale * n / total if total and n else 0.0
         return track
     raise refusal(path, "an MP4 with no video track")
 

@@ -19,10 +19,13 @@ decoder gives back exactly the written Y, U and V:
 
 :func:`mux_mp4` puts the access units into an MP4 (ISO-BMFF: ``avc1``
 with ``avcC``, one track, any ``tkhd`` rotation, optionally ``co64``
-chunk offsets, several chunks, and a composition offset shifted back by
-an edit list); :func:`annexb` gives the same stream as an Annex-B byte
-stream.  The OpenCV wheels (cv2 4.13 and 5.0) have no H.264 encoder, so
-this writer makes the fixtures.
+chunk offsets, several chunks, a composition offset shifted back by an
+edit list, or any edit list); :func:`mux_fmp4` into a fragmented MP4;
+:func:`mux_ts` into an MPEG transport stream (188- or 192-byte packets,
+PES split and joined); :func:`annexb` gives the same stream as an
+Annex-B byte stream.  The OpenCV wheels (cv2 4.13 and 5.0) have no H.264
+encoder and write neither fragmented MP4 nor edit lists, so these
+writers make the fixtures.
 """
 
 from __future__ import annotations
@@ -30,9 +33,13 @@ from __future__ import annotations
 import os
 import re
 import struct
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .mp4 import (TFHD_BASE_IS_MOOF, TFHD_BASE_OFFSET, TFHD_DURATION,
+                  TFHD_FLAGS, TRUN_CTS, TRUN_DATA_OFFSET, TRUN_DURATION,
+                  TRUN_FIRST_FLAGS, TRUN_FLAGS, TRUN_SIZE, intra_picture)
 
 PROFILE_BASELINE = 66
 PROFILE_MAIN = 77
@@ -323,76 +330,50 @@ def avcc(sps_nal: bytes, pps_nal: bytes) -> bytes:
                struct.pack(">H", len(pps_nal)), pps_nal)
 
 
-def mux_mp4(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes],
-            keys: Sequence[bool], size: Tuple[int, int], *,
-            timescale: int = 12800, delta: int = 512, rotation: int = 0,
-            samples_per_chunk: int = 0, co64: bool = False,
-            composition_shift: int = 0,
-            composition_offsets: Optional[Sequence[int]] = None,
-            edit_start: Optional[int] = None,
-            entry: Optional[bytes] = None) -> bytes:
-    """An MP4 of one H.264 track: samples of 4-byte-length-prefixed NAL
-    units, `delta` / `timescale` seconds each.  `size` is (w, h) before
-    rotation; `rotation` (0/90/180/270) is the clockwise turn cv2 applies
-    (the ``tkhd`` matrix).  `samples_per_chunk` > 0 splits the samples
-    into chunks of that many; `co64` writes 64-bit chunk offsets;
-    `composition_shift` > 0 writes every sample's composition time that
-    much late (``ctts``) and an edit list that starts the presentation
-    there, as muxers do for streams with B-frames, or at `edit_start`
-    (media units) where given; `composition_offsets` gives each sample's
-    own offset (B-frames: display time minus decode time, shifted to be
-    positive) with an edit list at `edit_start`.  `entry` replaces the
-    ``avc1`` sample entry (another codec's, e.g. :func:`vp09_entry`); the
-    `units` are then the samples as they are."""
-    if rotation not in MATRICES:
-        raise ValueError(f"rotation {rotation} is not one of 0/90/180/270")
-    w, h = size
-    samples = (list(units) if entry is not None else
-               [struct.pack(">I", len(u)) + u for u in units])
+def _stbl(entry: bytes, samples: Sequence[bytes], keys: Sequence[bool],
+          delta: int, offsets: Sequence[int], per: int, co64: bool,
+          ctts: Optional[Sequence[int]]) -> bytes:
+    """An ``stbl`` of `samples` (in chunks of `per` at `offsets`), each
+    `delta` long, with their composition offsets `ctts` (None: no
+    ``ctts``) and sync samples."""
     n = len(samples)
-    per = samples_per_chunk or n
-    chunks = [samples[i:i + per] for i in range(0, n, per)]
-    ftyp = box(b"ftyp", b"isom", struct.pack(">I", 512),
-               b"isomiso2avc1mp41")
-    mdat_payload = b"".join(b"".join(c) for c in chunks)
-    mdat_head = struct.pack(">I4s", 8 + len(mdat_payload), b"mdat")
-    offsets, at = [], len(ftyp) + len(mdat_head)
-    for c in chunks:
-        offsets.append(at)
-        at += sum(map(len, c))
-    duration = n * delta
-    movie_duration = duration * 1000 // timescale
-    if entry is None:
-        entry = visual_entry(b"avc1", (w, h), avcc(sps_nal, pps_nal))
     stbl = [full_box(b"stsd", 0, 0, struct.pack(">I", 1), entry),
-            full_box(b"stts", 0, 0, struct.pack(">III", 1, n, delta))]
-    if composition_offsets is not None:
-        stbl.append(full_box(b"ctts", 0, 0, struct.pack(
-            f">I{2 * n}I", n, *(v for off in composition_offsets
-                                for v in (1, off)))))
-    elif composition_shift:
-        stbl.append(full_box(b"ctts", 0, 0, struct.pack(
-            ">III", 1, n, composition_shift)))
+            full_box(b"stts", 0, 0, struct.pack(">I", 1 if n else 0),
+                     struct.pack(">II", n, delta) if n else b"")]
+    if ctts is not None:
+        signed = any(off < 0 for off in ctts)
+        stbl.append(full_box(b"ctts", int(signed), 0, struct.pack(
+            f">I{2 * n}{'i' if signed else 'I'}", n,
+            *(v for off in ctts for v in (1, off)))))
     sync = [i + 1 for i, k in enumerate(keys) if k]
     stbl.append(full_box(b"stss", 0, 0, struct.pack(
         f">I{len(sync)}I", len(sync), *sync)))
-    stsc = [(1, per, 1)]
-    if n % per and len(chunks) > 1:
-        stsc.append((len(chunks), n % per, 1))
+    stsc = [(1, per, 1)] if n else []
+    if n and n % per and len(offsets) > 1:
+        stsc.append((len(offsets), n % per, 1))
     stbl.append(full_box(b"stsc", 0, 0, struct.pack(">I", len(stsc)),
                          *(struct.pack(">III", *e) for e in stsc)))
     stbl.append(full_box(b"stsz", 0, 0, struct.pack(
         f">II{n}I", 0, n, *map(len, samples))))
-    if co64:
-        stbl.append(full_box(b"co64", 0, 0, struct.pack(
-            f">I{len(offsets)}Q", len(offsets), *offsets)))
-    else:
-        stbl.append(full_box(b"stco", 0, 0, struct.pack(
-            f">I{len(offsets)}I", len(offsets), *offsets)))
+    kind, fmt = (b"co64", "Q") if co64 else (b"stco", "I")
+    stbl.append(full_box(kind, 0, 0, struct.pack(
+        f">I{len(offsets)}{fmt}", len(offsets), *offsets)))
+    return box(b"stbl", *stbl)
+
+
+def _moov(stbl: bytes, size: Tuple[int, int], rotation: int, timescale: int,
+          duration: int, edits: Optional[Sequence[Tuple[int, int, float]]],
+          mvex: bytes = b"") -> bytes:
+    """The ``moov`` of one video track: ``mvhd`` (timescale 1000),
+    ``trak`` with ``tkhd``, an ``edts/elst`` of `edits` ((segment
+    duration in ms, media time or -1, media rate) each) where given, and
+    `stbl` under ``mdia/minf``; `mvex` after the track."""
+    w, h = size
+    movie_duration = duration * 1000 // timescale
     minf = box(b"minf", full_box(b"vmhd", 0, 1, b"\0" * 8),
                box(b"dinf", full_box(b"dref", 0, 0, struct.pack(">I", 1),
                                      full_box(b"url ", 0, 1))),
-               box(b"stbl", *stbl))
+               stbl)
     mdia = box(b"mdia",
                full_box(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0,
                                                    timescale, duration,
@@ -405,17 +386,220 @@ def mux_mp4(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes],
                      b"\0" * 8, struct.pack(">hhhH", 0, 0, 0, 0),
                      _matrix(rotation), struct.pack(">II", w << 16,
                                                     h << 16))]
-    if composition_shift or edit_start is not None:
-        start = composition_shift if edit_start is None else edit_start
+    if edits is not None:
         trak.append(box(b"edts", full_box(b"elst", 0, 0, struct.pack(
-            ">IIiI", 1, movie_duration, start, 1 << 16))))
-    moov = box(b"moov",
+            ">I", len(edits)), *(struct.pack(">IiI", d, t, round(r * 65536))
+                                 for d, t, r in edits))))
+    return box(b"moov",
                full_box(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, 1000,
                                                    movie_duration),
                         struct.pack(">IH", 1 << 16, 1 << 8), b"\0" * 10,
                         _matrix(0), b"\0" * 24, struct.pack(">I", 2)),
-               box(b"trak", *trak, mdia))
-    return ftyp + mdat_head + mdat_payload + moov
+               box(b"trak", *trak, mdia), mvex)
+
+
+FTYP = box(b"ftyp", b"isom", struct.pack(">I", 512), b"isomiso2avc1mp41")
+
+
+def mux_mp4(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes],
+            keys: Sequence[bool], size: Tuple[int, int], *,
+            timescale: int = 12800, delta: int = 512, rotation: int = 0,
+            samples_per_chunk: int = 0, co64: bool = False,
+            composition_shift: int = 0,
+            composition_offsets: Optional[Sequence[int]] = None,
+            edit_start: Optional[int] = None,
+            edits: Optional[Sequence[Tuple[int, int, float]]] = None,
+            entry: Optional[bytes] = None) -> bytes:
+    """An MP4 of one H.264 track: samples of 4-byte-length-prefixed NAL
+    units, `delta` / `timescale` seconds each.  `size` is (w, h) before
+    rotation; `rotation` (0/90/180/270) is the clockwise turn cv2 applies
+    (the ``tkhd`` matrix).  `samples_per_chunk` > 0 splits the samples
+    into chunks of that many; `co64` writes 64-bit chunk offsets;
+    `composition_shift` > 0 writes every sample's composition time that
+    much late (``ctts``) and an edit list that starts the presentation
+    there, as muxers do for streams with B-frames, or at `edit_start`
+    (media units) where given; `composition_offsets` gives each sample's
+    own offset (B-frames: display time minus decode time, shifted to be
+    positive) with an edit list at `edit_start`.  `edits` writes any
+    edit list: (segment duration in ms, media time in `timescale` units
+    or -1 for an empty edit, media rate) each.  `entry` replaces the
+    ``avc1`` sample entry (another codec's, e.g. :func:`vp09_entry`); the
+    `units` are then the samples as they are."""
+    if rotation not in MATRICES:
+        raise ValueError(f"rotation {rotation} is not one of 0/90/180/270")
+    w, h = size
+    samples = (list(units) if entry is not None else
+               [struct.pack(">I", len(u)) + u for u in units])
+    n = len(samples)
+    per = samples_per_chunk or n
+    chunks = [samples[i:i + per] for i in range(0, n, per)]
+    mdat_payload = b"".join(b"".join(c) for c in chunks)
+    mdat_head = struct.pack(">I4s", 8 + len(mdat_payload), b"mdat")
+    offsets, at = [], len(FTYP) + len(mdat_head)
+    for c in chunks:
+        offsets.append(at)
+        at += sum(map(len, c))
+    duration = n * delta
+    if entry is None:
+        entry = visual_entry(b"avc1", (w, h), avcc(sps_nal, pps_nal))
+    ctts = (list(composition_offsets) if composition_offsets is not None
+            else [composition_shift] * n if composition_shift else None)
+    if edits is None and (composition_shift or edit_start is not None):
+        start = composition_shift if edit_start is None else edit_start
+        edits = [(duration * 1000 // timescale, start, 1.0)]
+    stbl = _stbl(entry, samples, keys, delta, offsets, per, co64, ctts)
+    return FTYP + mdat_head + mdat_payload + _moov(
+        stbl, (w, h), rotation, timescale, duration, edits)
+
+
+SAMPLE_KEY, SAMPLE_NON_KEY = 0x02000000, 0x01010000   # depends_on, non-sync
+
+
+def mux_fmp4(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes],
+             keys: Sequence[bool], size: Tuple[int, int], *,
+             timescale: int = 12800, delta: int = 512,
+             fragment: str = "sample", base: str = "moof",
+             tfdt: bool = True, trun_version: int = 0,
+             composition_offsets: Optional[Sequence[int]] = None,
+             moov_samples: int = 0, styp: bool = False, sidx: bool = False,
+             mfra: bool = False, durations: str = "trex",
+             edits: Optional[Sequence[Tuple[int, int, float]]] = None
+             ) -> bytes:
+    """A fragmented MP4 of one H.264 track, as ``MediaRecorder``, OBS and
+    CMAF segmenters write it: a ``moov`` with ``mvex/trex`` (default
+    duration `delta`, non-sync flags) whose sample table holds the first
+    `moov_samples` samples (0: ``empty_moov``), then one ``moof`` +
+    ``mdat`` per sample (`fragment` "sample") or per GOP ("gop").  Each
+    ``traf`` has ``tfhd`` (`base` "moof": default-base-is-moof; "explicit":
+    a base data offset, the ``moof``'s place; "implicit": neither, the
+    ``moof`` start by the format's rule), ``tfdt`` where `tfdt`, and a
+    ``trun`` (`trun_version` 1: signed composition offsets) with its data
+    offset; a GOP's fragment gives its key in ``first_sample_flags`` and
+    takes the rest from ``trex``, a sample's fragment carries the sample
+    flags.  `durations` says where the sample durations stand: "trex";
+    "tfhd" (its default duration and flags, over a ``trex`` of a 1-tick
+    duration and key flags that they override); "trun" (each sample's,
+    over the same ``trex``).  `composition_offsets` writes each sample's
+    offset.  `styp` starts each fragment with a segment type box, `sidx`
+    puts a segment index ahead of the first, `mfra` ends the file with a
+    fragment random access box (``tfra`` of the key samples, and
+    ``mfro``)."""
+    w, h = size
+    samples = [struct.pack(">I", len(u)) + u for u in units]
+    n = len(samples)
+    entry = visual_entry(b"avc1", (w, h), avcc(sps_nal, pps_nal))
+    cts = list(composition_offsets) if composition_offsets is not None \
+        else None
+    trex = full_box(b"trex", 0, 0, struct.pack(
+        ">IIIII", 1, 1, delta if durations == "trex" else 1, 0,
+        SAMPLE_KEY if durations == "tfhd" else SAMPLE_NON_KEY))
+    mvex = box(b"mvex", trex)
+    head = samples[:moov_samples]
+
+    def moov_for(offset: int) -> bytes:
+        stbl = _stbl(entry, head, keys[:moov_samples], delta,
+                     [offset] if head else [], max(1, len(head)), False,
+                     cts[:moov_samples] if cts is not None and head
+                     else None)
+        return _moov(stbl, (w, h), 0, timescale, moov_samples * delta,
+                     edits, mvex)
+
+    moov = moov_for(0)
+    out = [FTYP]
+    at = len(FTYP) + len(moov)
+    out.append(moov_for(at + 8) if head else moov)
+    if head:
+        payload = b"".join(head)
+        out.append(struct.pack(">I4s", 8 + len(payload), b"mdat") + payload)
+    groups: List[List[int]] = []
+    for i in range(moov_samples, n):
+        if not groups or fragment == "sample" or keys[i]:
+            groups.append([])
+        groups[-1].append(i)
+    first_flags = fragment == "gop"
+    flags = TRUN_DATA_OFFSET | TRUN_SIZE | (
+        TRUN_FIRST_FLAGS if first_flags else TRUN_FLAGS)
+    if cts is not None:
+        flags |= TRUN_CTS
+    if durations == "trun":
+        flags |= TRUN_DURATION
+    tf_flags = {"moof": TFHD_BASE_IS_MOOF, "explicit": TFHD_BASE_OFFSET,
+                "implicit": 0}[base]
+    if durations == "tfhd":
+        tf_flags |= TFHD_DURATION | TFHD_FLAGS
+
+    def moof(seq: int, group: List[int], moof_at: int, data_offset: int
+             ) -> bytes:
+        rows = []
+        for i in group:
+            row = [delta] if durations == "trun" else []
+            row.append(len(samples[i]))
+            if not first_flags:
+                row.append(SAMPLE_KEY if keys[i] else SAMPLE_NON_KEY)
+            fmt = ">" + "I" * len(row)
+            if cts is not None:
+                row.append(cts[i])
+                fmt += "i" if trun_version else "I"
+            rows.append(struct.pack(fmt, *row))
+        trun = full_box(b"trun", trun_version, flags, struct.pack(
+            ">Ii", len(group), data_offset),
+            struct.pack(">I", SAMPLE_KEY if keys[group[0]]
+                        else SAMPLE_NON_KEY) if first_flags else b"",
+            *rows)
+        traf = [full_box(b"tfhd", 0, tf_flags, struct.pack(">I", 1),
+                         struct.pack(">Q", moof_at)
+                         if tf_flags & TFHD_BASE_OFFSET else b"",
+                         struct.pack(">II", delta, SAMPLE_NON_KEY)
+                         if durations == "tfhd" else b"")]
+        if tfdt:
+            traf.append(full_box(b"tfdt", 1, 0, struct.pack(
+                ">Q", group[0] * delta)))
+        traf.append(trun)
+        return box(b"moof", full_box(b"mfhd", 0, 0, struct.pack(">I", seq)),
+                   box(b"traf", *traf))
+
+    def fragments(at: int):
+        """The fragments from file offset `at`: (their bytes, (time, moof
+        offset) of each key fragment, (size, duration, key) of each)."""
+        parts, randoms, segments = [], [], []
+        for seq, group in enumerate(groups, 1):
+            begin = at
+            if styp:
+                parts.append(box(b"styp", b"msdh", struct.pack(">I", 0),
+                                 b"msdhmsix"))
+                at += len(parts[-1])
+            size0 = len(moof(seq, group, at, 0))
+            parts.append(moof(seq, group, at, size0 + 8))
+            payload = b"".join(samples[i] for i in group)
+            parts.append(struct.pack(">I4s", 8 + len(payload), b"mdat")
+                         + payload)
+            if keys[group[0]]:
+                randoms.append((group[0] * delta, at))
+            at += len(parts[-2]) + len(parts[-1])
+            segments.append((at - begin, len(group) * delta,
+                             keys[group[0]]))
+        return parts, randoms, segments
+
+    at = sum(map(len, out))
+    if sidx:        # one reference a fragment, ahead of them all
+        index_size = 12 + 20 + 12 * len(groups)
+        parts, randoms, segments = fragments(at + index_size)
+        out.append(full_box(b"sidx", 0, 0, struct.pack(
+            ">IIIIHH", 1, timescale, moov_samples * delta, 0, 0,
+            len(segments)), *(struct.pack(
+                ">III", size, duration, 0x90000000 if key else 0)
+                for size, duration, key in segments)))
+    else:
+        parts, randoms, segments = fragments(at)
+    out += parts
+    if mfra:
+        tfra = full_box(b"tfra", 1, 0, struct.pack(">III", 1, 0,
+                                                   len(randoms)),
+                        *(struct.pack(">QQBBB", t, at, 1, 1, 1)
+                          for t, at in randoms))
+        out.append(box(b"mfra", tfra, full_box(b"mfro", 0, 0, struct.pack(
+            ">I", 8 + len(tfra) + 16))))
+    return b"".join(out)
 
 
 def yuv_frames(n: int, h: int, w: int, seed: int = 0
@@ -606,6 +790,231 @@ def write_bframes(path: str, anchors, *, reorder: Optional[int] = 1,
     with open(path, "wb") as f:
         f.write(data)
     return shown
+
+
+# ---------------------------------------------------------------------------
+# MPEG transport stream muxing
+# ---------------------------------------------------------------------------
+
+TS_STREAM_TYPES = {"mpeg1video": 0x01, "mpeg2video": 0x02, "mpeg4": 0x10,
+                   "h264": 0x1B, "hevc": 0x24, "private": 0x06}
+TS_PMT_PID, TS_VIDEO_PID, TS_OTHER_PID = 0x1000, 0x100, 0x101
+TS_START = 126000           # the first DTS (1.4 s), as FFmpeg's muxer starts
+TS_PCR_DELAY = 63000        # PCR this far ahead of the DTS (0.7 s)
+
+
+class TsUnit(NamedTuple):
+    data: bytes             # an access unit as the decoder takes it
+    pts: int                # 90 kHz
+    dts: Optional[int]      # None: the same as the PTS (only PTS written)
+
+
+def ts_timestamp(marker: int, ts: int) -> bytes:
+    """A PES header's 33-bit PTS / DTS field with its 4-bit marker."""
+    ts %= 1 << 33
+    return bytes([(marker << 4) | ((ts >> 29) & 0x0E) | 1,
+                  (ts >> 22) & 0xFF, ((ts >> 14) & 0xFE) | 1,
+                  (ts >> 7) & 0xFF, ((ts << 1) & 0xFE) | 1])
+
+
+def pes_packet(payload: bytes, pts: Optional[int], dts: Optional[int],
+               unbounded: bool, stream_id: int = 0xE0) -> bytes:
+    """A PES packet: its header (PTS, and DTS where it differs) and the
+    payload; `unbounded` writes PES_packet_length 0, as video muxers
+    write it."""
+    fields = b""
+    flags = 0
+    if pts is not None:
+        if dts is not None and dts != pts:
+            flags, fields = 0xC0, ts_timestamp(3, pts) + ts_timestamp(1, dts)
+        else:
+            flags, fields = 0x80, ts_timestamp(2, pts)
+    header = bytes([0x80, flags, len(fields)]) + fields
+    length = 0 if unbounded else len(header) + len(payload)
+    if length > 0xFFFF:
+        raise ValueError(f"a bounded PES of {length} bytes (at most 65535)")
+    return (b"\x00\x00\x01" + bytes([stream_id]) + struct.pack(">H", length)
+            + header + payload)
+
+
+def psi_section(table_id: int, extension: int, body: bytes) -> bytes:
+    """A long-form PSI section (version 0, current, section 0 of 0) with
+    its CRC-32/MPEG-2."""
+    from .mpegts import crc32_mpeg2
+
+    head = bytes([table_id]) + struct.pack(
+        ">HHBBB", 0xB000 | (len(body) + 9), extension, 0xC1, 0, 0)
+    section = head + body
+    return section + struct.pack(">I", crc32_mpeg2(section))
+
+
+class _TsWriter:
+    def __init__(self, packet_size: int):
+        if packet_size not in (188, 192):
+            raise ValueError(f"TS packets are 188 or 192 bytes, not "
+                             f"{packet_size}")
+        self.packet_size = packet_size
+        self.cc: dict = {}
+        self.out: List[bytes] = []
+
+    def packet(self, pid: int, payload: bytes, start: bool,
+               adaptation: Optional[bytes] = None) -> int:
+        """One packet: as much of `payload` as fits after `adaptation`
+        (the adaptation field's flags byte and fields); the rest of the
+        184 bytes is adaptation-field stuffing.  Returns the payload bytes
+        taken."""
+        if adaptation is None and len(payload) >= 184:
+            field, take = b"", 184
+        else:
+            fixed = adaptation or b""
+            take = min(len(payload), 183 - len(fixed))
+            length = 183 - take                 # adaptation_field_length
+            body = fixed or (b"\x00" if length else b"")
+            field = bytes([length]) + body + b"\xff" * (length - len(body))
+        cc = self.cc.get(pid, 0)
+        self.cc[pid] = (cc + 1) & 15
+        head = bytes([0x47, (0x40 if start else 0) | (pid >> 8), pid & 0xFF,
+                      (0x30 if field else 0x10) | cc])
+        packet = head + field + bytes(payload[:take])
+        if self.packet_size == 192:      # TP_extra_header: arrival time
+            packet = struct.pack(">I", (len(self.out) * 1000) & 0x3FFFFFFF) \
+                + packet
+        self.out.append(packet)
+        return take
+
+    def payload(self, pid: int, data: bytes,
+                adaptation: Optional[bytes] = None) -> None:
+        """`data` (a PES packet, or a pointer field and sections) over as
+        many packets as it needs; `adaptation` goes in the first."""
+        view, start = memoryview(data), True
+        while view or start:
+            taken = self.packet(pid, view[:184], start, adaptation)
+            view, start, adaptation = view[taken:], False, None
+
+
+def _adaptation(pcr: Optional[int], random_access: bool) -> bytes:
+    flags = (0x40 if random_access else 0) | (0x10 if pcr is not None
+                                               else 0)
+    out = bytes([flags])
+    if pcr is not None:
+        base = pcr % (1 << 33)
+        out += struct.pack(">IH", base >> 1, ((base & 1) << 15) | 0x7E00)
+    return out
+
+
+def mux_ts(codec: str, units: Sequence[TsUnit], keys: Sequence[bool], *,
+           packet_size: int = 188, pes_per_frame: int = 1,
+           split: Sequence[int] = (), unbounded: bool = True,
+           psi_every: int = 40, private_first: bool = False) -> bytes:
+    """An MPEG transport stream of one program (PAT, PMT, and the PCR in
+    the video PID) and one video stream of `codec` (a key of
+    :data:`TS_STREAM_TYPES`): `units` in decode order, each PES holding
+    `pes_per_frame` of them (its timestamps the first's), a unit whose
+    index is in `split` spread over two PES (the second without
+    timestamps), with PES_packet_length 0 where `unbounded`.  Each PES
+    whose first unit is a key has ``random_access_indicator`` set; the
+    last packet of a PES is filled with adaptation-field stuffing.  PAT
+    and PMT repeat every `psi_every` packets; `private_first` lists a
+    private data stream (0x06) ahead of the video in the PMT.
+    `packet_size` 192 writes M2TS (a 4-byte arrival time first)."""
+    w = _TsWriter(packet_size)
+    pat = psi_section(0x00, 1, struct.pack(">HH", 1, 0xE000 | TS_PMT_PID))
+    streams = b""
+    if private_first:
+        streams += struct.pack(">BHH", TS_STREAM_TYPES["private"],
+                               0xE000 | TS_OTHER_PID, 0xF000)
+    streams += struct.pack(">BHH", TS_STREAM_TYPES[codec],
+                           0xE000 | TS_VIDEO_PID, 0xF000)
+    pmt = psi_section(0x02, 1, struct.pack(">HH", 0xE000 | TS_VIDEO_PID,
+                                           0xF000) + streams)
+    tables_at = [None]
+
+    def tables():
+        if tables_at[0] is None or len(w.out) - tables_at[0] >= psi_every:
+            tables_at[0] = len(w.out)
+            w.payload(0, b"\x00" + pat)
+            w.payload(TS_PMT_PID, b"\x00" + pmt)
+
+    groups: List[List[Tuple[bytes, Optional[int], Optional[int], bool]]] = []
+    for i in range(0, len(units), pes_per_frame):
+        group = units[i:i + pes_per_frame]
+        data = b"".join(u.data for u in group)
+        first = group[0]
+        if any(i + k in split for k in range(len(group))):
+            half = len(data) // 2
+            groups.append([(data[:half], first.pts, first.dts, keys[i])])
+            groups.append([(data[half:], None, None, False)])
+        else:
+            groups.append([(data, first.pts, first.dts, keys[i])])
+    for (data, pts, dts, key), in groups:
+        tables()
+        pcr = None
+        if pts is not None:
+            pcr = (pts if dts is None else dts) - TS_PCR_DELAY
+        w.payload(TS_VIDEO_PID, pes_packet(data, pts, dts, unbounded),
+                  _adaptation(pcr, key))
+    return b"".join(w.out)
+
+
+def h264_access_units(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes]
+                      ) -> List[bytes]:
+    """Annex-B access units as broadcast encoders put them in a transport
+    stream: an access unit delimiter (NAL 9) first, the parameter sets
+    ahead of the first picture."""
+    aud = b"\x00\x00\x00\x01\x09\xf0"
+    return [aud + (annexb(sps_nal, pps_nal, [u]) if i == 0
+                   else b"\x00\x00\x00\x01" + u)
+            for i, u in enumerate(units)]
+
+
+def write_ipcm_ts(path: str, frames, *, key_every: int = 0,
+                  fps: Tuple[int, int] = (25, 1), start: int = TS_START,
+                  **mux) -> None:
+    """Write `frames` (see :func:`encode_ipcm`) as I_PCM H.264 in an MPEG
+    transport stream (:func:`mux_ts`), frame i at `start` + i frames of
+    `fps` (num, den) on the 90 kHz clock (wrapping past 2^33)."""
+    s, p, units, keys = encode_ipcm(frames, key_every)
+    data = h264_access_units(s, p, units)
+    ticks = 90000 * fps[1] // fps[0]
+    ts_units = [TsUnit(d, start + i * ticks, None) for i, d in enumerate(data)]
+    with open(path, "wb") as f:
+        f.write(mux_ts("h264", ts_units, keys, **mux))
+
+
+def write_bframes_ts(path: str, anchors, *, reorder: Optional[int] = 1,
+                     fps: int = 25, poc_step: int = 2, **mux
+                     ) -> List[Tuple[np.ndarray, ...]]:
+    """:func:`encode_ipcm_bframes`' stream of `anchors` in an MPEG
+    transport stream: PTS one frame after the DTS, B pictures with their
+    display times; returns the frames in display order."""
+    s, p, units, keys, order, shown = encode_ipcm_bframes(anchors, reorder,
+                                                          poc_step)
+    ticks = 90000 // fps
+    data = h264_access_units(s, p, units)
+    ts_units = [TsUnit(d, TS_START + (order[i] + 1) * ticks,
+                       TS_START + i * ticks) for i, d in enumerate(data)]
+    with open(path, "wb") as f:
+        f.write(mux_ts("h264", ts_units, keys, **mux))
+    return shown
+
+
+def remux_ts(src: str, dst: str, **mux) -> int:
+    """Re-mux the first video stream of the transport stream `src` (cv2's
+    MPEG-2, say) with :func:`mux_ts`: its PES payloads, timestamps and
+    codec as they are, the packing as `mux` says.  Returns the PES
+    count."""
+    from . import mpegts
+
+    with open(src, "rb") as f:
+        track = mpegts.read_track(src, f)
+        pes = [p for p in track.pes(f)]
+    units = [TsUnit(p.payload, p.pts, p.dts) for p in pes]
+    codec = {0x01: "mpeg1video", 0x02: "mpeg2video"}.get(track.stream_type,
+                                                         track.codec)
+    keys = [intra_picture(track.codec, p.payload) for p in pes]
+    with open(dst, "wb") as f:
+        f.write(mux_ts(codec, units, keys, **mux))
+    return len(units)
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,15 @@ of its users' files, frame for frame as cv2 gives them:
 - H.264 and MPEG-4 Part 2 (XVID, DivX, ``mp4v``: what the JAX demo and
   cv2's wheels write) in AVI (``XVID``, ``DIVX``, ``DX50``, ``FMP4``,
   ``MP4V``, ``H264``, ``AVC1``, ``X264`` chunks), in MP4 / MOV
-  (``demo/mp4.py``) or in Matroska (``demo/mkv.py``); VP9 (profile 0)
-  in WebM, Matroska or MP4 (``vp09``): browser ``MediaRecorder``, OBS
-  and most downloaded web video.  The rotation of the track is honoured
+  (``demo/mp4.py``; fragmented files, and edit lists of several entries)
+  or in Matroska (``demo/mkv.py``); VP9 (profile 0) in WebM, Matroska or
+  MP4 (``vp09``): browser ``MediaRecorder``, OBS and most downloaded web
+  video;
+- MPEG-1 / MPEG-2 video, MPEG-4 Part 2 and H.264 in MPEG transport
+  streams, ``.ts`` and M2TS / AVCHD ``.mts`` (``demo/mpegts.py``, its
+  frames split by libavcodec's parsers): IP and surveillance cameras,
+  HLS segments, broadcast captures, camcorders.  The rotation of the
+  track is honoured
   as ``CAP_PROP_ORIENTATION_AUTO`` does; H.264 B pictures come in cv2's
   order.  The packets are decoded on the host by FFmpeg's libavcodec
   from the OpenCV wheel (``native/avcodec.py``), the planes converted to
@@ -23,9 +29,9 @@ of its users' files, frame for frame as cv2 gives them:
   opening such a file raises.
 
 Everything else is refused with an error that names the container or
-codec and ROADMAP.md queue 1 item 4: MPEG-TS, HEVC, AV1, VP9 of other
-profiles (10-bit), laced Matroska blocks, fragmented MP4, multi-entry
-edit lists.
+codec and ROADMAP.md queue 1 item 4: HEVC, AV1, VP9 of other profiles
+(10-bit), 4:2:2 and 4:4:4 video, laced Matroska blocks, edits of another
+media rate, MPEG program streams (``.mpg`` / ``.vob``, item 4g).
 
 :class:`VideoWriter` writes AVI: a ``hdrl`` list (the ``avih`` main
 header, one ``strl`` with the ``vids`` stream header and its
@@ -41,6 +47,8 @@ one baseline JPEG a frame.
 from __future__ import annotations
 
 import io
+import itertools
+import math
 import struct
 import time
 from fractions import Fraction
@@ -49,7 +57,7 @@ from typing import BinaryIO, Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..data.imwrite import JPEG_OPTIONS
-from . import mkv, mp4
+from . import mkv, mp4, mpegts
 
 WRITER_FOURCCS = ("XVID", "MJPG")
 AVIF_HASINDEX = 0x10
@@ -211,24 +219,28 @@ class VideoReader:
 
 
 class DecodedVideo:
-    """An H.264, MPEG-4 Part 2 or VP9 stream of an MP4/MOV, AVI or
-    Matroska / WebM file, read as ``cv2.VideoCapture`` with
+    """An H.264, MPEG-1/2, MPEG-4 Part 2 or VP9 stream of an MP4/MOV, AVI,
+    Matroska / WebM or MPEG-TS file, read as ``cv2.VideoCapture`` with
     ``CAP_PROP_ORIENTATION_AUTO`` reads it: ``read()`` gives each frame
     in display order as ``(H, W, 3)`` uint8 BGR, turned by ``rotation``;
     ``fps``, ``size`` (w, h after the turn) and ``frame_count`` are
     cv2's.
 
     `read_track(path, file)` parses the container into a track (an
-    :class:`AviStream`, ``mkv.MkvTrack`` or ``mp4.Track``: codec, fps,
-    size, rotation, frame count, the pictures shown and ``packets``);
-    without one the file is read as MP4/MOV.  The packets are demuxed on
-    the host, decoded there by libavcodec (an H.264 stream probed first,
-    as libavformat probes it for cv2), and each picture's planes are
+    :class:`AviStream`, ``mkv.MkvTrack``, ``mpegts.TsTrack`` or
+    ``mp4.Track``: codec, fps, size (None: the first picture's),
+    rotation, frame count, the pictures shown and ``packets``); without
+    one the file is read as MP4/MOV.  The packets are demuxed on the
+    host (a transport stream's split into frames by libavcodec's parser),
+    decoded there by libavcodec (an H.264 stream probed first, as
+    libavformat probes it for cv2), and each picture's planes are
     copied to `device` and converted by ``ops.kernels.yuv420_to_bgr``
     (the plain version for ``"cpu"``).  The copy returns once the
     decoder's buffers have been read, before the next picture reuses
-    them.  ``seconds`` sums the time of each step: ``demux`` (reading a packet and, for H.264, its Annex-B form),
-    ``decode`` (libavcodec) and ``convert`` (copy up, kernel, copy back)."""
+    them.  ``seconds`` sums the time of each step: ``demux`` (reading a
+    packet and, for H.264, its Annex-B form), ``parse`` (a transport
+    stream's parser), ``decode`` (libavcodec) and ``convert`` (copy up,
+    kernel, copy back)."""
 
     def __init__(self, path: str, device="cuda", read_track=None):
         import torch
@@ -242,14 +254,18 @@ class DecodedVideo:
             self.seconds = {"demux": 0.0, "decode": 0.0, "convert": 0.0}
             t0 = time.perf_counter()
             track = (read_track or mp4.read_track)(path, self._f)
-            self.codec, self.fps, self.size = (track.codec, track.fps,
-                                               track.size)
+            self.codec, self.fps = track.codec, track.fps
             self.rotation, self.rotation_meta = (track.rotation,
                                                  track.rotation_meta)
             self.frame_count = track.frame_count
-            # pictures outside an MP4 edit list's span are dropped
-            self._skip, self._left = track.shown
+            # pictures outside an MP4 edit list's spans are dropped:
+            # whether to show each picture the decoder gives, in order
+            self._show = _shown_flags(track.shown)
             self._packets = track.packets(self._f)
+            # a parsing demuxer (MPEG-TS) times its parser apart
+            self._parsed = getattr(track, "seconds", None)
+            if self._parsed is not None:
+                self.seconds["parse"] = 0.0
             self.seconds["demux"] += time.perf_counter() - t0
             if self.device.type == "cuda" and not torch.cuda.is_available():
                 raise RuntimeError(
@@ -258,20 +274,39 @@ class DecodedVideo:
                     f"for tests)")
             t0 = time.perf_counter()
             self._decoder = Decoder(self.codec)
-            if self.codec == "h264":     # as libavformat does for cv2
-                self._decoder.probe(track.packets(self._f))
+            # as libavformat does for cv2 (in MPEG-TS too); MPEG-1/2
+            # decoders reorder from the first picture and need no probe
+            if self.codec == "h264":
+                probe = track.packets(self._f)
+                try:
+                    self._decoder.probe(probe)
+                finally:
+                    probe.close()
             self.seconds["decode"] += time.perf_counter() - t0
+            self._pictures = self._decode()
+            self.size = track.size
+            if self.size is None:       # the stream's: the first picture's
+                first = next(self._pictures, None)
+                if first is None:
+                    raise ValueError(f"{path}: the video stream decodes to "
+                                     f"no picture")
+                self.size = (first[3], first[0].shape[0])
+                self._pictures = itertools.chain([first], self._pictures)
         except BaseException:
             self.release()
             raise
-        self._pictures = self._decode()
 
     def _decode(self):
         """The decoder's pictures in display order, as it completes them."""
         while True:
             t0 = time.perf_counter()
+            parsed = self._parsed["parse"] if self._parsed else 0.0
             packet = next(self._packets, None)
             t1 = time.perf_counter()
+            if self._parsed:
+                parsed = self._parsed["parse"] - parsed
+                self.seconds["parse"] += parsed
+                t0 += parsed
             self.seconds["demux"] += t1 - t0
             pictures = (self._decoder.flush() if packet is None else
                         self._decoder.decode(*packet))
@@ -290,17 +325,17 @@ class DecodedVideo:
         import torch
 
         from ..ops.kernels import yuv420_to_bgr
-        if self._decoder is None or not self._left:
+        if self._decoder is None:
             return False, None
         while True:
+            show = next(self._show, None)
+            if show is None:
+                return False, None
             picture = next(self._pictures, None)
             if picture is None:
                 return False, None
-            if self._skip:
-                self._skip -= 1
-                continue
-            break
-        self._left -= 1
+            if show:
+                break
         t0 = time.perf_counter()
         *planes, width = picture
         planes = [torch.from_numpy(p).to(self.device) for p in planes]
@@ -316,11 +351,24 @@ class DecodedVideo:
         self._f.close()
 
 
+def _shown_flags(shown) -> Iterator[bool]:
+    """A track's pictures to show: (dropped first, shown) counts, or a
+    flag for each picture the decoder gives."""
+    if isinstance(shown, tuple):
+        skip, count = shown
+        return itertools.chain(
+            itertools.repeat(False, skip),
+            itertools.repeat(True) if count == math.inf
+            else itertools.repeat(True, count))
+    return iter(shown)
+
+
 def open_video(path: str, device="cuda"):
     """Open a video file for reading (``cv2.VideoCapture``'s place in the
     JAX demo): a :class:`VideoReader` for Motion-JPEG AVI, a
-    :class:`DecodedVideo` for H.264 and MPEG-4 Part 2 in MP4/MOV or AVI,
-    which converts its frames on `device`.  Raises FileNotFoundError
+    :class:`DecodedVideo` for the rest (MP4/MOV, AVI, Matroska / WebM,
+    MPEG-TS), which converts its frames on `device`.  Raises
+    FileNotFoundError
     for a missing file and ValueError, naming the container or codec and
     ROADMAP.md queue 1 item 4, for anything else."""
     with open(path, "rb") as f:
@@ -334,8 +382,11 @@ def open_video(path: str, device="cuda"):
         return DecodedVideo(path, device)
     if mkv.is_matroska(head):
         return DecodedVideo(path, device, mkv.read_track)
-    if len(head) >= 377 and head[0] == head[188] == 0x47:
-        what = "an MPEG-TS stream"
+    if mpegts.is_mpegts(head):
+        return DecodedVideo(path, device, mpegts.read_track)
+    if head[:4] == b"\x00\x00\x01\xba":
+        what = ("an MPEG program stream (.mpg / .vob: ROADMAP.md queue 1 "
+                "item 4g)")
     elif head[:4] == b"RIFF":
         what = f"a RIFF {head[8:12]!r} file, not AVI"
     else:

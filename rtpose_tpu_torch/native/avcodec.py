@@ -1,6 +1,8 @@
-"""H.264, MPEG-4 Part 2 and VP9 decoding on the host through FFmpeg's
-``libavcodec``, the one that the machine's OpenCV wheel bundles, loaded
-by path with ctypes (as ``native/imgpipe.py`` links Pillow's libjpeg).
+"""H.264, MPEG-1 / MPEG-2 video, MPEG-4 Part 2 and VP9 decoding on the host
+through FFmpeg's ``libavcodec``, the one that the machine's OpenCV wheel
+bundles, loaded by path with ctypes (as ``native/imgpipe.py`` links
+Pillow's libjpeg); and libavcodec's parsers, which split an elementary
+stream into frames where the container does not (MPEG-TS).
 
 Why the host: the card's machine mounts the driver's NVDEC library
 (``libnvcuvid.so.1``, driver 580.159.03), but every call of it fails
@@ -15,14 +17,21 @@ Only version-stable pieces of the API are used: ``avcodec_find_decoder_by_name``
 context, the packet and the frame, with no option set; of ``AVPacket``
 its leading fields (``data``, ``size``, ``flags`` set; ``pts`` and ``dts`` left unset) and
 of ``AVFrame`` its ``data``, ``linesize``, ``width``, ``height`` and
-``format``, whose places have not moved since FFmpeg 4.  Packets go in
+``format``, whose places have not moved since FFmpeg 4.  The parsers
+(:class:`Parser`) take ``avcodec_descriptor_get_by_name`` (of whose
+``AVCodecDescriptor`` only the leading ``id`` is read),
+``av_parser_init``, ``av_parser_parse2`` and ``av_parser_close``, all
+unchanged since FFmpeg 0.x; no field of ``AVCodecParserContext`` is
+read.  Packets go in
 as the demuxer gives them (H.264 as Annex-B with its parameter sets in
 the stream; MPEG-4 with its VOL headers ahead of the first frame), so no
 field of the codec context is set either.  Frames come out in display
 order; an H.264 stream is first probed (:meth:`Decoder.probe`) as
 libavformat probes it for cv2, so that a stream whose SPS states no
-reorder delay gives its B pictures as cv2 does.  Nothing is loaded at import; without the library the first
-decoder raises, naming where it looked.
+reorder delay gives its B pictures as cv2 does.  MPEG-1 and MPEG-2
+streams need no probe: their decoder reorders its B pictures from the
+first, whatever came before.  Nothing is loaded at import; without the
+library the first decoder or parser raises, naming where it looked.
 """
 
 from __future__ import annotations
@@ -37,8 +46,14 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-CODECS = ("h264", "mpeg4", "vp9")
+CODECS = ("h264", "mpeg4", "vp9", "mpeg1video", "mpeg2video")
+# libavcodec's parsers, by the decoder they split a stream for: the
+# ``mpegvideo`` parser serves both MPEG-1 and MPEG-2
+PARSERS = {"mpeg1video": "mpegvideo", "mpeg2video": "mpegvideo",
+           "mpeg4": "mpeg4video", "h264": "h264"}
 AV_PIX_FMT_YUV420P = 0
+AV_PIX_FMT_YUV422P = 4
+AV_PIX_FMT_YUV444P = 5
 AV_PIX_FMT_YUVJ420P = 12
 AV_PKT_FLAG_KEY = 1
 AVERROR_EAGAIN = -11
@@ -116,6 +131,13 @@ class _Libraries:
                 (self.avcodec, "avcodec_free_context", None, [P]),
                 (self.avcodec, "avcodec_flush_buffers", None, [P]),
                 (self.avcodec, "av_packet_alloc", P, []),
+                (self.avcodec, "avcodec_descriptor_get_by_name", P,
+                 [ctypes.c_char_p]),
+                (self.avcodec, "av_parser_init", P, [I]),
+                (self.avcodec, "av_parser_parse2", I,
+                 [P, P, P, P, P, I, ctypes.c_int64, ctypes.c_int64,
+                  ctypes.c_int64]),
+                (self.avcodec, "av_parser_close", None, [P]),
                 (self.avcodec, "av_packet_free", None, [P]),
                 (self.avutil, "av_frame_alloc", P, []),
                 (self.avutil, "av_frame_free", None, [P]),
@@ -144,7 +166,7 @@ def libraries() -> _Libraries:
 
 
 class Decoder:
-    """One libavcodec decoder of `codec` ("h264", "mpeg4" or "vp9").
+    """One libavcodec decoder of `codec` (one of :data:`CODECS`).
 
     :meth:`decode` takes one packet (bytes) and yields the frames it
     completes; :meth:`flush` yields the frames still held at the end of
@@ -156,9 +178,9 @@ class Decoder:
 
     def __init__(self, codec: str):
         if codec not in CODECS:
-            raise ValueError(f"no decoder for {codec!r}: H.264, MPEG-4 "
-                             f"Part 2 and VP9 are read (ROADMAP.md queue 1 "
-                             f"item 4)")
+            raise ValueError(f"no decoder for {codec!r}: H.264, MPEG-1/2 "
+                             f"video, MPEG-4 Part 2 and VP9 are read "
+                             f"(ROADMAP.md queue 1 item 4)")
         self.codec = codec
         self._libs = libs = libraries()
         self._ctx = self._packet = self._frame = None
@@ -208,9 +230,10 @@ class Decoder:
     def _planes(self):
         f = _Frame.from_address(self._frame.value)
         if f.format != AV_PIX_FMT_YUV420P:
-            what = ("full-range 4:2:0 (yuvj420p)"
-                    if f.format == AV_PIX_FMT_YUVJ420P else
-                    f"pixel format {f.format}")
+            what = {AV_PIX_FMT_YUVJ420P: "full-range 4:2:0 (yuvj420p)",
+                    AV_PIX_FMT_YUV422P: "4:2:2 (yuv422p)",
+                    AV_PIX_FMT_YUV444P: "4:4:4 (yuv444p)"}.get(
+                f.format, f"pixel format {f.format}")
             raise ValueError(f"{self.codec} frames in {what}: only "
                              f"limited-range 8-bit 4:2:0 (yuv420p) is read "
                              f"(ROADMAP.md queue 1 item 4)")
@@ -261,6 +284,79 @@ class Decoder:
             if handle:
                 getattr(lib, free)(ctypes.byref(handle))
             setattr(self, attr, None)
+
+    def __del__(self):
+        if getattr(self, "_libs", None) is not None:
+            self.close()
+
+
+AV_NOPTS_VALUE = -(1 << 63)
+
+
+class Parser:
+    """libavcodec's parser for `codec` (a key of :data:`PARSERS`): the
+    ``mpegvideo``, ``mpeg4video`` or ``h264`` parser, which libavformat
+    runs over a stream whose packets are not frames (``need_parsing``,
+    MPEG-TS's elementary streams).  :meth:`parse` takes the next bytes of
+    the stream and gives the frames they complete; :meth:`flush` gives
+    the last.  A frame is bytes as the decoder takes it (the parser keeps
+    every start code and header of the stream)."""
+
+    def __init__(self, codec: str):
+        if codec not in PARSERS:
+            raise ValueError(f"no parser for {codec!r}: the MPEG-1/2, "
+                             f"MPEG-4 Part 2 and H.264 parsers are used")
+        self.codec = codec
+        self._libs = libs = libraries()
+        self._ctx = self._avctx = None
+        av = libs.avcodec
+        desc = av.avcodec_descriptor_get_by_name(codec.encode())
+        if not desc:
+            raise RuntimeError(f"{libs.path} knows no codec {codec}")
+        codec_id = ctypes.c_int.from_address(desc).value
+        self._ctx = ctypes.c_void_p(av.av_parser_init(codec_id))
+        if not self._ctx:
+            raise RuntimeError(f"{libs.path} has no {PARSERS[codec]} parser "
+                               f"(for {codec})")
+        self._avctx = ctypes.c_void_p(av.avcodec_alloc_context3(None))
+        if not self._avctx:
+            self.close()
+            raise MemoryError("libavcodec could not allocate a context")
+
+    def _parse(self, data: bytes) -> Iterator[bytes]:
+        """av_parser_parse2 over `data` until it is used up (empty data:
+        until the parser gives no more, its end-of-stream flush)."""
+        av = self._libs.avcodec
+        buf = ctypes.create_string_buffer(data, len(data))
+        out, out_size = ctypes.c_void_p(), ctypes.c_int()
+        at = 0
+        while not data or at < len(data):
+            used = av.av_parser_parse2(
+                self._ctx, self._avctx, ctypes.byref(out),
+                ctypes.byref(out_size), ctypes.addressof(buf) + at,
+                len(data) - at, AV_NOPTS_VALUE, AV_NOPTS_VALUE, 0)
+            if used < 0:
+                raise RuntimeError(f"the {PARSERS[self.codec]} parser "
+                                   f"failed: {self._libs.error(used)}")
+            at += used
+            if out_size.value:
+                yield ctypes.string_at(out.value, out_size.value)
+            elif not data or not used:
+                return
+
+    def parse(self, data: bytes) -> List[bytes]:
+        return list(self._parse(data)) if data else []
+
+    def flush(self) -> List[bytes]:
+        return list(self._parse(b""))
+
+    def close(self) -> None:
+        av = self._libs.avcodec
+        if self._ctx:
+            av.av_parser_close(self._ctx)
+        if self._avctx:
+            av.avcodec_free_context(ctypes.byref(self._avctx))
+        self._ctx = self._avctx = None
 
     def __del__(self):
         if getattr(self, "_libs", None) is not None:

@@ -7,8 +7,10 @@
   the decoders, whether 640x480 fits).
 - The host: the FFmpeg ``libavcodec`` the OpenCV wheel bundles
   (``rtpose_tpu_torch/native/avcodec.py``, the route the reader takes):
-  its path, whether it opens the H.264, MPEG-4 and VP9 decoders, and
-  the libavcodec, libavutil and libswscale versions; and what the XVID
+  its path, whether it opens the H.264, MPEG-4, VP9, MPEG-1 and MPEG-2
+  decoders (and the HEVC and AV1 decoders the reader still refuses),
+  whether the ``mpegvideo``, ``mpeg4video`` and ``h264`` parsers
+  initialise, and the libavcodec, libavutil and libswscale versions; and what the XVID
   writer needs (``rtpose_tpu_torch/native/avencode.py``): the ``mpeg4``
   encoder, its options (``av_opt_find``), ``sws_getContext`` and an
   encoder that opens.
@@ -89,7 +91,34 @@ def probe_host() -> dict:
             out[name] = "opens"
         except RuntimeError as e:
             out[name] = str(e)
+    libs = avcodec.libraries()
+    for name in UNREAD_DECODERS:
+        out[name] = _opens(libs, name)
+    out["parsers"] = {}
+    for name, parser in avcodec.PARSERS.items():
+        try:
+            avcodec.Parser(name).close()
+            out["parsers"][name] = f"{parser} initialises"
+        except RuntimeError as e:
+            out["parsers"][name] = str(e)
     return out
+
+
+# decoders the reader refuses, probed so that ROADMAP.md items 4e (HEVC)
+# and 4f (AV1) start from what the machine's library has
+UNREAD_DECODERS = ("hevc", "av1")
+
+
+def _opens(libs, name: str) -> str:
+    """Whether the library finds and opens the decoder `name`."""
+    av = libs.avcodec
+    found = av.avcodec_find_decoder_by_name(name.encode())
+    if not found:
+        return "no such decoder"
+    ctx = ctypes.c_void_p(av.avcodec_alloc_context3(found))
+    err = av.avcodec_open2(ctx, found, None)
+    av.avcodec_free_context(ctypes.byref(ctx))
+    return "opens" if err >= 0 else f"avcodec_open2: {libs.error(err)}"
 
 
 ENCODER_OPTIONS = ("time_base", "video_size", "pixel_format", "b", "g",

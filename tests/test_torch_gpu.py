@@ -1230,6 +1230,45 @@ def test_mpeg4_files_of_the_cards_cv2(cuda, tmp_path, name, fourcc):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name,fourcc", [("v.ts", "MPG2"), ("v1.ts", "PIM1"),
+                                         ("v4.ts", "mp4v"),
+                                         ("v.m2ts", "MPG2")])
+def test_transport_streams_of_the_cards_cv2(cuda, tmp_path, name, fourcc):
+    """MPEG-1/2 and MPEG-4 Part 2 in TS / M2TS written by the card
+    machine's cv2: open_video on the card gives cv2's frames, fps and
+    frame count (MPEG-1 at the doubled rate libavformat reports), one
+    conversion launch a frame."""
+    cv2 = pytest.importorskip("cv2")
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo.video_io import open_video
+    path = str(tmp_path / name)
+    sv.write_cv2_video(path, fourcc, 12, 480, 640, fps=25.0)
+    cap = cv2.VideoCapture(path)
+    count, fps = int(cap.get(cv2.CAP_PROP_FRAME_COUNT)), cap.get(
+        cv2.CAP_PROP_FPS)
+    want = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        want.append(frame)
+    kernels.reset_launch_counts()
+    ours = open_video(path, device=cuda)
+    got = []
+    while True:
+        ok, frame = ours.read()
+        if not ok:
+            break
+        got.append(frame)
+    ours.release()
+    assert len(got) == len(want) == 12
+    assert (ours.frame_count, ours.fps) == (count, fps)
+    assert kernels.launch_counts()["yuv420_to_bgr"] == 12
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
 def test_video_route_probe_and_no_quiet_fallback(cuda, tmp_path,
                                                  monkeypatch):
     """The probe names both routes; without libavcodec an H.264 open

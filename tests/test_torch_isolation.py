@@ -135,6 +135,12 @@ with tempfile.TemporaryDirectory() as root:
             break
         mp4_frames.append(list(f.shape))
     mp4_cap.release()
+    scripted_video.write_ipcm_ts(root + "/in.ts", [scripted_video.bgr_to_yuv420(
+        frame)] * 2 + [None], packet_size=192)
+    ts_cap = open_video(root + "/in.ts", device="cpu")
+    while ts_cap.read()[0]:
+        mp4_frames.append(list(ts_cap.size))
+    ts_cap.release()
     server = serve_http.serve(pipe, host="127.0.0.1", port=0)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
@@ -236,7 +242,7 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
                 "parallel.sharding", "demo.web_demo", "demo.camera",
                 "demo.frame_view", "demo.scripted_camera",
                 "utils.text_glyphs", "demo.mp4", "demo.scripted_video",
-                "native.avcodec"):
+                "native.avcodec", "demo.mkv", "demo.mpegts"):
         assert f"rtpose_tpu_torch.{mod}" in res["modules"], mod
     assert res["eval_ap"] == 1.0
     assert res["train_loss"] > 0 and np.isfinite(res["train_loss"])
@@ -254,7 +260,8 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
                              "keypoints": [2, 32, 18, 3],
                              "mask": [2, 8, 8, 1], "image_id": [2]}
     assert res["video"] == [3, 3]
-    assert res["mp4"] == [[80, 60, 3]] * 3     # turned by its tag
+    # turned by its tag; then the sizes of an M2TS's three frames
+    assert res["mp4"] == [[80, 60, 3]] * 3 + [[80, 60]] * 3
     assert res["http"] == [200, [60, 80]]
     assert res["webcam"] == [3, 200, True]
     assert res["native"] == {

@@ -275,7 +275,7 @@ def test_bframe_mp4_samples_carry_their_display_times(tmp_path):
     with open(path, "rb") as f:
         track = mp4.read_track(path, f)
     assert [s.cts // 640 - 1 for s in track.samples] == [0, 2, 1, 4, 3]
-    assert track.shown == (0, 5)
+    assert track.shown == [True] * 5      # each picture, in decode order
 
 
 def _recording(module, calls):

@@ -22,6 +22,18 @@ against cv2 5.0 and the JAX video demo, on the CPU:
   people of the JAX video demo's ``main()`` reading the same MP4 through
   cv2, over the same oracle maps (part ids equal, pixel coordinates
   within 1e-4, scores within 1e-5);
+- fragmented MP4 (``scripted_video.mux_fmp4``: a ``moof`` a sample or a
+  GOP, default-base-is-moof, an explicit or an implicit base, with and
+  without ``tfdt``, ``styp`` / ``sidx`` and ``mfra``, durations and
+  flags from ``trex``, ``tfhd`` or each ``trun`` row, samples in the
+  ``moov`` ahead of the fragments, ``trun`` version 1 negative
+  composition offsets): the written pictures and cv2's frames, fps and
+  count;
+- edit lists of several entries (a leading empty edit, two media edits
+  from a non-key sample, an edit shown twice, an empty edit between
+  two, B pictures under two edits): cv2's frames (the known pictures
+  FFmpeg's ``mov_fix_index`` shows) and count; a media rate of 2 is
+  refused;
 - without a card or without the library, opening such a file raises.
 """
 
@@ -459,3 +471,146 @@ def test_video_demo_on_h264_finds_the_jax_demos_people(tmp_path, monkeypatch,
                 assert abs(s - bs) <= SCORE_TOL
     written, cap = _port_read(out)
     assert len(written) == 7 and cap.size == shape[::-1]
+
+
+# ---------------------------------------------------------------------------
+# fragmented MP4 and edit lists of several entries (ROADMAP.md item 4c)
+# ---------------------------------------------------------------------------
+
+FMP4_CASES = {
+    "per_sample": {}, "per_gop": dict(fragment="gop"),
+    "explicit_base": dict(base="explicit"),
+    "implicit_base": dict(base="implicit", fragment="gop"),
+    "no_tfdt": dict(tfdt=False), "styp_sidx": dict(styp=True, sidx=True),
+    "mfra": dict(mfra=True, fragment="gop"),
+    "moov_samples": dict(moov_samples=3),
+    "moov_gop": dict(moov_samples=4, fragment="gop"),
+    "ntsc": dict(timescale=30000, delta=1001),
+    "tfhd_defaults": dict(durations="tfhd", fragment="gop"),
+    "trun_durations": dict(durations="trun"),
+}
+
+
+@pytest.mark.parametrize("case", list(FMP4_CASES))
+def test_fragmented_mp4_reads_as_cv2_reads_it(tmp_path, case):
+    frames, shown = _sequence(48, 64)
+    sps, pps, units, keys = sv.encode_ipcm(frames, key_every=3)
+    path = tmp_path / "f.mp4"
+    path.write_bytes(sv.mux_fmp4(sps, pps, units, keys, (64, 48),
+                                 **FMP4_CASES[case]))
+    want, props = _cv2_read(path)
+    got, cap = _port_read(path)
+    assert len(got) == len(want) == len(shown)
+    assert (cap.frame_count, cap.fps, cap.size) == (
+        props["count"], props["fps"], props["size"])
+    for i, (g, w, planes) in enumerate(zip(got, want, shown)):
+        np.testing.assert_array_equal(g, w, err_msg=f"frame {i}")
+        np.testing.assert_array_equal(g, yuv420_to_bgr_plain(
+            *map(torch.from_numpy, planes), width=64).numpy())
+    with open(path, "rb") as f:
+        track = mp4.read_track(str(path), f)
+    assert [s.key for s in track.samples] == keys
+    assert track.table_samples == FMP4_CASES[case].get("moov_samples", 0)
+
+
+@pytest.mark.parametrize("version", [0, 1])
+def test_fragmented_bframes_read_as_cv2_reads_them(tmp_path, version):
+    """B pictures in fragments: ``trun`` version 1 with negative
+    composition offsets, or version 0 offsets shifted up one frame under a
+    one-frame edit, as muxers write them."""
+    anchors = sv.yuv_frames(5, 48, 64, seed=3)
+    sps, pps, units, keys, order, shown = sv.encode_ipcm_bframes(anchors)
+    shift = 1 - version
+    cts = [(d + shift - i) * 512 for i, d in enumerate(order)]
+    path = tmp_path / "b.mp4"
+    path.write_bytes(sv.mux_fmp4(
+        sps, pps, units, keys, (64, 48), trun_version=version,
+        composition_offsets=cts,
+        edits=[(360, 512, 1.0)] if shift else None))
+    want, props = _cv2_read(path)
+    got, cap = _port_read(path)
+    assert len(got) == len(want) == len(shown) == cap.frame_count \
+        == props["count"]
+    assert cap.fps == props["fps"]
+    for g, w, planes in zip(got, want, shown):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, yuv420_to_bgr_plain(
+            *map(torch.from_numpy, planes), width=64).numpy())
+    if version:
+        with open(path, "rb") as f:
+            assert min(s.cts - s.dts for s in mp4.read_track(
+                str(path), f).samples) == -512
+
+
+D = 40                      # ms a frame at 12800 / 512
+EDIT_CASES = {              # (edits, the pictures FFmpeg shows)
+    "leading_empty": ([(200, -1, 1.0), (400, 0, 1.0)], list(range(10))),
+    "two_media_non_key": ([(3 * D, 0, 1.0), (3 * D, 5 * 512, 1.0)],
+                          [0, 1, 2, 5, 6, 7]),
+    "two_media_key": ([(3 * D, 0, 1.0), (3 * D, 4 * 512, 1.0)],
+                      [0, 1, 2, 4, 5, 6]),
+    "shown_twice": ([(4 * D, 0, 1.0), (4 * D, 0, 1.0)],
+                    [0, 1, 2, 3, 0, 1, 2, 3]),
+    "ends_early": ([(3 * D, 0, 1.0)], [0, 1, 2]),
+    "empty_then_mid": ([(100, -1, 1.0), (5 * D, 2 * 512, 1.0)],
+                       [2, 3, 4, 5, 6]),
+    "three": ([(2 * D, 512, 1.0), (2 * D, 6 * 512, 1.0),
+               (2 * D, 3 * 512, 1.0)], [1, 2, 6, 7, 3, 4]),
+    # FFmpeg takes an empty edit after a media edit for one from time -1
+    "empty_between": ([(3 * D, 0, 1.0), (80, -1, 1.0),
+                       (3 * D, 5 * 512, 1.0)], [0, 1, 2, 0, 1, 5, 6, 7]),
+    "part_frames": ([(int(2.5 * D), 0, 1.0), (3 * D, 5 * 512 + 100, 1.0)],
+                    [0, 1, 2, 6, 7, 8]),
+}
+
+
+@pytest.mark.parametrize("case", list(EDIT_CASES))
+def test_edit_lists_show_what_cv2_shows(tmp_path, case):
+    """Ten distinct I_PCM pictures, an IDR every 4: each edit decodes from
+    the key at or before its start and shows its own span."""
+    edits, pictures = EDIT_CASES[case]
+    pics = sv.yuv_frames(10, 48, 64)
+    sps, pps, units, keys = sv.encode_ipcm(pics, key_every=4)
+    path = tmp_path / "e.mp4"
+    path.write_bytes(sv.mux_mp4(sps, pps, units, keys, (64, 48),
+                                edits=edits))
+    want, props = _cv2_read(path)
+    got, cap = _port_read(path)
+    assert len(got) == len(want) == len(pictures)
+    assert cap.frame_count == props["count"] == 10
+    for g, w, k in zip(got, want, pictures):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, yuv420_to_bgr_plain(
+            *map(torch.from_numpy, pics[k]), width=64).numpy())
+
+
+@pytest.mark.parametrize("case", ["two_edits", "leading_empty"])
+def test_bframe_edit_lists_show_what_cv2_shows(tmp_path, case):
+    """B pictures (``ctts``) under two media edits: an edit decodes on to
+    the second key past its end, for the B pictures that belong to it."""
+    anchors = sv.yuv_frames(6, 48, 64, seed=3)
+    sps, pps, units, keys, order, shown = sv.encode_ipcm_bframes(anchors)
+    cts = [(d + 1 - i) * 512 for i, d in enumerate(order)]
+    edits = {"two_edits": [(3 * D, 512, 1.0), (3 * D, 6 * 512, 1.0)],
+             "leading_empty": [(120, -1, 1.0), (11 * D, 512, 1.0)]}[case]
+    path = tmp_path / "b.mp4"
+    path.write_bytes(sv.mux_mp4(sps, pps, units, keys, (64, 48),
+                                composition_offsets=cts, edits=edits))
+    want, props = _cv2_read(path)
+    got, cap = _port_read(path)
+    assert len(got) == len(want) > 0 and cap.frame_count == props["count"]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_edit_of_another_media_rate_is_refused(tmp_path):
+    """cv2 plays an edit of media rate 2 at rate 1; the reader refuses it
+    (ROADMAP.md "Accepted divergences")."""
+    pics = sv.yuv_frames(4, 48, 64)
+    sps, pps, units, keys = sv.encode_ipcm(pics)
+    path = tmp_path / "r.mp4"
+    path.write_bytes(sv.mux_mp4(sps, pps, units, keys, (64, 48),
+                                edits=[(4 * D, 0, 2.0)]))
+    assert len(_cv2_read(path)[0]) == 4
+    with pytest.raises(ValueError, match="media rate 2 .*item 4"):
+        open_video(str(path), device="cpu")

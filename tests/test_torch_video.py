@@ -9,18 +9,21 @@ package's video demo, on the CPU:
 - ``open_video`` reads ``cv2.VideoWriter(..., 'MJPG')`` files of both of
   cv2's writers, frame for frame equal to ``cv2.VideoCapture``'s frames
   (its Motion-JPEG backend), and refuses what it still does not read
-  (MPEG-TS, HEVC, AV1, 10-bit VP9, laced Matroska blocks, fragmented MP4,
-  multi-entry edit lists) with an error naming it and ROADMAP.md queue 1
-  item 4 (H.264 and MPEG-4 files: tests/test_torch_mp4.py; Matroska /
-  WebM and VP9: tests/test_torch_mkv.py);
+  (HEVC in MP4, Matroska or MPEG-TS, AV1, 10-bit VP9, laced Matroska
+  blocks, MPEG program streams, edits of another media rate, MPEG-2
+  4:2:2) with an error naming it and ROADMAP.md queue 1 item 4 (H.264
+  and MPEG-4 files: tests/test_torch_mp4.py; Matroska / WebM and VP9:
+  tests/test_torch_mkv.py; MPEG-TS: tests/test_torch_mpegts.py); what it
+  once refused (MPEG-TS, fragmented MP4, ``mvex``, a two-entry edit list)
+  it reads as cv2 reads it;
 - the video demo's ``main()`` over an oracle-map pipeline finds, frame
   for frame, the people of the JAX video demo's ``main()`` over the same
   maps (part ids equal, pixel coordinates within 1e-4, scores within
-  1e-5), and writes an XVID AVI of as many frames of the input's size,
-  as the JAX demo does (the packets: tests/test_torch_xvid.py).
+  1e-5) on a Motion-JPEG AVI and on cv2's MPEG-2 TS, and writes an XVID
+  AVI of as many frames of the input's size, as the JAX demo does (the
+  packets: tests/test_torch_xvid.py).
 """
 
-import struct
 import sys
 
 import cv2
@@ -168,8 +171,13 @@ def _still_refused(tmp_path, kind):
             data = data[:at] + b"\x02" + data[at + 1:]
         if kind == "ebml_other":
             data = data.replace(b"matroska", b"mka-fake")
-    elif kind == "mpegts":
-        data = (b"\x47\x40\x00\x10" + b"\xff" * 184) * 4
+    elif kind in ("ts_hevc", "mpeg2_422"):
+        from test_torch_mpegts import _ts_with, mpeg2_422
+        path = str(_ts_with(tmp_path, "hevc") if kind == "ts_hevc"
+                   else mpeg2_422(tmp_path))
+        return path
+    elif kind == "mpeg_ps":
+        data = b"\x00\x00\x01\xba\x44" + b"\x00" * 200
     elif kind == "wave":
         data = b"RIFF\x24\0\0\0WAVEfmt " + b"\0" * 32
     elif kind == "avi_wmv":
@@ -187,25 +195,9 @@ def _still_refused(tmp_path, kind):
             data = sv.mux_mp4(sps, pps, [b"\x92\x49\x83\x42\x00"] * 2,
                               keys, (64, 48), entry=sv.vp09_entry(
                                   (64, 48), profile=2, depth=10))
-        elif kind == "fragmented":
-            data += sv.box(b"moof", sv.full_box(b"mfhd", 0, 0, b"\0" * 4))
-        elif kind == "mvex":
-            data = data.replace(b"mvhd", b"mvex")
-        elif kind == "elst2":
-            entry = struct.pack(">IiI", 40, 0, 1 << 16)
-            elst = sv.full_box(b"elst", 0, 0, struct.pack(">I", 2),
-                               entry, entry)
-            size = struct.unpack(">I", data[data.index(b"trak") - 4:][:4])[0]
-            at = data.index(b"tkhd") - 4
-            tkhd_end = at + struct.unpack(">I", data[at:at + 4])[0]
-            trak = data.index(b"trak") - 4
-            data = (data[:trak] + struct.pack(">I", size + 8 + len(elst))
-                    + data[trak + 4:tkhd_end] + sv.box(b"edts", elst)
-                    + data[tkhd_end:])
-            moov = data.index(b"moov") - 4
-            n = struct.unpack(">I", data[moov:moov + 4])[0]
-            data = (data[:moov] + struct.pack(">I", n + 8 + len(elst))
-                    + data[moov + 4:])
+        elif kind == "elst_rate2":
+            data = sv.mux_mp4(sps, pps, units, keys, (64, 48),
+                              edits=[(80, 0, 2.0)])
         elif kind == "no_moov":
             data = b"\0\0\0\x18ftypmp42" + b"\0" * 64
     with open(path, "wb") as f:
@@ -219,26 +211,66 @@ def _still_refused(tmp_path, kind):
     ("mkv_laced", "laced video block"),
     ("webm_vp9_profile2", "VP9 profile 2 video"),
     ("vp09_10bit", "VP9 profile 2 video of 10 bits"),
-    ("ebml_other", "DocType b'mka-fake'"), ("mpegts", "MPEG-TS"),
+    ("ebml_other", "DocType b'mka-fake'"),
+    ("ts_hevc", r"HEVC \(item 4e\) video in MPEG-TS"),
+    ("mpeg_ps", "MPEG program stream .*item 4g"),
     ("hvc1", "HEVC video"), ("av01", "AV1 video"),
-    ("fragmented", "fragmented MP4 .moof"),
-    ("mvex", "fragmented MP4 .mvex"), ("elst2", "edit list of 2 entries"),
+    ("elst_rate2", "edit of media rate 2"),
+    ("mpeg2_422", r"4:2:2 \(yuv422p\)"),
     ("no_moov", "no moov box"), ("wave", "not AVI"),
     ("avi_wmv", "AVI video codec b'WMV3'"), ("missing", None)])
 def test_open_video_refuses_other_containers(tmp_path, kind, error):
     """What the port still does not read (ROADMAP.md queue 1 item 4):
-    other containers, other codecs (HEVC and AV1 in Matroska or MP4),
-    VP9 of another profile than 0 (10-bit), laced Matroska blocks,
-    fragmented MP4, multi-entry edit lists; each error names it and item
-    4.  XVID AVI and MP4 are read (tests/test_torch_mp4.py), Matroska /
-    WebM and VP9 too (tests/test_torch_mkv.py)."""
+    other containers (MPEG program streams, item 4g), other codecs (HEVC
+    and AV1 in Matroska, MP4 or MPEG-TS), VP9 of another profile than 0
+    (10-bit), MPEG-2 4:2:2, laced Matroska blocks, edits of another media
+    rate; each error names it and item 4.  XVID AVI and MP4 are read
+    (tests/test_torch_mp4.py), Matroska / WebM and VP9 too
+    (tests/test_torch_mkv.py), MPEG-TS too (tests/test_torch_mpegts.py),
+    and what this list once held (test_open_video_reads_what_it_refused)."""
     path = _still_refused(tmp_path, kind)
     if error is None:
         with pytest.raises(FileNotFoundError):
             open_video(path)
         return
     with pytest.raises(ValueError, match=f"{error}.*item 4"):
-        open_video(path)
+        open_video(path, device="cpu")
+
+
+def _once_refused(tmp_path, kind):
+    """A file of a kind the reader refused until item 4b / 4c: cv2's
+    MPEG-2 TS, a fragmented MP4 (a moof a sample), one with samples in
+    the moov and an mvex, an edit list of two entries."""
+    from test_torch_mpegts import _cv2_ts
+
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    if kind == "mpegts":
+        return str(_cv2_ts(tmp_path / "v.ts", "MPG2", 9))
+    pics = sv.yuv_frames(6, 48, 64)
+    sps, pps, units, keys = sv.encode_ipcm(pics, key_every=3)
+    if kind == "elst2":
+        data = sv.mux_mp4(sps, pps, units, keys, (64, 48),
+                          edits=[(40, 0, 1.0), (80, 2 * 512, 1.0)])
+    else:
+        data = sv.mux_fmp4(sps, pps, units, keys, (64, 48),
+                           moov_samples=3 if kind == "mvex" else 0)
+    path = tmp_path / f"{kind}.mp4"
+    path.write_bytes(data)
+    return str(path)
+
+
+@pytest.mark.parametrize("kind", ["mpegts", "fragmented", "mvex", "elst2"])
+def test_open_video_reads_what_it_refused(tmp_path, kind):
+    """MPEG-TS (item 4b), fragmented MP4 and edit lists of several
+    entries (item 4c), once refused by name, read frame for frame as cv2
+    reads them, with cv2's fps and frame count."""
+    path = _once_refused(tmp_path, kind)
+    want, (count, fps) = _read_cv2(path)
+    got, cap = _read_port(path)
+    assert len(got) == len(want) > 0
+    assert (cap.frame_count, cap.fps) == (count, fps)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_video_writer_checks_its_frames(tmp_path):
@@ -274,14 +306,23 @@ def _recording(module, calls):
     return draw
 
 
+@pytest.mark.parametrize("container", ["avi", "mpeg2_ts"])
 def test_video_demo_people_equal_the_jax_video_demo(tmp_path, monkeypatch,
-                                                    capsys):
+                                                    capsys, container):
     """Seven 128x170 frames at --batch 3 (a tail batch of one) through both
-    demos' ``main()`` over the same oracle maps (two people a frame)."""
+    demos' ``main()`` over the same oracle maps (two people a frame): a
+    Motion-JPEG AVI of the port's writer, and cv2's MPEG-2 TS (the port
+    reads it with its TS demuxer, libavcodec's parser and decoder, the JAX
+    demo with cv2)."""
     rng = np.random.RandomState(0)
     maps = oracle_maps({(128, 170): spread_people(rng, 2, 128, 170)}, SIZE)
-    video = str(tmp_path / "in.avi")
-    _write(video, _frames(7, 128, 170), fps=15.0)
+    if container == "avi":
+        video = str(tmp_path / "in.avi")
+        _write(video, _frames(7, 128, 170), fps=15.0)
+    else:
+        from test_torch_mpegts import _cv2_ts
+        video = str(_cv2_ts(tmp_path / "in.ts", "MPG2", 7, 25.0, 128, 170))
+        assert open_video(video, device="cpu").codec == "mpeg2video"
     tpipe = PosePipeline(OracleMaps(maps), device="cpu", input_size=SIZE,
                          flip=False)
     jpipe = jpipeline.PosePipeline(JaxOracle(maps), {}, input_size=SIZE,
