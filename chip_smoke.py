@@ -124,10 +124,16 @@ entry points a user calls:
   cv2's on 16 rendered 480x640 frames, its ms a frame (swscale, encode)
   beside the Motion-JPEG writer's; the flagship video demo on a 64-frame
   480x640 MPEG-4 MKV writing XVID (frames/s, read and write ms a frame,
-  K1, K3 and G once a batch, the conversion once a frame);
+  K1, K3 and G once a batch, the conversion once a frame); MPEG-TS,
+  fragmented MP4 and edit lists against cv2 and the demo on a 64-frame
+  MPEG-2 TS; the probe's ``hevc`` decoder and parser and its AV1 check,
+  libavcodec's planes of PCM HEVC equal to the written ones, HEVC in
+  MP4 / MKV / TS / M2TS (reordered, cropped), cv2's ``.mpg`` / ``.vob``
+  and H.264 / HEVC program streams with and without a map equal to its
+  cv2, and the demo on a 64-frame 480x640 PCM HEVC MP4;
   an open without libavcodec or without a card raises; each kernel row
-  carries ``video_file_launches``, and the conversion's row stands
-  beside the grouping kernel's;
+  carries ``video_file_launches`` (the HEVC demo's), and the
+  conversion's row stands beside the grouping kernel's;
 
 and checks that each path launched its kernels.  Also holds one fp32
 train step on the card against the CPU.  Prints timings beside the card's
@@ -3178,9 +3184,19 @@ def video_files_phase(dev, smi: str):
     - the flagship video demo on a 64-frame MPEG-4 MKV and on a 64-frame
       MPEG-2 TS of cv2's, writing XVID, read ms a frame split into demux,
       parse (TS), decode and convert;
+    - HEVC (item 4e) and MPEG program streams (item 4g): the probe's
+      ``hevc`` decoder and parser (and what reads AV1, item 4f);
+      libavcodec's planes of a PCM HEVC stream (``demo/scripted_video.py``
+      ``encode_hevc_pcm``) equal to the written ones; PCM HEVC in MP4
+      ``hvc1`` / ``hev1``, Matroska, TS and M2TS, reordered and cropped;
+      this machine's cv2's MPEG-4 / MPEG-1 / MPEG-2 ``.mpg`` and MPEG-4
+      ``.vob``; I_PCM H.264 and PCM HEVC program streams with and
+      without a map: frames 0 pixels from cv2's, fps and count cv2's;
+    - the flagship video demo on a 64-frame 480x640 PCM HEVC MP4, writing
+      XVID (its launches are the phase's);
     - an open without the library, and one without a card, raise.
 
-    -> ({kernel: launches in the MPEG-2 TS demo run}, numbers, the
+    -> ({kernel: launches in the HEVC MP4 demo run}, numbers, the
     conversion's kernel row)."""
     import contextlib
     import io
@@ -3202,15 +3218,18 @@ def video_files_phase(dev, smi: str):
     writer_probe = numbers["probe"]["writer"]
     check(found.get("vp9") == "opens", f"video files: this machine's "
           f"libavcodec gives no vp9 decoder: {found.get('vp9')}")
-    check(found.get("mpeg1video") == found.get("mpeg2video") == "opens"
+    check(found.get("mpeg1video") == found.get("mpeg2video")
+          == found.get("hevc") == "opens"
           and len(found.get("parsers", {})) == len(avcodec.PARSERS)
           and all(v.endswith("initialises")
                   for v in found["parsers"].values()),
-          f"video files: MPEG-1/2 decoders or parsers missing: {found}")
+          f"video files: MPEG-1/2 or HEVC decoders or parsers missing: "
+          f"{found}")
     log(f"phase 16 (video files): decoders mpeg1video "
-        f"{found.get('mpeg1video')}, mpeg2video {found.get('mpeg2video')}; "
-        f"refused codecs hevc {found.get('hevc')}, av1 {found.get('av1')}; "
-        f"parsers {json.dumps(found.get('parsers'))} [{smi}]")
+        f"{found.get('mpeg1video')}, mpeg2video {found.get('mpeg2video')}, "
+        f"hevc {found.get('hevc')}; refused codec av1 {found.get('av1')}; "
+        f"parsers {json.dumps(found.get('parsers'))}; AV1 probe "
+        f"{json.dumps(numbers['probe'].get('av1'))} [{smi}]")
     check(writer_probe.get("encoder") == "opens"
           and all(writer_probe.get("options", {}).values()),
           f"video files: the XVID writer's mpeg4 encoder, options or "
@@ -3459,15 +3478,16 @@ def video_files_phase(dev, smi: str):
             # libavformat reports MPEG-1 at twice its rate, and so its count
             ts_files[name], _ = against_cv2(path, fourcc != "PIM1")
 
-        def known(name, frames, pictures):
+        def known(name, frames, pictures, table=None):
+            table = ts_files if table is None else table
             want = [kernels.yuv420_to_bgr_plain(
-                *map(torch.from_numpy, p), width=w).numpy()
+                *map(torch.from_numpy, p), width=p[0].shape[1]).numpy()
                 for p in pictures]
-            ts_files[name]["differing_from_known"] = int(sum(
+            table[name]["differing_from_known"] = int(sum(
                 not np.array_equal(a, b) for a, b in zip(frames, want))) + \
                 abs(len(frames) - len(want))
-            check(not ts_files[name]["differing_from_known"],
-                  f"video files: {name}: {ts_files[name]}")
+            check(not table[name]["differing_from_known"],
+                  f"video files: {name}: {table[name]}")
 
         for name, kw in (("ipcm_split.ts", dict(split=(1, 5))),
                          ("ipcm_joined.m2ts", dict(
@@ -3507,6 +3527,72 @@ def video_files_phase(dev, smi: str):
         numbers["mpegts_fmp4_edits"] = ts_files
         log(f"video files: MPEG-TS / fragmented MP4 / edit lists against "
             f"cv2 {cv2.__version__}: {json.dumps(ts_files)} [{smi}]")
+
+        # HEVC (item 4e) and MPEG program streams (item 4g) against this
+        # machine's cv2; libavcodec's planes of PCM HEVC == the written ones
+        t0 = time.perf_counter()
+        hevc = sv.encode_hevc_pcm(seq, key_every=4)
+        decoder, parser = avcodec.Decoder("hevc"), avcodec.Parser("hevc")
+        got = []
+        for frame in parser.parse(sv.hevc_annexb(hevc)) + parser.flush() \
+                + [None]:
+            pictures = (decoder.flush() if frame is None
+                        else decoder.decode(frame))
+            got += [[p[:(h if i == 0 else h // 2),
+                       :(width if i == 0 else width // 2)].copy()
+                     for i, p in enumerate(planes)]
+                    for *planes, width in pictures]
+        decoder.close()
+        parser.close()
+        exact = len(got) == len(seq) and all(
+            all(np.array_equal(a, b) for a, b in zip(g, s))
+            for g, s in zip(got, shown))
+        check(exact, f"video files: libavcodec's planes of the PCM HEVC "
+                     f"stream differ from the written ones ({len(got)} "
+                     f"pictures of {len(seq)})")
+        numbers["hevc_pcm_exact"] = {"pictures": len(got), "equal": exact}
+        hevc_files = {}
+        reordered = sv.encode_hevc_pcm(sv.yuv_frames(5, h, w, seed=18),
+                                       reorder=True)
+        cropped = sv.encode_hevc_pcm(sv.yuv_frames(3, h - 6, w - 6, seed=19))
+        for name, write, stream, kw in (
+                ("hvc1.mp4", sv.write_hevc_mp4, hevc, {}),
+                ("hev1.mp4", sv.write_hevc_mp4, hevc, dict(kind="hev1")),
+                ("hevc.mkv", sv.write_hevc_mkv, hevc, {}),
+                ("hevc.ts", sv.write_hevc_ts, hevc, {}),
+                ("hevc.m2ts", sv.write_hevc_ts, hevc, dict(packet_size=192)),
+                ("hevc_reordered.mp4", sv.write_hevc_mp4, reordered, {}),
+                ("hevc_reordered.ts", sv.write_hevc_ts, reordered, {}),
+                ("hevc_cropped.mkv", sv.write_hevc_mkv, cropped, {}),
+                ("hevc.mpg", sv.write_hevc_ps, hevc, {}),
+                ("hevc_psm.vob", sv.write_hevc_ps, hevc,
+                 dict(psm=True, dvd=True))):
+            path = os.path.join(work, name)
+            write(path, stream, **kw)
+            # the reordered TS's last PES (POC 3) ends the tail's span a
+            # frame early, as the B-frame TS's does
+            hevc_files[name], frames = against_cv2(
+                path, name != "hevc_reordered.ts")
+            known(name, frames, stream.shown, hevc_files)
+        for name, kw in (("h264.mpg", {}),
+                         ("h264_psm_mpeg1.mpg", dict(psm=True, mpeg2=False))):
+            path = os.path.join(work, name)
+            sv.write_ipcm_ps(path, seq, key_every=4, **kw)
+            hevc_files[name], frames = against_cv2(path)
+            known(name, frames, shown, hevc_files)
+        for name, fourcc in (("cv2_mpeg4.mpg", "mp4v"),
+                             ("cv2_mpeg1.mpg", "PIM1"),
+                             ("cv2_mpeg2.mpg", "MPG2"),
+                             ("cv2_mpeg4.vob", "mp4v")):
+            path = os.path.join(work, name)
+            sv.write_cv2_video(path, fourcc, 16, h, w, fps=25.0)
+            # libavformat's duration from the tail counts fewer frames
+            # than an MPEG-1/2 program stream holds
+            hevc_files[name], _ = against_cv2(path, False)
+        hevc_files["seconds"] = time.perf_counter() - t0
+        numbers["hevc_program_streams"] = hevc_files
+        log(f"video files: HEVC and MPEG program streams against cv2 "
+            f"{cv2.__version__}: {json.dumps(hevc_files)} [{smi}]")
 
         # the XVID writer against this machine's cv2, and beside MJPG
         writer_frames = scenes[:16]
@@ -3662,8 +3748,15 @@ def video_files_phase(dev, smi: str):
                                                     "MPEG-4 Part 2 MKV")
         video = os.path.join(work, "in.ts")
         sv.write_cv2_video(video, "MPG2", VIDEO_FILE_FRAMES, h, w, fps=25.0)
-        counts, numbers["demo_ts"] = flagship_demo(video, "mpeg2video",
-                                                   "MPEG-2 TS")
+        ts_counts, numbers["demo_ts"] = flagship_demo(video, "mpeg2video",
+                                                      "MPEG-2 TS")
+        # ... and on a 64-frame PCM HEVC MP4 of the same scenes (item 4e)
+        video = os.path.join(work, "in_hevc.mp4")
+        sv.write_hevc_mp4(video, sv.encode_hevc_pcm(
+            [sv.bgr_to_yuv420(f) for f in scenes], key_every=16),
+            fps_timescale=(12800, 640))
+        counts, numbers["demo_hevc"] = flagship_demo(video, "hevc",
+                                                     "PCM HEVC MP4")
 
         # the reader alone on a compressed stream of the same scenes
         if cv2 is not None:
@@ -3716,7 +3809,7 @@ def video_files_phase(dev, smi: str):
         shutil.rmtree(work, ignore_errors=True)
     numbers["phase_s"] = time.perf_counter() - t_phase
     for key, what in (("demo_mp4", "H.264 MP4"), ("demo", "MPEG-4 MKV"),
-                      ("demo_ts", "MPEG-2 TS")):
+                      ("demo_ts", "MPEG-2 TS"), ("demo_hevc", "HEVC MP4")):
         demo = numbers[key]
         log(f"phase 16 (video files): the flagship video demo on a "
             f"{VIDEO_FILE_FRAMES}-frame 480x640 {what} at --batch 8: "
@@ -3727,7 +3820,7 @@ def video_files_phase(dev, smi: str):
             f"{demo.get('write_ms_a_frame_total', 'not measured')} ms a "
             f"frame [{smi}]")
     log(f"phase 16: launches in the MKV demo {mkv_counts}, in the TS demo "
-        f"{counts} [{smi}]")
+        f"{ts_counts}, in the HEVC demo {counts} [{smi}]")
     log(f"video files: I_PCM planes exact ({numbers['ipcm_exact']}), "
         f"rotations {rotated}; MPEG-4 {json.dumps(numbers['mpeg4'])}; "
         f"mp4v reader {json.dumps(numbers.get('mp4v_reader'))}; phase "
@@ -4611,7 +4704,8 @@ def main() -> int:
 
     # 16. the video files: the route probe, libavcodec's planes of an I_PCM
     # H.264 MP4 exact, the conversion kernel == plain at four turns, cv2's
-    # MPEG-4 files, the flagship video demo on a 64-frame H.264 MP4
+    # MPEG-4 files, TS, HEVC and program streams against cv2, the flagship
+    # video demo on 64-frame H.264 MP4, MPEG-4 MKV, MPEG-2 TS and HEVC MP4
     vf_launches, vf_numbers, yuv_row = video_files_phase(dev, smi)
 
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)

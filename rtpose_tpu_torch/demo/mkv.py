@@ -23,7 +23,9 @@ everything else are skipped by their size.
   block, is split by FFmpeg's ``vp9`` decoder itself); MPEG-4 Part 2 with
   the ``CodecPrivate`` (VOS / VOL headers) ahead of the first block, as
   the AVI path does; H.264 with its ``avcC`` ``CodecPrivate``, each block
-  turned into Annex-B by ``demo/mp4.py``'s :func:`mp4.annexb`.
+  turned into Annex-B by ``demo/mp4.py``'s :func:`mp4.annexb`; HEVC with
+  its ``hvcC`` ``CodecPrivate`` by :func:`mp4.annexb_hevc`, keyed by the
+  block's flag as cv2 keys it (libavformat parses no HEVC here).
 - ``fps``, ``frame_count`` and ``rotation`` are cv2's: FFmpeg's
   ``avg_frame_rate`` from ``DefaultDuration`` (``av_reduce(1e9,
   DefaultDuration, 30000)``), else its ``r_frame_rate`` guess from the
@@ -36,10 +38,10 @@ everything else are skipped by their size.
   it (``mkv_create_display_matrix``).
 
 Refused, naming the codec or feature and ROADMAP.md queue 1 item 4: every
-codec but VP9, MPEG-4 Part 2 and H.264 (``V_MPEGH/ISO/HEVC``, ``V_AV1``,
-``V_VP8``, ...), VP9 of a profile other than 0 (10- and 12-bit, 4:2:2,
-4:4:4), laced video blocks, and compressed or encrypted tracks
-(``ContentEncodings``).
+codec but VP9, MPEG-4 Part 2, H.264 and HEVC (``V_AV1``, ``V_VP8``, ...),
+VP9 of a profile other than 0 (10- and 12-bit, 4:2:2, 4:4:4), HEVC of
+another format than 8-bit 4:2:0 (Main 10, RExt: item 4h), laced video
+blocks, and compressed or encrypted tracks (``ContentEncodings``).
 """
 
 from __future__ import annotations
@@ -71,8 +73,8 @@ CLUSTER_CHILDREN = {TIMECODE, SIMPLE_BLOCK, BLOCK_GROUP, VOID, CRC32,
 TRACK_VIDEO = 1
 CODECS = {"V_VP9": "vp9", "V_MPEG4/ISO/ASP": "mpeg4",
           "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/AP": "mpeg4",
-          "V_MPEG4/ISO/AVC": "h264"}
-OTHER_CODECS = {"V_MPEGH/ISO/HEVC": "HEVC", "V_AV1": "AV1", "V_VP8": "VP8",
+          "V_MPEG4/ISO/AVC": "h264", "V_MPEGH/ISO/HEVC": "hevc"}
+OTHER_CODECS = {"V_AV1": "AV1", "V_VP8": "VP8",
                 "V_MPEGI/ISO/VVC": "VVC", "V_THEORA": "Theora",
                 "V_MJPEG": "Motion-JPEG", "V_PRORES": "ProRes",
                 "V_FFV1": "FFV1", "V_UNCOMPRESSED": "uncompressed"}
@@ -251,7 +253,7 @@ def vp9_profile(frame: bytes) -> int:
 class MkvTrack:
     """The first video track of a Matroska / WebM file."""
 
-    codec: str                       # "vp9", "mpeg4" or "h264"
+    codec: str                       # "vp9", "mpeg4", "h264" or "hevc"
     codec_id: str
     coded_size: Tuple[int, int]      # (w, h): PixelWidth, PixelHeight
     rotation_meta: int = 0
@@ -259,9 +261,10 @@ class MkvTrack:
     duration: Optional[float] = None  # Info's, in Timecode units
     default_duration: int = 0        # ns
     extradata: bytes = b""           # MPEG-4: the VOS / VOL headers
-    nal_length: int = 0              # H.264: avcC
+    nal_length: int = 0              # H.264: avcC; HEVC: hvcC
     sps: List[bytes]
     pps: List[bytes]
+    param_sets: bytes = b""          # HEVC: the hvcC sets as Annex-B
     blocks: List[Block]
 
     @property
@@ -319,9 +322,13 @@ class MkvTrack:
                 raise ValueError(f"block {i} runs past the end of the file")
             if self.codec == "h264":
                 data = mp4.annexb(data, self.nal_length, self.sps, self.pps)
+            elif self.codec == "hevc":
+                data = mp4.annexb_hevc(data, self.nal_length, self.param_sets)
             elif self.codec == "mpeg4" and i == 0:
                 data = self.extradata + data
-            yield data, mp4.intra_picture(self.codec, data)
+            # libavformat parses no HEVC here: cv2's key is the block's
+            yield data, (b.key if self.codec == "hevc"
+                         else mp4.intra_picture(self.codec, data))
 
 
 def _header(f: BinaryIO, at: int) -> Tuple[int, Optional[int], int]:
@@ -459,6 +466,18 @@ class _Reader:
                                       "CodecPrivate")
                 track.nal_length, track.sps, track.pps = mp4.avcc_config(
                     private, 0, len(private))
+            elif track.codec == "hevc":
+                if len(private) < 23:
+                    raise self.refuse("V_MPEGH/ISO/HEVC video with no hvcC "
+                                      "CodecPrivate")
+                hevc = mp4.hvcc_config(private, 0, len(private))
+                refused = mp4.hevc_refusal(hevc.chroma, hevc.depth)
+                if refused:
+                    raise self.refuse(f"{refused} (V_MPEGH/ISO/HEVC "
+                                      f"CodecPrivate)")
+                track.nal_length = hevc.nal_length
+                track.param_sets = b"".join(b"\x00\x00\x00\x01" + p
+                                            for p in hevc.params)
         else:
             name = OTHER_CODECS.get(codec_id, "codec")
             raise self.refuse(f"{name} video ({codec_id!r} CodecID)")

@@ -3,7 +3,8 @@ video track's samples and what ``cv2.VideoCapture`` reports of it.
 
 Read boxes: ``ftyp``, ``moov/mvhd``, ``moov/trak/{tkhd, edts/elst,
 mdia/{mdhd, hdlr, minf/stbl}}``; of the sample table ``stsd`` (``avc1`` /
-``avc3`` with ``avcC``; ``mp4v`` with ``esds`` and its
+``avc3`` with ``avcC``; ``hvc1`` / ``hev1`` with ``hvcC``; ``mp4v`` with
+``esds`` and its
 DecoderSpecificInfo; ``vp09`` with ``vpcC``), ``stts``, ``ctts``,
 ``stsc``, ``stsz`` / ``stz2``, ``stco`` / ``co64`` and ``stss``; of a
 fragmented file ``moov/mvex/trex`` and each ``moof/traf`` (``tfhd``,
@@ -17,11 +18,15 @@ fragmented file ``moov/mvex/trex`` and each ``moof/traf`` (``tfhd``,
   as Annex-B, its length prefixes replaced by start codes and the
   ``avcC`` SPS and PPS put ahead of each IDR picture that carries none
   (FFmpeg's ``h264_mp4toannexb``, which cv2's raw packets go through,
-  start codes and all); MPEG-4 Part 2 as stored, the DecoderSpecificInfo
-  (VOS / VOL headers) ahead of the first sample; VP9 frames as stored.
-  Its key flag is :func:`intra_picture`'s, the flag FFmpeg's parsers set
-  and cv2 reports (``CAP_PROP_LRF_HAS_KEY_FRAME``): every intra-coded
-  picture, non-IDR I pictures of H.264 too.
+  start codes and all); HEVC likewise, the ``hvcC`` parameter sets put
+  ahead of the first IRAP picture of every sample that holds one, in-band
+  sets or not (``hevc_mp4toannexb``); MPEG-4 Part 2 as stored, the
+  DecoderSpecificInfo (VOS / VOL headers) ahead of the first sample; VP9
+  frames as stored.  Its key flag is the one cv2 reports
+  (``CAP_PROP_LRF_HAS_KEY_FRAME``): :func:`intra_picture`'s, the flag
+  FFmpeg's parsers set, for H.264, MPEG-4 and VP9 (every intra-coded
+  picture, non-IDR I pictures of H.264 too); the sample table's sync flag
+  for HEVC, which libavformat does not parse in MP4.
 - ``rotation`` is the clockwise turn cv2 reports as
   ``CAP_PROP_ORIENTATION_META`` and applies under
   ``CAP_PROP_ORIENTATION_AUTO`` (0/90/180/270), from the ``tkhd`` matrix
@@ -39,8 +44,9 @@ fragmented file ``moov/mvex/trex`` and each ``moof/traf`` (``tfhd``,
 
 Refused, with an error naming the box or codec and ROADMAP.md queue 1
 item 4: an edit of a media rate other than 1 (cv2 plays it at rate 1),
-VP9 of a profile other than 0 (``vpcC``), and every codec but H.264,
-MPEG-4 Part 2 and VP9 (HEVC, AV1, ...).
+VP9 of a profile other than 0 (``vpcC``), HEVC of another bit depth or
+chroma format than 8-bit 4:2:0 (``hvcC``: Main 10, RExt; item 4h), and
+every codec but H.264, HEVC, MPEG-4 Part 2 and VP9 (AV1, VP8, ...).
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ from typing import BinaryIO, Dict, Iterator, List, NamedTuple, Optional, \
 
 CONTAINERS = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide",
               b"uuid", b"pdin", b"meta", b"moof", b"mfra", b"styp")
-OTHER_CODECS = {b"hvc1": "HEVC", b"hev1": "HEVC", b"vp08": "VP8",
+HEVC_ENTRIES = (b"hvc1", b"hev1")
+OTHER_CODECS = {b"dvhe": "Dolby Vision", b"vp08": "VP8",
                 b"av01": "AV1", b"mp4a": "AAC audio",
                 b"jpeg": "Motion-JPEG", b"mjp2": "Motion JPEG 2000",
                 b"apch": "ProRes", b"apcn": "ProRes", b"dvh1": "Dolby Vision",
@@ -61,10 +68,11 @@ MPEG4_VISUAL = 0x20    # esds objectTypeIndication of MPEG-4 Part 2
 
 
 def refusal(path: str, what: str) -> ValueError:
-    return ValueError(f"{path}: {what}; the video reader takes H.264 and "
-                      f"MPEG-4 Part 2 in MP4/MOV (fragmented too), AVI or "
-                      f"Matroska, VP9 (profile 0) in WebM, Matroska or MP4, "
-                      f"MPEG-1/2, MPEG-4 Part 2 and H.264 in MPEG-TS / M2TS, "
+    return ValueError(f"{path}: {what}; the video reader takes H.264, HEVC "
+                      f"(Main) and MPEG-4 Part 2 in MP4/MOV (fragmented "
+                      f"too), AVI or Matroska, VP9 (profile 0) in WebM, "
+                      f"Matroska or MP4, MPEG-1/2, MPEG-4 Part 2, H.264 and "
+                      f"HEVC in MPEG-TS / M2TS and MPEG program streams, "
                       f"and Motion-JPEG AVI (other containers and codecs: "
                       f"ROADMAP.md queue 1 item 4)")
 
@@ -174,6 +182,66 @@ def avcc_config(data: bytes, s: int, e: int
     return length, sets[0], sets[1]
 
 
+HEVC_IRAP = range(16, 24)          # BLA, IDR, CRA and reserved IRAP types
+CHROMA_FORMATS = {0: "4:0:0", 1: "4:2:0", 2: "4:2:2", 3: "4:4:4"}
+
+
+class HevcConfig(NamedTuple):
+    nal_length: int
+    params: List[bytes]        # the arrays' NAL units (VPS, SPS, PPS, SEI)
+    chroma: int                # chroma_format_idc
+    depth: Tuple[int, int]     # luma, chroma bits
+
+
+def hvcc_config(data: bytes, s: int, e: int) -> HevcConfig:
+    """An ``hvcC`` record's (ISO 14496-15 8.3.3) NAL length size,
+    parameter sets, chroma format and bit depths."""
+    if e - s < 23:
+        raise ValueError("an hvcC record shorter than its 23-byte header")
+    at, params = s + 23, []
+    for _ in range(data[s + 22]):
+        count = struct.unpack_from(">H", data, at + 1)[0]
+        at += 3
+        for _ in range(count):
+            size = struct.unpack_from(">H", data, at)[0]
+            params.append(bytes(data[at + 2:at + 2 + size]))
+            at += 2 + size
+    return HevcConfig((data[s + 21] & 3) + 1, params, data[s + 16] & 3,
+                      (8 + (data[s + 17] & 7), 8 + (data[s + 18] & 7)))
+
+
+def hevc_refusal(chroma: int, depth: Tuple[int, int]) -> Optional[str]:
+    """What names HEVC of another format than 8-bit 4:2:0 (Main 10, RExt:
+    ROADMAP.md queue 1 item 4h), or None for 8-bit 4:2:0."""
+    if chroma == 1 and depth == (8, 8):
+        return None
+    bits = f"{depth[0]}" if depth[0] == depth[1] else "%d/%d" % depth
+    return (f"HEVC of {bits} bits, {CHROMA_FORMATS.get(chroma, chroma)} "
+            f"(Main 10 / RExt: only 8-bit 4:2:0, Main, is read; item 4h)")
+
+
+def annexb_hevc(sample: bytes, nal_length: int, extradata: bytes) -> bytes:
+    """One HEVC sample of `nal_length`-byte length-prefixed NAL units as
+    Annex-B, as hevc_mp4toannexb writes it: a 4-byte start code each,
+    `extradata` (the ``hvcC`` sets as Annex-B) ahead of the sample's
+    first IRAP NAL unit."""
+    out: List[bytes] = []
+    n, at = nal_length, 0
+    irap = False
+    while at + n <= len(sample):
+        size = int.from_bytes(sample[at:at + n], "big")
+        unit = sample[at + n:at + n + size]
+        if size < 2 or len(unit) != size:
+            raise ValueError(f"an HEVC NAL unit of {size} bytes runs past "
+                             f"its sample")
+        if (unit[0] >> 1) & 0x3F in HEVC_IRAP and not irap:
+            out.append(extradata)
+            irap = True
+        out.append(b"\x00\x00\x00\x01" + unit)
+        at += n + size
+    return b"".join(out)
+
+
 def _matrix(data: bytes, at: int) -> List[List[int]]:
     m = struct.unpack_from(">9i", data, at)
     return [list(m[0:3]), list(m[3:6]), list(m[6:9])]
@@ -206,7 +274,7 @@ class Edit(NamedTuple):
 class Track:
     """The first video track of an MP4/MOV file."""
 
-    codec: str                     # "h264", "mpeg4" or "vp9"
+    codec: str                     # "h264", "hevc", "mpeg4" or "vp9"
     samples: List[Sample]          # the sample table's, then the fragments'
     table_samples: int             # how many the moov's sample table holds
     timescale: int
@@ -215,9 +283,10 @@ class Track:
     fps: float
     edits: List[Edit]              # the elst's, in media units
     has_ctts: bool = False         # the sample table has a ctts box
-    nal_length: int = 0            # H.264: NAL length prefix bytes
+    nal_length: int = 0            # H.264, HEVC: NAL length prefix bytes
     sps: List[bytes]
     pps: List[bytes]
+    param_sets: bytes = b""        # HEVC: the hvcC sets as Annex-B
     decoder_info: bytes = b""      # MPEG-4: DecoderSpecificInfo
 
     @property
@@ -306,9 +375,13 @@ class Track:
                 raise ValueError(f"sample {i} runs past the end of the file")
             if self.codec == "h264":
                 data = annexb(data, self.nal_length, self.sps, self.pps)
+            elif self.codec == "hevc":
+                data = annexb_hevc(data, self.nal_length, self.param_sets)
             elif self.codec == "mpeg4" and n == 0:
                 data = self.decoder_info + data
-            yield data, intra_picture(self.codec, data)
+            # libavformat parses no HEVC in MP4: cv2's key is the sync flag
+            yield data, (s.key if self.codec == "hevc"
+                         else intra_picture(self.codec, data))
 
 
 def annexb(sample: bytes, nal_length: int, sps: List[bytes],
@@ -350,11 +423,22 @@ def _ue(bits: str, at: int) -> Tuple[int, int]:
 
 
 def intra_picture(codec: str, packet: bytes) -> bool:
-    """Whether a packet (H.264 Annex-B, MPEG-1/2 video, MPEG-4 Part 2 or
-    VP9) holds an intra-coded picture: an IDR slice or an I / SI slice
-    first; an I picture (``picture_coding_type`` 1); an I-VOP; a VP9 key
-    frame (its uncompressed header's frame_type 0, not a shown existing
-    frame)."""
+    """Whether a packet (H.264 or HEVC Annex-B, MPEG-1/2 video, MPEG-4
+    Part 2 or VP9) is a key, as FFmpeg's parsers flag it: an IDR slice or
+    an I / SI slice first (H.264); an IRAP picture, NAL types 16-23, and
+    no other intra picture (HEVC); an I picture (``picture_coding_type``
+    1); an I-VOP; a VP9 key frame (its uncompressed header's frame_type
+    0, not a shown existing frame)."""
+    if codec == "hevc":
+        at = packet.find(b"\x00\x00\x01")
+        while 0 <= at < len(packet) - 3:
+            kind = (packet[at + 3] >> 1) & 0x3F
+            if kind in HEVC_IRAP:
+                return True
+            if kind < 32:                     # a VCL unit of no IRAP
+                return False
+            at = packet.find(b"\x00\x00\x01", at + 3)
+        return False
     if codec in ("mpeg1video", "mpeg2video"):
         at = packet.find(b"\x00\x00\x01\x00")
         return 0 <= at < len(packet) - 5 and (packet[at + 5] >> 3) & 7 == 1
@@ -415,6 +499,18 @@ def _sample_table(path: str, data: bytes, s: int, e: int, track: Track
         track.codec = "h264"
         track.nal_length, track.sps, track.pps = avcc_config(
             data, *config[b"avcC"])
+    elif kind in HEVC_ENTRIES:
+        if b"hvcC" not in config:
+            raise refusal(path, f"the {kind.decode()} entry has no hvcC "
+                                f"box")
+        hevc = hvcc_config(data, *config[b"hvcC"])
+        refused = hevc_refusal(hevc.chroma, hevc.depth)
+        if refused:
+            raise refusal(path, f"{refused} ({kind.decode()} sample entry)")
+        track.codec = "hevc"
+        track.nal_length = hevc.nal_length
+        track.param_sets = b"".join(b"\x00\x00\x00\x01" + p
+                                    for p in hevc.params)
     elif kind == b"mp4v":
         if b"esds" not in config:
             raise refusal(path, "the mp4v entry has no esds box")

@@ -13,8 +13,8 @@ stream's frames and what ``cv2.VideoCapture`` reports of it, as
   and of the PMT's streams the first video stream of a type that is
   read: 0x01 and 0x02 (MPEG-1 / MPEG-2 video; which of the two is
   decided by the stream itself, a sequence extension making it MPEG-2,
-  as libavcodec's ``mpegvideo`` parser decides), 0x10 (MPEG-4 Part 2)
-  and 0x1B (H.264).
+  as libavcodec's ``mpegvideo`` parser decides), 0x10 (MPEG-4 Part 2),
+  0x1B (H.264) and 0x24 (HEVC).
 - PES: reassembled as FFmpeg's ``mpegts_push_data`` does: a packet
   with ``payload_unit_start_indicator`` ends the PES before it; a PES
   of stated length ends when it is full, one of length 0 (video, as
@@ -27,7 +27,8 @@ stream's frames and what ``cv2.VideoCapture`` reports of it, as
   them.
 - Frames: the PES payloads go through libavcodec's parser
   (``native/avcodec.py`` :class:`~rtpose_tpu_torch.native.avcodec.Parser`:
-  ``mpegvideo``, ``mpeg4video`` or ``h264``), which libavformat runs over
+  ``mpegvideo``, ``mpeg4video``, ``h264`` or ``hevc``), which libavformat
+  runs over
   every TS video stream (``need_parsing``): a PES may hold two pictures,
   and a picture may span two PES.  Key flags are
   :func:`mp4.intra_picture`'s.
@@ -42,8 +43,8 @@ stream's frames and what ``cv2.VideoCapture`` reports of it, as
   libavformat 62.12 at every code); MPEG-4 Part 2's VOL time increment
   resolution (and fixed VOP increment).  ``r_frame_rate`` is guessed
   from the first 20 frame durations (:func:`r_frame_rate`:
-  ``ff_rfps_add_frame`` / ``ff_rfps_calculate``); H.264's VUI timing is
-  not read: the timestamps stand for it.
+  ``ff_rfps_add_frame`` / ``ff_rfps_calculate``); H.264's and HEVC's VUI
+  timing is not read: the timestamps stand for it.
 - ``frame_count`` is cv2's ``floor(duration x fps + 0.5)``: TS stores no
   count, and libavformat's ``estimate_timings_from_pts`` takes the
   duration from the last 250,000 bytes of the file (twice as many, up to
@@ -53,10 +54,11 @@ stream's frames and what ``cv2.VideoCapture`` reports of it, as
 - ``size`` is the first decoded picture's (``DecodedVideo`` reads it:
   the parser's and the decoder's size agree), ``rotation`` is 0.
 
-Refused, naming the stream and ROADMAP.md queue 1 item 4: HEVC (stream
-type 0x24, item 4e) and the other video types, a program whose only
-candidate is a private stream (0x06, or 0x80-0xFF), a PMT with no video,
-a stream with no PAT or PMT.
+Refused, naming the stream and ROADMAP.md queue 1 item 4: the other
+video types (VVC, JPEG 2000, ...), a program whose only candidate is a
+private stream (0x06, or 0x80-0xFF), a PMT with no video, a stream with
+no PAT or PMT; HEVC Main 10 / RExt by the decoder's first picture (item
+4h).
 """
 
 from __future__ import annotations
@@ -77,8 +79,8 @@ PACKET_SIZES = (188, 192)
 PAT_PID, NULL_PID = 0, 0x1FFF
 TABLE_PAT, TABLE_PMT = 0x00, 0x02
 STREAM_TYPES = {0x01: "mpeg1video", 0x02: "mpeg2video", 0x10: "mpeg4",
-                0x1B: "h264"}
-OTHER_VIDEO = {0x24: "HEVC (item 4e)", 0x20: "H.264 MVC", 0x21: "JPEG 2000",
+                0x1B: "h264", 0x24: "hevc"}
+OTHER_VIDEO = {0x20: "H.264 MVC", 0x21: "JPEG 2000",
                0x33: "VVC", 0x42: "AVS", 0xD1: "Dirac", 0xD2: "AVS2",
                0xD4: "AVS3", 0xEA: "VC-1"}
 PRIVATE = {0x05: "private sections", 0x06: "private data"}
@@ -343,11 +345,13 @@ class _Bits:
         return (self.value >> (self.n - self.at)) & ((1 << n) - 1)
 
 
-def mpeg12_rate(es: bytes) -> Tuple[str, Optional[Fraction]]:
+def mpeg12_rate(es: bytes, mpeg1_doubled: bool = True
+                ) -> Tuple[str, Optional[Fraction]]:
     """(decoder, the rate libavformat reports) of an MPEG-1/2 video
     stream's first bytes: its sequence header's frame rate code, times a
     sequence extension's (n + 1) / (d + 1) (MPEG-2); MPEG-1 at
-    :data:`MPEG1_FPS`."""
+    :data:`MPEG1_FPS` where `mpeg1_doubled` (libavformat's codec id is
+    MPEG-2's, as in MPEG-TS), else at its own rate."""
     at = _start_code(es, 0xB3)
     if at < 0 or at + 12 > len(es):
         return "mpeg2video", None
@@ -356,7 +360,8 @@ def mpeg12_rate(es: bytes) -> Tuple[str, Optional[Fraction]]:
     while ext >= 0 and ext + 10 <= len(es) and es[ext + 4] >> 4 != 1:
         ext = _start_code(es, 0xB5, ext + 4)
     if ext < 0 or ext + 10 > len(es):
-        return "mpeg1video", MPEG1_FPS.get(code)
+        return "mpeg1video", (MPEG1_FPS if mpeg1_doubled
+                              else MPEG12_RATES).get(code)
     n, d = (es[ext + 9] >> 5) & 3, es[ext + 9] & 0x1F
     rate = MPEG12_RATES.get(code)
     return "mpeg2video", rate * (n + 1) / (d + 1) if rate else None
@@ -534,7 +539,7 @@ def frame_times(track: TsTrack, head: List[Pes], wrap: Wrap) -> List[int]:
     that starts in a timestamped PES takes its DTS; the others (a PES's
     second picture) are interpolated one codec frame on, as
     ``compute_pkt_fields`` does where it knows the frame duration, and
-    get none for H.264, which it skips there."""
+    get none for H.264 and HEVC, which it skips there."""
     if track.codec not in PICTURE_START or not track.avg_rate:
         return [wrap(p.dts) for p in head if p.dts is not None]
     ticks = TIME_BASE * track.avg_rate.denominator // track.avg_rate.numerator
@@ -607,17 +612,48 @@ def read_track(path: str, f: BinaryIO) -> TsTrack:
         raise mp4.refusal(path, "an MPEG-TS video stream with no "
                                 "timestamped PES packet")
     track.pid = demux.pid
-    es = b"".join(pes.payload for pes in head[:4])
     track.codec = STREAM_TYPES[track.stream_type]
-    track.avg_rate = None
+
+    def tail_start(window: int) -> int:
+        """The first packet boundary in the file's last `window` bytes."""
+        return max(0, (file_end - window - track.first_sync)
+                   // track.packet_size) * track.packet_size \
+            + track.first_sync
+
+    set_timing(track, head, f, tail_start, track.first_sync)
+    return track
+
+
+def set_timing(track: TsTrack, head: List[Pes], f: BinaryIO, tail_start,
+               first: int, mpeg1_doubled: bool = True) -> None:
+    """What libavformat's ``avformat_find_stream_info`` and
+    ``estimate_timings_from_pts`` make of a stream of MPEG-TS or an MPEG
+    program stream, from its first PES packets `head` (at least
+    :data:`RFPS_FRAMES` timestamped ones where the stream has them) and
+    its PES from ``tail_start(window)`` (a file offset) on, for windows of
+    :data:`TAIL_BYTES` doubled up to :data:`TAIL_RETRIES` times while no
+    PES there has a PTS; `first` is the stream's first offset.  Sets the
+    decoder (MPEG-1 or MPEG-2 by the stream), ``avg_rate``,
+    ``start_pts``, ``r_rate`` and ``end_pts``.  An MPEG-1 stream's frames
+    last a frame of :data:`MPEG1_FPS` in the duration whatever its codec
+    id; its ``avg_rate`` is that too where `mpeg1_doubled`, else its own
+    rate."""
+    es = b"".join(pes.payload for pes in head[:4])
+    track.avg_rate = frame_rate = None
     if track.codec in ("mpeg1video", "mpeg2video"):
         track.codec, rate = mpeg12_rate(es)
         track.avg_rate = avg_frame_rate(rate) if rate else None
+        if track.codec == "mpeg1video":
+            frame_rate = track.avg_rate
+            if not mpeg1_doubled:
+                rate = mpeg12_rate(es, False)[1]
+                track.avg_rate = avg_frame_rate(rate) if rate else None
     elif track.codec == "mpeg4":
         rate = mpeg4_rate(es)
         track.avg_rate = avg_frame_rate(rate) if rate else None
-    wrap = Wrap(head[0].dts)
-    track.start_pts = wrap(head[0].pts)
+    stamped = [pes for pes in head if pes.pts is not None]
+    wrap = Wrap(stamped[0].dts)
+    track.start_pts = wrap(stamped[0].pts)
     probed, size = [], 0            # what fits avformat_find_stream_info's
     for pes in head:                # probesize
         if size >= PROBE_BYTES:
@@ -625,16 +661,12 @@ def read_track(path: str, f: BinaryIO) -> TsTrack:
         probed.append(pes)
         size += len(pes.payload)
     track.r_rate = r_frame_rate(frame_times(track, probed, wrap)[:RFPS_FRAMES])
-    if track.codec == "mpeg1video" and track.avg_rate:
-        track.r_rate = track.avg_rate    # the frame length is MPEG1_FPS's
+    if frame_rate:
+        track.r_rate = frame_rate       # the frame length is MPEG1_FPS's
     track.end_pts = None
     for retry in range(TAIL_RETRIES + 1):
-        window = TAIL_BYTES << retry
-        tail = max(0, (file_end - window - track.first_sync)
-                   // track.packet_size) * track.packet_size \
-            + track.first_sync
+        tail = tail_start(TAIL_BYTES << retry)
         track.end_pts = max((wrap(p.pts) for p in track.pes(f, tail)
                              if p.pts is not None), default=None)
-        if track.end_pts is not None or tail == track.first_sync:
+        if track.end_pts is not None or tail == first:
             break
-    return track

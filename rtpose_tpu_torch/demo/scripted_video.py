@@ -286,6 +286,322 @@ def annexb(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes]) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# HEVC of known pixels: PCM coding units under a minimal CABAC encoder
+# ---------------------------------------------------------------------------
+
+HEVC_TRAIL_R, HEVC_IDR_W_RADL = 1, 19
+HEVC_VPS, HEVC_SPS, HEVC_PPS = 32, 33, 34
+HEVC_SLICE_P, HEVC_SLICE_I = 1, 2
+HEVC_CTB = 16               # CTB = minimum CB = PCM block: 16x16
+HEVC_LEVEL = 120            # 4.0
+HEVC_LOG2_MAX_POC_LSB = 8
+HEVC_QP = 26                # SliceQpY: init_qp 26, no delta
+# initValue of the contexts used (H.265 Tables 9-11 and 9-9): part_mode's
+# first bin in an I slice; cu_skip_flag's three in a P slice (initType 1)
+HEVC_PART_MODE_I = 184
+HEVC_CU_SKIP_P = (197, 185, 201)
+# H.265 Table 9-52 (rangeTabLps[pStateIdx][qRangeIdx]) and Table 9-53
+# (transIdxLps), the tables H.264 has too
+RANGE_TAB_LPS = (
+    (128, 176, 208, 240), (128, 167, 197, 227), (128, 158, 187, 216),
+    (123, 150, 178, 205), (116, 142, 169, 195), (111, 135, 160, 185),
+    (105, 128, 152, 175), (100, 122, 144, 166), (95, 116, 137, 158),
+    (90, 110, 130, 150), (85, 104, 123, 142), (81, 99, 117, 135),
+    (77, 94, 111, 128), (73, 89, 105, 122), (69, 85, 100, 116),
+    (66, 80, 95, 110), (62, 76, 90, 104), (59, 72, 86, 99),
+    (56, 69, 81, 94), (53, 65, 77, 89), (51, 62, 73, 85),
+    (48, 59, 69, 80), (46, 56, 66, 76), (43, 53, 63, 72),
+    (41, 50, 59, 69), (39, 48, 56, 65), (37, 45, 54, 62),
+    (35, 43, 51, 59), (33, 41, 48, 56), (32, 39, 46, 53),
+    (30, 37, 43, 50), (29, 35, 41, 48), (27, 33, 39, 45),
+    (26, 31, 37, 43), (24, 30, 35, 41), (23, 28, 33, 39),
+    (22, 27, 32, 37), (21, 26, 30, 35), (20, 24, 29, 33),
+    (19, 23, 27, 31), (18, 22, 26, 30), (17, 21, 25, 28),
+    (16, 20, 23, 27), (15, 19, 22, 25), (14, 18, 21, 24),
+    (14, 17, 20, 23), (13, 16, 19, 22), (12, 15, 18, 21),
+    (12, 14, 17, 20), (11, 14, 16, 19), (11, 13, 15, 18),
+    (10, 12, 15, 17), (10, 12, 14, 16), (9, 11, 13, 15),
+    (9, 11, 12, 14), (8, 10, 12, 14), (8, 9, 11, 13),
+    (7, 9, 11, 12), (7, 9, 10, 12), (7, 8, 10, 11),
+    (6, 8, 9, 11), (6, 7, 9, 10), (6, 7, 8, 9), (2, 2, 2, 2))
+TRANS_IDX_LPS = (
+    0, 0, 1, 2, 2, 4, 4, 5, 6, 7, 8, 9, 9, 11, 11, 12, 13, 13, 15, 15,
+    16, 16, 18, 18, 19, 19, 21, 21, 22, 22, 23, 24, 24, 25, 26, 26, 27, 27,
+    28, 29, 29, 30, 30, 30, 31, 32, 32, 33, 33, 33, 34, 34, 35, 35, 35, 36,
+    36, 36, 37, 37, 37, 38, 38, 63)
+
+
+def cabac_context(init_value: int, qp: int = HEVC_QP) -> List[int]:
+    """[pStateIdx, valMps] of a context from its initValue (H.265
+    9.3.2.2)."""
+    m = (init_value >> 4) * 5 - 45
+    n = ((init_value & 15) << 3) - 16
+    pre = min(126, max(1, ((m * min(51, max(0, qp))) >> 4) + n))
+    return [pre - 64, 1] if pre > 63 else [63 - pre, 0]
+
+
+class CabacEncoder:
+    """The arithmetic encoder of H.265 9.3.4.3 (H.264 9.3.4.2):
+    ``EncodeDecision``, ``EncodeTerminate`` with ``EncodeFlush``, and the
+    bits it has written.  :meth:`start` is ``InitEncoder``, also what a
+    PCM coding unit's samples are followed by (9.3.2.5)."""
+
+    def __init__(self):
+        self.bits: List[int] = []
+        self.start()
+
+    def start(self) -> None:
+        self.low, self.range, self.first, self.outstanding = 0, 510, True, 0
+
+    def _put(self, bit: int) -> None:
+        if self.first:
+            self.first = False
+        else:
+            self.bits.append(bit)
+        if self.outstanding:
+            self.bits += [1 - bit] * self.outstanding
+            self.outstanding = 0
+
+    def _renorm(self) -> None:
+        while self.range < 256:
+            if self.low < 256:
+                self._put(0)
+            elif self.low >= 512:
+                self.low -= 512
+                self._put(1)
+            else:
+                self.low -= 256
+                self.outstanding += 1
+            self.range <<= 1
+            self.low <<= 1
+
+    def decision(self, ctx: List[int], bin_val: int) -> None:
+        """Encode `bin_val` in context `ctx` ([pStateIdx, valMps],
+        updated in place)."""
+        state, mps = ctx
+        lps = RANGE_TAB_LPS[state][(self.range >> 6) & 3]
+        self.range -= lps
+        if bin_val != mps:
+            self.low += self.range
+            self.range = lps
+            if state == 0:
+                ctx[1] = 1 - mps
+            ctx[0] = TRANS_IDX_LPS[state]
+        else:
+            ctx[0] = min(state + 1, 62)
+        self._renorm()
+
+    def terminate(self, bin_val: int) -> None:
+        """A terminating bin (pcm_flag, end_of_slice_segment_flag); 1
+        flushes, the last bit written a 1 (the slice's stop bit, or the
+        one before a PCM unit's alignment bits)."""
+        self.range -= 2
+        if not bin_val:
+            self._renorm()
+            return
+        self.low += self.range
+        self.range = 2
+        self._renorm()
+        self._put((self.low >> 9) & 1)
+        self.bits += [(self.low >> 8) & 1, 1]
+
+    def take(self) -> bytes:
+        """The bits written, zero-padded to a byte; cleared."""
+        out = self.bits + [0] * (-len(self.bits) % 8)
+        self.bits = []
+        return np.packbits(np.array(out, np.uint8)).tobytes()
+
+
+def hevc_nal(nal_type: int, rbsp: bytes) -> bytes:
+    """An HEVC NAL unit: the two-byte header (layer 0, temporal id 0) and
+    the payload with emulation prevention."""
+    return bytes([nal_type << 1, 1]) + _EMULATION.sub(b"\x00\x00\x03", rbsp)
+
+
+def profile_tier_level(profile: int) -> BitWriter:
+    """profile_tier_level(1, 0), 12 bytes (also the ``hvcC`` record's):
+    `profile` (1 Main, 2 Main 10), Main tier, progressive frames, level
+    4."""
+    b = BitWriter().u(2, 0).u(1, 0).u(5, profile)
+    b.u(32, (1 << (31 - profile)) | (1 << 29 if profile == 1 else 0))
+    b.u(1, 1).u(1, 0).u(1, 0).u(1, 1)         # progressive, frame only
+    b.u(43, 0).u(1, 0)                        # constraint flags, inbld
+    return b.u(8, HEVC_LEVEL)
+
+
+def hevc_vps(reorder: int = 0, profile: int = 1) -> bytes:
+    b = BitWriter().u(4, 0).u(1, 1).u(1, 1)   # id, base layer internal,
+    b.u(6, 0).u(3, 0).u(1, 1).u(16, 0xFFFF)   # available; one layer
+    b.bits += profile_tier_level(profile).bits
+    b.u(1, 1).ue(reorder + 1).ue(reorder).ue(0)   # sub-layer ordering
+    b.u(6, 0).ue(0).u(1, 0).u(1, 0)           # layer id, sets, no timing
+    return hevc_nal(HEVC_VPS, b.trailing().bytes())
+
+
+def hevc_sps(h: int, w: int, reorder: int = 0, depth: int = 8) -> bytes:
+    """The SPS: 4:2:0 of `depth` bits (8: Main; 10: Main 10, its PCM
+    samples still 8 bits), pictures of whole 16x16 CTBs with a
+    conformance window down to h x w, CTB = minimum CB = PCM size 16, no
+    loop filter on PCM samples, no SAO, AMP, scaling lists or temporal
+    MVP; `reorder` as ``sps_max_num_reorder_pics``; two short-term
+    reference picture sets: 0 empty, 1 the picture one POC before."""
+    if h % 2 or w % 2 or h <= 0 or w <= 0:
+        raise ValueError(f"4:2:0 frames have an even size, got {h}x{w}")
+    ch, cw = -(-h // HEVC_CTB) * HEVC_CTB, -(-w // HEVC_CTB) * HEVC_CTB
+    b = BitWriter().u(4, 0).u(3, 0).u(1, 1)   # vps id, sub layers, nesting
+    b.bits += profile_tier_level(1 if depth == 8 else 2).bits
+    b.ue(0).ue(1)                             # sps id, 4:2:0
+    b.ue(cw).ue(ch)
+    b.u(1, int(ch != h or cw != w))           # conformance window
+    if ch != h or cw != w:                    # in 2-sample units (4:2:0)
+        b.ue(0).ue((cw - w) // 2).ue(0).ue((ch - h) // 2)
+    b.ue(depth - 8).ue(depth - 8)
+    b.ue(HEVC_LOG2_MAX_POC_LSB - 4)
+    b.u(1, 1).ue(reorder + 1).ue(reorder).ue(0)   # sub-layer ordering
+    b.ue(1).ue(0)                             # min CB 16, CTB 16
+    b.ue(0).ue(2).ue(0).ue(0)                 # TB 4..16, depths 0
+    b.u(1, 0).u(1, 0).u(1, 0)                 # scaling list, AMP, SAO
+    b.u(1, 1).u(4, 7).u(4, 7)                 # PCM, 8-bit samples
+    b.ue(1).ue(0).u(1, 1)                     # PCM 16x16, no loop filter
+    b.ue(2)                                   # num_short_term_ref_pic_sets
+    b.ue(0).ue(0)                             # 0: no pictures
+    b.u(1, 0).ue(1).ue(0).ue(0).u(1, 1)       # 1: POC - 1, used
+    b.u(1, 0).u(1, 0).u(1, 0)                 # long-term, TMVP, smoothing
+    b.u(1, 0).u(1, 0)                         # no VUI, no extensions
+    return hevc_nal(HEVC_SPS, b.trailing().bytes())
+
+
+def hevc_pps() -> bytes:
+    b = BitWriter().ue(0).ue(0)               # pps id, sps id
+    b.u(1, 0).u(1, 0).u(3, 0)                 # dependent, output, extra
+    b.u(1, 0).u(1, 0).ue(0).ue(0)             # sign hiding, cabac init,
+    b.se(0).u(1, 0).u(1, 0).u(1, 0)           # refs; QP 26, no cu_qp_delta
+    b.se(0).se(0).u(1, 0)                     # chroma QP offsets
+    b.u(1, 0).u(1, 0).u(1, 0)                 # weighting, bypass
+    b.u(1, 0).u(1, 0).u(1, 0)                 # tiles, WPP, across slices
+    b.u(1, 1).u(1, 0).u(1, 1)                 # deblocking off, no override
+    b.u(1, 0).u(1, 0).ue(0).u(1, 0).u(1, 0)   # lists, merge level, ext
+    return hevc_nal(HEVC_PPS, b.trailing().bytes())
+
+
+def hevc_slice(kind: str, poc: int, planes: Optional[Tuple[np.ndarray, ...]],
+               h: int, w: int) -> bytes:
+    """One picture as one slice NAL unit: `kind` "IDR" (IDR_W_RADL) or "I"
+    (TRAIL_R, no references) with `planes` (y, u, v) as PCM coding units
+    (``part_mode`` 2Nx2N, ``pcm_flag``, the samples); or "P" (TRAIL_R
+    referring to POC - 1) whose every CU is skipped: one merge candidate,
+    the zero vector, a copy of the picture before.  `poc` is the
+    picture order count (IDR: 0)."""
+    nal_type = HEVC_IDR_W_RADL if kind == "IDR" else HEVC_TRAIL_R
+    slice_type = HEVC_SLICE_P if kind == "P" else HEVC_SLICE_I
+    b = BitWriter().u(1, 1)                   # first slice segment
+    if kind == "IDR":
+        b.u(1, 0)                             # no_output_of_prior_pics
+    b.ue(0).ue(slice_type)
+    if kind != "IDR":
+        b.u(HEVC_LOG2_MAX_POC_LSB, poc % (1 << HEVC_LOG2_MAX_POC_LSB))
+        b.u(1, 1).u(1, int(kind == "P"))      # the SPS's RPS 0 or 1
+    if kind == "P":
+        b.u(1, 0).ue(4)                       # no override, one merge cand
+    b.se(0)                                   # slice_qp_delta
+    head = b.u(1, 1).align_zero().bytes()     # byte_alignment()
+    rows, cols = -(-h // HEVC_CTB), -(-w // HEVC_CTB)
+    n = rows * cols
+    cabac = CabacEncoder()
+    parts = [head]
+    if kind == "P":
+        skip = [cabac_context(v) for v in HEVC_CU_SKIP_P]
+        for i in range(n):
+            r, c = divmod(i, cols)
+            cabac.decision(skip[int(r > 0) + int(c > 0)], 1)
+            cabac.terminate(int(i == n - 1))  # end_of_slice_segment_flag
+        parts.append(cabac.take())
+    else:
+        part_mode = cabac_context(HEVC_PART_MODE_I)
+        cus = pcm_macroblocks(*planes)
+        for i in range(n):
+            if i:
+                cabac.terminate(0)            # end_of_slice_segment_flag
+            cabac.decision(part_mode, 1)      # PART_2Nx2N
+            cabac.terminate(1)                # pcm_flag
+            parts.append(cabac.take())        # pcm_alignment_zero_bits
+            parts.append(cus[i].tobytes())
+            cabac.start()
+        cabac.terminate(1)
+        parts.append(cabac.take())
+    return hevc_nal(nal_type, b"".join(parts))
+
+
+class HevcStream(NamedTuple):
+    vps: bytes
+    sps: bytes
+    pps: bytes
+    units: List[bytes]       # one slice NAL unit a picture, decode order
+    keys: List[bool]         # IDR pictures
+    order: List[int]         # each unit's display index
+    shown: List[Tuple[np.ndarray, ...]]     # the pictures in display order
+    size: Tuple[int, int]    # (w, h)
+    depth: int               # 8 (Main) or 10 (Main 10)
+
+    @property
+    def params(self) -> List[bytes]:
+        return [self.vps, self.sps, self.pps]
+
+
+def encode_hevc_pcm(frames: Sequence[Optional[Tuple[np.ndarray, ...]]],
+                    key_every: int = 0, reorder: bool = False,
+                    depth: int = 8) -> HevcStream:
+    """HEVC of `frames` (see :func:`encode_ipcm`: (y, u, v) planes, or None
+    to repeat the picture before), every sample PCM so that a decoder
+    gives back exactly the written Y, U and V: the first frame and every
+    `key_every`-th (0: only the first) an IDR picture, the other pictures
+    intra TRAIL_R pictures, the repeats P pictures of skipped CUs.
+    `reorder` writes the pictures after the IDR in pairs swapped in
+    decode order (POC 0, 2, 1, 4, 3, ...; ``sps_max_num_reorder_pics`` 1):
+    the decoder puts them back by POC.  `depth` 10 writes Main 10 (8-bit
+    PCM samples in 10-bit pictures)."""
+    if frames[0] is None:
+        raise ValueError("the first frame has to be a picture")
+    h, w = frames[0][0].shape
+    for i, planes in enumerate(frames):
+        if planes is not None and (planes[0].shape != (h, w) or any(
+                c.shape != (h // 2, w // 2) for c in planes[1:])):
+            raise ValueError(f"frame {i}: planes {[c.shape for c in planes]}"
+                             f" are not those of a {h}x{w} 4:2:0 frame")
+    shown: List[Tuple[np.ndarray, ...]] = []
+    for planes in frames:
+        shown.append(shown[-1] if planes is None else planes)
+    decode = list(range(len(frames)))
+    if reorder:
+        if any(p is None for p in frames):
+            raise ValueError("a reordered stream holds no repeats")
+        for k in range(1, len(frames) - 1, 2):
+            decode[k], decode[k + 1] = decode[k + 1], decode[k]
+    units, keys = [], []
+    idr = 0
+    for i in decode:
+        key = i == 0 or bool(key_every and i % key_every == 0)
+        if key:
+            if frames[i] is None:
+                raise ValueError(f"frame {i} is a key frame and has no "
+                                 f"picture")
+            idr = i
+        kind = "IDR" if key else ("P" if frames[i] is None else "I")
+        units.append(hevc_slice(kind, i - idr, frames[i], h, w))
+        keys.append(key)
+    r = int(reorder)
+    return HevcStream(hevc_vps(r, 1 if depth == 8 else 2),
+                      hevc_sps(h, w, r, depth), hevc_pps(), units, keys,
+                      decode, shown, (w, h), depth)
+
+
+def hevc_annexb(stream: HevcStream) -> bytes:
+    """The stream as Annex-B: start codes, parameter sets first."""
+    return b"".join(b"\x00\x00\x00\x01" + n
+                    for n in (*stream.params, *stream.units))
+
+
+# ---------------------------------------------------------------------------
 # MP4 (ISO-BMFF) muxing
 # ---------------------------------------------------------------------------
 
@@ -1015,6 +1331,311 @@ def remux_ts(src: str, dst: str, **mux) -> int:
     with open(dst, "wb") as f:
         f.write(mux_ts(codec, units, keys, **mux))
     return len(units)
+
+
+# ---------------------------------------------------------------------------
+# MPEG program stream muxing
+# ---------------------------------------------------------------------------
+
+PS_MUX_RATE = 25200         # 50-byte units a second: 10.08 Mbit/s, DVD's
+PS_PES_BYTES = 2024         # payload a PES at most, as a DVD pack holds
+PS_SCR_LEAD = 9000          # the SCR this far ahead of the DTS (0.1 s)
+DVD_PCI, DVD_DSI = 980, 1018    # DVD navigation packets' lengths
+
+
+def _scr(scr: int, mpeg2: bool) -> bytes:
+    """A pack header: its SCR (27 MHz extension 0) and the mux rate, in
+    MPEG-2's syntax (no stuffing) or MPEG-1's."""
+    scr %= 1 << 33
+    if not mpeg2:
+        rate = PS_MUX_RATE
+        return (b"\x00\x00\x01\xba" + ts_timestamp(2, scr)
+                + bytes([0x80 | (rate >> 15), (rate >> 7) & 0xFF,
+                         ((rate << 1) & 0xFE) | 1]))
+    b = BitWriter().u(2, 1).u(3, scr >> 30).u(1, 1).u(15, scr >> 15)
+    b.u(1, 1).u(15, scr).u(1, 1).u(9, 0).u(1, 1)
+    b.u(22, PS_MUX_RATE).u(2, 3).u(5, 0x1F).u(3, 0)
+    return b"\x00\x00\x01\xba" + b.bytes()
+
+
+def _system_header(stream_id: int) -> bytes:
+    """A system header of one video stream (video bound 1)."""
+    rate = PS_MUX_RATE
+    body = bytes([0x80 | (rate >> 15), (rate >> 7) & 0xFF,
+                  ((rate << 1) & 0xFE) | 1, 0x00, 0x21, 0xFF,
+                  stream_id, 0xE0, 0xE6])
+    return b"\x00\x00\x01\xbb" + struct.pack(">H", len(body)) + body
+
+
+def program_stream_map(entries: Sequence[Tuple[int, int]]) -> bytes:
+    """A program stream map (0xBC) of (stream type, stream id) entries,
+    with its CRC-32/MPEG-2."""
+    from .mpegts import crc32_mpeg2
+
+    es_map = b"".join(struct.pack(">BBH", kind, es_id, 0)
+                      for kind, es_id in entries)
+    body = bytes([0xE0, 0xFF]) + struct.pack(">HH", 0, len(es_map)) + es_map
+    head = b"\x00\x00\x01\xbc" + struct.pack(">H", len(body) + 4)
+    return head + body + struct.pack(">I", crc32_mpeg2(head + body))
+
+
+def mpeg1_pes(payload: bytes, pts: Optional[int], dts: Optional[int],
+              stream_id: int = 0xE0, std: bool = False) -> bytes:
+    """A PES packet in MPEG-1's syntax: the STD buffer field where `std`,
+    then ``0010`` and the PTS, ``0011`` and the PTS and DTS, or 0x0F."""
+    fields = b"\x60\xe6" if std else b""
+    if pts is None:
+        fields += b"\x0f"
+    elif dts is not None and dts != pts:
+        fields += ts_timestamp(3, pts) + ts_timestamp(1, dts)
+    else:
+        fields += ts_timestamp(2, pts)
+    return (b"\x00\x00\x01" + bytes([stream_id])
+            + struct.pack(">H", len(fields) + len(payload)) + fields + payload)
+
+
+def mux_ps(codec: str, units: Sequence[TsUnit], keys: Sequence[bool], *,
+           mpeg2: bool = True, psm: bool = False, dvd: bool = False,
+           pes_bytes: int = PS_PES_BYTES, end_code: bool = True) -> bytes:
+    """An MPEG program stream of one video stream (0xE0) of `codec` (a
+    key of :data:`TS_STREAM_TYPES`): each of `units` (decode order) in
+    PES packets of at most `pes_bytes` payload, its timestamps in the
+    first (a unit of no PTS: none), a pack header (MPEG-2's, or MPEG-1's
+    where not `mpeg2`, with PES of MPEG-1's syntax) ahead of each PES.
+    The first pack holds the system header and, where `psm`, a program
+    stream map naming the codec (cv2's muxer writes none: then a reader
+    probes the codec).
+    `dvd` puts a navigation pack (private stream 2: PCI and DSI), an
+    AC-3 audio PES (private stream 1) and an MPEG audio PES, none of them
+    timed, and a padding PES ahead of each key picture, as a DVD's
+    ``.vob`` holds them.  The stream ends with an end code where
+    `end_code`."""
+    out: List[bytes] = []
+    first = True
+    scr = 0
+    for unit, key in zip(units, keys):
+        start = unit.pts if unit.dts is None else unit.dts
+        if start is not None:           # an untimed unit: the SCR before
+            scr = max(0, start - PS_SCR_LEAD)
+        if dvd and key:
+            nav = (b"\x00\x00\x01\xbf" + struct.pack(">H", DVD_PCI)
+                   + b"\x00" * DVD_PCI + b"\x00\x00\x01\xbf"
+                   + struct.pack(">H", DVD_DSI) + b"\x01"
+                   + b"\x00" * (DVD_DSI - 1))
+            out.append(_scr(scr, mpeg2) + _system_header(0xE0) + nav)
+            out.append(_scr(scr, mpeg2) + pes_packet(
+                b"\x80\x01\x00\x01" + b"\x0b\x77" + b"\x00" * 58, None,
+                None, False, stream_id=0xBD))
+            out.append(_scr(scr, mpeg2) + pes_packet(
+                b"\xff\xfd" + b"\x00" * 62, None, None, False,
+                stream_id=0xC0))
+            out.append(b"\x00\x00\x01\xbe" + struct.pack(">H", 40)
+                       + b"\xff" * 40)
+        data = unit.data
+        for at in range(0, len(data), pes_bytes):
+            chunk = data[at:at + pes_bytes]
+            pts, dts = (unit.pts, unit.dts) if at == 0 else (None, None)
+            pack = _scr(scr, mpeg2)
+            if first:
+                pack += _system_header(0xE0)
+                if psm:
+                    pack += program_stream_map([(TS_STREAM_TYPES[codec],
+                                                 0xE0)])
+            pes = (pes_packet(chunk, pts, dts, False) if mpeg2 else
+                   mpeg1_pes(chunk, pts, dts, std=first))
+            out.append(pack + pes)
+            first = False
+    if end_code:
+        out.append(b"\x00\x00\x01\xb9")
+    return b"".join(out)
+
+
+def write_ipcm_ps(path: str, frames, *, key_every: int = 0,
+                  fps: Tuple[int, int] = (25, 1), **mux) -> None:
+    """Write `frames` (see :func:`encode_ipcm`) as I_PCM H.264 in an MPEG
+    program stream (:func:`mux_ps`), frame i at ``TS_START`` + i frames
+    of `fps` (num, den)."""
+    s, p, units, keys = encode_ipcm(frames, key_every)
+    ticks = 90000 * fps[1] // fps[0]
+    ps_units = [TsUnit(d, TS_START + i * ticks, None)
+                for i, d in enumerate(h264_access_units(s, p, units))]
+    with open(path, "wb") as f:
+        f.write(mux_ps("h264", ps_units, keys, **mux))
+
+
+# ---------------------------------------------------------------------------
+# HEVC in MP4, Matroska, MPEG-TS and MPEG program streams
+# ---------------------------------------------------------------------------
+
+def hvcc_record(stream: HevcStream) -> bytes:
+    """The ``hvcC`` record (ISO 14496-15 8.3.3: an MP4 box's payload,
+    Matroska's ``CodecPrivate`` of ``V_MPEGH/ISO/HEVC``): the SPS's
+    profile, tier and level, 4:2:0, the bit depth, 4-byte NAL lengths,
+    and arrays of the VPS, SPS and PPS."""
+    d = stream.depth - 8
+    head = (b"\x01" + profile_tier_level(1 if d == 0 else 2).bytes()
+            + struct.pack(">HBBBBHBB", 0xF000, 0xFC, 0xFC | 1, 0xF8 | d,
+                          0xF8 | d, 0, 0x0F, 3))
+    return head + b"".join(
+        struct.pack(">BHH", 0x80 | kind, 1, len(unit)) + unit
+        for kind, unit in zip((HEVC_VPS, HEVC_SPS, HEVC_PPS), stream.params))
+
+
+def hevc_samples(stream: HevcStream, in_band: bool = False) -> List[bytes]:
+    """Each picture as an MP4 / Matroska sample: 4-byte-length-prefixed
+    NAL units; `in_band` puts the parameter sets ahead of each IDR
+    picture too (``hev1``)."""
+    out = []
+    for unit, key in zip(stream.units, stream.keys):
+        nals = [*stream.params, unit] if in_band and key else [unit]
+        out.append(b"".join(struct.pack(">I", len(n)) + n for n in nals))
+    return out
+
+
+def write_hevc_mp4(path: str, stream: HevcStream, *, kind: str = "hvc1",
+                   fps_timescale: Tuple[int, int] = (12800, 512),
+                   **mux) -> None:
+    """Write `stream` as an MP4 of one HEVC track: an ``hvc1`` sample entry
+    (parameter sets only in its ``hvcC``) or ``hev1`` (in the samples
+    too); a reordered stream gets each sample's composition offset and an
+    edit list one frame in, as muxers write them."""
+    if kind not in ("hvc1", "hev1"):
+        raise ValueError(f"an HEVC sample entry is hvc1 or hev1, not {kind}")
+    timescale, delta = fps_timescale
+    if stream.order != sorted(stream.order):
+        mux = dict(composition_offsets=[
+            (d + 1 - i) * delta for i, d in enumerate(stream.order)],
+            edit_start=delta, **mux)
+    entry = visual_entry(kind.encode(), stream.size,
+                         box(b"hvcC", hvcc_record(stream)))
+    with open(path, "wb") as f:
+        f.write(mux_mp4(b"", b"", hevc_samples(stream, kind == "hev1"),
+                        stream.keys, stream.size, timescale=timescale,
+                        delta=delta, entry=entry, **mux))
+
+
+def write_hevc_mkv(path: str, stream: HevcStream, **mux) -> None:
+    """Write `stream` as Matroska (``V_MPEGH/ISO/HEVC`` with its ``hvcC``
+    ``CodecPrivate``; a reordered stream's blocks carry their display
+    times)."""
+    fps = mux.pop("fps", 20.0)
+    if stream.order != sorted(stream.order):
+        mux["timecodes"] = [round(1000 * d / fps) for d in stream.order]
+    with open(path, "wb") as f:
+        f.write(mux_mkv("V_MPEGH/ISO/HEVC", list(zip(
+            hevc_samples(stream), stream.keys)), stream.size, fps=fps,
+            codec_private=hvcc_record(stream), **mux))
+
+
+HEVC_AUD = b"\x00\x00\x00\x01\x46\x01\x50"    # access unit delimiter
+
+
+def hevc_access_units(stream: HevcStream) -> List[bytes]:
+    """Annex-B access units as broadcast encoders put them in a transport
+    or program stream: an access unit delimiter first, the parameter sets
+    ahead of each IDR picture."""
+    return [HEVC_AUD + b"".join(b"\x00\x00\x00\x01" + n for n in (
+        [*stream.params, unit] if key else [unit]))
+        for unit, key in zip(stream.units, stream.keys)]
+
+
+def hevc_ts_units(stream: HevcStream, fps: Tuple[int, int] = (25, 1),
+                  start: int = TS_START) -> List["TsUnit"]:
+    """The access units with their 90 kHz times: the PTS the display
+    order's, one frame after the DTS where the stream is reordered."""
+    ticks = 90000 * fps[1] // fps[0]
+    late = int(stream.order != sorted(stream.order))
+    return [TsUnit(d, start + (o + late) * ticks,
+                   start + i * ticks if late else None)
+            for i, (d, o) in enumerate(zip(hevc_access_units(stream),
+                                           stream.order))]
+
+
+def write_hevc_ts(path: str, stream: HevcStream, *,
+                  fps: Tuple[int, int] = (25, 1), **mux) -> None:
+    """Write `stream` as an MPEG transport stream (stream type 0x24)."""
+    with open(path, "wb") as f:
+        f.write(mux_ts("hevc", hevc_ts_units(stream, fps), stream.keys,
+                       **mux))
+
+
+def write_hevc_ps(path: str, stream: HevcStream, *,
+                  fps: Tuple[int, int] = (25, 1), **mux) -> None:
+    """Write `stream` as an MPEG program stream (:func:`mux_ps`)."""
+    with open(path, "wb") as f:
+        f.write(mux_ps("hevc", hevc_ts_units(stream, fps), stream.keys,
+                       **mux))
+
+
+# ---------------------------------------------------------------------------
+# AV1: a still picture's headers, for probing what reads AV1
+# ---------------------------------------------------------------------------
+
+AV1_OBU_SEQUENCE_HEADER, AV1_OBU_TEMPORAL_DELIMITER, AV1_OBU_FRAME = 1, 2, 6
+
+
+def _leb128(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        byte, n = n & 0x7F, n >> 7
+        out.append(byte | (0x80 if n else 0))
+        if not n:
+            return bytes(out)
+
+
+def av1_obu(kind: int, payload: bytes) -> bytes:
+    """An AV1 OBU with its size field."""
+    return bytes([kind << 3 | 0x02]) + _leb128(len(payload)) + payload
+
+
+def av1_sequence_header(w: int, h: int) -> bytes:
+    """A sequence header OBU (AV1 5.5) of profile 0 (8-bit 4:2:0) with
+    ``reduced_still_picture_header``: one key frame of w x h, no CDEF,
+    loop restoration or superres, level 2.0."""
+    bits = max(w - 1, h - 1, 1).bit_length()
+    b = BitWriter().u(3, 0).u(1, 1).u(1, 1).u(5, 0)   # profile, still,
+    b.u(4, bits - 1).u(4, bits - 1)                   # reduced, level
+    b.u(bits, w - 1).u(bits, h - 1)
+    b.u(1, 0).u(1, 0).u(1, 0)                 # 64x64 SB, filter intra, edge
+    b.u(1, 0).u(1, 0).u(1, 0)                 # superres, CDEF, restoration
+    b.u(1, 0).u(1, 0).u(1, 0).u(1, 0)         # 8-bit, colour, description,
+    b.u(2, 0).u(1, 0)                         # range; sample position, uv q
+    b.u(1, 0)                                 # no film grain
+    return av1_obu(AV1_OBU_SEQUENCE_HEADER, b.trailing().bytes())
+
+
+def av1_still_frame() -> bytes:
+    """A frame OBU of the reduced still picture header's key frame: its
+    uncompressed header (no screen content tools, one tile, base_q_idx 0:
+    lossless) and a tile of zero bytes.  The tile is no coded picture: the
+    OBU serves to show whether a decoder gets as far as a frame."""
+    b = BitWriter().u(1, 0).u(1, 0)           # cdf update, screen content
+    b.u(1, 0)                                 # render size = frame size
+    b.u(1, 1)                                 # uniform tile spacing
+    b.u(8, 0).u(1, 0).u(1, 0).u(1, 0)         # base_q_idx 0, no deltas,
+    b.u(1, 0).u(1, 0)                         # no qmatrix, segmentation
+    b.u(1, 0)                                 # reduced_tx_set
+    return av1_obu(AV1_OBU_FRAME, b.align_zero().bytes() + b"\x00" * 8)
+
+
+def av1_still(w: int = 64, h: int = 48) -> Tuple[bytes, bytes]:
+    """(a temporal unit: temporal delimiter, sequence header, frame; the
+    ``av1C`` record carrying the sequence header: Matroska's
+    ``CodecPrivate`` of ``V_AV1``)."""
+    seq = av1_sequence_header(w, h)
+    unit = av1_obu(AV1_OBU_TEMPORAL_DELIMITER, b"") + seq + av1_still_frame()
+    return unit, bytes([0x81, 0x00, 0x0C, 0x00]) + seq
+
+
+def write_av1_mkv(path: str, w: int = 64, h: int = 48) -> bytes:
+    """Write the AV1 still as Matroska (``V_AV1``, one block, its
+    temporal delimiter dropped as the format wants); returns the temporal
+    unit."""
+    unit, av1c = av1_still(w, h)
+    with open(path, "wb") as f:
+        f.write(mux_mkv("V_AV1", [(unit[2:], True)], (w, h),
+                        codec_private=av1c))
+    return unit
 
 
 # ---------------------------------------------------------------------------

@@ -15,13 +15,16 @@ of its users' files, frame for frame as cv2 gives them:
   or in Matroska (``demo/mkv.py``); VP9 (profile 0) in WebM, Matroska or
   MP4 (``vp09``): browser ``MediaRecorder``, OBS and most downloaded web
   video;
-- MPEG-1 / MPEG-2 video, MPEG-4 Part 2 and H.264 in MPEG transport
+- HEVC (Main: 8-bit 4:2:0) in MP4 / MOV (``hvc1``, ``hev1``: what
+  phones record), Matroska and MPEG-TS;
+- MPEG-1 / MPEG-2 video, MPEG-4 Part 2, H.264 and HEVC in MPEG transport
   streams, ``.ts`` and M2TS / AVCHD ``.mts`` (``demo/mpegts.py``, its
   frames split by libavcodec's parsers): IP and surveillance cameras,
-  HLS segments, broadcast captures, camcorders.  The rotation of the
-  track is honoured
-  as ``CAP_PROP_ORIENTATION_AUTO`` does; H.264 B pictures come in cv2's
-  order.  The packets are decoded on the host by FFmpeg's libavcodec
+  HLS segments, broadcast captures, camcorders; and in MPEG program
+  streams, ``.mpg`` and DVD ``.vob`` (``demo/mpegps.py``, the same
+  parsers).  The rotation of the track is honoured
+  as ``CAP_PROP_ORIENTATION_AUTO`` does; H.264 and HEVC pictures come in
+  cv2's order.  The packets are decoded on the host by FFmpeg's libavcodec
   from the OpenCV wheel (``native/avcodec.py``), the planes converted to
   BGR and turned on the card (``ops.kernels.yuv420_to_bgr``, cv2's
   arithmetic to the bit).  ``device="cpu"`` converts with the kernel's
@@ -29,9 +32,10 @@ of its users' files, frame for frame as cv2 gives them:
   opening such a file raises.
 
 Everything else is refused with an error that names the container or
-codec and ROADMAP.md queue 1 item 4: HEVC, AV1, VP9 of other profiles
-(10-bit), 4:2:2 and 4:4:4 video, laced Matroska blocks, edits of another
-media rate, MPEG program streams (``.mpg`` / ``.vob``, item 4g).
+codec and ROADMAP.md queue 1 item 4: AV1, VP9 of other profiles
+(10-bit), HEVC Main 10 and RExt (10-bit, 4:2:2, 4:4:4: item 4h), other
+4:2:2 and 4:4:4 video, laced Matroska blocks, edits of another media
+rate.
 
 :class:`VideoWriter` writes AVI: a ``hdrl`` list (the ``avih`` main
 header, one ``strl`` with the ``vids`` stream header and its
@@ -57,7 +61,7 @@ from typing import BinaryIO, Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..data.imwrite import JPEG_OPTIONS
-from . import mkv, mp4, mpegts
+from . import mkv, mp4, mpegps, mpegts
 
 WRITER_FOURCCS = ("XVID", "MJPG")
 AVIF_HASINDEX = 0x10
@@ -219,28 +223,31 @@ class VideoReader:
 
 
 class DecodedVideo:
-    """An H.264, MPEG-1/2, MPEG-4 Part 2 or VP9 stream of an MP4/MOV, AVI,
-    Matroska / WebM or MPEG-TS file, read as ``cv2.VideoCapture`` with
+    """An H.264, HEVC, MPEG-1/2, MPEG-4 Part 2 or VP9 stream of an
+    MP4/MOV, AVI, Matroska / WebM, MPEG-TS or MPEG program stream file,
+    read as ``cv2.VideoCapture`` with
     ``CAP_PROP_ORIENTATION_AUTO`` reads it: ``read()`` gives each frame
     in display order as ``(H, W, 3)`` uint8 BGR, turned by ``rotation``;
     ``fps``, ``size`` (w, h after the turn) and ``frame_count`` are
     cv2's.
 
     `read_track(path, file)` parses the container into a track (an
-    :class:`AviStream`, ``mkv.MkvTrack``, ``mpegts.TsTrack`` or
-    ``mp4.Track``: codec, fps, size (None: the first picture's),
+    :class:`AviStream`, ``mkv.MkvTrack``, ``mpegts.TsTrack``,
+    ``mpegps.PsTrack`` or ``mp4.Track``: codec, fps, size (None: the
+    first picture's),
     rotation, frame count, the pictures shown and ``packets``); without
     one the file is read as MP4/MOV.  The packets are demuxed on the
-    host (a transport stream's split into frames by libavcodec's parser),
+    host (a transport or program stream's split into frames by
+    libavcodec's parser),
     decoded there by libavcodec (an H.264 stream probed first, as
     libavformat probes it for cv2), and each picture's planes are
     copied to `device` and converted by ``ops.kernels.yuv420_to_bgr``
     (the plain version for ``"cpu"``).  The copy returns once the
     decoder's buffers have been read, before the next picture reuses
     them.  ``seconds`` sums the time of each step: ``demux`` (reading a
-    packet and, for H.264, its Annex-B form), ``parse`` (a transport
-    stream's parser), ``decode`` (libavcodec) and ``convert`` (copy up,
-    kernel, copy back)."""
+    packet and, for H.264 and HEVC, its Annex-B form), ``parse`` (a
+    transport or program stream's parser), ``decode`` (libavcodec) and
+    ``convert`` (copy up, kernel, copy back)."""
 
     def __init__(self, path: str, device="cuda", read_track=None):
         import torch
@@ -262,7 +269,8 @@ class DecodedVideo:
             # whether to show each picture the decoder gives, in order
             self._show = _shown_flags(track.shown)
             self._packets = track.packets(self._f)
-            # a parsing demuxer (MPEG-TS) times its parser apart
+            # a parsing demuxer (MPEG-TS, program streams) times its
+            # parser apart
             self._parsed = getattr(track, "seconds", None)
             if self._parsed is not None:
                 self.seconds["parse"] = 0.0
@@ -274,8 +282,8 @@ class DecodedVideo:
                     f"for tests)")
             t0 = time.perf_counter()
             self._decoder = Decoder(self.codec)
-            # as libavformat does for cv2 (in MPEG-TS too); MPEG-1/2
-            # decoders reorder from the first picture and need no probe
+            # as libavformat does for cv2 (in MPEG-TS too); MPEG-1/2 and
+            # HEVC decoders reorder from the first picture: no probe
             if self.codec == "h264":
                 probe = track.packets(self._f)
                 try:
@@ -367,7 +375,8 @@ def open_video(path: str, device="cuda"):
     """Open a video file for reading (``cv2.VideoCapture``'s place in the
     JAX demo): a :class:`VideoReader` for Motion-JPEG AVI, a
     :class:`DecodedVideo` for the rest (MP4/MOV, AVI, Matroska / WebM,
-    MPEG-TS), which converts its frames on `device`.  Raises
+    MPEG-TS, MPEG program streams), which converts its frames on
+    `device`.  Raises
     FileNotFoundError
     for a missing file and ValueError, naming the container or codec and
     ROADMAP.md queue 1 item 4, for anything else."""
@@ -384,10 +393,9 @@ def open_video(path: str, device="cuda"):
         return DecodedVideo(path, device, mkv.read_track)
     if mpegts.is_mpegts(head):
         return DecodedVideo(path, device, mpegts.read_track)
-    if head[:4] == b"\x00\x00\x01\xba":
-        what = ("an MPEG program stream (.mpg / .vob: ROADMAP.md queue 1 "
-                "item 4g)")
-    elif head[:4] == b"RIFF":
+    if mpegps.is_program_stream(head):
+        return DecodedVideo(path, device, mpegps.read_track)
+    if head[:4] == b"RIFF":
         what = f"a RIFF {head[8:12]!r} file, not AVI"
     else:
         what = f"an unknown container (starts with {head[:12]!r})"

@@ -1,8 +1,9 @@
-"""H.264, MPEG-1 / MPEG-2 video, MPEG-4 Part 2 and VP9 decoding on the host
+"""H.264, HEVC, MPEG-1 / MPEG-2 video, MPEG-4 Part 2 and VP9 decoding on the host
 through FFmpeg's ``libavcodec``, the one that the machine's OpenCV wheel
 bundles, loaded by path with ctypes (as ``native/imgpipe.py`` links
 Pillow's libjpeg); and libavcodec's parsers, which split an elementary
-stream into frames where the container does not (MPEG-TS).
+stream into frames where the container does not (MPEG-TS, MPEG program
+streams).
 
 Why the host: the card's machine mounts the driver's NVDEC library
 (``libnvcuvid.so.1``, driver 580.159.03), but every call of it fails
@@ -20,6 +21,7 @@ of ``AVFrame`` its ``data``, ``linesize``, ``width``, ``height`` and
 ``format``, whose places have not moved since FFmpeg 4.  The parsers
 (:class:`Parser`) take ``avcodec_descriptor_get_by_name`` (of whose
 ``AVCodecDescriptor`` only the leading ``id`` is read),
+``av_get_pix_fmt_name`` (what names a pixel format that is refused),
 ``av_parser_init``, ``av_parser_parse2`` and ``av_parser_close``, all
 unchanged since FFmpeg 0.x; no field of ``AVCodecParserContext`` is
 read.  Packets go in
@@ -28,9 +30,13 @@ the stream; MPEG-4 with its VOL headers ahead of the first frame), so no
 field of the codec context is set either.  Frames come out in display
 order; an H.264 stream is first probed (:meth:`Decoder.probe`) as
 libavformat probes it for cv2, so that a stream whose SPS states no
-reorder delay gives its B pictures as cv2 does.  MPEG-1 and MPEG-2
-streams need no probe: their decoder reorders its B pictures from the
-first, whatever came before.  Nothing is loaded at import; without the
+reorder delay gives its B pictures as cv2 does.  MPEG-1, MPEG-2 and HEVC
+streams need no probe: MPEG-1/2 decoders reorder their B pictures from
+the first, whatever came before, and an HEVC SPS always states its
+reorder delay (``sps_max_num_reorder_pics``), which the decoder follows.
+Only 8-bit 4:2:0 frames are taken; HEVC Main 10 and RExt frames
+(``yuv420p10le``, ``yuv422p``, ...) are refused by name (ROADMAP.md
+item 4h), as is any other format.  Nothing is loaded at import; without the
 library the first decoder or parser raises, naming where it looked.
 """
 
@@ -46,11 +52,11 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-CODECS = ("h264", "mpeg4", "vp9", "mpeg1video", "mpeg2video")
+CODECS = ("h264", "hevc", "mpeg4", "vp9", "mpeg1video", "mpeg2video")
 # libavcodec's parsers, by the decoder they split a stream for: the
 # ``mpegvideo`` parser serves both MPEG-1 and MPEG-2
 PARSERS = {"mpeg1video": "mpegvideo", "mpeg2video": "mpegvideo",
-           "mpeg4": "mpeg4video", "h264": "h264"}
+           "mpeg4": "mpeg4video", "h264": "h264", "hevc": "hevc"}
 AV_PIX_FMT_YUV420P = 0
 AV_PIX_FMT_YUV422P = 4
 AV_PIX_FMT_YUV444P = 5
@@ -141,6 +147,7 @@ class _Libraries:
                 (self.avcodec, "av_packet_free", None, [P]),
                 (self.avutil, "av_frame_alloc", P, []),
                 (self.avutil, "av_frame_free", None, [P]),
+                (self.avutil, "av_get_pix_fmt_name", ctypes.c_char_p, [I]),
                 (self.avutil, "av_strerror", I,
                  [I, ctypes.c_char_p, ctypes.c_size_t])):
             fn = getattr(lib, name)
@@ -178,9 +185,9 @@ class Decoder:
 
     def __init__(self, codec: str):
         if codec not in CODECS:
-            raise ValueError(f"no decoder for {codec!r}: H.264, MPEG-1/2 "
-                             f"video, MPEG-4 Part 2 and VP9 are read "
-                             f"(ROADMAP.md queue 1 item 4)")
+            raise ValueError(f"no decoder for {codec!r}: H.264, HEVC, "
+                             f"MPEG-1/2 video, MPEG-4 Part 2 and VP9 are "
+                             f"read (ROADMAP.md queue 1 item 4)")
         self.codec = codec
         self._libs = libs = libraries()
         self._ctx = self._packet = self._frame = None
@@ -230,10 +237,13 @@ class Decoder:
     def _planes(self):
         f = _Frame.from_address(self._frame.value)
         if f.format != AV_PIX_FMT_YUV420P:
+            name = self._libs.avutil.av_get_pix_fmt_name(f.format)
+            name = name.decode() if name else f"pixel format {f.format}"
             what = {AV_PIX_FMT_YUVJ420P: "full-range 4:2:0 (yuvj420p)",
                     AV_PIX_FMT_YUV422P: "4:2:2 (yuv422p)",
-                    AV_PIX_FMT_YUV444P: "4:4:4 (yuv444p)"}.get(
-                f.format, f"pixel format {f.format}")
+                    AV_PIX_FMT_YUV444P: "4:4:4 (yuv444p)"}.get(f.format, name)
+            if self.codec == "hevc":
+                what += " (HEVC Main 10 / RExt: item 4h)"
             raise ValueError(f"{self.codec} frames in {what}: only "
                              f"limited-range 8-bit 4:2:0 (yuv420p) is read "
                              f"(ROADMAP.md queue 1 item 4)")
@@ -295,9 +305,10 @@ AV_NOPTS_VALUE = -(1 << 63)
 
 class Parser:
     """libavcodec's parser for `codec` (a key of :data:`PARSERS`): the
-    ``mpegvideo``, ``mpeg4video`` or ``h264`` parser, which libavformat
-    runs over a stream whose packets are not frames (``need_parsing``,
-    MPEG-TS's elementary streams).  :meth:`parse` takes the next bytes of
+    ``mpegvideo``, ``mpeg4video``, ``h264`` or ``hevc`` parser, which
+    libavformat runs over a stream whose packets are not frames
+    (``need_parsing``, the elementary streams of MPEG-TS and MPEG program
+    streams).  :meth:`parse` takes the next bytes of
     the stream and gives the frames they complete; :meth:`flush` gives
     the last.  A frame is bytes as the decoder takes it (the parser keeps
     every start code and header of the stream)."""
@@ -305,7 +316,8 @@ class Parser:
     def __init__(self, codec: str):
         if codec not in PARSERS:
             raise ValueError(f"no parser for {codec!r}: the MPEG-1/2, "
-                             f"MPEG-4 Part 2 and H.264 parsers are used")
+                             f"MPEG-4 Part 2, H.264 and HEVC parsers are "
+                             f"used")
         self.codec = codec
         self._libs = libs = libraries()
         self._ctx = self._avctx = None

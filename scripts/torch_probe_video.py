@@ -7,13 +7,20 @@
   the decoders, whether 640x480 fits).
 - The host: the FFmpeg ``libavcodec`` the OpenCV wheel bundles
   (``rtpose_tpu_torch/native/avcodec.py``, the route the reader takes):
-  its path, whether it opens the H.264, MPEG-4, VP9, MPEG-1 and MPEG-2
-  decoders (and the HEVC and AV1 decoders the reader still refuses),
-  whether the ``mpegvideo``, ``mpeg4video`` and ``h264`` parsers
-  initialise, and the libavcodec, libavutil and libswscale versions; and what the XVID
-  writer needs (``rtpose_tpu_torch/native/avencode.py``): the ``mpeg4``
-  encoder, its options (``av_opt_find``), ``sws_getContext`` and an
-  encoder that opens.
+  its path, whether it opens the H.264, HEVC, MPEG-4, VP9, MPEG-1 and
+  MPEG-2 decoders (and the AV1 decoder the reader still refuses),
+  whether the ``mpegvideo``, ``mpeg4video``, ``h264`` and ``hevc``
+  parsers initialise, and the libavcodec, libavutil and libswscale
+  versions; and what the XVID writer needs
+  (``rtpose_tpu_torch/native/avencode.py``): the ``mpeg4`` encoder, its
+  options (``av_opt_find``), ``sws_getContext`` and an encoder that
+  opens.
+- AV1 (ROADMAP.md item 4f): every AV1 decoder the wheel's libavcodec
+  registers (``av_codec_iterate``), what each makes of a scripted AV1
+  still (``demo/scripted_video.py`` ``av1_still``: a temporal delimiter,
+  a reduced still picture sequence header and a frame), and what the
+  machine's cv2 reads of it in Matroska (``V_AV1``), where cv2 is
+  installed.
 
     python3 scripts/torch_probe_video.py
 
@@ -104,9 +111,9 @@ def probe_host() -> dict:
     return out
 
 
-# decoders the reader refuses, probed so that ROADMAP.md items 4e (HEVC)
-# and 4f (AV1) start from what the machine's library has
-UNREAD_DECODERS = ("hevc", "av1")
+# decoders the reader refuses, probed so that ROADMAP.md item 4f (AV1)
+# starts from what the machine's library has
+UNREAD_DECODERS = ("av1",)
 
 
 def _opens(libs, name: str) -> str:
@@ -164,9 +171,93 @@ def probe_writer() -> dict:
     return out
 
 
+class _Codec(ctypes.Structure):
+    """AVCodec's leading fields (unmoved since FFmpeg 0.x)."""
+    _fields_ = [("name", ctypes.c_char_p), ("long_name", ctypes.c_char_p),
+                ("type", ctypes.c_int), ("id", ctypes.c_int)]
+
+
+def _decode_once(libs, codec: int, data: bytes) -> str:
+    """What decoder `codec` (an AVCodec pointer) makes of one packet."""
+    from rtpose_tpu_torch.native import avcodec
+    av, au = libs.avcodec, libs.avutil
+    ctx = ctypes.c_void_p(av.avcodec_alloc_context3(codec))
+    packet = ctypes.c_void_p(av.av_packet_alloc())
+    frame = ctypes.c_void_p(au.av_frame_alloc())
+    try:
+        err = av.avcodec_open2(ctx, codec, None)
+        if err < 0:
+            return f"avcodec_open2: {libs.error(err)}"
+        buf = ctypes.create_string_buffer(data, len(data))
+        pkt = avcodec._Packet.from_address(packet.value)
+        pkt.data, pkt.size, pkt.flags = ctypes.addressof(buf), len(data), 1
+        sent = av.avcodec_send_packet(ctx, packet)
+        pkt.data, pkt.size = None, 0
+        av.avcodec_send_packet(ctx, None)
+        got = av.avcodec_receive_frame(ctx, frame)
+        if got >= 0:
+            f = avcodec._Frame.from_address(frame.value)
+            return f"decoded a {f.width}x{f.height} frame (format {f.format})"
+        return (f"send: {libs.error(sent) if sent < 0 else 'ok'}; receive: "
+                f"{libs.error(got)}")
+    finally:
+        au.av_frame_free(ctypes.byref(frame))
+        av.av_packet_free(ctypes.byref(packet))
+        av.avcodec_free_context(ctypes.byref(ctx))
+
+
+def probe_av1() -> dict:
+    """ROADMAP.md item 4f: the wheel's AV1 decoders, each one's result on
+    a scripted AV1 still, and cv2's read of it in Matroska."""
+    import tempfile
+
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.native import avcodec
+    try:
+        libs = avcodec.libraries()
+    except (RuntimeError, OSError) as e:
+        return {"error": str(e)}
+    av = libs.avcodec
+    av.av_codec_iterate.restype = ctypes.c_void_p
+    av.av_codec_iterate.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+    av.av_codec_is_decoder.argtypes = [ctypes.c_void_p]
+    av1_id = ctypes.c_int.from_address(
+        av.avcodec_descriptor_get_by_name(b"av1")).value
+    unit, _ = sv.av1_still()
+    out = {"decoders": {}}
+    opaque = ctypes.c_void_p()
+    while True:
+        codec = av.av_codec_iterate(ctypes.byref(opaque))
+        if not codec:
+            break
+        c = _Codec.from_address(codec)
+        if c.id == av1_id and av.av_codec_is_decoder(codec):
+            out["decoders"][c.name.decode()] = _decode_once(libs, codec,
+                                                            unit)
+    try:
+        import cv2
+    except ImportError:
+        out["cv2"] = "no cv2 on this machine"
+        return out
+    build = os.path.join(ROOT, "rtpose_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        path = os.path.join(work, "av1.mkv")
+        sv.write_av1_mkv(path)
+        cap = cv2.VideoCapture(path)
+        frames = 0
+        while cap.isOpened() and cap.read()[0]:
+            frames += 1
+        out["cv2"] = {"version": cv2.__version__, "opened": cap.isOpened(),
+                      "frames_read": frames}
+        cap.release()
+    return out
+
+
 def probe() -> dict:
     return {"nvdec": probe_nvdec(), "libavcodec": probe_host(),
-            "writer": probe_writer()}
+            "writer": probe_writer(), "av1": probe_av1()}
 
 
 if __name__ == "__main__":

@@ -1269,17 +1269,134 @@ def test_transport_streams_of_the_cards_cv2(cuda, tmp_path, name, fourcc):
 
 
 @pytest.mark.gpu
+def test_hevc_file_on_card_equals_the_written_pictures(cuda, tmp_path):
+    """PCM HEVC at 480x640 (P-skip repeats, an IDR every 3): the card
+    machine's libavcodec gives the written planes exactly, and open_video
+    of the hvc1 MP4 gives their plain conversion, once a frame."""
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo.video_io import open_video
+    from rtpose_tpu_torch.native import avcodec
+    h, w = 480, 640
+    seq, shown = _ipcm_sequence(h, w)
+    stream = sv.encode_hevc_pcm(seq, key_every=3)
+    decoder, parser = avcodec.Decoder("hevc"), avcodec.Parser("hevc")
+    got = []
+    for frame in parser.parse(sv.hevc_annexb(stream)) + parser.flush():
+        got += [(y[:, :w].copy(), u[:, :w // 2].copy(),
+                 v[:, :w // 2].copy()) for y, u, v, _ in
+                decoder.decode(frame)]
+    got += [(y[:, :w].copy(), u[:, :w // 2].copy(), v[:, :w // 2].copy())
+            for y, u, v, _ in decoder.flush()]
+    decoder.close()
+    parser.close()
+    assert len(got) == len(shown)
+    for g, p in zip(got, shown):
+        for a, b in zip(g, p):
+            np.testing.assert_array_equal(a, b)
+    path = str(tmp_path / "v.mp4")
+    sv.write_hevc_mp4(path, stream)
+    kernels.reset_launch_counts()
+    cap = open_video(path, device=cuda)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    assert kernels.launch_counts()["yuv420_to_bgr"] == len(shown)
+    assert cap.codec == "hevc" and len(frames) == len(shown)
+    for frame, planes in zip(frames, shown):
+        want = kernels.yuv420_to_bgr_plain(*map(torch.from_numpy, planes),
+                                           width=w)
+        np.testing.assert_array_equal(frame, want.numpy())
+
+
+HEVC_PS_FILES = ["hvc1.mp4", "hev1.mp4", "hevc.mkv", "hevc.ts", "hevc.m2ts",
+                 "hevc_reordered.mp4", "hevc_cropped.mkv", "mpeg4.mpg",
+                 "mpeg1.mpg", "mpeg2.mpg", "mpeg4.vob", "h264.mpg",
+                 "h264_psm.mpg", "hevc.mpg", "hevc_psm.vob"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", HEVC_PS_FILES)
+def test_hevc_and_program_streams_of_the_cards_cv2(cuda, tmp_path, name):
+    """HEVC in MP4 (hvc1, hev1), Matroska and TS / M2TS, reordered and
+    cropped; the card machine's cv2's own .mpg (MPEG-4, MPEG-1, MPEG-2)
+    and .vob; I_PCM H.264 and PCM HEVC program streams with and without a
+    map: open_video on the card gives that cv2's frames, fps and frame
+    count, the conversion once a frame."""
+    cv2 = pytest.importorskip("cv2")
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo.video_io import open_video
+    path = str(tmp_path / name)
+    stem, ext = name.split(".")
+    seq, _ = _ipcm_sequence(96, 128)
+    if stem in ("mpeg4", "mpeg1", "mpeg2"):
+        sv.write_cv2_video(path, {"mpeg4": "mp4v", "mpeg1": "PIM1",
+                                  "mpeg2": "MPG2"}[stem], 12, 96, 128,
+                           fps=25.0)
+    elif stem.startswith("h264"):
+        sv.write_ipcm_ps(path, seq, key_every=3, psm="psm" in stem)
+    else:
+        if "reordered" in stem:
+            stream = sv.encode_hevc_pcm(sv.yuv_frames(7, 96, 128),
+                                        reorder=True)
+        elif "cropped" in stem:
+            stream = sv.encode_hevc_pcm(sv.yuv_frames(4, 90, 60))
+        else:
+            stream = sv.encode_hevc_pcm(seq, key_every=3)
+        if ext == "mp4":
+            sv.write_hevc_mp4(path, stream, kind=stem[:4]
+                              if stem[:4] in ("hvc1", "hev1") else "hvc1")
+        elif ext == "mkv":
+            sv.write_hevc_mkv(path, stream)
+        elif ext in ("ts", "m2ts"):
+            sv.write_hevc_ts(path, stream, packet_size=188 if ext == "ts"
+                             else 192)
+        else:
+            sv.write_hevc_ps(path, stream, psm="psm" in stem,
+                             dvd=ext == "vob")
+    cap = cv2.VideoCapture(path)
+    count, fps = int(cap.get(cv2.CAP_PROP_FRAME_COUNT)), cap.get(
+        cv2.CAP_PROP_FPS)
+    want = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        want.append(frame)
+    kernels.reset_launch_counts()
+    ours = open_video(path, device=cuda)
+    got = []
+    while True:
+        ok, frame = ours.read()
+        if not ok:
+            break
+        got.append(frame)
+    ours.release()
+    assert len(got) == len(want) > 0
+    assert (ours.frame_count, ours.fps) == (count, fps)
+    assert kernels.launch_counts()["yuv420_to_bgr"] == len(got)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
 def test_video_route_probe_and_no_quiet_fallback(cuda, tmp_path,
                                                  monkeypatch):
-    """The probe names both routes; without libavcodec an H.264 open
-    raises instead of taking another decoder."""
+    """The probe names both routes and the hevc decoder and parser (and
+    what reads AV1); without libavcodec an H.264 open raises instead of
+    taking another decoder."""
     from rtpose_tpu_torch.demo import scripted_video as sv
     from rtpose_tpu_torch.demo.video_io import open_video
     from rtpose_tpu_torch.native import avcodec
     probe = _workflow_script("torch_probe_video").probe()
     print(json.dumps(probe))
     assert probe["libavcodec"]["h264"] == probe["libavcodec"]["mpeg4"] \
-        == "opens"
+        == probe["libavcodec"]["hevc"] == "opens"
+    assert probe["libavcodec"]["parsers"]["hevc"] == "hevc initialises"
+    assert "decoders" in probe["av1"]
     assert "library" in probe["nvdec"]
     path = str(tmp_path / "v.mp4")
     sv.write_ipcm_mp4(path, _ipcm_sequence(48, 64)[0])

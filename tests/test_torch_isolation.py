@@ -3,7 +3,8 @@ of the JAX package, serves, takes a train step, builds and runs every
 model family, trains a BatchNorm family, draws a loader batch in a worker
 process and a native loader batch, rotates a sample, answers the
 training CLI's --help, runs the picture and video demos, reads an H.264
-MP4 and answers an HTTP request without them, runs the webcam loop over a
+MP4, an H.264 TS and an HEVC program stream and answers an HTTP request
+without them, runs the webcam loop over a
 scripted camera and serves its browser view, imports the workflow
 scripts (scripts/torch_*.py), renders a scene and soaks the decode without
 them, and its
@@ -141,6 +142,13 @@ with tempfile.TemporaryDirectory() as root:
     while ts_cap.read()[0]:
         mp4_frames.append(list(ts_cap.size))
     ts_cap.release()
+    hevc = scripted_video.encode_hevc_pcm(
+        [scripted_video.bgr_to_yuv420(frame)] * 2 + [None])
+    scripted_video.write_hevc_ps(root + "/in.mpg", hevc, mpeg2=False)
+    ps_cap = open_video(root + "/in.mpg", device="cpu")
+    while ps_cap.read()[0]:
+        mp4_frames.append([ps_cap.codec] + list(ps_cap.size))
+    ps_cap.release()
     server = serve_http.serve(pipe, host="127.0.0.1", port=0)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
@@ -242,7 +250,8 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
                 "parallel.sharding", "demo.web_demo", "demo.camera",
                 "demo.frame_view", "demo.scripted_camera",
                 "utils.text_glyphs", "demo.mp4", "demo.scripted_video",
-                "native.avcodec", "demo.mkv", "demo.mpegts"):
+                "native.avcodec", "demo.mkv", "demo.mpegts",
+                "demo.mpegps"):
         assert f"rtpose_tpu_torch.{mod}" in res["modules"], mod
     assert res["eval_ap"] == 1.0
     assert res["train_loss"] > 0 and np.isfinite(res["train_loss"])
@@ -261,7 +270,8 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
                              "mask": [2, 8, 8, 1], "image_id": [2]}
     assert res["video"] == [3, 3]
     # turned by its tag; then the sizes of an M2TS's three frames
-    assert res["mp4"] == [[80, 60, 3]] * 3 + [[80, 60]] * 3
+    assert res["mp4"] == [[80, 60, 3]] * 3 + [[80, 60]] * 3 + [
+        ["hevc", 80, 60]] * 3
     assert res["http"] == [200, [60, 80]]
     assert res["webcam"] == [3, 200, True]
     assert res["native"] == {

@@ -17,9 +17,10 @@ libavcodec's parsers, ``native/avcodec.py`` ``Parser``) against cv2 5.0
 - a lost packet (a continuity counter that skips), mid-PES, at a PES
   start and at the end, and stray bytes between packets: logged, and
   read as cv2 reads it;
-- refusals: HEVC (stream type 0x24), a private stream only, a PMT with no
-  video, no PAT, an MPEG program stream, MPEG-2 4:2:2; each names what
-  it refuses and ROADMAP.md item 4;
+- refusals: VVC (stream type 0x33), HEVC Main 10, a private stream only,
+  a PMT with no video, no PAT, an MPEG program stream with no video,
+  MPEG-2 4:2:2; each names what it refuses and ROADMAP.md item 4 (HEVC
+  in TS is read: tests/test_torch_hevc.py);
 - the parser splits a stream fed in pieces of any size into the same
   frames; CRC, packet size and timestamp unwrapping as FFmpeg's.
 
@@ -264,24 +265,31 @@ def _no_video_pmt(tmp_path, stream_type):
 
 
 @pytest.mark.parametrize("kind,error", [
-    ("hevc", r"HEVC \(item 4e\) video in MPEG-TS \(stream type 0x24\)"),
+    ("vvc", r"VVC video in MPEG-TS \(stream type 0x33\)"),
+    ("hevc_main10", r"hevc frames in yuv420p10le \(HEVC Main 10 / RExt: "
+                    r"item 4h\)"),
     ("private", r"only candidate for video is a private data stream "
                 r"\(stream type 0x06\)"),
     ("audio_only", r"an MPEG-TS program with no video stream"),
     ("no_pat", r"an MPEG-TS stream with no PAT"),
-    ("program_stream", r"an MPEG program stream .*item 4g"),
+    ("program_stream", r"an MPEG program stream with no video stream"),
     ("mpeg2_422", r"mpeg2video frames in 4:2:2 \(yuv422p\)")])
 def test_ts_refusals_name_what_they_refuse(tmp_path, kind, error):
-    if kind == "hevc":
-        path = _ts_with(tmp_path, "hevc")
+    if kind == "vvc":
+        path = _no_video_pmt(tmp_path, 0x33)
+    elif kind == "hevc_main10":
+        path = tmp_path / "main10.ts"
+        sv.write_hevc_ts(str(path), sv.encode_hevc_pcm(
+            sv.yuv_frames(2, 48, 64), depth=10))
     elif kind in ("private", "audio_only"):
         path = _no_video_pmt(tmp_path, 0x06 if kind == "private" else 0x0F)
     elif kind == "no_pat":
         path = tmp_path / "nopat.ts"
         path.write_bytes((b"\x47\x40\x00\x10" + b"\xff" * 184) * 4)
-    elif kind == "program_stream":
+    elif kind == "program_stream":             # padding alone
         path = tmp_path / "v.mpg"
-        path.write_bytes(b"\x00\x00\x01\xba\x44" + b"\x00" * 200)
+        path.write_bytes(b"\x00\x00\x01\xba\x44" + b"\x00" * 9
+                         + b"\x00\x00\x01\xbe\x00\xc8" + b"\xff" * 200)
     else:
         path = mpeg2_422(tmp_path)
     with pytest.raises(ValueError, match=f"{error}.*item 4"):

@@ -9,19 +9,22 @@ package's video demo, on the CPU:
 - ``open_video`` reads ``cv2.VideoWriter(..., 'MJPG')`` files of both of
   cv2's writers, frame for frame equal to ``cv2.VideoCapture``'s frames
   (its Motion-JPEG backend), and refuses what it still does not read
-  (HEVC in MP4, Matroska or MPEG-TS, AV1, 10-bit VP9, laced Matroska
-  blocks, MPEG program streams, edits of another media rate, MPEG-2
-  4:2:2) with an error naming it and ROADMAP.md queue 1 item 4 (H.264
-  and MPEG-4 files: tests/test_torch_mp4.py; Matroska / WebM and VP9:
-  tests/test_torch_mkv.py; MPEG-TS: tests/test_torch_mpegts.py); what it
-  once refused (MPEG-TS, fragmented MP4, ``mvex``, a two-entry edit list)
+  (HEVC Main 10 in MP4, Matroska or MPEG-TS, AV1, 10-bit VP9, laced
+  Matroska blocks, edits of another media rate, MPEG-2 4:2:2) with an
+  error naming it and ROADMAP.md queue 1 item 4 (H.264 and MPEG-4 files:
+  tests/test_torch_mp4.py; Matroska / WebM and VP9:
+  tests/test_torch_mkv.py; MPEG-TS: tests/test_torch_mpegts.py; HEVC:
+  tests/test_torch_hevc.py; program streams: tests/test_torch_mpegps.py);
+  what it once refused (MPEG-TS, fragmented MP4, ``mvex``, a two-entry
+  edit list, HEVC in MP4, Matroska and MPEG-TS, an MPEG program stream)
   it reads as cv2 reads it;
 - the video demo's ``main()`` over an oracle-map pipeline finds, frame
   for frame, the people of the JAX video demo's ``main()`` over the same
   maps (part ids equal, pixel coordinates within 1e-4, scores within
-  1e-5) on a Motion-JPEG AVI and on cv2's MPEG-2 TS, and writes an XVID
-  AVI of as many frames of the input's size, as the JAX demo does (the
-  packets: tests/test_torch_xvid.py).
+  1e-5) on a Motion-JPEG AVI, on cv2's MPEG-2 TS and on PCM HEVC in an
+  MP4 and a program stream, and writes an XVID AVI of as many frames of
+  the input's size, as the JAX demo does (the packets:
+  tests/test_torch_xvid.py).
 """
 
 import sys
@@ -151,10 +154,8 @@ def _still_refused(tmp_path, kind):
     path = str(tmp_path / f"{kind}.bin")
     if kind == "missing":
         return path
-    if kind in ("mkv_hevc", "mkv_av1", "mkv_laced", "webm_vp9_profile2",
-                "ebml_other"):
-        codec = {"mkv_hevc": "V_MPEGH/ISO/HEVC", "mkv_av1": "V_AV1"}.get(
-            kind, "V_VP9")
+    if kind in ("mkv_av1", "mkv_laced", "webm_vp9_profile2", "ebml_other"):
+        codec = "V_AV1" if kind == "mkv_av1" else "V_VP9"
         with open(sv.VP9_WEBM, "rb") as f:
             track = mkv.read_track(sv.VP9_WEBM, f)
             packets = [(d, k) for d, k in track.packets(f)][:3]
@@ -171,13 +172,15 @@ def _still_refused(tmp_path, kind):
             data = data[:at] + b"\x02" + data[at + 1:]
         if kind == "ebml_other":
             data = data.replace(b"matroska", b"mka-fake")
-    elif kind in ("ts_hevc", "mpeg2_422"):
-        from test_torch_mpegts import _ts_with, mpeg2_422
-        path = str(_ts_with(tmp_path, "hevc") if kind == "ts_hevc"
-                   else mpeg2_422(tmp_path))
+    elif kind == "mpeg2_422":
+        from test_torch_mpegts import mpeg2_422
+        return str(mpeg2_422(tmp_path))
+    elif kind.endswith("_main10"):             # HEVC Main 10: item 4h
+        stream = sv.encode_hevc_pcm(sv.yuv_frames(2, 48, 64), depth=10)
+        write = {"mp4": sv.write_hevc_mp4, "mkv": sv.write_hevc_mkv,
+                 "ts": sv.write_hevc_ts}[kind.split("_")[0]]
+        write(path, stream)
         return path
-    elif kind == "mpeg_ps":
-        data = b"\x00\x00\x01\xba\x44" + b"\x00" * 200
     elif kind == "wave":
         data = b"RIFF\x24\0\0\0WAVEfmt " + b"\0" * 32
     elif kind == "avi_wmv":
@@ -188,9 +191,8 @@ def _still_refused(tmp_path, kind):
         pics = sv.yuv_frames(2, 48, 64)
         sps, pps, units, keys = sv.encode_ipcm(pics)
         data = sv.mux_mp4(sps, pps, units, keys, (64, 48))
-        if kind in ("hvc1", "av01"):
-            data = data.replace(b"avc1", kind.encode()).replace(
-                b"avcC", {"hvc1": b"hvcC", "av01": b"av1C"}[kind])
+        if kind == "av01":
+            data = data.replace(b"avc1", b"av01").replace(b"avcC", b"av1C")
         elif kind == "vp09_10bit":
             data = sv.mux_mp4(sps, pps, [b"\x92\x49\x83\x42\x00"] * 2,
                               keys, (64, 48), entry=sv.vp09_entry(
@@ -206,28 +208,34 @@ def _still_refused(tmp_path, kind):
 
 
 @pytest.mark.parametrize("kind,error", [
-    ("mkv_hevc", "HEVC video .'V_MPEGH/ISO/HEVC' CodecID"),
     ("mkv_av1", "AV1 video .'V_AV1' CodecID"),
     ("mkv_laced", "laced video block"),
     ("webm_vp9_profile2", "VP9 profile 2 video"),
     ("vp09_10bit", "VP9 profile 2 video of 10 bits"),
     ("ebml_other", "DocType b'mka-fake'"),
-    ("ts_hevc", r"HEVC \(item 4e\) video in MPEG-TS"),
-    ("mpeg_ps", "MPEG program stream .*item 4g"),
-    ("hvc1", "HEVC video"), ("av01", "AV1 video"),
+    ("mp4_main10", r"HEVC of 10 bits, 4:2:0 \(Main 10 .*item 4h\) "
+                   r"\(hvc1 sample entry\)"),
+    ("mkv_main10", r"HEVC of 10 bits, 4:2:0 \(Main 10 .*item 4h\) "
+                   r"\(V_MPEGH/ISO/HEVC CodecPrivate\)"),
+    ("ts_main10", r"hevc frames in yuv420p10le \(HEVC Main 10 / RExt: "
+                  r"item 4h\)"),
+    ("av01", "AV1 video"),
     ("elst_rate2", "edit of media rate 2"),
     ("mpeg2_422", r"4:2:2 \(yuv422p\)"),
     ("no_moov", "no moov box"), ("wave", "not AVI"),
     ("avi_wmv", "AVI video codec b'WMV3'"), ("missing", None)])
 def test_open_video_refuses_other_containers(tmp_path, kind, error):
     """What the port still does not read (ROADMAP.md queue 1 item 4):
-    other containers (MPEG program streams, item 4g), other codecs (HEVC
-    and AV1 in Matroska, MP4 or MPEG-TS), VP9 of another profile than 0
-    (10-bit), MPEG-2 4:2:2, laced Matroska blocks, edits of another media
-    rate; each error names it and item 4.  XVID AVI and MP4 are read
+    other containers, other codecs (AV1 in Matroska or MP4), HEVC Main 10
+    in MP4, Matroska or MPEG-TS (item 4h: by its hvcC, or by the
+    decoder's first picture), VP9 of another profile than 0 (10-bit),
+    MPEG-2 4:2:2, laced Matroska blocks, edits of another media rate;
+    each error names it and item 4.  XVID AVI and MP4 are read
     (tests/test_torch_mp4.py), Matroska / WebM and VP9 too
     (tests/test_torch_mkv.py), MPEG-TS too (tests/test_torch_mpegts.py),
-    and what this list once held (test_open_video_reads_what_it_refused)."""
+    HEVC and program streams too (tests/test_torch_hevc.py,
+    tests/test_torch_mpegps.py), and what this list once held
+    (test_open_video_reads_what_it_refused)."""
     path = _still_refused(tmp_path, kind)
     if error is None:
         with pytest.raises(FileNotFoundError):
@@ -238,14 +246,25 @@ def test_open_video_refuses_other_containers(tmp_path, kind, error):
 
 
 def _once_refused(tmp_path, kind):
-    """A file of a kind the reader refused until item 4b / 4c: cv2's
-    MPEG-2 TS, a fragmented MP4 (a moof a sample), one with samples in
-    the moov and an mvex, an edit list of two entries."""
+    """A file of a kind the reader refused until item 4b / 4c / 4e / 4g:
+    cv2's MPEG-2 TS, a fragmented MP4 (a moof a sample), one with samples
+    in the moov and an mvex, an edit list of two entries; PCM HEVC in
+    Matroska, MPEG-TS and an hvc1 MP4; cv2's MPEG-4 ``.mpg`` (an MPEG
+    program stream)."""
     from test_torch_mpegts import _cv2_ts
 
     from rtpose_tpu_torch.demo import scripted_video as sv
     if kind == "mpegts":
         return str(_cv2_ts(tmp_path / "v.ts", "MPG2", 9))
+    if kind == "mpeg_ps":
+        return str(_cv2_ts(tmp_path / "v.mpg", "mp4v", 9))
+    if kind in ("mkv_hevc", "ts_hevc", "hvc1"):
+        path = str(tmp_path / f"{kind}.bin")
+        write = {"mkv_hevc": sv.write_hevc_mkv, "ts_hevc": sv.write_hevc_ts,
+                 "hvc1": sv.write_hevc_mp4}[kind]
+        write(path, sv.encode_hevc_pcm(sv.yuv_frames(5, 48, 64),
+                                       key_every=3))
+        return path
     pics = sv.yuv_frames(6, 48, 64)
     sps, pps, units, keys = sv.encode_ipcm(pics, key_every=3)
     if kind == "elst2":
@@ -259,11 +278,13 @@ def _once_refused(tmp_path, kind):
     return str(path)
 
 
-@pytest.mark.parametrize("kind", ["mpegts", "fragmented", "mvex", "elst2"])
+@pytest.mark.parametrize("kind", ["mpegts", "fragmented", "mvex", "elst2",
+                                  "mkv_hevc", "ts_hevc", "mpeg_ps", "hvc1"])
 def test_open_video_reads_what_it_refused(tmp_path, kind):
     """MPEG-TS (item 4b), fragmented MP4 and edit lists of several
-    entries (item 4c), once refused by name, read frame for frame as cv2
-    reads them, with cv2's fps and frame count."""
+    entries (item 4c), HEVC in Matroska, MPEG-TS and MP4 (item 4e) and
+    MPEG program streams (item 4g), once refused by name, read frame for
+    frame as cv2 reads them, with cv2's fps and frame count."""
     path = _once_refused(tmp_path, kind)
     want, (count, fps) = _read_cv2(path)
     got, cap = _read_port(path)
@@ -306,23 +327,33 @@ def _recording(module, calls):
     return draw
 
 
-@pytest.mark.parametrize("container", ["avi", "mpeg2_ts"])
+@pytest.mark.parametrize("container", ["avi", "mpeg2_ts", "hevc_mp4",
+                                       "hevc_ps"])
 def test_video_demo_people_equal_the_jax_video_demo(tmp_path, monkeypatch,
                                                     capsys, container):
     """Seven 128x170 frames at --batch 3 (a tail batch of one) through both
     demos' ``main()`` over the same oracle maps (two people a frame): a
-    Motion-JPEG AVI of the port's writer, and cv2's MPEG-2 TS (the port
-    reads it with its TS demuxer, libavcodec's parser and decoder, the JAX
-    demo with cv2)."""
+    Motion-JPEG AVI of the port's writer, cv2's MPEG-2 TS, and PCM HEVC in
+    an hvc1 MP4 and in an MPEG program stream (the port reads them with
+    its demuxers, libavcodec's parsers and decoders, the JAX demo with
+    cv2)."""
     rng = np.random.RandomState(0)
     maps = oracle_maps({(128, 170): spread_people(rng, 2, 128, 170)}, SIZE)
     if container == "avi":
         video = str(tmp_path / "in.avi")
         _write(video, _frames(7, 128, 170), fps=15.0)
-    else:
+    elif container == "mpeg2_ts":
         from test_torch_mpegts import _cv2_ts
         video = str(_cv2_ts(tmp_path / "in.ts", "MPG2", 7, 25.0, 128, 170))
         assert open_video(video, device="cpu").codec == "mpeg2video"
+    else:
+        from rtpose_tpu_torch.demo import scripted_video as sv
+        video = str(tmp_path / "in.bin")
+        stream = sv.encode_hevc_pcm([sv.bgr_to_yuv420(f) for f in _frames(
+            7, 128, 170)], key_every=4)
+        (sv.write_hevc_mp4 if container == "hevc_mp4" else sv.write_hevc_ps)(
+            video, stream)
+        assert open_video(video, device="cpu").codec == "hevc"
     tpipe = PosePipeline(OracleMaps(maps), device="cpu", input_size=SIZE,
                          flip=False)
     jpipe = jpipeline.PosePipeline(JaxOracle(maps), {}, input_size=SIZE,
