@@ -3194,17 +3194,30 @@ def video_files_phase(dev, smi: str):
       without a map: frames 0 pixels from cv2's, fps and count cv2's;
     - the flagship video demo on a 64-frame 480x640 PCM HEVC MP4, writing
       XVID (its launches are the phase's);
+    - colour (items 4h, 4i): the probe's colour part (the codec context's
+      options, what the decoder settles and how this machine's cv2
+      converts each fixture); ``yuv420_to_bgr`` with each (matrix, range)'s
+      constants and ``yuv420p10_to_bgr`` against their plain versions at
+      four turns on 480x640 planes, error 0, the 10-bit kernel timed with
+      its bound; small fixtures that state their colour (H.264 and HEVC
+      VUI in MP4, Matroska and TS, ``colr`` / ``Colour`` with and without
+      a VUI, the two disagreeing; PCM HEVC Main 10, H.264 High 10, VP9
+      profile 2) read on the card: equal to the CPU's frames, and to this
+      machine's cv2 where the probe found it converting by the same rule
+      (else its largest difference printed); the flagship video demo on a
+      64-frame 480x640 PCM HEVC Main 10 MP4 tagged BT.2020 (matrix 9)
+      limited range, its launches the 10-bit row's;
     - an open without the library, and one without a card, raise.
 
     -> ({kernel: launches in the HEVC MP4 demo run}, numbers, the
-    conversion's kernel row)."""
+    conversion's kernel row, the 10-bit conversion's kernel row)."""
     import contextlib
     import io
     import tempfile
 
     import torch
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    from torch_probe_video import probe
+    from torch_probe_video import colour_fixtures, probe
     from rtpose_tpu_torch.data.imread_fixtures import render_scene
     from rtpose_tpu_torch.demo import mp4, video_demo, video_io
     from rtpose_tpu_torch.demo import scripted_video as sv
@@ -3234,6 +3247,25 @@ def video_files_phase(dev, smi: str):
           and all(writer_probe.get("options", {}).values()),
           f"video files: the XVID writer's mpeg4 encoder, options or "
           f"swscale are missing: {writer_probe}")
+    colour_probe = numbers["probe"]["colour"]
+    check(colour_probe.get("options") and all(
+        colour_probe["options"].values()), f"video files: the codec "
+        f"context lacks a colour option the reader sets and reads: "
+        f"{colour_probe.get('options')} (libavutil "
+        f"{colour_probe.get('avutil_major')})")
+    # where this machine's cv2 converts each probe fixture by the port's
+    # rule (0 levels apart); the files below are held against cv2 there
+    cv2_follows = {name: entry.get("rule") == 0 for name, entry in
+                   colour_probe.get("files", {}).items()}
+    log(f"phase 16 (video files): colour probe: options "
+        f"{json.dumps(colour_probe.get('options'))}, libavutil "
+        f"{colour_probe.get('avutil_major')}, cv2 "
+        f"{colour_probe.get('cv2')}; cv2 vs the port's rule / BT.601 "
+        f"limited, max abs level: "
+        + json.dumps({k: [v.get("rule"), v.get("bt601"), v.get("centre"),
+                          v.get("nearest8"), v.get("error")]
+                      for k, v in colour_probe.get("files", {}).items()})
+        + f" [{smi}]")
     h, w = VIDEO_FILE_SHAPE
     work = tempfile.mkdtemp(dir=os.path.join(ROOT, "rtpose_tpu_torch",
                                              "build"))
@@ -3338,6 +3370,74 @@ def video_files_phase(dev, smi: str):
             f"{timing[0]['host_ms']:.4f} ms a call, plain "
             f"{timing[0]['plain_ms']:.4f} ms; bound {bound_ms:.5f} ms "
             f"({n_bytes} bytes) [{smi}]")
+
+        # the 8-bit kernel with each (matrix, range)'s constants, and the
+        # 10-bit kernel, against their plain versions on the CPU, 4 turns
+        planes_cpu = [p.cpu() for p in planes]
+        pairs = [(m, f) for m in (2, 1, 4, 7, 9) for f in (False, True)]
+        colour_errs, p10_errs = {}, {}
+        p10_cpu = [torch.from_numpy(np.ascontiguousarray(p))
+                   for p in sv.yuv_frames10(1, h, w, seed=19)[0]]
+        p10 = [p.to(dev) for p in p10_cpu]
+        for m, f in pairs:
+            rule = kernels.yuv_rule(m, f)
+            for rot in kernels.ROTATIONS:
+                k = kernels.yuv420_to_bgr(*planes, width=w, rotation=rot,
+                                          rule=rule).cpu()
+                p = kernels.yuv420_to_bgr_plain(*planes_cpu, width=w,
+                                                rotation=rot, rule=rule)
+                colour_errs[f"{m}{'F' if f else 'L'}{rot}"] = int(
+                    (k.int() - p.int()).abs().max())
+                k = kernels.yuv420p10_to_bgr(*p10, width=w, rotation=rot,
+                                             rule=rule).cpu()
+                p = kernels.yuv420p10_to_bgr_plain(*p10_cpu, width=w,
+                                                   rotation=rot, rule=rule)
+                p10_errs[f"{m}{'F' if f else 'L'}{rot}"] = int(
+                    (k.int() - p.int()).abs().max())
+        check(all(e <= YUV_KERNEL_TOL for e in colour_errs.values())
+              and all(e <= YUV_KERNEL_TOL for e in p10_errs.values()),
+              f"conversion kernels vs plain, by (matrix, range, turn): "
+              f"8-bit {colour_errs}, 10-bit {p10_errs}")
+        p10_timing = {}
+        rule = kernels.yuv_rule(9, False)
+        for rot in (0, 90):
+            def kernel():
+                return kernels.yuv420p10_to_bgr(*p10, width=w, rotation=rot,
+                                                rule=rule)
+
+            def plain():
+                return kernels.yuv420p10_to_bgr_plain(*p10, width=w,
+                                                      rotation=rot, rule=rule)
+            ms, plain_ms = paired_ms(kernel, plain, 20)
+            dev_ms, source = device_ms(kernel, "yuv420p10_to_bgr")
+            p10_timing[rot] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                                   device_ms_source=source,
+                                   host_ms=host_ms(kernel))
+        p10_bytes = h * w * 2 * 3 // 2 + h * w * 3
+        p10_bound_ms, p10_bound_by = bound(p10_bytes, 0)
+        p10_row = dict(
+            name="yuv420p10_to_bgr", route="cuda",
+            source="rtpose_tpu_torch/csrc/yuv420p10_to_bgr.cu",
+            replaces="none: the yuv420p10le -> bgr24 conversion (swscale's "
+                     "general path, SWS_BICUBIC) and turn inside "
+                     "cv2.VideoCapture (rtpose_tpu/demo/video_demo.py:19)",
+            replaces_kind="cv2/swscale; no Pallas kernel",
+            max_abs_err=max(p10_errs.values()),
+            max_abs_err_by_colour_and_rotation=p10_errs,
+            **p10_timing[0], rotation_90=p10_timing[90],
+            bound_ms=p10_bound_ms, bound_by=p10_bound_by, bytes=p10_bytes,
+            shape=[h, w], rule="BT.2020 limited, chroma left",
+            library_ms=None)
+        row["max_abs_err_by_colour_and_rotation"] = colour_errs
+        log(f"conversion kernels 480x640 == plain for every (matrix, range) "
+            f"at four turns: 8-bit max {max(colour_errs.values())}, 10-bit "
+            f"max {max(p10_errs.values())}; yuv420p10_to_bgr kernel "
+            f"{p10_timing[0]['ms']:.4f} ms (90: {p10_timing[90]['ms']:.4f}), "
+            f"device {p10_timing[0]['device_ms']:.4f} ms "
+            f"({p10_timing[0]['device_ms_source']}), host "
+            f"{p10_timing[0]['host_ms']:.4f} ms a call, plain "
+            f"{p10_timing[0]['plain_ms']:.4f} ms; bound "
+            f"{p10_bound_ms:.5f} ms ({p10_bytes} bytes) [{smi}]")
 
         # MPEG-4 Part 2 written by this machine's cv2 (the port has none)
         scenes = [np.ascontiguousarray(render_scene(1600 + i, h, w)[..., ::-1])
@@ -3594,6 +3694,39 @@ def video_files_phase(dev, smi: str):
         log(f"video files: HEVC and MPEG program streams against cv2 "
             f"{cv2.__version__}: {json.dumps(hevc_files)} [{smi}]")
 
+        # colour (items 4h, 4i): small fixtures that state their colour,
+        # read on the card == on the CPU, == cv2 where it keeps the rule
+        t0 = time.perf_counter()
+        colour_files = {}
+        colour_dir = os.path.join(work, "colour")
+        os.makedirs(colour_dir)
+        for name, path in colour_fixtures(colour_dir):
+            got, plain, want = [], [], []
+            for frames, cap in (
+                    (got, video_io.open_video(path, device=dev)),
+                    (plain, video_io.open_video(path, device="cpu")),
+                    (want, cv2.VideoCapture(path))):
+                frames += read_all(cap)
+                cap.release()
+            card_vs_cpu = max((int(np.abs(a.astype(np.int16) - b).max())
+                               for a, b in zip(got, plain)), default=-1)
+            vs_cv2 = max((int(np.abs(a.astype(np.int16) - b).max())
+                          for a, b in zip(got, want)), default=-1)
+            follows = cv2_follows.get(name, False)
+            colour_files[name] = {"frames": len(got), "cv2_frames": len(want),
+                                  "card_vs_cpu": card_vs_cpu,
+                                  "max_pixel_diff_vs_cv2": vs_cv2,
+                                  "cv2_keeps_the_rule": follows}
+            check(len(got) == len(plain) == len(want) > 0
+                  and card_vs_cpu == 0 and (vs_cv2 == 0 or not follows),
+                  f"video files: colour {name}: {colour_files[name]}")
+        colour_files["seconds"] = time.perf_counter() - t0
+        numbers["colour_files"] = colour_files
+        log(f"video files: colour fixtures on the card against the CPU and "
+            f"cv2 {cv2.__version__} (held against cv2 where it keeps the "
+            f"rule; otherwise its largest difference): "
+            f"{json.dumps(colour_files)} [{smi}]")
+
         # the XVID writer against this machine's cv2, and beside MJPG
         writer_frames = scenes[:16]
         cv2_path = os.path.join(work, "cv2_xvid.avi")
@@ -3697,9 +3830,10 @@ def video_files_phase(dev, smi: str):
             writers.append(video_io.VideoWriter(*args, **kw))
             return writers[-1]
 
-        def flagship_demo(video, codec, what):
+        def flagship_demo(video, codec, what, convert="yuv420_to_bgr"):
             """The flagship video demo on `video`, writing XVID: its
-            launches and numbers, its output against cv2."""
+            launches (the conversion `convert` once a frame) and numbers,
+            its output against cv2."""
             readers.clear()
             writers.clear()
             sys.argv = (["video_demo", "--video", video, "--output", out,
@@ -3719,7 +3853,7 @@ def video_files_phase(dev, smi: str):
                   and n == VIDEO_FILE_FRAMES and readers[0].codec == codec,
                   f"video files {what} demo: {text.getvalue()!r}")
             check(all(counts[k] >= batches for k in SERVING_KERNELS)
-                  and counts["yuv420_to_bgr"] == VIDEO_FILE_FRAMES
+                  and counts[convert] == VIDEO_FILE_FRAMES
                   and counts["gt_maps"] == 0,
                   f"video files {what} demo: K1, K3 and G not once a batch "
                   f"or the conversion not once a frame: {counts}")
@@ -3757,6 +3891,23 @@ def video_files_phase(dev, smi: str):
             fps_timescale=(12800, 640))
         counts, numbers["demo_hevc"] = flagship_demo(video, "hevc",
                                                      "PCM HEVC MP4")
+        # ... and on a 64-frame PCM HEVC Main 10 MP4 tagged BT.2020 (matrix
+        # 9) limited range, a phone's HDR clip's shape (item 4h)
+        rng = np.random.RandomState(10)
+        video = os.path.join(work, "in_main10.mp4")
+        sv.write_hevc_mp4(video, sv.encode_hevc_pcm(
+            [tuple((p.astype(np.uint16) << 2)
+                   | rng.randint(0, 4, p.shape).astype(np.uint16)
+                   for p in sv.bgr_to_yuv420(f)) for f in scenes],
+            key_every=16, depth=10, colour=sv.Colour(9)),
+            fps_timescale=(12800, 640))
+        p10_counts, numbers["demo_main10"] = flagship_demo(
+            video, "hevc", "PCM HEVC Main 10 MP4 (BT.2020 limited)",
+            convert="yuv420p10_to_bgr")
+        check(p10_counts["yuv420_to_bgr"] == 0, f"video files Main 10 demo: "
+              f"8-bit conversions launched: {p10_counts}")
+        p10_row.update(launches=p10_counts["yuv420p10_to_bgr"],
+                       video_file_launches=p10_counts["yuv420p10_to_bgr"])
 
         # the reader alone on a compressed stream of the same scenes
         if cv2 is not None:
@@ -3809,7 +3960,8 @@ def video_files_phase(dev, smi: str):
         shutil.rmtree(work, ignore_errors=True)
     numbers["phase_s"] = time.perf_counter() - t_phase
     for key, what in (("demo_mp4", "H.264 MP4"), ("demo", "MPEG-4 MKV"),
-                      ("demo_ts", "MPEG-2 TS"), ("demo_hevc", "HEVC MP4")):
+                      ("demo_ts", "MPEG-2 TS"), ("demo_hevc", "HEVC MP4"),
+                      ("demo_main10", "HEVC Main 10 MP4 (BT.2020)")):
         demo = numbers[key]
         log(f"phase 16 (video files): the flagship video demo on a "
             f"{VIDEO_FILE_FRAMES}-frame 480x640 {what} at --batch 8: "
@@ -3820,12 +3972,13 @@ def video_files_phase(dev, smi: str):
             f"{demo.get('write_ms_a_frame_total', 'not measured')} ms a "
             f"frame [{smi}]")
     log(f"phase 16: launches in the MKV demo {mkv_counts}, in the TS demo "
-        f"{ts_counts}, in the HEVC demo {counts} [{smi}]")
+        f"{ts_counts}, in the HEVC demo {counts}, in the Main 10 demo "
+        f"{p10_counts} [{smi}]")
     log(f"video files: I_PCM planes exact ({numbers['ipcm_exact']}), "
         f"rotations {rotated}; MPEG-4 {json.dumps(numbers['mpeg4'])}; "
         f"mp4v reader {json.dumps(numbers.get('mp4v_reader'))}; phase "
         f"{numbers['phase_s']:.1f} s")
-    return counts, numbers, row
+    return counts, numbers, row, p10_row
 
 
 def main() -> int:
@@ -4703,10 +4856,11 @@ def main() -> int:
     webcam_launches, webcam_numbers = webcam_phase(dev, smi)
 
     # 16. the video files: the route probe, libavcodec's planes of an I_PCM
-    # H.264 MP4 exact, the conversion kernel == plain at four turns, cv2's
-    # MPEG-4 files, TS, HEVC and program streams against cv2, the flagship
-    # video demo on 64-frame H.264 MP4, MPEG-4 MKV, MPEG-2 TS and HEVC MP4
-    vf_launches, vf_numbers, yuv_row = video_files_phase(dev, smi)
+    # H.264 MP4 exact, the conversion kernels == plain at four turns and
+    # every (matrix, range), cv2's MPEG-4 files, TS, HEVC, program streams
+    # and colour fixtures against cv2, the flagship video demo on 64-frame
+    # H.264 MP4, MPEG-4 MKV, MPEG-2 TS, HEVC MP4 and HEVC Main 10 MP4
+    vf_launches, vf_numbers, yuv_row, p10_row = video_files_phase(dev, smi)
 
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
         "connection_scores": ("rtpose_tpu_torch/csrc/connection_scores.cu",
@@ -4787,13 +4941,12 @@ def main() -> int:
     print(json.dumps({"native_loader": native_numbers,
                       "rotated_hourglass": rotated_numbers,
                       "resize_modes": resize_numbers}), flush=True)
-    # the colour conversion replaces cv2's, no TPU kernel: its row stands
-    # beside the grouping kernel's
+    # the colour conversions replace cv2's, no TPU kernel: the grouping
+    # kernel's row stands on a line of its own, theirs in the kernels line
     yuv_row.update(launches=vf_launches["yuv420_to_bgr"],
                    video_file_launches=vf_launches["yuv420_to_bgr"])
-    print(json.dumps({"kernels_beyond_tpu": [group_row, yuv_row]}),
-          flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels_beyond_tpu": [group_row]}), flush=True)
+    print(json.dumps({"kernels": rows + [yuv_row, p10_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

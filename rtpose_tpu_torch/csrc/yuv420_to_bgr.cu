@@ -9,16 +9,28 @@
 // decodes on the host (native/avcodec.py: the card's NVDEC refuses every
 // call on the machine it runs on) and converts here.
 //
-// The arithmetic is swscale's 16-bit SIMD path as cv2 5.0's frames show
-// it, found by decoding I_PCM frames of every (Y, U, V) and equal to them
-// at all 2^24 triples and at every width tried: BT.601 limited range,
-// chroma by nearest sample (the one of the pixel's 2x2 block), and
-//   y' = ((8 Y - 128) * 9539) >> 16
-//   B  = sat(y' + ((8 (U - 128) * 16525) >> 16))
-//   G  = sat(y' + ((8 (U - 128) * -3209) >> 16) + ((8 (V - 128) * -6660) >> 16))
-//   R  = sat(y' + ((8 (V - 128) * 13075) >> 16))
+// The arithmetic is swscale's 16-bit SIMD path (its unscaled yuv420p ->
+// bgr24) as cv2 5.0's frames show it, found by decoding I_PCM frames of
+// every (Y, U, V) and equal to them at all 2^24 triples of each (matrix,
+// range) pair and at every width tried; chroma by nearest sample (the one
+// of the pixel's 2x2 block), and
+//   y' = ((8 Y - o) * cy) >> 16
+//   B  = sat(y' + ((8 (U - 128) * ub) >> 16))
+//   G  = sat(y' + ((8 (U - 128) * ug) >> 16) + ((8 (V - 128) * vg) >> 16))
+//   R  = sat(y' + ((8 (V - 128) * vr) >> 16))
 // with >> an arithmetic shift (pmulhw keeps the high half of the product)
-// and sat a clamp to [0, 255].
+// and sat a clamp to [0, 255].  The constants come with each call (the
+// rule struct: ops/kernels.py yuv_rule derives them as swscale's
+// ff_yuv2rgb_c_init_tables does from the stream's matrix and range).
+// Limited range: o = 128, cy = 9539 (255/219 in 1/8192); full range
+// (yuvj420p, or a stream whose VUI / container says so): o = 0, cy = 8192,
+// so y' = Y, and each chroma coefficient is the limited one's times
+// 224/255.  (cy, ub, ug, vg, vr) by matrix, limited | full:
+//   BT.601 (2, 5, 6)  9539 16525 -3209 -6660 13075 | 8192 14516 -2819 -5850 11485
+//   BT.709 (1)        9539 17305 -1747 -4366 14686 | 8192 15201 -1534 -3835 12901
+//   FCC (4)           9539 16600 -3095 -6639 13056 | 8192 14582 -2719 -5831 11469
+//   SMPTE 240M (7)    9539 17029 -2113 -4445 14697 | 8192 14959 -1856 -3904 12911
+//   BT.2020 NCL (9)   9539 17545 -1535 -5328 13752 | 8192 15412 -1348 -4680 12080
 //
 // The turn is in the write index, cv2's cv::rotate: output (i, j) reads
 // source (H-1-j, i) at 90 (clockwise), (H-1-i, W-1-j) at 180 and
@@ -34,18 +46,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "yuv_rule.cuh"
+
 #define BLOCK_X 32
 #define BLOCK_Y 8
-
-__device__ __forceinline__ uint8_t sat8(int v) {
-    return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
-}
 
 __global__ void yuv420_to_bgr_kernel(const uint8_t* __restrict__ y,
                                      const uint8_t* __restrict__ u,
                                      const uint8_t* __restrict__ v,
                                      int y_pitch, int c_pitch, int height,
                                      int width, int rotation,
+                                     YuvRule rule,
                                      uint8_t* __restrict__ out) {
     const bool quarter = rotation == 90 || rotation == 270;
     const int out_h = quarter ? width : height;
@@ -68,14 +79,15 @@ __global__ void yuv420_to_bgr_kernel(const uint8_t* __restrict__ y,
             } else {
                 sy = i; sx = j;
             }
-            const int yy = ((8 * (int)y[sy * y_pitch + sx] - 128) * 9539) >> 16;
+            const int yy = ((8 * (int)y[sy * y_pitch + sx] - rule.y_offset)
+                            * rule.luma) >> 16;
             const int c = (sy >> 1) * c_pitch + (sx >> 1);
             const int u8 = 8 * ((int)u[c] - 128);
             const int v8 = 8 * ((int)v[c] - 128);
             uint8_t* px = out + 3 * (i * out_w + j);
-            px[0] = sat8(yy + ((u8 * 16525) >> 16));
-            px[1] = sat8(yy + ((u8 * -3209) >> 16) + ((v8 * -6660) >> 16));
-            px[2] = sat8(yy + ((v8 * 13075) >> 16));
+            px[0] = sat8(yy + ((u8 * rule.ub) >> 16));
+            px[1] = sat8(yy + ((u8 * rule.ug) >> 16) + ((v8 * rule.vg) >> 16));
+            px[2] = sat8(yy + ((v8 * rule.vr) >> 16));
         }
     }
 }
@@ -83,7 +95,7 @@ __global__ void yuv420_to_bgr_kernel(const uint8_t* __restrict__ y,
 extern "C" int rtpose_yuv420_to_bgr(const void* y, const void* u,
                                     const void* v, int y_pitch, int c_pitch,
                                     int height, int width, int rotation,
-                                    void* out, void* stream) {
+                                    YuvRule rule, void* out, void* stream) {
     if (height <= 0 || width <= 0 || y_pitch < width
             || c_pitch < (width + 1) / 2
             || (rotation != 0 && rotation != 90 && rotation != 180
@@ -97,6 +109,6 @@ extern "C" int rtpose_yuv420_to_bgr(const void* y, const void* u,
                     (out_h + 2 * BLOCK_Y - 1) / (2 * BLOCK_Y));
     yuv420_to_bgr_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)y, (const uint8_t*)u, (const uint8_t*)v, y_pitch,
-        c_pitch, height, width, rotation, (uint8_t*)out);
+        c_pitch, height, width, rotation, rule, (uint8_t*)out);
     return (int)cudaGetLastError();
 }

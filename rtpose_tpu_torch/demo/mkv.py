@@ -6,7 +6,7 @@ Read elements: the EBML header (DocType ``matroska`` or ``webm``);
 ``Segment``; ``Info`` (``TimecodeScale``, ``Duration``); ``Tracks`` /
 ``TrackEntry`` (``TrackNumber``, ``TrackType``, ``CodecID``,
 ``CodecPrivate``, ``DefaultDuration``, ``Video`` with ``PixelWidth``,
-``PixelHeight`` and ``Projection``); ``Cluster`` (``Timecode``,
+``PixelHeight``, ``Projection`` and ``Colour``); ``Cluster`` (``Timecode``,
 ``SimpleBlock``, ``BlockGroup`` / ``Block`` / ``ReferenceBlock``).
 Elements of unknown size (every size bit set: what ``MediaRecorder`` and
 live muxers write for the ``Segment`` and each ``Cluster``) end where an
@@ -36,12 +36,13 @@ everything else are skipped by their size.
   cv2's large negative count);
   the turn from ``ProjectionPoseRoll`` as FFmpeg's display matrix gives
   it (``mkv_create_display_matrix``).
+- ``colour`` is ``Video/Colour`` as libavformat hands it to the decoder
+  (:func:`colour`), which keeps it where the bitstream states none.
 
 Refused, naming the codec or feature and ROADMAP.md queue 1 item 4: every
 codec but VP9, MPEG-4 Part 2, H.264 and HEVC (``V_AV1``, ``V_VP8``, ...),
-VP9 of a profile other than 0 (10- and 12-bit, 4:2:2, 4:4:4), HEVC of
-another format than 8-bit 4:2:0 (Main 10, RExt: item 4h), laced video
-blocks, and compressed or encrypted tracks (``ContentEncodings``).
+VP9 of profiles 1 and 3 (4:2:2, 4:4:0, 4:4:4; item 4i), HEVC of another
+format than 4:2:0 of 8 or 10 bits (RExt: item 4i), laced video blocks, and compressed or encrypted tracks (``ContentEncodings``).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import struct
 from typing import BinaryIO, Dict, Iterator, List, NamedTuple, Optional, \
     Tuple
 
+from ..native.avcodec import StreamColour
 from . import mp4
 
 EBML = 0x1A45DFA3
@@ -63,6 +65,9 @@ DEFAULT_DURATION, CONTENT_ENCODINGS = 0x23E383, 0x6D80
 VIDEO, PIXEL_WIDTH, PIXEL_HEIGHT = 0xE0, 0xB0, 0xBA
 PROJECTION, PROJECTION_TYPE = 0x7670, 0x7671
 POSE_YAW, POSE_PITCH, POSE_ROLL = 0x7673, 0x7674, 0x7675
+COLOUR, MATRIX_COEFFICIENTS, RANGE = 0x55B0, 0x55B1, 0x55B9
+CHROMA_SITING_HORZ, CHROMA_SITING_VERT = 0x55B7, 0x55B8
+TRANSFER, PRIMARIES = 0x55BA, 0x55BB
 CLUSTER, TIMECODE = 0x1F43B675, 0xE7
 SIMPLE_BLOCK, BLOCK_GROUP, BLOCK, REFERENCE_BLOCK = 0xA3, 0xA0, 0xA1, 0xFB
 VOID, CRC32 = 0xEC, 0xBF
@@ -241,6 +246,32 @@ def projection_rotation(yaw: float, pitch: float, roll: float) -> int:
     return mp4.display_rotation(m, IDENTITY)
 
 
+def colour(data: bytes, s: int, e: int) -> StreamColour:
+    """A ``Video/Colour`` element as libavformat's matroska demuxer hands
+    it to the decoder: ``MatrixCoefficients`` (by default 2,
+    unspecified), ``Range`` where 1 (broadcast) or 2 (full), primaries
+    and transfer where libavformat knows them, and a chroma location
+    where both ``ChromaSitingHorz`` and ``ChromaSitingVert`` are stated
+    (1 co-sited, 2 half)."""
+    fields = {MATRIX_COEFFICIENTS: 2, RANGE: 0, PRIMARIES: 2, TRANSFER: 2,
+              CHROMA_SITING_HORZ: 0, CHROMA_SITING_VERT: 0}
+    for cid, cs, ce in elements(data, s, e):
+        if cid in fields:
+            fields[cid] = _uint(data, cs, ce)
+    horz, vert = fields[CHROMA_SITING_HORZ], fields[CHROMA_SITING_VERT]
+    location = None
+    if horz in (1, 2) and vert in (1, 2):
+        # av_chroma_location_pos_to_enum((horz - 1) << 7, (vert - 1) << 7)
+        location = {(1, 2): 1, (2, 2): 2, (1, 1): 3, (2, 1): 4}[horz, vert]
+    matrix, primaries, transfer = (fields[MATRIX_COEFFICIENTS],
+                                   fields[PRIMARIES], fields[TRANSFER])
+    return StreamColour(
+        matrix if matrix in mp4.VALID_MATRICES and matrix != 3 else None,
+        {1: False, 2: True}.get(fields[RANGE]), location,
+        primaries if primaries in mp4.VALID_PRIMARIES else None,
+        transfer if transfer in mp4.VALID_TRANSFERS else None)
+
+
 def vp9_profile(frame: bytes) -> int:
     """The profile in a VP9 frame's uncompressed header (its first byte:
     frame marker, profile low bit, profile high bit)."""
@@ -266,6 +297,7 @@ class MkvTrack:
     pps: List[bytes]
     param_sets: bytes = b""          # HEVC: the hvcC sets as Annex-B
     blocks: List[Block]
+    colour: Optional[StreamColour] = None   # Video/Colour
 
     @property
     def rotation(self) -> int:
@@ -389,10 +421,10 @@ class _Reader:
         if track.codec == "vp9" and self.blocks:
             self.f.seek(self.blocks[0].offset)
             profile = vp9_profile(self.f.read(1))
-            if profile:
-                raise self.refuse(f"VP9 profile {profile} video (10/12-bit "
-                                  f"or 4:2:2 / 4:4:4: only profile 0, "
-                                  f"8-bit 4:2:0, is read)")
+            if profile not in (0, 2):
+                raise self.refuse(f"VP9 profile {profile} video (4:2:2, "
+                                  f"4:4:0 or 4:4:4: only 4:2:0, profiles 0 "
+                                  f"and 2, is read; item 4i)")
         return track
 
     def _segment(self, at: int, end: int) -> None:
@@ -504,6 +536,8 @@ class _Reader:
                             roll = _float(data, ps, pe)
                     if kind != 0:               # not rectangular
                         yaw = pitch = roll = 0.0
+                elif vid == COLOUR:
+                    track.colour = colour(data, vs, ve)
         track.coded_size = (w, h)
         track.rotation_meta = projection_rotation(yaw, pitch, roll)
         return track

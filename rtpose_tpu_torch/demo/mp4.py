@@ -5,7 +5,8 @@ Read boxes: ``ftyp``, ``moov/mvhd``, ``moov/trak/{tkhd, edts/elst,
 mdia/{mdhd, hdlr, minf/stbl}}``; of the sample table ``stsd`` (``avc1`` /
 ``avc3`` with ``avcC``; ``hvc1`` / ``hev1`` with ``hvcC``; ``mp4v`` with
 ``esds`` and its
-DecoderSpecificInfo; ``vp09`` with ``vpcC``), ``stts``, ``ctts``,
+DecoderSpecificInfo; ``vp09`` with ``vpcC``; the entry's ``colr``),
+``stts``, ``ctts``,
 ``stsc``, ``stsz`` / ``stz2``, ``stco`` / ``co64`` and ``stss``; of a
 fragmented file ``moov/mvex/trex`` and each ``moof/traf`` (``tfhd``,
 ``tfdt``, ``trun``), its samples after the sample table's.  ``styp``,
@@ -36,6 +37,10 @@ fragmented file ``moov/mvex/trex`` and each ``moof/traf`` (``tfhd``,
   and ``frame_count`` (the sample table's samples, ``nb_frames``; for a
   file whose samples are all in fragments, ``floor(duration x fps +
   0.5)``) are cv2's.
+- ``colour`` is what the sample entry's ``colr`` box states (``nclx``:
+  primaries, transfer, matrix and the full-range bit; QuickTime's
+  ``nclc``: no range), as libavformat hands it to the decoder, which
+  keeps it where the bitstream states none (:class:`StreamColour`).
 - An edit list, of any number of entries, is followed as FFmpeg's
   ``mov_fix_index`` follows it (:meth:`Track.schedule`): each edit
   decodes from a key sample and shows its span; the pictures decoded
@@ -44,9 +49,10 @@ fragmented file ``moov/mvex/trex`` and each ``moof/traf`` (``tfhd``,
 
 Refused, with an error naming the box or codec and ROADMAP.md queue 1
 item 4: an edit of a media rate other than 1 (cv2 plays it at rate 1),
-VP9 of a profile other than 0 (``vpcC``), HEVC of another bit depth or
-chroma format than 8-bit 4:2:0 (``hvcC``: Main 10, RExt; item 4h), and
-every codec but H.264, HEVC, MPEG-4 Part 2 and VP9 (AV1, VP8, ...).
+VP9 of a profile other than 0 and 2 or of 12 bits (``vpcC``), HEVC of
+another format than 4:2:0 of 8 or 10 bits (``hvcC``: RExt 4:2:2, 4:4:4,
+4:0:0, 12-bit; item 4i), and every codec but H.264, HEVC, MPEG-4 Part 2
+and VP9 (AV1, VP8, ...).
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ import math
 import struct
 from typing import BinaryIO, Dict, Iterator, List, NamedTuple, Optional, \
     Tuple
+
+from ..native.avcodec import StreamColour
 
 CONTAINERS = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide",
               b"uuid", b"pdin", b"meta", b"moof", b"mfra", b"styp")
@@ -69,8 +77,9 @@ MPEG4_VISUAL = 0x20    # esds objectTypeIndication of MPEG-4 Part 2
 
 def refusal(path: str, what: str) -> ValueError:
     return ValueError(f"{path}: {what}; the video reader takes H.264, HEVC "
-                      f"(Main) and MPEG-4 Part 2 in MP4/MOV (fragmented "
-                      f"too), AVI or Matroska, VP9 (profile 0) in WebM, "
+                      f"(Main, Main 10) and MPEG-4 Part 2 in MP4/MOV "
+                      f"(fragmented too), AVI or Matroska, VP9 (profiles 0 "
+                      f"and 2) in WebM, "
                       f"Matroska or MP4, MPEG-1/2, MPEG-4 Part 2, H.264 and "
                       f"HEVC in MPEG-TS / M2TS and MPEG program streams, "
                       f"and Motion-JPEG AVI (other containers and codecs: "
@@ -211,13 +220,38 @@ def hvcc_config(data: bytes, s: int, e: int) -> HevcConfig:
 
 
 def hevc_refusal(chroma: int, depth: Tuple[int, int]) -> Optional[str]:
-    """What names HEVC of another format than 8-bit 4:2:0 (Main 10, RExt:
-    ROADMAP.md queue 1 item 4h), or None for 8-bit 4:2:0."""
-    if chroma == 1 and depth == (8, 8):
+    """What names HEVC of another format than 4:2:0 of 8 or 10 bits (RExt:
+    4:2:2, 4:4:4, 4:0:0, 12-bit; ROADMAP.md queue 1 item 4i), or None for
+    Main and Main 10."""
+    if chroma == 1 and depth in ((8, 8), (10, 10)):
         return None
     bits = f"{depth[0]}" if depth[0] == depth[1] else "%d/%d" % depth
     return (f"HEVC of {bits} bits, {CHROMA_FORMATS.get(chroma, chroma)} "
-            f"(Main 10 / RExt: only 8-bit 4:2:0, Main, is read; item 4h)")
+            f"(RExt: only 4:2:0 of 8 or 10 bits, Main and Main 10, is "
+            f"read; item 4i)")
+
+
+# what libavformat keeps of a colr box's numbers (av_color_*_name): others
+# become 2, unspecified
+VALID_PRIMARIES = frozenset([*range(1, 13), 22])
+VALID_TRANSFERS = frozenset(range(1, 19))
+VALID_MATRICES = frozenset(range(0, 18))
+
+
+def colr_colour(data: bytes, s: int, e: int) -> Optional[StreamColour]:
+    """A ``colr`` box's colour as libavformat's mov_read_colr hands it to
+    the decoder: ``nclx`` (ISO) and ``nclc`` (QuickTime, no range bit);
+    None for an ICC profile or another type."""
+    kind = bytes(data[s:s + 4])
+    if kind not in (b"nclx", b"nclc") or e - s < 10:
+        return None
+    primaries, transfer, matrix = struct.unpack_from(">HHH", data, s + 4)
+    full = bool(data[s + 10] >> 7) if kind == b"nclx" and e - s > 10 \
+        else None
+    return StreamColour(
+        matrix if matrix in VALID_MATRICES else 2, full,
+        primaries=primaries if primaries in VALID_PRIMARIES else 2,
+        transfer=transfer if transfer in VALID_TRANSFERS else 2)
 
 
 def annexb_hevc(sample: bytes, nal_length: int, extradata: bytes) -> bytes:
@@ -288,6 +322,7 @@ class Track:
     pps: List[bytes]
     param_sets: bytes = b""        # HEVC: the hvcC sets as Annex-B
     decoder_info: bytes = b""      # MPEG-4: DecoderSpecificInfo
+    colour: Optional[StreamColour] = None   # the sample entry's colr
 
     @property
     def rotation(self) -> int:
@@ -524,15 +559,17 @@ def _sample_table(path: str, data: bytes, s: int, e: int, track: Track
             raise refusal(path, "the vp09 entry has no vpcC box")
         _, at = _full(data, config[b"vpcC"][0])
         profile, depth = data[at], data[at + 2] >> 4
-        if profile or depth != 8:
+        if (profile, depth) not in ((0, 8), (2, 10)):
             raise refusal(path, f"VP9 profile {profile} video of {depth} "
-                                f"bits (vpcC: only profile 0, 8-bit 4:2:0, "
-                                f"is read)")
+                                f"bits (vpcC: only 4:2:0 of 8 or 10 bits, "
+                                f"profiles 0 and 2, is read; item 4i)")
         track.codec = "vp9"
     else:
         name = OTHER_CODECS.get(kind, "codec")
         raise refusal(path, f"{name} video ({kind.decode('latin-1')!r} "
                             f"sample entry)")
+    if b"colr" in config:
+        track.colour = colr_colour(data, *config[b"colr"])
 
     dts: List[int] = []
     durations: List[int] = []

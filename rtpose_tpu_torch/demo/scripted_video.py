@@ -26,6 +26,16 @@ PES split and joined); :func:`annexb` gives the same stream as an
 Annex-B byte stream.  The OpenCV wheels (cv2 4.13 and 5.0) have no H.264
 encoder and write neither fragmented MP4 nor edit lists, so these
 writers make the fixtures.
+
+Colour: :class:`Colour` is what a stream states of its colour (the H.273
+matrix, the range, primaries and transfer).  The H.264 and HEVC SPS
+carry it in their VUI (``video_signal_type``), an MP4 sample entry in a
+``colr`` box (:func:`colr_box`, ``nclx`` or QuickTime's ``nclc``), a
+Matroska track in ``Video/Colour``.  High 10 H.264 and Main 10 HEVC
+carry 10-bit PCM samples (``uint16`` planes of values below 1024);
+:func:`encode_vp9` encodes VP9 (profile 2 for 10-bit planes) with the
+wheel's libvpx, :func:`encode_lavc` with any of its encoders (MPEG-2's
+colour in its sequence display extension).
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from .mp4 import (TFHD_BASE_IS_MOOF, TFHD_BASE_OFFSET, TFHD_DURATION,
 
 PROFILE_BASELINE = 66
 PROFILE_MAIN = 77
+PROFILE_HIGH10 = 110
 LOG2_MAX_POC_LSB = 8        # Main-profile streams: pic_order_cnt_type 0
 LEVEL = 40                  # 4.0: 8192 macroblocks a frame, up to 2048x1024
 LOG2_MAX_FRAME_NUM = 4
@@ -52,6 +63,42 @@ SLICE_P, SLICE_B, SLICE_I = 5, 6, 7   # slice_type + 5: every slice
 MATRICES = {                # tkhd matrix (a, b, c, d) per cv2 rotation
     0: (1, 0, 0, 1), 90: (0, 1, -1, 0), 180: (-1, 0, 0, -1),
     270: (0, -1, 1, 0)}
+
+
+class Colour(NamedTuple):
+    """A stream's colour signalling (ITU-T H.273): `matrix`
+    (``matrix_coefficients``; None: no colour description, the range
+    alone), `full` (``video_full_range_flag``), `primaries` and
+    `transfer` (2: unspecified)."""
+    matrix: Optional[int] = None
+    full: bool = False
+    primaries: int = 2
+    transfer: int = 2
+
+
+def video_signal_type(b: "BitWriter", colour: Optional[Colour]) -> None:
+    """The VUI's ``video_signal_type`` of H.264 and HEVC (the same
+    syntax): video format 5 (unspecified), the range and, where
+    `colour` has a matrix, its colour description."""
+    b.u(1, int(colour is not None))
+    if colour is None:
+        return
+    b.u(3, 5).u(1, int(colour.full)).u(1, int(colour.matrix is not None))
+    if colour.matrix is not None:
+        b.u(8, colour.primaries).u(8, colour.transfer).u(8, colour.matrix)
+
+
+def pack_samples(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(n, k) samples of `depth` bits -> (n, k * depth / 8) bytes, each
+    sample MSB first (PCM samples of more than 8 bits)."""
+    if depth == 8:
+        return samples.astype(np.uint8)
+    if samples.max(initial=0) >> depth:
+        raise ValueError(f"PCM samples above {depth} bits")
+    shifts = np.arange(depth - 1, -1, -1, dtype=np.uint16)
+    bits = ((samples[..., None].astype(np.uint16) >> shifts) & 1).astype(
+        np.uint8)
+    return np.packbits(bits.reshape(len(samples), -1), axis=1)
 
 
 class BitWriter:
@@ -100,18 +147,27 @@ def _mbs(h: int, w: int) -> Tuple[int, int]:
 
 
 def sps(h: int, w: int, main: bool = False,
-        reorder: Optional[int] = 0) -> bytes:
+        reorder: Optional[int] = 0, colour: Optional[Colour] = None,
+        depth: int = 8) -> bytes:
     """The SPS: Baseline, ``pic_order_cnt_type`` 2, one reference; or
     `main`: Main profile, ``pic_order_cnt_type`` 0 (each slice carries its
-    ``pic_order_cnt_lsb``), two references, for B pictures.  `reorder` is
-    the VUI's ``max_num_reorder_frames``; None writes no VUI, as many
-    phone encoders do, and leaves the decoder to guess the delay."""
+    ``pic_order_cnt_lsb``), two references, for B pictures; `depth` 10:
+    High 10 (``bit_depth_*_minus8`` 2, 10-bit I_PCM samples).  `reorder`
+    is the VUI's ``max_num_reorder_frames``, `colour` its
+    ``video_signal_type``; with neither, no VUI is written, as many phone
+    encoders do, and the decoder guesses the delay."""
     if h % 2 or w % 2 or h <= 0 or w <= 0:
         raise ValueError(f"4:2:0 frames have an even size, got {h}x{w}")
+    if depth not in (8, 10):
+        raise ValueError(f"H.264 of {depth} bits: 8 or 10 are written")
     mbh, mbw = _mbs(h, w)
-    b = BitWriter().u(8, PROFILE_MAIN if main else PROFILE_BASELINE)
-    b.u(8, 0x40 if main else 0xC0).u(8, LEVEL)
+    profile = (PROFILE_HIGH10 if depth == 10 else
+               PROFILE_MAIN if main else PROFILE_BASELINE)
+    b = BitWriter().u(8, profile)
+    b.u(8, 0 if depth == 10 else 0x40 if main else 0xC0).u(8, LEVEL)
     b.ue(0)                                   # seq_parameter_set_id
+    if depth == 10:                           # 4:2:0, no scaling matrices
+        b.ue(1).ue(depth - 8).ue(depth - 8).u(1, 0).u(1, 0)
     b.ue(LOG2_MAX_FRAME_NUM - 4)
     if main:
         b.ue(0).ue(LOG2_MAX_POC_LSB - 4)      # pic_order_cnt_type 0
@@ -125,13 +181,17 @@ def sps(h: int, w: int, main: bool = False,
     b.u(1, int(bool(crop_x or crop_y)))
     if crop_x or crop_y:                      # in 2-sample units (4:2:0)
         b.ue(0).ue(crop_x).ue(0).ue(crop_y)
-    b.u(1, int(reorder is not None))          # vui_parameters_present
-    if reorder is not None:
-        b.u(1, 0).u(1, 0).u(1, 0).u(1, 0)     # aspect, overscan, signal, loc
+    vui = reorder is not None or colour is not None
+    b.u(1, int(vui))                          # vui_parameters_present
+    if vui:
+        b.u(1, 0).u(1, 0)                     # aspect, overscan
+        video_signal_type(b, colour)
+        b.u(1, 0)                             # chroma_loc_info
         b.u(1, 0).u(1, 0).u(1, 0).u(1, 0)     # timing, nal/vcl hrd, pic_struct
-        b.u(1, 1)                             # bitstream_restriction
-        b.u(1, 1).ue(0).ue(0).ue(16).ue(16)   # mv bounds, bytes, mv lengths
-        b.ue(reorder).ue(reorder + 1)         # reorder, dec buffering
+        b.u(1, int(reorder is not None))      # bitstream_restriction
+        if reorder is not None:
+            b.u(1, 1).ue(0).ue(0).ue(16).ue(16)   # mv bounds, bytes, mv
+            b.ue(reorder).ue(reorder + 1)     # reorder, dec buffering
     return nal(NAL_SPS, 3, b.trailing().bytes())
 
 
@@ -169,28 +229,31 @@ def _header(kind: str, frame_num: int, idr_id: int,
     return b.se(0).ue(1)                      # slice_qp_delta, no deblock
 
 
-def pcm_macroblocks(y: np.ndarray, u: np.ndarray, v: np.ndarray
+def pcm_macroblocks(y: np.ndarray, *chroma: np.ndarray, depth: int = 8
                     ) -> np.ndarray:
-    """(n_mb, 384) uint8: each macroblock's 256 luma, 64 Cb and 64 Cr
-    samples in raster order, the planes padded to whole macroblocks by
-    repeating their last row and column."""
+    """(n_mb, 384 * depth / 8) uint8: each macroblock's 256 luma, 64 Cb
+    and 64 Cr samples in raster order (`depth` bits each, packed MSB
+    first; no chroma planes: the luma alone), the planes padded to whole
+    macroblocks by repeating their last row and column."""
     h, w = y.shape
     mbh, mbw = _mbs(h, w)
     y = np.pad(y, ((0, 16 * mbh - h), (0, 16 * mbw - w)), mode="edge")
-    u, v = (np.pad(c, ((0, 8 * mbh - c.shape[0]), (0, 8 * mbw - c.shape[1])),
-                   mode="edge") for c in (u, v))
+    chroma = [np.pad(c, ((0, 8 * mbh - c.shape[0]),
+                         (0, 8 * mbw - c.shape[1])), mode="edge")
+              for c in chroma]
     parts = [y.reshape(mbh, 16, mbw, 16).transpose(0, 2, 1, 3).reshape(
         -1, 256)]
     parts += [c.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3).reshape(-1, 64)
-              for c in (u, v)]
-    return np.concatenate(parts, axis=1)
+              for c in chroma]
+    return pack_samples(np.concatenate(parts, axis=1), depth)
 
 
 def ipcm_slice(kind: str, frame_num: int, idr_id: int,
                planes: Optional[Tuple[np.ndarray, ...]], n_mb: int,
-               poc: Optional[int] = None) -> bytes:
+               poc: Optional[int] = None, depth: int = 8) -> bytes:
     """One slice NAL unit of a picture: `kind` "IDR" or "I" with `planes`
-    (y, u, v) as I_PCM macroblocks, or "P" skipping all `n_mb`, or "B"
+    (y, u, v) as I_PCM macroblocks of `depth`-bit samples, or "P"
+    skipping all `n_mb`, or "B"
     (a non-reference picture) skipping all `n_mb`: B_Skip with spatial
     direct prediction from the two anchors around it, each sample their
     rounded mean."""
@@ -203,8 +266,8 @@ def ipcm_slice(kind: str, frame_num: int, idr_id: int,
     # starts byte-aligned after the previous samples: ue(25) = 0000 1101 0
     # and seven alignment zeros, the bytes 0x0d 0x00
     head = b.ue(I_PCM).align_zero().bytes()
-    mbs = pcm_macroblocks(*planes)
-    body = np.empty((len(mbs), 386), np.uint8)
+    mbs = pcm_macroblocks(*planes, depth=depth)
+    body = np.empty((len(mbs), 2 + mbs.shape[1]), np.uint8)
     body[:, :2] = (0x0D, 0x00)
     body[:, 2:] = mbs
     rbsp = head + body.reshape(-1)[2:].tobytes() + b"\x80"
@@ -212,12 +275,14 @@ def ipcm_slice(kind: str, frame_num: int, idr_id: int,
 
 
 def encode_ipcm(frames: Sequence[Optional[Tuple[np.ndarray, ...]]],
-                key_every: int = 0) -> Tuple[bytes, bytes, List[bytes],
-                                             List[bool]]:
+                key_every: int = 0, colour: Optional[Colour] = None,
+                depth: int = 8) -> Tuple[bytes, bytes, List[bytes],
+                                         List[bool]]:
     """(sps, pps, access units, key flags) of `frames`: each a (y, u, v)
-    tuple of uint8 planes ((h, w), (h/2, w/2) twice) or None to repeat the
-    previous picture (a P slice of skips).  The first frame and every
-    `key_every`-th (0: only the first) are IDR pictures."""
+    tuple of planes ((h, w), (h/2, w/2) twice; uint8, or uint16 of
+    `depth` 10 bits: High 10) or None to repeat the previous picture (a P
+    slice of skips).  The first frame and every `key_every`-th (0: only
+    the first) are IDR pictures; `colour` goes to the SPS's VUI."""
     if frames[0] is None:
         raise ValueError("the first frame has to be a picture")
     h, w = frames[0][0].shape
@@ -239,11 +304,12 @@ def encode_ipcm(frames: Sequence[Optional[Tuple[np.ndarray, ...]]],
                 c.shape != (h // 2, w // 2) for c in planes[1:])):
             raise ValueError(f"frame {i}: planes {[c.shape for c in planes]}"
                              f" are not those of a {h}x{w} 4:2:0 frame")
-        units.append(ipcm_slice(kind, frame_num, idr_id, planes, n_mb))
+        units.append(ipcm_slice(kind, frame_num, idr_id, planes, n_mb,
+                                depth=depth))
         keys.append(bool(idr))
         idr_id ^= int(bool(idr))
         frame_num += 1
-    return sps(h, w), pps(), units, keys
+    return sps(h, w, colour=colour, depth=depth), pps(), units, keys
 
 
 def encode_ipcm_bframes(anchors: Sequence[Tuple[np.ndarray, ...]],
@@ -438,19 +504,31 @@ def hevc_vps(reorder: int = 0, profile: int = 1) -> bytes:
     return hevc_nal(HEVC_VPS, b.trailing().bytes())
 
 
-def hevc_sps(h: int, w: int, reorder: int = 0, depth: int = 8) -> bytes:
-    """The SPS: 4:2:0 of `depth` bits (8: Main; 10: Main 10, its PCM
-    samples still 8 bits), pictures of whole 16x16 CTBs with a
-    conformance window down to h x w, CTB = minimum CB = PCM size 16, no
-    loop filter on PCM samples, no SAO, AMP, scaling lists or temporal
-    MVP; `reorder` as ``sps_max_num_reorder_pics``; two short-term
-    reference picture sets: 0 empty, 1 the picture one POC before."""
+def hevc_profile(depth: int, chroma: int = 1) -> int:
+    """general_profile_idc: 1 Main, 2 Main 10, 4 format range extensions
+    (12-bit, 4:0:0, 4:2:2, 4:4:4)."""
+    return 1 if (depth, chroma) == (8, 1) else 2 if (depth, chroma) == (
+        10, 1) else 4
+
+
+def hevc_sps(h: int, w: int, reorder: int = 0, depth: int = 8,
+             colour: Optional[Colour] = None, chroma: int = 1) -> bytes:
+    """The SPS: `chroma` (``chroma_format_idc``: 1 4:2:0, 0 4:0:0) of
+    `depth` bits (8: Main; 10: Main 10; 12: RExt) with PCM samples of
+    `depth` bits, pictures of whole 16x16 CTBs with a conformance window
+    down to h x w, CTB = minimum CB = PCM size 16, no loop filter on PCM
+    samples, no SAO, AMP, scaling lists or temporal MVP; `reorder` as
+    ``sps_max_num_reorder_pics``; two short-term reference picture sets:
+    0 empty, 1 the picture one POC before; `colour` in a VUI (None: no
+    VUI)."""
     if h % 2 or w % 2 or h <= 0 or w <= 0:
         raise ValueError(f"4:2:0 frames have an even size, got {h}x{w}")
     ch, cw = -(-h // HEVC_CTB) * HEVC_CTB, -(-w // HEVC_CTB) * HEVC_CTB
+    if chroma != 1 and (ch != h or cw != w):
+        raise ValueError("4:0:0 pictures here are whole CTBs")
     b = BitWriter().u(4, 0).u(3, 0).u(1, 1)   # vps id, sub layers, nesting
-    b.bits += profile_tier_level(1 if depth == 8 else 2).bits
-    b.ue(0).ue(1)                             # sps id, 4:2:0
+    b.bits += profile_tier_level(hevc_profile(depth, chroma)).bits
+    b.ue(0).ue(chroma)                        # sps id, chroma format
     b.ue(cw).ue(ch)
     b.u(1, int(ch != h or cw != w))           # conformance window
     if ch != h or cw != w:                    # in 2-sample units (4:2:0)
@@ -461,13 +539,20 @@ def hevc_sps(h: int, w: int, reorder: int = 0, depth: int = 8) -> bytes:
     b.ue(1).ue(0)                             # min CB 16, CTB 16
     b.ue(0).ue(2).ue(0).ue(0)                 # TB 4..16, depths 0
     b.u(1, 0).u(1, 0).u(1, 0)                 # scaling list, AMP, SAO
-    b.u(1, 1).u(4, 7).u(4, 7)                 # PCM, 8-bit samples
+    b.u(1, 1).u(4, depth - 1).u(4, depth - 1)   # PCM samples of `depth`
     b.ue(1).ue(0).u(1, 1)                     # PCM 16x16, no loop filter
     b.ue(2)                                   # num_short_term_ref_pic_sets
     b.ue(0).ue(0)                             # 0: no pictures
     b.u(1, 0).ue(1).ue(0).ue(0).u(1, 1)       # 1: POC - 1, used
     b.u(1, 0).u(1, 0).u(1, 0)                 # long-term, TMVP, smoothing
-    b.u(1, 0).u(1, 0)                         # no VUI, no extensions
+    b.u(1, int(colour is not None))           # vui_parameters_present
+    if colour is not None:
+        b.u(1, 0).u(1, 0)                     # aspect, overscan
+        video_signal_type(b, colour)
+        b.u(1, 0).u(1, 0).u(1, 0).u(1, 0)     # chroma loc, neutral, field,
+        b.u(1, 0).u(1, 0).u(1, 0)             # frame field; window, timing,
+                                              # bitstream restriction
+    b.u(1, 0)                                 # no extensions
     return hevc_nal(HEVC_SPS, b.trailing().bytes())
 
 
@@ -485,13 +570,14 @@ def hevc_pps() -> bytes:
 
 
 def hevc_slice(kind: str, poc: int, planes: Optional[Tuple[np.ndarray, ...]],
-               h: int, w: int) -> bytes:
+               h: int, w: int, depth: int = 8) -> bytes:
     """One picture as one slice NAL unit: `kind` "IDR" (IDR_W_RADL) or "I"
     (TRAIL_R, no references) with `planes` (y, u, v) as PCM coding units
     (``part_mode`` 2Nx2N, ``pcm_flag``, the samples); or "P" (TRAIL_R
     referring to POC - 1) whose every CU is skipped: one merge candidate,
     the zero vector, a copy of the picture before.  `poc` is the
-    picture order count (IDR: 0)."""
+    picture order count (IDR: 0); the PCM samples have `depth` bits (the
+    luma alone where `planes` is (y,): 4:0:0)."""
     nal_type = HEVC_IDR_W_RADL if kind == "IDR" else HEVC_TRAIL_R
     slice_type = HEVC_SLICE_P if kind == "P" else HEVC_SLICE_I
     b = BitWriter().u(1, 1)                   # first slice segment
@@ -518,7 +604,7 @@ def hevc_slice(kind: str, poc: int, planes: Optional[Tuple[np.ndarray, ...]],
         parts.append(cabac.take())
     else:
         part_mode = cabac_context(HEVC_PART_MODE_I)
-        cus = pcm_macroblocks(*planes)
+        cus = pcm_macroblocks(*planes, depth=depth)
         for i in range(n):
             if i:
                 cabac.terminate(0)            # end_of_slice_segment_flag
@@ -541,7 +627,8 @@ class HevcStream(NamedTuple):
     order: List[int]         # each unit's display index
     shown: List[Tuple[np.ndarray, ...]]     # the pictures in display order
     size: Tuple[int, int]    # (w, h)
-    depth: int               # 8 (Main) or 10 (Main 10)
+    depth: int               # 8 (Main), 10 (Main 10) or 12
+    chroma: int = 1          # chroma_format_idc: 1 4:2:0, 0 4:0:0
 
     @property
     def params(self) -> List[bytes]:
@@ -550,7 +637,8 @@ class HevcStream(NamedTuple):
 
 def encode_hevc_pcm(frames: Sequence[Optional[Tuple[np.ndarray, ...]]],
                     key_every: int = 0, reorder: bool = False,
-                    depth: int = 8) -> HevcStream:
+                    depth: int = 8, colour: Optional[Colour] = None,
+                    chroma: int = 1) -> HevcStream:
     """HEVC of `frames` (see :func:`encode_ipcm`: (y, u, v) planes, or None
     to repeat the picture before), every sample PCM so that a decoder
     gives back exactly the written Y, U and V: the first frame and every
@@ -558,8 +646,10 @@ def encode_hevc_pcm(frames: Sequence[Optional[Tuple[np.ndarray, ...]]],
     intra TRAIL_R pictures, the repeats P pictures of skipped CUs.
     `reorder` writes the pictures after the IDR in pairs swapped in
     decode order (POC 0, 2, 1, 4, 3, ...; ``sps_max_num_reorder_pics`` 1):
-    the decoder puts them back by POC.  `depth` 10 writes Main 10 (8-bit
-    PCM samples in 10-bit pictures)."""
+    the decoder puts them back by POC.  `depth` 10 writes Main 10 and 12
+    a 12-bit RExt stream, their planes uint16 of that many bits (PCM
+    samples of `depth` bits); `colour` goes to the SPS's VUI; `chroma` 0
+    writes 4:0:0 (the luma of each frame alone)."""
     if frames[0] is None:
         raise ValueError("the first frame has to be a picture")
     h, w = frames[0][0].shape
@@ -587,12 +677,13 @@ def encode_hevc_pcm(frames: Sequence[Optional[Tuple[np.ndarray, ...]]],
                                  f"picture")
             idr = i
         kind = "IDR" if key else ("P" if frames[i] is None else "I")
-        units.append(hevc_slice(kind, i - idr, frames[i], h, w))
+        planes = frames[i] if chroma or frames[i] is None else frames[i][:1]
+        units.append(hevc_slice(kind, i - idr, planes, h, w, depth))
         keys.append(key)
     r = int(reorder)
-    return HevcStream(hevc_vps(r, 1 if depth == 8 else 2),
-                      hevc_sps(h, w, r, depth), hevc_pps(), units, keys,
-                      decode, shown, (w, h), depth)
+    return HevcStream(hevc_vps(r, hevc_profile(depth, chroma)),
+                      hevc_sps(h, w, r, depth, colour, chroma), hevc_pps(),
+                      units, keys, decode, shown, (w, h), depth, chroma)
 
 
 def hevc_annexb(stream: HevcStream) -> bytes:
@@ -630,13 +721,24 @@ def visual_entry(kind: bytes, size: Tuple[int, int], *config: bytes
                b"\0" * 32, struct.pack(">Hh", 0x18, -1), *config)
 
 
-def vp09_entry(size: Tuple[int, int], profile: int = 0, depth: int = 8
-               ) -> bytes:
+def vp09_entry(size: Tuple[int, int], profile: int = 0, depth: int = 8,
+               chroma: int = 1) -> bytes:
     """A ``vp09`` sample entry with its ``vpcC`` (VP Codec ISO Media File
-    Format Binding 1.0: profile, level 3.1, bit depth, 4:2:0, BT.709)."""
+    Format Binding 1.0: profile, level 3.1, bit depth, `chroma`
+    subsampling (1: 4:2:0 colocated, 2: 4:2:2, 3: 4:4:4), BT.709)."""
     return visual_entry(b"vp09", size, full_box(
-        b"vpcC", 1, 0, bytes([profile, 31, (depth << 4) | (1 << 1), 1, 1,
-                              1]), b"\0\0"))
+        b"vpcC", 1, 0, bytes([profile, 31, (depth << 4) | (chroma << 1), 1,
+                              1, 1]), b"\0\0"))
+
+
+def colr_box(colour: Colour, kind: bytes = b"nclx") -> bytes:
+    """A sample entry's ``colr`` box: ISO's ``nclx`` (primaries, transfer,
+    matrix, the full-range bit) or QuickTime's ``nclc`` (no range bit);
+    a `colour` with no matrix states 2, unspecified."""
+    matrix = 2 if colour.matrix is None else colour.matrix
+    tail = bytes([0x80 if colour.full else 0]) if kind == b"nclx" else b""
+    return box(b"colr", kind, struct.pack(">HHH", colour.primaries,
+                                          colour.transfer, matrix), tail)
 
 
 def avcc(sps_nal: bytes, pps_nal: bytes) -> bytes:
@@ -725,7 +827,7 @@ def mux_mp4(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes],
             composition_offsets: Optional[Sequence[int]] = None,
             edit_start: Optional[int] = None,
             edits: Optional[Sequence[Tuple[int, int, float]]] = None,
-            entry: Optional[bytes] = None) -> bytes:
+            entry: Optional[bytes] = None, colr: bytes = b"") -> bytes:
     """An MP4 of one H.264 track: samples of 4-byte-length-prefixed NAL
     units, `delta` / `timescale` seconds each.  `size` is (w, h) before
     rotation; `rotation` (0/90/180/270) is the clockwise turn cv2 applies
@@ -740,7 +842,8 @@ def mux_mp4(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes],
     edit list: (segment duration in ms, media time in `timescale` units
     or -1 for an empty edit, media rate) each.  `entry` replaces the
     ``avc1`` sample entry (another codec's, e.g. :func:`vp09_entry`); the
-    `units` are then the samples as they are."""
+    `units` are then the samples as they are.  `colr` (a
+    :func:`colr_box`) goes into the ``avc1`` entry after its ``avcC``."""
     if rotation not in MATRICES:
         raise ValueError(f"rotation {rotation} is not one of 0/90/180/270")
     w, h = size
@@ -757,7 +860,7 @@ def mux_mp4(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes],
         at += sum(map(len, c))
     duration = n * delta
     if entry is None:
-        entry = visual_entry(b"avc1", (w, h), avcc(sps_nal, pps_nal))
+        entry = visual_entry(b"avc1", (w, h), avcc(sps_nal, pps_nal), colr)
     ctts = (list(composition_offsets) if composition_offsets is not None
             else [composition_shift] * n if composition_shift else None)
     if edits is None and (composition_shift or edit_start is not None):
@@ -928,6 +1031,15 @@ def yuv_frames(n: int, h: int, w: int, seed: int = 0
             for _ in range(n)]
 
 
+def yuv_frames10(n: int, h: int, w: int, seed: int = 0, depth: int = 10
+                 ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """As :func:`yuv_frames`, planes of `depth`-bit samples (uint16)."""
+    rng = np.random.RandomState(seed)
+    return [tuple(rng.randint(0, 1 << depth, s).astype(np.uint16)
+                  for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+            for _ in range(n)]
+
+
 def bgr_to_yuv420(frame: np.ndarray) -> Tuple[np.ndarray, ...]:
     """(H, W, 3) uint8 BGR, H and W even -> BT.601 studio-range planes
     (y, u, v), the chroma of each 2x2 block averaged."""
@@ -946,11 +1058,12 @@ def bgr_to_yuv420(frame: np.ndarray) -> Tuple[np.ndarray, ...]:
 
 
 def write_ipcm_mp4(path: str, frames, *, fps_timescale: Tuple[int, int] = (
-        12800, 512), key_every: int = 0, **mux) -> Tuple[bytes, bytes,
-                                                         List[bytes]]:
-    """Write `frames` (see :func:`encode_ipcm`) as an I_PCM H.264 MP4;
-    returns (sps, pps, access units)."""
-    s, p, units, keys = encode_ipcm(frames, key_every)
+        12800, 512), key_every: int = 0, colour: Optional[Colour] = None,
+        depth: int = 8, **mux) -> Tuple[bytes, bytes, List[bytes]]:
+    """Write `frames` (see :func:`encode_ipcm`: `colour` in the SPS,
+    `depth` 10 High 10) as an I_PCM H.264 MP4; returns (sps, pps, access
+    units)."""
+    s, p, units, keys = encode_ipcm(frames, key_every, colour, depth)
     h, w = frames[0][0].shape
     timescale, delta = fps_timescale
     with open(path, "wb") as f:
@@ -996,7 +1109,9 @@ def mux_mkv(codec_id: str, packets: Sequence[Tuple[bytes, bool]],
             default_duration: bool = True, block_groups: bool = False,
             roll: Optional[float] = None,
             yaw: float = 0.0,
-            doc_type: str = "matroska") -> bytes:
+            doc_type: str = "matroska",
+            colour: Optional[Colour] = None,
+            chroma_siting: Optional[Tuple[int, int]] = None) -> bytes:
     """A Matroska / WebM file of one video track: `packets` (bytes, key)
     in decode order as blocks, ``Timecode`` units of 1 ms (`timecodes`
     in ms, by default frame i at round(1000 i / fps)), 8 blocks a
@@ -1007,7 +1122,11 @@ def mux_mkv(codec_id: str, packets: Sequence[Tuple[bytes, bool]],
     ``DefaultDuration``; `block_groups` writes ``BlockGroup`` / ``Block``
     with a ``ReferenceBlock`` for each non-key block in place of
     ``SimpleBlock``; `roll` a ``Projection`` with ``ProjectionPoseRoll``
-    (and `yaw`, ``ProjectionPoseYaw``).
+    (and `yaw`, ``ProjectionPoseYaw``); `colour` a ``Colour`` with its
+    ``MatrixCoefficients`` (where it has one), ``Range`` (1 broadcast, 2
+    full), ``Primaries`` and ``TransferCharacteristics``, and
+    `chroma_siting` its ``ChromaSitingHorz`` / ``ChromaSitingVert`` (1
+    co-sited, 2 half).
     A ``Tags`` element follows the Clusters."""
     from . import mkv
 
@@ -1020,6 +1139,19 @@ def mux_mkv(codec_id: str, packets: Sequence[Tuple[bytes, bool]],
         info.append(ebml_float(mkv.DURATION, max(timecodes) + 1000 / fps))
     w, h = size
     video = [ebml_uint(mkv.PIXEL_WIDTH, w), ebml_uint(mkv.PIXEL_HEIGHT, h)]
+    if colour is not None or chroma_siting is not None:
+        fields = []
+        if colour is not None:
+            if colour.matrix is not None:
+                fields.append(ebml_uint(mkv.MATRIX_COEFFICIENTS,
+                                        colour.matrix))
+            fields += [ebml_uint(mkv.RANGE, 2 if colour.full else 1),
+                       ebml_uint(0x55BA, colour.transfer),
+                       ebml_uint(0x55BB, colour.primaries)]
+        if chroma_siting is not None:
+            fields += [ebml_uint(mkv.CHROMA_SITING_HORZ, chroma_siting[0]),
+                       ebml_uint(mkv.CHROMA_SITING_VERT, chroma_siting[1])]
+        video.append(ebml(mkv.COLOUR, *fields))
     if roll is not None:
         video.append(ebml(mkv.PROJECTION, ebml_uint(mkv.PROJECTION_TYPE, 0),
                           ebml_float(mkv.POSE_YAW, yaw),
@@ -1065,12 +1197,14 @@ def avcc_record(sps_nal: bytes, pps_nal: bytes) -> bytes:
     return avcc(sps_nal, pps_nal)[8:]
 
 
-def write_ipcm_mkv(path: str, frames, *, key_every: int = 0, **mux
-                   ) -> Tuple[bytes, bytes, List[bytes]]:
-    """Write `frames` (see :func:`encode_ipcm`) as I_PCM H.264 in
-    Matroska (``V_MPEG4/ISO/AVC``, 4-byte NAL lengths); returns (sps, pps,
-    access units)."""
-    s, p, units, keys = encode_ipcm(frames, key_every)
+def write_ipcm_mkv(path: str, frames, *, key_every: int = 0,
+                   sps_colour: Optional[Colour] = None, depth: int = 8,
+                   **mux) -> Tuple[bytes, bytes, List[bytes]]:
+    """Write `frames` (see :func:`encode_ipcm`: `sps_colour` in the SPS,
+    `depth` 10 High 10) as I_PCM H.264 in Matroska (``V_MPEG4/ISO/AVC``,
+    4-byte NAL lengths; `colour` in `mux` is the track's); returns (sps,
+    pps, access units)."""
+    s, p, units, keys = encode_ipcm(frames, key_every, sps_colour, depth)
     h, w = frames[0][0].shape
     packets = [(struct.pack(">I", len(u)) + u, k) for u, k in zip(units,
                                                                    keys)]
@@ -1285,11 +1419,13 @@ def h264_access_units(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes]
 
 def write_ipcm_ts(path: str, frames, *, key_every: int = 0,
                   fps: Tuple[int, int] = (25, 1), start: int = TS_START,
+                  colour: Optional[Colour] = None, depth: int = 8,
                   **mux) -> None:
-    """Write `frames` (see :func:`encode_ipcm`) as I_PCM H.264 in an MPEG
-    transport stream (:func:`mux_ts`), frame i at `start` + i frames of
-    `fps` (num, den) on the 90 kHz clock (wrapping past 2^33)."""
-    s, p, units, keys = encode_ipcm(frames, key_every)
+    """Write `frames` (see :func:`encode_ipcm`: `colour` in the SPS,
+    `depth` 10 High 10) as I_PCM H.264 in an MPEG transport stream
+    (:func:`mux_ts`), frame i at `start` + i frames of `fps` (num, den) on
+    the 90 kHz clock (wrapping past 2^33)."""
+    s, p, units, keys = encode_ipcm(frames, key_every, colour, depth)
     data = h264_access_units(s, p, units)
     ticks = 90000 * fps[1] // fps[0]
     ts_units = [TsUnit(d, start + i * ticks, None) for i, d in enumerate(data)]
@@ -1467,15 +1603,18 @@ def write_ipcm_ps(path: str, frames, *, key_every: int = 0,
 # HEVC in MP4, Matroska, MPEG-TS and MPEG program streams
 # ---------------------------------------------------------------------------
 
-def hvcc_record(stream: HevcStream) -> bytes:
+def hvcc_record(stream: HevcStream, chroma: Optional[int] = None) -> bytes:
     """The ``hvcC`` record (ISO 14496-15 8.3.3: an MP4 box's payload,
     Matroska's ``CodecPrivate`` of ``V_MPEGH/ISO/HEVC``): the SPS's
-    profile, tier and level, 4:2:0, the bit depth, 4-byte NAL lengths,
-    and arrays of the VPS, SPS and PPS."""
+    profile, tier and level, chroma format (`chroma` in place of the
+    stream's, to state another), the bit depth, 4-byte NAL lengths, and
+    arrays of the VPS, SPS and PPS."""
     d = stream.depth - 8
-    head = (b"\x01" + profile_tier_level(1 if d == 0 else 2).bytes()
-            + struct.pack(">HBBBBHBB", 0xF000, 0xFC, 0xFC | 1, 0xF8 | d,
-                          0xF8 | d, 0, 0x0F, 3))
+    chroma = stream.chroma if chroma is None else chroma
+    head = (b"\x01" + profile_tier_level(hevc_profile(stream.depth,
+                                                      chroma)).bytes()
+            + struct.pack(">HBBBBHBB", 0xF000, 0xFC, 0xFC | chroma,
+                          0xF8 | d, 0xF8 | d, 0, 0x0F, 3))
     return head + b"".join(
         struct.pack(">BHH", 0x80 | kind, 1, len(unit)) + unit
         for kind, unit in zip((HEVC_VPS, HEVC_SPS, HEVC_PPS), stream.params))
@@ -1494,11 +1633,14 @@ def hevc_samples(stream: HevcStream, in_band: bool = False) -> List[bytes]:
 
 def write_hevc_mp4(path: str, stream: HevcStream, *, kind: str = "hvc1",
                    fps_timescale: Tuple[int, int] = (12800, 512),
+                   colr: bytes = b"", hvcc_chroma: Optional[int] = None,
                    **mux) -> None:
     """Write `stream` as an MP4 of one HEVC track: an ``hvc1`` sample entry
     (parameter sets only in its ``hvcC``) or ``hev1`` (in the samples
     too); a reordered stream gets each sample's composition offset and an
-    edit list one frame in, as muxers write them."""
+    edit list one frame in, as muxers write them.  `colr` (a
+    :func:`colr_box`) follows the ``hvcC``, whose chroma format
+    `hvcc_chroma` overrides."""
     if kind not in ("hvc1", "hev1"):
         raise ValueError(f"an HEVC sample entry is hvc1 or hev1, not {kind}")
     timescale, delta = fps_timescale
@@ -1507,7 +1649,7 @@ def write_hevc_mp4(path: str, stream: HevcStream, *, kind: str = "hvc1",
             (d + 1 - i) * delta for i, d in enumerate(stream.order)],
             edit_start=delta, **mux)
     entry = visual_entry(kind.encode(), stream.size,
-                         box(b"hvcC", hvcc_record(stream)))
+                         box(b"hvcC", hvcc_record(stream, hvcc_chroma)), colr)
     with open(path, "wb") as f:
         f.write(mux_mp4(b"", b"", hevc_samples(stream, kind == "hev1"),
                         stream.keys, stream.size, timescale=timescale,
@@ -1663,6 +1805,102 @@ def write_cv2_video(path: str, fourcc: str, n: int, h: int, w: int,
     for i in range(n):
         writer.write(np.ascontiguousarray(render_scene(i, h, w)))
     writer.release()
+
+
+def encode_lavc(encoder: str, frames: Sequence[Tuple[np.ndarray, ...]],
+                colour: Optional[Colour] = None, fps: int = 20,
+                **options: int) -> List[Tuple[bytes, bool]]:
+    """Packets (bytes, key) of `frames` ((y, u, v) planes: uint8, or
+    uint16 of 10 bits, ``yuv420p10le``) from the OpenCV wheel's
+    libavcodec `encoder` (``libvpx-vp9``, ``mpeg2video``, ...) with the
+    integer `options` (its own or the context's); `colour` goes to the
+    context (``colorspace``, ``color_range``, primaries, transfer), which
+    the encoder writes where its syntax has a place (VP9's frame header,
+    MPEG-2's sequence display extension).  Raises where the library has
+    no such encoder."""
+    import ctypes
+
+    from ..native import avcodec
+    from ..native.avencode import _Rational, encoder_libraries
+    libs = encoder_libraries()
+    av, au = libs.avcodec, libs.avutil
+    h, w = frames[0][0].shape
+    fmt = b"yuv420p10le" if frames[0][0].dtype == np.uint16 else b"yuv420p"
+    codec = av.avcodec_find_encoder_by_name(encoder.encode())
+    if not codec:
+        raise RuntimeError(f"{libs.path} has no {encoder} encoder")
+    ctx = ctypes.c_void_p(av.avcodec_alloc_context3(codec))
+    packet = ctypes.c_void_p(av.av_packet_alloc())
+    frame = ctypes.c_void_p(au.av_frame_alloc())
+    out: List[Tuple[bytes, bool]] = []
+    try:
+        au.av_opt_set_q(ctx, b"time_base", _Rational(1, fps), 0)
+        au.av_opt_set(ctx, b"video_size", f"{w}x{h}".encode(), 0)
+        au.av_opt_set(ctx, b"pixel_format", fmt, 0)
+        if colour is not None:
+            if colour.matrix is not None:
+                options["colorspace"] = colour.matrix
+            options.update(color_range=2 if colour.full else 1,
+                           color_primaries=colour.primaries,
+                           color_trc=colour.transfer)
+        for name, value in options.items():   # 1: the encoder's own too
+            au.av_opt_set_int(ctx, name.encode(), value, 1)
+        err = av.avcodec_open2(ctx, codec, None)
+        if err < 0:
+            raise RuntimeError(f"avcodec_open2({encoder}): "
+                               f"{libs.error(err)}")
+        f = avcodec._Frame.from_address(frame.value)
+        f.width, f.height, f.format = w, h, au.av_get_pix_fmt(fmt)
+        for i, planes in enumerate([*frames, None]):
+            if planes is not None:
+                held = [np.ascontiguousarray(p) for p in planes]
+                for k, p in enumerate(held):
+                    f.data[k], f.linesize[k] = p.ctypes.data, p.strides[0]
+            err = av.avcodec_send_frame(ctx, frame if planes is not None
+                                        else None)
+            if err < 0:
+                raise RuntimeError(f"{encoder} refused frame {i}: "
+                                   f"{libs.error(err)}")
+            while av.avcodec_receive_packet(ctx, packet) >= 0:
+                pk = avcodec._Packet.from_address(packet.value)
+                out.append((ctypes.string_at(pk.data, pk.size),
+                            bool(pk.flags & avcodec.AV_PKT_FLAG_KEY)))
+                av.av_packet_unref(packet)
+    finally:
+        au.av_frame_free(ctypes.byref(frame))
+        av.av_packet_free(ctypes.byref(packet))
+        av.avcodec_free_context(ctypes.byref(ctx))
+    return out
+
+
+def encode_vp9(frames: Sequence[Tuple[np.ndarray, ...]],
+               colour: Optional[Colour] = None, lossless: bool = True
+               ) -> List[Tuple[bytes, bool]]:
+    """VP9 of `frames` (uint16 planes: profile 2) from the wheel's
+    ``libvpx-vp9``, lossless by default (the decoder then gives back the
+    planes); `colour` is its frame header's colour space and range."""
+    return encode_lavc("libvpx-vp9", frames, colour,
+                       lossless=int(lossless), g=1 << 20)
+
+
+def write_vp9(path: str, frames, *, colour: Optional[Colour] = None,
+              container: str = "webm", **mux) -> List[Tuple[bytes, bool]]:
+    """Write :func:`encode_vp9` of `frames` as WebM (``V_VP9``) or as an
+    MP4 (``vp09`` with its ``vpcC`` of the stream's profile and depth);
+    returns the packets."""
+    packets = encode_vp9(frames, colour)
+    h, w = frames[0][0].shape
+    with open(path, "wb") as f:
+        if container == "mp4":
+            depth = 10 if frames[0][0].dtype == np.uint16 else 8
+            f.write(mux_mp4(b"", b"", [d for d, _ in packets],
+                            [k for _, k in packets], (w, h),
+                            entry=vp09_entry((w, h), 2 if depth == 10 else 0,
+                                             depth), **mux))
+        else:
+            f.write(mux_mkv("V_VP9", packets, (w, h), doc_type="webm",
+                            **mux))
+    return packets
 
 
 def superframe(frames: Sequence[bytes]) -> bytes:

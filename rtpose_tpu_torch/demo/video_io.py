@@ -12,11 +12,11 @@ of its users' files, frame for frame as cv2 gives them:
   cv2's wheels write) in AVI (``XVID``, ``DIVX``, ``DX50``, ``FMP4``,
   ``MP4V``, ``H264``, ``AVC1``, ``X264`` chunks), in MP4 / MOV
   (``demo/mp4.py``; fragmented files, and edit lists of several entries)
-  or in Matroska (``demo/mkv.py``); VP9 (profile 0) in WebM, Matroska or
-  MP4 (``vp09``): browser ``MediaRecorder``, OBS and most downloaded web
-  video;
-- HEVC (Main: 8-bit 4:2:0) in MP4 / MOV (``hvc1``, ``hev1``: what
-  phones record), Matroska and MPEG-TS;
+  or in Matroska (``demo/mkv.py``), H.264 High 10 too; VP9 (profiles 0
+  and 2: 8- and 10-bit 4:2:0) in WebM, Matroska or MP4 (``vp09``):
+  browser ``MediaRecorder``, OBS and most downloaded web video;
+- HEVC (Main and Main 10: 4:2:0 of 8 or 10 bits) in MP4 / MOV
+  (``hvc1``, ``hev1``: what phones record), Matroska and MPEG-TS;
 - MPEG-1 / MPEG-2 video, MPEG-4 Part 2, H.264 and HEVC in MPEG transport
   streams, ``.ts`` and M2TS / AVCHD ``.mts`` (``demo/mpegts.py``, its
   frames split by libavcodec's parsers): IP and surveillance cameras,
@@ -26,15 +26,26 @@ of its users' files, frame for frame as cv2 gives them:
   as ``CAP_PROP_ORIENTATION_AUTO`` does; H.264 and HEVC pictures come in
   cv2's order.  The packets are decoded on the host by FFmpeg's libavcodec
   from the OpenCV wheel (``native/avcodec.py``), the planes converted to
-  BGR and turned on the card (``ops.kernels.yuv420_to_bgr``, cv2's
-  arithmetic to the bit).  ``device="cpu"`` converts with the kernel's
-  plain version, for tests; without a card, and without the library,
+  BGR and turned on the card (``ops.kernels.yuv420_to_bgr`` for 8-bit
+  frames, ``ops.kernels.yuv420p10_to_bgr`` for 10-bit ones: cv2's
+  arithmetic to the bit).  ``device="cpu"`` converts with the kernels'
+  plain versions, for tests; without a card, and without the library,
   opening such a file raises.
 
+Colour is converted as cv2 5.0 converts it (:func:`conversion`): with
+the matrix and range the frame carries, which the decoder takes from
+the bitstream (H.264 / HEVC VUI, MPEG-2's sequence display extension,
+VP9's frame header, ...) and, where that is silent, keeps from the
+container (an MP4 ``colr`` box, Matroska's ``Colour``; HEVC's decoder
+resets them when its VUI states none); a 10-bit frame's chroma placed
+by its chroma location.
+
 Everything else is refused with an error that names the container or
-codec and ROADMAP.md queue 1 item 4: AV1, VP9 of other profiles
-(10-bit), HEVC Main 10 and RExt (10-bit, 4:2:2, 4:4:4: item 4h), other
-4:2:2 and 4:4:4 video, laced Matroska blocks, edits of another media
+codec and ROADMAP.md queue 1 item 4: AV1, VP9 of profiles 1 and 3,
+HEVC RExt, 4:2:2, 4:4:4, 4:0:0 and 12-bit video (item 4i), colour cv2
+5.0 does not convert by swscale's matrix alone (other primaries than
+BT.601 / BT.709 / 240M, PQ and HLG transfers, matrices without a
+swscale table: item 4i), laced Matroska blocks, edits of another media
 rate.
 
 :class:`VideoWriter` writes AVI: a ``hdrl`` list (the ``avih`` main
@@ -50,6 +61,7 @@ one baseline JPEG a frame.
 
 from __future__ import annotations
 
+import functools
 import io
 import itertools
 import math
@@ -242,9 +254,10 @@ class DecodedVideo:
     decoded there by libavcodec (an H.264 stream probed first, as
     libavformat probes it for cv2), and each picture's planes are
     copied to `device` and converted by ``ops.kernels.yuv420_to_bgr``
-    (the plain version for ``"cpu"``).  The copy returns once the
-    decoder's buffers have been read, before the next picture reuses
-    them.  ``seconds`` sums the time of each step: ``demux`` (reading a
+    (``yuv420p10_to_bgr`` for 10-bit pictures; the plain versions for
+    ``"cpu"``), with the picture's colour (:func:`conversion`).  The copy
+    returns once the decoder's buffers have been read, before the next
+    picture reuses them.  ``seconds`` sums the time of each step: ``demux`` (reading a
     packet and, for H.264 and HEVC, its Annex-B form), ``parse`` (a
     transport or program stream's parser), ``decode`` (libavcodec) and
     ``convert`` (copy up, kernel, copy back)."""
@@ -281,7 +294,8 @@ class DecodedVideo:
                     f"BGR on the card (device='cpu' converts on the host, "
                     f"for tests)")
             t0 = time.perf_counter()
-            self._decoder = Decoder(self.codec)
+            self._decoder = Decoder(self.codec,
+                                    getattr(track, "colour", None))
             # as libavformat does for cv2 (in MPEG-TS too); MPEG-1/2 and
             # HEVC decoders reorder from the first picture: no probe
             if self.codec == "h264":
@@ -324,7 +338,7 @@ class DecodedVideo:
                 self.seconds["decode"] += time.perf_counter() - t0
                 if picture is None:
                     break
-                yield picture
+                yield (*picture, self._decoder.colour)
             if packet is None:
                 return
 
@@ -332,7 +346,7 @@ class DecodedVideo:
         """(True, next frame) or (False, None) after the last one."""
         import torch
 
-        from ..ops.kernels import yuv420_to_bgr
+        from ..ops.kernels import yuv420_to_bgr, yuv420p10_to_bgr
         if self._decoder is None:
             return False, None
         while True:
@@ -345,10 +359,20 @@ class DecodedVideo:
             if show:
                 break
         t0 = time.perf_counter()
-        *planes, width = picture
+        *planes, width, colour = picture
+        try:
+            rule, location = conversion(colour)
+        except ValueError as e:
+            raise ValueError(f"{self.path}: {e}") from None
         planes = [torch.from_numpy(p).to(self.device) for p in planes]
-        frame = yuv420_to_bgr(*planes, width=width,
-                              rotation=self.rotation).cpu().numpy()
+        if colour.depth == 8:
+            frame = yuv420_to_bgr(*planes, width=width,
+                                  rotation=self.rotation, rule=rule)
+        else:
+            frame = yuv420p10_to_bgr(*planes, width=width,
+                                     rotation=self.rotation, rule=rule,
+                                     chroma_location=location)
+        frame = frame.cpu().numpy()
         self.seconds["convert"] += time.perf_counter() - t0
         return True, frame
 
@@ -357,6 +381,31 @@ class DecodedVideo:
             self._decoder.close()
             self._decoder = None
         self._f.close()
+
+
+# what cv2 5.0 (FFmpeg 8's swscale graph) leaves to swscale's YUV -> RGB
+# matrix alone; other primaries (BT.2020, DCI-P3, film, XYZ, ...) and the
+# PQ and HLG transfers it converts in gamut or tone, which the port does not
+PLAIN_PRIMARIES = frozenset([1, 2, 4, 5, 6, 7])
+PLAIN_TRANSFERS = frozenset([1, 2, 4, 5, 6, 7, 8, 11, 12, 13, 14, 15, 17])
+
+
+@functools.lru_cache(maxsize=None)
+def conversion(colour) -> Tuple[object, int]:
+    """(``ops.kernels.YuvRule``, chroma location) of a decoded picture's
+    ``native.avcodec.FrameColour``: the matrix and range the frame
+    carries, as cv2 5.0 converts it; raises ValueError naming what it
+    converts otherwise (ROADMAP.md queue 1 item 4i)."""
+    from ..ops.kernels import yuv_rule
+    if colour.primaries not in PLAIN_PRIMARIES:
+        raise ValueError(f"a video stream of colour primaries "
+                         f"{colour.primaries} (cv2 5.0 converts their gamut; "
+                         f"ROADMAP.md queue 1 item 4i)")
+    if colour.transfer not in PLAIN_TRANSFERS:
+        raise ValueError(f"a video stream of transfer characteristics "
+                         f"{colour.transfer} (cv2 5.0 converts its tone: "
+                         f"PQ, HLG; ROADMAP.md queue 1 item 4i)")
+    return yuv_rule(colour.matrix, colour.full), colour.chroma_location
 
 
 def _shown_flags(shown) -> Iterator[bool]:

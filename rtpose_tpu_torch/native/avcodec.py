@@ -10,34 +10,44 @@ Why the host: the card's machine mounts the driver's NVDEC library
 there, ``cuvidGetDecoderCaps`` included, with CUDA error 2
 (``scripts/torch_probe_video.py``).  So the video reader decodes here
 and converts the decoded 4:2:0 planes to BGR on the card
-(``ops.kernels.yuv420_to_bgr``).
+(``ops.kernels.yuv420_to_bgr``, ``ops.kernels.yuv420p10_to_bgr``).
 
 Only version-stable pieces of the API are used: ``avcodec_find_decoder_by_name``,
 ``avcodec_alloc_context3``, ``avcodec_open2``, ``avcodec_send_packet``,
 ``avcodec_receive_frame`` and the allocators and destructors of the
-context, the packet and the frame, with no option set; of ``AVPacket``
-its leading fields (``data``, ``size``, ``flags`` set; ``pts`` and ``dts`` left unset) and
+context, the packet and the frame; of ``AVPacket`` its leading fields
+(``data``, ``size``, ``flags`` set; ``pts`` and ``dts`` left unset) and
 of ``AVFrame`` its ``data``, ``linesize``, ``width``, ``height`` and
-``format``, whose places have not moved since FFmpeg 4.  The parsers
+``format``, whose places have not moved since FFmpeg 4.  The colour is
+the codec context's, through its options (``av_opt_set_int`` /
+``av_opt_get_int``; in ``options_table.h`` since FFmpeg 1.x, no field
+offset): the container's ``colorspace``, ``color_range``,
+``chroma_sample_location``, ``color_primaries`` and ``color_trc`` are
+set before ``avcodec_open2``, as
+libavformat copies a stream's parameters into the decoder for cv2, and
+read back after each frame, when the decoder has put in their place
+what the bitstream states (:class:`FrameColour`).  The parsers
 (:class:`Parser`) take ``avcodec_descriptor_get_by_name`` (of whose
 ``AVCodecDescriptor`` only the leading ``id`` is read),
-``av_get_pix_fmt_name`` (what names a pixel format that is refused),
-``av_parser_init``, ``av_parser_parse2`` and ``av_parser_close``, all
-unchanged since FFmpeg 0.x; no field of ``AVCodecParserContext`` is
-read.  Packets go in
+``av_get_pix_fmt_name`` / ``av_get_pix_fmt`` (the names of pixel
+formats), ``av_parser_init``, ``av_parser_parse2`` and
+``av_parser_close``, all unchanged since FFmpeg 0.x; no field of
+``AVCodecParserContext`` is read.  Packets go in
 as the demuxer gives them (H.264 as Annex-B with its parameter sets in
-the stream; MPEG-4 with its VOL headers ahead of the first frame), so no
-field of the codec context is set either.  Frames come out in display
+the stream; MPEG-4 with its VOL headers ahead of the first frame).
+Frames come out in display
 order; an H.264 stream is first probed (:meth:`Decoder.probe`) as
 libavformat probes it for cv2, so that a stream whose SPS states no
 reorder delay gives its B pictures as cv2 does.  MPEG-1, MPEG-2 and HEVC
 streams need no probe: MPEG-1/2 decoders reorder their B pictures from
 the first, whatever came before, and an HEVC SPS always states its
 reorder delay (``sps_max_num_reorder_pics``), which the decoder follows.
-Only 8-bit 4:2:0 frames are taken; HEVC Main 10 and RExt frames
-(``yuv420p10le``, ``yuv422p``, ...) are refused by name (ROADMAP.md
-item 4h), as is any other format.  Nothing is loaded at import; without the
-library the first decoder or parser raises, naming where it looked.
+4:2:0 frames of 8 bits (``yuv420p``, full-range ``yuvj420p``) and of 10
+bits (``yuv420p10le``: HEVC Main 10, H.264 High 10, VP9 profile 2) are
+taken; 4:2:2, 4:4:4, 4:0:0 (gray) and 12-bit frames are refused by name
+(ROADMAP.md item 4i), as is any other format.  Nothing is loaded at
+import; without the library the first decoder or parser raises, naming
+where it looked.
 """
 
 from __future__ import annotations
@@ -48,7 +58,7 @@ import os
 import site
 import sys
 import threading
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -58,9 +68,10 @@ CODECS = ("h264", "hevc", "mpeg4", "vp9", "mpeg1video", "mpeg2video")
 PARSERS = {"mpeg1video": "mpegvideo", "mpeg2video": "mpegvideo",
            "mpeg4": "mpeg4video", "h264": "h264", "hevc": "hevc"}
 AV_PIX_FMT_YUV420P = 0
-AV_PIX_FMT_YUV422P = 4
-AV_PIX_FMT_YUV444P = 5
-AV_PIX_FMT_YUVJ420P = 12
+# the frames taken, by pixel format name: (bits a sample, full range)
+READ_FORMATS = {"yuv420p": (8, False), "yuvj420p": (8, True),
+                "yuv420p10le": (10, False)}
+AVCOL_RANGE_MPEG, AVCOL_RANGE_JPEG = 1, 2
 AV_PKT_FLAG_KEY = 1
 AVERROR_EAGAIN = -11
 AVERROR_EOF = -0x20464F45          # -MKTAG('E', 'O', 'F', ' ')
@@ -122,6 +133,46 @@ def _load(path: str, depth: int = 0) -> ctypes.CDLL:
     return _load(path, depth + 1)
 
 
+class StreamColour(NamedTuple):
+    """What a container states of its video's colour (None: nothing):
+    the H.273 matrix (``colr``, Matroska ``MatrixCoefficients``),
+    whether the range is full, the chroma location (``AVChromaLocation``:
+    1 left, 2 center, 3 top left, ...), the primaries and the transfer."""
+    matrix: Optional[int] = None
+    full: Optional[bool] = None
+    chroma_location: Optional[int] = None
+    primaries: Optional[int] = None
+    transfer: Optional[int] = None
+
+
+class FrameColour(NamedTuple):
+    """The colour of a decoded frame as the decoder settled it: the
+    matrix (``AVColorSpace``, H.273's numbers: 2 unspecified), full range
+    (``color_range`` JPEG, or a ``yuvj420p`` frame), the chroma location
+    (``AVChromaLocation``, 0 unspecified), the bits a sample, the
+    primaries and the transfer (H.273's numbers)."""
+    matrix: int
+    full: bool
+    chroma_location: int
+    depth: int
+    primaries: int = 2
+    transfer: int = 2
+
+
+def _refused_format(name: str) -> str:
+    """What a frame of pixel format `name` is, for the refusal."""
+    if name.startswith("gray"):
+        return f"4:0:0 ({name})"
+    for tag, what in (("yuv422", "4:2:2"), ("yuvj422", "4:2:2"),
+                      ("yuv444", "4:4:4"), ("yuvj444", "4:4:4"),
+                      ("yuv440", "4:4:0"), ("yuv411", "4:1:1")):
+        if name.startswith(tag):
+            return f"{what} ({name})"
+    if name.startswith("yuv420p") and name[7:9].isdigit():
+        return f"{name[7:9]}-bit 4:2:0 ({name})"
+    return name
+
+
 class _Libraries:
     def __init__(self):
         self.avcodec = _load(find_library("avcodec"))
@@ -148,11 +199,19 @@ class _Libraries:
                 (self.avutil, "av_frame_alloc", P, []),
                 (self.avutil, "av_frame_free", None, [P]),
                 (self.avutil, "av_get_pix_fmt_name", ctypes.c_char_p, [I]),
+                (self.avutil, "av_get_pix_fmt", I, [ctypes.c_char_p]),
+                (self.avutil, "av_opt_set_int", I,
+                 [P, ctypes.c_char_p, ctypes.c_int64, I]),
+                (self.avutil, "av_opt_get_int", I,
+                 [P, ctypes.c_char_p, I, ctypes.POINTER(ctypes.c_int64)]),
+                (self.avutil, "avutil_version", ctypes.c_uint, []),
                 (self.avutil, "av_strerror", I,
                  [I, ctypes.c_char_p, ctypes.c_size_t])):
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = res, args
         self.path = self.avcodec._name
+        self.read_formats = {self.avutil.av_get_pix_fmt(name.encode()): v
+                             for name, v in READ_FORMATS.items()}
 
     def error(self, code: int) -> str:
         buf = ctypes.create_string_buffer(128)
@@ -178,12 +237,15 @@ class Decoder:
     :meth:`decode` takes one packet (bytes) and yields the frames it
     completes; :meth:`flush` yields the frames still held at the end of
     the stream.  A frame is ``(y, u, v, width)``: numpy views of the
-    decoder's planes, ``(h, linesize)`` and ``((h+1)//2, linesize)``
-    uint8, valid until the next frame is taken (the decoder then reuses
-    its buffers), and the picture's width (a linesize is padded past
-    it).  Frames come out in display order."""
+    decoder's planes, ``(h, pitch)`` and ``((h+1)//2, pitch)`` uint8
+    (uint16 for 10-bit frames: the linesize in bytes halved), valid until
+    the next frame is taken (the decoder then reuses its buffers), and
+    the picture's width (a linesize is padded past it); ``colour`` is
+    then that frame's :class:`FrameColour`.  Frames come out in display
+    order.  `colour` is the container's :class:`StreamColour`, which the
+    decoder starts from."""
 
-    def __init__(self, codec: str):
+    def __init__(self, codec: str, colour: Optional[StreamColour] = None):
         if codec not in CODECS:
             raise ValueError(f"no decoder for {codec!r}: H.264, HEVC, "
                              f"MPEG-1/2 video, MPEG-4 Part 2 and VP9 are "
@@ -201,10 +263,38 @@ class Decoder:
         if not (self._ctx and self._packet and self._frame):
             self.close()
             raise MemoryError("libavcodec could not allocate a decoder")
+        self.colour: Optional[FrameColour] = None
+        colour = colour or StreamColour()
+        for name, value in (
+                ("colorspace", colour.matrix),
+                ("color_range", None if colour.full is None else
+                 AVCOL_RANGE_JPEG if colour.full else AVCOL_RANGE_MPEG),
+                ("chroma_sample_location", colour.chroma_location),
+                ("color_primaries", colour.primaries),
+                ("color_trc", colour.transfer)):
+            if value is not None:
+                self._option(name, value)
         err = av.avcodec_open2(self._ctx, found, None)
         if err < 0:
             self.close()
             raise RuntimeError(f"avcodec_open2({codec}): {libs.error(err)}")
+
+    def _option(self, name: str, value: Optional[int] = None) -> int:
+        """Set (`value` given) or read the codec context's option `name`;
+        raises, naming the library, where it has no such option."""
+        avutil = self._libs.avutil
+        if value is not None:
+            err = avutil.av_opt_set_int(self._ctx, name.encode(), value, 0)
+        else:
+            out = ctypes.c_int64()
+            err = avutil.av_opt_get_int(self._ctx, name.encode(), 0,
+                                        ctypes.byref(out))
+            value = out.value
+        if err < 0:
+            self.close()
+            raise RuntimeError(f"{self._libs.path}: the codec context's "
+                               f"option {name!r}: {self._libs.error(err)}")
+        return value
 
     def _send(self, data: Optional[bytes], key: bool) -> None:
         av = self._libs.avcodec
@@ -236,23 +326,29 @@ class Decoder:
 
     def _planes(self):
         f = _Frame.from_address(self._frame.value)
-        if f.format != AV_PIX_FMT_YUV420P:
+        taken = self._libs.read_formats.get(f.format)
+        if taken is None:
             name = self._libs.avutil.av_get_pix_fmt_name(f.format)
             name = name.decode() if name else f"pixel format {f.format}"
-            what = {AV_PIX_FMT_YUVJ420P: "full-range 4:2:0 (yuvj420p)",
-                    AV_PIX_FMT_YUV422P: "4:2:2 (yuv422p)",
-                    AV_PIX_FMT_YUV444P: "4:4:4 (yuv444p)"}.get(f.format, name)
-            if self.codec == "hevc":
-                what += " (HEVC Main 10 / RExt: item 4h)"
-            raise ValueError(f"{self.codec} frames in {what}: only "
-                             f"limited-range 8-bit 4:2:0 (yuv420p) is read "
-                             f"(ROADMAP.md queue 1 item 4)")
+            raise ValueError(f"{self.codec} frames in "
+                             f"{_refused_format(name)}: only 4:2:0 of 8 "
+                             f"or 10 bits (yuv420p, yuvj420p, yuv420p10le) "
+                             f"is read (ROADMAP.md queue 1 item 4i)")
+        depth, full = taken
+        self.colour = FrameColour(
+            self._option("colorspace"),
+            full or self._option("color_range") == AVCOL_RANGE_JPEG,
+            self._option("chroma_sample_location"), depth,
+            self._option("color_primaries"), self._option("color_trc"))
         h, ch = f.height, (f.height + 1) // 2
+        item = np.uint16 if depth > 8 else np.uint8
+        size = np.dtype(item).itemsize
         planes = []
         for i, rows in ((0, h), (1, ch), (2, ch)):
             pitch = f.linesize[i]
             buf = (ctypes.c_uint8 * (rows * pitch)).from_address(f.data[i])
-            planes.append(np.ctypeslib.as_array(buf).reshape(rows, pitch))
+            planes.append(np.ctypeslib.as_array(buf).view(item).reshape(
+                rows, pitch // size))
         return (*planes, f.width)
 
     def probe(self, packets: Iterator[Tuple[bytes, bool]]) -> None:

@@ -44,7 +44,10 @@ _SIGNATURES = {
     "rtpose_group_people": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _F, _P, _P),
     "rtpose_group_smem_bytes": (_I, _I, _I),
-    "rtpose_yuv420_to_bgr": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    "rtpose_yuv420_to_bgr": (_P, _P, _P, _I, _I, _I, _I, _I, "rule", _P,
+                             _P),
+    "rtpose_yuv420p10_to_bgr": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
+                                _P, _P, _I, "rule", _P, _P),
 }
 
 
@@ -135,9 +138,10 @@ def load() -> BuiltLibrary:
             log = _compile(path)
             seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
+        from .kernels import _RuleArg    # csrc/yuv_rule.cuh, by value
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
+            fn.argtypes = [_RuleArg if a == "rule" else a for a in argtypes]
             fn.restype = ctypes.c_int
         _loaded = BuiltLibrary(lib, path, seconds, log)
         return _loaded

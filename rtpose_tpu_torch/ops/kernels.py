@@ -22,8 +22,11 @@ Three kernels carry the decode and one the training step's ground truth
   ``pallas_call``: keypoints in, both maps out, one launch;
 - :func:`yuv420_to_bgr` (``csrc/yuv420_to_bgr.cu``) replaces no TPU
   kernel but the colour conversion inside ``cv2.VideoCapture`` (swscale's
-  yuv420p -> bgr24, then the stream's rotation): a decoded video frame's
-  planes in, BGR out, for the video reader.
+  yuv420p -> bgr24 with the stream's matrix and range, then the stream's
+  rotation): a decoded video frame's planes in, BGR out, for the video
+  reader; :func:`yuv420p10_to_bgr` (``csrc/yuv420p10_to_bgr.cu``) the
+  same for 10-bit frames (swscale's yuv420p10le -> bgr24, its scaling
+  path with the chroma filtered).
 
 A wrapper given CPU tensors runs the plain PyTorch version beside it; given
 CUDA tensors it launches the kernel or raises.  There is no fallback from
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -988,52 +991,149 @@ group_people.launches = 0
 # ---------------------------------------------------------------------------
 
 ROTATIONS = (0, 90, 180, 270)
-# swscale's 16-bit coefficients (BT.601, limited range), as cv2's frames
-# show them: luma, U->B, U->G, V->G, V->R; see csrc/yuv420_to_bgr.cu
-YUV_COEFFS = (9539, 16525, -3209, -6660, 13075)
+# swscale's inverse tables (ff_yuv2rgb_coeffs: V->R, U->B, U->G, V->G in
+# 1/65536 of limited-range 8-bit values), by the H.273 matrix
+# (``matrix_coefficients``, ``AVColorSpace``) as sws_getCoefficients maps it
+_BT601 = (104597, 132201, 25675, 53279)
+SWS_MATRICES = {1: (117489, 138438, 13975, 34925),     # BT.709
+                2: _BT601, 5: _BT601, 6: _BT601,       # unspecified, 601
+                4: (104448, 132798, 24759, 53109),     # FCC
+                7: (117579, 136230, 16907, 35559),     # SMPTE 240M
+                9: (110013, 140363, 12277, 42626)}     # BT.2020 NCL
+MATRIX_NAMES = {0: "GBR (identity)", 1: "BT.709", 2: "unspecified (BT.601)",
+                3: "reserved", 4: "FCC", 5: "BT.470BG (BT.601)",
+                6: "SMPTE 170M (BT.601)", 7: "SMPTE 240M", 8: "YCgCo",
+                9: "BT.2020 NCL", 10: "BT.2020 CL", 11: "SMPTE 2085",
+                12: "chroma-derived NCL", 13: "chroma-derived CL",
+                14: "ICtCp"}
 
 
-def yuv420_to_bgr_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                        *, width: int, rotation: int = 0) -> torch.Tensor:
-    """The plain version of :func:`yuv420_to_bgr` (int32 arithmetic)."""
-    h = y.shape[0]
-    cy, cub, cug, cvg, cvr = YUV_COEFFS
+class YuvRule(NamedTuple):
+    """swscale's integer constants for one (matrix, range), as
+    ``ff_yuv2rgb_c_init_tables`` derives them (contrast and saturation
+    1, brightness 0): the 16-bit coefficients of its SIMD paths (luma,
+    U->B, U->G, V->G, V->R; ``y_offset`` the luma offset in 8x units) and
+    those of its table path (``cy`` the luma step, ``y_base`` the luma
+    table's origin, the chroma terms scaled by ``cy``)."""
+    matrix: int
+    full: bool
+    luma: int
+    ub: int
+    ug: int
+    vg: int
+    vr: int
+    y_offset: int
+    cy: int
+    y_base: int
+    bu: int
+    gu: int
+    gv: int
+    rv: int
 
-    def full(c):       # each chroma sample over its 2x2 block
-        c = c[:, :(width + 1) // 2].to(torch.int32)
-        return c.repeat_interleave(2, 0).repeat_interleave(2, 1)[:h, :width]
 
-    luma = ((8 * y[:, :width].to(torch.int32) - 128) * cy) >> 16
-    u8, v8 = 8 * (full(u) - 128), 8 * (full(v) - 128)
-    bgr = torch.stack([luma + ((u8 * cub) >> 16),
-                       luma + ((u8 * cug) >> 16) + ((v8 * cvg) >> 16),
-                       luma + ((v8 * cvr) >> 16)], dim=-1)
-    bgr = bgr.clamp(0, 255).to(torch.uint8)
+def _c_div(a: int, b: int) -> int:
+    """C's integer division (toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+@functools.lru_cache(maxsize=None)
+def yuv_rule(matrix: int = 2, full: bool = False) -> YuvRule:
+    """The :class:`YuvRule` of a stream's matrix and range; raises
+    ValueError naming a matrix swscale has no table for (cv2 5.0 refuses
+    those streams' frames, or converts them as another matrix)."""
+    if matrix not in SWS_MATRICES:
+        raise ValueError(f"a video stream of colour matrix {matrix} "
+                         f"({MATRIX_NAMES.get(matrix, 'unknown')}): BT.601, "
+                         f"BT.709, FCC, SMPTE 240M and BT.2020 NCL are "
+                         f"converted (ROADMAP.md queue 1 item 4i)")
+    crv, cbu, cgu, cgv = SWS_MATRICES[matrix]
+    cgu, cgv = -cgu, -cgv
+    if full:
+        cy, oy = 1 << 16, 0
+        crv, cbu, cgu, cgv = (_c_div(c * 224, 255)
+                              for c in (crv, cbu, cgu, cgv))
+    else:
+        cy, oy = (1 << 16) * 255 // 219, 16 << 16
+
+    def simd(c: int, shift: int = 13) -> int:    # roundToInt16(c * 2^shift)
+        return ((c << shift) + (1 << 15)) >> 16
+
+    def table(c: int) -> int:                   # scaled by cy
+        return _c_div(c * 65536 + 0x8000, cy)
+
+    yoffs = 384 if full else 326
+    return YuvRule(matrix, bool(full), simd(cy), simd(cbu), simd(cgu),
+                   simd(cgv), simd(crv), simd(oy, 3), cy,
+                   yoffs * cy - (384 << 16) - oy, table(cbu), table(cgu),
+                   table(cgv), table(crv))
+
+
+BT601_LIMITED = yuv_rule(2, False)
+
+
+class _RuleArg(ctypes.Structure):
+    """:class:`YuvRule` as the kernels take it, by value."""
+    _fields_ = [(name, ctypes.c_int) for name in YuvRule._fields]
+
+
+def _rule_arg(rule: YuvRule) -> _RuleArg:
+    return _RuleArg(*(int(v) for v in rule))
+
+
+def _turn(bgr: torch.Tensor, rotation: int) -> torch.Tensor:
     turns = {0: 0, 90: -1, 180: 2, 270: 1}[rotation]   # rot90 turns left
     return torch.rot90(bgr, turns, dims=(0, 1)).contiguous()
 
 
-def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
-                  width: int, rotation: int = 0) -> torch.Tensor:
-    """A 4:2:0 picture's planes to ``(H', W', 3)`` uint8 BGR, turned
-    clockwise by `rotation` (0/90/180/270; H' x W' is W x H at a quarter
-    turn), exactly as cv2's frames of it.
-
-    y: (H, pitch) uint8, the picture in its first `width` columns; u, v:
-    ((H + 1) // 2, chroma pitch) uint8, the chroma in their first
-    (width + 1) // 2 columns, one pitch for both.  All contiguous (the
-    pitch is the row stride) and on one device."""
+def _check_planes(name: str, y, u, v, width: int, rotation: int) -> int:
     if rotation not in ROTATIONS:
         raise ValueError(f"rotation {rotation} is not one of {ROTATIONS}")
     h = y.shape[0] if y.dim() == 2 else -1
     if (y.dim() != 2 or u.shape != v.shape or u.dim() != 2
             or u.shape[0] != (h + 1) // 2 or width > y.shape[1]
             or (width + 1) // 2 > u.shape[1] or width <= 0 or h <= 0):
-        raise ValueError(f"yuv420_to_bgr: planes {tuple(y.shape)}, "
+        raise ValueError(f"{name}: planes {tuple(y.shape)}, "
                          f"{tuple(u.shape)}, {tuple(v.shape)} do not hold "
                          f"a {h}x{width} 4:2:0 picture")
+    return h
+
+
+def yuv420_to_bgr_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                        *, width: int, rotation: int = 0,
+                        rule: YuvRule = BT601_LIMITED) -> torch.Tensor:
+    """The plain version of :func:`yuv420_to_bgr` (int32 arithmetic)."""
+    h = y.shape[0]
+
+    def full(c):       # each chroma sample over its 2x2 block
+        c = c[:, :(width + 1) // 2].to(torch.int32)
+        return c.repeat_interleave(2, 0).repeat_interleave(2, 1)[:h, :width]
+
+    luma = ((8 * y[:, :width].to(torch.int32) - rule.y_offset)
+            * rule.luma) >> 16
+    u8, v8 = 8 * (full(u) - 128), 8 * (full(v) - 128)
+    bgr = torch.stack([luma + ((u8 * rule.ub) >> 16),
+                       luma + ((u8 * rule.ug) >> 16) + ((v8 * rule.vg) >> 16),
+                       luma + ((v8 * rule.vr) >> 16)], dim=-1)
+    return _turn(bgr.clamp(0, 255).to(torch.uint8), rotation)
+
+
+def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
+                  width: int, rotation: int = 0,
+                  rule: YuvRule = BT601_LIMITED) -> torch.Tensor:
+    """A 4:2:0 picture's 8-bit planes to ``(H', W', 3)`` uint8 BGR, turned
+    clockwise by `rotation` (0/90/180/270; H' x W' is W x H at a quarter
+    turn), exactly as cv2's frames of it: swscale's unscaled path with the
+    constants of the stream's matrix and range (`rule`, :func:`yuv_rule`).
+
+    y: (H, pitch) uint8, the picture in its first `width` columns; u, v:
+    ((H + 1) // 2, chroma pitch) uint8, the chroma in their first
+    (width + 1) // 2 columns, one pitch for both.  All contiguous (the
+    pitch is the row stride) and on one device."""
+    h = _check_planes("yuv420_to_bgr", y, u, v, width, rotation)
     if _route(y) == "cpu":
-        return yuv420_to_bgr_plain(y, u, v, width=width, rotation=rotation)
+        return yuv420_to_bgr_plain(y, u, v, width=width, rotation=rotation,
+                                   rule=rule)
     dev = y.device
     for name, t in (("y", y), ("u", u), ("v", v)):
         _check(name, t, torch.uint8, 2, dev)
@@ -1042,15 +1142,276 @@ def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
                       dtype=torch.uint8, device=dev)
     _launch("rtpose_yuv420_to_bgr", dev, y.data_ptr(), u.data_ptr(),
             v.data_ptr(), y.shape[1], u.shape[1], h, width, rotation,
-            out.data_ptr())
+            _rule_arg(rule), out.data_ptr())
     yuv420_to_bgr.launches += 1
     return out
 
 
 yuv420_to_bgr.launches = 0
 
+# ---------------------------------------------------------------------------
+# 10-bit 4:2:0 to BGR: swscale's general (scaling) path, as cv2 runs it
+# ---------------------------------------------------------------------------
+
+CHROMA_LOCATIONS = {0: "unspecified", 1: "left", 2: "center",
+                    3: "top left", 4: "top", 5: "bottom left", 6: "bottom"}
+SWS_BICUBIC_C = int(0.6 * (1 << 24))   # swscale's default bicubic C (B 0)
+P10_MIN_WIDTH, P10_MIN_HEIGHT = 8, 9
+
+
+def _chroma_pos(location: int) -> Tuple[int, int]:
+    """(x, y) of a chroma sample in 1/256 of a chroma sample, as
+    ``av_chroma_location_enum_to_pos`` gives them (unspecified: -513,
+    swscale's default, the centre)."""
+    if location == 0:
+        return -513, -513
+    pos = location - 1
+    return (pos & 1) * 128, ((pos >> 1) ^ int(pos < 4)) * 128
+
+
+def _local_pos(subsample: int, pos: int) -> int:
+    """swscale's get_local_pos."""
+    if pos == -1 or pos <= -513:
+        pos = (128 << subsample) - 128
+    return (pos + 128) >> subsample
+
+
+def _bicubic(d: int) -> int:
+    """swscale's fixed-point bicubic (B 0, C 0.6) at distance `d` (1 is
+    2^30)."""
+    C = SWS_BICUBIC_C
+    if d >= 1 << 31:
+        return 0
+    dd = (d * d) >> 30
+    ddd = (dd * d) >> 30
+    if d < 1 << 30:
+        return ((12 * (1 << 24) - 6 * C) * ddd
+                + (-18 * (1 << 24) + 6 * C) * dd + 6 * (1 << 24) * (1 << 30))
+    return -6 * C * ddd + 30 * C * dd - 48 * C * d + 24 * C * (1 << 30)
+
+
+@functools.lru_cache(maxsize=64)
+def sws_filter(x_inc: int, src: int, dst: int, align: int, one: int,
+               src_pos: int, dst_pos: int) -> Tuple[np.ndarray, np.ndarray]:
+    """swscale's initFilter for SWS_BICUBIC with no user filter on x86
+    (`align` 4 horizontally, 2 vertically), at the same size or scaling
+    up: (first source index of each output, (dst,) int32; the taps,
+    (dst, size) int32 summing to `one`)."""
+    fone = 1 << 54
+    if x_inc > 1 << 16:
+        raise ValueError("sws_filter scales up or keeps the size")
+    if abs(x_inc - 0x10000) < 10 and src_pos == dst_pos:
+        return (np.arange(dst, dtype=np.int32),
+                np.full((dst, 1), one, np.int32))
+    size = max(min(5, src - 2), 1)
+    filt = [[0] * size for _ in range(dst)]
+    pos = [0] * dst
+    x = ((dst_pos * x_inc) >> 7) - ((src_pos * 0x10000) >> 7)
+    for i in range(dst):
+        xx = _c_div(x - (size - 2) * (1 << 16), 1 << 17)
+        pos[i] = xx
+        for j in range(size):
+            filt[i][j] = _bicubic(abs((xx + j) * (1 << 17) - x) << 13)
+        x += 2 * x_inc
+    # reduce: near-zero taps off the left (keeping the positions
+    # monotonic), the size the widest output needs
+    cut, need = 0.002 * fone, 0
+    for i in range(dst - 1, -1, -1):
+        acc = 0
+        for _ in range(size):
+            acc += abs(filt[i][0])
+            if acc > cut or (i < dst - 1 and pos[i] >= pos[i + 1]):
+                break
+            filt[i] = filt[i][1:] + [0]
+            pos[i] += 1
+        keep, acc = size, 0
+        for j in range(size - 1, 0, -1):
+            acc += abs(filt[i][j])
+            if acc > cut:
+                break
+            keep -= 1
+        need = max(need, keep)
+    if need == 1 and align == 2:
+        align = 1
+    n = (need + align - 1) & ~(align - 1)
+    taps = [[f[j] if j < size else 0 for j in range(n)] for f in filt]
+    for i, f in enumerate(taps):              # fold taps outside the source
+        if pos[i] < 0:
+            for j in range(1, n):
+                left = max(j + pos[i], 0)
+                f[left] += f[j]
+                f[j] = 0
+            pos[i] = 0
+        if pos[i] + n > src:
+            shift = pos[i] + min(n - src, 0)
+            acc = 0
+            for j in range(n - 1, -1, -1):
+                if pos[i] + j >= src:
+                    acc += f[j]
+                    f[j] = 0
+            for j in range(n - 1, -1, -1):
+                f[j] = 0 if j < shift else f[j - shift]
+            pos[i] -= shift
+            f[src - 1 - pos[i]] += acc
+    out = np.zeros((dst, n), np.int32)
+    for i, f in enumerate(taps):              # to `one`, error carried
+        total = max((sum(f) + one // 2) // one, 1)
+        err = 0
+        for j in range(n):
+            val = f[j] + err
+            q = _c_div(val + (total >> 1) if val >= 0 else val - (total >> 1),
+                       total)
+            out[i, j] = q
+            err = val - q * total
+    return np.asarray(pos, np.int32), out
+
+
+def p10_filters(height: int, width: int, location: int):
+    """The chroma filters of swscale's yuv420p10le -> bgr24 at one size
+    (SWS_BICUBIC, the source chroma at `location`): (horizontal first
+    sample (cw,), taps (cw, hs); vertical first row (height,), taps
+    (height, vs)), int32; 14-bit horizontal, 12-bit vertical taps."""
+    if (width % 2 or width < P10_MIN_WIDTH or height < P10_MIN_HEIGHT):
+        raise ValueError(f"a {height}x{width} 10-bit picture: 10-bit 4:2:0 "
+                         f"is converted at even widths of at least "
+                         f"{P10_MIN_WIDTH} and heights of at least "
+                         f"{P10_MIN_HEIGHT} (swscale takes other paths "
+                         f"there; ROADMAP.md queue 1 item 4i)")
+    if location not in CHROMA_LOCATIONS:
+        raise ValueError(f"chroma location {location} is not one of "
+                         f"{sorted(CHROMA_LOCATIONS)}")
+    cw, ch = width // 2, (height + 1) // 2
+    x, y = _chroma_pos(location)
+    hpos, htaps = sws_filter(1 << 16, cw, cw, 4, 1 << 14, _local_pos(1, x),
+                             _local_pos(1, -513))
+    v_inc = ((ch << 16) + (height >> 1)) // height
+    vpos, vtaps = sws_filter(v_inc, ch, height, 2, 1 << 12,
+                             _local_pos(1, y), _local_pos(0, -513))
+    if vtaps.shape[1] <= 2:
+        raise ValueError(f"a {height}x{width} 10-bit picture: swscale's "
+                         f"two-tap path (ROADMAP.md queue 1 item 4i)")
+    return hpos, htaps, vpos, vtaps
+
+
+def _table_bgr(yi, uc, vc, rule: YuvRule) -> torch.Tensor:
+    """swscale's table path (yuv2rgb_X_c's bgr24 tables): 8-bit luma and
+    chroma indices to BGR."""
+    def ytab(k):
+        return ((k * rule.cy + rule.y_base + 0x8000) >> 16).clamp(0, 255)
+
+    def term(c, inc):
+        return ((c.clamp(0, 255) * inc) >> 16) - (inc >> 9)
+
+    return torch.stack([ytab(yi + term(uc, rule.bu)),
+                        ytab(yi + term(uc, rule.gu) + term(vc, rule.gv)),
+                        ytab(yi + term(vc, rule.rv))], dim=-1)
+
+
+def yuv420p10_to_bgr_plain(y: torch.Tensor, u: torch.Tensor,
+                           v: torch.Tensor, *, width: int,
+                           rotation: int = 0, rule: YuvRule = BT601_LIMITED,
+                           chroma_location: int = 1) -> torch.Tensor:
+    """The plain version of :func:`yuv420p10_to_bgr` (int64 arithmetic):
+    swscale's steps as cv2 5.0's frames show them.
+
+    - luma: 10-bit samples to the 15-bit intermediate (``<< 5``), no
+      filter;
+    - chroma: the horizontal filter (14-bit taps, ``>> 9``, at most
+      32767), then the vertical one (12-bit taps) to every output row;
+    - output: rows above the last two through the MMX ``yuv2bgr24_X``
+      (each tap's product's high half, ``+ 4``; then the 16-bit
+      coefficients as in the 8-bit path, on 2 x Y10 and the chroma less
+      1024), the last two rows through the C tables
+      (``(1 << 18) + sum >> 19`` to 8-bit indices); chroma shared by
+      each pixel pair."""
+    h = y.shape[0]
+    hpos, htaps, vpos, vtaps = p10_filters(h, width, chroma_location)
+    cw, dev = width // 2, y.device
+    hidx = torch.from_numpy(hpos.astype(np.int64)[:, None]
+                            + np.arange(htaps.shape[1])).to(dev)
+    hc = torch.from_numpy(htaps.astype(np.int64)).to(dev)
+    vidx = torch.from_numpy(vpos.astype(np.int64)[:, None]
+                            + np.arange(vtaps.shape[1])).to(dev)
+    vc = torch.from_numpy(vtaps.astype(np.int64)).to(dev)
+
+    def horizontal(c):             # (ch, cw) 15-bit
+        c = c[:, :cw].to(torch.int64)
+        return ((c[:, hidx] * hc).sum(-1) >> 9).clamp(max=32767)
+
+    cu, cv = horizontal(u), horizontal(v)
+    # (h, vs, cw): the chroma rows each output row's taps read
+    tu, tv, taps = cu[vidx], cv[vidx], vc[:, :, None]
+    simd_u = 4 + ((tu * taps) >> 16).sum(1) - 1024
+    simd_v = 4 + ((tv * taps) >> 16).sum(1) - 1024
+    c_u = ((1 << 18) + (tu * taps).sum(1)) >> 19
+    c_v = ((1 << 18) + (tv * taps).sum(1)) >> 19
+
+    def pairs(c):                  # each chroma value to its two pixels
+        return c.repeat_interleave(2, 1)[:, :width]
+
+    y10 = y[:, :width].to(torch.int64)
+    luma = ((4 + 2 * y10 - rule.y_offset) * rule.luma) >> 16
+    su, sv = pairs(simd_u), pairs(simd_v)
+    bgr = torch.stack([luma + ((su * rule.ub) >> 16),
+                       luma + ((su * rule.ug) >> 16) + ((sv * rule.vg) >> 16),
+                       luma + ((sv * rule.vr) >> 16)], dim=-1).clamp(0, 255)
+    last = slice(max(h - 2, 0), h)
+    bgr[last] = _table_bgr(((y10[last] << 17) + (1 << 18)) >> 19,
+                           pairs(c_u[last]), pairs(c_v[last]), rule)
+    return _turn(bgr.to(torch.uint8), rotation)
+
+
+_P10_TABLES = {}     # (device, h, w, location) -> the filters on the device
+
+
+def _p10_tables_on(device: torch.device, h: int, width: int, location: int):
+    key = (str(device), h, width, location)
+    if key not in _P10_TABLES:
+        _P10_TABLES[key] = tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in p10_filters(h, width, location))
+    return _P10_TABLES[key]
+
+
+def yuv420p10_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
+                     width: int, rotation: int = 0,
+                     rule: YuvRule = BT601_LIMITED,
+                     chroma_location: int = 1) -> torch.Tensor:
+    """A 4:2:0 picture's 10-bit planes to ``(H', W', 3)`` uint8 BGR turned
+    clockwise by `rotation`, exactly as cv2 5.0's frames of it: swscale's
+    general path at SWS_BICUBIC (chroma filtered from `chroma_location`,
+    an ``AVChromaLocation``), with the constants of the stream's matrix
+    and range (`rule`).
+
+    y: (H, pitch) uint16 of values below 1024, the picture in its first
+    `width` columns (even, at least 8; H at least 9); u, v:
+    ((H + 1) // 2, chroma pitch) uint16.  All contiguous and on one
+    device."""
+    h = _check_planes("yuv420p10_to_bgr", y, u, v, width, rotation)
+    if _route(y) == "cpu":
+        return yuv420p10_to_bgr_plain(y, u, v, width=width,
+                                      rotation=rotation, rule=rule,
+                                      chroma_location=chroma_location)
+    dev = y.device
+    for name, t in (("y", y), ("u", u), ("v", v)):
+        _check(name, t, torch.uint16, 2, dev)
+    hpos, htaps, vpos, vtaps = _p10_tables_on(dev, h, width, chroma_location)
+    quarter = rotation in (90, 270)
+    out = torch.empty((width, h, 3) if quarter else (h, width, 3),
+                      dtype=torch.uint8, device=dev)
+    _launch("rtpose_yuv420p10_to_bgr", dev, y.data_ptr(), u.data_ptr(),
+            v.data_ptr(), y.shape[1], u.shape[1], h, width, rotation,
+            hpos.data_ptr(), htaps.data_ptr(), htaps.shape[1],
+            vpos.data_ptr(), vtaps.data_ptr(), vtaps.shape[1],
+            _rule_arg(rule), out.data_ptr())
+    yuv420p10_to_bgr.launches += 1
+    return out
+
+
+yuv420p10_to_bgr.launches = 0
+
 _COUNTED = (connection_scores, bicubic_refine, gt_maps, group_people,
-            yuv420_to_bgr)
+            yuv420_to_bgr, yuv420p10_to_bgr)
 
 
 def reset_launch_counts() -> None:

@@ -15,6 +15,21 @@
   (``rtpose_tpu_torch/native/avencode.py``): the ``mpeg4`` encoder, its
   options (``av_opt_find``), ``sws_getContext`` and an encoder that
   opens.
+- Colour (ROADMAP.md items 4h, 4i): whether the codec context has the
+  options the reader sets and reads (``colorspace``, ``color_range``,
+  ``chroma_sample_location``, ``color_primaries``, ``color_trc``) and
+  the libavutil major; what the decoder settles (``FrameColour``, the
+  pixel format: ``yuvj420p`` for full-range H.264) on small fixtures of
+  ``demo/scripted_video.py`` that state their colour in the H.264 /
+  HEVC VUI, an MP4 ``colr`` (``nclx``, ``nclc``), Matroska ``Colour``
+  (one where container and bitstream disagree), and on 10-bit ones
+  (PCM HEVC Main 10, I_PCM H.264 High 10, VP9 profile 2); and, where the
+  machine has cv2, the largest difference of cv2's frames from the
+  port's rule for the colour the decoder settled (``rule``: cv2 5.0's),
+  from BT.601 limited (``bt601``: a cv2 that ignores the signalling)
+  and, for 10-bit frames, from the rule with the chroma at the centre
+  (``centre``) and from the 8-bit rule on the top 8 bits with nearest
+  chroma (``nearest8``).
 - AV1 (ROADMAP.md item 4f): every AV1 decoder the wheel's libavcodec
   registers (``av_codec_iterate``), what each makes of a scripted AV1
   still (``demo/scripted_video.py`` ``av1_still``: a temporal delimiter,
@@ -255,9 +270,151 @@ def probe_av1() -> dict:
     return out
 
 
+COLOUR_OPTIONS = ("colorspace", "color_range", "chroma_sample_location",
+                  "color_primaries", "color_trc")
+
+
+def colour_fixtures(work: str, h: int = 32, w: int = 48) -> list:
+    """(name, path) of the colour fixtures, written under `work`."""
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    C = sv.Colour
+    f8 = sv.yuv_frames(2, h, w, seed=31)
+    f10 = sv.yuv_frames10(2, h, w, seed=31)
+    out = []
+
+    def at(name):
+        out.append((name, os.path.join(work, name)))
+        return out[-1][1]
+
+    sv.write_ipcm_mp4(at("h264_none.mp4"), f8)
+    sv.write_ipcm_mp4(at("h264_vui709.mp4"), f8, colour=C(1))
+    sv.write_ipcm_mp4(at("h264_vui_full.mp4"), f8, colour=C(None, True))
+    sv.write_ipcm_mp4(at("h264_vui2020_full.mp4"), f8, colour=C(9, True))
+    sv.write_ipcm_mp4(at("h264_colr709.mp4"), f8,
+                      colr=sv.colr_box(C(1, False, 1, 1)))
+    sv.write_ipcm_mp4(at("h264_colr709_full.mp4"), f8,
+                      colr=sv.colr_box(C(1, True, 1, 1)))
+    sv.write_ipcm_mp4(at("h264_nclc240m.mp4"), f8,
+                      colr=sv.colr_box(C(7, False, 7, 7), b"nclc"))
+    sv.write_ipcm_mp4(at("h264_vui709_colr2020.mp4"), f8, colour=C(1),
+                      colr=sv.colr_box(C(9, True, 1, 14)))
+    sv.write_ipcm_mkv(at("h264_mkv_colour709_full.mkv"), f8,
+                      colour=C(1, True, 1, 1))
+    sv.write_ipcm_mkv(at("h264_mkv_colour2020_vui709.mkv"), f8,
+                      sps_colour=C(1), colour=C(9, True))
+    sv.write_ipcm_ts(at("h264_vui_fcc_full.ts"), f8, colour=C(4, True))
+    sv.write_hevc_mp4(at("hevc_vui709.mp4"), sv.encode_hevc_pcm(
+        f8, colour=C(1)))
+    sv.write_hevc_mp4(at("hevc_colr709.mp4"), sv.encode_hevc_pcm(f8),
+                      colr=sv.colr_box(C(1, True, 1, 1)))
+    sv.write_hevc_ts(at("hevc_vui240m_full.ts"), sv.encode_hevc_pcm(
+        f8, colour=C(7, True)))
+    sv.write_hevc_mkv(at("hevc_vui2020_full.mkv"), sv.encode_hevc_pcm(
+        f8, colour=C(9, True)))
+    sv.write_hevc_mp4(at("hevc10_none.mp4"), sv.encode_hevc_pcm(
+        f10, depth=10))
+    sv.write_hevc_mp4(at("hevc10_vui2020.mp4"), sv.encode_hevc_pcm(
+        f10, depth=10, colour=C(9)))
+    sv.write_hevc_mkv(at("hevc10_vui709_full.mkv"), sv.encode_hevc_pcm(
+        f10, depth=10, colour=C(1, True)))
+    sv.write_ipcm_mp4(at("h264_high10.mp4"), f10, depth=10, colour=C(4))
+    try:
+        sv.write_vp9(at("vp9_profile2.webm"), f10, colour=C(9, True))
+    except RuntimeError:
+        out.pop()
+    return out
+
+
+def probe_colour() -> dict:
+    """What the machine's libavcodec and cv2 make of colour signalling."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.demo import video_io
+    from rtpose_tpu_torch.native import avcodec
+    from rtpose_tpu_torch.ops import kernels
+    try:
+        libs = avcodec.libraries()
+    except (RuntimeError, OSError) as e:
+        return {"error": str(e)}
+    au = libs.avutil
+    au.av_opt_find.restype = ctypes.c_void_p
+    au.av_opt_find.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                               ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+    ctx = ctypes.c_void_p(libs.avcodec.avcodec_alloc_context3(None))
+    out = {"avutil_major": au.avutil_version() >> 16,
+           "options": {name: bool(au.av_opt_find(ctx, name.encode(), None,
+                                                 0, 0))
+                       for name in COLOUR_OPTIONS}}
+    libs.avcodec.avcodec_free_context(ctypes.byref(ctx))
+    try:
+        import cv2
+        out["cv2"] = cv2.__version__
+    except ImportError:
+        cv2 = None
+        out["cv2"] = "no cv2 on this machine"
+    build = os.path.join(ROOT, "rtpose_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    files = {}
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        for name, path in colour_fixtures(work):
+            entry = files[name] = {}
+            try:
+                cap = video_io.open_video(path, device="cpu")
+                *planes, width, colour = next(cap._pictures)
+                planes = [p.copy() for p in planes]   # before the decoder
+                cap.release()                         # frees its buffers
+            except (ValueError, RuntimeError) as e:
+                entry["error"] = str(e)
+                continue
+            entry["decoder"] = colour._asdict()
+            if cv2 is None:
+                continue
+            cv = cv2.VideoCapture(path)
+            ok, frame = cv.read()
+            cv.release()
+            if not ok:
+                entry["cv2"] = "no frame"
+                continue
+            planes = [torch.from_numpy(np.ascontiguousarray(p))
+                      for p in planes]
+
+            def diff(bgr):
+                return int(np.abs(bgr.numpy().astype(int) - frame).max())
+            rule = kernels.yuv_rule(colour.matrix if colour.matrix in
+                                    kernels.SWS_MATRICES else 2,
+                                    colour.full)
+            if colour.depth == 8:
+                entry["rule"] = diff(kernels.yuv420_to_bgr_plain(
+                    *planes, width=width, rule=rule))
+                entry["bt601"] = diff(kernels.yuv420_to_bgr_plain(
+                    *planes, width=width))
+            else:
+                p10 = kernels.yuv420p10_to_bgr_plain
+                entry["rule"] = diff(p10(*planes, width=width, rule=rule,
+                                         chroma_location=colour.
+                                         chroma_location))
+                entry["bt601"] = diff(p10(*planes, width=width,
+                                          chroma_location=colour.
+                                          chroma_location))
+                entry["centre"] = diff(p10(*planes, width=width, rule=rule,
+                                           chroma_location=0))
+                top8 = [((p.to(torch.int32) + 2) >> 2).clamp(max=255).to(
+                    torch.uint8) for p in planes]
+                entry["nearest8"] = diff(kernels.yuv420_to_bgr_plain(
+                    *top8, width=width, rule=rule))
+    out["files"] = files
+    return out
+
+
 def probe() -> dict:
     return {"nvdec": probe_nvdec(), "libavcodec": probe_host(),
-            "writer": probe_writer(), "av1": probe_av1()}
+            "writer": probe_writer(), "av1": probe_av1(),
+            "colour": probe_colour()}
 
 
 if __name__ == "__main__":

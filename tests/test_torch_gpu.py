@@ -1131,6 +1131,78 @@ def test_yuv420_kernel_matches_plain(cuda, rotation, hw, pad):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", [0, 90, 180, 270])
+@pytest.mark.parametrize("matrix,full", [(2, False), (2, True), (1, False),
+                                         (1, True), (4, False), (4, True),
+                                         (7, False), (7, True), (9, False),
+                                         (9, True)])
+def test_yuv420_kernel_matches_plain_for_every_colour(cuda, rotation, matrix,
+                                                      full):
+    """The 8-bit kernel with each (matrix, range)'s constants."""
+    planes = _planes(50, 70, seed=matrix + 10 * full, pitch_pad=10)
+    rule = kernels.yuv_rule(matrix, full)
+    got = kernels.yuv420_to_bgr(*[p.to(cuda) for p in planes], width=70,
+                                rotation=rotation, rule=rule)
+    want = kernels.yuv420_to_bgr_plain(*planes, width=70, rotation=rotation,
+                                       rule=rule)
+    assert torch.equal(got.cpu(), want)
+
+
+def _planes10(h, w, seed, pitch_pad=0):
+    """Random 10-bit 4:2:0 planes (uint16), rows `pitch_pad` samples past
+    the picture."""
+    rng = np.random.RandomState(seed)
+    ch, cw = (h + 1) // 2, w // 2
+    return [torch.from_numpy(rng.randint(0, 1024, s).astype(np.uint16))
+            for s in ((h, w + pitch_pad), (ch, cw + pitch_pad),
+                      (ch, cw + pitch_pad))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", [0, 90, 180, 270])
+@pytest.mark.parametrize("hw,pad", [((480, 640), 0), ((480, 640), 32),
+                                    ((31, 64), 8), ((9, 8), 0)])
+@pytest.mark.parametrize("location", [0, 1, 2, 3, 5])
+def test_yuv420p10_kernel_matches_plain(cuda, rotation, hw, pad, location):
+    h, w = hw
+    planes = _planes10(h, w, seed=h + w + pad + location, pitch_pad=pad)
+    kernels.reset_launch_counts()
+    for matrix, full in ((2, False), (9, False), (1, True)):
+        rule = kernels.yuv_rule(matrix, full)
+        got = kernels.yuv420p10_to_bgr(*[p.to(cuda) for p in planes],
+                                       width=w, rotation=rotation, rule=rule,
+                                       chroma_location=location)
+        want = kernels.yuv420p10_to_bgr_plain(
+            *planes, width=w, rotation=rotation, rule=rule,
+            chroma_location=location)
+        assert got.shape == want.shape and got.is_contiguous()
+        assert torch.equal(got.cpu(), want)
+    assert kernels.launch_counts()["yuv420p10_to_bgr"] == 3
+
+
+@pytest.mark.gpu
+def test_main10_video_reads_on_the_card_as_on_the_cpu(cuda, tmp_path):
+    """A PCM HEVC Main 10 MP4 (BT.2020 limited) read on the card: one
+    10-bit launch a frame, the CPU's frames."""
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo.video_io import open_video
+    path = str(tmp_path / "main10.mp4")
+    sv.write_hevc_mp4(path, sv.encode_hevc_pcm(
+        sv.yuv_frames10(4, 48, 64), depth=10, colour=sv.Colour(9)),
+        rotation=90)
+    frames = {}
+    for device in ("cpu", cuda):
+        kernels.reset_launch_counts()
+        cap = open_video(path, device=device)
+        frames[str(device)] = [f for ok, f in iter(cap.read, (False, None))]
+        cap.release()
+    assert kernels.launch_counts()["yuv420p10_to_bgr"] == 4
+    assert len(frames["cpu"]) == 4
+    for a, b in zip(frames["cpu"], frames[str(cuda)]):
+        np.testing.assert_array_equal(a, b)
+
+
 def _ipcm_sequence(h, w):
     from rtpose_tpu_torch.demo import scripted_video as sv
     pics = sv.yuv_frames(4, h, w, seed=16)

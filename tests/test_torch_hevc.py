@@ -214,12 +214,17 @@ def test_intra_picture_is_an_irap_picture():
 
 
 def test_main10_frames_are_refused_by_name():
-    stream = sv.encode_hevc_pcm(sv.yuv_frames(2, 48, 64), depth=10)
+    """Main 10 is read since item 4h (tests/test_torch_colour.py): its
+    hvcC passes; the HEVC frames past it are refused by name by the
+    decoder, 12-bit 4:2:0 here (item 4i)."""
+    assert mp4.hevc_refusal(1, (10, 10)) is None
+    stream = sv.encode_hevc_pcm(sv.yuv_frames10(2, 48, 64, depth=12),
+                                depth=12)
     record = sv.hvcc_record(stream)
-    assert mp4.hvcc_config(record, 0, len(record)).depth == (10, 10)
-    with pytest.raises(ValueError, match=r"hevc frames in yuv420p10le "
-                                         r"\(HEVC Main 10 / RExt: item "
-                                         r"4h\).*item 4"):
+    assert mp4.hvcc_config(record, 0, len(record)).depth == (12, 12)
+    assert "12 bits, 4:2:0 (RExt" in mp4.hevc_refusal(1, (12, 12))
+    with pytest.raises(ValueError, match=r"hevc frames in 12-bit 4:2:0 "
+                                         r"\(yuv420p12le\).*item 4i"):
         _decode(sv.hevc_annexb(stream))
 
 
@@ -243,3 +248,52 @@ def test_hevc_needs_no_decoder_probe(tmp_path, monkeypatch):
     path, stream = _files(tmp_path, "reordered_hvc1")
     _assert_reads_as_cv2(path, len(stream.shown))
     assert calls == []
+
+
+def _stream10(h=48, w=64, seq=SEQ, key_every=4, **kw):
+    pics = sv.yuv_frames10(4, h, w)
+    return sv.encode_hevc_pcm([None if i is None else pics[i] for i in seq],
+                              key_every=key_every, depth=10, **kw)
+
+
+def test_main10_pcm_planes_are_the_written_ones():
+    """10-bit PCM samples (``pcm_sample_bit_depth`` 10, bit-packed) in
+    Main 10 pictures: libavcodec gives back the written 10-bit planes,
+    uint16, and the ``hvcC`` states 10 bits."""
+    stream = _stream10()
+    record = sv.hvcc_record(stream)
+    assert mp4.hvcc_config(record, 0, len(record)) == mp4.HevcConfig(
+        4, stream.params, 1, (10, 10))
+    got = _decode(sv.hevc_annexb(stream))
+    assert len(got) == len(stream.shown)
+    for planes, want in zip(got, stream.shown):
+        for a, b in zip(planes, want):
+            assert a.dtype == np.uint16
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["hvc1", "hev1", "mkv", "ts", "m2ts",
+                                  "reordered_mp4", "reordered_ts",
+                                  "cropped_mkv"])
+def test_main10_reads_as_cv2(tmp_path, case):
+    """PCM HEVC Main 10 in every container of the 8-bit cases, reordered
+    and cropped too (BT.709 in the VUI): cv2's frames, fps, size, count."""
+    colour = sv.Colour(1)
+    if case.startswith("reordered"):
+        stream = sv.encode_hevc_pcm(sv.yuv_frames10(5, 48, 64, seed=3),
+                                    reorder=True, depth=10, colour=colour)
+    elif case.startswith("cropped"):
+        stream = sv.encode_hevc_pcm(sv.yuv_frames10(3, 42, 58, seed=4),
+                                    depth=10, colour=colour)
+    else:
+        stream = _stream10(colour=colour)
+    path = str(tmp_path / "v.bin")
+    if case in ("hvc1", "hev1", "reordered_mp4"):
+        sv.write_hevc_mp4(path, stream, kind="hev1" if case == "hev1"
+                          else "hvc1")
+    elif case.endswith("mkv"):
+        sv.write_hevc_mkv(path, stream)
+    else:
+        sv.write_hevc_ts(path, stream,
+                         packet_size=192 if case == "m2ts" else 188)
+    _assert_reads_as_cv2(path, len(stream.shown))

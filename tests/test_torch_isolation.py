@@ -3,8 +3,9 @@ of the JAX package, serves, takes a train step, builds and runs every
 model family, trains a BatchNorm family, draws a loader batch in a worker
 process and a native loader batch, rotates a sample, answers the
 training CLI's --help, runs the picture and video demos, reads an H.264
-MP4, an H.264 TS and an HEVC program stream and answers an HTTP request
-without them, runs the webcam loop over a
+MP4, an H.264 TS, an HEVC program stream, an HEVC Main 10 MP4 tagged
+BT.2020 and a VP9 profile-2 WebM and answers an HTTP request without
+them, runs the webcam loop over a
 scripted camera and serves its browser view, imports the workflow
 scripts (scripts/torch_*.py), renders a scene and soaks the decode without
 them, and its
@@ -149,6 +150,20 @@ with tempfile.TemporaryDirectory() as root:
     while ps_cap.read()[0]:
         mp4_frames.append([ps_cap.codec] + list(ps_cap.size))
     ps_cap.release()
+    planes10 = [tuple(p.astype(np.uint16) << 2
+                      for p in scripted_video.bgr_to_yuv420(frame))] * 2
+    scripted_video.write_hevc_mp4(root + "/main10.mp4",
+                                  scripted_video.encode_hevc_pcm(
+        planes10, depth=10, colour=scripted_video.Colour(9)))
+    scripted_video.write_vp9(root + "/p2.webm", planes10)
+    for path in ("/main10.mp4", "/p2.webm"):
+        p10_cap = open_video(root + path, device="cpu")
+        while True:
+            ok, f = p10_cap.read()
+            if not ok:
+                break
+            mp4_frames.append([p10_cap.codec] + list(f.shape))
+        p10_cap.release()
     server = serve_http.serve(pipe, host="127.0.0.1", port=0)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
@@ -271,7 +286,8 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
     assert res["video"] == [3, 3]
     # turned by its tag; then the sizes of an M2TS's three frames
     assert res["mp4"] == [[80, 60, 3]] * 3 + [[80, 60]] * 3 + [
-        ["hevc", 80, 60]] * 3
+        ["hevc", 80, 60]] * 3 + [["hevc", 60, 80, 3]] * 2 + [
+        ["vp9", 60, 80, 3]] * 2
     assert res["http"] == [200, [60, 80]]
     assert res["webcam"] == [3, 200, True]
     assert res["native"] == {

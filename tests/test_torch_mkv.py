@@ -352,3 +352,45 @@ def test_av_reduce_is_libavutils(num, den, limit):
     lib.av_reduce(ctypes.byref(a), ctypes.byref(b), ctypes.c_int64(num),
                   ctypes.c_int64(den), ctypes.c_int64(limit))
     assert mkv.av_reduce(num, den, limit) == (a.value, b.value)
+
+
+@pytest.mark.parametrize("colour,siting,want", [
+    (sv.Colour(1, True, 1, 1), None, avcodec.StreamColour(
+        1, True, None, 1, 1)),
+    (sv.Colour(9, False, 9, 16), (1, 2), avcodec.StreamColour(
+        9, False, 1, 9, 16)),
+    (None, (2, 2), avcodec.StreamColour(2, None, 2, 2, 2)),
+    (None, (1, 1), avcodec.StreamColour(2, None, 3, 2, 2))])
+def test_colour_element_is_read_as_libavformat_reads_it(tmp_path, colour,
+                                                        siting, want):
+    """``Video/Colour``: the matrix, ``Range`` (1 broadcast, 2 full),
+    primaries, transfer (each by default 2, unspecified), and the chroma
+    siting as a location."""
+    path = tmp_path / "v.mkv"
+    sv.write_ipcm_mkv(str(path), sv.yuv_frames(1, 32, 48), colour=colour,
+                      chroma_siting=siting)
+    with open(path, "rb") as f:
+        track = mkv.read_track(str(path), f)
+    assert track.colour == want
+
+
+@pytest.mark.parametrize("hw", [(48, 64), (36, 50)])
+def test_vp9_profile2_webm_reads_as_cv2(tmp_path, hw):
+    """VP9 profile 2 (10-bit, the wheel's libvpx, lossless) in WebM."""
+    h, w = hw
+    path = tmp_path / "v.webm"
+    sv.write_vp9(str(path), sv.yuv_frames10(4, h, w, seed=w),
+                 colour=sv.Colour(1, True))
+    _assert_reads_as_cv2(path, 4)
+
+
+def test_vp9_profile2_of_odd_width_is_refused_by_name(tmp_path):
+    """An odd width takes swscale's full-chroma output, another rule than
+    the 10-bit kernel's: refused by name (ROADMAP.md item 4i)."""
+    rng = np.random.RandomState(5)
+    frames = [tuple(rng.randint(0, 1024, s).astype(np.uint16)
+                    for s in ((32, 47), (16, 24), (16, 24)))]
+    path = tmp_path / "v.webm"
+    sv.write_vp9(str(path), frames)
+    with pytest.raises(ValueError, match=r"even widths.*item 4i"):
+        _port_read(path)

@@ -614,3 +614,60 @@ def test_edit_of_another_media_rate_is_refused(tmp_path):
     assert len(_cv2_read(path)[0]) == 4
     with pytest.raises(ValueError, match="media rate 2 .*item 4"):
         open_video(str(path), device="cpu")
+
+
+@pytest.mark.parametrize("kind,colour,want", [
+    (b"nclx", sv.Colour(1, True, 1, 1), avcodec.StreamColour(
+        1, True, primaries=1, transfer=1)),
+    (b"nclx", sv.Colour(9, False, 9, 16), avcodec.StreamColour(
+        9, False, primaries=9, transfer=16)),
+    (b"nclc", sv.Colour(6, True, 6, 6), avcodec.StreamColour(
+        6, None, primaries=6, transfer=6)),
+    (b"nclx", sv.Colour(99, False, 99, 99), avcodec.StreamColour(
+        2, False, primaries=2, transfer=2)),
+    (b"prof", sv.Colour(1), None)])
+def test_colr_box_is_read_as_libavformat_reads_it(tmp_path, kind, colour,
+                                                  want):
+    """``colr`` in the ``avc1`` entry: ``nclx`` with its range bit, ``nclc``
+    with none, numbers libavformat does not know as unspecified, an ICC
+    profile ignored."""
+    path = tmp_path / "v.mp4"
+    sv.write_ipcm_mp4(str(path), sv.yuv_frames(1, 32, 48),
+                      colr=sv.colr_box(colour, kind))
+    with open(path, "rb") as f:
+        track = mp4.read_track(str(path), f)
+    assert track.colour == want
+
+
+@pytest.mark.parametrize("hw", [(48, 64), (50, 70)])
+def test_high10_ipcm_planes_are_the_written_ones(tmp_path, hw):
+    """I_PCM H.264 High 10 (10-bit samples, 480 bytes a macroblock):
+    libavcodec gives back the written planes as uint16, and the reader
+    cv2's frames."""
+    h, w = hw
+    frames = sv.yuv_frames10(3, h, w, seed=h)
+    path = tmp_path / "v.mp4"
+    sv.write_ipcm_mp4(str(path), frames, depth=10, colour=sv.Colour(1))
+    decoder = avcodec.Decoder("h264")
+    got = []
+    try:
+        with open(path, "rb") as f:
+            track = mp4.read_track(str(path), f)
+            for data, key in track.packets(f):
+                got += [[p.copy() for p in planes]
+                        for *planes, _ in decoder.decode(data, key)]
+        got += [[p.copy() for p in planes]
+                for *planes, _ in decoder.flush()]
+    finally:
+        decoder.close()
+    assert len(got) == 3
+    for (y, u, v), (wy, wu, wv) in zip(got, frames):
+        assert y.dtype == np.uint16
+        np.testing.assert_array_equal(y[:h, :w], wy)
+        np.testing.assert_array_equal(u[:h // 2, :w // 2], wu)
+        np.testing.assert_array_equal(v[:h // 2, :w // 2], wv)
+    want, props = _cv2_read(path)
+    port, cap = _port_read(path)
+    assert len(port) == len(want) == cap.frame_count == props["count"]
+    for g, x in zip(port, want):
+        np.testing.assert_array_equal(g, x)

@@ -266,8 +266,8 @@ def _no_video_pmt(tmp_path, stream_type):
 
 @pytest.mark.parametrize("kind,error", [
     ("vvc", r"VVC video in MPEG-TS \(stream type 0x33\)"),
-    ("hevc_main10", r"hevc frames in yuv420p10le \(HEVC Main 10 / RExt: "
-                    r"item 4h\)"),
+    ("hevc_main12", r"hevc frames in 12-bit 4:2:0 \(yuv420p12le\): only "
+                    r"4:2:0 of 8 or 10 bits .*queue 1 (?=item 4i)"),
     ("private", r"only candidate for video is a private data stream "
                 r"\(stream type 0x06\)"),
     ("audio_only", r"an MPEG-TS program with no video stream"),
@@ -277,10 +277,10 @@ def _no_video_pmt(tmp_path, stream_type):
 def test_ts_refusals_name_what_they_refuse(tmp_path, kind, error):
     if kind == "vvc":
         path = _no_video_pmt(tmp_path, 0x33)
-    elif kind == "hevc_main10":
-        path = tmp_path / "main10.ts"
+    elif kind == "hevc_main12":               # Main 10 reads: item 4h
+        path = tmp_path / "main12.m2ts"
         sv.write_hevc_ts(str(path), sv.encode_hevc_pcm(
-            sv.yuv_frames(2, 48, 64), depth=10))
+            sv.yuv_frames10(2, 48, 64, depth=12), depth=12), packet_size=192)
     elif kind in ("private", "audio_only"):
         path = _no_video_pmt(tmp_path, 0x06 if kind == "private" else 0x0F)
     elif kind == "no_pat":
@@ -380,3 +380,46 @@ def test_open_ts_without_a_card_or_library_raises(tmp_path, monkeypatch):
         open_video(str(path), device="cpu")
     with pytest.raises(RuntimeError, match="no libavcodec found"):
         avcodec.Parser("h264")
+
+
+@pytest.mark.parametrize("case", ["vui709", "vui2020_full", "high10",
+                                  "high10_m2ts", "hevc_main10_240m"])
+def test_colour_and_10bit_ts_read_as_cv2(tmp_path, case):
+    """A transport stream states no colour: the bitstream's, in the VUI of
+    I_PCM H.264 (8-bit and High 10) and PCM HEVC Main 10, is the frame's,
+    as cv2 reads it."""
+    path = tmp_path / "v.ts"
+    if case.startswith("hevc"):
+        sv.write_hevc_ts(str(path), sv.encode_hevc_pcm(
+            sv.yuv_frames10(3, 48, 64), depth=10,
+            colour=sv.Colour(7, False)))
+    elif case.startswith("high10"):
+        sv.write_ipcm_ts(str(path), sv.yuv_frames10(3, 48, 64), depth=10,
+                         colour=sv.Colour(9, True),
+                         packet_size=192 if "m2ts" in case else 188)
+    else:
+        sv.write_ipcm_ts(str(path), sv.yuv_frames(3, 48, 64),
+                         colour=sv.Colour(1) if case == "vui709"
+                         else sv.Colour(9, True))
+    _assert_reads_as_cv2(path, 3)
+
+
+@pytest.mark.parametrize("colour", [sv.Colour(1, False, 1, 1),
+                                    sv.Colour(4, False, 4, 4),
+                                    sv.Colour(9, False, 2, 2)],
+                         ids=["bt709", "fcc", "bt2020"])
+def test_mpeg2_sequence_display_colour_reads_as_cv2(tmp_path, colour):
+    """MPEG-2 states its matrix in the sequence display extension (the
+    wheel's ``mpeg2video`` encoder writes it from the context): the
+    decoder's, cv2's."""
+    packets = sv.encode_lavc("mpeg2video", sv.yuv_frames(3, 48, 64),
+                             colour, fps=25, qscale=2)
+    path = tmp_path / "v.ts"
+    path.write_bytes(sv.mux_ts("mpeg2video", [
+        sv.TsUnit(d, sv.TS_START + 3600 * i, None)
+        for i, (d, _) in enumerate(packets)], [k for _, k in packets]))
+    got, _ = _assert_reads_as_cv2(path, 3)
+    want = open_video(str(path), device="cpu")
+    want.read()
+    assert want._decoder.colour.matrix == colour.matrix
+    want.release()

@@ -154,18 +154,20 @@ def _still_refused(tmp_path, kind):
     path = str(tmp_path / f"{kind}.bin")
     if kind == "missing":
         return path
-    if kind in ("mkv_av1", "mkv_laced", "webm_vp9_profile2", "ebml_other"):
+    if kind in ("mkv_av1", "mkv_laced", "webm_vp9_profile1",
+                "webm_vp9_profile3", "ebml_other"):
         codec = "V_AV1" if kind == "mkv_av1" else "V_VP9"
         with open(sv.VP9_WEBM, "rb") as f:
             track = mkv.read_track(sv.VP9_WEBM, f)
             packets = [(d, k) for d, k in track.packets(f)][:3]
         if kind == "mkv_laced":
             packets[1] = (b"LACED" + packets[1][0], False)
-        if kind == "webm_vp9_profile2":        # profile bits 1, 0: 10-bit
-            packets[0] = (bytes([packets[0][0][0] | 0x10])
+        if kind.startswith("webm_vp9"):        # profile bits (low, high)
+            bits = 0x20 if kind.endswith("1") else 0x30
+            packets[0] = (bytes([packets[0][0][0] | bits])
                           + packets[0][0][1:], True)
         data = sv.mux_mkv(codec, packets, (64, 48),
-                          doc_type="webm" if kind == "webm_vp9_profile2"
+                          doc_type="webm" if kind.startswith("webm")
                           else "matroska")
         if kind == "mkv_laced":                # Xiph lacing in the flags
             at = data.index(b"LACED") - 1
@@ -175,11 +177,24 @@ def _still_refused(tmp_path, kind):
     elif kind == "mpeg2_422":
         from test_torch_mpegts import mpeg2_422
         return str(mpeg2_422(tmp_path))
-    elif kind.endswith("_main10"):             # HEVC Main 10: item 4h
-        stream = sv.encode_hevc_pcm(sv.yuv_frames(2, 48, 64), depth=10)
-        write = {"mp4": sv.write_hevc_mp4, "mkv": sv.write_hevc_mkv,
-                 "ts": sv.write_hevc_ts}[kind.split("_")[0]]
-        write(path, stream)
+    elif kind.startswith(("mp4_rext", "mkv_rext")):   # by hvcC: item 4i
+        stream = sv.encode_hevc_pcm(sv.yuv_frames(2, 48, 64))
+        chroma = {"422": 2, "444": 3}[kind[-3:]]
+        if kind.startswith("mp4"):
+            sv.write_hevc_mp4(path, stream, hvcc_chroma=chroma)
+        else:
+            with open(path, "wb") as f:
+                f.write(sv.mux_mkv("V_MPEGH/ISO/HEVC", list(zip(
+                    sv.hevc_samples(stream), stream.keys)), stream.size,
+                    codec_private=sv.hvcc_record(stream, chroma)))
+        return path
+    elif kind in ("ts_main12", "ts_gray"):    # by the decoder: item 4i
+        if kind == "ts_gray":
+            stream = sv.encode_hevc_pcm(sv.yuv_frames(2, 48, 64), chroma=0)
+        else:
+            stream = sv.encode_hevc_pcm(sv.yuv_frames10(1, 48, 64, depth=12),
+                                        depth=12)
+        sv.write_hevc_ts(path, stream)
         return path
     elif kind == "wave":
         data = b"RIFF\x24\0\0\0WAVEfmt " + b"\0" * 32
@@ -193,10 +208,10 @@ def _still_refused(tmp_path, kind):
         data = sv.mux_mp4(sps, pps, units, keys, (64, 48))
         if kind == "av01":
             data = data.replace(b"avc1", b"av01").replace(b"avcC", b"av1C")
-        elif kind == "vp09_10bit":
+        elif kind == "vp09_12bit":
             data = sv.mux_mp4(sps, pps, [b"\x92\x49\x83\x42\x00"] * 2,
                               keys, (64, 48), entry=sv.vp09_entry(
-                                  (64, 48), profile=2, depth=10))
+                                  (64, 48), profile=2, depth=12))
         elif kind == "elst_rate2":
             data = sv.mux_mp4(sps, pps, units, keys, (64, 48),
                               edits=[(80, 0, 2.0)])
@@ -210,15 +225,18 @@ def _still_refused(tmp_path, kind):
 @pytest.mark.parametrize("kind,error", [
     ("mkv_av1", "AV1 video .'V_AV1' CodecID"),
     ("mkv_laced", "laced video block"),
-    ("webm_vp9_profile2", "VP9 profile 2 video"),
-    ("vp09_10bit", "VP9 profile 2 video of 10 bits"),
+    ("webm_vp9_profile1", r"VP9 profile 1 video \(4:2:2.*item 4i\)"),
+    ("webm_vp9_profile3", r"VP9 profile 3 video \(4:2:2.*item 4i\)"),
+    ("vp09_12bit", r"VP9 profile 2 video of 12 bits .*item 4i\)"),
     ("ebml_other", "DocType b'mka-fake'"),
-    ("mp4_main10", r"HEVC of 10 bits, 4:2:0 \(Main 10 .*item 4h\) "
-                   r"\(hvc1 sample entry\)"),
-    ("mkv_main10", r"HEVC of 10 bits, 4:2:0 \(Main 10 .*item 4h\) "
-                   r"\(V_MPEGH/ISO/HEVC CodecPrivate\)"),
-    ("ts_main10", r"hevc frames in yuv420p10le \(HEVC Main 10 / RExt: "
-                  r"item 4h\)"),
+    ("mp4_rext_422", r"HEVC of 8 bits, 4:2:2 \(RExt: .*item 4i\) "
+                     r"\(hvc1 sample entry\)"),
+    ("mkv_rext_444", r"HEVC of 8 bits, 4:4:4 \(RExt: .*item 4i\) "
+                     r"\(V_MPEGH/ISO/HEVC CodecPrivate\)"),
+    ("ts_main12", r"hevc frames in 12-bit 4:2:0 \(yuv420p12le\): only "
+                  r"4:2:0 of 8 or 10 bits .*queue 1 (?=item 4i)"),
+    ("ts_gray", r"hevc frames in 4:0:0 \(gray\): only 4:2:0 of 8 or 10 "
+                r"bits .*queue 1 (?=item 4i)"),
     ("av01", "AV1 video"),
     ("elst_rate2", "edit of media rate 2"),
     ("mpeg2_422", r"4:2:2 \(yuv422p\)"),
@@ -226,10 +244,11 @@ def _still_refused(tmp_path, kind):
     ("avi_wmv", "AVI video codec b'WMV3'"), ("missing", None)])
 def test_open_video_refuses_other_containers(tmp_path, kind, error):
     """What the port still does not read (ROADMAP.md queue 1 item 4):
-    other containers, other codecs (AV1 in Matroska or MP4), HEVC Main 10
-    in MP4, Matroska or MPEG-TS (item 4h: by its hvcC, or by the
-    decoder's first picture), VP9 of another profile than 0 (10-bit),
-    MPEG-2 4:2:2, laced Matroska blocks, edits of another media rate;
+    other containers, other codecs (AV1 in Matroska or MP4), HEVC RExt
+    (item 4i: 4:2:2 and 4:4:4 by the hvcC of an MP4 or Matroska file,
+    12-bit and 4:0:0 by the decoder's first picture in MPEG-TS), VP9 of
+    profiles 1 and 3 and of 12 bits, MPEG-2 4:2:2, laced Matroska
+    blocks, edits of another media rate;
     each error names it and item 4.  XVID AVI and MP4 are read
     (tests/test_torch_mp4.py), Matroska / WebM and VP9 too
     (tests/test_torch_mkv.py), MPEG-TS too (tests/test_torch_mpegts.py),
@@ -246,11 +265,12 @@ def test_open_video_refuses_other_containers(tmp_path, kind, error):
 
 
 def _once_refused(tmp_path, kind):
-    """A file of a kind the reader refused until item 4b / 4c / 4e / 4g:
-    cv2's MPEG-2 TS, a fragmented MP4 (a moof a sample), one with samples
-    in the moov and an mvex, an edit list of two entries; PCM HEVC in
-    Matroska, MPEG-TS and an hvc1 MP4; cv2's MPEG-4 ``.mpg`` (an MPEG
-    program stream)."""
+    """A file of a kind the reader refused until item 4b / 4c / 4e / 4g /
+    4h: cv2's MPEG-2 TS, a fragmented MP4 (a moof a sample), one with
+    samples in the moov and an mvex, an edit list of two entries; PCM HEVC
+    in Matroska, MPEG-TS and an hvc1 MP4; cv2's MPEG-4 ``.mpg`` (an MPEG
+    program stream); PCM HEVC Main 10 in MP4, Matroska and MPEG-TS, VP9
+    profile 2 in WebM and MP4."""
     from test_torch_mpegts import _cv2_ts
 
     from rtpose_tpu_torch.demo import scripted_video as sv
@@ -264,6 +284,17 @@ def _once_refused(tmp_path, kind):
                  "hvc1": sv.write_hevc_mp4}[kind]
         write(path, sv.encode_hevc_pcm(sv.yuv_frames(5, 48, 64),
                                        key_every=3))
+        return path
+    if kind.endswith("_main10"):
+        path = str(tmp_path / f"{kind}.bin")
+        write = {"mkv": sv.write_hevc_mkv, "ts": sv.write_hevc_ts,
+                 "mp4": sv.write_hevc_mp4}[kind.split("_")[0]]
+        write(path, sv.encode_hevc_pcm(sv.yuv_frames10(2, 48, 64), depth=10))
+        return path
+    if kind in ("webm_vp9_profile2", "vp09_10bit"):
+        path = str(tmp_path / f"{kind}.bin")
+        sv.write_vp9(path, sv.yuv_frames10(2, 48, 64),
+                     container="webm" if kind.startswith("webm") else "mp4")
         return path
     pics = sv.yuv_frames(6, 48, 64)
     sps, pps, units, keys = sv.encode_ipcm(pics, key_every=3)
@@ -279,12 +310,15 @@ def _once_refused(tmp_path, kind):
 
 
 @pytest.mark.parametrize("kind", ["mpegts", "fragmented", "mvex", "elst2",
-                                  "mkv_hevc", "ts_hevc", "mpeg_ps", "hvc1"])
+                                  "mkv_hevc", "ts_hevc", "mpeg_ps", "hvc1",
+                                  "mp4_main10", "mkv_main10", "ts_main10",
+                                  "webm_vp9_profile2", "vp09_10bit"])
 def test_open_video_reads_what_it_refused(tmp_path, kind):
     """MPEG-TS (item 4b), fragmented MP4 and edit lists of several
-    entries (item 4c), HEVC in Matroska, MPEG-TS and MP4 (item 4e) and
-    MPEG program streams (item 4g), once refused by name, read frame for
-    frame as cv2 reads them, with cv2's fps and frame count."""
+    entries (item 4c), HEVC in Matroska, MPEG-TS and MP4 (item 4e), MPEG
+    program streams (item 4g), HEVC Main 10 and VP9 profile 2 (item 4h),
+    once refused by name, read frame for frame as cv2 reads them, with
+    cv2's fps and frame count."""
     path = _once_refused(tmp_path, kind)
     want, (count, fps) = _read_cv2(path)
     got, cap = _read_port(path)
