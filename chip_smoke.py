@@ -130,7 +130,11 @@ entry points a user calls:
   libavcodec's planes of PCM HEVC equal to the written ones, HEVC in
   MP4 / MKV / TS / M2TS (reordered, cropped), cv2's ``.mpg`` / ``.vob``
   and H.264 / HEVC program streams with and without a map equal to its
-  cv2, and the demo on a 64-frame 480x640 PCM HEVC MP4;
+  cv2, and the demo on a 64-frame 480x640 PCM HEVC MP4; both conversion
+  kernels (``csrc/yuv420p10_to_bgr.cu`` for 10-bit) at every (matrix,
+  range) and at 1080x1920 (10-bit also 2160x3840), timed warm and with L2
+  flushed against their bounds, and the convert stage's device split
+  (upload, kernel, read-back) on the HEVC and Main 10 demos' files;
   an open without libavcodec or without a card raises; each kernel row
   carries ``video_file_launches`` (the HEVC demo's), and the
   conversion's row stands beside the grouping kernel's;
@@ -3155,6 +3159,70 @@ VIDEO_FILE_SHAPE = (480, 640)
 YUV_KERNEL_TOL = 0         # yuv420_to_bgr vs its plain version: integers
 
 
+def colour_kernels_at_video_sizes(dev, smi: str) -> dict:
+    """Both conversion kernels at the sizes users' video has (1080x1920;
+    2160x3840 for 10-bit, a phone's HDR clip), turns 0 and 90, by
+    ``scripts/torch_colour_kernel_times.py``: equal to their plain
+    versions on the card, device ms a launch warm and with L2 flushed,
+    against the bound.  -> {kernel: {"HxW": {...}}}."""
+    from torch_colour_kernel_times import colour_kernel_times
+    found = colour_kernel_times(dev, shapes={8: ((1080, 1920),),
+                                             10: ((1080, 1920), (2160, 3840))})
+    for name, sizes in found.items():
+        for size, entry in sizes.items():
+            turns = [entry[f"rotation_{r}"] for r in (0, 90)]
+            check(all(t["max_abs_err"] == YUV_KERNEL_TOL for t in turns),
+                  f"{name} {size} vs plain at turns 0 / 90: max abs err "
+                  f"{[t['max_abs_err'] for t in turns]}")
+            log(f"{name} {size}: error {[t['max_abs_err'] for t in turns]} "
+                f"at turns 0 / 90; device us warm "
+                + " / ".join(f"{t['device_ms_warm'] * 1e3:.2f}" for t in turns)
+                + ", L2 flushed "
+                + " / ".join(f"{t['device_ms_cold'] * 1e3:.2f}" for t in turns)
+                + f"; bound {entry['bound_ms'] * 1e3:.2f} us "
+                f"({entry['bytes']} bytes), share flushed "
+                + " / ".join(f"{t['share_of_bound_cold']:.3f}" for t in turns)
+                + f" [{smi}]")
+    return found
+
+
+def convert_split(path: str, dev, kernel: str) -> dict:
+    """The video reader's convert stage on the file at `path`, read to its
+    end under torch.profiler: device ms a frame of the planes' upload
+    (HtoD copies), the conversion kernel and the frame's read-back (DtoH
+    copy), over the frames whose kernel the profiler recorded (it may
+    drop some), their counts, and the reader's own convert ms a frame in
+    that run (host clock, the profiler's overhead in it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rtpose_tpu_torch.demo import video_io
+    parts = {"htod": "HtoD", "kernel": kernel, "dtoh": "DtoH"}
+    for _ in range(3):      # a session with no device event is taken again
+        cap = video_io.open_video(path, device=dev)
+        frames = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            while cap.read()[0]:
+                frames += 1
+        cap.release()
+        us = dict.fromkeys(parts, 0.0)
+        count = dict.fromkeys(parts, 0)
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for part, key in parts.items():
+                if key in e.key:
+                    us[part] += e.self_device_time_total
+                    count[part] += e.count
+        if any(count.values()):
+            break
+    seen = count["kernel"] or frames       # a launch a frame
+    return {"frames": frames, "frames_seen": seen,
+            "device_ms_a_frame": {k: v / 1e3 / seen for k, v in us.items()},
+            "launches_or_copies": count,
+            "convert_ms_a_frame": cap.seconds["convert"] * 1e3 / frames}
+
+
 def video_files_phase(dev, smi: str):
     """Phase 16: the video reader on the files users hand the JAX demo.
 
@@ -3207,6 +3275,12 @@ def video_files_phase(dev, smi: str):
       (else its largest difference printed); the flagship video demo on a
       64-frame 480x640 PCM HEVC Main 10 MP4 tagged BT.2020 (matrix 9)
       limited range, its launches the 10-bit row's;
+    - both conversion kernels at the sizes users' video has (1080x1920,
+      and 2160x3840 for 10-bit), turns 0 and 90: equal to their plain
+      versions, device time warm and with L2 flushed, against the bound;
+      the HEVC and Main 10 demos' files read again under the profiler:
+      the convert stage's upload, kernel and read-back, device ms a
+      frame;
     - an open without the library, and one without a card, raise.
 
     -> ({kernel: launches in the HEVC MP4 demo run}, numbers, the
@@ -3438,6 +3512,9 @@ def video_files_phase(dev, smi: str):
             f"{p10_timing[0]['host_ms']:.4f} ms a call, plain "
             f"{p10_timing[0]['plain_ms']:.4f} ms; bound "
             f"{p10_bound_ms:.5f} ms ({p10_bytes} bytes) [{smi}]")
+        sizes = colour_kernels_at_video_sizes(dev, smi)
+        row["video_sizes"] = sizes["yuv420_to_bgr"]
+        p10_row["video_sizes"] = sizes["yuv420p10_to_bgr"]
 
         # MPEG-4 Part 2 written by this machine's cv2 (the port has none)
         scenes = [np.ascontiguousarray(render_scene(1600 + i, h, w)[..., ::-1])
@@ -3885,11 +3962,11 @@ def video_files_phase(dev, smi: str):
         ts_counts, numbers["demo_ts"] = flagship_demo(video, "mpeg2video",
                                                       "MPEG-2 TS")
         # ... and on a 64-frame PCM HEVC MP4 of the same scenes (item 4e)
-        video = os.path.join(work, "in_hevc.mp4")
-        sv.write_hevc_mp4(video, sv.encode_hevc_pcm(
+        hevc = os.path.join(work, "in_hevc.mp4")
+        sv.write_hevc_mp4(hevc, sv.encode_hevc_pcm(
             [sv.bgr_to_yuv420(f) for f in scenes], key_every=16),
             fps_timescale=(12800, 640))
-        counts, numbers["demo_hevc"] = flagship_demo(video, "hevc",
+        counts, numbers["demo_hevc"] = flagship_demo(hevc, "hevc",
                                                      "PCM HEVC MP4")
         # ... and on a 64-frame PCM HEVC Main 10 MP4 tagged BT.2020 (matrix
         # 9) limited range, a phone's HDR clip's shape (item 4h)
@@ -3908,6 +3985,22 @@ def video_files_phase(dev, smi: str):
               f"8-bit conversions launched: {p10_counts}")
         p10_row.update(launches=p10_counts["yuv420p10_to_bgr"],
                        video_file_launches=p10_counts["yuv420p10_to_bgr"])
+        # what the convert stage's time is: the two demos' files read
+        # again under the profiler
+        numbers["convert_split"] = stage = {
+            "demo_hevc": convert_split(hevc, dev, "yuv420_to_bgr"),
+            "demo_main10": convert_split(video, dev, "yuv420p10_to_bgr")}
+        for key, what in (("demo_hevc", "HEVC MP4"),
+                          ("demo_main10", "HEVC Main 10 MP4")):
+            part = stage[key]["device_ms_a_frame"]
+            log(f"phase 16: the convert stage of the {what}, ms a frame: "
+                f"device HtoD {part['htod']:.4f}, kernel "
+                f"{part['kernel']:.4f}, DtoH {part['dtoh']:.4f} "
+                f"({stage[key]['launches_or_copies']} recorded in "
+                f"{stage[key]['frames']} frames); the reader's convert "
+                f"{stage[key]['convert_ms_a_frame']:.3f} under the "
+                f"profiler, {numbers[key]['read_ms_a_frame']['convert']:.3f}"
+                f" in the demo [{smi}]")
 
         # the reader alone on a compressed stream of the same scenes
         if cv2 is not None:
@@ -4024,7 +4117,7 @@ def main() -> int:
     log(f"kernel build: {built.seconds:.1f} s -> "
         f"{os.path.relpath(built.path, ROOT)}")
     for line in built.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(k in line for k in ("registers", "Compiling entry", "spill")):
             log("  ptxas:", line.strip())
 
     results = {}

@@ -32,64 +32,77 @@
 //   SMPTE 240M (7)    9539 17029 -2113 -4445 14697 | 8192 14959 -1856 -3904 12911
 //   BT.2020 NCL (9)   9539 17545 -1535 -5328 13752 | 8192 15412 -1348 -4680 12080
 //
-// The turn is in the write index, cv2's cv::rotate: output (i, j) reads
+// The turn is cv2's cv::rotate: output (i, j) reads
 // source (H-1-j, i) at 90 (clockwise), (H-1-i, W-1-j) at 180 and
 // (j, W-1-i) at 270.
 //
 // What bounds it on this card: bytes.  A 480x640 frame reads 0.46 MB of
-// planes and writes 0.92 MB of BGR, 1.38 MB in all: 0.41 us at 3.35 TB/s.
-// A thread takes a 2x2 block of output pixels (four luma reads, the
-// chroma of each pixel read by its own index so that odd sizes and every
-// turn stay right, twelve bytes written); a simple kernel, not yet tuned
-// for coalescing under a turn.
+// planes and writes 0.92 MB of BGR, 1.38 MB in all: 0.41 us at 3.35 TB/s;
+// 1080x1920 9.33 MB (2.79 us).
+//
+// A thread a few output pixels would, under a quarter turn, read 32
+// source rows a warp and write BGR a byte at a time.  Here (yuv_tile.cuh)
+// a block of 256 threads owns 32 x 64 pixels of the output (32 source
+// rows x 64 columns, 64 x 32 turned).  A thread takes eight pixels of one
+// source row: their luma in one 8-byte load and each chroma plane's four
+// samples in one 4-byte load (single bytes where a row start is off, or
+// at the ragged edge; the chroma of each pixel by its own index, so odd
+// sizes stay right), the chroma terms once a pair, the pixels converted
+// in registers.  It puts the BGR words into a shared tile in the output's
+// orientation (8,320 bytes), and the block writes the tile's 32 rows of
+// 192 bytes with 16-byte stores.  So each plane byte is read from device
+// memory once, and the stores are the same at every turn.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "yuv_rule.cuh"
+#include "yuv_tile.cuh"
 
-#define BLOCK_X 32
-#define BLOCK_Y 8
+#define YUV_THREADS 256
+// a thread's pixels, of one source row
+#define YUV_PIXELS (TILE_ROWS * TILE_COLS / YUV_THREADS)
 
-__global__ void yuv420_to_bgr_kernel(const uint8_t* __restrict__ y,
-                                     const uint8_t* __restrict__ u,
-                                     const uint8_t* __restrict__ v,
-                                     int y_pitch, int c_pitch, int height,
-                                     int width, int rotation,
-                                     YuvRule rule,
-                                     uint8_t* __restrict__ out) {
-    const bool quarter = rotation == 90 || rotation == 270;
-    const int out_h = quarter ? width : height;
-    const int out_w = quarter ? height : width;
-    const int i0 = 2 * (blockIdx.y * BLOCK_Y + threadIdx.y);
-    const int j0 = 2 * (blockIdx.x * BLOCK_X + threadIdx.x);
-    for (int di = 0; di < 2; ++di) {
-        const int i = i0 + di;
-        if (i >= out_h) break;
-        for (int dj = 0; dj < 2; ++dj) {
-            const int j = j0 + dj;
-            if (j >= out_w) break;
-            int sy, sx;
-            if (rotation == 90) {
-                sy = height - 1 - j; sx = i;
-            } else if (rotation == 180) {
-                sy = height - 1 - i; sx = width - 1 - j;
-            } else if (rotation == 270) {
-                sy = j; sx = width - 1 - i;
-            } else {
-                sy = i; sx = j;
+// QUARTER: rotation is 90 or 270
+template <bool QUARTER>
+__global__ void __launch_bounds__(YUV_THREADS) yuv420_to_bgr_kernel(
+        const uint8_t* __restrict__ y, const uint8_t* __restrict__ u,
+        const uint8_t* __restrict__ v, int y_pitch, int c_pitch, int height,
+        int width, int rotation, YuvRule rule, uint8_t* __restrict__ out) {
+    __shared__ uint32_t bgr[BGR_TILE_WORDS];
+    const TileMap m = tile_map<QUARTER>(height, width, rotation);
+    // this thread's pixels: source row r0 + sr, tile columns col..
+    constexpr int ROW_THREADS = (QUARTER ? TILE_ROWS : TILE_COLS) / YUV_PIXELS;
+    const int sr = threadIdx.x / ROW_THREADS;
+    const int col = YUV_PIXELS * (threadIdx.x % ROW_THREADS);
+    if (sr < m.th && col < m.tw) {
+        const int sy = m.r0 + sr, n = min(YUV_PIXELS, m.tw - col);
+        uint32_t yw[YUV_PIXELS / 4], uw[(YUV_PIXELS / 2 + 3) / 4],
+                 vw[(YUV_PIXELS / 2 + 3) / 4];
+        load_bytes<YUV_PIXELS>(y + (size_t)sy * y_pitch + m.c0 + col, n, yw);
+        const size_t c = (size_t)(sy >> 1) * c_pitch + ((m.c0 + col) >> 1);
+        load_bytes<YUV_PIXELS / 2>(u + c, (n + 1) >> 1, uw);
+        load_bytes<YUV_PIXELS / 2>(v + c, (n + 1) >> 1, vw);
+        uint32_t px[YUV_PIXELS];
+#pragma unroll
+        for (int q = 0; q < YUV_PIXELS / 2; ++q) {
+            const int u8 = 8 * (byte_of(uw, q) - 128);
+            const int v8 = 8 * (byte_of(vw, q) - 128);
+            const int b = (u8 * rule.ub) >> 16;
+            const int g = ((u8 * rule.ug) >> 16) + ((v8 * rule.vg) >> 16);
+            const int r = (v8 * rule.vr) >> 16;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int yy = ((8 * byte_of(yw, 2 * q + e) - rule.y_offset)
+                                * rule.luma) >> 16;
+                px[2 * q + e] = bgr_word(sat8(yy + b), sat8(yy + g),
+                                         sat8(yy + r));
             }
-            const int yy = ((8 * (int)y[sy * y_pitch + sx] - rule.y_offset)
-                            * rule.luma) >> 16;
-            const int c = (sy >> 1) * c_pitch + (sx >> 1);
-            const int u8 = 8 * ((int)u[c] - 128);
-            const int v8 = 8 * ((int)v[c] - 128);
-            uint8_t* px = out + 3 * (i * out_w + j);
-            px[0] = sat8(yy + ((u8 * rule.ub) >> 16));
-            px[1] = sat8(yy + ((u8 * rule.ug) >> 16) + ((v8 * rule.vg) >> 16));
-            px[2] = sat8(yy + ((v8 * rule.vr) >> 16));
         }
+        put_pixels<YUV_PIXELS>(bgr, m, sr, col, n, px);
     }
+    __syncthreads();
+    store_tile<YUV_THREADS>(bgr, m, out);
 }
 
 extern "C" int rtpose_yuv420_to_bgr(const void* y, const void* u,
@@ -101,13 +114,11 @@ extern "C" int rtpose_yuv420_to_bgr(const void* y, const void* u,
             || (rotation != 0 && rotation != 90 && rotation != 180
                 && rotation != 270))
         return (int)cudaErrorInvalidValue;
-    const bool quarter = rotation == 90 || rotation == 270;
-    const int out_h = quarter ? width : height;
-    const int out_w = quarter ? height : width;
-    const dim3 block(BLOCK_X, BLOCK_Y);
-    const dim3 grid((out_w + 2 * BLOCK_X - 1) / (2 * BLOCK_X),
-                    (out_h + 2 * BLOCK_Y - 1) / (2 * BLOCK_Y));
-    yuv420_to_bgr_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+    const dim3 grid = tile_grid(height, width, rotation);
+    const auto kernel = rotation == 90 || rotation == 270
+                        ? yuv420_to_bgr_kernel<true>
+                        : yuv420_to_bgr_kernel<false>;
+    kernel<<<grid, YUV_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)y, (const uint8_t*)u, (const uint8_t*)v, y_pitch,
         c_pitch, height, width, rotation, rule, (uint8_t*)out);
     return (int)cudaGetLastError();

@@ -43,23 +43,55 @@
 //    taps are more than two (at least 9 rows): ops/kernels.py refuses
 //    other sizes.
 //
-// The turn is in the write index, cv2's cv::rotate, as in
-// yuv420_to_bgr.cu.
+// The turn is cv2's cv::rotate, as in yuv420_to_bgr.cu.
 //
 // What bounds it on this card: bytes.  A 480x640 frame reads 0.92 MB of
-// planes and writes 0.92 MB of BGR, 1.84 MB in all: 0.55 us at 3.35 TB/s.
-// A thread takes one output pixel and reads the chroma taps it needs
-// (hsize x vsize samples a plane, from L1 and L2); a simple kernel, not
-// yet tuned to share the filtered chroma between the pixels of a block.
+// planes and writes 0.92 MB of BGR, 1.84 MB in all: 0.55 us at 3.35 TB/s;
+// 1080x1920 12.44 MB (3.71 us), 2160x3840 49.77 MB (14.86 us).
+//
+// A thread a pixel would filter each chroma sample horizontally about 16
+// times (once for each tap of the 2 x 2 x vsize pixels that read it), and
+// under a quarter turn a warp would read 32 source rows with no line in
+// common.  Here (yuv_tile.cuh) a block of 256 threads owns 32 x 64 pixels
+// of the output (32 source rows x 64 columns, 64 x 32 turned) and
+// - filters each chroma sample the tile's taps reach horizontally once:
+//   a thread one chroma column of four chroma rows, its taps in
+//   registers, the rows [vpos[r0], vpos[r_last] + vsize) of U and V read
+//   along the row with all a thread's loads in flight together, into
+//   shared memory (P10_CHROMA_WORDS a plane: 32 rows of 32 columns, or 64
+//   of 16 turned; 32 or 64 source rows reach at most 20 or 36 chroma rows
+//   at any height, tests/test_torch_yuv_tiles.py);
+// - gives a thread eight pixels of one source row: their luma in one
+//   16-byte load issued first (single bytes where the row start is off
+//   16 bytes), the vertical sum its row's rule needs once a chroma column
+//   (the MMX high halves + 4 above the last two rows, the C tables'
+//   (1 << 18) + sum on them), shared by the pixel pair, and the pixels
+//   converted in registers;
+// - puts the BGR words into a shared tile in the output's orientation and
+//   writes its 32 rows of 192 bytes with 16-byte stores (store_tile).
+// So each plane byte is read from device memory once and each chroma
+// sample filtered once, and the stores are the same at every turn.
+// Shared memory a block: 8,704 bytes of filtered chroma, 8,320 of BGR.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "yuv_rule.cuh"
+#include "yuv_tile.cuh"
 
-#define P10_BLOCK_X 32
-#define P10_BLOCK_Y 8
-#define P10_MAX_TAPS 8
+#define P10_THREADS 256
+// a thread's pixels, of one source row
+#define P10_PIXELS (TILE_ROWS * TILE_COLS / P10_THREADS)
+// taps a column and a row at most: swscale's bicubic at 2x has one or
+// four a column and four a row (tests/test_torch_yuv_tiles.py)
+#define P10_MAX_TAPS 4
+// filtered chroma samples a plane a tile holds: as many rows as the
+// tile's vertical taps reach, at most (see above), of its chroma
+// columns, a thread P10_ITEMS of them; each row padded by a word
+#define P10_CHROMA_WORDS 1024
+#define P10_ITEMS (P10_CHROMA_WORDS / P10_THREADS)
+#define P10_CHROMA_SLOTS \
+    (P10_CHROMA_WORDS + P10_CHROMA_WORDS / (TILE_ROWS / 2))
 
 __device__ __forceinline__ int table_bgr(int k, const YuvRule& r) {
     return sat8((k * r.cy + r.y_base + 0x8000) >> 16);
@@ -70,7 +102,40 @@ __device__ __forceinline__ int table_term(int c, int q) {
     return ((c * q) >> 16) - (q >> 9);
 }
 
-__global__ void yuv420p10_to_bgr_kernel(
+// a pixel pair (two luma samples in `luma`) from its chroma sums: above
+// the last two rows (simd) the MMX rule, su and sv the high halves + 4;
+// on them the C tables, su and sv (1 << 18) + the sums
+__device__ __forceinline__ void p10_pair(uint32_t luma, bool simd, int su,
+                                         int sv, const YuvRule& rule,
+                                         uint32_t& w0, uint32_t& w1) {
+    const int y0 = luma & 0xffff, y1 = luma >> 16;
+    if (simd) {
+        su -= 1024;
+        sv -= 1024;
+        const int b = (su * rule.ub) >> 16;
+        const int g = ((su * rule.ug) >> 16) + ((sv * rule.vg) >> 16);
+        const int r = (sv * rule.vr) >> 16;
+        const int l0 = ((4 + 2 * y0 - rule.y_offset) * rule.luma) >> 16;
+        const int l1 = ((4 + 2 * y1 - rule.y_offset) * rule.luma) >> 16;
+        w0 = bgr_word(sat8(l0 + b), sat8(l0 + g), sat8(l0 + r));
+        w1 = bgr_word(sat8(l1 + b), sat8(l1 + g), sat8(l1 + r));
+        return;
+    }
+    const int ui = su >> 19, vi = sv >> 19;
+    const int b = table_term(ui, rule.bu);
+    const int g = table_term(ui, rule.gu) + table_term(vi, rule.gv);
+    const int r = table_term(vi, rule.rv);
+    const int l0 = ((y0 << 17) + (1 << 18)) >> 19;
+    const int l1 = ((y1 << 17) + (1 << 18)) >> 19;
+    w0 = bgr_word(table_bgr(l0 + b, rule), table_bgr(l0 + g, rule),
+                  table_bgr(l0 + r, rule));
+    w1 = bgr_word(table_bgr(l1 + b, rule), table_bgr(l1 + g, rule),
+                  table_bgr(l1 + r, rule));
+}
+
+// QUARTER: rotation is 90 or 270
+template <bool QUARTER>
+__global__ void __launch_bounds__(P10_THREADS) yuv420p10_to_bgr_kernel(
         const uint16_t* __restrict__ y, const uint16_t* __restrict__ u,
         const uint16_t* __restrict__ v, int y_pitch, int c_pitch,
         int height, int width, int rotation,
@@ -78,58 +143,109 @@ __global__ void yuv420p10_to_bgr_kernel(
         int hsize, const int* __restrict__ vpos,
         const int* __restrict__ vtap, int vsize, YuvRule rule,
         uint8_t* __restrict__ out) {
-    const bool quarter = rotation == 90 || rotation == 270;
-    const int out_h = quarter ? width : height;
-    const int out_w = quarter ? height : width;
-    const int i = blockIdx.y * P10_BLOCK_Y + threadIdx.y;
-    const int j = blockIdx.x * P10_BLOCK_X + threadIdx.x;
-    if (i >= out_h || j >= out_w) return;
-    int sy, sx;
-    if (rotation == 90) {
-        sy = height - 1 - j; sx = i;
-    } else if (rotation == 180) {
-        sy = height - 1 - i; sx = width - 1 - j;
-    } else if (rotation == 270) {
-        sy = j; sx = width - 1 - i;
-    } else {
-        sy = i; sx = j;
+    __shared__ int chroma[2][P10_CHROMA_SLOTS];
+    __shared__ uint32_t bgr[BGR_TILE_WORDS];
+    const TileMap m = tile_map<QUARTER>(height, width, rotation);
+    const int tid = threadIdx.x;
+
+    // this thread's pixels: source row r0 + sr, tile columns col..; their
+    // luma and the row's vertical taps first, under the chroma's latency
+    constexpr int ROW_THREADS = (QUARTER ? TILE_ROWS : TILE_COLS) / P10_PIXELS;
+    const int sr = tid / ROW_THREADS;
+    const int col = P10_PIXELS * (tid % ROW_THREADS);
+    const bool mine = sr < m.th && col < m.tw;
+    const int sy = m.r0 + sr;
+    uint32_t luma[P10_PIXELS / 2];
+    int vp = 0, taps[P10_MAX_TAPS];
+    if (mine) {
+        load_bytes<2 * P10_PIXELS>(reinterpret_cast<const uint8_t*>(
+                                       y + (size_t)sy * y_pitch + m.c0 + col),
+                                   2 * min(P10_PIXELS, m.tw - col), luma);
+        vp = vpos[sy];
+#pragma unroll
+        for (int t = 0; t < P10_MAX_TAPS; ++t)
+            taps[t] = t < vsize ? vtap[sy * vsize + t] : 0;
     }
-    const int c = sx >> 1;
-    const int* ht = htap + c * hsize;
-    const int col0 = hpos[c];
-    int u_simd = 4, v_simd = 4;
-    int u_c = 1 << 18, v_c = 1 << 18;
-    for (int t = 0; t < vsize; ++t) {
-        const int row = (vpos[sy] + t) * c_pitch + col0;
-        const int tap = vtap[sy * vsize + t];
-        int uh = 0, vh = 0;
-        for (int k = 0; k < hsize; ++k) {
-            uh += (int)u[row + k] * ht[k];
-            vh += (int)v[row + k] * ht[k];
+
+    // the chroma rows the tile's taps reach (vpos rises with the row),
+    // filtered horizontally once each: a thread one chroma column of
+    // P10_ITEMS rows, all their loads in flight together
+    constexpr int CCOLS = (QUARTER ? TILE_ROWS : TILE_COLS) / 2;
+    constexpr int PITCH = CCOLS + 1;
+    const int first = vpos[m.r0];
+    const int rows = min(vpos[m.r0 + m.th - 1] + vsize - first,
+                         P10_CHROMA_WORDS / CCOLS);
+    const int cc = tid % CCOLS, row0 = tid / CCOLS;
+    if (cc < (m.tw >> 1)) {
+        const int c = (m.c0 >> 1) + cc;
+        const int x0 = hpos[c];
+        int ht[P10_MAX_TAPS];
+#pragma unroll
+        for (int k = 0; k < P10_MAX_TAPS; ++k)
+            ht[k] = k < hsize ? htap[c * hsize + k] : 0;
+        int uh[P10_ITEMS], vh[P10_ITEMS];
+#pragma unroll
+        for (int i = 0; i < P10_ITEMS; ++i) {
+            const int r = min(row0 + i * (P10_THREADS / CCOLS), rows - 1);
+            const size_t at = (size_t)(first + r) * c_pitch + x0;
+            uh[i] = vh[i] = 0;
+#pragma unroll
+            for (int k = 0; k < P10_MAX_TAPS; ++k) {
+                if (k < hsize) {
+                    uh[i] += (int)u[at + k] * ht[k];
+                    vh[i] += (int)v[at + k] * ht[k];
+                }
+            }
         }
-        uh = min(uh >> 9, 32767);
-        vh = min(vh >> 9, 32767);
-        u_simd += (uh * tap) >> 16;
-        v_simd += (vh * tap) >> 16;
-        u_c += uh * tap;
-        v_c += vh * tap;
+#pragma unroll
+        for (int i = 0; i < P10_ITEMS; ++i) {
+            const int r = row0 + i * (P10_THREADS / CCOLS);
+            if (r < rows) {
+                chroma[0][r * PITCH + cc] = min(uh[i] >> 9, 32767);
+                chroma[1][r * PITCH + cc] = min(vh[i] >> 9, 32767);
+            }
+        }
     }
-    const int luma = (int)y[sy * y_pitch + sx];
-    uint8_t* px = out + 3 * (i * out_w + j);
-    if (sy < height - 2) {
-        const int yy = ((4 + 2 * luma - rule.y_offset) * rule.luma) >> 16;
-        const int su = u_simd - 1024, sv = v_simd - 1024;
-        px[0] = sat8(yy + ((su * rule.ub) >> 16));
-        px[1] = sat8(yy + ((su * rule.ug) >> 16) + ((sv * rule.vg) >> 16));
-        px[2] = sat8(yy + ((sv * rule.vr) >> 16));
-    } else {
-        const int yi = ((luma << 17) + (1 << 18)) >> 19;
-        const int ui = u_c >> 19, vi = v_c >> 19;
-        px[0] = table_bgr(yi + table_term(ui, rule.bu), rule);
-        px[1] = table_bgr(yi + table_term(ui, rule.gu)
-                          + table_term(vi, rule.gv), rule);
-        px[2] = table_bgr(yi + table_term(vi, rule.rv), rule);
+    __syncthreads();
+
+    // the vertical sums once per (row, chroma column), the one its row's
+    // rule needs, then its pixel pair
+    if (mine) {
+        const bool simd = sy < height - 2;
+        uint32_t px[P10_PIXELS];
+#pragma unroll
+        for (int q = 0; q < P10_PIXELS / 2; ++q) {
+            // (columns past the picture: words never stored)
+            const int at = (vp - first) * PITCH + (col >> 1) + q;
+            const int* cu = chroma[0] + at;
+            const int* cv = chroma[1] + at;
+            int su, sv;
+            if (simd) {
+                su = sv = 4;
+#pragma unroll
+                for (int t = 0; t < P10_MAX_TAPS; ++t) {
+                    if (t < vsize) {
+                        su += (cu[t * PITCH] * taps[t]) >> 16;
+                        sv += (cv[t * PITCH] * taps[t]) >> 16;
+                    }
+                }
+            } else {
+                su = sv = 1 << 18;
+#pragma unroll
+                for (int t = 0; t < P10_MAX_TAPS; ++t) {
+                    if (t < vsize) {
+                        su += cu[t * PITCH] * taps[t];
+                        sv += cv[t * PITCH] * taps[t];
+                    }
+                }
+            }
+            p10_pair(luma[q], simd, su, sv, rule, px[2 * q], px[2 * q + 1]);
+        }
+        put_pixels<P10_PIXELS>(bgr, m, sr, col, min(P10_PIXELS, m.tw - col),
+                               px);
     }
+    __syncthreads();
+    store_tile<P10_THREADS>(bgr, m, out);
 }
 
 extern "C" int rtpose_yuv420p10_to_bgr(
@@ -143,13 +259,11 @@ extern "C" int rtpose_yuv420p10_to_bgr(
             || (rotation != 0 && rotation != 90 && rotation != 180
                 && rotation != 270))
         return (int)cudaErrorInvalidValue;
-    const bool quarter = rotation == 90 || rotation == 270;
-    const int out_h = quarter ? width : height;
-    const int out_w = quarter ? height : width;
-    const dim3 block(P10_BLOCK_X, P10_BLOCK_Y);
-    const dim3 grid((out_w + P10_BLOCK_X - 1) / P10_BLOCK_X,
-                    (out_h + P10_BLOCK_Y - 1) / P10_BLOCK_Y);
-    yuv420p10_to_bgr_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+    const dim3 grid = tile_grid(height, width, rotation);
+    const auto kernel = rotation == 90 || rotation == 270
+                        ? yuv420p10_to_bgr_kernel<true>
+                        : yuv420p10_to_bgr_kernel<false>;
+    kernel<<<grid, P10_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint16_t*)y, (const uint16_t*)u, (const uint16_t*)v, y_pitch,
         c_pitch, height, width, rotation, (const int*)hpos, (const int*)htap,
         hsize, (const int*)vpos, (const int*)vtap, vsize, rule,

@@ -1,0 +1,145 @@
+#!/usr/bin/env python3
+"""Time the port's two video-colour kernels (``yuv420_to_bgr``,
+``yuv420p10_to_bgr``) on one CUDA card, at the sizes users' video has,
+for one checkout of the repository, so that two checkouts can be compared
+in turns within one run (parent, change, change, parent):
+
+    for t in PARENT CHANGE CHANGE PARENT; do
+        python3 scripts/torch_colour_kernel_times.py --root $t --label $t
+    done
+
+Imports the package of ``--root`` and builds that checkout's kernels.
+For each kernel and size (8-bit: 480x640 and 1080x1920; 10-bit also
+2160x3840) and turn (0 and 90), on random planes made from a seed: the
+largest difference from the plain version on the card (it must be 0),
+and the device ms a launch from ``torch.profiler`` over 200 launches,
+warm (back to back on the same planes, which stay
+in the 50 MB L2 where they fit) and cold (256 MB written before each
+launch), against the bound (the planes read once and the BGR written
+once at 3.35 TB/s).  Prints the card's name and power limit, then one
+JSON line.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM
+L2_FLUSH_BYTES = 256 << 20    # written before a cold launch: 5x the L2
+SHAPES = {8: ((480, 640), (1080, 1920)),
+          10: ((480, 640), (1080, 1920), (2160, 3840))}
+
+
+def device_ms(fn, kernel: str, iters: int) -> float:
+    """Device ms a launch of the CUDA kernel whose name holds `kernel`:
+    its self device time over the launches torch.profiler recorded in
+    `iters` calls of fn (a session with no device event is taken again,
+    twice at most)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [(e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        count = sum(n for n, _ in hits)
+        if count:
+            if count > iters:
+                raise RuntimeError(f"the profiler saw {count} launches of "
+                                   f"{kernel} in {iters} calls")
+            return sum(us for _, us in hits) / count / 1e3
+    raise RuntimeError(f"the profiler saw no launch of {kernel}")
+
+
+def colour_kernel_times(dev, shapes=SHAPES) -> dict:
+    """{kernel: {"HxW": {"bytes", "bound_ms", "rotation_T": {...}}}}: the
+    error against the plain version and the warm and cold device ms of
+    each turn, with their shares of the bound."""
+    import torch
+    from rtpose_tpu_torch.ops import kernels
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    found = {}
+    for depth, name, convert, plain, matrix in (
+            (8, "yuv420_to_bgr", kernels.yuv420_to_bgr,
+             kernels.yuv420_to_bgr_plain, 1),
+            (10, "yuv420p10_to_bgr", kernels.yuv420p10_to_bgr,
+             kernels.yuv420p10_to_bgr_plain, 9)):
+        rule = kernels.yuv_rule(matrix, False)
+        top, dtype = (256, np.uint8) if depth == 8 else (1024, np.uint16)
+        for h, w in shapes.get(depth, ()):
+            rng = np.random.RandomState(h + depth)
+            ch, cw = (h + 1) // 2, (w + 1) // 2
+            planes = [torch.from_numpy(rng.randint(0, top, s).astype(dtype))
+                      .to(dev) for s in ((h, w), (ch, cw), (ch, cw))]
+            n_bytes = sum(p.numel() * p.element_size() for p in planes) \
+                + 3 * h * w
+            bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            entry = {"bytes": n_bytes, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "rule": f"matrix {matrix} limited"}
+            for rot in (0, 90):
+                def warm():
+                    return convert(*planes, width=w, rotation=rot, rule=rule)
+
+                def cold():
+                    flush.zero_()
+                    return warm()
+                got = warm()
+                want = plain(*planes, width=w, rotation=rot, rule=rule)
+                err = (int((got.int() - want.int()).abs().max())
+                       if got.shape == want.shape else None)
+                warm_ms = device_ms(warm, name, 200)
+                cold_ms = device_ms(cold, name, 200)
+                entry[f"rotation_{rot}"] = dict(
+                    max_abs_err=err, device_ms_warm=warm_ms,
+                    device_ms_cold=cold_ms,
+                    share_of_bound_warm=bound_ms / warm_ms,
+                    share_of_bound_cold=bound_ms / cold_ms)
+            found.setdefault(name, {})[f"{h}x{w}"] = entry
+    del flush
+    return found
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))),
+        help="checkout whose package to time (default: this one)")
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_colour_kernel_times: needs a CUDA card")
+    from rtpose_tpu_torch.ops import _build, kernels
+    if not os.path.abspath(kernels.__file__).startswith(root):
+        raise SystemExit(f"{kernels.__file__} is not from {root}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _build.load()
+    times = colour_kernel_times(torch.device("cuda", 0))
+    bad = [(k, s, r) for k, sizes in times.items()
+           for s, entry in sizes.items() for r, v in entry.items()
+           if r.startswith("rotation_") and v["max_abs_err"] != 0]
+    print(json.dumps({"label": args.label, "card": smi, "times": times,
+                      "differ_from_plain": bad}), flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

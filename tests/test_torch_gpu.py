@@ -1117,7 +1117,8 @@ def _planes(h, w, seed, pitch_pad=0):
 @pytest.mark.parametrize("rotation", [0, 90, 180, 270])
 @pytest.mark.parametrize("hw,pad", [((480, 640), 0), ((480, 640), 64),
                                     ((50, 70), 10), ((34, 18), 0),
-                                    ((7, 5), 3)])
+                                    ((7, 5), 3), ((65, 131), 0),
+                                    ((33, 129), 5), ((1080, 1920), 0)])
 def test_yuv420_kernel_matches_plain(cuda, rotation, hw, pad):
     h, w = hw
     planes = _planes(h, w, seed=h + w + pad, pitch_pad=pad)
@@ -1162,7 +1163,9 @@ def _planes10(h, w, seed, pitch_pad=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("rotation", [0, 90, 180, 270])
 @pytest.mark.parametrize("hw,pad", [((480, 640), 0), ((480, 640), 32),
-                                    ((31, 64), 8), ((9, 8), 0)])
+                                    ((31, 64), 8), ((9, 8), 0),
+                                    ((17, 130), 0), ((41, 72), 3),
+                                    ((1080, 1920), 0), ((2160, 3840), 0)])
 @pytest.mark.parametrize("location", [0, 1, 2, 3, 5])
 def test_yuv420p10_kernel_matches_plain(cuda, rotation, hw, pad, location):
     h, w = hw
@@ -1179,6 +1182,54 @@ def test_yuv420p10_kernel_matches_plain(cuda, rotation, hw, pad, location):
         assert got.shape == want.shape and got.is_contiguous()
         assert torch.equal(got.cpu(), want)
     assert kernels.launch_counts()["yuv420p10_to_bgr"] == 3
+
+
+def _at_offset(planes, offset, cuda):
+    """The planes on the card, each a contiguous view whose data starts
+    `offset` elements into a larger buffer (a base off 16 bytes)."""
+    out = []
+    for p in planes:
+        buf = torch.zeros(p.numel() + offset, dtype=p.dtype, device=cuda)
+        view = buf[offset:].view(p.shape)
+        view.copy_(p.to(cuda))
+        out.append(view)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", [0, 90, 180, 270])
+@pytest.mark.parametrize("hw,pad", [((480, 640), 64), ((50, 70), 10),
+                                    ((65, 131), 0)])
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_yuv420_kernel_matches_plain_at_unaligned_bases(cuda, rotation, hw,
+                                                        pad, offset):
+    """Planes whose base addresses are off 16 bytes: the kernel's narrow
+    loads, the same frame."""
+    h, w = hw
+    planes = _planes(h, w, seed=h + w + offset, pitch_pad=pad)
+    got = kernels.yuv420_to_bgr(*_at_offset(planes, offset, cuda), width=w,
+                                rotation=rotation)
+    want = kernels.yuv420_to_bgr_plain(*planes, width=w, rotation=rotation)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", [0, 90, 180, 270])
+@pytest.mark.parametrize("hw,pad", [((480, 640), 32), ((41, 72), 3),
+                                    ((17, 130), 0)])
+@pytest.mark.parametrize("offset", [1, 3, 4])
+def test_yuv420p10_kernel_matches_plain_at_unaligned_bases(cuda, rotation,
+                                                           hw, pad, offset):
+    """10-bit planes whose base addresses are off 16 bytes (2, 6 and 8
+    bytes in)."""
+    h, w = hw
+    planes = _planes10(h, w, seed=h + w + offset, pitch_pad=pad)
+    rule = kernels.yuv_rule(9, False)
+    got = kernels.yuv420p10_to_bgr(*_at_offset(planes, offset, cuda),
+                                   width=w, rotation=rotation, rule=rule)
+    want = kernels.yuv420p10_to_bgr_plain(*planes, width=w,
+                                          rotation=rotation, rule=rule)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.gpu
