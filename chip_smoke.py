@@ -3157,17 +3157,40 @@ def webcam_phase(dev, smi: str):
 VIDEO_FILE_FRAMES = 64     # the H.264 MP4 the flagship video demo reads
 VIDEO_FILE_SHAPE = (480, 640)
 YUV_KERNEL_TOL = 0         # yuv420_to_bgr vs its plain version: integers
+# the odd-size kernels against their plain versions: (kernel, depth,
+# (h, w)); and their rows' sizes, sources and what they replace
+ODD_KERNEL_SIZES = (("yuv420_general_to_bgr", 8, (479, 640)),
+                    ("yuv420_general_to_bgr", 8, (1079, 1920)),
+                    ("yuv420_full_chroma_to_bgr", 8, (479, 639)),
+                    ("yuv420_full_chroma_to_bgr", 10, (480, 639)))
+ODD_KERNEL_ROWS = (
+    ("yuv420_general_to_bgr", 8, (479, 640),
+     "rtpose_tpu_torch/csrc/yuv420p10_to_bgr.cu",
+     "the yuv420p -> bgr24 conversion of a frame of an odd height "
+     "(swscale's general path, SWS_BICUBIC)"),
+    ("yuv420_full_chroma_to_bgr", 8, (479, 639),
+     "rtpose_tpu_torch/csrc/yuv420_full_chroma_to_bgr.cu",
+     "the yuv420p / yuv420p10le -> bgr24 conversion of a frame of an odd "
+     "width (swscale's general path with full internal chroma)"))
+
+
+# the conversion kernels at the sizes users' video has: (depth, (h, w))
+COLOUR_KERNEL_SIZES = {
+    "yuv420_to_bgr": ((8, (1080, 1920)),),
+    "yuv420p10_to_bgr": ((10, (1080, 1920)), (10, (2160, 3840))),
+    "yuv420_general_to_bgr": ((8, (479, 640)), (8, (1079, 1920))),
+    "yuv420_full_chroma_to_bgr": ((8, (479, 639)), (10, (480, 639)))}
 
 
 def colour_kernels_at_video_sizes(dev, smi: str) -> dict:
-    """Both conversion kernels at the sizes users' video has (1080x1920;
-    2160x3840 for 10-bit, a phone's HDR clip), turns 0 and 90, by
-    ``scripts/torch_colour_kernel_times.py``: equal to their plain
-    versions on the card, device ms a launch warm and with L2 flushed,
-    against the bound.  -> {kernel: {"HxW": {...}}}."""
+    """The conversion kernels at the sizes users' video has
+    (``COLOUR_KERNEL_SIZES``: 1080x1920; 2160x3840 for 10-bit, a phone's
+    HDR clip; odd heights and widths for the general and full-chroma
+    ones), turns 0 and 90, by ``scripts/torch_colour_kernel_times.py``:
+    equal to their plain versions on the card, device ms a launch warm
+    and with L2 flushed, against the bound.  -> {kernel: {"HxW": {...}}}."""
     from torch_colour_kernel_times import colour_kernel_times
-    found = colour_kernel_times(dev, shapes={8: ((1080, 1920),),
-                                             10: ((1080, 1920), (2160, 3840))})
+    found = colour_kernel_times(dev, routes=COLOUR_KERNEL_SIZES)
     for name, sizes in found.items():
         for size, entry in sizes.items():
             turns = [entry[f"rotation_{r}"] for r in (0, 90)]
@@ -3275,23 +3298,37 @@ def video_files_phase(dev, smi: str):
       (else its largest difference printed); the flagship video demo on a
       64-frame 480x640 PCM HEVC Main 10 MP4 tagged BT.2020 (matrix 9)
       limited range, its launches the 10-bit row's;
-    - both conversion kernels at the sizes users' video has (1080x1920,
-      and 2160x3840 for 10-bit), turns 0 and 90: equal to their plain
+    - the conversion kernels at the sizes users' video has (1080x1920,
+      and 2160x3840 for 10-bit; the odd-size ones below), turns 0 and 90:
+      equal to their plain
       versions, device time warm and with L2 flushed, against the bound;
       the HEVC and Main 10 demos' files read again under the profiler:
       the convert stage's upload, kernel and read-back, device ms a
       frame;
+    - odd sizes (item 4i (a)): the probe's ``odd_sizes`` part (this
+      machine's libswscale against the port's rules at odd heights and
+      widths, its cv2 on the committed odd-size fixtures); the 8-bit
+      general kernel (479x640, 1079x1920) and the full-chroma one
+      (479x639 8-bit, 480x639 10-bit) against their plain versions at
+      every (matrix, range), four turns and chroma locations 0 and 1 on
+      planes of an odd pitch at an unaligned base, error 0, each timed
+      with its bound; the committed odd-size VP9 fixtures on the card ==
+      the CPU, == cv2 where the probe found it reading them by the rules;
+      the flagship video demo on a 64-frame MPEG-4 MKV of 479x640 (its
+      launches the general row's, no ``yuv420_to_bgr``) and of 479x639
+      (the full-chroma row's);
     - an open without the library, and one without a card, raise.
 
     -> ({kernel: launches in the HEVC MP4 demo run}, numbers, the
-    conversion's kernel row, the 10-bit conversion's kernel row)."""
+    conversion's kernel row, the 10-bit conversion's kernel row, the
+    general and full-chroma kernels' rows)."""
     import contextlib
     import io
     import tempfile
 
     import torch
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    from torch_probe_video import colour_fixtures, probe
+    from torch_probe_video import ODD_SIZES, colour_fixtures, probe
     from rtpose_tpu_torch.data.imread_fixtures import render_scene
     from rtpose_tpu_torch.demo import mp4, video_demo, video_io
     from rtpose_tpu_torch.demo import scripted_video as sv
@@ -3516,6 +3553,112 @@ def video_files_phase(dev, smi: str):
         row["video_sizes"] = sizes["yuv420_to_bgr"]
         p10_row["video_sizes"] = sizes["yuv420p10_to_bgr"]
 
+        # odd sizes (item 4i (a)): the 8-bit general kernel and the
+        # full-chroma one against their plain versions (run on the card
+        # on the same planes) at every (matrix, range), four turns and
+        # chroma locations 0 and 1, on planes of an odd pitch whose base
+        # is off 16 bytes; each timed on a decoder's aligned planes
+        odd_probe = numbers["probe"]["odd_sizes"]
+        cv2_follows_odd = {name: entry.get("max_abs_diff") == 0 for name,
+                           entry in odd_probe.get("fixtures", {}).items()}
+        log(f"phase 16 (video files): odd sizes probe: libswscale "
+            f"{odd_probe.get('libswscale')} against the port's rules, max "
+            f"abs level by size: "
+            + json.dumps({k: [v["route"], v["max_abs_diff"]]
+                          for k, v in odd_probe.get("rules", {}).items()})
+            + f"; cv2 {odd_probe.get('cv2')} on the odd-size fixtures "
+            f"against the port's CPU read: "
+            + json.dumps(odd_probe.get("fixtures")) + f" [{smi}]")
+        check("error" not in odd_probe and len(odd_probe["rules"]) == len(
+            ODD_SIZES), f"video files: the odd sizes probe: "
+            f"{odd_probe}")
+
+        def odd_planes(depth, oh, ow, pad=0, offset=0):
+            """Random planes on the card, rows `pad` samples past the
+            picture, each plane's data `offset` samples into its buffer."""
+            rng = np.random.RandomState(oh + ow + depth)
+            dtype = np.uint8 if depth == 8 else np.uint16
+            out = []
+            for rows, cols in ((oh, ow), ((oh + 1) // 2, (ow + 1) // 2),
+                               ((oh + 1) // 2, (ow + 1) // 2)):
+                buf = torch.zeros(rows * (cols + pad) + offset,
+                                  dtype=torch.uint8 if depth == 8
+                                  else torch.uint16, device=dev)
+                view = buf[offset:].view(rows, cols + pad)
+                view[:, :cols] = torch.from_numpy(rng.randint(
+                    0, 1 << depth, (rows, cols)).astype(dtype)).to(dev)
+                out.append(view)
+            return out
+
+        plains = {"yuv420_general_to_bgr": kernels.general_to_bgr_plain,
+                  "yuv420_full_chroma_to_bgr":
+                      kernels.full_chroma_to_bgr_plain}
+        odd_errs = {}
+        for name, depth, (oh, ow) in ODD_KERNEL_SIZES:
+            planes = odd_planes(depth, oh, ow, pad=3, offset=1)
+            worst = 0
+            for m, f in pairs:
+                rule = kernels.yuv_rule(m, f)
+                for rot in kernels.ROTATIONS:
+                    for loc in (0, 1):
+                        k = kernels.yuv420_frame_to_bgr(
+                            *planes, depth=depth, width=ow, rotation=rot,
+                            rule=rule, chroma_location=loc)
+                        p = plains[name](*planes, width=ow, depth=depth,
+                                         rotation=rot, rule=rule,
+                                         chroma_location=loc)
+                        worst = max(worst, int((k.int() - p.int()).abs()
+                                               .max()))
+            odd_errs[f"{name} {depth}-bit {oh}x{ow}"] = worst
+        check(all(e <= YUV_KERNEL_TOL for e in odd_errs.values()),
+              f"odd-size kernels vs plain at every (matrix, range), turn and "
+              f"chroma location 0 / 1: {odd_errs}")
+        odd_rows = {}
+        rule = kernels.yuv_rule(1, False)
+        for name, depth, (oh, ow), source, what in ODD_KERNEL_ROWS:
+            planes = odd_planes(depth, oh, ow)
+            timing = {}
+            for rot in (0, 90):
+                def kernel():
+                    return kernels.yuv420_frame_to_bgr(
+                        *planes, depth=depth, width=ow, rotation=rot,
+                        rule=rule, chroma_location=1)
+
+                def plain():
+                    return plains[name](*planes, width=ow, depth=depth,
+                                        rotation=rot, rule=rule,
+                                        chroma_location=1)
+                ms, plain_ms = paired_ms(kernel, plain, 20)
+                dev_ms, where = device_ms(kernel, name)
+                timing[rot] = dict(ms=ms, plain_ms=plain_ms,
+                                   device_ms=dev_ms, device_ms_source=where,
+                                   host_ms=host_ms(kernel))
+            n_bytes = sum(p.numel() * p.element_size() for p in planes) \
+                + 3 * oh * ow
+            odd_bound_ms, odd_bound_by = bound(n_bytes, 0)
+            odd_rows[name] = dict(
+                name=name, route="cuda", source=source,
+                replaces=f"none: {what} and turn inside cv2.VideoCapture "
+                         f"(rtpose_tpu/demo/video_demo.py:19)",
+                replaces_kind="cv2/swscale; no Pallas kernel",
+                max_abs_err=max(e for k, e in odd_errs.items()
+                                if k.startswith(name + " ")),
+                max_abs_err_by_size={k: e for k, e in odd_errs.items()
+                                     if k.startswith(name + " ")},
+                **timing[0], rotation_90=timing[90], bound_ms=odd_bound_ms,
+                bound_by=odd_bound_by, bytes=n_bytes, shape=[oh, ow],
+                depth=depth, rule="BT.709 limited, chroma left",
+                library_ms=None, video_sizes=sizes[name])
+            log(f"{name} {depth}-bit {oh}x{ow}: equal to plain "
+                f"({odd_rows[name]['max_abs_err_by_size']}); kernel "
+                f"{timing[0]['ms']:.4f} ms (90: {timing[90]['ms']:.4f}), "
+                f"device {timing[0]['device_ms']:.5f} ms "
+                f"({timing[0]['device_ms_source']}; 90: "
+                f"{timing[90]['device_ms']:.5f}), host "
+                f"{timing[0]['host_ms']:.4f} ms a call, plain "
+                f"{timing[0]['plain_ms']:.4f} ms; bound {odd_bound_ms:.5f} "
+                f"ms ({n_bytes} bytes) [{smi}]")
+
         # MPEG-4 Part 2 written by this machine's cv2 (the port has none)
         scenes = [np.ascontiguousarray(render_scene(1600 + i, h, w)[..., ::-1])
                   for i in range(VIDEO_FILE_FRAMES)]
@@ -3569,9 +3712,10 @@ def video_files_phase(dev, smi: str):
                     return frames
                 frames.append(frame)
 
-        def against_cv2(path, count_is_frames=True):
+        def against_cv2(path, count_is_frames=True, exact=True):
             """open_video on the card against this machine's cv2 (the frame
-            count cv2's, and the frames' own where `count_is_frames`)."""
+            count cv2's, and the frames' own where `count_is_frames`; the
+            pixels equal where `exact`, else their difference recorded)."""
             cv = cv2.VideoCapture(path)
             cv.set(cv2.CAP_PROP_ORIENTATION_AUTO, 1)
             count, fps = (int(cv.get(cv2.CAP_PROP_FRAME_COUNT)),
@@ -3589,7 +3733,7 @@ def video_files_phase(dev, smi: str):
                    "max_pixel_diff_vs_cv2": diff}
             check(len(got) == len(want) and count == cap.frame_count
                   and (count == len(got) or not count_is_frames)
-                  and fps == cap.fps and diff == 0,
+                  and fps == cap.fps and (diff == 0 or not exact),
                   f"video files: {os.path.basename(path)} against cv2 "
                   f"{cv2.__version__}: {out}")
             return out, got
@@ -3907,10 +4051,12 @@ def video_files_phase(dev, smi: str):
             writers.append(video_io.VideoWriter(*args, **kw))
             return writers[-1]
 
-        def flagship_demo(video, codec, what, convert="yuv420_to_bgr"):
-            """The flagship video demo on `video`, writing XVID: its
-            launches (the conversion `convert` once a frame) and numbers,
-            its output against cv2."""
+        def flagship_demo(video, codec, what, convert="yuv420_to_bgr",
+                          shape=(h, w), cv2_exact=True):
+            """The flagship video demo on `video` (`shape` frames), writing
+            XVID: its launches (the conversion `convert` once a frame) and
+            numbers, its output against cv2 (its pixels equal where
+            `cv2_exact`)."""
             readers.clear()
             writers.clear()
             sys.argv = (["video_demo", "--video", video, "--output", out,
@@ -3934,14 +4080,14 @@ def video_files_phase(dev, smi: str):
                   and counts["gt_maps"] == 0,
                   f"video files {what} demo: K1, K3 and G not once a batch "
                   f"or the conversion not once a frame: {counts}")
-            output, _ = against_cv2(out)
+            output, _ = against_cv2(out, exact=cv2_exact)
             check(output["frames"] == VIDEO_FILE_FRAMES and writers[0].fourcc
                   == b"XVID", f"video files {what} demo output: {output}")
             split = {k: v * 1e3 / n for k, v in readers[0].seconds.items()}
             write = {k: v * 1e3 / n for k, v in writers[0].seconds.items()}
             return counts, {
                 "frames": n, "seconds": video_s, "frames_per_s": n / video_s,
-                "batch": 8, "input": f"{what} 480x640 (cv2 "
+                "batch": 8, "input": f"{what} {shape[0]}x{shape[1]} (cv2 "
                                      f"{cv2.__version__})",
                 "output": "XVID AVI", "output_against_cv2": output,
                 "read_ms_a_frame": split,
@@ -3985,6 +4131,58 @@ def video_files_phase(dev, smi: str):
               f"8-bit conversions launched: {p10_counts}")
         p10_row.update(launches=p10_counts["yuv420p10_to_bgr"],
                        video_file_launches=p10_counts["yuv420p10_to_bgr"])
+        # odd sizes (item 4i (a)): the committed fixtures read on the card
+        # == on the CPU, == cv2 where the probe found it reading them as
+        # the port's rules do (else its largest difference kept); the
+        # flagship video demo on a 64-frame MPEG-4 MKV of an odd height
+        # (the general kernel) and of an odd height and width (full
+        # chroma), from the wheel's mpeg4 encoder
+        odd_files = {}
+        for fixture in sv.ODD_SIZE_FIXTURES:
+            path = sv.odd_size_path(fixture)
+            got, plain, want = [], [], []
+            for frames, cap in (
+                    (got, video_io.open_video(path, device=dev)),
+                    (plain, video_io.open_video(path, device="cpu")),
+                    (want, cv2.VideoCapture(path))):
+                frames += read_all(cap)
+                cap.release()
+            follows = cv2_follows_odd.get(fixture.name, False)
+            odd_files[fixture.name] = entry = {
+                "frames": len(got), "cv2_frames": len(want),
+                "card_vs_cpu": max((int(np.abs(a.astype(np.int16) - b).max())
+                                    for a, b in zip(got, plain)), default=-1),
+                "max_pixel_diff_vs_cv2": max(
+                    (int(np.abs(a.astype(np.int16) - b).max())
+                     for a, b in zip(got, want) if a.shape == b.shape),
+                    default=-1),
+                "cv2_reads_as_the_rules": follows}
+            check(len(got) == len(plain) == fixture.frames
+                  and got[0].shape == (fixture.height, fixture.width, 3)
+                  and entry["card_vs_cpu"] == 0
+                  and (entry["max_pixel_diff_vs_cv2"] == 0 or not follows),
+                  f"video files: odd-size fixture {fixture.name}: {entry}")
+        numbers["odd_size_files"] = odd_files
+        log(f"video files: odd-size fixtures on the card against the CPU "
+            f"and cv2 {cv2.__version__}: {json.dumps(odd_files)} [{smi}]")
+        odd_counts = {}
+        for key, (oh, ow), convert, fixture in (
+                ("demo_odd_height", (479, 640), "yuv420_general_to_bgr",
+                 "vp9_479x640.webm"),
+                ("demo_odd_size", (479, 639), "yuv420_full_chroma_to_bgr",
+                 "vp9_31x47.webm")):
+            odd_video = os.path.join(work, f"in_{oh}x{ow}.mkv")
+            sv.write_mpeg4_mkv(odd_video, sv.scene_planes(
+                range(1600, 1600 + VIDEO_FILE_FRAMES), oh, ow))
+            c, numbers[key] = flagship_demo(
+                odd_video, "mpeg4", "MPEG-4 Part 2 MKV", convert=convert,
+                shape=(oh, ow), cv2_exact=cv2_follows_odd.get(fixture, False))
+            check(c["yuv420_to_bgr"] == c["yuv420p10_to_bgr"] == 0,
+                  f"video files {oh}x{ow} demo: launches of other "
+                  f"conversions: {c}")
+            odd_counts[convert] = c
+            odd_rows[convert].update(launches=c[convert],
+                                     video_file_launches=c[convert])
         # what the convert stage's time is: the two demos' files read
         # again under the profiler
         numbers["convert_split"] = stage = {
@@ -4052,12 +4250,16 @@ def video_files_phase(dev, smi: str):
         video_demo.VideoWriter = video_io.VideoWriter
         shutil.rmtree(work, ignore_errors=True)
     numbers["phase_s"] = time.perf_counter() - t_phase
-    for key, what in (("demo_mp4", "H.264 MP4"), ("demo", "MPEG-4 MKV"),
-                      ("demo_ts", "MPEG-2 TS"), ("demo_hevc", "HEVC MP4"),
-                      ("demo_main10", "HEVC Main 10 MP4 (BT.2020)")):
+    for key, what in (("demo_mp4", "480x640 H.264 MP4"),
+                      ("demo", "480x640 MPEG-4 MKV"),
+                      ("demo_ts", "480x640 MPEG-2 TS"),
+                      ("demo_hevc", "480x640 HEVC MP4"),
+                      ("demo_main10", "480x640 HEVC Main 10 MP4 (BT.2020)"),
+                      ("demo_odd_height", "479x640 MPEG-4 MKV (general)"),
+                      ("demo_odd_size", "479x639 MPEG-4 MKV (full chroma)")):
         demo = numbers[key]
         log(f"phase 16 (video files): the flagship video demo on a "
-            f"{VIDEO_FILE_FRAMES}-frame 480x640 {what} at --batch 8: "
+            f"{VIDEO_FILE_FRAMES}-frame {what} at --batch 8: "
             f"{demo['frames_per_s']:.2f} frames/s; read "
             f"{demo['read_ms_a_frame_total']:.3f} ms a frame "
             f"({', '.join(f'{k} {v:.3f}' for k, v in demo['read_ms_a_frame'].items())}"
@@ -4066,12 +4268,14 @@ def video_files_phase(dev, smi: str):
             f"frame [{smi}]")
     log(f"phase 16: launches in the MKV demo {mkv_counts}, in the TS demo "
         f"{ts_counts}, in the HEVC demo {counts}, in the Main 10 demo "
-        f"{p10_counts} [{smi}]")
+        f"{p10_counts}, in the odd-size demos {odd_counts} [{smi}]")
     log(f"video files: I_PCM planes exact ({numbers['ipcm_exact']}), "
         f"rotations {rotated}; MPEG-4 {json.dumps(numbers['mpeg4'])}; "
         f"mp4v reader {json.dumps(numbers.get('mp4v_reader'))}; phase "
         f"{numbers['phase_s']:.1f} s")
-    return counts, numbers, row, p10_row
+    return (counts, numbers, row, p10_row,
+            odd_rows["yuv420_general_to_bgr"],
+            odd_rows["yuv420_full_chroma_to_bgr"])
 
 
 def main() -> int:
@@ -4953,7 +5157,8 @@ def main() -> int:
     # every (matrix, range), cv2's MPEG-4 files, TS, HEVC, program streams
     # and colour fixtures against cv2, the flagship video demo on 64-frame
     # H.264 MP4, MPEG-4 MKV, MPEG-2 TS, HEVC MP4 and HEVC Main 10 MP4
-    vf_launches, vf_numbers, yuv_row, p10_row = video_files_phase(dev, smi)
+    vf_launches, vf_numbers, yuv_row, p10_row, *odd_rows = \
+        video_files_phase(dev, smi)
 
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
         "connection_scores": ("rtpose_tpu_torch/csrc/connection_scores.cu",
@@ -5039,7 +5244,8 @@ def main() -> int:
     yuv_row.update(launches=vf_launches["yuv420_to_bgr"],
                    video_file_launches=vf_launches["yuv420_to_bgr"])
     print(json.dumps({"kernels_beyond_tpu": [group_row]}), flush=True)
-    print(json.dumps({"kernels": rows + [yuv_row, p10_row]}), flush=True)
+    print(json.dumps({"kernels": rows + [yuv_row, p10_row, *odd_rows]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

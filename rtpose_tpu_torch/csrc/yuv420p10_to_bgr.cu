@@ -1,24 +1,31 @@
-// 10-bit 4:2:0 (yuv420p10le: Y, U and V planes of 16-bit samples below
-// 1024, each with its own row pitch) to 8-bit BGR with a quarter turn,
-// hand-written for Hopper: the card's counterpart of what cv2.VideoCapture
-// does with a decoded HEVC Main 10, H.264 High 10 or VP9 profile 2 frame.
+// swscale's general (scaling) path from 4:2:0 to 8-bit BGR with a quarter
+// turn, chroma shared by each pixel pair, hand-written for Hopper at two
+// sample depths: 10-bit (yuv420p10le: Y, U and V planes of 16-bit samples
+// below 1024, each with its own row pitch; rtpose_yuv420p10_to_bgr) and
+// 8-bit (yuv420p; rtpose_yuv420_general_to_bgr).  The card's counterpart
+// of what cv2.VideoCapture does with a decoded HEVC Main 10, H.264 High
+// 10 or VP9 profile 2 frame, and with an 8-bit frame of an odd height.
 //
 // Replaces no TPU kernel.  The JAX demo reads video through cv2
 // (rtpose_tpu/demo/video_demo.py:19-27).  swscale has no unscaled path
-// from yuv420p10le to bgr24, so cv2 5.0's frame goes through its general
-// (scaling) path at SWS_BICUBIC, the source chroma placed by the frame's
-// chroma location; the port decodes on the host (native/avcodec.py) and
-// converts here.  The rule below was found against cv2 5.0's frames of
-// 10-bit PCM streams and swscale itself (tests/test_torch_colour.py),
-// equal to them at every pixel of random fields at each size, chroma
-// location and (matrix, range) tried:
+// from yuv420p10le to bgr24, and takes its unscaled yuv420p -> bgr24
+// (yuv420_to_bgr.cu) only at an even output height, so these frames go
+// through its general path at SWS_BICUBIC, the source chroma placed by
+// the frame's chroma location; the port decodes on the host
+// (native/avcodec.py) and converts here.  An odd width takes swscale's
+// full-chroma output instead (yuv420_full_chroma_to_bgr.cu).  The rule
+// below was found against cv2 5.0's frames of 10-bit PCM streams and
+// swscale itself (tests/test_torch_colour.py), equal to them at every
+// pixel of random fields at each size, chroma location and (matrix,
+// range) tried; D is the depth (8 or 10):
 //
-// 1. Into swscale's 15-bit intermediate: luma Y15 = Y << 5 (an identity
-//    filter, 16384 >> 9); each chroma row filtered horizontally,
-//    C15[r][c] = min(sum_k C[r][hpos[c] + k] * htap[c][k] >> 9, 32767),
-//    with 14-bit taps (hsize of them: one, 16384, where the chroma sits
-//    at the centre of its pixel pair; four bicubic ones, B 0 and C 0.6,
-//    where it sits left, as H.264 and HEVC place it).
+// 1. Into swscale's 15-bit intermediate: luma Y15 = Y << (15 - D) (an
+//    identity filter); each chroma row filtered horizontally,
+//    C15[r][c] = min(sum_k C[r][hpos[c] + k] * htap[c][k] >> (D - 1),
+//    32767) (hScale8To15's >> 7, hScale16To15's >> 9), with 14-bit taps
+//    (hsize of them: one, 16384, where the chroma sits at the centre of
+//    its pixel pair; four bicubic ones, B 0 and C 0.6, where it sits
+//    left, as H.264 and HEVC place it).
 // 2. Each output row sy takes vsize chroma rows vpos[sy] + t with 12-bit
 //    bicubic taps vtap[sy][t] (2x upsampling; rows past the edges folded
 //    onto the edge taps).  The taps are swscale's initFilter's, made on
@@ -27,27 +34,30 @@
 //    - rows above the last two (swscale's MMX yuv2bgr24_X, whose
 //      vertical filter keeps the high half of each product):
 //        U' = 4 + sum_t ((C15 * vtap) >> 16) - 1024, the same for V;
-//        y' = ((4 + 2 Y - y_offset) * luma) >> 16,
-//      then B, G and R as in the 8-bit kernel (yuv420_to_bgr.cu) on y',
-//      U' and V' with the rule's 16-bit coefficients;
+//        y' = ((4 + (Y15 >> 4) - y_offset) * luma) >> 16
+//      (Y15 >> 4 is 8 Y at 8 bits, 2 Y at 10), then B, G and R as in the
+//      8-bit kernel (yuv420_to_bgr.cu) on y', U' and V' with the rule's
+//      16-bit coefficients;
 //    - the last two rows (swscale leaves its MMX filter there and takes
 //      the C yuv2rgb_X template with its tables):
-//        Yi = ((Y << 17) + (1 << 18)) >> 19 (that is (Y + 2) >> 2),
+//        Yi = ((Y15 << 12) + (1 << 18)) >> 19 (Y at 8 bits, (Y + 2) >> 2
+//        at 10),
 //        Ui = ((1 << 18) + sum_t C15 * vtap) >> 19, the same for Vi,
 //        T(k) = sat((k * cy + y_base + 0x8000) >> 16),
 //        D(c, q) = ((sat(c) * q) >> 16) - (q >> 9),
 //        B = T(Yi + D(Ui, bu)), G = T(Yi + D(Ui, gu) + D(Vi, gv)),
 //        R = T(Yi + D(Vi, rv)).
-//    No dither, none of the 16-bit sums wraps.  The width is even (an
-//    odd one takes swscale's full-chroma output, not this rule) and the
+//    No dither, none of the 16-bit sums wraps.  The width is even and the
 //    taps are more than two (at least 9 rows): ops/kernels.py refuses
 //    other sizes.
 //
 // The turn is cv2's cv::rotate, as in yuv420_to_bgr.cu.
 //
-// What bounds it on this card: bytes.  A 480x640 frame reads 0.92 MB of
-// planes and writes 0.92 MB of BGR, 1.84 MB in all: 0.55 us at 3.35 TB/s;
-// 1080x1920 12.44 MB (3.71 us), 2160x3840 49.77 MB (14.86 us).
+// What bounds it on this card: bytes.  A 480x640 10-bit frame reads
+// 0.92 MB of planes and writes 0.92 MB of BGR, 1.84 MB in all: 0.55 us at
+// 3.35 TB/s; 1080x1920 12.44 MB (3.71 us), 2160x3840 49.77 MB (14.86 us).
+// An 8-bit frame reads half the planes: 479x640 1.38 MB (0.41 us),
+// 1079x1920 9.32 MB (2.78 us).
 //
 // A thread a pixel would filter each chroma sample horizontally about 16
 // times (once for each tap of the 2 x 2 x vsize pixels that read it), and
@@ -62,11 +72,11 @@
 //   of 16 turned; 32 or 64 source rows reach at most 20 or 36 chroma rows
 //   at any height, tests/test_torch_yuv_tiles.py);
 // - gives a thread eight pixels of one source row: their luma in one
-//   16-byte load issued first (single bytes where the row start is off
-//   16 bytes), the vertical sum its row's rule needs once a chroma column
-//   (the MMX high halves + 4 above the last two rows, the C tables'
-//   (1 << 18) + sum on them), shared by the pixel pair, and the pixels
-//   converted in registers;
+//   16-byte (10-bit) or 8-byte (8-bit) load issued first (single bytes
+//   where the row start is off the alignment), the vertical sum its
+//   row's rule needs once a chroma column (the MMX high halves + 4 above
+//   the last two rows, the C tables' (1 << 18) + sum on them), shared by
+//   the pixel pair, and the pixels converted in registers;
 // - puts the BGR words into a shared tile in the output's orientation and
 //   writes its 32 rows of 192 bytes with 16-byte stores (store_tile).
 // So each plane byte is read from device memory once and each chroma
@@ -102,21 +112,27 @@ __device__ __forceinline__ int table_term(int c, int q) {
     return ((c * q) >> 16) - (q >> 9);
 }
 
-// a pixel pair (two luma samples in `luma`) from its chroma sums: above
-// the last two rows (simd) the MMX rule, su and sv the high halves + 4;
-// on them the C tables, su and sv (1 << 18) + the sums
-__device__ __forceinline__ void p10_pair(uint32_t luma, bool simd, int su,
+// sample k of a row's samples held in the words w
+template <typename T>
+__device__ __forceinline__ int sample_of(const uint32_t* w, int k) {
+    if constexpr (sizeof(T) == 1) return byte_of(w, k);
+    return (w[k >> 1] >> (16 * (k & 1))) & 0xffff;
+}
+
+// a pixel pair (luma y0, y1 in the 15-bit intermediate) from its chroma
+// sums: above the last two rows (simd) the MMX rule, su and sv the high
+// halves + 4; on them the C tables, su and sv (1 << 18) + the sums
+__device__ __forceinline__ void p10_pair(int y0, int y1, bool simd, int su,
                                          int sv, const YuvRule& rule,
                                          uint32_t& w0, uint32_t& w1) {
-    const int y0 = luma & 0xffff, y1 = luma >> 16;
     if (simd) {
         su -= 1024;
         sv -= 1024;
         const int b = (su * rule.ub) >> 16;
         const int g = ((su * rule.ug) >> 16) + ((sv * rule.vg) >> 16);
         const int r = (sv * rule.vr) >> 16;
-        const int l0 = ((4 + 2 * y0 - rule.y_offset) * rule.luma) >> 16;
-        const int l1 = ((4 + 2 * y1 - rule.y_offset) * rule.luma) >> 16;
+        const int l0 = ((4 + (y0 >> 4) - rule.y_offset) * rule.luma) >> 16;
+        const int l1 = ((4 + (y1 >> 4) - rule.y_offset) * rule.luma) >> 16;
         w0 = bgr_word(sat8(l0 + b), sat8(l0 + g), sat8(l0 + r));
         w1 = bgr_word(sat8(l1 + b), sat8(l1 + g), sat8(l1 + r));
         return;
@@ -125,19 +141,20 @@ __device__ __forceinline__ void p10_pair(uint32_t luma, bool simd, int su,
     const int b = table_term(ui, rule.bu);
     const int g = table_term(ui, rule.gu) + table_term(vi, rule.gv);
     const int r = table_term(vi, rule.rv);
-    const int l0 = ((y0 << 17) + (1 << 18)) >> 19;
-    const int l1 = ((y1 << 17) + (1 << 18)) >> 19;
+    const int l0 = ((y0 << 12) + (1 << 18)) >> 19;
+    const int l1 = ((y1 << 12) + (1 << 18)) >> 19;
     w0 = bgr_word(table_bgr(l0 + b, rule), table_bgr(l0 + g, rule),
                   table_bgr(l0 + r, rule));
     w1 = bgr_word(table_bgr(l1 + b, rule), table_bgr(l1 + g, rule),
                   table_bgr(l1 + r, rule));
 }
 
-// QUARTER: rotation is 90 or 270
-template <bool QUARTER>
-__global__ void __launch_bounds__(P10_THREADS) yuv420p10_to_bgr_kernel(
-        const uint16_t* __restrict__ y, const uint16_t* __restrict__ u,
-        const uint16_t* __restrict__ v, int y_pitch, int c_pitch,
+// A block's tile.  T: the sample type, uint8_t (8-bit) or uint16_t
+// (10-bit); QUARTER: rotation is 90 or 270
+template <typename T, bool QUARTER>
+__device__ __forceinline__ void general_tile(
+        const T* __restrict__ y, const T* __restrict__ u,
+        const T* __restrict__ v, int y_pitch, int c_pitch,
         int height, int width, int rotation,
         const int* __restrict__ hpos, const int* __restrict__ htap,
         int hsize, const int* __restrict__ vpos,
@@ -145,6 +162,7 @@ __global__ void __launch_bounds__(P10_THREADS) yuv420p10_to_bgr_kernel(
         uint8_t* __restrict__ out) {
     __shared__ int chroma[2][P10_CHROMA_SLOTS];
     __shared__ uint32_t bgr[BGR_TILE_WORDS];
+    constexpr int DEPTH = sizeof(T) == 1 ? 8 : 10;
     const TileMap m = tile_map<QUARTER>(height, width, rotation);
     const int tid = threadIdx.x;
 
@@ -155,12 +173,13 @@ __global__ void __launch_bounds__(P10_THREADS) yuv420p10_to_bgr_kernel(
     const int col = P10_PIXELS * (tid % ROW_THREADS);
     const bool mine = sr < m.th && col < m.tw;
     const int sy = m.r0 + sr;
-    uint32_t luma[P10_PIXELS / 2];
+    uint32_t luma[sizeof(T) * P10_PIXELS / 4];
     int vp = 0, taps[P10_MAX_TAPS];
     if (mine) {
-        load_bytes<2 * P10_PIXELS>(reinterpret_cast<const uint8_t*>(
-                                       y + (size_t)sy * y_pitch + m.c0 + col),
-                                   2 * min(P10_PIXELS, m.tw - col), luma);
+        load_bytes<sizeof(T) * P10_PIXELS>(
+            reinterpret_cast<const uint8_t*>(y + (size_t)sy * y_pitch + m.c0
+                                             + col),
+            sizeof(T) * min(P10_PIXELS, m.tw - col), luma);
         vp = vpos[sy];
 #pragma unroll
         for (int t = 0; t < P10_MAX_TAPS; ++t)
@@ -201,8 +220,8 @@ __global__ void __launch_bounds__(P10_THREADS) yuv420p10_to_bgr_kernel(
         for (int i = 0; i < P10_ITEMS; ++i) {
             const int r = row0 + i * (P10_THREADS / CCOLS);
             if (r < rows) {
-                chroma[0][r * PITCH + cc] = min(uh[i] >> 9, 32767);
-                chroma[1][r * PITCH + cc] = min(vh[i] >> 9, 32767);
+                chroma[0][r * PITCH + cc] = min(uh[i] >> (DEPTH - 1), 32767);
+                chroma[1][r * PITCH + cc] = min(vh[i] >> (DEPTH - 1), 32767);
             }
         }
     }
@@ -239,7 +258,9 @@ __global__ void __launch_bounds__(P10_THREADS) yuv420p10_to_bgr_kernel(
                     }
                 }
             }
-            p10_pair(luma[q], simd, su, sv, rule, px[2 * q], px[2 * q + 1]);
+            p10_pair(sample_of<T>(luma, 2 * q) << (15 - DEPTH),
+                     sample_of<T>(luma, 2 * q + 1) << (15 - DEPTH), simd,
+                     su, sv, rule, px[2 * q], px[2 * q + 1]);
         }
         put_pixels<P10_PIXELS>(bgr, m, sr, col, min(P10_PIXELS, m.tw - col),
                                px);
@@ -248,11 +269,37 @@ __global__ void __launch_bounds__(P10_THREADS) yuv420p10_to_bgr_kernel(
     store_tile<P10_THREADS>(bgr, m, out);
 }
 
-extern "C" int rtpose_yuv420p10_to_bgr(
-        const void* y, const void* u, const void* v, int y_pitch,
-        int c_pitch, int height, int width, int rotation, const void* hpos,
-        const void* htap, int hsize, const void* vpos, const void* vtap,
-        int vsize, YuvRule rule, void* out, void* stream) {
+// The kernel of each depth, named as its wrapper in ops/kernels.py (a
+// profiler's record then names the route)
+#define GENERAL_KERNEL(NAME, T)                                              \
+    template <bool QUARTER>                                                  \
+    __global__ void __launch_bounds__(P10_THREADS) NAME(                     \
+            const T* __restrict__ y, const T* __restrict__ u,                \
+            const T* __restrict__ v, int y_pitch, int c_pitch, int height,   \
+            int width, int rotation, const int* __restrict__ hpos,           \
+            const int* __restrict__ htap, int hsize,                         \
+            const int* __restrict__ vpos, const int* __restrict__ vtap,      \
+            int vsize, YuvRule rule, uint8_t* __restrict__ out) {            \
+        general_tile<T, QUARTER>(y, u, v, y_pitch, c_pitch, height, width,   \
+                                 rotation, hpos, htap, hsize, vpos, vtap,    \
+                                 vsize, rule, out);                          \
+    }
+GENERAL_KERNEL(yuv420p10_to_bgr_kernel, uint16_t)
+GENERAL_KERNEL(yuv420_general_to_bgr_kernel, uint8_t)
+
+template <typename T>
+using GeneralKernel = void (*)(const T*, const T*, const T*, int, int, int,
+                               int, int, const int*, const int*, int,
+                               const int*, const int*, int, YuvRule,
+                               uint8_t*);
+
+template <typename T>
+static int launch_general(GeneralKernel<T> straight, GeneralKernel<T> turned,
+                          const void* y, const void* u, const void* v,
+                          int y_pitch, int c_pitch, int height, int width,
+                          int rotation, const void* hpos, const void* htap,
+                          int hsize, const void* vpos, const void* vtap,
+                          int vsize, YuvRule rule, void* out, void* stream) {
     if (height <= 2 || width <= 0 || (width & 1) || y_pitch < width
             || c_pitch < width / 2 || hsize < 1 || hsize > P10_MAX_TAPS
             || vsize < 1 || vsize > P10_MAX_TAPS
@@ -260,13 +307,33 @@ extern "C" int rtpose_yuv420p10_to_bgr(
                 && rotation != 270))
         return (int)cudaErrorInvalidValue;
     const dim3 grid = tile_grid(height, width, rotation);
-    const auto kernel = rotation == 90 || rotation == 270
-                        ? yuv420p10_to_bgr_kernel<true>
-                        : yuv420p10_to_bgr_kernel<false>;
+    const auto kernel = rotation == 90 || rotation == 270 ? turned : straight;
     kernel<<<grid, P10_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint16_t*)y, (const uint16_t*)u, (const uint16_t*)v, y_pitch,
-        c_pitch, height, width, rotation, (const int*)hpos, (const int*)htap,
-        hsize, (const int*)vpos, (const int*)vtap, vsize, rule,
-        (uint8_t*)out);
+        (const T*)y, (const T*)u, (const T*)v, y_pitch, c_pitch, height,
+        width, rotation, (const int*)hpos, (const int*)htap, hsize,
+        (const int*)vpos, (const int*)vtap, vsize, rule, (uint8_t*)out);
     return (int)cudaGetLastError();
+}
+
+extern "C" int rtpose_yuv420p10_to_bgr(
+        const void* y, const void* u, const void* v, int y_pitch,
+        int c_pitch, int height, int width, int rotation, const void* hpos,
+        const void* htap, int hsize, const void* vpos, const void* vtap,
+        int vsize, YuvRule rule, void* out, void* stream) {
+    return launch_general<uint16_t>(
+        yuv420p10_to_bgr_kernel<false>, yuv420p10_to_bgr_kernel<true>, y, u,
+        v, y_pitch, c_pitch, height, width, rotation, hpos, htap, hsize, vpos,
+        vtap, vsize, rule, out, stream);
+}
+
+extern "C" int rtpose_yuv420_general_to_bgr(
+        const void* y, const void* u, const void* v, int y_pitch,
+        int c_pitch, int height, int width, int rotation, const void* hpos,
+        const void* htap, int hsize, const void* vpos, const void* vtap,
+        int vsize, YuvRule rule, void* out, void* stream) {
+    return launch_general<uint8_t>(
+        yuv420_general_to_bgr_kernel<false>,
+        yuv420_general_to_bgr_kernel<true>, y, u, v, y_pitch, c_pitch, height,
+        width, rotation, hpos, htap, hsize, vpos, vtap, vsize, rule, out,
+        stream);
 }

@@ -1026,8 +1026,9 @@ def yuv_frames(n: int, h: int, w: int, seed: int = 0
     """`n` pictures of random 4:2:0 planes from `seed`, each unlike the
     others (a decoder that shows a stale picture fails an exact check)."""
     rng = np.random.RandomState(seed)
+    c = ((h + 1) // 2, (w + 1) // 2)
     return [tuple(rng.randint(0, 256, s, dtype=np.uint8)
-                  for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+                  for s in ((h, w), c, c))
             for _ in range(n)]
 
 
@@ -1035,8 +1036,9 @@ def yuv_frames10(n: int, h: int, w: int, seed: int = 0, depth: int = 10
                  ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """As :func:`yuv_frames`, planes of `depth`-bit samples (uint16)."""
     rng = np.random.RandomState(seed)
+    c = ((h + 1) // 2, (w + 1) // 2)
     return [tuple(rng.randint(0, 1 << depth, s).astype(np.uint16)
-                  for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+                  for s in ((h, w), c, c))
             for _ in range(n)]
 
 
@@ -1941,7 +1943,87 @@ def write_vp9_superframe(src: str, dst: str) -> int:
     return len(packets)
 
 
+# ---------------------------------------------------------------------------
+# odd-size fixtures: lossless VP9 of the sizes swscale scales (8-bit of an
+# odd height, odd widths), which the card's machine reads but may not write
+# ---------------------------------------------------------------------------
+
+class OddSizeFixture(NamedTuple):
+    name: str                      # the file, beside VP9_WEBM
+    height: int
+    width: int
+    depth: int
+    frames: int
+    colour: Optional[Colour] = None
+    siting: Optional[Tuple[int, int]] = None   # Matroska's chroma siting
+    scene: bool = False            # rendered scenes, else random planes
+
+
+ODD_SIZE_FIXTURES = (
+    OddSizeFixture("vp9_31x48.webm", 31, 48, 8, 3, siting=(1, 1)),
+    OddSizeFixture("vp9_33x64.webm", 33, 64, 8, 3),
+    OddSizeFixture("vp9_31x47.webm", 31, 47, 8, 3),
+    OddSizeFixture("vp9_479x640.webm", 479, 640, 8, 2, scene=True),
+    OddSizeFixture("vp9p2_32x47.webm", 32, 47, 10, 3),
+    OddSizeFixture("vp9p2_31x65.webm", 31, 65, 10, 3, Colour(1, True),
+                   (1, 2)),
+)
+
+
+def odd_size_path(fixture: OddSizeFixture) -> str:
+    return os.path.join(os.path.dirname(VP9_WEBM), fixture.name)
+
+
+def scene_planes(seeds: Sequence[int], h: int, w: int):
+    """8-bit 4:2:0 planes of rendered scenes
+    (``data.imread_fixtures.render_scene`` of each seed) at any size:
+    rendered at the even size above, the planes cut to h x w."""
+    from ..data.imread_fixtures import render_scene
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    frames = []
+    for seed in seeds:
+        y, u, v = bgr_to_yuv420(render_scene(seed, h + h % 2, w + w % 2))
+        frames.append((y[:h, :w].copy(), u[:ch, :cw].copy(),
+                       v[:ch, :cw].copy()))
+    return frames
+
+
+def odd_size_frames(fixture: OddSizeFixture):
+    """The planes :func:`write_odd_size_fixtures` encodes for `fixture`
+    (the decoder gives them back: lossless)."""
+    h, w = fixture.height, fixture.width
+    if fixture.scene:
+        return scene_planes(range(fixture.frames), h, w)
+    make = yuv_frames if fixture.depth == 8 else yuv_frames10
+    return make(fixture.frames, h, w, seed=h * w)
+
+
+def write_mpeg4_mkv(path: str, frames, fps: float = 20.0) -> None:
+    """MPEG-4 Part 2 of 8-bit `frames` (any size: its VOL states it) from
+    the wheel's ``mpeg4`` encoder (the one the XVID writer uses, so the
+    card's machine has it too) in Matroska (``V_MPEG4/ISO/ASP``)."""
+    h, w = frames[0][0].shape
+    with open(path, "wb") as f:
+        f.write(mux_mkv("V_MPEG4/ISO/ASP",
+                        encode_lavc("mpeg4", frames, fps=round(fps)),
+                        (w, h), fps=fps))
+
+
+def write_odd_size_fixtures() -> List[str]:
+    """Write the committed :data:`ODD_SIZE_FIXTURES` (needs the wheel's
+    libvpx-vp9 encoder); returns their paths."""
+    paths = []
+    for fx in ODD_SIZE_FIXTURES:
+        mux = {"chroma_siting": fx.siting} if fx.siting else {}
+        write_vp9(odd_size_path(fx), odd_size_frames(fx), colour=fx.colour,
+                  **mux)
+        paths.append(odd_size_path(fx))
+    return paths
+
+
 if __name__ == "__main__":
-    # remake the committed VP9 WebM (needs cv2 with libvpx)
+    # remake the committed VP9 WebM (needs cv2 with libvpx) and the
+    # odd-size fixtures (the wheel's libvpx-vp9)
     write_cv2_video(VP9_WEBM, "VP90", VP9_WEBM_FRAMES, 48, 64, VP9_WEBM_FPS)
-    print(VP9_WEBM, os.path.getsize(VP9_WEBM))
+    for path in [VP9_WEBM, *write_odd_size_fixtures()]:
+        print(path, os.path.getsize(path))

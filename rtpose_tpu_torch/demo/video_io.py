@@ -26,19 +26,24 @@ of its users' files, frame for frame as cv2 gives them:
   as ``CAP_PROP_ORIENTATION_AUTO`` does; H.264 and HEVC pictures come in
   cv2's order.  The packets are decoded on the host by FFmpeg's libavcodec
   from the OpenCV wheel (``native/avcodec.py``), the planes converted to
-  BGR and turned on the card (``ops.kernels.yuv420_to_bgr`` for 8-bit
-  frames, ``ops.kernels.yuv420p10_to_bgr`` for 10-bit ones: cv2's
-  arithmetic to the bit).  ``device="cpu"`` converts with the kernels'
-  plain versions, for tests; without a card, and without the library,
-  opening such a file raises.
+  BGR and turned on the card by the kernel of the path cv2's swscale takes
+  at the frame's depth and size (``ops.kernels.yuv420_frame_to_bgr``:
+  ``yuv420_to_bgr`` for 8-bit frames of an even height,
+  ``yuv420_general_to_bgr`` for those of an odd one, ``yuv420p10_to_bgr``
+  for 10-bit ones, ``yuv420_full_chroma_to_bgr`` at an odd width where
+  swscale takes its full-chroma output: cv2's arithmetic to the bit).
+  ``device="cpu"`` converts with the kernels' plain versions, for tests;
+  without a card, and without the library, opening such a file raises.
 
 Colour is converted as cv2 5.0 converts it (:func:`conversion`): with
 the matrix and range the frame carries, which the decoder takes from
 the bitstream (H.264 / HEVC VUI, MPEG-2's sequence display extension,
 VP9's frame header, ...) and, where that is silent, keeps from the
 container (an MP4 ``colr`` box, Matroska's ``Colour``; HEVC's decoder
-resets them when its VUI states none); a 10-bit frame's chroma placed
-by its chroma location.
+resets them when its VUI states none); where swscale filters the chroma
+(10-bit frames, odd sizes) it is placed by the frame's chroma location.
+Frames under 9 rows or 8 columns that swscale scales are refused
+(item 4i (a)).
 
 Everything else is refused with an error that names the container or
 codec and ROADMAP.md queue 1 item 4: AV1, VP9 of profiles 1 and 3,
@@ -253,9 +258,10 @@ class DecodedVideo:
     libavcodec's parser),
     decoded there by libavcodec (an H.264 stream probed first, as
     libavformat probes it for cv2), and each picture's planes are
-    copied to `device` and converted by ``ops.kernels.yuv420_to_bgr``
-    (``yuv420p10_to_bgr`` for 10-bit pictures; the plain versions for
-    ``"cpu"``), with the picture's colour (:func:`conversion`).  The copy
+    copied to `device` and converted by ``ops.kernels.yuv420_frame_to_bgr``
+    (the kernel of swscale's path at the picture's depth and size; the
+    plain versions for ``"cpu"``), with the picture's colour
+    (:func:`conversion`).  The copy
     returns once the decoder's buffers have been read, before the next
     picture reuses them.  ``seconds`` sums the time of each step: ``demux`` (reading a
     packet and, for H.264 and HEVC, its Annex-B form), ``parse`` (a
@@ -346,7 +352,7 @@ class DecodedVideo:
         """(True, next frame) or (False, None) after the last one."""
         import torch
 
-        from ..ops.kernels import yuv420_to_bgr, yuv420p10_to_bgr
+        from ..ops.kernels import yuv420_frame_to_bgr
         if self._decoder is None:
             return False, None
         while True:
@@ -365,13 +371,12 @@ class DecodedVideo:
         except ValueError as e:
             raise ValueError(f"{self.path}: {e}") from None
         planes = [torch.from_numpy(p).to(self.device) for p in planes]
-        if colour.depth == 8:
-            frame = yuv420_to_bgr(*planes, width=width,
-                                  rotation=self.rotation, rule=rule)
-        else:
-            frame = yuv420p10_to_bgr(*planes, width=width,
-                                     rotation=self.rotation, rule=rule,
-                                     chroma_location=location)
+        try:
+            frame = yuv420_frame_to_bgr(*planes, depth=colour.depth,
+                                        width=width, rotation=self.rotation,
+                                        rule=rule, chroma_location=location)
+        except ValueError as e:
+            raise ValueError(f"{self.path}: {e}") from None
         frame = frame.cpu().numpy()
         self.seconds["convert"] += time.perf_counter() - t0
         return True, frame

@@ -48,6 +48,11 @@ _SIGNATURES = {
                              _P),
     "rtpose_yuv420p10_to_bgr": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I,
                                 _P, _P, _I, "rule", _P, _P),
+    "rtpose_yuv420_general_to_bgr": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                     _I, _P, _P, _I, "rule", _P, _P),
+    "rtpose_yuv420_full_chroma_to_bgr": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                         _P, _P, _I, _P, _P, _I, "rule", _P,
+                                         _P),
 }
 
 

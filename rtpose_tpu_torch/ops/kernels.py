@@ -26,7 +26,13 @@ Three kernels carry the decode and one the training step's ground truth
   rotation): a decoded video frame's planes in, BGR out, for the video
   reader; :func:`yuv420p10_to_bgr` (``csrc/yuv420p10_to_bgr.cu``) the
   same for 10-bit frames (swscale's yuv420p10le -> bgr24, its scaling
-  path with the chroma filtered).
+  path with the chroma filtered), :func:`yuv420_general_to_bgr` (the
+  same source at 8 bits) for 8-bit frames of an odd height, and
+  :func:`yuv420_full_chroma_to_bgr`
+  (``csrc/yuv420_full_chroma_to_bgr.cu``) for frames of an odd width
+  (swscale's full-chroma output); :func:`yuv420_frame_to_bgr` picks the
+  one swscale's path at the frame's depth and size calls for
+  (:func:`yuv420_route`).
 
 A wrapper given CPU tensors runs the plain PyTorch version beside it; given
 CUDA tensors it launches the kernel or raises.  There is no fallback from
@@ -1150,13 +1156,48 @@ def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
 yuv420_to_bgr.launches = 0
 
 # ---------------------------------------------------------------------------
-# 10-bit 4:2:0 to BGR: swscale's general (scaling) path, as cv2 runs it
+# swscale's general (scaling) path, as cv2 runs it: 10-bit 4:2:0 at every
+# size, 8-bit at odd heights, full internal chroma at odd widths
 # ---------------------------------------------------------------------------
 
 CHROMA_LOCATIONS = {0: "unspecified", 1: "left", 2: "center",
                     3: "top left", 4: "top", 5: "bottom left", 6: "bottom"}
 SWS_BICUBIC_C = int(0.6 * (1 << 24))   # swscale's default bicubic C (B 0)
-P10_MIN_WIDTH, P10_MIN_HEIGHT = 8, 9
+GENERAL_MIN_WIDTH, GENERAL_MIN_HEIGHT = 8, 9
+DEPTHS = (8, 10)
+
+
+def yuv420_route(depth: int, height: int, width: int) -> str:
+    """The path swscale (cv2's conversion of a decoded frame) takes from
+    a `depth`-bit height x width 4:2:0 picture to bgr24:
+
+    - ``"unscaled"``: 8-bit at even heights (``ff_get_unscaled_swscale``
+      takes yuv420p to RGB unscaled only at an even output height), odd
+      widths too: :func:`yuv420_to_bgr`;
+    - ``"general"``: the scaling path at SWS_BICUBIC, chroma shared by
+      each pixel pair: 8-bit at odd heights and 10-bit, at even widths:
+      :func:`yuv420_general_to_bgr`, :func:`yuv420p10_to_bgr`;
+    - ``"full_chroma"``: the scaling path with full internal horizontal
+      chroma (swscale forces SWS_FULL_CHR_H_INT at an odd RGB width): odd
+      widths at 10-bit, and at 8-bit where the height is odd too:
+      :func:`yuv420_full_chroma_to_bgr`.
+
+    Raises ValueError for another depth, and names a picture under
+    GENERAL_MIN_HEIGHT rows or GENERAL_MIN_WIDTH columns on a scaling
+    route (swscale's two-tap vertical path and narrow filters there)."""
+    if depth not in DEPTHS:
+        raise ValueError(f"a {depth}-bit 4:2:0 picture: 8- and 10-bit are "
+                         f"converted (ROADMAP.md queue 1 item 4i)")
+    if depth == 8 and height % 2 == 0:
+        return "unscaled"
+    route = "full_chroma" if width % 2 else "general"
+    if width < GENERAL_MIN_WIDTH or height < GENERAL_MIN_HEIGHT:
+        raise ValueError(f"a {height}x{width} {depth}-bit picture: swscale's "
+                         f"scaling path is converted at heights of at least "
+                         f"{GENERAL_MIN_HEIGHT} and widths of at least "
+                         f"{GENERAL_MIN_WIDTH} (ROADMAP.md queue 1 item 4i "
+                         f"(a))")
+    return route
 
 
 def _chroma_pos(location: int) -> Tuple[int, int]:
@@ -1266,30 +1307,37 @@ def sws_filter(x_inc: int, src: int, dst: int, align: int, one: int,
     return np.asarray(pos, np.int32), out
 
 
-def p10_filters(height: int, width: int, location: int):
-    """The chroma filters of swscale's yuv420p10le -> bgr24 at one size
-    (SWS_BICUBIC, the source chroma at `location`): (horizontal first
-    sample (cw,), taps (cw, hs); vertical first row (height,), taps
-    (height, vs)), int32; 14-bit horizontal, 12-bit vertical taps."""
-    if (width % 2 or width < P10_MIN_WIDTH or height < P10_MIN_HEIGHT):
-        raise ValueError(f"a {height}x{width} 10-bit picture: 10-bit 4:2:0 "
-                         f"is converted at even widths of at least "
-                         f"{P10_MIN_WIDTH} and heights of at least "
-                         f"{P10_MIN_HEIGHT} (swscale takes other paths "
-                         f"there; ROADMAP.md queue 1 item 4i)")
+def general_filters(height: int, width: int, location: int,
+                    full_chroma: bool = False):
+    """The chroma filters of swscale's general path from a height x width
+    4:2:0 picture to bgr24 (SWS_BICUBIC, the source chroma at `location`):
+    (horizontal first sample (n,), taps (n, hs); vertical first row
+    (height,), taps (height, vs)), int32; 14-bit horizontal, 12-bit
+    vertical taps.  The horizontal filter keeps the width // 2 chroma
+    columns (n = width // 2, the width even); with `full_chroma` it scales
+    the (width + 1) // 2 columns up to n = width."""
+    yuv420_route(10, height, width)     # refuses sizes under 9 x 8
+    if width % 2 and not full_chroma:
+        raise ValueError(f"a {height}x{width} picture: an odd width takes "
+                         f"swscale's full-chroma output")
     if location not in CHROMA_LOCATIONS:
         raise ValueError(f"chroma location {location} is not one of "
                          f"{sorted(CHROMA_LOCATIONS)}")
-    cw, ch = width // 2, (height + 1) // 2
+    cw, ch = (width + 1) // 2, (height + 1) // 2
     x, y = _chroma_pos(location)
-    hpos, htaps = sws_filter(1 << 16, cw, cw, 4, 1 << 14, _local_pos(1, x),
-                             _local_pos(1, -513))
+    if full_chroma:                           # chrXInc, to the luma grid
+        hpos, htaps = sws_filter(((cw << 16) + (width >> 1)) // width, cw,
+                                 width, 4, 1 << 14, _local_pos(1, x),
+                                 _local_pos(0, -513))
+    else:
+        hpos, htaps = sws_filter(1 << 16, cw, cw, 4, 1 << 14,
+                                 _local_pos(1, x), _local_pos(1, -513))
     v_inc = ((ch << 16) + (height >> 1)) // height
     vpos, vtaps = sws_filter(v_inc, ch, height, 2, 1 << 12,
                              _local_pos(1, y), _local_pos(0, -513))
     if vtaps.shape[1] <= 2:
-        raise ValueError(f"a {height}x{width} 10-bit picture: swscale's "
-                         f"two-tap path (ROADMAP.md queue 1 item 4i)")
+        raise ValueError(f"a {height}x{width} picture: swscale's two-tap "
+                         f"path (ROADMAP.md queue 1 item 4i (a))")
     return hpos, htaps, vpos, vtaps
 
 
@@ -1307,26 +1355,13 @@ def _table_bgr(yi, uc, vc, rule: YuvRule) -> torch.Tensor:
                         ytab(yi + term(vc, rule.rv))], dim=-1)
 
 
-def yuv420p10_to_bgr_plain(y: torch.Tensor, u: torch.Tensor,
-                           v: torch.Tensor, *, width: int,
-                           rotation: int = 0, rule: YuvRule = BT601_LIMITED,
-                           chroma_location: int = 1) -> torch.Tensor:
-    """The plain version of :func:`yuv420p10_to_bgr` (int64 arithmetic):
-    swscale's steps as cv2 5.0's frames show them.
-
-    - luma: 10-bit samples to the 15-bit intermediate (``<< 5``), no
-      filter;
-    - chroma: the horizontal filter (14-bit taps, ``>> 9``, at most
-      32767), then the vertical one (12-bit taps) to every output row;
-    - output: rows above the last two through the MMX ``yuv2bgr24_X``
-      (each tap's product's high half, ``+ 4``; then the 16-bit
-      coefficients as in the 8-bit path, on 2 x Y10 and the chroma less
-      1024), the last two rows through the C tables
-      (``(1 << 18) + sum >> 19`` to 8-bit indices); chroma shared by
-      each pixel pair."""
-    h = y.shape[0]
-    hpos, htaps, vpos, vtaps = p10_filters(h, width, chroma_location)
-    cw, dev = width // 2, y.device
+def _filtered_chroma(u, v, depth: int, filters):
+    """Each chroma plane filtered horizontally (hScale8To15's ``>> 7``,
+    hScale16To15's ``>> 9``: 15-bit, at most 32767), then the chroma rows
+    each output row's vertical taps read: ((h, vs, n) U, V, (h, vs, 1)
+    taps), int64."""
+    hpos, htaps, vpos, vtaps = filters
+    dev = u.device
     hidx = torch.from_numpy(hpos.astype(np.int64)[:, None]
                             + np.arange(htaps.shape[1])).to(dev)
     hc = torch.from_numpy(htaps.astype(np.int64)).to(dev)
@@ -1334,13 +1369,42 @@ def yuv420p10_to_bgr_plain(y: torch.Tensor, u: torch.Tensor,
                             + np.arange(vtaps.shape[1])).to(dev)
     vc = torch.from_numpy(vtaps.astype(np.int64)).to(dev)
 
-    def horizontal(c):             # (ch, cw) 15-bit
-        c = c[:, :cw].to(torch.int64)
-        return ((c[:, hidx] * hc).sum(-1) >> 9).clamp(max=32767)
+    def horizontal(c):
+        c = c.to(torch.int64)
+        return ((c[:, hidx] * hc).sum(-1) >> (depth - 1)).clamp(max=32767)
 
-    cu, cv = horizontal(u), horizontal(v)
-    # (h, vs, cw): the chroma rows each output row's taps read
-    tu, tv, taps = cu[vidx], cv[vidx], vc[:, :, None]
+    return horizontal(u)[vidx], horizontal(v)[vidx], vc[:, :, None]
+
+
+def _y15(y: torch.Tensor, width: int, depth: int) -> torch.Tensor:
+    """Luma to swscale's 15-bit intermediate (an identity filter)."""
+    return y[:, :width].to(torch.int64) << (15 - depth)
+
+
+def general_to_bgr_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                         *, width: int, depth: int, rotation: int = 0,
+                         rule: YuvRule = BT601_LIMITED,
+                         chroma_location: int = 1) -> torch.Tensor:
+    """The plain version of :func:`yuv420_general_to_bgr` (8-bit) and
+    :func:`yuv420p10_to_bgr` (10-bit) (int64 arithmetic): swscale's
+    general path at an even width as cv2 5.0's frames show it.
+
+    - luma: the 15-bit intermediate Y15 = Y << (15 - depth), no filter;
+    - chroma: the horizontal filter (14-bit taps, ``>> (depth - 1)``, at
+      most 32767), then the vertical one (12-bit taps) to every output
+      row;
+    - output: rows above the last two through the MMX ``yuv2bgr24_X``
+      (each tap's product's high half, ``+ 4``; then the 16-bit
+      coefficients as in the unscaled path, on Y15 >> 4, that is 8 Y at
+      8 bits and 2 Y at 10, and the chroma less 1024), the last two rows
+      through the C tables (``(1 << 18) + sum >> 19`` to 8-bit indices,
+      luma ``((Y15 << 12) + (1 << 18)) >> 19``); chroma shared by each
+      pixel pair."""
+    h = y.shape[0]
+    cw = width // 2
+    tu, tv, taps = _filtered_chroma(u[:, :cw], v[:, :cw], depth,
+                                    general_filters(h, width,
+                                                    chroma_location))
     simd_u = 4 + ((tu * taps) >> 16).sum(1) - 1024
     simd_v = 4 + ((tv * taps) >> 16).sum(1) - 1024
     c_u = ((1 << 18) + (tu * taps).sum(1)) >> 19
@@ -1349,28 +1413,139 @@ def yuv420p10_to_bgr_plain(y: torch.Tensor, u: torch.Tensor,
     def pairs(c):                  # each chroma value to its two pixels
         return c.repeat_interleave(2, 1)[:, :width]
 
-    y10 = y[:, :width].to(torch.int64)
-    luma = ((4 + 2 * y10 - rule.y_offset) * rule.luma) >> 16
+    y15 = _y15(y, width, depth)
+    luma = ((4 + (y15 >> 4) - rule.y_offset) * rule.luma) >> 16
     su, sv = pairs(simd_u), pairs(simd_v)
     bgr = torch.stack([luma + ((su * rule.ub) >> 16),
                        luma + ((su * rule.ug) >> 16) + ((sv * rule.vg) >> 16),
                        luma + ((sv * rule.vr) >> 16)], dim=-1).clamp(0, 255)
     last = slice(max(h - 2, 0), h)
-    bgr[last] = _table_bgr(((y10[last] << 17) + (1 << 18)) >> 19,
+    bgr[last] = _table_bgr(((y15[last] << 12) + (1 << 18)) >> 19,
                            pairs(c_u[last]), pairs(c_v[last]), rule)
     return _turn(bgr.to(torch.uint8), rotation)
 
 
-_P10_TABLES = {}     # (device, h, w, location) -> the filters on the device
+def yuv420p10_to_bgr_plain(y: torch.Tensor, u: torch.Tensor,
+                           v: torch.Tensor, *, width: int,
+                           rotation: int = 0, rule: YuvRule = BT601_LIMITED,
+                           chroma_location: int = 1) -> torch.Tensor:
+    """The plain version of :func:`yuv420p10_to_bgr`:
+    :func:`general_to_bgr_plain` at 10 bits."""
+    return general_to_bgr_plain(y, u, v, width=width, depth=10,
+                                rotation=rotation, rule=rule,
+                                chroma_location=chroma_location)
 
 
-def _p10_tables_on(device: torch.device, h: int, width: int, location: int):
-    key = (str(device), h, width, location)
-    if key not in _P10_TABLES:
-        _P10_TABLES[key] = tuple(
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 to the int32 that C's unsigned arithmetic leaves."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def full_chroma_to_bgr_plain(y: torch.Tensor, u: torch.Tensor,
+                             v: torch.Tensor, *, width: int, depth: int,
+                             rotation: int = 0,
+                             rule: YuvRule = BT601_LIMITED,
+                             chroma_location: int = 1) -> torch.Tensor:
+    """The plain version of :func:`yuv420_full_chroma_to_bgr` (int64
+    arithmetic): swscale's general path with full internal horizontal
+    chroma (an odd width) as cv2 5.0's frames show it.
+
+    - luma: Y15 = Y << (15 - depth), no filter;
+    - chroma: the horizontal filter scales the (width + 1) // 2 columns up
+      to `width` (14-bit taps at swscale's chrXInc, ``>> (depth - 1)``, at
+      most 32767), then the vertical filter (12-bit taps) to every row;
+    - output: yuv2rgb_full_X_c's ``yuv2rgb_write_full`` at every pixel and
+      row: Y = ((1 << 9) + 4096 Y15) >> 10 (its one-tap vertical filter),
+      U = ((1 << 9) - (128 << 19) + sum_t C15 vtap) >> 10, V the same;
+      Y' = (Y - (y_offset << 6)) * luma + (1 << 21); R = Y' + V vr,
+      G = Y' + V vg + U ug, B = Y' + U ub in 32-bit unsigned arithmetic,
+      read back as int, each clipped to [0, 2^30) and ``>> 22``."""
+    h = y.shape[0]
+    cw = (width + 1) // 2
+    tu, tv, taps = _filtered_chroma(u[:, :cw], v[:, :cw], depth,
+                                    general_filters(h, width,
+                                                    chroma_location,
+                                                    full_chroma=True))
+    cu = ((1 << 9) - (128 << 19) + (tu * taps).sum(1)) >> 10
+    cv = ((1 << 9) - (128 << 19) + (tv * taps).sum(1)) >> 10
+    luma = (((((1 << 9) + (_y15(y, width, depth) << 12)) >> 10)
+             - (rule.y_offset << 6)) * rule.luma + (1 << 21))
+    bgr = torch.stack([luma + cu * rule.ub,
+                       luma + cv * rule.vg + cu * rule.ug,
+                       luma + cv * rule.vr], dim=-1)
+    bgr = _wrap32(bgr).clamp(0, (1 << 30) - 1) >> 22
+    return _turn(bgr.to(torch.uint8), rotation)
+
+
+_GENERAL_TABLES = {}   # (device, h, w, location, full) -> the filters there
+
+
+def _tables_on(device: torch.device, h: int, width: int, location: int,
+               full_chroma: bool):
+    key = (str(device), h, width, location, full_chroma)
+    if key not in _GENERAL_TABLES:
+        _GENERAL_TABLES[key] = tuple(
             torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in p10_filters(h, width, location))
-    return _P10_TABLES[key]
+            for a in general_filters(h, width, location, full_chroma))
+    return _GENERAL_TABLES[key]
+
+
+def _launch_general(entry: str, y, u, v, dtype: torch.dtype, *extra,
+                    width: int, rotation: int, rule: YuvRule,
+                    chroma_location: int, full_chroma: bool) -> torch.Tensor:
+    """Launch a general-path kernel on its planes and its filters."""
+    h, dev = y.shape[0], y.device
+    for name, t in (("y", y), ("u", u), ("v", v)):
+        _check(name, t, dtype, 2, dev)
+    hpos, htaps, vpos, vtaps = _tables_on(dev, h, width, chroma_location,
+                                          full_chroma)
+    quarter = rotation in (90, 270)
+    out = torch.empty((width, h, 3) if quarter else (h, width, 3),
+                      dtype=torch.uint8, device=dev)
+    _launch(entry, dev, y.data_ptr(), u.data_ptr(), v.data_ptr(),
+            y.shape[1], u.shape[1], h, width, *extra, rotation,
+            hpos.data_ptr(), htaps.data_ptr(), htaps.shape[1],
+            vpos.data_ptr(), vtaps.data_ptr(), vtaps.shape[1],
+            _rule_arg(rule), out.data_ptr())
+    return out
+
+
+def _check_general(name: str, y, u, v, width: int, rotation: int) -> None:
+    h = _check_planes(name, y, u, v, width, rotation)
+    if width % 2:
+        raise ValueError(f"{name}: a {h}x{width} picture: an odd width "
+                         f"takes swscale's full-chroma output "
+                         f"(yuv420_full_chroma_to_bgr)")
+
+
+def yuv420_general_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                          *, width: int, rotation: int = 0,
+                          rule: YuvRule = BT601_LIMITED,
+                          chroma_location: int = 1) -> torch.Tensor:
+    """A 4:2:0 picture's 8-bit planes of an odd height to ``(H', W', 3)``
+    uint8 BGR turned clockwise by `rotation`, exactly as cv2 5.0's frames
+    of it: swscale's general path at SWS_BICUBIC (chroma filtered from
+    `chroma_location`, an ``AVChromaLocation``), with the constants of
+    the stream's matrix and range (`rule`); :func:`yuv420_to_bgr` takes
+    even heights.
+
+    y: (H, pitch) uint8, the picture in its first `width` columns (even,
+    at least 8; H at least 9); u, v: ((H + 1) // 2, chroma pitch) uint8.
+    All contiguous and on one device."""
+    _check_general("yuv420_general_to_bgr", y, u, v, width, rotation)
+    if _route(y) == "cpu":
+        return general_to_bgr_plain(y, u, v, width=width, depth=8,
+                                    rotation=rotation, rule=rule,
+                                    chroma_location=chroma_location)
+    out = _launch_general("rtpose_yuv420_general_to_bgr", y, u, v,
+                          torch.uint8, width=width, rotation=rotation,
+                          rule=rule, chroma_location=chroma_location,
+                          full_chroma=False)
+    yuv420_general_to_bgr.launches += 1
+    return out
+
+
+yuv420_general_to_bgr.launches = 0
 
 
 def yuv420p10_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
@@ -1384,34 +1559,79 @@ def yuv420p10_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
     and range (`rule`).
 
     y: (H, pitch) uint16 of values below 1024, the picture in its first
-    `width` columns (even, at least 8; H at least 9); u, v:
-    ((H + 1) // 2, chroma pitch) uint16.  All contiguous and on one
-    device."""
-    h = _check_planes("yuv420p10_to_bgr", y, u, v, width, rotation)
+    `width` columns (even, at least 8; H at least 9; odd widths:
+    :func:`yuv420_full_chroma_to_bgr`); u, v: ((H + 1) // 2, chroma
+    pitch) uint16.  All contiguous and on one device."""
+    _check_general("yuv420p10_to_bgr", y, u, v, width, rotation)
     if _route(y) == "cpu":
         return yuv420p10_to_bgr_plain(y, u, v, width=width,
                                       rotation=rotation, rule=rule,
                                       chroma_location=chroma_location)
-    dev = y.device
-    for name, t in (("y", y), ("u", u), ("v", v)):
-        _check(name, t, torch.uint16, 2, dev)
-    hpos, htaps, vpos, vtaps = _p10_tables_on(dev, h, width, chroma_location)
-    quarter = rotation in (90, 270)
-    out = torch.empty((width, h, 3) if quarter else (h, width, 3),
-                      dtype=torch.uint8, device=dev)
-    _launch("rtpose_yuv420p10_to_bgr", dev, y.data_ptr(), u.data_ptr(),
-            v.data_ptr(), y.shape[1], u.shape[1], h, width, rotation,
-            hpos.data_ptr(), htaps.data_ptr(), htaps.shape[1],
-            vpos.data_ptr(), vtaps.data_ptr(), vtaps.shape[1],
-            _rule_arg(rule), out.data_ptr())
+    out = _launch_general("rtpose_yuv420p10_to_bgr", y, u, v, torch.uint16,
+                          width=width, rotation=rotation, rule=rule,
+                          chroma_location=chroma_location, full_chroma=False)
     yuv420p10_to_bgr.launches += 1
     return out
 
 
 yuv420p10_to_bgr.launches = 0
 
+
+def yuv420_full_chroma_to_bgr(y: torch.Tensor, u: torch.Tensor,
+                              v: torch.Tensor, *, width: int, depth: int,
+                              rotation: int = 0,
+                              rule: YuvRule = BT601_LIMITED,
+                              chroma_location: int = 1) -> torch.Tensor:
+    """A 4:2:0 picture of an odd width to ``(H', W', 3)`` uint8 BGR turned
+    clockwise by `rotation`, exactly as cv2 5.0's frames of it: swscale's
+    general path with full internal horizontal chroma, which it forces at
+    an odd RGB width (:func:`full_chroma_to_bgr_plain`), at SWS_BICUBIC
+    from `chroma_location` with the constants of `rule`.
+
+    y: (H, pitch) uint8 (`depth` 8) or uint16 of values below 1024
+    (`depth` 10), the picture in its first `width` columns (at least 8; H
+    at least 9); u, v: ((H + 1) // 2, chroma pitch) of the same type.  All
+    contiguous and on one device."""
+    h = _check_planes("yuv420_full_chroma_to_bgr", y, u, v, width, rotation)
+    yuv420_route(depth, h, width)
+    if _route(y) == "cpu":
+        return full_chroma_to_bgr_plain(y, u, v, width=width, depth=depth,
+                                        rotation=rotation, rule=rule,
+                                        chroma_location=chroma_location)
+    out = _launch_general("rtpose_yuv420_full_chroma_to_bgr", y, u, v,
+                          torch.uint8 if depth == 8 else torch.uint16, depth,
+                          width=width, rotation=rotation, rule=rule,
+                          chroma_location=chroma_location, full_chroma=True)
+    yuv420_full_chroma_to_bgr.launches += 1
+    return out
+
+
+yuv420_full_chroma_to_bgr.launches = 0
+
+
+def yuv420_frame_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                        *, depth: int, width: int, rotation: int = 0,
+                        rule: YuvRule = BT601_LIMITED,
+                        chroma_location: int = 1) -> torch.Tensor:
+    """A decoded 4:2:0 frame's planes to BGR as cv2 converts it: the
+    kernel of the path swscale takes at its depth and size
+    (:func:`yuv420_route`)."""
+    route = yuv420_route(depth, y.shape[0], width)
+    if route == "unscaled":
+        return yuv420_to_bgr(y, u, v, width=width, rotation=rotation,
+                             rule=rule)
+    kw = dict(width=width, rotation=rotation, rule=rule,
+              chroma_location=chroma_location)
+    if route == "full_chroma":
+        return yuv420_full_chroma_to_bgr(y, u, v, depth=depth, **kw)
+    if depth == 8:
+        return yuv420_general_to_bgr(y, u, v, **kw)
+    return yuv420p10_to_bgr(y, u, v, **kw)
+
+
 _COUNTED = (connection_scores, bicubic_refine, gt_maps, group_people,
-            yuv420_to_bgr, yuv420p10_to_bgr)
+            yuv420_to_bgr, yuv420p10_to_bgr, yuv420_general_to_bgr,
+            yuv420_full_chroma_to_bgr)
 
 
 def reset_launch_counts() -> None:

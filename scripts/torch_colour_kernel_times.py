@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Time the port's two video-colour kernels (``yuv420_to_bgr``,
-``yuv420p10_to_bgr``) on one CUDA card, at the sizes users' video has,
-for one checkout of the repository, so that two checkouts can be compared
-in turns within one run (parent, change, change, parent):
+"""Time the port's video-colour kernels (``yuv420_to_bgr``,
+``yuv420p10_to_bgr``, ``yuv420_general_to_bgr``,
+``yuv420_full_chroma_to_bgr``) on one CUDA card, at the sizes users'
+video has, for one checkout of the repository, so that two checkouts can
+be compared in turns within one run (parent, change, change, parent):
 
     for t in PARENT CHANGE CHANGE PARENT; do
         python3 scripts/torch_colour_kernel_times.py --root $t --label $t
     done
 
 Imports the package of ``--root`` and builds that checkout's kernels.
-For each kernel and size (8-bit: 480x640 and 1080x1920; 10-bit also
-2160x3840) and turn (0 and 90), on random planes made from a seed: the
+For each kernel and size (``ROUTES``: the unscaled 8-bit one at 480x640
+and 1080x1920; the 10-bit one also at 2160x3840; the 8-bit general one
+at 479x640 and 1079x1920; the full-chroma one at 479x639, 8-bit, and
+480x639, 10-bit; a checkout without a kernel skips it) and turn (0 and
+90), on random planes made from a seed (chroma left, BT.709 limited at
+8 bits, BT.2020 limited at 10): the
 largest difference from the plain version on the card (it must be 0),
 and the device ms a launch from ``torch.profiler`` over 200 launches,
 warm (back to back on the same planes, which stay
@@ -23,6 +28,7 @@ JSON line.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -32,8 +38,12 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM
 L2_FLUSH_BYTES = 256 << 20    # written before a cold launch: 5x the L2
-SHAPES = {8: ((480, 640), (1080, 1920)),
-          10: ((480, 640), (1080, 1920), (2160, 3840))}
+# kernel: ((depth, (height, width)), ...), each size one of its route
+ROUTES = {"yuv420_to_bgr": ((8, (480, 640)), (8, (1080, 1920))),
+          "yuv420p10_to_bgr": ((10, (480, 640)), (10, (1080, 1920)),
+                               (10, (2160, 3840))),
+          "yuv420_general_to_bgr": ((8, (479, 640)), (8, (1079, 1920))),
+          "yuv420_full_chroma_to_bgr": ((8, (479, 639)), (10, (480, 639)))}
 
 
 def device_ms(fn, kernel: str, iters: int) -> float:
@@ -64,22 +74,36 @@ def device_ms(fn, kernel: str, iters: int) -> float:
     raise RuntimeError(f"the profiler saw no launch of {kernel}")
 
 
-def colour_kernel_times(dev, shapes=SHAPES) -> dict:
-    """{kernel: {"HxW": {"bytes", "bound_ms", "rotation_T": {...}}}}: the
-    error against the plain version and the warm and cold device ms of
-    each turn, with their shares of the bound."""
+def _calls(kernels, name: str, depth: int):
+    """(the wrapper, its plain version) of the kernel `name`, each called
+    as f(*planes, width=, rotation=, rule=) (chroma left by default)."""
+    kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain",
+                                                    None)
+    if name == "yuv420_general_to_bgr":
+        plain = functools.partial(kernels.general_to_bgr_plain, depth=8)
+    elif name == "yuv420_full_chroma_to_bgr":
+        kernel = functools.partial(kernel, depth=depth)
+        plain = functools.partial(kernels.full_chroma_to_bgr_plain,
+                                  depth=depth)
+    return kernel, plain
+
+
+def colour_kernel_times(dev, routes=ROUTES) -> dict:
+    """{kernel: {"HxW": {"depth", "bytes", "bound_ms", "rotation_T":
+    {...}}}}: the error against the plain version and the warm and cold
+    device ms of each turn, with their shares of the bound."""
     import torch
     from rtpose_tpu_torch.ops import kernels
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     found = {}
-    for depth, name, convert, plain, matrix in (
-            (8, "yuv420_to_bgr", kernels.yuv420_to_bgr,
-             kernels.yuv420_to_bgr_plain, 1),
-            (10, "yuv420p10_to_bgr", kernels.yuv420p10_to_bgr,
-             kernels.yuv420p10_to_bgr_plain, 9)):
-        rule = kernels.yuv_rule(matrix, False)
-        top, dtype = (256, np.uint8) if depth == 8 else (1024, np.uint16)
-        for h, w in shapes.get(depth, ()):
+    for name, sizes in routes.items():
+        if not hasattr(kernels, name):
+            continue
+        for depth, (h, w) in sizes:
+            matrix = 1 if depth == 8 else 9
+            rule = kernels.yuv_rule(matrix, False)
+            convert, plain = _calls(kernels, name, depth)
+            top, dtype = (256, np.uint8) if depth == 8 else (1024, np.uint16)
             rng = np.random.RandomState(h + depth)
             ch, cw = (h + 1) // 2, (w + 1) // 2
             planes = [torch.from_numpy(rng.randint(0, top, s).astype(dtype))
@@ -87,8 +111,9 @@ def colour_kernel_times(dev, shapes=SHAPES) -> dict:
             n_bytes = sum(p.numel() * p.element_size() for p in planes) \
                 + 3 * h * w
             bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-            entry = {"bytes": n_bytes, "bound_ms": bound_ms,
-                     "bound_by": "bytes", "rule": f"matrix {matrix} limited"}
+            entry = {"depth": depth, "bytes": n_bytes, "bound_ms": bound_ms,
+                     "bound_by": "bytes",
+                     "rule": f"matrix {matrix} limited, chroma left"}
             for rot in (0, 90):
                 def warm():
                     return convert(*planes, width=w, rotation=rot, rule=rule)

@@ -30,6 +30,16 @@
   and, for 10-bit frames, from the rule with the chroma at the centre
   (``centre``) and from the 8-bit rule on the top 8 bits with nearest
   chroma (``nearest8``).
+- Odd sizes (ROADMAP.md item 4i (a)): the machine's libswscale (legacy
+  ``sws_scale`` with cv2's settings: SWS_BICUBIC to bgr24, the chroma
+  location, the matrix and range) on random planes at odd heights and
+  widths, 8- and 10-bit, against the port's plain rule of the path
+  ``ops.kernels.yuv420_route`` picks (``rules``: the largest difference
+  at each size over three (chroma location, matrix, range): unspecified
+  BT.601 limited, left BT.709 full, top left BT.2020 limited);
+  and, where the machine has cv2, its frames of the committed odd-size
+  fixtures (``demo/scripted_video.py`` ``ODD_SIZE_FIXTURES``) against
+  the port's CPU read (``fixtures``).
 - AV1 (ROADMAP.md item 4f): every AV1 decoder the wheel's libavcodec
   registers (``av_codec_iterate``), what each makes of a scripted AV1
   still (``demo/scripted_video.py`` ``av1_still``: a temporal delimiter,
@@ -411,10 +421,127 @@ def probe_colour() -> dict:
     return out
 
 
+def swscale_bgr24(y, u, v, matrix: int, full: bool, location: int):
+    """The machine's libswscale on 4:2:0 planes (``yuv420p`` for uint8,
+    ``yuv420p10le`` for uint16) as cv2 sets it up: SWS_BICUBIC to bgr24
+    at the same size, the source chroma at `location` (an
+    ``AVChromaLocation``), the frame's matrix and range.  -> (H, W, 3)
+    uint8."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.native.avencode import encoder_libraries
+    from rtpose_tpu_torch.ops import kernels
+    fmt = b"yuv420p" if y.dtype == np.uint8 else b"yuv420p10le"
+    libs = encoder_libraries()
+    sws, au = libs.swscale, libs.avutil
+    P, I = ctypes.c_void_p, ctypes.c_int
+    sws.sws_alloc_context.restype = P
+    sws.sws_init_context.argtypes = [P, P, P]
+    sws.sws_getCoefficients.restype = P
+    sws.sws_getCoefficients.argtypes = [I]
+    sws.sws_setColorspaceDetails.argtypes = [P, P, I, P, I, I, I, I]
+    sws.sws_scale.argtypes = [P, P, P, I, I, P, P]
+    sws.sws_freeContext.argtypes = [P]
+    h, w = y.shape
+    x_pos, y_pos = kernels._chroma_pos(location)
+    ctx = sws.sws_alloc_context()
+    for name, value in (("srcw", w), ("srch", h), ("dstw", w), ("dsth", h),
+                        ("src_format", au.av_get_pix_fmt(fmt)),
+                        ("dst_format", au.av_get_pix_fmt(b"bgr24")),
+                        ("sws_flags", 4), ("src_h_chr_pos", x_pos),
+                        ("src_v_chr_pos", y_pos)):
+        if au.av_opt_set_int(ctx, name.encode(), value, 0) < 0:
+            raise RuntimeError(f"libswscale has no option {name}")
+    if sws.sws_init_context(ctx, None, None) < 0 \
+            or sws.sws_setColorspaceDetails(
+                ctx, sws.sws_getCoefficients(matrix), int(full),
+                sws.sws_getCoefficients(1), 1, 0, 1 << 16, 1 << 16) < 0:
+        sws.sws_freeContext(ctx)
+        raise RuntimeError(f"libswscale refused a {h}x{w} {fmt} context")
+    planes = [np.ascontiguousarray(p) for p in (y, u, v)]
+    out = np.zeros((h, 3 * w + 64), np.uint8)
+    sws.sws_scale(ctx, (P * 4)(*[p.ctypes.data for p in planes], None),
+                  (I * 4)(*[p.strides[0] for p in planes], 0), 0, h,
+                  (P * 4)(out.ctypes.data, None, None, None),
+                  (I * 4)(out.strides[0], 0, 0, 0))
+    sws.sws_freeContext(ctx)
+    return out[:, :3 * w].reshape(h, w, 3)
+
+
+# (depth, height, width): each route at the sizes of item 4i (a)
+ODD_SIZES = ((8, 32, 47), (8, 9, 8), (8, 31, 48), (8, 33, 64),
+             (8, 479, 640), (8, 9, 9), (8, 31, 47), (8, 31, 65),
+             (8, 479, 639), (10, 31, 64), (10, 10, 15), (10, 32, 47),
+             (10, 31, 65), (10, 48, 65), (10, 480, 639))
+
+
+def probe_odd_sizes() -> dict:
+    """libswscale and cv2 at odd frame sizes against the port's rules."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo import video_io
+    from rtpose_tpu_torch.native.avencode import encoder_libraries
+    from rtpose_tpu_torch.ops import kernels
+    try:
+        sws = encoder_libraries().swscale
+    except (RuntimeError, OSError) as e:
+        return {"error": str(e)}
+    out = {"libswscale": _version(sws.swscale_version()), "rules": {},
+           "fixtures": {}}
+    for depth, h, w in ODD_SIZES:
+        rng = np.random.RandomState(h * w + depth)
+        dtype = np.uint8 if depth == 8 else np.uint16
+        c = ((h + 1) // 2, (w + 1) // 2)
+        planes = [rng.randint(0, 1 << depth, s).astype(dtype)
+                  for s in ((h, w), c, c)]
+        worst = 0
+        for location, matrix, full in ((0, 2, False), (1, 1, True),
+                                       (3, 9, False)):
+            got = kernels.yuv420_frame_to_bgr(
+                *map(torch.from_numpy, planes), depth=depth, width=w,
+                rule=kernels.yuv_rule(matrix, full),
+                chroma_location=location).numpy()
+            want = swscale_bgr24(*planes, matrix, full, location)
+            worst = max(worst, int(np.abs(got.astype(int) - want).max()))
+        out["rules"][f"{depth}-bit {h}x{w}"] = {
+            "route": kernels.yuv420_route(depth, h, w), "max_abs_diff": worst}
+    try:
+        import cv2
+        out["cv2"] = cv2.__version__
+    except ImportError:
+        out["cv2"] = "no cv2 on this machine"
+        return out
+    for fixture in sv.ODD_SIZE_FIXTURES:
+        path = sv.odd_size_path(fixture)
+        frames = {}
+        for key, cap in (("port", video_io.open_video(path, device="cpu")),
+                         ("cv2", cv2.VideoCapture(path))):
+            frames[key] = []
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                frames[key].append(frame)
+            cap.release()
+        out["fixtures"][fixture.name] = {
+            "frames": len(frames["port"]), "cv2_frames": len(frames["cv2"]),
+            "max_abs_diff": max((int(np.abs(a.astype(int) - b).max())
+                                 for a, b in zip(frames["port"],
+                                                 frames["cv2"])
+                                 if a.shape == b.shape), default=-1),
+            "shapes_equal": all(a.shape == b.shape for a, b in
+                                zip(frames["port"], frames["cv2"]))}
+    return out
+
+
 def probe() -> dict:
     return {"nvdec": probe_nvdec(), "libavcodec": probe_host(),
             "writer": probe_writer(), "av1": probe_av1(),
-            "colour": probe_colour()}
+            "colour": probe_colour(), "odd_sizes": probe_odd_sizes()}
 
 
 if __name__ == "__main__":

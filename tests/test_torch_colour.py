@@ -25,9 +25,16 @@ with cv2's frame count and fps.
   marked slow), and against the wheel's libswscale itself (the general
   path cv2 5.0 runs: SWS_BICUBIC, the chroma location) at sizes and
   chroma locations cv2's decoders do not give.
+- Every frame size (ROADMAP.md item 4i (a), fault F5): swscale picks its
+  path by the output's parity (``kernels.yuv420_route``).  8-bit frames
+  of an odd height take its general path (``general_to_bgr_plain`` at 8
+  bits) and odd widths its full-chroma output
+  (``full_chroma_to_bgr_plain``), each against libswscale at every pixel
+  of random fields, every chroma location, and (full chroma) saturated
+  fields where its 32-bit sums wrap; the committed odd-size VP9 fixtures
+  read as cv2 5.0 reads them; frames under 9 rows or 8 columns on a
+  scaling path refused by name.
 """
-
-import ctypes
 
 import cv2
 import numpy as np
@@ -421,42 +428,20 @@ def test_plain_10bit_rule_equals_cv2_on_every_chroma_pair(tmp_path, matrix,
     _p10_against_cv2(tmp_path, frames, C(matrix, full))
 
 
-def _swscale_p10(y, u, v, matrix, full, location):
-    """The wheel's libswscale on 10-bit planes, as cv2 5.0 sets it up:
-    SWS_BICUBIC to bgr24, the source chroma at the frame's location, the
-    frame's matrix and range."""
-    from rtpose_tpu_torch.native.avencode import encoder_libraries
-    libs = encoder_libraries()
-    sws, au = libs.swscale, libs.avutil
-    P, I = ctypes.c_void_p, ctypes.c_int
-    sws.sws_alloc_context.restype = P
-    sws.sws_init_context.argtypes = [P, P, P]
-    sws.sws_getCoefficients.restype = P
-    sws.sws_getCoefficients.argtypes = [I]
-    sws.sws_setColorspaceDetails.argtypes = [P, P, I, P, I, I, I, I]
-    sws.sws_scale.argtypes = [P, P, P, I, I, P, P]
-    sws.sws_freeContext.argtypes = [P]
-    h, w = y.shape
-    x_pos, y_pos = kernels._chroma_pos(location)
-    ctx = sws.sws_alloc_context()
-    for name, value in (("srcw", w), ("srch", h), ("dstw", w), ("dsth", h),
-                        ("src_format", au.av_get_pix_fmt(b"yuv420p10le")),
-                        ("dst_format", au.av_get_pix_fmt(b"bgr24")),
-                        ("sws_flags", 4), ("src_h_chr_pos", x_pos),
-                        ("src_v_chr_pos", y_pos)):
-        assert au.av_opt_set_int(ctx, name.encode(), value, 0) >= 0
-    assert sws.sws_init_context(ctx, None, None) >= 0
-    assert sws.sws_setColorspaceDetails(
-        ctx, sws.sws_getCoefficients(matrix), int(full),
-        sws.sws_getCoefficients(1), 1, 0, 1 << 16, 1 << 16) >= 0
-    planes = [np.ascontiguousarray(p) for p in (y, u, v)]
-    out = np.zeros((h, 3 * w + 64), np.uint8)
-    sws.sws_scale(ctx, (P * 4)(*[p.ctypes.data for p in planes], None),
-                  (I * 4)(*[p.strides[0] for p in planes], 0), 0, h,
-                  (P * 4)(out.ctypes.data, None, None, None),
-                  (I * 4)(out.strides[0], 0, 0, 0))
-    sws.sws_freeContext(ctx)
-    return out[:, :3 * w].reshape(h, w, 3)
+def _swscale(y, u, v, matrix, full, location):
+    """The wheel's libswscale on 4:2:0 planes (``yuv420p`` for uint8,
+    ``yuv420p10le`` for uint16), as cv2 5.0 sets it up: SWS_BICUBIC to
+    bgr24, the source chroma at the frame's location, the frame's matrix
+    and range (``scripts/torch_probe_video.py`` ``swscale_bgr24``)."""
+    import importlib
+    import os
+    import sys
+    scripts = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    probe = importlib.import_module("torch_probe_video")
+    return probe.swscale_bgr24(y, u, v, matrix, full, location)
 
 
 @pytest.mark.parametrize("size", [(9, 8), (31, 64), (48, 66), (120, 160)])
@@ -471,7 +456,7 @@ def test_plain_10bit_rule_equals_swscale(size, location):
     u, v = (rng.randint(0, 1024, ((h + 1) // 2, w // 2)).astype(np.uint16)
             for _ in range(2))
     for matrix, full in ((2, False), (1, True), (9, False)):
-        want = _swscale_p10(y, u, v, matrix, full, location)
+        want = _swscale(y, u, v, matrix, full, location)
         got = yuv420p10_to_bgr_plain(*map(torch.from_numpy, (y, u, v)),
                                      width=w, rule=yuv_rule(matrix, full),
                                      chroma_location=location).numpy()
@@ -491,15 +476,173 @@ def test_10bit_turns_as_the_8bit_one(rotation):
 
 
 def test_rules_refuse_what_they_do_not_convert():
+    """A matrix without a table and a picture too small for the scaling
+    path are refused by name; an odd width, refused until swscale's
+    full-chroma output was ported, is converted as swscale converts it."""
     with pytest.raises(ValueError, match=r"colour matrix 3 \(reserved\)"):
         yuv_rule(3)
     planes = [torch.from_numpy(p) for p in sv.yuv_frames10(1, 8, 16)[0]]
-    with pytest.raises(ValueError, match="heights of at least 9"):
+    with pytest.raises(ValueError, match=r"heights of at least 9.*4i \(a\)"):
         yuv420p10_to_bgr_plain(*planes, width=16)
-    planes = [torch.zeros(s, dtype=torch.uint16)
-              for s in ((10, 15), (5, 8), (5, 8))]
-    with pytest.raises(ValueError, match="even widths"):
-        kernels.yuv420p10_to_bgr(*planes, width=15)
+    planes = _frames(10, 1, 10, 15, seed=15)[0]
+    got = kernels.yuv420_frame_to_bgr(*map(torch.from_numpy, planes),
+                                      depth=10, width=15, chroma_location=0)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _swscale(*planes, 2, False, 0))
     assert yuv_rule(2) == kernels.BT601_LIMITED
     assert yuv_rule(2, False)[2:7] == (9539, 16525, -3209, -6660, 13075)
     assert yuv_rule(1, True)[2:8] == (8192, 15201, -1534, -3835, 12901, 0)
+
+
+# -- every frame size: swscale's path by the output's parity ----------------
+
+SWS_PAIRS = ((2, False), (1, True), (9, False))
+
+
+@pytest.mark.parametrize("size", [(9, 8), (31, 48), (33, 64), (479, 640)])
+@pytest.mark.parametrize("location", range(7))
+def test_plain_8bit_general_rule_equals_swscale(size, location):
+    """8-bit frames of an odd height take swscale's general path (its
+    unscaled yuv420p -> bgr24 wants an even output height): the 10-bit
+    rule with the 8-bit shifts, against libswscale at every pixel of
+    random fields, each chroma location and three (matrix, range)."""
+    h, w = size
+    planes = _frames(8, 1, h, w, seed=h * 7 + location)[0]
+    assert kernels.yuv420_route(8, h, w) == "general"
+    for matrix, full in SWS_PAIRS:
+        got = kernels.general_to_bgr_plain(
+            *map(torch.from_numpy, planes), width=w, depth=8,
+            rule=yuv_rule(matrix, full), chroma_location=location)
+        np.testing.assert_array_equal(
+            got.numpy(), _swscale(*planes, matrix, full, location))
+
+
+@pytest.mark.parametrize("depth,size", [(8, (9, 9)), (8, (31, 47)),
+                                        (8, (31, 65)), (10, (10, 15)),
+                                        (10, (32, 47)), (10, (48, 65))])
+@pytest.mark.parametrize("location", range(7))
+def test_plain_full_chroma_rule_equals_swscale(depth, size, location):
+    """An odd width: swscale forces full internal horizontal chroma and
+    converts each pixel through yuv2rgb_full_X_c, on every row."""
+    h, w = size
+    planes = _frames(depth, 1, h, w, seed=h * w + location)[0]
+    assert kernels.yuv420_route(depth, h, w) == "full_chroma"
+    for matrix, full in SWS_PAIRS:
+        got = kernels.full_chroma_to_bgr_plain(
+            *map(torch.from_numpy, planes), width=w, depth=depth,
+            rule=yuv_rule(matrix, full), chroma_location=location)
+        np.testing.assert_array_equal(
+            got.numpy(), _swscale(*planes, matrix, full, location))
+
+
+@pytest.mark.parametrize("depth", kernels.DEPTHS)
+def test_full_chroma_wraps_as_swscale_does(depth):
+    """Flat fields of the extreme samples at every (matrix, range): the
+    full-chroma output sums in 32-bit unsigned arithmetic, so a bright
+    pixel of strong chroma wraps (BT.709 limited, Y and U at their top:
+    blue 0, not 255), in swscale and in the rule alike."""
+    top = (1 << depth) - 1
+    dtype = np.uint8 if depth == 8 else np.uint16
+    wrapped = 0
+    for yv, uv, vv in np.ndindex(2, 2, 2):
+        y = np.full((11, 13), top * yv, dtype)
+        u, v = (np.full((6, 7), top * c, dtype) for c in (uv, vv))
+        for matrix, full in PAIRS:
+            want = _swscale(y, u, v, matrix, full, 0)
+            got = kernels.full_chroma_to_bgr_plain(
+                *map(torch.from_numpy, (y, u, v)), width=13, depth=depth,
+                rule=yuv_rule(matrix, full), chroma_location=0)
+            np.testing.assert_array_equal(got.numpy(), want)
+            wrapped += int(yv == uv == 1 and want[0, 0, 0] == 0)
+    assert wrapped > 0
+
+
+ROUTES = [(8, 32, 48, "unscaled"), (8, 32, 47, "unscaled"),
+          (8, 2, 2, "unscaled"), (8, 31, 48, "general"),
+          (8, 31, 47, "full_chroma"), (10, 32, 48, "general"),
+          (10, 31, 48, "general"), (10, 32, 47, "full_chroma"),
+          (10, 9, 9, "full_chroma"), (8, 9, 8, "general")]
+
+
+@pytest.mark.parametrize("depth,h,w,route", ROUTES)
+def test_route_follows_swscales_parity_rules(depth, h, w, route):
+    assert kernels.yuv420_route(depth, h, w) == route
+
+
+@pytest.mark.parametrize("depth,h,w", [(8, 7, 16), (8, 31, 6), (8, 9, 7),
+                                       (10, 8, 16), (10, 16, 7),
+                                       (10, 2, 2)])
+def test_small_frames_on_a_scaling_route_are_refused_by_name(depth, h, w):
+    """Under 9 rows or 8 columns swscale's scaling path takes its two-tap
+    vertical filter and narrow horizontal ones: refused, naming ROADMAP
+    item 4i (a), by the route and by every conversion."""
+    with pytest.raises(ValueError, match=r"item 4i \(a\)"):
+        kernels.yuv420_route(depth, h, w)
+    planes = [torch.from_numpy(p) for p in _frames(depth, 1, h, w, 1)[0]]
+    with pytest.raises(ValueError, match=r"item 4i \(a\)"):
+        kernels.yuv420_frame_to_bgr(*planes, depth=depth, width=w)
+
+
+def test_small_odd_height_video_is_refused_by_name(tmp_path):
+    """An 8-bit VP9 file of 7 rows, which the unscaled rule converted
+    wrongly, is refused by the reader."""
+    path = tmp_path / "v.webm"
+    sv.write_vp9(str(path), sv.yuv_frames(2, 7, 16))
+    cap = open_video(str(path), device="cpu")
+    with pytest.raises(ValueError, match=r"v\.webm: .*item 4i \(a\)"):
+        cap.read()
+    cap.release()
+
+
+@pytest.mark.parametrize("fixture", sv.ODD_SIZE_FIXTURES,
+                         ids=[f.name for f in sv.ODD_SIZE_FIXTURES])
+def test_odd_size_fixtures_read_as_cv2(fixture):
+    """The committed lossless VP9 files of odd sizes (8-bit 31x48, 33x64
+    and 31x47, fault F5's; 479x640; 10-bit 32x47 and 31x65, BT.709 full
+    range; Matroska chroma siting): frames, count and fps as cv2 5.0
+    reads them, and the decoder gives back the written planes."""
+    path = sv.odd_size_path(fixture)
+    got = _assert_reads_as_jax(path, fixture.frames)
+    assert got[0].shape == (fixture.height, fixture.width, 3)
+    decoder = avcodec.Decoder("vp9")
+    try:
+        from rtpose_tpu_torch.demo import mkv
+        with open(path, "rb") as f:
+            track = mkv.read_track(path, f)
+            data, key = next(track.packets(f))
+        y, u, v, width = next(decoder.decode(data, key))
+        planes = sv.odd_size_frames(fixture)[0]
+        h, cw = fixture.height, (fixture.width + 1) // 2
+        np.testing.assert_array_equal(y[:h, :width], planes[0])
+        np.testing.assert_array_equal(u[:(h + 1) // 2, :cw], planes[1])
+        assert decoder.colour.depth == fixture.depth
+    finally:
+        decoder.close()
+
+
+def test_odd_height_frames_were_wrong_under_the_unscaled_rule():
+    """Fault F5: the unscaled rule that every 8-bit frame took before is
+    far from cv2's frames at an odd height; the routed conversion is
+    not."""
+    fixture = sv.ODD_SIZE_FIXTURES[1]
+    assert (fixture.height, fixture.width) == (33, 64)
+    want, _ = _jax_read(sv.odd_size_path(fixture))
+    planes = [torch.from_numpy(p) for p in sv.odd_size_frames(fixture)[0]]
+    old = yuv420_to_bgr_plain(*planes, width=64).numpy()
+    assert (old != want[0]).any(-1).mean() > 0.5
+    new = kernels.yuv420_frame_to_bgr(*planes, depth=8, width=64,
+                                      chroma_location=0).numpy()
+    np.testing.assert_array_equal(new, want[0])
+
+
+@pytest.mark.parametrize("size", [(479, 640), (479, 639), (33, 64),
+                                  (31, 47)])
+def test_odd_size_mpeg4_reads_as_cv2(tmp_path, size):
+    """MPEG-4 Part 2 states any size in its VOL: the wheel's ``mpeg4``
+    encoder at an odd height (the general path) and at odd heights and
+    widths (full chroma), in Matroska, reads as cv2 5.0 reads it."""
+    h, w = size
+    path = tmp_path / "v.mkv"
+    sv.write_mpeg4_mkv(str(path), sv.scene_planes(range(3), h, w))
+    got = _assert_reads_as_jax(path, 3)
+    assert got[0].shape == (h, w, 3)

@@ -1254,6 +1254,156 @@ def test_main10_video_reads_on_the_card_as_on_the_cpu(cuda, tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
+def _planes_at(depth, h, w, seed, pitch_pad=0):
+    """Random `depth`-bit 4:2:0 planes of a height x width picture (uint8
+    or uint16; chroma (h + 1) // 2 x (w + 1) // 2), rows `pitch_pad`
+    samples past the picture."""
+    rng = np.random.RandomState(seed)
+    dtype = np.uint8 if depth == 8 else np.uint16
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    return [torch.from_numpy(rng.randint(0, 1 << depth, s).astype(dtype))
+            for s in ((h, w + pitch_pad), (ch, cw + pitch_pad),
+                      (ch, cw + pitch_pad))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", [0, 90, 180, 270])
+@pytest.mark.parametrize("hw,pad", [((479, 640), 0), ((479, 640), 32),
+                                    ((9, 8), 0),
+                                    ((31, 64), 8), ((33, 66), 3),
+                                    ((63, 130), 0), ((65, 128), 5),
+                                    ((95, 34), 1)])
+@pytest.mark.parametrize("location", [0, 1, 3])
+def test_yuv420_general_kernel_matches_plain(cuda, rotation, hw, pad,
+                                            location):
+    """The 8-bit general-path kernel (odd heights) at tile edges, padded
+    pitches, each turn and chroma location."""
+    h, w = hw
+    planes = _planes_at(8, h, w, seed=h + w + pad + location, pitch_pad=pad)
+    kernels.reset_launch_counts()
+    for matrix, full in ((2, False), (9, False), (1, True)):
+        rule = kernels.yuv_rule(matrix, full)
+        got = kernels.yuv420_general_to_bgr(
+            *[p.to(cuda) for p in planes], width=w, rotation=rotation,
+            rule=rule, chroma_location=location)
+        want = kernels.general_to_bgr_plain(
+            *planes, width=w, depth=8, rotation=rotation, rule=rule,
+            chroma_location=location)
+        assert got.shape == want.shape and got.is_contiguous()
+        assert torch.equal(got.cpu(), want)
+    assert kernels.launch_counts()["yuv420_general_to_bgr"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", [0, 90, 180, 270])
+@pytest.mark.parametrize("depth,hw,pad", [
+    (8, (479, 639), 0), (8, (479, 639), 33), (8, (9, 9), 0),
+    (8, (31, 63), 4), (8, (33, 65), 0), (8, (65, 33), 7),
+    (10, (480, 639), 0), (10, (480, 639), 16),
+    (10, (10, 15), 0), (10, (32, 47), 3), (10, (64, 129), 0),
+    (10, (95, 31), 5)])
+@pytest.mark.parametrize("location", [0, 1, 3])
+def test_yuv420_full_chroma_kernel_matches_plain(cuda, rotation, depth, hw,
+                                                pad, location):
+    """The full-chroma kernel (odd widths) at both depths, tile-edge
+    sizes, padded pitches, each turn and chroma location."""
+    h, w = hw
+    planes = _planes_at(depth, h, w, seed=h + w + pad + location,
+                        pitch_pad=pad)
+    kernels.reset_launch_counts()
+    for matrix, full in ((2, False), (9, False), (1, True)):
+        rule = kernels.yuv_rule(matrix, full)
+        got = kernels.yuv420_full_chroma_to_bgr(
+            *[p.to(cuda) for p in planes], width=w, depth=depth,
+            rotation=rotation, rule=rule, chroma_location=location)
+        want = kernels.full_chroma_to_bgr_plain(
+            *planes, width=w, depth=depth, rotation=rotation, rule=rule,
+            chroma_location=location)
+        assert got.shape == want.shape and got.is_contiguous()
+        assert torch.equal(got.cpu(), want)
+    assert kernels.launch_counts()["yuv420_full_chroma_to_bgr"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", [0, 90, 180, 270])
+@pytest.mark.parametrize("depth,hw,pad", [(8, (479, 640), 32),
+                                          (8, (33, 66), 3),
+                                          (8, (31, 47), 0),
+                                          (10, (480, 639), 16),
+                                          (10, (41, 65), 3)])
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_general_path_kernels_match_plain_at_unaligned_bases(
+        cuda, rotation, depth, hw, pad, offset):
+    """Planes whose base addresses are off 16 bytes, through the route
+    (the general kernel at an even width, the full-chroma one at an odd
+    width)."""
+    h, w = hw
+    planes = _planes_at(depth, h, w, seed=h + w + offset, pitch_pad=pad)
+    rule = kernels.yuv_rule(1, False)
+    got = kernels.yuv420_frame_to_bgr(
+        *_at_offset(planes, offset, cuda), depth=depth, width=w,
+        rotation=rotation, rule=rule, chroma_location=1)
+    plain = (kernels.general_to_bgr_plain if w % 2 == 0
+             else kernels.full_chroma_to_bgr_plain)
+    want = plain(*planes, width=w, depth=depth, rotation=rotation,
+                 rule=rule, chroma_location=1)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth,h,w,kernel", [
+    (8, 32, 48, "yuv420_to_bgr"), (8, 32, 47, "yuv420_to_bgr"),
+    (8, 31, 48, "yuv420_general_to_bgr"),
+    (8, 31, 47, "yuv420_full_chroma_to_bgr"),
+    (10, 32, 48, "yuv420p10_to_bgr"), (10, 31, 48, "yuv420p10_to_bgr"),
+    (10, 32, 47, "yuv420_full_chroma_to_bgr")])
+def test_route_launches_one_kernel_on_the_card(cuda, depth, h, w, kernel):
+    """A frame on the card launches the one kernel of swscale's path at
+    its depth and size, and no other: even-height 8-bit frames and
+    even-width 10-bit ones as before."""
+    planes = _planes_at(depth, h, w, seed=h * w)
+    kernels.reset_launch_counts()
+    got = kernels.yuv420_frame_to_bgr(*[p.to(cuda) for p in planes],
+                                      depth=depth, width=w,
+                                      chroma_location=0)
+    counts = kernels.launch_counts()
+    assert counts[kernel] == 1 and sum(
+        counts[k] for k in ("yuv420_to_bgr", "yuv420p10_to_bgr",
+                            "yuv420_general_to_bgr",
+                            "yuv420_full_chroma_to_bgr")) == 1, counts
+    want = kernels.yuv420_frame_to_bgr(*planes, depth=depth, width=w,
+                                       chroma_location=0)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kernel", [
+    ("vp9_31x48.webm", "yuv420_general_to_bgr"),
+    ("vp9_479x640.webm", "yuv420_general_to_bgr"),
+    ("vp9_31x47.webm", "yuv420_full_chroma_to_bgr"),
+    ("vp9p2_31x65.webm", "yuv420_full_chroma_to_bgr")])
+def test_odd_size_video_reads_on_the_card_as_on_the_cpu(cuda, name,
+                                                        kernel):
+    """The committed odd-size VP9 fixtures (an odd-height 8-bit file, an
+    odd-width 10-bit one, ...) read on the card: one launch a frame of
+    the route's kernel, the CPU's frames."""
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo.video_io import open_video
+    fixture = {f.name: f for f in sv.ODD_SIZE_FIXTURES}[name]
+    path = sv.odd_size_path(fixture)
+    frames = {}
+    for device in ("cpu", cuda):
+        kernels.reset_launch_counts()
+        cap = open_video(path, device=device)
+        frames[str(device)] = [f for ok, f in iter(cap.read, (False, None))]
+        cap.release()
+    counts = kernels.launch_counts()
+    assert counts[kernel] == fixture.frames and counts["yuv420_to_bgr"] == 0
+    assert len(frames["cpu"]) == fixture.frames
+    for a, b in zip(frames["cpu"], frames[str(cuda)]):
+        np.testing.assert_array_equal(a, b)
+
+
 def _ipcm_sequence(h, w):
     from rtpose_tpu_torch.demo import scripted_video as sv
     pics = sv.yuv_frames(4, h, w, seed=16)

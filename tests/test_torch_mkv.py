@@ -386,11 +386,12 @@ def test_vp9_profile2_webm_reads_as_cv2(tmp_path, hw):
 
 def test_vp9_profile2_of_odd_width_is_refused_by_name(tmp_path):
     """An odd width takes swscale's full-chroma output, another rule than
-    the 10-bit kernel's: refused by name (ROADMAP.md item 4i)."""
+    the 10-bit kernel's.  Once refused by name, it is now converted by
+    that output's rule (``yuv420_full_chroma_to_bgr``): the frames, count
+    and fps read as cv2 reads them, at the size of the old refusal."""
     rng = np.random.RandomState(5)
     frames = [tuple(rng.randint(0, 1024, s).astype(np.uint16)
                     for s in ((32, 47), (16, 24), (16, 24)))]
     path = tmp_path / "v.webm"
     sv.write_vp9(str(path), frames)
-    with pytest.raises(ValueError, match=r"even widths.*item 4i"):
-        _port_read(path)
+    _assert_reads_as_cv2(path, 1)

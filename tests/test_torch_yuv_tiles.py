@@ -6,7 +6,7 @@ the chroma rows ``[vpos[r0], vpos[r_last] + vsize)`` of the tile's
 TILE_COLS / 2 (or TILE_ROWS / 2) chroma columns into P10_CHROMA_WORDS
 samples of shared memory a plane, and keeps each column's taps ``[hpos[c],
 hpos[c] + hsize)`` and each row's in registers, at most P10_MAX_TAPS.
-These tests hold the tables ``kernels.p10_filters`` makes at every chroma
+These tests hold the tables ``kernels.general_filters`` makes at every chroma
 location and many heights and widths to those sizes, read from the
 sources.
 """
@@ -42,7 +42,7 @@ def test_p10_tile_chroma_rows_fit_shared_memory(location):
     tiles = ((rows, words // (cols // 2)), (cols, words // (rows // 2)))
     widest = dict.fromkeys(tiles, 0)
     for h in HEIGHTS:
-        _, _, vpos, vtaps = kernels.p10_filters(h, 8, location)
+        _, _, vpos, vtaps = kernels.general_filters(h, 8, location)
         ch, vsize = (h + 1) // 2, vtaps.shape[1]
         assert vsize <= max_taps
         assert np.all(np.diff(vpos) >= 0) and vpos[0] >= 0
@@ -59,7 +59,24 @@ def test_p10_tile_chroma_rows_fit_shared_memory(location):
 @pytest.mark.parametrize("width", [8, 10, 18, 64, 66, 130, 640, 1920, 3840])
 def test_p10_horizontal_taps_stay_in_the_row(location, width):
     max_taps = _define("P10_MAX_TAPS")
-    hpos, htaps, _, _ = kernels.p10_filters(16, width, location)
+    hpos, htaps, _, _ = kernels.general_filters(16, width, location)
     assert htaps.shape == (width // 2, htaps.shape[1])
     assert htaps.shape[1] <= max_taps
     assert hpos.min() >= 0 and (hpos + htaps.shape[1]).max() <= width // 2
+
+
+@pytest.mark.parametrize("location", sorted(kernels.CHROMA_LOCATIONS))
+@pytest.mark.parametrize("width", [9, 11, 15, 47, 65, 129, 639, 1919, 3839])
+def test_full_chroma_taps_stay_in_the_row(location, width):
+    """``csrc/yuv420_full_chroma_to_bgr.cu`` keeps at most FC_MAX_TAPS
+    taps a column and a row; the horizontal ones scale the (width + 1) //
+    2 chroma columns up to every pixel and read inside them."""
+    max_taps = _define("FC_MAX_TAPS")
+    for h in (9, 10, 31, 479, 480, 1079):
+        hpos, htaps, vpos, vtaps = kernels.general_filters(
+            h, width, location, full_chroma=True)
+        assert htaps.shape[0] == width and vtaps.shape[0] == h
+        assert max(htaps.shape[1], vtaps.shape[1]) <= max_taps
+        assert hpos.min() >= 0
+        assert (hpos + htaps.shape[1]).max() <= (width + 1) // 2
+        assert vpos.min() >= 0 and vpos[-1] + vtaps.shape[1] <= (h + 1) // 2
