@@ -2626,8 +2626,10 @@ def _run(args: list, what: str, timeout: float) -> dict:
 
 def _started(args: list, what: str) -> subprocess.Popen:
     log(f"{what}: started")
-    return subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE,
+    proc = subprocess.Popen(args, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    proc.t0 = time.perf_counter()
+    return proc
 
 
 def _finished(proc: subprocess.Popen, what: str, timeout: float) -> dict:
@@ -2635,7 +2637,9 @@ def _finished(proc: subprocess.Popen, what: str, timeout: float) -> dict:
     if proc.returncode != 0:
         log(out[-4000:])
     check(proc.returncode == 0, f"{what}: exit code {proc.returncode}")
-    return _summary(out, what)
+    summary = _summary(out, what)
+    log(f"{what}: {time.perf_counter() - proc.t0:.1f} s from its start")
+    return summary
 
 
 def _live_steps(directory: str) -> list:
@@ -2658,8 +2662,10 @@ def workflows_phase(dev, smi: str):
     CLI (every image through the pipeline, the buckets
     ``scale_pad_geometry`` gives); the eval breakdown on that set; the
     crowded bench's two arms; hourglass's train -> eval chain and its
-    rescore.  The soaks and the chain run beside the rest (the soaks
-    are host-bound)."""
+    rescore.  No check of these is a time: the soaks, the chain, the
+    rehearsal and the schedule start together and run beside the
+    endurance launches, the crowded bench beside the eval breakdown;
+    each script waits only for the files it reads."""
     started = []
 
     def start(args, what):
@@ -2686,8 +2692,11 @@ def _workflows(smi: str, start):
     numbers = {"card": smi}
     summaries = {}
 
-    # 14a. the decode soaks and hourglass's train -> eval chain (2 stacks,
-    # 256 px), beside everything below
+    # 14a. in the background: the decode soaks; hourglass's train -> eval
+    # chain (2 stacks, 256 px); the rehearsal, 400 images of val2017's
+    # profile through the eval CLI (the flagship, seeded weights); the
+    # training schedule at full width, 3 epochs of 8 steps over a pool of
+    # 4 batches of 72, the crash and restore at epoch 2
     soaks = {"soak": start(_script("torch_soak_decode.py")
                            + ["--scenes", "300"], "soak"),
              "soak_crowded": start(
@@ -2701,29 +2710,17 @@ def _workflows(smi: str, start):
                      "--train-images", "64", "--val-images", "16",
                      "--eval-images", "16", "--workers", "4", "--out",
                      chain_dir], "hourglass chain")
-
-    # 14b. the training schedule at full width: 3 epochs of 8 steps over
-    # a pool of 4 batches of 72, the crash and restore at epoch 2
+    cocoval = os.path.join(WF_DIR, "cocoval")
+    rehearsal = start(_script("torch_cocoval_rehearsal.py")
+                      + ["--n", "400", "--eval", "--batch", "16", "--out",
+                         cocoval], "rehearsal")
     synth_dir = os.path.join(WF_DIR, "train_synth")
-    ts = _run(_script("torch_train_synth.py")
-              + ["--epochs", "3", "--steps-per-epoch", "8",
-                 "--restore-at-epoch", "2", "--pool-batches", "4",
-                 "--out", synth_dir], "train_synth", 600)
-    summaries["train_synth"] = ts
-    restored = ts["restored"]
-    check(restored is not None and restored["restored_step"]
-          == restored["last_checkpoint_step"],
-          f"train_synth: restored {restored}")
-    check(ts["launches"]["gt_maps"] == ts["train_steps"] + ts["val_steps"],
-          f"train_synth: K4 {ts['launches']['gt_maps']} launches for "
-          f"{ts['train_steps']} + {ts['val_steps']} steps")
-    numbers["train_synth"] = {"epochs": ts["epochs"], "restored": restored,
-                              "render_s": ts["render_s"]}
-    log(f"train_synth: restored at step {restored['restored_step']} "
-        f"(last checkpoint {restored['last_checkpoint_step']}), losses "
-        f"{[round(r['train_loss'], 5) for r in ts['epochs']]} [{smi}]")
+    synth = start(_script("torch_train_synth.py")
+                  + ["--epochs", "3", "--steps-per-epoch", "8",
+                     "--restore-at-epoch", "2", "--pool-batches", "4",
+                     "--out", synth_dir], "train_synth")
 
-    # 14c. the endurance run at full width: a ~40 s launch; a second one
+    # 14b. the endurance run at full width: a ~40 s launch; a second one
     # killed after its first window; a third that must resume from the
     # newest checkpoint the second wrote
     end_dir = os.path.join(WF_DIR, "endurance")
@@ -2763,12 +2760,34 @@ def _workflows(smi: str, start):
         f"{first['step_s_p50']} s; killed at step {window['step']}; "
         f"resumed from {third['resumed_from']} [{smi}]")
 
-    # 14d. the rehearsal: 400 images of val2017's profile through the eval
-    # CLI, the flagship with seeded weights
-    cocoval = os.path.join(WF_DIR, "cocoval")
-    rh = _run(_script("torch_cocoval_rehearsal.py")
-              + ["--n", "400", "--eval", "--batch", "16", "--out", cocoval],
-              "rehearsal", 600)
+    # 14c. the schedule: the restored step is the last checkpoint's, K4
+    # once a step
+    ts = _finished(synth, "train_synth", 600)
+    summaries["train_synth"] = ts
+    restored = ts["restored"]
+    check(restored is not None and restored["restored_step"]
+          == restored["last_checkpoint_step"],
+          f"train_synth: restored {restored}")
+    check(ts["launches"]["gt_maps"] == ts["train_steps"] + ts["val_steps"],
+          f"train_synth: K4 {ts['launches']['gt_maps']} launches for "
+          f"{ts['train_steps']} + {ts['val_steps']} steps")
+    numbers["train_synth"] = {"epochs": ts["epochs"], "restored": restored,
+                              "render_s": ts["render_s"]}
+    log(f"train_synth: restored at step {restored['restored_step']} "
+        f"(last checkpoint {restored['last_checkpoint_step']}), losses "
+        f"{[round(r['train_loss'], 5) for r in ts['epochs']]} [{smi}]")
+
+    # 14d. the crowded bench's two arms on two densities, on the
+    # schedule's checkpoint, in the background (plumbing: the weights are
+    # barely trained; the soak carries the retry)
+    crowded = start(_script("torch_crowded_eval_bench.py")
+                    + ["--ckpt", synth_dir, "--stages", "6", "--size", "184",
+                       "--n", "32", "--batch", "16", "--sets", "light,heavy",
+                       "--trials", "1", "--out",
+                       os.path.join(WF_DIR, "crowded")], "crowded bench")
+
+    # 14e. the rehearsal's images and buckets
+    rh = _finished(rehearsal, "rehearsal", 600)
     check(rh["images"] == 400, f"rehearsal: {rh['images']} of 400 images "
                                f"through the pipeline")
     check(rh["n_buckets"] == rh["expected_buckets"],
@@ -2778,7 +2797,7 @@ def _workflows(smi: str, start):
     log(f"rehearsal: 400 images, {rh['n_buckets']} buckets, "
         f"{rh['img_per_s']} img/s [{smi}]")
 
-    # 14e. the eval breakdown on that set, the schedule's checkpoint
+    # 14f. the eval breakdown on that set, the schedule's checkpoint
     bd = _run(_script("torch_eval_breakdown.py")
               + ["--image-dir", os.path.join(cocoval, "images"),
                  "--ann", os.path.join(cocoval, "annotations.json"),
@@ -2789,13 +2808,7 @@ def _workflows(smi: str, start):
     numbers["eval_breakdown"] = bd
     log(f"eval breakdown: {bd['ms_per_image']} ms an image [{smi}]")
 
-    # 14f. the crowded bench's two arms on two densities (plumbing: the
-    # weights are barely trained; the soak carries the retry)
-    cb = _run(_script("torch_crowded_eval_bench.py")
-              + ["--ckpt", synth_dir, "--stages", "6", "--size", "184",
-                 "--n", "32", "--batch", "16", "--sets", "light,heavy",
-                 "--trials", "1", "--out", os.path.join(WF_DIR, "crowded")],
-              "crowded bench", 300)
+    cb = _finished(crowded, "crowded bench", 300)
     check(len(cb["rows"]) == 4 and all(r["images"] == 32
                                        for r in cb["rows"]),
           f"crowded bench: {cb['rows']}")
@@ -3161,8 +3174,16 @@ YUV_KERNEL_TOL = 0         # yuv420_to_bgr vs its plain version: integers
 # (h, w)); and their rows' sizes, sources and what they replace
 ODD_KERNEL_SIZES = (("yuv420_general_to_bgr", 8, (479, 640)),
                     ("yuv420_general_to_bgr", 8, (1079, 1920)),
-                    ("yuv420_full_chroma_to_bgr", 8, (479, 639)),
-                    ("yuv420_full_chroma_to_bgr", 10, (480, 639)))
+                    *(("yuv420_full_chroma_to_bgr", depth, hw)
+                      for depth, hw in ((8, (9, 9)), (8, (31, 47)),
+                                        (8, (479, 639)), (8, (1079, 1919)),
+                                        (10, (9, 9)), (10, (31, 47)),
+                                        (10, (480, 639)), (10, (1080, 1919)),
+                                        (10, (2160, 3839)))))
+# the full-chroma kernel on saturated fields (its clamp and its 32-bit
+# wrap): (depth, (h, w))
+SATURATED_SIZES = ((8, (9, 9)), (8, (31, 47)), (8, (479, 639)),
+                   (10, (9, 9)), (10, (31, 47)), (10, (480, 639)))
 ODD_KERNEL_ROWS = (
     ("yuv420_general_to_bgr", 8, (479, 640),
      "rtpose_tpu_torch/csrc/yuv420p10_to_bgr.cu",
@@ -3179,7 +3200,9 @@ COLOUR_KERNEL_SIZES = {
     "yuv420_to_bgr": ((8, (1080, 1920)),),
     "yuv420p10_to_bgr": ((10, (1080, 1920)), (10, (2160, 3840))),
     "yuv420_general_to_bgr": ((8, (479, 640)), (8, (1079, 1920))),
-    "yuv420_full_chroma_to_bgr": ((8, (479, 639)), (10, (480, 639)))}
+    "yuv420_full_chroma_to_bgr": ((8, (479, 639)), (8, (1079, 1919)),
+                                  (10, (480, 639)), (10, (1080, 1919)),
+                                  (10, (2160, 3839)))}
 
 
 def colour_kernels_at_video_sizes(dev, smi: str) -> dict:
@@ -3573,11 +3596,16 @@ def video_files_phase(dev, smi: str):
             ODD_SIZES), f"video files: the odd sizes probe: "
             f"{odd_probe}")
 
-        def odd_planes(depth, oh, ow, pad=0, offset=0):
+        def odd_planes(depth, oh, ow, pad=0, offset=0, saturated=False):
             """Random planes on the card, rows `pad` samples past the
-            picture, each plane's data `offset` samples into its buffer."""
+            picture, each plane's data `offset` samples into its buffer;
+            `saturated`: 8x8 blocks (4x4 in chroma) of flat 0 or top
+            samples, the top-left one at the top (the horizontal filter's
+            clamp at the blocks' edges, the 32-bit wrap of a bright pixel
+            of strong chroma)."""
             rng = np.random.RandomState(oh + ow + depth)
             dtype = np.uint8 if depth == 8 else np.uint16
+            top = (1 << depth) - 1
             out = []
             for rows, cols in ((oh, ow), ((oh + 1) // 2, (ow + 1) // 2),
                                ((oh + 1) // 2, (ow + 1) // 2)):
@@ -3585,8 +3613,16 @@ def video_files_phase(dev, smi: str):
                                   dtype=torch.uint8 if depth == 8
                                   else torch.uint16, device=dev)
                 view = buf[offset:].view(rows, cols + pad)
-                view[:, :cols] = torch.from_numpy(rng.randint(
-                    0, 1 << depth, (rows, cols)).astype(dtype)).to(dev)
+                if saturated:
+                    block = 8 if rows == oh else 4
+                    coarse = rng.randint(0, 2, (rows // block + 1,
+                                                cols // block + 1)) * top
+                    coarse[0, 0] = top
+                    vals = np.kron(coarse, np.ones((block, block),
+                                                   np.int64))[:rows, :cols]
+                else:
+                    vals = rng.randint(0, 1 << depth, (rows, cols))
+                view[:, :cols] = torch.from_numpy(vals.astype(dtype)).to(dev)
                 out.append(view)
             return out
 
@@ -3610,9 +3646,34 @@ def video_files_phase(dev, smi: str):
                         worst = max(worst, int((k.int() - p.int()).abs()
                                                .max()))
             odd_errs[f"{name} {depth}-bit {oh}x{ow}"] = worst
+        name = "yuv420_full_chroma_to_bgr"
+        wrapped = 0
+        for depth, (oh, ow) in SATURATED_SIZES:
+            planes = odd_planes(depth, oh, ow, pad=3, offset=1,
+                                saturated=True)
+            worst = 0
+            for m, f in pairs:
+                rule = kernels.yuv_rule(m, f)
+                for rot in kernels.ROTATIONS:
+                    for loc in (0, 1):
+                        k = kernels.yuv420_frame_to_bgr(
+                            *planes, depth=depth, width=ow, rotation=rot,
+                            rule=rule, chroma_location=loc)
+                        p = plains[name](*planes, width=ow, depth=depth,
+                                         rotation=rot, rule=rule,
+                                         chroma_location=loc)
+                        worst = max(worst, int((k.int() - p.int()).abs()
+                                               .max()))
+                        if (m, f, rot, loc) == (1, False, 0, 1):
+                            wrapped += int(k[0, 0, 0] == 0)
+            odd_errs[f"{name} {depth}-bit {oh}x{ow} saturated"] = worst
+        check(wrapped == len(SATURATED_SIZES),
+              f"full-chroma kernel on saturated fields: BT.709 limited's "
+              f"bright strong-U corner wrapped at {wrapped} of "
+              f"{len(SATURATED_SIZES)} sizes")
         check(all(e <= YUV_KERNEL_TOL for e in odd_errs.values()),
               f"odd-size kernels vs plain at every (matrix, range), turn and "
-              f"chroma location 0 / 1: {odd_errs}")
+              f"chroma location 0 / 1, saturated fields too: {odd_errs}")
         odd_rows = {}
         rule = kernels.yuv_rule(1, False)
         for name, depth, (oh, ow), source, what in ODD_KERNEL_ROWS:

@@ -41,32 +41,278 @@
 // of planes and writes 0.92 MB of BGR, 1.38 MB in all: 0.41 us at
 // 3.35 TB/s; a 480x639 10-bit frame 1.84 MB (0.55 us).
 //
-// This first design is a thread an output pixel, in output order (a row
-// of the turned output a grid row): each thread reads its luma sample and
-// the vsize x hsize chroma samples of each plane its taps reach (through
-// the caches: its neighbours read the same ones), filters them and writes
-// its three bytes.  It filters each chroma sample horizontally up to 16
-// times and writes bytes, not words; the shared-memory tiles of
-// yuv420p10_to_bgr.cu are the way to a faster one.
+// A thread a pixel would filter each chroma sample horizontally up to 16
+// times, read 32 source rows a warp under a quarter turn and write BGR a
+// byte at a time (PERF.md has its times).  Here
+// (yuv_tile.cuh) a block of 256 threads owns 32 x 64 pixels of the output
+// (32 source rows x 64 columns, 64 x 32 turned) and
+// - stages the chroma samples its taps reach, rows [vpos[r0], vpos[r_last]
+//   + vsize) by columns [hpos[c0], hpos[c_last] + hsize), from U and V
+//   into shared memory in 16-byte windows, each by cp.async (no register
+//   on the way), all of them in flight together (single bytes only where
+//   a window would leave its plane);
+// - filters each staged chroma row horizontally once to every source
+//   column of the tile, a thread one column of FC_ITEMS rows, its taps in
+//   registers, clamped at 32767 into FC_CHROMA_WORDS words a plane (20
+//   rows of 64 columns, or 40 of 32 turned: 32 or 64 source rows reach at
+//   most 20 or 36 chroma rows, a tile's 64 or 32 columns at most FC_SPAN
+//   or FC_SPAN_TURNED samples, tests/test_torch_yuv_tiles.py; a table
+//   past them traps);
+// - gives a thread eight pixels of one source row: their luma in one
+//   16-byte (10-bit) or 8-byte (8-bit) load issued first, the row's
+//   vertical taps in registers, the filtered chroma read with 16-byte
+//   loads free of bank conflicts (chroma_slot), the vertical sums and the
+//   output in registers, four pixels at a time;
+// - puts the BGR words into a shared tile in the output's orientation and
+//   writes its 32 rows of 192 bytes with 16-byte stores (store_tile).
+// So each plane byte is read from device memory once, each chroma sample
+// filtered once a source column, and the stores are the same at every
+// turn.  Shared memory a block: 11,520 bytes of filtered chroma, 8,320 of
+// BGR (the staged samples, at most 5,120 bytes, lie in the BGR tile
+// before it is written).  ptxas: 40-48 registers, no spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "yuv_rule.cuh"
+#include "yuv_tile.cuh"
 
 #define FC_THREADS 256
+// a thread's pixels, of one source row
+#define FC_PIXELS (TILE_ROWS * TILE_COLS / FC_THREADS)
 // taps a column and a row at most: swscale's bicubic at 2x has four
 #define FC_MAX_TAPS 4
+// filtered chroma samples a plane a tile holds: as many rows as the
+// tile's vertical taps reach, at most (see above), of its source
+// columns, a thread FC_ITEMS of them
+#define FC_CHROMA_WORDS 1280
+#define FC_ITEMS (FC_CHROMA_WORDS / FC_THREADS)
+// each row padded by four words: 16-byte reads, and a turned tile's
+// neighbouring rows in other banks (chroma_slot)
+#define FC_CHROMA_SLOTS (FC_CHROMA_WORDS + 4 * FC_CHROMA_WORDS / TILE_ROWS)
+// chroma samples of a row that TILE_COLS source columns reach, at most
+// (hpos of the last + hsize - hpos of the first), and TILE_ROWS columns
+#define FC_SPAN 36
+#define FC_SPAN_TURNED 20
 
 // v clipped to [0, 2^30) (av_clip_uintp2(v, 30)), then its top eight bits
-__device__ __forceinline__ uint8_t full_out(int v) {
-    return (uint8_t)((v < 0 ? 0 : (v > (1 << 30) - 1 ? (1 << 30) - 1 : v))
-                     >> 22);
+__device__ __forceinline__ int full_out(int v) {
+    return (v < 0 ? 0 : (v > (1 << 30) - 1 ? (1 << 30) - 1 : v)) >> 22;
 }
 
-// T: the sample type, uint8_t (8-bit) or uint16_t (10-bit); named as its
-// wrapper in ops/kernels.py (a profiler's record then names the route)
-template <typename T>
+// a pixel from its 15-bit luma and its chroma sums (yuv2rgb_write_full):
+// 32-bit unsigned arithmetic read back as int, so a bright pixel of
+// strong chroma wraps to 0 as in swscale
+__device__ __forceinline__ uint32_t full_pixel(int y15, int su, int sv,
+                                               const YuvRule& rule) {
+    // Y = ((1 << 9) + (Y15 << 12)) >> 10: the low ten bits of Y15 << 12
+    // are 0, so the rounding term drops out
+    const int yy = y15 << 2;
+    const uint32_t l = (uint32_t)((yy - (rule.y_offset << 6)) * rule.luma
+                                  + (1 << 21));
+    const uint32_t U = (uint32_t)(su >> 10), V = (uint32_t)(sv >> 10);
+    return bgr_word(full_out((int)(l + U * (uint32_t)rule.ub)),
+                    full_out((int)(l + V * (uint32_t)rule.vg
+                                   + U * (uint32_t)rule.ug)),
+                    full_out((int)(l + V * (uint32_t)rule.vr)));
+}
+
+// the 16 bytes at the 16-byte-aligned w into shared memory at dst: one
+// asynchronous copy (cp.async, no registers on the way) where they lie
+// inside [lo, hi), else the bytes that do, one at a time (zero elsewhere)
+__device__ __forceinline__ void stage_window(uint4* dst, const uint8_t* w,
+                                             const uint8_t* lo,
+                                             const uint8_t* hi) {
+    if (w >= lo && w + 16 <= hi) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                     :: "r"((uint32_t)__cvta_generic_to_shared(dst)),
+                        "l"(w)
+                     : "memory");
+        return;
+    }
+    uint32_t b[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+        if (w + k >= lo && w + k < hi)
+            b[k >> 2] |= (uint32_t)w[k] << (8 * (k & 3));
+    *dst = make_uint4(b[0], b[1], b[2], b[3]);
+}
+
+// word c of row r of a tile's filtered chroma: 16-byte groups of the
+// second 32 columns of a straight tile swapped in pairs, so that the
+// eight threads of a source row read eight banks groups apart
+template <bool QUARTER>
+__device__ __forceinline__ int chroma_slot(int r, int c) {
+    constexpr int PITCH = (QUARTER ? TILE_ROWS : TILE_COLS) + 4;
+    return r * PITCH + (QUARTER ? c : c ^ ((c >> 5 & 1) << 2));
+}
+
+// A block's tile.  T: the sample type, uint8_t (8-bit) or uint16_t
+// (10-bit); QUARTER: rotation is 90 or 270
+template <typename T, bool QUARTER>
+__device__ __forceinline__ void full_chroma_tile(
+        const T* __restrict__ y, const T* __restrict__ u,
+        const T* __restrict__ v, int y_pitch, int c_pitch, int height,
+        int width, int rotation, const int* __restrict__ hpos,
+        const int* __restrict__ htap, int hsize,
+        const int* __restrict__ vpos, const int* __restrict__ vtap,
+        int vsize, YuvRule rule, uint8_t* __restrict__ out) {
+    constexpr int S = sizeof(T);
+    constexpr int DEPTH = S == 1 ? 8 : 10;
+    constexpr int SCOLS = QUARTER ? TILE_ROWS : TILE_COLS;  // source columns
+    constexpr int ROWS = FC_CHROMA_WORDS / SCOLS;    // chroma rows held
+    constexpr int SPAN = QUARTER ? FC_SPAN_TURNED : FC_SPAN;
+    // 16-byte windows a staged row: its span from any byte of a window
+    constexpr int ROW_WINDOWS = (15 + SPAN * S + 15) / 16;
+    constexpr int STAGED = 2 * ROWS * ROW_WINDOWS;
+    constexpr int STAGE_ITERS = (STAGED + FC_THREADS - 1) / FC_THREADS;
+    static_assert(ROWS * (SCOLS + 4) <= FC_CHROMA_SLOTS, "chroma rows");
+    static_assert(STAGED * 16 <= BGR_TILE_WORDS * 4, "staged chroma");
+    __shared__ __align__(16) int chroma[2][FC_CHROMA_SLOTS];
+    __shared__ __align__(16) uint32_t bgr[BGR_TILE_WORDS];
+    uint4* staged = reinterpret_cast<uint4*>(bgr);
+    const TileMap m = tile_map<QUARTER>(height, width, rotation);
+    const int tid = threadIdx.x;
+
+    // this thread's pixels: source row r0 + sr, tile columns col..; their
+    // luma and the row's vertical taps first, under the chroma's latency
+    constexpr int ROW_THREADS = SCOLS / FC_PIXELS;
+    const int sr = tid / ROW_THREADS;
+    const int col = FC_PIXELS * (tid % ROW_THREADS);
+    const bool mine = sr < m.th && col < m.tw;
+    const int sy = m.r0 + sr;
+    uint32_t luma[S * FC_PIXELS / 4];
+    int vp = 0, taps[FC_MAX_TAPS];
+    if (mine) {
+        load_bytes<S * FC_PIXELS>(
+            reinterpret_cast<const uint8_t*>(y + (size_t)sy * y_pitch + m.c0
+                                             + col),
+            S * min(FC_PIXELS, m.tw - col), luma);
+        vp = vpos[sy];
+#pragma unroll
+        for (int t = 0; t < FC_MAX_TAPS; ++t)
+            taps[t] = t < vsize ? vtap[sy * vsize + t] : 0;
+    }
+    // this thread's source column of the horizontal stage and its taps
+    const int cc = tid % SCOLS, row0 = tid / SCOLS;
+    const bool filters = cc < m.tw;
+    int hp = 0, ht[FC_MAX_TAPS];
+    if (filters) {
+        const int x = m.c0 + cc;
+        hp = hpos[x];
+#pragma unroll
+        for (int k = 0; k < FC_MAX_TAPS; ++k)
+            ht[k] = k < hsize ? htap[x * hsize + k] : 0;
+    }
+
+    // the chroma rows and columns the tile's taps reach (vpos and hpos
+    // rise with the row and the column)
+    const int first = vpos[m.r0];
+    const int rows = vpos[m.r0 + m.th - 1] + vsize - first;
+    const int xa = hpos[m.c0];
+    const int span = hpos[m.c0 + m.tw - 1] + hsize - xa;
+    if (rows > ROWS || span > SPAN) __trap();   // tables past the tile
+
+    // staged: row r of plane p from the 16-byte window that holds its
+    // sample xa, the windows its span reaches, all copies in flight
+    // together
+    const uint8_t* ub = reinterpret_cast<const uint8_t*>(u);
+    const uint8_t* vb = reinterpret_cast<const uint8_t*>(v);
+    const size_t plane_bytes = (size_t)((height + 1) / 2) * c_pitch * S;
+#pragma unroll
+    for (int i = 0; i < STAGE_ITERS; ++i) {
+        const int j = tid + i * FC_THREADS;
+        const int p = j / (ROWS * ROW_WINDOWS), r = j / ROW_WINDOWS % ROWS;
+        if (j < STAGED && r < rows) {
+            const uint8_t* base = p ? vb : ub;
+            const uint8_t* at =
+                base + ((size_t)(first + r) * c_pitch + xa) * S;
+            const uint8_t* w = reinterpret_cast<const uint8_t*>(
+                (uintptr_t)at & ~(uintptr_t)15) + 16 * (j % ROW_WINDOWS);
+            if (w < at + span * S)
+                stage_window(staged + j, w, base, base + plane_bytes);
+        }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    // each staged row filtered horizontally once to the tile's columns:
+    // C15 = min(sum_k C[hpos + k] * htap[k] >> (D - 1), 32767)
+    if (filters) {
+        const uint8_t* bytes = reinterpret_cast<const uint8_t*>(staged);
+#pragma unroll
+        for (int i = 0; i < FC_ITEMS; ++i) {
+            const int r = row0 + i * (FC_THREADS / SCOLS);
+            if (r < rows) {
+#pragma unroll
+                for (int p = 0; p < 2; ++p) {
+                    const uintptr_t at = (uintptr_t)(p ? vb : ub)
+                        + ((size_t)(first + r) * c_pitch + xa) * S;
+                    const uint8_t* s = bytes
+                        + 16 * (p * ROWS + r) * ROW_WINDOWS + (int)(at & 15)
+                        + (hp - xa) * S;
+                    int h = 0;
+#pragma unroll
+                    for (int k = 0; k < FC_MAX_TAPS; ++k) {
+                        if (k < hsize) {
+                            const int c = S == 1
+                                ? (int)s[k]
+                                : (int)reinterpret_cast<const uint16_t*>(s)[k];
+                            h += c * ht[k];
+                        }
+                    }
+                    chroma[p][chroma_slot<QUARTER>(r, cc)] =
+                        min(h >> (DEPTH - 1), 32767);
+                }
+            }
+        }
+    }
+    __syncthreads();
+
+    // the vertical sums at full precision, then each pixel, four at a
+    // time (columns past the picture: words never stored)
+    if (mine) {
+        uint32_t px[FC_PIXELS];
+#pragma unroll
+        for (int h = 0; h < FC_PIXELS; h += 4) {
+            int su[4], sv[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) su[q] = sv[q] = (1 << 9) - (128 << 19);
+#pragma unroll
+            for (int t = 0; t < FC_MAX_TAPS; ++t) {
+                if (t < vsize) {
+                    const int at = chroma_slot<QUARTER>(vp - first + t,
+                                                        col + h);
+                    const int4 cu =
+                        *reinterpret_cast<const int4*>(chroma[0] + at);
+                    const int4 cv =
+                        *reinterpret_cast<const int4*>(chroma[1] + at);
+                    su[0] += cu.x * taps[t];
+                    su[1] += cu.y * taps[t];
+                    su[2] += cu.z * taps[t];
+                    su[3] += cu.w * taps[t];
+                    sv[0] += cv.x * taps[t];
+                    sv[1] += cv.y * taps[t];
+                    sv[2] += cv.z * taps[t];
+                    sv[3] += cv.w * taps[t];
+                }
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                px[h + q] = full_pixel(
+                    sample_of<T>(luma, h + q) << (15 - DEPTH), su[q], sv[q],
+                    rule);
+        }
+        put_pixels<FC_PIXELS>(bgr, m, sr, col, min(FC_PIXELS, m.tw - col),
+                              px);
+    }
+    __syncthreads();
+    store_tile<FC_THREADS>(bgr, m, out);
+}
+
+// The kernel of each depth and orientation, named as its wrapper in
+// ops/kernels.py (a profiler's record then names the route)
+template <typename T, bool QUARTER>
 __global__ void __launch_bounds__(FC_THREADS)
 yuv420_full_chroma_to_bgr_kernel(
         const T* __restrict__ y, const T* __restrict__ u,
@@ -75,53 +321,25 @@ yuv420_full_chroma_to_bgr_kernel(
         const int* __restrict__ htap, int hsize,
         const int* __restrict__ vpos, const int* __restrict__ vtap,
         int vsize, YuvRule rule, uint8_t* __restrict__ out) {
-    constexpr int DEPTH = sizeof(T) == 1 ? 8 : 10;
-    const bool quarter = rotation == 90 || rotation == 270;
-    const int out_w = quarter ? height : width;
-    const int i = blockIdx.y, j = blockIdx.x * FC_THREADS + threadIdx.x;
-    if (j >= out_w) return;
-    int sy, sx;          // cv::rotate: output (i, j) reads source (sy, sx)
-    if (rotation == 90) {
-        sy = height - 1 - j; sx = i;
-    } else if (rotation == 180) {
-        sy = height - 1 - i; sx = width - 1 - j;
-    } else if (rotation == 270) {
-        sy = j; sx = width - 1 - i;
-    } else {
-        sy = i; sx = j;
-    }
-    const int y15 = (int)y[(size_t)sy * y_pitch + sx] << (15 - DEPTH);
-    const int x0 = hpos[sx], r0 = vpos[sy];
-    int su = (1 << 9) - (128 << 19), sv = su;
-#pragma unroll
-    for (int t = 0; t < FC_MAX_TAPS; ++t) {
-        if (t < vsize) {
-            const size_t row = (size_t)(r0 + t) * c_pitch + x0;
-            int hu = 0, hv = 0;
-#pragma unroll
-            for (int k = 0; k < FC_MAX_TAPS; ++k) {
-                if (k < hsize) {
-                    const int tap = htap[sx * hsize + k];
-                    hu += (int)u[row + k] * tap;
-                    hv += (int)v[row + k] * tap;
-                }
-            }
-            const int tap = vtap[sy * vsize + t];
-            su += min(hu >> (DEPTH - 1), 32767) * tap;
-            sv += min(hv >> (DEPTH - 1), 32767) * tap;
-        }
-    }
-    su >>= 10;
-    sv >>= 10;
-    const int yy = ((1 << 9) + (y15 << 12)) >> 10;
-    const uint32_t l = (uint32_t)((yy - (rule.y_offset << 6)) * rule.luma
-                                  + (1 << 21));
-    const uint32_t U = (uint32_t)su, V = (uint32_t)sv;
-    uint8_t* px = out + 3 * ((size_t)i * out_w + j);
-    px[0] = full_out((int)(l + U * (uint32_t)rule.ub));
-    px[1] = full_out((int)(l + V * (uint32_t)rule.vg
-                           + U * (uint32_t)rule.ug));
-    px[2] = full_out((int)(l + V * (uint32_t)rule.vr));
+    full_chroma_tile<T, QUARTER>(y, u, v, y_pitch, c_pitch, height, width,
+                                 rotation, hpos, htap, hsize, vpos, vtap,
+                                 vsize, rule, out);
+}
+
+template <typename T>
+static void launch_full_chroma(dim3 grid, bool quarter, const void* y,
+                               const void* u, const void* v, int y_pitch,
+                               int c_pitch, int height, int width,
+                               int rotation, const void* hpos,
+                               const void* htap, int hsize, const void* vpos,
+                               const void* vtap, int vsize, YuvRule rule,
+                               void* out, cudaStream_t stream) {
+    const auto kernel = quarter ? yuv420_full_chroma_to_bgr_kernel<T, true>
+                                : yuv420_full_chroma_to_bgr_kernel<T, false>;
+    kernel<<<grid, FC_THREADS, 0, stream>>>(
+        (const T*)y, (const T*)u, (const T*)v, y_pitch, c_pitch, height,
+        width, rotation, (const int*)hpos, (const int*)htap, hsize,
+        (const int*)vpos, (const int*)vtap, vsize, rule, (uint8_t*)out);
 }
 
 extern "C" int rtpose_yuv420_full_chroma_to_bgr(
@@ -136,23 +354,17 @@ extern "C" int rtpose_yuv420_full_chroma_to_bgr(
             || (rotation != 0 && rotation != 90 && rotation != 180
                 && rotation != 270))
         return (int)cudaErrorInvalidValue;
+    const dim3 grid = tile_grid(height, width, rotation);
     const bool quarter = rotation == 90 || rotation == 270;
-    const int out_w = quarter ? height : width;
-    const dim3 grid((out_w + FC_THREADS - 1) / FC_THREADS,
-                    quarter ? width : height);
     if (depth == 8)
-        yuv420_full_chroma_to_bgr_kernel<uint8_t>
-            <<<grid, FC_THREADS, 0, (cudaStream_t)stream>>>(
-                (const uint8_t*)y, (const uint8_t*)u, (const uint8_t*)v,
-                y_pitch, c_pitch, height, width, rotation, (const int*)hpos,
-                (const int*)htap, hsize, (const int*)vpos, (const int*)vtap,
-                vsize, rule, (uint8_t*)out);
+        launch_full_chroma<uint8_t>(grid, quarter, y, u, v, y_pitch, c_pitch,
+                                    height, width, rotation, hpos, htap,
+                                    hsize, vpos, vtap, vsize, rule, out,
+                                    (cudaStream_t)stream);
     else
-        yuv420_full_chroma_to_bgr_kernel<uint16_t>
-            <<<grid, FC_THREADS, 0, (cudaStream_t)stream>>>(
-                (const uint16_t*)y, (const uint16_t*)u, (const uint16_t*)v,
-                y_pitch, c_pitch, height, width, rotation, (const int*)hpos,
-                (const int*)htap, hsize, (const int*)vpos, (const int*)vtap,
-                vsize, rule, (uint8_t*)out);
+        launch_full_chroma<uint16_t>(grid, quarter, y, u, v, y_pitch,
+                                     c_pitch, height, width, rotation, hpos,
+                                     htap, hsize, vpos, vtap, vsize, rule,
+                                     out, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }

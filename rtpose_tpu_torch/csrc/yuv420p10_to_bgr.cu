@@ -112,13 +112,6 @@ __device__ __forceinline__ int table_term(int c, int q) {
     return ((c * q) >> 16) - (q >> 9);
 }
 
-// sample k of a row's samples held in the words w
-template <typename T>
-__device__ __forceinline__ int sample_of(const uint32_t* w, int k) {
-    if constexpr (sizeof(T) == 1) return byte_of(w, k);
-    return (w[k >> 1] >> (16 * (k & 1))) & 0xffff;
-}
-
 // a pixel pair (luma y0, y1 in the 15-bit intermediate) from its chroma
 // sums: above the last two rows (simd) the MMX rule, su and sv the high
 // halves + 4; on them the C tables, su and sv (1 << 18) + the sums

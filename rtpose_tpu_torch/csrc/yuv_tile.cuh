@@ -1,12 +1,12 @@
-// The tile both video-colour kernels (yuv420_to_bgr.cu,
-// yuv420p10_to_bgr.cu) convert in and write out: a block owns TILE_ROWS x
-// TILE_COLS pixels of the output, turned by cv2's cv::rotate (output (i, j)
-// is source (H-1-j, i) at 90, (H-1-i, W-1-j) at 180 and (j, W-1-i) at
-// 270), so TILE_ROWS x TILE_COLS source pixels at 0 and 180 and
-// TILE_COLS x TILE_ROWS at 90 and 270.  It puts each pixel's BGR as one
-// word (B | G << 8 | R << 16) into a shared-memory tile in the output's
-// orientation, then writes the tile's output rows, 3 x TILE_COLS bytes
-// each, with 16-byte stores, each row's ragged ends with the widest
+// The tile the video-colour kernels (yuv420_to_bgr.cu, yuv420p10_to_bgr.cu,
+// yuv420_full_chroma_to_bgr.cu) convert in and write out: a block owns
+// TILE_ROWS x TILE_COLS pixels of the output, turned by cv2's cv::rotate
+// (output (i, j) is source (H-1-j, i) at 90, (H-1-i, W-1-j) at 180 and
+// (j, W-1-i) at 270), so TILE_ROWS x TILE_COLS source pixels at 0 and 180
+// and TILE_COLS x TILE_ROWS at 90 and 270.  It puts each pixel's BGR as
+// one word (B | G << 8 | R << 16) into a shared-memory tile in the
+// output's orientation, then writes the tile's output rows, 3 x TILE_COLS
+// bytes each, with 16-byte stores, each row's ragged ends with the widest
 // aligned stores that fit.  So the stores are the same at every turn, and
 // the turn costs a transposition in shared memory only.
 #pragma once
@@ -123,6 +123,14 @@ __device__ __forceinline__ void load_bytes(const uint8_t* p, int n,
 // byte k of the words w
 __device__ __forceinline__ int byte_of(const uint32_t* w, int k) {
     return (w[k >> 2] >> (8 * (k & 3))) & 255;
+}
+
+// sample k of a row's samples of type T (uint8_t or uint16_t) held in the
+// words w
+template <typename T>
+__device__ __forceinline__ int sample_of(const uint32_t* w, int k) {
+    if constexpr (sizeof(T) == 1) return byte_of(w, k);
+    return (w[k >> 1] >> (16 * (k & 1))) & 0xffff;
 }
 
 // sixteen bytes of an output row from the six pixel words that hold them,

@@ -12,10 +12,10 @@ be compared in turns within one run (parent, change, change, parent):
 Imports the package of ``--root`` and builds that checkout's kernels.
 For each kernel and size (``ROUTES``: the unscaled 8-bit one at 480x640
 and 1080x1920; the 10-bit one also at 2160x3840; the 8-bit general one
-at 479x640 and 1079x1920; the full-chroma one at 479x639, 8-bit, and
-480x639, 10-bit; a checkout without a kernel skips it) and turn (0 and
-90), on random planes made from a seed (chroma left, BT.709 limited at
-8 bits, BT.2020 limited at 10): the
+at 479x640 and 1079x1920; the full-chroma one at 479x639 and 1079x1919,
+8-bit, and 480x639, 1080x1919 and 2160x3839, 10-bit; a checkout without
+a kernel skips it) and turn (0 and 90), on random planes made from a
+seed (chroma left, BT.709 limited at 8 bits, BT.2020 limited at 10): the
 largest difference from the plain version on the card (it must be 0),
 and the device ms a launch from ``torch.profiler`` over 200 launches,
 warm (back to back on the same planes, which stay
@@ -43,7 +43,9 @@ ROUTES = {"yuv420_to_bgr": ((8, (480, 640)), (8, (1080, 1920))),
           "yuv420p10_to_bgr": ((10, (480, 640)), (10, (1080, 1920)),
                                (10, (2160, 3840))),
           "yuv420_general_to_bgr": ((8, (479, 640)), (8, (1079, 1920))),
-          "yuv420_full_chroma_to_bgr": ((8, (479, 639)), (10, (480, 639)))}
+          "yuv420_full_chroma_to_bgr": ((8, (479, 639)), (8, (1079, 1919)),
+                                        (10, (480, 639)), (10, (1080, 1919)),
+                                        (10, (2160, 3839)))}
 
 
 def device_ms(fn, kernel: str, iters: int) -> float:

@@ -1298,18 +1298,23 @@ def test_yuv420_general_kernel_matches_plain(cuda, rotation, hw, pad,
 @pytest.mark.parametrize("rotation", [0, 90, 180, 270])
 @pytest.mark.parametrize("depth,hw,pad", [
     (8, (479, 639), 0), (8, (479, 639), 33), (8, (9, 9), 0),
-    (8, (31, 63), 4), (8, (33, 65), 0), (8, (65, 33), 7),
-    (10, (480, 639), 0), (10, (480, 639), 16),
-    (10, (10, 15), 0), (10, (32, 47), 3), (10, (64, 129), 0),
-    (10, (95, 31), 5)])
+    (8, (31, 47), 0), (8, (31, 63), 4), (8, (33, 65), 0), (8, (65, 33), 7),
+    (8, (1079, 1919), 0),
+    (10, (480, 639), 0), (10, (480, 639), 16), (10, (9, 9), 0),
+    (10, (31, 47), 0), (10, (10, 15), 0), (10, (32, 47), 3),
+    (10, (64, 129), 0), (10, (95, 31), 5), (10, (1080, 1919), 0),
+    (10, (2160, 3839), 0)])
 @pytest.mark.parametrize("location", [0, 1, 3])
 def test_yuv420_full_chroma_kernel_matches_plain(cuda, rotation, depth, hw,
                                                 pad, location):
-    """The full-chroma kernel (odd widths) at both depths, tile-edge
-    sizes, padded pitches, each turn and chroma location."""
+    """The full-chroma kernel (odd widths) at both depths, ragged tiles,
+    HD and 4K, padded pitches, each turn and chroma location (the plain
+    version on the card above a megapixel: integer ops, the CPU's
+    results)."""
     h, w = hw
     planes = _planes_at(depth, h, w, seed=h + w + pad + location,
                         pitch_pad=pad)
+    ref = [p.to(cuda) for p in planes] if h * w > 1 << 20 else planes
     kernels.reset_launch_counts()
     for matrix, full in ((2, False), (9, False), (1, True)):
         rule = kernels.yuv_rule(matrix, full)
@@ -1317,11 +1322,61 @@ def test_yuv420_full_chroma_kernel_matches_plain(cuda, rotation, depth, hw,
             *[p.to(cuda) for p in planes], width=w, depth=depth,
             rotation=rotation, rule=rule, chroma_location=location)
         want = kernels.full_chroma_to_bgr_plain(
-            *planes, width=w, depth=depth, rotation=rotation, rule=rule,
+            *ref, width=w, depth=depth, rotation=rotation, rule=rule,
             chroma_location=location)
         assert got.shape == want.shape and got.is_contiguous()
-        assert torch.equal(got.cpu(), want)
+        assert torch.equal(got.cpu(), want.cpu())
     assert kernels.launch_counts()["yuv420_full_chroma_to_bgr"] == 3
+
+
+def _saturated_planes(depth, h, w, seed):
+    """4:2:0 planes of 8x8 blocks (4x4 in chroma) of flat 0 or top
+    samples, the top-left block at the top: the horizontal filter's
+    overshoot at the blocks' edges reaches its clamp at 32767, and a flat
+    bright pixel of strong chroma wraps the 32-bit sums."""
+    rng = np.random.RandomState(seed)
+    dtype = np.uint8 if depth == 8 else np.uint16
+    top = (1 << depth) - 1
+    out = []
+    for rows, cols, block in ((h, w, 8), ((h + 1) // 2, (w + 1) // 2, 4),
+                              ((h + 1) // 2, (w + 1) // 2, 4)):
+        coarse = rng.randint(0, 2, (rows // block + 1,
+                                    cols // block + 1)) * top
+        coarse[0, 0] = top
+        vals = np.kron(coarse, np.ones((block, block), np.int64))
+        out.append(torch.from_numpy(vals[:rows, :cols].astype(dtype)))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", [0, 90, 180, 270])
+@pytest.mark.parametrize("depth,hw", [(8, (9, 9)), (8, (31, 47)),
+                                      (8, (479, 639)), (10, (9, 9)),
+                                      (10, (31, 47)), (10, (480, 639))])
+def test_yuv420_full_chroma_kernel_wraps_as_plain(cuda, rotation, depth,
+                                                  hw):
+    """Saturated fields through the full-chroma kernel at every (matrix,
+    range): its clamped horizontal sums and 32-bit unsigned output sums
+    give the plain version's frame, the wrapped blue of BT.709 limited's
+    bright strong-U pixels (0, not 255) included."""
+    h, w = hw
+    planes = _saturated_planes(depth, h, w, seed=h * w + depth)
+    for matrix in (2, 1, 4, 7, 9):
+        for full in (False, True):
+            rule = kernels.yuv_rule(matrix, full)
+            for location in (0, 1):
+                got = kernels.yuv420_full_chroma_to_bgr(
+                    *[p.to(cuda) for p in planes], width=w, depth=depth,
+                    rotation=rotation, rule=rule, chroma_location=location)
+                want = kernels.full_chroma_to_bgr_plain(
+                    *planes, width=w, depth=depth, rotation=rotation,
+                    rule=rule, chroma_location=location)
+                assert torch.equal(got.cpu(), want), (matrix, full,
+                                                      location)
+    plain = kernels.full_chroma_to_bgr_plain(
+        *planes, width=w, depth=depth, rule=kernels.yuv_rule(1, False),
+        chroma_location=1)
+    assert plain[0, 0, 0] == 0      # Y and U at the top: blue wrapped
 
 
 @pytest.mark.gpu
