@@ -138,6 +138,18 @@ entry points a user calls:
   an open without libavcodec or without a card raises; each kernel row
   carries ``video_file_launches`` (the HEVC demo's), and the
   conversion's row stands beside the grouping kernel's;
+- the chroma formats (phase 16b, ROADMAP.md item 4i (d)): the probe's
+  ``formats`` part (this machine's libswscale against the port's rules at
+  every chroma format, depth and size parity, its cv2 on the chroma
+  fixtures); ``csrc/yuv_planar_to_bgr.cu``'s four entries against their
+  plain versions at every route, (matrix, range), turn and chroma
+  location 0 / 1 on odd pitches at unaligned bases, each timed with its
+  bound and at the sizes users' video has; the committed VP9 fixtures of
+  profiles 1-3 and PCM HEVC RExt / H.264 High 4:2:2 files on the card ==
+  the CPU == cv2; the flagship video demo on a 64-frame 480x640 H.264
+  High 4:2:2 10-bit MP4 (K1, K3 and G once a batch,
+  ``yuv_planar_general_to_bgr`` once a frame); each kernel row carries
+  ``chroma_demo_launches``;
 
 and checks that each path launched its kernels.  Also holds one fp32
 train step on the card against the CPU.  Prints timings beside the card's
@@ -4233,7 +4245,7 @@ def video_files_phase(dev, smi: str):
                 ("demo_odd_size", (479, 639), "yuv420_full_chroma_to_bgr",
                  "vp9_31x47.webm")):
             odd_video = os.path.join(work, f"in_{oh}x{ow}.mkv")
-            sv.write_mpeg4_mkv(odd_video, sv.scene_planes(
+            sv.write_mpeg4_mkv(odd_video, sv.scene_frames(
                 range(1600, 1600 + VIDEO_FILE_FRAMES), oh, ow))
             c, numbers[key] = flagship_demo(
                 odd_video, "mpeg4", "MPEG-4 Part 2 MKV", convert=convert,
@@ -4337,6 +4349,333 @@ def video_files_phase(dev, smi: str):
     return (counts, numbers, row, p10_row,
             odd_rows["yuv420_general_to_bgr"],
             odd_rows["yuv420_full_chroma_to_bgr"])
+
+
+# the chroma formats (ROADMAP.md item 4i (d)), csrc/yuv_planar_to_bgr.cu:
+# each entry against its plain version, (chroma, depth, (h, w)); the
+# flagship demo's 10-bit 4:2:2 file; and the rows of the kernels line
+PLANAR_KERNEL_CASES = (
+    ((1, 0), 8, (480, 640)), ((1, 0), 8, (31, 48)), ((1, 0), 8, (479, 640)),
+    ((1, 0), 10, (480, 640)), ((1, 0), 12, (1080, 1920)),
+    ((1, 0), 10, (480, 639)), ((0, 1), 8, (479, 640)),
+    ((0, 1), 12, (33, 65)), ((0, 0), 8, (480, 640)), ((0, 0), 10, (9, 8)),
+    ((0, 0), 12, (1079, 1919)), ((1, 1), 12, (480, 640)),
+    ((1, 1), 12, (31, 47)), (None, 8, (480, 640)), (None, 10, (33, 65)),
+    (None, 12, (1080, 1920)))
+PLANAR_DEMO_FORMAT = ((1, 0), 10)    # H.264 High 4:2:2 10-bit I_PCM
+PLANAR_ROWS = (   # (kernel, chroma, depth, (h, w) timed, what it replaces)
+    ("yuv422_to_bgr", (1, 0), 8, (480, 640),
+     "the yuv422p -> bgr24 conversion of an 8-bit 4:2:2 frame of an even "
+     "height (swscale's unscaled path)"),
+    ("yuv_planar_general_to_bgr", (1, 0), 10, (480, 640),
+     "the 4:2:2 / 4:4:0 / 12-bit 4:2:0 -> bgr24 conversion at an even "
+     "width (swscale's general path, SWS_BICUBIC)"),
+    ("yuv_planar_full_chroma_to_bgr", (0, 0), 8, (480, 640),
+     "the 4:4:4 (and odd-width 4:2:2 / 4:4:0 / 12-bit 4:2:0) -> bgr24 "
+     "conversion (swscale's general path with full internal chroma)"),
+    ("gray_to_bgr", None, 10, (480, 640),
+     "the gray / gray10le / gray12le -> bgr24 conversion (swscale's palette "
+     "copy, its full-chroma output of neutral chroma)"))
+
+
+def chroma_formats_phase(dev, smi: str, found: dict):
+    """Phase 16b: the chroma formats (ROADMAP.md item 4i (d)).
+
+    - the probe's ``formats`` part (``scripts/torch_probe_video.py``,
+      `found`, run in phase 16):
+      this machine's libswscale against the port's rules at every chroma
+      format, depth (8, 10, 12) and size parity, and its cv2 on the
+      committed chroma-format VP9 fixtures and on PCM HEVC RExt / H.264
+      High 4:2:2 files against the port's CPU read;
+    - each entry of ``csrc/yuv_planar_to_bgr.cu`` against its plain
+      version (``PLANAR_KERNEL_CASES``: every route, depth 8 / 10 / 12,
+      odd sizes, 1080x1920) at every (matrix, range), four turns and
+      chroma locations 0 / 1, on planes of an odd pitch at an unaligned
+      base: error 0; each timed at 480x640 with its bound, and at the
+      sizes users' video has by ``scripts/torch_colour_kernel_times.py``
+      (warm and with L2 flushed, turns 0 and 90);
+    - the committed fixtures and PCM files of every chroma format
+      (``format_files``: HEVC RExt 4:2:2 / 4:4:4, 4:0:0, Main 12; H.264
+      High 4:2:2) read on the card: == the CPU, == this machine's cv2;
+      each route's kernel launched once a frame, no 4:2:0 kernel;
+    - the flagship video demo (VGG19, 6 stages, flip) on a 64-frame
+      480x640 H.264 High 4:2:2 10-bit I_PCM MP4 (the cameras' intra
+      format), writing XVID: K1, K3 and G once a batch and
+      ``yuv_planar_general_to_bgr`` once a frame, counted from 0 just
+      before.
+
+    -> (the demo's launches, numbers, the four kernels' rows)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from torch_colour_kernel_times import ROUTES, colour_kernel_times
+    from torch_probe_video import format_files
+    from rtpose_tpu_torch.demo import video_demo, video_io
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.ops import kernels
+    import cv2
+
+    t_phase = time.perf_counter()
+    numbers = {"device": smi, "probe": found}
+    bad_rules = {k: v for k, v in found.get("rules", {}).items()
+                 if v["max_abs_diff"] != 0}
+    log(f"phase 16b (chroma formats): libswscale {found.get('libswscale')}"
+        f" against the port's rules at {len(found.get('rules', {}))} "
+        f"(format, depth, size) cells: differing {json.dumps(bad_rules)}; "
+        f"cv2 {found.get('cv2')} against the port's CPU read: fixtures "
+        f"{json.dumps(found.get('fixtures'))}, files "
+        f"{json.dumps(found.get('files'))} [{smi}]")
+    check("error" not in found and not bad_rules and len(found["rules"])
+          == 75, f"chroma formats: libswscale against the rules: "
+          f"{found.get('error') or bad_rules}")
+    pairs = [(m, f) for m in (1, 2, 4, 7, 9) for f in (False, True)]
+    names = [r[0] for r in PLANAR_ROWS]
+
+    def planes_on_card(chroma, depth, h, w, pad=0, offset=0, seed=0):
+        """Random planes on the card, rows `pad` samples past the picture,
+        each plane's data `offset` samples into its buffer."""
+        rng = np.random.RandomState(seed + h + w + depth)
+        dtype = torch.uint8 if depth == 8 else torch.uint16
+        shapes = [(h, w)] + ([] if chroma is None else
+                             [kernels.chroma_shape(chroma, h, w)] * 2)
+        out = []
+        for rows, cols in shapes:
+            buf = torch.zeros(rows * (cols + pad) + offset, dtype=dtype,
+                              device=dev)
+            view = buf[offset:].view(rows, cols + pad)
+            view[:, :cols] = torch.from_numpy(rng.randint(
+                0, 1 << depth, (rows, cols)).astype(
+                    np.uint8 if depth == 8 else np.uint16)).to(dev)
+            out.append(view)
+        return out + [None] * (3 - len(out))
+
+    launched = {"gray": "gray_to_bgr", "unscaled": "yuv422_to_bgr",
+                "general": "yuv_planar_general_to_bgr",
+                "full_chroma": "yuv_planar_full_chroma_to_bgr"}
+
+    def plain(name, planes, **kw):
+        """The plain version of kernel `name`, on the card's tensors."""
+        if name == "gray_to_bgr":
+            return kernels.gray_to_bgr_plain(
+                planes[0], width=kw["width"], depth=kw["depth"],
+                rotation=kw["rotation"])
+        if name == "yuv422_to_bgr":
+            return kernels.yuv420_to_bgr_plain(
+                *planes, width=kw["width"], rotation=kw["rotation"],
+                rule=kw["rule"], chroma=kw["chroma"])
+        return (kernels.general_to_bgr_plain
+                if name == "yuv_planar_general_to_bgr" else
+                kernels.full_chroma_to_bgr_plain)(*planes, **kw)
+
+    errs = {name: {} for name in names}     # kernel -> case -> error
+    for chroma, depth, (h, w) in PLANAR_KERNEL_CASES:
+        planes = planes_on_card(chroma, depth, h, w, pad=3, offset=1)
+        route = kernels.frame_route(chroma, depth, h, w)
+        worst = 0
+        for m, f in pairs:
+            rule = kernels.yuv_rule(m, f)
+            for rot in kernels.ROTATIONS:
+                for loc in (0, 1):
+                    kw = dict(depth=depth, width=w, rotation=rot, rule=rule,
+                              chroma_location=loc, chroma=chroma)
+                    k = kernels.yuv420_frame_to_bgr(*planes, **kw)
+                    p = plain(launched[route], planes, **kw)
+                    worst = max(worst, int((k.int() - p.int()).abs()
+                                           .max()))
+        errs[launched[route]][
+            f"{kernels.CHROMA_NAMES[chroma]} {depth}-bit {h}x{w}"] = worst
+    check(all(e <= YUV_KERNEL_TOL for by_case in errs.values()
+              for e in by_case.values()),
+          f"chroma-format kernels vs plain at every (matrix, range), turn "
+          f"and chroma location 0 / 1 on odd pitches at unaligned bases: "
+          f"{errs}")
+    log(f"phase 16b: yuv_planar_to_bgr.cu == plain at every (matrix, "
+        f"range), four turns, chroma locations 0 / 1, odd pitch, unaligned "
+        f"base: {json.dumps(errs)} [{smi}]")
+
+    sizes = colour_kernel_times(dev, routes={k: ROUTES[k] for k in names})
+    for name, by_size in sizes.items():
+        for size, entry in by_size.items():
+            turns = [entry[f"rotation_{r}"] for r in (0, 90)]
+            check(all(t["max_abs_err"] == YUV_KERNEL_TOL for t in turns),
+                  f"{name} {size} vs plain at turns 0 / 90: "
+                  f"{[t['max_abs_err'] for t in turns]}")
+            log(f"{name} {size} ({entry['depth']}-bit "
+                f"{kernels.CHROMA_NAMES[entry['chroma']]}): device us warm "
+                + " / ".join(f"{t['device_ms_warm'] * 1e3:.2f}" for t in turns)
+                + ", L2 flushed "
+                + " / ".join(f"{t['device_ms_cold'] * 1e3:.2f}" for t in turns)
+                + f" at turns 0 / 90; bound {entry['bound_ms'] * 1e3:.2f} us "
+                f"({entry['bytes']} bytes) [{smi}]")
+    rows = {}
+    rule = kernels.yuv_rule(1, False)
+    for name, chroma, depth, (h, w), what in PLANAR_ROWS:
+        planes = planes_on_card(chroma, depth, h, w, seed=5)
+        timing = {}
+        for rot in (0, 90):
+            kw = dict(depth=depth, width=w, rotation=rot, rule=rule,
+                      chroma_location=1, chroma=chroma)
+
+            def kernel():
+                return kernels.yuv420_frame_to_bgr(*planes, **kw)
+            ms, plain_ms = paired_ms(
+                kernel, functools.partial(plain, name, planes, **kw), 20)
+            dev_ms, where = device_ms(kernel, name)
+            timing[rot] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                               device_ms_source=where,
+                               host_ms=host_ms(kernel))
+        n_bytes = sum(p.numel() * p.element_size() for p in planes
+                      if p is not None) + 3 * h * w
+        bound_ms, bound_by = bound(n_bytes, 0)
+        mine = errs[name]
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="rtpose_tpu_torch/csrc/yuv_planar_to_bgr.cu",
+            replaces=f"none: {what} and turn inside cv2.VideoCapture "
+                     f"(rtpose_tpu/demo/video_demo.py:19)",
+            replaces_kind="cv2/swscale; no Pallas kernel",
+            max_abs_err=max(mine.values()), max_abs_err_by_case=mine,
+            **timing[0], rotation_90=timing[90], bound_ms=bound_ms,
+            bound_by=bound_by, bytes=n_bytes, shape=[h, w], depth=depth,
+            chroma=kernels.CHROMA_NAMES[chroma],
+            rule="BT.709 limited, chroma left", library_ms=None,
+            video_sizes=sizes.get(name, {}))
+        log(f"{name} {depth}-bit {kernels.CHROMA_NAMES[chroma]} {h}x{w}: "
+            f"kernel {timing[0]['ms']:.4f} ms (90: {timing[90]['ms']:.4f}), "
+            f"device {timing[0]['device_ms']:.5f} ms "
+            f"({timing[0]['device_ms_source']}; 90: "
+            f"{timing[90]['device_ms']:.5f}), host {timing[0]['host_ms']:.4f}"
+            f" ms a call, plain {timing[0]['plain_ms']:.4f} ms; bound "
+            f"{bound_ms:.5f} ms ({n_bytes} bytes) [{smi}]")
+
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "rtpose_tpu_torch",
+                                             "build"))
+    argv = sys.argv
+    try:
+        # the fixtures and PCM files on the card == the CPU == cv2, each
+        # route's kernel once a frame; the launches the reader's
+        files = {fx.name: sv.chroma_fixture_path(fx)
+                 for fx in sv.CHROMA_FIXTURES}
+        files.update(format_files(work))
+        read = {}
+        reader_launches = dict.fromkeys(names, 0)
+        for name, path in files.items():
+            got, plain, want = [], [], []
+            kernels.reset_launch_counts()
+            for frames, cap in (
+                    (got, video_io.open_video(path, device=dev)),
+                    (plain, video_io.open_video(path, device="cpu")),
+                    (want, cv2.VideoCapture(path))):
+                while True:
+                    ok, frame = cap.read()
+                    if not ok:
+                        break
+                    frames.append(frame)
+                cap.release()
+            counts = kernels.launch_counts()
+            for k in names:
+                reader_launches[k] += counts[k]
+            read[name] = entry = {
+                "frames": len(got), "cv2_frames": len(want),
+                "card_vs_cpu": max((int(np.abs(a.astype(int) - b).max())
+                                    for a, b in zip(got, plain)), default=-1),
+                "max_pixel_diff_vs_cv2": max(
+                    (int(np.abs(a.astype(int) - b).max())
+                     for a, b in zip(got, want) if a.shape == b.shape),
+                    default=-1),
+                "launches": {k: counts[k] for k in names if counts[k]}}
+            check(len(got) == len(plain) == len(want) > 0
+                  and entry["card_vs_cpu"] == 0
+                  and entry["max_pixel_diff_vs_cv2"] == 0
+                  and sum(entry["launches"].values()) == len(got)
+                  and counts["yuv420_to_bgr"] == counts["yuv420p10_to_bgr"]
+                  == 0, f"chroma formats: {name} on the card: {entry}")
+        numbers["files"] = read
+        log(f"phase 16b: chroma-format files on the card against the CPU "
+            f"and cv2 {cv2.__version__}: {json.dumps(read)} [{smi}]")
+        check(all(reader_launches.values()), f"chroma formats: a kernel "
+              f"no file launched: {reader_launches}")
+
+        # the flagship video demo on a 64-frame 480x640 H.264 High 4:2:2
+        # 10-bit I_PCM MP4: 16 pictures, each shown four times (P-skip
+        # repeats), an IDR every 16 frames
+        h, w = VIDEO_FILE_SHAPE
+        chroma, depth = PLANAR_DEMO_FORMAT
+        pics = sv.scene_frames(range(1700, 1716), h, w, chroma, depth)
+        video = os.path.join(work, "in_422_10bit.mp4")
+        t0 = time.perf_counter()
+        sv.write_ipcm_mp4(video, [p for pic in pics
+                                  for p in (pic, None, None, None)],
+                          key_every=16, depth=depth,
+                          fps_timescale=(12800, 640))
+        write_s = time.perf_counter() - t0
+        out = os.path.join(work, "out.avi")
+        readers = []
+
+        def recording_open(path, device="cuda"):
+            readers.append(video_io.open_video(path, device=device))
+            return readers[-1]
+
+        sys.argv = (["video_demo", "--video", video, "--output", out,
+                     "--batch", "8"] + FRONTEND_FLAGS
+                    + ["--device", str(dev)])
+        video_demo.open_video = recording_open
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            n, video_s = video_demo.main()
+        torch.cuda.synchronize()
+        demo_counts = kernels.launch_counts()
+        video_demo.open_video = video_io.open_video
+        batches = -(-VIDEO_FILE_FRAMES // 8)
+        check(f"processed {VIDEO_FILE_FRAMES} frames" in text.getvalue()
+              and n == VIDEO_FILE_FRAMES and readers[0].codec == "h264",
+              f"chroma formats demo: {text.getvalue()!r}")
+        check(all(demo_counts[k] >= batches for k in SERVING_KERNELS)
+              and demo_counts["yuv_planar_general_to_bgr"]
+              == VIDEO_FILE_FRAMES and demo_counts["gt_maps"] == 0
+              and demo_counts["yuv420_to_bgr"]
+              == demo_counts["yuv420p10_to_bgr"] == 0,
+              f"chroma formats demo: K1, K3 and G not once a batch or the "
+              f"conversion not once a frame: {demo_counts}")
+        reread = video_io.open_video(out)
+        check(reread.frame_count == VIDEO_FILE_FRAMES
+              and reread.size == (w, h), f"chroma formats demo output: "
+              f"{reread.frame_count} frames of {reread.size}")
+        reread.release()
+        split = {k: v * 1e3 / n for k, v in readers[0].seconds.items()}
+        numbers["demo_422_10bit"] = {
+            "frames": n, "seconds": video_s, "frames_per_s": n / video_s,
+            "batch": 8, "input": f"H.264 High 4:2:2 10-bit I_PCM MP4 "
+                                 f"{h}x{w}, 16 pictures shown 4 times",
+            "file_bytes": os.path.getsize(video), "write_s": write_s,
+            "read_ms_a_frame": split,
+            "read_ms_a_frame_total": sum(split.values()),
+            "launches": demo_counts}
+        log(f"phase 16b: the flagship video demo on a {VIDEO_FILE_FRAMES}-"
+            f"frame {h}x{w} H.264 High 4:2:2 10-bit MP4 at --batch 8: "
+            f"{n / video_s:.2f} frames/s; read {sum(split.values()):.3f} ms "
+            f"a frame ({', '.join(f'{k} {v:.3f}' for k, v in split.items())}"
+            f"); launches {demo_counts} [{smi}]")
+    finally:
+        sys.argv = argv
+        video_demo.open_video = video_io.open_video
+        shutil.rmtree(work, ignore_errors=True)
+    for name in names:
+        rows[name].update(
+            launches=demo_counts[name], reader_launches=reader_launches[name],
+            launches_note="the 10-bit 4:2:2 demo's run for "
+                          "yuv_planar_general_to_bgr; the others' path is "
+                          "the reader on the files of their route "
+                          "(reader_launches)")
+        if name != "yuv_planar_general_to_bgr":
+            rows[name]["launches"] = reader_launches[name]
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16b: {numbers['phase_s']:.1f} s [{smi}]")
+    return demo_counts, numbers, [rows[name] for name in names]
 
 
 def main() -> int:
@@ -5221,6 +5560,13 @@ def main() -> int:
     vf_launches, vf_numbers, yuv_row, p10_row, *odd_rows = \
         video_files_phase(dev, smi)
 
+    # 16b. the chroma formats (4:2:2, 4:4:0, 4:4:4, 4:0:0, 12 bits): the
+    # probe's formats part, csrc/yuv_planar_to_bgr.cu == plain at every
+    # route, the fixtures and PCM files against the CPU and cv2, the
+    # flagship video demo on a 64-frame H.264 High 4:2:2 10-bit MP4
+    cf_launches, cf_numbers, planar_rows = chroma_formats_phase(
+        dev, smi, vf_numbers["probe"]["formats"])
+
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
         "connection_scores": ("rtpose_tpu_torch/csrc/connection_scores.cu",
                               "rtpose_tpu/ops/pallas_kernels.py:214",
@@ -5261,6 +5607,7 @@ def main() -> int:
                  workflow_launches=wf_launches[name],
                  webcam_launches=webcam_launches[name],
                  video_file_launches=vf_launches[name],
+                 chroma_demo_launches=cf_launches[name],
                  **results[name], library_ms=None,
                  hourglass_factor4=hourglass[name],
                  **({"also_replaces": also} if also else {}))
@@ -5285,6 +5632,7 @@ def main() -> int:
         workflow_launches=wf_launches["group_people"],
         webcam_launches=webcam_launches["group_people"],
         video_file_launches=vf_launches["group_people"],
+        chroma_demo_launches=cf_launches["group_people"],
         hourglass_factor4={k: hg_rows[f"group_people_K{k}"]
                            for k in (32, 64)},
         **results["group_people"], library_ms=None,
@@ -5297,6 +5645,7 @@ def main() -> int:
     print(json.dumps({"workflows": wf_numbers}), flush=True)
     print(json.dumps({"webcam": webcam_numbers}), flush=True)
     print(json.dumps({"video_files": vf_numbers}), flush=True)
+    print(json.dumps({"chroma_formats": cf_numbers}), flush=True)
     print(json.dumps({"native_loader": native_numbers,
                       "rotated_hourglass": rotated_numbers,
                       "resize_modes": resize_numbers}), flush=True)
@@ -5305,8 +5654,8 @@ def main() -> int:
     yuv_row.update(launches=vf_launches["yuv420_to_bgr"],
                    video_file_launches=vf_launches["yuv420_to_bgr"])
     print(json.dumps({"kernels_beyond_tpu": [group_row]}), flush=True)
-    print(json.dumps({"kernels": rows + [yuv_row, p10_row, *odd_rows]}),
-          flush=True)
+    print(json.dumps({"kernels": rows + [yuv_row, p10_row, *odd_rows,
+                                         *planar_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

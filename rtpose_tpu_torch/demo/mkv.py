@@ -41,8 +41,10 @@ everything else are skipped by their size.
 
 Refused, naming the codec or feature and ROADMAP.md queue 1 item 4: every
 codec but VP9, MPEG-4 Part 2, H.264 and HEVC (``V_AV1``, ``V_VP8``, ...),
-VP9 of profiles 1 and 3 (4:2:2, 4:4:0, 4:4:4; item 4i), HEVC of another
-format than 4:2:0 of 8 or 10 bits (RExt: item 4i), laced video blocks, and compressed or encrypted tracks (``ContentEncodings``).
+HEVC of other than 8, 10 or 12 bits (its ``hvcC``; item 4i), laced video
+blocks, and compressed or encrypted tracks (``ContentEncodings``).  VP9
+of every profile is taken (1 and 3: 4:2:2, 4:4:0, 4:4:4); a frame format
+the reader does not convert is refused by the decoder's first picture.
 """
 
 from __future__ import annotations
@@ -272,15 +274,6 @@ def colour(data: bytes, s: int, e: int) -> StreamColour:
         transfer if transfer in mp4.VALID_TRANSFERS else None)
 
 
-def vp9_profile(frame: bytes) -> int:
-    """The profile in a VP9 frame's uncompressed header (its first byte:
-    frame marker, profile low bit, profile high bit)."""
-    b = frame[0]
-    if b >> 6 != 2:
-        raise ValueError("not a VP9 frame (no frame marker)")
-    return ((b >> 5) & 1) | (((b >> 4) & 1) << 1)
-
-
 class MkvTrack:
     """The first video track of a Matroska / WebM file."""
 
@@ -418,13 +411,6 @@ class _Reader:
         track.timecode_scale = int(self.info.get(TIMECODE_SCALE, 1000000))
         duration = self.info.get(DURATION)
         track.duration = float(duration) if duration is not None else None
-        if track.codec == "vp9" and self.blocks:
-            self.f.seek(self.blocks[0].offset)
-            profile = vp9_profile(self.f.read(1))
-            if profile not in (0, 2):
-                raise self.refuse(f"VP9 profile {profile} video (4:2:2, "
-                                  f"4:4:0 or 4:4:4: only 4:2:0, profiles 0 "
-                                  f"and 2, is read; item 4i)")
         return track
 
     def _segment(self, at: int, end: int) -> None:

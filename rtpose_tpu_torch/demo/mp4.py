@@ -49,10 +49,11 @@ fragmented file ``moov/mvex/trex`` and each ``moof/traf`` (``tfhd``,
 
 Refused, with an error naming the box or codec and ROADMAP.md queue 1
 item 4: an edit of a media rate other than 1 (cv2 plays it at rate 1),
-VP9 of a profile other than 0 and 2 or of 12 bits (``vpcC``), HEVC of
-another format than 4:2:0 of 8 or 10 bits (``hvcC``: RExt 4:2:2, 4:4:4,
-4:0:0, 12-bit; item 4i), and every codec but H.264, HEVC, MPEG-4 Part 2
-and VP9 (AV1, VP8, ...).
+VP9 of a profile and depth VP9 does not pair (``vpcC``), HEVC of other
+than 8, 10 or 12 bits or of another chroma than luma depth (``hvcC``;
+item 4i), and every codec but H.264, HEVC, MPEG-4 Part 2 and VP9 (AV1,
+VP8, ...).  A frame format the reader does not convert is refused by the
+decoder's first picture (``native/avcodec.py``).
 """
 
 from __future__ import annotations
@@ -73,13 +74,15 @@ OTHER_CODECS = {b"dvhe": "Dolby Vision", b"vp08": "VP8",
                 b"apch": "ProRes", b"apcn": "ProRes", b"dvh1": "Dolby Vision",
                 b"s263": "H.263"}
 MPEG4_VISUAL = 0x20    # esds objectTypeIndication of MPEG-4 Part 2
+# (profile, bits) that a VP9 stream pairs: 0 and 1 (4:2:2, 4:4:0, 4:4:4)
+# of 8 bits, 2 and 3 of 10 or 12
+VP9_DEPTHS = frozenset([(0, 8), (1, 8), (2, 10), (2, 12), (3, 10), (3, 12)])
 
 
 def refusal(path: str, what: str) -> ValueError:
     return ValueError(f"{path}: {what}; the video reader takes H.264, HEVC "
-                      f"(Main, Main 10) and MPEG-4 Part 2 in MP4/MOV "
-                      f"(fragmented too), AVI or Matroska, VP9 (profiles 0 "
-                      f"and 2) in WebM, "
+                      f"(8, 10 and 12 bits) and MPEG-4 Part 2 in MP4/MOV "
+                      f"(fragmented too), AVI or Matroska, VP9 in WebM, "
                       f"Matroska or MP4, MPEG-1/2, MPEG-4 Part 2, H.264 and "
                       f"HEVC in MPEG-TS / M2TS and MPEG program streams, "
                       f"and Motion-JPEG AVI (other containers and codecs: "
@@ -220,15 +223,16 @@ def hvcc_config(data: bytes, s: int, e: int) -> HevcConfig:
 
 
 def hevc_refusal(chroma: int, depth: Tuple[int, int]) -> Optional[str]:
-    """What names HEVC of another format than 4:2:0 of 8 or 10 bits (RExt:
-    4:2:2, 4:4:4, 4:0:0, 12-bit; ROADMAP.md queue 1 item 4i), or None for
-    Main and Main 10."""
-    if chroma == 1 and depth in ((8, 8), (10, 10)):
+    """What names HEVC the reader does not convert (ROADMAP.md queue 1 item
+    4i): of other than 8, 10 or 12 bits, or with chroma of another depth
+    than the luma; None for the rest (Main, Main 10, Main 12 and the
+    range extensions' 4:2:2, 4:4:4 and 4:0:0)."""
+    if depth[0] in (8, 10, 12) and (chroma == 0 or depth[1] == depth[0]):
         return None
     bits = f"{depth[0]}" if depth[0] == depth[1] else "%d/%d" % depth
     return (f"HEVC of {bits} bits, {CHROMA_FORMATS.get(chroma, chroma)} "
-            f"(RExt: only 4:2:0 of 8 or 10 bits, Main and Main 10, is "
-            f"read; item 4i)")
+            f"(only 8, 10 and 12 bits, luma and chroma alike, are read; "
+            f"item 4i)")
 
 
 # what libavformat keeps of a colr box's numbers (av_color_*_name): others
@@ -559,10 +563,10 @@ def _sample_table(path: str, data: bytes, s: int, e: int, track: Track
             raise refusal(path, "the vp09 entry has no vpcC box")
         _, at = _full(data, config[b"vpcC"][0])
         profile, depth = data[at], data[at + 2] >> 4
-        if (profile, depth) not in ((0, 8), (2, 10)):
+        if (profile, depth) not in VP9_DEPTHS:
             raise refusal(path, f"VP9 profile {profile} video of {depth} "
-                                f"bits (vpcC: only 4:2:0 of 8 or 10 bits, "
-                                f"profiles 0 and 2, is read; item 4i)")
+                                f"bits (vpcC: profiles 0 and 1 are of 8 "
+                                f"bits, 2 and 3 of 10 or 12; item 4i)")
         track.codec = "vp9"
     else:
         name = OTHER_CODECS.get(kind, "codec")

@@ -57,9 +57,9 @@ stream's frames and what ``cv2.VideoCapture`` reports of it, as
 Refused, naming the stream and ROADMAP.md queue 1 item 4: the other
 video types (VVC, JPEG 2000, ...), a program whose only candidate is a
 private stream (0x06, or 0x80-0xFF), a PMT with no video, a stream with
-no PAT or PMT; HEVC RExt (4:2:2, 4:4:4, 4:0:0, 12-bit) by the
-decoder's first picture (item 4i).  The container states no colour: the
-frame's is the bitstream's (``native/avcodec.py``).
+no PAT or PMT; a frame format the reader does not convert (4:1:1,
+16-bit, RGB) by the decoder's first picture (item 4i).  The container
+states no colour: the frame's is the bitstream's (``native/avcodec.py``).
 """
 
 from __future__ import annotations

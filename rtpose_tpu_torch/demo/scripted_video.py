@@ -53,6 +53,11 @@ from .mp4 import (TFHD_BASE_IS_MOOF, TFHD_BASE_OFFSET, TFHD_DURATION,
 
 PROFILE_BASELINE = 66
 PROFILE_MAIN = 77
+PROFILE_HIGH422, PROFILE_HIGH444 = 122, 244
+# chroma_format_idc (H.264, HEVC) -> the chroma subsampling as log2
+# (horizontal, vertical), as ops.kernels and FFmpeg's pixel formats state
+# it; 0 (4:0:0) has no chroma planes
+CHROMA_SUBSAMPLING = {0: None, 1: (1, 1), 2: (1, 0), 3: (0, 0)}
 PROFILE_HIGH10 = 110
 LOG2_MAX_POC_LSB = 8        # Main-profile streams: pic_order_cnt_type 0
 LEVEL = 40                  # 4.0: 8192 macroblocks a frame, up to 2048x1024
@@ -146,28 +151,61 @@ def _mbs(h: int, w: int) -> Tuple[int, int]:
     return (h + 15) // 16, (w + 15) // 16
 
 
+def chroma_format(planes: Sequence[np.ndarray]) -> int:
+    """``chroma_format_idc`` of a picture's planes (y alone: 4:0:0; else
+    by the chroma planes' shape against the luma's)."""
+    if len(planes) == 1:
+        return 0
+    (h, w), c = planes[0].shape, planes[1].shape
+    for idc, (sx, sy) in ((1, (1, 1)), (2, (1, 0)), (3, (0, 0))):
+        if c == (-(-h >> sy), -(-w >> sx)):
+            return idc
+    raise ValueError(f"chroma planes {c} of a {h}x{w} picture: 4:2:0, "
+                     f"4:2:2 or 4:4:4 are written")
+
+
+def _check_size(h: int, w: int, chroma: int) -> None:
+    """A picture's size against the crop units of `chroma`
+    (``SubWidthC`` x ``SubHeightC``: a 4:2:0 picture is of even height
+    and width, a 4:2:2 one of even width)."""
+    sx, sy = CHROMA_SUBSAMPLING[chroma] or (0, 0)
+    if h <= 0 or w <= 0 or h % (1 << sy) or w % (1 << sx):
+        raise ValueError(f"{['4:0:0', '4:2:0', '4:2:2', '4:4:4'][chroma]} "
+                         f"frames have an even "
+                         f"{'size' if sy else 'width'}, got {h}x{w}")
+
+
 def sps(h: int, w: int, main: bool = False,
         reorder: Optional[int] = 0, colour: Optional[Colour] = None,
-        depth: int = 8) -> bytes:
+        depth: int = 8, chroma: int = 1) -> bytes:
     """The SPS: Baseline, ``pic_order_cnt_type`` 2, one reference; or
     `main`: Main profile, ``pic_order_cnt_type`` 0 (each slice carries its
     ``pic_order_cnt_lsb``), two references, for B pictures; `depth` 10:
-    High 10 (``bit_depth_*_minus8`` 2, 10-bit I_PCM samples).  `reorder`
-    is the VUI's ``max_num_reorder_frames``, `colour` its
-    ``video_signal_type``; with neither, no VUI is written, as many phone
-    encoders do, and the decoder guesses the delay."""
-    if h % 2 or w % 2 or h <= 0 or w <= 0:
-        raise ValueError(f"4:2:0 frames have an even size, got {h}x{w}")
+    High 10 (``bit_depth_*_minus8`` 2, 10-bit I_PCM samples); `chroma`
+    (``chroma_format_idc``) 2: High 4:2:2, 3: High 4:4:4 (the cameras'
+    intra formats), at 8 or 10 bits.  `reorder` is the VUI's
+    ``max_num_reorder_frames``, `colour` its ``video_signal_type``; with
+    neither, no VUI is written, as many phone encoders do, and the
+    decoder guesses the delay."""
+    if chroma not in (1, 2, 3):
+        raise ValueError(f"H.264 of chroma_format_idc {chroma}: 1-3 are "
+                         f"written")
+    _check_size(h, w, chroma)
     if depth not in (8, 10):
         raise ValueError(f"H.264 of {depth} bits: 8 or 10 are written")
     mbh, mbw = _mbs(h, w)
-    profile = (PROFILE_HIGH10 if depth == 10 else
-               PROFILE_MAIN if main else PROFILE_BASELINE)
+    high = depth == 10 or chroma != 1
+    profile = ({2: PROFILE_HIGH422, 3: PROFILE_HIGH444}.get(chroma)
+               or (PROFILE_HIGH10 if depth == 10 else
+                   PROFILE_MAIN if main else PROFILE_BASELINE))
     b = BitWriter().u(8, profile)
-    b.u(8, 0 if depth == 10 else 0x40 if main else 0xC0).u(8, LEVEL)
+    b.u(8, 0 if high else 0x40 if main else 0xC0).u(8, LEVEL)
     b.ue(0)                                   # seq_parameter_set_id
-    if depth == 10:                           # 4:2:0, no scaling matrices
-        b.ue(1).ue(depth - 8).ue(depth - 8).u(1, 0).u(1, 0)
+    if high:                                  # no scaling matrices
+        b.ue(chroma)
+        if chroma == 3:
+            b.u(1, 0)                         # separate_colour_plane_flag
+        b.ue(depth - 8).ue(depth - 8).u(1, 0).u(1, 0)
     b.ue(LOG2_MAX_FRAME_NUM - 4)
     if main:
         b.ue(0).ue(LOG2_MAX_POC_LSB - 4)      # pic_order_cnt_type 0
@@ -177,9 +215,10 @@ def sps(h: int, w: int, main: bool = False,
     b.u(1, 0)                                 # gaps_in_frame_num_allowed
     b.ue(mbw - 1).ue(mbh - 1)
     b.u(1, 1).u(1, 1)                         # frame_mbs_only, direct_8x8
-    crop_x, crop_y = (16 * mbw - w) // 2, (16 * mbh - h) // 2
+    sx, sy = CHROMA_SUBSAMPLING[chroma]       # crop units: SubWidthC, ...
+    crop_x, crop_y = (16 * mbw - w) >> sx, (16 * mbh - h) >> sy
     b.u(1, int(bool(crop_x or crop_y)))
-    if crop_x or crop_y:                      # in 2-sample units (4:2:0)
+    if crop_x or crop_y:
         b.ue(0).ue(crop_x).ue(0).ue(crop_y)
     vui = reorder is not None or colour is not None
     b.u(1, int(vui))                          # vui_parameters_present
@@ -231,20 +270,24 @@ def _header(kind: str, frame_num: int, idr_id: int,
 
 def pcm_macroblocks(y: np.ndarray, *chroma: np.ndarray, depth: int = 8
                     ) -> np.ndarray:
-    """(n_mb, 384 * depth / 8) uint8: each macroblock's 256 luma, 64 Cb
-    and 64 Cr samples in raster order (`depth` bits each, packed MSB
-    first; no chroma planes: the luma alone), the planes padded to whole
-    macroblocks by repeating their last row and column."""
+    """(n_mb, samples * depth / 8) uint8: each 16x16 macroblock's (or
+    coding unit's) 256 luma samples, then its Cb and its Cr samples (8x8
+    each at 4:2:0, 8 wide and 16 high at 4:2:2, 16x16 at 4:4:4), each in
+    raster order (`depth` bits each, packed MSB first; no chroma planes:
+    the luma alone), the planes padded to whole macroblocks by repeating
+    their last row and column."""
     h, w = y.shape
     mbh, mbw = _mbs(h, w)
-    y = np.pad(y, ((0, 16 * mbh - h), (0, 16 * mbw - w)), mode="edge")
-    chroma = [np.pad(c, ((0, 8 * mbh - c.shape[0]),
-                         (0, 8 * mbw - c.shape[1])), mode="edge")
-              for c in chroma]
-    parts = [y.reshape(mbh, 16, mbw, 16).transpose(0, 2, 1, 3).reshape(
-        -1, 256)]
-    parts += [c.reshape(mbh, 8, mbw, 8).transpose(0, 2, 1, 3).reshape(-1, 64)
-              for c in chroma]
+    sx, sy = CHROMA_SUBSAMPLING[chroma_format((y, *chroma))] or (0, 0)
+    bh, bw = 16 >> sy, 16 >> sx
+
+    def blocks(p, bh, bw):
+        p = np.pad(p, ((0, bh * mbh - p.shape[0]), (0, bw * mbw - p.shape[1])),
+                   mode="edge")
+        return p.reshape(mbh, bh, mbw, bw).transpose(0, 2, 1, 3).reshape(
+            -1, bh * bw)
+
+    parts = [blocks(y, 16, 16)] + [blocks(c, bh, bw) for c in chroma]
     return pack_samples(np.concatenate(parts, axis=1), depth)
 
 
@@ -279,15 +322,17 @@ def encode_ipcm(frames: Sequence[Optional[Tuple[np.ndarray, ...]]],
                 depth: int = 8) -> Tuple[bytes, bytes, List[bytes],
                                          List[bool]]:
     """(sps, pps, access units, key flags) of `frames`: each a (y, u, v)
-    tuple of planes ((h, w), (h/2, w/2) twice; uint8, or uint16 of
-    `depth` 10 bits: High 10) or None to repeat the previous picture (a P
-    slice of skips).  The first frame and every `key_every`-th (0: only
-    the first) are IDR pictures; `colour` goes to the SPS's VUI."""
+    tuple of planes ((h, w), (h/2, w/2) twice at 4:2:0; (h, w/2) at
+    4:2:2 (High 4:2:2), (h, w) at 4:4:4 (High 4:4:4); uint8, or uint16 of
+    `depth` 10 bits: High 10 at 4:2:0) or None to repeat the previous
+    picture (a P slice of skips).  The first frame and every
+    `key_every`-th (0: only the first) are IDR pictures; `colour` goes to
+    the SPS's VUI."""
     if frames[0] is None:
         raise ValueError("the first frame has to be a picture")
     h, w = frames[0][0].shape
-    if h % 2 or w % 2:
-        raise ValueError(f"4:2:0 frames have an even size, got {h}x{w}")
+    chroma = chroma_format(frames[0])
+    _check_size(h, w, chroma)
     mbh, mbw = _mbs(h, w)
     n_mb = mbh * mbw
     units, keys = [], []
@@ -301,15 +346,16 @@ def encode_ipcm(frames: Sequence[Optional[Tuple[np.ndarray, ...]]],
             frame_num = 0
         kind = "IDR" if idr else ("P" if planes is None else "I")
         if planes is not None and (planes[0].shape != (h, w) or any(
-                c.shape != (h // 2, w // 2) for c in planes[1:])):
+                c.shape != frames[0][1].shape for c in planes[1:])):
             raise ValueError(f"frame {i}: planes {[c.shape for c in planes]}"
-                             f" are not those of a {h}x{w} 4:2:0 frame")
+                             f" are not those of frame 0")
         units.append(ipcm_slice(kind, frame_num, idr_id, planes, n_mb,
                                 depth=depth))
         keys.append(bool(idr))
         idr_id ^= int(bool(idr))
         frame_num += 1
-    return sps(h, w, colour=colour, depth=depth), pps(), units, keys
+    return (sps(h, w, colour=colour, depth=depth, chroma=chroma), pps(),
+            units, keys)
 
 
 def encode_ipcm_bframes(anchors: Sequence[Tuple[np.ndarray, ...]],
@@ -513,26 +559,28 @@ def hevc_profile(depth: int, chroma: int = 1) -> int:
 
 def hevc_sps(h: int, w: int, reorder: int = 0, depth: int = 8,
              colour: Optional[Colour] = None, chroma: int = 1) -> bytes:
-    """The SPS: `chroma` (``chroma_format_idc``: 1 4:2:0, 0 4:0:0) of
-    `depth` bits (8: Main; 10: Main 10; 12: RExt) with PCM samples of
-    `depth` bits, pictures of whole 16x16 CTBs with a conformance window
-    down to h x w, CTB = minimum CB = PCM size 16, no loop filter on PCM
-    samples, no SAO, AMP, scaling lists or temporal MVP; `reorder` as
-    ``sps_max_num_reorder_pics``; two short-term reference picture sets:
-    0 empty, 1 the picture one POC before; `colour` in a VUI (None: no
-    VUI)."""
-    if h % 2 or w % 2 or h <= 0 or w <= 0:
-        raise ValueError(f"4:2:0 frames have an even size, got {h}x{w}")
+    """The SPS: `chroma` (``chroma_format_idc``: 1 4:2:0, 0 4:0:0, 2
+    4:2:2, 3 4:4:4) of `depth` bits (8: Main; 10: Main 10; 12 and the
+    other chroma formats: RExt) with PCM samples of `depth` bits,
+    pictures of whole 16x16 CTBs with a conformance window down to h x w
+    (in units of the chroma subsampling: odd heights at 4:2:2, odd sizes
+    at 4:4:4 and 4:0:0), CTB = minimum CB = PCM size 16, no loop filter
+    on PCM samples, no SAO, AMP, scaling lists or temporal MVP; `reorder`
+    as ``sps_max_num_reorder_pics``; two short-term reference picture
+    sets: 0 empty, 1 the picture one POC before; `colour` in a VUI (None:
+    no VUI)."""
+    _check_size(h, w, chroma)
     ch, cw = -(-h // HEVC_CTB) * HEVC_CTB, -(-w // HEVC_CTB) * HEVC_CTB
-    if chroma != 1 and (ch != h or cw != w):
-        raise ValueError("4:0:0 pictures here are whole CTBs")
+    sx, sy = CHROMA_SUBSAMPLING[chroma] or (0, 0)
     b = BitWriter().u(4, 0).u(3, 0).u(1, 1)   # vps id, sub layers, nesting
     b.bits += profile_tier_level(hevc_profile(depth, chroma)).bits
     b.ue(0).ue(chroma)                        # sps id, chroma format
+    if chroma == 3:
+        b.u(1, 0)                             # separate_colour_plane_flag
     b.ue(cw).ue(ch)
     b.u(1, int(ch != h or cw != w))           # conformance window
-    if ch != h or cw != w:                    # in 2-sample units (4:2:0)
-        b.ue(0).ue((cw - w) // 2).ue(0).ue((ch - h) // 2)
+    if ch != h or cw != w:                    # in SubWidthC x SubHeightC
+        b.ue(0).ue((cw - w) >> sx).ue(0).ue((ch - h) >> sy)
     b.ue(depth - 8).ue(depth - 8)
     b.ue(HEVC_LOG2_MAX_POC_LSB - 4)
     b.u(1, 1).ue(reorder + 1).ue(reorder).ue(0)   # sub-layer ordering
@@ -649,15 +697,19 @@ def encode_hevc_pcm(frames: Sequence[Optional[Tuple[np.ndarray, ...]]],
     the decoder puts them back by POC.  `depth` 10 writes Main 10 and 12
     a 12-bit RExt stream, their planes uint16 of that many bits (PCM
     samples of `depth` bits); `colour` goes to the SPS's VUI; `chroma` 0
-    writes 4:0:0 (the luma of each frame alone)."""
+    writes 4:0:0 (the luma of each frame alone); 4:2:2 and 4:4:4 frames
+    (their chroma planes (h, w/2) and (h, w)) write RExt 4:2:2 and 4:4:4
+    (``chroma`` is then taken from the planes)."""
     if frames[0] is None:
         raise ValueError("the first frame has to be a picture")
     h, w = frames[0][0].shape
+    if chroma:
+        chroma = chroma_format(frames[0])
     for i, planes in enumerate(frames):
         if planes is not None and (planes[0].shape != (h, w) or any(
-                c.shape != (h // 2, w // 2) for c in planes[1:])):
+                c.shape != frames[0][1].shape for c in planes[1:])):
             raise ValueError(f"frame {i}: planes {[c.shape for c in planes]}"
-                             f" are not those of a {h}x{w} 4:2:0 frame")
+                             f" are not those of frame 0")
     shown: List[Tuple[np.ndarray, ...]] = []
     for planes in frames:
         shown.append(shown[-1] if planes is None else planes)
@@ -1021,24 +1073,31 @@ def mux_fmp4(sps_nal: bytes, pps_nal: bytes, units: Sequence[bytes],
     return b"".join(out)
 
 
-def yuv_frames(n: int, h: int, w: int, seed: int = 0
-               ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+def _plane_shapes(h: int, w: int, chroma) -> List[Tuple[int, int]]:
+    if chroma is None:
+        return [(h, w)]
+    sx, sy = chroma
+    return [(h, w)] + [(-(-h >> sy), -(-w >> sx))] * 2
+
+
+def yuv_frames(n: int, h: int, w: int, seed: int = 0,
+               chroma=(1, 1)) -> List[Tuple[np.ndarray, ...]]:
     """`n` pictures of random 4:2:0 planes from `seed`, each unlike the
-    others (a decoder that shows a stale picture fails an exact check)."""
+    others (a decoder that shows a stale picture fails an exact check);
+    `chroma` another subsampling as log2 (horizontal, vertical), (1, 0)
+    4:2:2, (0, 0) 4:4:4, ..., or None: the luma alone (4:0:0)."""
     rng = np.random.RandomState(seed)
-    c = ((h + 1) // 2, (w + 1) // 2)
     return [tuple(rng.randint(0, 256, s, dtype=np.uint8)
-                  for s in ((h, w), c, c))
+                  for s in _plane_shapes(h, w, chroma))
             for _ in range(n)]
 
 
-def yuv_frames10(n: int, h: int, w: int, seed: int = 0, depth: int = 10
-                 ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+def yuv_frames10(n: int, h: int, w: int, seed: int = 0, depth: int = 10,
+                 chroma=(1, 1)) -> List[Tuple[np.ndarray, ...]]:
     """As :func:`yuv_frames`, planes of `depth`-bit samples (uint16)."""
     rng = np.random.RandomState(seed)
-    c = ((h + 1) // 2, (w + 1) // 2)
     return [tuple(rng.randint(0, 1 << depth, s).astype(np.uint16)
-                  for s in ((h, w), c, c))
+                  for s in _plane_shapes(h, w, chroma))
             for _ in range(n)]
 
 
@@ -1605,14 +1664,12 @@ def write_ipcm_ps(path: str, frames, *, key_every: int = 0,
 # HEVC in MP4, Matroska, MPEG-TS and MPEG program streams
 # ---------------------------------------------------------------------------
 
-def hvcc_record(stream: HevcStream, chroma: Optional[int] = None) -> bytes:
+def hvcc_record(stream: HevcStream) -> bytes:
     """The ``hvcC`` record (ISO 14496-15 8.3.3: an MP4 box's payload,
     Matroska's ``CodecPrivate`` of ``V_MPEGH/ISO/HEVC``): the SPS's
-    profile, tier and level, chroma format (`chroma` in place of the
-    stream's, to state another), the bit depth, 4-byte NAL lengths, and
-    arrays of the VPS, SPS and PPS."""
-    d = stream.depth - 8
-    chroma = stream.chroma if chroma is None else chroma
+    profile, tier and level, chroma format, the bit depth, 4-byte NAL
+    lengths, and arrays of the VPS, SPS and PPS."""
+    d, chroma = stream.depth - 8, stream.chroma
     head = (b"\x01" + profile_tier_level(hevc_profile(stream.depth,
                                                       chroma)).bytes()
             + struct.pack(">HBBBBHBB", 0xF000, 0xFC, 0xFC | chroma,
@@ -1635,14 +1692,12 @@ def hevc_samples(stream: HevcStream, in_band: bool = False) -> List[bytes]:
 
 def write_hevc_mp4(path: str, stream: HevcStream, *, kind: str = "hvc1",
                    fps_timescale: Tuple[int, int] = (12800, 512),
-                   colr: bytes = b"", hvcc_chroma: Optional[int] = None,
-                   **mux) -> None:
+                   colr: bytes = b"", **mux) -> None:
     """Write `stream` as an MP4 of one HEVC track: an ``hvc1`` sample entry
     (parameter sets only in its ``hvcC``) or ``hev1`` (in the samples
     too); a reordered stream gets each sample's composition offset and an
     edit list one frame in, as muxers write them.  `colr` (a
-    :func:`colr_box`) follows the ``hvcC``, whose chroma format
-    `hvcc_chroma` overrides."""
+    :func:`colr_box`) follows the ``hvcC``."""
     if kind not in ("hvc1", "hev1"):
         raise ValueError(f"an HEVC sample entry is hvc1 or hev1, not {kind}")
     timescale, delta = fps_timescale
@@ -1651,7 +1706,7 @@ def write_hevc_mp4(path: str, stream: HevcStream, *, kind: str = "hvc1",
             (d + 1 - i) * delta for i, d in enumerate(stream.order)],
             edit_start=delta, **mux)
     entry = visual_entry(kind.encode(), stream.size,
-                         box(b"hvcC", hvcc_record(stream, hvcc_chroma)), colr)
+                         box(b"hvcC", hvcc_record(stream)), colr)
     with open(path, "wb") as f:
         f.write(mux_mp4(b"", b"", hevc_samples(stream, kind == "hev1"),
                         stream.keys, stream.size, timescale=timescale,
@@ -1811,9 +1866,11 @@ def write_cv2_video(path: str, fourcc: str, n: int, h: int, w: int,
 
 def encode_lavc(encoder: str, frames: Sequence[Tuple[np.ndarray, ...]],
                 colour: Optional[Colour] = None, fps: int = 20,
+                pix_fmt: Optional[str] = None,
                 **options: int) -> List[Tuple[bytes, bool]]:
-    """Packets (bytes, key) of `frames` ((y, u, v) planes: uint8, or
-    uint16 of 10 bits, ``yuv420p10le``) from the OpenCV wheel's
+    """Packets (bytes, key) of `frames` ((y, u, v) planes of the pixel
+    format `pix_fmt`, by default ``yuv420p`` for uint8 and
+    ``yuv420p10le`` for uint16) from the OpenCV wheel's
     libavcodec `encoder` (``libvpx-vp9``, ``mpeg2video``, ...) with the
     integer `options` (its own or the context's); `colour` goes to the
     context (``colorspace``, ``color_range``, primaries, transfer), which
@@ -1827,7 +1884,8 @@ def encode_lavc(encoder: str, frames: Sequence[Tuple[np.ndarray, ...]],
     libs = encoder_libraries()
     av, au = libs.avcodec, libs.avutil
     h, w = frames[0][0].shape
-    fmt = b"yuv420p10le" if frames[0][0].dtype == np.uint16 else b"yuv420p"
+    fmt = (pix_fmt or ("yuv420p10le" if frames[0][0].dtype == np.uint16
+                       else "yuv420p")).encode()
     codec = av.avcodec_find_encoder_by_name(encoder.encode())
     if not codec:
         raise RuntimeError(f"{libs.path} has no {encoder} encoder")
@@ -1875,30 +1933,56 @@ def encode_lavc(encoder: str, frames: Sequence[Tuple[np.ndarray, ...]],
     return out
 
 
+def pixel_format(planes: Sequence[np.ndarray], depth: int = 0) -> str:
+    """FFmpeg's name of the planar format of `planes` (y, u, v or y
+    alone) at `depth` bits (0: 8 for uint8 planes, 10 for uint16)."""
+    depth = depth or (8 if planes[0].dtype == np.uint8 else 10)
+    (h, w), c = planes[0].shape, planes[-1].shape
+    if len(planes) == 3 and c == (-(-h // 2), w):
+        name = "yuv440p"
+    else:
+        name = {0: "gray", 1: "yuv420p", 2: "yuv422p", 3: "yuv444p"}[
+            chroma_format(planes)]
+    return name if depth == 8 else f"{name}{depth}le"
+
+
+def vp9_profile(pix_fmt: str) -> int:
+    """The VP9 profile of a pixel format: 0 8-bit 4:2:0, 1 8-bit 4:2:2,
+    4:4:0, 4:4:4; 2 and 3 the same of 10 or 12 bits."""
+    return (0 if pix_fmt.startswith("yuv420p") else 1) + (
+        2 if pix_fmt.endswith("le") else 0)
+
+
 def encode_vp9(frames: Sequence[Tuple[np.ndarray, ...]],
-               colour: Optional[Colour] = None, lossless: bool = True
-               ) -> List[Tuple[bytes, bool]]:
-    """VP9 of `frames` (uint16 planes: profile 2) from the wheel's
-    ``libvpx-vp9``, lossless by default (the decoder then gives back the
-    planes); `colour` is its frame header's colour space and range."""
+               colour: Optional[Colour] = None, lossless: bool = True,
+               depth: int = 0) -> List[Tuple[bytes, bool]]:
+    """VP9 of `frames` from the wheel's ``libvpx-vp9`` in the profile of
+    their format (:func:`pixel_format` at `depth` bits: uint16 planes of
+    10 bits by default), lossless by default (the decoder then gives back
+    the planes); `colour` is its frame header's colour space and range."""
     return encode_lavc("libvpx-vp9", frames, colour,
+                       pix_fmt=pixel_format(frames[0], depth),
                        lossless=int(lossless), g=1 << 20)
 
 
 def write_vp9(path: str, frames, *, colour: Optional[Colour] = None,
-              container: str = "webm", **mux) -> List[Tuple[bytes, bool]]:
+              container: str = "webm", depth: int = 0,
+              **mux) -> List[Tuple[bytes, bool]]:
     """Write :func:`encode_vp9` of `frames` as WebM (``V_VP9``) or as an
-    MP4 (``vp09`` with its ``vpcC`` of the stream's profile and depth);
-    returns the packets."""
-    packets = encode_vp9(frames, colour)
+    MP4 (``vp09`` with its ``vpcC`` of the stream's profile, depth and
+    chroma subsampling); returns the packets."""
+    packets = encode_vp9(frames, colour, depth=depth)
     h, w = frames[0][0].shape
     with open(path, "wb") as f:
         if container == "mp4":
-            depth = 10 if frames[0][0].dtype == np.uint16 else 8
+            fmt = pixel_format(frames[0], depth)
+            bits = int(fmt[-4:-2]) if fmt.endswith("le") else 8
+            subsampling = {"yuv420p": 1, "yuv422p": 2, "yuv444p": 3,
+                           "yuv440p": 3}[fmt[:7]]
             f.write(mux_mp4(b"", b"", [d for d, _ in packets],
                             [k for _, k in packets], (w, h),
-                            entry=vp09_entry((w, h), 2 if depth == 10 else 0,
-                                             depth), **mux))
+                            entry=vp09_entry((w, h), vp9_profile(fmt), bits,
+                                             subsampling), **mux))
         else:
             f.write(mux_mkv("V_VP9", packets, (w, h), doc_type="webm",
                             **mux))
@@ -1974,17 +2058,33 @@ def odd_size_path(fixture: OddSizeFixture) -> str:
     return os.path.join(os.path.dirname(VP9_WEBM), fixture.name)
 
 
-def scene_planes(seeds: Sequence[int], h: int, w: int):
-    """8-bit 4:2:0 planes of rendered scenes
-    (``data.imread_fixtures.render_scene`` of each seed) at any size:
-    rendered at the even size above, the planes cut to h x w."""
+def scene_frames(seeds: Sequence[int], h: int, w: int, chroma=(1, 1),
+                 depth: int = 8) -> List[Tuple[np.ndarray, ...]]:
+    """Planes of rendered scenes (``data.imread_fixtures.render_scene`` of
+    each seed) of any size, chroma subsampling `chroma` (log2 (horizontal,
+    vertical); None: the luma alone) and `depth` (samples << (depth - 8),
+    uint16 above 8 bits): BT.601 studio range, each chroma sample the
+    mean of the pixels it covers, rendered at the even size above and cut
+    to h x w."""
     from ..data.imread_fixtures import render_scene
-    ch, cw = (h + 1) // 2, (w + 1) // 2
+    H, W = h + h % 2, w + w % 2
     frames = []
     for seed in seeds:
-        y, u, v = bgr_to_yuv420(render_scene(seed, h + h % 2, w + w % 2))
-        frames.append((y[:h, :w].copy(), u[:ch, :cw].copy(),
-                       v[:ch, :cw].copy()))
+        f = render_scene(seed, H, W).astype(np.float64)
+        b, g, r = f[..., 0], f[..., 1], f[..., 2]
+        y = 16 + 0.257 * r + 0.504 * g + 0.098 * b
+        planes = [y[:h, :w]]
+        if chroma is not None:
+            sx, sy = chroma
+            for c in (128 - 0.148 * r - 0.291 * g + 0.439 * b,
+                      128 + 0.439 * r - 0.368 * g - 0.071 * b):
+                c = c.reshape(H >> sy, 1 << sy, W >> sx, 1 << sx).mean(
+                    axis=(1, 3))
+                planes.append(c[:-(-h >> sy), :-(-w >> sx)])
+        frames.append(tuple(
+            (np.clip(np.rint(p * (1 << (depth - 8))), 0, (1 << depth) - 1)
+             .astype(np.uint8 if depth == 8 else np.uint16))
+            for p in planes))
     return frames
 
 
@@ -1993,7 +2093,7 @@ def odd_size_frames(fixture: OddSizeFixture):
     (the decoder gives them back: lossless)."""
     h, w = fixture.height, fixture.width
     if fixture.scene:
-        return scene_planes(range(fixture.frames), h, w)
+        return scene_frames(range(fixture.frames), h, w)
     make = yuv_frames if fixture.depth == 8 else yuv_frames10
     return make(fixture.frames, h, w, seed=h * w)
 
@@ -2009,6 +2109,59 @@ def write_mpeg4_mkv(path: str, frames, fps: float = 20.0) -> None:
                         (w, h), fps=fps))
 
 
+# ---------------------------------------------------------------------------
+# chroma-format fixtures: lossless VP9 of profiles 1-3 (4:2:2, 4:4:0, 4:4:4;
+# 12-bit 4:2:0) of rendered scenes, which the card's machine reads but
+# cannot write (its wheel has no libvpx-vp9 encoder)
+# ---------------------------------------------------------------------------
+
+class ChromaFixture(NamedTuple):
+    name: str                      # the file, beside VP9_WEBM
+    height: int
+    width: int
+    chroma: Tuple[int, int]        # log2 subsampling (horizontal, vertical)
+    depth: int
+    frames: int
+    colour: Optional[Colour] = None
+    siting: Optional[Tuple[int, int]] = None   # Matroska's chroma siting
+
+
+CHROMA_FIXTURES = (
+    ChromaFixture("vp9p1_422_48x64.webm", 48, 64, (1, 0), 8, 3),
+    ChromaFixture("vp9p1_422_47x64.webm", 47, 64, (1, 0), 8, 2,
+                  Colour(1, True), (1, 1)),
+    ChromaFixture("vp9p1_440_33x64.webm", 33, 64, (0, 1), 8, 2,
+                  siting=(2, 2)),
+    ChromaFixture("vp9p1_444_31x47.webm", 31, 47, (0, 0), 8, 2,
+                  Colour(1, False), (1, 2)),
+    ChromaFixture("vp9p3_422_48x63.webm", 48, 63, (1, 0), 10, 2,
+                  siting=(1, 1)),
+    ChromaFixture("vp9p3_440_31x34.webm", 31, 34, (0, 1), 10, 2,
+                  Colour(9, False)),
+    ChromaFixture("vp9p3_444_32x48.webm", 32, 48, (0, 0), 12, 2),
+    ChromaFixture("vp9p2_31x48_12bit.webm", 31, 48, (1, 1), 12, 2,
+                  siting=(2, 1)),
+)
+
+
+def chroma_fixture_path(fixture: ChromaFixture) -> str:
+    return os.path.join(os.path.dirname(VP9_WEBM), fixture.name)
+
+
+def write_chroma_fixtures() -> List[str]:
+    """Write the committed :data:`CHROMA_FIXTURES` (needs the wheel's
+    libvpx-vp9 encoder); returns their paths."""
+    paths = []
+    for fx in CHROMA_FIXTURES:
+        mux = {"chroma_siting": fx.siting} if fx.siting else {}
+        write_vp9(chroma_fixture_path(fx),
+                  scene_frames(range(fx.frames), fx.height, fx.width,
+                               fx.chroma, fx.depth),
+                  colour=fx.colour, depth=fx.depth, **mux)
+        paths.append(chroma_fixture_path(fx))
+    return paths
+
+
 def write_odd_size_fixtures() -> List[str]:
     """Write the committed :data:`ODD_SIZE_FIXTURES` (needs the wheel's
     libvpx-vp9 encoder); returns their paths."""
@@ -2022,8 +2175,9 @@ def write_odd_size_fixtures() -> List[str]:
 
 
 if __name__ == "__main__":
-    # remake the committed VP9 WebM (needs cv2 with libvpx) and the
-    # odd-size fixtures (the wheel's libvpx-vp9)
+    # remake the committed VP9 WebM (needs cv2 with libvpx), the odd-size
+    # and the chroma-format fixtures (the wheel's libvpx-vp9)
     write_cv2_video(VP9_WEBM, "VP90", VP9_WEBM_FRAMES, 48, 64, VP9_WEBM_FPS)
-    for path in [VP9_WEBM, *write_odd_size_fixtures()]:
+    for path in [VP9_WEBM, *write_odd_size_fixtures(),
+                 *write_chroma_fixtures()]:
         print(path, os.path.getsize(path))

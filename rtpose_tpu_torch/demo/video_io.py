@@ -12,11 +12,14 @@ of its users' files, frame for frame as cv2 gives them:
   cv2's wheels write) in AVI (``XVID``, ``DIVX``, ``DX50``, ``FMP4``,
   ``MP4V``, ``H264``, ``AVC1``, ``X264`` chunks), in MP4 / MOV
   (``demo/mp4.py``; fragmented files, and edit lists of several entries)
-  or in Matroska (``demo/mkv.py``), H.264 High 10 too; VP9 (profiles 0
-  and 2: 8- and 10-bit 4:2:0) in WebM, Matroska or MP4 (``vp09``):
-  browser ``MediaRecorder``, OBS and most downloaded web video;
-- HEVC (Main and Main 10: 4:2:0 of 8 or 10 bits) in MP4 / MOV
-  (``hvc1``, ``hev1``: what phones record), Matroska and MPEG-TS;
+  or in Matroska (``demo/mkv.py``), H.264 High 10, High 4:2:2 and High
+  4:4:4 too (camera intra formats); VP9 (profiles 0-3: 4:2:0, 4:2:2,
+  4:4:0 and 4:4:4 of 8, 10 and 12 bits) in WebM, Matroska or MP4
+  (``vp09``): browser ``MediaRecorder``, OBS, screen recorders and most
+  downloaded web video;
+- HEVC (Main, Main 10 and the range extensions: 4:2:0, 4:2:2, 4:4:4 and
+  4:0:0 of 8, 10 or 12 bits) in MP4 / MOV (``hvc1``, ``hev1``: what
+  phones and cameras record), Matroska and MPEG-TS;
 - MPEG-1 / MPEG-2 video, MPEG-4 Part 2, H.264 and HEVC in MPEG transport
   streams, ``.ts`` and M2TS / AVCHD ``.mts`` (``demo/mpegts.py``, its
   frames split by libavcodec's parsers): IP and surveillance cameras,
@@ -27,11 +30,15 @@ of its users' files, frame for frame as cv2 gives them:
   cv2's order.  The packets are decoded on the host by FFmpeg's libavcodec
   from the OpenCV wheel (``native/avcodec.py``), the planes converted to
   BGR and turned on the card by the kernel of the path cv2's swscale takes
-  at the frame's depth and size (``ops.kernels.yuv420_frame_to_bgr``:
-  ``yuv420_to_bgr`` for 8-bit frames of an even height,
-  ``yuv420_general_to_bgr`` for those of an odd one, ``yuv420p10_to_bgr``
-  for 10-bit ones, ``yuv420_full_chroma_to_bgr`` at an odd width where
-  swscale takes its full-chroma output: cv2's arithmetic to the bit).
+  at the frame's chroma format, depth and size
+  (``ops.kernels.yuv420_frame_to_bgr``: for 4:2:0 ``yuv420_to_bgr`` at
+  8 bits and an even height, ``yuv420_general_to_bgr`` at an odd one,
+  ``yuv420p10_to_bgr`` at 10 bits, ``yuv420_full_chroma_to_bgr`` at an
+  odd width where swscale takes its full-chroma output; for 8-bit 4:2:2
+  of an even height ``yuv422_to_bgr``, for the other chroma formats and
+  12 bits ``yuv_planar_general_to_bgr`` and
+  ``yuv_planar_full_chroma_to_bgr``, for 4:0:0 ``gray_to_bgr``: cv2's
+  arithmetic to the bit).
   ``device="cpu"`` converts with the kernels' plain versions, for tests;
   without a card, and without the library, opening such a file raises.
 
@@ -41,13 +48,15 @@ the bitstream (H.264 / HEVC VUI, MPEG-2's sequence display extension,
 VP9's frame header, ...) and, where that is silent, keeps from the
 container (an MP4 ``colr`` box, Matroska's ``Colour``; HEVC's decoder
 resets them when its VUI states none); where swscale filters the chroma
-(10-bit frames, odd sizes) it is placed by the frame's chroma location.
+(deeper frames, odd sizes, chroma formats but 4:2:0 and 4:2:2 at 8
+bits) it is placed by the frame's chroma location along each
+subsampled axis; gray is full range, as cv2 5.0 takes it.
 Frames under 9 rows or 8 columns that swscale scales are refused
 (item 4i (a)).
 
 Everything else is refused with an error that names the container or
-codec and ROADMAP.md queue 1 item 4: AV1, VP9 of profiles 1 and 3,
-HEVC RExt, 4:2:2, 4:4:4, 4:0:0 and 12-bit video (item 4i), colour cv2
+codec and ROADMAP.md queue 1 item 4: AV1, 4:1:1, 16-bit and RGB
+(``gbrp``) video (item 4i), colour cv2
 5.0 does not convert by swscale's matrix alone (other primaries than
 BT.601 / BT.709 / 240M, PQ and HLG transfers, matrices without a
 swscale table: item 4i), laced Matroska blocks, edits of another media
@@ -370,11 +379,13 @@ class DecodedVideo:
             rule, location = conversion(colour)
         except ValueError as e:
             raise ValueError(f"{self.path}: {e}") from None
-        planes = [torch.from_numpy(p).to(self.device) for p in planes]
+        planes = [None if p is None else torch.from_numpy(p).to(self.device)
+                  for p in planes]
         try:
             frame = yuv420_frame_to_bgr(*planes, depth=colour.depth,
                                         width=width, rotation=self.rotation,
-                                        rule=rule, chroma_location=location)
+                                        rule=rule, chroma_location=location,
+                                        chroma=colour.chroma)
         except ValueError as e:
             raise ValueError(f"{self.path}: {e}") from None
         frame = frame.cpu().numpy()
@@ -410,6 +421,8 @@ def conversion(colour) -> Tuple[object, int]:
         raise ValueError(f"a video stream of transfer characteristics "
                          f"{colour.transfer} (cv2 5.0 converts its tone: "
                          f"PQ, HLG; ROADMAP.md queue 1 item 4i)")
+    if colour.chroma is None:      # gray: no matrix, and full range
+        return yuv_rule(2, True), colour.chroma_location
     return yuv_rule(colour.matrix, colour.full), colour.chroma_location
 
 

@@ -42,12 +42,14 @@ reorder delay gives its B pictures as cv2 does.  MPEG-1, MPEG-2 and HEVC
 streams need no probe: MPEG-1/2 decoders reorder their B pictures from
 the first, whatever came before, and an HEVC SPS always states its
 reorder delay (``sps_max_num_reorder_pics``), which the decoder follows.
-4:2:0 frames of 8 bits (``yuv420p``, full-range ``yuvj420p``) and of 10
-bits (``yuv420p10le``: HEVC Main 10, H.264 High 10, VP9 profile 2) are
-taken; 4:2:2, 4:4:4, 4:0:0 (gray) and 12-bit frames are refused by name
-(ROADMAP.md item 4i), as is any other format.  Nothing is loaded at
-import; without the library the first decoder or parser raises, naming
-where it looked.
+Planar frames of 8, 10 and 12 bits are taken (:data:`READ_FORMATS`):
+4:2:0 (``yuv420p``, full-range ``yuvj420p``; HEVC Main 10, H.264 High
+10, VP9 profile 2; HEVC Main 12), 4:2:2 (H.264 High 4:2:2, HEVC RExt, VP9
+profiles 1 and 3, MPEG-2 4:2:2), 4:4:0 and 4:4:4 (VP9 profiles 1 and 3,
+HEVC RExt, H.264 High 4:4:4) and 4:0:0 (``gray``: monochrome HEVC).
+4:1:1, 16-bit, RGB (``gbrp``: matrix 0, ROADMAP.md item 4i (c)) and any
+other format are refused by name.  Nothing is loaded at import; without
+the library the first decoder or parser raises, naming where it looked.
 """
 
 from __future__ import annotations
@@ -68,9 +70,18 @@ CODECS = ("h264", "hevc", "mpeg4", "vp9", "mpeg1video", "mpeg2video")
 PARSERS = {"mpeg1video": "mpegvideo", "mpeg2video": "mpegvideo",
            "mpeg4": "mpeg4video", "h264": "h264", "hevc": "hevc"}
 AV_PIX_FMT_YUV420P = 0
-# the frames taken, by pixel format name: (bits a sample, full range)
-READ_FORMATS = {"yuv420p": (8, False), "yuvj420p": (8, True),
-                "yuv420p10le": (10, False)}
+# the frames taken, by pixel format name: (bits a sample, full range, the
+# chroma subsampling as log2 (horizontal, vertical); None: gray, no chroma)
+READ_FORMATS = {
+    **{f"yuv{name}p{bits}": (depth, False, chroma)
+       for name, chroma in (("420", (1, 1)), ("422", (1, 0)),
+                            ("440", (0, 1)), ("444", (0, 0)))
+       for depth, bits in ((8, ""), (10, "10le"), (12, "12le"))},
+    **{f"yuvj{name}p": (8, True, chroma)
+       for name, chroma in (("420", (1, 1)), ("422", (1, 0)),
+                            ("440", (0, 1)), ("444", (0, 0)))},
+    "gray": (8, False, None), "gray10le": (10, False, None),
+    "gray12le": (12, False, None)}
 AVCOL_RANGE_MPEG, AVCOL_RANGE_JPEG = 1, 2
 AV_PKT_FLAG_KEY = 1
 AVERROR_EAGAIN = -11
@@ -148,28 +159,33 @@ class StreamColour(NamedTuple):
 class FrameColour(NamedTuple):
     """The colour of a decoded frame as the decoder settled it: the
     matrix (``AVColorSpace``, H.273's numbers: 2 unspecified), full range
-    (``color_range`` JPEG, or a ``yuvj420p`` frame), the chroma location
+    (``color_range`` JPEG, or a ``yuvj*`` frame), the chroma location
     (``AVChromaLocation``, 0 unspecified), the bits a sample, the
-    primaries and the transfer (H.273's numbers)."""
+    primaries and the transfer (H.273's numbers), and the chroma
+    subsampling as log2 (horizontal, vertical): (1, 1) 4:2:0, (1, 0)
+    4:2:2, (0, 1) 4:4:0, (0, 0) 4:4:4, None 4:0:0."""
     matrix: int
     full: bool
     chroma_location: int
     depth: int
     primaries: int = 2
     transfer: int = 2
+    chroma: Optional[Tuple[int, int]] = (1, 1)
 
 
 def _refused_format(name: str) -> str:
     """What a frame of pixel format `name` is, for the refusal."""
-    if name.startswith("gray"):
-        return f"4:0:0 ({name})"
-    for tag, what in (("yuv422", "4:2:2"), ("yuvj422", "4:2:2"),
-                      ("yuv444", "4:4:4"), ("yuvj444", "4:4:4"),
-                      ("yuv440", "4:4:0"), ("yuv411", "4:1:1")):
+    if name.startswith("gbr"):
+        return (f"RGB ({name}: colour matrix 0, GBR; ROADMAP.md queue 1 "
+                f"item 4i (c))")
+    what = {"gray": "4:0:0", "yuv411": "4:1:1", "yuvj411": "4:1:1",
+            "yuv410": "4:1:0", "yuv420": "4:2:0", "yuv422": "4:2:2",
+            "yuv440": "4:4:0", "yuv444": "4:4:4"}
+    for tag, chroma in what.items():
         if name.startswith(tag):
-            return f"{what} ({name})"
-    if name.startswith("yuv420p") and name[7:9].isdigit():
-        return f"{name[7:9]}-bit 4:2:0 ({name})"
+            bits = name[len(tag):].lstrip("p").rstrip("lebe")
+            return (f"{bits}-bit {chroma} ({name})" if bits.isdigit()
+                    else f"{chroma} ({name})")
     return name
 
 
@@ -238,12 +254,13 @@ class Decoder:
     completes; :meth:`flush` yields the frames still held at the end of
     the stream.  A frame is ``(y, u, v, width)``: numpy views of the
     decoder's planes, ``(h, pitch)`` and ``((h+1)//2, pitch)`` uint8
-    (uint16 for 10-bit frames: the linesize in bytes halved), valid until
-    the next frame is taken (the decoder then reuses its buffers), and
-    the picture's width (a linesize is padded past it); ``colour`` is
-    then that frame's :class:`FrameColour`.  Frames come out in display
-    order.  `colour` is the container's :class:`StreamColour`, which the
-    decoder starts from."""
+    (uint16 for 10- and 12-bit frames: the linesize in bytes halved; the
+    chroma rows as the format subsamples them, u and v None for gray),
+    valid until the next frame is taken (the decoder then reuses its
+    buffers), and the picture's width (a linesize is padded past it);
+    ``colour`` is then that frame's :class:`FrameColour`.  Frames come out
+    in display order.  `colour` is the container's :class:`StreamColour`,
+    which the decoder starts from."""
 
     def __init__(self, codec: str, colour: Optional[StreamColour] = None):
         if codec not in CODECS:
@@ -331,24 +348,28 @@ class Decoder:
             name = self._libs.avutil.av_get_pix_fmt_name(f.format)
             name = name.decode() if name else f"pixel format {f.format}"
             raise ValueError(f"{self.codec} frames in "
-                             f"{_refused_format(name)}: only 4:2:0 of 8 "
-                             f"or 10 bits (yuv420p, yuvj420p, yuv420p10le) "
-                             f"is read (ROADMAP.md queue 1 item 4i)")
-        depth, full = taken
+                             f"{_refused_format(name)}: only planar 4:2:0, "
+                             f"4:2:2, 4:4:0, 4:4:4 and 4:0:0 of 8, 10 or 12 "
+                             f"bits are read (ROADMAP.md queue 1 item 4i)")
+        depth, full, chroma = taken
         self.colour = FrameColour(
             self._option("colorspace"),
             full or self._option("color_range") == AVCOL_RANGE_JPEG,
             self._option("chroma_sample_location"), depth,
-            self._option("color_primaries"), self._option("color_trc"))
-        h, ch = f.height, (f.height + 1) // 2
+            self._option("color_primaries"), self._option("color_trc"),
+            chroma)
+        h = f.height
+        rows = [h] if chroma is None else [h, *[-(-h >> chroma[1])] * 2]
         item = np.uint16 if depth > 8 else np.uint8
         size = np.dtype(item).itemsize
         planes = []
-        for i, rows in ((0, h), (1, ch), (2, ch)):
+        for i, n in enumerate(rows):
             pitch = f.linesize[i]
-            buf = (ctypes.c_uint8 * (rows * pitch)).from_address(f.data[i])
+            buf = (ctypes.c_uint8 * (n * pitch)).from_address(f.data[i])
             planes.append(np.ctypeslib.as_array(buf).view(item).reshape(
-                rows, pitch // size))
+                n, pitch // size))
+        if chroma is None:
+            planes += [None, None]
         return (*planes, f.width)
 
     def probe(self, packets: Iterator[Tuple[bytes, bool]]) -> None:

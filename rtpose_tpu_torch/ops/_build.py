@@ -53,6 +53,15 @@ _SIGNATURES = {
     "rtpose_yuv420_full_chroma_to_bgr": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                          _P, _P, _I, _P, _P, _I, "rule", _P,
                                          _P),
+    "rtpose_yuv422_to_bgr": (_P, _P, _P, _I, _I, _I, _I, _I, "rule", _P,
+                             _P),
+    "rtpose_yuv_planar_general_to_bgr": (_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                         _P, _P, _I, _P, _P, _I, "rule", _P,
+                                         _P),
+    "rtpose_yuv_planar_full_chroma_to_bgr": (_P, _P, _P, _I, _I, _I, _I, _I,
+                                             _I, _P, _P, _I, _P, _P, _I,
+                                             "rule", _P, _P),
+    "rtpose_gray_to_bgr": (_P, _I, _I, _I, _I, _I, _P, _P),
 }
 
 

@@ -30,9 +30,14 @@ Three kernels carry the decode and one the training step's ground truth
   same source at 8 bits) for 8-bit frames of an odd height, and
   :func:`yuv420_full_chroma_to_bgr`
   (``csrc/yuv420_full_chroma_to_bgr.cu``) for frames of an odd width
-  (swscale's full-chroma output); :func:`yuv420_frame_to_bgr` picks the
-  one swscale's path at the frame's depth and size calls for
-  (:func:`yuv420_route`).
+  (swscale's full-chroma output); ``csrc/yuv_planar_to_bgr.cu`` the
+  other chroma formats and 12-bit 4:2:0: :func:`yuv422_to_bgr` (8-bit
+  4:2:2 of an even height, unscaled), :func:`yuv_planar_general_to_bgr`
+  and :func:`yuv_planar_full_chroma_to_bgr` (4:2:2, 4:4:0, 4:4:4 and
+  12-bit 4:2:0 on swscale's scaling path) and :func:`gray_to_bgr`
+  (4:0:0); :func:`yuv420_frame_to_bgr` picks the one swscale's path at
+  the frame's chroma format, depth and size calls for
+  (:func:`frame_route`).
 
 A wrapper given CPU tensors runs the plain PyTorch version beside it; given
 CUDA tensors it launches the kernel or raises.  There is no fallback from
@@ -1092,28 +1097,54 @@ def _turn(bgr: torch.Tensor, rotation: int) -> torch.Tensor:
     return torch.rot90(bgr, turns, dims=(0, 1)).contiguous()
 
 
-def _check_planes(name: str, y, u, v, width: int, rotation: int) -> int:
+# chroma formats by their log2 subsampling (horizontal, vertical), as
+# FFmpeg's pixel formats state them (log2_chroma_w, log2_chroma_h); 4:0:0
+# (gray) has no chroma planes: None
+CHROMA_420, CHROMA_422, CHROMA_440, CHROMA_444 = (1, 1), (1, 0), (0, 1), (0, 0)
+CHROMA_NAMES = {CHROMA_420: "4:2:0", CHROMA_422: "4:2:2",
+                CHROMA_440: "4:4:0", CHROMA_444: "4:4:4", None: "4:0:0"}
+
+
+def chroma_shape(chroma, height: int, width: int) -> Tuple[int, int]:
+    """(rows, columns) of a chroma plane of a height x width picture."""
+    sx, sy = chroma
+    return -(-height >> sy), -(-width >> sx)
+
+
+def _check_planes(name: str, y, u, v, width: int, rotation: int,
+                  chroma=CHROMA_420) -> int:
     if rotation not in ROTATIONS:
         raise ValueError(f"rotation {rotation} is not one of {ROTATIONS}")
     h = y.shape[0] if y.dim() == 2 else -1
-    if (y.dim() != 2 or u.shape != v.shape or u.dim() != 2
-            or u.shape[0] != (h + 1) // 2 or width > y.shape[1]
-            or (width + 1) // 2 > u.shape[1] or width <= 0 or h <= 0):
-        raise ValueError(f"{name}: planes {tuple(y.shape)}, "
-                         f"{tuple(u.shape)}, {tuple(v.shape)} do not hold "
-                         f"a {h}x{width} 4:2:0 picture")
+    bad = y.dim() != 2 or width > y.shape[1] or width <= 0 or h <= 0
+    if chroma is None:
+        bad = bad or u is not None or v is not None
+    else:
+        rows, cols = chroma_shape(chroma, h, width)
+        bad = (bad or u is None or v is None or u.shape != v.shape
+               or u.dim() != 2 or u.shape[0] != rows or cols > u.shape[1])
+    if bad:
+        shapes = ", ".join(str(None if t is None else tuple(t.shape))
+                           for t in (y, u, v))
+        raise ValueError(f"{name}: planes {shapes} do not hold a "
+                         f"{h}x{width} {CHROMA_NAMES.get(chroma)} picture")
     return h
 
 
 def yuv420_to_bgr_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                         *, width: int, rotation: int = 0,
-                        rule: YuvRule = BT601_LIMITED) -> torch.Tensor:
-    """The plain version of :func:`yuv420_to_bgr` (int32 arithmetic)."""
+                        rule: YuvRule = BT601_LIMITED,
+                        chroma=CHROMA_420) -> torch.Tensor:
+    """The plain version of :func:`yuv420_to_bgr` (int32 arithmetic), and
+    with `chroma` :data:`CHROMA_422` of :func:`yuv422_to_bgr` (each luma
+    row its own chroma row)."""
     h = y.shape[0]
+    rows = 2 if chroma == CHROMA_420 else 1
 
-    def full(c):       # each chroma sample over its 2x2 block
+    def full(c):       # each chroma sample over its 2x2 (2x1) block
         c = c[:, :(width + 1) // 2].to(torch.int32)
-        return c.repeat_interleave(2, 0).repeat_interleave(2, 1)[:h, :width]
+        return c.repeat_interleave(rows, 0).repeat_interleave(2, 1)[
+            :h, :width]
 
     luma = ((8 * y[:, :width].to(torch.int32) - rule.y_offset)
             * rule.luma) >> 16
@@ -1164,40 +1195,55 @@ CHROMA_LOCATIONS = {0: "unspecified", 1: "left", 2: "center",
                     3: "top left", 4: "top", 5: "bottom left", 6: "bottom"}
 SWS_BICUBIC_C = int(0.6 * (1 << 24))   # swscale's default bicubic C (B 0)
 GENERAL_MIN_WIDTH, GENERAL_MIN_HEIGHT = 8, 9
-DEPTHS = (8, 10)
+DEPTHS = (8, 10, 12)
 
 
-def yuv420_route(depth: int, height: int, width: int) -> str:
-    """The path swscale (cv2's conversion of a decoded frame) takes from
-    a `depth`-bit height x width 4:2:0 picture to bgr24:
+def frame_route(chroma, depth: int, height: int, width: int) -> str:
+    """The path swscale (cv2 5.0's conversion of a decoded frame, its
+    swscale graph's one legacy pass) takes from a `depth`-bit height x
+    width picture of the chroma format `chroma` (a key of
+    :data:`CHROMA_NAMES`) to bgr24:
 
-    - ``"unscaled"``: 8-bit at even heights (``ff_get_unscaled_swscale``
-      takes yuv420p to RGB unscaled only at an even output height), odd
-      widths too: :func:`yuv420_to_bgr`;
+    - ``"unscaled"``: 8-bit 4:2:0 and 4:2:2 at even heights
+      (``ff_get_unscaled_swscale``'s yuv2rgb, which takes yuv420p and
+      yuv422p at an even output height), odd widths too:
+      :func:`yuv420_to_bgr`, :func:`yuv422_to_bgr`;
     - ``"general"``: the scaling path at SWS_BICUBIC, chroma shared by
-      each pixel pair: 8-bit at odd heights and 10-bit, at even widths:
-      :func:`yuv420_general_to_bgr`, :func:`yuv420p10_to_bgr`;
+      each pixel pair, at even widths: 4:2:0 and 4:2:2 of an odd height
+      or of more than 8 bits, 4:4:0 (its chroma filtered down to the
+      pairs): :func:`yuv420_general_to_bgr`, :func:`yuv420p10_to_bgr`,
+      :func:`yuv_planar_general_to_bgr`;
     - ``"full_chroma"``: the scaling path with full internal horizontal
-      chroma (swscale forces SWS_FULL_CHR_H_INT at an odd RGB width): odd
-      widths at 10-bit, and at 8-bit where the height is odd too:
-      :func:`yuv420_full_chroma_to_bgr`.
+      chroma, which swscale forces at an odd RGB width and for chroma it
+      does not subsample (4:4:4): :func:`yuv420_full_chroma_to_bgr`,
+      :func:`yuv_planar_full_chroma_to_bgr`;
+    - ``"gray"``: 4:0:0, luma alone (:func:`gray_to_bgr`).
 
     Raises ValueError for another depth, and names a picture under
     GENERAL_MIN_HEIGHT rows or GENERAL_MIN_WIDTH columns on a scaling
     route (swscale's two-tap vertical path and narrow filters there)."""
-    if depth not in DEPTHS:
-        raise ValueError(f"a {depth}-bit 4:2:0 picture: 8- and 10-bit are "
-                         f"converted (ROADMAP.md queue 1 item 4i)")
-    if depth == 8 and height % 2 == 0:
+    if depth not in DEPTHS or chroma not in CHROMA_NAMES:
+        raise ValueError(f"a {depth}-bit {CHROMA_NAMES.get(chroma, chroma)}"
+                         f" picture: 4:2:0, 4:2:2, 4:4:0, 4:4:4 and 4:0:0 "
+                         f"of 8, 10 and 12 bits are converted (ROADMAP.md "
+                         f"queue 1 item 4i)")
+    if depth == 8 and chroma in (CHROMA_420, CHROMA_422) and height % 2 == 0:
         return "unscaled"
-    route = "full_chroma" if width % 2 else "general"
+    if chroma is None and depth == 8:
+        return "gray"              # palToRgb: a copy, at any size
+    _check_scaled_size(height, width, depth)
+    return ("gray" if chroma is None else
+            "full_chroma" if width % 2 or chroma == CHROMA_444 else
+            "general")
+
+
+def _check_scaled_size(height: int, width: int, depth: int) -> None:
     if width < GENERAL_MIN_WIDTH or height < GENERAL_MIN_HEIGHT:
         raise ValueError(f"a {height}x{width} {depth}-bit picture: swscale's "
                          f"scaling path is converted at heights of at least "
                          f"{GENERAL_MIN_HEIGHT} and widths of at least "
                          f"{GENERAL_MIN_WIDTH} (ROADMAP.md queue 1 item 4i "
                          f"(a))")
-    return route
 
 
 def _chroma_pos(location: int) -> Tuple[int, int]:
@@ -1235,16 +1281,17 @@ def _bicubic(d: int) -> int:
 def sws_filter(x_inc: int, src: int, dst: int, align: int, one: int,
                src_pos: int, dst_pos: int) -> Tuple[np.ndarray, np.ndarray]:
     """swscale's initFilter for SWS_BICUBIC with no user filter on x86
-    (`align` 4 horizontally, 2 vertically), at the same size or scaling
-    up: (first source index of each output, (dst,) int32; the taps,
+    (`align` 4 horizontally, 2 vertically), scaling up, down or keeping
+    the size: (first source index of each output, (dst,) int32; the taps,
     (dst, size) int32 summing to `one`)."""
-    fone = 1 << 54
-    if x_inc > 1 << 16:
-        raise ValueError("sws_filter scales up or keeps the size")
+    down = x_inc > 1 << 16
+    # fone: 2^54 over the scale's power of two (av_log2(src / dst))
+    fone = 1 << (54 - min(max((src // dst).bit_length() - 1, 0), 8))
     if abs(x_inc - 0x10000) < 10 and src_pos == dst_pos:
         return (np.arange(dst, dtype=np.int32),
                 np.full((dst, 1), one, np.int32))
-    size = max(min(5, src - 2), 1)
+    size = 1 + (4 * src + dst - 1) // dst if down else 5
+    size = max(min(size, src - 2), 1)
     filt = [[0] * size for _ in range(dst)]
     pos = [0] * dst
     x = ((dst_pos * x_inc) >> 7) - ((src_pos * 0x10000) >> 7)
@@ -1252,7 +1299,10 @@ def sws_filter(x_inc: int, src: int, dst: int, align: int, one: int,
         xx = _c_div(x - (size - 2) * (1 << 16), 1 << 17)
         pos[i] = xx
         for j in range(size):
-            filt[i][j] = _bicubic(abs((xx + j) * (1 << 17) - x) << 13)
+            d = abs((xx + j) * (1 << 17) - x) << 13
+            if down:                      # the kernel widened by the scale
+                d = d * dst // src
+            filt[i][j] = _c_div(_bicubic(d), (1 << 54) // fone)
         x += 2 * x_inc
     # reduce: near-zero taps off the left (keeping the positions
     # monotonic), the size the widest output needs
@@ -1308,34 +1358,40 @@ def sws_filter(x_inc: int, src: int, dst: int, align: int, one: int,
 
 
 def general_filters(height: int, width: int, location: int,
-                    full_chroma: bool = False):
+                    full_chroma: bool = False, chroma=CHROMA_420):
     """The chroma filters of swscale's general path from a height x width
-    4:2:0 picture to bgr24 (SWS_BICUBIC, the source chroma at `location`):
-    (horizontal first sample (n,), taps (n, hs); vertical first row
-    (height,), taps (height, vs)), int32; 14-bit horizontal, 12-bit
-    vertical taps.  The horizontal filter keeps the width // 2 chroma
-    columns (n = width // 2, the width even); with `full_chroma` it scales
-    the (width + 1) // 2 columns up to n = width."""
-    yuv420_route(10, height, width)     # refuses sizes under 9 x 8
+    picture of the chroma format `chroma` to bgr24 (SWS_BICUBIC, the
+    source chroma at `location`): (horizontal first sample (n,), taps
+    (n, hs); vertical first row (height,), taps (height, vs)), int32;
+    14-bit horizontal, 12-bit vertical taps.  The horizontal filter takes
+    the chroma columns to the width // 2 pixel pairs (n = width // 2, the
+    width even: kept at 4:2:0 and 4:2:2, halved at 4:4:0); with
+    `full_chroma` to n = width columns (scaled up at 4:2:0 and 4:2:2,
+    kept at 4:4:0 and 4:4:4).  The vertical filter takes the chroma rows
+    to the height (one tap where they are not subsampled).
+
+    The chroma location sets the source position along each subsampled
+    axis only, as FFmpeg 8's swscale graph hands it to its legacy pass
+    (along an axis of full chroma: swscale's default, -513)."""
+    _check_scaled_size(height, width, 10)
     if width % 2 and not full_chroma:
         raise ValueError(f"a {height}x{width} picture: an odd width takes "
                          f"swscale's full-chroma output")
     if location not in CHROMA_LOCATIONS:
         raise ValueError(f"chroma location {location} is not one of "
                          f"{sorted(CHROMA_LOCATIONS)}")
-    cw, ch = (width + 1) // 2, (height + 1) // 2
+    sx, sy = chroma
+    ch, cw = chroma_shape(chroma, height, width)
     x, y = _chroma_pos(location)
-    if full_chroma:                           # chrXInc, to the luma grid
-        hpos, htaps = sws_filter(((cw << 16) + (width >> 1)) // width, cw,
-                                 width, 4, 1 << 14, _local_pos(1, x),
-                                 _local_pos(0, -513))
-    else:
-        hpos, htaps = sws_filter(1 << 16, cw, cw, 4, 1 << 14,
-                                 _local_pos(1, x), _local_pos(1, -513))
+    n = width if full_chroma else width // 2
+    hpos, htaps = sws_filter(((cw << 16) + (n >> 1)) // n, cw, n, 4, 1 << 14,
+                             _local_pos(sx, x if sx else -513),
+                             _local_pos(0 if full_chroma else 1, -513))
     v_inc = ((ch << 16) + (height >> 1)) // height
     vpos, vtaps = sws_filter(v_inc, ch, height, 2, 1 << 12,
-                             _local_pos(1, y), _local_pos(0, -513))
-    if vtaps.shape[1] <= 2:
+                             _local_pos(sy, y if sy else -513),
+                             _local_pos(0, -513))
+    if vtaps.shape[1] == 2:
         raise ValueError(f"a {height}x{width} picture: swscale's two-tap "
                          f"path (ROADMAP.md queue 1 item 4i (a))")
     return hpos, htaps, vpos, vtaps
@@ -1384,29 +1440,39 @@ def _y15(y: torch.Tensor, width: int, depth: int) -> torch.Tensor:
 def general_to_bgr_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                          *, width: int, depth: int, rotation: int = 0,
                          rule: YuvRule = BT601_LIMITED,
-                         chroma_location: int = 1) -> torch.Tensor:
-    """The plain version of :func:`yuv420_general_to_bgr` (8-bit) and
-    :func:`yuv420p10_to_bgr` (10-bit) (int64 arithmetic): swscale's
-    general path at an even width as cv2 5.0's frames show it.
+                         chroma_location: int = 1,
+                         chroma=CHROMA_420) -> torch.Tensor:
+    """The plain version of :func:`yuv420_general_to_bgr` (8-bit),
+    :func:`yuv420p10_to_bgr` (10-bit) and :func:`yuv_planar_general_to_bgr`
+    (the other chroma formats, 12-bit 4:2:0) (int64 arithmetic):
+    swscale's general path at an even width as cv2 5.0's frames show it.
 
     - luma: the 15-bit intermediate Y15 = Y << (15 - depth), no filter;
     - chroma: the horizontal filter (14-bit taps, ``>> (depth - 1)``, at
       most 32767), then the vertical one (12-bit taps) to every output
-      row;
+      row (:func:`general_filters`);
     - output: rows above the last two through the MMX ``yuv2bgr24_X``
       (each tap's product's high half, ``+ 4``; then the 16-bit
       coefficients as in the unscaled path, on Y15 >> 4, that is 8 Y at
-      8 bits and 2 Y at 10, and the chroma less 1024), the last two rows
+      8 bits, 2 Y at 10 and Y / 2 at 12, and the chroma less 1024), or,
+      where the vertical chroma filter has one tap (chroma not
+      subsampled vertically: 4:2:2), through the MMX ``yuv2bgr24_1``
+      (the same on C15 >> 4 and Y15 >> 4, no ``+ 4``); the last two rows
       through the C tables (``(1 << 18) + sum >> 19`` to 8-bit indices,
-      luma ``((Y15 << 12) + (1 << 18)) >> 19``); chroma shared by each
-      pixel pair."""
+      luma ``((Y15 << 12) + (1 << 18)) >> 19``; ``yuv2rgb_1_c`` at one
+      tap gives the same); chroma shared by each pixel pair."""
     h = y.shape[0]
-    cw = width // 2
+    cw = chroma_shape(chroma, h, width)[1]
     tu, tv, taps = _filtered_chroma(u[:, :cw], v[:, :cw], depth,
                                     general_filters(h, width,
-                                                    chroma_location))
-    simd_u = 4 + ((tu * taps) >> 16).sum(1) - 1024
-    simd_v = 4 + ((tv * taps) >> 16).sum(1) - 1024
+                                                    chroma_location,
+                                                    chroma=chroma))
+    one_tap = taps.shape[1] == 1
+    if one_tap:                    # yuv2bgr24_1
+        simd_u, simd_v = (tu[:, 0] >> 4) - 1024, (tv[:, 0] >> 4) - 1024
+    else:                          # yuv2bgr24_X
+        simd_u = 4 + ((tu * taps) >> 16).sum(1) - 1024
+        simd_v = 4 + ((tv * taps) >> 16).sum(1) - 1024
     c_u = ((1 << 18) + (tu * taps).sum(1)) >> 19
     c_v = ((1 << 18) + (tv * taps).sum(1)) >> 19
 
@@ -1414,7 +1480,8 @@ def general_to_bgr_plain(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         return c.repeat_interleave(2, 1)[:, :width]
 
     y15 = _y15(y, width, depth)
-    luma = ((4 + (y15 >> 4) - rule.y_offset) * rule.luma) >> 16
+    luma = (((0 if one_tap else 4) + (y15 >> 4) - rule.y_offset)
+            * rule.luma) >> 16
     su, sv = pairs(simd_u), pairs(simd_v)
     bgr = torch.stack([luma + ((su * rule.ub) >> 16),
                        luma + ((su * rule.ug) >> 16) + ((sv * rule.vg) >> 16),
@@ -1445,15 +1512,20 @@ def full_chroma_to_bgr_plain(y: torch.Tensor, u: torch.Tensor,
                              v: torch.Tensor, *, width: int, depth: int,
                              rotation: int = 0,
                              rule: YuvRule = BT601_LIMITED,
-                             chroma_location: int = 1) -> torch.Tensor:
-    """The plain version of :func:`yuv420_full_chroma_to_bgr` (int64
-    arithmetic): swscale's general path with full internal horizontal
-    chroma (an odd width) as cv2 5.0's frames show it.
+                             chroma_location: int = 1,
+                             chroma=CHROMA_420) -> torch.Tensor:
+    """The plain version of :func:`yuv420_full_chroma_to_bgr` and of
+    :func:`yuv_planar_full_chroma_to_bgr` (int64 arithmetic): swscale's
+    general path with full internal horizontal chroma (an odd width, or
+    4:4:4) as cv2 5.0's frames show it.
 
     - luma: Y15 = Y << (15 - depth), no filter;
-    - chroma: the horizontal filter scales the (width + 1) // 2 columns up
-      to `width` (14-bit taps at swscale's chrXInc, ``>> (depth - 1)``, at
-      most 32767), then the vertical filter (12-bit taps) to every row;
+    - chroma: the horizontal filter takes the chroma columns to `width`
+      (4:2:0, 4:2:2: scaled up from (width + 1) // 2; 14-bit taps at
+      swscale's chrXInc, ``>> (depth - 1)``, at most 32767), then the
+      vertical filter (12-bit taps) to every row
+      (:func:`general_filters`); one tap each way at 4:4:4, where
+      ``yuv2rgb_full_1_c`` gives what the sums below give;
     - output: yuv2rgb_full_X_c's ``yuv2rgb_write_full`` at every pixel and
       row: Y = ((1 << 9) + 4096 Y15) >> 10 (its one-tap vertical filter),
       U = ((1 << 9) - (128 << 19) + sum_t C15 vtap) >> 10, V the same;
@@ -1461,11 +1533,12 @@ def full_chroma_to_bgr_plain(y: torch.Tensor, u: torch.Tensor,
       G = Y' + V vg + U ug, B = Y' + U ub in 32-bit unsigned arithmetic,
       read back as int, each clipped to [0, 2^30) and ``>> 22``."""
     h = y.shape[0]
-    cw = (width + 1) // 2
+    cw = chroma_shape(chroma, h, width)[1]
     tu, tv, taps = _filtered_chroma(u[:, :cw], v[:, :cw], depth,
                                     general_filters(h, width,
                                                     chroma_location,
-                                                    full_chroma=True))
+                                                    full_chroma=True,
+                                                    chroma=chroma))
     cu = ((1 << 9) - (128 << 19) + (tu * taps).sum(1)) >> 10
     cv = ((1 << 9) - (128 << 19) + (tv * taps).sum(1)) >> 10
     luma = (((((1 << 9) + (_y15(y, width, depth) << 12)) >> 10)
@@ -1477,28 +1550,44 @@ def full_chroma_to_bgr_plain(y: torch.Tensor, u: torch.Tensor,
     return _turn(bgr.to(torch.uint8), rotation)
 
 
-_GENERAL_TABLES = {}   # (device, h, w, location, full) -> the filters there
+def gray_to_bgr_plain(y: torch.Tensor, *, width: int, depth: int,
+                      rotation: int = 0) -> torch.Tensor:
+    """The plain version of :func:`gray_to_bgr` (int64 arithmetic): a
+    4:0:0 picture as cv2 5.0's frames show it.  Its swscale graph takes
+    gray as full range whatever the stream states; 8-bit gray goes
+    through swscale's palette copy (B = G = R = Y), deeper gray through
+    the full-chroma output with neutral chroma (swscale fills the chroma
+    rows of a gray source with 1 << 14), where yuv2rgb_write_full's sums
+    at full range come to min((Y15 + 64) >> 7, 255) with Y15 = Y << (15
+    - depth): Y itself at 8 bits."""
+    g = ((_y15(y, width, depth) + 64) >> 7).clamp(max=255).to(torch.uint8)
+    return _turn(g[..., None].expand(-1, -1, 3), rotation)
+
+
+_GENERAL_TABLES = {}   # (device, h, w, location, full, chroma) -> filters
 
 
 def _tables_on(device: torch.device, h: int, width: int, location: int,
-               full_chroma: bool):
-    key = (str(device), h, width, location, full_chroma)
+               full_chroma: bool, chroma=CHROMA_420):
+    key = (str(device), h, width, location, full_chroma, chroma)
     if key not in _GENERAL_TABLES:
         _GENERAL_TABLES[key] = tuple(
             torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in general_filters(h, width, location, full_chroma))
+            for a in general_filters(h, width, location, full_chroma,
+                                     chroma))
     return _GENERAL_TABLES[key]
 
 
 def _launch_general(entry: str, y, u, v, dtype: torch.dtype, *extra,
                     width: int, rotation: int, rule: YuvRule,
-                    chroma_location: int, full_chroma: bool) -> torch.Tensor:
+                    chroma_location: int, full_chroma: bool,
+                    chroma=CHROMA_420) -> torch.Tensor:
     """Launch a general-path kernel on its planes and its filters."""
     h, dev = y.shape[0], y.device
     for name, t in (("y", y), ("u", u), ("v", v)):
         _check(name, t, dtype, 2, dev)
     hpos, htaps, vpos, vtaps = _tables_on(dev, h, width, chroma_location,
-                                          full_chroma)
+                                          full_chroma, chroma)
     quarter = rotation in (90, 270)
     out = torch.empty((width, h, 3) if quarter else (h, width, 3),
                       dtype=torch.uint8, device=dev)
@@ -1593,7 +1682,10 @@ def yuv420_full_chroma_to_bgr(y: torch.Tensor, u: torch.Tensor,
     at least 9); u, v: ((H + 1) // 2, chroma pitch) of the same type.  All
     contiguous and on one device."""
     h = _check_planes("yuv420_full_chroma_to_bgr", y, u, v, width, rotation)
-    yuv420_route(depth, h, width)
+    frame_route(CHROMA_420, depth, h, width)
+    if depth not in (8, 10):
+        raise ValueError(f"yuv420_full_chroma_to_bgr: {depth}-bit frames "
+                         f"take yuv_planar_full_chroma_to_bgr")
     if _route(y) == "cpu":
         return full_chroma_to_bgr_plain(y, u, v, width=width, depth=depth,
                                         rotation=rotation, rule=rule,
@@ -1609,19 +1701,163 @@ def yuv420_full_chroma_to_bgr(y: torch.Tensor, u: torch.Tensor,
 yuv420_full_chroma_to_bgr.launches = 0
 
 
-def yuv420_frame_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                        *, depth: int, width: int, rotation: int = 0,
-                        rule: YuvRule = BT601_LIMITED,
-                        chroma_location: int = 1) -> torch.Tensor:
-    """A decoded 4:2:0 frame's planes to BGR as cv2 converts it: the
-    kernel of the path swscale takes at its depth and size
-    (:func:`yuv420_route`)."""
-    route = yuv420_route(depth, y.shape[0], width)
+# ---------------------------------------------------------------------------
+# the other chroma formats (4:2:2, 4:4:0, 4:4:4, 4:0:0) and 12-bit 4:2:0:
+# csrc/yuv_planar_to_bgr.cu
+# ---------------------------------------------------------------------------
+
+def _sample_type(depth: int) -> torch.dtype:
+    return torch.uint8 if depth == 8 else torch.uint16
+
+
+def yuv422_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
+                  width: int, rotation: int = 0,
+                  rule: YuvRule = BT601_LIMITED) -> torch.Tensor:
+    """An 8-bit 4:2:2 picture of an even height to ``(H', W', 3)`` uint8
+    BGR turned clockwise by `rotation`, exactly as cv2's frames of it:
+    swscale's unscaled yuv422p -> bgr24, :func:`yuv420_to_bgr`'s rule with
+    each luma row its own chroma row.
+
+    y: (H, pitch) uint8, the picture in its first `width` columns; u, v:
+    (H, chroma pitch) uint8, the chroma in their first (width + 1) // 2
+    columns.  All contiguous and on one device."""
+    h = _check_planes("yuv422_to_bgr", y, u, v, width, rotation, CHROMA_422)
+    if _route(y) == "cpu":
+        return yuv420_to_bgr_plain(y, u, v, width=width, rotation=rotation,
+                                   rule=rule, chroma=CHROMA_422)
+    dev = y.device
+    for name, t in (("y", y), ("u", u), ("v", v)):
+        _check(name, t, torch.uint8, 2, dev)
+    quarter = rotation in (90, 270)
+    out = torch.empty((width, h, 3) if quarter else (h, width, 3),
+                      dtype=torch.uint8, device=dev)
+    _launch("rtpose_yuv422_to_bgr", dev, y.data_ptr(), u.data_ptr(),
+            v.data_ptr(), y.shape[1], u.shape[1], h, width, rotation,
+            _rule_arg(rule), out.data_ptr())
+    yuv422_to_bgr.launches += 1
+    return out
+
+
+yuv422_to_bgr.launches = 0
+
+
+def yuv_planar_general_to_bgr(y: torch.Tensor, u: torch.Tensor,
+                              v: torch.Tensor, *, width: int, depth: int,
+                              chroma, rotation: int = 0,
+                              rule: YuvRule = BT601_LIMITED,
+                              chroma_location: int = 1) -> torch.Tensor:
+    """A picture of the chroma format `chroma` (4:2:2, 4:4:0, or 4:2:0 of
+    12 bits) at an even width to ``(H', W', 3)`` uint8 BGR turned
+    clockwise by `rotation`, exactly as cv2 5.0's frames of it: swscale's
+    general path, chroma shared by each pixel pair
+    (:func:`general_to_bgr_plain`: at 4:2:2 its one-tap output).
+
+    y: (H, pitch) uint8 (`depth` 8) or uint16 of `depth` bits (10, 12),
+    the picture in its first `width` columns (even, at least 8; H at least
+    9); u, v: the chroma planes (:func:`chroma_shape` rows and at least as
+    many columns) of the same type.  All contiguous and on one device."""
+    name = "yuv_planar_general_to_bgr"
+    h = _check_planes(name, y, u, v, width, rotation, chroma)
+    if width % 2:
+        raise ValueError(f"{name}: a {h}x{width} picture: an odd width "
+                         f"takes swscale's full-chroma output "
+                         f"(yuv_planar_full_chroma_to_bgr)")
+    frame_route(chroma, depth, h, width)
+    if _route(y) == "cpu":
+        return general_to_bgr_plain(y, u, v, width=width, depth=depth,
+                                    rotation=rotation, rule=rule,
+                                    chroma_location=chroma_location,
+                                    chroma=chroma)
+    out = _launch_general("rtpose_yuv_planar_general_to_bgr", y, u, v,
+                          _sample_type(depth), depth, width=width,
+                          rotation=rotation, rule=rule,
+                          chroma_location=chroma_location, full_chroma=False,
+                          chroma=chroma)
+    yuv_planar_general_to_bgr.launches += 1
+    return out
+
+
+yuv_planar_general_to_bgr.launches = 0
+
+
+def yuv_planar_full_chroma_to_bgr(y: torch.Tensor, u: torch.Tensor,
+                                  v: torch.Tensor, *, width: int, depth: int,
+                                  chroma, rotation: int = 0,
+                                  rule: YuvRule = BT601_LIMITED,
+                                  chroma_location: int = 1) -> torch.Tensor:
+    """A picture of the chroma format `chroma` (4:4:4 at any width; 4:2:2,
+    4:4:0 and 12-bit 4:2:0 at odd widths) to ``(H', W', 3)`` uint8 BGR
+    turned clockwise by `rotation`, exactly as cv2 5.0's frames of it:
+    swscale's general path with full internal horizontal chroma
+    (:func:`full_chroma_to_bgr_plain`).  Planes as for
+    :func:`yuv_planar_general_to_bgr`, the width any (at least 8)."""
+    h = _check_planes("yuv_planar_full_chroma_to_bgr", y, u, v, width,
+                      rotation, chroma)
+    frame_route(chroma, depth, h, width)
+    if _route(y) == "cpu":
+        return full_chroma_to_bgr_plain(y, u, v, width=width, depth=depth,
+                                        rotation=rotation, rule=rule,
+                                        chroma_location=chroma_location,
+                                        chroma=chroma)
+    out = _launch_general("rtpose_yuv_planar_full_chroma_to_bgr", y, u, v,
+                          _sample_type(depth), depth, width=width,
+                          rotation=rotation, rule=rule,
+                          chroma_location=chroma_location, full_chroma=True,
+                          chroma=chroma)
+    yuv_planar_full_chroma_to_bgr.launches += 1
+    return out
+
+
+yuv_planar_full_chroma_to_bgr.launches = 0
+
+
+def gray_to_bgr(y: torch.Tensor, *, width: int, depth: int,
+                rotation: int = 0) -> torch.Tensor:
+    """A 4:0:0 (gray) picture to ``(H', W', 3)`` uint8 BGR turned
+    clockwise by `rotation`, exactly as cv2 5.0's frames of it
+    (:func:`gray_to_bgr_plain`: full range whatever the stream states).
+
+    y: (H, pitch) uint8 (`depth` 8) or uint16 of `depth` bits (10, 12),
+    the picture in its first `width` columns; contiguous."""
+    h = _check_planes("gray_to_bgr", y, None, None, width, rotation, None)
+    frame_route(None, depth, h, width)
+    if _route(y) == "cpu":
+        return gray_to_bgr_plain(y, width=width, depth=depth,
+                                 rotation=rotation)
+    dev = y.device
+    _check("y", y, _sample_type(depth), 2, dev)
+    quarter = rotation in (90, 270)
+    out = torch.empty((width, h, 3) if quarter else (h, width, 3),
+                      dtype=torch.uint8, device=dev)
+    _launch("rtpose_gray_to_bgr", dev, y.data_ptr(), y.shape[1], h, width,
+            depth, rotation, out.data_ptr())
+    gray_to_bgr.launches += 1
+    return out
+
+
+gray_to_bgr.launches = 0
+
+
+def yuv420_frame_to_bgr(y: torch.Tensor, u, v, *, depth: int, width: int,
+                        rotation: int = 0, rule: YuvRule = BT601_LIMITED,
+                        chroma_location: int = 1,
+                        chroma=CHROMA_420) -> torch.Tensor:
+    """A decoded frame's planes to BGR as cv2 converts it, for every
+    chroma format (`chroma`: a key of :data:`CHROMA_NAMES`; u and v None
+    for 4:0:0) and depth: the kernel of the path swscale takes at its
+    format, depth and size (:func:`frame_route`)."""
+    route = frame_route(chroma, depth, y.shape[0], width)
+    if route == "gray":
+        return gray_to_bgr(y, width=width, depth=depth, rotation=rotation)
     if route == "unscaled":
-        return yuv420_to_bgr(y, u, v, width=width, rotation=rotation,
-                             rule=rule)
+        convert = yuv420_to_bgr if chroma == CHROMA_420 else yuv422_to_bgr
+        return convert(y, u, v, width=width, rotation=rotation, rule=rule)
     kw = dict(width=width, rotation=rotation, rule=rule,
               chroma_location=chroma_location)
+    if chroma != CHROMA_420 or depth == 12:
+        convert = (yuv_planar_full_chroma_to_bgr if route == "full_chroma"
+                   else yuv_planar_general_to_bgr)
+        return convert(y, u, v, depth=depth, chroma=chroma, **kw)
     if route == "full_chroma":
         return yuv420_full_chroma_to_bgr(y, u, v, depth=depth, **kw)
     if depth == 8:
@@ -1631,7 +1867,9 @@ def yuv420_frame_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 _COUNTED = (connection_scores, bicubic_refine, gt_maps, group_people,
             yuv420_to_bgr, yuv420p10_to_bgr, yuv420_general_to_bgr,
-            yuv420_full_chroma_to_bgr)
+            yuv420_full_chroma_to_bgr, yuv422_to_bgr,
+            yuv_planar_general_to_bgr, yuv_planar_full_chroma_to_bgr,
+            gray_to_bgr)
 
 
 def reset_launch_counts() -> None:

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Time the port's video-colour kernels (``yuv420_to_bgr``,
 ``yuv420p10_to_bgr``, ``yuv420_general_to_bgr``,
-``yuv420_full_chroma_to_bgr``) on one CUDA card, at the sizes users'
-video has, for one checkout of the repository, so that two checkouts can
-be compared in turns within one run (parent, change, change, parent):
+``yuv420_full_chroma_to_bgr``; ``yuv422_to_bgr``,
+``yuv_planar_general_to_bgr``, ``yuv_planar_full_chroma_to_bgr`` and
+``gray_to_bgr`` of the other chroma formats) on one CUDA card, at the
+sizes users' video has, for one checkout of the repository, so that two
+checkouts can be compared in turns within one run (parent, change,
+change, parent):
 
     for t in PARENT CHANGE CHANGE PARENT; do
         python3 scripts/torch_colour_kernel_times.py --root $t --label $t
@@ -13,9 +16,11 @@ Imports the package of ``--root`` and builds that checkout's kernels.
 For each kernel and size (``ROUTES``: the unscaled 8-bit one at 480x640
 and 1080x1920; the 10-bit one also at 2160x3840; the 8-bit general one
 at 479x640 and 1079x1920; the full-chroma one at 479x639 and 1079x1919,
-8-bit, and 480x639, 1080x1919 and 2160x3839, 10-bit; a checkout without
-a kernel skips it) and turn (0 and 90), on random planes made from a
-seed (chroma left, BT.709 limited at 8 bits, BT.2020 limited at 10): the
+8-bit, and 480x639, 1080x1919 and 2160x3839, 10-bit; 8-bit 4:2:2 at
+480x640 and 1080x1920; 10-bit 4:2:2 at 480x640, 1080x1920 and
+2160x3840; 8-bit 4:4:4 and gray at 1080x1920; a checkout without a
+kernel skips it) and turn (0 and 90), on random planes made from a seed
+(chroma left, BT.709 limited at 8 bits, BT.2020 limited above): the
 largest difference from the plain version on the card (it must be 0),
 and the device ms a launch from ``torch.profiler`` over 200 launches,
 warm (back to back on the same planes, which stay
@@ -38,14 +43,22 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM
 L2_FLUSH_BYTES = 256 << 20    # written before a cold launch: 5x the L2
-# kernel: ((depth, (height, width)), ...), each size one of its route
+# kernel: ((depth, (height, width)[, chroma]), ...), each size one of its
+# route; the chroma subsampling as ops.kernels states it (default 4:2:0)
 ROUTES = {"yuv420_to_bgr": ((8, (480, 640)), (8, (1080, 1920))),
           "yuv420p10_to_bgr": ((10, (480, 640)), (10, (1080, 1920)),
                                (10, (2160, 3840))),
           "yuv420_general_to_bgr": ((8, (479, 640)), (8, (1079, 1920))),
           "yuv420_full_chroma_to_bgr": ((8, (479, 639)), (8, (1079, 1919)),
                                         (10, (480, 639)), (10, (1080, 1919)),
-                                        (10, (2160, 3839)))}
+                                        (10, (2160, 3839))),
+          "yuv422_to_bgr": ((8, (480, 640), (1, 0)),
+                            (8, (1080, 1920), (1, 0))),
+          "yuv_planar_general_to_bgr": ((10, (480, 640), (1, 0)),
+                                        (10, (1080, 1920), (1, 0)),
+                                        (10, (2160, 3840), (1, 0))),
+          "yuv_planar_full_chroma_to_bgr": ((8, (1080, 1920), (0, 0)),),
+          "gray_to_bgr": ((8, (1080, 1920), None),)}
 
 
 def device_ms(fn, kernel: str, iters: int) -> float:
@@ -76,12 +89,29 @@ def device_ms(fn, kernel: str, iters: int) -> float:
     raise RuntimeError(f"the profiler saw no launch of {kernel}")
 
 
-def _calls(kernels, name: str, depth: int):
+def _calls(kernels, name: str, depth: int, chroma=(1, 1)):
     """(the wrapper, its plain version) of the kernel `name`, each called
     as f(*planes, width=, rotation=, rule=) (chroma left by default)."""
     kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain",
                                                     None)
-    if name == "yuv420_general_to_bgr":
+    planar = {"yuv_planar_general_to_bgr": kernels.general_to_bgr_plain,
+              "yuv_planar_full_chroma_to_bgr":
+                  kernels.full_chroma_to_bgr_plain}
+    if name == "yuv422_to_bgr":
+        plain = functools.partial(kernels.yuv420_to_bgr_plain,
+                                  chroma=chroma)
+    elif name in planar:
+        kernel = functools.partial(kernel, depth=depth, chroma=chroma)
+        plain = functools.partial(planar[name], depth=depth, chroma=chroma)
+    elif name == "gray_to_bgr":
+        def kernel(y, **kw):
+            kw.pop("rule")
+            return kernels.gray_to_bgr(y, depth=depth, **kw)
+
+        def plain(y, **kw):
+            kw.pop("rule")
+            return kernels.gray_to_bgr_plain(y, depth=depth, **kw)
+    elif name == "yuv420_general_to_bgr":
         plain = functools.partial(kernels.general_to_bgr_plain, depth=8)
     elif name == "yuv420_full_chroma_to_bgr":
         kernel = functools.partial(kernel, depth=depth)
@@ -101,19 +131,23 @@ def colour_kernel_times(dev, routes=ROUTES) -> dict:
     for name, sizes in routes.items():
         if not hasattr(kernels, name):
             continue
-        for depth, (h, w) in sizes:
+        for depth, (h, w), *chroma in sizes:
+            chroma = chroma[0] if chroma else (1, 1)
             matrix = 1 if depth == 8 else 9
             rule = kernels.yuv_rule(matrix, False)
-            convert, plain = _calls(kernels, name, depth)
-            top, dtype = (256, np.uint8) if depth == 8 else (1024, np.uint16)
+            convert, plain = _calls(kernels, name, depth, chroma)
+            dtype = np.uint8 if depth == 8 else np.uint16
             rng = np.random.RandomState(h + depth)
-            ch, cw = (h + 1) // 2, (w + 1) // 2
-            planes = [torch.from_numpy(rng.randint(0, top, s).astype(dtype))
-                      .to(dev) for s in ((h, w), (ch, cw), (ch, cw))]
+            shapes = [(h, w)] if chroma is None else [
+                (h, w), *[(-(-h >> chroma[1]), -(-w >> chroma[0]))] * 2]
+            planes = [torch.from_numpy(rng.randint(0, 1 << depth, s)
+                                       .astype(dtype)).to(dev)
+                      for s in shapes]
             n_bytes = sum(p.numel() * p.element_size() for p in planes) \
                 + 3 * h * w
             bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-            entry = {"depth": depth, "bytes": n_bytes, "bound_ms": bound_ms,
+            entry = {"depth": depth, "chroma": chroma, "bytes": n_bytes,
+                     "bound_ms": bound_ms,
                      "bound_by": "bytes",
                      "rule": f"matrix {matrix} limited, chroma left"}
             for rot in (0, 90):

@@ -34,12 +34,19 @@
   ``sws_scale`` with cv2's settings: SWS_BICUBIC to bgr24, the chroma
   location, the matrix and range) on random planes at odd heights and
   widths, 8- and 10-bit, against the port's plain rule of the path
-  ``ops.kernels.yuv420_route`` picks (``rules``: the largest difference
+  ``ops.kernels.frame_route`` picks (``rules``: the largest difference
   at each size over three (chroma location, matrix, range): unspecified
   BT.601 limited, left BT.709 full, top left BT.2020 limited);
   and, where the machine has cv2, its frames of the committed odd-size
   fixtures (``demo/scripted_video.py`` ``ODD_SIZE_FIXTURES``) against
   the port's CPU read (``fixtures``).
+- Chroma formats (ROADMAP.md item 4i (d), ``formats``): the machine's
+  libswscale against the port's rules on 4:2:0, 4:2:2, 4:4:0, 4:4:4 and
+  4:0:0 planes at 8, 10 and 12 bits, every parity of height and width
+  and 9x8 (``rules``: the route and the largest difference), and, where
+  the machine has cv2, its frames of the committed chroma-format VP9
+  fixtures and of PCM HEVC RExt / H.264 High 4:2:2 files against the
+  port's CPU read (``fixtures``, ``files``).
 - AV1 (ROADMAP.md item 4f): every AV1 decoder the wheel's libavcodec
   registers (``av_codec_iterate``), what each makes of a scripted AV1
   still (``demo/scripted_video.py`` ``av1_still``: a temporal delimiter,
@@ -421,18 +428,37 @@ def probe_colour() -> dict:
     return out
 
 
-def swscale_bgr24(y, u, v, matrix: int, full: bool, location: int):
-    """The machine's libswscale on 4:2:0 planes (``yuv420p`` for uint8,
-    ``yuv420p10le`` for uint16) as cv2 sets it up: SWS_BICUBIC to bgr24
-    at the same size, the source chroma at `location` (an
-    ``AVChromaLocation``), the frame's matrix and range.  -> (H, W, 3)
-    uint8."""
+PIXEL_FORMATS = {(1, 1): "yuv420p", (1, 0): "yuv422p", (0, 1): "yuv440p",
+                 (0, 0): "yuv444p", None: "gray"}
+
+
+def pixel_format(chroma, depth: int) -> str:
+    """FFmpeg's name of the planar format of `chroma` (``ops.kernels``'
+    log2 subsampling, None for gray) at `depth` bits."""
+    name = PIXEL_FORMATS[chroma]
+    return name if depth == 8 else f"{name}{depth}le"
+
+
+def swscale_bgr24(y, u, v, matrix: int, full: bool, location: int,
+                  depth=None):
+    """The machine's libswscale on planar planes as cv2 5.0 sets it up
+    (its swscale graph's one legacy pass): SWS_BICUBIC to bgr24 at the
+    same size, the source chroma at `location` (an ``AVChromaLocation``)
+    along each subsampled axis (swscale's default, -513, along the
+    others), the frame's matrix and range.  The format follows from the
+    planes: their chroma subsampling (u and v None: gray) and `depth`
+    (default 8 for uint8 planes, 10 for uint16).  -> (H, W, 3) uint8."""
     import numpy as np
 
     sys.path.insert(0, ROOT)
     from rtpose_tpu_torch.native.avencode import encoder_libraries
     from rtpose_tpu_torch.ops import kernels
-    fmt = b"yuv420p" if y.dtype == np.uint8 else b"yuv420p10le"
+    h, w = y.shape
+    chroma = None if u is None else next(
+        c for c in PIXEL_FORMATS if c is not None
+        and kernels.chroma_shape(c, h, w) == u.shape)
+    depth = depth or (8 if y.dtype == np.uint8 else 10)
+    fmt = pixel_format(chroma, depth).encode()
     libs = encoder_libraries()
     sws, au = libs.swscale, libs.avutil
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -443,14 +469,15 @@ def swscale_bgr24(y, u, v, matrix: int, full: bool, location: int):
     sws.sws_setColorspaceDetails.argtypes = [P, P, I, P, I, I, I, I]
     sws.sws_scale.argtypes = [P, P, P, I, I, P, P]
     sws.sws_freeContext.argtypes = [P]
-    h, w = y.shape
     x_pos, y_pos = kernels._chroma_pos(location)
+    sx, sy = chroma or (0, 0)
     ctx = sws.sws_alloc_context()
     for name, value in (("srcw", w), ("srch", h), ("dstw", w), ("dsth", h),
                         ("src_format", au.av_get_pix_fmt(fmt)),
                         ("dst_format", au.av_get_pix_fmt(b"bgr24")),
-                        ("sws_flags", 4), ("src_h_chr_pos", x_pos),
-                        ("src_v_chr_pos", y_pos)):
+                        ("sws_flags", 4),
+                        ("src_h_chr_pos", x_pos if sx else -513),
+                        ("src_v_chr_pos", y_pos if sy else -513)):
         if au.av_opt_set_int(ctx, name.encode(), value, 0) < 0:
             raise RuntimeError(f"libswscale has no option {name}")
     if sws.sws_init_context(ctx, None, None) < 0 \
@@ -459,10 +486,11 @@ def swscale_bgr24(y, u, v, matrix: int, full: bool, location: int):
                 sws.sws_getCoefficients(1), 1, 0, 1 << 16, 1 << 16) < 0:
         sws.sws_freeContext(ctx)
         raise RuntimeError(f"libswscale refused a {h}x{w} {fmt} context")
-    planes = [np.ascontiguousarray(p) for p in (y, u, v)]
+    planes = [np.ascontiguousarray(p) for p in (y, u, v) if p is not None]
+    ptrs = [p.ctypes.data for p in planes] + [None] * (4 - len(planes))
+    pitches = [p.strides[0] for p in planes] + [0] * (4 - len(planes))
     out = np.zeros((h, 3 * w + 64), np.uint8)
-    sws.sws_scale(ctx, (P * 4)(*[p.ctypes.data for p in planes], None),
-                  (I * 4)(*[p.strides[0] for p in planes], 0), 0, h,
+    sws.sws_scale(ctx, (P * 4)(*ptrs), (I * 4)(*pitches), 0, h,
                   (P * 4)(out.ctypes.data, None, None, None),
                   (I * 4)(out.strides[0], 0, 0, 0))
     sws.sws_freeContext(ctx)
@@ -508,7 +536,8 @@ def probe_odd_sizes() -> dict:
             want = swscale_bgr24(*planes, matrix, full, location)
             worst = max(worst, int(np.abs(got.astype(int) - want).max()))
         out["rules"][f"{depth}-bit {h}x{w}"] = {
-            "route": kernels.yuv420_route(depth, h, w), "max_abs_diff": worst}
+            "route": kernels.frame_route(kernels.CHROMA_420, depth, h, w),
+            "max_abs_diff": worst}
     try:
         import cv2
         out["cv2"] = cv2.__version__
@@ -538,10 +567,135 @@ def probe_odd_sizes() -> dict:
     return out
 
 
+# (chroma, depth): every chroma format at 8, 10 and 12 bits
+FORMAT_DEPTHS = tuple((chroma, depth) for chroma in PIXEL_FORMATS
+                      for depth in (8, 10, 12))
+# (h, w): every parity of height and width, and the smallest size
+FORMAT_SIZES = ((48, 64), (47, 64), (48, 63), (47, 63), (9, 8))
+# (chroma location, matrix, full range): the (matrix, range) pairs and
+# chroma locations 0 / 1 the rules are held at here
+FORMAT_COLOURS = ((0, 2, False), (1, 1, True), (1, 9, False), (0, 7, True))
+
+
+def format_files(work: str) -> list:
+    """(name, path) of PCM files of the chroma formats (HEVC RExt 4:2:2
+    10-bit of an odd height, 4:4:4 12-bit of an odd size, 4:0:0 10-bit
+    stating limited range, Main 12; H.264 High 4:2:2 10-bit and 8-bit),
+    written under `work`."""
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    out = []
+
+    def at(name):
+        out.append((name, os.path.join(work, name)))
+        return out[-1][1]
+
+    sv.write_hevc_mp4(at("hevc_422_10bit_47x64.mp4"), sv.encode_hevc_pcm(
+        sv.yuv_frames10(2, 47, 64, depth=10, chroma=(1, 0)), depth=10,
+        colour=sv.Colour(1, True)))
+    sv.write_hevc_mkv(at("hevc_444_12bit_31x47.mkv"), sv.encode_hevc_pcm(
+        sv.yuv_frames10(2, 31, 47, depth=12, chroma=(0, 0)), depth=12))
+    sv.write_hevc_ts(at("hevc_gray_10bit.ts"), sv.encode_hevc_pcm(
+        sv.yuv_frames10(2, 32, 48, depth=10, chroma=None), depth=10,
+        colour=sv.Colour(1, False)))
+    sv.write_hevc_mp4(at("hevc_main12.mp4"), sv.encode_hevc_pcm(
+        sv.yuv_frames10(2, 32, 48, depth=12), depth=12))
+    sv.write_ipcm_mp4(at("h264_422_10bit.mp4"),
+                      sv.yuv_frames10(2, 48, 64, chroma=(1, 0)), depth=10)
+    sv.write_ipcm_mkv(at("h264_422_8bit_47x64.mkv"),
+                      sv.yuv_frames(2, 47, 64, chroma=(1, 0)))
+    return out
+
+
+def probe_formats() -> dict:
+    """The chroma formats (ROADMAP.md item 4i (d)): the machine's
+    libswscale (``swscale_bgr24``) on random planes of each format,
+    depth and size parity (``FORMAT_DEPTHS`` x ``FORMAT_SIZES``) against
+    the port's plain rule of the path ``ops.kernels.frame_route`` picks
+    (``rules``: the route and the largest difference over
+    ``FORMAT_COLOURS``; gray taken at full range, as cv2 5.0 takes it);
+    and, where the machine has cv2, its frames of the committed
+    chroma-format VP9 fixtures (``scripted_video.CHROMA_FIXTURES``) and of
+    PCM files written here (``format_files``) against the port's CPU read
+    (``fixtures``, ``files``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo import video_io
+    from rtpose_tpu_torch.native.avencode import encoder_libraries
+    from rtpose_tpu_torch.ops import kernels
+    try:
+        sws = encoder_libraries().swscale
+    except (RuntimeError, OSError) as e:
+        return {"error": str(e)}
+    out = {"libswscale": _version(sws.swscale_version()), "rules": {},
+           "fixtures": {}, "files": {}}
+    for chroma, depth in FORMAT_DEPTHS:
+        for h, w in FORMAT_SIZES:
+            rng = np.random.RandomState(h * w + depth)
+            dtype = np.uint8 if depth == 8 else np.uint16
+            shapes = [(h, w)] + ([] if chroma is None else
+                                 [kernels.chroma_shape(chroma, h, w)] * 2)
+            planes = [rng.randint(0, 1 << depth, s).astype(dtype)
+                      for s in shapes] + [None] * (3 - len(shapes))
+            worst = 0
+            for location, matrix, full in FORMAT_COLOURS:
+                got = kernels.yuv420_frame_to_bgr(
+                    *[None if p is None else torch.from_numpy(p)
+                      for p in planes], depth=depth, width=w,
+                    rule=kernels.yuv_rule(matrix, full),
+                    chroma_location=location, chroma=chroma).numpy()
+                want = swscale_bgr24(*planes, matrix, full or chroma is None,
+                                     location, depth)
+                worst = max(worst, int(np.abs(got.astype(int) - want).max()))
+            out["rules"][f"{pixel_format(chroma, depth)} {h}x{w}"] = {
+                "route": kernels.frame_route(chroma, depth, h, w),
+                "max_abs_diff": worst}
+    try:
+        import cv2
+        out["cv2"] = cv2.__version__
+    except ImportError:
+        out["cv2"] = "no cv2 on this machine"
+        return out
+
+    def against_cv2(path):
+        frames = {}
+        for key, cap in (("port", video_io.open_video(path, device="cpu")),
+                         ("cv2", cv2.VideoCapture(path))):
+            frames[key] = []
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                frames[key].append(frame)
+            cap.release()
+        return {"frames": len(frames["port"]),
+                "cv2_frames": len(frames["cv2"]),
+                "max_abs_diff": max((int(np.abs(a.astype(int) - b).max())
+                                     for a, b in zip(frames["port"],
+                                                     frames["cv2"])
+                                     if a.shape == b.shape), default=-1),
+                "shapes_equal": all(a.shape == b.shape for a, b in
+                                    zip(frames["port"], frames["cv2"]))}
+
+    for fixture in sv.CHROMA_FIXTURES:
+        out["fixtures"][fixture.name] = against_cv2(
+            sv.chroma_fixture_path(fixture))
+    with tempfile.TemporaryDirectory() as work:
+        for name, path in format_files(work):
+            out["files"][name] = against_cv2(path)
+    return out
+
+
 def probe() -> dict:
     return {"nvdec": probe_nvdec(), "libavcodec": probe_host(),
             "writer": probe_writer(), "av1": probe_av1(),
-            "colour": probe_colour(), "odd_sizes": probe_odd_sizes()}
+            "colour": probe_colour(), "odd_sizes": probe_odd_sizes(),
+            "formats": probe_formats()}
 
 
 if __name__ == "__main__":

@@ -26,7 +26,7 @@ with cv2's frame count and fps.
   path cv2 5.0 runs: SWS_BICUBIC, the chroma location) at sizes and
   chroma locations cv2's decoders do not give.
 - Every frame size (ROADMAP.md item 4i (a), fault F5): swscale picks its
-  path by the output's parity (``kernels.yuv420_route``).  8-bit frames
+  path by the output's parity (``kernels.frame_route``).  8-bit frames
   of an odd height take its general path (``general_to_bgr_plain`` at 8
   bits) and odd widths its full-chroma output
   (``full_chroma_to_bgr_plain``), each against libswscale at every pixel
@@ -428,11 +428,12 @@ def test_plain_10bit_rule_equals_cv2_on_every_chroma_pair(tmp_path, matrix,
     _p10_against_cv2(tmp_path, frames, C(matrix, full))
 
 
-def _swscale(y, u, v, matrix, full, location):
+def _swscale(y, u, v, matrix, full, location, depth=None):
     """The wheel's libswscale on 4:2:0 planes (``yuv420p`` for uint8,
-    ``yuv420p10le`` for uint16), as cv2 5.0 sets it up: SWS_BICUBIC to
-    bgr24, the source chroma at the frame's location, the frame's matrix
-    and range (``scripts/torch_probe_video.py`` ``swscale_bgr24``)."""
+    ``yuv420p10le`` for uint16, of `depth` bits where given), as cv2 5.0
+    sets it up: SWS_BICUBIC to bgr24, the source chroma at the frame's
+    location, the frame's matrix and range
+    (``scripts/torch_probe_video.py`` ``swscale_bgr24``)."""
     import importlib
     import os
     import sys
@@ -441,7 +442,7 @@ def _swscale(y, u, v, matrix, full, location):
     if scripts not in sys.path:
         sys.path.insert(0, scripts)
     probe = importlib.import_module("torch_probe_video")
-    return probe.swscale_bgr24(y, u, v, matrix, full, location)
+    return probe.swscale_bgr24(y, u, v, matrix, full, location, depth)
 
 
 @pytest.mark.parametrize("size", [(9, 8), (31, 64), (48, 66), (120, 160)])
@@ -508,7 +509,7 @@ def test_plain_8bit_general_rule_equals_swscale(size, location):
     random fields, each chroma location and three (matrix, range)."""
     h, w = size
     planes = _frames(8, 1, h, w, seed=h * 7 + location)[0]
-    assert kernels.yuv420_route(8, h, w) == "general"
+    assert kernels.frame_route(kernels.CHROMA_420, 8, h, w) == "general"
     for matrix, full in SWS_PAIRS:
         got = kernels.general_to_bgr_plain(
             *map(torch.from_numpy, planes), width=w, depth=8,
@@ -526,7 +527,8 @@ def test_plain_full_chroma_rule_equals_swscale(depth, size, location):
     converts each pixel through yuv2rgb_full_X_c, on every row."""
     h, w = size
     planes = _frames(depth, 1, h, w, seed=h * w + location)[0]
-    assert kernels.yuv420_route(depth, h, w) == "full_chroma"
+    route = kernels.frame_route(kernels.CHROMA_420, depth, h, w)
+    assert route == "full_chroma"
     for matrix, full in SWS_PAIRS:
         got = kernels.full_chroma_to_bgr_plain(
             *map(torch.from_numpy, planes), width=w, depth=depth,
@@ -548,7 +550,7 @@ def test_full_chroma_wraps_as_swscale_does(depth):
         y = np.full((11, 13), top * yv, dtype)
         u, v = (np.full((6, 7), top * c, dtype) for c in (uv, vv))
         for matrix, full in PAIRS:
-            want = _swscale(y, u, v, matrix, full, 0)
+            want = _swscale(y, u, v, matrix, full, 0, depth)
             got = kernels.full_chroma_to_bgr_plain(
                 *map(torch.from_numpy, (y, u, v)), width=13, depth=depth,
                 rule=yuv_rule(matrix, full), chroma_location=0)
@@ -566,7 +568,7 @@ ROUTES = [(8, 32, 48, "unscaled"), (8, 32, 47, "unscaled"),
 
 @pytest.mark.parametrize("depth,h,w,route", ROUTES)
 def test_route_follows_swscales_parity_rules(depth, h, w, route):
-    assert kernels.yuv420_route(depth, h, w) == route
+    assert kernels.frame_route(kernels.CHROMA_420, depth, h, w) == route
 
 
 @pytest.mark.parametrize("depth,h,w", [(8, 7, 16), (8, 31, 6), (8, 9, 7),
@@ -577,7 +579,7 @@ def test_small_frames_on_a_scaling_route_are_refused_by_name(depth, h, w):
     vertical filter and narrow horizontal ones: refused, naming ROADMAP
     item 4i (a), by the route and by every conversion."""
     with pytest.raises(ValueError, match=r"item 4i \(a\)"):
-        kernels.yuv420_route(depth, h, w)
+        kernels.frame_route(kernels.CHROMA_420, depth, h, w)
     planes = [torch.from_numpy(p) for p in _frames(depth, 1, h, w, 1)[0]]
     with pytest.raises(ValueError, match=r"item 4i \(a\)"):
         kernels.yuv420_frame_to_bgr(*planes, depth=depth, width=w)
@@ -643,6 +645,6 @@ def test_odd_size_mpeg4_reads_as_cv2(tmp_path, size):
     widths (full chroma), in Matroska, reads as cv2 5.0 reads it."""
     h, w = size
     path = tmp_path / "v.mkv"
-    sv.write_mpeg4_mkv(str(path), sv.scene_planes(range(3), h, w))
+    sv.write_mpeg4_mkv(str(path), sv.scene_frames(range(3), h, w))
     got = _assert_reads_as_jax(path, 3)
     assert got[0].shape == (h, w, 3)

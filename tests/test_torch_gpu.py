@@ -1817,3 +1817,107 @@ def test_xvid_writer_packets_equal_the_cards_cv2(cuda, tmp_path):
                 f.seek(off)
                 packets[-1].append(f.read(n))
     assert len(packets[1]) == 16 and packets[0] == packets[1]
+
+
+# -- the other chroma formats and 12-bit 4:2:0 (csrc/yuv_planar_to_bgr.cu) --
+
+PLANAR_CASES = [  # (chroma, depth, (h, w), the kernel its route launches)
+    ((1, 0), 8, (48, 64), "yuv422_to_bgr"),
+    ((1, 0), 8, (480, 639), "yuv422_to_bgr"),
+    ((1, 0), 8, (47, 64), "yuv_planar_general_to_bgr"),
+    ((1, 0), 10, (480, 640), "yuv_planar_general_to_bgr"),
+    ((1, 0), 12, (33, 66), "yuv_planar_general_to_bgr"),
+    ((1, 0), 10, (31, 47), "yuv_planar_full_chroma_to_bgr"),
+    ((0, 1), 8, (33, 64), "yuv_planar_general_to_bgr"),
+    ((0, 1), 12, (48, 63), "yuv_planar_full_chroma_to_bgr"),
+    ((0, 0), 8, (9, 8), "yuv_planar_full_chroma_to_bgr"),
+    ((0, 0), 10, (65, 131), "yuv_planar_full_chroma_to_bgr"),
+    ((1, 1), 12, (480, 640), "yuv_planar_general_to_bgr"),
+    ((1, 1), 12, (31, 47), "yuv_planar_full_chroma_to_bgr"),
+    (None, 8, (47, 63), "gray_to_bgr"),
+    (None, 10, (480, 640), "gray_to_bgr"),
+    (None, 12, (9, 9), "gray_to_bgr")]
+PLANAR_KERNELS = ("yuv420_to_bgr", "yuv420p10_to_bgr",
+                  "yuv420_general_to_bgr", "yuv420_full_chroma_to_bgr",
+                  "yuv422_to_bgr", "yuv_planar_general_to_bgr",
+                  "yuv_planar_full_chroma_to_bgr", "gray_to_bgr")
+
+
+def _format_planes(chroma, depth, h, w, seed, pitch_pad=0):
+    """Random planes of the chroma format `chroma` (None: the luma alone),
+    rows `pitch_pad` samples past the picture; u and v None for gray."""
+    rng = np.random.RandomState(seed)
+    dtype = np.uint8 if depth == 8 else np.uint16
+    shapes = [(h, w)] + ([] if chroma is None else
+                         [kernels.chroma_shape(chroma, h, w)] * 2)
+    planes = [torch.from_numpy(rng.randint(0, 1 << depth, (r, c + pitch_pad))
+                               .astype(dtype)) for r, c in shapes]
+    return planes + [None] * (3 - len(planes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", [0, 90, 180, 270])
+@pytest.mark.parametrize("case", PLANAR_CASES,
+                         ids=[f"{c}-{d}bit-{h}x{w}" for c, d, (h, w), _
+                              in PLANAR_CASES])
+def test_planar_kernels_match_plain(cuda, rotation, case):
+    """Each entry of csrc/yuv_planar_to_bgr.cu against its plain version,
+    error 0, at every (matrix, range), chroma locations 0 and 1, on planes
+    of an odd pitch whose bases are off 16 bytes, and on aligned ones."""
+    chroma, depth, (h, w), _ = case
+    for pad, offset in ((0, 0), (3, 1)):
+        planes = _format_planes(chroma, depth, h, w, seed=h * w + pad,
+                                pitch_pad=pad)
+        on_card = _at_offset([p for p in planes if p is not None], offset,
+                             cuda) + [None] * planes.count(None)
+        for matrix in (1, 2, 4, 7, 9):
+            for full in (False, True):
+                rule = kernels.yuv_rule(matrix, full)
+                for location in (0, 1):
+                    kw = dict(depth=depth, width=w, rotation=rotation,
+                              rule=rule, chroma_location=location,
+                              chroma=chroma)
+                    got = kernels.yuv420_frame_to_bgr(*on_card, **kw)
+                    want = kernels.yuv420_frame_to_bgr(*planes, **kw)
+                    assert torch.equal(got.cpu(), want), (
+                        pad, offset, matrix, full, location)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PLANAR_CASES,
+                         ids=[f"{c}-{d}bit-{h}x{w}" for c, d, (h, w), _
+                              in PLANAR_CASES])
+def test_planar_route_launches_one_kernel(cuda, case):
+    """A frame of each chroma format on the card launches the one kernel
+    of swscale's path, and no other."""
+    chroma, depth, (h, w), kernel = case
+    planes = _format_planes(chroma, depth, h, w, seed=7)
+    kernels.reset_launch_counts()
+    kernels.yuv420_frame_to_bgr(*[None if p is None else p.to(cuda)
+                                  for p in planes], depth=depth, width=w,
+                                chroma=chroma)
+    counts = kernels.launch_counts()
+    assert counts[kernel] == 1 and sum(
+        counts[k] for k in PLANAR_KERNELS) == 1, counts
+
+
+@pytest.mark.gpu
+def test_chroma_fixtures_read_on_the_card_as_on_the_cpu(cuda):
+    """The committed VP9 fixtures of profiles 1-3 read on the card: one
+    launch a frame, the CPU's frames."""
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo.video_io import open_video
+    for fixture in sv.CHROMA_FIXTURES:
+        path = sv.chroma_fixture_path(fixture)
+        frames = {}
+        for device in ("cpu", cuda):
+            kernels.reset_launch_counts()
+            cap = open_video(path, device=device)
+            frames[str(device)] = [f for ok, f in
+                                   iter(cap.read, (False, None))]
+            cap.release()
+        counts = kernels.launch_counts()
+        assert sum(counts[k] for k in PLANAR_KERNELS) == fixture.frames
+        assert len(frames["cpu"]) == fixture.frames
+        for a, b in zip(frames["cpu"], frames[str(cuda)]):
+            np.testing.assert_array_equal(a, b)

@@ -214,17 +214,20 @@ def test_intra_picture_is_an_irap_picture():
 
 
 def test_main10_frames_are_refused_by_name():
-    """Main 10 is read since item 4h (tests/test_torch_colour.py): its
-    hvcC passes; the HEVC frames past it are refused by name by the
-    decoder, 12-bit 4:2:0 here (item 4i)."""
+    """Main 10 is read since item 4h (tests/test_torch_colour.py), Main 12
+    and the range extensions since item 4i (d)
+    (tests/test_torch_chroma_formats.py): their hvcC passes; HEVC of
+    another depth is refused by name, by its hvcC and by the decoder,
+    9-bit 4:2:0 here (item 4i)."""
     assert mp4.hevc_refusal(1, (10, 10)) is None
-    stream = sv.encode_hevc_pcm(sv.yuv_frames10(2, 48, 64, depth=12),
-                                depth=12)
+    assert mp4.hevc_refusal(1, (12, 12)) is None
+    stream = sv.encode_hevc_pcm(sv.yuv_frames10(2, 48, 64, depth=9),
+                                depth=9)
     record = sv.hvcc_record(stream)
-    assert mp4.hvcc_config(record, 0, len(record)).depth == (12, 12)
-    assert "12 bits, 4:2:0 (RExt" in mp4.hevc_refusal(1, (12, 12))
-    with pytest.raises(ValueError, match=r"hevc frames in 12-bit 4:2:0 "
-                                         r"\(yuv420p12le\).*item 4i"):
+    assert mp4.hvcc_config(record, 0, len(record)).depth == (9, 9)
+    assert "9 bits, 4:2:0 (only 8, 10 and 12" in mp4.hevc_refusal(1, (9, 9))
+    with pytest.raises(ValueError, match=r"hevc frames in 9-bit 4:2:0 "
+                                         r"\(yuv420p9le\).*item 4i"):
         _decode(sv.hevc_annexb(stream))
 
 
@@ -236,7 +239,8 @@ def test_hvcc_record_is_ffmpegs_extradata(tmp_path):
                              len(sv.hvcc_record(stream)))
     assert config == mp4.HevcConfig(4, stream.params, 1, (8, 8))
     assert mp4.hevc_refusal(1, (8, 8)) is None
-    assert "4:2:2" in mp4.hevc_refusal(2, (8, 8))
+    assert mp4.hevc_refusal(2, (8, 8)) is None
+    assert "4:2:2" in mp4.hevc_refusal(2, (16, 16))
 
 
 def test_hevc_needs_no_decoder_probe(tmp_path, monkeypatch):

@@ -17,10 +17,10 @@ libavcodec's parsers, ``native/avcodec.py`` ``Parser``) against cv2 5.0
 - a lost packet (a continuity counter that skips), mid-PES, at a PES
   start and at the end, and stray bytes between packets: logged, and
   read as cv2 reads it;
-- refusals: VVC (stream type 0x33), HEVC Main 10, a private stream only,
-  a PMT with no video, no PAT, an MPEG program stream with no video,
-  MPEG-2 4:2:2; each names what it refuses and ROADMAP.md item 4 (HEVC
-  in TS is read: tests/test_torch_hevc.py);
+- refusals: VVC (stream type 0x33), 9-bit HEVC (4:2:0 and 4:0:0), a
+  private stream only, a PMT with no video, no PAT, an MPEG program
+  stream with no video; each names what it refuses and ROADMAP.md item
+  4 (HEVC in TS is read: tests/test_torch_hevc.py);
 - the parser splits a stream fed in pieces of any size into the same
   frames; CRC, packet size and timestamp unwrapping as FFmpeg's.
 
@@ -266,21 +266,23 @@ def _no_video_pmt(tmp_path, stream_type):
 
 @pytest.mark.parametrize("kind,error", [
     ("vvc", r"VVC video in MPEG-TS \(stream type 0x33\)"),
-    ("hevc_main12", r"hevc frames in 12-bit 4:2:0 \(yuv420p12le\): only "
-                    r"4:2:0 of 8 or 10 bits .*queue 1 (?=item 4i)"),
+    ("hevc_9bit", r"hevc frames in 9-bit 4:2:0 \(yuv420p9le\): only "
+                  r"planar .* of 8, 10 or 12 bits .*queue 1 (?=item 4i)"),
     ("private", r"only candidate for video is a private data stream "
                 r"\(stream type 0x06\)"),
     ("audio_only", r"an MPEG-TS program with no video stream"),
     ("no_pat", r"an MPEG-TS stream with no PAT"),
     ("program_stream", r"an MPEG program stream with no video stream"),
-    ("mpeg2_422", r"mpeg2video frames in 4:2:2 \(yuv422p\)")])
+    ("hevc_gray9", r"hevc frames in 9-bit 4:0:0 \(gray9le\)")])
 def test_ts_refusals_name_what_they_refuse(tmp_path, kind, error):
     if kind == "vvc":
         path = _no_video_pmt(tmp_path, 0x33)
-    elif kind == "hevc_main12":               # Main 10 reads: item 4h
-        path = tmp_path / "main12.m2ts"
+    elif kind in ("hevc_9bit", "hevc_gray9"):   # Main 10 and 12, 4:0:0
+        path = tmp_path / "9bit.m2ts"           # read (items 4h, 4i (d))
+        chroma = None if kind == "hevc_gray9" else (1, 1)
         sv.write_hevc_ts(str(path), sv.encode_hevc_pcm(
-            sv.yuv_frames10(2, 48, 64, depth=12), depth=12), packet_size=192)
+            sv.yuv_frames10(2, 48, 64, depth=9, chroma=chroma), depth=9),
+            packet_size=192)
     elif kind in ("private", "audio_only"):
         path = _no_video_pmt(tmp_path, 0x06 if kind == "private" else 0x0F)
     elif kind == "no_pat":
@@ -290,15 +292,14 @@ def test_ts_refusals_name_what_they_refuse(tmp_path, kind, error):
         path = tmp_path / "v.mpg"
         path.write_bytes(b"\x00\x00\x01\xba\x44" + b"\x00" * 9
                          + b"\x00\x00\x01\xbe\x00\xc8" + b"\xff" * 200)
-    else:
-        path = mpeg2_422(tmp_path)
     with pytest.raises(ValueError, match=f"{error}.*item 4"):
         open_video(str(path), device="cpu")
 
 
 def mpeg2_422(tmp_path):
     """cv2's MPEG-2 TS with each sequence extension's chroma_format set to
-    4:2:2: the decoder gives yuv422p pictures."""
+    4:2:2: the decoder gives yuv422p pictures (read since ROADMAP.md item
+    4i (d): tests/test_torch_chroma_formats.py)."""
     src = _cv2_ts(tmp_path / "src.ts", "MPG2", 4)
     with open(src, "rb") as f:
         pes = list(mpegts.read_track(str(src), f).pes(f))

@@ -9,15 +9,16 @@ package's video demo, on the CPU:
 - ``open_video`` reads ``cv2.VideoWriter(..., 'MJPG')`` files of both of
   cv2's writers, frame for frame equal to ``cv2.VideoCapture``'s frames
   (its Motion-JPEG backend), and refuses what it still does not read
-  (HEVC Main 10 in MP4, Matroska or MPEG-TS, AV1, 10-bit VP9, laced
-  Matroska blocks, edits of another media rate, MPEG-2 4:2:2) with an
+  (AV1, laced Matroska blocks, edits of another media rate, other
+  containers) with an
   error naming it and ROADMAP.md queue 1 item 4 (H.264 and MPEG-4 files:
   tests/test_torch_mp4.py; Matroska / WebM and VP9:
   tests/test_torch_mkv.py; MPEG-TS: tests/test_torch_mpegts.py; HEVC:
   tests/test_torch_hevc.py; program streams: tests/test_torch_mpegps.py);
   what it once refused (MPEG-TS, fragmented MP4, ``mvex``, a two-entry
-  edit list, HEVC in MP4, Matroska and MPEG-TS, an MPEG program stream)
-  it reads as cv2 reads it;
+  edit list, HEVC in MP4, Matroska and MPEG-TS, an MPEG program stream,
+  HEVC Main 10, VP9 of profiles 1-3, HEVC RExt, Main 12, 4:0:0 and
+  MPEG-2 4:2:2) it reads as cv2 reads it;
 - the video demo's ``main()`` over an oracle-map pipeline finds, frame
   for frame, the people of the JAX video demo's ``main()`` over the same
   maps (part ids equal, pixel coordinates within 1e-4, scores within
@@ -154,48 +155,19 @@ def _still_refused(tmp_path, kind):
     path = str(tmp_path / f"{kind}.bin")
     if kind == "missing":
         return path
-    if kind in ("mkv_av1", "mkv_laced", "webm_vp9_profile1",
-                "webm_vp9_profile3", "ebml_other"):
+    if kind in ("mkv_av1", "mkv_laced", "ebml_other"):
         codec = "V_AV1" if kind == "mkv_av1" else "V_VP9"
         with open(sv.VP9_WEBM, "rb") as f:
             track = mkv.read_track(sv.VP9_WEBM, f)
             packets = [(d, k) for d, k in track.packets(f)][:3]
         if kind == "mkv_laced":
             packets[1] = (b"LACED" + packets[1][0], False)
-        if kind.startswith("webm_vp9"):        # profile bits (low, high)
-            bits = 0x20 if kind.endswith("1") else 0x30
-            packets[0] = (bytes([packets[0][0][0] | bits])
-                          + packets[0][0][1:], True)
-        data = sv.mux_mkv(codec, packets, (64, 48),
-                          doc_type="webm" if kind.startswith("webm")
-                          else "matroska")
+        data = sv.mux_mkv(codec, packets, (64, 48))
         if kind == "mkv_laced":                # Xiph lacing in the flags
             at = data.index(b"LACED") - 1
             data = data[:at] + b"\x02" + data[at + 1:]
         if kind == "ebml_other":
             data = data.replace(b"matroska", b"mka-fake")
-    elif kind == "mpeg2_422":
-        from test_torch_mpegts import mpeg2_422
-        return str(mpeg2_422(tmp_path))
-    elif kind.startswith(("mp4_rext", "mkv_rext")):   # by hvcC: item 4i
-        stream = sv.encode_hevc_pcm(sv.yuv_frames(2, 48, 64))
-        chroma = {"422": 2, "444": 3}[kind[-3:]]
-        if kind.startswith("mp4"):
-            sv.write_hevc_mp4(path, stream, hvcc_chroma=chroma)
-        else:
-            with open(path, "wb") as f:
-                f.write(sv.mux_mkv("V_MPEGH/ISO/HEVC", list(zip(
-                    sv.hevc_samples(stream), stream.keys)), stream.size,
-                    codec_private=sv.hvcc_record(stream, chroma)))
-        return path
-    elif kind in ("ts_main12", "ts_gray"):    # by the decoder: item 4i
-        if kind == "ts_gray":
-            stream = sv.encode_hevc_pcm(sv.yuv_frames(2, 48, 64), chroma=0)
-        else:
-            stream = sv.encode_hevc_pcm(sv.yuv_frames10(1, 48, 64, depth=12),
-                                        depth=12)
-        sv.write_hevc_ts(path, stream)
-        return path
     elif kind == "wave":
         data = b"RIFF\x24\0\0\0WAVEfmt " + b"\0" * 32
     elif kind == "avi_wmv":
@@ -208,10 +180,6 @@ def _still_refused(tmp_path, kind):
         data = sv.mux_mp4(sps, pps, units, keys, (64, 48))
         if kind == "av01":
             data = data.replace(b"avc1", b"av01").replace(b"avcC", b"av1C")
-        elif kind == "vp09_12bit":
-            data = sv.mux_mp4(sps, pps, [b"\x92\x49\x83\x42\x00"] * 2,
-                              keys, (64, 48), entry=sv.vp09_entry(
-                                  (64, 48), profile=2, depth=12))
         elif kind == "elst_rate2":
             data = sv.mux_mp4(sps, pps, units, keys, (64, 48),
                               edits=[(80, 0, 2.0)])
@@ -225,30 +193,15 @@ def _still_refused(tmp_path, kind):
 @pytest.mark.parametrize("kind,error", [
     ("mkv_av1", "AV1 video .'V_AV1' CodecID"),
     ("mkv_laced", "laced video block"),
-    ("webm_vp9_profile1", r"VP9 profile 1 video \(4:2:2.*item 4i\)"),
-    ("webm_vp9_profile3", r"VP9 profile 3 video \(4:2:2.*item 4i\)"),
-    ("vp09_12bit", r"VP9 profile 2 video of 12 bits .*item 4i\)"),
     ("ebml_other", "DocType b'mka-fake'"),
-    ("mp4_rext_422", r"HEVC of 8 bits, 4:2:2 \(RExt: .*item 4i\) "
-                     r"\(hvc1 sample entry\)"),
-    ("mkv_rext_444", r"HEVC of 8 bits, 4:4:4 \(RExt: .*item 4i\) "
-                     r"\(V_MPEGH/ISO/HEVC CodecPrivate\)"),
-    ("ts_main12", r"hevc frames in 12-bit 4:2:0 \(yuv420p12le\): only "
-                  r"4:2:0 of 8 or 10 bits .*queue 1 (?=item 4i)"),
-    ("ts_gray", r"hevc frames in 4:0:0 \(gray\): only 4:2:0 of 8 or 10 "
-                r"bits .*queue 1 (?=item 4i)"),
     ("av01", "AV1 video"),
     ("elst_rate2", "edit of media rate 2"),
-    ("mpeg2_422", r"4:2:2 \(yuv422p\)"),
     ("no_moov", "no moov box"), ("wave", "not AVI"),
     ("avi_wmv", "AVI video codec b'WMV3'"), ("missing", None)])
 def test_open_video_refuses_other_containers(tmp_path, kind, error):
     """What the port still does not read (ROADMAP.md queue 1 item 4):
-    other containers, other codecs (AV1 in Matroska or MP4), HEVC RExt
-    (item 4i: 4:2:2 and 4:4:4 by the hvcC of an MP4 or Matroska file,
-    12-bit and 4:0:0 by the decoder's first picture in MPEG-TS), VP9 of
-    profiles 1 and 3 and of 12 bits, MPEG-2 4:2:2, laced Matroska
-    blocks, edits of another media rate;
+    other containers, other codecs (AV1 in Matroska or MP4), laced
+    Matroska blocks, edits of another media rate;
     each error names it and item 4.  XVID AVI and MP4 are read
     (tests/test_torch_mp4.py), Matroska / WebM and VP9 too
     (tests/test_torch_mkv.py), MPEG-TS too (tests/test_torch_mpegts.py),
@@ -266,14 +219,44 @@ def test_open_video_refuses_other_containers(tmp_path, kind, error):
 
 def _once_refused(tmp_path, kind):
     """A file of a kind the reader refused until item 4b / 4c / 4e / 4g /
-    4h: cv2's MPEG-2 TS, a fragmented MP4 (a moof a sample), one with
-    samples in the moov and an mvex, an edit list of two entries; PCM HEVC
-    in Matroska, MPEG-TS and an hvc1 MP4; cv2's MPEG-4 ``.mpg`` (an MPEG
-    program stream); PCM HEVC Main 10 in MP4, Matroska and MPEG-TS, VP9
-    profile 2 in WebM and MP4."""
+    4h / 4i (d): cv2's MPEG-2 TS, a fragmented MP4 (a moof a sample), one
+    with samples in the moov and an mvex, an edit list of two entries; PCM
+    HEVC in Matroska, MPEG-TS and an hvc1 MP4; cv2's MPEG-4 ``.mpg`` (an
+    MPEG program stream); PCM HEVC Main 10 in MP4, Matroska and MPEG-TS,
+    VP9 profile 2 in WebM and MP4; VP9 of profiles 1 and 3 in WebM and of
+    12 bits in MP4, PCM HEVC RExt 4:2:2 in MP4 and 4:4:4 in Matroska (real
+    RExt pictures), Main 12 and 4:0:0 in MPEG-TS, cv2's MPEG-2 TS made
+    4:2:2."""
     from test_torch_mpegts import _cv2_ts
 
     from rtpose_tpu_torch.demo import scripted_video as sv
+    if kind in ("webm_vp9_profile1", "webm_vp9_profile3", "vp09_12bit"):
+        path = str(tmp_path / f"{kind}.bin")
+        frames = {"webm_vp9_profile1": sv.yuv_frames(2, 48, 64,
+                                                     chroma=(1, 0)),
+                  "webm_vp9_profile3": sv.yuv_frames10(2, 48, 64,
+                                                       chroma=(0, 0)),
+                  "vp09_12bit": sv.yuv_frames10(2, 48, 64, depth=12)}[kind]
+        sv.write_vp9(path, frames, depth=12 if kind == "vp09_12bit" else 0,
+                     container="mp4" if kind == "vp09_12bit" else "webm")
+        return path
+    if kind in ("mp4_rext_422", "mkv_rext_444", "ts_main12", "ts_gray"):
+        path = str(tmp_path / f"{kind}.bin")
+        if kind == "ts_main12":
+            stream = sv.encode_hevc_pcm(sv.yuv_frames10(2, 48, 64, depth=12),
+                                        depth=12)
+        else:
+            chroma = {"mp4_rext_422": (1, 0), "mkv_rext_444": (0, 0),
+                      "ts_gray": None}[kind]
+            stream = sv.encode_hevc_pcm(sv.yuv_frames(2, 48, 64,
+                                                      chroma=chroma))
+        write = {"mp4": sv.write_hevc_mp4, "mkv": sv.write_hevc_mkv,
+                 "ts": sv.write_hevc_ts}[kind.split("_")[0]]
+        write(path, stream)
+        return path
+    if kind == "mpeg2_422":
+        from test_torch_mpegts import mpeg2_422
+        return str(mpeg2_422(tmp_path))
     if kind == "mpegts":
         return str(_cv2_ts(tmp_path / "v.ts", "MPG2", 9))
     if kind == "mpeg_ps":
@@ -312,13 +295,18 @@ def _once_refused(tmp_path, kind):
 @pytest.mark.parametrize("kind", ["mpegts", "fragmented", "mvex", "elst2",
                                   "mkv_hevc", "ts_hevc", "mpeg_ps", "hvc1",
                                   "mp4_main10", "mkv_main10", "ts_main10",
-                                  "webm_vp9_profile2", "vp09_10bit"])
+                                  "webm_vp9_profile2", "vp09_10bit",
+                                  "webm_vp9_profile1", "webm_vp9_profile3",
+                                  "vp09_12bit", "mp4_rext_422",
+                                  "mkv_rext_444", "ts_main12", "ts_gray",
+                                  "mpeg2_422"])
 def test_open_video_reads_what_it_refused(tmp_path, kind):
     """MPEG-TS (item 4b), fragmented MP4 and edit lists of several
     entries (item 4c), HEVC in Matroska, MPEG-TS and MP4 (item 4e), MPEG
     program streams (item 4g), HEVC Main 10 and VP9 profile 2 (item 4h),
-    once refused by name, read frame for frame as cv2 reads them, with
-    cv2's fps and frame count."""
+    VP9 profiles 1 and 3, 12-bit VP9, HEVC RExt 4:2:2 / 4:4:4, Main 12,
+    4:0:0 and MPEG-2 4:2:2 (item 4i (d)), once refused by name, read frame
+    for frame as cv2 reads them, with cv2's fps and frame count."""
     path = _once_refused(tmp_path, kind)
     want, (count, fps) = _read_cv2(path)
     got, cap = _read_port(path)
