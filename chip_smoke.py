@@ -4361,7 +4361,11 @@ PLANAR_KERNEL_CASES = (
     ((0, 1), 12, (33, 65)), ((0, 0), 8, (480, 640)), ((0, 0), 10, (9, 8)),
     ((0, 0), 12, (1079, 1919)), ((1, 1), 12, (480, 640)),
     ((1, 1), 12, (31, 47)), (None, 8, (480, 640)), (None, 10, (33, 65)),
-    (None, 12, (1080, 1920)))
+    (None, 12, (1080, 1920)),
+    # tiles ragged on both edges, each tap class of the tiled entries
+    ((1, 0), 10, (65, 66)), ((1, 0), 10, (33, 65)), ((0, 1), 10, (65, 66)),
+    ((0, 1), 8, (33, 65)), ((0, 0), 8, (65, 66)), ((1, 1), 12, (65, 66)),
+    ((1, 0), 10, (2160, 3840)))
 PLANAR_DEMO_FORMAT = ((1, 0), 10)    # H.264 High 4:2:2 10-bit I_PCM
 PLANAR_ROWS = (   # (kernel, chroma, depth, (h, w) timed, what it replaces)
     ("yuv422_to_bgr", (1, 0), 8, (480, 640),
@@ -4388,8 +4392,9 @@ def chroma_formats_phase(dev, smi: str, found: dict):
       committed chroma-format VP9 fixtures and on PCM HEVC RExt / H.264
       High 4:2:2 files against the port's CPU read;
     - each entry of ``csrc/yuv_planar_to_bgr.cu`` against its plain
-      version (``PLANAR_KERNEL_CASES``: every route, depth 8 / 10 / 12,
-      odd sizes, 1080x1920) at every (matrix, range), four turns and
+      version (``PLANAR_KERNEL_CASES``: every route and tap class,
+      depth 8 / 10 / 12, odd sizes, tiles ragged on both edges,
+      1080x1920, 2160x3840) at every (matrix, range), four turns and
       chroma locations 0 / 1, on planes of an odd pitch at an unaligned
       base: error 0; each timed at 480x640 with its bound, and at the
       sizes users' video has by ``scripts/torch_colour_kernel_times.py``
@@ -4503,8 +4508,7 @@ def chroma_formats_phase(dev, smi: str, found: dict):
             check(all(t["max_abs_err"] == YUV_KERNEL_TOL for t in turns),
                   f"{name} {size} vs plain at turns 0 / 90: "
                   f"{[t['max_abs_err'] for t in turns]}")
-            log(f"{name} {size} ({entry['depth']}-bit "
-                f"{kernels.CHROMA_NAMES[entry['chroma']]}): device us warm "
+            log(f"{name} {size}: device us warm "
                 + " / ".join(f"{t['device_ms_warm'] * 1e3:.2f}" for t in turns)
                 + ", L2 flushed "
                 + " / ".join(f"{t['device_ms_cold'] * 1e3:.2f}" for t in turns)

@@ -76,6 +76,7 @@
 
 #include "yuv_rule.cuh"
 #include "yuv_tile.cuh"
+#include "yuv_chroma.cuh"
 
 #define FC_THREADS 256
 // a thread's pixels, of one source row
@@ -95,58 +96,6 @@
 #define FC_SPAN 36
 #define FC_SPAN_TURNED 20
 
-// v clipped to [0, 2^30) (av_clip_uintp2(v, 30)), then its top eight bits
-__device__ __forceinline__ int full_out(int v) {
-    return (v < 0 ? 0 : (v > (1 << 30) - 1 ? (1 << 30) - 1 : v)) >> 22;
-}
-
-// a pixel from its 15-bit luma and its chroma sums (yuv2rgb_write_full):
-// 32-bit unsigned arithmetic read back as int, so a bright pixel of
-// strong chroma wraps to 0 as in swscale
-__device__ __forceinline__ uint32_t full_pixel(int y15, int su, int sv,
-                                               const YuvRule& rule) {
-    // Y = ((1 << 9) + (Y15 << 12)) >> 10: the low ten bits of Y15 << 12
-    // are 0, so the rounding term drops out
-    const int yy = y15 << 2;
-    const uint32_t l = (uint32_t)((yy - (rule.y_offset << 6)) * rule.luma
-                                  + (1 << 21));
-    const uint32_t U = (uint32_t)(su >> 10), V = (uint32_t)(sv >> 10);
-    return bgr_word(full_out((int)(l + U * (uint32_t)rule.ub)),
-                    full_out((int)(l + V * (uint32_t)rule.vg
-                                   + U * (uint32_t)rule.ug)),
-                    full_out((int)(l + V * (uint32_t)rule.vr)));
-}
-
-// the 16 bytes at the 16-byte-aligned w into shared memory at dst: one
-// asynchronous copy (cp.async, no registers on the way) where they lie
-// inside [lo, hi), else the bytes that do, one at a time (zero elsewhere)
-__device__ __forceinline__ void stage_window(uint4* dst, const uint8_t* w,
-                                             const uint8_t* lo,
-                                             const uint8_t* hi) {
-    if (w >= lo && w + 16 <= hi) {
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                     :: "r"((uint32_t)__cvta_generic_to_shared(dst)),
-                        "l"(w)
-                     : "memory");
-        return;
-    }
-    uint32_t b[4] = {0, 0, 0, 0};
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-        if (w + k >= lo && w + k < hi)
-            b[k >> 2] |= (uint32_t)w[k] << (8 * (k & 3));
-    *dst = make_uint4(b[0], b[1], b[2], b[3]);
-}
-
-// word c of row r of a tile's filtered chroma: 16-byte groups of the
-// second 32 columns of a straight tile swapped in pairs, so that the
-// eight threads of a source row read eight banks groups apart
-template <bool QUARTER>
-__device__ __forceinline__ int chroma_slot(int r, int c) {
-    constexpr int PITCH = (QUARTER ? TILE_ROWS : TILE_COLS) + 4;
-    return r * PITCH + (QUARTER ? c : c ^ ((c >> 5 & 1) << 2));
-}
-
 // A block's tile.  T: the sample type, uint8_t (8-bit) or uint16_t
 // (10-bit); QUARTER: rotation is 90 or 270
 template <typename T, bool QUARTER>
@@ -164,10 +113,9 @@ __device__ __forceinline__ void full_chroma_tile(
     constexpr int SPAN = QUARTER ? FC_SPAN_TURNED : FC_SPAN;
     // 16-byte windows a staged row: its span from any byte of a window
     constexpr int ROW_WINDOWS = (15 + SPAN * S + 15) / 16;
-    constexpr int STAGED = 2 * ROWS * ROW_WINDOWS;
-    constexpr int STAGE_ITERS = (STAGED + FC_THREADS - 1) / FC_THREADS;
     static_assert(ROWS * (SCOLS + 4) <= FC_CHROMA_SLOTS, "chroma rows");
-    static_assert(STAGED * 16 <= BGR_TILE_WORDS * 4, "staged chroma");
+    static_assert(2 * ROWS * ROW_WINDOWS * 16 <= BGR_TILE_WORDS * 4,
+                  "staged chroma");
     __shared__ __align__(16) int chroma[2][FC_CHROMA_SLOTS];
     __shared__ __align__(16) uint32_t bgr[BGR_TILE_WORDS];
     uint4* staged = reinterpret_cast<uint4*>(bgr);
@@ -213,31 +161,20 @@ __device__ __forceinline__ void full_chroma_tile(
     const int span = hpos[m.c0 + m.tw - 1] + hsize - xa;
     if (rows > ROWS || span > SPAN) __trap();   // tables past the tile
 
-    // staged: row r of plane p from the 16-byte window that holds its
-    // sample xa, the windows its span reaches, all copies in flight
-    // together
+    // staged: the rows' samples from the 16-byte windows that hold them,
+    // all copies in flight together
     const uint8_t* ub = reinterpret_cast<const uint8_t*>(u);
     const uint8_t* vb = reinterpret_cast<const uint8_t*>(v);
     const size_t plane_bytes = (size_t)((height + 1) / 2) * c_pitch * S;
-#pragma unroll
-    for (int i = 0; i < STAGE_ITERS; ++i) {
-        const int j = tid + i * FC_THREADS;
-        const int p = j / (ROWS * ROW_WINDOWS), r = j / ROW_WINDOWS % ROWS;
-        if (j < STAGED && r < rows) {
-            const uint8_t* base = p ? vb : ub;
-            const uint8_t* at =
-                base + ((size_t)(first + r) * c_pitch + xa) * S;
-            const uint8_t* w = reinterpret_cast<const uint8_t*>(
-                (uintptr_t)at & ~(uintptr_t)15) + 16 * (j % ROW_WINDOWS);
-            if (w < at + span * S)
-                stage_window(staged + j, w, base, base + plane_bytes);
-        }
-    }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    stage_rows<S, ROWS, ROW_WINDOWS, FC_THREADS>(staged, ub, vb, c_pitch,
+                                                 first, rows, xa, span,
+                                                 plane_bytes);
     __syncthreads();
 
     // each staged row filtered horizontally once to the tile's columns:
-    // C15 = min(sum_k C[hpos + k] * htap[k] >> (D - 1), 32767)
+    // C15 = min(sum_k C[hpos + k] * htap[k] >> (D - 1), 32767) (written
+    // out here: through yuv_chroma.cuh's filter_staged the 10-bit turned
+    // kernel takes 48 registers, not 40, and runs slower)
     if (filters) {
         const uint8_t* bytes = reinterpret_cast<const uint8_t*>(staged);
 #pragma unroll
@@ -273,36 +210,9 @@ __device__ __forceinline__ void full_chroma_tile(
     // time (columns past the picture: words never stored)
     if (mine) {
         uint32_t px[FC_PIXELS];
-#pragma unroll
-        for (int h = 0; h < FC_PIXELS; h += 4) {
-            int su[4], sv[4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) su[q] = sv[q] = (1 << 9) - (128 << 19);
-#pragma unroll
-            for (int t = 0; t < FC_MAX_TAPS; ++t) {
-                if (t < vsize) {
-                    const int at = chroma_slot<QUARTER>(vp - first + t,
-                                                        col + h);
-                    const int4 cu =
-                        *reinterpret_cast<const int4*>(chroma[0] + at);
-                    const int4 cv =
-                        *reinterpret_cast<const int4*>(chroma[1] + at);
-                    su[0] += cu.x * taps[t];
-                    su[1] += cu.y * taps[t];
-                    su[2] += cu.z * taps[t];
-                    su[3] += cu.w * taps[t];
-                    sv[0] += cv.x * taps[t];
-                    sv[1] += cv.y * taps[t];
-                    sv[2] += cv.z * taps[t];
-                    sv[3] += cv.w * taps[t];
-                }
-            }
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-                px[h + q] = full_pixel(
-                    sample_of<T>(luma, h + q) << (15 - DEPTH), su[q], sv[q],
-                    rule);
-        }
+        full_pixels<T, QUARTER, FC_MAX_TAPS, FC_PIXELS>(
+            chroma[0], chroma[1], vp - first, col, taps, vsize, luma,
+            15 - DEPTH, rule, px);
         put_pixels<FC_PIXELS>(bgr, m, sr, col, min(FC_PIXELS, m.tw - col),
                               px);
     }

@@ -88,6 +88,7 @@
 
 #include "yuv_rule.cuh"
 #include "yuv_tile.cuh"
+#include "yuv_chroma.cuh"
 
 #define P10_THREADS 256
 // a thread's pixels, of one source row
@@ -102,45 +103,6 @@
 #define P10_ITEMS (P10_CHROMA_WORDS / P10_THREADS)
 #define P10_CHROMA_SLOTS \
     (P10_CHROMA_WORDS + P10_CHROMA_WORDS / (TILE_ROWS / 2))
-
-__device__ __forceinline__ int table_bgr(int k, const YuvRule& r) {
-    return sat8((k * r.cy + r.y_base + 0x8000) >> 16);
-}
-
-__device__ __forceinline__ int table_term(int c, int q) {
-    c = c < 0 ? 0 : (c > 255 ? 255 : c);
-    return ((c * q) >> 16) - (q >> 9);
-}
-
-// a pixel pair (luma y0, y1 in the 15-bit intermediate) from its chroma
-// sums: above the last two rows (simd) the MMX rule, su and sv the high
-// halves + 4; on them the C tables, su and sv (1 << 18) + the sums
-__device__ __forceinline__ void p10_pair(int y0, int y1, bool simd, int su,
-                                         int sv, const YuvRule& rule,
-                                         uint32_t& w0, uint32_t& w1) {
-    if (simd) {
-        su -= 1024;
-        sv -= 1024;
-        const int b = (su * rule.ub) >> 16;
-        const int g = ((su * rule.ug) >> 16) + ((sv * rule.vg) >> 16);
-        const int r = (sv * rule.vr) >> 16;
-        const int l0 = ((4 + (y0 >> 4) - rule.y_offset) * rule.luma) >> 16;
-        const int l1 = ((4 + (y1 >> 4) - rule.y_offset) * rule.luma) >> 16;
-        w0 = bgr_word(sat8(l0 + b), sat8(l0 + g), sat8(l0 + r));
-        w1 = bgr_word(sat8(l1 + b), sat8(l1 + g), sat8(l1 + r));
-        return;
-    }
-    const int ui = su >> 19, vi = sv >> 19;
-    const int b = table_term(ui, rule.bu);
-    const int g = table_term(ui, rule.gu) + table_term(vi, rule.gv);
-    const int r = table_term(vi, rule.rv);
-    const int l0 = ((y0 << 12) + (1 << 18)) >> 19;
-    const int l1 = ((y1 << 12) + (1 << 18)) >> 19;
-    w0 = bgr_word(table_bgr(l0 + b, rule), table_bgr(l0 + g, rule),
-                  table_bgr(l0 + r, rule));
-    w1 = bgr_word(table_bgr(l1 + b, rule), table_bgr(l1 + g, rule),
-                  table_bgr(l1 + r, rule));
-}
 
 // A block's tile.  T: the sample type, uint8_t (8-bit) or uint16_t
 // (10-bit); QUARTER: rotation is 90 or 270
@@ -225,36 +187,11 @@ __device__ __forceinline__ void general_tile(
     if (mine) {
         const bool simd = sy < height - 2;
         uint32_t px[P10_PIXELS];
-#pragma unroll
-        for (int q = 0; q < P10_PIXELS / 2; ++q) {
-            // (columns past the picture: words never stored)
-            const int at = (vp - first) * PITCH + (col >> 1) + q;
-            const int* cu = chroma[0] + at;
-            const int* cv = chroma[1] + at;
-            int su, sv;
-            if (simd) {
-                su = sv = 4;
-#pragma unroll
-                for (int t = 0; t < P10_MAX_TAPS; ++t) {
-                    if (t < vsize) {
-                        su += (cu[t * PITCH] * taps[t]) >> 16;
-                        sv += (cv[t * PITCH] * taps[t]) >> 16;
-                    }
-                }
-            } else {
-                su = sv = 1 << 18;
-#pragma unroll
-                for (int t = 0; t < P10_MAX_TAPS; ++t) {
-                    if (t < vsize) {
-                        su += cu[t * PITCH] * taps[t];
-                        sv += cv[t * PITCH] * taps[t];
-                    }
-                }
-            }
-            p10_pair(sample_of<T>(luma, 2 * q) << (15 - DEPTH),
-                     sample_of<T>(luma, 2 * q + 1) << (15 - DEPTH), simd,
-                     su, sv, rule, px[2 * q], px[2 * q + 1]);
-        }
+        // (columns past the picture: words never stored)
+        const int at = (vp - first) * PITCH + (col >> 1);
+        general_pairs<T, PITCH, P10_MAX_TAPS, P10_PIXELS>(
+            chroma[0] + at, chroma[1] + at, simd, taps, vsize, luma,
+            15 - DEPTH, rule, px);
         put_pixels<P10_PIXELS>(bgr, m, sr, col, min(P10_PIXELS, m.tw - col),
                                px);
     }

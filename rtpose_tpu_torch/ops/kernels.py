@@ -1578,6 +1578,28 @@ def _tables_on(device: torch.device, h: int, width: int, location: int,
     return _GENERAL_TABLES[key]
 
 
+# the most taps the tap classes of csrc/yuv_planar_to_bgr.cu's entries
+# hold: horizontal where the vertical filter has one tap, horizontal where
+# it has more, vertical
+PLANAR_MAX_TAPS = {"rtpose_yuv_planar_general_to_bgr": (4, 8, 4),
+                   "rtpose_yuv_planar_full_chroma_to_bgr": (4, 4, 4)}
+
+
+def check_planar_taps(entry: str, hsize: int, vsize: int) -> None:
+    """Raise ValueError, naming the count, for filters that no tap class of
+    the planar `entry` holds (the entry refuses them with
+    cudaErrorInvalidValue)."""
+    one_row, more_rows, most_v = PLANAR_MAX_TAPS[entry]
+    most_h = one_row if vsize == 1 else more_rows
+    if vsize > most_v:
+        raise ValueError(f"{entry}: {vsize} vertical chroma taps; its tap "
+                         f"classes hold at most {most_v}")
+    if hsize > most_h:
+        raise ValueError(f"{entry}: {hsize} horizontal chroma taps at "
+                         f"{vsize} vertical; its tap classes hold at most "
+                         f"{most_h}")
+
+
 def _launch_general(entry: str, y, u, v, dtype: torch.dtype, *extra,
                     width: int, rotation: int, rule: YuvRule,
                     chroma_location: int, full_chroma: bool,
@@ -1588,6 +1610,8 @@ def _launch_general(entry: str, y, u, v, dtype: torch.dtype, *extra,
         _check(name, t, dtype, 2, dev)
     hpos, htaps, vpos, vtaps = _tables_on(dev, h, width, chroma_location,
                                           full_chroma, chroma)
+    if entry in PLANAR_MAX_TAPS:
+        check_planar_taps(entry, htaps.shape[1], vtaps.shape[1])
     quarter = rotation in (90, 270)
     out = torch.empty((width, h, 3) if quarter else (h, width, 3),
                       dtype=torch.uint8, device=dev)

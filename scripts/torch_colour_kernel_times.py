@@ -17,10 +17,13 @@ For each kernel and size (``ROUTES``: the unscaled 8-bit one at 480x640
 and 1080x1920; the 10-bit one also at 2160x3840; the 8-bit general one
 at 479x640 and 1079x1920; the full-chroma one at 479x639 and 1079x1919,
 8-bit, and 480x639, 1080x1919 and 2160x3839, 10-bit; 8-bit 4:2:2 at
-480x640 and 1080x1920; 10-bit 4:2:2 at 480x640, 1080x1920 and
-2160x3840; 8-bit 4:4:4 and gray at 1080x1920; a checkout without a
-kernel skips it) and turn (0 and 90), on random planes made from a seed
-(chroma left, BT.709 limited at 8 bits, BT.2020 limited above): the
+480x640 and 1080x1920; the general planar one on 10-bit 4:2:2 at
+480x640, 1080x1920 and 2160x3840, 8-bit 4:4:0 at 1080x1920 and 12-bit
+4:2:0 at 2160x3840; the full-chroma planar one on 8-bit 4:4:4 at
+480x640, 1080x1920 and 2160x3840 and 10-bit 4:2:2 at 1080x1919; gray
+at 1080x1920; a checkout without a kernel skips it) and turn (0 and
+90), on random planes made from a seed (chroma left, BT.709 limited at
+8 bits, BT.2020 limited above): the
 largest difference from the plain version on the card (it must be 0),
 and the device ms a launch from ``torch.profiler`` over 200 launches,
 warm (back to back on the same planes, which stay
@@ -56,8 +59,13 @@ ROUTES = {"yuv420_to_bgr": ((8, (480, 640)), (8, (1080, 1920))),
                             (8, (1080, 1920), (1, 0))),
           "yuv_planar_general_to_bgr": ((10, (480, 640), (1, 0)),
                                         (10, (1080, 1920), (1, 0)),
-                                        (10, (2160, 3840), (1, 0))),
-          "yuv_planar_full_chroma_to_bgr": ((8, (1080, 1920), (0, 0)),),
+                                        (10, (2160, 3840), (1, 0)),
+                                        (8, (1080, 1920), (0, 1)),
+                                        (12, (2160, 3840), (1, 1))),
+          "yuv_planar_full_chroma_to_bgr": ((8, (480, 640), (0, 0)),
+                                            (8, (1080, 1920), (0, 0)),
+                                            (8, (2160, 3840), (0, 0)),
+                                            (10, (1080, 1919), (1, 0))),
           "gray_to_bgr": ((8, (1080, 1920), None),)}
 
 
@@ -121,9 +129,10 @@ def _calls(kernels, name: str, depth: int, chroma=(1, 1)):
 
 
 def colour_kernel_times(dev, routes=ROUTES) -> dict:
-    """{kernel: {"HxW": {"depth", "bytes", "bound_ms", "rotation_T":
-    {...}}}}: the error against the plain version and the warm and cold
-    device ms of each turn, with their shares of the bound."""
+    """{kernel: {"HxW D-bit C": {"depth", "bytes", "bound_ms",
+    "rotation_T": {...}}}}: the error against the plain version and the
+    warm and cold device ms of each turn, with their shares of the
+    bound."""
     import torch
     from rtpose_tpu_torch.ops import kernels
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
@@ -168,7 +177,8 @@ def colour_kernel_times(dev, routes=ROUTES) -> dict:
                     device_ms_cold=cold_ms,
                     share_of_bound_warm=bound_ms / warm_ms,
                     share_of_bound_cold=bound_ms / cold_ms)
-            found.setdefault(name, {})[f"{h}x{w}"] = entry
+            found.setdefault(name, {})[
+                f"{h}x{w} {depth}-bit {kernels.CHROMA_NAMES[chroma]}"] = entry
     del flush
     return found
 

@@ -1834,6 +1834,18 @@ PLANAR_CASES = [  # (chroma, depth, (h, w), the kernel its route launches)
     ((0, 0), 10, (65, 131), "yuv_planar_full_chroma_to_bgr"),
     ((1, 1), 12, (480, 640), "yuv_planar_general_to_bgr"),
     ((1, 1), 12, (31, 47), "yuv_planar_full_chroma_to_bgr"),
+    # tiles ragged on both edges at every turn, each tap class
+    ((1, 0), 10, (65, 66), "yuv_planar_general_to_bgr"),
+    ((1, 0), 8, (33, 66), "yuv_planar_general_to_bgr"),
+    ((1, 0), 10, (33, 65), "yuv_planar_full_chroma_to_bgr"),
+    ((1, 0), 8, (65, 65), "yuv_planar_full_chroma_to_bgr"),
+    ((0, 1), 10, (65, 66), "yuv_planar_general_to_bgr"),
+    ((0, 1), 8, (33, 65), "yuv_planar_full_chroma_to_bgr"),
+    ((0, 0), 8, (33, 66), "yuv_planar_full_chroma_to_bgr"),
+    ((0, 0), 12, (65, 65), "yuv_planar_full_chroma_to_bgr"),
+    ((1, 1), 12, (65, 66), "yuv_planar_general_to_bgr"),
+    ((1, 1), 12, (33, 65), "yuv_planar_full_chroma_to_bgr"),
+    ((1, 0), 10, (2160, 3840), "yuv_planar_general_to_bgr"),
     (None, 8, (47, 63), "gray_to_bgr"),
     (None, 10, (480, 640), "gray_to_bgr"),
     (None, 12, (9, 9), "gray_to_bgr")]
@@ -1863,13 +1875,19 @@ def _format_planes(chroma, depth, h, w, seed, pitch_pad=0):
 def test_planar_kernels_match_plain(cuda, rotation, case):
     """Each entry of csrc/yuv_planar_to_bgr.cu against its plain version,
     error 0, at every (matrix, range), chroma locations 0 and 1, on planes
-    of an odd pitch whose bases are off 16 bytes, and on aligned ones."""
-    chroma, depth, (h, w), _ = case
+    of an odd pitch whose bases are off 16 bytes, and on aligned ones (the
+    plain version on the card above a megapixel: integer ops, the CPU's
+    results)."""
+    chroma, depth, (h, w), kernel = case
+    plain = {"yuv_planar_general_to_bgr": kernels.general_to_bgr_plain,
+             "yuv_planar_full_chroma_to_bgr":
+                 kernels.full_chroma_to_bgr_plain}.get(kernel)
     for pad, offset in ((0, 0), (3, 1)):
         planes = _format_planes(chroma, depth, h, w, seed=h * w + pad,
                                 pitch_pad=pad)
         on_card = _at_offset([p for p in planes if p is not None], offset,
                              cuda) + [None] * planes.count(None)
+        big = h * w > 1 << 20
         for matrix in (1, 2, 4, 7, 9):
             for full in (False, True):
                 rule = kernels.yuv_rule(matrix, full)
@@ -1878,8 +1896,9 @@ def test_planar_kernels_match_plain(cuda, rotation, case):
                               rule=rule, chroma_location=location,
                               chroma=chroma)
                     got = kernels.yuv420_frame_to_bgr(*on_card, **kw)
-                    want = kernels.yuv420_frame_to_bgr(*planes, **kw)
-                    assert torch.equal(got.cpu(), want), (
+                    want = (plain(*on_card, **kw) if big else
+                            kernels.yuv420_frame_to_bgr(*planes, **kw))
+                    assert torch.equal(got.cpu(), want.cpu()), (
                         pad, offset, matrix, full, location)
 
 
