@@ -4365,7 +4365,14 @@ PLANAR_KERNEL_CASES = (
     # tiles ragged on both edges, each tap class of the tiled entries
     ((1, 0), 10, (65, 66)), ((1, 0), 10, (33, 65)), ((0, 1), 10, (65, 66)),
     ((0, 1), 8, (33, 65)), ((0, 0), 8, (65, 66)), ((1, 1), 12, (65, 66)),
-    ((1, 0), 10, (2160, 3840)))
+    ((1, 0), 10, (2160, 3840)),
+    # the unscaled 4:2:2 and gray tiles ragged on both edges, and 4K
+    ((1, 0), 8, (66, 65)), ((1, 0), 8, (34, 129)), ((1, 0), 8, (2160, 3840)),
+    (None, 8, (65, 66)), (None, 10, (33, 129)), (None, 8, (2160, 3840)))
+# the 64-frame 480x640 files the reader converts on the card through the
+# unscaled 4:2:2 and gray kernels: (kernel, chroma, depth, writer)
+PLANAR_READS = (("yuv422_to_bgr", (1, 0), 8, "H.264 High 4:2:2 I_PCM MP4"),
+                ("gray_to_bgr", None, 10, "HEVC 4:0:0 10-bit PCM MP4"))
 PLANAR_DEMO_FORMAT = ((1, 0), 10)    # H.264 High 4:2:2 10-bit I_PCM
 PLANAR_ROWS = (   # (kernel, chroma, depth, (h, w) timed, what it replaces)
     ("yuv422_to_bgr", (1, 0), 8, (480, 640),
@@ -4403,6 +4410,11 @@ def chroma_formats_phase(dev, smi: str, found: dict):
       (``format_files``: HEVC RExt 4:2:2 / 4:4:4, 4:0:0, Main 12; H.264
       High 4:2:2) read on the card: == the CPU, == this machine's cv2;
       each route's kernel launched once a frame, no 4:2:0 kernel;
+    - 64-frame 480x640 files of 8-bit 4:2:2 (H.264 High 4:2:2 I_PCM) and
+      10-bit gray (HEVC 4:0:0 PCM) read on the card by the demo's reader
+      (``PLANAR_READS``): ``yuv422_to_bgr`` / ``gray_to_bgr`` exactly 64
+      times and no other colour kernel, the CPU read's frames, read ms a
+      frame and its split; these launches are the two kernels' rows';
     - the flagship video demo (VGG19, 6 stages, flip) on a 64-frame
       480x640 H.264 High 4:2:2 10-bit I_PCM MP4 (the cameras' intra
       format), writing XVID: K1, K3 and G once a batch and
@@ -4603,6 +4615,63 @@ def chroma_formats_phase(dev, smi: str, found: dict):
         check(all(reader_launches.values()), f"chroma formats: a kernel "
               f"no file launched: {reader_launches}")
 
+        # 64-frame 480x640 8-bit 4:2:2 and 10-bit gray files read on the
+        # card through the demo's reader: each frame one launch of the
+        # route's kernel and no other colour kernel, the CPU read's frames
+        h, w = VIDEO_FILE_SHAPE
+        long_reads = {}
+        for kernel, chroma, depth, what in PLANAR_READS:
+            pics = sv.scene_frames(range(1720, 1736), h, w, chroma, depth)
+            shown = [p for pic in pics for p in (pic, None, None, None)]
+            path = os.path.join(work, f"{kernel}_{VIDEO_FILE_FRAMES}.mp4")
+            t0 = time.perf_counter()
+            if chroma is None:
+                sv.write_hevc_mp4(path, sv.encode_hevc_pcm(
+                    shown, key_every=16, depth=depth, chroma=0),
+                    fps_timescale=(12800, 640))
+            else:
+                sv.write_ipcm_mp4(path, shown, key_every=16, depth=depth,
+                                  fps_timescale=(12800, 640))
+            write_s = time.perf_counter() - t0
+            frames = {}
+            for device in ("cpu", dev):
+                cap = video_io.open_video(path, device=device)
+                if device == dev:
+                    torch.cuda.synchronize()
+                    kernels.reset_launch_counts()
+                frames[str(device)] = [f for ok, f in
+                                       iter(cap.read, (False, None))]
+                if device == dev:
+                    torch.cuda.synchronize()
+                    counts = kernels.launch_counts()
+                    split = {k: v * 1e3 / VIDEO_FILE_FRAMES
+                             for k, v in cap.seconds.items()}
+                cap.release()
+            got, plain = frames[str(dev)], frames["cpu"]
+            others = {k: n for k, n in counts.items()
+                      if "_to_bgr" in k and k != kernel and n}
+            long_reads[kernel] = entry = {
+                "input": f"{what} {h}x{w}, 16 pictures shown 4 times",
+                "frames": len(got), "launches": counts[kernel],
+                "other_colour_launches": others,
+                "card_vs_cpu": max((int(np.abs(a.astype(int) - b).max())
+                                    for a, b in zip(got, plain)), default=-1),
+                "file_bytes": os.path.getsize(path), "write_s": write_s,
+                "read_ms_a_frame": split,
+                "read_ms_a_frame_total": sum(split.values())}
+            check(len(got) == len(plain) == VIDEO_FILE_FRAMES
+                  and counts[kernel] == VIDEO_FILE_FRAMES and not others
+                  and entry["card_vs_cpu"] == 0,
+                  f"chroma formats: the {VIDEO_FILE_FRAMES}-frame {what} "
+                  f"on the card: {entry}")
+            log(f"phase 16b: the {VIDEO_FILE_FRAMES}-frame {h}x{w} {what} "
+                f"read on the card: {counts[kernel]} launches of {kernel}, "
+                f"others {others}, card vs CPU {entry['card_vs_cpu']}; read "
+                f"{entry['read_ms_a_frame_total']:.3f} ms a frame ("
+                + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                + f") [{smi}]")
+        numbers["long_reads"] = long_reads
+
         # the flagship video demo on a 64-frame 480x640 H.264 High 4:2:2
         # 10-bit I_PCM MP4: 16 pictures, each shown four times (P-skip
         # repeats), an IDR every 16 frames
@@ -4672,10 +4741,13 @@ def chroma_formats_phase(dev, smi: str, found: dict):
         rows[name].update(
             launches=demo_counts[name], reader_launches=reader_launches[name],
             launches_note="the 10-bit 4:2:2 demo's run for "
-                          "yuv_planar_general_to_bgr; the others' path is "
-                          "the reader on the files of their route "
+                          "yuv_planar_general_to_bgr; the 64-frame reads' "
+                          "for yuv422_to_bgr and gray_to_bgr; the others' "
+                          "path is the reader on the files of their route "
                           "(reader_launches)")
-        if name != "yuv_planar_general_to_bgr":
+        if name in long_reads:
+            rows[name]["launches"] = long_reads[name]["launches"]
+        elif name != "yuv_planar_general_to_bgr":
             rows[name]["launches"] = reader_launches[name]
     numbers["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 16b: {numbers['phase_s']:.1f} s [{smi}]")
@@ -5566,8 +5638,9 @@ def main() -> int:
 
     # 16b. the chroma formats (4:2:2, 4:4:0, 4:4:4, 4:0:0, 12 bits): the
     # probe's formats part, csrc/yuv_planar_to_bgr.cu == plain at every
-    # route, the fixtures and PCM files against the CPU and cv2, the
-    # flagship video demo on a 64-frame H.264 High 4:2:2 10-bit MP4
+    # route, the fixtures and PCM files against the CPU and cv2, 64-frame
+    # 8-bit 4:2:2 and gray files through the reader, the flagship video
+    # demo on a 64-frame H.264 High 4:2:2 10-bit MP4
     cf_launches, cf_numbers, planar_rows = chroma_formats_phase(
         dev, smi, vf_numbers["probe"]["formats"])
 

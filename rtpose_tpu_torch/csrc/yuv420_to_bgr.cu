@@ -41,69 +41,19 @@
 // 1080x1920 9.33 MB (2.79 us).
 //
 // A thread a few output pixels would, under a quarter turn, read 32
-// source rows a warp and write BGR a byte at a time.  Here (yuv_tile.cuh)
-// a block of 256 threads owns 32 x 64 pixels of the output (32 source
-// rows x 64 columns, 64 x 32 turned).  A thread takes eight pixels of one
-// source row: their luma in one 8-byte load and each chroma plane's four
-// samples in one 4-byte load (single bytes where a row start is off, or
-// at the ragged edge; the chroma of each pixel by its own index, so odd
-// sizes stay right), the chroma terms once a pair, the pixels converted
-// in registers.  It puts the BGR words into a shared tile in the output's
-// orientation (8,320 bytes), and the block writes the tile's 32 rows of
-// 192 bytes with 16-byte stores.  So each plane byte is read from device
-// memory once, and the stores are the same at every turn.
+// source rows a warp and write BGR a byte at a time.  Here it converts in
+// the tiles of yuv_tile.cuh (yuv_unscaled.cuh, which the 4:2:2 kernel
+// shares, says how): each plane byte is read from device memory once,
+// and the stores are the same at every turn.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "yuv_rule.cuh"
 #include "yuv_tile.cuh"
+#include "yuv_unscaled.cuh"
 
-#define YUV_THREADS 256
-// a thread's pixels, of one source row
-#define YUV_PIXELS (TILE_ROWS * TILE_COLS / YUV_THREADS)
-
-// QUARTER: rotation is 90 or 270
-template <bool QUARTER>
-__global__ void __launch_bounds__(YUV_THREADS) yuv420_to_bgr_kernel(
-        const uint8_t* __restrict__ y, const uint8_t* __restrict__ u,
-        const uint8_t* __restrict__ v, int y_pitch, int c_pitch, int height,
-        int width, int rotation, YuvRule rule, uint8_t* __restrict__ out) {
-    __shared__ uint32_t bgr[BGR_TILE_WORDS];
-    const TileMap m = tile_map<QUARTER>(height, width, rotation);
-    // this thread's pixels: source row r0 + sr, tile columns col..
-    constexpr int ROW_THREADS = (QUARTER ? TILE_ROWS : TILE_COLS) / YUV_PIXELS;
-    const int sr = threadIdx.x / ROW_THREADS;
-    const int col = YUV_PIXELS * (threadIdx.x % ROW_THREADS);
-    if (sr < m.th && col < m.tw) {
-        const int sy = m.r0 + sr, n = min(YUV_PIXELS, m.tw - col);
-        uint32_t yw[YUV_PIXELS / 4], uw[(YUV_PIXELS / 2 + 3) / 4],
-                 vw[(YUV_PIXELS / 2 + 3) / 4];
-        load_bytes<YUV_PIXELS>(y + (size_t)sy * y_pitch + m.c0 + col, n, yw);
-        const size_t c = (size_t)(sy >> 1) * c_pitch + ((m.c0 + col) >> 1);
-        load_bytes<YUV_PIXELS / 2>(u + c, (n + 1) >> 1, uw);
-        load_bytes<YUV_PIXELS / 2>(v + c, (n + 1) >> 1, vw);
-        uint32_t px[YUV_PIXELS];
-#pragma unroll
-        for (int q = 0; q < YUV_PIXELS / 2; ++q) {
-            const int u8 = 8 * (byte_of(uw, q) - 128);
-            const int v8 = 8 * (byte_of(vw, q) - 128);
-            const int b = (u8 * rule.ub) >> 16;
-            const int g = ((u8 * rule.ug) >> 16) + ((v8 * rule.vg) >> 16);
-            const int r = (v8 * rule.vr) >> 16;
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int yy = ((8 * byte_of(yw, 2 * q + e) - rule.y_offset)
-                                * rule.luma) >> 16;
-                px[2 * q + e] = bgr_word(sat8(yy + b), sat8(yy + g),
-                                         sat8(yy + r));
-            }
-        }
-        put_pixels<YUV_PIXELS>(bgr, m, sr, col, n, px);
-    }
-    __syncthreads();
-    store_tile<YUV_THREADS>(bgr, m, out);
-}
+UNSCALED_KERNEL(yuv420_to_bgr_kernel, 1)
 
 extern "C" int rtpose_yuv420_to_bgr(const void* y, const void* u,
                                     const void* v, int y_pitch, int c_pitch,

@@ -19,7 +19,9 @@
 //
 // - rtpose_yuv422_to_bgr: 8-bit 4:2:2 of an even height, swscale's
 //   unscaled yuv422p -> bgr24; yuv420_to_bgr.cu's rule with each luma
-//   row its own chroma row (chroma by nearest sample, of the pixel pair).
+//   row its own chroma row (chroma by nearest sample, of the pixel pair),
+//   in that kernel's tile (yuv_unscaled.cuh, chroma row sy where 4:2:0
+//   reads sy >> 1).
 // - rtpose_yuv_planar_general_to_bgr: the scaling path at SWS_BICUBIC at
 //   an even width, chroma shared by each pixel pair (2c, 2c + 1):
 //   1. each chroma row filtered horizontally to the pairs,
@@ -73,20 +75,26 @@
 //   full-chroma entry, 8-bit 4:4:4: 480x640 1.84 MB (0.55 us), 1080x1920
 //   12.44 MB (3.71 us), 2160x3840 49.77 MB (14.86 us); 10-bit 4:2:2
 //   1080x1919 14.51 MB (4.33 us);
-//   gray 1080x1920 8.3 MB (2.48 us).
+//   4:2:2 (unscaled): 480x640 1.54 MB (0.46 us), 1080x1920 10.37 MB
+//   (3.09 us), 2160x3840 41.47 MB (12.38 us);
+//   gray: 10-bit 480x640 1.54 MB (0.46 us), 8-bit 1080x1920 8.29 MB
+//   (2.48 us), 8-bit 2160x3840 33.18 MB (9.90 us).
 //
-// The general and full-chroma entries convert in yuv_tile.cuh's tiles, as
-// the 4:2:0 kernels do (yuv420p10_to_bgr.cu, yuv420_full_chroma_to_bgr.cu,
-// whose output rules, chroma staging and vertical sums they share,
-// yuv_chroma.cuh): a block of 256 threads owns 32 x 64 pixels of the
-// output (32 source rows x 64 columns, 64 x 32 turned); a thread owns
-// eight pixels of one source row, their luma in one 16-byte (8-bit:
-// 8-byte) load; their BGR words go into a shared tile in the output's
-// orientation and out with 16-byte stores (store_tile), the same at every
-// turn.  Each entry is a template on its tap class, (most horizontal,
-// most vertical taps), the least class that holds the frame's taps, so
-// that each instantiation keeps only the registers and buffers its
-// formats need:
+// Every entry converts in yuv_tile.cuh's tiles, as the 4:2:0 kernels do:
+// a block of 256 threads owns 32 x 64 pixels of the output (32 source
+// rows x 64 columns, 64 x 32 turned); a thread owns eight pixels of one
+// source row, their luma in one 16-byte (8-bit: 8-byte) load; their BGR
+// words go into a shared tile in the output's orientation (8,320 bytes)
+// and out with 16-byte stores (store_tile), the same at every turn.  The
+// 4:2:2 entry is the unscaled 4:2:0 kernel's tile (yuv_unscaled.cuh),
+// each plane's four chroma samples of a thread in one 4-byte load; the
+// gray entry a pure stream, each word B = G = R of one sample.  The
+// general and full-chroma entries share the scaling 4:2:0 kernels' output
+// rules, chroma staging and vertical sums (yuv420p10_to_bgr.cu,
+// yuv420_full_chroma_to_bgr.cu, yuv_chroma.cuh), each a template on its
+// tap class, (most horizontal, most vertical taps), the least class that
+// holds the frame's taps, so that each instantiation keeps only the
+// registers and buffers its formats need:
 // - (1, 1), 4:4:4 at full chroma: nothing to filter, a pure stream: the
 //   thread's eight U and eight V samples in one load each (where the
 //   table reads them in a line, as it does at 4:4:4; else a load a
@@ -113,12 +121,8 @@
 // above their classes'.  ptxas: 32-48 registers, no spills; shared
 // memory a block 8,320 bytes at (1, 1), 13,056-17,152 at (4, 1), at more
 // vertical taps 13,216-13,600 on the general path and 18,688-19,200 at
-// full chroma.
-//
-// rtpose_yuv422_to_bgr and rtpose_gray_to_bgr are still the simple form:
-// a thread a pixel reading the planes through the cache and writing three
-// bytes, so that under a quarter turn a warp writes 32 output rows
-// (PERF.md has their times; they are the next to take to the tiles).
+// full chroma; the 4:2:2 and gray entries 30-32 registers and 8,320
+// bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,6 +130,7 @@
 #include "yuv_rule.cuh"
 #include "yuv_tile.cuh"
 #include "yuv_chroma.cuh"
+#include "yuv_unscaled.cuh"
 
 #define PLANAR_THREADS 256
 // a tiled thread's pixels, of one source row
@@ -153,48 +158,9 @@
 #define PLANAR_SPAN_H8 70
 #define PLANAR_SPAN_H8_TURNED 38
 
-// the byte offset of source pixel (r, c)'s BGR in the turned output
-__device__ __forceinline__ size_t planar_out(int r, int c, int h, int w,
-                                             int rotation) {
-    int row = r, col = c, ow = w;
-    if (rotation == 90) {
-        row = c;
-        col = h - 1 - r;
-        ow = h;
-    } else if (rotation == 180) {
-        row = h - 1 - r;
-        col = w - 1 - c;
-    } else if (rotation == 270) {
-        row = w - 1 - c;
-        col = r;
-        ow = h;
-    }
-    return 3 * ((size_t)row * ow + col);
-}
-
-__device__ __forceinline__ void planar_put(uint8_t* out, size_t at, int b,
-                                           int g, int r) {
-    out[at] = (uint8_t)b;
-    out[at + 1] = (uint8_t)g;
-    out[at + 2] = (uint8_t)r;
-}
-
-__global__ void __launch_bounds__(PLANAR_THREADS) yuv422_to_bgr_kernel(
-        const uint8_t* __restrict__ y, const uint8_t* __restrict__ u,
-        const uint8_t* __restrict__ v, int y_pitch, int c_pitch, int height,
-        int width, int rotation, YuvRule rule, uint8_t* __restrict__ out) {
-    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (size_t)height * width) return;
-    const int r = (int)(i / width), c = (int)(i % width);
-    const size_t at = (size_t)r * c_pitch + (c >> 1);
-    const int u8 = 8 * ((int)u[at] - 128), v8 = 8 * ((int)v[at] - 128);
-    const int l = ((8 * (int)y[(size_t)r * y_pitch + c] - rule.y_offset)
-                   * rule.luma) >> 16;
-    planar_put(out, planar_out(r, c, height, width, rotation),
-               sat8(l + ((u8 * rule.ub) >> 16)),
-               sat8(l + ((u8 * rule.ug) >> 16) + ((v8 * rule.vg) >> 16)),
-               sat8(l + ((v8 * rule.vr) >> 16)));
-}
+// 8-bit 4:2:2: the unscaled 4:2:0 kernel's tile, each luma row its own
+// chroma row
+UNSCALED_KERNEL(yuv422_to_bgr_kernel, 0)
 
 // A block's tile of the general path (FULL false: chroma shared by each
 // pixel pair) or of full chroma.  T: the sample type, uint8_t (8-bit) or
@@ -463,17 +429,42 @@ __device__ __forceinline__ void planar_tile(
 PLANAR_KERNEL(yuv_planar_general_to_bgr_tiled, false)
 PLANAR_KERNEL(yuv_planar_full_chroma_to_bgr_tiled, true)
 
-template <typename T>
+// 4:0:0, a pure stream through the same tile: a thread's eight samples
+// in one load (8 bytes at 8 bits, 16 above), B = G = R = min((Y15 + 64)
+// >> 7, 255) (Y itself at 8 bits) as one word.  T: the sample type,
+// uint8_t (8-bit) or uint16_t (10- and 12-bit, `depth`); QUARTER:
+// rotation is 90 or 270.
+template <typename T, bool QUARTER>
 __global__ void __launch_bounds__(PLANAR_THREADS) gray_to_bgr_kernel(
         const T* __restrict__ y, int y_pitch, int height, int width,
         int depth, int rotation, uint8_t* __restrict__ out) {
-    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (size_t)height * width) return;
-    const int r = (int)(i / width), c = (int)(i % width);
-    const int g = (((int)y[(size_t)r * y_pitch + c] << (15 - depth)) + 64)
-                  >> 7;
-    const int s = g < 255 ? g : 255;
-    planar_put(out, planar_out(r, c, height, width, rotation), s, s, s);
+    constexpr int S = sizeof(T);
+    constexpr int N = PLANAR_PIXELS;
+    __shared__ uint32_t bgr[BGR_TILE_WORDS];
+    const TileMap m = tile_map<QUARTER>(height, width, rotation);
+    // this thread's pixels: source row r0 + sr, tile columns col..
+    constexpr int ROW_THREADS = (QUARTER ? TILE_ROWS : TILE_COLS) / N;
+    const int sr = threadIdx.x / ROW_THREADS;
+    const int col = N * (threadIdx.x % ROW_THREADS);
+    if (sr < m.th && col < m.tw) {
+        const int n = min(N, m.tw - col);
+        uint32_t luma[S * N / 4];
+        load_bytes<S * N>(
+            reinterpret_cast<const uint8_t*>(
+                y + (size_t)(m.r0 + sr) * y_pitch + m.c0 + col), S * n,
+            luma);
+        uint32_t px[N];
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+            int g = sample_of<T>(luma, k);
+            if constexpr (S == 2)
+                g = min(((g << (15 - depth)) + 64) >> 7, 255);
+            px[k] = (uint32_t)g * 0x010101u;
+        }
+        put_pixels<N>(bgr, m, sr, col, n, px);
+    }
+    __syncthreads();
+    store_tile<PLANAR_THREADS>(bgr, m, out);
 }
 
 static bool planar_bad(int height, int width, int y_pitch, int rotation,
@@ -484,10 +475,6 @@ static bool planar_bad(int height, int width, int y_pitch, int rotation,
                && rotation != 270);
 }
 
-static unsigned planar_blocks(size_t items) {
-    return (unsigned)((items + PLANAR_THREADS - 1) / PLANAR_THREADS);
-}
-
 extern "C" int rtpose_yuv422_to_bgr(const void* y, const void* u,
                                     const void* v, int y_pitch, int c_pitch,
                                     int height, int width, int rotation,
@@ -495,8 +482,11 @@ extern "C" int rtpose_yuv422_to_bgr(const void* y, const void* u,
     if (planar_bad(height, width, y_pitch, rotation, 8)
             || c_pitch < (width + 1) / 2)
         return (int)cudaErrorInvalidValue;
-    yuv422_to_bgr_kernel<<<planar_blocks((size_t)height * width),
-                           PLANAR_THREADS, 0, (cudaStream_t)stream>>>(
+    const auto kernel = rotation == 90 || rotation == 270
+                        ? yuv422_to_bgr_kernel<true>
+                        : yuv422_to_bgr_kernel<false>;
+    kernel<<<tile_grid(height, width, rotation), YUV_THREADS, 0,
+             (cudaStream_t)stream>>>(
         (const uint8_t*)y, (const uint8_t*)u, (const uint8_t*)v, y_pitch,
         c_pitch, height, width, rotation, rule, (uint8_t*)out);
     return (int)cudaGetLastError();
@@ -590,21 +580,28 @@ extern "C" int rtpose_yuv_planar_full_chroma_to_bgr(
                         vsize, rule, out, stream);
 }
 
+template <typename T>
+static void launch_gray(const void* y, int y_pitch, int height, int width,
+                        int depth, int rotation, void* out,
+                        cudaStream_t stream) {
+    const auto kernel = rotation == 90 || rotation == 270
+                        ? gray_to_bgr_kernel<T, true>
+                        : gray_to_bgr_kernel<T, false>;
+    kernel<<<tile_grid(height, width, rotation), PLANAR_THREADS, 0,
+             stream>>>((const T*)y, y_pitch, height, width, depth, rotation,
+                       (uint8_t*)out);
+}
+
 extern "C" int rtpose_gray_to_bgr(const void* y, int y_pitch, int height,
                                   int width, int depth, int rotation,
                                   void* out, void* stream) {
     if (planar_bad(height, width, y_pitch, rotation, depth))
         return (int)cudaErrorInvalidValue;
-    const unsigned blocks = planar_blocks((size_t)height * width);
     if (depth == 8)
-        gray_to_bgr_kernel<uint8_t><<<blocks, PLANAR_THREADS, 0,
-                                      (cudaStream_t)stream>>>(
-            (const uint8_t*)y, y_pitch, height, width, depth, rotation,
-            (uint8_t*)out);
+        launch_gray<uint8_t>(y, y_pitch, height, width, depth, rotation, out,
+                             (cudaStream_t)stream);
     else
-        gray_to_bgr_kernel<uint16_t><<<blocks, PLANAR_THREADS, 0,
-                                       (cudaStream_t)stream>>>(
-            (const uint16_t*)y, y_pitch, height, width, depth, rotation,
-            (uint8_t*)out);
+        launch_gray<uint16_t>(y, y_pitch, height, width, depth, rotation,
+                              out, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-// The tile the video-colour kernels (yuv420_to_bgr.cu, yuv420p10_to_bgr.cu,
-// yuv420_full_chroma_to_bgr.cu, yuv_planar_to_bgr.cu's general and
-// full-chroma entries) convert in and write out: a block owns
-// TILE_ROWS x TILE_COLS pixels of the output, turned by cv2's cv::rotate
+// The tile the video-colour kernels (yuv_unscaled.cuh, yuv420p10_to_bgr.cu,
+// yuv420_full_chroma_to_bgr.cu, yuv_planar_to_bgr.cu) convert in and
+// write out: a block owns TILE_ROWS x TILE_COLS pixels of the output,
+// turned by cv2's cv::rotate
 // (output (i, j) is source (H-1-j, i) at 90, (H-1-i, W-1-j) at 180 and
 // (j, W-1-i) at 270), so TILE_ROWS x TILE_COLS source pixels at 0 and 180
 // and TILE_COLS x TILE_ROWS at 90 and 270.  It puts each pixel's BGR as

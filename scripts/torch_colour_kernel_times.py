@@ -17,13 +17,13 @@ For each kernel and size (``ROUTES``: the unscaled 8-bit one at 480x640
 and 1080x1920; the 10-bit one also at 2160x3840; the 8-bit general one
 at 479x640 and 1079x1920; the full-chroma one at 479x639 and 1079x1919,
 8-bit, and 480x639, 1080x1919 and 2160x3839, 10-bit; 8-bit 4:2:2 at
-480x640 and 1080x1920; the general planar one on 10-bit 4:2:2 at
-480x640, 1080x1920 and 2160x3840, 8-bit 4:4:0 at 1080x1920 and 12-bit
-4:2:0 at 2160x3840; the full-chroma planar one on 8-bit 4:4:4 at
-480x640, 1080x1920 and 2160x3840 and 10-bit 4:2:2 at 1080x1919; gray
-at 1080x1920; a checkout without a kernel skips it) and turn (0 and
-90), on random planes made from a seed (chroma left, BT.709 limited at
-8 bits, BT.2020 limited above): the
+480x640, 1080x1920 and 2160x3840; the general planar one on 10-bit
+4:2:2 at 480x640, 1080x1920 and 2160x3840, 8-bit 4:4:0 at 1080x1920 and
+12-bit 4:2:0 at 2160x3840; the full-chroma planar one on 8-bit 4:4:4 at
+480x640, 1080x1920 and 2160x3840 and 10-bit 4:2:2 at 1080x1919; gray at
+480x640 (10-bit), 1080x1920 and 2160x3840 (8-bit); a checkout without a
+kernel skips it) and turn (0 and 90), on random planes made from a seed
+(chroma left, BT.709 limited at 8 bits, BT.2020 limited above): the
 largest difference from the plain version on the card (it must be 0),
 and the device ms a launch from ``torch.profiler`` over 200 launches,
 warm (back to back on the same planes, which stay
@@ -56,7 +56,8 @@ ROUTES = {"yuv420_to_bgr": ((8, (480, 640)), (8, (1080, 1920))),
                                         (10, (480, 639)), (10, (1080, 1919)),
                                         (10, (2160, 3839))),
           "yuv422_to_bgr": ((8, (480, 640), (1, 0)),
-                            (8, (1080, 1920), (1, 0))),
+                            (8, (1080, 1920), (1, 0)),
+                            (8, (2160, 3840), (1, 0))),
           "yuv_planar_general_to_bgr": ((10, (480, 640), (1, 0)),
                                         (10, (1080, 1920), (1, 0)),
                                         (10, (2160, 3840), (1, 0)),
@@ -66,7 +67,8 @@ ROUTES = {"yuv420_to_bgr": ((8, (480, 640)), (8, (1080, 1920))),
                                             (8, (1080, 1920), (0, 0)),
                                             (8, (2160, 3840), (0, 0)),
                                             (10, (1080, 1919), (1, 0))),
-          "gray_to_bgr": ((8, (1080, 1920), None),)}
+          "gray_to_bgr": ((10, (480, 640), None), (8, (1080, 1920), None),
+                          (8, (2160, 3840), None))}
 
 
 def device_ms(fn, kernel: str, iters: int) -> float:

@@ -1848,7 +1848,15 @@ PLANAR_CASES = [  # (chroma, depth, (h, w), the kernel its route launches)
     ((1, 0), 10, (2160, 3840), "yuv_planar_general_to_bgr"),
     (None, 8, (47, 63), "gray_to_bgr"),
     (None, 10, (480, 640), "gray_to_bgr"),
-    (None, 12, (9, 9), "gray_to_bgr")]
+    (None, 12, (9, 9), "gray_to_bgr"),
+    # the unscaled 4:2:2 and gray tiles: ragged on both edges at every
+    # turn, and 4K
+    ((1, 0), 8, (66, 65), "yuv422_to_bgr"),
+    ((1, 0), 8, (34, 129), "yuv422_to_bgr"),
+    ((1, 0), 8, (2160, 3840), "yuv422_to_bgr"),
+    (None, 8, (65, 66), "gray_to_bgr"),
+    (None, 10, (33, 129), "gray_to_bgr"),
+    (None, 8, (2160, 3840), "gray_to_bgr")]
 PLANAR_KERNELS = ("yuv420_to_bgr", "yuv420p10_to_bgr",
                   "yuv420_general_to_bgr", "yuv420_full_chroma_to_bgr",
                   "yuv422_to_bgr", "yuv_planar_general_to_bgr",
@@ -1867,6 +1875,17 @@ def _format_planes(chroma, depth, h, w, seed, pitch_pad=0):
     return planes + [None] * (3 - len(planes))
 
 
+def _unscaled_plain(y, u, v, *, width, rotation, rule, chroma, **_):
+    return kernels.yuv420_to_bgr_plain(y, u, v, width=width,
+                                       rotation=rotation, rule=rule,
+                                       chroma=chroma)
+
+
+def _gray_plain(y, u, v, *, width, depth, rotation, **_):
+    return kernels.gray_to_bgr_plain(y, width=width, depth=depth,
+                                     rotation=rotation)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rotation", [0, 90, 180, 270])
 @pytest.mark.parametrize("case", PLANAR_CASES,
@@ -1881,7 +1900,9 @@ def test_planar_kernels_match_plain(cuda, rotation, case):
     chroma, depth, (h, w), kernel = case
     plain = {"yuv_planar_general_to_bgr": kernels.general_to_bgr_plain,
              "yuv_planar_full_chroma_to_bgr":
-                 kernels.full_chroma_to_bgr_plain}.get(kernel)
+                 kernels.full_chroma_to_bgr_plain,
+             "yuv422_to_bgr": _unscaled_plain,
+             "gray_to_bgr": _gray_plain}[kernel]
     for pad, offset in ((0, 0), (3, 1)):
         planes = _format_planes(chroma, depth, h, w, seed=h * w + pad,
                                 pitch_pad=pad)
