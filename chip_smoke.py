@@ -66,8 +66,9 @@ entry points a user calls:
   JPEGs one at a time (p50/p99 latency) and from 8 clients at once
   (requests/s, p50/p99, the mean micro-batch), and over rendered maps
   card against CPU, a crowded frame retried through K2; the video demo
-  on a 64-frame Motion-JPEG AVI (frames/s; the output rereads); the
-  picture demo; the eval CLI's ``--vis-dir`` (one drawing a frame);
+  on a 64-frame Motion-JPEG AVI (frames/s; the output rereads;
+  ``yuv420_to_bgr`` once a frame); the picture demo; the eval CLI's
+  ``--vis-dir`` (one drawing a frame);
 - the native training loader (phase 9c): the C++ pool built from the
   repository against Pillow's libjpeg, the train CLI with
   ``train.data_loader=native`` on phase 9b's JPEGs (K4 once a step), K4
@@ -150,6 +151,17 @@ entry points a user calls:
   High 4:2:2 10-bit MP4 (K1, K3 and G once a batch,
   ``yuv_planar_general_to_bgr`` once a frame); each kernel row carries
   ``chroma_demo_launches``;
+- Motion-JPEG and VP8 (phase 16c, ROADMAP.md item 4j (a), (b)): the
+  probe's ``mjpeg_vp8`` part (the wheel's ``mjpeg`` and ``vp8``
+  decoders, the backend this machine's cv2 picks for a Motion-JPEG AVI,
+  its cv2 against the port's CPU read); the committed VP8 fixtures and
+  Motion-JPEG files of the repository's writers (4:2:0, 4:2:2, 4:4:4 and
+  gray JPEGs in AVI, MOV, MP4 and Matroska) on the card == the CPU ==
+  cv2, one launch of the route's colour kernel a frame; the flagship
+  video demo on a 64-frame 480x640 4:2:2 Motion-JPEG MOV
+  (``yuv422_to_bgr``) and on the committed 480x640 VP8 WebM
+  (``yuv420_to_bgr``), K1, K3 and G once a batch; each kernel row carries
+  ``mjpeg_vp8_demo_launches``, each colour row ``mjpeg_vp8_launches``;
 
 and checks that each path launched its kernels.  Also holds one fp32
 train step on the card against the CPU.  Prints timings beside the card's
@@ -1761,7 +1773,8 @@ def frontends_phase(dev, smi: str):
       JSON, one request at a time and as one mixed-shape group;
     - the video demo's ``main()`` on a 64-frame 480x640 Motion-JPEG AVI
       written by ``demo.video_io`` at --batch 8 (frames/s; the output
-      rereads as 64 frames of 480x640);
+      rereads as 64 frames of 480x640; each frame decoded by libavcodec's
+      ``mjpeg`` and one launch of ``yuv420_to_bgr``);
     - the picture demo's ``main()`` on one JPEG, which writes a PNG.
 
     -> ({"http": launch counts, "video": launch counts}, numbers)."""
@@ -2002,6 +2015,12 @@ def frontends_phase(dev, smi: str):
         video_counts = kernels.launch_counts()
         check(f"processed {VIDEO_FRAMES} frames" in text.getvalue(),
               f"video demo: {text.getvalue()!r}")
+        # the AVI's 4:2:0 JPEGs decode by libavcodec's mjpeg, as cv2's
+        # FFMPEG backend decodes them, and convert on the card
+        check(video_counts["yuv420_to_bgr"] == VIDEO_FRAMES and sum(
+            n for k, n in video_counts.items() if k.endswith("_to_bgr"))
+            == VIDEO_FRAMES, f"video demo: yuv420_to_bgr not once a frame "
+            f"(nor another colour kernel): {video_counts}")
         cap = open_video(out)
         reread = []
         while True:
@@ -4754,6 +4773,223 @@ def chroma_formats_phase(dev, smi: str, found: dict):
     return demo_counts, numbers, [rows[name] for name in names]
 
 
+# phase 16c: Motion-JPEG and VP8 (ROADMAP.md item 4j (a), (b); fault F6)
+MJPEG_DEMO_SAMPLING = "422"     # cameras' Motion-JPEG: 4:2:2 JPEGs in MOV
+COLOUR_KERNELS = ("yuv420_to_bgr", "yuv420p10_to_bgr",
+                  "yuv420_general_to_bgr", "yuv420_full_chroma_to_bgr",
+                  "yuv422_to_bgr", "yuv_planar_general_to_bgr",
+                  "yuv_planar_full_chroma_to_bgr", "gray_to_bgr")
+
+
+def route_kernel(chroma, h: int, w: int) -> str:
+    """The colour kernel an 8-bit h x w frame of `chroma` takes
+    (``kernels.frame_route``'s route, by the chroma format)."""
+    from rtpose_tpu_torch.ops import kernels
+    route = kernels.frame_route(chroma, 8, h, w)
+    if route == "gray":
+        return "gray_to_bgr"
+    if chroma == (1, 1):
+        return {"unscaled": "yuv420_to_bgr",
+                "general": "yuv420_general_to_bgr",
+                "full_chroma": "yuv420_full_chroma_to_bgr"}[route]
+    return {"unscaled": "yuv422_to_bgr",
+            "general": "yuv_planar_general_to_bgr",
+            "full_chroma": "yuv_planar_full_chroma_to_bgr"}[route]
+
+
+def mjpeg_vp8_phase(dev, smi: str, found: dict):
+    """Phase 16c: Motion-JPEG and VP8 (ROADMAP.md item 4j (a), (b); fault
+    F6), through libavcodec's ``mjpeg`` and ``vp8`` decoders and the
+    existing colour kernels.
+
+    - the probe's ``mjpeg_vp8`` part (``scripts/torch_probe_video.py``,
+      `found`, run in phase 16): the wheel's ``mjpeg`` and ``vp8``
+      decoders open, the pixel format and colour each settles, the
+      backend this machine's cv2 picks for a Motion-JPEG AVI, and its
+      cv2's frames, count and fps of the files against the port's CPU
+      read;
+    - the committed VP8 fixtures (``scripted_video.VP8_FIXTURES``: WebM
+      at 48x64, 47x63, 31x47 and 480x640, Matroska, a ``vp08`` MP4, a
+      MediaRecorder-shaped WebM) and Motion-JPEG files written here by
+      the repository's writers (``torch_probe_video.mjpeg_files``:
+      Pillow's 4:2:0, 4:2:2, 4:4:4 and gray JPEGs in AVI, MOV, MP4 and
+      Matroska, without Huffman tables too) read on the card: == the CPU
+      read, == this machine's cv2, each frame one launch of its route's
+      colour kernel and no other;
+    - the flagship video demo (VGG19, 6 stages, flip, --batch 8) on a
+      64-frame 480x640 4:2:2 Motion-JPEG MOV written here (a camera's
+      format: ``yuv422_to_bgr``) and on the committed 480x640 VP8 WebM
+      (``yuv420_to_bgr``), writing XVID: frames/s, read ms a frame split
+      into demux, decode and convert; K1, K3 and G once a batch and the
+      colour kernel once a frame, counted from 0 just before each run.
+
+    -> ({"mjpeg_mov": launch counts, "vp8_webm": launch counts,
+    "reader": colour launches}, numbers)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from torch_probe_video import MJPEG_FILES, mjpeg_files
+    from rtpose_tpu_torch.data.imread_fixtures import render_scene
+    from rtpose_tpu_torch.demo import video_demo, video_io
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.ops import kernels
+    import cv2
+
+    t_phase = time.perf_counter()
+    numbers = {"device": smi, "probe": found}
+    decoders = found.get("decoders", {})
+    log(f"phase 16c (Motion-JPEG, VP8): decoders "
+        f"{json.dumps(decoders)}; cv2 {found.get('cv2')} backend for a "
+        f"Motion-JPEG AVI {json.dumps(found.get('backend'))} [{smi}]")
+    check("error" not in found and all(
+        decoders.get(k, {}).get("opens") == "opens" for k in ("mjpeg", "vp8")),
+        f"Motion-JPEG / VP8: the wheel's decoders: {found}")
+    bad = {k: v for part in ("fixtures", "files")
+           for k, v in found.get(part, {}).items()
+           if not (v["frames"] == v["cv2_frames"] > 0
+                   and v["max_abs_diff"] == 0
+                   and v["count_fps"] == v["cv2_count_fps"])}
+    log(f"phase 16c: cv2 {found.get('cv2')} against the port's CPU read of "
+        f"{len(found.get('fixtures', {}))} VP8 fixtures and "
+        f"{len(found.get('files', {}))} Motion-JPEG files (frames, count, "
+        f"fps): differing {json.dumps(bad)}")
+    check(not bad and len(found.get("files", {})) == len(MJPEG_FILES),
+          f"Motion-JPEG / VP8: cv2 against the CPU read: {bad}")
+
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "rtpose_tpu_torch",
+                                             "build"))
+    argv = sys.argv
+    try:
+        # each file on the card == the CPU == cv2, one launch of its
+        # route's kernel a frame
+        chroma_of = {"420": (1, 1), "422": (1, 0), "444": (0, 0),
+                     "gray": None}
+        files = {fx.name: (sv.vp8_path(fx), route_kernel((1, 1), fx.height,
+                                                         fx.width))
+                 for fx in sv.VP8_FIXTURES}
+        for (name, path), (sampling, _, _, (h, w)) in zip(
+                mjpeg_files(work), MJPEG_FILES):
+            files[name] = (path, route_kernel(chroma_of[sampling], h, w))
+        read = {}
+        reader_launches = dict.fromkeys(COLOUR_KERNELS, 0)
+        for name, (path, kernel) in files.items():
+            got, plain, want = [], [], []
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            for frames, cap in (
+                    (got, video_io.open_video(path, device=dev)),
+                    (plain, video_io.open_video(path, device="cpu")),
+                    (want, cv2.VideoCapture(path))):
+                while True:
+                    ok, frame = cap.read()
+                    if not ok:
+                        break
+                    frames.append(frame)
+                cap.release()
+            counts = kernels.launch_counts()
+            for k in COLOUR_KERNELS:
+                reader_launches[k] += counts[k]
+            read[name] = entry = {
+                "frames": len(got), "cv2_frames": len(want),
+                "kernel": kernel,
+                "card_vs_cpu": max((int(np.abs(a.astype(int) - b).max())
+                                    for a, b in zip(got, plain)), default=-1),
+                "max_pixel_diff_vs_cv2": max(
+                    (int(np.abs(a.astype(int) - b).max())
+                     for a, b in zip(got, want) if a.shape == b.shape),
+                    default=-1),
+                "launches": {k: counts[k] for k in COLOUR_KERNELS
+                             if counts[k]}}
+            check(len(got) == len(plain) == len(want) > 0
+                  and entry["card_vs_cpu"] == 0
+                  and entry["max_pixel_diff_vs_cv2"] == 0
+                  and entry["launches"] == {kernel: len(got)},
+                  f"Motion-JPEG / VP8: {name} on the card: {entry}")
+        numbers["files"] = read
+        numbers["reader_launches"] = reader_launches
+        log(f"phase 16c: VP8 and Motion-JPEG files on the card against the "
+            f"CPU and cv2 {cv2.__version__}: {json.dumps(read)} [{smi}]")
+
+        # the flagship video demo on a camera's 64-frame 4:2:2 Motion-JPEG
+        # MOV and on the committed 480x640 VP8 WebM
+        h, w = VIDEO_FILE_SHAPE
+        mov = os.path.join(work, "camera_422.mov")
+        t0 = time.perf_counter()
+        sv.write_mjpeg(mov, sv.jpeg_images(
+            [render_scene(1800 + i, h, w) for i in range(VIDEO_FILE_FRAMES)],
+            MJPEG_DEMO_SAMPLING), (w, h), "mov")
+        write_s = time.perf_counter() - t0
+        demos = {"mjpeg_mov": (mov, "mjpeg", "yuv422_to_bgr",
+                               VIDEO_FILE_FRAMES,
+                               f"4:2:2 Motion-JPEG MOV {h}x{w} (Pillow's "
+                               f"JPEGs of rendered scenes, quality 95)"),
+                 "vp8_webm": (sv.vp8_path(sv.VP8_DEMO), "vp8",
+                              "yuv420_to_bgr", sv.VP8_DEMO.frames,
+                              f"the committed VP8 WebM "
+                              f"{sv.VP8_DEMO.height}x{sv.VP8_DEMO.width}")}
+        demo_counts = {}
+        for label, (video, codec, kernel, frames, what) in demos.items():
+            out = os.path.join(work, f"{label}.avi")
+            readers = []
+
+            def recording_open(path, device="cuda"):
+                readers.append(video_io.open_video(path, device=device))
+                return readers[-1]
+
+            sys.argv = (["video_demo", "--video", video, "--output", out,
+                         "--batch", "8"] + FRONTEND_FLAGS
+                        + ["--device", str(dev)])
+            video_demo.open_video = recording_open
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                n, video_s = video_demo.main()
+            torch.cuda.synchronize()
+            counts = demo_counts[label] = kernels.launch_counts()
+            video_demo.open_video = video_io.open_video
+            batches = -(-frames // 8)
+            others = {k: counts[k] for k in COLOUR_KERNELS
+                      if k != kernel and counts[k]}
+            check(f"processed {frames} frames" in text.getvalue()
+                  and n == frames and readers[0].codec == codec,
+                  f"Motion-JPEG / VP8 demo {label}: {text.getvalue()!r}")
+            check(all(counts[k] >= batches for k in SERVING_KERNELS)
+                  and counts[kernel] == frames and not others
+                  and counts["gt_maps"] == 0,
+                  f"Motion-JPEG / VP8 demo {label}: K1, K3 and G not once "
+                  f"a batch or {kernel} not once a frame: {counts}")
+            reread = video_io.open_video(out, device=dev)
+            check(reread.frame_count == frames and reread.size == (
+                readers[0].size), f"Motion-JPEG / VP8 demo {label} output: "
+                f"{reread.frame_count} frames of {reread.size}")
+            reread.release()
+            split = {k: v * 1e3 / n for k, v in readers[0].seconds.items()}
+            numbers[f"demo_{label}"] = {
+                "frames": n, "seconds": video_s,
+                "frames_per_s": n / video_s, "batch": 8, "input": what,
+                "file_bytes": os.path.getsize(video),
+                "read_ms_a_frame": split,
+                "read_ms_a_frame_total": sum(split.values()),
+                "launches": counts}
+            if label == "mjpeg_mov":
+                numbers[f"demo_{label}"]["write_s"] = write_s
+            log(f"phase 16c: the flagship video demo on {what} ({n} frames) "
+                f"at --batch 8: {n / video_s:.2f} frames/s; read "
+                f"{sum(split.values()):.3f} ms a frame ("
+                + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                + f"); launches {counts} [{smi}]")
+    finally:
+        sys.argv = argv
+        video_demo.open_video = video_io.open_video
+        shutil.rmtree(work, ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16c: {numbers['phase_s']:.1f} s [{smi}]")
+    return {**demo_counts, "reader": reader_launches}, numbers
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5644,6 +5880,13 @@ def main() -> int:
     cf_launches, cf_numbers, planar_rows = chroma_formats_phase(
         dev, smi, vf_numbers["probe"]["formats"])
 
+    # 16c. Motion-JPEG and VP8: the probe's mjpeg_vp8 part, the VP8
+    # fixtures and Motion-JPEG files of every container and chroma format
+    # on the card against the CPU and cv2, the flagship video demo on a
+    # 64-frame 4:2:2 Motion-JPEG MOV and on the 480x640 VP8 WebM
+    mv_launches, mv_numbers = mjpeg_vp8_phase(
+        dev, smi, vf_numbers["probe"]["mjpeg_vp8"])
+
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
         "connection_scores": ("rtpose_tpu_torch/csrc/connection_scores.cu",
                               "rtpose_tpu/ops/pallas_kernels.py:214",
@@ -5685,6 +5928,8 @@ def main() -> int:
                  webcam_launches=webcam_launches[name],
                  video_file_launches=vf_launches[name],
                  chroma_demo_launches=cf_launches[name],
+                 mjpeg_vp8_demo_launches={k: mv_launches[k][name] for k in
+                                          ("mjpeg_mov", "vp8_webm")},
                  **results[name], library_ms=None,
                  hourglass_factor4=hourglass[name],
                  **({"also_replaces": also} if also else {}))
@@ -5710,6 +5955,8 @@ def main() -> int:
         webcam_launches=webcam_launches["group_people"],
         video_file_launches=vf_launches["group_people"],
         chroma_demo_launches=cf_launches["group_people"],
+        mjpeg_vp8_demo_launches={k: mv_launches[k]["group_people"] for k in
+                                 ("mjpeg_mov", "vp8_webm")},
         hourglass_factor4={k: hg_rows[f"group_people_K{k}"]
                            for k in (32, 64)},
         **results["group_people"], library_ms=None,
@@ -5723,6 +5970,7 @@ def main() -> int:
     print(json.dumps({"webcam": webcam_numbers}), flush=True)
     print(json.dumps({"video_files": vf_numbers}), flush=True)
     print(json.dumps({"chroma_formats": cf_numbers}), flush=True)
+    print(json.dumps({"mjpeg_vp8": mv_numbers}), flush=True)
     print(json.dumps({"native_loader": native_numbers,
                       "rotated_hourglass": rotated_numbers,
                       "resize_modes": resize_numbers}), flush=True)
@@ -5730,6 +5978,12 @@ def main() -> int:
     # kernel's row stands on a line of its own, theirs in the kernels line
     yuv_row.update(launches=vf_launches["yuv420_to_bgr"],
                    video_file_launches=vf_launches["yuv420_to_bgr"])
+    # each colour kernel's launches in phase 16c: the two demos' and the
+    # reader's on the fixtures and Motion-JPEG files of its route
+    for row in [yuv_row, p10_row, *odd_rows, *planar_rows]:
+        row["mjpeg_vp8_launches"] = {
+            k: mv_launches[k][row["name"]]
+            for k in ("mjpeg_mov", "vp8_webm", "reader")}
     print(json.dumps({"kernels_beyond_tpu": [group_row]}), flush=True)
     print(json.dumps({"kernels": rows + [yuv_row, p10_row, *odd_rows,
                                          *planar_rows]}), flush=True)

@@ -20,7 +20,9 @@ everything else are skipped by their size.
 - :meth:`MkvTrack.packets` gives each block as the decoder takes it, with
   :func:`mp4.intra_picture`'s key flag: VP9 frames as stored (a
   superframe, libvpx's hidden alt-ref frame and the shown frame in one
-  block, is split by FFmpeg's ``vp9`` decoder itself); MPEG-4 Part 2 with
+  block, is split by FFmpeg's ``vp9`` decoder itself); VP8 frames and
+  JPEG images (``V_MJPEG``, or a ``V_MS/VFW/FOURCC`` track of an AVI
+  Motion-JPEG tag) as stored; MPEG-4 Part 2 with
   the ``CodecPrivate`` (VOS / VOL headers) ahead of the first block, as
   the AVI path does; H.264 with its ``avcC`` ``CodecPrivate``, each block
   turned into Annex-B by ``demo/mp4.py``'s :func:`mp4.annexb`; HEVC with
@@ -40,7 +42,8 @@ everything else are skipped by their size.
   (:func:`colour`), which keeps it where the bitstream states none.
 
 Refused, naming the codec or feature and ROADMAP.md queue 1 item 4: every
-codec but VP9, MPEG-4 Part 2, H.264 and HEVC (``V_AV1``, ``V_VP8``, ...),
+codec but VP8, VP9, MPEG-4 Part 2, H.264, HEVC and Motion-JPEG
+(``V_AV1``, ``V_THEORA``, ...),
 HEVC of other than 8, 10 or 12 bits (its ``hvcC``; item 4i), laced video
 blocks, and compressed or encrypted tracks (``ContentEncodings``).  VP9
 of every profile is taken (1 and 3: 4:2:2, 4:4:0, 4:4:4); a frame format
@@ -78,12 +81,13 @@ CLUSTER_CHILDREN = {TIMECODE, SIMPLE_BLOCK, BLOCK_GROUP, VOID, CRC32,
                     0x5854, 0xA7, 0xAB, 0xAF}        # SilentTracks, Position,
 #                                                      PrevSize, EncryptedBlock
 TRACK_VIDEO = 1
-CODECS = {"V_VP9": "vp9", "V_MPEG4/ISO/ASP": "mpeg4",
+CODECS = {"V_VP9": "vp9", "V_VP8": "vp8", "V_MJPEG": "mjpeg",
+          "V_MPEG4/ISO/ASP": "mpeg4",
           "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/AP": "mpeg4",
           "V_MPEG4/ISO/AVC": "h264", "V_MPEGH/ISO/HEVC": "hevc"}
-OTHER_CODECS = {"V_AV1": "AV1", "V_VP8": "VP8",
+OTHER_CODECS = {"V_AV1": "AV1",
                 "V_MPEGI/ISO/VVC": "VVC", "V_THEORA": "Theora",
-                "V_MJPEG": "Motion-JPEG", "V_PRORES": "ProRes",
+                "V_PRORES": "ProRes",
                 "V_FFV1": "FFV1", "V_UNCOMPRESSED": "uncompressed"}
 IDENTITY = [[1 << 16, 0, 0], [0, 1 << 16, 0], [0, 0, 1 << 30]]
 INT_MAX = 2 ** 31 - 1
@@ -277,7 +281,8 @@ def colour(data: bytes, s: int, e: int) -> StreamColour:
 class MkvTrack:
     """The first video track of a Matroska / WebM file."""
 
-    codec: str                       # "vp9", "mpeg4", "h264" or "hevc"
+    codec: str                       # "vp8", "vp9", "mpeg4", "h264",
+    #                                  "hevc" or "mjpeg"
     codec_id: str
     coded_size: Tuple[int, int]      # (w, h): PixelWidth, PixelHeight
     rotation_meta: int = 0
@@ -285,6 +290,7 @@ class MkvTrack:
     duration: Optional[float] = None  # Info's, in Timecode units
     default_duration: int = 0        # ns
     extradata: bytes = b""           # MPEG-4: the VOS / VOL headers
+    tag: bytes = b""                 # Motion-JPEG in VFW: the fourcc
     nal_length: int = 0              # H.264: avcC; HEVC: hvcC
     sps: List[bytes]
     pps: List[bytes]
@@ -467,13 +473,14 @@ class _Reader:
                               f"(ContentEncodings)")
         track.codec_id = codec_id
         if codec_id == "V_MS/VFW/FOURCC":
-            from .video_io import AVI_CODECS
-            fourcc = private[16:20].upper()
-            if AVI_CODECS.get(fourcc) != "mpeg4":
+            from .video_io import avi_codec
+            fourcc = private[16:20]
+            track.codec, track.tag = avi_codec(fourcc)
+            if track.codec not in ("mpeg4", "mjpeg"):
                 raise self.refuse(f"V_MS/VFW/FOURCC video {fourcc!r}")
-            track.codec = "mpeg4"
             size = struct.unpack_from("<I", private)[0]
-            track.extradata = private[40:size] if size > 40 else b""
+            if track.codec == "mpeg4":
+                track.extradata = private[40:size] if size > 40 else b""
         elif codec_id in CODECS:
             track.codec = CODECS[codec_id]
             if track.codec == "mpeg4":

@@ -5,7 +5,9 @@ Read boxes: ``ftyp``, ``moov/mvhd``, ``moov/trak/{tkhd, edts/elst,
 mdia/{mdhd, hdlr, minf/stbl}}``; of the sample table ``stsd`` (``avc1`` /
 ``avc3`` with ``avcC``; ``hvc1`` / ``hev1`` with ``hvcC``; ``mp4v`` with
 ``esds`` and its
-DecoderSpecificInfo; ``vp09`` with ``vpcC``; the entry's ``colr``),
+DecoderSpecificInfo, or of objectTypeIndication 0x6C, JPEG; ``vp09`` and
+``vp08`` with ``vpcC``; QuickTime's Motion-JPEG ``jpeg`` and ``mjpa``;
+the entry's ``colr``),
 ``stts``, ``ctts``,
 ``stsc``, ``stsz`` / ``stz2``, ``stco`` / ``co64`` and ``stss``; of a
 fragmented file ``moov/mvex/trex`` and each ``moof/traf`` (``tfhd``,
@@ -22,12 +24,13 @@ fragmented file ``moov/mvex/trex`` and each ``moof/traf`` (``tfhd``,
   start codes and all); HEVC likewise, the ``hvcC`` parameter sets put
   ahead of the first IRAP picture of every sample that holds one, in-band
   sets or not (``hevc_mp4toannexb``); MPEG-4 Part 2 as stored, the
-  DecoderSpecificInfo (VOS / VOL headers) ahead of the first sample; VP9
-  frames as stored.  Its key flag is the one cv2 reports
-  (``CAP_PROP_LRF_HAS_KEY_FRAME``): :func:`intra_picture`'s, the flag
-  FFmpeg's parsers set, for H.264, MPEG-4 and VP9 (every intra-coded
-  picture, non-IDR I pictures of H.264 too); the sample table's sync flag
-  for HEVC, which libavformat does not parse in MP4.
+  DecoderSpecificInfo (VOS / VOL headers) ahead of the first sample; VP8
+  and VP9 frames and JPEG images as stored.  Its key flag is the one cv2
+  reports (``CAP_PROP_LRF_HAS_KEY_FRAME``): :func:`intra_picture`'s, the
+  flag FFmpeg's parsers set, for H.264, MPEG-4, VP8, VP9 and Motion-JPEG
+  (every intra-coded picture, non-IDR I pictures of H.264 too); the
+  sample table's sync flag for HEVC, which libavformat does not parse in
+  MP4.
 - ``rotation`` is the clockwise turn cv2 reports as
   ``CAP_PROP_ORIENTATION_META`` and applies under
   ``CAP_PROP_ORIENTATION_AUTO`` (0/90/180/270), from the ``tkhd`` matrix
@@ -51,9 +54,10 @@ Refused, with an error naming the box or codec and ROADMAP.md queue 1
 item 4: an edit of a media rate other than 1 (cv2 plays it at rate 1),
 VP9 of a profile and depth VP9 does not pair (``vpcC``), HEVC of other
 than 8, 10 or 12 bits or of another chroma than luma depth (``hvcC``;
-item 4i), and every codec but H.264, HEVC, MPEG-4 Part 2 and VP9 (AV1,
-VP8, ...).  A frame format the reader does not convert is refused by the
-decoder's first picture (``native/avcodec.py``).
+item 4i), and every codec but H.264, HEVC, MPEG-4 Part 2, VP8, VP9 and
+Motion-JPEG (AV1, Motion-JPEG format B ``mjpb``, ...).  A frame format
+the reader does not convert is refused by the decoder's first picture
+(``native/avcodec.py``).
 """
 
 from __future__ import annotations
@@ -68,12 +72,15 @@ from ..native.avcodec import StreamColour
 CONTAINERS = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide",
               b"uuid", b"pdin", b"meta", b"moof", b"mfra", b"styp")
 HEVC_ENTRIES = (b"hvc1", b"hev1")
-OTHER_CODECS = {b"dvhe": "Dolby Vision", b"vp08": "VP8",
+# QuickTime's Motion-JPEG sample entries (libavformat's movvideo tags)
+MJPEG_ENTRIES = (b"jpeg", b"mjpa")
+OTHER_CODECS = {b"dvhe": "Dolby Vision", b"mjpb": "Motion-JPEG format B",
                 b"av01": "AV1", b"mp4a": "AAC audio",
-                b"jpeg": "Motion-JPEG", b"mjp2": "Motion JPEG 2000",
+                b"mjp2": "Motion JPEG 2000",
                 b"apch": "ProRes", b"apcn": "ProRes", b"dvh1": "Dolby Vision",
                 b"s263": "H.263"}
-MPEG4_VISUAL = 0x20    # esds objectTypeIndication of MPEG-4 Part 2
+# esds objectTypeIndication -> the decoder (libavformat's ff_mp4_obj_type)
+OBJECT_TYPES = {0x20: "mpeg4", 0x6C: "mjpeg"}
 # (profile, bits) that a VP9 stream pairs: 0 and 1 (4:2:2, 4:4:0, 4:4:4)
 # of 8 bits, 2 and 3 of 10 or 12
 VP9_DEPTHS = frozenset([(0, 8), (1, 8), (2, 10), (2, 12), (3, 10), (3, 12)])
@@ -81,11 +88,11 @@ VP9_DEPTHS = frozenset([(0, 8), (1, 8), (2, 10), (2, 12), (3, 10), (3, 12)])
 
 def refusal(path: str, what: str) -> ValueError:
     return ValueError(f"{path}: {what}; the video reader takes H.264, HEVC "
-                      f"(8, 10 and 12 bits) and MPEG-4 Part 2 in MP4/MOV "
-                      f"(fragmented too), AVI or Matroska, VP9 in WebM, "
-                      f"Matroska or MP4, MPEG-1/2, MPEG-4 Part 2, H.264 and "
-                      f"HEVC in MPEG-TS / M2TS and MPEG program streams, "
-                      f"and Motion-JPEG AVI (other containers and codecs: "
+                      f"(8, 10 and 12 bits), MPEG-4 Part 2 and Motion-JPEG "
+                      f"in MP4/MOV (fragmented too), AVI or Matroska, VP8 "
+                      f"and VP9 in WebM, Matroska or MP4, and MPEG-1/2, "
+                      f"MPEG-4 Part 2, H.264 and HEVC in MPEG-TS / M2TS and "
+                      f"MPEG program streams (other containers and codecs: "
                       f"ROADMAP.md queue 1 item 4)")
 
 
@@ -312,7 +319,8 @@ class Edit(NamedTuple):
 class Track:
     """The first video track of an MP4/MOV file."""
 
-    codec: str                     # "h264", "hevc", "mpeg4" or "vp9"
+    codec: str                     # "h264", "hevc", "mpeg4", "vp8", "vp9"
+    #                                or "mjpeg"
     samples: List[Sample]          # the sample table's, then the fragments'
     table_samples: int             # how many the moov's sample table holds
     timescale: int
@@ -463,11 +471,16 @@ def _ue(bits: str, at: int) -> Tuple[int, int]:
 
 def intra_picture(codec: str, packet: bytes) -> bool:
     """Whether a packet (H.264 or HEVC Annex-B, MPEG-1/2 video, MPEG-4
-    Part 2 or VP9) is a key, as FFmpeg's parsers flag it: an IDR slice or
-    an I / SI slice first (H.264); an IRAP picture, NAL types 16-23, and
-    no other intra picture (HEVC); an I picture (``picture_coding_type``
-    1); an I-VOP; a VP9 key frame (its uncompressed header's frame_type
-    0, not a shown existing frame)."""
+    Part 2, VP8, VP9 or a JPEG image) is a key, as FFmpeg's parsers flag
+    it: an IDR slice or an I / SI slice first (H.264); an IRAP picture,
+    NAL types 16-23, and no other intra picture (HEVC); an I picture
+    (``picture_coding_type`` 1); an I-VOP; a VP8 key frame (its frame
+    tag's bit 0 clear); a VP9 key frame (its uncompressed header's
+    frame_type 0, not a shown existing frame); every JPEG image."""
+    if codec == "mjpeg":
+        return True
+    if codec == "vp8":
+        return bool(packet) and not packet[0] & 1
     if codec == "hevc":
         at = packet.find(b"\x00\x00\x01")
         while 0 <= at < len(packet) - 3:
@@ -553,21 +566,25 @@ def _sample_table(path: str, data: bytes, s: int, e: int, track: Track
     elif kind == b"mp4v":
         if b"esds" not in config:
             raise refusal(path, "the mp4v entry has no esds box")
-        oti, track.decoder_info = esds_config(data, *config[b"esds"])
-        if oti != MPEG4_VISUAL:
+        oti, info = esds_config(data, *config[b"esds"])
+        if oti not in OBJECT_TYPES:
             raise refusal(path, f"mp4v with objectTypeIndication 0x{oti:02x}"
-                                f" (not MPEG-4 Part 2)")
-        track.codec = "mpeg4"
-    elif kind == b"vp09":
+                                f" (not MPEG-4 Part 2 or JPEG)")
+        track.codec = OBJECT_TYPES[oti]
+        if track.codec == "mpeg4":
+            track.decoder_info = info
+    elif kind in MJPEG_ENTRIES:
+        track.codec = "mjpeg"
+    elif kind in (b"vp09", b"vp08"):
         if b"vpcC" not in config:
-            raise refusal(path, "the vp09 entry has no vpcC box")
+            raise refusal(path, f"the {kind.decode()} entry has no vpcC box")
         _, at = _full(data, config[b"vpcC"][0])
         profile, depth = data[at], data[at + 2] >> 4
-        if (profile, depth) not in VP9_DEPTHS:
+        if kind == b"vp09" and (profile, depth) not in VP9_DEPTHS:
             raise refusal(path, f"VP9 profile {profile} video of {depth} "
                                 f"bits (vpcC: profiles 0 and 1 are of 8 "
                                 f"bits, 2 and 3 of 10 or 12; item 4i)")
-        track.codec = "vp9"
+        track.codec = "vp9" if kind == b"vp09" else "vp8"
     else:
         name = OTHER_CODECS.get(kind, "codec")
         raise refusal(path, f"{name} video ({kind.decode('latin-1')!r} "

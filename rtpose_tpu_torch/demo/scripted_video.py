@@ -43,7 +43,7 @@ from __future__ import annotations
 import os
 import re
 import struct
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -774,11 +774,12 @@ def visual_entry(kind: bytes, size: Tuple[int, int], *config: bytes
 
 
 def vp09_entry(size: Tuple[int, int], profile: int = 0, depth: int = 8,
-               chroma: int = 1) -> bytes:
-    """A ``vp09`` sample entry with its ``vpcC`` (VP Codec ISO Media File
-    Format Binding 1.0: profile, level 3.1, bit depth, `chroma`
-    subsampling (1: 4:2:0 colocated, 2: 4:2:2, 3: 4:4:4), BT.709)."""
-    return visual_entry(b"vp09", size, full_box(
+               chroma: int = 1, kind: bytes = b"vp09") -> bytes:
+    """A ``vp09`` (or, `kind`, ``vp08``) sample entry with its ``vpcC``
+    (VP Codec ISO Media File Format Binding 1.0: profile, level 3.1, bit
+    depth, `chroma` subsampling (1: 4:2:0 colocated, 2: 4:2:2, 3: 4:4:4),
+    BT.709)."""
+    return visual_entry(kind, size, full_box(
         b"vpcC", 1, 0, bytes([profile, 31, (depth << 4) | (chroma << 1), 1,
                               1, 1]), b"\0\0"))
 
@@ -2174,10 +2175,189 @@ def write_odd_size_fixtures() -> List[str]:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Motion-JPEG: Pillow's JPEG images (the ones ``demo.video_io.VideoWriter``
+# writes, of any chroma subsampling) in AVI, MOV / MP4 and Matroska
+# ---------------------------------------------------------------------------
+
+# Pillow's ``subsampling`` of each JPEG chroma format: 4:2:0, 4:2:2, 4:4:4;
+# "gray" writes one component
+JPEG_SUBSAMPLING = {"420": 2, "422": 1, "444": 0, "gray": None}
+MJPEG_CONTAINERS = ("avi", "mov", "mjpa", "mp4", "mkv", "vfw")
+MOV_FTYP = box(b"ftyp", b"qt  ", struct.pack(">I", 0x200), b"qt  ",
+               b"\0" * 12)
+
+
+def jpeg_images(frames: Sequence[np.ndarray], sampling: str = "420",
+                huffman: bool = True) -> List[bytes]:
+    """Baseline JPEGs of BGR `frames` at quality 95 in the chroma format
+    `sampling` (a key of :data:`JPEG_SUBSAMPLING`), with Pillow's standard
+    Huffman tables; `huffman` False drops the DHT segments and marks each
+    image ``AVI1`` (an APP0 after SOI), as cameras' Motion-JPEG comes: the
+    decoder then takes the standard tables (ITU-T T.81 K.3)."""
+    import io
+
+    from PIL import Image
+    out = []
+    for frame in frames:
+        image = (Image.fromarray(np.ascontiguousarray(frame[..., ::-1]))
+                 if sampling != "gray" else Image.fromarray(
+                     np.ascontiguousarray(frame[..., 1])))
+        buf = io.BytesIO()
+        options = dict(quality=95, optimize=False, progressive=False)
+        if sampling != "gray":
+            options["subsampling"] = JPEG_SUBSAMPLING[sampling]
+        image.save(buf, "JPEG", **options)
+        data = buf.getvalue()
+        if not huffman:
+            data = b"\xff\xd8" + _jpeg_segment(0xE0, b"AVI1" + b"\0" * 8) + (
+                b"".join(seg for seg in _jpeg_segments(data[2:])
+                         if seg[:2] != b"\xff\xc4"))
+        out.append(data)
+    return out
+
+
+def _jpeg_segment(marker: int, payload: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+
+
+def _jpeg_segments(data: bytes) -> Iterator[bytes]:
+    """The marker segments of a JPEG after its SOI, the last (SOS) with
+    the entropy-coded data and EOI."""
+    at = 0
+    while at < len(data):
+        if data[at + 1] == 0xDA:             # SOS: the rest of the image
+            yield data[at:]
+            return
+        size = struct.unpack_from(">H", data, at + 2)[0]
+        yield data[at:at + 2 + size]
+        at += 2 + size
+
+
+def esds_box(object_type: int, info: bytes = b"") -> bytes:
+    """An ``esds`` box: an ES_Descriptor whose DecoderConfigDescriptor
+    states `object_type` (objectTypeIndication; 0x20 MPEG-4 Part 2, 0x6C
+    JPEG) and carries `info` as its DecoderSpecificInfo."""
+    def descriptor(tag: int, payload: bytes) -> bytes:
+        return bytes([tag, 0x80, 0x80, 0x80, len(payload)]) + payload
+    config = (bytes([object_type, 0x11]) + b"\0" * 11
+              + (descriptor(5, info) if info else b""))
+    return full_box(b"esds", 0, 0, descriptor(
+        3, struct.pack(">HB", 1, 0) + descriptor(4, config)
+        + descriptor(6, b"\x02")))
+
+
+def write_mjpeg(path: str, images: Sequence[bytes], size: Tuple[int, int],
+                container: str = "avi", fps: float = 20.0,
+                fourcc: bytes = b"MJPG") -> None:
+    """JPEG `images` of (w, h) frames at `fps` as Motion-JPEG in
+    `container`: ``avi`` (``demo.video_io.VideoWriter``'s ``MJPG`` AVI),
+    ``mov`` (QuickTime, a ``jpeg`` sample entry), ``mjpa``
+    (the same with an ``mjpa`` entry), ``mp4`` (``mp4v`` of
+    objectTypeIndication 0x6C, as cv2 writes ``MJPG`` in ``.mp4``),
+    ``mkv`` (``V_MJPEG``) or ``vfw`` (Matroska ``V_MS/VFW/FOURCC`` with a
+    BITMAPINFOHEADER of `fourcc`)."""
+    from fractions import Fraction
+
+    from .video_io import VideoWriter, bitmap_info
+    packets = [(data, True) for data in images]
+    if container == "avi":
+        writer = VideoWriter(path, fps, size, fourcc="MJPG")
+        writer.write_packets(packets)
+        writer.release()
+        return
+    if container in ("mov", "mjpa", "mp4"):
+        entry = (visual_entry(b"mp4v", size, esds_box(0x6C))
+                 if container == "mp4" else
+                 visual_entry(b"jpeg" if container == "mov" else b"mjpa",
+                              size))
+        rate = Fraction(fps).limit_denominator(1001)
+        data = mux_mp4(b"", b"", images, [True] * len(images), size,
+                       timescale=rate.numerator * 100,
+                       delta=rate.denominator * 100, entry=entry)
+        if container != "mp4":
+            data = MOV_FTYP + data[len(FTYP):]
+    elif container in ("mkv", "vfw"):
+        data = (mux_mkv("V_MJPEG", packets, size, fps=fps)
+                if container == "mkv" else
+                mux_mkv("V_MS/VFW/FOURCC", packets, size, fps=fps,
+                        codec_private=bitmap_info(size, fourcc)))
+    else:
+        raise ValueError(f"Motion-JPEG is written in "
+                         f"{', '.join(MJPEG_CONTAINERS)}, not {container!r}")
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+# ---------------------------------------------------------------------------
+# VP8 fixtures: the wheel's libvpx (VP8) of rendered scenes in WebM,
+# Matroska and MP4, which the card's machine reads but may not write
+# ---------------------------------------------------------------------------
+
+class Vp8Fixture(NamedTuple):
+    name: str                      # the file, beside VP9_WEBM
+    height: int
+    width: int
+    frames: int
+    container: str = "webm"        # "webm", "mkv", "mp4" or "recorder"
+    bit_rate: int = 0              # the encoder's (0: its default)
+
+
+# "recorder": WebM as a browser's MediaRecorder writes it: a Segment and
+# Clusters of unknown size, no Duration, no DefaultDuration, no Cues,
+# millisecond timecodes 33 and 34 ms apart in turn (30 frames a second)
+VP8_FIXTURES = (
+    Vp8Fixture("vp8_48x64.webm", 48, 64, 6),
+    Vp8Fixture("vp8_47x63.webm", 47, 63, 3),
+    Vp8Fixture("vp8_31x47.webm", 31, 47, 3),
+    Vp8Fixture("vp8_48x64.mkv", 48, 64, 4, "mkv"),
+    Vp8Fixture("vp8_48x64.mp4", 48, 64, 4, "mp4"),
+    Vp8Fixture("vp8_recorder_48x64.webm", 48, 64, 24, "recorder"),
+    Vp8Fixture("vp8_480x640.webm", 480, 640, 16, bit_rate=1000000),
+)
+VP8_DEMO = VP8_FIXTURES[-1]
+
+
+def vp8_path(fixture: Vp8Fixture) -> str:
+    return os.path.join(os.path.dirname(VP9_WEBM), fixture.name)
+
+
+def write_vp8_fixtures() -> List[str]:
+    """Write the committed :data:`VP8_FIXTURES` (needs the wheel's libvpx
+    encoder): rendered scenes, one key frame and then inter frames;
+    returns their paths."""
+    paths = []
+    for fx in VP8_FIXTURES:
+        options = {"b": fx.bit_rate} if fx.bit_rate else {}
+        packets = encode_lavc(
+            "libvpx", scene_frames(range(900, 900 + fx.frames), fx.height,
+                                   fx.width), g=1 << 20, **options)
+        size = (fx.width, fx.height)
+        if fx.container == "mp4":
+            data = mux_mp4(b"", b"", [d for d, _ in packets],
+                           [k for _, k in packets], size,
+                           entry=vp09_entry(size, kind=b"vp08"))
+        elif fx.container == "recorder":
+            data = mux_mkv("V_VP8", packets, size, doc_type="webm",
+                           timecodes=[i * 33 + i // 2
+                                      for i in range(fx.frames)],
+                           unknown_sizes=True, duration=False,
+                           default_duration=False)
+        else:
+            data = mux_mkv("V_VP8", packets, size,
+                           block_groups=fx.container == "mkv",
+                           doc_type="webm" if fx.container == "webm"
+                           else "matroska")
+        with open(vp8_path(fx), "wb") as f:
+            f.write(data)
+        paths.append(vp8_path(fx))
+    return paths
+
+
 if __name__ == "__main__":
-    # remake the committed VP9 WebM (needs cv2 with libvpx), the odd-size
-    # and the chroma-format fixtures (the wheel's libvpx-vp9)
+    # remake the committed VP9 WebM (needs cv2 with libvpx), the odd-size,
+    # chroma-format and VP8 fixtures (the wheel's libvpx-vp9 and libvpx)
     write_cv2_video(VP9_WEBM, "VP90", VP9_WEBM_FRAMES, 48, 64, VP9_WEBM_FPS)
     for path in [VP9_WEBM, *write_odd_size_fixtures(),
-                 *write_chroma_fixtures()]:
+                 *write_chroma_fixtures(), *write_vp8_fixtures()]:
         print(path, os.path.getsize(path))

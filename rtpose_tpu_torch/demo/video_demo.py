@@ -8,11 +8,13 @@ the card before batch k is collected, drawn and written.
         --output out.avi --batch 8
 
 Reads what the JAX demo reads through cv2 (``demo/video_io.py``):
-H.264 and MPEG-4 Part 2 (XVID, ``mp4v``) in MP4/MOV, AVI or Matroska,
-VP9 in WebM, Matroska or MP4, turned by the file's rotation tag as cv2's
-``CAP_PROP_ORIENTATION_AUTO`` turns them, and Motion-JPEG AVI.  Writes
-XVID AVI, as the JAX demo does through cv2, with cv2's encoder and
-settings (``native/avencode.py``: its packets are cv2's, byte for byte).
+H.264, MPEG-4 Part 2 (XVID, ``mp4v``) and Motion-JPEG in MP4/MOV, AVI
+or Matroska, HEVC in MP4/MOV, Matroska and MPEG-TS, VP8 and VP9 in WebM,
+Matroska or MP4, MPEG-1/2 in MPEG-TS and program streams, turned by the
+file's rotation tag as cv2's ``CAP_PROP_ORIENTATION_AUTO`` turns them.
+Writes XVID AVI, as the JAX demo does through cv2, with cv2's encoder
+and settings (``native/avencode.py``: its packets are cv2's, byte for
+byte).
 Runs on the card (``--device cuda``, the default: the decoded frames are
 converted to BGR there); ``--device cpu`` for tests.
 Frames smaller than ``--input-size`` are scaled on the card and larger

@@ -5,18 +5,24 @@ rtpose_tpu/demo/video_demo.py:19-42, :78-80).
 :func:`open_video` reads what the JAX demo's ``cv2.VideoCapture`` reads
 of its users' files, frame for frame as cv2 gives them:
 
-- Motion-JPEG AVI (``MJPG``): each ``00dc`` chunk a JPEG, decoded on the
-  host by Pillow (cv2's own AVI writer's and FFmpeg's files, OpenDML
-  ``AVIX`` extensions included);
+- Motion-JPEG (cameras, capture boxes, cv2's own ``MJPG`` writer) in
+  AVI (``MJPG`` and the other Motion-JPEG tags of libavformat's RIFF
+  table, :data:`AVI_CODECS`; OpenDML ``AVIX`` extensions included), in
+  MOV / MP4 (``jpeg``, ``mjpa``; ``mp4v`` of objectTypeIndication 0x6C,
+  what cv2 writes for ``MJPG`` in ``.mp4``) and in Matroska
+  (``V_MJPEG``, or ``V_MS/VFW/FOURCC`` with such a tag): each chunk a
+  JPEG image, decoded by libavcodec's ``mjpeg`` decoder as cv2's FFMPEG
+  backend decodes it (4:2:0, 4:2:2, 4:4:4 and gray JPEGs; frames without
+  Huffman tables too);
 - H.264 and MPEG-4 Part 2 (XVID, DivX, ``mp4v``: what the JAX demo and
   cv2's wheels write) in AVI (``XVID``, ``DIVX``, ``DX50``, ``FMP4``,
   ``MP4V``, ``H264``, ``AVC1``, ``X264`` chunks), in MP4 / MOV
   (``demo/mp4.py``; fragmented files, and edit lists of several entries)
   or in Matroska (``demo/mkv.py``), H.264 High 10, High 4:2:2 and High
-  4:4:4 too (camera intra formats); VP9 (profiles 0-3: 4:2:0, 4:2:2,
-  4:4:0 and 4:4:4 of 8, 10 and 12 bits) in WebM, Matroska or MP4
-  (``vp09``): browser ``MediaRecorder``, OBS, screen recorders and most
-  downloaded web video;
+  4:4:4 too (camera intra formats); VP8 and VP9 (profiles 0-3: 4:2:0,
+  4:2:2, 4:4:0 and 4:4:4 of 8, 10 and 12 bits) in WebM, Matroska or MP4
+  (``vp08``, ``vp09``): browser ``MediaRecorder``, OBS, screen recorders
+  and most downloaded web video;
 - HEVC (Main, Main 10 and the range extensions: 4:2:0, 4:2:2, 4:4:4 and
   4:0:0 of 8, 10 or 12 bits) in MP4 / MOV (``hvc1``, ``hev1``: what
   phones and cameras record), Matroska and MPEG-TS;
@@ -55,7 +61,8 @@ Frames under 9 rows or 8 columns that swscale scales are refused
 (item 4i (a)).
 
 Everything else is refused with an error that names the container or
-codec and ROADMAP.md queue 1 item 4: AV1, 4:1:1, 16-bit and RGB
+codec and ROADMAP.md queue 1 item 4: AV1, Motion-JPEG format B
+(``mjpb``), 4:1:1 (``yuvj411p`` JPEG too), 16-bit and RGB
 (``gbrp``) video (item 4i), colour cv2
 5.0 does not convert by swscale's matrix alone (other primaries than
 BT.601 / BT.709 / 240M, PQ and HLG transfers, matrices without a
@@ -92,10 +99,30 @@ from . import mkv, mp4, mpegps, mpegts
 WRITER_FOURCCS = ("XVID", "MJPG")
 AVIF_HASINDEX = 0x10
 AVIIF_KEYFRAME = 0x10
-# AVI stream handlers / compressions (upper case) -> the decoder
-AVI_CODECS = {b"MJPG": "mjpeg", b"XVID": "mpeg4", b"DIVX": "mpeg4",
+# AVI stream handlers / compressions (upper case) -> the decoder: the
+# Motion-JPEG tags of libavformat's RIFF table (``ff_codec_bmp_tags``;
+# ``AVRn``, Avid's, too: its images are JPEGs), MPEG-4 Part 2 and H.264
+MJPEG_TAGS = (b"MJPG", b"LJPG", b"DMB1", b"MJPA", b"JR24", b"JPGL", b"MJLS",
+              b"JPEG", b"IJPG", b"AVRN", b"ACDV", b"QIVG", b"SLMJ", b"CJPG",
+              b"IJLV", b"MVJP", b"AVI1", b"AVI2", b"MTSJ", b"ZJPG")
+AVI_CODECS = {**dict.fromkeys(MJPEG_TAGS, "mjpeg"),
+              b"XVID": "mpeg4", b"DIVX": "mpeg4",
               b"DX50": "mpeg4", b"FMP4": "mpeg4", b"MP4V": "mpeg4",
               b"H264": "h264", b"AVC1": "h264", b"X264": "h264"}
+
+
+def avi_codec(fourcc: bytes) -> Tuple[Optional[str], bytes]:
+    """(the decoder, the tag to hand it) of an AVI or Matroska VFW stream's
+    fourcc, as libavformat maps it (case aside): a Motion-JPEG stream's
+    decoder takes its tag (``MTSJ`` decodes otherwise).  Avid's ``AVRn``
+    holds JPEG images, which the ``mjpeg`` decoder decodes as cv2 does
+    when not handed the tag (with it, it would want the container's frame
+    size); under any other case the tag is libavcodec's raw 4:2:2 ``avrn``,
+    not read."""
+    if fourcc.upper() == b"AVRN":
+        return ("mjpeg" if fourcc == b"AVRn" else None), b""
+    codec = AVI_CODECS.get(fourcc.upper())
+    return codec, fourcc if codec == "mjpeg" else b""
 
 
 def _chunks(f: BinaryIO, end: int) -> Iterator[Tuple[bytes, int, int]]:
@@ -121,6 +148,7 @@ class AviStream:
         self.fps: Optional[float] = None
         self.size: Tuple[int, int] = (0, 0)
         self.extradata = b""
+        self.tag = b""         # a Motion-JPEG stream's, for its decoder
         self.frames: List[Tuple[int, int]] = []
         f.seek(0, io.SEEK_END)
         file_end = f.tell()
@@ -194,8 +222,9 @@ class AviStream:
                 handler = strh[4:8]
                 compression = strf[16:20] if strf and len(strf) >= 20 \
                     else b""
-                codec = (AVI_CODECS.get(compression.upper())
-                         or AVI_CODECS.get(handler.upper()))
+                codec, tag = avi_codec(
+                    compression if compression.upper() in AVI_CODECS
+                    else handler)
                 if codec is None:
                     raise mp4.refusal(self.path, f"AVI video codec "
                                                  f"{handler!r}/"
@@ -205,6 +234,7 @@ class AviStream:
                 size = struct.unpack("<I", strf[:4])[0]
                 self.codec, self.size = codec, (w, abs(h))
                 self.fps = rate / scale if scale else None
+                self.tag = tag
                 self.extradata = strf[40:size] if size > 40 else b""
                 return b"%02d" % index
             index += 1
@@ -212,45 +242,10 @@ class AviStream:
         raise mp4.refusal(self.path, "an AVI with no video stream")
 
 
-class VideoReader:
-    """A Motion-JPEG AVI's frames, decoded one at a time as ``(H, W, 3)``
-    uint8 BGR: the part of ``cv2.VideoCapture`` the demo uses (``read``,
-    ``release``), with the stream's ``fps``, ``size`` (w, h) and
-    ``frame_count``."""
-
-    def __init__(self, path: str, stream: AviStream):
-        self.path = path
-        self._f = open(path, "rb")
-        self._frames, self.fps, self.size = (stream.frames, stream.fps,
-                                             stream.size)
-        self._next = 0
-
-    @property
-    def frame_count(self) -> int:
-        return len(self._frames)
-
-    def read(self) -> Tuple[bool, Optional[np.ndarray]]:
-        """(True, next frame) or (False, None) after the last one."""
-        from ..data.imread import decode_bgr
-
-        if self._f.closed or self._next >= len(self._frames):
-            return False, None
-        off, n = self._frames[self._next]
-        self._next += 1
-        self._f.seek(off)
-        frame = decode_bgr(self._f.read(n))
-        if frame is None:
-            raise ValueError(f"{self.path}: frame {self._next - 1} is not "
-                             f"a JPEG image")
-        return True, frame
-
-    def release(self) -> None:
-        self._f.close()
-
-
 class DecodedVideo:
-    """An H.264, HEVC, MPEG-1/2, MPEG-4 Part 2 or VP9 stream of an
-    MP4/MOV, AVI, Matroska / WebM, MPEG-TS or MPEG program stream file,
+    """An H.264, HEVC, MPEG-1/2, MPEG-4 Part 2, VP8, VP9 or Motion-JPEG
+    stream of an MP4/MOV, AVI, Matroska / WebM, MPEG-TS or MPEG program
+    stream file,
     read as ``cv2.VideoCapture`` with
     ``CAP_PROP_ORIENTATION_AUTO`` reads it: ``read()`` gives each frame
     in display order as ``(H, W, 3)`` uint8 BGR, turned by ``rotation``;
@@ -310,7 +305,8 @@ class DecodedVideo:
                     f"for tests)")
             t0 = time.perf_counter()
             self._decoder = Decoder(self.codec,
-                                    getattr(track, "colour", None))
+                                    getattr(track, "colour", None),
+                                    getattr(track, "tag", b""))
             # as libavformat does for cv2 (in MPEG-TS too); MPEG-1/2 and
             # HEVC decoders reorder from the first picture: no probe
             if self.codec == "h264":
@@ -345,8 +341,11 @@ class DecodedVideo:
                 self.seconds["parse"] += parsed
                 t0 += parsed
             self.seconds["demux"] += t1 - t0
+            # libavcodec decodes a packet as it is sent
+            t1 = time.perf_counter()
             pictures = (self._decoder.flush() if packet is None else
                         self._decoder.decode(*packet))
+            self.seconds["decode"] += time.perf_counter() - t1
             while True:
                 t0 = time.perf_counter()
                 picture = next(pictures, None)
@@ -440,19 +439,15 @@ def _shown_flags(shown) -> Iterator[bool]:
 
 def open_video(path: str, device="cuda"):
     """Open a video file for reading (``cv2.VideoCapture``'s place in the
-    JAX demo): a :class:`VideoReader` for Motion-JPEG AVI, a
-    :class:`DecodedVideo` for the rest (MP4/MOV, AVI, Matroska / WebM,
-    MPEG-TS, MPEG program streams), which converts its frames on
-    `device`.  Raises
-    FileNotFoundError
-    for a missing file and ValueError, naming the container or codec and
-    ROADMAP.md queue 1 item 4, for anything else."""
+    JAX demo): a :class:`DecodedVideo` of its first video stream (MP4/MOV,
+    AVI, Matroska / WebM, MPEG-TS, MPEG program streams), which converts
+    its frames on `device`.  Raises FileNotFoundError for a missing file
+    and ValueError, naming the container or codec and ROADMAP.md queue 1
+    item 4, for anything else."""
     with open(path, "rb") as f:
         head = f.read(4096)
         if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
             stream = AviStream(path, f)
-            if stream.codec == "mjpeg":
-                return VideoReader(path, stream)
             return DecodedVideo(path, device, lambda path, f: stream)
     if mp4.is_isobmff(head):
         return DecodedVideo(path, device)
@@ -517,9 +512,8 @@ class VideoWriter:
         strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", self.fourcc, 0,
                            0, 0, 0, self._scale, self._rate, 0, n, bufsize,
                            0xFFFFFFFF, 0, 0, 0, w, h)
-        strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, self.fourcc,
-                           w * h * 3, 0, 0, 0, 0)
-        strl = (b"strl" + _chunk(b"strh", strh) + _chunk(b"strf", strf))
+        strl = (b"strl" + _chunk(b"strh", strh)
+                + _chunk(b"strf", bitmap_info((w, h), self.fourcc)))
         hdrl = b"hdrl" + _chunk(b"avih", avih) + _chunk(b"LIST", strl)
         return _chunk(b"LIST", hdrl)
 
@@ -548,9 +542,11 @@ class VideoWriter:
                 buf, "JPEG", **JPEG_OPTIONS)
             packets = [(buf.getvalue(), True)]
             self.seconds["encode"] += time.perf_counter() - t0
-        self._write_packets(packets)
+        self.write_packets(packets)
 
-    def _write_packets(self, packets) -> None:
+    def write_packets(self, packets) -> None:
+        """Write encoded packets (bytes, key) of the writer's codec as
+        they are, one chunk each."""
         t0 = time.perf_counter()
         for data, key in packets:
             if not key:
@@ -568,7 +564,7 @@ class VideoWriter:
         f = self._f
         try:
             if self._encoder is not None:
-                self._write_packets(self._encoder.flush())
+                self.write_packets(self._encoder.flush())
                 self._encoder.close()
                 self._encoder = None
             movi_end = f.tell()
@@ -584,6 +580,15 @@ class VideoWriter:
             f.write(struct.pack("<4sI", b"LIST", movi_end - self._movi))
         finally:
             f.close()
+
+
+def bitmap_info(size: Tuple[int, int], fourcc: bytes) -> bytes:
+    """A BITMAPINFOHEADER (40 bytes) of (w, h) frames of `fourcc`: an AVI
+    stream's ``strf``, a Matroska ``V_MS/VFW/FOURCC`` track's
+    ``CodecPrivate``."""
+    w, h = size
+    return struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, fourcc, w * h * 3,
+                       0, 0, 0, 0)
 
 
 def _chunk(fourcc: bytes, data: bytes) -> bytes:

@@ -1,7 +1,8 @@
-"""H.264, HEVC, MPEG-1 / MPEG-2 video, MPEG-4 Part 2 and VP9 decoding on the host
-through FFmpeg's ``libavcodec``, the one that the machine's OpenCV wheel
-bundles, loaded by path with ctypes (as ``native/imgpipe.py`` links
-Pillow's libjpeg); and libavcodec's parsers, which split an elementary
+"""H.264, HEVC, MPEG-1 / MPEG-2 video, MPEG-4 Part 2, VP8, VP9 and
+Motion-JPEG decoding on the host through FFmpeg's ``libavcodec``, the one
+that the machine's OpenCV wheel bundles, loaded by path with ctypes (as
+``native/imgpipe.py`` links Pillow's libjpeg); and libavcodec's parsers,
+which split an elementary
 stream into frames where the container does not (MPEG-TS, MPEG program
 streams).
 
@@ -9,8 +10,8 @@ Why the host: the card's machine mounts the driver's NVDEC library
 (``libnvcuvid.so.1``, driver 580.159.03), but every call of it fails
 there, ``cuvidGetDecoderCaps`` included, with CUDA error 2
 (``scripts/torch_probe_video.py``).  So the video reader decodes here
-and converts the decoded 4:2:0 planes to BGR on the card
-(``ops.kernels.yuv420_to_bgr``, ``ops.kernels.yuv420p10_to_bgr``).
+and converts the decoded planes to BGR on the card
+(``ops.kernels.yuv420_frame_to_bgr``).
 
 Only version-stable pieces of the API are used: ``avcodec_find_decoder_by_name``,
 ``avcodec_alloc_context3``, ``avcodec_open2``, ``avcodec_send_packet``,
@@ -43,10 +44,13 @@ streams need no probe: MPEG-1/2 decoders reorder their B pictures from
 the first, whatever came before, and an HEVC SPS always states its
 reorder delay (``sps_max_num_reorder_pics``), which the decoder follows.
 Planar frames of 8, 10 and 12 bits are taken (:data:`READ_FORMATS`):
-4:2:0 (``yuv420p``, full-range ``yuvj420p``; HEVC Main 10, H.264 High
-10, VP9 profile 2; HEVC Main 12), 4:2:2 (H.264 High 4:2:2, HEVC RExt, VP9
-profiles 1 and 3, MPEG-2 4:2:2), 4:4:0 and 4:4:4 (VP9 profiles 1 and 3,
-HEVC RExt, H.264 High 4:4:4) and 4:0:0 (``gray``: monochrome HEVC).
+4:2:0 (``yuv420p``; VP8; full-range ``yuvj420p``, Motion-JPEG; HEVC
+Main 10, H.264 High 10, VP9 profile 2; HEVC Main 12), 4:2:2 (H.264 High
+4:2:2, HEVC RExt, VP9 profiles 1 and 3, MPEG-2 4:2:2, ``yuvj422p``
+camera JPEG), 4:4:0 and 4:4:4 (VP9 profiles 1 and 3, HEVC RExt, H.264
+High 4:4:4, ``yuvj444p`` JPEG) and 4:0:0 (``gray``: monochrome HEVC and
+grayscale JPEG).  A JPEG's colour comes from the ``mjpeg`` decoder as
+any other frame's: BT.601, full range, chroma centred.
 4:1:1, 16-bit, RGB (``gbrp``: matrix 0, ROADMAP.md item 4i (c)) and any
 other format are refused by name.  Nothing is loaded at import; without
 the library the first decoder or parser raises, naming where it looked.
@@ -64,7 +68,8 @@ from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
-CODECS = ("h264", "hevc", "mpeg4", "vp9", "mpeg1video", "mpeg2video")
+CODECS = ("h264", "hevc", "mpeg4", "vp8", "vp9", "mpeg1video", "mpeg2video",
+          "mjpeg")
 # libavcodec's parsers, by the decoder they split a stream for: the
 # ``mpegvideo`` parser serves both MPEG-1 and MPEG-2
 PARSERS = {"mpeg1video": "mpegvideo", "mpeg2video": "mpegvideo",
@@ -260,13 +265,19 @@ class Decoder:
     buffers), and the picture's width (a linesize is padded past it);
     ``colour`` is then that frame's :class:`FrameColour`.  Frames come out
     in display order.  `colour` is the container's :class:`StreamColour`,
-    which the decoder starts from."""
+    which the decoder starts from; `tag` the container's four-character
+    code of the stream (an AVI's compression, a MOV sample entry, a
+    Matroska VFW track's), which libavformat hands the decoder as its
+    ``codec_tag``, and which the ``mjpeg`` decoder reads (it decodes an
+    ``MTSJ`` stream otherwise)."""
 
-    def __init__(self, codec: str, colour: Optional[StreamColour] = None):
+    def __init__(self, codec: str, colour: Optional[StreamColour] = None,
+                 tag: bytes = b""):
         if codec not in CODECS:
             raise ValueError(f"no decoder for {codec!r}: H.264, HEVC, "
-                             f"MPEG-1/2 video, MPEG-4 Part 2 and VP9 are "
-                             f"read (ROADMAP.md queue 1 item 4)")
+                             f"MPEG-1/2 video, MPEG-4 Part 2, VP8, VP9 and "
+                             f"Motion-JPEG are read (ROADMAP.md queue 1 "
+                             f"item 4)")
         self.codec = codec
         self._libs = libs = libraries()
         self._ctx = self._packet = self._frame = None
@@ -283,6 +294,8 @@ class Decoder:
         self.colour: Optional[FrameColour] = None
         colour = colour or StreamColour()
         for name, value in (
+                ("codec_tag", int.from_bytes(tag, "little") if tag
+                 else None),
                 ("colorspace", colour.matrix),
                 ("color_range", None if colour.full is None else
                  AVCOL_RANGE_JPEG if colour.full else AVCOL_RANGE_MPEG),

@@ -7,8 +7,9 @@
   the decoders, whether 640x480 fits).
 - The host: the FFmpeg ``libavcodec`` the OpenCV wheel bundles
   (``rtpose_tpu_torch/native/avcodec.py``, the route the reader takes):
-  its path, whether it opens the H.264, HEVC, MPEG-4, VP9, MPEG-1 and
-  MPEG-2 decoders (and the AV1 decoder the reader still refuses),
+  its path, whether it opens the H.264, HEVC, MPEG-4, VP8, VP9, MPEG-1,
+  MPEG-2 and Motion-JPEG decoders (and the AV1 decoder the reader still
+  refuses),
   whether the ``mpegvideo``, ``mpeg4video``, ``h264`` and ``hevc``
   parsers initialise, and the libavcodec, libavutil and libswscale
   versions; and what the XVID writer needs
@@ -47,6 +48,17 @@
   the machine has cv2, its frames of the committed chroma-format VP9
   fixtures and of PCM HEVC RExt / H.264 High 4:2:2 files against the
   port's CPU read (``fixtures``, ``files``).
+- Motion-JPEG and VP8 (ROADMAP.md item 4j (a), (b), fault F6,
+  ``mjpeg_vp8``): whether the wheel's ``mjpeg`` and ``vp8`` decoders open
+  and what each settles on a small file (the pixel format and
+  ``FrameColour``); where the machine has cv2, the backend a bare
+  ``cv2.VideoCapture(path)`` picks for a Motion-JPEG AVI (``backend``:
+  the JAX demo's reader; FFMPEG decodes with libavcodec), and its frames,
+  count and fps of the committed VP8 fixtures (``scripted_video``
+  ``VP8_FIXTURES``) and of Motion-JPEG files of the repository's writers
+  (``mjpeg_files``: Pillow's 4:2:0, 4:2:2, 4:4:4 and gray JPEGs in AVI,
+  MOV, MP4 and Matroska, without Huffman tables too) against the port's
+  CPU read.
 - AV1 (ROADMAP.md item 4f): every AV1 decoder the wheel's libavcodec
   registers (``av_codec_iterate``), what each makes of a scripted AV1
   still (``demo/scripted_video.py`` ``av1_still``: a temporal delimiter,
@@ -577,6 +589,43 @@ FORMAT_SIZES = ((48, 64), (47, 64), (48, 63), (47, 63), (9, 8))
 FORMAT_COLOURS = ((0, 2, False), (1, 1, True), (1, 9, False), (0, 7, True))
 
 
+def against_cv2(path: str, props: bool = False) -> dict:
+    """The port's CPU read of `path` against the machine's cv2 (a bare
+    ``cv2.VideoCapture``): frames, the largest difference, whether the
+    shapes agree; with `props`, each one's frame count and fps too."""
+    import cv2
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.demo import video_io
+    frames = {}
+    for key, cap in (("port", video_io.open_video(path, device="cpu")),
+                     ("cv2", cv2.VideoCapture(path))):
+        frames[key] = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames[key].append(frame)
+        if props:
+            frames[key + "_props"] = (
+                [cap.frame_count, cap.fps] if key == "port" else
+                [int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+                 cap.get(cv2.CAP_PROP_FPS)])
+        cap.release()
+    out = {"frames": len(frames["port"]), "cv2_frames": len(frames["cv2"]),
+           "max_abs_diff": max((int(np.abs(a.astype(int) - b).max())
+                                for a, b in zip(frames["port"],
+                                                frames["cv2"])
+                                if a.shape == b.shape), default=-1),
+           "shapes_equal": all(a.shape == b.shape for a, b in
+                               zip(frames["port"], frames["cv2"]))}
+    if props:
+        out["count_fps"] = frames["port_props"]
+        out["cv2_count_fps"] = frames["cv2_props"]
+    return out
+
+
 def format_files(work: str) -> list:
     """(name, path) of PCM files of the chroma formats (HEVC RExt 4:2:2
     10-bit of an odd height, 4:4:4 12-bit of an odd size, 4:0:0 10-bit
@@ -625,7 +674,6 @@ def probe_formats() -> dict:
 
     sys.path.insert(0, ROOT)
     from rtpose_tpu_torch.demo import scripted_video as sv
-    from rtpose_tpu_torch.demo import video_io
     from rtpose_tpu_torch.native.avencode import encoder_libraries
     from rtpose_tpu_torch.ops import kernels
     try:
@@ -662,26 +710,6 @@ def probe_formats() -> dict:
         out["cv2"] = "no cv2 on this machine"
         return out
 
-    def against_cv2(path):
-        frames = {}
-        for key, cap in (("port", video_io.open_video(path, device="cpu")),
-                         ("cv2", cv2.VideoCapture(path))):
-            frames[key] = []
-            while True:
-                ok, frame = cap.read()
-                if not ok:
-                    break
-                frames[key].append(frame)
-            cap.release()
-        return {"frames": len(frames["port"]),
-                "cv2_frames": len(frames["cv2"]),
-                "max_abs_diff": max((int(np.abs(a.astype(int) - b).max())
-                                     for a, b in zip(frames["port"],
-                                                     frames["cv2"])
-                                     if a.shape == b.shape), default=-1),
-                "shapes_equal": all(a.shape == b.shape for a, b in
-                                    zip(frames["port"], frames["cv2"]))}
-
     for fixture in sv.CHROMA_FIXTURES:
         out["fixtures"][fixture.name] = against_cv2(
             sv.chroma_fixture_path(fixture))
@@ -691,11 +719,98 @@ def probe_formats() -> dict:
     return out
 
 
+# (chroma format, with Huffman tables, container, (h, w)) of the
+# Motion-JPEG files mjpeg_files writes: every format in AVI, MOV and
+# Matroska at 48x64, and the rest of the cases at odd sizes
+MJPEG_FILES = tuple(
+    [(sampling, True, container, (48, 64))
+     for sampling in ("420", "422", "444", "gray")
+     for container in ("avi", "mov", "mkv")]
+    + [("420", False, "avi", (47, 63)), ("422", False, "mov", (31, 47)),
+       ("444", True, "mp4", (47, 63)), ("gray", True, "vfw", (31, 47)),
+       ("420", True, "mjpa", (31, 47)), ("420", True, "mkv", (47, 64)),
+       ("422", True, "avi", (47, 64))])
+
+
+def mjpeg_files(work: str) -> list:
+    """(name, path) of Motion-JPEG files of the repository's writers
+    (``scripted_video.jpeg_images`` / ``write_mjpeg``: Pillow's JPEGs of
+    rendered scenes, :data:`MJPEG_FILES`), written under `work`."""
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.data.imread_fixtures import render_scene
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    out = []
+    for sampling, huffman, container, (h, w) in MJPEG_FILES:
+        name = (f"mjpeg_{sampling}_{'dht' if huffman else 'no_dht'}_"
+                f"{h}x{w}.{container}")
+        path = os.path.join(work, name)
+        frames = [render_scene(40 + i, h, w) for i in range(3)]
+        sv.write_mjpeg(path, sv.jpeg_images(frames, sampling, huffman),
+                       (w, h), container)
+        out.append((name, path))
+    return out
+
+
+def probe_mjpeg_vp8() -> dict:
+    """Motion-JPEG and VP8 (ROADMAP.md item 4j (a), (b); fault F6): the
+    wheel's ``mjpeg`` and ``vp8`` decoders (``decoders``: whether each
+    opens, and the pixel format and colour it settles on a small file),
+    the backend the machine's cv2 picks for a Motion-JPEG AVI
+    (``backend``), and cv2's frames, count and fps of the VP8 fixtures
+    (``fixtures``) and of :func:`mjpeg_files` (``files``) against the
+    port's CPU read."""
+    import tempfile
+
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo import video_io
+    from rtpose_tpu_torch.native import avcodec
+    try:
+        libs = avcodec.libraries()
+    except (RuntimeError, OSError) as e:
+        return {"error": str(e)}
+    out = {"decoders": {}, "fixtures": {}, "files": {}}
+    with tempfile.TemporaryDirectory() as work:
+        files = mjpeg_files(work)
+        samples = {"vp8": sv.vp8_path(sv.VP8_FIXTURES[0]),
+                   "mjpeg": files[0][1]}
+        for name, path in samples.items():
+            entry = out["decoders"][name] = {"opens": _opens(libs, name)}
+            if entry["opens"] != "opens":
+                continue
+            cap = video_io.open_video(path, device="cpu")
+            try:
+                cap.read()
+                decoder = cap._decoder
+                frame = avcodec._Frame.from_address(decoder._frame.value)
+                entry.update(colour=decoder.colour._asdict(),
+                             pixel_format=libs.avutil.av_get_pix_fmt_name(
+                                 frame.format).decode())
+            finally:
+                cap.release()
+        try:
+            import cv2
+        except ImportError:
+            out["cv2"] = "no cv2 on this machine"
+            return out
+        out["cv2"] = cv2.__version__
+        cap = cv2.VideoCapture(files[0][1])
+        out["backend"] = {"mjpg_avi": cap.getBackendName()
+                          if cap.isOpened() else "does not open"}
+        cap.release()
+        for fixture in sv.VP8_FIXTURES:
+            out["fixtures"][fixture.name] = against_cv2(
+                sv.vp8_path(fixture), props=True)
+        for name, path in files:
+            out["files"][name] = against_cv2(path, props=True)
+    return out
+
+
 def probe() -> dict:
     return {"nvdec": probe_nvdec(), "libavcodec": probe_host(),
             "writer": probe_writer(), "av1": probe_av1(),
             "colour": probe_colour(), "odd_sizes": probe_odd_sizes(),
-            "formats": probe_formats()}
+            "formats": probe_formats(), "mjpeg_vp8": probe_mjpeg_vp8()}
 
 
 if __name__ == "__main__":

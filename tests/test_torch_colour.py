@@ -104,16 +104,22 @@ def _frames(depth=8, n=2, h=H, w=W, seed=19):
 
 VUI = [C(1), C(1, True), C(9), C(9, True), C(4), C(4, True), C(7),
        C(7, True), C(6, True), C(None, True), C(1, False, 1, 1),
-       C(9, False, 2, 14)]
+       C(9, False, 2, 14),
+       # every other transfer and primaries video_io.conversion passes
+       # (PLAIN_TRANSFERS, PLAIN_PRIMARIES), and matrices 5 and 6
+       *(C(1, False, 1, t) for t in (4, 5, 6, 7, 8, 11, 12, 13, 15, 17)),
+       *(C(1, False, p, 1) for p in (4, 5, 6, 7)),
+       C(5, False, 5, 5), C(6, False, 6, 6)]
 
 
 @pytest.mark.parametrize("codec", ["h264", "hevc"])
 @pytest.mark.parametrize("colour", VUI, ids=lambda c: f"{c.matrix}-{c.full}"
                          f"-{c.primaries}-{c.transfer}")
 def test_vui_colour_reads_as_cv2(tmp_path, codec, colour):
-    """BT.709, BT.2020, FCC, SMPTE 240M and BT.601 in the SPS's VUI,
-    limited and full range (the range alone too): H.264's full range
-    comes out of libavcodec as ``yuvj420p``."""
+    """BT.709, BT.2020, FCC, SMPTE 240M and BT.601 (matrices 5 and 6) in
+    the SPS's VUI, limited and full range (the range alone too), with
+    each transfer and primaries that cv2 5.0 leaves to the matrix alone:
+    H.264's full range comes out of libavcodec as ``yuvj420p``."""
     path = tmp_path / "v.mp4"
     if codec == "h264":
         sv.write_ipcm_mp4(str(path), _frames(), colour=colour)

@@ -4,11 +4,14 @@ package's video demo, on the CPU:
 - cv2 reads a Motion-JPEG AVI that ``demo.video_io.VideoWriter`` wrote:
   the frame count, size and fps are the written ones, and the frames that
   cv2's own Motion-JPEG backend decodes equal Pillow's decode of the same
-  JPEG, pixel for pixel (cv2's FFMPEG backend decodes JPEG with ffmpeg's
-  decoder: the same count and size, other pixels);
+  JPEG, pixel for pixel (cv2's FFMPEG backend, which a bare
+  ``cv2.VideoCapture(path)`` picks, decodes JPEG with libavcodec: the
+  same count and size, other pixels); the port reads it as that bare
+  ``cv2.VideoCapture(path)`` does, the JAX demo's reader;
 - ``open_video`` reads ``cv2.VideoWriter(..., 'MJPG')`` files of both of
-  cv2's writers, frame for frame equal to ``cv2.VideoCapture``'s frames
-  (its Motion-JPEG backend), and refuses what it still does not read
+  cv2's writers, frame for frame equal to a bare ``cv2.VideoCapture``'s
+  frames (its FFMPEG backend; more Motion-JPEG and VP8:
+  tests/test_torch_mjpeg_vp8.py), and refuses what it still does not read
   (AV1, laced Matroska blocks, edits of another media rate, other
   containers) with an
   error naming it and ROADMAP.md queue 1 item 4 (H.264 and MPEG-4 files:
@@ -17,8 +20,9 @@ package's video demo, on the CPU:
   tests/test_torch_hevc.py; program streams: tests/test_torch_mpegps.py);
   what it once refused (MPEG-TS, fragmented MP4, ``mvex``, a two-entry
   edit list, HEVC in MP4, Matroska and MPEG-TS, an MPEG program stream,
-  HEVC Main 10, VP9 of profiles 1-3, HEVC RExt, Main 12, 4:0:0 and
-  MPEG-2 4:2:2) it reads as cv2 reads it;
+  HEVC Main 10, VP9 of profiles 1-3, HEVC RExt, Main 12, 4:0:0,
+  MPEG-2 4:2:2, VP8 in WebM and MP4, Motion-JPEG in MOV, MP4 and
+  Matroska) it reads as cv2 reads it;
 - the video demo's ``main()`` over an oracle-map pipeline finds, frame
   for frame, the people of the JAX video demo's ``main()`` over the same
   maps (part ids equal, pixel coordinates within 1e-4, scores within
@@ -102,6 +106,8 @@ def _read_port(path):
 
 
 def _pillow_jpeg(bgr):
+    """Pillow's decode of Pillow's JPEG of `bgr` (cv2's Motion-JPEG
+    backend decodes the same way)."""
     import io
 
     from PIL import Image
@@ -123,10 +129,11 @@ def test_cv2_reads_the_port_avi(tmp_path, api):
     if api == "mjpeg":
         for g, f in zip(got, frames):
             np.testing.assert_array_equal(g, _pillow_jpeg(f))
+    want, _ = _read_cv2(path)
     ours, cap = _read_port(path)
     assert len(ours) == 9 and cap.fps == 12.5 and cap.size == (64, 48)
-    for o, f in zip(ours, frames):
-        np.testing.assert_array_equal(o, _pillow_jpeg(f))
+    for o, w in zip(ours, want):
+        np.testing.assert_array_equal(o, w)
 
 
 @pytest.mark.parametrize("api", ["any", "mjpeg"])
@@ -140,7 +147,7 @@ def test_port_reads_cv2_mjpg_avi(tmp_path, api):
     for f in frames:
         writer.write(f)
     writer.release()
-    want, _ = _read_cv2(path, cv2.CAP_OPENCV_MJPEG)
+    want, _ = _read_cv2(path)
     got, cap = _read_port(path)
     assert len(got) == len(want) == 7
     assert cap.fps == 10 and cap.size == (64, 48) and cap.frame_count == 7
@@ -226,10 +233,21 @@ def _once_refused(tmp_path, kind):
     VP9 profile 2 in WebM and MP4; VP9 of profiles 1 and 3 in WebM and of
     12 bits in MP4, PCM HEVC RExt 4:2:2 in MP4 and 4:4:4 in Matroska (real
     RExt pictures), Main 12 and 4:0:0 in MPEG-TS, cv2's MPEG-2 TS made
-    4:2:2."""
+    4:2:2; VP8 in WebM and in an MP4 (``vp08``; committed
+    fixtures), Motion-JPEG in MOV (``jpeg``), MP4 (``mp4v`` of object
+    type 0x6C) and Matroska (``V_MJPEG``)."""
     from test_torch_mpegts import _cv2_ts
 
     from rtpose_tpu_torch.demo import scripted_video as sv
+    if kind in ("webm_vp8", "mp4_vp08"):
+        name = {"webm_vp8": "vp8_48x64.webm", "mp4_vp08": "vp8_48x64.mp4"}
+        return sv.vp8_path(next(f for f in sv.VP8_FIXTURES
+                                if f.name == name[kind]))
+    if kind in ("mov_jpeg", "mp4_mjpeg", "mkv_mjpeg"):
+        path = str(tmp_path / f"{kind}.bin")
+        sv.write_mjpeg(path, sv.jpeg_images(_frames(3)), (64, 48),
+                       kind.split("_")[0])
+        return path
     if kind in ("webm_vp9_profile1", "webm_vp9_profile3", "vp09_12bit"):
         path = str(tmp_path / f"{kind}.bin")
         frames = {"webm_vp9_profile1": sv.yuv_frames(2, 48, 64,
@@ -299,14 +317,16 @@ def _once_refused(tmp_path, kind):
                                   "webm_vp9_profile1", "webm_vp9_profile3",
                                   "vp09_12bit", "mp4_rext_422",
                                   "mkv_rext_444", "ts_main12", "ts_gray",
-                                  "mpeg2_422"])
+                                  "mpeg2_422", "webm_vp8", "mp4_vp08",
+                                  "mov_jpeg", "mp4_mjpeg", "mkv_mjpeg"])
 def test_open_video_reads_what_it_refused(tmp_path, kind):
     """MPEG-TS (item 4b), fragmented MP4 and edit lists of several
     entries (item 4c), HEVC in Matroska, MPEG-TS and MP4 (item 4e), MPEG
     program streams (item 4g), HEVC Main 10 and VP9 profile 2 (item 4h),
     VP9 profiles 1 and 3, 12-bit VP9, HEVC RExt 4:2:2 / 4:4:4, Main 12,
-    4:0:0 and MPEG-2 4:2:2 (item 4i (d)), once refused by name, read frame
-    for frame as cv2 reads them, with cv2's fps and frame count."""
+    4:0:0 and MPEG-2 4:2:2 (item 4i (d)), VP8 (item 4j (a)) and
+    Motion-JPEG outside AVI (item 4j (b)), once refused by name, read
+    frame for frame as cv2 reads them, with cv2's fps and frame count."""
     path = _once_refused(tmp_path, kind)
     want, (count, fps) = _read_cv2(path)
     got, cap = _read_port(path)
