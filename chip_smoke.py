@@ -162,6 +162,19 @@ entry points a user calls:
   (``yuv422_to_bgr``) and on the committed 480x640 VP8 WebM
   (``yuv420_to_bgr``), K1, K3 and G once a batch; each kernel row carries
   ``mjpeg_vp8_demo_launches``, each colour row ``mjpeg_vp8_launches``;
+- cv2's writer's codecs and ProRes (phase 16d, ROADMAP.md item 4j (c),
+  (d)): the probe's ``cv2_writer`` part (the wheel's decoders, its
+  ``prores`` encoder, its cv2 against the port's CPU read);
+  ``csrc/packed_to_bgr.cu`` against its plain version at four turns,
+  every packed format, 480x640, 479x639 and 1080x1920, timed with its
+  bound and the one PyTorch call that computes the same function; the
+  files of each of cv2's writer's fourccs (this machine's cv2, AVI and
+  Matroska) and ProRes MOV / Matroska on the card == the CPU == cv2; the
+  flagship video demo on 64-frame 480x640 FFV1 (``packed_to_bgr``) and
+  MPEG-2 (``yuv420_to_bgr``) AVIs, K1, K3 and G once a batch; each kernel
+  row carries ``cv2_writer_demo_launches``, each colour row
+  ``cv2_writer_launches``, and the packed kernel's row stands in the
+  kernels line with the FFV1 demo's launches;
 
 and checks that each path launched its kernels.  Also holds one fp32
 train step on the card against the CPU.  Prints timings beside the card's
@@ -4990,6 +5003,297 @@ def mjpeg_vp8_phase(dev, smi: str, found: dict):
     return {**demo_counts, "reader": reader_launches}, numbers
 
 
+# phase 16d: cv2's writer's codecs and ProRes (ROADMAP.md item 4j (c), (d))
+PACKED_KERNEL_SIZES = ((480, 640), (479, 639), (1080, 1920))
+PACKED_ROWS = (("bgr0", (480, 640)), ("bgr0", (1080, 1920)),
+               ("bgr24", (1080, 1920)))
+# the flagship demo's 64-frame files of cv2's writer: (label, fourcc,
+# decoder, colour kernel)
+WRITER_DEMOS = (("ffv1_avi", "FFV1", "ffv1", "packed_to_bgr"),
+                ("mpeg2_avi", "mpg2", "mpeg2video", "yuv420_to_bgr"))
+# files whose read by this machine's cv2 is known to differ from the
+# port's (each logged in ROADMAP.md queue 3): none found
+CV2_WRITER_DIFFERENCES = frozenset()
+READER_KERNELS = COLOUR_KERNELS + ("packed_to_bgr",)
+
+
+def cv2_writer_phase(dev, smi: str, found: dict):
+    """Phase 16d: the files cv2's own VideoWriter writes and ProRes
+    (ROADMAP.md item 4j (c), (d)), through libavcodec's decoders of them,
+    the existing colour kernels and ``csrc/packed_to_bgr.cu``.
+
+    - the probe's ``cv2_writer`` part (``scripts/torch_probe_video.py``,
+      `found`, run in phase 16): the wheel's decoders open, it has the
+      ``prores`` encoder, and this machine's cv2 reads each of its
+      writer's fourccs in AVI and Matroska and ProRes MOV / Matroska as
+      the port's CPU read does (frames, count, fps);
+    - ``packed_to_bgr`` against its plain version at turns 0 / 90 / 180 /
+      270, at 480x640, 479x639 and 1080x1920, every packed format, error
+      0; timed at bgr0 480x640 and 1080p and bgr24 1080p beside its bound
+      and the one PyTorch call that computes the same function (a channel
+      slice, ``torch.rot90``, ``.contiguous()``);
+    - those files written here and read on the card: == the CPU read, ==
+      this machine's cv2, each frame one launch of its route's kernel;
+    - the flagship video demo (VGG19, 6 stages, flip, --batch 8) on a
+      64-frame 480x640 FFV1 AVI and a 64-frame 480x640 MPEG-2 AVI of this
+      machine's cv2, writing XVID: frames/s, read ms a frame split into
+      demux, decode and convert; K1, K3 and G once a batch and the colour
+      kernel once a frame, counted from 0 just before each run.
+
+    -> ({"ffv1_avi": launch counts, "mpeg2_avi": launch counts, "reader":
+    colour launches}, numbers, the packed kernel's row)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from torch_probe_video import (CV2_WRITER_FOURCCS, PRORES_FILES,
+                                   cv2_writer_files)
+    from rtpose_tpu_torch.demo import video_demo, video_io
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.ops import kernels
+    import cv2
+
+    t_phase = time.perf_counter()
+    numbers = {"device": smi, "probe": found}
+    decoders = found.get("decoders", {})
+    log(f"phase 16d (cv2's writer's codecs, ProRes): decoders "
+        f"{json.dumps(decoders)}; prores encoder "
+        f"{found.get('prores_encoder')}; cv2 {found.get('cv2')} [{smi}]")
+    check("error" not in found and decoders and all(
+        v == "opens" for v in decoders.values())
+        and found.get("prores_encoder"),
+        f"cv2's writer's codecs / ProRes: the wheel's decoders: {found}")
+    differ = {k: v for k, v in found.get("files", {}).items()
+              if not (v["frames"] == v["cv2_frames"] > 0
+                      and v["max_abs_diff"] == 0
+                      and v["count_fps"] == v["cv2_count_fps"])}
+    log(f"phase 16d: cv2 {found.get('cv2')} against the port's CPU read of "
+        f"{len(found.get('files', {}))} files (frames, count, fps): "
+        f"differing {json.dumps(differ)}")
+    check(len(found.get("files", {})) == 2 * (
+        len(PRORES_FILES) + len(CV2_WRITER_FOURCCS)) and set(differ) <= set(
+        CV2_WRITER_DIFFERENCES), f"cv2's writer's codecs / ProRes: cv2 "
+        f"against the CPU read: {differ}")
+
+    # the packed kernel == plain at every turn, format and size
+    errs = {}
+    for layout, n in kernels.PACKED_BYTES.items():
+        for h, w in PACKED_KERNEL_SIZES:
+            rng = np.random.RandomState(h * w + n)
+            frame = torch.from_numpy(rng.randint(0, 256, (h, n * w + 3))
+                                     .astype(np.uint8)).to(dev)
+            for rot in kernels.ROTATIONS:
+                got = kernels.packed_to_bgr(frame, width=w, layout=layout,
+                                            rotation=rot)
+                want = kernels.packed_to_bgr_plain(frame, width=w,
+                                                   layout=layout,
+                                                   rotation=rot)
+                key = f"{layout} {h}x{w} {rot}"
+                errs[key] = int((got.int() - want.int()).abs().max())
+    torch.cuda.synchronize()
+    check(all(v == YUV_KERNEL_TOL for v in errs.values()),
+          f"packed_to_bgr vs plain: {errs}")
+    log(f"phase 16d: packed_to_bgr == plain at 4 turns, "
+        f"{len(kernels.PACKED_BYTES)} formats, sizes {PACKED_KERNEL_SIZES}:"
+        f" {len(errs)} cases, largest error {max(errs.values())} [{smi}]")
+    timed = {}
+    for layout, (h, w) in PACKED_ROWS:
+        n = kernels.PACKED_BYTES[layout]
+        frame = torch.from_numpy(np.random.RandomState(3).randint(
+            0, 256, (h, n * w)).astype(np.uint8)).to(dev)
+        view = frame.view(h, w, n)
+        entry = {}
+        for rot in (0, 90):
+            kw = dict(width=w, layout=layout, rotation=rot)
+            turns = {0: 0, 90: -1}[rot]
+
+            def kernel():
+                return kernels.packed_to_bgr(frame, **kw)
+
+            def library():     # one PyTorch call: slice, turn, copy
+                return torch.rot90(view[..., :3], turns,
+                                   (0, 1)).contiguous()
+            ms, plain_ms = paired_ms(kernel, functools.partial(
+                kernels.packed_to_bgr_plain, frame, **kw), 50)
+            dev_ms, where = device_ms(kernel, "packed_to_bgr")
+            lib_ms = (cuda_ms(library, 50) + cuda_ms(library, 50)) / 2
+            check(layout == "rgb24" or torch.equal(library(), kernel()),
+                  f"packed_to_bgr {layout} {h}x{w} {rot}: the library "
+                  f"call computes another function")
+            entry[rot] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                              device_ms_source=where, library_ms=lib_ms,
+                              host_ms=host_ms(kernel))
+        n_bytes = (n + 3) * h * w
+        bound_ms, bound_by = bound(n_bytes, 0)
+        timed[f"{layout} {h}x{w}"] = dict(**entry[0], rotation_90=entry[90],
+                                          bound_ms=bound_ms,
+                                          bound_by=bound_by, bytes=n_bytes)
+        log(f"packed_to_bgr {layout} {h}x{w}: kernel {entry[0]['ms']:.4f} "
+            f"ms (90: {entry[90]['ms']:.4f}), device "
+            f"{entry[0]['device_ms']:.5f} ms ({where}; 90: "
+            f"{entry[90]['device_ms']:.5f}), host {entry[0]['host_ms']:.4f} "
+            f"ms a call, plain {entry[0]['plain_ms']:.4f} ms, library "
+            f"{entry[0]['library_ms']:.5f} ms (90: "
+            f"{entry[90]['library_ms']:.5f}); bound {bound_ms:.5f} ms "
+            f"({n_bytes} bytes) [{smi}]")
+    numbers["packed_to_bgr"] = timed
+    # 8-bit gray (swscale's palette copy, B = G = R = Y) is the one
+    # earlier colour route that one PyTorch call computes too: its
+    # library time beside the kernel's, for PERF.md's gray rows
+    gray = {}
+    for h, w in ((1080, 1920), (2160, 3840)):
+        y = torch.from_numpy(np.random.RandomState(5).randint(
+            0, 256, (h, w)).astype(np.uint8)).to(dev)
+        for rot in (0, 90):
+            turns = {0: 0, 90: -1}[rot]
+
+            def kernel():
+                return kernels.gray_to_bgr(y, width=w, depth=8, rotation=rot)
+
+            def library():
+                return torch.rot90(y[..., None].expand(h, w, 3), turns,
+                                   (0, 1)).contiguous()
+            check(torch.equal(library(), kernel()),
+                  f"gray_to_bgr {h}x{w} {rot}: the library call differs")
+            ms, lib_ms = paired_ms(kernel, library, 50)
+            gray[f"{h}x{w} rotation {rot}"] = dict(ms=ms, library_ms=lib_ms)
+    numbers["gray_library"] = gray
+    log(f"phase 16d: 8-bit gray_to_bgr against the one PyTorch call "
+        f"(expand, rot90, contiguous), events ms a call: "
+        f"{json.dumps(gray)} [{smi}]")
+    first = timed[f"{PACKED_ROWS[0][0]} {PACKED_ROWS[0][1][0]}x"
+                  f"{PACKED_ROWS[0][1][1]}"]
+    row = dict(
+        name="packed_to_bgr", route="cuda",
+        source="rtpose_tpu_torch/csrc/packed_to_bgr.cu",
+        replaces="none: the bgr0 / bgra / bgr24 / rgb24 -> bgr24 conversion "
+                 "(swscale's unscaled byte shuffle) and turn inside "
+                 "cv2.VideoCapture (rtpose_tpu/demo/video_demo.py:19)",
+        replaces_kind="cv2/swscale; no Pallas kernel",
+        max_abs_err=max(errs.values()), **first,
+        shape=list(PACKED_ROWS[0][1]), layout=PACKED_ROWS[0][0],
+        sizes=timed)
+
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "rtpose_tpu_torch",
+                                             "build"))
+    argv = sys.argv
+    try:
+        # each file on the card == the CPU == this machine's cv2, one
+        # launch of its route's kernel a frame
+        read = {}
+        reader_launches = dict.fromkeys(READER_KERNELS, 0)
+        for name, path, codec in cv2_writer_files(work):
+            got, plain, want = [], [], []
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            for frames, cap in (
+                    (got, video_io.open_video(path, device=dev)),
+                    (plain, video_io.open_video(path, device="cpu")),
+                    (want, cv2.VideoCapture(path))):
+                while True:
+                    ok, frame = cap.read()
+                    if not ok:
+                        break
+                    frames.append(frame)
+                cap.release()
+            counts = kernels.launch_counts()
+            for k in READER_KERNELS:
+                reader_launches[k] += counts[k]
+            read[name] = entry = {
+                "codec": codec, "frames": len(got),
+                "cv2_frames": len(want),
+                "card_vs_cpu": max((int(np.abs(a.astype(int) - b).max())
+                                    for a, b in zip(got, plain)), default=-1),
+                "max_pixel_diff_vs_cv2": max(
+                    (int(np.abs(a.astype(int) - b).max())
+                     for a, b in zip(got, want) if a.shape == b.shape),
+                    default=-1),
+                "launches": {k: counts[k] for k in READER_KERNELS
+                             if counts[k]}}
+            check(len(got) == len(plain) > 0 and entry["card_vs_cpu"] == 0
+                  and sum(entry["launches"].values()) == len(got)
+                  and len(entry["launches"]) == 1
+                  and (name in CV2_WRITER_DIFFERENCES
+                       or (len(want) == len(got)
+                           and entry["max_pixel_diff_vs_cv2"] == 0)),
+                  f"cv2's writer's codecs / ProRes: {name} on the card: "
+                  f"{entry}")
+        numbers["files"] = read
+        numbers["reader_launches"] = reader_launches
+        log(f"phase 16d: cv2's writer's files and ProRes on the card "
+            f"against the CPU and cv2 {cv2.__version__}: {json.dumps(read)} "
+            f"[{smi}]")
+
+        # the flagship video demo on 64-frame 480x640 FFV1 and MPEG-2 AVIs
+        h, w = VIDEO_FILE_SHAPE
+        demo_counts = {}
+        for label, fourcc, codec, kernel in WRITER_DEMOS:
+            video = os.path.join(work, f"{label}.avi")
+            t0 = time.perf_counter()
+            sv.write_cv2_video(video, fourcc, VIDEO_FILE_FRAMES, h, w)
+            write_s = time.perf_counter() - t0
+            out = os.path.join(work, f"{label}_out.avi")
+            readers = []
+
+            def recording_open(path, device="cuda"):
+                readers.append(video_io.open_video(path, device=device))
+                return readers[-1]
+
+            sys.argv = (["video_demo", "--video", video, "--output", out,
+                         "--batch", "8"] + FRONTEND_FLAGS
+                        + ["--device", str(dev)])
+            video_demo.open_video = recording_open
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                n, video_s = video_demo.main()
+            torch.cuda.synchronize()
+            counts = demo_counts[label] = kernels.launch_counts()
+            video_demo.open_video = video_io.open_video
+            frames = VIDEO_FILE_FRAMES
+            batches = -(-frames // 8)
+            others = {k: counts[k] for k in READER_KERNELS
+                      if k != kernel and counts[k]}
+            check(f"processed {frames} frames" in text.getvalue()
+                  and n == frames and readers[0].codec == codec,
+                  f"cv2 writer demo {label}: {text.getvalue()!r}")
+            check(all(counts[k] >= batches for k in SERVING_KERNELS)
+                  and counts[kernel] == frames and not others
+                  and counts["gt_maps"] == 0,
+                  f"cv2 writer demo {label}: K1, K3 and G not once a batch "
+                  f"or {kernel} not once a frame: {counts}")
+            reread = video_io.open_video(out, device=dev)
+            check(reread.frame_count == frames
+                  and reread.size == readers[0].size,
+                  f"cv2 writer demo {label} output: {reread.frame_count} "
+                  f"frames of {reread.size}")
+            reread.release()
+            split = {k: v * 1e3 / n for k, v in readers[0].seconds.items()}
+            what = (f"cv2 {cv2.__version__}'s {fourcc} AVI {h}x{w} "
+                    f"(rendered scenes)")
+            numbers[f"demo_{label}"] = {
+                "frames": n, "seconds": video_s,
+                "frames_per_s": n / video_s, "batch": 8, "input": what,
+                "file_bytes": os.path.getsize(video), "write_s": write_s,
+                "read_ms_a_frame": split,
+                "read_ms_a_frame_total": sum(split.values()),
+                "launches": counts}
+            log(f"phase 16d: the flagship video demo on {what} ({n} frames) "
+                f"at --batch 8: {n / video_s:.2f} frames/s; read "
+                f"{sum(split.values()):.3f} ms a frame ("
+                + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                + f"); launches {counts} [{smi}]")
+    finally:
+        sys.argv = argv
+        video_demo.open_video = video_io.open_video
+        shutil.rmtree(work, ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16d: {numbers['phase_s']:.1f} s [{smi}]")
+    return {**demo_counts, "reader": reader_launches}, numbers, row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5887,6 +6191,13 @@ def main() -> int:
     mv_launches, mv_numbers = mjpeg_vp8_phase(
         dev, smi, vf_numbers["probe"]["mjpeg_vp8"])
 
+    # 16d. cv2's writer's codecs and ProRes: the probe's cv2_writer part,
+    # packed_to_bgr == plain at four turns and three sizes, timed; the
+    # files of each fourcc and ProRes on the card against the CPU and cv2;
+    # the flagship video demo on 64-frame FFV1 and MPEG-2 AVIs
+    cw_launches, cw_numbers, packed_row = cv2_writer_phase(
+        dev, smi, vf_numbers["probe"]["cv2_writer"])
+
     sources = {   # kernel -> (source, the TPU kernel it replaces, and K2)
         "connection_scores": ("rtpose_tpu_torch/csrc/connection_scores.cu",
                               "rtpose_tpu/ops/pallas_kernels.py:214",
@@ -5930,6 +6241,8 @@ def main() -> int:
                  chroma_demo_launches=cf_launches[name],
                  mjpeg_vp8_demo_launches={k: mv_launches[k][name] for k in
                                           ("mjpeg_mov", "vp8_webm")},
+                 cv2_writer_demo_launches={k: cw_launches[k][name] for k in
+                                           ("ffv1_avi", "mpeg2_avi")},
                  **results[name], library_ms=None,
                  hourglass_factor4=hourglass[name],
                  **({"also_replaces": also} if also else {}))
@@ -5957,6 +6270,8 @@ def main() -> int:
         chroma_demo_launches=cf_launches["group_people"],
         mjpeg_vp8_demo_launches={k: mv_launches[k]["group_people"] for k in
                                  ("mjpeg_mov", "vp8_webm")},
+        cv2_writer_demo_launches={k: cw_launches[k]["group_people"] for k in
+                                  ("ffv1_avi", "mpeg2_avi")},
         hourglass_factor4={k: hg_rows[f"group_people_K{k}"]
                            for k in (32, 64)},
         **results["group_people"], library_ms=None,
@@ -5971,6 +6286,7 @@ def main() -> int:
     print(json.dumps({"video_files": vf_numbers}), flush=True)
     print(json.dumps({"chroma_formats": cf_numbers}), flush=True)
     print(json.dumps({"mjpeg_vp8": mv_numbers}), flush=True)
+    print(json.dumps({"cv2_writer": cw_numbers}), flush=True)
     print(json.dumps({"native_loader": native_numbers,
                       "rotated_hourglass": rotated_numbers,
                       "resize_modes": resize_numbers}), flush=True)
@@ -5984,9 +6300,17 @@ def main() -> int:
         row["mjpeg_vp8_launches"] = {
             k: mv_launches[k][row["name"]]
             for k in ("mjpeg_mov", "vp8_webm", "reader")}
+    # ... and in phase 16d: the FFV1 demo's are the packed kernel's
+    # launches on this slice's main path
+    packed_row["launches"] = cw_launches["ffv1_avi"]["packed_to_bgr"]
+    for row in [yuv_row, p10_row, *odd_rows, *planar_rows, packed_row]:
+        row["cv2_writer_launches"] = {
+            k: cw_launches[k][row["name"]]
+            for k in ("ffv1_avi", "mpeg2_avi", "reader")}
     print(json.dumps({"kernels_beyond_tpu": [group_row]}), flush=True)
     print(json.dumps({"kernels": rows + [yuv_row, p10_row, *odd_rows,
-                                         *planar_rows]}), flush=True)
+                                         *planar_rows, packed_row]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -27,7 +27,16 @@ everything else are skipped by their size.
   the AVI path does; H.264 with its ``avcC`` ``CodecPrivate``, each block
   turned into Annex-B by ``demo/mp4.py``'s :func:`mp4.annexb`; HEVC with
   its ``hvcC`` ``CodecPrivate`` by :func:`mp4.annexb_hevc`, keyed by the
-  block's flag as cv2 keys it (libavformat parses no HEVC here).
+  block's flag as cv2 keys it (libavformat parses no HEVC here); what
+  cv2's writer writes (``V_MPEG1``, ``V_MPEG2``, ``V_MPEG4/MS/V3``,
+  ``V_FFV1``, ``V_UNCOMPRESSED`` with its pixel format from
+  ``Video/ColourSpace``, and VFW tracks of ``video_io.WRITER_TAGS``) as
+  stored, the ``CodecPrivate`` (a VFW track's past its
+  BITMAPINFOHEADER) and the track's size handed to the decoder
+  (``avcodec.CodecParams``); ProRes (``V_PRORES``, its ``CodecPrivate``
+  the sample entry's fourcc, the decoder's tag) with the 8 bytes of
+  frame size and ``icpf`` that Matroska strips put back, as
+  libavformat does.
 - ``fps``, ``frame_count`` and ``rotation`` are cv2's: FFmpeg's
   ``avg_frame_rate`` from ``DefaultDuration`` (``av_reduce(1e9,
   DefaultDuration, 30000)``), else its ``r_frame_rate`` guess from the
@@ -42,8 +51,7 @@ everything else are skipped by their size.
   (:func:`colour`), which keeps it where the bitstream states none.
 
 Refused, naming the codec or feature and ROADMAP.md queue 1 item 4: every
-codec but VP8, VP9, MPEG-4 Part 2, H.264, HEVC and Motion-JPEG
-(``V_AV1``, ``V_THEORA``, ...),
+codec but those above (``V_AV1``, ``V_THEORA`` of item 4j (e), ...),
 HEVC of other than 8, 10 or 12 bits (its ``hvcC``; item 4i), laced video
 blocks, and compressed or encrypted tracks (``ContentEncodings``).  VP9
 of every profile is taken (1 and 3: 4:2:2, 4:4:0, 4:4:4); a frame format
@@ -57,7 +65,7 @@ import struct
 from typing import BinaryIO, Dict, Iterator, List, NamedTuple, Optional, \
     Tuple
 
-from ..native.avcodec import StreamColour
+from ..native.avcodec import CONTAINER_PARAMS, CodecParams, StreamColour
 from . import mp4
 
 EBML = 0x1A45DFA3
@@ -84,11 +92,14 @@ TRACK_VIDEO = 1
 CODECS = {"V_VP9": "vp9", "V_VP8": "vp8", "V_MJPEG": "mjpeg",
           "V_MPEG4/ISO/ASP": "mpeg4",
           "V_MPEG4/ISO/SP": "mpeg4", "V_MPEG4/ISO/AP": "mpeg4",
-          "V_MPEG4/ISO/AVC": "h264", "V_MPEGH/ISO/HEVC": "hevc"}
+          "V_MPEG4/ISO/AVC": "h264", "V_MPEGH/ISO/HEVC": "hevc",
+          "V_MPEG1": "mpeg1video", "V_MPEG2": "mpeg2video",
+          "V_MPEG4/MS/V3": "msmpeg4", "V_FFV1": "ffv1",
+          "V_PRORES": "prores", "V_UNCOMPRESSED": "rawvideo"}
 OTHER_CODECS = {"V_AV1": "AV1",
-                "V_MPEGI/ISO/VVC": "VVC", "V_THEORA": "Theora",
-                "V_PRORES": "ProRes",
-                "V_FFV1": "FFV1", "V_UNCOMPRESSED": "uncompressed"}
+                "V_MPEGI/ISO/VVC": "VVC",
+                "V_THEORA": "Theora (ROADMAP.md queue 1 item 4j (e))"}
+COLOUR_SPACE = 0x2EB524     # Video/ColourSpace: V_UNCOMPRESSED's fourcc
 IDENTITY = [[1 << 16, 0, 0], [0, 1 << 16, 0], [0, 0, 1 << 30]]
 INT_MAX = 2 ** 31 - 1
 RFPS_PACKETS = 40       # what avformat_find_stream_info reads of a stream
@@ -290,7 +301,11 @@ class MkvTrack:
     duration: Optional[float] = None  # Info's, in Timecode units
     default_duration: int = 0        # ns
     extradata: bytes = b""           # MPEG-4: the VOS / VOL headers
-    tag: bytes = b""                 # Motion-JPEG in VFW: the fourcc
+    tag: bytes = b""                 # Motion-JPEG and cv2's writer's
+    #                                  codecs in VFW: the fourcc; ProRes:
+    #                                  its CodecPrivate; V_UNCOMPRESSED:
+    #                                  its ColourSpace
+    params: Optional[CodecParams] = None   # avcodec.CONTAINER_PARAMS
     nal_length: int = 0              # H.264: avcC; HEVC: hvcC
     sps: List[bytes]
     pps: List[bytes]
@@ -357,6 +372,10 @@ class MkvTrack:
                 data = mp4.annexb_hevc(data, self.nal_length, self.param_sets)
             elif self.codec == "mpeg4" and i == 0:
                 data = self.extradata + data
+            elif self.codec == "prores" and data[4:8] != b"icpf":
+                # Matroska stores ProRes frames without their frame
+                # header's size and ``icpf``; libavformat puts them back
+                data = struct.pack(">I", len(data) + 8) + b"icpf" + data
             # libavformat parses no HEVC here: cv2's key is the block's
             yield data, (b.key if self.codec == "hevc"
                          else mp4.intra_picture(self.codec, data))
@@ -473,16 +492,24 @@ class _Reader:
                               f"(ContentEncodings)")
         track.codec_id = codec_id
         if codec_id == "V_MS/VFW/FOURCC":
-            from .video_io import avi_codec
+            from .video_io import WRITER_TAGS, avi_codec, bitmap_params, \
+                refused_tag
             fourcc = private[16:20]
             track.codec, track.tag = avi_codec(fourcc)
-            if track.codec not in ("mpeg4", "mjpeg"):
-                raise self.refuse(f"V_MS/VFW/FOURCC video {fourcc!r}")
+            if track.codec not in ("mpeg4", "mjpeg") \
+                    and fourcc.upper() not in WRITER_TAGS:
+                raise self.refuse(f"V_MS/VFW/FOURCC video {fourcc!r}"
+                                  + refused_tag(fourcc))
             size = struct.unpack_from("<I", private)[0]
             if track.codec == "mpeg4":
                 track.extradata = private[40:size] if size > 40 else b""
+            track.params = bitmap_params(track.codec, private)
         elif codec_id in CODECS:
             track.codec = CODECS[codec_id]
+            if track.codec == "prores" and len(private) == 4:
+                track.tag = private         # the sample entry's fourcc
+            elif track.codec in CONTAINER_PARAMS:
+                track.params = CodecParams(private)
             if track.codec == "mpeg4":
                 track.extradata = private
             elif track.codec == "h264":
@@ -531,7 +558,14 @@ class _Reader:
                         yaw = pitch = roll = 0.0
                 elif vid == COLOUR:
                     track.colour = colour(data, vs, ve)
+                elif vid == COLOUR_SPACE and track.codec == "rawvideo":
+                    track.tag = bytes(data[vs:ve])
         track.coded_size = (w, h)
+        if track.codec in CONTAINER_PARAMS:
+            # libavformat hands the decoder the track's size; a VFW
+            # track's BITMAPINFOHEADER has the same
+            track.params = (track.params or CodecParams())._replace(
+                size=(w, h))
         track.rotation_meta = projection_rotation(yaw, pitch, roll)
         return track
 

@@ -7,7 +7,8 @@ mdia/{mdhd, hdlr, minf/stbl}}``; of the sample table ``stsd`` (``avc1`` /
 ``esds`` and its
 DecoderSpecificInfo, or of objectTypeIndication 0x6C, JPEG; ``vp09`` and
 ``vp08`` with ``vpcC``; QuickTime's Motion-JPEG ``jpeg`` and ``mjpa``;
-the entry's ``colr``),
+ProRes ``apco``, ``apcs``, ``apcn``, ``apch``, ``ap4h``, ``ap4x``, whose
+decoder takes the entry as its tag; the entry's ``colr``),
 ``stts``, ``ctts``,
 ``stsc``, ``stsz`` / ``stz2``, ``stco`` / ``co64`` and ``stss``; of a
 fragmented file ``moov/mvex/trex`` and each ``moof/traf`` (``tfhd``,
@@ -25,7 +26,7 @@ fragmented file ``moov/mvex/trex`` and each ``moof/traf`` (``tfhd``,
   ahead of the first IRAP picture of every sample that holds one, in-band
   sets or not (``hevc_mp4toannexb``); MPEG-4 Part 2 as stored, the
   DecoderSpecificInfo (VOS / VOL headers) ahead of the first sample; VP8
-  and VP9 frames and JPEG images as stored.  Its key flag is the one cv2
+  and VP9 frames, JPEG images and ProRes frames as stored.  Its key flag is the one cv2
   reports (``CAP_PROP_LRF_HAS_KEY_FRAME``): :func:`intra_picture`'s, the
   flag FFmpeg's parsers set, for H.264, MPEG-4, VP8, VP9 and Motion-JPEG
   (every intra-coded picture, non-IDR I pictures of H.264 too); the
@@ -54,8 +55,9 @@ Refused, with an error naming the box or codec and ROADMAP.md queue 1
 item 4: an edit of a media rate other than 1 (cv2 plays it at rate 1),
 VP9 of a profile and depth VP9 does not pair (``vpcC``), HEVC of other
 than 8, 10 or 12 bits or of another chroma than luma depth (``hvcC``;
-item 4i), and every codec but H.264, HEVC, MPEG-4 Part 2, VP8, VP9 and
-Motion-JPEG (AV1, Motion-JPEG format B ``mjpb``, ...).  A frame format
+item 4i), and every codec but H.264, HEVC, MPEG-4 Part 2, VP8, VP9,
+Motion-JPEG and ProRes (AV1, Motion-JPEG format B ``mjpb``, H.263
+``s263``: item 4j (e), ...).  A frame format
 the reader does not convert is refused by the decoder's first picture
 (``native/avcodec.py``).
 """
@@ -67,7 +69,7 @@ import struct
 from typing import BinaryIO, Dict, Iterator, List, NamedTuple, Optional, \
     Tuple
 
-from ..native.avcodec import StreamColour
+from ..native.avcodec import CodecParams, StreamColour
 
 CONTAINERS = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide",
               b"uuid", b"pdin", b"meta", b"moof", b"mfra", b"styp")
@@ -76,9 +78,17 @@ HEVC_ENTRIES = (b"hvc1", b"hev1")
 MJPEG_ENTRIES = (b"jpeg", b"mjpa")
 OTHER_CODECS = {b"dvhe": "Dolby Vision", b"mjpb": "Motion-JPEG format B",
                 b"av01": "AV1", b"mp4a": "AAC audio",
-                b"mjp2": "Motion JPEG 2000",
-                b"apch": "ProRes", b"apcn": "ProRes", b"dvh1": "Dolby Vision",
-                b"s263": "H.263"}
+                b"mjp2": "Motion JPEG 2000", b"dvh1": "Dolby Vision",
+                b"s263": "H.263 (ROADMAP.md queue 1 item 4j (e))"}
+# ProRes sample entries (libavformat's movvideo tags): 422 proxy, LT,
+# standard and HQ (10-bit 4:2:2), 4444 and 4444 XQ (12-bit 4:4:4)
+PRORES_ENTRIES = (b"apco", b"apcs", b"apcn", b"apch", b"ap4h", b"ap4x")
+# the codecs whose every frame is a key, and those whose key
+# intra_picture reads from a picture header
+INTRA_ONLY = frozenset(["mjpeg", "rawvideo", "huffyuv", "ffvhuff",
+                        "prores"])
+PICTURE_HEADERS = frozenset(["msmpeg4v2", "msmpeg4", "wmv1", "wmv2", "flv",
+                             "ffv1"])
 # esds objectTypeIndication -> the decoder (libavformat's ff_mp4_obj_type)
 OBJECT_TYPES = {0x20: "mpeg4", 0x6C: "mjpeg"}
 # (profile, bits) that a VP9 stream pairs: 0 and 1 (4:2:2, 4:4:0, 4:4:4)
@@ -90,7 +100,10 @@ def refusal(path: str, what: str) -> ValueError:
     return ValueError(f"{path}: {what}; the video reader takes H.264, HEVC "
                       f"(8, 10 and 12 bits), MPEG-4 Part 2 and Motion-JPEG "
                       f"in MP4/MOV (fragmented too), AVI or Matroska, VP8 "
-                      f"and VP9 in WebM, Matroska or MP4, and MPEG-1/2, "
+                      f"and VP9 in WebM, Matroska or MP4, ProRes in MOV or "
+                      f"Matroska, what cv2's VideoWriter writes (raw video,"
+                      f" MPEG-1/2, MS-MPEG4, WMV1/2, Sorenson H.263, "
+                      f"HuffYUV, FFV1) in AVI or Matroska, and MPEG-1/2, "
                       f"MPEG-4 Part 2, H.264 and HEVC in MPEG-TS / M2TS and "
                       f"MPEG program streams (other containers and codecs: "
                       f"ROADMAP.md queue 1 item 4)")
@@ -335,6 +348,8 @@ class Track:
     param_sets: bytes = b""        # HEVC: the hvcC sets as Annex-B
     decoder_info: bytes = b""      # MPEG-4: DecoderSpecificInfo
     colour: Optional[StreamColour] = None   # the sample entry's colr
+    tag: bytes = b""               # ProRes: the sample entry, its decoder's
+    params: Optional[CodecParams] = None    # ProRes: the entry's size
 
     @property
     def rotation(self) -> int:
@@ -471,14 +486,31 @@ def _ue(bits: str, at: int) -> Tuple[int, int]:
 
 def intra_picture(codec: str, packet: bytes) -> bool:
     """Whether a packet (H.264 or HEVC Annex-B, MPEG-1/2 video, MPEG-4
-    Part 2, VP8, VP9 or a JPEG image) is a key, as FFmpeg's parsers flag
-    it: an IDR slice or an I / SI slice first (H.264); an IRAP picture,
-    NAL types 16-23, and no other intra picture (HEVC); an I picture
+    Part 2, VP8, VP9, a JPEG image, or a frame of cv2's writer's codecs or
+    ProRes) is a key, as FFmpeg's parsers and decoders flag it: an IDR
+    slice or an I / SI slice first (H.264); an IRAP picture, NAL types
+    16-23, and no other intra picture (HEVC); an I picture
     (``picture_coding_type`` 1); an I-VOP; a VP8 key frame (its frame
     tag's bit 0 clear); a VP9 key frame (its uncompressed header's
-    frame_type 0, not a shown existing frame); every JPEG image."""
-    if codec == "mjpeg":
+    frame_type 0, not a shown existing frame); every JPEG image, raw,
+    HuffYUV and ProRes frame; an I picture of MS-MPEG4 / WMV1 (2 bits of
+    picture type 0), WMV2 (1 bit) or Sorenson H.263 (2 bits after the
+    17-bit start, version, number and size); an FFV1 key frame (its first
+    range-coded bit, state 128: the first 16 bits at least 0x7F80)."""
+    if codec in INTRA_ONLY:
         return True
+    if not packet and codec in PICTURE_HEADERS:
+        return False
+    if codec in ("msmpeg4v2", "msmpeg4", "wmv1"):
+        return packet[0] >> 6 == 0
+    if codec == "wmv2":
+        return not packet[0] & 0x80
+    if codec == "flv":
+        bits = "".join(f"{b:08b}" for b in packet[:12])
+        size_bits = {"000": 16, "001": 32}.get(bits[30:33], 0)
+        return bits[33 + size_bits:35 + size_bits] == "00"
+    if codec == "ffv1":
+        return int.from_bytes(packet[:2], "big") >= 0x7F80
     if codec == "vp8":
         return bool(packet) and not packet[0] & 1
     if codec == "hevc":
@@ -575,6 +607,10 @@ def _sample_table(path: str, data: bytes, s: int, e: int, track: Track
             track.decoder_info = info
     elif kind in MJPEG_ENTRIES:
         track.codec = "mjpeg"
+    elif kind in PRORES_ENTRIES:
+        # the decoder's depth is its tag's: 12 bits for 4444, 10 for 422
+        track.codec, track.tag = "prores", kind
+        track.params = CodecParams(size=(w, h))
     elif kind in (b"vp09", b"vp08"):
         if b"vpcC" not in config:
             raise refusal(path, f"the {kind.decode()} entry has no vpcC box")

@@ -1173,7 +1173,8 @@ def mux_mkv(codec_id: str, packets: Sequence[Tuple[bytes, bool]],
             yaw: float = 0.0,
             doc_type: str = "matroska",
             colour: Optional[Colour] = None,
-            chroma_siting: Optional[Tuple[int, int]] = None) -> bytes:
+            chroma_siting: Optional[Tuple[int, int]] = None,
+            colour_space: bytes = b"") -> bytes:
     """A Matroska / WebM file of one video track: `packets` (bytes, key)
     in decode order as blocks, ``Timecode`` units of 1 ms (`timecodes`
     in ms, by default frame i at round(1000 i / fps)), 8 blocks a
@@ -1188,7 +1189,8 @@ def mux_mkv(codec_id: str, packets: Sequence[Tuple[bytes, bool]],
     ``MatrixCoefficients`` (where it has one), ``Range`` (1 broadcast, 2
     full), ``Primaries`` and ``TransferCharacteristics``, and
     `chroma_siting` its ``ChromaSitingHorz`` / ``ChromaSitingVert`` (1
-    co-sited, 2 half).
+    co-sited, 2 half); `colour_space` a ``ColourSpace`` (the fourcc of a
+    ``V_UNCOMPRESSED`` track's pixel format).
     A ``Tags`` element follows the Clusters."""
     from . import mkv
 
@@ -1201,6 +1203,8 @@ def mux_mkv(codec_id: str, packets: Sequence[Tuple[bytes, bool]],
         info.append(ebml_float(mkv.DURATION, max(timecodes) + 1000 / fps))
     w, h = size
     video = [ebml_uint(mkv.PIXEL_WIDTH, w), ebml_uint(mkv.PIXEL_HEIGHT, h)]
+    if colour_space:
+        video.append(ebml(mkv.COLOUR_SPACE, colour_space))
     if colour is not None or chroma_siting is not None:
         fields = []
         if colour is not None:
@@ -1932,6 +1936,43 @@ def encode_lavc(encoder: str, frames: Sequence[Tuple[np.ndarray, ...]],
         av.av_packet_free(ctypes.byref(packet))
         av.avcodec_free_context(ctypes.byref(ctx))
     return out
+
+
+# ProRes profiles of the wheel's ``prores`` encoder and the sample entry
+# (MOV) or CodecPrivate (Matroska) each is stored under: 422 proxy, LT,
+# standard, HQ (10-bit 4:2:2 in), 4444 and 4444 XQ (10-bit 4:4:4 in, with
+# an alpha plane or without; the decoder gives 12 bits)
+PRORES_TAGS = {0: b"apco", 1: b"apcs", 2: b"apcn", 3: b"apch", 4: b"ap4h",
+               5: b"ap4x"}
+
+
+def write_prores(path: str, frames: Sequence[Tuple[np.ndarray, ...]], *,
+                 profile: int = 2, container: str = "mov", fps: int = 25,
+                 colour: Optional[Colour] = None) -> List[Tuple[bytes, bool]]:
+    """ProRes of `frames` (10-bit planes, uint16: (y, u, v) of 4:2:2 for
+    profiles 0-3, of 4:4:4 for 4 and 5, a fourth alpha plane making it
+    ``yuva444p10le``) from the wheel's ``prores`` encoder, as a MOV (a
+    ``visual_entry`` of the profile's tag) or a Matroska file
+    (``V_PRORES``, the tag as its ``CodecPrivate``, each frame without
+    the 8 bytes of its size and ``icpf``, as FFmpeg's muxer stores it);
+    `colour` goes into the frame headers.  -> the encoder's packets."""
+    pix_fmt = pixel_format(frames[0][:3], 10)
+    if len(frames[0]) == 4:
+        pix_fmt = pix_fmt.replace("yuv", "yuva")
+    packets = encode_lavc("prores", frames, colour, fps=fps, pix_fmt=pix_fmt,
+                          profile=profile)
+    h, w = frames[0][0].shape
+    tag = PRORES_TAGS[profile]
+    if container == "mkv":
+        data = mux_mkv("V_PRORES", [(p[8:], k) for p, k in packets], (w, h),
+                       fps=fps, codec_private=tag)
+    else:
+        data = mux_mp4(b"", b"", [p for p, _ in packets],
+                       [k for _, k in packets], (w, h), timescale=fps * 100,
+                       delta=100, entry=visual_entry(tag, (w, h)))
+    with open(path, "wb") as f:
+        f.write(data)
+    return packets
 
 
 def pixel_format(planes: Sequence[np.ndarray], depth: int = 0) -> str:

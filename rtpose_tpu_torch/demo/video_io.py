@@ -31,7 +31,14 @@ of its users' files, frame for frame as cv2 gives them:
   frames split by libavcodec's parsers): IP and surveillance cameras,
   HLS segments, broadcast captures, camcorders; and in MPEG program
   streams, ``.mpg`` and DVD ``.vob`` (``demo/mpegps.py``, the same
-  parsers).  The rotation of the track is honoured
+  parsers);
+- what cv2's own ``VideoWriter`` writes (:data:`WRITER_TAGS`: raw
+  ``I420`` / ``IYUV`` / ``Y800`` video, MPEG-1/2, MS-MPEG4 v2 / v3,
+  WMV1 / WMV2, Sorenson H.263, HuffYUV, FFVH, FFV1) in AVI and
+  Matroska, its decoder handed the container's extradata, size and
+  biBitCount (:func:`bitmap_params`), and ProRes in MOV and Matroska:
+  lab and dataset archives, editors' and recorders' files.  The
+  rotation of the track is honoured
   as ``CAP_PROP_ORIENTATION_AUTO`` does; H.264 and HEVC pictures come in
   cv2's order.  The packets are decoded on the host by FFmpeg's libavcodec
   from the OpenCV wheel (``native/avcodec.py``), the planes converted to
@@ -43,7 +50,8 @@ of its users' files, frame for frame as cv2 gives them:
   odd width where swscale takes its full-chroma output; for 8-bit 4:2:2
   of an even height ``yuv422_to_bgr``, for the other chroma formats and
   12 bits ``yuv_planar_general_to_bgr`` and
-  ``yuv_planar_full_chroma_to_bgr``, for 4:0:0 ``gray_to_bgr``: cv2's
+  ``yuv_planar_full_chroma_to_bgr``, for 4:0:0 ``gray_to_bgr``, for
+  packed RGB (HuffYUV, FFV1, raw RGB) ``packed_to_bgr``: cv2's
   arithmetic to the bit).
   ``device="cpu"`` converts with the kernels' plain versions, for tests;
   without a card, and without the library, opening such a file raises.
@@ -62,7 +70,8 @@ Frames under 9 rows or 8 columns that swscale scales are refused
 
 Everything else is refused with an error that names the container or
 codec and ROADMAP.md queue 1 item 4: AV1, Motion-JPEG format B
-(``mjpb``), 4:1:1 (``yuvj411p`` JPEG too), 16-bit and RGB
+(``mjpb``), WMV3 / VC-1, Theora, H.263 and BI_RGB DIBs (item 4j (e),
+:data:`STILL_REFUSED_TAGS`), 4:1:1 (``yuvj411p`` JPEG too), 16-bit and RGB
 (``gbrp``) video (item 4i), colour cv2
 5.0 does not convert by swscale's matrix alone (other primaries than
 BT.601 / BT.709 / 240M, PQ and HLG transfers, matrices without a
@@ -105,24 +114,67 @@ AVIIF_KEYFRAME = 0x10
 MJPEG_TAGS = (b"MJPG", b"LJPG", b"DMB1", b"MJPA", b"JR24", b"JPGL", b"MJLS",
               b"JPEG", b"IJPG", b"AVRN", b"ACDV", b"QIVG", b"SLMJ", b"CJPG",
               b"IJLV", b"MVJP", b"AVI1", b"AVI2", b"MTSJ", b"ZJPG")
+# what cv2's own VideoWriter writes (its fourccs ``0``, ``I420``, ``IYUV``,
+# ``Y800``, ``PIM1``, ``mpg2`` / ``MPEG``, ``MP42``, ``DIV3``, ``WMV1``,
+# ``WMV2``, ``FLV1``, ``FFVH``, ``HFYU``, ``FFV1``), by the tag its AVI
+# carries: raw video (its pixel format from the tag: I420 / IYUV 4:2:0,
+# Y800 gray), MPEG-1/2, MS-MPEG4 v2 / v3, WMV1 / WMV2, Sorenson H.263,
+# HuffYUV and FFV1
+WRITER_TAGS = {b"I420": "rawvideo", b"IYUV": "rawvideo", b"Y800": "rawvideo",
+               b"PIM1": "mpeg1video", b"MPG1": "mpeg1video",
+               b"MPG2": "mpeg2video", b"MPEG": "mpeg2video",
+               b"MP42": "msmpeg4v2", b"DIV3": "msmpeg4", b"MP43": "msmpeg4",
+               b"WMV1": "wmv1", b"WMV2": "wmv2", b"FLV1": "flv",
+               b"HFYU": "huffyuv", b"FFVH": "ffvhuff", b"FFV1": "ffv1"}
 AVI_CODECS = {**dict.fromkeys(MJPEG_TAGS, "mjpeg"),
               b"XVID": "mpeg4", b"DIVX": "mpeg4",
               b"DX50": "mpeg4", b"FMP4": "mpeg4", b"MP4V": "mpeg4",
-              b"H264": "h264", b"AVC1": "h264", b"X264": "h264"}
+              b"H264": "h264", b"AVC1": "h264", b"X264": "h264",
+              **WRITER_TAGS}
+# what stays refused by name (ROADMAP.md queue 1 item 4j (e)): no encoder
+# of either machine writes a fixture of them, or cv2 does not write them
+STILL_REFUSED_TAGS = {b"WMV3": "WMV3 / VC-1", b"WVC1": "VC-1",
+                      b"THEO": "Theora", b"S263": "H.263",
+                      b"H263": "H.263", b"\0\0\0\0": "BI_RGB DIB"}
 
 
 def avi_codec(fourcc: bytes) -> Tuple[Optional[str], bytes]:
     """(the decoder, the tag to hand it) of an AVI or Matroska VFW stream's
     fourcc, as libavformat maps it (case aside): a Motion-JPEG stream's
-    decoder takes its tag (``MTSJ`` decodes otherwise).  Avid's ``AVRn``
-    holds JPEG images, which the ``mjpeg`` decoder decodes as cv2 does
-    when not handed the tag (with it, it would want the container's frame
-    size); under any other case the tag is libavcodec's raw 4:2:2 ``avrn``,
-    not read."""
+    decoder takes its tag (``MTSJ`` decodes otherwise), and so do those of
+    cv2's writer (:data:`WRITER_TAGS`; raw video's pixel format is its
+    tag's).  Avid's ``AVRn`` holds JPEG images, which the ``mjpeg``
+    decoder decodes as cv2 does when not handed the tag (with it, it would
+    want the container's frame size); under any other case the tag is
+    libavcodec's raw 4:2:2 ``avrn``, not read."""
     if fourcc.upper() == b"AVRN":
         return ("mjpeg" if fourcc == b"AVRn" else None), b""
     codec = AVI_CODECS.get(fourcc.upper())
-    return codec, fourcc if codec == "mjpeg" else b""
+    takes_tag = codec == "mjpeg" or fourcc.upper() in WRITER_TAGS
+    return codec, fourcc if takes_tag else b""
+
+
+def refused_tag(*fourccs: bytes) -> str:
+    """Why an AVI or VFW stream of these fourccs (compression, handler),
+    which no decoder of :data:`AVI_CODECS` reads, is refused: those of
+    item 4j (e) by name."""
+    what = next((STILL_REFUSED_TAGS[t.upper()] for t in fourccs
+                 if t.upper() in STILL_REFUSED_TAGS), None)
+    return f" ({what}: ROADMAP.md queue 1 item 4j (e))" if what else ""
+
+
+def bitmap_params(codec: str, strf: bytes):
+    """A BITMAPINFOHEADER's (an AVI ``strf``, a VFW ``CodecPrivate``)
+    ``native.avcodec.CodecParams`` for a decoder of
+    ``avcodec.CONTAINER_PARAMS`` (None for another): the bytes past its
+    biSize, (biWidth, |biHeight|) and biBitCount, as libavformat's
+    ``ff_get_bmp_header`` hands them."""
+    from ..native.avcodec import CONTAINER_PARAMS, CodecParams
+    if codec not in CONTAINER_PARAMS:
+        return None
+    size, w, h, _, bits = struct.unpack_from("<IiiHH", strf)
+    return CodecParams(strf[40:size] if size > 40 else b"", (w, abs(h)),
+                       bits)
 
 
 def _chunks(f: BinaryIO, end: int) -> Iterator[Tuple[bytes, int, int]]:
@@ -149,6 +201,7 @@ class AviStream:
         self.size: Tuple[int, int] = (0, 0)
         self.extradata = b""
         self.tag = b""         # a Motion-JPEG stream's, for its decoder
+        self.params = None     # native.avcodec.CodecParams, where taken
         self.frames: List[Tuple[int, int]] = []
         f.seek(0, io.SEEK_END)
         file_end = f.tell()
@@ -195,7 +248,7 @@ class AviStream:
         for i, (off, n) in enumerate(self.frames):
             f.seek(off)
             data = f.read(n)
-            if i == 0:
+            if i == 0 and self.params is None:
                 data = self.extradata + data
             yield data, mp4.intra_picture(self.codec, data)
 
@@ -228,7 +281,9 @@ class AviStream:
                 if codec is None:
                     raise mp4.refusal(self.path, f"AVI video codec "
                                                  f"{handler!r}/"
-                                                 f"{compression!r}")
+                                                 f"{compression!r}"
+                                                 + refused_tag(compression,
+                                                               handler))
                 scale, rate = struct.unpack("<II", strh[20:28])
                 w, h = struct.unpack("<ii", strf[4:12])
                 size = struct.unpack("<I", strf[:4])[0]
@@ -236,6 +291,7 @@ class AviStream:
                 self.fps = rate / scale if scale else None
                 self.tag = tag
                 self.extradata = strf[40:size] if size > 40 else b""
+                self.params = bitmap_params(codec, strf)
                 return b"%02d" % index
             index += 1
             f.seek(off + n + (n & 1))
@@ -243,9 +299,9 @@ class AviStream:
 
 
 class DecodedVideo:
-    """An H.264, HEVC, MPEG-1/2, MPEG-4 Part 2, VP8, VP9 or Motion-JPEG
-    stream of an MP4/MOV, AVI, Matroska / WebM, MPEG-TS or MPEG program
-    stream file,
+    """A video stream (H.264, HEVC, MPEG-1/2, MPEG-4 Part 2, VP8, VP9,
+    Motion-JPEG, a codec of cv2's writer or ProRes) of an MP4/MOV, AVI,
+    Matroska / WebM, MPEG-TS or MPEG program stream file,
     read as ``cv2.VideoCapture`` with
     ``CAP_PROP_ORIENTATION_AUTO`` reads it: ``read()`` gives each frame
     in display order as ``(H, W, 3)`` uint8 BGR, turned by ``rotation``;
@@ -306,7 +362,8 @@ class DecodedVideo:
             t0 = time.perf_counter()
             self._decoder = Decoder(self.codec,
                                     getattr(track, "colour", None),
-                                    getattr(track, "tag", b""))
+                                    getattr(track, "tag", b""),
+                                    getattr(track, "params", None))
             # as libavformat does for cv2 (in MPEG-TS too); MPEG-1/2 and
             # HEVC decoders reorder from the first picture: no probe
             if self.codec == "h264":
@@ -384,7 +441,8 @@ class DecodedVideo:
             frame = yuv420_frame_to_bgr(*planes, depth=colour.depth,
                                         width=width, rotation=self.rotation,
                                         rule=rule, chroma_location=location,
-                                        chroma=colour.chroma)
+                                        chroma=colour.chroma,
+                                        packed=colour.packed)
         except ValueError as e:
             raise ValueError(f"{self.path}: {e}") from None
         frame = frame.cpu().numpy()

@@ -1,5 +1,7 @@
-"""H.264, HEVC, MPEG-1 / MPEG-2 video, MPEG-4 Part 2, VP8, VP9 and
-Motion-JPEG decoding on the host through FFmpeg's ``libavcodec``, the one
+"""H.264, HEVC, MPEG-1 / MPEG-2 video, MPEG-4 Part 2, VP8, VP9,
+Motion-JPEG, the codecs cv2's own ``VideoWriter`` writes (raw video,
+MS-MPEG4 v2 / v3, WMV1 / WMV2, Sorenson H.263, HuffYUV, FFV1) and ProRes,
+decoded on the host through FFmpeg's ``libavcodec``, the one
 that the machine's OpenCV wheel bundles, loaded by path with ctypes (as
 ``native/imgpipe.py`` links Pillow's libjpeg); and libavcodec's parsers,
 which split an elementary
@@ -27,7 +29,18 @@ offset): the container's ``colorspace``, ``color_range``,
 set before ``avcodec_open2``, as
 libavformat copies a stream's parameters into the decoder for cv2, and
 read back after each frame, when the decoder has put in their place
-what the bitstream states (:class:`FrameColour`).  The parsers
+what the bitstream states (:class:`FrameColour`).  What else libavformat
+hands a decoder from the container (:class:`CodecParams`) goes the same
+way where the context has an option for it (``codec_tag``,
+``video_size``, ``bits_per_coded_sample``); the extradata (WMV2's 4
+bytes, HuffYUV's Huffman tables, FFV1's configuration record) has none,
+and goes through an ``AVCodecParameters``
+(``avcodec_parameters_from_context``, its leading ``extradata`` /
+``extradata_size`` set, ``avcodec_parameters_to_context``), whose
+leading fields (``codec_type``, ``codec_id``, ``codec_tag``,
+``extradata``, ``extradata_size``) have not moved since FFmpeg 3.1; a
+library where the round trip does not read back what was set is
+refused.  The parsers
 (:class:`Parser`) take ``avcodec_descriptor_get_by_name`` (of whose
 ``AVCodecDescriptor`` only the leading ``id`` is read),
 ``av_get_pix_fmt_name`` / ``av_get_pix_fmt`` (the names of pixel
@@ -47,13 +60,18 @@ Planar frames of 8, 10 and 12 bits are taken (:data:`READ_FORMATS`):
 4:2:0 (``yuv420p``; VP8; full-range ``yuvj420p``, Motion-JPEG; HEVC
 Main 10, H.264 High 10, VP9 profile 2; HEVC Main 12), 4:2:2 (H.264 High
 4:2:2, HEVC RExt, VP9 profiles 1 and 3, MPEG-2 4:2:2, ``yuvj422p``
-camera JPEG), 4:4:0 and 4:4:4 (VP9 profiles 1 and 3, HEVC RExt, H.264
-High 4:4:4, ``yuvj444p`` JPEG) and 4:0:0 (``gray``: monochrome HEVC and
-grayscale JPEG).  A JPEG's colour comes from the ``mjpeg`` decoder as
-any other frame's: BT.601, full range, chroma centred.
-4:1:1, 16-bit, RGB (``gbrp``: matrix 0, ROADMAP.md item 4i (c)) and any
-other format are refused by name.  Nothing is loaded at import; without
-the library the first decoder or parser raises, naming where it looked.
+camera JPEG, ProRes 422), 4:4:0 and 4:4:4 (VP9 profiles 1 and 3, HEVC
+RExt, H.264 High 4:4:4, ``yuvj444p`` JPEG, ProRes 4444, its alpha plane
+dropped as swscale drops it for bgr24) and 4:0:0 (``gray``: monochrome
+HEVC, grayscale JPEG, ``Y800`` raw video); and packed RGB
+(:data:`PACKED_FORMATS`: ``bgr0`` HuffYUV, ``bgra`` FFV1, ``bgr24`` and
+``rgb24`` raw video), one plane of 3 or 4 bytes a pixel.  A JPEG's
+colour comes from the ``mjpeg`` decoder as any other frame's: BT.601,
+full range, chroma centred.
+4:1:1, 16-bit, planar RGB (``gbrp``: matrix 0, ROADMAP.md item 4i (c))
+and any other format are refused by name.  Nothing is loaded at import;
+without the library the first decoder or parser raises, naming where it
+looked.
 """
 
 from __future__ import annotations
@@ -68,8 +86,14 @@ from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+# the decoders handed the container's CodecParams (its extradata, frame
+# size and bits a coded sample), as libavformat hands them for cv2: those
+# of what cv2's VideoWriter writes, and ProRes; the others take their
+# headers in the stream, ahead of the first packet
+CONTAINER_PARAMS = ("rawvideo", "msmpeg4v2", "msmpeg4", "wmv1", "wmv2", "flv",
+                    "huffyuv", "ffvhuff", "ffv1", "prores")
 CODECS = ("h264", "hevc", "mpeg4", "vp8", "vp9", "mpeg1video", "mpeg2video",
-          "mjpeg")
+          "mjpeg", *CONTAINER_PARAMS)
 # libavcodec's parsers, by the decoder they split a stream for: the
 # ``mpegvideo`` parser serves both MPEG-1 and MPEG-2
 PARSERS = {"mpeg1video": "mpegvideo", "mpeg2video": "mpegvideo",
@@ -86,7 +110,14 @@ READ_FORMATS = {
        for name, chroma in (("420", (1, 1)), ("422", (1, 0)),
                             ("440", (0, 1)), ("444", (0, 0)))},
     "gray": (8, False, None), "gray10le": (10, False, None),
-    "gray12le": (12, False, None)}
+    "gray12le": (12, False, None),
+    # ProRes 4444 with alpha: the alpha plane is not read
+    **{f"yuva{name}p{depth}le": (depth, False, chroma)
+       for name, chroma in (("422", (1, 0)), ("444", (0, 0)))
+       for depth in (10, 12)}}
+# packed RGB frames taken, by pixel format name: bytes a pixel
+PACKED_FORMATS = {"bgr0": 4, "bgra": 4, "bgr24": 3, "rgb24": 3}
+AV_INPUT_BUFFER_PADDING_SIZE = 64
 AVCOL_RANGE_MPEG, AVCOL_RANGE_JPEG = 1, 2
 AV_PKT_FLAG_KEY = 1
 AVERROR_EAGAIN = -11
@@ -107,6 +138,21 @@ class _Frame(ctypes.Structure):
                 ("extended_data", ctypes.c_void_p),
                 ("width", ctypes.c_int), ("height", ctypes.c_int),
                 ("nb_samples", ctypes.c_int), ("format", ctypes.c_int)]
+
+
+class _ParamsHead(ctypes.Structure):
+    """AVCodecParameters' leading fields (libavcodec 57.48, FFmpeg 3.1,
+    and later)."""
+    _fields_ = [("codec_type", ctypes.c_int), ("codec_id", ctypes.c_int),
+                ("codec_tag", ctypes.c_uint32),
+                ("extradata", ctypes.c_void_p),
+                ("extradata_size", ctypes.c_int)]
+
+
+class _CodecHead(ctypes.Structure):
+    """AVCodec's leading fields (libavcodec 53 and later)."""
+    _fields_ = [("name", ctypes.c_char_p), ("long_name", ctypes.c_char_p),
+                ("type", ctypes.c_int), ("id", ctypes.c_int)]
 
 
 def _library_dirs() -> List[str]:
@@ -168,7 +214,9 @@ class FrameColour(NamedTuple):
     (``AVChromaLocation``, 0 unspecified), the bits a sample, the
     primaries and the transfer (H.273's numbers), and the chroma
     subsampling as log2 (horizontal, vertical): (1, 1) 4:2:0, (1, 0)
-    4:2:2, (0, 1) 4:4:0, (0, 0) 4:4:4, None 4:0:0."""
+    4:2:2, (0, 1) 4:4:0, (0, 0) 4:4:4, None 4:0:0 or packed RGB; and a
+    packed RGB frame's pixel format (a key of :data:`PACKED_FORMATS`),
+    None for planar frames."""
     matrix: int
     full: bool
     chroma_location: int
@@ -176,6 +224,19 @@ class FrameColour(NamedTuple):
     primaries: int = 2
     transfer: int = 2
     chroma: Optional[Tuple[int, int]] = (1, 1)
+    packed: Optional[str] = None
+
+
+class CodecParams(NamedTuple):
+    """What libavformat hands a decoder of :data:`CONTAINER_PARAMS` from
+    the container beside the tag: the codec's extradata (an AVI or VFW
+    BITMAPINFOHEADER past its 40 bytes, a Matroska ``CodecPrivate``), the
+    frame size (w, h), which MS-MPEG4, WMV and raw video do not carry, and
+    the bits a coded sample (biBitCount: HuffYUV tells RGB from YUV by
+    it; 0 unset)."""
+    extradata: bytes = b""
+    size: Optional[Tuple[int, int]] = None
+    bits: int = 0
 
 
 def _refused_format(name: str) -> str:
@@ -225,6 +286,16 @@ class _Libraries:
                  [P, ctypes.c_char_p, ctypes.c_int64, I]),
                 (self.avutil, "av_opt_get_int", I,
                  [P, ctypes.c_char_p, I, ctypes.POINTER(ctypes.c_int64)]),
+                (self.avutil, "av_opt_set_image_size", I,
+                 [P, ctypes.c_char_p, I, I, I]),
+                (self.avutil, "av_opt_get_image_size", I,
+                 [P, ctypes.c_char_p, I, ctypes.POINTER(ctypes.c_int),
+                  ctypes.POINTER(ctypes.c_int)]),
+                (self.avutil, "av_mallocz", P, [ctypes.c_size_t]),
+                (self.avcodec, "avcodec_parameters_alloc", P, []),
+                (self.avcodec, "avcodec_parameters_free", None, [P]),
+                (self.avcodec, "avcodec_parameters_from_context", I, [P, P]),
+                (self.avcodec, "avcodec_parameters_to_context", I, [P, P]),
                 (self.avutil, "avutil_version", ctypes.c_uint, []),
                 (self.avutil, "av_strerror", I,
                  [I, ctypes.c_char_p, ctypes.c_size_t])):
@@ -233,6 +304,8 @@ class _Libraries:
         self.path = self.avcodec._name
         self.read_formats = {self.avutil.av_get_pix_fmt(name.encode()): v
                              for name, v in READ_FORMATS.items()}
+        self.packed_formats = {self.avutil.av_get_pix_fmt(name.encode()):
+                               name for name in PACKED_FORMATS}
 
     def error(self, code: int) -> str:
         buf = ctypes.create_string_buffer(128)
@@ -260,24 +333,32 @@ class Decoder:
     the stream.  A frame is ``(y, u, v, width)``: numpy views of the
     decoder's planes, ``(h, pitch)`` and ``((h+1)//2, pitch)`` uint8
     (uint16 for 10- and 12-bit frames: the linesize in bytes halved; the
-    chroma rows as the format subsamples them, u and v None for gray),
+    chroma rows as the format subsamples them, u and v None for gray;
+    a packed RGB frame is its one plane, ``(h, pitch)`` uint8 of 3 or 4
+    bytes a pixel, u and v None),
     valid until the next frame is taken (the decoder then reuses its
     buffers), and the picture's width (a linesize is padded past it);
     ``colour`` is then that frame's :class:`FrameColour`.  Frames come out
     in display order.  `colour` is the container's :class:`StreamColour`,
     which the decoder starts from; `tag` the container's four-character
     code of the stream (an AVI's compression, a MOV sample entry, a
-    Matroska VFW track's), which libavformat hands the decoder as its
-    ``codec_tag``, and which the ``mjpeg`` decoder reads (it decodes an
-    ``MTSJ`` stream otherwise)."""
+    Matroska VFW track's or ``V_UNCOMPRESSED`` colour space), which
+    libavformat hands the decoder as its ``codec_tag``, and which the
+    ``mjpeg`` decoder reads (it decodes an ``MTSJ`` stream otherwise),
+    ``rawvideo`` (its pixel format) and ``prores`` (its depth: 12 bits
+    for ``ap4h`` / ``ap4x``, 10 otherwise); `params` the container's
+    :class:`CodecParams`, set before ``avcodec_open2``; the constructor
+    reads them back (:meth:`handed`) and refuses the library where they
+    differ."""
 
     def __init__(self, codec: str, colour: Optional[StreamColour] = None,
-                 tag: bytes = b""):
+                 tag: bytes = b"", params: Optional[CodecParams] = None):
         if codec not in CODECS:
             raise ValueError(f"no decoder for {codec!r}: H.264, HEVC, "
-                             f"MPEG-1/2 video, MPEG-4 Part 2, VP8, VP9 and "
-                             f"Motion-JPEG are read (ROADMAP.md queue 1 "
-                             f"item 4)")
+                             f"MPEG-1/2 video, MPEG-4 Part 2, VP8, VP9, "
+                             f"Motion-JPEG, raw video, MS-MPEG4, WMV1/2, "
+                             f"Sorenson H.263, HuffYUV, FFV1 and ProRes are "
+                             f"read (ROADMAP.md queue 1 item 4)")
         self.codec = codec
         self._libs = libs = libraries()
         self._ctx = self._packet = self._frame = None
@@ -293,9 +374,11 @@ class Decoder:
             raise MemoryError("libavcodec could not allocate a decoder")
         self.colour: Optional[FrameColour] = None
         colour = colour or StreamColour()
+        given, params = params, params or CodecParams()
         for name, value in (
                 ("codec_tag", int.from_bytes(tag, "little") if tag
                  else None),
+                ("bits_per_coded_sample", params.bits or None),
                 ("colorspace", colour.matrix),
                 ("color_range", None if colour.full is None else
                  AVCOL_RANGE_JPEG if colour.full else AVCOL_RANGE_MPEG),
@@ -304,10 +387,95 @@ class Decoder:
                 ("color_trc", colour.transfer)):
             if value is not None:
                 self._option(name, value)
+        if params.size is not None:
+            self._check(libs.avutil.av_opt_set_image_size(
+                self._ctx, b"video_size", *params.size, 0), "video_size")
+        if params.extradata:
+            self._hand_extradata(_CodecHead.from_address(found), tag,
+                                 params.extradata)
+        handed = given and self.handed()
+        if given and handed != given:
+            self.close()
+            raise RuntimeError(f"{libs.path}: the {codec} decoder's context "
+                               f"reads back {handed}, not the {given} set "
+                               f"(AVCodecParameters' leading fields moved?)")
         err = av.avcodec_open2(self._ctx, found, None)
         if err < 0:
             self.close()
             raise RuntimeError(f"avcodec_open2({codec}): {libs.error(err)}")
+
+    def _check(self, err: int, name: str) -> None:
+        if err < 0:
+            self.close()
+            raise RuntimeError(f"{self._libs.path}: the codec context's "
+                               f"option {name!r}: {self._libs.error(err)}")
+
+    def _params(self, fill=None) -> bytes:
+        """The context's extradata, read through a new AVCodecParameters
+        (``avcodec_parameters_from_context``); `fill`, where given, is
+        called with its leading fields and the parameters are then copied
+        back into the context (``avcodec_parameters_to_context``)."""
+        av = self._libs.avcodec
+        par = ctypes.c_void_p(av.avcodec_parameters_alloc())
+        if not par:
+            raise MemoryError("libavcodec could not allocate parameters")
+        try:
+            err = av.avcodec_parameters_from_context(par, self._ctx)
+            head = _ParamsHead.from_address(par.value)
+            if err >= 0 and fill is not None:
+                fill(head)
+                err = av.avcodec_parameters_to_context(self._ctx, par)
+            if err < 0:
+                raise RuntimeError(f"{self._libs.path}: the codec "
+                                   f"parameters: {self._libs.error(err)}")
+            return ctypes.string_at(head.extradata, head.extradata_size) \
+                if head.extradata and head.extradata_size > 0 else b""
+        finally:
+            av.avcodec_parameters_free(ctypes.byref(par))
+
+    def _hand_extradata(self, codec: "_CodecHead", tag: bytes,
+                        data: bytes) -> None:
+        """Set the context's extradata as libavformat does: in an
+        AVCodecParameters, ``av_mallocz``ed with
+        AV_INPUT_BUFFER_PADDING_SIZE zero bytes after it, copied into the
+        context.  The parameters' leading fields must read back the
+        context's codec, type and tag, or the library is refused."""
+        libs = self._libs
+        tag_value = int.from_bytes(tag, "little") if tag else 0
+
+        def fill(head):
+            if (head.codec_type, head.codec_id, head.codec_tag) != (
+                    codec.type, codec.id, tag_value):
+                raise RuntimeError(
+                    f"{libs.path}: AVCodecParameters' leading fields read "
+                    f"type {head.codec_type}, id {head.codec_id}, tag "
+                    f"{head.codec_tag}, not the context's {codec.type}, "
+                    f"{codec.id}, {tag_value}: its layout is not FFmpeg "
+                    f"3.1-8's")
+            buf = libs.avutil.av_mallocz(len(data)
+                                         + AV_INPUT_BUFFER_PADDING_SIZE)
+            if not buf:
+                raise MemoryError("libavutil could not allocate extradata")
+            ctypes.memmove(buf, data, len(data))
+            head.extradata, head.extradata_size = buf, len(data)
+
+        try:
+            self._params(fill)
+        except BaseException:
+            self.close()
+            raise
+
+    def handed(self) -> CodecParams:
+        """What the context holds of :class:`CodecParams`, read back: the
+        extradata through ``avcodec_parameters_from_context``, the size
+        and bits through the context's options."""
+        w, h = ctypes.c_int(), ctypes.c_int()
+        self._check(self._libs.avutil.av_opt_get_image_size(
+            self._ctx, b"video_size", 0, ctypes.byref(w), ctypes.byref(h)),
+            "video_size")
+        return CodecParams(self._params(),
+                           (w.value, h.value) if w.value or h.value else None,
+                           self._option("bits_per_coded_sample"))
 
     def _option(self, name: str, value: Optional[int] = None) -> int:
         """Set (`value` given) or read the codec context's option `name`;
@@ -320,10 +488,7 @@ class Decoder:
             err = avutil.av_opt_get_int(self._ctx, name.encode(), 0,
                                         ctypes.byref(out))
             value = out.value
-        if err < 0:
-            self.close()
-            raise RuntimeError(f"{self._libs.path}: the codec context's "
-                               f"option {name!r}: {self._libs.error(err)}")
+        self._check(err, name)
         return value
 
     def _send(self, data: Optional[bytes], key: bool) -> None:
@@ -356,21 +521,26 @@ class Decoder:
 
     def _planes(self):
         f = _Frame.from_address(self._frame.value)
-        taken = self._libs.read_formats.get(f.format)
-        if taken is None:
+        packed = self._libs.packed_formats.get(f.format)
+        taken = (8, True, None) if packed else \
+            self._libs.read_formats.get(f.format)
+        if taken is None or (packed and f.linesize[0] <= 0):
             name = self._libs.avutil.av_get_pix_fmt_name(f.format)
             name = name.decode() if name else f"pixel format {f.format}"
-            raise ValueError(f"{self.codec} frames in "
-                             f"{_refused_format(name)}: only planar 4:2:0, "
-                             f"4:2:2, 4:4:0, 4:4:4 and 4:0:0 of 8, 10 or 12 "
-                             f"bits are read (ROADMAP.md queue 1 item 4i)")
+            what = (f"bottom-up {name}" if packed else
+                    _refused_format(name))
+            raise ValueError(f"{self.codec} frames in {what}: only planar "
+                             f"4:2:0, 4:2:2, 4:4:0, 4:4:4 and 4:0:0 of 8, 10 "
+                             f"or 12 bits and top-down packed "
+                             f"{', '.join(PACKED_FORMATS)} are read "
+                             f"(ROADMAP.md queue 1 item 4i)")
         depth, full, chroma = taken
         self.colour = FrameColour(
             self._option("colorspace"),
             full or self._option("color_range") == AVCOL_RANGE_JPEG,
             self._option("chroma_sample_location"), depth,
             self._option("color_primaries"), self._option("color_trc"),
-            chroma)
+            chroma, packed)
         h = f.height
         rows = [h] if chroma is None else [h, *[-(-h >> chroma[1])] * 2]
         item = np.uint16 if depth > 8 else np.uint8

@@ -62,6 +62,7 @@ _SIGNATURES = {
                                              _I, _P, _P, _I, _P, _P, _I,
                                              "rule", _P, _P),
     "rtpose_gray_to_bgr": (_P, _I, _I, _I, _I, _I, _P, _P),
+    "rtpose_packed_to_bgr": (_P, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 

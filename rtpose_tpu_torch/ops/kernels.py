@@ -35,8 +35,10 @@ Three kernels carry the decode and one the training step's ground truth
   4:2:2 of an even height, unscaled), :func:`yuv_planar_general_to_bgr`
   and :func:`yuv_planar_full_chroma_to_bgr` (4:2:2, 4:4:0, 4:4:4 and
   12-bit 4:2:0 on swscale's scaling path) and :func:`gray_to_bgr`
-  (4:0:0); :func:`yuv420_frame_to_bgr` picks the one swscale's path at
-  the frame's chroma format, depth and size calls for
+  (4:0:0); :func:`packed_to_bgr` (``csrc/packed_to_bgr.cu``) packed RGB
+  (HuffYUV's bgr0, FFV1's bgra, raw bgr24 / rgb24: swscale's byte
+  shuffle); :func:`yuv420_frame_to_bgr` picks the one swscale's path at
+  the frame's format, chroma format, depth and size calls for
   (:func:`frame_route`).
 
 A wrapper given CPU tensors runs the plain PyTorch version beside it; given
@@ -49,11 +51,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..native.avcodec import PACKED_FORMATS as PACKED_BYTES
 from ..skeleton import (GROUP_PAIRS, GROUP_PAIRS_NET, LIMBS,
                         NUM_GROUP_PAIRS, NUM_LIMBS, NUM_PARTS,
                         NUM_SEED_PAIRS)
@@ -1198,7 +1201,8 @@ GENERAL_MIN_WIDTH, GENERAL_MIN_HEIGHT = 8, 9
 DEPTHS = (8, 10, 12)
 
 
-def frame_route(chroma, depth: int, height: int, width: int) -> str:
+def frame_route(chroma, depth: int, height: int, width: int,
+                packed: Optional[str] = None) -> str:
     """The path swscale (cv2 5.0's conversion of a decoded frame, its
     swscale graph's one legacy pass) takes from a `depth`-bit height x
     width picture of the chroma format `chroma` (a key of
@@ -1217,11 +1221,20 @@ def frame_route(chroma, depth: int, height: int, width: int) -> str:
       chroma, which swscale forces at an odd RGB width and for chroma it
       does not subsample (4:4:4): :func:`yuv420_full_chroma_to_bgr`,
       :func:`yuv_planar_full_chroma_to_bgr`;
-    - ``"gray"``: 4:0:0, luma alone (:func:`gray_to_bgr`).
+    - ``"gray"``: 4:0:0, luma alone (:func:`gray_to_bgr`);
+    - ``"packed"``: a packed RGB frame (`packed`, a key of
+      :data:`PACKED_BYTES`: bgr0, bgra, bgr24, rgb24), swscale's
+      unscaled packed-to-packed byte shuffle at any size
+      (:func:`packed_to_bgr`).
 
     Raises ValueError for another depth, and names a picture under
     GENERAL_MIN_HEIGHT rows or GENERAL_MIN_WIDTH columns on a scaling
     route (swscale's two-tap vertical path and narrow filters there)."""
+    if packed is not None:
+        if packed not in PACKED_BYTES:
+            raise ValueError(f"a packed {packed} picture: "
+                             f"{', '.join(PACKED_BYTES)} are converted")
+        return "packed"
     if depth not in DEPTHS or chroma not in CHROMA_NAMES:
         raise ValueError(f"a {depth}-bit {CHROMA_NAMES.get(chroma, chroma)}"
                          f" picture: 4:2:0, 4:2:2, 4:4:0, 4:4:4 and 4:0:0 "
@@ -1862,15 +1875,83 @@ def gray_to_bgr(y: torch.Tensor, *, width: int, depth: int,
 gray_to_bgr.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# csrc/packed_to_bgr.cu
+# ---------------------------------------------------------------------------
+
+# the packed RGB formats whose pixel holds R, G, B in that order (else B,
+# G, R); PACKED_BYTES, the decoder's formats, gives their bytes a pixel
+PACKED_SWAP = frozenset(["rgb24"])
+
+
+def _check_packed(name: str, frame, width: int, layout: str,
+                  rotation: int) -> int:
+    if rotation not in ROTATIONS:
+        raise ValueError(f"rotation {rotation} is not one of {ROTATIONS}")
+    if layout not in PACKED_BYTES:
+        raise ValueError(f"{name}: no packed format {layout!r} "
+                         f"({', '.join(PACKED_BYTES)} are converted)")
+    if (frame.dim() != 2 or width <= 0 or frame.shape[0] <= 0
+            or PACKED_BYTES[layout] * width > frame.shape[1]):
+        raise ValueError(f"{name}: a frame {tuple(frame.shape)} does not "
+                         f"hold a {layout} picture {width} pixels wide")
+    return frame.shape[0]
+
+
+def packed_to_bgr_plain(frame: torch.Tensor, *, width: int, layout: str,
+                        rotation: int = 0) -> torch.Tensor:
+    """The plain version of :func:`packed_to_bgr`: each pixel's B, G and
+    R bytes, picked out and turned."""
+    h = frame.shape[0]
+    n = PACKED_BYTES[layout]
+    px = frame[:, :n * width].reshape(h, width, n)
+    bgr = px[..., [2, 1, 0]] if layout in PACKED_SWAP else px[..., :3]
+    return _turn(bgr, rotation)
+
+
+def packed_to_bgr(frame: torch.Tensor, *, width: int, layout: str,
+                  rotation: int = 0) -> torch.Tensor:
+    """A packed RGB frame to ``(H', W', 3)`` uint8 BGR turned clockwise by
+    `rotation`, exactly as cv2's frames of it: swscale's unscaled
+    packed-to-packed conversion to bgr24 (``rgb32to24`` for ``bgr0`` and
+    ``bgra``, a copy for ``bgr24``, R and B swapped for ``rgb24``).
+
+    frame: (H, pitch) uint8, the picture's `layout` pixels (3 or 4 bytes,
+    :data:`PACKED_BYTES`) in the first bytes of each row; contiguous."""
+    h = _check_packed("packed_to_bgr", frame, width, layout, rotation)
+    if _route(frame) == "cpu":
+        return packed_to_bgr_plain(frame, width=width, layout=layout,
+                                   rotation=rotation)
+    dev = frame.device
+    _check("frame", frame, torch.uint8, 2, dev)
+    quarter = rotation in (90, 270)
+    out = torch.empty((width, h, 3) if quarter else (h, width, 3),
+                      dtype=torch.uint8, device=dev)
+    _launch("rtpose_packed_to_bgr", dev, frame.data_ptr(), frame.shape[1], h,
+            width, PACKED_BYTES[layout], int(layout in PACKED_SWAP),
+            rotation, out.data_ptr())
+    packed_to_bgr.launches += 1
+    return out
+
+
+packed_to_bgr.launches = 0
+
+
 def yuv420_frame_to_bgr(y: torch.Tensor, u, v, *, depth: int, width: int,
                         rotation: int = 0, rule: YuvRule = BT601_LIMITED,
                         chroma_location: int = 1,
-                        chroma=CHROMA_420) -> torch.Tensor:
+                        chroma=CHROMA_420,
+                        packed: Optional[str] = None) -> torch.Tensor:
     """A decoded frame's planes to BGR as cv2 converts it, for every
     chroma format (`chroma`: a key of :data:`CHROMA_NAMES`; u and v None
-    for 4:0:0) and depth: the kernel of the path swscale takes at its
-    format, depth and size (:func:`frame_route`)."""
-    route = frame_route(chroma, depth, y.shape[0], width)
+    for 4:0:0) and depth, and packed RGB (`packed`, a key of
+    :data:`PACKED_BYTES`: y the frame's one plane, u and v None): the
+    kernel of the path swscale takes at its format, depth and size
+    (:func:`frame_route`)."""
+    route = frame_route(chroma, depth, y.shape[0], width, packed)
+    if route == "packed":
+        return packed_to_bgr(y, width=width, layout=packed,
+                             rotation=rotation)
     if route == "gray":
         return gray_to_bgr(y, width=width, depth=depth, rotation=rotation)
     if route == "unscaled":
@@ -1893,7 +1974,7 @@ _COUNTED = (connection_scores, bicubic_refine, gt_maps, group_people,
             yuv420_to_bgr, yuv420p10_to_bgr, yuv420_general_to_bgr,
             yuv420_full_chroma_to_bgr, yuv422_to_bgr,
             yuv_planar_general_to_bgr, yuv_planar_full_chroma_to_bgr,
-            gray_to_bgr)
+            gray_to_bgr, packed_to_bgr)
 
 
 def reset_launch_counts() -> None:

@@ -3,7 +3,8 @@
 ``yuv420p10_to_bgr``, ``yuv420_general_to_bgr``,
 ``yuv420_full_chroma_to_bgr``; ``yuv422_to_bgr``,
 ``yuv_planar_general_to_bgr``, ``yuv_planar_full_chroma_to_bgr`` and
-``gray_to_bgr`` of the other chroma formats) on one CUDA card, at the
+``gray_to_bgr`` of the other chroma formats; ``packed_to_bgr`` of packed
+RGB) on one CUDA card, at the
 sizes users' video has, for one checkout of the repository, so that two
 checkouts can be compared in turns within one run (parent, change,
 change, parent):
@@ -21,8 +22,10 @@ at 479x640 and 1079x1920; the full-chroma one at 479x639 and 1079x1919,
 4:2:2 at 480x640, 1080x1920 and 2160x3840, 8-bit 4:4:0 at 1080x1920 and
 12-bit 4:2:0 at 2160x3840; the full-chroma planar one on 8-bit 4:4:4 at
 480x640, 1080x1920 and 2160x3840 and 10-bit 4:2:2 at 1080x1919; gray at
-480x640 (10-bit), 1080x1920 and 2160x3840 (8-bit); a checkout without a
-kernel skips it) and turn (0 and 90), on random planes made from a seed
+480x640 (10-bit), 1080x1920 and 2160x3840 (8-bit); packed bgr0 at
+480x640, 1080x1920 and 2160x3840 and bgr24 at 1080x1920; a checkout
+without a kernel skips it) and turn (0 and 90), on random planes made
+from a seed
 (chroma left, BT.709 limited at 8 bits, BT.2020 limited above): the
 largest difference from the plain version on the card (it must be 0),
 and the device ms a launch from ``torch.profiler`` over 200 launches,
@@ -68,7 +71,11 @@ ROUTES = {"yuv420_to_bgr": ((8, (480, 640)), (8, (1080, 1920))),
                                             (8, (2160, 3840), (0, 0)),
                                             (10, (1080, 1919), (1, 0))),
           "gray_to_bgr": ((10, (480, 640), None), (8, (1080, 1920), None),
-                          (8, (2160, 3840), None))}
+                          (8, (2160, 3840), None)),
+          # packed RGB: the frame's one plane, its format in chroma's place
+          "packed_to_bgr": ((8, (480, 640), "bgr0"), (8, (1080, 1920), "bgr0"),
+                            (8, (2160, 3840), "bgr0"),
+                            (8, (1080, 1920), "bgr24"))}
 
 
 def device_ms(fn, kernel: str, iters: int) -> float:
@@ -121,6 +128,14 @@ def _calls(kernels, name: str, depth: int, chroma=(1, 1)):
         def plain(y, **kw):
             kw.pop("rule")
             return kernels.gray_to_bgr_plain(y, depth=depth, **kw)
+    elif name == "packed_to_bgr":
+        def kernel(y, **kw):
+            kw.pop("rule")
+            return kernels.packed_to_bgr(y, layout=chroma, **kw)
+
+        def plain(y, **kw):
+            kw.pop("rule")
+            return kernels.packed_to_bgr_plain(y, layout=chroma, **kw)
     elif name == "yuv420_general_to_bgr":
         plain = functools.partial(kernels.general_to_bgr_plain, depth=8)
     elif name == "yuv420_full_chroma_to_bgr":
@@ -149,8 +164,10 @@ def colour_kernel_times(dev, routes=ROUTES) -> dict:
             convert, plain = _calls(kernels, name, depth, chroma)
             dtype = np.uint8 if depth == 8 else np.uint16
             rng = np.random.RandomState(h + depth)
-            shapes = [(h, w)] if chroma is None else [
-                (h, w), *[(-(-h >> chroma[1]), -(-w >> chroma[0]))] * 2]
+            packed = isinstance(chroma, str)
+            shapes = ([(h, kernels.PACKED_BYTES[chroma] * w)] if packed
+                      else [(h, w)] if chroma is None else [
+                (h, w), *[(-(-h >> chroma[1]), -(-w >> chroma[0]))] * 2])
             planes = [torch.from_numpy(rng.randint(0, 1 << depth, s)
                                        .astype(dtype)).to(dev)
                       for s in shapes]
@@ -179,8 +196,8 @@ def colour_kernel_times(dev, routes=ROUTES) -> dict:
                     device_ms_cold=cold_ms,
                     share_of_bound_warm=bound_ms / warm_ms,
                     share_of_bound_cold=bound_ms / cold_ms)
-            found.setdefault(name, {})[
-                f"{h}x{w} {depth}-bit {kernels.CHROMA_NAMES[chroma]}"] = entry
+            what = chroma if packed else kernels.CHROMA_NAMES[chroma]
+            found.setdefault(name, {})[f"{h}x{w} {depth}-bit {what}"] = entry
     del flush
     return found
 

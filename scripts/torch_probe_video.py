@@ -59,6 +59,14 @@
   (``mjpeg_files``: Pillow's 4:2:0, 4:2:2, 4:4:4 and gray JPEGs in AVI,
   MOV, MP4 and Matroska, without Huffman tables too) against the port's
   CPU read.
+- cv2's writer's codecs and ProRes (ROADMAP.md item 4j (c), (d),
+  ``cv2_writer``): whether the wheel's ``rawvideo``, ``msmpeg4v2``,
+  ``msmpeg4``, ``wmv1``, ``wmv2``, ``flv``, ``huffyuv``, ``ffvhuff``,
+  ``ffv1`` and ``prores`` decoders open and it has the ``prores``
+  encoder; where the machine has cv2, its frames, count and fps of the
+  files its own ``VideoWriter`` writes of each fourcc in AVI and Matroska
+  and of ProRes 422 / 4444 MOV and Matroska (``cv2_writer_files``)
+  against the port's CPU read.
 - AV1 (ROADMAP.md item 4f): every AV1 decoder the wheel's libavcodec
   registers (``av_codec_iterate``), what each makes of a scripted AV1
   still (``demo/scripted_video.py`` ``av1_still``: a temporal delimiter,
@@ -136,7 +144,10 @@ def probe_host() -> dict:
         out = {"library": avcodec.libraries().path}
     except (RuntimeError, OSError) as e:
         return {"library": None, "error": str(e)}
-    for name in avcodec.CODECS:
+    # the decoders that want a container's size or tag first are opened
+    # with them by probe_cv2_writer
+    for name in (c for c in avcodec.CODECS
+                 if c not in avcodec.CONTAINER_PARAMS):
         try:
             avcodec.Decoder(name).close()
             out[name] = "opens"
@@ -452,14 +463,16 @@ def pixel_format(chroma, depth: int) -> str:
 
 
 def swscale_bgr24(y, u, v, matrix: int, full: bool, location: int,
-                  depth=None):
+                  depth=None, packed=None):
     """The machine's libswscale on planar planes as cv2 5.0 sets it up
     (its swscale graph's one legacy pass): SWS_BICUBIC to bgr24 at the
     same size, the source chroma at `location` (an ``AVChromaLocation``)
     along each subsampled axis (swscale's default, -513, along the
     others), the frame's matrix and range.  The format follows from the
     planes: their chroma subsampling (u and v None: gray) and `depth`
-    (default 8 for uint8 planes, 10 for uint16).  -> (H, W, 3) uint8."""
+    (default 8 for uint8 planes, 10 for uint16); or it is `packed`, a
+    packed RGB format (``bgr0``, ``bgra``, ``bgr24``, ``rgb24``), `y` its
+    one plane, (H, W x bytes a pixel) uint8.  -> (H, W, 3) uint8."""
     import numpy as np
 
     sys.path.insert(0, ROOT)
@@ -471,6 +484,9 @@ def swscale_bgr24(y, u, v, matrix: int, full: bool, location: int,
         and kernels.chroma_shape(c, h, w) == u.shape)
     depth = depth or (8 if y.dtype == np.uint8 else 10)
     fmt = pixel_format(chroma, depth).encode()
+    if packed is not None:
+        w //= kernels.PACKED_BYTES[packed]
+        fmt = packed.encode()
     libs = encoder_libraries()
     sws, au = libs.swscale, libs.avutil
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -806,11 +822,106 @@ def probe_mjpeg_vp8() -> dict:
     return out
 
 
+# cv2's writer's fourccs (ROADMAP.md item 4j (c)) -> the decoder the port
+# reads each with, and ProRes profiles of demo/scripted_video.py's
+# write_prores (item 4j (d)) -> (input chroma, alpha plane)
+CV2_WRITER_FOURCCS = {"I420": "rawvideo", "IYUV": "rawvideo",
+                      "Y800": "rawvideo", "PIM1": "mpeg1video",
+                      "mpg2": "mpeg2video", "MP42": "msmpeg4v2",
+                      "DIV3": "msmpeg4", "WMV1": "wmv1", "WMV2": "wmv2",
+                      "FLV1": "flv", "FFVH": "ffvhuff", "HFYU": "huffyuv",
+                      "FFV1": "ffv1"}
+PRORES_FILES = {2: ((1, 0), False), 3: ((1, 0), False), 4: ((0, 0), True)}
+
+
+def cv2_writer_files(work: str, size=(48, 64), frames: int = 3) -> list:
+    """(name, path, decoder) of the files of item 4j (c) and (d), written
+    under `work`: each of :data:`CV2_WRITER_FOURCCS` by the machine's cv2
+    (rendered scenes) in AVI and Matroska, and ProRes 422 standard, HQ
+    and 4444 with alpha (:data:`PRORES_FILES`) in MOV and Matroska by the
+    wheel's encoder (needs no cv2)."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    h, w = size
+    out = []
+    for profile, (chroma, alpha) in PRORES_FILES.items():
+        planes = sv.yuv_frames10(frames, h, w, seed=profile, chroma=chroma)
+        if alpha:
+            planes = [(*p, np.full((h, w), 1023, np.uint16)) for p in planes]
+        for container in ("mov", "mkv"):
+            name = f"prores{profile}_{h}x{w}.{container}"
+            path = os.path.join(work, name)
+            sv.write_prores(path, planes, profile=profile,
+                            container=container)
+            out.append((name, path, "prores"))
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return out
+    for fourcc, codec in CV2_WRITER_FOURCCS.items():
+        for container in ("avi", "mkv"):
+            name = f"{fourcc}_{h}x{w}.{container}"
+            path = os.path.join(work, name)
+            sv.write_cv2_video(path, fourcc, frames, h, w)
+            out.append((name, path, codec))
+    return out
+
+
+def probe_cv2_writer() -> dict:
+    """cv2's writer's codecs and ProRes (ROADMAP.md item 4j (c), (d)):
+    whether the wheel's decoders of them open (``decoders``) and it has
+    the ``prores`` encoder (``prores_encoder``); where the machine has
+    cv2, its frames, count and fps of :func:`cv2_writer_files` against
+    the port's CPU read (``files``)."""
+    import tempfile
+
+    sys.path.insert(0, ROOT)
+    from rtpose_tpu_torch.native import avcodec
+    try:
+        libs = avcodec.libraries()
+    except (RuntimeError, OSError) as e:
+        return {"error": str(e)}
+    av = libs.avcodec
+    av.avcodec_find_encoder_by_name.restype = ctypes.c_void_p
+    av.avcodec_find_encoder_by_name.argtypes = [ctypes.c_char_p]
+    tags = {"rawvideo": b"I420", "prores": b"apcn"}
+
+    def opens(name):    # with what an AVI hands it: tag, size, bits
+        if not av.avcodec_find_decoder_by_name(name.encode()):
+            return "no such decoder"
+        try:
+            avcodec.Decoder(name, tag=tags.get(name, b""),
+                            params=avcodec.CodecParams(size=(64, 48),
+                                                       bits=24)).close()
+        except RuntimeError as e:
+            return str(e)
+        return "opens"
+
+    out = {"decoders": {name: opens(name)
+                        for name in sorted(avcodec.CONTAINER_PARAMS)},
+           "prores_encoder": bool(av.avcodec_find_encoder_by_name(
+               b"prores")), "files": {}}
+    try:
+        import cv2
+        out["cv2"] = cv2.__version__
+    except ImportError:
+        out["cv2"] = "no cv2 on this machine"
+        return out
+    with tempfile.TemporaryDirectory() as work:
+        for name, path, codec in cv2_writer_files(work):
+            out["files"][name] = {"codec": codec,
+                                  **against_cv2(path, props=True)}
+    return out
+
+
 def probe() -> dict:
     return {"nvdec": probe_nvdec(), "libavcodec": probe_host(),
             "writer": probe_writer(), "av1": probe_av1(),
             "colour": probe_colour(), "odd_sizes": probe_odd_sizes(),
-            "formats": probe_formats(), "mjpeg_vp8": probe_mjpeg_vp8()}
+            "formats": probe_formats(), "mjpeg_vp8": probe_mjpeg_vp8(),
+            "cv2_writer": probe_cv2_writer()}
 
 
 if __name__ == "__main__":

@@ -1961,3 +1961,63 @@ def test_chroma_fixtures_read_on_the_card_as_on_the_cpu(cuda):
         assert len(frames["cpu"]) == fixture.frames
         for a, b in zip(frames["cpu"], frames[str(cuda)]):
             np.testing.assert_array_equal(a, b)
+
+
+PACKED_SIZES = ((480, 640), (479, 639), (1080, 1920), (1, 1), (65, 66),
+                (33, 129))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotation", [0, 90, 180, 270])
+@pytest.mark.parametrize("size", PACKED_SIZES, ids=lambda s: "%dx%d" % s)
+@pytest.mark.parametrize("layout", list(kernels.PACKED_BYTES))
+def test_packed_kernel_matches_plain(cuda, layout, size, rotation):
+    """csrc/packed_to_bgr.cu against its plain version, error 0, on a
+    frame of a padded pitch whose base is off 16 bytes and on an aligned
+    one: one launch a call."""
+    h, w = size
+    n = kernels.PACKED_BYTES[layout]
+    for pad, offset in ((0, 0), (5, 1)):
+        rng = np.random.RandomState(h * w + pad)
+        frame = torch.from_numpy(rng.randint(0, 256, (h, n * w + pad))
+                                 .astype(np.uint8))
+        on_card = _at_offset([frame], offset, cuda)[0]
+        kernels.reset_launch_counts()
+        got = kernels.packed_to_bgr(on_card, width=w, layout=layout,
+                                    rotation=rotation)
+        assert kernels.launch_counts()["packed_to_bgr"] == 1
+        want = kernels.packed_to_bgr_plain(frame, width=w, layout=layout,
+                                           rotation=rotation)
+        assert torch.equal(got.cpu(), want), (pad, offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fourcc,container,kernel", [
+    ("FFV1", "avi", "packed_to_bgr"), ("HFYU", "mkv", "packed_to_bgr"),
+    ("I420", "avi", "yuv420_to_bgr"), ("WMV2", "mkv", "yuv420_to_bgr"),
+    ("prores", "mov", "yuv_planar_general_to_bgr")])
+def test_cv2_writer_files_read_on_the_card_as_on_the_cpu(cuda, tmp_path,
+                                                         fourcc, container,
+                                                         kernel):
+    """Files of cv2's writer (the machine's cv2) and a ProRes MOV read on
+    the card: the CPU's frames, one launch of the route's kernel a
+    frame."""
+    from rtpose_tpu_torch.demo import scripted_video as sv
+    from rtpose_tpu_torch.demo.video_io import open_video
+    path = str(tmp_path / f"v.{container}")
+    if fourcc == "prores":
+        sv.write_prores(path, sv.yuv_frames10(3, 48, 64, chroma=(1, 0)))
+    else:
+        sv.write_cv2_video(path, fourcc, 3, 48, 64)
+    frames = {}
+    for device in ("cpu", cuda):
+        kernels.reset_launch_counts()
+        cap = open_video(path, device=device)
+        frames[str(device)] = [f for ok, f in iter(cap.read, (False, None))]
+        cap.release()
+    counts = kernels.launch_counts()
+    assert counts[kernel] == 3 and sum(
+        counts[k] for k in (*PLANAR_KERNELS, "packed_to_bgr")) == 3, counts
+    assert len(frames["cpu"]) == 3
+    for a, b in zip(frames["cpu"], frames[str(cuda)]):
+        np.testing.assert_array_equal(a, b)

@@ -4,8 +4,8 @@ model family, trains a BatchNorm family, draws a loader batch in a worker
 process and a native loader batch, rotates a sample, answers the
 training CLI's --help, runs the picture and video demos, reads an H.264
 MP4, an H.264 TS, an HEVC program stream, an HEVC Main 10 MP4 tagged
-BT.2020 and a VP9 profile-2 WebM and answers an HTTP request without
-them, runs the webcam loop over a
+BT.2020, a VP9 profile-2 WebM, cv2's FFV1 AVI and a ProRes MOV and
+answers an HTTP request without them, runs the webcam loop over a
 scripted camera and serves its browser view, imports the workflow
 scripts (scripts/torch_*.py), renders a scene and soaks the decode without
 them, and its
@@ -22,6 +22,7 @@ import shutil
 import subprocess
 import sys
 
+import cv2
 import numpy as np
 import pytest
 
@@ -34,6 +35,7 @@ from rtpose_tpu.ops import peaks as jpeaks
 from rtpose_tpu.ops import resize as jresize
 from rtpose_tpu_torch import skeleton
 from rtpose_tpu_torch.data import gt as tgt
+from rtpose_tpu_torch.demo.scripted_video import write_prores, yuv_frames10
 from rtpose_tpu_torch.models.convert import torch_layout_map
 from rtpose_tpu_torch.ops import grouping_ref
 from rtpose_tpu_torch.ops.kernels import blur_matrices, interp_matrices
@@ -57,6 +59,7 @@ for m in mods:
 from rtpose_tpu_torch.infer.pipeline import load_pipeline
 from rtpose_tpu_torch.ops.decode import decode_poses, people_to_numpy
 maps = np.load(sys.argv[1])
+writer_files = sys.argv[2:4]        # cv2's FFV1 AVI, a ProRes MOV
 people = people_to_numpy(decode_poses(torch.from_numpy(maps["heat"]),
                                       torch.from_numpy(maps["paf"])),
                          368, 368)
@@ -156,8 +159,8 @@ with tempfile.TemporaryDirectory() as root:
                                   scripted_video.encode_hevc_pcm(
         planes10, depth=10, colour=scripted_video.Colour(9)))
     scripted_video.write_vp9(root + "/p2.webm", planes10)
-    for path in ("/main10.mp4", "/p2.webm"):
-        p10_cap = open_video(root + path, device="cpu")
+    for path in (root + "/main10.mp4", root + "/p2.webm", *writer_files):
+        p10_cap = open_video(path, device="cpu")
         while True:
             ok, f = p10_cap.read()
             if not ok:
@@ -243,8 +246,16 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
     _, heat, paf = synth_example(seed=1, n_people=3)
     maps = tmp_path / "maps.npz"
     np.savez(maps, heat=heat, paf=paf)
+    ffv1, prores = str(tmp_path / "ffv1.avi"), str(tmp_path / "prores.mov")
+    writer = cv2.VideoWriter(ffv1, cv2.CAP_FFMPEG,
+                             cv2.VideoWriter_fourcc(*"FFV1"), 10, (80, 60))
+    for i in range(3):
+        writer.write(np.full((60, 80, 3), 40 * i, np.uint8))
+    writer.release()
+    write_prores(prores, yuv_frames10(2, 60, 80, chroma=(1, 0)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", _CHILD, str(maps)], cwd=ROOT,
+    out = subprocess.run([sys.executable, "-c", _CHILD, str(maps), ffv1,
+                          prores], cwd=ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -287,7 +298,8 @@ def test_port_runs_without_jax_flax_cv2_or_the_jax_package(tmp_path):
     # turned by its tag; then the sizes of an M2TS's three frames
     assert res["mp4"] == [[80, 60, 3]] * 3 + [[80, 60]] * 3 + [
         ["hevc", 80, 60]] * 3 + [["hevc", 60, 80, 3]] * 2 + [
-        ["vp9", 60, 80, 3]] * 2
+        ["vp9", 60, 80, 3]] * 2 + [["ffv1", 60, 80, 3]] * 3 + [
+        ["prores", 60, 80, 3]] * 2
     assert res["http"] == [200, [60, 80]]
     assert res["webcam"] == [3, 200, True]
     assert res["native"] == {

@@ -276,9 +276,10 @@ def test_store_tile_writes_each_byte_of_a_row_once(head):
 
 def _colour_globals() -> dict:
     """{kernel name: source file} of every ``__global__`` of the colour
-    sources (``csrc/yuv*``), those a macro defines by the names it is
-    given."""
-    texts = {p.name: p.read_text() for p in sorted(CSRC.glob("yuv*.cu*"))}
+    sources (``csrc/yuv*``, ``csrc/packed_to_bgr.cu``), those a macro
+    defines by the names it is given."""
+    texts = {p.name: p.read_text() for p in sorted(
+        [*CSRC.glob("yuv*.cu*"), CSRC / "packed_to_bgr.cu"])}
     kernel = (r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
               r"(\w+)\s*\(")
     # a macro that defines a kernel: its parameters and the kernel's

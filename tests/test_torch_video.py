@@ -235,10 +235,27 @@ def _once_refused(tmp_path, kind):
     RExt pictures), Main 12 and 4:0:0 in MPEG-TS, cv2's MPEG-2 TS made
     4:2:2; VP8 in WebM and in an MP4 (``vp08``; committed
     fixtures), Motion-JPEG in MOV (``jpeg``), MP4 (``mp4v`` of object
-    type 0x6C) and Matroska (``V_MJPEG``)."""
+    type 0x6C) and Matroska (``V_MJPEG``); cv2's FFV1 and raw (``I420``,
+    ``V_UNCOMPRESSED``) Matroska, ProRes in MOV (``apcn``) and Matroska
+    (``V_PRORES``)."""
     from test_torch_mpegts import _cv2_ts
 
     from rtpose_tpu_torch.demo import scripted_video as sv
+    if kind in ("mkv_ffv1", "mkv_uncompressed"):
+        path = str(tmp_path / f"{kind}.mkv")
+        fourcc = "FFV1" if kind == "mkv_ffv1" else "I420"
+        writer = cv2.VideoWriter(path, cv2.CAP_FFMPEG,
+                                 cv2.VideoWriter_fourcc(*fourcc), 10,
+                                 (64, 48))
+        for f in _frames(3):
+            writer.write(f)
+        writer.release()
+        return path
+    if kind in ("mov_prores", "mkv_prores"):
+        path = str(tmp_path / f"{kind}.bin")
+        sv.write_prores(path, sv.yuv_frames10(3, 48, 64, chroma=(1, 0)),
+                        container=kind.split("_")[0])
+        return path
     if kind in ("webm_vp8", "mp4_vp08"):
         name = {"webm_vp8": "vp8_48x64.webm", "mp4_vp08": "vp8_48x64.mp4"}
         return sv.vp8_path(next(f for f in sv.VP8_FIXTURES
@@ -318,14 +335,18 @@ def _once_refused(tmp_path, kind):
                                   "vp09_12bit", "mp4_rext_422",
                                   "mkv_rext_444", "ts_main12", "ts_gray",
                                   "mpeg2_422", "webm_vp8", "mp4_vp08",
-                                  "mov_jpeg", "mp4_mjpeg", "mkv_mjpeg"])
+                                  "mov_jpeg", "mp4_mjpeg", "mkv_mjpeg",
+                                  "mkv_ffv1", "mkv_uncompressed",
+                                  "mov_prores", "mkv_prores"])
 def test_open_video_reads_what_it_refused(tmp_path, kind):
     """MPEG-TS (item 4b), fragmented MP4 and edit lists of several
     entries (item 4c), HEVC in Matroska, MPEG-TS and MP4 (item 4e), MPEG
     program streams (item 4g), HEVC Main 10 and VP9 profile 2 (item 4h),
     VP9 profiles 1 and 3, 12-bit VP9, HEVC RExt 4:2:2 / 4:4:4, Main 12,
-    4:0:0 and MPEG-2 4:2:2 (item 4i (d)), VP8 (item 4j (a)) and
-    Motion-JPEG outside AVI (item 4j (b)), once refused by name, read
+    4:0:0 and MPEG-2 4:2:2 (item 4i (d)), VP8 (item 4j (a)),
+    Motion-JPEG outside AVI (item 4j (b)), cv2's writer's codecs (item 4j
+    (c); tests/test_torch_cv2_writer.py has them all) and ProRes (item 4j
+    (d)), once refused by name, read
     frame for frame as cv2 reads them, with cv2's fps and frame count."""
     path = _once_refused(tmp_path, kind)
     want, (count, fps) = _read_cv2(path)
